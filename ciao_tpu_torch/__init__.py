@@ -1,0 +1,38 @@
+"""ciao_tpu_torch — the PyTorch/CUDA port of ciao_tpu.
+
+Finite-sum composite optimization, minimize (1/N) Σ f_i(x) + g(x), on an
+NVIDIA GPU. The JAX package ``ciao_tpu`` stays the reference: this
+package mirrors its module paths and names. Oracles and proxes are small
+``nn.Module``s holding their data as buffers, solver steps are plain
+functions on tensors, entry points take an explicit device, and every
+Pallas TPU kernel on a ported path is a hand-written Hopper kernel with
+a plain PyTorch version beside it (``ciao_tpu_torch.ops``).
+
+Ported so far: the SAGA headline path — ``LeastSquaresRows`` (f32, bf16
+and int8 rows), ``NormL1``/``Zero``, and block-sampled coefficient-table
+SAGA/SAG through the ``saga_coeff_multistep`` CUDA kernel. The rest is
+queued in ROADMAP.md. Imports torch and numpy, never jax.
+"""
+
+from ciao_tpu_torch import oracles, prox
+from ciao_tpu_torch.oracles import LeastSquaresRows
+from ciao_tpu_torch.prox import NormL1, Zero
+from ciao_tpu_torch.solvers import SAG, SAGA, halt, loop, solution, take
+from ciao_tpu_torch.solvers.base import Status
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "oracles",
+    "prox",
+    "LeastSquaresRows",
+    "NormL1",
+    "Zero",
+    "SAGA",
+    "SAG",
+    "Status",
+    "solution",
+    "take",
+    "loop",
+    "halt",
+]

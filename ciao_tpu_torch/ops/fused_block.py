@@ -1,0 +1,274 @@
+"""The SAGA coefficient-table kernel of the port, with its plain version.
+
+Counterpart of ``ciao_tpu/ops/fused_block.py``, cut to what the SAGA
+headline path runs: the oracle formula modes, the scalar constants, the
+kernel's gate, and ``saga_coeff_multistep`` — a hand-written CUDA kernel
+for Hopper (``csrc/saga_coeff_multistep.cu``) beside its plain PyTorch
+version ``saga_coeff_multistep_ref``. The other 18 TPU kernels of the
+JAX module are not ported yet (ROADMAP.md, queue 2).
+
+Layouts are flat: the coefficient table ``c``, the offsets ``b`` and the
+int8 dequant scales ``rs`` are ``(N,)``, the iterate ``z`` and the
+running average ``av`` are ``(n,)``. The TPU's ``(8, N/8)`` slab exists
+only for its VMEM tiling and has no meaning here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ciao_tpu_torch.ops import _build
+
+MODE_LSQ = 0       # c = scale·(a_i·z − b_i)        (least-squares rows)
+MODE_LOGISTIC = 1  # c = −y_i·σ(−y_i·a_i·z)          (logistic rows)
+MODE_HUBER = 2     # c = scale·clip(a_i·z − b_i, ±δ) (Huber rows; aux = δ)
+MODE_SQHINGE = 3   # c = −scale·y_i·max(0, 1 − y_i·a_i·z)  (smooth SVM)
+MODE_POISSON = 4   # c = scale·(exp(min(m, M)) − y_i)  (Poisson GLM, log link)
+
+# Poisson link safeguard: beyond margin M the exponential is extended
+# linearly (value) / frozen (coefficient), so exp never overflows f32.
+POISSON_CLAMP = 30.0
+
+# Shared memory a Hopper CTA may use (227 KB, opted in above 48 KB). A CTA
+# of the row phase stages its R rows, z and four values per row there.
+SMEM_BYTES = 232_448
+# Widest row the kernel takes: one f32 row, z and a coefficient fit with
+# room to spare.
+MAX_COLS = 16_384
+
+_STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _coeff_formula(mode, r, b_t, scale, aux=0.0):
+    """Per-row coefficient c_i from the (dequantized) margin ``r`` for
+    every oracle mode; ``mode`` may be a tensor (the scalars row)."""
+    mode = torch.as_tensor(mode, device=r.device)
+    c_lsq = scale * (r - b_t)
+    c_log = -b_t * torch.sigmoid(-b_t * r)
+    # Huber: clip(scale·(r−b), ±scale·δ) ≡ scale·clip(r−b, ±δ)
+    c_hub = torch.clamp(c_lsq, -scale * aux, scale * aux)
+    c_sqh = -scale * b_t * torch.clamp(1.0 - b_t * r, min=0.0)
+    c_poi = scale * (torch.exp(torch.clamp(r, max=POISSON_CLAMP)) - b_t)
+    return torch.where(
+        mode == MODE_LSQ, c_lsq,
+        torch.where(mode == MODE_LOGISTIC, c_log,
+                    torch.where(mode == MODE_HUBER, c_hub,
+                                torch.where(mode == MODE_SQHINGE, c_sqh,
+                                            c_poi))))
+
+
+def oracle_scalar_consts(F, g):
+    """(scale, mode, lam, aux) of the kernel's scalars row, as f32
+    tensors on the oracle's device (``lam`` keeps the prox's dtype)."""
+    dev = F.coeff_rows_data()[0].device
+    f32 = dict(dtype=torch.float32, device=dev)
+    scale = torch.as_tensor(getattr(F, "scale", 1.0), **f32)
+    mode = torch.tensor(float(F.coeff_mode), **f32)
+    lam = getattr(g, "lam", None)
+    lam = torch.zeros((), **f32) if lam is None else lam.to(dev)
+    aux = torch.as_tensor(getattr(F, "delta", 0.0), **f32)
+    return scale, mode, lam, aux
+
+
+def saga_multistep_available(F, g, x0, B: int) -> bool:
+    """Gate of the CUDA kernel: iterate and oracle rows on one CUDA
+    device, f32 iterates, whole blocks (N % B == 0), a dense-rows oracle
+    (``coeff_rows_data``) with f32 offsets, and an in-kernel prox
+    (``NormL1`` or ``Zero``). No VMEM or lane rule carries over from the
+    TPU kernel; the one shape limit is ``n <= MAX_COLS``."""
+    from ciao_tpu_torch.prox import NormL1, Zero
+
+    if not (hasattr(F, "coeff_rows_data") and isinstance(g, (NormL1, Zero))):
+        return False
+    A, b = F.coeff_rows_data()
+    N, n = A.shape
+    return (
+        x0.device.type == "cuda"
+        and A.device == x0.device
+        and x0.dtype == torch.float32
+        and A.dtype in _STORAGE_CODES
+        and b.dtype == torch.float32
+        and N % B == 0
+        and n <= MAX_COLS
+    )
+
+
+def _smem_bytes(rows: int, n: int, itemsize: int) -> int:
+    """Dynamic shared memory of one row-phase CTA (``run_steps`` in the
+    CUDA source): the row tile rounded up to 16 bytes, then z and four
+    f32 values per row (Δc, b, c_old, rs)."""
+    return -(-rows * n * itemsize // 16) * 16 + 4 * (n + 4 * rows)
+
+
+def _rows_per_cta(B: int, n: int, itemsize: int) -> int:
+    """Rows of the block each CTA of the row phase takes: the largest
+    power of two up to 32 that divides B and whose tile fits in shared
+    memory (32 at the headline B = 4096, n = 1024: 128 CTAs, about one
+    per SM, with a 128 KB f32 tile)."""
+    r = 32
+    while B % r or _smem_bytes(r, n, itemsize) > SMEM_BYTES:
+        r //= 2
+    return r
+
+
+def _lowp(A, precision: str) -> bool:
+    """Whether both dot operands round to bf16 (the Pallas kernel's
+    ``_stream_dot``): always for bf16 or int8 rows, and for f32 rows at
+    ``precision="default"``."""
+    if precision not in ("highest", "default"):
+        raise ValueError(f"precision must be 'highest' or 'default', "
+                         f"not {precision!r}")
+    return A.dtype != torch.float32 or precision == "default"
+
+
+def _bf16_round(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def saga_coeff_multistep_ref(A, b, starts, c, z, av, scalars, B: int,
+                             precision: str = "highest", rs=None,
+                             wgts=None):
+    """Plain PyTorch version of :func:`saga_coeff_multistep`: the same
+    K steps as a Python loop of tensor ops, with the same bf16 roundings.
+    Updates ``c``, ``z`` and ``av`` in place and returns them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lowp = _lowp(A, precision)
+    scale, gamma, thr, invB, invN, sag, mode, aux = scalars.unbind()
+    ar = torch.arange(B, device=A.device)
+    for k in range(starts.shape[0]):
+        idx = starts[k].long() + ar
+        A_t = A.index_select(0, idx).to(torch.float32)
+        zq = z
+        if lowp:
+            A_t = _bf16_round(A_t)
+            zq = _bf16_round(z)
+        r = A_t @ zq
+        rs_t = None if rs is None else rs[idx]
+        if rs_t is not None:
+            r = r * rs_t
+        c_new = _coeff_formula(mode, r, b[idx], scale, aux)
+        dc = c_new - c[idx]
+        c.index_copy_(0, idx, c_new)
+        if rs_t is not None:
+            dc = dc * rs_t
+        if lowp:
+            dc = _bf16_round(dc)
+        innov = dc @ A_t
+        av_new = av + innov * invN
+        wgt = 1.0 if wgts is None else wgts[k]
+        # SAG refreshes the average before the direction (biased), SAGA
+        # after (unbiased)
+        w = torch.where(sag > 0, z - gamma * av_new,
+                        z - gamma * (innov * (wgt * invB) + av))
+        av.copy_(av_new)
+        z.copy_(torch.sign(w) * torch.clamp(w.abs() - thr, min=0.0))
+    return c, z, av
+
+
+def _kernel():
+    lib = _build.load("saga_coeff_multistep")
+    fn = lib.saga_coeff_multistep_launch
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
+        fn.restype = I
+    return fn
+
+
+def _check(name, t, dtype, shape, dev):
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, the rows on {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, not {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def saga_coeff_multistep(A, b, starts, c, z, av, scalars, B: int,
+                         precision: str = "highest", rs=None, wgts=None):
+    """K = len(starts) SAGA/SAG coefficient-table block steps.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:saga_coeff_multistep``. Step k takes
+    the block [starts[k], starts[k] + B) of the rows ``A`` (N, n), stored
+    f32, bf16 or int8 (then ``rs`` holds the (N,) f32 dequant scales),
+    refreshes its coefficients in ``c`` (N,), adds the innovation
+    Σ Δc_i·a_i to the running average ``av`` (n,), takes the SAGA or SAG
+    direction — scaled by ``wgts[k]`` when given — and soft-thresholds
+    ``z`` (n,) by γλ. ``scalars`` is the (8,) f32 row [scale, γ, γλ, 1/B,
+    1/N, sag, mode, aux]. ``c``, ``z`` and ``av`` are updated in place
+    (the Pallas kernel aliases its table the same way) and returned.
+
+    CPU tensors take the plain version :func:`saga_coeff_multistep_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    On an H100 the step is bound by bytes: it must read the block's rows,
+    B·n·itemsize bytes — 16 MB f32, 4 MB int8 at the headline B = 4096,
+    n = 1024 — for 4·B·n flops. A TPU grid runs in order and carries z
+    and av between steps in VMEM; CUDA blocks do not, and step k+1's
+    margins need z after step k's prox, which needs the whole block's
+    reduction. So each step is two launches on one stream, queued from
+    the host with no sync. The row phase runs B/R CTAs (R = 32 rows at
+    the headline: 128 CTAs for 132 SMs); each copies its R contiguous
+    rows into shared memory with every 16-byte load in flight, so the
+    rows leave device memory once, and from there computes the margins,
+    the formula, the table write and a partial innovation. The finish
+    phase sums the partials in a fixed order (no atomics, so runs repeat
+    bit for bit) and applies the average, the direction and the prox. A
+    persistent kernel or a CUDA graph, which would remove the per-step
+    launch cost, is later work.
+    """
+    if A.device.type == "cpu":
+        return saga_coeff_multistep_ref(A, b, starts, c, z, av, scalars, B,
+                                        precision=precision, rs=rs,
+                                        wgts=wgts)
+    if A.device.type != "cuda":
+        raise ValueError(f"saga_coeff_multistep: no kernel for {A.device}")
+    N, n = A.shape
+    K = starts.shape[0]
+    if A.dtype not in _STORAGE_CODES:
+        raise TypeError(f"rows must be f32, bf16 or int8, not {A.dtype}")
+    if (A.dtype == torch.int8) != (rs is not None):
+        raise ValueError("rs is required iff the rows are int8")
+    if N % B or K < 1 or n > MAX_COLS:
+        raise ValueError(f"bad shape: N={N}, n={n}, B={B}, K={K}")
+    if not A.is_contiguous():
+        raise ValueError("A must be contiguous")
+    dev = A.device
+    f32 = torch.float32
+    _check("b", b, f32, (N,), dev)
+    _check("c", c, f32, (N,), dev)
+    _check("z", z, f32, (n,), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("scalars", scalars, f32, (8,), dev)
+    _check("starts", starts, torch.int32, (K,), dev)
+    if rs is not None:
+        _check("rs", rs, f32, (N,), dev)
+    if wgts is not None:
+        _check("wgts", wgts, f32, (K,), dev)
+    lowp = _lowp(A, precision)
+    rows = _rows_per_cta(B, n, A.element_size())
+    part = torch.empty((B // rows, n), dtype=f32, device=dev)
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(A.data_ptr(), _STORAGE_CODES[A.dtype], int(lowp),
+                 b.data_ptr(), None if rs is None else rs.data_ptr(),
+                 c.data_ptr(), z.data_ptr(), av.data_ptr(),
+                 starts.data_ptr(),
+                 None if wgts is None else wgts.data_ptr(),
+                 scalars.data_ptr(), part.data_ptr(), n, B, rows, K, stream)
+    if err != 0:
+        raise RuntimeError(f"saga_coeff_multistep kernel launch failed: "
+                           f"CUDA error {err}")
+    saga_coeff_multistep.launches += 1
+    return c, z, av
+
+
+# Launches of the CUDA kernel (one per wrapper call that reaches it).
+saga_coeff_multistep.launches = 0

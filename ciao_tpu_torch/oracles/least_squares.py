@@ -1,0 +1,140 @@
+"""Row-wise least-squares oracle.
+
+Counterpart of ``ciao_tpu/oracles/least_squares.py`` for real rows:
+
+    f_i(x) = (scale / 2) * |<a_i, x> - b_i|^2
+    grad f_i(x) = scale * a_i * (<a_i, x> - b_i)
+
+stored as ONE stacked matrix ``A (N, n)``. Storage modes
+(``with_storage``): f32, bf16 rows (half the traffic) and int8 rows with
+per-row symmetric scales (a quarter). With quantized rows every path
+computes exactly with the perturbed operator Ã = diag(row_scale)·Q, and
+the per-row scale is applied to the row products, never to a dense
+dequantized A. Narrow rows are widened to the iterate's dtype inside each
+product, as JAX's type promotion does.
+
+Not ported yet: complex rows, the full-table (N, n) paths and the
+Point-SAGA pieces (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ciao_tpu_torch.oracles.base import (
+    SmoothOracle, parse_storage_dtype, quantize_rows,
+)
+
+
+class LeastSquaresRows(SmoothOracle):
+    supports_coeff = True
+    coeff_mode = 0  # ops.fused_block.MODE_LSQ
+
+    def __init__(self, A, b, scale, row_scale=None):
+        super().__init__()
+        if A.is_complex():
+            raise NotImplementedError(
+                "complex rows are not ported yet (ROADMAP.md, queue 1)")
+        self.register_buffer("A", A)
+        self.register_buffer("b", b)
+        self.register_buffer(
+            "scale", torch.as_tensor(scale, dtype=b.dtype, device=b.device)
+            if not isinstance(scale, torch.Tensor) else scale)
+        self.register_buffer("row_scale", row_scale)
+
+    @property
+    def num_terms(self) -> int:
+        return self.A.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.A.shape[1]
+
+    def with_storage(self, dtype=torch.bfloat16):
+        """Copy with the data rows STORED in ``dtype`` (f32, bf16, or
+        int8 via symmetric per-row quantization ``a_i ≈ row_scale_i·q_i``).
+        Solver state and iterates stay f32 either way."""
+        dtype = parse_storage_dtype(dtype)
+        if self.row_scale is not None:
+            raise ValueError("rows are already int8-quantized")
+        if dtype == torch.int8:
+            q, rs = quantize_rows(self.A)
+            return LeastSquaresRows(q, self.b, self.scale, row_scale=rs)
+        return LeastSquaresRows(self.A.to(dtype), self.b, self.scale)
+
+    def _rows(self, A_B, dtype):
+        return A_B if A_B.dtype == dtype else A_B.to(dtype)
+
+    def value_and_grad_all(self, x):
+        if self.row_scale is not None:
+            Ad = self.A.to(x.dtype) * self.row_scale[:, None]
+        else:
+            Ad = self._rows(self.A, x.dtype)
+        r = Ad @ x - self.b
+        vals = 0.5 * self.scale * (r * r)
+        return vals, self.scale * Ad * r[:, None]
+
+    # ---- contiguous blocks: a view for a host start, a gather for a
+    # device start (no host sync) ---------------------------------------
+    def _block_index(self, start, size: int):
+        start = torch.as_tensor(start, device=self.A.device)
+        return start.long() + torch.arange(size, device=self.A.device)
+
+    def _slice(self, start, size: int):
+        if isinstance(start, int):
+            return (self.A.narrow(0, start, size),
+                    self.b.narrow(0, start, size),
+                    None if self.row_scale is None
+                    else self.row_scale.narrow(0, start, size))
+        idx = self._block_index(start, size)
+        return self._gather(idx)
+
+    def _gather(self, idx):
+        return (self.A.index_select(0, idx), self.b[idx],
+                None if self.row_scale is None else self.row_scale[idx])
+
+    # ---- coefficient (rank-1) gradient structure ---------------------
+    # grad f_i(x) = c_i(x) · a_i with SCALAR c_i = scale·(a_i·x − b_i):
+    # an (N,) coefficient vector is an exact compression of the (N, n)
+    # gradient table.
+
+    def coeff_rows_data(self):
+        """(rows, offsets) consumed by the multistep kernel."""
+        return self.A, self.b
+
+    def coeff_rows_scale(self):
+        """(N,) per-row dequant scales for int8 rows; None otherwise."""
+        return self.row_scale
+
+    def _coeff(self, A_B, b_B, rs_B, x):
+        m = self._rows(A_B, x.dtype) @ x
+        if rs_B is not None:
+            m = m * rs_B
+        return self.scale * (m - b_B)
+
+    def _combine(self, w, A_B, rs_B):
+        if rs_B is not None:
+            w = w * rs_B
+        return w @ self._rows(A_B, w.dtype)
+
+    def coeff_batch(self, x, idx):
+        """c_i(x) for i in idx."""
+        return self._coeff(*self._gather(idx), x)
+
+    def coeff_block(self, x, start, size: int):
+        return self._coeff(*self._slice(start, size), x)
+
+    def coeff_all(self, x):
+        return self._coeff(self.A, self.b, self.row_scale, x)
+
+    def apply_rows(self, w, idx):
+        """Σ_i w_i · a_i over i in idx (the table-delta matvec)."""
+        A_B, _, rs_B = self._gather(idx)
+        return self._combine(w, A_B, rs_B)
+
+    def apply_rows_block(self, w, start, size: int):
+        A_B, _, rs_B = self._slice(start, size)
+        return self._combine(w, A_B, rs_B)
+
+    def apply_all(self, w):
+        return self._combine(w, self.A, self.row_scale)
