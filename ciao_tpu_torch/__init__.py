@@ -10,14 +10,22 @@ a plain PyTorch version beside it (``ciao_tpu_torch.ops``).
 
 Ported so far: the SAGA headline path — ``LeastSquaresRows`` (f32, bf16
 and int8 rows), ``NormL1``/``Zero``, and block-sampled coefficient-table
-SAGA/SAG through the ``saga_coeff_multistep`` CUDA kernel. The rest is
-queued in ROADMAP.md. Imports torch and numpy, never jax.
+SAGA/SAG, uniform or importance-sampled, through the
+``saga_coeff_multistep`` (N ≤ 1M) and ``saga_coeff_multistep_streamed``
+(any N) CUDA kernels — and the deep-accuracy path: ``staged_saga``,
+the compensated ``fista_polish`` with ``power_lmax``, and
+``deep_solve``. The rest is queued in ROADMAP.md. Imports torch and
+numpy, never jax.
 """
 
 from ciao_tpu_torch import oracles, prox
 from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.prox import NormL1, Zero
-from ciao_tpu_torch.solvers import SAG, SAGA, halt, loop, solution, take
+from ciao_tpu_torch.solvers import (
+    SAG, SAGA, DeepSolveInfo, StagedInfo, deep_solve, fista_polish,
+    grad_mean_chunked, halt, loop, lsq_power_lmax, power_lmax, solution,
+    staged_saga, take,
+)
 from ciao_tpu_torch.solvers.base import Status
 
 __version__ = "0.1.0"
@@ -30,6 +38,14 @@ __all__ = [
     "Zero",
     "SAGA",
     "SAG",
+    "deep_solve",
+    "DeepSolveInfo",
+    "staged_saga",
+    "StagedInfo",
+    "fista_polish",
+    "power_lmax",
+    "lsq_power_lmax",
+    "grad_mean_chunked",
     "Status",
     "solution",
     "take",

@@ -37,15 +37,18 @@ def least_squares_from_numpy(A, b, scale, row_scale=None,
 
 
 def saga_state_from_numpy(s, z, av, gamma, it, seed: int = 0,
-                          device="cpu") -> SAGAState:
+                          device="cpu", qcum=None, qinv=None) -> SAGAState:
     """``SAGAState`` from the JAX state's ``s``, ``z``, ``av``, ``gamma``
-    and ``it``. A coefficient table in the TPU's (8, N/8) slab layout is
-    flattened row-major, which is its natural order (c_i at
-    (i // (N/8), i % (N/8)))."""
+    and ``it`` (and, under importance sampling, ``qcum`` and ``qinv``).
+    A coefficient table in the TPU's (8, N/8) slab layout is flattened
+    row-major, which is its natural order (c_i at (i // (N/8),
+    i % (N/8))); the streamed route's table is (N,) already."""
     return SAGAState(
         s=tensor_from_numpy(np.asarray(s).reshape(-1), device),
         gamma=tensor_from_numpy(gamma, device),
         av=tensor_from_numpy(np.asarray(av).reshape(-1), device),
         z=tensor_from_numpy(np.asarray(z).reshape(-1), device),
         seed=int(seed), it=int(it), status=int(Status.RUNNING),
+        qcum=None if qcum is None else tensor_from_numpy(qcum, device),
+        qinv=None if qinv is None else tensor_from_numpy(qinv, device),
     )

@@ -2,9 +2,10 @@
 
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``ciao_tpu_torch/_build/`` at first use. The library's name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded. Nothing here runs at import time, and
+``ciao_tpu_torch/_build/`` at first use; device code shared by several
+kernels lives in ``csrc/*.cuh`` headers. The library's name carries a
+hash of the source, the headers and the flags, so an edited source is
+rebuilt and a stale library is never loaded. Nothing here runs at import time, and
 nothing is built on a machine without ``nvcc``: :func:`load` raises.
 """
 
@@ -56,9 +57,10 @@ def build(name: str) -> Path:
     returns the library's path. The compiler's report (registers, shared
     memory, spills from ``-Xptxas -v``) is kept beside it as ``.log``."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib

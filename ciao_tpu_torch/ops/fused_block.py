@@ -1,11 +1,13 @@
-"""The SAGA coefficient-table kernel of the port, with its plain version.
+"""The SAGA coefficient-table kernels of the port, with their plain versions.
 
 Counterpart of ``ciao_tpu/ops/fused_block.py``, cut to what the SAGA
-headline path runs: the oracle formula modes, the scalar constants, the
-kernel's gate, and ``saga_coeff_multistep`` — a hand-written CUDA kernel
-for Hopper (``csrc/saga_coeff_multistep.cu``) beside its plain PyTorch
-version ``saga_coeff_multistep_ref``. The other 18 TPU kernels of the
-JAX module are not ported yet (ROADMAP.md, queue 2).
+headline and deep paths run: the oracle formula modes, the scalar
+constants, the kernels' gates, and two hand-written CUDA kernels for
+Hopper beside their plain PyTorch versions — ``saga_coeff_multistep``
+(``csrc/saga_coeff_multistep.cu``) and ``saga_coeff_multistep_streamed``
+(``csrc/saga_coeff_multistep_streamed.cu``), which share their device
+code (``csrc/saga_steps.cuh``). The other 17 TPU kernels of the JAX
+module are not ported yet (ROADMAP.md, queue 2).
 
 Layouts are flat: the coefficient table ``c``, the offsets ``b`` and the
 int8 dequant scales ``rs`` are ``(N,)``, the iterate ``z`` and the
@@ -19,6 +21,7 @@ import ctypes
 
 import torch
 
+from ciao_tpu_torch import runtime
 from ciao_tpu_torch.ops import _build
 
 MODE_LSQ = 0       # c = scale·(a_i·z − b_i)        (least-squares rows)
@@ -95,6 +98,14 @@ def saga_multistep_available(F, g, x0, B: int) -> bool:
     )
 
 
+def saga_multistep_streamed_available(F, g, x0, B: int) -> bool:
+    """Gate of the streamed kernel: that of :func:`saga_multistep_available`.
+    The JAX gate's block minimum (d ≥ 64, for its birthday clamp) and row
+    cap have no counterpart: the port does not clamp, and the table is a
+    flat (N,) tensor in device memory."""
+    return saga_multistep_available(F, g, x0, B)
+
+
 def _smem_bytes(rows: int, n: int, itemsize: int) -> int:
     """Dynamic shared memory of one row-phase CTA (``run_steps`` in the
     CUDA source): the row tile rounded up to 16 bytes, then z and four
@@ -132,8 +143,9 @@ def saga_coeff_multistep_ref(A, b, starts, c, z, av, scalars, B: int,
                              wgts=None):
     """Plain PyTorch version of :func:`saga_coeff_multistep`: the same
     K steps as a Python loop of tensor ops, with the same bf16 roundings.
-    Updates ``c``, ``z`` and ``av`` in place and returns them."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    Updates ``c``, ``z`` and ``av`` in place and returns them. On the
+    card it needs exact f32 products, which it checks and does not set."""
+    runtime.require_exact_f32_matmul(A.device, "saga_coeff_multistep_ref")
     lowp = _lowp(A, precision)
     scale, gamma, thr, invB, invN, sag, mode, aux = scalars.unbind()
     ar = torch.arange(B, device=A.device)
@@ -167,13 +179,33 @@ def saga_coeff_multistep_ref(A, b, starts, c, z, av, scalars, B: int,
     return c, z, av
 
 
-def _kernel():
-    lib = _build.load("saga_coeff_multistep")
-    fn = lib.saga_coeff_multistep_launch
+def saga_coeff_multistep_streamed_ref(A, b, starts, c, z, av, scalars,
+                                      B: int, precision: str = "highest",
+                                      rs=None, wgts=None, f=None):
+    """Plain PyTorch version of :func:`saga_coeff_multistep_streamed`: the
+    first ``f`` of the K steps of :func:`saga_coeff_multistep_ref` (all K
+    when ``f`` is None); the masked steps k >= f leave c, z and av as
+    they are. Reads ``f`` on the host."""
+    live = starts.shape[0] if f is None else min(starts.shape[0], int(f))
+    return saga_coeff_multistep_ref(
+        A, b, starts[:live], c, z, av, scalars, B, precision=precision,
+        rs=rs, wgts=None if wgts is None else wgts[:live])
+
+
+_ARGTYPES = {
+    # A, storage, lowp, b, rs, c, z, av, starts, wgts, [f,] sc, part,
+    # n, B, rows, K, stream
+    "saga_coeff_multistep": "PIIPPPPPPPPPIIIIP",
+    "saga_coeff_multistep_streamed": "PIIPPPPPPPPPPIIIIP",
+}
+
+
+def _kernel(name: str):
+    fn = getattr(_build.load(name), f"{name}_launch")
     if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
-        fn.restype = I
+        kinds = {"P": ctypes.c_void_p, "I": ctypes.c_int}
+        fn.argtypes = [kinds[k] for k in _ARGTYPES[name]]
+        fn.restype = ctypes.c_int
     return fn
 
 
@@ -187,6 +219,50 @@ def _check(name, t, dtype, shape, dev):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(name, A, b, starts, c, z, av, scalars, B, precision, rs, wgts,
+            fclamp=()):
+    """Check the arguments of a kernel of ``saga_steps.cuh`` and queue its
+    2K launches on the current stream. ``fclamp`` is the streamed kernel's
+    extra argument, its clamp count's pointer (or None)."""
+    N, n = A.shape
+    K = starts.shape[0]
+    if A.dtype not in _STORAGE_CODES:
+        raise TypeError(f"rows must be f32, bf16 or int8, not {A.dtype}")
+    if (A.dtype == torch.int8) != (rs is not None):
+        raise ValueError("rs is required iff the rows are int8")
+    # block starts are int32 on the device; row offsets are 64-bit there
+    if N % B or K < 1 or n > MAX_COLS or N >= 2**31:
+        raise ValueError(f"bad shape: N={N}, n={n}, B={B}, K={K}")
+    if not A.is_contiguous():
+        raise ValueError("A must be contiguous")
+    dev = A.device
+    f32 = torch.float32
+    _check("b", b, f32, (N,), dev)
+    _check("c", c, f32, (N,), dev)
+    _check("z", z, f32, (n,), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("scalars", scalars, f32, (8,), dev)
+    _check("starts", starts, torch.int32, (K,), dev)
+    if rs is not None:
+        _check("rs", rs, f32, (N,), dev)
+    if wgts is not None:
+        _check("wgts", wgts, f32, (K,), dev)
+    lowp = _lowp(A, precision)
+    rows = _rows_per_cta(B, n, A.element_size())
+    part = torch.empty((B // rows, n), dtype=f32, device=dev)
+    fn = _kernel(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(A.data_ptr(), _STORAGE_CODES[A.dtype], int(lowp),
+                 b.data_ptr(), None if rs is None else rs.data_ptr(),
+                 c.data_ptr(), z.data_ptr(), av.data_ptr(),
+                 starts.data_ptr(),
+                 None if wgts is None else wgts.data_ptr(), *fclamp,
+                 scalars.data_ptr(), part.data_ptr(), n, B, rows, K, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def saga_coeff_multistep(A, b, starts, c, z, av, scalars, B: int,
@@ -229,46 +305,72 @@ def saga_coeff_multistep(A, b, starts, c, z, av, scalars, B: int,
                                         wgts=wgts)
     if A.device.type != "cuda":
         raise ValueError(f"saga_coeff_multistep: no kernel for {A.device}")
-    N, n = A.shape
-    K = starts.shape[0]
-    if A.dtype not in _STORAGE_CODES:
-        raise TypeError(f"rows must be f32, bf16 or int8, not {A.dtype}")
-    if (A.dtype == torch.int8) != (rs is not None):
-        raise ValueError("rs is required iff the rows are int8")
-    if N % B or K < 1 or n > MAX_COLS:
-        raise ValueError(f"bad shape: N={N}, n={n}, B={B}, K={K}")
-    if not A.is_contiguous():
-        raise ValueError("A must be contiguous")
-    dev = A.device
-    f32 = torch.float32
-    _check("b", b, f32, (N,), dev)
-    _check("c", c, f32, (N,), dev)
-    _check("z", z, f32, (n,), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("scalars", scalars, f32, (8,), dev)
-    _check("starts", starts, torch.int32, (K,), dev)
-    if rs is not None:
-        _check("rs", rs, f32, (N,), dev)
-    if wgts is not None:
-        _check("wgts", wgts, f32, (K,), dev)
-    lowp = _lowp(A, precision)
-    rows = _rows_per_cta(B, n, A.element_size())
-    part = torch.empty((B // rows, n), dtype=f32, device=dev)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(A.data_ptr(), _STORAGE_CODES[A.dtype], int(lowp),
-                 b.data_ptr(), None if rs is None else rs.data_ptr(),
-                 c.data_ptr(), z.data_ptr(), av.data_ptr(),
-                 starts.data_ptr(),
-                 None if wgts is None else wgts.data_ptr(),
-                 scalars.data_ptr(), part.data_ptr(), n, B, rows, K, stream)
-    if err != 0:
-        raise RuntimeError(f"saga_coeff_multistep kernel launch failed: "
-                           f"CUDA error {err}")
+    _launch("saga_coeff_multistep", A, b, starts, c, z, av, scalars, B,
+            precision, rs, wgts)
     saga_coeff_multistep.launches += 1
+    saga_coeff_multistep.weighted_launches += wgts is not None
     return c, z, av
 
 
-# Launches of the CUDA kernel (one per wrapper call that reaches it).
+def saga_coeff_multistep_streamed(A, b, starts, c, z, av, scalars, B: int,
+                                  precision: str = "highest", rs=None,
+                                  wgts=None, f=None):
+    """K = len(starts) SAGA/SAG coefficient-table block steps for any N,
+    with the steps k ≥ ``f`` masked.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:saga_coeff_multistep_streamed``.
+    Arguments and in-place updates are those of
+    :func:`saga_coeff_multistep`, plus ``f``: the clamp count, a
+    one-element int32 tensor on the rows' device, or None for K. A masked
+    step writes nothing, so c, z and av leave the launch as step f − 1
+    left them. CPU tensors take the plain version
+    :func:`saga_coeff_multistep_streamed_ref`; CUDA tensors launch the
+    kernel or raise.
+
+    On the TPU the (1, N) table streams through aliased (1, TILE) VMEM
+    windows, which is what lets that kernel serve any N, and a launch
+    must not revisit a block: its stale in-window would race the aliased
+    write-back of the first visit. So the JAX driver clamps each launch
+    at its first repeated block (``f``), and ``_redirect_masked`` points
+    the masked steps at a block with no committed visit, because a
+    masked TPU step still writes its window back. Here c is a flat (N,)
+    table in device memory and every step's two launches are ordered on
+    one stream, so a revisit reads the previous step's c: the port's
+    driver launches with ``f`` = None, and a masked step needs no
+    redirect because it writes nothing. ``f`` stays a device tensor, read
+    by both launches of every step on the device (no host sync), and
+    both return before any other load when the step is masked.
+
+    The design and its bound are :func:`saga_coeff_multistep`'s, whose
+    device code this kernel shares (``csrc/saga_steps.cuh``). At the deep
+    target (N = 10,485,760, n = 128, B = 8,192) a step reads 4 MB of f32
+    rows (1 MB int8) in 256 row-phase CTAs of 32 rows, and the finish
+    phase has only 4 CTAs of 32 columns, each summing 256 partials, so
+    the finish phase and the launch gaps weigh more than at the headline.
+    """
+    if A.device.type == "cpu":
+        return saga_coeff_multistep_streamed_ref(
+            A, b, starts, c, z, av, scalars, B, precision=precision, rs=rs,
+            wgts=wgts, f=f)
+    if A.device.type != "cuda":
+        raise ValueError(f"saga_coeff_multistep_streamed: no kernel for "
+                         f"{A.device}")
+    if f is not None:
+        if f.numel() != 1:
+            raise ValueError(f"f must hold one count, not {f.numel()}")
+        f = f.reshape(1)
+        _check("f", f, torch.int32, (1,), A.device)
+    _launch("saga_coeff_multistep_streamed", A, b, starts, c, z, av, scalars,
+            B, precision, rs, wgts, (None if f is None else f.data_ptr(),))
+    saga_coeff_multistep_streamed.launches += 1
+    saga_coeff_multistep_streamed.weighted_launches += wgts is not None
+    return c, z, av
+
+
+# Launches of the CUDA kernels (one per wrapper call that reaches one),
+# and those of them with direction weights (importance sampling).
 saga_coeff_multistep.launches = 0
+saga_coeff_multistep.weighted_launches = 0
+saga_coeff_multistep_streamed.launches = 0
+saga_coeff_multistep_streamed.weighted_launches = 0

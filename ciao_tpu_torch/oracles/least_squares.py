@@ -138,3 +138,45 @@ class LeastSquaresRows(SmoothOracle):
 
     def apply_all(self, w):
         return self._combine(w, self.A, self.row_scale)
+
+    # ---- margin protocol: the row product A·x first, then the affine
+    # part of the coefficient. The int8 per-row scale is applied to the
+    # margin, never to the rows. The deep path uses margin_all,
+    # coeff_from_margin, value_sum_all and hess_weight_from_margin;
+    # margin_block and coeff_from_margin_all complete the protocol for
+    # the tensor-parallel solvers still to port (ROADMAP.md, queue 1
+    # item 18), whose partial margins are summed across devices ------
+    def margin_block(self, x, start, size: int):
+        return self._rows(self._slice(start, size)[0], x.dtype) @ x
+
+    def margin_all(self, x):
+        return self._rows(self.A, x.dtype) @ x
+
+    def hess_weight_from_margin(self, r, margin_slack=0.0):
+        """Bound on the margin curvature d²f_i/dm²: the constant
+        ``scale`` for least squares (global and exact; ``margin_slack``
+        is ignored). Consumed by ``solvers.polish.power_lmax``."""
+        del margin_slack
+        return self.scale.to(r.dtype)
+
+    def coeff_from_margin(self, r, start, size: int):
+        _, b_B, rs_B = self._slice(start, size)
+        if rs_B is not None:
+            r = r * rs_B
+        return self.scale * (r - b_B)
+
+    def coeff_from_margin_all(self, r):
+        if self.row_scale is not None:
+            r = r * self.row_scale
+        return self.scale * (r - self.b)
+
+    def value_from_margin_all(self, r):
+        """Σ_i f_i from the raw margins A·x."""
+        if self.row_scale is not None:
+            r = r * self.row_scale
+        res = r - self.b
+        return 0.5 * self.scale * torch.sum(res * res)
+
+    def value_sum_all(self, x):
+        """Σ_i f_i(x) in one margin pass, without the (N, n) gradient."""
+        return self.value_from_margin_all(self.margin_all(x))

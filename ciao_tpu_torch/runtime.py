@@ -38,6 +38,27 @@ def on_cuda() -> bool:
     return torch.cuda.is_available()
 
 
+def require_exact_f32_matmul(device, who: str) -> None:
+    """Raise if f32 matrix products on ``device`` would run in TF32.
+
+    TF32 keeps about three decimal digits: it would put ~1e-3 relative
+    noise into the plain kernel versions and into the compensated polish
+    gradient, whose point is to beat the f32 floor of rel ~4e-5. The
+    check leaves the process-wide flags as it found them: the caller sets
+    ``torch.backends.cuda.matmul.allow_tf32 = False``. CPU products are
+    exact f32 whatever the flags say."""
+    if torch.device(device).type != "cuda":
+        return
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            f"{who} needs exact f32 matrix products, but TF32 is on "
+            f"(allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+            f"float32_matmul_precision="
+            f"{torch.get_float32_matmul_precision()!r}); set "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
 def warn_fused_fallback(who: str, reason: str, remedy: str) -> None:
     """One-time (per facade+reason) warning that this GPU run will use
     the stepwise PyTorch path instead of the CUDA kernel. Names the

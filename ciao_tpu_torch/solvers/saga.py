@@ -11,15 +11,17 @@ Defaults (SAGA_basic.jl:34-35): γ = 1/(3 L_max) for SAGA, 1/(16 L_max)
 for SAG. Init (SAGA_basic.jl:41-48): table = coefficients at x0, av =
 their mean row gradient, z = prox_g((1-γ) x0, γ).
 
-Block schedules are a pure function of (seed, it) (:func:`block_starts`),
-or an explicit ``starts`` tensor handed to :func:`saga_run` — the JAX
-package draws with threefry, which torch cannot reproduce, so parity
-tests pass JAX's schedule. With block sampling, coefficient tables and a
-CUDA device, :func:`saga_run` hands K steps at a time to the hand-written
-kernel ``ops.saga_coeff_multistep``.
+Block schedules are a pure function of (seed, it) (:func:`block_starts`,
+:func:`importance_draws`), or explicit ``starts`` (and ``wgts``) tensors
+handed to :func:`saga_run` — the JAX package draws with threefry, which
+torch cannot reproduce, so parity tests pass JAX's schedule. With block
+sampling, coefficient tables and a CUDA device, :func:`saga_run` hands K
+steps at a time to a hand-written kernel: ``ops.saga_coeff_multistep``
+(N ≤ ``RESIDENT_MAX_ROWS``) or ``ops.saga_coeff_multistep_streamed``
+(larger N). Importance sampling (block j drawn with probability
+q_j ∝ L_j, direction weighted by 1/(d·q_j)) rides both.
 
-Not ported yet (ROADMAP.md, queue 1 item 7): the full (N, n) table,
-importance sampling and the streamed any-N path.
+Not ported yet (ROADMAP.md, queue 1 item 7): the full (N, n) table.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ciao_tpu_torch import runtime
@@ -40,11 +43,17 @@ from ciao_tpu_torch.solvers.base import (
 
 _FULL_TABLE = ("the full (N, n) gradient table (table='full') is not ported "
                "yet: ROADMAP.md, queue 1 item 7")
-_IMPORTANCE = ("importance sampling is not ported yet: ROADMAP.md, queue 1 "
-               "items 5 and 7")
 
-# Steps per kernel launch of the fused multistep path (K in the JAX package).
+# Steps per kernel launch of the multistep driver (K in the JAX package).
 LAUNCH_STEPS = 128
+# Largest N the facade runs on the resident kernel; above it, the
+# streamed kernel. It is the JAX package's cap on its VMEM-resident
+# coefficient slab (4·N bytes ≤ 4 MB). Both of the port's kernels serve
+# any N, so here it only names the kernel, and, with STREAM_MIN_BLOCKS,
+# the importance schedule JAX's route would give (:func:`_route`).
+RESIDENT_MAX_ROWS = 1 << 20
+# Fewest blocks of JAX's streamed route (its birthday clamp needs them).
+STREAM_MIN_BLOCKS = 64
 
 
 class SAGACfg(NamedTuple):
@@ -52,9 +61,18 @@ class SAGACfg(NamedTuple):
     sag: bool
     batch: int = 1
     block: bool = False  # uniform CONTIGUOUS block instead of iid subset
-    fused: bool = False  # K steps per launch of the CUDA kernel
+    fused: bool = False  # K steps per launch of the resident kernel
     coeff: bool = False  # (N,) coefficient table instead of (N, n) rows
     fused_precision: str = "highest"  # dots in the kernel: exact f32 / bf16
+    importance: bool = False  # blocks drawn ∝ L_j, direction · 1/(d·q_j)
+    fused_stream: bool = False  # K steps per launch of the streamed kernel
+    # systematic importance schedule (JAX's streamed route): step it is slot
+    # it % K of window it // K (K = min(iwin, d)); the window draws one
+    # uniform U and slot k takes the block whose interval of the π-scale
+    # CDF cumsum(K·q̃) holds U + k, with q̃ clipped to at most 1/K per
+    # block, so the draws of one window are distinct
+    istrat: bool = False
+    iwin: int = 64
 
 
 class SAGAState(NamedTuple):
@@ -65,6 +83,11 @@ class SAGAState(NamedTuple):
     seed: int              # schedule seed: draws are a function of (seed, it)
     it: int
     status: int
+    # importance sampling only: the (d,) inclusive CDF of the block
+    # distribution (the π-scale CDF under istrat, last entry exactly K)
+    # and the (d,) direction weights 1/(d·q_j); None otherwise
+    qcum: Optional[torch.Tensor] = None
+    qinv: Optional[torch.Tensor] = None
 
     @property
     def solution(self):  # reference: solution(state) = state.z
@@ -119,6 +142,48 @@ def _iid_indices(seed: int, it: int, N: int, B: int, device):
     return torch.randperm(N, generator=gen, device=device)[:B]
 
 
+def _uniforms(seed: int, ctr, dtype):
+    """Uniforms in [0, 1) of the int64 counters ``ctr``: a pure function
+    of (seed, counter), exact in ``dtype`` and never 1 (24 bits for f32,
+    32 bits for f64)."""
+    h = _mix32(_mix32((ctr & _M32) ^ _seed_key(seed)) ^ 0x632BE5AB)
+    bits = 24 if dtype == torch.float32 else 32
+    return (h >> (32 - bits)).to(dtype) * 2.0 ** -bits
+
+
+def importance_draws(seed: int, it0: int, k: int, cfg: SAGACfg, qcum,
+                     qinv):
+    """The (starts, wgts) of steps it0..it0+k-1 under the importance
+    schedule, in one vectorized pass on ``qcum``'s device (no host
+    sync): block j = searchsorted(qcum, u, right) clamped to d − 1, its
+    start j·B as (k,) int32 and its weight ``qinv[j]``. iid: u is the
+    uniform of (seed, it). ``istrat``: u = it % K + the uniform of
+    (seed, it // K), K = min(iwin, d) — the systematic draw of JAX's
+    ``_gen_importance_draws`` with the port's own counter hash in place
+    of threefry."""
+    d = cfg.N // cfg.batch
+    its = torch.arange(it0, it0 + k, dtype=torch.int64, device=qcum.device)
+    if cfg.istrat:
+        K = min(cfg.iwin, d)
+        u = (its % K).to(qcum.dtype) + _uniforms(seed, its // K, qcum.dtype)
+    else:
+        u = _uniforms(seed, its, qcum.dtype)
+    j = torch.searchsorted(qcum, u, right=True).clamp_(max=d - 1)
+    return (j * cfg.batch).to(torch.int32), qinv[j]
+
+
+def stream_launch_K(d: int, factor: float = 1.0) -> int:
+    """Launch size of the JAX package's clamped streamed launches: K ≤ d
+    (its masked-redirect contract) and about √d, which keeps the
+    birthday clamp's committed share high. The port's SAGA driver does
+    not clamp and launches ``LAUNCH_STEPS``. No path of the port calls
+    this yet: it and ``sampling.first_duplicate`` size and clamp the
+    launches of the clamped drivers still to port (ProShI, Point-SAGA,
+    SSNM: ROADMAP.md queue 1 items 12-13), and the tests use them to hold
+    the kernel's masked steps to JAX's clamped stream."""
+    return min(64, d, max(8, (int(factor * d ** 0.5) // 8) * 8))
+
+
 # ---------------------------------------------------------------------------
 # init / steps
 # ---------------------------------------------------------------------------
@@ -167,15 +232,30 @@ def _saga_direction(cfg, state, innov, B, wgt=1.0):
     return av, w
 
 
-def _saga_step_coeff(F, g, cfg: SAGACfg, state: SAGAState, start=None):
+def _block_choice(cfg: SAGACfg, state: SAGAState):
+    """The step's (block start, direction weight): the uniform
+    :func:`block_starts` stream with weight 1, or under importance
+    sampling one draw of :func:`importance_draws`."""
+    if not cfg.importance:
+        return block_starts(state.seed, state.it, 1, cfg.N // cfg.batch,
+                            cfg.batch, state.z.device)[0], 1.0
+    starts, wgts = importance_draws(state.seed, state.it, 1, cfg, state.qcum,
+                                    state.qinv)
+    return starts[0], wgts[0]
+
+
+def _saga_step_coeff(F, g, cfg: SAGACfg, state: SAGAState, start=None,
+                     wgt=None, inplace=False):
     """Coefficient-table step: the innovation Σ (c_new − c_old)·a_i is
     one extra product over the same rows the coefficients read. The table
-    is replaced, not written in place, so earlier states stay valid."""
+    is replaced, not written in place, so earlier states stay valid —
+    except for a driver that owns a copy of it (``inplace``), which saves
+    copying the whole table every step."""
     N, B = cfg.N, cfg.batch
     dev = state.z.device
     if cfg.block:
         if start is None:
-            start = block_starts(state.seed, state.it, 1, N // B, B, dev)[0]
+            start, wgt = _block_choice(cfg, state)
         idx = torch.as_tensor(start, device=dev).long() + torch.arange(
             B, device=dev)
         c_new = F.coeff_block(state.z, start, B)
@@ -184,55 +264,111 @@ def _saga_step_coeff(F, g, cfg: SAGACfg, state: SAGAState, start=None):
         idx = _iid_indices(state.seed, state.it, N, B, dev)
         c_new = F.coeff_batch(state.z, idx)
         innov = F.apply_rows(c_new - state.s[idx], idx)
-    s = state.s.index_copy(0, idx, c_new)
-    av, w = _saga_direction(cfg, state, innov, B)
+    if inplace:
+        s = state.s.index_copy_(0, idx, c_new)
+    else:
+        s = state.s.index_copy(0, idx, c_new)
+    av, w = _saga_direction(cfg, state, innov, B, 1.0 if wgt is None else wgt)
     z = g.prox_only(w, state.gamma)
     return state._replace(s=s, av=av, z=z, it=state.it + 1)
 
 
-def _saga_step(F, g, cfg: SAGACfg, state: SAGAState, start=None):
+def _saga_step(F, g, cfg: SAGACfg, state: SAGAState, start=None, wgt=None,
+               inplace=False):
     _check_cfg(cfg)
-    return _saga_step_coeff(F, g, cfg, state, start)
+    if cfg.importance and cfg.sag:
+        # SAG's average-first order has no weighted counterpart: it would
+        # ignore the 1/(d·q_j) weight and bias the direction
+        raise ValueError("SAGACfg(importance=True) is incompatible with "
+                         "sag=True")
+    return _saga_step_coeff(F, g, cfg, state, start, wgt, inplace)
 
 
-def _saga_run_fused(F, g, state, cfg: SAGACfg, steps: int, starts=None):
-    """Multistep path: K block steps per call of the kernel
-    ``ops.saga_coeff_multistep``, then the < K remainder stepwise on the
-    same schedule. The table, z and av are copied once and then updated
-    in place by the kernel."""
-    from ciao_tpu_torch.ops.fused_block import (
-        oracle_scalar_consts,
-        saga_coeff_multistep,
-    )
+def _scalars_row(F, g, state, cfg: SAGACfg):
+    """The kernels' (8,) f32 scalars row [scale, γ, γλ, 1/B, 1/N, sag,
+    mode, aux] on the state's device."""
+    from ciao_tpu_torch.ops.fused_block import oracle_scalar_consts
 
-    B, N = cfg.batch, cfg.N
-    K = min(LAUNCH_STEPS, steps)
-    L = steps // K
-    rem = steps - L * K
-    rows, offs = F.coeff_rows_data()
-    rs = F.coeff_rows_scale()
     dev = state.z.device
     scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    gamma = state.gamma.to(dev)
-    consts = torch.tensor([1.0 / B, 1.0 / N, 1.0 if cfg.sag else 0.0],
+    gamma = state.gamma.to(dev).float()
+    consts = torch.tensor([1.0 / cfg.batch, 1.0 / cfg.N,
+                           1.0 if cfg.sag else 0.0],
                           dtype=torch.float32, device=dev)
-    scalars = torch.cat([
-        torch.stack([scale, gamma.float(), gamma.float() * lam.float()]),
-        consts, torch.stack([mode, aux]),
-    ])
-    c, z, av = state.s.clone(), state.z.clone(), state.av.clone()
-    for launch in range(L):
-        if starts is None:
-            st = block_starts(state.seed, state.it + launch * K, K, N // B,
-                              B, dev)
+    return torch.cat([torch.stack([scale, gamma, gamma * lam.float()]),
+                      consts, torch.stack([mode, aux])])
+
+
+def _explicit(starts, wgts, i: int):
+    """(start, weight) of position ``i`` of an explicit schedule."""
+    if starts is None:
+        return None, None
+    return starts[i], None if wgts is None else wgts[i]
+
+
+def _saga_run_fused(F, g, state, cfg: SAGACfg, steps: int, starts=None,
+                    wgts=None):
+    """Multistep driver, the counterpart of both JAX drivers
+    (``_saga_run_fused`` and ``_saga_run_fused_streamed``): K steps per
+    call of ``ops.saga_coeff_multistep_streamed`` when
+    ``cfg.fused_stream``, else of ``ops.saga_coeff_multistep``, on one
+    schedule (the explicit ``starts`` / ``wgts`` when given, else the
+    (seed, it) draws). K = ``LAUNCH_STEPS``; under the systematic
+    importance schedule (``istrat``) K is one whole window of
+    min(iwin, d) steps and launches start at window boundaries, as JAX's
+    window-aligned branch does. The steps before the first launch and
+    after the last whole one run stepwise. The table, z and av are
+    copied once and then updated in place by the kernel and by the
+    stepwise steps.
+
+    No clamp: JAX's streamed driver stops each launch at its first
+    same-launch block revisit and advances ``it`` by the committed prefix
+    only, because its TPU kernel streams the table through aliased
+    windows. Here the table lives in device memory and each step's
+    launches are stream-ordered, so a revisit reads the previous step's
+    coefficients and every launch commits all its steps (``f`` = None).
+    Both packages commit the stepwise stream."""
+    from ciao_tpu_torch.ops import fused_block
+
+    kernel = (fused_block.saga_coeff_multistep_streamed if cfg.fused_stream
+              else fused_block.saga_coeff_multistep)
+    if cfg.istrat:
+        K = align = min(cfg.iwin, cfg.N // cfg.batch)
+    else:
+        K, align = min(LAUNCH_STEPS, steps), 1
+    rows, offs = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    scalars = _scalars_row(F, g, state, cfg)
+    it0, target = state.it, state.it + steps
+    state = state._replace(s=state.s.clone(), z=state.z.clone(),
+                           av=state.av.clone())
+
+    def step(state):
+        return _saga_step(F, g, cfg, state,
+                          *_explicit(starts, wgts, state.it - it0),
+                          inplace=True)
+
+    while state.it % align and state.it < target:
+        state = step(state)
+    dev = state.z.device
+    while state.it + K <= target:
+        off = state.it - it0
+        if starts is not None:
+            st = starts[off:off + K]
+            wg = None if wgts is None else wgts[off:off + K].float()
+        elif cfg.importance:
+            st, wg = importance_draws(state.seed, state.it, K, cfg,
+                                      state.qcum, state.qinv)
+            wg = wg.float()
         else:
-            st = starts[launch * K:(launch + 1) * K]
-        saga_coeff_multistep(rows, offs, st, c, z, av, scalars, B,
-                             precision=cfg.fused_precision, rs=rs)
-    state = state._replace(s=c, z=z, av=av, it=state.it + L * K)
-    for r in range(rem):
-        state = _saga_step(F, g, cfg, state,
-                           None if starts is None else starts[L * K + r])
+            st = block_starts(state.seed, state.it, K, cfg.N // cfg.batch,
+                              cfg.batch, dev)
+            wg = None
+        kernel(rows, offs, st, state.s, state.z, state.av, scalars,
+               cfg.batch, precision=cfg.fused_precision, rs=rs, wgts=wg)
+        state = state._replace(it=state.it + K)
+    while state.it < target:
+        state = step(state)
     return state
 
 
@@ -252,17 +388,27 @@ def _check_starts(starts, steps: int, cfg: SAGACfg, device):
     return starts.contiguous()
 
 
-def saga_run(F, g, state, cfg: SAGACfg, steps: int, starts=None):
+def saga_run(F, g, state, cfg: SAGACfg, steps: int, starts=None,
+             wgts=None):
     """Advance ``steps`` steps. ``starts`` optionally gives the (steps,)
-    block starts to use instead of the (seed, it) draws."""
+    block starts to use instead of the (seed, it) draws, and ``wgts``
+    (with ``starts``) their (steps,) direction weights 1/(d·q_j); without
+    ``wgts`` an explicit schedule is weighted 1."""
     _check_cfg(cfg)
+    dev = state.z.device
     if starts is not None:
-        starts = _check_starts(starts, steps, cfg, state.z.device)
-    if cfg.coeff and cfg.fused and steps >= 8:
-        return _saga_run_fused(F, g, state, cfg, steps, starts)
+        starts = _check_starts(starts, steps, cfg, dev)
+    if wgts is not None:
+        if starts is None:
+            raise ValueError("explicit wgts need explicit starts")
+        wgts = torch.as_tensor(wgts).to(dev).contiguous()
+        if tuple(wgts.shape) != (steps,):
+            raise ValueError(f"wgts has shape {tuple(wgts.shape)}, "
+                             f"expected ({steps},)")
+    if cfg.coeff and (cfg.fused or cfg.fused_stream) and steps >= 8:
+        return _saga_run_fused(F, g, state, cfg, steps, starts, wgts)
     for i in range(steps):
-        state = _saga_step(F, g, cfg, state,
-                           None if starts is None else starts[i])
+        state = _saga_step(F, g, cfg, state, *_explicit(starts, wgts, i))
     return state
 
 
@@ -270,10 +416,73 @@ def saga_step(F, g, state, cfg: SAGACfg, start=None):
     return _saga_step(F, g, cfg, state, start)
 
 
+def _route(F, g, x0, N: int, B: int):
+    """(resident, streamed, istrat) of a block-sampling run. When the
+    kernels' gate is open (a CUDA device, dense rows, an in-kernel prox,
+    f32 iterates), every such run takes a kernel: the resident one for
+    N ≤ ``RESIDENT_MAX_ROWS``, else the streamed one. Without importance
+    sampling the kernel changes nothing but speed: both commit the
+    stepwise stream. ``istrat`` is where JAX's route
+    (``ciao_tpu/solvers/saga.py`` 682-708) decides semantics: it picks
+    the systematic importance schedule on its streamed route — not
+    resident (N ≤ ``RESIDENT_MAX_ROWS`` and N % (8·B) == 0) and
+    d = N/B ≥ ``STREAM_MIN_BLOCKS`` — and the iid one elsewhere. The
+    routes differ from JAX's in these places only, each of which exists
+    for the TPU alone: JAX sends the runs that neither of its rules takes
+    to the stepwise path, and its gates also apply ``_pick_tile``'s VMEM
+    budget and n % 128 lanes."""
+    from ciao_tpu_torch.ops import fused_block
+
+    if not fused_block.saga_multistep_available(F, g, x0, B):
+        return False, False, False
+    streamed = (N > RESIDENT_MAX_ROWS
+                and fused_block.saga_multistep_streamed_available(F, g, x0,
+                                                                  B))
+    jax_resident = N <= RESIDENT_MAX_ROWS and N % (8 * B) == 0
+    return (not streamed, streamed,
+            not jax_resident and N // B >= STREAM_MIN_BLOCKS)
+
+
+def _importance_setup(L, N: int, B: int, istrat: bool, rdt, device):
+    """The facade's importance schedule (JAX ``saga.py`` 651-661,
+    724-748), built in float64 on the host — an f32 cumsum over many
+    blocks skews the draws away from the q of the weights — with only
+    the finished CDF and weights moved to ``device``. q_j ∝ the largest
+    L_i of block j. The systematic schedule (``istrat``, JAX's streamed
+    route) clips q to at most 1/K per block (K = min(64, d)) and keeps
+    the π-scale CDF cumsum(K·q̃), its last entry exactly K; the iid
+    schedule keeps the iid CDF. Returns (qcum, qinv, L_eff, iwin),
+    L_eff = max_j L_j/(d·q_j) the effective smoothness of the
+    stepsize."""
+    from ciao_tpu_torch.sampling import clip_block_distribution
+
+    L64 = np.asarray(torch.as_tensor(L).detach().cpu(), np.float64)
+    if L64.ndim == 0:
+        L64 = np.full((N,), L64)
+    d = N // B
+    Lblk = np.max(L64.reshape(d, B), axis=1)
+    q = Lblk / np.sum(Lblk)
+    iwin = 64
+    if istrat:
+        iwin = min(64, d)
+        q, _ = clip_block_distribution(q, iwin)
+        qcum = np.cumsum(iwin * q)
+        qcum *= iwin / qcum[-1]
+        qcum[-1] = iwin
+    else:
+        qcum = np.cumsum(q)
+        qcum /= qcum[-1]
+    L_eff = float(np.max(Lblk / (d * q)))
+    return (torch.tensor(qcum, dtype=rdt, device=device),
+            torch.tensor(1.0 / (d * q), dtype=rdt, device=device),
+            L_eff, iwin)
+
+
 def _warn_saga_fallback(F, g, x0):
     """One-time warning when a block-sampling SAGA config on a CUDA
     device lands on the stepwise path, naming the first closed gate and
-    its remedy. Silent for CPU iterates."""
+    its remedy. Silent for CPU iterates. (N % batch != 0, the gate's
+    shape condition, is refused by the facade before it routes.)"""
     if x0.device.type != "cuda":
         return
     if x0.dtype != torch.float32:
@@ -281,7 +490,8 @@ def _warn_saga_fallback(F, g, x0):
             "SAGA", f"the iterate dtype is {x0.dtype} and the kernel is "
             "f32-only",
             "use float32 iterates — precision belongs in the oracle's row "
-            "storage (with_storage), not the iterate dtype",
+            "storage (with_storage) and the deep_solve polish, not the "
+            "iterate dtype",
         )
     elif not (hasattr(F, "coeff_rows_data") and isinstance(g, (NormL1, Zero))):
         runtime.warn_fused_fallback(
@@ -313,7 +523,7 @@ class SAGA:
     SAG_flag: bool = False
     batch: int = 1
     block_sampling: bool = False  # contiguous-block minibatches
-    importance_sampling: bool = False  # not ported: raises
+    importance_sampling: bool = False  # q_j ∝ L_j block draws (needs L)
     table: str = "auto"  # "coeff" (N,) | "auto" (coeff if rank-1) | "full"
     fused_precision: str = "highest"  # "highest" = exact-f32 kernel dots;
     # "default" = bf16 operands with f32 accumulation
@@ -333,8 +543,6 @@ class SAGA:
                              f"{self.table!r}")
 
     def _setup(self, x0, F, g, L, N):
-        if self.importance_sampling:
-            raise NotImplementedError(_IMPORTANCE)
         if self.table == "full":
             raise NotImplementedError(_FULL_TABLE)
         if F is None:
@@ -354,31 +562,53 @@ class SAGA:
             N = F.num_terms
         if not getattr(F, "supports_coeff", False):
             raise NotImplementedError(_FULL_TABLE)
+        if self.importance_sampling:
+            # q_j ∝ L_j block draws, unbiased through the 1/(d·q_j)
+            # direction weight; SAG's average-first order has no weighted
+            # counterpart
+            if self.SAG_flag:
+                raise ValueError("importance_sampling supports SAGA only")
+            if not self.block_sampling:
+                raise ValueError(
+                    "importance_sampling needs block_sampling=True")
+            if L is None:
+                raise ValueError("SAGA importance_sampling: provide L")
         if self.block_sampling and N % self.batch != 0:
             raise ValueError("SAGA block_sampling needs N divisible by batch")
-        from ciao_tpu_torch.ops import saga_multistep_available
-
-        fused = self.block_sampling and saga_multistep_available(
-            F, g, x0, self.batch)
-        if self.block_sampling and not fused:
-            _warn_saga_fallback(F, g, x0)
+        fused = fused_stream = istrat = False
+        if self.block_sampling:
+            fused, fused_stream, istrat = _route(F, g, x0, N, self.batch)
+            if not (fused or fused_stream):
+                _warn_saga_fallback(F, g, x0)
         rdt = real_dtype_of(x0)
+        qcum = qinv = None
+        iwin = 64
+        istrat = istrat and self.importance_sampling
+        if self.importance_sampling:
+            qcum, qinv, L_eff, iwin = _importance_setup(
+                L, N, self.batch, istrat, rdt, device)
         if self.gamma is not None:
             gamma = torch.as_tensor(self.gamma, dtype=rdt, device=device)
+        elif L is None:
+            raise ValueError(
+                "SAGA: smoothness parameter absent — provide L or γ")
+        elif self.importance_sampling:
+            # the effective smoothness max_j L_j/(d·q_j): the mean block
+            # smoothness for q ∝ L, larger where the clip lowered q
+            gamma = torch.as_tensor(1.0 / (3.0 * L_eff), dtype=rdt,
+                                    device=device)
         else:
-            if L is None:
-                raise ValueError(
-                    "SAGA: smoothness parameter absent — provide L or γ"
-                )
             L_max = torch.max(torch.as_tensor(L, dtype=rdt, device=device))
             gamma = 1.0 / ((16.0 if self.SAG_flag else 3.0) * L_max)
         cfg = SAGACfg(
             N=N, sag=self.SAG_flag, batch=self.batch,
             block=self.block_sampling, fused=fused, coeff=True,
             fused_precision=self.fused_precision,
+            importance=self.importance_sampling, fused_stream=fused_stream,
+            istrat=istrat, iwin=iwin,
         )
-        return x0, F, g, cfg, lambda: saga_init(F, g, x0, gamma, self.seed,
-                                                cfg)
+        return x0, F, g, cfg, lambda: saga_init(
+            F, g, x0, gamma, self.seed, cfg)._replace(qcum=qcum, qinv=qinv)
 
     def __call__(self, x0, F=None, g=None, L=None, N=None, observe=None):
         x0, F, g, cfg, init = self._setup(x0, F, g, L, N)

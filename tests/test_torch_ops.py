@@ -213,3 +213,173 @@ def test_ref_rejects_unknown_precision():
             A, torch.randn(32), torch.zeros(1, dtype=torch.int32),
             torch.zeros(32), torch.zeros(8), torch.zeros(8), torch.zeros(8),
             16, precision="tf32")
+
+
+# ---------------------------------------------------------------------------
+# kernel #4: saga_coeff_multistep_streamed (any N, steps k >= f masked)
+# ---------------------------------------------------------------------------
+
+NS, BS = 8192, 128  # d = 64 blocks, as tests/test_ops.py's streamed suite
+
+
+def _streamed_problem(storage: str):
+    prob = jmake_lasso(N=NS, n=n, p=4, seed=3, dtype=np.float32)
+    JF = JLeastSquaresRows(A=jnp.asarray(prob.A), b=jnp.asarray(prob.b),
+                           scale=jnp.asarray(float(NS), jnp.float32))
+    if storage != "f32":
+        JF = JF.with_storage(storage)
+    rs = None if JF.row_scale is None else np.asarray(JF.row_scale)
+    rng = np.random.default_rng(11)
+    z = (0.05 * rng.standard_normal(n)).astype(np.float32)
+    c = np.asarray(JF.coeff_all(jnp.asarray(z)), np.float32)
+    av = np.asarray(JF.apply_all(jnp.asarray(c)), np.float32) / NS
+    gamma = np.float32(1.0 / (3.0 * np.max(prob.L)))
+    return JF, rs, z, c, av, gamma, prob, rng
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["uniform", "wgts"])
+@pytest.mark.parametrize("sag", [False, True], ids=["saga", "sag"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_streamed_ref_matches_pallas(storage, sag, weighted):
+    """The plain version of kernel #4 against the Pallas kernel in
+    interpret mode on the same (1, N) inputs: K = 8 and 16 distinct
+    blocks (the JAX kernel's contract for f = K), clamp count f = K and
+    f = 3. Tolerances as test_multistep_ref_matches_pallas (z rtol 1e-4;
+    c, av rtol 1e-3, with atols scaled by the largest entry where the
+    dots round to bf16). A masked step writes nothing: every row outside
+    the f committed blocks keeps its coefficient bit for bit."""
+    JF, rs, z, c, av, gamma, prob, rng = _streamed_problem(storage)
+    sc = np.array([NS, gamma, gamma * prob.lam, 1.0 / BS, 1.0 / NS,
+                   1.0 if sag else 0.0, jfb.MODE_LSQ, 0.0], np.float32)
+    lowp = storage != "f32"
+    for K in (8, 16):
+        starts = (rng.choice(NS // BS, K, replace=False) * BS).astype(
+            np.int32)
+        w = rng.uniform(0.5, 2.0, K).astype(np.float32) if weighted else None
+        for f in (K, 3):
+            c1, z2, av2 = jfb.saga_coeff_multistep_streamed(
+                JF.A, jnp.asarray(np.asarray(JF.b))[None],
+                jnp.asarray(starts), jnp.asarray(c)[None],
+                jnp.asarray(z)[None], jnp.asarray(av)[None],
+                jnp.asarray(sc)[None], BS,
+                rs1=None if rs is None else jnp.asarray(rs)[None],
+                wgts=None if w is None else jnp.asarray(w),
+                f=jnp.asarray(f, jnp.int32), interpret=True)
+            jc, jz, jav = (np.asarray(c1)[0], np.asarray(z2)[0],
+                           np.asarray(av2)[0])
+            tc, tz, tav = _t(c), _t(z), _t(av)
+            tfb.saga_coeff_multistep_streamed(
+                _torch_rows(JF, storage), _t(np.asarray(JF.b)), _t(starts),
+                tc, tz, tav, _t(sc), BS, rs=None if rs is None else _t(rs),
+                wgts=None if w is None else _t(w),
+                f=torch.tensor([f], dtype=torch.int32))
+            tag = f"K={K} f={f}"
+            assert not np.array_equal(tz.numpy(), z), tag
+            np.testing.assert_allclose(tz.numpy(), jz, rtol=1e-4, atol=1e-6,
+                                       err_msg=tag)
+            av_atol = 1e-5 * np.abs(jav).max() if lowp else 1e-4
+            c_atol = 1e-4 * np.abs(jc).max() if lowp else 1e-3
+            np.testing.assert_allclose(tav.numpy(), jav, rtol=1e-3,
+                                       atol=av_atol, err_msg=tag)
+            np.testing.assert_allclose(tc.numpy(), jc, rtol=1e-3,
+                                       atol=c_atol, err_msg=tag)
+            committed = np.zeros(NS, bool)
+            for s in starts[:f]:
+                committed[s:s + BS] = True
+            np.testing.assert_array_equal(tc.numpy()[~committed],
+                                          c[~committed], err_msg=tag)
+
+
+def test_streamed_masked_steps_write_nothing():
+    """Within the port: a launch clamped at f leaves c, z and av bit for
+    bit as the first f steps alone leave them, whatever the masked steps
+    hold (here repeats of committed blocks and other weights); f = None
+    runs all K, as f = K does."""
+    JF, rs, z, c, av, gamma, prob, rng = _streamed_problem("int8")
+    sc = _t(np.array([NS, gamma, gamma * prob.lam, 1.0 / BS, 1.0 / NS, 0.0,
+                      jfb.MODE_LSQ, 0.0], np.float32))
+    A, b = _torch_rows(JF, "int8"), _t(np.asarray(JF.b))
+    starts = _t((rng.integers(0, NS // BS, 12) * BS).astype(np.int32))
+    starts[7:] = starts[:5]
+    w = _t(rng.uniform(0.5, 2.0, 12).astype(np.float32))
+
+    def run(st, wg, f):
+        state = [_t(c), _t(z), _t(av)]
+        tfb.saga_coeff_multistep_streamed(A, b, st, *state, sc, BS,
+                                          rs=_t(rs), wgts=wg, f=f)
+        return state
+
+    for f in (0, 5, 7):
+        got = run(starts, w, torch.tensor(f, dtype=torch.int32))
+        want = ([_t(c), _t(z), _t(av)] if f == 0
+                else run(starts[:f], w[:f], None))
+        for a, e in zip(got, want):
+            torch.testing.assert_close(a, e, rtol=0, atol=0)
+    for a, e in zip(run(starts, w, None),
+                    run(starts, w, torch.tensor([12], dtype=torch.int32))):
+        torch.testing.assert_close(a, e, rtol=0, atol=0)
+
+
+def test_streamed_wrapper_on_cpu_and_gate(monkeypatch):
+    """CPU tensors take the plain version and count no kernel launch,
+    weighted or not; a device with no kernel raises; the streamed gate is
+    the resident kernel's, closed for CPU tensors, with no block minimum
+    (the port does not clamp)."""
+    A = torch.randn(64, 8)
+    args = (A, torch.randn(64), torch.tensor([0, 32], dtype=torch.int32))
+    sc = torch.tensor([64.0, 0.01, 0.001, 1 / 32, 1 / 64, 0.0, 0.0, 0.0])
+    state = [torch.zeros(64), torch.ones(8), torch.zeros(8)]
+    ref = [t.clone() for t in state]
+    kernel = tfb.saga_coeff_multistep_streamed
+    before = kernel.launches, kernel.weighted_launches
+    wg = torch.ones(2)
+    kernel(*args, *state, sc, 32, wgts=wg)
+    tfb.saga_coeff_multistep_streamed_ref(*args, *ref, sc, 32, wgts=wg)
+    assert (kernel.launches, kernel.weighted_launches) == before
+    for got, want in zip(state, ref):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    m = torch.empty((64, 8), device="meta")
+    v = torch.empty(64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tfb.saga_coeff_multistep_streamed(
+            m, v, torch.zeros(2, dtype=torch.int32, device="meta"), v,
+            torch.empty(8, device="meta"), torch.empty(8, device="meta"),
+            torch.empty(8, device="meta"), 16)
+    F = LeastSquaresRows(torch.randn(64 * 16, 8), torch.randn(64 * 16), 1.0)
+    assert not tfb.saga_multistep_streamed_available(F, NormL1(0.1),
+                                                     torch.zeros(8), 16)
+    # with the resident gate open, d = 4 blocks of 256 rows pass
+    monkeypatch.setattr(tfb, "saga_multistep_available",
+                        lambda F, g, x0, B: True)
+    assert tfb.saga_multistep_streamed_available(F, NormL1(0.1),
+                                                 torch.zeros(8), 256)
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_plain_versions_leave_tf32_flag_alone(tf32):
+    """The plain versions check the TF32 flag instead of setting it: on
+    the CPU (exact f32 whatever the flag) they run and leave it as they
+    found it; for a CUDA device with TF32 on, the check raises."""
+    from ciao_tpu_torch import runtime
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        A = torch.randn(64, 8)
+        args = (A, torch.randn(64), torch.tensor([0, 32], dtype=torch.int32),
+                torch.zeros(64), torch.ones(8), torch.zeros(8),
+                torch.tensor([64.0, 0.01, 0.001, 1 / 32, 1 / 64, 0, 0, 0]),
+                32)
+        tfb.saga_coeff_multistep_ref(*args)
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+        tfb.saga_coeff_multistep_streamed_ref(*args)
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+        runtime.require_exact_f32_matmul("cpu", "test")
+        if tf32:
+            with pytest.raises(RuntimeError, match="TF32"):
+                runtime.require_exact_f32_matmul("cuda", "test")
+        else:
+            runtime.require_exact_f32_matmul("cuda", "test")
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

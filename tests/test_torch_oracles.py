@@ -114,6 +114,32 @@ def test_coefficient_protocol_matches_jax(dtype, storage):
     assert TF.coeff_mode == 0 and TF.supports_coeff
 
 
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_margin_protocol_matches_jax(dtype, storage):
+    """The margin protocol of the polish and the staged objective: raw
+    margins (int8 scales are applied to the margin, never the rows), the
+    coefficient and the loss sum from them, the one-pass value sum and
+    the curvature weight, same tolerances as the coefficient protocol."""
+    JF, TF, rng = _pair(dtype, storage, seed=2)
+    x = rng.standard_normal(n).astype(dtype)
+    jx, tx = jnp.asarray(x), torch.tensor(x)
+    jm, tm = JF.margin_all(jx), TF.margin_all(tx)
+    _close(tm, jm, dtype)
+    _close(TF.margin_block(tx, 16, 32), JF.margin_block(jx, 16, 32), dtype)
+    _close(TF.coeff_from_margin(tm[16:48], 16, 32),
+           JF.coeff_from_margin(jm[16:48], 16, 32), dtype)
+    _close(TF.coeff_from_margin_all(tm), JF.coeff_from_margin_all(jm), dtype)
+    _close(TF.coeff_from_margin_all(tm), TF.coeff_all(tx).numpy(), dtype)
+    _close(TF.value_from_margin_all(tm), JF.value_from_margin_all(jm), dtype)
+    _close(TF.value_sum_all(tx), JF.value_sum_all(jx), dtype)
+    _close(TF.value_sum_all(tx), TF.value_and_grad_all(tx)[0].sum().numpy(),
+           dtype)
+    _close(TF.hess_weight_from_margin(tm, 0.5),
+           JF.hess_weight_from_margin(jm, 0.5), dtype)
+
+
 def test_with_storage_rules():
     _, TF, _ = _pair(np.float32, "f32")
     assert TF.with_storage("f32").A.dtype == torch.float32
