@@ -3,7 +3,8 @@
 The JAX package's fields come over as numpy arrays (``np.asarray`` of a
 JAX array), so tests and users can feed one problem or resume one state
 in both packages. bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16) are
-carried bit for bit.
+carried bit for bit. ``device=None`` means :func:`runtime.default_device`:
+the card when there is one.
 """
 
 from __future__ import annotations
@@ -11,13 +12,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ciao_tpu_torch import runtime
 from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.solvers.base import Status
 from ciao_tpu_torch.solvers.saga import SAGAState
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
     """A tensor with the array's dtype and values on ``device``."""
+    device = runtime.default_device() if device is None else device
     a = np.array(a, order="C")  # a copy: the tensor never aliases the array
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
@@ -26,7 +29,7 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 
 
 def least_squares_from_numpy(A, b, scale, row_scale=None,
-                             device="cpu") -> LeastSquaresRows:
+                             device=None) -> LeastSquaresRows:
     """``LeastSquaresRows`` from the JAX oracle's fields ``A`` (f32,
     bf16 or int8), ``b``, ``scale`` and, for int8 rows, ``row_scale``."""
     return LeastSquaresRows(
@@ -37,7 +40,7 @@ def least_squares_from_numpy(A, b, scale, row_scale=None,
 
 
 def saga_state_from_numpy(s, z, av, gamma, it, seed: int = 0,
-                          device="cpu", qcum=None, qinv=None) -> SAGAState:
+                          device=None, qcum=None, qinv=None) -> SAGAState:
     """``SAGAState`` from the JAX state's ``s``, ``z``, ``av``, ``gamma``
     and ``it`` (and, under importance sampling, ``qcum`` and ``qinv``).
     A coefficient table in the TPU's (8, N/8) slab layout is flattened

@@ -38,6 +38,13 @@ def on_cuda() -> bool:
     return torch.cuda.is_available()
 
 
+def default_device() -> torch.device:
+    """Where an entry point runs when the caller names no device and
+    passes no tensor to take it from: the first CUDA device when one is
+    present, else the CPU. The CPU is for callers who ask for it."""
+    return torch.device("cuda", 0) if on_cuda() else torch.device("cpu")
+
+
 def require_exact_f32_matmul(device, who: str) -> None:
     """Raise if f32 matrix products on ``device`` would run in TF32.
 

@@ -21,6 +21,8 @@ from typing import Any, Callable
 
 import torch
 
+from ciao_tpu_torch import runtime
+
 
 class Status(enum.IntEnum):
     RUNNING = 0
@@ -32,6 +34,17 @@ def solution(state):
     """View of the current solution — the only exported symbol of the
     reference (``Finito.jl:25``)."""
     return state.solution
+
+
+def facade_device(device, x0) -> torch.device:
+    """The device a facade runs on: the one the caller names, else x0's
+    when it is a tensor, else :func:`runtime.default_device` (the card
+    when there is one)."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(x0, torch.Tensor):
+        return x0.device
+    return runtime.default_device()
 
 
 def real_dtype_of(x) -> torch.dtype:

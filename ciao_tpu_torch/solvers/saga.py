@@ -37,6 +37,7 @@ from ciao_tpu_torch.prox import NormL1, Zero
 from ciao_tpu_torch.solvers.base import (
     SolverIterable,
     Status,
+    facade_device,
     real_dtype_of,
     run_solver_loop,
 )
@@ -513,8 +514,9 @@ def _warn_saga_fallback(F, g, x0):
 class SAGA:
     """SAGA facade (reference ``SAGA.jl:24-42``). ``SAG_flag`` switches to
     the biased SAG update (reference ``SAGA.jl:190-191``). ``device`` is
-    where the run happens (default: x0's device); the oracle and the prox
-    are moved there with ``.to(device)``."""
+    where the run happens (default: x0's device for a tensor x0, else the
+    card when there is one); the oracle and the prox are moved there
+    with ``.to(device)``."""
 
     gamma: Optional[float] = None
     maxit: int = 10000
@@ -549,12 +551,7 @@ class SAGA:
             raise NotImplementedError(
                 "F=None (the ZeroOracle default) is not ported yet: "
                 "ROADMAP.md, queue 1 item 11")
-        if self.device is not None:
-            device = torch.device(self.device)
-        elif isinstance(x0, torch.Tensor):
-            device = x0.device
-        else:
-            device = torch.device("cpu")
+        device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
         F = F.to(device)
         g = (Zero() if g is None else g).to(device)
