@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's two main paths through its two hand-written CUDA kernels,
-``ciao_tpu_torch/csrc/saga_coeff_multistep.cu`` (kernel #3 of PERF.md) and
-``saga_coeff_multistep_streamed.cu`` (kernel #4):
+Drives the port's four main paths through its four hand-written CUDA kernels,
+``ciao_tpu_torch/csrc/saga_coeff_multistep.cu`` (kernel #3 of PERF.md),
+``saga_coeff_multistep_streamed.cu`` (kernel #4), ``svrg_coeff_multistep.cu``
+(kernel #5) and ``coeff_apply_all.cu`` (kernel #6):
 
 - the SAGA headline of ``bench.py``: a dense Lasso with N = 262,144 rows of
   n = 1,024 columns stored int8 or f32, NormL1(0.1), block-sampled
@@ -14,12 +15,20 @@ Drives the port's two main paths through its two hand-written CUDA kernels,
 - the deep target of ``bench.py``: ``deep_solve`` on the planted
   10,485,760 x 128 Lasso (100 live columns) at B = 8,192, whose streamed
   SAGA stage runs kernel #4, then the compensated FISTA polish; and the
-  ``SAGA`` facade with importance sampling on the same problem.
+  ``SAGA`` facade with importance sampling on the same problem;
+- the SVRG configuration of ``bench.py`` (``svrg fused``): the headline
+  Lasso, B = 4,096, m = N/B = 64 inner steps on kernel #5 and a one-pass
+  anchor on kernel #6 per outer step, and the ``SVRG`` facade (SVRG and
+  SVRG++) on a planted Lasso;
+- the FISTA configuration of ``bench.py`` (``fista fused``): one kernel #6
+  pass per step at the headline, and the ``FISTA`` facade on the planted
+  Lasso.
 
 Phases, one line each:
 
   1. device: CUDA present (else exit 2), the card's name and power limit;
-  2. build: both kernels compiled by nvcc from this checkout, in parallel;
+  2. build: the four kernels compiled by nvcc from this checkout, in
+     parallel;
   3. kernel #3 == plain version: f32/bf16/int8 rows, SAGA and SAG, with and
      without direction weights, at a small shape (and at widths that are not
      whole 16-byte chunks) and at the headline shape;
@@ -35,9 +44,24 @@ Phases, one line each:
      the streamed route through kernel #4 with weights;
   5. times at the headline shape: ms per step of kernel #3 and of its plain
      version, with the card's name and power limit;
-  5b. times at the deep target's shape: the same for kernel #4.
+  5b. times at the deep target's shape: the same for kernel #4;
+  3c. kernel #6 == plain version: every formula mode, f32/bf16/int8 rows,
+     "highest" and "default", at N = 8,192, n = 256 (and ragged N, and
+     widths that are not whole 16-byte chunks), the adversarial compensated
+     stream of tests/test_ops.py, a bit-for-bit repeat, and the headline;
+  3d. kernel #5 == plain version: NormL1 and Zero, every storage and
+     precision at N = 8,192, n = 128, B = 128, K = 64, and K = 8 at the
+     headline;
+  4d. SVRG path: 150 outer steps at int8 and at f32 rows, the ``SVRG`` and
+     SVRG++ facades, kernel #5 and #6 launch counts, #3 and #4 unmoved;
+  4e. FISTA path: 600 steps at f32 and int8 rows and the ``FISTA`` facade,
+     kernel #6 once per step;
+  6. times at the headline: kernel #6 per pass against its plain version,
+     its bound and the two-gemv yardstick; kernel #5 per step against its
+     plain version; ms per SVRG outer step and per FISTA step.
 
-Then a JSON line of the kernels, and last ``{"ok": true, "device": ...}``.
+Then a JSON line of the kernels (with each one's bound, computed from this
+run's inputs), and last ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits non-zero and prints no result.
 Data are random from ``--seed``, made on the card.
 """
@@ -82,6 +106,29 @@ IMPORTANCE_EPOCHS = 32
 SMALL_STREAM = dict(N=8_192, n=128, B=128, K=64, f=23)
 DEEP_K = 8
 
+# the SVRG configuration of bench.py (svrg fused): m = N/B inner steps per
+# outer step, γ = 1/(10·L_max); the facades' planted Lasso is FACADE's
+SVRG_M = N // B
+SVRG_OUTER = 150
+SVRG_FACADE = dict(batch=1_024, m=64, maxit=513, gamma_L=3.0)
+SVRG_PLUS = dict(batch=1_024, m=1, maxit=16, gamma_L=3.0)
+FACADE_DROP = 1_000.0  # the least fall of cost − f* each facade must show
+# the FISTA configuration of bench.py (fista fused): γ = 1/mean(L)
+FISTA_STEPS = 600
+FISTA_FACADE_STEPS = 200
+# kernel #6 against its plain version
+APPLY_SMALL = dict(N=8_192, n=256)
+ADVERSARIAL = dict(N=262_144, n=128, tile=2_048)
+# kernel #5 against its plain version: d = 64 blocks
+SVRG_SMALL = dict(N=8_192, n=128, B=128, K=64)
+
+# The card's published rates (NVIDIA's data sheet, H100 SXM): device
+# memory, and the peak for the rows' type — f32 outside the tensor cores,
+# bf16 and int8 in them. A kernel's bound is the larger of its bytes (each
+# input read once, each output written once) and its operations over these.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {4: 67e12, 2: 989e12, 1: 1979e12}
+
 # Tolerances of the kernel against its plain version, as errors relative to
 # the largest entry of the plain version's output. Both run the same
 # arithmetic in f32 but sum in other orders (the kernel per lane and by
@@ -90,7 +137,10 @@ DEEP_K = 8
 # all comparisons below were 6e-8 for z and 2.3e-7 for c and av with
 # exact-f32 dots, and 2.2e-7 for z and 2.9e-6 for c and av where both dot
 # operands round to bf16, where a rounding difference in z can move one bf16
-# operand by an ulp (2^-8). The bounds keep a margin of at least 17x.
+# operand by an ulp (2^-8). Kernel #5's w and zs stayed within 1.1e-7 of
+# theirs, and kernel #6's c and gradient sum within 7.2e-7 (exact f32; the
+# Huber clip) and 1.6e-6 (bf16 dots). The bounds keep a margin of at least
+# 14x.
 Z_TOL = {False: 1e-6, True: 1e-5}
 STATE_TOL = {False: 1e-5, True: 1e-4}
 
@@ -113,17 +163,47 @@ def card_info() -> str:
 
 def lasso(gen, dev, rows: int, cols: int, storage: str):
     """The headline's random Lasso on the card: Gaussian rows and offsets,
-    scale N, stored ``storage``; γ = 1/(3·L_max) as bench.py sets it."""
+    scale N, stored ``storage``; SAGA's γ = 1/(3·L_max) as bench.py sets
+    it, and the (rows,) moduli L_i = N·‖a_i‖² of the f32 rows."""
     from ciao_tpu_torch.oracles import LeastSquaresRows
 
     A = torch.randn(rows, cols, generator=gen, device=dev)
     b = torch.randn(rows, generator=gen, device=dev)
-    L_max = float((A * A).sum(dim=1).max()) * rows
+    L = (A * A).sum(dim=1) * rows
     F = LeastSquaresRows(A, b, torch.tensor(float(rows), device=dev))
     if storage != "f32":
         F = F.with_storage(storage)
-    return F, torch.tensor(1.0 / (3.0 * L_max), dtype=torch.float32,
-                           device=dev)
+    return F, torch.tensor(1.0 / (3.0 * float(L.max())), dtype=torch.float32,
+                           device=dev), L
+
+
+def cost(F, g, z) -> float:
+    """(1/N) Σ f_i(z) + g(z) in one margin pass."""
+    return float(F.value_sum_all(z) / F.num_terms + g.value(z))
+
+
+def bound(nbytes: float, ops: float, itemsize: int):
+    """(ms, what bounds it): the least time the card could take to move
+    ``nbytes`` and do ``ops`` on rows of ``itemsize`` bytes."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[itemsize]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def step_bound(F, starts, B_: int, vec_bytes: int, row_extra: int):
+    """The bound per step of K block steps on ``starts``: the rows, offsets
+    and other per-row values (``row_extra`` bytes a row, and the int8
+    scale) of every distinct block visited, once, and ``vec_bytes`` of
+    (n,) vectors, over K; 4·B·n operations a step (the margins and the
+    innovation)."""
+    rows, _ = F.coeff_rows_data()
+    n_, isz = rows.shape[1], rows.element_size()
+    K = starts.shape[0]
+    blocks = int(torch.unique(starts).numel())
+    per_row = n_ * isz + row_extra + 4 * (rows.dtype == torch.int8)
+    return bound((blocks * B_ * per_row + vec_bytes + 4 * K) / K,
+                 4.0 * B_ * n_, isz)
 
 
 def kernel_inputs(F, gamma, gen, dev, B_: int, K: int, sag: bool,
@@ -226,7 +306,7 @@ def phase_check(gen, dev) -> float:
     s = SMALL
     for storage, precision in (("f32", "highest"), ("f32", "default"),
                                ("bf16", "highest"), ("int8", "highest")):
-        F, gamma = lasso(gen, dev, s["N"], s["n"], storage)
+        F, gamma, _ = lasso(gen, dev, s["N"], s["n"], storage)
         for sag in (False, True):
             for weighted in (False, True):
                 tag = (f"N={s['N']} n={s['n']} B={s['B']} K={s['K']} "
@@ -238,13 +318,13 @@ def phase_check(gen, dev) -> float:
         del F
     # rows that are not whole 16-byte chunks: the one-value-at-a-time path
     for storage, cols in (("f32", 202), ("bf16", 200), ("int8", 200)):
-        F, gamma = lasso(gen, dev, s["N"], cols, storage)
+        F, gamma, _ = lasso(gen, dev, s["N"], cols, storage)
         tag = f"N={s['N']} n={cols} B={s['B']} K={s['K']} {storage} SAGA"
         worst = max(worst, compare(F, gamma, gen, dev, s["B"], s["K"], False,
                                    True, "highest", tag))
         del F
     for storage in ("f32", "bf16", "int8"):
-        F, gamma = lasso(gen, dev, N, n, storage)
+        F, gamma, _ = lasso(gen, dev, N, n, storage)
         tag = f"N={N} n={n} B={B} K={HEADLINE_K} {storage} SAGA"
         worst = max(worst, compare(F, gamma, gen, dev, B, HEADLINE_K, False,
                                    False, "highest", tag))
@@ -257,7 +337,7 @@ def phase_check_streamed(gen, dev) -> float:
     s = SMALL_STREAM
     for storage, precision in (("f32", "highest"), ("f32", "default"),
                                ("bf16", "highest"), ("int8", "highest")):
-        F, gamma = lasso(gen, dev, s["N"], s["n"], storage)
+        F, gamma, _ = lasso(gen, dev, s["N"], s["n"], storage)
         for sag in (False, True):
             for weighted in (False, True):
                 for f in (s["K"], s["f"]):
@@ -273,7 +353,7 @@ def phase_check_streamed(gen, dev) -> float:
                         f"N={s['N']} K={s['K']} {storage}")
         del F
     for storage in ("f32", "int8"):
-        F, gamma = lasso(gen, dev, DEEP["N"], DEEP["n"], storage)
+        F, gamma, _ = lasso(gen, dev, DEEP["N"], DEEP["n"], storage)
         tag = (f"N={DEEP['N']} n={DEEP['n']} B={DEEP['B']} K={DEEP_K} "
                f"{storage} SAGA")
         worst = max(worst, compare(F, gamma, gen, dev, DEEP["B"], DEEP_K,
@@ -293,7 +373,7 @@ def run_headline(gen, dev, storage: str, kernel) -> dict:
         LAUNCH_STEPS, SAGACfg, saga_init, saga_run,
     )
 
-    F, gamma = lasso(gen, dev, N, n, storage)
+    F, gamma, _ = lasso(gen, dev, N, n, storage)
     g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
     x0 = torch.zeros(n, device=dev)
     fused = saga_multistep_available(F, g, x0, B)
@@ -327,19 +407,13 @@ def run_headline(gen, dev, storage: str, kernel) -> dict:
     return dict(F=F, gamma=gamma)
 
 
-def run_facade(dev, seed: int, kernel) -> None:
-    """The SAGA facade, as a user calls it, on a planted Lasso."""
+def run_facade(dev, prob, F, kernel) -> None:
+    """The SAGA facade, as a user calls it, on the planted Lasso."""
     import numpy as np
 
-    from ciao_tpu_torch import SAGA, LeastSquaresRows, NormL1
-    from ciao_tpu_torch.utils.problems import make_lasso
+    from ciao_tpu_torch import SAGA, NormL1
 
     Np, batch, maxit = FACADE["N"], FACADE["batch"], FACADE["maxit"]
-    prob = make_lasso(N=Np, n=n, p=FACADE["p"], seed=seed,
-                      well_conditioned=True)
-    F = LeastSquaresRows(
-        torch.tensor(prob.A, dtype=torch.float32, device=dev),
-        torch.tensor(prob.b, dtype=torch.float32, device=dev), float(Np))
     gap0 = prob.cost(np.zeros(n)) - prob.f_star
     before = kernel.launches
     torch.cuda.synchronize()
@@ -547,32 +621,442 @@ def run_importance(prob, card: str) -> None:
 
 def time_per_step(fn, F, gamma, gen, dev, B_: int, K: int,
                   reps: int) -> float:
-    """ms per step of ``fn`` (kernel wrapper or plain version) at blocks of
-    B_ rows of ``F``, by CUDA events over ``reps`` calls of K steps after
-    one warm-up call."""
+    """(ms per step, the starts) of ``fn`` (kernel wrapper or plain
+    version) at blocks of B_ rows of ``F``, by CUDA events over ``reps``
+    calls of K steps after one warm-up call."""
     c, z, av, starts, sc, _ = kernel_inputs(F, gamma, gen, dev, B_, K, False,
                                             False)
     rows, offs = F.coeff_rows_data()
     rs = F.coeff_rows_scale()
-    fn(rows, offs, starts, c, z, av, sc, B_, rs=rs)
+    ms = time_events(lambda: fn(rows, offs, starts, c, z, av, sc, B_, rs=rs),
+                     reps) / K
+    if not bool(torch.isfinite(z).all()):
+        raise AssertionError("timed run gave non-finite z")
+    return ms, starts
+
+
+def check_close(tag, pairs, lowp, moved=None):
+    """Raise unless every (kernel, plain) output pair is finite and within
+    STATE_TOL of the plain version's largest entry; returns the largest
+    absolute error."""
+    worst = 0.0
+    rels = []
+    for name, kt, rt in pairs:
+        if not bool(torch.isfinite(kt).all()):
+            raise AssertionError(f"{tag}: kernel {name} has non-finite values")
+        err = float((kt - rt).abs().max())
+        rel = err / max(float(rt.abs().max()), 1e-30)
+        rels.append(f"{name} rel {rel:.2e}")
+        worst = max(worst, err)
+        if rel > STATE_TOL[lowp]:
+            raise AssertionError(f"{tag}: {name} rel error {rel:.3e} > "
+                                 f"{STATE_TOL[lowp]}")
+    log(f"  {tag}: max abs err {worst:.3e} ({', '.join(rels)})"
+        + ("" if moved is None else f"; moved {moved:.3e}"))
+    return worst
+
+
+def compare_apply(F, z, sc, precision, tag):
+    """Kernel #6 and its plain version on one input."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    rows, offs = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    kc, kg = fb.coeff_apply_all(rows, offs, z, sc, precision=precision, rs=rs)
+    rc, rg = fb.coeff_apply_all_ref(rows, offs, z, sc, precision=precision,
+                                    rs=rs)
+    torch.cuda.synchronize()
+    return check_close(tag, (("c", kc, rc), ("gsum", kg, rg)),
+                       fb._lowp(rows, precision))
+
+
+def phase_check_apply(gen, dev) -> float:
+    """Kernel #6 against its plain version: every mode through the scalars
+    row, every storage and precision; ragged N and narrow widths; the
+    adversarial compensated stream; a bit-for-bit repeat; the headline.
+    The formula's scale is 1, so c and the gradient sum are O(1) to O(100)
+    at the small shapes; at the headline the sum over 262,144 rows reaches
+    O(1e4), and its absolute error grows with it (the checks are relative
+    to the largest entry)."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    worst = 0.0
+    Ns, ns = APPLY_SMALL["N"], APPLY_SMALL["n"]
+    for storage, precision in (("f32", "highest"), ("f32", "default"),
+                               ("bf16", "highest"), ("int8", "highest")):
+        F, _, _ = lasso(gen, dev, Ns, ns, storage)
+        z = 0.05 * torch.randn(ns, generator=gen, device=dev)
+        for mode in range(5):
+            sc = torch.tensor([1.0, mode, 0.5], device=dev)
+            worst = max(worst, compare_apply(
+                F, z, sc, precision,
+                f"N={Ns} n={ns} {storage}/{precision} mode {mode}"))
+    for storage, rows_, cols in (("f32", Ns - 1, 202), ("bf16", Ns, 200),
+                                 ("int8", Ns - 5, 200)):
+        F, _, _ = lasso(gen, dev, rows_, cols, storage)
+        z = 0.05 * torch.randn(cols, generator=gen, device=dev)
+        sc = torch.tensor([1.0, 0.0, 0.0], device=dev)
+        worst = max(worst, compare_apply(F, z, sc, "highest",
+                                         f"N={rows_} n={cols} {storage}"))
+    # tests/test_ops.py:367: one tile of c = 2^18, then 1e-3; a plain f32
+    # running sum loses the small rows in the big partial's ulp
+    a = ADVERSARIAL
+    A = torch.zeros(a["N"], a["n"], device=dev)
+    A[:, 0] = 1.0
+    b = torch.full((a["N"],), -1e-3, device=dev)
+    b[:a["tile"]] = -(2.0 ** 18)
+    sc = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    z = torch.zeros(a["n"], device=dev)
+    _, g1 = fb.coeff_apply_all(A, b, z, sc)
+    _, g2 = fb.coeff_apply_all(A, b, z, sc)
+    torch.cuda.synchronize()
+    exact = 2.0 ** 18 * a["tile"] + 1e-3 * (a["N"] - a["tile"])
+    lost = 1e-3 * (a["N"] - a["tile"])
+    err = abs(float(g1[0]) - exact)
+    log(f"  adversarial N={a['N']} n={a['n']}: |gsum - exact| {err:.4f} "
+        f"(bound 0.05 x lost = {0.05 * lost:.4f}); repeat bit for bit "
+        f"{torch.equal(g1, g2)}")
+    if not err < 0.05 * lost:
+        raise AssertionError(f"adversarial: err {err} >= {0.05 * lost}")
+    if not torch.equal(g1, g2):
+        raise AssertionError("kernel #6 does not repeat bit for bit")
+    del A, b
+    for storage in ("f32", "bf16", "int8"):
+        F, _, _ = lasso(gen, dev, N, n, storage)
+        z = 0.05 * torch.randn(n, generator=gen, device=dev)
+        sc = torch.tensor([1.0, 0.0, 0.0], device=dev)
+        worst = max(worst, compare_apply(F, z, sc, "highest",
+                                         f"N={N} n={n} {storage}"))
+        del F
+    return worst
+
+
+def svrg_inputs(F, gamma, gen, dev, B_: int, K: int, lam: float):
+    """An SVRG-like state and K block starts: the anchor z̃ small and
+    random, its coefficients and mean gradient, w near z̃, zs zero, and
+    the scalars row [scale, γ, γλ, 1/B, mode, aux]."""
+    from ciao_tpu_torch.solvers.saga import block_starts
+
+    rows, cols = F.num_terms, F.dim
+    zt = 0.05 * torch.randn(cols, generator=gen, device=dev)
+    canch = F.coeff_all(zt)
+    av = F.apply_all(canch) / rows
+    w = zt + 0.01 * torch.randn(cols, generator=gen, device=dev)
+    seed = int(torch.randint(1 << 30, (1,), generator=gen, device=dev))
+    starts = block_starts(seed, 1, K, rows // B_, B_, dev)
+    sc = torch.tensor([rows, float(gamma), float(gamma) * lam, 1.0 / B_,
+                       0.0, 0.0], dtype=torch.float32, device=dev)
+    return canch, [w, torch.zeros_like(w)], av, starts, sc
+
+
+def compare_svrg(F, gamma, gen, dev, B_, K, lam, precision, tag) -> float:
+    """Kernel #5 and its plain version from one state on one schedule;
+    returns the largest absolute error of w."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    canch, state, av, starts, sc = svrg_inputs(F, gamma, gen, dev, B_, K, lam)
+    rows, offs = F.coeff_rows_data()
+    outs = []
+    for fn in (fb.svrg_coeff_multistep, fb.svrg_coeff_multistep_ref):
+        st = [t.clone() for t in state]
+        fn(rows, offs, starts, canch, *st, av, sc, B_, precision=precision,
+           rs=F.coeff_rows_scale())
+        outs.append(st)
+    torch.cuda.synchronize()
+    lowp = fb._lowp(rows, precision)
+    moved = float((outs[1][0] - state[0]).abs().max())
+    if moved == 0.0:
+        raise AssertionError(f"{tag}: the steps did not move w")
+    (kw, kzs), (rw, rzs) = outs
+    rel = float((kw - rw).abs().max()) / max(float(rw.abs().max()), 1e-30)
+    if rel > Z_TOL[lowp]:
+        raise AssertionError(f"{tag}: w rel error {rel:.3e} > {Z_TOL[lowp]}")
+    check_close(tag, (("w", kw, rw), ("zs", kzs, rzs)), lowp, moved)
+    return float((kw - rw).abs().max())
+
+
+def phase_check_svrg(gen, dev) -> float:
+    s = SVRG_SMALL
+    worst = 0.0
+    for storage, precision in (("f32", "highest"), ("f32", "default"),
+                               ("bf16", "highest"), ("int8", "highest")):
+        F, gamma, _ = lasso(gen, dev, s["N"], s["n"], storage)
+        for lam in (LAM, 0.0):
+            tag = (f"N={s['N']} n={s['n']} B={s['B']} K={s['K']} "
+                   f"{storage}/{precision} {'NormL1' if lam else 'Zero'}")
+            worst = max(worst, compare_svrg(F, 0.3 * gamma, gen, dev, s["B"],
+                                            s["K"], lam, precision, tag))
+    for storage in ("f32", "bf16", "int8"):
+        F, gamma, _ = lasso(gen, dev, N, n, storage)
+        tag = f"N={N} n={n} B={B} K={HEADLINE_K} {storage} NormL1"
+        worst = max(worst, compare_svrg(F, 0.3 * gamma, gen, dev, B,
+                                        HEADLINE_K, LAM, "highest", tag))
+        del F
+    return worst
+
+
+def run_svrg_headline(gen, dev, storage: str, card: str) -> dict:
+    """svrg_init, then SVRG_OUTER outer steps of svrg_run at bench.py's
+    svrg configuration, through both kernels; returns the ms per outer
+    step and what phase 6 profiles again (the oracle, the prox, the
+    moduli, the init state and the config)."""
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers.svrg import SVRGCfg, svrg_init, svrg_run
+
+    F, _, L = lasso(gen, dev, N, n, storage)
+    g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    if not fb.svrg_multistep_available(F, g, x0, B):
+        raise AssertionError(f"svrg {storage}: the kernel's gate is closed")
+    cfg = SVRGCfg(N=N, plus=False, batch=B, block=True, fused=True)
+    st0 = st = svrg_init(F, g, x0, 1.0 / (10.0 * float(L.max())), SVRG_M, 0,
+                         cfg)
+    obj0 = cost(F, g, st.z_full)
+    k5, k6 = fb.svrg_coeff_multistep.launches, fb.coeff_apply_all.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = svrg_run(F, g, st, cfg, SVRG_OUTER)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    d5 = fb.svrg_coeff_multistep.launches - k5
+    d6 = fb.coeff_apply_all.launches - k6
+    obj1 = cost(F, g, st.z_full)
+    for name in ("z_full", "w", "av", "canch"):
+        if not bool(torch.isfinite(getattr(st, name)).all()):
+            raise AssertionError(f"svrg {storage}: {name} is not finite")
+    if d5 != SVRG_OUTER or d6 != SVRG_OUTER:
+        raise AssertionError(f"svrg {storage}: {d5} kernel #5 and {d6} "
+                             f"kernel #6 launches, expected {SVRG_OUTER}")
+    if not (math.isfinite(obj1) and obj1 < obj0) or st.it != SVRG_OUTER + 1:
+        raise AssertionError(f"svrg {storage}: objective {obj0} -> {obj1}, "
+                             f"it {st.it}")
+    ms = dt * 1e3 / SVRG_OUTER
+    log(f"  svrg headline {storage}: N={N} n={n} B={B} m={SVRG_M}, "
+        f"{SVRG_OUTER} outer steps ({d5} kernel #5, {d6} kernel #6 "
+        f"launches), objective {obj0:.6e} -> {obj1:.6e}, {ms:.4f} ms per "
+        f"outer step end to end [{card}]")
+    return dict(ms=ms, F=F, g=g, L=L, st=st0, cfg=cfg)
+
+
+def facade_problem(dev, seed: int):
+    """The facades' planted Lasso (FACADE) with its f32 oracle on the card."""
+    from ciao_tpu_torch import LeastSquaresRows
+    from ciao_tpu_torch.utils.problems import make_lasso
+
+    Np = FACADE["N"]
+    prob = make_lasso(N=Np, n=n, p=FACADE["p"], seed=seed,
+                      well_conditioned=True)
+    F = LeastSquaresRows(
+        torch.tensor(prob.A, dtype=torch.float32, device=dev),
+        torch.tensor(prob.b, dtype=torch.float32, device=dev), float(Np))
+    return prob, F
+
+
+def run_svrg_facades(dev, prob, F, card: str) -> None:
+    """The SVRG facade, as a user calls it, in both modes on the planted
+    Lasso: block sampling at batch 1,024 with m = N/batch, and SVRG++ from
+    m = 1; each must bring cost − f* down FACADE_DROP-fold."""
+    import numpy as np
+
+    from ciao_tpu_torch import SVRG, NormL1
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    gap0 = prob.cost(np.zeros(n)) - prob.f_star
+    L_max = float(np.max(prob.L))
+    for tag, kw in (("SVRG", SVRG_FACADE), ("SVRG++", SVRG_PLUS)):
+        k5, k6 = fb.svrg_coeff_multistep.launches, fb.coeff_apply_all.launches
+        solver = SVRG(maxit=kw["maxit"], gamma=1.0 / (kw["gamma_L"] * L_max),
+                      m=kw["m"], plus=tag == "SVRG++", block_sampling=True,
+                      batch=kw["batch"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, it = solver(torch.zeros(n, device=dev), F=F, g=NormL1(prob.lam))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d5 = fb.svrg_coeff_multistep.launches - k5
+        d6 = fb.coeff_apply_all.launches - k6
+        gap1 = prob.cost(x.double().cpu().numpy()) - prob.f_star
+        log(f"  facade {tag}(block_sampling=True, batch={kw['batch']}, "
+            f"m={kw['m']}, maxit={kw['maxit']}, γ=1/({kw['gamma_L']}·L_max)) "
+            f"on planted make_lasso(N={FACADE['N']}, n={n}): cost - f* "
+            f"{gap0:.6e} -> {gap1:.6e} ({gap0 / gap1:.1f}-fold) after "
+            f"{it - 1} outer steps, {d5} kernel #5 and {d6} kernel #6 "
+            f"launches, {dt:.3f} s [{card}]")
+        if not (math.isfinite(gap1) and gap0 / gap1 >= FACADE_DROP):
+            raise AssertionError(f"facade {tag}: cost - f* {gap0} -> {gap1}")
+        if d5 == 0 or d6 != it - 1:
+            raise AssertionError(f"facade {tag}: {d5} kernel #5 and {d6} "
+                                 f"kernel #6 launches for {it - 1} steps")
+
+
+def run_fista(dev, F, g, L, steps: int, tag: str, card: str,
+              gap=None) -> float:
+    """FISTA(maxit=steps + 1) through the facade, γ = 1/mean(L): kernel #6
+    once per step and a falling objective (or cost − f* through ``gap``);
+    returns ms per step."""
+    from ciao_tpu_torch import FISTA
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    x0 = torch.zeros(F.dim, device=dev)
+    before = fb.coeff_apply_all.launches
+    obj0 = cost(F, g, x0) if gap is None else gap(x0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, it = FISTA(maxit=steps + 1)(x0, F=F, g=g, L=L)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = fb.coeff_apply_all.launches - before
+    obj1 = cost(F, g, x) if gap is None else gap(x)
+    ms = dt * 1e3 / steps
+    what = "objective" if gap is None else "cost - f*"
+    log(f"  FISTA {tag}: {steps} steps in {launches} kernel #6 launches, "
+        f"{what} {obj0:.6e} -> {obj1:.6e}, {ms:.4f} ms per step end to end "
+        f"[{card}]")
+    if launches != steps or it != steps + 1:
+        raise AssertionError(f"FISTA {tag}: {launches} kernel #6 launches "
+                             f"for {steps} steps")
+    if not (math.isfinite(obj1) and obj1 < obj0):
+        raise AssertionError(f"FISTA {tag}: {what} {obj0} -> {obj1}")
+    return ms
+
+
+def profile_steps(tag: str, fn, steps: int, card: str) -> dict:
+    """One call of ``fn`` (``steps`` solver steps) by the host clock, then
+    once more under torch.profiler: ms per step, the device's busy time
+    per step split by kernel, and the idle share 1 − busy/step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = {"kernel #5": 0.0, "kernel #6": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        key = ("kernel #6" if "apply_" in e.key else "kernel #5"
+               if "rows_kernel" in e.key or "svrg_finish" in e.key
+               else "other")
+        split[key] += us / 1e3 / steps
+    busy = sum(split.values())
+    if busy <= 0.0:
+        raise AssertionError(f"profile {tag}: the trace shows no device time")
+    log(f"  profiled {tag}: {step:.4f} ms per step by the host clock; "
+        f"device busy {busy:.4f} ms per step ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"), idle share {1.0 - busy / step:.3f} [{card}]")
+    return dict(step=step, busy=busy, **split)
+
+
+def time_events(fn, reps: int) -> float:
+    """ms per call of ``fn`` by CUDA events over ``reps`` calls after one
+    warm-up call."""
+    fn()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0.record()
     for _ in range(reps):
-        fn(rows, offs, starts, c, z, av, sc, B_, rs=rs)
+        fn()
     t1.record()
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(z).all()):
-        raise AssertionError("timed run gave non-finite z")
-    return t0.elapsed_time(t1) / (reps * K)
+    return t0.elapsed_time(t1) / reps
 
 
-KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed")
+def time_apply(gen, dev, storage: str, card: str) -> dict:
+    """Kernel #6 per pass at the headline, in turns with its plain version
+    (plain, kernel, kernel, plain), its bound, and the two-gemv yardstick
+    (torch.mv for the margins, the formula, torch.mv for Σ c_i·a_i: two
+    reads of A; f32 and bf16 rows only, torch.mv takes no int8)."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    F, _, _ = lasso(gen, dev, N, n, storage)
+    rows, offs = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    z = 0.05 * torch.randn(n, generator=gen, device=dev)
+    scale = float(N)
+    sc = torch.tensor([scale, 0.0, 0.0], device=dev)
+
+    def kernel():
+        fb.coeff_apply_all(rows, offs, z, sc, rs=rs)
+
+    def plain():
+        fb.coeff_apply_all_ref(rows, offs, z, sc, rs=rs)
+
+    def two_gemv():
+        m = torch.mv(rows, z.to(rows.dtype)).float()
+        c = scale * (m - offs)
+        return torch.mv(rows.t(), c.to(rows.dtype))
+
+    pl = [time_events(plain, 2)]
+    kern = [time_events(kernel, 20) for _ in range(2)]
+    pl.append(time_events(plain, 2))
+    lib = None if storage == "int8" else time_events(two_gemv, 20)
+    isz = rows.element_size()
+    nbytes = N * (n * isz + 8 + 4 * (storage == "int8")) + 8 * n + 12
+    b_ms, b_by = bound(nbytes, 4.0 * N * n, isz)
+    log(f"  kernel #6, {storage} rows, N={N} n={n}: kernel "
+        f"{kern[0]:.4f}/{kern[1]:.4f} ms per pass, plain version "
+        f"{pl[0]:.4f}/{pl[1]:.4f}, bound {b_ms:.4f} ({b_by}: "
+        f"{nbytes / 2**20:.1f} MiB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+        f"two-gemv yardstick "
+        f"{'none' if lib is None else f'{lib:.4f}'} [{card}]")
+    return dict(ms=sum(kern) / 2, plain_ms=sum(pl) / 2, bound_ms=b_ms,
+                bound_by=b_by, two_gemv_ms=lib)
+
+
+def time_svrg(gen, dev, storage: str, card: str) -> dict:
+    """Kernel #5 per inner step at the headline (LAUNCH_STEPS-step calls),
+    in turns with its plain version, and its bound."""
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
+
+    F, gamma, _ = lasso(gen, dev, N, n, storage)
+    rows, offs = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    canch, (w, zs), av, starts, sc = svrg_inputs(
+        F, 0.3 * gamma, gen, dev, B, LAUNCH_STEPS, LAM)
+
+    def run(fn):
+        return lambda: fn(rows, offs, starts, canch, w, zs, av, sc, B, rs=rs)
+
+    K = LAUNCH_STEPS
+    pl = [time_events(run(fb.svrg_coeff_multistep_ref), 1) / K]
+    kern = [time_events(run(fb.svrg_coeff_multistep), 4) / K
+            for _ in range(2)]
+    pl.append(time_events(run(fb.svrg_coeff_multistep_ref), 1) / K)
+    if not bool(torch.isfinite(w).all()):
+        raise AssertionError("timed kernel #5 run gave non-finite w")
+    # rows, b and canch of the visited blocks; w, zs in and out, av
+    b_ms, b_by = step_bound(F, starts, B, 5 * 4 * n, 8)
+    log(f"  kernel #5, {storage} rows, N={N} n={n} B={B}: kernel "
+        f"{kern[0]:.4f}/{kern[1]:.4f} ms/step, plain version "
+        f"{pl[0]:.4f}/{pl[1]:.4f}, bound {b_ms:.4f} ms/step ({b_by}) "
+        f"[{card}]")
+    return dict(ms=sum(kern) / 2, plain_ms=sum(pl) / 2, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
+           "svrg_coeff_multistep", "coeff_apply_all")
+# the def line of the TPU kernel each replaces, in ciao_tpu/ops/fused_block.py
+REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
+            "svrg_coeff_multistep": 966, "coeff_apply_all": 798}
 
 
 def build_all() -> None:
-    """Both kernels' nvcc runs started together, then loaded."""
+    """The kernels' nvcc runs started together, then loaded."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ciao_tpu_torch.ops import _build
@@ -591,16 +1075,48 @@ def build_all() -> None:
 
 
 def timed_turns(kernel, plain, F, gamma, gen, dev, B_, tag, card):
-    """(kernel, plain) ms per step in turns: plain, kernel, kernel, plain."""
+    """(kernel, plain, bound) ms per SAGA step in turns: plain, kernel,
+    kernel, plain; the bound of the first kernel turn's schedule (rows, b,
+    c read and written of the visited blocks; z and av in and out)."""
     from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
 
-    pl = [time_per_step(plain, F, gamma, gen, dev, B_, LAUNCH_STEPS, 1)]
-    kern = [time_per_step(kernel, F, gamma, gen, dev, B_, LAUNCH_STEPS, 4)
-            for _ in range(2)]
-    pl.append(time_per_step(plain, F, gamma, gen, dev, B_, LAUNCH_STEPS, 1))
-    log(f"  {tag}: kernel {kern[0]:.4f}/{kern[1]:.4f} ms/step, plain version "
-        f"{pl[0]:.4f}/{pl[1]:.4f} ms/step [{card}]")
-    return sum(kern) / 2, sum(pl) / 2
+    def turn(fn, reps):
+        return time_per_step(fn, F, gamma, gen, dev, B_, LAUNCH_STEPS, reps)
+
+    pl = [turn(plain, 1)[0]]
+    (k0, starts), (k1, _) = turn(kernel, 4), turn(kernel, 4)
+    pl.append(turn(plain, 1)[0])
+    b_ms, b_by = step_bound(F, starts, B_, 4 * 4 * F.dim, 12)
+    log(f"  {tag}: kernel {k0:.4f}/{k1:.4f} ms/step, plain version "
+        f"{pl[0]:.4f}/{pl[1]:.4f} ms/step, bound {b_ms:.4f} ms/step "
+        f"({b_by}) [{card}]")
+    return dict(ms=(k0 + k1) / 2, plain_ms=sum(pl) / 2, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def kernel_line(name: str, launches: int, max_err: float, t: dict) -> dict:
+    """One kernel's entry of the JSON line: what this run measured and the
+    bound it computed from this run's inputs."""
+    return {"name": name, "route": "cuda",
+            "source": f"ciao_tpu_torch/csrc/{name}.cu",
+            "replaces": f"ciao_tpu/ops/fused_block.py:{REPLACES[name]}",
+            "launches": launches, "max_abs_err": max_err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    for name in KERNELS:
+        getattr(fb, name).launches = 0
+
+
+def counts() -> dict:
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    return {name: getattr(fb, name).launches for name in KERNELS}
 
 
 def main() -> int:
@@ -618,6 +1134,7 @@ def main() -> int:
         saga_coeff_multistep, saga_coeff_multistep_ref,
         saga_coeff_multistep_streamed, saga_coeff_multistep_streamed_ref,
     )
+    from ciao_tpu_torch.prox import NormL1
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -635,23 +1152,39 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 3. kernel #3 == plain version; 3b. kernel #4 == plain version
-    max_err = phase_check(gen, dev)
-    log(f"phase 3 kernel #3 == plain version: ok, max |dz| {max_err:.3e}")
-    max_err4 = phase_check_streamed(gen, dev)
-    log(f"phase 3b kernel #4 == plain version: ok, max |dz| {max_err4:.3e}")
+    # 3, 3b, 3c, 3d. each kernel == its plain version
+    errs = {"saga_coeff_multistep": phase_check(gen, dev)}
+    log(f"phase 3 kernel #3 == plain version: ok, max |dz| "
+        f"{errs['saga_coeff_multistep']:.3e}")
+    errs["saga_coeff_multistep_streamed"] = phase_check_streamed(gen, dev)
+    log(f"phase 3b kernel #4 == plain version: ok, max |dz| "
+        f"{errs['saga_coeff_multistep_streamed']:.3e}")
+    errs["coeff_apply_all"] = phase_check_apply(gen, dev)
+    log(f"phase 3c kernel #6 == plain version: ok, max abs err "
+        f"{errs['coeff_apply_all']:.3e}")
+    errs["svrg_coeff_multistep"] = phase_check_svrg(gen, dev)
+    log(f"phase 3d kernel #5 == plain version: ok, max |dw| "
+        f"{errs['svrg_coeff_multistep']:.3e}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fprob, fF = facade_problem(dev, args.seed)
+    log(f"  facades' planted Lasso {FACADE['N']} x {n} built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches = {}
 
     # 4. the headline path, counts from 0
-    saga_coeff_multistep.launches = 0
-    saga_coeff_multistep_streamed.launches = 0
+    reset_counts()
     int8 = run_headline(gen, dev, "int8", saga_coeff_multistep)
     f32 = run_headline(gen, dev, "f32", saga_coeff_multistep)
-    run_facade(dev, args.seed, saga_coeff_multistep)
-    launches = saga_coeff_multistep.launches
-    if launches == 0 or saga_coeff_multistep_streamed.launches != 0:
-        raise AssertionError("the headline path did not run on kernel #3 "
-                             "alone")
-    log(f"phase 4 headline path: ok, {launches} kernel #3 launches")
+    run_facade(dev, fprob, fF, saga_coeff_multistep)
+    c4 = counts()
+    launches["saga_coeff_multistep"] = c4["saga_coeff_multistep"]
+    if c4["saga_coeff_multistep"] == 0 or sum(c4.values()) != c4[
+            "saga_coeff_multistep"]:
+        raise AssertionError(f"the headline path did not run on kernel #3 "
+                             f"alone: {c4}")
+    log(f"phase 4 headline path: ok, launches {c4}")
 
     # 4b, 4c. the deep path, counts from 0
     t0 = time.perf_counter()
@@ -660,30 +1193,20 @@ def main() -> int:
     log(f"  deep target: planted {DEEP['N']} x {DEEP['n']} Lasso "
         f"({DEEP['live']} live columns) built on the card in "
         f"{time.perf_counter() - t0:.2f} s, f* = {prob.f_star:.9f}")
-    saga_coeff_multistep.launches = 0
-    saga_coeff_multistep_streamed.launches = 0
+    reset_counts()
     rels = [run_deep(prob, ("f32",), "deep_solve f32 (cold)", card),
             run_deep(prob, ("f32",), "deep_solve f32 (warm)", card),
             run_deep(prob, ("int8", "f32"), "deep_solve int8->f32", card)]
     run_importance(prob, card)
-    launches4 = saga_coeff_multistep_streamed.launches
-    if launches4 == 0 or saga_coeff_multistep.launches != 0:
-        raise AssertionError("the deep path did not run on kernel #4 alone")
+    c4b = counts()
+    launches["saga_coeff_multistep_streamed"] = c4b[
+        "saga_coeff_multistep_streamed"]
+    if c4b["saga_coeff_multistep_streamed"] == 0 or sum(c4b.values()) != c4b[
+            "saga_coeff_multistep_streamed"]:
+        raise AssertionError(f"the deep path did not run on kernel #4 "
+                             f"alone: {c4b}")
     log(f"phase 4b/4c deep path: ok, rel {['%.3e' % r for r in rels]}, "
-        f"{launches4} kernel #4 launches")
-
-    # 5. times at the headline shape, in turns
-    times = {}
-    for storage, run in (("int8", int8), ("f32", f32)):
-        times[storage] = timed_turns(
-            saga_coeff_multistep, saga_coeff_multistep_ref, run["F"],
-            run["gamma"], gen, dev, B,
-            f"kernel #3, {storage} rows, N={N} n={n} B={B}", card)
-    log(f"phase 5 times: int8 kernel {times['int8'][0]:.4f} ms/step, plain "
-        f"{times['int8'][1]:.4f}; f32 kernel {times['f32'][0]:.4f}, plain "
-        f"{times['f32'][1]:.4f} [{card}]")
-
-    # 5b. times at the deep target's shape, in turns
+        f"launches {c4b}")
     times4 = {}
     for storage in ("f32", "int8"):
         times4[storage] = timed_turns(
@@ -691,29 +1214,99 @@ def main() -> int:
             prob.oracle(storage), prob.gamma, gen, dev, DEEP["B"],
             f"kernel #4, {storage} rows, N={DEEP['N']} n={DEEP['n']} "
             f"B={DEEP['B']}", card)
-    log(f"phase 5b times: f32 kernel {times4['f32'][0]:.4f} ms/step, plain "
-        f"{times4['f32'][1]:.4f}; int8 kernel {times4['int8'][0]:.4f}, plain "
-        f"{times4['int8'][1]:.4f} [{card}]")
+    del prob
+    torch.cuda.empty_cache()
 
-    log(json.dumps({"kernels": [{
-        "name": "saga_coeff_multistep",
-        "route": "cuda",
-        "source": "ciao_tpu_torch/csrc/saga_coeff_multistep.cu",
-        "replaces": "ciao_tpu/ops/fused_block.py:371",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": times["int8"][0],
-        "plain_ms": times["int8"][1],
-    }, {
-        "name": "saga_coeff_multistep_streamed",
-        "route": "cuda",
-        "source": "ciao_tpu_torch/csrc/saga_coeff_multistep_streamed.cu",
-        "replaces": "ciao_tpu/ops/fused_block.py:577",
-        "launches": launches4,
-        "max_abs_err": max_err4,
-        "ms": times4["f32"][0],
-        "plain_ms": times4["f32"][1],
-    }]}))
+    # 4d. the SVRG path, counts from 0
+    reset_counts()
+    svrg = {s_: run_svrg_headline(gen, dev, s_, card) for s_ in ("int8", "f32")}
+    svrg_ms = {s_: r["ms"] for s_, r in svrg.items()}
+    run_svrg_facades(dev, fprob, fF, card)
+    c4d = counts()
+    if (c4d["svrg_coeff_multistep"] == 0 or c4d["coeff_apply_all"] == 0
+            or c4d["saga_coeff_multistep"] or c4d[
+                "saga_coeff_multistep_streamed"]):
+        raise AssertionError(f"the SVRG path did not run on kernels #5 and "
+                             f"#6 alone: {c4d}")
+    log(f"phase 4d SVRG path: ok, launches {c4d}")
+
+    # 4e. the FISTA path, counts from 0
+    reset_counts()
+    fista_ms = {}
+    steps = 0
+    for storage in ("f32", "int8"):
+        F, _, L = lasso(gen, dev, N, n, storage)
+        g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
+        fista_ms[storage] = run_fista(dev, F, g, L, FISTA_STEPS,
+                                      f"headline {storage}", card)
+        steps += FISTA_STEPS
+        del F
+    run_fista(dev, fF, NormL1(fprob.lam), fprob.L, FISTA_FACADE_STEPS,
+              f"planted make_lasso(N={FACADE['N']}, n={n})", card,
+              gap=lambda x: fprob.cost(x.double().cpu().numpy())
+              - fprob.f_star)
+    steps += FISTA_FACADE_STEPS
+    c4e = counts()
+    if c4e["coeff_apply_all"] != steps or sum(c4e.values()) != steps:
+        raise AssertionError(f"the FISTA path: launches {c4e}, expected "
+                             f"{steps} of kernel #6 alone")
+    log(f"phase 4e FISTA path: ok, launches {c4e}")
+    launches["svrg_coeff_multistep"] = c4d["svrg_coeff_multistep"]
+    launches["coeff_apply_all"] = c4d["coeff_apply_all"] + c4e[
+        "coeff_apply_all"]
+
+    # 5, 5b, 6. times, in turns
+    times = {}
+    for storage, run in (("int8", int8), ("f32", f32)):
+        times[storage] = timed_turns(
+            saga_coeff_multistep, saga_coeff_multistep_ref, run["F"],
+            run["gamma"], gen, dev, B,
+            f"kernel #3, {storage} rows, N={N} n={n} B={B}", card)
+    del int8, f32
+    log(f"phase 5 times: int8 kernel {times['int8']['ms']:.4f} ms/step, "
+        f"plain {times['int8']['plain_ms']:.4f}; f32 kernel "
+        f"{times['f32']['ms']:.4f}, plain {times['f32']['plain_ms']:.4f} "
+        f"[{card}]")
+    log(f"phase 5b times: f32 kernel {times4['f32']['ms']:.4f} ms/step, "
+        f"plain {times4['f32']['plain_ms']:.4f}; int8 kernel "
+        f"{times4['int8']['ms']:.4f}, plain {times4['int8']['plain_ms']:.4f} "
+        f"[{card}]")
+    t6 = {s_: time_apply(gen, dev, s_, card) for s_ in ("f32", "bf16", "int8")}
+    t5 = {s_: time_svrg(gen, dev, s_, card) for s_ in ("f32", "int8")}
+    from ciao_tpu_torch.solvers.fb import FBCfg, fb_init, fb_run
+    from ciao_tpu_torch.solvers.svrg import svrg_run
+
+    for storage, r in svrg.items():
+        profile_steps(f"SVRG outer steps, {storage} rows",
+                      lambda: svrg_run(r["F"], r["g"], r["st"], r["cfg"], 10),
+                      10, card)
+        fcfg = FBCfg(N=N, fast=True, fused=True)
+        fst = fb_init(r["F"], r["g"], torch.zeros(n, device=dev),
+                      1.0 / r["L"].mean(), fcfg)
+        profile_steps(f"FISTA steps, {storage} rows",
+                      lambda: fb_run(r["F"], r["g"], fst, fcfg, 50), 50, card)
+    del svrg
+    log(f"phase 6 times: kernel #6 f32 {t6['f32']['ms']:.4f} ms/pass (plain "
+        f"{t6['f32']['plain_ms']:.4f}, bound {t6['f32']['bound_ms']:.4f}, "
+        f"two-gemv {t6['f32']['two_gemv_ms']:.4f}), int8 "
+        f"{t6['int8']['ms']:.4f} (bound {t6['int8']['bound_ms']:.4f}); "
+        f"kernel #5 f32 {t5['f32']['ms']:.4f} ms/step (plain "
+        f"{t5['f32']['plain_ms']:.4f}, bound {t5['f32']['bound_ms']:.4f}), "
+        f"int8 {t5['int8']['ms']:.4f}; SVRG outer step f32 "
+        f"{svrg_ms['f32']:.4f} ms, int8 {svrg_ms['int8']:.4f}; FISTA step "
+        f"f32 {fista_ms['f32']:.4f} ms, int8 {fista_ms['int8']:.4f} [{card}]")
+
+    log(json.dumps({"kernels": [
+        kernel_line("saga_coeff_multistep", launches["saga_coeff_multistep"],
+                    errs["saga_coeff_multistep"], times["int8"]),
+        kernel_line("saga_coeff_multistep_streamed",
+                    launches["saga_coeff_multistep_streamed"],
+                    errs["saga_coeff_multistep_streamed"], times4["f32"]),
+        kernel_line("svrg_coeff_multistep", launches["svrg_coeff_multistep"],
+                    errs["svrg_coeff_multistep"], t5["f32"]),
+        kernel_line("coeff_apply_all", launches["coeff_apply_all"],
+                    errs["coeff_apply_all"], t6["f32"]),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -12,19 +12,22 @@ Ported so far: the SAGA headline path — ``LeastSquaresRows`` (f32, bf16
 and int8 rows), ``NormL1``/``Zero``, and block-sampled coefficient-table
 SAGA/SAG, uniform or importance-sampled, through the
 ``saga_coeff_multistep`` (N ≤ 1M) and ``saga_coeff_multistep_streamed``
-(any N) CUDA kernels — and the deep-accuracy path: ``staged_saga``,
-the compensated ``fista_polish`` with ``power_lmax``, and
-``deep_solve``. The rest is queued in ROADMAP.md. Imports torch and
-numpy, never jax.
+(any N) CUDA kernels; the deep-accuracy path: ``staged_saga``, the
+compensated ``fista_polish`` with ``power_lmax``, and ``deep_solve``;
+SVRG/SVRG++ (inner steps on ``svrg_coeff_multistep``) and
+forward-backward/FISTA, whose full-gradient reads run on the one-pass
+``coeff_apply_all`` kernel. The rest is queued in ROADMAP.md. Imports
+torch and numpy, never jax. Entry points run on the card unless the
+caller names the CPU (a CPU tensor or ``device="cpu"``).
 """
 
 from ciao_tpu_torch import oracles, prox
 from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.prox import NormL1, Zero
 from ciao_tpu_torch.solvers import (
-    SAG, SAGA, DeepSolveInfo, StagedInfo, deep_solve, fista_polish,
-    grad_mean_chunked, halt, loop, lsq_power_lmax, power_lmax, solution,
-    staged_saga, take,
+    FISTA, SAG, SAGA, SVRG, DeepSolveInfo, ForwardBackward, StagedInfo,
+    deep_solve, fista_polish, grad_mean_chunked, halt, loop, lsq_power_lmax,
+    power_lmax, solution, staged_saga, take,
 )
 from ciao_tpu_torch.solvers.base import Status
 
@@ -38,6 +41,9 @@ __all__ = [
     "Zero",
     "SAGA",
     "SAG",
+    "SVRG",
+    "ForwardBackward",
+    "FISTA",
     "deep_solve",
     "DeepSolveInfo",
     "staged_saga",

@@ -1,0 +1,184 @@
+// Row primitives shared by the port's kernels on an NVIDIA Hopper card
+// (sm_90a): the storage codes, the bf16 rounding of the dot operands, reads of
+// one or four row values from shared memory, a row's margin by one warp, the
+// transposed product over a tile, the oracle's coefficient formula and the
+// size of a row tile in shared memory.
+//
+// Precision follows the Pallas kernels' _stream_dot: when kLowp is set (rows
+// stored bf16 or int8, or f32 rows at "default" precision) both operands of
+// each dot are rounded to bf16 and multiplied with f32 accumulation; int8 and
+// bf16 row values are exact in bf16.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+enum Storage { kF32 = 0, kBF16 = 1, kI8 = 2 };
+enum Mode { kLsq = 0, kLogistic = 1, kHuber = 2, kSqHinge = 3, kPoisson = 4 };
+constexpr float kPoissonClamp = 30.0f;  // ops/fused_block.py POISSON_CLAMP
+// The finish kernels' CTA: one warp's width of columns, eight warps splitting
+// the partials of a column.
+constexpr int kFinishCols = 32;
+constexpr int kFinishWarps = 8;
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A row value as the dot sees it: f32 rows round to bf16 when kLowp; bf16 and
+// int8 values are exact in bf16 already.
+template <bool kLowp>
+__device__ __forceinline__ float row_value(float x) {
+  return kLowp ? bf16_round(x) : x;
+}
+template <bool kLowp>
+__device__ __forceinline__ float row_value(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <bool kLowp>
+__device__ __forceinline__ float row_value(int8_t x) {
+  return static_cast<float>(x);
+}
+
+// Four consecutive row values from shared memory (16, 8 or 4 bytes, aligned
+// to their size): the vector reads of the kVec paths.
+template <bool kLowp>
+__device__ __forceinline__ void row4(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = row_value<kLowp>(x.x);
+  v[1] = row_value<kLowp>(x.y);
+  v[2] = row_value<kLowp>(x.z);
+  v[3] = row_value<kLowp>(x.w);
+}
+// a bf16 value is the upper half of an f32; element 0 is the low half of the
+// first word (little endian)
+template <bool kLowp>
+__device__ __forceinline__ void row4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(x.x << 16);
+  v[1] = __uint_as_float(x.x & 0xffff0000u);
+  v[2] = __uint_as_float(x.y << 16);
+  v[3] = __uint_as_float(x.y & 0xffff0000u);
+}
+template <bool kLowp>
+__device__ __forceinline__ void row4(const int8_t* p, float (&v)[4]) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(p);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    v[q] = static_cast<float>(static_cast<int8_t>(w >> (8 * q)));
+}
+
+// The margin a . zs of one row a of a tile in shared memory, by one warp: the
+// lanes stride the row (four values a lane on the kVec path) and a shuffle
+// reduction gives every lane the sum.
+template <bool kLowp, bool kVec, typename T>
+__device__ __forceinline__ float warp_dot(const T* a, const float* zs, int n,
+                                          int lane) {
+  float acc = 0.0f;
+  if (kVec) {
+    for (int j = lane * 4; j < n; j += 32 * 4) {
+      float v[4];
+      row4<kLowp>(a + j, v);
+      const float4 zz = *reinterpret_cast<const float4*>(zs + j);
+      acc += v[0] * zz.x + v[1] * zz.y + v[2] * zz.z + v[3] * zz.w;
+    }
+  } else {
+    for (int j = lane; j < n; j += 32) acc += row_value<kLowp>(a[j]) * zs[j];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+// The transposed product over a tile of `rows` rows of width n: sum over the
+// rows, in order, of d[r] times the row's values at columns j..j+3 (kVec) or
+// at column j alone.
+template <bool kLowp, typename T>
+__device__ __forceinline__ void tile_colsum4(const T* tile, const float* d,
+                                             int rows, int n, int j,
+                                             float (&acc)[4]) {
+  acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;
+  for (int r = 0; r < rows; ++r) {
+    float v[4];
+    row4<kLowp>(tile + r * n + j, v);
+    const float dr = d[r];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += dr * v[q];
+  }
+}
+template <bool kLowp, typename T>
+__device__ __forceinline__ float tile_colsum(const T* tile, const float* d,
+                                             int rows, int n, int j) {
+  float acc = 0.0f;
+  for (int r = 0; r < rows; ++r)
+    acc += d[r] * row_value<kLowp>(tile[r * n + j]);
+  return acc;
+}
+
+// ops/fused_block.py _coeff_formula: c_i from the (dequantized) margin r.
+__device__ __forceinline__ float coeff_formula(int mode, float r, float b,
+                                               float scale, float aux) {
+  switch (mode) {
+    case kLsq:
+      return scale * (r - b);
+    case kLogistic:
+      return -b * (1.0f / (1.0f + expf(b * r)));  // -b * sigmoid(-b r)
+    case kHuber: {
+      const float c = scale * (r - b);
+      const float h = scale * aux;
+      return fminf(fmaxf(c, -h), h);
+    }
+    case kSqHinge:
+      return -scale * b * fmaxf(1.0f - b * r, 0.0f);
+    default:
+      return scale * (expf(fminf(r, kPoissonClamp)) - b);
+  }
+}
+
+// The L1 soft-threshold sign(w)·max(|w| − thr, 0), NaN passed through.
+__device__ __forceinline__ float soft_threshold(float w, float thr) {
+  const float sgn = w > 0.0f ? 1.0f : (w < 0.0f ? -1.0f : 0.0f);
+  return isnan(w) ? w : sgn * fmaxf(fabsf(w) - thr, 0.0f);
+}
+
+// Bytes of a row tile in shared memory, rounded up to 16 so that what follows
+// it stays aligned.
+__host__ __device__ __forceinline__ size_t tile_bytes(int rows, int n,
+                                                      int itemsize) {
+  return (static_cast<size_t>(rows) * n * itemsize + 15) / 16 * 16;
+}
+
+// Copy `count` values of a row tile from device memory into shared memory.
+// kVec: the rows are whole 16-byte chunks and A is 16-byte aligned, so every
+// 16-byte load is put in flight with cp.async (the caller commits and waits);
+// otherwise a plain copy, one value at a time.
+template <typename T, bool kVec>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int count,
+                                           int tid, int threads) {
+  if (kVec) {
+    constexpr int kPer16 = 16 / sizeof(T);
+    for (int i = tid * kPer16; i < count; i += threads * kPer16)
+      __pipeline_memcpy_async(dst + i, src + i, 16);
+  } else {
+    for (int i = tid; i < count; i += threads) dst[i] = src[i];
+  }
+}
+
+// Whether the 16-byte path applies: rows of whole 16-byte chunks (then n % 4
+// == 0 as well, for the four-value reads) and a 16-byte aligned A.
+inline bool vec_rows(const void* A, int n, int itemsize) {
+  return (static_cast<int64_t>(n) * itemsize) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(A) % 16 == 0;
+}
+
+inline int storage_itemsize(int storage) {
+  return storage == kF32 ? 4 : (storage == kBF16 ? 2 : 1);
+}
+
+}  // namespace

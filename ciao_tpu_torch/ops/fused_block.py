@@ -1,18 +1,24 @@
-"""The SAGA coefficient-table kernels of the port, with their plain versions.
+"""The coefficient kernels of the port, with their plain versions.
 
-Counterpart of ``ciao_tpu/ops/fused_block.py``, cut to what the SAGA
-headline and deep paths run: the oracle formula modes, the scalar
-constants, the kernels' gates, and two hand-written CUDA kernels for
-Hopper beside their plain PyTorch versions — ``saga_coeff_multistep``
-(``csrc/saga_coeff_multistep.cu``) and ``saga_coeff_multistep_streamed``
-(``csrc/saga_coeff_multistep_streamed.cu``), which share their device
-code (``csrc/saga_steps.cuh``). The other 17 TPU kernels of the JAX
-module are not ported yet (ROADMAP.md, queue 2).
+Counterpart of ``ciao_tpu/ops/fused_block.py``, cut to what the SAGA,
+deep, SVRG and forward-backward paths run: the oracle formula modes, the
+scalar constants, the kernels' gates, and four hand-written CUDA kernels
+for Hopper beside their plain PyTorch versions:
 
-Layouts are flat: the coefficient table ``c``, the offsets ``b`` and the
-int8 dequant scales ``rs`` are ``(N,)``, the iterate ``z`` and the
-running average ``av`` are ``(n,)``. The TPU's ``(8, N/8)`` slab exists
-only for its VMEM tiling and has no meaning here.
+- ``saga_coeff_multistep`` (``csrc/saga_coeff_multistep.cu``),
+  ``saga_coeff_multistep_streamed`` (``csrc/saga_coeff_multistep_streamed.cu``)
+  and ``svrg_coeff_multistep`` (``csrc/svrg_coeff_multistep.cu``): K block
+  steps each, sharing their device code (``csrc/saga_steps.cuh``);
+- ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
+  over all rows, the SVRG anchor and the FB full gradient.
+
+The row primitives the four share are in ``csrc/row_ops.cuh``. The other
+15 TPU kernels of the JAX module are not ported yet (ROADMAP.md, queue 2).
+
+Layouts are flat: coefficient tables ``c``/``canch``, the offsets ``b``
+and the int8 dequant scales ``rs`` are ``(N,)``, iterates and averages
+are ``(n,)``. The TPU's ``(8, N/8)`` slab exists only for its VMEM tiling
+and has no meaning here.
 """
 
 from __future__ import annotations
@@ -62,40 +68,65 @@ def _coeff_formula(mode, r, b_t, scale, aux=0.0):
                                             c_poi))))
 
 
+def _scalar(x, dev):
+    """``x`` as a 0-d f32 tensor on ``dev``: a tensor is converted there,
+    a Python number filled in on the device. ``torch.tensor(x,
+    device=cuda)`` would copy from the host and sync the stream, which
+    drains the queue of launches on every solver step that builds a
+    scalars row."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=dev)
+
+
 def oracle_scalar_consts(F, g):
     """(scale, mode, lam, aux) of the kernel's scalars row, as f32
-    tensors on the oracle's device (``lam`` keeps the prox's dtype)."""
+    tensors on the oracle's device (``lam`` keeps the prox's dtype),
+    made there without a host copy."""
     dev = F.coeff_rows_data()[0].device
-    f32 = dict(dtype=torch.float32, device=dev)
-    scale = torch.as_tensor(getattr(F, "scale", 1.0), **f32)
-    mode = torch.tensor(float(F.coeff_mode), **f32)
     lam = getattr(g, "lam", None)
-    lam = torch.zeros((), **f32) if lam is None else lam.to(dev)
-    aux = torch.as_tensor(getattr(F, "delta", 0.0), **f32)
-    return scale, mode, lam, aux
+    lam = _scalar(0.0, dev) if lam is None else lam.to(dev)
+    return (_scalar(getattr(F, "scale", 1.0), dev),
+            _scalar(F.coeff_mode, dev), lam,
+            _scalar(getattr(F, "delta", 0.0), dev))
 
 
-def saga_multistep_available(F, g, x0, B: int) -> bool:
-    """Gate of the CUDA kernel: iterate and oracle rows on one CUDA
-    device, f32 iterates, whole blocks (N % B == 0), a dense-rows oracle
-    (``coeff_rows_data``) with f32 offsets, and an in-kernel prox
-    (``NormL1`` or ``Zero``). No VMEM or lane rule carries over from the
-    TPU kernel; the one shape limit is ``n <= MAX_COLS``."""
-    from ciao_tpu_torch.prox import NormL1, Zero
-
-    if not (hasattr(F, "coeff_rows_data") and isinstance(g, (NormL1, Zero))):
+def full_grad_available(F, x0) -> bool:
+    """Gate of :func:`coeff_apply_all`, the port's own: iterate and oracle
+    rows on one CUDA device, f32 iterates, a dense-rows coefficient
+    oracle (``coeff_rows_data``) with f32 offsets and f32, bf16 or int8
+    rows, and ``n <= MAX_COLS``. The JAX gate's ``n % 128`` lanes and
+    ``_pick_tile`` budget exist for the TPU alone."""
+    if not (hasattr(F, "coeff_rows_data")
+            and getattr(F, "supports_coeff", False)):
         return False
     A, b = F.coeff_rows_data()
-    N, n = A.shape
     return (
         x0.device.type == "cuda"
         and A.device == x0.device
         and x0.dtype == torch.float32
         and A.dtype in _STORAGE_CODES
         and b.dtype == torch.float32
-        and N % B == 0
-        and n <= MAX_COLS
+        and A.shape[1] <= MAX_COLS
     )
+
+
+def saga_multistep_available(F, g, x0, B: int) -> bool:
+    """Gate of the block-step kernels: that of
+    :func:`full_grad_available`, whole blocks (N % B == 0) and an
+    in-kernel prox (``NormL1`` or ``Zero``). No VMEM or lane rule carries
+    over from the TPU kernel."""
+    from ciao_tpu_torch.prox import NormL1, Zero
+
+    return (isinstance(g, (NormL1, Zero)) and full_grad_available(F, x0)
+            and F.coeff_rows_data()[0].shape[0] % B == 0)
+
+
+def svrg_multistep_available(F, g, x0, B: int) -> bool:
+    """Gate of :func:`svrg_coeff_multistep`: that of
+    :func:`saga_multistep_available`. The JAX gate's N % (8·B) slab rule,
+    ``_pick_tile`` ≥ 128 and ``batch > 1`` exist for the TPU alone."""
+    return saga_multistep_available(F, g, x0, B)
 
 
 def saga_multistep_streamed_available(F, g, x0, B: int) -> bool:
@@ -197,16 +228,38 @@ _ARGTYPES = {
     # n, B, rows, K, stream
     "saga_coeff_multistep": "PIIPPPPPPPPPIIIIP",
     "saga_coeff_multistep_streamed": "PIIPPPPPPPPPPIIIIP",
+    # A, storage, lowp, b, rs, canch, w, zs, av, starts, sc, part, n, B,
+    # rows, K, stream
+    "svrg_coeff_multistep": "PIIPPPPPPPPPIIIIP",
+    # A, storage, lowp, b, rs, z, sc, c, gsum, hi, lo, N, n, rows, ctas,
+    # stream
+    "coeff_apply_all": "PIIPPPPPPPPLIIIP",
 }
 
 
 def _kernel(name: str):
     fn = getattr(_build.load(name), f"{name}_launch")
     if fn.argtypes is None:
-        kinds = {"P": ctypes.c_void_p, "I": ctypes.c_int}
+        kinds = {"P": ctypes.c_void_p, "I": ctypes.c_int,
+                 "L": ctypes.c_longlong}
         fn.argtypes = [kinds[k] for k in _ARGTYPES[name]]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _call(name: str, dev, *args) -> None:
+    """Queue kernel ``name`` on the current stream of ``dev`` with the C
+    arguments ``args`` (the stream is appended); raise on a CUDA error."""
+    fn = _kernel(name)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check(name, t, dtype, shape, dev):
@@ -221,48 +274,55 @@ def _check(name, t, dtype, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name, A, b, starts, c, z, av, scalars, B, precision, rs, wgts,
-            fclamp=()):
-    """Check the arguments of a kernel of ``saga_steps.cuh`` and queue its
-    2K launches on the current stream. ``fclamp`` is the streamed kernel's
-    extra argument, its clamp count's pointer (or None)."""
+def _check_rows(A, b, rs):
+    """Checks of the rows, offsets and dequant scales every kernel takes;
+    returns (N, n)."""
     N, n = A.shape
-    K = starts.shape[0]
     if A.dtype not in _STORAGE_CODES:
         raise TypeError(f"rows must be f32, bf16 or int8, not {A.dtype}")
     if (A.dtype == torch.int8) != (rs is not None):
         raise ValueError("rs is required iff the rows are int8")
+    if not A.is_contiguous():
+        raise ValueError("A must be contiguous")
+    _check("b", b, torch.float32, (N,), A.device)
+    if rs is not None:
+        _check("rs", rs, torch.float32, (N,), A.device)
+    return N, n
+
+
+def _check_steps(A, b, starts, B, rs):
+    """Checks shared by the block-step kernels of ``saga_steps.cuh``;
+    returns (n, K, rows per CTA, the (B / rows, n) partials scratch)."""
+    N, n = _check_rows(A, b, rs)
+    K = starts.shape[0]
     # block starts are int32 on the device; row offsets are 64-bit there
     if N % B or K < 1 or n > MAX_COLS or N >= 2**31:
         raise ValueError(f"bad shape: N={N}, n={n}, B={B}, K={K}")
-    if not A.is_contiguous():
-        raise ValueError("A must be contiguous")
-    dev = A.device
-    f32 = torch.float32
-    _check("b", b, f32, (N,), dev)
-    _check("c", c, f32, (N,), dev)
+    _check("starts", starts, torch.int32, (K,), A.device)
+    rows = _rows_per_cta(B, n, A.element_size())
+    part = torch.empty((B // rows, n), dtype=torch.float32, device=A.device)
+    return n, K, rows, part
+
+
+def _launch(name, A, b, starts, c, z, av, scalars, B, precision, rs, wgts,
+            fclamp=()):
+    """Check the arguments of a SAGA kernel of ``saga_steps.cuh`` and
+    queue its 2K launches on the current stream. ``fclamp`` is the
+    streamed kernel's extra argument, its clamp count's pointer (or
+    None)."""
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    _check("c", c, f32, (A.shape[0],), dev)
     _check("z", z, f32, (n,), dev)
     _check("av", av, f32, (n,), dev)
     _check("scalars", scalars, f32, (8,), dev)
-    _check("starts", starts, torch.int32, (K,), dev)
-    if rs is not None:
-        _check("rs", rs, f32, (N,), dev)
     if wgts is not None:
         _check("wgts", wgts, f32, (K,), dev)
     lowp = _lowp(A, precision)
-    rows = _rows_per_cta(B, n, A.element_size())
-    part = torch.empty((B // rows, n), dtype=f32, device=dev)
-    fn = _kernel(name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(A.data_ptr(), _STORAGE_CODES[A.dtype], int(lowp),
-                 b.data_ptr(), None if rs is None else rs.data_ptr(),
-                 c.data_ptr(), z.data_ptr(), av.data_ptr(),
-                 starts.data_ptr(),
-                 None if wgts is None else wgts.data_ptr(), *fclamp,
-                 scalars.data_ptr(), part.data_ptr(), n, B, rows, K, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype], int(lowp),
+          b.data_ptr(), _ptr(rs), c.data_ptr(), z.data_ptr(), av.data_ptr(),
+          starts.data_ptr(), _ptr(wgts), *fclamp, scalars.data_ptr(),
+          part.data_ptr(), n, B, rows, K)
 
 
 def saga_coeff_multistep(A, b, starts, c, z, av, scalars, B: int,
@@ -368,9 +428,243 @@ def saga_coeff_multistep_streamed(A, b, starts, c, z, av, scalars, B: int,
     return c, z, av
 
 
+# ---------------------------------------------------------------------------
+# kernel #5: SVRG inner block steps against the anchor coefficient table
+# ---------------------------------------------------------------------------
+
+def svrg_coeff_multistep_ref(A, b, starts, canch, w, zs, av, scalars,
+                             B: int, precision: str = "highest", rs=None):
+    """Plain PyTorch version of :func:`svrg_coeff_multistep`: the same K
+    inner steps as a Python loop of tensor ops, with the same bf16
+    roundings. Updates ``w`` and ``zs`` in place and returns them. On the
+    card it needs exact f32 products, which it checks and does not set."""
+    runtime.require_exact_f32_matmul(A.device, "svrg_coeff_multistep_ref")
+    lowp = _lowp(A, precision)
+    scale, gamma, thr, invB, mode, aux = scalars.unbind()
+    ar = torch.arange(B, device=A.device)
+    for k in range(starts.shape[0]):
+        idx = starts[k].long() + ar
+        A_t = A.index_select(0, idx).to(torch.float32)
+        wq = w
+        if lowp:
+            A_t = _bf16_round(A_t)
+            wq = _bf16_round(w)
+        r = A_t @ wq
+        rs_t = None if rs is None else rs[idx]
+        if rs_t is not None:
+            r = r * rs_t
+        dc = canch[idx] - _coeff_formula(mode, r, b[idx], scale, aux)
+        if rs_t is not None:
+            dc = dc * rs_t
+        if lowp:
+            dc = _bf16_round(dc)
+        d = (dc @ A_t) * invB
+        v = w + gamma * (d - av)
+        w.copy_(torch.sign(v) * torch.clamp(v.abs() - thr, min=0.0))
+        zs.add_(w)
+    return w, zs
+
+
+def svrg_coeff_multistep(A, b, starts, canch, w, zs, av, scalars, B: int,
+                         precision: str = "highest", rs=None):
+    """K = len(starts) SVRG inner block steps (SVRG_basic.jl:74-81).
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:svrg_coeff_multistep``. Step k takes
+    the block [starts[k], starts[k] + B) of the rows ``A`` (N, n), stored
+    f32, bf16 or int8 (then ``rs`` holds the (N,) f32 dequant scales),
+    forms d = (1/B)·Σ (canch_i − c_i(w))·a_i against the anchor
+    coefficients ``canch`` (N,), steps w ← soft(w + γ(d − av), γλ) and
+    adds w to the running sum ``zs``. ``av`` is the anchor's mean
+    gradient (n,); ``scalars`` the (6,) f32 row [scale, γ, γλ, 1/B, mode,
+    aux]. ``w`` and ``zs`` are updated in place and returned; ``canch``
+    and ``av`` are read only.
+
+    CPU tensors take the plain version :func:`svrg_coeff_multistep_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    The design and its bound are :func:`saga_coeff_multistep`'s, whose
+    two-launch step and device code it shares (``csrc/saga_steps.cuh``,
+    method ``kSvrg``): a step must read the block's rows, B·n·itemsize
+    bytes (16 MB f32, 4 MB int8 at B = 4096, n = 1024), and the anchor
+    coefficients are read, never written, so the row phase writes no
+    table. The finish phase sums the partials in a fixed order and
+    applies the direction, the prox and the running sum.
+    """
+    if A.device.type == "cpu":
+        return svrg_coeff_multistep_ref(A, b, starts, canch, w, zs, av,
+                                        scalars, B, precision=precision,
+                                        rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"svrg_coeff_multistep: no kernel for {A.device}")
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    _check("canch", canch, f32, (A.shape[0],), dev)
+    _check("w", w, f32, (n,), dev)
+    _check("zs", zs, f32, (n,), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("scalars", scalars, f32, (6,), dev)
+    lowp = _lowp(A, precision)
+    _call("svrg_coeff_multistep", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(lowp), b.data_ptr(), _ptr(rs), canch.data_ptr(), w.data_ptr(),
+          zs.data_ptr(), av.data_ptr(), starts.data_ptr(), scalars.data_ptr(),
+          part.data_ptr(), n, B, rows, K)
+    svrg_coeff_multistep.launches += 1
+    return w, zs
+
+
+# ---------------------------------------------------------------------------
+# kernel #6: one compensated pass over all rows (anchor, full gradient)
+# ---------------------------------------------------------------------------
+
+# CTAs of the row pass per SM: two, each with two tile buffers in half of
+# the SM's shared memory (less the 1 KB the card reserves per CTA).
+APPLY_CTAS_PER_SM = 2
+
+
+def _two_sum(hi, lo, p):
+    """Knuth two-sum: (hi, lo) ← (hi, lo) + p with the rounding error of
+    the add kept exactly in the compensation term (``_comp_add`` of the
+    JAX module). Separate eager tensor operations, which no compiler
+    contracts."""
+    s = hi + p
+    t = s - hi
+    e = (p - t) + (hi - (s - t))
+    return s, lo + e
+
+
+def _apply_smem_bytes(rows: int, n: int, itemsize: int) -> int:
+    """Dynamic shared memory of one CTA of the row pass (``run_apply`` in
+    ``csrc/coeff_apply_all.cu``): two row tiles, z and one f32 per row."""
+    return 2 * (-(-rows * n * itemsize // 16) * 16) + 4 * (n + rows)
+
+
+def _apply_rows(n: int, itemsize: int) -> int:
+    """Rows of a tile of the row pass: the largest power of two up to 32
+    whose two buffers let two CTAs share an SM (8 f32, 16 bf16, 32 int8
+    rows at n = 1,024: 32 KB tiles), else one CTA (n up to MAX_COLS)."""
+    for budget in (SMEM_BYTES // APPLY_CTAS_PER_SM - 1024, SMEM_BYTES):
+        r = 32
+        while r >= 1:
+            if _apply_smem_bytes(r, n, itemsize) <= budget:
+                return r
+            r //= 2
+    raise ValueError(f"n = {n} is too wide for the one-pass kernel")
+
+
+def _comp_sum_rows(p):
+    """Σ over the rows of ``p`` (T, n), two-sum compensated: a pairwise
+    tree whose every add keeps its rounding error in a (T, n) carry."""
+    hi, lo = p, torch.zeros_like(p)
+    while hi.shape[0] > 1:
+        if hi.shape[0] % 2:
+            pad = hi.new_zeros((1, hi.shape[1]))
+            hi, lo = torch.cat([hi, pad]), torch.cat([lo, pad])
+        hi, lo = _two_sum(hi[0::2], lo[0::2] + lo[1::2], hi[1::2])
+    return hi[0] + lo[0]
+
+
+def coeff_apply_all_ref(A, b, z, scalars, precision: str = "highest",
+                        rs=None):
+    """Plain PyTorch version of :func:`coeff_apply_all`, with the same
+    bf16 roundings and tiles: the margins as one product, the formula,
+    each tile's Σ c_i·a_i as a batched product, and the tiles' partials
+    added by a compensated pairwise tree. Returns new (c, gsum). On the
+    card it needs exact f32 products, which it checks and does not set."""
+    runtime.require_exact_f32_matmul(A.device, "coeff_apply_all_ref")
+    lowp = _lowp(A, precision)
+    scale, mode, aux = scalars.unbind()
+    N, n = A.shape
+    A_f = A.to(torch.float32)
+    zq = z
+    if lowp:
+        A_f = _bf16_round(A_f)
+        zq = _bf16_round(z)
+    r = A_f @ zq
+    if rs is not None:
+        r = r * rs
+    c = _coeff_formula(mode, r, b, scale, aux)
+    cw = c if rs is None else c * rs
+    if lowp:
+        cw = _bf16_round(cw)
+    R = _apply_rows(n, A.element_size())
+    T = N // R
+    parts = torch.bmm(cw[:T * R].view(T, 1, R),
+                      A_f[:T * R].view(T, R, n)).view(T, n)
+    if N % R:
+        parts = torch.cat([parts, (cw[T * R:] @ A_f[T * R:])[None]])
+    return c, _comp_sum_rows(parts)
+
+
+def coeff_apply_all(A, b, z, scalars, precision: str = "highest", rs=None):
+    """One pass over all N rows: returns ``(c, gsum)``, the (N,)
+    coefficients c_i = c(a_i·z) and the (n,) gradient sum Σ c_i·a_i
+    (·rs_i for int8 rows), two-sum compensated across tiles.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:coeff_apply_all``: the SVRG anchor
+    refresh and the forward-backward full gradient, in place of
+    ``coeff_all`` + ``apply_all`` (two reads of A). ``A`` (N, n) is
+    stored f32, bf16 or int8 (then ``rs`` holds the (N,) f32 dequant
+    scales); ``b`` is (N,), ``z`` (n,), ``scalars`` the (3,) f32 row
+    [scale, mode, aux]. Any N; the caller divides gsum by N.
+
+    CPU tensors take the plain version :func:`coeff_apply_all_ref`; CUDA
+    tensors launch the kernel or raise.
+
+    On an H100 the pass is bound by bytes: it must read A once, N·n·
+    itemsize bytes (1 GiB f32, 256 MiB int8 at 262,144 × 1,024), for
+    4·N·n flops. The TPU kernel walks its tiles in grid order and
+    carries the (hi, lo) pair in VMEM; here about two CTAs per SM each
+    walk every G-th tile of R rows (:func:`_apply_rows`), double-buffered
+    with cp.async, and two-sum each tile's partial into their own
+    (hi, lo) row of a (G, n) scratch; a second launch combines the G
+    pairs per column in a fixed order. No atomics: runs repeat bit for
+    bit. The compensation's adds are ``__fadd_rn``/``__fsub_rn``, which
+    ``-O3`` may not contract or reassociate.
+    """
+    if A.device.type == "cpu":
+        return coeff_apply_all_ref(A, b, z, scalars, precision=precision,
+                                   rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"coeff_apply_all: no kernel for {A.device}")
+    N, n = _check_rows(A, b, rs)
+    if N < 1 or n > MAX_COLS:
+        raise ValueError(f"bad shape: N={N}, n={n}")
+    dev, f32 = A.device, torch.float32
+    _check("z", z, f32, (n,), dev)
+    _check("scalars", scalars, f32, (3,), dev)
+    lowp = _lowp(A, precision)
+    rows = _apply_rows(n, A.element_size())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ctas = min(-(-N // rows), APPLY_CTAS_PER_SM * sms)
+    c = torch.empty(N, dtype=f32, device=dev)
+    gsum = torch.empty(n, dtype=f32, device=dev)
+    hi = torch.empty((ctas, n), dtype=f32, device=dev)
+    lo = torch.empty((ctas, n), dtype=f32, device=dev)
+    _call("coeff_apply_all", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(lowp), b.data_ptr(), _ptr(rs), z.data_ptr(), scalars.data_ptr(),
+          c.data_ptr(), gsum.data_ptr(), hi.data_ptr(), lo.data_ptr(), N, n,
+          rows, ctas)
+    coeff_apply_all.launches += 1
+    return c, gsum
+
+
+def oracle_apply_all(F, z, precision: str = "highest"):
+    """:func:`coeff_apply_all` on a dense-rows oracle's rows, offsets,
+    formula constants and dequant scales: ``(c(z), Σ c_i·a_i)``, the SVRG
+    anchor and the full gradient sum in one pass."""
+    rows, offs = F.coeff_rows_data()
+    scale, mode, _, aux = oracle_scalar_consts(F, None)
+    return coeff_apply_all(rows, offs, z, torch.stack([scale, mode, aux]),
+                           precision=precision, rs=F.coeff_rows_scale())
+
+
 # Launches of the CUDA kernels (one per wrapper call that reaches one),
 # and those of them with direction weights (importance sampling).
 saga_coeff_multistep.launches = 0
 saga_coeff_multistep.weighted_launches = 0
 saga_coeff_multistep_streamed.launches = 0
 saga_coeff_multistep_streamed.weighted_launches = 0
+svrg_coeff_multistep.launches = 0
+coeff_apply_all.launches = 0

@@ -14,7 +14,7 @@ dequantized A. Narrow rows are widened to the iterate's dtype inside each
 product, as JAX's type promotion does.
 
 Not ported yet: complex rows, the full-table (N, n) paths and the
-Point-SAGA pieces (ROADMAP.md, queue 1).
+Point-SAGA pieces (ROADMAP.md, queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -138,6 +138,35 @@ class LeastSquaresRows(SmoothOracle):
 
     def apply_all(self, w):
         return self._combine(w, self.A, self.row_scale)
+
+    # ---- gradient sums of the SVRG and FB paths, in the JAX package's
+    # order of operations: the int8 scale multiplies the row products
+    # on both sides, and ``scale`` comes last ---------------------------
+    def _grad_sum_diff(self, A_B, rs_B, x1, x2):
+        A_B = self._rows(A_B, x1.dtype)
+        d = A_B @ (x1 - x2)
+        if rs_B is not None:
+            d = d * rs_B * rs_B
+        return self.scale * (d @ A_B)
+
+    def grad_sum_diff(self, x1, x2, idx):
+        """Σ_{i ∈ idx} ∇f_i(x1) − ∇f_i(x2) = scale·A_Bᵀ A_B (x1 − x2):
+        the SVRG anchor-minus-live direction in one read of the rows."""
+        A_B, _, rs_B = self._gather(idx)
+        return self._grad_sum_diff(A_B, rs_B, x1, x2)
+
+    def grad_sum_diff_block(self, x1, x2, start, size: int):
+        A_B, _, rs_B = self._slice(start, size)
+        return self._grad_sum_diff(A_B, rs_B, x1, x2)
+
+    def grad_sum_all(self, x):
+        """Σ_i ∇f_i(x) over all rows: two products over A."""
+        A = self._rows(self.A, x.dtype)
+        r = A @ x
+        if self.row_scale is not None:
+            r = r * self.row_scale - self.b
+            return self.scale * ((r * self.row_scale) @ A)
+        return self.scale * ((r - self.b) @ A)
 
     # ---- margin protocol: the row product A·x first, then the affine
     # part of the coefficient. The int8 per-row scale is applied to the

@@ -1,10 +1,15 @@
-"""Solvers of the port (SAGA/SAG, the staged schedule, the polish and
-``deep_solve``) and the iteration tools."""
+"""Solvers of the port (SAGA/SAG, SVRG/SVRG++, forward-backward and
+FISTA, the staged schedule, the polish and ``deep_solve``) and the
+iteration tools."""
 
 from ciao_tpu_torch.solvers.base import (
     SolverIterable, Status, halt, loop, run_solver_loop, solution, take,
 )
 from ciao_tpu_torch.solvers.deep import DeepSolveInfo, deep_solve
+from ciao_tpu_torch.solvers.fb import (
+    FISTA, FBCfg, FBState, ForwardBackward, fb_init, fb_run, fb_step,
+    full_gradient,
+)
 from ciao_tpu_torch.solvers.polish import (
     PolishResult, fista_polish, grad_mean_chunked, grad_sum_chunked,
     lsq_power_lmax, power_lmax,
@@ -14,12 +19,18 @@ from ciao_tpu_torch.solvers.saga import (
     saga_init, saga_rebase, saga_run, saga_step,
 )
 from ciao_tpu_torch.solvers.staged import StagedInfo, staged_saga
+from ciao_tpu_torch.solvers.svrg import (
+    SVRG, SVRGCfg, SVRGState, svrg_init, svrg_run, svrg_step,
+)
 
 __all__ = [
     "SolverIterable", "Status", "halt", "loop", "run_solver_loop",
     "solution", "take", "SAG", "SAGA", "SAGACfg", "SAGAState",
     "block_starts", "importance_draws", "saga_init", "saga_rebase",
-    "saga_run", "saga_step", "DeepSolveInfo", "deep_solve", "StagedInfo",
-    "staged_saga", "PolishResult", "fista_polish", "grad_mean_chunked",
-    "grad_sum_chunked", "power_lmax", "lsq_power_lmax",
+    "saga_run", "saga_step", "SVRG", "SVRGCfg", "SVRGState", "svrg_init",
+    "svrg_run", "svrg_step", "ForwardBackward", "FISTA", "FBCfg", "FBState",
+    "fb_init", "fb_run", "fb_step", "full_gradient", "DeepSolveInfo",
+    "deep_solve", "StagedInfo", "staged_saga", "PolishResult",
+    "fista_polish", "grad_mean_chunked", "grad_sum_chunked", "power_lmax",
+    "lsq_power_lmax",
 ]

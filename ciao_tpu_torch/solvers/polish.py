@@ -34,20 +34,12 @@ from typing import NamedTuple
 import torch
 
 from ciao_tpu_torch import runtime
+from ciao_tpu_torch.ops.fused_block import _two_sum
 
 
 class PolishResult(NamedTuple):
     x: torch.Tensor        # polished iterate
     fp_res: torch.Tensor   # ‖x_k − prox(x_k − η∇f)‖/η at the last step
-
-
-def _two_sum(hi, lo, p):
-    """Knuth two-sum: (hi, lo) ← (hi, lo) + p with the rounding error of
-    the add kept exactly in the compensation term."""
-    s = hi + p
-    t = s - hi
-    e = (p - t) + (hi - (s - t))
-    return s, lo + e
 
 
 def _require_wide_rows(F, who: str):

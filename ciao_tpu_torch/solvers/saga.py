@@ -479,16 +479,17 @@ def _importance_setup(L, N: int, B: int, istrat: bool, rdt, device):
             L_eff, iwin)
 
 
-def _warn_saga_fallback(F, g, x0):
-    """One-time warning when a block-sampling SAGA config on a CUDA
-    device lands on the stepwise path, naming the first closed gate and
-    its remedy. Silent for CPU iterates. (N % batch != 0, the gate's
-    shape condition, is refused by the facade before it routes.)"""
+def _warn_fallback(who: str, F, g, x0):
+    """One-time warning when a block-sampling config of facade ``who``
+    (SAGA, SVRG) on a CUDA device lands on the stepwise path, naming the
+    first closed gate and its remedy. Silent for CPU iterates.
+    (N % batch != 0, the gate's shape condition, is refused by the
+    facades before they route.)"""
     if x0.device.type != "cuda":
         return
     if x0.dtype != torch.float32:
         runtime.warn_fused_fallback(
-            "SAGA", f"the iterate dtype is {x0.dtype} and the kernel is "
+            who, f"the iterate dtype is {x0.dtype} and the kernel is "
             "f32-only",
             "use float32 iterates — precision belongs in the oracle's row "
             "storage (with_storage) and the deep_solve polish, not the "
@@ -496,13 +497,13 @@ def _warn_saga_fallback(F, g, x0):
         )
     elif not (hasattr(F, "coeff_rows_data") and isinstance(g, (NormL1, Zero))):
         runtime.warn_fused_fallback(
-            "SAGA", "the in-kernel prox covers NormL1/Zero only, and the "
+            who, "the in-kernel prox covers NormL1/Zero only, and the "
             "oracle must expose dense rows (coeff_rows_data)",
             "use g=NormL1 or g=Zero and a dense-rows oracle",
         )
     else:
         runtime.warn_fused_fallback(
-            "SAGA", "the oracle's rows are not f32, bf16 or int8 rows with "
+            who, "the oracle's rows are not f32, bf16 or int8 rows with "
             "f32 offsets on the iterate's device, or n exceeds the "
             "kernel's MAX_COLS",
             "store the oracle in float32 (then with_storage) on the "
@@ -576,7 +577,7 @@ class SAGA:
         if self.block_sampling:
             fused, fused_stream, istrat = _route(F, g, x0, N, self.batch)
             if not (fused or fused_stream):
-                _warn_saga_fallback(F, g, x0)
+                _warn_fallback("SAGA", F, g, x0)
         rdt = real_dtype_of(x0)
         qcum = qinv = None
         iwin = 64

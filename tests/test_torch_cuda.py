@@ -1,6 +1,7 @@
-"""The CUDA kernels ``saga_coeff_multistep`` and
-``saga_coeff_multistep_streamed`` against their plain versions, and the
-polish's exact-f32 check.
+"""The CUDA kernels ``saga_coeff_multistep``,
+``saga_coeff_multistep_streamed``, ``svrg_coeff_multistep`` and
+``coeff_apply_all`` against their plain versions, the facades' routing
+to them, and the polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -283,4 +284,216 @@ def test_facade_sends_every_block_run_to_a_kernel(dev):
             x0, F=F, g=g, L=(A * A).sum(1) * N)
     assert it == 257
     assert tfb.saga_coeff_multistep.launches == before + 2
+    assert float(objective(F, g, x)) < float(objective(F, g, x0))
+
+
+# ---------------------------------------------------------------------------
+# kernel #5: svrg_coeff_multistep
+# ---------------------------------------------------------------------------
+
+def _svrg_setup(dev, N, n, B, K, storage, lam, seed=0):
+    """An SVRG-like state: anchor coefficients at a random z̃, av their
+    mean gradient, w near z̃, zs a running sum; scalars [scale, γ, γλ,
+    1/B, mode, aux]."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    A = torch.randn(N, n, generator=gen, device=dev)
+    F = LeastSquaresRows(A, torch.randn(N, generator=gen, device=dev),
+                         float(N))
+    if storage != "f32":
+        F = F.with_storage(storage)
+    gamma = 1.0 / (10.0 * float((A * A).sum(1).max()) * N)
+    zt = 0.05 * torch.randn(n, generator=gen, device=dev)
+    canch = F.coeff_all(zt)
+    av = F.apply_all(canch) / N
+    w = zt + 0.01 * torch.randn(n, generator=gen, device=dev)
+    zs = 0.1 * torch.randn(n, generator=gen, device=dev)
+    starts = (torch.randint(N // B, (K,), generator=gen, device=dev) * B).to(
+        torch.int32)
+    sc = torch.tensor([N, gamma, gamma * lam, 1.0 / B, 0.0, 0.0],
+                      device=dev)
+    return F, canch, (w, zs), av, starts, sc
+
+
+def _run_svrg(F, canch, state, av, starts, sc, B, precision):
+    rows, offs = F.coeff_rows_data()
+    outs = []
+    for fn in (tfb.svrg_coeff_multistep, tfb.svrg_coeff_multistep_ref):
+        st = [t.clone() for t in state]
+        fn(rows, offs, starts, canch, *st, av, sc, B, precision=precision,
+           rs=F.coeff_rows_scale())
+        outs.append(st)
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("lam", [0.1, 0.0], ids=["l1", "zero"])
+@pytest.mark.parametrize("storage,precision,n", [
+    ("f32", "highest", 128), ("f32", "default", 128),
+    ("bf16", "highest", 128), ("int8", "highest", 128),
+    ("f32", "highest", 202), ("int8", "highest", 200),
+], ids=["f32", "f32-default", "bf16", "int8", "f32-n202", "int8-n200"])
+def test_svrg_kernel_matches_plain_version(dev, storage, precision, n, lam):
+    """K = 64 inner steps at N = 8,192, B = 128 (repeats included); w and
+    zs within 1e-6 of their largest entry for exact-f32 dots, 1e-5 where
+    the dots round to bf16. λ = 0 is the Zero prox."""
+    N, B, K = 8192, 128, 64
+    F, canch, state, av, starts, sc = _svrg_setup(dev, N, n, B, K, storage,
+                                                   lam)
+    before = tfb.svrg_coeff_multistep.launches
+    (kw, kzs), (rw, rzs) = _run_svrg(F, canch, state, av, starts, sc, B,
+                                     precision)
+    assert tfb.svrg_coeff_multistep.launches == before + 1
+    tol = 1e-5 if tfb._lowp(F.A, precision) else 1e-6
+    assert float((rw - state[0]).abs().max()) > 0
+    assert _rel(kw, rw) <= tol
+    assert _rel(kzs, rzs) <= tol
+
+
+def test_svrg_kernel_repeats_bit_for_bit_and_checks_arguments(dev):
+    F, canch, state, av, starts, sc = _svrg_setup(dev, 4096, 256, 256, 16,
+                                                   "int8", 0.1, seed=1)
+    rows, offs = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    runs = []
+    for _ in range(2):
+        st = [t.clone() for t in state]
+        tfb.svrg_coeff_multistep(rows, offs, starts, canch, *st, av, sc, 256,
+                                 rs=rs)
+        runs.append(st)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    w, zs = state
+    with pytest.raises(ValueError, match="scalars"):
+        tfb.svrg_coeff_multistep(rows, offs, starts, canch, w, zs, av,
+                                 torch.zeros(8, device=dev), 256, rs=rs)
+    with pytest.raises(ValueError, match="canch"):
+        tfb.svrg_coeff_multistep(rows, offs, starts, canch[:100], w, zs, av,
+                                 sc, 256, rs=rs)
+    with pytest.raises(ValueError, match="rs"):
+        tfb.svrg_coeff_multistep(rows, offs, starts, canch, w, zs, av, sc,
+                                 256)
+    with pytest.raises(TypeError, match="starts"):
+        tfb.svrg_coeff_multistep(rows, offs, starts.long(), canch, w, zs, av,
+                                 sc, 256, rs=rs)
+
+
+# ---------------------------------------------------------------------------
+# kernel #6: coeff_apply_all
+# ---------------------------------------------------------------------------
+
+def _apply_both(A, b, z, sc, precision, rs):
+    k = tfb.coeff_apply_all(A, b, z, sc, precision=precision, rs=rs)
+    r = tfb.coeff_apply_all_ref(A, b, z, sc, precision=precision, rs=rs)
+    torch.cuda.synchronize()
+    return k, r
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4],
+                         ids=["lsq", "logistic", "huber", "sqhinge",
+                              "poisson"])
+@pytest.mark.parametrize("storage,precision,N,n", [
+    ("f32", "highest", 8192, 256), ("f32", "default", 8192, 256),
+    ("bf16", "highest", 8192, 256), ("int8", "highest", 8192, 256),
+    ("f32", "highest", 8191, 202), ("int8", "highest", 8000, 200),
+], ids=["f32", "f32-default", "bf16", "int8", "f32-ragged", "int8-n200"])
+def test_apply_kernel_matches_plain_version(dev, storage, precision, N, n,
+                                            mode):
+    """Every formula mode through the scalars row, ragged N and rows that
+    are not whole 16-byte chunks: c within 1e-6 of its largest entry
+    (1e-5 with bf16 dots), gsum within 1e-5 (1e-4): both sum in other
+    orders, and a margin that moves by an ulp can move a bf16-rounded
+    coefficient by 2^-8."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(mode)
+    F = LeastSquaresRows(torch.randn(N, n, generator=gen, device=dev),
+                         torch.randn(N, generator=gen, device=dev), float(N))
+    if storage != "f32":
+        F = F.with_storage(storage)
+    rows, offs = F.coeff_rows_data()
+    z = 0.05 * torch.randn(n, generator=gen, device=dev)
+    sc = torch.tensor([N if mode in (0, 2) else 1.0, mode, 0.5], device=dev)
+    before = tfb.coeff_apply_all.launches
+    (kc, kg), (rc, rg) = _apply_both(rows, offs, z, sc, precision,
+                                     F.coeff_rows_scale())
+    assert tfb.coeff_apply_all.launches == before + 1
+    tol = 1e-5 if tfb._lowp(rows, precision) else 1e-6
+    assert _rel(kc, rc) <= tol
+    assert _rel(kg, rg) <= 10 * tol
+
+
+def test_apply_kernel_compensates_and_repeats_bit_for_bit(dev):
+    """tests/test_ops.py:367's adversarial stream (N = 262,144, n = 128:
+    2,048 rows of c = 2^18, then 1e-3): the kernel's gsum[0] is within
+    0.05·lost of the exact sum, and two runs give the same bits."""
+    Np, npix, TILE = 262_144, 128, 2_048
+    A = torch.zeros(Np, npix, device=dev)
+    A[:, 0] = 1.0
+    b = torch.full((Np,), -1e-3, device=dev)
+    b[:TILE] = -(2.0 ** 18)
+    sc = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    z = torch.zeros(npix, device=dev)
+    exact = 2.0 ** 18 * TILE + 1e-3 * (Np - TILE)
+    _, g1 = tfb.coeff_apply_all(A, b, z, sc)
+    _, g2 = tfb.coeff_apply_all(A, b, z, sc)
+    torch.cuda.synchronize()
+    assert abs(float(g1[0]) - exact) < 0.05 * 1e-3 * (Np - TILE)
+    assert torch.equal(g1, g2)
+
+
+def test_apply_wrapper_checks_its_arguments(dev):
+    A = torch.randn(1024, 64, device=dev)
+    b, z = torch.randn(1024, device=dev), torch.randn(64, device=dev)
+    sc = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    with pytest.raises(ValueError, match="scalars"):
+        tfb.coeff_apply_all(A, b, z, torch.zeros(8, device=dev))
+    with pytest.raises(ValueError, match="z has shape"):
+        tfb.coeff_apply_all(A, b, z[:32], sc)
+    with pytest.raises(ValueError, match="on cpu"):
+        tfb.coeff_apply_all(A, b.cpu(), z, sc)
+    with pytest.raises(ValueError, match="rs"):
+        tfb.coeff_apply_all(A.to(torch.int8), b, z, sc)
+
+
+def test_svrg_and_fista_facades_run_on_the_kernels(dev):
+    """On the card a block-sampling SVRG run takes kernel #5 for every
+    inner step and kernel #6 for every anchor (none stepwise, no
+    fallback warning, the SAGA kernels untouched), SVRG++ too across
+    launch boundaries, and FISTA takes kernel #6 once per step; the
+    objectives fall."""
+    import warnings
+
+    from ciao_tpu_torch import FISTA, SVRG
+    from ciao_tpu_torch.monitor import objective
+    from ciao_tpu_torch.prox import NormL1
+
+    N, n, B = 4224, 64, 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    A = torch.randn(N, n, generator=gen, device=dev)
+    F = LeastSquaresRows(A, torch.randn(N, generator=gen, device=dev),
+                         float(N))
+    g = NormL1(torch.tensor(0.01, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    L = (A * A).sum(1) * N
+    gamma = 1.0 / (10.0 * float(L.max()))
+    kernels = (tfb.svrg_coeff_multistep, tfb.coeff_apply_all,
+               tfb.saga_coeff_multistep, tfb.saga_coeff_multistep_streamed)
+    before = [k.launches for k in kernels]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        x, it = SVRG(maxit=5, gamma=gamma, m=200, block_sampling=True,
+                     batch=B)(x0, F=F, g=g)
+    assert it == 5
+    # 4 outer steps of 200 inner steps: 128 + 72 each; 4 anchors
+    assert [k.launches - b for k, b in zip(kernels, before)] == [8, 4, 0, 0]
+    assert float(objective(F, g, x)) < float(objective(F, g, x0))
+    before = [k.launches for k in kernels]
+    x, it = SVRG(maxit=4, gamma=gamma, m=100, plus=True, block_sampling=True,
+                 batch=B)(x0, F=F, g=g)
+    # m = 100, 200, 400: 1 + 2 + 4 launches
+    assert [k.launches - b for k, b in zip(kernels, before)] == [7, 3, 0, 0]
+    before = [k.launches for k in kernels]
+    x, it = FISTA(maxit=51)(x0, F=F, g=g, L=L)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 50, 0, 0]
     assert float(objective(F, g, x)) < float(objective(F, g, x0))

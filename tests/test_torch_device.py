@@ -9,7 +9,7 @@ from ciao_tpu_torch import runtime
 from ciao_tpu_torch.convert import tensor_from_numpy
 from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.prox import NormL1
-from ciao_tpu_torch.solvers import SAGA
+from ciao_tpu_torch.solvers import SAGA, SVRG, ForwardBackward
 from ciao_tpu_torch.solvers.base import facade_device
 from ciao_tpu_torch.utils.problems import make_lasso
 
@@ -31,7 +31,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert facade_device(None, [0.0, 0.0, 0.0]) == cuda0
     assert facade_device(None, torch.zeros(3)) == torch.device("cpu")
     assert facade_device("cpu", [0.0]) == torch.device("cpu")
-    for solver in (SAGA(maxit=2),):
+    for solver in (SAGA(maxit=2), SVRG(maxit=2, gamma=0.01),
+                   ForwardBackward(maxit=2)):
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             solver([0.0, 0.0, 0.0], F=F, g=g, L=prob.L, N=6)
         x, _ = solver(torch.zeros(3), F=F, g=g, L=prob.L, N=6)
