@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's four main paths through its four hand-written CUDA kernels,
+Drives the port's main paths through its eight hand-written CUDA kernels,
 ``ciao_tpu_torch/csrc/saga_coeff_multistep.cu`` (kernel #3 of PERF.md),
 ``saga_coeff_multistep_streamed.cu`` (kernel #4), ``svrg_coeff_multistep.cu``
-(kernel #5) and ``coeff_apply_all.cu`` (kernel #6):
+(kernel #5), ``coeff_apply_all.cu`` (kernel #6), ``finito_coeff_multistep.cu``
+(kernel #9), ``finito_coeff_multistep_streamed.cu`` (kernel #14),
+``lfinito_sweep_multistep.cu`` (kernel #8) and ``finito_block_update.cu``
+(kernel #2):
 
 - the SAGA headline of ``bench.py``: a dense Lasso with N = 262,144 rows of
   n = 1,024 columns stored int8 or f32, NormL1(0.1), block-sampled
@@ -22,7 +25,13 @@ Drives the port's four main paths through its four hand-written CUDA kernels,
   SVRG++) on a planted Lasso;
 - the FISTA configuration of ``bench.py`` (``fista fused``): one kernel #6
   pass per step at the headline, and the ``FISTA`` facade on the planted
-  Lasso.
+  Lasso;
+- the Finito configuration of ``bench.py`` (``finito fused``): the headline,
+  B = 4,096, sweeping=3, the coefficient table on kernel #9; the ``Finito``
+  facade on the planted Lasso (coefficient table on #9, full table on #2)
+  and adaptive Finito; on the deep target, streamed Finito (#14), its
+  importance-sampled facade, and LFinito (#6 and #8), the counterpart of
+  ``bench.py``'s ``lfinito_10m_epochs_per_s``.
 
 Phases, one line each:
 
@@ -59,6 +68,26 @@ Phases, one line each:
   6. times at the headline: kernel #6 per pass against its plain version,
      its bound and the two-gemv yardstick; kernel #5 per step against its
      plain version; ms per SVRG outer step and per FISTA step.
+  3e. kernel #9 == plain version: every storage and precision, NormL1 and
+     Zero, repeated blocks, at SMALL; K = 8 at the headline;
+  3f. kernel #14 == plain version at SMALL_STREAM with f = K and f = 23,
+     masked steps bit for bit, and K = 8 at the deep shape;
+  3g. kernel #8 == plain version: a whole shuffled sweep of d = 64 blocks at
+     SMALL_STREAM, and K = 8 at the deep shape, its z the last block's prox
+     point;
+  3h. kernel #2 == plain version: f32 and bf16 rows at SMALL and at the
+     headline, rows outside the block bit for bit;
+  4g. deep-shape Finito paths (after 4b/4c, on the same problem): streamed
+     Finito and importance-sampled Finito on #14, LFinito on #6 and #8,
+     ms/epoch and epochs/s; times of #14 and #8 per step, and an LFinito
+     epoch profiled;
+  4f. Finito headline path: 256 epochs at f32 and int8 rows on #9, and the
+     facades: the coefficient table on #9, the full table on #2, adaptive
+     with no kernel;
+  7. times: kernel #9 per step at the headline, kernel #2 per step at the
+     headline, each in turns with its plain version and with its bound; a
+     Finito step at the headline profiled, on the coefficient table and on
+     the full table.
 
 Then a JSON line of the kernels (with each one's bound, computed from this
 run's inputs), and last ``{"ok": true, "device": ...}``.
@@ -121,6 +150,28 @@ APPLY_SMALL = dict(N=8_192, n=256)
 ADVERSARIAL = dict(N=262_144, n=128, tile=2_048)
 # kernel #5 against its plain version: d = 64 blocks
 SVRG_SMALL = dict(N=8_192, n=128, B=128, K=64)
+# the Finito configuration of bench.py (finito fused, :1418): the headline,
+# B = 4,096, sweeping=3, the coefficient table on kernel #9; 256 epochs of
+# 64 steps, as bench.py times, in 128 launches
+FINITO_EPOCHS = 256
+# the facades on the planted Lasso (FACADE): Finito(sweeping=3) for 256
+# epochs of batch 1,024 on kernel #9; the full table (kernel #2, one launch
+# a step, each reading and writing its block's 4 MiB of table) for 16
+# epochs, cut from 256 to keep the run short; adaptive Finito (no kernel,
+# a host-read line search every step) for 1,500 single-row steps on a
+# small planted Lasso. Finito's rate over the 64 blocks of this Lasso
+# allows no FACADE_DROP-fold fall in these budgets (a CPU run of the same
+# seed: 2.16-fold in 256 epochs, 1.059-fold in 16 full-table epochs; the
+# JAX package's Finito falls as slowly), so each has its own bar
+FINITO_FACADE = dict(batch=1_024, maxit=16_385, drop=2.0)
+FULL_FACADE = dict(batch=1_024, maxit=1_025, drop=1.03)
+ADAPTIVE = dict(N=256, n=32, p=4, maxit=1_501, drop=10.0)
+# the deep shape: streamed Finito (kernel #14) and importance-sampled
+# Finito for 4 epochs of d = 1,280 steps, LFinito (kernels #6 and #8,
+# bench.py's lfinito_10m_epochs_per_s at the deep target's data) for 16
+# timed epochs after one warm-up: cut from bench.py's 512 at most
+DEEP_FINITO_EPOCHS = 4
+LFINITO_EPOCHS = 16
 
 # The card's published rates (NVIDIA's data sheet, H100 SXM): device
 # memory, and the peak for the rows' type — f32 outside the tensor cores,
@@ -921,10 +972,17 @@ def run_fista(dev, F, g, L, steps: int, tag: str, card: str,
     return ms
 
 
-def profile_steps(tag: str, fn, steps: int, card: str) -> dict:
-    """One call of ``fn`` (``steps`` solver steps) by the host clock, then
-    once more under torch.profiler: ms per step, the device's busy time
-    per step split by kernel, and the idle share 1 − busy/step."""
+# kernels of a profiled window by name: the substrings of their launches
+SVRG_GROUPS = {"kernel #6": ("apply_",),
+               "kernel #5": ("rows_kernel", "svrg_finish")}
+
+
+def profile_steps(tag: str, fn, steps: int, card: str,
+                  groups=SVRG_GROUPS, unit: str = "step") -> dict:
+    """One call of ``fn`` (``steps`` solver steps, or epochs: ``unit``) by
+    the host clock, then once more under torch.profiler: ms per step, the
+    device's busy time per step split by kernel (``groups``: label → name
+    substrings), and the idle share 1 − busy/step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -938,22 +996,21 @@ def profile_steps(tag: str, fn, steps: int, card: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    split = {"kernel #5": 0.0, "kernel #6": 0.0, "other": 0.0}
+    split = dict.fromkeys([*groups, "other"], 0.0)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        key = ("kernel #6" if "apply_" in e.key else "kernel #5"
-               if "rows_kernel" in e.key or "svrg_finish" in e.key
-               else "other")
+        key = next((k for k, subs in groups.items()
+                    if any(sub in e.key for sub in subs)), "other")
         split[key] += us / 1e3 / steps
     busy = sum(split.values())
     if busy <= 0.0:
         raise AssertionError(f"profile {tag}: the trace shows no device time")
-    log(f"  profiled {tag}: {step:.4f} ms per step by the host clock; "
-        f"device busy {busy:.4f} ms per step ("
+    log(f"  profiled {tag}: {step:.4f} ms per {unit} by the host clock; "
+        f"device busy {busy:.4f} ms per {unit} ("
         + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
         + f"), idle share {1.0 - busy / step:.3f} [{card}]")
     return dict(step=step, busy=busy, **split)
@@ -1048,11 +1105,594 @@ def time_svrg(gen, dev, storage: str, card: str) -> dict:
                 bound_by=b_by)
 
 
+# ---------------------------------------------------------------------------
+# the Finito family: kernels #9, #14, #8, #2
+# ---------------------------------------------------------------------------
+
+def soft(v, thr):
+    return torch.sign(v) * torch.clamp(v.abs() - thr, min=0.0)
+
+
+def finito_inputs(F, gen, dev, B_: int, K: int, lam: float,
+                  distinct=False) -> dict:
+    """A Finito coefficient state on the card: γ_i ≈ 0.999/‖a_i‖² of
+    Gaussian rows (α·N/L_i with L_i = N‖a_i‖², drawn around n), c at a
+    point x0, per-block anchors zb near it, av of the identity
+    hat·(invg @ zb − Σ c_i a_i/N), z = soft(av, hat·λ); K block ids
+    (repeats included unless ``distinct``)."""
+    rows_, cols = F.num_terms, F.dim
+    d = rows_ // B_
+    gamma = 0.999 / (cols * (0.8 + 0.4 * torch.rand(
+        rows_, generator=gen, device=dev)))
+    invg = (1.0 / gamma).reshape(d, B_).sum(1)
+    hat = float(1.0 / (1.0 / gamma).sum())
+    x0 = 0.05 * torch.randn(cols, generator=gen, device=dev)
+    zb = x0 + 0.01 * torch.randn(d, cols, generator=gen, device=dev)
+    c = F.coeff_all(x0)
+    av = hat * (invg @ zb) - hat / rows_ * F.apply_all(c)
+    blocks = (torch.randperm(d, generator=gen, device=dev)[:K] if distinct
+              else torch.randint(d, (K,), generator=gen, device=dev))
+    return dict(gamma=gamma, invg=invg, hat=hat,
+                state=(c, zb, soft(av, hat * lam), av),
+                starts=(blocks * B_).to(torch.int32),
+                sc=torch.tensor([rows_, 1.0 / rows_, hat, hat * lam, 0.0,
+                                 0.0], device=dev))
+
+
+def run_finito_kernel(fn, F, S, B_, precision="highest", f=None,
+                      starts=None, state=None):
+    """Kernel #9 or #14 (or a plain version; #14's calling convention for
+    the streamed functions) on ``state`` in place, by default a copy of
+    S's state; returns the state."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    rows, offs = F.coeff_rows_data()
+    starts = S["starts"] if starts is None else starts
+    c, zb, z, av = (state if state is not None
+                    else [t.clone() for t in S["state"]])
+    if fn in (fb.finito_coeff_multistep_streamed,
+              fb.finito_coeff_multistep_streamed_ref):
+        fn(rows, offs, starts, S["invg"][starts.long() // B_], c, zb, z, av,
+           S["sc"], B_, precision=precision, rs=F.coeff_rows_scale(), f=f)
+    else:
+        fn(rows, offs, starts, c, zb, S["invg"], z, av, S["sc"], B_,
+           precision=precision, rs=F.coeff_rows_scale())
+    return [c, zb, z, av]
+
+
+def compare_finito(F, gen, dev, B_, K, lam, precision, tag, streamed=False,
+                   f=None) -> float:
+    """Kernel #9 (or #14 with clamp count ``f``) against its plain version
+    from one state on one schedule: z within Z_TOL of its largest entry,
+    c, zb and av within STATE_TOL; returns the largest |dz|."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = finito_inputs(F, gen, dev, B_, K, lam, distinct=streamed)
+    fns = ((fb.finito_coeff_multistep_streamed,
+            fb.finito_coeff_multistep_streamed_ref) if streamed else
+           (fb.finito_coeff_multistep, fb.finito_coeff_multistep_ref))
+    kern, ref = (run_finito_kernel(fn, F, S, B_, precision, f) for fn in fns)
+    torch.cuda.synchronize()
+    lowp = fb._lowp(F.coeff_rows_data()[0], precision)
+    moved = float((ref[2] - S["state"][2]).abs().max())
+    if moved == 0.0:
+        raise AssertionError(f"{tag}: the steps did not move z")
+    rel = float((kern[2] - ref[2]).abs().max()) / max(
+        float(ref[2].abs().max()), 1e-30)
+    if rel > Z_TOL[lowp]:
+        raise AssertionError(f"{tag}: z rel error {rel:.3e} > {Z_TOL[lowp]}")
+    check_close(tag, list(zip(("c", "zb", "z", "av"), kern, ref)), lowp,
+                moved)
+    return float((kern[2] - ref[2]).abs().max())
+
+
+def finito_masked_identity(F, gen, dev, B_, K, f, tag) -> None:
+    """Kernel #14 clamped at f leaves c, zb, z and av bit for bit as the
+    first f steps alone leave them; f = 0 leaves the state as it was."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = finito_inputs(F, gen, dev, B_, K, LAM, distinct=True)
+    kern = fb.finito_coeff_multistep_streamed
+    i32 = dict(dtype=torch.int32, device=dev)
+    pairs = ((run_finito_kernel(kern, F, S, B_, f=torch.tensor([f], **i32)),
+              run_finito_kernel(kern, F, S, B_, starts=S["starts"][:f])),
+             (run_finito_kernel(kern, F, S, B_, f=torch.tensor([0], **i32)),
+              list(S["state"])))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for name, a, b in zip(("c", "zb", "z", "av"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag}: masked steps changed {name}")
+    log(f"  {tag}: steps k >= {f} masked: c, zb, z, av bit-identical to the "
+        f"state after step {f - 1}; f = 0 leaves the state as it was")
+
+
+def lfinito_inputs(F, gen, dev, B_, K, lam) -> dict:
+    """An LFinito epoch's start: the anchor z_full = soft(av) of a Finito
+    state, its coefficients, av = z_full − hat·Σ c_i a_i/N, K distinct
+    blocks in visit order, their Σ 1/γ_i and the scalars row [scale, hat,
+    hat·λ, 1/N, mode, aux]."""
+    S = finito_inputs(F, gen, dev, B_, K, lam, distinct=True)
+    rows_ = F.num_terms
+    zf = S["state"][2]
+    canch = F.coeff_all(zf)
+    hat = S["hat"]
+    return dict(zf=zf, canch=canch, av=zf - hat / rows_ * F.apply_all(canch),
+                starts=S["starts"], hat=hat, lam=lam,
+                invg_v=S["invg"][S["starts"].long() // B_].contiguous(),
+                sc=torch.tensor([rows_, hat, hat * lam, 1.0 / rows_, 0.0,
+                                 0.0], device=dev))
+
+
+def compare_lfinito(F, gen, dev, B_, K, lam, precision, tag) -> float:
+    """Kernel #8 against its plain version on one sweep of K blocks: the
+    returned z (the last block's prox point, which differs from soft of
+    the returned av) within Z_TOL, av within STATE_TOL; returns |dz|."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = lfinito_inputs(F, gen, dev, B_, K, lam)
+    rows, offs = F.coeff_rows_data()
+    outs = [fn(rows, offs, S["canch"], S["starts"], S["av"].clone(), S["zf"],
+               S["invg_v"], S["sc"], B_, precision=precision,
+               rs=F.coeff_rows_scale())
+            for fn in (fb.lfinito_sweep_multistep,
+                       fb.lfinito_sweep_multistep_ref)]
+    torch.cuda.synchronize()
+    (kav, kz), (rav, rz) = outs
+    lowp = fb._lowp(rows, precision)
+    rel = float((kz - rz).abs().max()) / max(float(rz.abs().max()), 1e-30)
+    if rel > Z_TOL[lowp]:
+        raise AssertionError(f"{tag}: z rel error {rel:.3e} > {Z_TOL[lowp]}")
+    if lam and torch.equal(kz, soft(kav, S["hat"] * lam)):
+        raise AssertionError(f"{tag}: z is soft(av_out), not the last "
+                             "block's prox point")
+    check_close(tag, (("av", kav, rav), ("z", kz, rz)), lowp,
+                float((rav - S["av"]).abs().max()))
+    return float((kz - rz).abs().max())
+
+
+def compare_block(F, gen, dev, B_, precision, tag) -> float:
+    """Kernel #2 against its plain version on one block (its start a
+    device tensor): the block's table rows within Z_TOL of their largest
+    entry, the innovation within STATE_TOL, every other row bit for bit
+    as it was; returns the largest error of the block's rows."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    rows, offs = F.coeff_rows_data()
+    rows_, cols = rows.shape
+    s = torch.randn(rows_, cols, generator=gen, device=dev)
+    z = 0.05 * torch.randn(cols, generator=gen, device=dev)
+    gamma = 0.999 / (cols * (0.8 + 0.4 * torch.rand(
+        rows_, generator=gen, device=dev)))
+    start = torch.randint(rows_ // B_, (), generator=gen, device=dev) * B_
+    sc = torch.tensor([rows_, 1.0 / rows_, 0.37], device=dev)
+    ks, kin = fb.finito_block_update(rows, offs, s.clone(), gamma, z, start,
+                                     sc, B_, precision=precision)
+    rs_, rin = fb.finito_block_update_ref(rows, offs, s.clone(), gamma, z,
+                                          start, sc, B_, precision=precision)
+    torch.cuda.synchronize()
+    lo = int(start)
+    blk = slice(lo, lo + B_)
+    if not (torch.equal(ks[:lo], s[:lo]) and torch.equal(ks[lo + B_:],
+                                                         s[lo + B_:])):
+        raise AssertionError(f"{tag}: rows outside the block changed")
+    lowp = precision == "default"
+    rel = float((ks[blk] - rs_[blk]).abs().max()) / float(
+        rs_[blk].abs().max())
+    if rel > Z_TOL[lowp]:
+        raise AssertionError(f"{tag}: s rel error {rel:.3e} > {Z_TOL[lowp]}")
+    check_close(tag + ", rows outside the block bit for bit",
+                (("s", ks[blk], rs_[blk]), ("innov", kin, rin)), lowp)
+    return float((ks[blk] - rs_[blk]).abs().max())
+
+
+STORAGES = (("f32", "highest"), ("f32", "default"), ("bf16", "highest"),
+            ("int8", "highest"))
+
+
+def phase_check_finito(gen, dev) -> float:
+    """3e: kernel #9 at SMALL across storages, precisions and proxes
+    (repeated blocks), and K = 8 at the headline."""
+    s, worst = SMALL, 0.0
+    for storage, precision in STORAGES:
+        F, _, _ = lasso(gen, dev, s["N"], s["n"], storage)
+        for lam in (LAM, 0.0):
+            tag = (f"N={s['N']} n={s['n']} B={s['B']} K={s['K']} "
+                   f"{storage}/{precision} {'NormL1' if lam else 'Zero'}")
+            worst = max(worst, compare_finito(F, gen, dev, s["B"], s["K"],
+                                              lam, precision, tag))
+    for storage in ("f32", "bf16", "int8"):
+        F, _, _ = lasso(gen, dev, N, n, storage)
+        worst = max(worst, compare_finito(
+            F, gen, dev, B, HEADLINE_K, LAM, "highest",
+            f"N={N} n={n} B={B} K={HEADLINE_K} {storage} NormL1"))
+        del F
+    return worst
+
+
+def phase_check_finito_small(gen, dev):
+    """3f and 3g at SMALL_STREAM (d = 64): kernel #14 with f = K and f =
+    23, masked steps bit for bit; kernel #8 over a whole shuffled sweep of
+    the 64 blocks. Returns the two largest errors."""
+    s = SMALL_STREAM
+    w14 = w8 = 0.0
+    for storage, precision in STORAGES:
+        F, _, _ = lasso(gen, dev, s["N"], s["n"], storage)
+        for f in (s["K"], s["f"]):
+            fc = torch.tensor([f], dtype=torch.int32, device=dev)
+            w14 = max(w14, compare_finito(
+                F, gen, dev, s["B"], s["K"], LAM, precision,
+                f"#14 N={s['N']} n={s['n']} B={s['B']} K={s['K']} f={f} "
+                f"{storage}/{precision}", streamed=True, f=fc))
+        finito_masked_identity(F, gen, dev, s["B"], s["K"], s["f"],
+                               f"#14 N={s['N']} K={s['K']} {storage}")
+        d = s["N"] // s["B"]
+        for lam in (LAM, 0.0):
+            w8 = max(w8, compare_lfinito(
+                F, gen, dev, s["B"], d, lam, precision,
+                f"#8 sweep of d={d} blocks, N={s['N']} n={s['n']} "
+                f"{storage}/{precision} {'NormL1' if lam else 'Zero'}"))
+    return w14, w8
+
+
+def phase_check_block(gen, dev) -> float:
+    """3h: kernel #2, f32 and bf16 rows at SMALL and at the headline."""
+    worst = 0.0
+    for rows_, cols, B_ in ((SMALL["N"], SMALL["n"], SMALL["B"]), (N, n, B)):
+        for storage in ("f32", "bf16"):
+            F, _, _ = lasso(gen, dev, rows_, cols, storage)
+            for precision in ("highest", "default"):
+                worst = max(worst, compare_block(
+                    F, gen, dev, B_, precision,
+                    f"#2 N={rows_} n={cols} B={B_} {storage}/{precision}"))
+            del F
+            torch.cuda.empty_cache()
+    return worst
+
+
+def run_finito_headline(gen, dev, storage: str, card: str) -> dict:
+    """finito_coeff_init, then FINITO_EPOCHS epochs of finito_run at
+    bench.py's finito configuration through kernel #9; returns the ms per
+    step and what phase 7 profiles again."""
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers.finito import (
+        FinitoCfg, _resident, finito_coeff_init, finito_run,
+    )
+    from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
+
+    F, _, L = lasso(gen, dev, N, n, storage)
+    g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    if not (fb.finito_multistep_available(F, g, x0, B) and _resident(N, n, B)):
+        raise AssertionError(f"finito {storage}: not kernel #9's route")
+    cfg = FinitoCfg(N=N, batch=B, sweeping=3, alpha=0.999, fused=True)
+    st0 = finito_coeff_init(F, g, x0, 0.999 * N / L, 0, cfg)
+    steps = FINITO_EPOCHS * EPOCH_STEPS
+    obj0 = cost(F, g, st0.z)
+    k9 = fb.finito_coeff_multistep.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = finito_run(F, g, st0, cfg, "basic_coeff", steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    d9 = fb.finito_coeff_multistep.launches - k9
+    obj1 = cost(F, g, st.z)
+    for name in ("c", "zb", "z", "av"):
+        if not bool(torch.isfinite(getattr(st, name)).all()):
+            raise AssertionError(f"finito {storage}: {name} is not finite")
+    if d9 != steps // LAUNCH_STEPS or st.it != steps + 1:
+        raise AssertionError(f"finito {storage}: {d9} kernel #9 launches, "
+                             f"it {st.it}")
+    if not (math.isfinite(obj1) and obj1 < obj0):
+        raise AssertionError(f"finito {storage}: objective {obj0} -> {obj1}")
+    ms = dt * 1e3 / steps
+    log(f"  finito headline {storage}: N={N} n={n} B={B} sweeping=3, "
+        f"{FINITO_EPOCHS} epochs = {steps} steps in {d9} kernel #9 launches, "
+        f"objective {obj0:.6e} -> {obj1:.6e}, {ms:.4f} ms/step end to end "
+        f"[{card}]")
+    return dict(ms=ms, F=F, g=g, st=st0, cfg=cfg)
+
+
+def run_finito_facades(dev, prob, F, seed: int, card: str) -> None:
+    """The Finito facade, as a user calls it, on the planted Lasso: the
+    coefficient table (kernel #9) and the full table (kernel #2); adaptive
+    Finito on a small planted Lasso, with no kernel. Each brings cost − f*
+    down by its stated bar (``drop``)."""
+    import numpy as np
+
+    from ciao_tpu_torch import Finito, LeastSquaresRows, NormL1
+    from ciao_tpu_torch.utils.problems import make_lasso
+
+    def gap(p, x):
+        return p.cost(x.double().cpu().numpy()) - p.f_star
+
+    small = make_lasso(N=ADAPTIVE["N"], n=ADAPTIVE["n"], p=ADAPTIVE["p"],
+                       seed=seed, well_conditioned=True)
+    Fs = LeastSquaresRows(
+        torch.tensor(small.A, dtype=torch.float32, device=dev),
+        torch.tensor(small.b, dtype=torch.float32, device=dev),
+        float(ADAPTIVE["N"]))
+    cases = (("Finito(sweeping=3)", prob, F, n,
+              dict(sweeping=3, minibatch=(True, FINITO_FACADE["batch"]),
+                   maxit=FINITO_FACADE["maxit"]),
+              "finito_coeff_multistep", FINITO_FACADE["drop"]),
+             ("Finito(table='full', sweeping=2)", prob, F, n,
+              dict(sweeping=2, table="full",
+                   minibatch=(True, FULL_FACADE["batch"]),
+                   maxit=FULL_FACADE["maxit"]),
+              "finito_block_update", FULL_FACADE["drop"]),
+             ("Finito(adaptive=True, sweeping=2)", small, Fs, ADAPTIVE["n"],
+              dict(sweeping=2, adaptive=True, maxit=ADAPTIVE["maxit"]),
+              None, ADAPTIVE["drop"]))
+    for tag, p, Fp, cols, kw, kernel, drop in cases:
+        before = counts()
+        gap0 = p.cost(np.zeros(cols)) - p.f_star
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, it = Finito(**kw)(torch.zeros(cols, device=dev), F=Fp,
+                             g=NormL1(p.lam), L=p.L)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moved = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        gap1 = gap(p, x)
+        log(f"  facade {tag}, batch {kw.get('minibatch', (0, 1))[1]}, "
+            f"maxit {kw['maxit']}, on planted make_lasso(N={p.A.shape[0]}, "
+            f"n={cols}): cost - f* {gap0:.6e} -> {gap1:.6e} "
+            f"({gap0 / gap1:.1f}-fold), launches {moved}, {dt:.3f} s [{card}]")
+        if not (math.isfinite(gap1) and gap0 / gap1 >= drop):
+            raise AssertionError(f"facade {tag}: cost - f* {gap0} -> {gap1}")
+        want = {} if kernel is None else {kernel: (
+            it - 1 if kernel == "finito_block_update" else -(-(it - 1) // 128))}
+        if moved != want:
+            raise AssertionError(f"facade {tag}: launches {moved}, "
+                                 f"expected {want}")
+
+
+def run_deep_finito(prob, card: str) -> dict:
+    """4g on the deep target: streamed Finito (kernel #14) for
+    DEEP_FINITO_EPOCHS epochs at f32 and int8 rows, importance-sampled
+    Finito through the facade on the streamed route, and LFinito
+    (kernels #6 and #8) at f32 and int8 rows: one warm-up epoch, then
+    LFINITO_EPOCHS timed. Every objective falls. Returns LFinito's ms per
+    epoch and what phase 7 profiles again."""
+    from ciao_tpu_torch import Finito
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.solvers.finito import (
+        FinitoCfg, _resident, finito_coeff_init, finito_run, lfinito_init,
+    )
+    from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
+
+    Nd, nd, Bd = DEEP["N"], DEEP["n"], DEEP["B"]
+    d = Nd // Bd
+    x0 = torch.zeros(nd, device=prob.dev)
+    gamma = 0.999 * Nd / prob.L
+    g = prob.prox()
+    obj0 = prob.objective(prob.oracle(), g, x0)
+    out = {}
+    for storage in ("f32", "int8"):
+        F = prob.oracle(storage)
+        if not fb.finito_multistep_streamed_available(F, g, x0, Bd) or \
+                _resident(Nd, nd, Bd):
+            raise AssertionError("deep finito: not kernel #14's route")
+        cfg = FinitoCfg(N=Nd, batch=Bd, sweeping=3, alpha=0.999,
+                        fused_stream=True)
+        steps = DEEP_FINITO_EPOCHS * d
+        k14 = fb.finito_coeff_multistep_streamed.launches
+        st = finito_coeff_init(F, g, x0, gamma, 0, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = finito_run(F, g, st, cfg, "basic_coeff", steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d14 = fb.finito_coeff_multistep_streamed.launches - k14
+        obj1 = prob.objective(F, g, st.z)
+        log(f"  deep streamed Finito {storage}: {DEEP_FINITO_EPOCHS} epochs = "
+            f"{steps} steps in {d14} kernel #14 launches, objective "
+            f"{obj0:.9e} -> {obj1:.9e}, rel {prob.gap_rel(st.z):.3e}, "
+            f"{dt * 1e3 / steps:.4f} ms/step [{card}]")
+        if d14 != -(-steps // LAUNCH_STEPS) or not (
+                math.isfinite(obj1) and obj1 < obj0):
+            raise AssertionError(f"deep finito {storage}: {d14} launches, "
+                                 f"objective {obj0} -> {obj1}")
+    F = prob.oracle()
+    steps = DEEP_FINITO_EPOCHS * d
+    solver = Finito(maxit=steps + 1, sweeping=1, minibatch=(True, Bd),
+                    importance_sampling=True)
+    cfg = solver._setup(x0, F, g, prob.L, Nd)[3]
+    if not (cfg.importance and cfg.fused_stream and not cfg.fused):
+        raise AssertionError(f"deep importance: not the streamed route {cfg}")
+    k14 = fb.finito_coeff_multistep_streamed.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, _ = solver(x0, F=F, g=g, L=prob.L)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    d14 = fb.finito_coeff_multistep_streamed.launches - k14
+    obj1 = prob.objective(F, g, x)
+    log(f"  deep Finito(importance_sampling=True, sweeping=1, batch={Bd}): "
+        f"{steps} steps in {d14} kernel #14 launches, objective {obj0:.9e} "
+        f"-> {obj1:.9e}, {dt:.3f} s [{card}]")
+    if d14 != -(-steps // LAUNCH_STEPS) or not (math.isfinite(obj1)
+                                                and obj1 < obj0):
+        raise AssertionError(f"deep importance: {d14} launches, objective "
+                             f"{obj0} -> {obj1}")
+    for storage in ("f32", "int8"):
+        F = prob.oracle(storage)
+        if not fb.lfinito_sweep_available(F, g, x0, Bd):
+            raise AssertionError("deep lfinito: the kernels' gate is closed")
+        cfg = FinitoCfg(N=Nd, batch=Bd, sweeping=3, alpha=0.999, fused=True)
+        st0 = finito_run(F, g, lfinito_init(F, g, x0, gamma, 0, cfg), cfg,
+                         "lfinito", 1)   # the warm-up epoch
+        k6, k8 = fb.coeff_apply_all.launches, fb.lfinito_sweep_multistep.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = finito_run(F, g, st0, cfg, "lfinito", LFINITO_EPOCHS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d6 = fb.coeff_apply_all.launches - k6
+        d8 = fb.lfinito_sweep_multistep.launches - k8
+        obj1 = prob.objective(F, g, st.z)
+        ms = dt * 1e3 / LFINITO_EPOCHS
+        chunks = -(-d // fb.LFINITO_CHUNK)
+        log(f"  deep LFinito {storage}: N={Nd} n={nd} B={Bd} sweeping=3, "
+            f"{LFINITO_EPOCHS} epochs in {d6} kernel #6 and {d8} kernel #8 "
+            f"launches, objective {obj0:.9e} -> {obj1:.9e}, rel "
+            f"{prob.gap_rel(st.z):.3e}; {ms:.3f} ms/epoch, "
+            f"{1e3 / ms:.1f} epochs/s [{card}]")
+        if d6 != LFINITO_EPOCHS or d8 != chunks * LFINITO_EPOCHS:
+            raise AssertionError(f"deep lfinito {storage}: {d6} kernel #6, "
+                                 f"{d8} kernel #8 launches")
+        if not (math.isfinite(obj1) and obj1 < obj0):
+            raise AssertionError(f"deep lfinito {storage}: objective {obj0} "
+                                 f"-> {obj1}")
+        out[storage] = dict(ms=ms, F=F, g=g, st=st0, cfg=cfg)
+    return out
+
+
+def time_turns(kernel_fn, plain_fn, tag, card, bound_args, reps=4) -> dict:
+    """(kernel, plain, bound) ms per step in turns: plain, kernel, kernel,
+    plain; ``kernel_fn``/``plain_fn`` run K steps and return K."""
+    def turn(fn, r):
+        holder = {}
+
+        def call():
+            holder["K"] = fn()
+        ms = time_events(call, r)
+        return ms / holder["K"]
+
+    pl = [turn(plain_fn, 1)]
+    kern = [turn(kernel_fn, reps) for _ in range(2)]
+    pl.append(turn(plain_fn, 1))
+    b_ms, b_by = bound_args
+    log(f"  {tag}: kernel {kern[0]:.4f}/{kern[1]:.4f} ms/step, plain version "
+        f"{pl[0]:.4f}/{pl[1]:.4f} ms/step, bound {b_ms:.5f} ms/step "
+        f"({b_by}) [{card}]")
+    return dict(ms=sum(kern) / 2, plain_ms=sum(pl) / 2, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def time_finito(F, gen, dev, B_, streamed, tag, card) -> dict:
+    """Kernel #9 (or #14) per step on LAUNCH_STEPS-step calls from one
+    Finito state, against its plain version; the bound counts the rows, b
+    and c (read and written) of the distinct blocks visited, their zb
+    rows read and written, z and av in and out, and the Σ 1/γ read."""
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
+
+    K = LAUNCH_STEPS
+    S = finito_inputs(F, gen, dev, B_, K, LAM)
+    fns = ((fb.finito_coeff_multistep_streamed,
+            fb.finito_coeff_multistep_streamed_ref) if streamed else
+           (fb.finito_coeff_multistep, fb.finito_coeff_multistep_ref))
+    cols = F.dim
+    distinct = int(torch.unique(S["starts"]).numel())
+    invg_bytes = 4 * (K if streamed else F.num_terms // B_)
+    bnd = step_bound(F, S["starts"], B_,
+                     16 * cols + 8 * cols * distinct + invg_bytes, 12)
+
+    state = [t.clone() for t in S["state"]]  # stepped on in place
+
+    def run(fn):
+        def call():
+            run_finito_kernel(fn, F, S, B_, state=state)
+            return K
+        return call
+    times = time_turns(run(fns[0]), run(fns[1]), tag, card, bnd)
+    if not bool(torch.isfinite(state[2]).all()):
+        raise AssertionError(f"{tag}: the timed steps gave non-finite z")
+    return times
+
+
+def time_lfinito(F, gen, dev, B_, tag, card) -> dict:
+    """Kernel #8 per step on whole-sweep chunks (LFINITO_CHUNK blocks, or
+    the d blocks when fewer) against its plain version; the bound counts
+    the visited blocks' rows, b and anchor c, av in and out, z_full, z
+    out and the Σ 1/γ read."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    K = min(fb.LFINITO_CHUNK, F.num_terms // B_)
+    S = lfinito_inputs(F, gen, dev, B_, K, LAM)
+    rows, offs = F.coeff_rows_data()
+    bnd = step_bound(F, S["starts"], B_, 16 * F.dim + 4 * K, 8)
+
+    def run(fn):
+        def call():
+            _, z = fn(rows, offs, S["canch"], S["starts"], S["av"].clone(),
+                      S["zf"], S["invg_v"], S["sc"], B_,
+                      rs=F.coeff_rows_scale())
+            return K
+        return call
+    return time_turns(run(fb.lfinito_sweep_multistep),
+                      run(fb.lfinito_sweep_multistep_ref), tag, card, bnd,
+                      reps=2)
+
+
+def time_block(gen, dev, storage, card) -> dict:
+    """Kernel #2 per step at the headline (one block's refresh, 16 calls
+    in turns) against its plain version; the bound counts the block's
+    rows, its table rows read and written, b and γ, z in and the
+    innovation out, and 8·B·n operations. Then an epoch of the full-table
+    Finito driver on the same rows, profiled. A call of the wrapper is one
+    step, and its host work outlasts the kernel, so the event time is that
+    of a call (``call_ms``); the kernel's time (``ms``) is its device time
+    in the profiled epoch."""
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers.finito import (
+        FinitoCfg, finito_basic_init, finito_run,
+    )
+
+    F, _, L = lasso(gen, dev, N, n, storage)
+    rows, offs = F.coeff_rows_data()
+    s = torch.randn(N, n, generator=gen, device=dev)
+    z = 0.05 * torch.randn(n, generator=gen, device=dev)
+    gamma = 0.999 / (n * (0.8 + 0.4 * torch.rand(N, generator=gen,
+                                                  device=dev)))
+    starts = torch.randint(N // B, (16,), generator=gen, device=dev) * B
+    sc = torch.tensor([N, 1.0 / N, 0.37], device=dev)
+    isz = rows.element_size()
+    bnd = bound(B * (n * isz + 8 * n + 8) + 8 * n, 8.0 * B * n, isz)
+
+    def run(fn):
+        def call():
+            for k in range(16):
+                fn(rows, offs, s, gamma, z, starts[k], sc, B)
+            return 16
+        return call
+    times = time_turns(run(fb.finito_block_update),
+                       run(fb.finito_block_update_ref),
+                       f"kernel #2, {storage} rows, N={N} n={n} B={B}", card,
+                       bnd)
+    del s
+    g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
+    cfg = FinitoCfg(N=N, batch=B, sweeping=2, alpha=0.999, fused=True)
+    st = finito_basic_init(F, g, torch.zeros(n, device=dev), 0.999 * N / L, 0,
+                           cfg)
+    prof = profile_steps(
+        f"Finito full-table steps at the headline, {storage} rows",
+        lambda: finito_run(F, g, st, cfg, "basic", EPOCH_STEPS), EPOCH_STEPS,
+        card, BLOCK_GROUPS)
+    return dict(times, call_ms=times["ms"], ms=prof["kernel #2"])
+
+
+FINITO_GROUPS = {"kernel #9": ("rows_kernel", "finito_finish")}
+BLOCK_GROUPS = {"kernel #2": ("rows_kernel", "finish_kernel")}
+LFINITO_GROUPS = {"kernel #6": ("apply_",),
+                  "kernel #8": ("rows_kernel", "lfinito_finish",
+                                "prox_kernel")}
+
+
 KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
-           "svrg_coeff_multistep", "coeff_apply_all")
+           "svrg_coeff_multistep", "coeff_apply_all",
+           "finito_coeff_multistep", "finito_coeff_multistep_streamed",
+           "lfinito_sweep_multistep", "finito_block_update")
 # the def line of the TPU kernel each replaces, in ciao_tpu/ops/fused_block.py
 REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
-            "svrg_coeff_multistep": 966, "coeff_apply_all": 798}
+            "svrg_coeff_multistep": 966, "coeff_apply_all": 798,
+            "finito_coeff_multistep": 1343,
+            "finito_coeff_multistep_streamed": 2324,
+            "lfinito_sweep_multistep": 1170, "finito_block_update": 1032}
 
 
 def build_all() -> None:
@@ -1135,6 +1775,7 @@ def main() -> int:
         saga_coeff_multistep_streamed, saga_coeff_multistep_streamed_ref,
     )
     from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers.finito import finito_run
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -1165,6 +1806,14 @@ def main() -> int:
     errs["svrg_coeff_multistep"] = phase_check_svrg(gen, dev)
     log(f"phase 3d kernel #5 == plain version: ok, max |dw| "
         f"{errs['svrg_coeff_multistep']:.3e}")
+    errs["finito_coeff_multistep"] = phase_check_finito(gen, dev)
+    log(f"phase 3e kernel #9 == plain version: ok, max |dz| "
+        f"{errs['finito_coeff_multistep']:.3e}")
+    (errs["finito_coeff_multistep_streamed"],
+     errs["lfinito_sweep_multistep"]) = phase_check_finito_small(gen, dev)
+    errs["finito_block_update"] = phase_check_block(gen, dev)
+    log(f"phase 3h kernel #2 == plain version: ok, max |ds| "
+        f"{errs['finito_block_update']:.3e}")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1214,7 +1863,49 @@ def main() -> int:
             prob.oracle(storage), prob.gamma, gen, dev, DEEP["B"],
             f"kernel #4, {storage} rows, N={DEEP['N']} n={DEEP['n']} "
             f"B={DEEP['B']}", card)
-    del prob
+
+    # 3f, 3g at the deep shape, then 4g: the deep-shape Finito paths on the
+    # deep target, counts from 0
+    for storage in ("f32", "int8"):
+        Fd = prob.oracle(storage)
+        tag = f"N={DEEP['N']} n={DEEP['n']} B={DEEP['B']} K={DEEP_K} {storage}"
+        errs["finito_coeff_multistep_streamed"] = max(
+            errs["finito_coeff_multistep_streamed"], compare_finito(
+                Fd, gen, dev, DEEP["B"], DEEP_K, DEEP["lam"], "highest",
+                f"#14 {tag}", streamed=True))
+        errs["lfinito_sweep_multistep"] = max(
+            errs["lfinito_sweep_multistep"], compare_lfinito(
+                Fd, gen, dev, DEEP["B"], DEEP_K, DEEP["lam"], "highest",
+                f"#8 {tag}"))
+    log(f"phase 3f kernel #14 == plain version: ok, max |dz| "
+        f"{errs['finito_coeff_multistep_streamed']:.3e}")
+    log(f"phase 3g kernel #8 == plain version: ok, max |dz| "
+        f"{errs['lfinito_sweep_multistep']:.3e}")
+    reset_counts()
+    lfin = run_deep_finito(prob, card)
+    c4g = counts()
+    if (c4g["finito_coeff_multistep_streamed"] == 0
+            or c4g["lfinito_sweep_multistep"] == 0
+            or c4g["coeff_apply_all"] == 0
+            or sum(c4g.values()) != c4g["finito_coeff_multistep_streamed"]
+            + c4g["lfinito_sweep_multistep"] + c4g["coeff_apply_all"]):
+        raise AssertionError(f"the deep Finito paths did not run on kernels "
+                             f"#14, #8 and #6 alone: {c4g}")
+    log(f"phase 4g deep-shape Finito paths: ok, launches {c4g}")
+    times7 = {}
+    for storage in ("f32", "int8"):
+        Fd = prob.oracle(storage)
+        tag = f"{storage} rows, N={DEEP['N']} n={DEEP['n']} B={DEEP['B']}"
+        times7["#14", storage] = time_finito(Fd, gen, dev, DEEP["B"], True,
+                                             f"kernel #14, {tag}", card)
+        times7["#8", storage] = time_lfinito(Fd, gen, dev, DEEP["B"],
+                                             f"kernel #8, {tag}", card)
+        r = lfin[storage]
+        profile_steps(f"LFinito epochs at the deep shape, {storage} rows",
+                      lambda: finito_run(r["F"], r["g"], r["st"], r["cfg"],
+                                         "lfinito", 2), 2, card,
+                      LFINITO_GROUPS, unit="epoch")
+    del prob, lfin, Fd
     torch.cuda.empty_cache()
 
     # 4d. the SVRG path, counts from 0
@@ -1253,7 +1944,25 @@ def main() -> int:
     log(f"phase 4e FISTA path: ok, launches {c4e}")
     launches["svrg_coeff_multistep"] = c4d["svrg_coeff_multistep"]
     launches["coeff_apply_all"] = c4d["coeff_apply_all"] + c4e[
-        "coeff_apply_all"]
+        "coeff_apply_all"] + c4g["coeff_apply_all"]
+
+    # 4f. the Finito headline path, counts from 0
+    reset_counts()
+    fin = {s_: run_finito_headline(gen, dev, s_, card) for s_ in ("f32",
+                                                                  "int8")}
+    run_finito_facades(dev, fprob, fF, args.seed, card)
+    c4f = counts()
+    if (c4f["finito_coeff_multistep"] == 0 or c4f["finito_block_update"] == 0
+            or sum(c4f.values()) != c4f["finito_coeff_multistep"]
+            + c4f["finito_block_update"]):
+        raise AssertionError(f"the Finito headline path did not run on "
+                             f"kernels #9 and #2 alone: {c4f}")
+    log(f"phase 4f Finito headline path: ok, launches {c4f}")
+    launches["finito_coeff_multistep"] = c4f["finito_coeff_multistep"]
+    launches["finito_block_update"] = c4f["finito_block_update"]
+    launches["finito_coeff_multistep_streamed"] = c4g[
+        "finito_coeff_multistep_streamed"]
+    launches["lfinito_sweep_multistep"] = c4g["lfinito_sweep_multistep"]
 
     # 5, 5b, 6. times, in turns
     times = {}
@@ -1296,6 +2005,31 @@ def main() -> int:
         f"{svrg_ms['f32']:.4f} ms, int8 {svrg_ms['int8']:.4f}; FISTA step "
         f"f32 {fista_ms['f32']:.4f} ms, int8 {fista_ms['int8']:.4f} [{card}]")
 
+    # 7. the Finito kernels' times, in turns, and the Finito step profiled
+    for storage in ("f32", "int8"):
+        r = fin[storage]
+        times7["#9", storage] = time_finito(
+            r["F"], gen, dev, B, False,
+            f"kernel #9, {storage} rows, N={N} n={n} B={B}", card)
+        profile_steps(f"Finito steps at the headline, {storage} rows",
+                      lambda: finito_run(r["F"], r["g"], r["st"], r["cfg"],
+                                         "basic_coeff", 256), 256, card,
+                      FINITO_GROUPS)
+    del fin
+    for storage in ("f32", "bf16"):
+        times7["#2", storage] = time_block(gen, dev, storage, card)
+    log(f"phase 7 times: kernel #9 f32 {times7['#9', 'f32']['ms']:.4f} "
+        f"ms/step (plain {times7['#9', 'f32']['plain_ms']:.4f}), int8 "
+        f"{times7['#9', 'int8']['ms']:.4f}; kernel #14 f32 "
+        f"{times7['#14', 'f32']['ms']:.4f}, int8 "
+        f"{times7['#14', 'int8']['ms']:.4f}; kernel #8 f32 "
+        f"{times7['#8', 'f32']['ms']:.4f}, int8 "
+        f"{times7['#8', 'int8']['ms']:.4f}; kernel #2 f32 "
+        f"{times7['#2', 'f32']['ms']:.4f} on the device, "
+        f"{times7['#2', 'f32']['call_ms']:.4f} a call, bf16 "
+        f"{times7['#2', 'bf16']['ms']:.4f}, "
+        f"{times7['#2', 'bf16']['call_ms']:.4f} [{card}]")
+
     log(json.dumps({"kernels": [
         kernel_line("saga_coeff_multistep", launches["saga_coeff_multistep"],
                     errs["saga_coeff_multistep"], times["int8"]),
@@ -1306,6 +2040,18 @@ def main() -> int:
                     errs["svrg_coeff_multistep"], t5["f32"]),
         kernel_line("coeff_apply_all", launches["coeff_apply_all"],
                     errs["coeff_apply_all"], t6["f32"]),
+        kernel_line("finito_coeff_multistep",
+                    launches["finito_coeff_multistep"],
+                    errs["finito_coeff_multistep"], times7["#9", "f32"]),
+        kernel_line("finito_coeff_multistep_streamed",
+                    launches["finito_coeff_multistep_streamed"],
+                    errs["finito_coeff_multistep_streamed"],
+                    times7["#14", "f32"]),
+        kernel_line("lfinito_sweep_multistep",
+                    launches["lfinito_sweep_multistep"],
+                    errs["lfinito_sweep_multistep"], times7["#8", "f32"]),
+        kernel_line("finito_block_update", launches["finito_block_update"],
+                    errs["finito_block_update"], times7["#2", "f32"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,7 +16,11 @@ SAGA/SAG, uniform or importance-sampled, through the
 compensated ``fista_polish`` with ``power_lmax``, and ``deep_solve``;
 SVRG/SVRG++ (inner steps on ``svrg_coeff_multistep``) and
 forward-backward/FISTA, whose full-gradient reads run on the one-pass
-``coeff_apply_all`` kernel. The rest is queued in ROADMAP.md. Imports
+``coeff_apply_all`` kernel; the Finito/MISO family: the full table on
+``finito_block_update``, the coefficient table on
+``finito_coeff_multistep`` and ``finito_coeff_multistep_streamed``,
+LFinito on ``coeff_apply_all`` and ``lfinito_sweep_multistep``, and
+adaptive Finito. The rest is queued in ROADMAP.md. Imports
 torch and numpy, never jax. Entry points run on the card unless the
 caller names the CPU (a CPU tensor or ``device="cpu"``).
 """
@@ -25,7 +29,8 @@ from ciao_tpu_torch import oracles, prox
 from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.prox import NormL1, Zero
 from ciao_tpu_torch.solvers import (
-    FISTA, SAG, SAGA, SVRG, DeepSolveInfo, ForwardBackward, StagedInfo,
+    FISTA, SAG, SAGA, SVRG, DeepSolveInfo, Finito, ForwardBackward,
+    StagedInfo,
     deep_solve, fista_polish, grad_mean_chunked, halt, loop, lsq_power_lmax,
     power_lmax, solution, staged_saga, take,
 )
@@ -42,6 +47,7 @@ __all__ = [
     "SAGA",
     "SAG",
     "SVRG",
+    "Finito",
     "ForwardBackward",
     "FISTA",
     "deep_solve",

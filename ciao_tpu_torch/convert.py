@@ -10,6 +10,10 @@ The TPU kernels keep per-row (N,) vectors — coefficient tables, offsets,
 dequant scales — in an (8, N/8) slab whose row-major flattening is the
 natural order (entry i at (i // (N/8), i % (N/8))); the port's are flat
 (N,), so every per-row field is flattened row-major on the way in.
+Tables of rows ((N, n) tables, Finito's (d, n) anchors ``zb``) and
+per-block vectors (``invg``) come over as they are. A sweep state brings
+its ``pos`` and ``order``; JAX's PRNG key does not come over (the port's
+draws are its own, from ``seed``).
 """
 
 from __future__ import annotations
@@ -20,7 +24,11 @@ import torch
 from ciao_tpu_torch import runtime
 from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.solvers.base import Status
+from ciao_tpu_torch.sampling import SweepState
 from ciao_tpu_torch.solvers.fb import FBState
+from ciao_tpu_torch.solvers.finito import (
+    FinitoAdaptiveState, FinitoBasicState, FinitoCoeffState, LFinitoState,
+)
 from ciao_tpu_torch.solvers.saga import SAGAState
 from ciao_tpu_torch.solvers.svrg import SVRGState
 
@@ -87,3 +95,62 @@ def fb_state_from_numpy(gamma, t, x, y, it, device=None) -> FBState:
         t=tensor_from_numpy(t, device), x=_flat(x, device),
         y=_flat(y, device), it=int(it), status=int(Status.RUNNING),
     )
+
+
+def _sweep(pos, order, seed, device) -> SweepState:
+    return SweepState(pos=int(pos),
+                      order=_flat(order, device).to(torch.int32),
+                      seed=int(seed))
+
+
+def _common(gamma, hat_gamma, av, z, pos, order, it, seed, device):
+    return dict(gamma=_flat(gamma, device),
+                hat_gamma=tensor_from_numpy(hat_gamma, device),
+                av=_flat(av, device), z=_flat(z, device),
+                sweep=_sweep(pos, order, seed, device), it=int(it),
+                status=int(Status.RUNNING))
+
+
+def finito_basic_state_from_numpy(s, gamma, hat_gamma, av, z, pos, order,
+                                  it, seed: int = 0,
+                                  device=None) -> FinitoBasicState:
+    """``FinitoBasicState`` from the JAX state's ``s`` (N, n), ``gamma``,
+    ``hat_gamma``, ``av``, ``z``, ``sweep.pos``, ``sweep.order`` and
+    ``it``."""
+    return FinitoBasicState(s=tensor_from_numpy(s, device),
+                            **_common(gamma, hat_gamma, av, z, pos, order,
+                                      it, seed, device))
+
+
+def finito_coeff_state_from_numpy(c, zb, invg, gamma, hat_gamma, av, z, pos,
+                                  order, it, seed: int = 0, qcum=None,
+                                  qinv=None, device=None) -> FinitoCoeffState:
+    """``FinitoCoeffState`` from the JAX state's fields: ``c`` flattened
+    (an (8, N/8) slab or (N,)), the (d, n) anchors ``zb`` and the (d,)
+    ``invg`` as they are, and under importance sampling ``qcum`` and
+    ``qinv``."""
+    return FinitoCoeffState(
+        c=_flat(c, device), zb=tensor_from_numpy(zb, device),
+        invg=_flat(invg, device),
+        **_common(gamma, hat_gamma, av, z, pos, order, it, seed, device),
+        qcum=None if qcum is None else tensor_from_numpy(qcum, device),
+        qinv=None if qinv is None else tensor_from_numpy(qinv, device))
+
+
+def lfinito_state_from_numpy(gamma, hat_gamma, av, z, z_full, pos, order, it,
+                             seed: int = 0, device=None) -> LFinitoState:
+    """``LFinitoState`` from the JAX state's fields."""
+    return LFinitoState(z_full=_flat(z_full, device),
+                        **_common(gamma, hat_gamma, av, z, pos, order, it,
+                                  seed, device))
+
+
+def finito_adaptive_state_from_numpy(s, gradf, fi_x, gamma, hat_gamma, av, z,
+                                     pos, order, it, seed: int = 0,
+                                     device=None) -> FinitoAdaptiveState:
+    """``FinitoAdaptiveState`` from the JAX state's tables ``s`` and
+    ``gradf`` (N, n), ``fi_x`` (N,) and the other fields."""
+    return FinitoAdaptiveState(
+        s=tensor_from_numpy(s, device), gradf=tensor_from_numpy(gradf, device),
+        fi_x=_flat(fi_x, device),
+        **_common(gamma, hat_gamma, av, z, pos, order, it, seed, device))

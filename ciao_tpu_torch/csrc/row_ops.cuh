@@ -1,8 +1,9 @@
 // Row primitives shared by the port's kernels on an NVIDIA Hopper card
 // (sm_90a): the storage codes, the bf16 rounding of the dot operands, reads of
 // one or four row values from shared memory, a row's margin by one warp, the
-// transposed product over a tile, the oracle's coefficient formula and the
-// size of a row tile in shared memory.
+// transposed product over a tile, the oracle's coefficient formula, the L1
+// soft-threshold, the fixed-order sum of per-CTA partials and the size of a
+// row tile in shared memory.
 //
 // Precision follows the Pallas kernels' _stream_dot: when kLowp is set (rows
 // stored bf16 or int8, or f32 rows at "default" precision) both operands of
@@ -145,6 +146,30 @@ __device__ __forceinline__ float coeff_formula(int mode, float r, float b,
 __device__ __forceinline__ float soft_threshold(float w, float thr) {
   const float sgn = w > 0.0f ? 1.0f : (w < 0.0f ? -1.0f : 0.0f);
   return isnan(w) ? w : sgn * fmaxf(fabsf(w) - thr, 0.0f);
+}
+
+// The fixed-order sum of the partials of column j = blockIdx.x * 32 + lane:
+// warp w sums p = w, w + 8, ...; warp 0 then adds the eight sums in order and
+// gets true (the other warps and the columns past n get false). The order is
+// fixed, so the result repeats bit for bit.
+__device__ __forceinline__ bool column_sum(const float* __restrict__ part,
+                                           int parts, int n, int& j,
+                                           float& sum) {
+  __shared__ float red[kFinishWarps][kFinishCols];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  j = blockIdx.x * kFinishCols + lane;
+  float s = 0.0f;
+  if (j < n)
+    for (int p = warp; p < parts; p += kFinishWarps)
+      s += part[static_cast<int64_t>(p) * n + j];
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp != 0 || j >= n) return false;
+  sum = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kFinishWarps; ++w) sum += red[w][lane];
+  return true;
 }
 
 // Bytes of a row tile in shared memory, rounded up to 16 so that what follows

@@ -1,12 +1,19 @@
 // Coefficient block steps on an NVIDIA Hopper card (sm_90a): the device code
-// shared by three kernels of ciao_tpu_torch/ops/fused_block.py,
+// shared by six kernels of ciao_tpu_torch/ops/fused_block.py,
 //
-//   saga_coeff_multistep.cu           replaces ciao_tpu/ops/fused_block.py
-//                                     saga_coeff_multistep (SAGA/SAG steps);
-//   saga_coeff_multistep_streamed.cu  replaces saga_coeff_multistep_streamed
-//                                     (the same, steps k >= f masked);
-//   svrg_coeff_multistep.cu           replaces svrg_coeff_multistep (SVRG
-//                                     inner steps against an anchor table).
+//   saga_coeff_multistep.cu             replaces ciao_tpu/ops/fused_block.py
+//                                       saga_coeff_multistep (SAGA/SAG steps);
+//   saga_coeff_multistep_streamed.cu    replaces saga_coeff_multistep_streamed
+//                                       (the same, steps k >= f masked);
+//   svrg_coeff_multistep.cu             replaces svrg_coeff_multistep (SVRG
+//                                       inner steps against an anchor table);
+//   finito_coeff_multistep.cu           replaces finito_coeff_multistep
+//                                       (Finito steps, per-block anchors zb);
+//   finito_coeff_multistep_streamed.cu  replaces
+//                                       finito_coeff_multistep_streamed (the
+//                                       same, steps k >= f masked);
+//   lfinito_sweep_multistep.cu          replaces lfinito_sweep_multistep
+//                                       (an LFinito block sweep).
 //
 // The Python wrappers and the design notes are in ops/fused_block.py; the plain
 // PyTorch versions of the same arithmetic are the *_ref functions there.
@@ -20,13 +27,18 @@
 //       shuffle reduction), the int8 dequant scale, the coefficient formula,
 //       the coefficient difference dc_i and the CTA's partial innovation
 //       sum_rows dc_i . a_i into part[cta, :]. SAGA: dc_i = c_new - c_old and
-//       the table write c_i <- c_new. SVRG: dc_i = c_anchor_i - c_live, the
-//       anchor table read only;
+//       the table write c_i <- c_new (and Finito, whose table is the same).
+//       SVRG: dc_i = c_anchor_i - c_live, the anchor table read only (and
+//       LFinito, against its epoch's anchor);
 //   (b) the finish kernel, 32 columns per CTA: the partials summed in a fixed
 //       order (no atomics, so runs repeat bit for bit), then SAGA's running
 //       average, SAG or SAGA direction and L1 soft-threshold
-//       (saga_finish_kernel), or SVRG's w <- soft(w + gamma (d - av)) and
-//       zs += w with d = sum / B (svrg_finish_kernel).
+//       (saga_finish_kernel), SVRG's w <- soft(w + gamma (d - av)) and
+//       zs += w with d = sum / B (svrg_finish_kernel), Finito's
+//       av += hat invg_j (z - zb_j) - (hat/N) sum, zb_j <- z, z <- soft(av)
+//       (finito_finish_kernel), or LFinito's av += (hat/N) sum +
+//       hat invg_k (z - z_full) and the next block's z <- soft(av)
+//       (lfinito_finish_kernel).
 //
 // The K steps are issued from the host on one stream with no host sync; the
 // stream order carries the iterate and the table from one step to the next.
@@ -34,6 +46,11 @@
 // clamp count (fclamp not NULL, one int32 on the device) both launches of a
 // step k >= *fclamp return before any other load, so a masked step writes
 // nothing and leaves the state bit for bit as the step before left it.
+//
+// LFinito takes its margins at z = soft(av) of the block's start: a prologue
+// launch forms step 0's z from the incoming av, the finish of step k forms
+// step k+1's, and the last finish leaves z alone, so the launch returns the
+// last block's prox point (not soft of the returned av).
 //
 // Row offsets are 64-bit (start * n reaches 1.3e9 at the 10,485,760 x 128
 // deep target); block starts are int32, which the wrappers check (N < 2^31).
@@ -48,9 +65,18 @@ constexpr int kRowThreads = 256;
 constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kMaxRowsPerCta = 32;
 
-// SAGA: scalars row [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux].
-// SVRG: scalars row [scale, gamma, gamma*lambda, 1/B, mode, aux].
-enum Method { kSaga = 0, kSvrg = 1 };
+// The scalars row of each method, scale first and (mode, aux) last:
+// SAGA     [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux];
+// SVRG     [scale, gamma, gamma*lambda, 1/B, mode, aux];
+// Finito   [scale, 1/N, hat, hat*lambda, mode, aux];
+// LFinito  [scale, hat, hat*lambda, 1/N, mode, aux].
+enum Method { kSaga = 0, kSvrg = 1, kFinito = 2, kLFinito = 3 };
+
+// Whether the row phase refreshes the coefficient table (SAGA, Finito) or
+// reads an anchor table (SVRG, LFinito).
+__host__ __device__ constexpr bool writes_table(Method M) {
+  return M == kSaga || M == kFinito;
+}
 
 template <Method M>
 struct ScalarIndex {
@@ -66,8 +92,9 @@ __device__ __forceinline__ bool masked(const int* fclamp, int k) {
 
 // Shared memory: the tile (rows x n of T), then z (n floats), then per row
 // dc, b, c and rs (rows floats each); the per-row values are fetched while
-// the tile is in flight. c is the table (SAGA, written back) or the anchor
-// coefficients (SVRG, read only).
+// the tile is in flight. c is the table (SAGA, Finito: written back) or the
+// anchor coefficients (SVRG, LFinito: read only); z is the point of the
+// margins.
 template <Method M, typename T, bool kLowp, bool kVec>
 __global__ void __launch_bounds__(kRowThreads)
 rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
@@ -114,7 +141,7 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
       if (rs != nullptr) m *= rss[r];
       const float c_new = coeff_formula(mode, m, bs[r], scale, aux);
       float dc;
-      if (M == kSaga) {
+      if (writes_table(M)) {
         dc = c_new - cs[r];
         c[start + r] = c_new;
       } else {
@@ -140,30 +167,6 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
     for (int j = tid; j < n; j += kRowThreads)
       out[j] = tile_colsum<kLowp>(tile, dcs, rows, n, j);
   }
-}
-
-// The fixed-order sum of the partials of column j = blockIdx.x * 32 + lane:
-// warp w sums p = w, w + 8, ...; warp 0 then adds the eight sums in order and
-// gets true (the other warps and the columns past n get false). The order is
-// fixed, so the result repeats bit for bit.
-__device__ __forceinline__ bool column_sum(const float* __restrict__ part,
-                                           int parts, int n, int& j,
-                                           float& sum) {
-  __shared__ float red[kFinishWarps][kFinishCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  j = blockIdx.x * kFinishCols + lane;
-  float s = 0.0f;
-  if (j < n)
-    for (int p = warp; p < parts; p += kFinishWarps)
-      s += part[static_cast<int64_t>(p) * n + j];
-  red[warp][lane] = s;
-  __syncthreads();
-  if (warp != 0 || j >= n) return false;
-  sum = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kFinishWarps; ++w) sum += red[w][lane];
-  return true;
 }
 
 __global__ void __launch_bounds__(kFinishCols * kFinishWarps)
@@ -212,10 +215,76 @@ svrg_finish_kernel(const float* __restrict__ part, int parts,
   zs[j] += w_new;
 }
 
+// Finito_basic.jl:110-118 on block j = starts[k] / B, in the coefficient
+// parameterization: innov = hat invg_j (z - zb_j) - (hat/N) sum, av += innov,
+// zb_j <- z, z <- soft(av, hat lambda). invg holds the blocks' sums of 1/gamma_i
+// by block id (invg_by_pos 0) or by step (1, pre-gathered). A masked step
+// writes nothing.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+finito_finish_kernel(const float* __restrict__ part, int parts,
+                     float* __restrict__ z, float* __restrict__ av,
+                     float* __restrict__ zb, const float* __restrict__ invg,
+                     int invg_by_pos, const int* __restrict__ starts, int B,
+                     const float* __restrict__ sc,
+                     const int* __restrict__ fclamp, int k, int n) {
+  if (masked(fclamp, k)) return;
+  int j;
+  float sum;
+  if (!column_sum(part, parts, n, j, sum)) return;
+  const int block = starts[k] / B;
+  const float inv_n = sc[1];
+  const float hat = sc[2];
+  const float thr = sc[3];
+  const float ig = invg[invg_by_pos ? k : block];
+  float* zb_j = zb + static_cast<int64_t>(block) * n + j;
+  const float z_old = z[j];
+  const float av_new =
+      av[j] + ((hat * ig) * (z_old - *zb_j) - (hat * inv_n) * sum);
+  av[j] = av_new;
+  *zb_j = z_old;
+  z[j] = soft_threshold(av_new, thr);
+}
+
+// Finito_LFinito.jl:92-100 on the k'th visited block: av += (hat/N) sum +
+// hat invg_k (z - z_full) with sum = sum (c_anchor - c(z)) a_i, invg in visit
+// order; then the next block's z = soft(av, hat lambda), except after the
+// last block, whose z the launch returns.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+lfinito_finish_kernel(const float* __restrict__ part, int parts,
+                      float* __restrict__ z, float* __restrict__ av,
+                      const float* __restrict__ zf,
+                      const float* __restrict__ invg,
+                      const float* __restrict__ sc, int k, int K, int n) {
+  int j;
+  float sum;
+  if (!column_sum(part, parts, n, j, sum)) return;
+  const float hat = sc[1];
+  const float thr = sc[2];
+  const float inv_n = sc[3];
+  const float av_new =
+      av[j] + ((hat * inv_n) * sum + (hat * invg[k]) * (z[j] - zf[j]));
+  av[j] = av_new;
+  if (k + 1 < K) z[j] = soft_threshold(av_new, thr);
+}
+
+// z <- soft(av, sc[thr_slot]) on every column: LFinito's first block.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+prox_kernel(const float* __restrict__ av, float* __restrict__ z,
+            const float* __restrict__ sc, int thr_slot, int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < n) z[j] = soft_threshold(av[j], sc[thr_slot]);
+}
+
 // The arguments of one call: K steps on one stream. SAGA: c the table, z the
 // iterate, av the running average, zs NULL. SVRG: c the anchor coefficients
 // (read only), z the inner iterate w, av the anchor's mean gradient (read
 // only), zs the running sum of the inner iterates; wgts and fclamp NULL.
+// Finito: c the table, z the iterate, av the running average, zb the (d, n)
+// per-block anchors and invg their sums of 1/gamma_i (by block id, or by step
+// when invg_by_pos). LFinito: c the epoch's anchor coefficients (read only),
+// z the (n,) output (the margins' point, then the last block's prox point),
+// av the running average, zf the epoch's anchor point z_full and invg the
+// visited blocks' sums of 1/gamma_i in visit order.
 struct StepArgs {
   const void* A;
   const float* b;
@@ -231,6 +300,10 @@ struct StepArgs {
   float* part;
   int n, B, rows, K;
   cudaStream_t stream;
+  float* zb = nullptr;
+  const float* invg = nullptr;
+  int invg_by_pos = 0;
+  const float* zf = nullptr;
 };
 
 template <Method M, typename T, bool kLowp, bool kVec>
@@ -246,18 +319,28 @@ cudaError_t run_steps(const StepArgs& a) {
     if (e != cudaSuccess) return e;
   }
   const int finish_blocks = (a.n + kFinishCols - 1) / kFinishCols;
+  constexpr int kFinishThreads = kFinishCols * kFinishWarps;
+  if constexpr (M == kLFinito) {
+    prox_kernel<<<(a.n + kFinishThreads - 1) / kFinishThreads, kFinishThreads,
+                  0, a.stream>>>(a.av, a.z, a.sc, 2, a.n);
+  }
   for (int k = 0; k < a.K; ++k) {
     kernel<<<parts, kRowThreads, smem, a.stream>>>(
         static_cast<const T*>(a.A), a.b, a.rs, a.c, a.z, a.starts, a.fclamp, k,
         a.sc, a.part, a.n, a.rows);
-    if (M == kSaga) {
-      saga_finish_kernel<<<finish_blocks, kFinishCols * kFinishWarps, 0,
-                           a.stream>>>(a.part, parts, a.z, a.av, a.sc, a.wgts,
-                                       a.fclamp, k, a.n);
+    if constexpr (M == kSaga) {
+      saga_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+          a.part, parts, a.z, a.av, a.sc, a.wgts, a.fclamp, k, a.n);
+    } else if constexpr (M == kSvrg) {
+      svrg_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+          a.part, parts, a.z, a.zs, a.av, a.sc, a.n);
+    } else if constexpr (M == kFinito) {
+      finito_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+          a.part, parts, a.z, a.av, a.zb, a.invg, a.invg_by_pos, a.starts,
+          a.B, a.sc, a.fclamp, k, a.n);
     } else {
-      svrg_finish_kernel<<<finish_blocks, kFinishCols * kFinishWarps, 0,
-                           a.stream>>>(a.part, parts, a.z, a.zs, a.av, a.sc,
-                                       a.n);
+      lfinito_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+          a.part, parts, a.z, a.av, a.zf, a.invg, a.sc, k, a.K, a.n);
     }
     if (k == 0) {
       const cudaError_t e = cudaGetLastError();

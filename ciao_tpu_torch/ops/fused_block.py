@@ -1,23 +1,30 @@
 """The coefficient kernels of the port, with their plain versions.
 
 Counterpart of ``ciao_tpu/ops/fused_block.py``, cut to what the SAGA,
-deep, SVRG and forward-backward paths run: the oracle formula modes, the
-scalar constants, the kernels' gates, and four hand-written CUDA kernels
-for Hopper beside their plain PyTorch versions:
+deep, SVRG, forward-backward and Finito paths run: the oracle formula
+modes, the scalar constants, the kernels' gates, and eight hand-written
+CUDA kernels for Hopper beside their plain PyTorch versions:
 
 - ``saga_coeff_multistep`` (``csrc/saga_coeff_multistep.cu``),
-  ``saga_coeff_multistep_streamed`` (``csrc/saga_coeff_multistep_streamed.cu``)
-  and ``svrg_coeff_multistep`` (``csrc/svrg_coeff_multistep.cu``): K block
-  steps each, sharing their device code (``csrc/saga_steps.cuh``);
+  ``saga_coeff_multistep_streamed`` (``csrc/saga_coeff_multistep_streamed.cu``),
+  ``svrg_coeff_multistep`` (``csrc/svrg_coeff_multistep.cu``),
+  ``finito_coeff_multistep`` (``csrc/finito_coeff_multistep.cu``),
+  ``finito_coeff_multistep_streamed``
+  (``csrc/finito_coeff_multistep_streamed.cu``) and
+  ``lfinito_sweep_multistep`` (``csrc/lfinito_sweep_multistep.cu``): K
+  block steps each, sharing their device code (``csrc/saga_steps.cuh``);
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
-  over all rows, the SVRG anchor and the FB full gradient.
+  over all rows, the SVRG and LFinito anchors and the FB full gradient;
+- ``finito_block_update`` (``csrc/finito_block_update.cu``): the
+  full-table Finito refresh of one block.
 
-The row primitives the four share are in ``csrc/row_ops.cuh``. The other
-15 TPU kernels of the JAX module are not ported yet (ROADMAP.md, queue 2).
+The row primitives they share are in ``csrc/row_ops.cuh``. The other 11
+TPU kernels of the JAX module are not ported yet (ROADMAP.md, queue 2).
 
-Layouts are flat: coefficient tables ``c``/``canch``, the offsets ``b``
-and the int8 dequant scales ``rs`` are ``(N,)``, iterates and averages
-are ``(n,)``. The TPU's ``(8, N/8)`` slab exists only for its VMEM tiling
+Layouts are flat: coefficient tables ``c``/``canch``, the offsets ``b``,
+the stepsizes ``gamma`` and the int8 dequant scales ``rs`` are ``(N,)``,
+iterates and averages are ``(n,)``, Finito's per-block anchors ``zb``
+``(d, n)`` and the full table ``s`` ``(N, n)``. The TPU's ``(8, N/8)`` slab exists only for its VMEM tiling
 and has no meaning here.
 """
 
@@ -137,6 +144,44 @@ def saga_multistep_streamed_available(F, g, x0, B: int) -> bool:
     return saga_multistep_available(F, g, x0, B)
 
 
+def finito_multistep_available(F, g, x0, B: int) -> bool:
+    """Gate of :func:`finito_coeff_multistep`: that of
+    :func:`saga_multistep_available`. The JAX gate's slab, tile and VMEM
+    rules (N % (8·B), d ≤ 1,024, 2 MB of anchors) exist for the TPU
+    alone; the facade keeps its shape bounds only to pick this kernel
+    over :func:`finito_coeff_multistep_streamed`."""
+    return saga_multistep_available(F, g, x0, B)
+
+
+def finito_multistep_streamed_available(F, g, x0, B: int) -> bool:
+    """Gate of :func:`finito_coeff_multistep_streamed`: that of
+    :func:`saga_multistep_available` (no block minimum: the port does
+    not clamp)."""
+    return saga_multistep_available(F, g, x0, B)
+
+
+def lfinito_sweep_available(F, g, x0, B: int) -> bool:
+    """Gate of :func:`lfinito_sweep_multistep` (and of its anchor pass,
+    :func:`coeff_apply_all`): that of :func:`saga_multistep_available`."""
+    return saga_multistep_available(F, g, x0, B)
+
+
+def finito_block_available(F, x0, B: int) -> bool:
+    """Gate of :func:`finito_block_update`, the port's own: iterate and
+    rows on one CUDA device, f32 iterates, f32 or bf16 rows (int8 rows
+    take the coefficient table: the f32 table traffic dominates) with
+    f32 offsets, ``n <= MAX_COLS`` and whole blocks. The prox runs
+    outside the kernel, so any prox will do."""
+    if not hasattr(F, "fused_finito_block"):
+        return False
+    A, b = F.coeff_rows_data()
+    return (x0.device.type == "cuda" and A.device == x0.device
+            and x0.dtype == torch.float32
+            and A.dtype in (torch.float32, torch.bfloat16)
+            and F.coeff_rows_scale() is None and b.dtype == torch.float32
+            and A.shape[1] <= MAX_COLS and A.shape[0] % B == 0)
+
+
 def _smem_bytes(rows: int, n: int, itemsize: int) -> int:
     """Dynamic shared memory of one row-phase CTA (``run_steps`` in the
     CUDA source): the row tile rounded up to 16 bytes, then z and four
@@ -234,6 +279,16 @@ _ARGTYPES = {
     # A, storage, lowp, b, rs, z, sc, c, gsum, hi, lo, N, n, rows, ctas,
     # stream
     "coeff_apply_all": "PIIPPPPPPPPLIIIP",
+    # A, storage, lowp, b, rs, c, zb, invg, z, av, starts, [f,] sc, part,
+    # n, B, rows, K, stream
+    "finito_coeff_multistep": "PIIPPPPPPPPPPIIIIP",
+    "finito_coeff_multistep_streamed": "PIIPPPPPPPPPPPIIIIP",
+    # A, storage, lowp, b, rs, canch, zf, invg, av, z, starts, sc, part, n,
+    # B, rows, K, stream
+    "lfinito_sweep_multistep": "PIIPPPPPPPPPPIIIIP",
+    # A, storage, lowp, b, s, gamma, z, start, sc, part, innov, n, B, rows,
+    # stream
+    "finito_block_update": "PIIPPPPPPPPIIIP",
 }
 
 
@@ -660,6 +715,393 @@ def oracle_apply_all(F, z, precision: str = "highest"):
                            precision=precision, rs=F.coeff_rows_scale())
 
 
+# ---------------------------------------------------------------------------
+# kernels #9, #14: Finito coefficient-table block steps
+# ---------------------------------------------------------------------------
+
+def _soft(w, thr):
+    return torch.sign(w) * torch.clamp(w.abs() - thr, min=0.0)
+
+
+def _finito_steps_ref(A, b, starts, c, zb, ig_of, z, av, scalars, B: int,
+                      precision: str, rs, who: str):
+    """The Finito coefficient steps of both plain versions; ``ig_of(k,
+    j)`` is step k's Σ 1/γ_i of block j."""
+    runtime.require_exact_f32_matmul(A.device, who)
+    lowp = _lowp(A, precision)
+    scale, inv_n, hat, thr, mode, aux = scalars.unbind()
+    ar = torch.arange(B, device=A.device)
+    for k in range(starts.shape[0]):
+        j = (starts[k].long() // B).view(1)
+        idx = starts[k].long() + ar
+        A_t = A.index_select(0, idx).to(torch.float32)
+        zq = z
+        if lowp:
+            A_t = _bf16_round(A_t)
+            zq = _bf16_round(z)
+        r = A_t @ zq
+        rs_t = None if rs is None else rs[idx]
+        if rs_t is not None:
+            r = r * rs_t
+        c_new = _coeff_formula(mode, r, b[idx], scale, aux)
+        dc = c_new - c[idx]
+        c.index_copy_(0, idx, c_new)
+        if rs_t is not None:
+            dc = dc * rs_t
+        if lowp:
+            dc = _bf16_round(dc)
+        zb_j = zb.index_select(0, j)[0]
+        av.add_((hat * ig_of(k, j[0])) * (z - zb_j)
+                - (hat * inv_n) * (dc @ A_t))
+        zb.index_copy_(0, j, z[None])
+        z.copy_(_soft(av, thr))
+    return c, zb, z, av
+
+
+def finito_coeff_multistep_ref(A, b, starts, c, zb, invg, z, av, scalars,
+                               B: int, precision: str = "highest", rs=None):
+    """Plain PyTorch version of :func:`finito_coeff_multistep`: the same K
+    steps as a Python loop of tensor ops, with the same bf16 roundings.
+    Updates ``c``, ``zb``, ``z`` and ``av`` in place and returns them. On
+    the card it needs exact f32 products, which it checks and does not
+    set."""
+    return _finito_steps_ref(A, b, starts, c, zb, lambda k, j: invg[j], z,
+                             av, scalars, B, precision, rs,
+                             "finito_coeff_multistep_ref")
+
+
+def finito_coeff_multistep_streamed_ref(A, b, starts, invg_k, c, zb, z, av,
+                                        scalars, B: int,
+                                        precision: str = "highest", rs=None,
+                                        f=None):
+    """Plain PyTorch version of :func:`finito_coeff_multistep_streamed`:
+    the first ``f`` of the K steps (all K when ``f`` is None), step k's
+    Σ 1/γ_i being ``invg_k[k]``; the masked steps leave c, zb, z and av as
+    they are. Reads ``f`` on the host."""
+    live = starts.shape[0] if f is None else min(starts.shape[0], int(f))
+    return _finito_steps_ref(A, b, starts[:live], c, zb,
+                             lambda k, j: invg_k[k], z, av, scalars, B,
+                             precision, rs,
+                             "finito_coeff_multistep_streamed_ref")
+
+
+def _launch_finito(name, A, b, starts, c, zb, invg, n_invg, z, av, scalars,
+                   B, precision, rs, fclamp=()):
+    """Check the arguments of a Finito kernel of ``saga_steps.cuh`` and
+    queue its 2K launches on the current stream."""
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    _check("c", c, f32, (A.shape[0],), dev)
+    # a stride-0 view (``expand``) would make every row one: the kernel
+    # writes rows of zb, so it must own each
+    _check("zb", zb, f32, (A.shape[0] // B, n), dev)
+    _check("invg", invg, f32, (n_invg,), dev)
+    _check("z", z, f32, (n,), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("scalars", scalars, f32, (6,), dev)
+    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), c.data_ptr(),
+          zb.data_ptr(), invg.data_ptr(), z.data_ptr(), av.data_ptr(),
+          starts.data_ptr(), *fclamp, scalars.data_ptr(), part.data_ptr(), n,
+          B, rows, K)
+
+
+def finito_coeff_multistep(A, b, starts, c, zb, invg, z, av, scalars,
+                           B: int, precision: str = "highest", rs=None):
+    """K = len(starts) Finito-basic coefficient-table block steps
+    (Finito_basic.jl:110-118 in the coefficient parameterization).
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:finito_coeff_multistep``. Step k takes
+    block j = starts[k] / B of the rows ``A`` (N, n), stored f32, bf16 or
+    int8 (then ``rs`` holds the (N,) f32 dequant scales): it refreshes the
+    block's coefficients in ``c`` (N,), forms innov = hat·invg_j·(z −
+    zb_j) − (hat/N)·Σ Δc_i·a_i, adds it to ``av`` (n,), sets the block's
+    anchor zb_j ← z in ``zb`` (d, n) and z ← soft(av, hat·λ). ``invg``
+    (d,) holds each block's Σ 1/γ_i by block id; ``scalars`` the (6,) f32
+    row [scale, 1/N, hat, hat·λ, mode, aux]. ``c``, ``zb``, ``z`` and
+    ``av`` are updated in place and returned; ``zb`` must own its rows
+    (not an ``expand`` view).
+
+    CPU tensors take the plain version :func:`finito_coeff_multistep_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    The step is :func:`saga_coeff_multistep`'s (``saga_steps.cuh``,
+    method ``kFinito``): bound by the block's rows, B·n·itemsize bytes
+    (16 MB f32, 4 MB int8 at the 262,144 × 1,024 headline's B = 4,096),
+    plus one anchor row read and written. The row phase is SAGA's; the
+    finish reads block j's anchor row and Σ 1/γ from device memory (no
+    d ≤ 1,024 cap, as the TPU's SMEM row had) and writes the row back, so
+    a block revisited within a launch sees the previous step's c and zb.
+    """
+    if A.device.type == "cpu":
+        return finito_coeff_multistep_ref(A, b, starts, c, zb, invg, z, av,
+                                          scalars, B, precision=precision,
+                                          rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"finito_coeff_multistep: no kernel for {A.device}")
+    _launch_finito("finito_coeff_multistep", A, b, starts, c, zb, invg,
+                   A.shape[0] // B, z, av, scalars, B, precision, rs)
+    finito_coeff_multistep.launches += 1
+    return c, zb, z, av
+
+
+def finito_coeff_multistep_streamed(A, b, starts, invg_k, c, zb, z, av,
+                                    scalars, B: int,
+                                    precision: str = "highest", rs=None,
+                                    f=None):
+    """K = len(starts) Finito coefficient-table block steps for any N,
+    with the steps k ≥ ``f`` masked.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:finito_coeff_multistep_streamed``.
+    Arguments and in-place updates are those of
+    :func:`finito_coeff_multistep`, except ``invg_k`` (K,): step k's
+    Σ 1/γ_i, pre-gathered by step (JAX's contract), and ``f``: the clamp
+    count, a one-element int32 tensor on the rows' device, or None for K.
+    A masked step writes neither c nor zb nor z nor av. CPU tensors take
+    the plain version :func:`finito_coeff_multistep_streamed_ref`; CUDA
+    tensors launch the kernel or raise.
+
+    The TPU kernel streams c through aliased windows and keeps zb in
+    VMEM, so its driver clamps each launch at the first same-launch
+    revisit. Here c and zb live in device memory and the launches are
+    stream-ordered: the port's driver launches with ``f`` = None, and the
+    ``f < K`` semantics stay for the tests, read on the device by both
+    launches of every step. The design and bound are
+    :func:`finito_coeff_multistep`'s, whose device code this kernel
+    shares: at the 10,485,760 × 128 deep shape (B = 8,192) a step reads
+    4 MB of f32 rows (1 MB int8).
+    """
+    if A.device.type == "cpu":
+        return finito_coeff_multistep_streamed_ref(
+            A, b, starts, invg_k, c, zb, z, av, scalars, B,
+            precision=precision, rs=rs, f=f)
+    if A.device.type != "cuda":
+        raise ValueError(f"finito_coeff_multistep_streamed: no kernel for "
+                         f"{A.device}")
+    if f is not None:
+        if f.numel() != 1:
+            raise ValueError(f"f must hold one count, not {f.numel()}")
+        f = f.reshape(1)
+        _check("f", f, torch.int32, (1,), A.device)
+    _launch_finito("finito_coeff_multistep_streamed", A, b, starts, c, zb,
+                   invg_k, starts.shape[0], z, av, scalars, B, precision, rs,
+                   (None if f is None else f.data_ptr(),))
+    finito_coeff_multistep_streamed.launches += 1
+    return c, zb, z, av
+
+
+# ---------------------------------------------------------------------------
+# kernel #8: an LFinito block sweep against the epoch's anchor
+# ---------------------------------------------------------------------------
+
+def lfinito_sweep_multistep_ref(A, b, canch, starts, av, zf, invg, scalars,
+                                B: int, precision: str = "highest", rs=None):
+    """Plain PyTorch version of :func:`lfinito_sweep_multistep`: the same
+    K block steps as a Python loop of tensor ops, with the same bf16
+    roundings. Updates ``av`` in place; returns ``(av, z)``. On the card
+    it needs exact f32 products, which it checks and does not set."""
+    runtime.require_exact_f32_matmul(A.device, "lfinito_sweep_multistep_ref")
+    lowp = _lowp(A, precision)
+    scale, hat, thr, inv_n, mode, aux = scalars.unbind()
+    ar = torch.arange(B, device=A.device)
+    z = av
+    for k in range(starts.shape[0]):
+        z = _soft(av, thr)      # the block's start (Finito_LFinito.jl:92)
+        idx = starts[k].long() + ar
+        A_t = A.index_select(0, idx).to(torch.float32)
+        zq = z
+        if lowp:
+            A_t = _bf16_round(A_t)
+            zq = _bf16_round(z)
+        r = A_t @ zq
+        rs_t = None if rs is None else rs[idx]
+        if rs_t is not None:
+            r = r * rs_t
+        dc = canch[idx] - _coeff_formula(mode, r, b[idx], scale, aux)
+        if rs_t is not None:
+            dc = dc * rs_t
+        if lowp:
+            dc = _bf16_round(dc)
+        av.add_((hat * inv_n) * (dc @ A_t) + (hat * invg[k]) * (z - zf))
+    return av, z.clone()
+
+
+def lfinito_sweep_multistep(A, b, canch, starts, av, zf, invg, scalars,
+                            B: int, precision: str = "highest", rs=None):
+    """K = len(starts) LFinito block steps (Finito_LFinito.jl:91-101).
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:lfinito_sweep_multistep``. Step k
+    visits block starts[k] of the rows ``A`` (N, n), stored f32, bf16 or
+    int8 (then ``rs`` holds the (N,) f32 dequant scales): z = soft(av,
+    hat·λ) at the block's start, then av += (hat/N)·Σ (canch_i −
+    c_i(z))·a_i + hat·invg[k]·(z − zf), against the epoch's anchor
+    coefficients ``canch`` (N,) at the anchor point ``zf`` (n,). ``invg``
+    (K,) holds the visited blocks' Σ 1/γ_i in visit order; ``scalars``
+    the (6,) f32 row [scale, hat, hat·λ, 1/N, mode, aux]. ``av`` is
+    updated in place; returns ``(av, z)`` with z the LAST block's prox
+    point (``LFinitoState.z``), not soft(av) of the returned av. No z
+    comes in: each block forms its own.
+
+    CPU tensors take the plain version :func:`lfinito_sweep_multistep_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    The step is :func:`svrg_coeff_multistep`'s (``saga_steps.cuh``,
+    method ``kLFinito``): bound by the block's rows, B·n·itemsize bytes
+    (4 MB f32, 1 MB int8 at the 10,485,760 × 128 deep shape's B = 8,192),
+    and the anchor coefficients, read, never written. The TPU kernel
+    carries av and z in VMEM and forms z at each block's first tile;
+    here a prologue launch forms the first block's z, the finish of step
+    k forms step k+1's (its columns are its own), and the last finish
+    leaves z as the returned prox point.
+    """
+    if A.device.type == "cpu":
+        return lfinito_sweep_multistep_ref(A, b, canch, starts, av, zf, invg,
+                                           scalars, B, precision=precision,
+                                           rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"lfinito_sweep_multistep: no kernel for {A.device}")
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    _check("canch", canch, f32, (A.shape[0],), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("zf", zf, f32, (n,), dev)
+    _check("invg", invg, f32, (K,), dev)
+    _check("scalars", scalars, f32, (6,), dev)
+    z = torch.empty(n, dtype=f32, device=dev)
+    _call("lfinito_sweep_multistep", dev, A.data_ptr(),
+          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), b.data_ptr(),
+          _ptr(rs), canch.data_ptr(), zf.data_ptr(), invg.data_ptr(),
+          av.data_ptr(), z.data_ptr(), starts.data_ptr(), scalars.data_ptr(),
+          part.data_ptr(), n, B, rows, K)
+    lfinito_sweep_multistep.launches += 1
+    return av, z
+
+
+# Blocks per launch of the LFinito sweep driver (JAX's chunk).
+LFINITO_CHUNK = 512
+
+
+def lfinito_sweep_chunked(A, b, canch, starts, invg_v, av, zf, scalars,
+                          B: int, precision: str = "highest", rs=None,
+                          chunk: int = LFINITO_CHUNK):
+    """A whole epoch's block sweep (visit order ``starts``, the visited
+    blocks' Σ 1/γ_i in ``invg_v``) as launches of at most ``chunk``
+    blocks of :func:`lfinito_sweep_multistep`, av carried across them (in
+    place). Returns ``(av, z)``, z the last block's prox point."""
+    z = None
+    for k0 in range(0, starts.shape[0], chunk):
+        av, z = lfinito_sweep_multistep(
+            A, b, canch, starts[k0:k0 + chunk], av, zf,
+            invg_v[k0:k0 + chunk], scalars, B, precision=precision, rs=rs)
+    return av, z
+
+
+# ---------------------------------------------------------------------------
+# kernel #2: the full-table Finito refresh of one block
+# ---------------------------------------------------------------------------
+
+def _block_lowp(precision: str) -> bool:
+    """Whether the margins' dot operands round to bf16 in the full-table
+    kernel: at "default" only. Its Pallas kernel (``_row_grad``) widens
+    bf16 rows to f32 and keeps z unrounded at "highest", unlike
+    ``_stream_dot`` (:func:`_lowp`)."""
+    if precision not in ("highest", "default"):
+        raise ValueError(f"precision must be 'highest' or 'default', "
+                         f"not {precision!r}")
+    return precision == "default"
+
+
+def finito_block_update_ref(A, b, s, gamma, z, start, scalars, B: int,
+                            precision: str = "highest"):
+    """Plain PyTorch version of :func:`finito_block_update`, with the same
+    bf16 roundings. Updates ``s`` in place; returns ``(s, innov)``. On
+    the card it needs exact f32 products, which it checks and does not
+    set."""
+    runtime.require_exact_f32_matmul(A.device, "finito_block_update_ref")
+    scale, inv_n, hat = scalars.unbind()
+    idx = torch.as_tensor(start, device=A.device).long() + torch.arange(
+        B, device=A.device)
+    A_t = A.index_select(0, idx).to(torch.float32)
+    A_d, zq = A_t, z
+    if _block_lowp(precision):
+        A_d, zq = _bf16_round(A_t), _bf16_round(z)
+    G = (scale * (A_d @ zq - b[idx]))[:, None] * A_t
+    gi = gamma[idx]
+    s_new = z[None, :] - (gi * inv_n)[:, None] * G
+    innov = ((s_new - s[idx]) * (hat / gi)[:, None]).sum(dim=0)
+    s.index_copy_(0, idx, s_new)
+    return s, innov
+
+
+def finito_block_update(A, b, s, gamma, z, start, scalars, B: int,
+                        precision: str = "highest"):
+    """The full-table Finito refresh of the block [start, start + B)
+    (Finito_basic.jl:110-117): s_i ← z − (γ_i/N)·∇f_i(z) for its rows, in
+    place, and ``innov`` = Σ_B (s_new − s_old)·hat/γ_i; returns
+    ``(s, innov)``.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:finito_block_update``. ``A`` (N, n)
+    least-squares rows stored f32 or bf16 (∇f_i(z) = scale·(a_i·z −
+    b_i)·a_i), ``b`` and ``gamma`` (N,), ``s`` the (N, n) f32 table,
+    ``z`` (n,), ``start`` a multiple of B (a Python int, or a 0-d tensor
+    on the rows' device, read there), ``scalars`` the (3,) f32 row
+    [scale, 1/N, hat]. Rows of ``s`` outside the block are not touched.
+
+    CPU tensors take the plain version :func:`finito_block_update_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    On an H100 the step is bound by bytes: the block's rows, and its
+    table rows read and written, 12 B a column of a row with f32 rows
+    (about 48 MB at the 262,144 × 1,024 headline's B = 4,096). Two
+    launches, as the coefficient kernels: B/R CTAs each stage their R
+    rows in shared memory with ``cp.async``, take the margins a warp a
+    row, then walk the rows in order a column per thread, reading and
+    writing the table and summing a partial innovation; a second launch
+    sums the partials in a fixed order. The TPU kernel streams its tiles
+    in grid order with the table aliased in and out.
+    """
+    if A.device.type == "cpu":
+        return finito_block_update_ref(A, b, s, gamma, z, start, scalars, B,
+                                       precision=precision)
+    if A.device.type != "cuda":
+        raise ValueError(f"finito_block_update: no kernel for {A.device}")
+    N, n = A.shape
+    if A.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rows must be f32 or bf16, not {A.dtype} (int8 "
+                        "rows take the coefficient table)")
+    if not A.is_contiguous():
+        raise ValueError("A must be contiguous")
+    if N % B or n > MAX_COLS or N >= 2**31:
+        raise ValueError(f"bad shape: N={N}, n={n}, B={B}")
+    dev, f32 = A.device, torch.float32
+    _check("b", b, f32, (N,), dev)
+    _check("s", s, f32, (N, n), dev)
+    _check("gamma", gamma, f32, (N,), dev)
+    _check("z", z, f32, (n,), dev)
+    _check("scalars", scalars, f32, (3,), dev)
+    if isinstance(start, torch.Tensor):
+        st = start.reshape(1).to(torch.int32)
+        _check("start", st, torch.int32, (1,), dev)
+    else:
+        if start % B or not 0 <= start <= N - B:
+            raise ValueError(f"start {start} must be a multiple of B in "
+                             f"[0, {N - B}]")
+        st = torch.full((1,), int(start), dtype=torch.int32, device=dev)
+    rows = _rows_per_cta(B, n, A.element_size())
+    part = torch.empty((B // rows, n), dtype=f32, device=dev)
+    innov = torch.empty(n, dtype=f32, device=dev)
+    _call("finito_block_update", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(_block_lowp(precision)), b.data_ptr(), s.data_ptr(),
+          gamma.data_ptr(), z.data_ptr(), st.data_ptr(), scalars.data_ptr(),
+          part.data_ptr(), innov.data_ptr(), n, B, rows)
+    finito_block_update.launches += 1
+    return s, innov
+
+
 # Launches of the CUDA kernels (one per wrapper call that reaches one),
 # and those of them with direction weights (importance sampling).
 saga_coeff_multistep.launches = 0
@@ -668,3 +1110,7 @@ saga_coeff_multistep_streamed.launches = 0
 saga_coeff_multistep_streamed.weighted_launches = 0
 svrg_coeff_multistep.launches = 0
 coeff_apply_all.launches = 0
+finito_coeff_multistep.launches = 0
+finito_coeff_multistep_streamed.launches = 0
+lfinito_sweep_multistep.launches = 0
+finito_block_update.launches = 0

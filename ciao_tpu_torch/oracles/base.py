@@ -64,3 +64,7 @@ class SmoothOracle(nn.Module, metaclass=abc.ABCMeta):
     def value_and_grad_all(self, x):
         """``(vals[N], grads[N, n])`` of all terms at x."""
         ...
+
+    def value_i(self, x, i):
+        """f_i(x) of one term (the adaptive Finito line search)."""
+        return self.value_and_grad_i(x, i)[0]

@@ -13,8 +13,9 @@ the per-row scale is applied to the row products, never to a dense
 dequantized A. Narrow rows are widened to the iterate's dtype inside each
 product, as JAX's type promotion does.
 
-Not ported yet: complex rows, the full-table (N, n) paths and the
-Point-SAGA pieces (ROADMAP.md, queue 1 item 3).
+Not ported yet: complex rows, the SAGA full-table kernel's
+``fused_saga_block`` and the Point-SAGA pieces (ROADMAP.md, queue 1
+item 3).
 """
 
 from __future__ import annotations
@@ -65,14 +66,71 @@ class LeastSquaresRows(SmoothOracle):
     def _rows(self, A_B, dtype):
         return A_B if A_B.dtype == dtype else A_B.to(dtype)
 
+    def _dense(self, A_B, rs_B, dtype):
+        """Rows as ``dtype`` with the int8 scales applied: the gradient
+        tables hold (B, n) or (N, n) values anyway."""
+        A_B = self._rows(A_B, dtype)
+        return A_B if rs_B is None else A_B * rs_B[:, None]
+
+    def _grads(self, Ad, r):
+        return self.scale * Ad * r[:, None]
+
     def value_and_grad_all(self, x):
-        if self.row_scale is not None:
-            Ad = self.A.to(x.dtype) * self.row_scale[:, None]
-        else:
-            Ad = self._rows(self.A, x.dtype)
+        Ad = self._dense(self.A, self.row_scale, x.dtype)
         r = Ad @ x - self.b
         vals = 0.5 * self.scale * (r * r)
-        return vals, self.scale * Ad * r[:, None]
+        return vals, self._grads(Ad, r)
+
+    def grad_all(self, x):
+        """The (N, n) table of row gradients (the full-table inits)."""
+        Ad = self._dense(self.A, self.row_scale, x.dtype)
+        return self._grads(Ad, Ad @ x - self.b)
+
+    def value_and_grad_i(self, x, i):
+        """(f_i(x), ∇f_i(x)) of one row ``i`` (an int or a 0-d tensor)."""
+        a = self._rows(self.A[i], x.dtype)
+        if self.row_scale is not None:
+            a = a * self.row_scale[i]
+        r = a @ x - self.b[i]
+        return 0.5 * self.scale * (r * r), self.scale * a * r
+
+    def grad_block(self, x, start, size: int):
+        """Row gradients of the contiguous block [start, start + size)."""
+        A_B, b_B, rs_B = self._slice(start, size)
+        Ad = self._dense(A_B, rs_B, x.dtype)
+        return self._grads(Ad, Ad @ x - b_B)
+
+    def grad_batch(self, x, idx):
+        """Row gradients of the rows ``idx``, all at x."""
+        A_B, b_B, rs_B = self._gather(idx)
+        Ad = self._dense(A_B, rs_B, x.dtype)
+        return self._grads(Ad, Ad @ x - b_B)
+
+    def grad_pointwise(self, xs, idx):
+        """Row gradients with one evaluation point per row: row idx[k]
+        at xs[k] (the adaptive variant's probe)."""
+        A_B, b_B, rs_B = self._gather(idx)
+        Ad = self._dense(A_B, rs_B, xs.dtype)
+        return self._grads(Ad, torch.sum(Ad * xs, dim=-1) - b_B)
+
+    def fused_finito_block(self, s, gamma, z, start, size: int, inv_N,
+                           hat_gamma, precision: str = "highest"):
+        """(s, Σ_B (s_new − s_old)·hat_γ/γ_i) with s_new = z −
+        γ_i·inv_N·∇f_i(z) written over the rows [start, start + size) of
+        the (N, n) table ``s`` in place: ``ops.finito_block_update``."""
+        from ciao_tpu_torch.ops.fused_block import (
+            _scalar, finito_block_update,
+        )
+
+        if self.row_scale is not None:
+            raise ValueError(
+                "int8 rows: full-table fused kernels are not supported "
+                "(the f32 table traffic dominates — use table='coeff')")
+        dev = self.A.device
+        scalars = torch.stack([_scalar(self.scale, dev), _scalar(inv_N, dev),
+                               _scalar(hat_gamma, dev)])
+        return finito_block_update(self.A, self.b, s, gamma, z, start,
+                                   scalars, size, precision=precision)
 
     # ---- contiguous blocks: a view for a host start, a gather for a
     # device start (no host sync) ---------------------------------------
@@ -142,18 +200,23 @@ class LeastSquaresRows(SmoothOracle):
     # ---- gradient sums of the SVRG and FB paths, in the JAX package's
     # order of operations: the int8 scale multiplies the row products
     # on both sides, and ``scale`` comes last ---------------------------
-    def _grad_sum_diff(self, A_B, rs_B, x1, x2):
+    def _grad_sum_diff(self, A_B, rs_B, x1, x2, mask=None):
         A_B = self._rows(A_B, x1.dtype)
         d = A_B @ (x1 - x2)
         if rs_B is not None:
-            d = d * rs_B * rs_B
+            d = d * rs_B
+        if mask is not None:
+            d = torch.where(mask, d, 0)
+        if rs_B is not None:
+            d = d * rs_B
         return self.scale * (d @ A_B)
 
-    def grad_sum_diff(self, x1, x2, idx):
+    def grad_sum_diff(self, x1, x2, idx, mask=None):
         """Σ_{i ∈ idx} ∇f_i(x1) − ∇f_i(x2) = scale·A_Bᵀ A_B (x1 − x2):
-        the SVRG anchor-minus-live direction in one read of the rows."""
+        the SVRG anchor-minus-live direction in one read of the rows;
+        ``mask`` zeroes the padded lanes of a ragged block."""
         A_B, _, rs_B = self._gather(idx)
-        return self._grad_sum_diff(A_B, rs_B, x1, x2)
+        return self._grad_sum_diff(A_B, rs_B, x1, x2, mask)
 
     def grad_sum_diff_block(self, x1, x2, start, size: int):
         A_B, _, rs_B = self._slice(start, size)

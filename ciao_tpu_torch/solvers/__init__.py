@@ -1,11 +1,16 @@
-"""Solvers of the port (SAGA/SAG, SVRG/SVRG++, forward-backward and
-FISTA, the staged schedule, the polish and ``deep_solve``) and the
-iteration tools."""
+"""Solvers of the port (SAGA/SAG, SVRG/SVRG++, Finito/MISO with LFinito
+and adaptive Finito, forward-backward and FISTA, the staged schedule, the
+polish and ``deep_solve``) and the iteration tools."""
 
 from ciao_tpu_torch.solvers.base import (
     SolverIterable, Status, halt, loop, run_solver_loop, solution, take,
 )
 from ciao_tpu_torch.solvers.deep import DeepSolveInfo, deep_solve
+from ciao_tpu_torch.solvers.finito import (
+    Finito, FinitoAdaptiveState, FinitoBasicState, FinitoCfg,
+    FinitoCoeffState, LFinitoState, finito_adaptive_init, finito_basic_init,
+    finito_coeff_init, finito_rebase, finito_run, finito_step, lfinito_init,
+)
 from ciao_tpu_torch.solvers.fb import (
     FISTA, FBCfg, FBState, ForwardBackward, fb_init, fb_run, fb_step,
     full_gradient,
@@ -29,7 +34,11 @@ __all__ = [
     "block_starts", "importance_draws", "saga_init", "saga_rebase",
     "saga_run", "saga_step", "SVRG", "SVRGCfg", "SVRGState", "svrg_init",
     "svrg_run", "svrg_step", "ForwardBackward", "FISTA", "FBCfg", "FBState",
-    "fb_init", "fb_run", "fb_step", "full_gradient", "DeepSolveInfo",
+    "fb_init", "fb_run", "fb_step", "full_gradient", "Finito", "FinitoCfg",
+    "FinitoBasicState", "FinitoCoeffState", "LFinitoState",
+    "FinitoAdaptiveState", "finito_basic_init", "finito_coeff_init",
+    "lfinito_init", "finito_adaptive_init", "finito_run", "finito_step",
+    "finito_rebase", "DeepSolveInfo",
     "deep_solve", "StagedInfo", "staged_saga", "PolishResult",
     "fista_polish", "grad_mean_chunked", "grad_sum_chunked", "power_lmax",
     "lsq_power_lmax",

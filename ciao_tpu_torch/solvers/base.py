@@ -53,6 +53,30 @@ def real_dtype_of(x) -> torch.dtype:
     return dtype.to_real()
 
 
+def rdiv(a: float, t):
+    """``a / t`` for a Python number ``a``, as one rounded divide in
+    ``t``'s dtype, as JAX divides by a weakly typed scalar (torch's
+    ``a / t`` multiplies by the reciprocal: two roundings)."""
+    return torch.full_like(t, a) / t
+
+
+def resolve_gamma_array(gamma, L, N, alpha, rdt, device=None,
+                        who="Finito"):
+    """Per-index stepsizes γ_i as an (N,) tensor of ``rdt`` on ``device``.
+
+    Mirrors ``Finito_basic.jl:61-74``: an explicit γ (scalar or (N,))
+    wins; otherwise γ_i = α·N / L_i from the Lipschitz moduli (a scalar L
+    is broadcast). Missing both is the reference's ``@warn``-and-stop
+    path."""
+    if gamma is not None:
+        g = torch.as_tensor(gamma, dtype=rdt, device=device)
+        return g.expand(N).clone() if g.ndim == 0 else g
+    if L is None:
+        raise ValueError(f"{who}: smoothness parameter absent — provide L or γ")
+    return rdiv(alpha * N, torch.as_tensor(L, dtype=rdt,
+                                           device=device).expand(N))
+
+
 class SolverIterable:
     """Infinite state stream matching the reference's bare-iterable
     contract: ``iter.x0`` aliases the user's x0 (``test_lasso.jl:151``),

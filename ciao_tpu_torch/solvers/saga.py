@@ -34,6 +34,9 @@ import torch
 
 from ciao_tpu_torch import runtime
 from ciao_tpu_torch.prox import NormL1, Zero
+from ciao_tpu_torch.sampling import (
+    _M32, _mix32, _random_rows as _iid_indices, _seed_key,
+)
 from ciao_tpu_torch.solvers.base import (
     SolverIterable,
     Status,
@@ -99,30 +102,6 @@ class SAGAState(NamedTuple):
 # stateless schedules
 # ---------------------------------------------------------------------------
 
-_M32 = 0xFFFFFFFF
-
-
-def _mulmod32(x, c: int):
-    """(x·c) mod 2^32 for uint32 values held in int64 tensors (or Python
-    ints), multiplied in 16-bit halves so no product overflows."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x):
-    """The ``lowbias32`` integer finalizer: a bijection of uint32 with
-    good avalanche, the round function of the counter-based draws."""
-    x = x ^ (x >> 16)
-    x = _mulmod32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mulmod32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def _seed_key(seed: int) -> int:
-    return _mix32(_mix32(seed & _M32) ^ ((seed >> 32) & _M32))
-
-
 def block_starts(seed: int, it0: int, k: int, d: int, B: int, device):
     """Block starts of steps it0..it0+k-1: a pure function of (seed, it),
     uniform over the d = N/B blocks, computed on ``device`` in one
@@ -131,16 +110,6 @@ def block_starts(seed: int, it0: int, k: int, d: int, B: int, device):
     h = _mix32((its & _M32) ^ _seed_key(seed))
     h = _mix32(h ^ 0x9E3779B9)
     return ((h * d) >> 32).mul_(B).to(torch.int32)
-
-
-def _iid_indices(seed: int, it: int, N: int, B: int, device):
-    """The iid minibatch of step ``it`` (without replacement for B > 1),
-    from a generator seeded by (seed, it)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed((_seed_key(seed) << 32) | _mix32((it & _M32) ^ 0x85EBCA6B))
-    if B == 1:
-        return torch.randint(N, (1,), generator=gen, device=device)
-    return torch.randperm(N, generator=gen, device=device)[:B]
 
 
 def _uniforms(seed: int, ctr, dtype):

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ciao_tpu_torch.prox import Zero
+from ciao_tpu_torch.sampling import _M32, _mix32, _seed_key
 from ciao_tpu_torch.solvers.base import (
     SolverIterable,
     Status,
@@ -44,11 +45,8 @@ from ciao_tpu_torch.solvers.base import (
     run_solver_loop,
 )
 from ciao_tpu_torch.solvers.saga import (
-    _M32,
     LAUNCH_STEPS,
     _check_starts,
-    _mix32,
-    _seed_key,
     _warn_fallback,
     block_starts,
 )

@@ -1,7 +1,9 @@
 """The CUDA kernels ``saga_coeff_multistep``,
-``saga_coeff_multistep_streamed``, ``svrg_coeff_multistep`` and
-``coeff_apply_all`` against their plain versions, the facades' routing
-to them, and the polish's exact-f32 check.
+``saga_coeff_multistep_streamed``, ``svrg_coeff_multistep``,
+``coeff_apply_all``, ``finito_coeff_multistep``,
+``finito_coeff_multistep_streamed``, ``lfinito_sweep_multistep`` and
+``finito_block_update`` against their plain versions, the facades'
+routing to them, and the polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -497,3 +499,242 @@ def test_svrg_and_fista_facades_run_on_the_kernels(dev):
     x, it = FISTA(maxit=51)(x0, F=F, g=g, L=L)
     assert [k.launches - b for k, b in zip(kernels, before)] == [0, 50, 0, 0]
     assert float(objective(F, g, x)) < float(objective(F, g, x0))
+
+
+# ---------------------------------------------------------------------------
+# kernels #9, #14, #8, #2: the Finito family
+# ---------------------------------------------------------------------------
+
+def _finito_setup(dev, N, n, B, K, storage, lam, seed=0, distinct=False):
+    """A Finito coefficient state on the card: c at a point x0, per-block
+    anchors zb near it, av of the identity hat·(invg @ zb − apply_all(c)/N),
+    z = soft(av, hat·λ); K block starts (repeats included unless
+    ``distinct``); scalars [scale, 1/N, hat, hat·λ, mode, aux]."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    A = torch.randn(N, n, generator=gen, device=dev)
+    F = LeastSquaresRows(A, torch.randn(N, generator=gen, device=dev),
+                         float(N))
+    if storage != "f32":
+        F = F.with_storage(storage)
+    d = N // B
+    gamma = 0.999 * N / ((A * A).sum(1) * N)
+    hat = float(1.0 / (1.0 / gamma).sum())
+    invg = (1.0 / gamma).reshape(d, B).sum(1)
+    x0 = 0.05 * torch.randn(n, generator=gen, device=dev)
+    zb = x0 + 0.01 * torch.randn(d, n, generator=gen, device=dev)
+    c = F.coeff_all(x0)
+    av = hat * (invg @ zb) - hat / N * F.apply_all(c)
+    z = torch.sign(av) * torch.clamp(av.abs() - hat * lam, min=0.0)
+    blocks = (torch.randperm(d, generator=gen, device=dev)[:K] if distinct
+              else torch.randint(d, (K,), generator=gen, device=dev))
+    sc = torch.tensor([N, 1.0 / N, hat, hat * lam, 0.0, 0.0], device=dev)
+    return F, (c, zb, z, av), (blocks * B).to(torch.int32), invg, gamma, sc
+
+
+def _finito_both(F, state, starts, invg, sc, B, precision, streamed=False,
+                 f=None):
+    rows, offs = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    outs = []
+    fns = ((tfb.finito_coeff_multistep_streamed,
+            tfb.finito_coeff_multistep_streamed_ref) if streamed else
+           (tfb.finito_coeff_multistep, tfb.finito_coeff_multistep_ref))
+    for fn in fns:
+        c, zb, z, av = (t.clone() for t in state)
+        if streamed:
+            fn(rows, offs, starts, invg[starts.long() // B], c, zb, z, av,
+               sc, B, precision=precision, rs=rs, f=f)
+        else:
+            fn(rows, offs, starts, c, zb, invg, z, av, sc, B,
+               precision=precision, rs=rs)
+        outs.append((c, zb, z, av))
+    torch.cuda.synchronize()
+    return outs
+
+
+FINITO_CASES = [("f32", "highest", 256), ("f32", "default", 256),
+                ("bf16", "highest", 256), ("int8", "highest", 256),
+                ("f32", "highest", 202), ("int8", "highest", 200)]
+FINITO_IDS = ["f32", "f32-default", "bf16", "int8", "f32-n202", "int8-n200"]
+
+
+@pytest.mark.parametrize("lam", [0.1, 0.0], ids=["l1", "zero"])
+@pytest.mark.parametrize("storage,precision,n", FINITO_CASES, ids=FINITO_IDS)
+def test_finito_kernel_matches_plain_version(dev, storage, precision, n,
+                                             lam):
+    """Kernel #9: K = 32 steps at N = 4,096, B = 256 with repeated blocks;
+    z within 1e-6 of its largest entry (1e-5 with bf16 dots), c, zb and
+    av within 10x that."""
+    N, B, K = 4096, 256, 32
+    F, state, starts, invg, _, sc = _finito_setup(dev, N, n, B, K, storage,
+                                                  lam)
+    before = tfb.finito_coeff_multistep.launches
+    (kc, kzb, kz, kav), (rc, rzb, rz, rav) = _finito_both(
+        F, state, starts, invg, sc, B, precision)
+    assert tfb.finito_coeff_multistep.launches == before + 1
+    tol = 1e-5 if tfb._lowp(F.A, precision) else 1e-6
+    assert float((rz - state[2]).abs().max()) > 0
+    assert _rel(kz, rz) <= tol
+    for k, r in ((kc, rc), (kzb, rzb), (kav, rav)):
+        assert _rel(k, r) <= 10 * tol
+
+
+@pytest.mark.parametrize("f", [64, 23], ids=["f=K", "f=23"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_finito_streamed_kernel_matches_plain_version(dev, storage, f):
+    """Kernel #14: K = 64 distinct blocks at N = 8,192, n = 128, B = 128
+    (d = 64), clamp count f on the device, Σ 1/γ pre-gathered by step;
+    the masked steps leave c, zb, z and av bit for bit as step f − 1 left
+    them, and f = 0 leaves the state as it was."""
+    N, n, B, K = 8192, 128, 128, 64
+    F, state, starts, invg, _, sc = _finito_setup(dev, N, n, B, K, storage,
+                                                  0.1, seed=2, distinct=True)
+    fc = torch.tensor([f], dtype=torch.int32, device=dev)
+    before = tfb.finito_coeff_multistep_streamed.launches
+    kern, ref = _finito_both(F, state, starts, invg, sc, B, "highest",
+                             streamed=True, f=fc)
+    assert tfb.finito_coeff_multistep_streamed.launches == before + 1
+    tol = 1e-5 if tfb._lowp(F.A, "highest") else 1e-6
+    assert _rel(kern[2], ref[2]) <= tol
+    for k, r in zip(kern, ref):
+        assert _rel(k, r) <= 10 * tol
+    rows, offs = F.coeff_rows_data()
+
+    def run(st, fc_):
+        out = [t.clone() for t in state]
+        tfb.finito_coeff_multistep_streamed(
+            rows, offs, st, invg[st.long() // B], *out, sc, B,
+            rs=F.coeff_rows_scale(), f=fc_)
+        torch.cuda.synchronize()
+        return out
+    for a, b in zip(run(starts, fc), run(starts[:f], None)):
+        assert torch.equal(a, b)
+    for a, b in zip(run(starts, torch.zeros(1, dtype=torch.int32,
+                                            device=dev)), state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lam", [0.1, 0.0], ids=["l1", "zero"])
+@pytest.mark.parametrize("storage,precision,n", FINITO_CASES, ids=FINITO_IDS)
+def test_lfinito_kernel_matches_plain_version(dev, storage, precision, n,
+                                              lam):
+    """Kernel #8: a whole shuffled sweep of d = 16 blocks at N = 4,096,
+    B = 256 against the epoch's anchor; av and the returned z within the
+    tolerances of kernel #9; z is the last block's prox point, and a
+    sweep in chunks of 5 gives the same bits."""
+    N, B = 4096, 256
+    F, (c, zb, z, av), starts, invg, _, sc9 = _finito_setup(
+        dev, N, n, B, 16, storage, lam, seed=4, distinct=True)
+    hat = float(sc9[2])
+    sc = torch.tensor([N, hat, hat * lam, 1.0 / N, 0.0, 0.0], device=dev)
+    rows, offs = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    canch = F.coeff_all(z)
+    av0 = z - hat / N * F.apply_all(canch)
+    iv = invg[starts.long() // B].contiguous()
+    before = tfb.lfinito_sweep_multistep.launches
+    kav, kz = tfb.lfinito_sweep_multistep(rows, offs, canch, starts,
+                                          av0.clone(), z, iv, sc, B,
+                                          precision=precision, rs=rs)
+    rav, rz = tfb.lfinito_sweep_multistep_ref(rows, offs, canch, starts,
+                                              av0.clone(), z, iv, sc, B,
+                                              precision=precision, rs=rs)
+    cav, cz = tfb.lfinito_sweep_chunked(rows, offs, canch, starts, iv,
+                                        av0.clone(), z, sc, B,
+                                        precision=precision, rs=rs, chunk=5)
+    torch.cuda.synchronize()
+    assert tfb.lfinito_sweep_multistep.launches == before + 5
+    tol = 1e-5 if tfb._lowp(F.A, precision) else 1e-6
+    assert _rel(kz, rz) <= tol and _rel(kav, rav) <= 10 * tol
+    assert torch.equal(cav, kav) and torch.equal(cz, kz)
+    if lam:
+        assert not torch.equal(
+            kz, torch.sign(kav) * torch.clamp(kav.abs() - hat * lam, min=0))
+
+
+@pytest.mark.parametrize("storage,precision,n", [
+    ("f32", "highest", 256), ("f32", "default", 256),
+    ("bf16", "highest", 256), ("bf16", "default", 256),
+    ("f32", "highest", 202), ("bf16", "highest", 200),
+], ids=["f32", "f32-default", "bf16", "bf16-default", "f32-n202",
+        "bf16-n200"])
+def test_finito_block_kernel_matches_plain_version(dev, storage, precision,
+                                                   n):
+    """Kernel #2 on the block at rows 1,024-1,279 of N = 4,096 (the start
+    a device tensor): s over the block and the innovation within 1e-6 of
+    their largest entries (1e-5 with bf16 dots); every other row of s bit
+    for bit as it was."""
+    N, B, start = 4096, 256, 1024
+    F, (_, _, z, _), _, _, gamma, _ = _finito_setup(dev, N, n, B, 1, storage,
+                                                    0.1, seed=5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    s = torch.randn(N, n, generator=gen, device=dev)
+    sc = torch.tensor([N, 1.0 / N, 0.37], device=dev)
+    rows, offs = F.coeff_rows_data()
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    before = tfb.finito_block_update.launches
+    ks, kin = tfb.finito_block_update(rows, offs, s.clone(), gamma, z, st,
+                                      sc, B, precision=precision)
+    rs_, rin = tfb.finito_block_update_ref(rows, offs, s.clone(), gamma, z,
+                                           start, sc, B, precision=precision)
+    torch.cuda.synchronize()
+    assert tfb.finito_block_update.launches == before + 1
+    tol = 1e-5 if precision == "default" else 1e-6
+    blk = slice(start, start + B)
+    assert _rel(ks[blk], rs_[blk]) <= tol and _rel(kin, rin) <= 10 * tol
+    assert torch.equal(ks[:start], s[:start])
+    assert torch.equal(ks[start + B:], s[start + B:])
+    with pytest.raises(TypeError, match="int8"):
+        tfb.finito_block_update(rows.to(torch.int8), offs, s, gamma, z, 0,
+                                sc, B)
+    with pytest.raises(ValueError, match="multiple"):
+        tfb.finito_block_update(rows, offs, s, gamma, z, 100, sc, B)
+
+
+def test_finito_facade_sends_every_gated_run_to_a_kernel(dev, monkeypatch):
+    """On the card each Finito run whose gate is open takes its kernels,
+    the remainder included, with no fallback warning: the coefficient
+    table #9 (and #14 past a lowered resident bound), the full table #2
+    once a step, LFinito #6 and #8 once an epoch, adaptive none; the
+    objectives fall."""
+    import warnings
+
+    from ciao_tpu_torch import Finito
+    from ciao_tpu_torch.monitor import objective
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers import finito as tfin
+
+    N, n, B = 4096, 64, 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    A = torch.randn(N, n, generator=gen, device=dev)
+    F = LeastSquaresRows(A, torch.randn(N, generator=gen, device=dev),
+                         float(N))
+    g = NormL1(torch.tensor(0.01, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    L = (A * A).sum(1) * N
+    kernels = ("finito_coeff_multistep", "finito_coeff_multistep_streamed",
+               "finito_block_update", "lfinito_sweep_multistep",
+               "coeff_apply_all", "saga_coeff_multistep")
+    cases = [(dict(sweeping=3, maxit=201), [2, 0, 0, 0, 0, 0]),
+             (dict(sweeping=3, maxit=201, stream=True), [0, 2, 0, 0, 0, 0]),
+             (dict(sweeping=2, maxit=21, table="full"), [0, 0, 20, 0, 0, 0]),
+             (dict(sweeping=3, maxit=5, LFinito=True), [0, 0, 0, 4, 4, 0]),
+             (dict(sweeping=1, maxit=4, minibatch=(True, 1), adaptive=True),
+              [0] * 6)]
+    for kw, want in cases:
+        stream = kw.pop("stream", False)
+        kw.setdefault("minibatch", (True, B))
+        before = [getattr(tfb, k).launches for k in kernels]
+        with monkeypatch.context() as m:
+            if stream:
+                m.setattr(tfin, "RESIDENT_MAX_ROWS", N // 2)
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                x, it = Finito(**kw)(x0, F=F, g=g, L=L)
+        assert it == kw["maxit"]
+        assert [getattr(tfb, k).launches - b
+                for k, b in zip(kernels, before)] == want, kw
+        assert float(objective(F, g, x)) < float(objective(F, g, x0)), kw
