@@ -1086,23 +1086,19 @@ def time_svrg(gen, dev, storage: str, card: str) -> dict:
         F, 0.3 * gamma, gen, dev, B, LAUNCH_STEPS, LAM)
 
     def run(fn):
-        return lambda: fn(rows, offs, starts, canch, w, zs, av, sc, B, rs=rs)
+        def call():
+            fn(rows, offs, starts, canch, w, zs, av, sc, B, rs=rs)
+            return LAUNCH_STEPS
+        return call
 
-    K = LAUNCH_STEPS
-    pl = [time_events(run(fb.svrg_coeff_multistep_ref), 1) / K]
-    kern = [time_events(run(fb.svrg_coeff_multistep), 4) / K
-            for _ in range(2)]
-    pl.append(time_events(run(fb.svrg_coeff_multistep_ref), 1) / K)
+    # rows, b and canch of the visited blocks; w, zs in and out, av
+    times = time_turns(run(fb.svrg_coeff_multistep),
+                       run(fb.svrg_coeff_multistep_ref),
+                       f"kernel #5, {storage} rows, N={N} n={n} B={B}", card,
+                       step_bound(F, starts, B, 5 * 4 * n, 8))
     if not bool(torch.isfinite(w).all()):
         raise AssertionError("timed kernel #5 run gave non-finite w")
-    # rows, b and canch of the visited blocks; w, zs in and out, av
-    b_ms, b_by = step_bound(F, starts, B, 5 * 4 * n, 8)
-    log(f"  kernel #5, {storage} rows, N={N} n={n} B={B}: kernel "
-        f"{kern[0]:.4f}/{kern[1]:.4f} ms/step, plain version "
-        f"{pl[0]:.4f}/{pl[1]:.4f}, bound {b_ms:.4f} ms/step ({b_by}) "
-        f"[{card}]")
-    return dict(ms=sum(kern) / 2, plain_ms=sum(pl) / 2, bound_ms=b_ms,
-                bound_by=b_by)
+    return times
 
 
 # ---------------------------------------------------------------------------

@@ -210,6 +210,11 @@ def _lowp(A, precision: str) -> bool:
     return A.dtype != torch.float32 or precision == "default"
 
 
+def _soft(w, thr):
+    """The L1 soft-threshold of the plain versions (NormL1's prox)."""
+    return torch.sign(w) * torch.clamp(w.abs() - thr, min=0.0)
+
+
 def _bf16_round(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
@@ -251,7 +256,7 @@ def saga_coeff_multistep_ref(A, b, starts, c, z, av, scalars, B: int,
         w = torch.where(sag > 0, z - gamma * av_new,
                         z - gamma * (innov * (wgt * invB) + av))
         av.copy_(av_new)
-        z.copy_(torch.sign(w) * torch.clamp(w.abs() - thr, min=0.0))
+        z.copy_(_soft(w, thr))
     return c, z, av
 
 
@@ -515,7 +520,7 @@ def svrg_coeff_multistep_ref(A, b, starts, canch, w, zs, av, scalars,
             dc = _bf16_round(dc)
         d = (dc @ A_t) * invB
         v = w + gamma * (d - av)
-        w.copy_(torch.sign(v) * torch.clamp(v.abs() - thr, min=0.0))
+        w.copy_(_soft(v, thr))
         zs.add_(w)
     return w, zs
 
@@ -718,10 +723,6 @@ def oracle_apply_all(F, z, precision: str = "highest"):
 # ---------------------------------------------------------------------------
 # kernels #9, #14: Finito coefficient-table block steps
 # ---------------------------------------------------------------------------
-
-def _soft(w, thr):
-    return torch.sign(w) * torch.clamp(w.abs() - thr, min=0.0)
-
 
 def _finito_steps_ref(A, b, starts, c, zb, ig_of, z, av, scalars, B: int,
                       precision: str, rs, who: str):
