@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main paths through its eight hand-written CUDA kernels,
+Drives the port's main paths through its ten hand-written CUDA kernels,
 ``ciao_tpu_torch/csrc/saga_coeff_multistep.cu`` (kernel #3 of PERF.md),
 ``saga_coeff_multistep_streamed.cu`` (kernel #4), ``svrg_coeff_multistep.cu``
 (kernel #5), ``coeff_apply_all.cu`` (kernel #6), ``finito_coeff_multistep.cu``
 (kernel #9), ``finito_coeff_multistep_streamed.cu`` (kernel #14),
-``lfinito_sweep_multistep.cu`` (kernel #8) and ``finito_block_update.cu``
-(kernel #2):
+``lfinito_sweep_multistep.cu`` (kernel #8), ``finito_block_update.cu``
+(kernel #2), ``saga_block_update.cu`` (kernel #1) and ``proshi_multistep.cu``
+(kernel #18):
 
 - the SAGA headline of ``bench.py``: a dense Lasso with N = 262,144 rows of
   n = 1,024 columns stored int8 or f32, NormL1(0.1), block-sampled
@@ -31,12 +32,20 @@ Drives the port's main paths through its eight hand-written CUDA kernels,
   facade on the planted Lasso (coefficient table on #9, full table on #2)
   and adaptive Finito; on the deep target, streamed Finito (#14), its
   importance-sampled facade, and LFinito (#6 and #8), the counterpart of
-  ``bench.py``'s ``lfinito_10m_epochs_per_s``.
+  ``bench.py``'s ``lfinito_10m_epochs_per_s``;
+- the ProShI configurations of ``bench.py``: the first 65,536 rows of the
+  headline, IndBox(-inf, 1), B = 4,096, cyclic (f32 and int8 rows) and
+  shuffled, and random with block sampling at 262,144 rows, on kernel #18,
+  and the ``Proshi`` facade;
+- SAGA's full (N, n) table at the headline on kernel #1 (f32 and bf16
+  rows), and the ``SAGA(table="full")`` and ``SAG`` facades;
+- ``bench.py``'s sharing deep route: ``deep_solve_sharing`` on the planted
+  65,536 x 128 sharing problem to rel <= 1e-6 (stepwise by design).
 
 Phases, one line each:
 
   1. device: CUDA present (else exit 2), the card's name and power limit;
-  2. build: the four kernels compiled by nvcc from this checkout, in
+  2. build: the ten kernels compiled by nvcc from this checkout, in
      parallel;
   3. kernel #3 == plain version: f32/bf16/int8 rows, SAGA and SAG, with and
      without direction weights, at a small shape (and at widths that are not
@@ -87,7 +96,22 @@ Phases, one line each:
   7. times: kernel #9 per step at the headline, kernel #2 per step at the
      headline, each in turns with its plain version and with its bound; a
      Finito step at the headline profiled, on the coefficient table and on
-     the full table.
+     the full table;
+  3i. kernel #18 == plain version: f32/bf16/int8 rows, IndBox/NormL1/Zero
+     couplings, "default" precision bit for bit the same as "highest", a
+     masked window (f < K) with masked steps bit for bit, a narrow width on
+     the one-value path, and K = 8 at the ProShI configuration;
+  3j. kernel #1 == plain version: f32 and bf16 rows, both precisions, at
+     SMALL and at the headline, rows outside the block bit for bit;
+  4h. ProShI path: cyclic 8,192 steps at f32 and int8 rows, shuffled,
+     random with block sampling at d = 64, and the facade, on kernel #18
+     alone;
+  4i. SAGA full-table path: 512 steps at the headline (f32, bf16) and the
+     SAGA/SAG facades on kernel #1 alone;
+  4j. sharing deep route: rel against the f64 optimum, no kernel launch;
+  8. times: kernel #18 per step and kernel #1 per block, in turns with
+     their plain versions and with their bounds; ProShI steps and a
+     full-table SAGA epoch profiled.
 
 Then a JSON line of the kernels (with each one's bound, computed from this
 run's inputs), and last ``{"ok": true, "device": ...}``.
@@ -172,6 +196,36 @@ ADAPTIVE = dict(N=256, n=32, p=4, maxit=1_501, drop=10.0)
 # timed epochs after one warm-up: cut from bench.py's 512 at most
 DEEP_FINITO_EPOCHS = 4
 LFINITO_EPOCHS = 16
+# the ProShI configuration of bench.py (:1564-1591): the first 65,536 rows
+# of the headline's Lasso, IndBox(-inf, 1), cyclic, B = 4,096, γ_i =
+# 0.999·N/L_i, 8,192 steps; bench.py:1072-1095 adds shuffled at 65,536 and
+# random with block_sampling at 262,144 (d = 64), each 8,192 steps there,
+# cut here to 2,048 and 1,024 steps; the facade runs 2,048 steps
+PROSHI = dict(N=65_536, B=4_096, hi=1.0, steps=8_192, shuffled=2_048,
+              random=1_024, facade=2_049)
+# kernel #18 against its plain version: a small shape with a masked window
+# (steps k >= f), a narrow ragged width (not whole 16-byte chunks: the
+# one-value path), and K steps at the configuration
+PROSHI_SMALL = dict(N=8_192, n=256, B=512, K=16, f=5)
+PROSHI_RAGGED = dict(N=1_024, n=130, B=128, K=8)
+PROSHI_K = 8
+# SAGA's full table at the headline: 8 epochs of B = 4,096 on kernel #1,
+# f32 and bf16 rows; the facades on the facades' planted Lasso (FACADE):
+# SAGA(table="full") for 256 epochs of batch 4,096 and SAG (γ = 1/(16·L_max),
+# biased) for 64. A CPU run of the same seed: 8.25-fold and 1.107-fold
+# falls of cost − f*; the bars keep a margin
+FULL_SAGA_STEPS = MAIN_STEPS
+FULL_SAGA_FACADE = dict(batch=4_096, maxit=4_097, drop=4.0, sag_maxit=1_025,
+                        sag_drop=1.05)
+# the sharing deep route of bench.py (bench_sharing_deep, :1098-1130):
+# deep_solve_sharing on make_sharing_planted(65,536, 128, p=16), DiagQuadratic
+# F and NormL1 g, batch 512, sweeping 2, 16-epoch chunks, at most 512
+# epochs, resync chunk 4,096; stepwise by design (no kernel: not rank 1).
+# Its accuracy record on the TPU (BASELINE.md:100) is rel 1.55e-7, an
+# accuracy, which holds on any hardware.
+SHARING_DEEP = dict(N=65_536, n=128, p=16, batch=512, sweeping=2,
+                    chunk_epochs=16, max_epochs=512, resync_chunk=4_096)
+SHARING_REL, SHARING_RECORD = 1e-6, 1.55e-7
 
 # The card's published rates (NVIDIA's data sheet, H100 SXM): device
 # memory, and the peak for the rows' type — f32 outside the tensor cores,
@@ -1672,6 +1726,447 @@ def time_block(gen, dev, storage, card) -> dict:
     return dict(times, call_ms=times["ms"], ms=prof["kernel #2"])
 
 
+# ---------------------------------------------------------------------------
+# the sharing family and SAGA's full table: kernels #18 and #1
+# ---------------------------------------------------------------------------
+
+def coupling(name: str, dev):
+    """The coupling prox of the ProShI checks: IndBox(-inf, PROSHI['hi']),
+    NormL1(LAM) or Zero."""
+    from ciao_tpu_torch.prox import IndBox, NormL1, Zero
+
+    return {"IndBox": lambda: IndBox(-math.inf, PROSHI["hi"]),
+            "NormL1": lambda: NormL1(torch.tensor(LAM, device=dev)),
+            "Zero": Zero}[name]().to(dev)
+
+
+def proshi_inputs(F, g, gen, dev, B_: int, K: int, distinct=False) -> dict:
+    """A ProShI state on the card: γ_i ≈ 0.999/‖a_i‖² of Gaussian rows
+    (α·N/L_i), a small random table s, av = Σ s_i, z its coupling, K
+    block starts (repeats included unless ``distinct``) and the kernel's
+    scalars row, built by ``solvers.proshi._scalars_row``."""
+    from ciao_tpu_torch.sampling import init_sweep
+    from ciao_tpu_torch.solvers.proshi import (
+        ProshiCfg, ProshiState, _coupling, _scalars_row,
+    )
+
+    rows_, cols = F.num_terms, F.dim
+    d = rows_ // B_
+    gamma = 0.999 / (cols * (0.8 + 0.4 * torch.rand(
+        rows_, generator=gen, device=dev)))
+    s = 0.05 * torch.randn(rows_, cols, generator=gen, device=dev)
+    av = s.sum(dim=0)
+    hat = gamma.sum()
+    cfg = ProshiCfg(N=rows_, batch=B_, sweeping=2, alpha=0.999)
+    st = ProshiState(s=s, gamma=gamma, hat_gamma=hat, av=av,
+                     z=_coupling(g, av, hat),
+                     sweep=init_sweep(0, rows_, B_, 2, dev), it=1, status=0)
+    blocks = (torch.randperm(d, generator=gen, device=dev)[:K] if distinct
+              else torch.randint(d, (K,), generator=gen, device=dev))
+    return dict(st=st, starts=(blocks * B_).to(torch.int32),
+                sc=_scalars_row(F, g, st, cfg))
+
+
+def run_proshi_kernel(fn, F, S, B_, precision="highest", f=None, starts=None,
+                      state=None):
+    """Kernel #18 (or its plain version) on ``state`` in place, by default
+    a copy of S's (s, av, z); returns the state."""
+    rows, offs = F.coeff_rows_data()
+    st = S["st"]
+    s, av, z = (state if state is not None
+                else [t.clone() for t in (st.s, st.av, st.z)])
+    fn(rows, offs, st.gamma, s, S["starts"] if starts is None else starts,
+       av, z, S["sc"], B_, precision=precision, rs=F.coeff_rows_scale(), f=f)
+    return [s, av, z]
+
+
+def compare_proshi(F, gname, gen, dev, B_, K, tag, f=None) -> float:
+    """Kernel #18 against its plain version from one state on one
+    schedule (clamp count ``f``): z within Z_TOL of its largest entry, s
+    and av within STATE_TOL (the margins are exact f32 with any rows, so
+    the exact-f32 bounds); "default" precision gives the kernel's
+    "highest" result bit for bit. Returns the largest |ds|."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = proshi_inputs(F, coupling(gname, dev), gen, dev, B_, K)
+    kern = run_proshi_kernel(fb.proshi_multistep, F, S, B_, f=f)
+    low = run_proshi_kernel(fb.proshi_multistep, F, S, B_, "default", f=f)
+    ref = run_proshi_kernel(fb.proshi_multistep_ref, F, S, B_, f=f)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(kern, low)):
+        raise AssertionError(f"{tag}: 'default' precision changed the result")
+    moved = float((ref[0] - S["st"].s).abs().max())
+    if moved == 0.0:
+        raise AssertionError(f"{tag}: the steps did not move s")
+    rel = float((kern[2] - ref[2]).abs().max()) / max(
+        float(ref[2].abs().max()), 1e-30)
+    if rel > Z_TOL[False]:
+        raise AssertionError(f"{tag}: z rel error {rel:.3e} > {Z_TOL[False]}")
+    check_close(tag, list(zip(("s", "av", "z"), kern, ref)), False, moved)
+    return float((kern[0] - ref[0]).abs().max())
+
+
+def proshi_masked_identity(F, gen, dev, B_, K, f, tag) -> None:
+    """Kernel #18 clamped at f leaves s, av and z bit for bit as the first f
+    steps alone leave them; f = 0 leaves the state as it was."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = proshi_inputs(F, coupling("IndBox", dev), gen, dev, B_, K)
+    kern = fb.proshi_multistep
+    i32 = dict(dtype=torch.int32, device=dev)
+    st = S["st"]
+    pairs = ((run_proshi_kernel(kern, F, S, B_, f=torch.tensor([f], **i32)),
+              run_proshi_kernel(kern, F, S, B_, starts=S["starts"][:f])),
+             (run_proshi_kernel(kern, F, S, B_, f=torch.tensor([0], **i32)),
+              [st.s, st.av, st.z]))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for name, a, b in zip(("s", "av", "z"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag}: masked steps changed {name}")
+    log(f"  {tag}: steps k >= {f} masked: s, av, z bit-identical to the "
+        f"state after step {f - 1}; f = 0 leaves the state as it was")
+
+
+def phase_check_proshi(gen, dev) -> float:
+    """3i: kernel #18 at PROSHI_SMALL (f = K and a masked f < K) across
+    storages and couplings, the masked steps bit for bit; the ragged
+    narrow width; K = PROSHI_K at the configuration."""
+    s, worst = PROSHI_SMALL, 0.0
+    for storage in ("f32", "bf16", "int8"):
+        F, _, _ = lasso(gen, dev, s["N"], s["n"], storage)
+        for gname in ("IndBox", "NormL1", "Zero"):
+            for f in (None, s["f"]):
+                fc = None if f is None else torch.tensor(
+                    [f], dtype=torch.int32, device=dev)
+                worst = max(worst, compare_proshi(
+                    F, gname, gen, dev, s["B"], s["K"],
+                    f"#18 N={s['N']} n={s['n']} B={s['B']} K={s['K']} "
+                    f"f={f or s['K']} {storage} {gname}", f=fc))
+        proshi_masked_identity(F, gen, dev, s["B"], s["K"], s["f"],
+                               f"#18 N={s['N']} K={s['K']} {storage}")
+    r = PROSHI_RAGGED
+    for storage in ("f32", "int8"):
+        F, _, _ = lasso(gen, dev, r["N"], r["n"], storage)
+        worst = max(worst, compare_proshi(
+            F, "NormL1", gen, dev, r["B"], r["K"],
+            f"#18 N={r['N']} n={r['n']} (one-value path) B={r['B']} "
+            f"K={r['K']} {storage} NormL1"))
+    for storage in ("f32", "bf16", "int8"):
+        F, _, _ = lasso(gen, dev, PROSHI["N"], n, storage)
+        worst = max(worst, compare_proshi(
+            F, "IndBox", gen, dev, PROSHI["B"], PROSHI_K,
+            f"#18 N={PROSHI['N']} n={n} B={PROSHI['B']} K={PROSHI_K} "
+            f"{storage} IndBox"))
+        del F
+    return worst
+
+
+def compare_saga_block(F, gen, dev, B_, precision, tag) -> float:
+    """Kernel #1 against its plain version on one block (its start a
+    device tensor): the block's rows within Z_TOL of their largest entry,
+    the innovation within STATE_TOL, every other row bit for bit as it
+    was; returns the largest error of the block's rows."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    rows, offs = F.coeff_rows_data()
+    rows_, cols = rows.shape
+    s = torch.randn(rows_, cols, generator=gen, device=dev)
+    z = 0.05 * torch.randn(cols, generator=gen, device=dev)
+    start = torch.randint(rows_ // B_, (), generator=gen, device=dev) * B_
+    sc = torch.tensor([float(rows_)], device=dev)
+    ks, kin = fb.saga_block_update(rows, offs, s.clone(), z, start, sc, B_,
+                                   precision=precision)
+    rs_, rin = fb.saga_block_update_ref(rows, offs, s.clone(), z, start, sc,
+                                        B_, precision=precision)
+    torch.cuda.synchronize()
+    lo = int(start)
+    blk = slice(lo, lo + B_)
+    if not (torch.equal(ks[:lo], s[:lo])
+            and torch.equal(ks[lo + B_:], s[lo + B_:])):
+        raise AssertionError(f"{tag}: rows outside the block changed")
+    lowp = precision == "default"
+    rel = float((ks[blk] - rs_[blk]).abs().max()) / float(
+        rs_[blk].abs().max())
+    if rel > Z_TOL[lowp]:
+        raise AssertionError(f"{tag}: s rel error {rel:.3e} > {Z_TOL[lowp]}")
+    check_close(tag + ", rows outside the block bit for bit",
+                (("s", ks[blk], rs_[blk]), ("innov", kin, rin)), lowp)
+    return float((ks[blk] - rs_[blk]).abs().max())
+
+
+def phase_check_saga_block(gen, dev) -> float:
+    """3j: kernel #1, f32 and bf16 rows, both precisions, at SMALL and at
+    the headline."""
+    worst = 0.0
+    for rows_, cols, B_ in ((SMALL["N"], SMALL["n"], SMALL["B"]), (N, n, B)):
+        for storage in ("f32", "bf16"):
+            F, _, _ = lasso(gen, dev, rows_, cols, storage)
+            for precision in ("highest", "default"):
+                worst = max(worst, compare_saga_block(
+                    F, gen, dev, B_, precision,
+                    f"#1 N={rows_} n={cols} B={B_} {storage}/{precision}"))
+            del F
+            torch.cuda.empty_cache()
+    return worst
+
+
+def sharing_obj(F, g, st) -> float:
+    from ciao_tpu_torch.solvers.proshi import sharing_objective
+
+    return float(sharing_objective(F, g, st))
+
+
+def run_proshi(gen, dev, card: str) -> dict:
+    """4h: ProShI through proshi_init and proshi_run on kernel #18 alone:
+    bench.py's cyclic configuration at f32 and int8 rows, shuffled at the
+    same rows, random with block_sampling at 262,144 rows (d = 64), and
+    the Proshi facade. Every sharing objective falls; returns what phase
+    8 times and profiles."""
+    from ciao_tpu_torch import Proshi
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.solvers.proshi import ProshiCfg, proshi_init, proshi_run
+    from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
+
+    g = coupling("IndBox", dev)
+    x0 = torch.zeros(n, device=dev)
+    out = {}
+    cases = (("cyclic", PROSHI["N"], 2, False, PROSHI["steps"], "f32"),
+             ("cyclic", PROSHI["N"], 2, False, PROSHI["steps"], "int8"),
+             ("shuffled", PROSHI["N"], 3, False, PROSHI["shuffled"], "f32"),
+             ("random block_sampling", N, 1, True, PROSHI["random"], "f32"))
+    for label, rows_, sweeping, blk, steps, storage in cases:
+        F, _, L = lasso(gen, dev, rows_, n, storage)
+        if not fb.proshi_multistep_available(F, g, x0, PROSHI["B"]):
+            raise AssertionError(f"proshi {label} {storage}: the gate is "
+                                 "closed")
+        cfg = ProshiCfg(N=rows_, batch=PROSHI["B"], sweeping=sweeping,
+                        alpha=0.999, fused=True, block_sampling=blk)
+        st0 = proshi_init(F, g, x0, 0.999 * rows_ / L, 0, cfg)
+        obj0 = sharing_obj(F, g, st0)
+        k18 = fb.proshi_multistep.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = proshi_run(F, g, st0, cfg, steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d18 = fb.proshi_multistep.launches - k18
+        obj1 = sharing_obj(F, g, st)
+        ms = dt * 1e3 / steps
+        log(f"  proshi {label} {storage}: N={rows_} n={n} B={PROSHI['B']} "
+            f"IndBox(-inf, {PROSHI['hi']}), {steps} steps in {d18} kernel "
+            f"#18 launches, sharing objective {obj0:.6e} -> {obj1:.6e}, "
+            f"{ms:.4f} ms/step end to end [{card}]")
+        for name in ("s", "av", "z"):
+            if not bool(torch.isfinite(getattr(st, name)).all()):
+                raise AssertionError(f"proshi {label}: {name} not finite")
+        if d18 != -(-steps // LAUNCH_STEPS) or st.it != steps + 1:
+            raise AssertionError(f"proshi {label}: {d18} launches, it {st.it}")
+        if not (math.isfinite(obj1) and obj1 < obj0):
+            raise AssertionError(f"proshi {label}: objective {obj0} -> {obj1}")
+        if label == "cyclic":
+            out[storage] = dict(ms=ms, F=F, g=g, L=L, st=st0, cfg=cfg)
+        del F, st, st0
+    r = out["f32"]
+    k18 = fb.proshi_multistep.launches
+    maxit = PROSHI["facade"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, it = Proshi(maxit=maxit, sweeping=2, minibatch=(True, PROSHI["B"]))(
+        x0, F=r["F"], g=g, L=r["L"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    d18 = fb.proshi_multistep.launches - k18
+    from ciao_tpu_torch.monitor import sharing_objective as blocks_objective
+
+    obj0, obj1 = sharing_obj(r["F"], g, r["st"]), float(
+        blocks_objective(r["F"], g, x))
+    log(f"  facade Proshi(sweeping=2, batch={PROSHI['B']}, maxit={maxit}): "
+        f"sharing objective {obj0:.6e} -> {obj1:.6e} after {it - 1} steps "
+        f"in {d18} kernel #18 launches, {dt:.3f} s [{card}]")
+    if d18 != -(-(it - 1) // LAUNCH_STEPS) or not (
+            math.isfinite(obj1) and obj1 < obj0):
+        raise AssertionError(f"facade Proshi: {d18} launches, objective "
+                             f"{obj0} -> {obj1}")
+    return out
+
+
+def run_saga_full(gen, dev, prob, F_facade, card: str) -> dict:
+    """4i: SAGA's full table on kernel #1 alone: FULL_SAGA_STEPS block
+    steps at the headline (f32 and bf16 rows, saga_init and saga_run),
+    then the SAGA(table="full") and SAG facades on the facades' planted
+    Lasso, each bringing cost − f* down by its bar in FULL_SAGA_FACADE."""
+    import numpy as np
+
+    from ciao_tpu_torch import SAG, SAGA, NormL1
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.solvers.saga import SAGACfg, saga_init, saga_run
+
+    g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    out = {}
+    for storage in ("f32", "bf16"):
+        F, gamma, _ = lasso(gen, dev, N, n, storage)
+        if not fb.saga_block_available(F, x0, B):
+            raise AssertionError(f"saga full {storage}: the gate is closed")
+        cfg = SAGACfg(N=N, sag=False, batch=B, block=True, fused=True)
+        st0 = saga_init(F, g, x0, gamma, 0, cfg)
+        obj0 = cost(F, g, st0.z)
+        k1 = fb.saga_block_update.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = saga_run(F, g, st0, cfg, FULL_SAGA_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d1 = fb.saga_block_update.launches - k1
+        obj1 = cost(F, g, st.z)
+        ms = dt * 1e3 / FULL_SAGA_STEPS
+        log(f"  saga full table {storage}: N={N} n={n} B={B}, "
+            f"{FULL_SAGA_STEPS} steps in {d1} kernel #1 launches, objective "
+            f"{obj0:.6e} -> {obj1:.6e}, {ms:.4f} ms/step end to end [{card}]")
+        if d1 != FULL_SAGA_STEPS or not bool(torch.isfinite(st.s).all()):
+            raise AssertionError(f"saga full {storage}: {d1} launches")
+        if not (math.isfinite(obj1) and obj1 < obj0):
+            raise AssertionError(f"saga full {storage}: objective {obj0} -> "
+                                 f"{obj1}")
+        out[storage] = dict(ms=ms, F=F, g=g, st=st0, cfg=cfg)
+        del st
+    kw = FULL_SAGA_FACADE
+    gap0 = prob.cost(np.zeros(n)) - prob.f_star
+    for tag, solver, drop in (
+            (f"SAGA(table='full', block_sampling=True, batch={kw['batch']})",
+             SAGA(maxit=kw["maxit"], table="full", block_sampling=True,
+                  batch=kw["batch"]), kw["drop"]),
+            (f"SAG(table='full', block_sampling=True, batch={kw['batch']})",
+             SAG(maxit=kw["sag_maxit"], table="full", block_sampling=True,
+                 batch=kw["batch"]), kw["sag_drop"])):
+        k1 = fb.saga_block_update.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, it = solver(x0, F=F_facade, g=NormL1(prob.lam), L=prob.L)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d1 = fb.saga_block_update.launches - k1
+        gap1 = prob.cost(x.double().cpu().numpy()) - prob.f_star
+        log(f"  facade {tag} on planted make_lasso(N={FACADE['N']}, n={n}): "
+            f"cost - f* {gap0:.6e} -> {gap1:.6e} ({gap0 / gap1:.2f}-fold) "
+            f"after {it - 1} steps in {d1} kernel #1 launches, {dt:.3f} s "
+            f"[{card}]")
+        if d1 != it - 1 or not (math.isfinite(gap1) and gap0 / gap1 >= drop):
+            raise AssertionError(f"facade {tag}: {d1} launches, cost - f* "
+                                 f"{gap0} -> {gap1}")
+    return out
+
+
+def run_sharing_deep(dev, card: str) -> float:
+    """4j: deep_solve_sharing on the planted sharing problem, stepwise by
+    design (no kernel launches); returns the rel gap against the f64
+    closed-form optimum, which must be <= SHARING_REL."""
+    from ciao_tpu_torch import DiagQuadratic, NormL1, deep_solve_sharing
+    from ciao_tpu_torch.utils.problems import make_sharing_planted
+
+    c = SHARING_DEEP
+    t0 = time.perf_counter()
+    prob = make_sharing_planted(N=c["N"], n=c["n"], p=c["p"], seed=0)
+    F = DiagQuadratic(torch.tensor(prob.d, dtype=torch.float32, device=dev),
+                      torch.tensor(prob.q, dtype=torch.float32, device=dev))
+    g = NormL1(torch.tensor(prob.lam, dtype=torch.float32, device=dev))
+    t1 = time.perf_counter()
+    blocks, info = deep_solve_sharing(
+        torch.zeros(c["n"], device=dev), F, g=g, L=prob.L, N=c["N"],
+        batch=c["batch"], sweeping=c["sweeping"],
+        chunk_epochs=c["chunk_epochs"], max_epochs=c["max_epochs"],
+        resync_chunk=c["resync_chunk"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    rel = (prob.cost(blocks.double().cpu().numpy()) - prob.f_star) / abs(
+        prob.f_star)
+    steps = info.epochs * (c["N"] // c["batch"])
+    log(f"  sharing deep route: deep_solve_sharing on make_sharing_planted("
+        f"N={c['N']}, n={c['n']}, p={c['p']}) (built in {t1 - t0:.2f} s), "
+        f"batch {c['batch']}, sweeping {c['sweeping']}: rel {rel:.3e} "
+        f"(bar {SHARING_REL:g}; accuracy record rel {SHARING_RECORD:g}) in "
+        f"{dt:.3f} s, {info.epochs} epochs, {info.resyncs} resyncs, "
+        f"{dt * 1e3 / max(steps, 1):.4f} ms per stepwise step [{card}]")
+    if tuple(blocks.shape) != (c["N"], c["n"]) or not (
+            math.isfinite(rel) and rel <= SHARING_REL):
+        raise AssertionError(f"sharing deep: rel {rel:.3e}, shape "
+                             f"{tuple(blocks.shape)}")
+    return rel
+
+
+def time_proshi(r: dict, gen, dev, storage: str, card: str) -> dict:
+    """Kernel #18 per step on calls of one epoch (the d = 16 blocks, each
+    once) from one state at the ProShI configuration, in turns with its
+    plain version; the bound counts the blocks' rows, b, γ (and rs) and
+    their table rows read and written, av and z in and out, and 7·B·n
+    operations a step."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    F = r["F"]
+    K = F.num_terms // PROSHI["B"]
+    S = proshi_inputs(F, r["g"], gen, dev, PROSHI["B"], K, distinct=True)
+    rows = F.coeff_rows_data()[0]
+    isz = rows.element_size()
+    blocks = int(torch.unique(S["starts"]).numel())
+    per_row = n * isz + 8 * n + 8 + 4 * (rows.dtype == torch.int8)
+    bnd = bound((blocks * PROSHI["B"] * per_row + 16 * n) / K,
+                7.0 * PROSHI["B"] * n, isz)
+    state = [t.clone() for t in (S["st"].s, S["st"].av, S["st"].z)]
+
+    def run(fn):
+        def call():
+            run_proshi_kernel(fn, F, S, PROSHI["B"], state=state)
+            return K
+        return call
+    times = time_turns(run(fb.proshi_multistep), run(fb.proshi_multistep_ref),
+                       f"kernel #18, {storage} rows, N={PROSHI['N']} n={n} "
+                       f"B={PROSHI['B']}", card, bnd)
+    if not bool(torch.isfinite(state[2]).all()):
+        raise AssertionError("the timed kernel #18 steps gave non-finite z")
+    return times
+
+
+def time_saga_block(r: dict, gen, dev, storage, card) -> dict:
+    """Kernel #1 per block at the headline (16 calls in turns) against its
+    plain version; the bound counts the block's rows, its table rows read
+    and written, b, z in and the innovation out, and 5·B·n operations.
+    Then an epoch of full-table SAGA steps profiled: a call of the
+    wrapper is one step and its host work outlasts the kernel, so the
+    event time is that of a call (``call_ms``) and the kernel's time
+    (``ms``) its device time in the profiled epoch."""
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.solvers.saga import saga_run
+
+    F = r["F"]
+    rows, offs = F.coeff_rows_data()
+    s = torch.randn(N, n, generator=gen, device=dev)
+    z = 0.05 * torch.randn(n, generator=gen, device=dev)
+    starts = torch.randint(N // B, (16,), generator=gen, device=dev) * B
+    sc = torch.tensor([float(N)], device=dev)
+    isz = rows.element_size()
+    bnd = bound(B * (n * isz + 8 * n + 4) + 8 * n, 5.0 * B * n, isz)
+
+    def run(fn):
+        def call():
+            for k in range(16):
+                fn(rows, offs, s, z, starts[k], sc, B)
+            return 16
+        return call
+    times = time_turns(run(fb.saga_block_update),
+                       run(fb.saga_block_update_ref),
+                       f"kernel #1, {storage} rows, N={N} n={n} B={B}", card,
+                       bnd)
+    del s
+    prof = profile_steps(
+        f"SAGA full-table steps at the headline, {storage} rows",
+        lambda: saga_run(F, r["g"], r["st"], r["cfg"], EPOCH_STEPS),
+        EPOCH_STEPS, card, SAGA_BLOCK_GROUPS)
+    return dict(times, call_ms=times["ms"], ms=prof["kernel #1"])
+
+
+PROSHI_GROUPS = {"kernel #18": ("rows_kernel", "proshi_finish")}
+SAGA_BLOCK_GROUPS = {"kernel #1": ("rows_kernel", "finish_kernel")}
 FINITO_GROUPS = {"kernel #9": ("rows_kernel", "finito_finish")}
 BLOCK_GROUPS = {"kernel #2": ("rows_kernel", "finish_kernel")}
 LFINITO_GROUPS = {"kernel #6": ("apply_",),
@@ -1682,13 +2177,15 @@ LFINITO_GROUPS = {"kernel #6": ("apply_",),
 KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
            "svrg_coeff_multistep", "coeff_apply_all",
            "finito_coeff_multistep", "finito_coeff_multistep_streamed",
-           "lfinito_sweep_multistep", "finito_block_update")
+           "lfinito_sweep_multistep", "finito_block_update",
+           "saga_block_update", "proshi_multistep")
 # the def line of the TPU kernel each replaces, in ciao_tpu/ops/fused_block.py
 REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
             "svrg_coeff_multistep": 966, "coeff_apply_all": 798,
             "finito_coeff_multistep": 1343,
             "finito_coeff_multistep_streamed": 2324,
-            "lfinito_sweep_multistep": 1170, "finito_block_update": 1032}
+            "lfinito_sweep_multistep": 1170, "finito_block_update": 1032,
+            "saga_block_update": 164, "proshi_multistep": 2964}
 
 
 def build_all() -> None:
@@ -1810,6 +2307,12 @@ def main() -> int:
     errs["finito_block_update"] = phase_check_block(gen, dev)
     log(f"phase 3h kernel #2 == plain version: ok, max |ds| "
         f"{errs['finito_block_update']:.3e}")
+    errs["proshi_multistep"] = phase_check_proshi(gen, dev)
+    log(f"phase 3i kernel #18 == plain version: ok, max |ds| "
+        f"{errs['proshi_multistep']:.3e}")
+    errs["saga_block_update"] = phase_check_saga_block(gen, dev)
+    log(f"phase 3j kernel #1 == plain version: ok, max |ds| "
+        f"{errs['saga_block_update']:.3e}")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1960,6 +2463,38 @@ def main() -> int:
         "finito_coeff_multistep_streamed"]
     launches["lfinito_sweep_multistep"] = c4g["lfinito_sweep_multistep"]
 
+    # 4h. the ProShI path, counts from 0
+    reset_counts()
+    prosh = run_proshi(gen, dev, card)
+    c4h = counts()
+    if c4h["proshi_multistep"] == 0 or sum(c4h.values()) != c4h[
+            "proshi_multistep"]:
+        raise AssertionError(f"the ProShI path did not run on kernel #18 "
+                             f"alone: {c4h}")
+    log(f"phase 4h ProShI path: ok, launches {c4h}")
+    launches["proshi_multistep"] = c4h["proshi_multistep"]
+
+    # 4i. SAGA's full table, counts from 0
+    reset_counts()
+    full = run_saga_full(gen, dev, fprob, fF, card)
+    c4i = counts()
+    if c4i["saga_block_update"] == 0 or sum(c4i.values()) != c4i[
+            "saga_block_update"]:
+        raise AssertionError(f"the full-table SAGA path did not run on "
+                             f"kernel #1 alone: {c4i}")
+    log(f"phase 4i SAGA full-table path: ok, launches {c4i}")
+    launches["saga_block_update"] = c4i["saga_block_update"]
+
+    # 4j. the sharing deep route, stepwise by design, counts from 0
+    reset_counts()
+    sharing_rel = run_sharing_deep(dev, card)
+    c4j = counts()
+    if sum(c4j.values()):
+        raise AssertionError(f"the sharing deep route launched kernels: "
+                             f"{c4j}")
+    log(f"phase 4j sharing deep route: ok, rel {sharing_rel:.3e} (accuracy "
+        f"record rel {SHARING_RECORD:g}), no kernel launches")
+
     # 5, 5b, 6. times, in turns
     times = {}
     for storage, run in (("int8", int8), ("f32", f32)):
@@ -2026,6 +2561,32 @@ def main() -> int:
         f"{times7['#2', 'bf16']['ms']:.4f}, "
         f"{times7['#2', 'bf16']['call_ms']:.4f} [{card}]")
 
+    # 8. kernels #18 and #1 in turns with their plain versions; a ProShI
+    # window and a full-table SAGA epoch profiled
+    from ciao_tpu_torch.solvers.proshi import proshi_run
+
+    times8 = {}
+    for storage in ("f32", "int8"):
+        r = prosh[storage]
+        times8["#18", storage] = time_proshi(r, gen, dev, storage, card)
+        profile_steps(f"ProShI steps at the configuration, {storage} rows",
+                      lambda: proshi_run(r["F"], r["g"], r["st"], r["cfg"],
+                                         256), 256, card, PROSHI_GROUPS)
+    for storage in ("f32", "bf16"):
+        times8["#1", storage] = time_saga_block(full[storage], gen, dev,
+                                                storage, card)
+    del prosh, full
+    log(f"phase 8 times: kernel #18 f32 {times8['#18', 'f32']['ms']:.4f} "
+        f"ms/step (plain {times8['#18', 'f32']['plain_ms']:.4f}, bound "
+        f"{times8['#18', 'f32']['bound_ms']:.4f}), int8 "
+        f"{times8['#18', 'int8']['ms']:.4f} (bound "
+        f"{times8['#18', 'int8']['bound_ms']:.4f}); kernel #1 f32 "
+        f"{times8['#1', 'f32']['ms']:.4f} on the device, "
+        f"{times8['#1', 'f32']['call_ms']:.4f} a call (bound "
+        f"{times8['#1', 'f32']['bound_ms']:.4f}), bf16 "
+        f"{times8['#1', 'bf16']['ms']:.4f}, "
+        f"{times8['#1', 'bf16']['call_ms']:.4f} [{card}]")
+
     log(json.dumps({"kernels": [
         kernel_line("saga_coeff_multistep", launches["saga_coeff_multistep"],
                     errs["saga_coeff_multistep"], times["int8"]),
@@ -2048,6 +2609,10 @@ def main() -> int:
                     errs["lfinito_sweep_multistep"], times7["#8", "f32"]),
         kernel_line("finito_block_update", launches["finito_block_update"],
                     errs["finito_block_update"], times7["#2", "f32"]),
+        kernel_line("saga_block_update", launches["saga_block_update"],
+                    errs["saga_block_update"], times8["#1", "f32"]),
+        kernel_line("proshi_multistep", launches["proshi_multistep"],
+                    errs["proshi_multistep"], times8["#18", "f32"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

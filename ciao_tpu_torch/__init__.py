@@ -20,19 +20,27 @@ forward-backward/FISTA, whose full-gradient reads run on the one-pass
 ``finito_block_update``, the coefficient table on
 ``finito_coeff_multistep`` and ``finito_coeff_multistep_streamed``,
 LFinito on ``coeff_apply_all`` and ``lfinito_sweep_multistep``, and
-adaptive Finito. The rest is queued in ROADMAP.md. Imports
+adaptive Finito; SAGA's full (N, n) table on ``saga_block_update``; the
+sharing family: ``Proshi`` on ``proshi_multistep`` (dense row oracles;
+the sharing terms ``DiagQuadratic``, ``SqrDistBox``, ``SumOracle`` run
+stepwise) with the coupling proxes ``IndBox``/``NormL1``/``Zero``, and
+``deep_solve_sharing``. The rest is queued in ROADMAP.md. Imports
 torch and numpy, never jax. Entry points run on the card unless the
 caller names the CPU (a CPU tensor or ``device="cpu"``).
 """
 
 from ciao_tpu_torch import oracles, prox
-from ciao_tpu_torch.oracles import LeastSquaresRows
-from ciao_tpu_torch.prox import NormL1, Zero
+from ciao_tpu_torch.oracles import (
+    DenseQuadratic, DiagQuadratic, LeastSquaresRows, SqrDistBox, SumOracle,
+    ZeroOracle,
+)
+from ciao_tpu_torch.prox import IndBox, NormL1, Zero
 from ciao_tpu_torch.solvers import (
-    FISTA, SAG, SAGA, SVRG, DeepSolveInfo, Finito, ForwardBackward,
-    StagedInfo,
-    deep_solve, fista_polish, grad_mean_chunked, halt, loop, lsq_power_lmax,
-    power_lmax, solution, staged_saga, take,
+    FISTA, SAG, SAGA, SVRG, DeepSharingInfo, DeepSolveInfo, Finito,
+    ForwardBackward, Proshi, StagedInfo, deep_solve, deep_solve_sharing,
+    fista_polish, grad_mean_chunked, halt, iterator, loop, lsq_power_lmax,
+    power_lmax, proshi_resync, sharing_objective, solution, staged_saga,
+    take,
 )
 from ciao_tpu_torch.solvers.base import Status
 
@@ -42,16 +50,27 @@ __all__ = [
     "oracles",
     "prox",
     "LeastSquaresRows",
+    "DiagQuadratic",
+    "DenseQuadratic",
+    "SqrDistBox",
+    "SumOracle",
+    "ZeroOracle",
     "NormL1",
     "Zero",
+    "IndBox",
     "SAGA",
     "SAG",
     "SVRG",
     "Finito",
+    "Proshi",
     "ForwardBackward",
     "FISTA",
     "deep_solve",
     "DeepSolveInfo",
+    "deep_solve_sharing",
+    "DeepSharingInfo",
+    "proshi_resync",
+    "sharing_objective",
     "staged_saga",
     "StagedInfo",
     "fista_polish",
@@ -63,4 +82,5 @@ __all__ = [
     "take",
     "loop",
     "halt",
+    "iterator",
 ]

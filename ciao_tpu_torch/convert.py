@@ -29,6 +29,7 @@ from ciao_tpu_torch.solvers.fb import FBState
 from ciao_tpu_torch.solvers.finito import (
     FinitoAdaptiveState, FinitoBasicState, FinitoCoeffState, LFinitoState,
 )
+from ciao_tpu_torch.solvers.proshi import ProshiState
 from ciao_tpu_torch.solvers.saga import SAGAState
 from ciao_tpu_torch.solvers.svrg import SVRGState
 
@@ -59,13 +60,19 @@ def least_squares_from_numpy(A, b, scale, row_scale=None,
 
 
 def saga_state_from_numpy(s, z, av, gamma, it, seed: int = 0,
-                          device=None, qcum=None, qinv=None) -> SAGAState:
+                          device=None, qcum=None, qinv=None,
+                          table: str = "coeff") -> SAGAState:
     """``SAGAState`` from the JAX state's ``s``, ``z``, ``av``, ``gamma``
     and ``it`` (and, under importance sampling, ``qcum`` and ``qinv``).
     A coefficient table in the slab layout is flattened; the streamed
-    route's table is (N,) already."""
+    route's table is (N,) already; ``table="full"`` keeps the (N, n)
+    gradient table as it is."""
+    if table not in ("coeff", "full"):
+        raise ValueError(f"table must be 'coeff' or 'full', not {table!r}")
     return SAGAState(
-        s=_flat(s, device), gamma=tensor_from_numpy(gamma, device),
+        s=(tensor_from_numpy(s, device) if table == "full"
+           else _flat(s, device)),
+        gamma=tensor_from_numpy(gamma, device),
         av=_flat(av, device), z=_flat(z, device),
         seed=int(seed), it=int(it), status=int(Status.RUNNING),
         qcum=None if qcum is None else tensor_from_numpy(qcum, device),
@@ -154,3 +161,13 @@ def finito_adaptive_state_from_numpy(s, gradf, fi_x, gamma, hat_gamma, av, z,
         s=tensor_from_numpy(s, device), gradf=tensor_from_numpy(gradf, device),
         fi_x=_flat(fi_x, device),
         **_common(gamma, hat_gamma, av, z, pos, order, it, seed, device))
+
+
+def proshi_state_from_numpy(s, gamma, hat_gamma, av, z, pos, order, it,
+                            seed: int = 0, device=None) -> ProshiState:
+    """``ProshiState`` from the JAX state's block table ``s`` (N, n),
+    ``gamma``, ``hat_gamma``, ``av``, ``z``, ``sweep.pos``,
+    ``sweep.order`` and ``it``."""
+    return ProshiState(s=tensor_from_numpy(s, device),
+                       **_common(gamma, hat_gamma, av, z, pos, order, it,
+                                 seed, device))

@@ -1,5 +1,6 @@
 // Row primitives shared by the port's kernels on an NVIDIA Hopper card
-// (sm_90a): the storage codes, the bf16 rounding of the dot operands, reads of
+// (sm_90a): the storage codes, the clamp-count mask of a step, the bf16
+// rounding of the dot operands, reads of
 // one or four row values from shared memory, a row's margin by one warp, the
 // transposed product over a tile, the oracle's coefficient formula, the L1
 // soft-threshold, the fixed-order sum of per-CTA partials and the size of a
@@ -26,6 +27,12 @@ constexpr float kPoissonClamp = 30.0f;  // ops/fused_block.py POISSON_CLAMP
 // the partials of a column.
 constexpr int kFinishCols = 32;
 constexpr int kFinishWarps = 8;
+
+// Whether step k is masked by the clamp count (a uniform branch: every thread
+// of the launch reads the same value).
+__device__ __forceinline__ bool masked(const int* fclamp, int k) {
+  return fclamp != nullptr && k >= *fclamp;
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));

@@ -1,0 +1,36 @@
+// The full-table SAGA refresh of one block on an NVIDIA Hopper card (sm_90a).
+//
+// Replaces the Pallas TPU kernel ciao_tpu/ops/fused_block.py:saga_block_update
+// (body _saga_kernel). The Python wrapper and the design note are
+// ciao_tpu_torch/ops/fused_block.py saga_block_update, its plain PyTorch
+// version saga_block_update_ref.
+//
+// On the rows [s0, s0 + B) of the (N, n) table s, with s0 = *start read on the
+// device: s_i <- G_i = grad f_i(z) = c_i a_i with c_i = scale (a_i . z - b_i),
+// and innov = sum_i (G_i - s_old_i). Rows outside the block are not touched.
+// The device code is the table walk of table_rows.cuh (rule SagaRule), which
+// kernel #2 (finito_block_update.cu) shares: only the new row and the
+// innovation's weight differ.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+
+#include "table_rows.cuh"
+
+// Returns cudaGetLastError() after queueing the two launches (0 on success).
+// A: (N, n) rows of `storage` (0 f32, 1 bf16; int8 rows are refused); b: (N,)
+// f32; s: (N, n) f32 table, its rows [*start, *start + B) rewritten in place;
+// z: (n,) f32; start: one int32 on the device, a multiple of rows; sc: (1,)
+// f32 [scale]; part: (B / rows, n) f32 scratch, 16-byte aligned; innov: (n,)
+// f32 output. lowp rounds the margins' dot operands to bf16 ("default").
+// rows divides B and is at most 32.
+extern "C" int saga_block_update_launch(const void* A, int storage, int lowp,
+                                        const float* b, float* s,
+                                        const float* z, const int* start,
+                                        const float* sc, float* part,
+                                        float* innov, int n, int B, int rows,
+                                        void* stream) {
+  const BlockArgs a{A,    b,     s, nullptr, z,    start,
+                    sc,   part,  innov, n,   B,    rows,
+                    static_cast<cudaStream_t>(stream)};
+  return launch_block<SagaRule>(storage, lowp, a);
+}

@@ -84,12 +84,6 @@ struct ScalarIndex {
   static constexpr int kAux = M == kSaga ? 7 : 5;
 };
 
-// Whether step k is masked by the clamp count (a uniform branch: every thread
-// of the launch reads the same value).
-__device__ __forceinline__ bool masked(const int* fclamp, int k) {
-  return fclamp != nullptr && k >= *fclamp;
-}
-
 // Shared memory: the tile (rows x n of T), then z (n floats), then per row
 // dc, b, c and rs (rows floats each); the per-row values are fetched while
 // the tile is in flight. c is the table (SAGA, Finito: written back) or the

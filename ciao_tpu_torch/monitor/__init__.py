@@ -1,7 +1,19 @@
-"""Convergence metrics (counterpart of ``ciao_tpu/monitor``, cut to the
-objective and the fixed-point residual)."""
+"""Convergence monitoring.
+
+Counterpart of ``ciao_tpu/monitor``: the objective, the sharing
+objective, the fixed-point residual, the structured ``Trace`` and the
+``observer`` callback of the facades' ``observe=`` hook. The reference
+computes no convergence metric in its main path (stop ≡ false,
+``Finito.jl:74``); these are what a run on the card reads instead.
+``profiler_trace`` is not ported yet (``torch.profiler`` serves).
+"""
 
 from __future__ import annotations
+
+import json
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List
 
 import torch
 
@@ -16,3 +28,70 @@ def objective(F, g, x):
     """(1/N) Σ f_i(x) + g(x), computed with the full-pass oracle."""
     vals, _ = F.value_and_grad_all(x)
     return torch.sum(vals) / F.num_terms + g.value(x)
+
+
+def sharing_objective(F, g, xs):
+    """(1/N) Σ f_i(x_i) + g(Σ x_i) — the sharing formulation's objective
+    (``test_sharing.jl:1``) at the (N, n) block solution, each f_i at its
+    own block point (``value_and_grad_pointwise``), g at the block sum."""
+    N = F.num_terms
+    vals, _ = F.value_and_grad_pointwise(xs, torch.arange(N,
+                                                          device=xs.device))
+    return torch.sum(vals) / N + g.value(torch.sum(xs, dim=0))
+
+
+@dataclass
+class Trace:
+    """Structured per-checkpoint metric log (JSONL-dumpable)."""
+
+    records: List[Dict[str, Any]] = field(default_factory=list)
+    t0: float = field(default_factory=time.perf_counter)
+
+    def log(self, it: int, **metrics):
+        rec = {"it": int(it), "t": time.perf_counter() - self.t0}
+        for k, v in metrics.items():
+            rec[k] = float(v)
+        self.records.append(rec)
+
+    def dump(self, path):
+        with open(path, "w") as f:
+            for rec in self.records:
+                f.write(json.dumps(rec) + "\n")
+
+    def last(self, key, default=None):
+        for rec in reversed(self.records):
+            if key in rec:
+                return rec[key]
+        return default
+
+
+def observer(F, g, trace: Trace, objective_every: bool = True):
+    """An ``observe(it, state)`` callback for the facades' ``observe=``
+    hook: logs the objective and the stepsize-scaled fixed-point
+    residual ||z_k − z_{k-1}||/γ̂ into ``trace`` every ``freq``
+    iterations. A state whose solution is (N, n) (ProShI's blocks) logs
+    the sharing objective at the blocks, not the finite-sum objective at
+    its coupling variable ``z``. The residual follows ``state.z`` where
+    the family carries one, else the solution. (JAX's ``h``/``K`` terms
+    of the three-term families come with those families.)"""
+    prev = {}
+
+    def observe(it, state):
+        z = state.solution
+        rec = {}
+        if objective_every:
+            rec["obj"] = float(sharing_objective(F, g, z) if z.ndim == 2
+                               else objective(F, g, z))
+        zres = getattr(state, "z", None)
+        if zres is None:
+            zres = z
+        if "z" in prev:
+            gam = getattr(state, "hat_gamma", None)
+            if gam is None:
+                gam = getattr(state, "gamma", None)
+            gam = torch.max(torch.as_tensor(1.0 if gam is None else gam))
+            rec["residual"] = float(fixed_point_residual(prev["z"], zres, gam))
+        prev["z"] = zres
+        trace.log(it, **rec)
+
+    return observe

@@ -1,9 +1,10 @@
 """The coefficient kernels of the port, with their plain versions.
 
 Counterpart of ``ciao_tpu/ops/fused_block.py``, cut to what the SAGA,
-deep, SVRG, forward-backward and Finito paths run: the oracle formula
-modes, the scalar constants, the kernels' gates, and eight hand-written
-CUDA kernels for Hopper beside their plain PyTorch versions:
+deep, SVRG, forward-backward, Finito and ProShI paths run: the oracle
+formula modes, the coupling prox modes, the scalar constants, the
+kernels' gates, and ten hand-written CUDA kernels for Hopper beside their
+plain PyTorch versions:
 
 - ``saga_coeff_multistep`` (``csrc/saga_coeff_multistep.cu``),
   ``saga_coeff_multistep_streamed`` (``csrc/saga_coeff_multistep_streamed.cu``),
@@ -15,17 +16,21 @@ CUDA kernels for Hopper beside their plain PyTorch versions:
   block steps each, sharing their device code (``csrc/saga_steps.cuh``);
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
   over all rows, the SVRG and LFinito anchors and the FB full gradient;
-- ``finito_block_update`` (``csrc/finito_block_update.cu``): the
-  full-table Finito refresh of one block.
+- ``saga_block_update`` (``csrc/saga_block_update.cu``) and
+  ``finito_block_update`` (``csrc/finito_block_update.cu``): the
+  full-table SAGA and Finito refresh of one block, and
+  ``proshi_multistep`` (``csrc/proshi_multistep.cu``): K ProShI steps on
+  the block table; all three walk a block of an (N, n) table with the
+  device code of ``csrc/table_rows.cuh``.
 
-The row primitives they share are in ``csrc/row_ops.cuh``. The other 11
+The row primitives they share are in ``csrc/row_ops.cuh``. The other 9
 TPU kernels of the JAX module are not ported yet (ROADMAP.md, queue 2).
 
 Layouts are flat: coefficient tables ``c``/``canch``, the offsets ``b``,
 the stepsizes ``gamma`` and the int8 dequant scales ``rs`` are ``(N,)``,
 iterates and averages are ``(n,)``, Finito's per-block anchors ``zb``
-``(d, n)`` and the full table ``s`` ``(N, n)``. The TPU's ``(8, N/8)`` slab exists only for its VMEM tiling
-and has no meaning here.
+``(d, n)`` and the full tables ``s`` ``(N, n)``. The TPU's ``(8, N/8)``
+slab exists only for its VMEM tiling and has no meaning here.
 """
 
 from __future__ import annotations
@@ -172,7 +177,36 @@ def finito_block_available(F, x0, B: int) -> bool:
     take the coefficient table: the f32 table traffic dominates) with
     f32 offsets, ``n <= MAX_COLS`` and whole blocks. The prox runs
     outside the kernel, so any prox will do."""
-    if not hasattr(F, "fused_finito_block"):
+    return _block_gate(F, x0, B, "fused_finito_block")
+
+
+def saga_block_available(F, x0, B: int) -> bool:
+    """Gate of :func:`saga_block_update`: that of
+    :func:`finito_block_available` (the JAX gate's ``n % 128`` lanes and
+    ``_pick_tile`` budget exist for the TPU alone)."""
+    return _block_gate(F, x0, B, "fused_saga_block")
+
+
+def proshi_multistep_available(F, g, x0, B: int) -> bool:
+    """Gate of :func:`proshi_multistep`, the port's own: that of
+    :func:`full_grad_available` for a rank-1 row oracle with an
+    in-kernel formula (``coeff_mode``), whole blocks, and an in-kernel
+    coupling prox: ``Zero``, ``NormL1``, or ``IndBox`` with scalar
+    bounds (either may be infinite). The JAX gate's ``n % 128`` lanes
+    and ``_proshi_tile`` budget exist for the TPU alone."""
+    from ciao_tpu_torch.prox import IndBox, NormL1, Zero
+
+    if isinstance(g, IndBox):
+        if g.lo.numel() != 1 or g.hi.numel() != 1:
+            return False
+    elif not isinstance(g, (NormL1, Zero)):
+        return False
+    return (hasattr(F, "coeff_mode") and full_grad_available(F, x0)
+            and F.coeff_rows_data()[0].shape[0] % B == 0)
+
+
+def _block_gate(F, x0, B: int, method: str) -> bool:
+    if not hasattr(F, method):
         return False
     A, b = F.coeff_rows_data()
     return (x0.device.type == "cuda" and A.device == x0.device
@@ -294,6 +328,11 @@ _ARGTYPES = {
     # A, storage, lowp, b, s, gamma, z, start, sc, part, innov, n, B, rows,
     # stream
     "finito_block_update": "PIIPPPPPPPPIIIP",
+    # the same without gamma
+    "saga_block_update": "PIIPPPPPPPIIIP",
+    # A, storage, b, gamma, rs, s, starts, fclamp, sc, part, av, z, n, B,
+    # rows, K, stream
+    "proshi_multistep": "PIPPPPPPPPPPIIIIP",
 }
 
 
@@ -1001,7 +1040,7 @@ def lfinito_sweep_chunked(A, b, canch, starts, invg_v, av, zf, scalars,
 
 
 # ---------------------------------------------------------------------------
-# kernel #2: the full-table Finito refresh of one block
+# kernels #1, #2: the full-table SAGA and Finito refresh of one block
 # ---------------------------------------------------------------------------
 
 def _block_lowp(precision: str) -> bool:
@@ -1015,6 +1054,32 @@ def _block_lowp(precision: str) -> bool:
     return precision == "default"
 
 
+def _block_grads(A, b, z, start, scale, B: int, precision: str):
+    """(rows of the block, their least-squares gradients G at z) as the
+    block kernels compute them: the margins' dot with bf16 operands at
+    "default", the gradient with the stored row values."""
+    idx = torch.as_tensor(start, device=A.device).long() + torch.arange(
+        B, device=A.device)
+    A_t = A.index_select(0, idx).to(torch.float32)
+    A_d, zq = A_t, z
+    if _block_lowp(precision):
+        A_d, zq = _bf16_round(A_t), _bf16_round(z)
+    return idx, (scale * (A_d @ zq - b[idx]))[:, None] * A_t
+
+
+def saga_block_update_ref(A, b, s, z, start, scalars, B: int,
+                          precision: str = "highest"):
+    """Plain PyTorch version of :func:`saga_block_update`, with the same
+    bf16 roundings. Updates ``s`` in place; returns ``(s, innov)``. On
+    the card it needs exact f32 products, which it checks and does not
+    set."""
+    runtime.require_exact_f32_matmul(A.device, "saga_block_update_ref")
+    idx, G = _block_grads(A, b, z, start, scalars[0], B, precision)
+    innov = (G - s[idx]).sum(dim=0)
+    s.index_copy_(0, idx, G)
+    return s, innov
+
+
 def finito_block_update_ref(A, b, s, gamma, z, start, scalars, B: int,
                             precision: str = "highest"):
     """Plain PyTorch version of :func:`finito_block_update`, with the same
@@ -1023,17 +1088,86 @@ def finito_block_update_ref(A, b, s, gamma, z, start, scalars, B: int,
     set."""
     runtime.require_exact_f32_matmul(A.device, "finito_block_update_ref")
     scale, inv_n, hat = scalars.unbind()
-    idx = torch.as_tensor(start, device=A.device).long() + torch.arange(
-        B, device=A.device)
-    A_t = A.index_select(0, idx).to(torch.float32)
-    A_d, zq = A_t, z
-    if _block_lowp(precision):
-        A_d, zq = _bf16_round(A_t), _bf16_round(z)
-    G = (scale * (A_d @ zq - b[idx]))[:, None] * A_t
+    idx, G = _block_grads(A, b, z, start, scale, B, precision)
     gi = gamma[idx]
     s_new = z[None, :] - (gi * inv_n)[:, None] * G
     innov = ((s_new - s[idx]) * (hat / gi)[:, None]).sum(dim=0)
     s.index_copy_(0, idx, s_new)
+    return s, innov
+
+
+def _launch_block(name, A, b, s, z, start, scalars, n_sc, B, precision,
+                  gamma=()):
+    """Check the arguments of a one-block kernel of ``table_rows.cuh``
+    (``gamma``: Finito's (N,) stepsizes, absent for SAGA) and queue its
+    two launches; returns the (n,) innovation."""
+    N, n = A.shape
+    if A.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rows must be f32 or bf16, not {A.dtype} (int8 "
+                        "rows take the coefficient table)")
+    if not A.is_contiguous():
+        raise ValueError("A must be contiguous")
+    if N % B or n > MAX_COLS or N >= 2**31:
+        raise ValueError(f"bad shape: N={N}, n={n}, B={B}")
+    dev, f32 = A.device, torch.float32
+    _check("b", b, f32, (N,), dev)
+    _check("s", s, f32, (N, n), dev)
+    for g in gamma:
+        _check("gamma", g, f32, (N,), dev)
+    _check("z", z, f32, (n,), dev)
+    _check("scalars", scalars, f32, (n_sc,), dev)
+    if isinstance(start, torch.Tensor):
+        st = start.reshape(1).to(torch.int32)
+        _check("start", st, torch.int32, (1,), dev)
+    else:
+        if start % B or not 0 <= start <= N - B:
+            raise ValueError(f"start {start} must be a multiple of B in "
+                             f"[0, {N - B}]")
+        st = torch.full((1,), int(start), dtype=torch.int32, device=dev)
+    rows = _rows_per_cta(B, n, A.element_size())
+    part = torch.empty((B // rows, n), dtype=f32, device=dev)
+    innov = torch.empty(n, dtype=f32, device=dev)
+    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(_block_lowp(precision)), b.data_ptr(), s.data_ptr(),
+          *(g.data_ptr() for g in gamma), z.data_ptr(), st.data_ptr(),
+          scalars.data_ptr(), part.data_ptr(), innov.data_ptr(), n, B, rows)
+    return innov
+
+
+def saga_block_update(A, b, s, z, start, scalars, B: int,
+                      precision: str = "highest"):
+    """The full-table SAGA refresh of the block [start, start + B)
+    (SAGA_basic.jl:61-65): s_i ← ∇f_i(z) for its rows, in place, and
+    ``innov`` = Σ_B (∇f_i(z) − s_i_old); returns ``(s, innov)``.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:saga_block_update``. ``A`` (N, n)
+    least-squares rows stored f32 or bf16 (∇f_i(z) = scale·(a_i·z −
+    b_i)·a_i), ``b`` (N,), ``s`` the (N, n) f32 table, ``z`` (n,),
+    ``start`` a multiple of B (a Python int, or a 0-d tensor on the rows'
+    device, read there), ``scalars`` the (1,) f32 row [scale]. Rows of
+    ``s`` outside the block are not touched. Precision is
+    :func:`finito_block_update`'s.
+
+    CPU tensors take the plain version :func:`saga_block_update_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    On an H100 the step is bound by bytes: the block's rows, and its
+    table rows read and written, 12 B a column of a row with f32 rows
+    (50,348,032 B at the 262,144 × 1,024 headline's B = 4,096: 0.0150 ms
+    at 3.35 TB/s; bf16 rows 41,959,424 B, 0.0125 ms). The design is
+    :func:`finito_block_update`'s, whose device code it shares
+    (``csrc/table_rows.cuh``, rule ``SagaRule``): the walk writes c_i·a_i
+    and sums the plain difference.
+    """
+    if A.device.type == "cpu":
+        return saga_block_update_ref(A, b, s, z, start, scalars, B,
+                                     precision=precision)
+    if A.device.type != "cuda":
+        raise ValueError(f"saga_block_update: no kernel for {A.device}")
+    innov = _launch_block("saga_block_update", A, b, s, z, start, scalars, 1,
+                          B, precision)
+    saga_block_update.launches += 1
     return s, innov
 
 
@@ -1062,45 +1196,135 @@ def finito_block_update(A, b, s, gamma, z, start, scalars, B: int,
     rows in shared memory with ``cp.async``, take the margins a warp a
     row, then walk the rows in order a column per thread, reading and
     writing the table and summing a partial innovation; a second launch
-    sums the partials in a fixed order. The TPU kernel streams its tiles
-    in grid order with the table aliased in and out.
+    sums the partials in a fixed order. The walk is shared with kernels
+    #1 and #18 (``csrc/table_rows.cuh``). The TPU kernel streams its
+    tiles in grid order with the table aliased in and out.
     """
     if A.device.type == "cpu":
         return finito_block_update_ref(A, b, s, gamma, z, start, scalars, B,
                                        precision=precision)
     if A.device.type != "cuda":
         raise ValueError(f"finito_block_update: no kernel for {A.device}")
-    N, n = A.shape
-    if A.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"rows must be f32 or bf16, not {A.dtype} (int8 "
-                        "rows take the coefficient table)")
-    if not A.is_contiguous():
-        raise ValueError("A must be contiguous")
-    if N % B or n > MAX_COLS or N >= 2**31:
-        raise ValueError(f"bad shape: N={N}, n={n}, B={B}")
-    dev, f32 = A.device, torch.float32
-    _check("b", b, f32, (N,), dev)
-    _check("s", s, f32, (N, n), dev)
-    _check("gamma", gamma, f32, (N,), dev)
-    _check("z", z, f32, (n,), dev)
-    _check("scalars", scalars, f32, (3,), dev)
-    if isinstance(start, torch.Tensor):
-        st = start.reshape(1).to(torch.int32)
-        _check("start", st, torch.int32, (1,), dev)
-    else:
-        if start % B or not 0 <= start <= N - B:
-            raise ValueError(f"start {start} must be a multiple of B in "
-                             f"[0, {N - B}]")
-        st = torch.full((1,), int(start), dtype=torch.int32, device=dev)
-    rows = _rows_per_cta(B, n, A.element_size())
-    part = torch.empty((B // rows, n), dtype=f32, device=dev)
-    innov = torch.empty(n, dtype=f32, device=dev)
-    _call("finito_block_update", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          int(_block_lowp(precision)), b.data_ptr(), s.data_ptr(),
-          gamma.data_ptr(), z.data_ptr(), st.data_ptr(), scalars.data_ptr(),
-          part.data_ptr(), innov.data_ptr(), n, B, rows)
+    innov = _launch_block("finito_block_update", A, b, s, z, start, scalars,
+                          3, B, precision, gamma=(gamma,))
     finito_block_update.launches += 1
     return s, innov
+
+
+# ---------------------------------------------------------------------------
+# kernel #18: K ProShI sharing steps on the (N, n) block table
+# ---------------------------------------------------------------------------
+
+# coupling prox modes (the scalars row's ``gmode``)
+GPROX_ZERO = 0   # g = Zero: prox = id → z ≡ 0
+GPROX_BOX = 1    # IndBox[glo, ghi]: prox = clip
+GPROX_L1 = 2     # NormL1: soft-threshold at glo = hat·λ
+
+
+def _gprox(av, gmode, glo, ghi):
+    """The coupling prox of the scalars row's mode."""
+    return torch.where(gmode == GPROX_BOX, torch.clamp(av, glo, ghi),
+                       torch.where(gmode == GPROX_L1, _soft(av, glo), av))
+
+
+def proshi_multistep_ref(A, b, gamma, s, starts, av, z, scalars, B: int,
+                         precision: str = "highest", rs=None, f=None):
+    """Plain PyTorch version of :func:`proshi_multistep`: the first ``f``
+    of the K steps (all K when ``f`` is None) as a Python loop of tensor
+    ops; the masked steps leave s, av and z as they are. Updates them in
+    place and returns them. Reads ``f`` on the host."""
+    _block_lowp(precision)  # checked; the margins are exact f32 either way
+    scale, inv_n, invhat, mode, glo, ghi, gmode, aux = scalars.unbind()
+    ar = torch.arange(B, device=A.device)
+    live = starts.shape[0] if f is None else min(starts.shape[0], int(f))
+    for k in range(live):
+        idx = starts[k].long() + ar
+        s_old = s.index_select(0, idx)
+        gi = gamma[idx]
+        s_tmp = s_old + gi[:, None] * z[None, :]
+        A_f = A.index_select(0, idx).to(torch.float32)
+        m = torch.sum(A_f * s_tmp, dim=1)
+        rs_t = None if rs is None else rs[idx]
+        if rs_t is not None:
+            m = m * rs_t
+        w = (gi * inv_n) * _coeff_formula(mode, m, b[idx], scale, aux)
+        if rs_t is not None:
+            w = w * rs_t
+        s_new = s_tmp - w[:, None] * A_f
+        av.add_(torch.sum(s_new - s_old, dim=0))
+        s.index_copy_(0, idx, s_new)
+        z.copy_((_gprox(av, gmode, glo, ghi) - av) * invhat)
+    return s, av, z
+
+
+def proshi_multistep(A, b, gamma, s, starts, av, z, scalars, B: int,
+                     precision: str = "highest", rs=None, f=None):
+    """K = len(starts) ProShI sharing steps (ProShI_basic.jl:111-123) on
+    the block table, with the steps k ≥ ``f`` masked.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:proshi_multistep``. Step k takes the
+    block [starts[k], starts[k] + B) of the rows ``A`` (N, n), stored f32,
+    bf16 or int8 (then ``rs`` holds the (N,) f32 dequant scales): with
+    s_tmp_i = s_i + γ_i·z it refreshes the block's rows of the (N, n) f32
+    table ``s`` to s_tmp_i − (γ_i/N)·c_i(a_i·s_tmp_i)·a_i, adds their
+    change to the coupling sum ``av`` (n,) and sets z = (prox_g(av) −
+    av)/hat (n,). ``b`` and ``gamma`` are (N,); ``scalars`` the (8,) f32
+    row [scale, 1/N, 1/hat, mode, glo, ghi, gmode, aux], gmode one of
+    ``GPROX_ZERO``, ``GPROX_BOX`` (clip to [glo, ghi]) and ``GPROX_L1``
+    (soft-threshold at glo = hat·λ). ``s``, ``av`` and ``z`` are updated
+    in place and returned. ``precision`` is accepted and changes nothing:
+    the Pallas kernel takes it and never uses it, its margins being exact
+    f32 products of the widened rows. ``f`` is the clamp count, a
+    one-element int32 tensor on the rows' device, or None for K; a masked
+    step writes nothing.
+
+    CPU tensors take the plain version :func:`proshi_multistep_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    On an H100 a step is bound by bytes: the block's rows, and its table
+    rows read and written, plus b and γ (50,364,416 B with f32 rows at
+    65,536 × 1,024, B = 4,096: 0.0150 ms at 3.35 TB/s; int8 rows
+    37,797,888 B with rs, 0.0113 ms). Unlike the SAGA and Finito blocks,
+    each row's margin is taken at its own point s_i + γ_i·z, so a row's
+    table values must be read before the margin and written after it.
+    Each step is two stream-ordered launches: the table walk of
+    ``csrc/table_rows.cuh`` (rule ``ProshiRule``: rows staged with
+    ``cp.async``, a warp a row reads its table row for the margin, the
+    column walk reads it again, from L2, and writes it) and a finish that
+    sums the CTAs' partials in a fixed order and applies the coupling
+    prox. The TPU kernel carries av and z in VMEM across its (K, tiles)
+    grid and must not revisit a block within a launch (the streamed table
+    would race its aliased write-back), so its shuffled and random
+    drivers clamp; here the table lives in device memory and the steps
+    are stream-ordered, so the port's driver does not clamp and ``f``
+    stays a tested option.
+    """
+    if A.device.type == "cpu":
+        return proshi_multistep_ref(A, b, gamma, s, starts, av, z, scalars, B,
+                                    precision=precision, rs=rs, f=f)
+    if A.device.type != "cuda":
+        raise ValueError(f"proshi_multistep: no kernel for {A.device}")
+    _block_lowp(precision)
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    N = A.shape[0]
+    _check("gamma", gamma, f32, (N,), dev)
+    _check("s", s, f32, (N, n), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("z", z, f32, (n,), dev)
+    _check("scalars", scalars, f32, (8,), dev)
+    if f is not None:
+        if f.numel() != 1:
+            raise ValueError(f"f must hold one count, not {f.numel()}")
+        f = f.reshape(1)
+        _check("f", f, torch.int32, (1,), dev)
+    _call("proshi_multistep", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          b.data_ptr(), gamma.data_ptr(), _ptr(rs), s.data_ptr(),
+          starts.data_ptr(), _ptr(f), scalars.data_ptr(), part.data_ptr(),
+          av.data_ptr(), z.data_ptr(), n, B, rows, K)
+    proshi_multistep.launches += 1
+    return s, av, z
 
 
 # Launches of the CUDA kernels (one per wrapper call that reaches one),
@@ -1114,4 +1338,6 @@ coeff_apply_all.launches = 0
 finito_coeff_multistep.launches = 0
 finito_coeff_multistep_streamed.launches = 0
 lfinito_sweep_multistep.launches = 0
+saga_block_update.launches = 0
 finito_block_update.launches = 0
+proshi_multistep.launches = 0

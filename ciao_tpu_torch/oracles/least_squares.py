@@ -13,9 +13,8 @@ the per-row scale is applied to the row products, never to a dense
 dequantized A. Narrow rows are widened to the iterate's dtype inside each
 product, as JAX's type promotion does.
 
-Not ported yet: complex rows, the SAGA full-table kernel's
-``fused_saga_block`` and the Point-SAGA pieces (ROADMAP.md, queue 1
-item 3).
+Not ported yet: complex rows and the Point-SAGA pieces (ROADMAP.md,
+queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -106,12 +105,44 @@ class LeastSquaresRows(SmoothOracle):
         Ad = self._dense(A_B, rs_B, x.dtype)
         return self._grads(Ad, Ad @ x - b_B)
 
+    def _pointwise(self, A_B, b_B, rs_B, xs):
+        """(residuals, dense rows) with one evaluation point per row."""
+        Ad = self._dense(A_B, rs_B, xs.dtype)
+        return torch.sum(Ad * xs, dim=-1) - b_B, Ad
+
     def grad_pointwise(self, xs, idx):
         """Row gradients with one evaluation point per row: row idx[k]
-        at xs[k] (the adaptive variant's probe)."""
-        A_B, b_B, rs_B = self._gather(idx)
-        Ad = self._dense(A_B, rs_B, xs.dtype)
-        return self._grads(Ad, torch.sum(Ad * xs, dim=-1) - b_B)
+        at xs[k] (the adaptive variant's probe, ProShI's blocks)."""
+        r, Ad = self._pointwise(*self._gather(idx), xs)
+        return self._grads(Ad, r)
+
+    def grad_pointwise_block(self, xs, start, size: int):
+        """:meth:`grad_pointwise` over the block [start, start + size)."""
+        r, Ad = self._pointwise(*self._slice(start, size), xs)
+        return self._grads(Ad, r)
+
+    def value_and_grad_pointwise(self, xs, idx):
+        r, Ad = self._pointwise(*self._gather(idx), xs)
+        return 0.5 * self.scale * (r * r), self._grads(Ad, r)
+
+    def _full_table_rows(self):
+        if self.row_scale is not None:
+            raise ValueError(
+                "int8 rows: full-table fused kernels are not supported "
+                "(the f32 table traffic dominates — use table='coeff')")
+        return self.A.device
+
+    def fused_saga_block(self, s, z, start, size: int,
+                         precision: str = "highest"):
+        """(s, Σ_B (∇f_i(z) − s_i_old)) with the rows [start, start +
+        size) of the (N, n) table ``s`` set to ∇f_i(z) in place:
+        ``ops.saga_block_update``."""
+        from ciao_tpu_torch.ops.fused_block import _scalar, saga_block_update
+
+        dev = self._full_table_rows()
+        return saga_block_update(self.A, self.b, s, z, start,
+                                 _scalar(self.scale, dev).reshape(1), size,
+                                 precision=precision)
 
     def fused_finito_block(self, s, gamma, z, start, size: int, inv_N,
                            hat_gamma, precision: str = "highest"):
@@ -122,11 +153,7 @@ class LeastSquaresRows(SmoothOracle):
             _scalar, finito_block_update,
         )
 
-        if self.row_scale is not None:
-            raise ValueError(
-                "int8 rows: full-table fused kernels are not supported "
-                "(the f32 table traffic dominates — use table='coeff')")
-        dev = self.A.device
+        dev = self._full_table_rows()
         scalars = torch.stack([_scalar(self.scale, dev), _scalar(inv_N, dev),
                                _scalar(hat_gamma, dev)])
         return finito_block_update(self.A, self.b, s, gamma, z, start,

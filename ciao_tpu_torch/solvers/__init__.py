@@ -1,11 +1,15 @@
 """Solvers of the port (SAGA/SAG, SVRG/SVRG++, Finito/MISO with LFinito
-and adaptive Finito, forward-backward and FISTA, the staged schedule, the
-polish and ``deep_solve``) and the iteration tools."""
+and adaptive Finito, ProShI, forward-backward and FISTA, the staged
+schedule, the polish, ``deep_solve`` and ``deep_solve_sharing``) and the
+iteration tools."""
 
 from ciao_tpu_torch.solvers.base import (
     SolverIterable, Status, halt, loop, run_solver_loop, solution, take,
 )
 from ciao_tpu_torch.solvers.deep import DeepSolveInfo, deep_solve
+from ciao_tpu_torch.solvers.deep_sharing import (
+    DeepSharingInfo, deep_solve_sharing,
+)
 from ciao_tpu_torch.solvers.finito import (
     Finito, FinitoAdaptiveState, FinitoBasicState, FinitoCfg,
     FinitoCoeffState, LFinitoState, finito_adaptive_init, finito_basic_init,
@@ -19,6 +23,10 @@ from ciao_tpu_torch.solvers.polish import (
     PolishResult, fista_polish, grad_mean_chunked, grad_sum_chunked,
     lsq_power_lmax, power_lmax,
 )
+from ciao_tpu_torch.solvers.proshi import (
+    Proshi, ProshiCfg, ProshiState, proshi_init, proshi_resync, proshi_run,
+    proshi_step, sharing_objective,
+)
 from ciao_tpu_torch.solvers.saga import (
     SAG, SAGA, SAGACfg, SAGAState, block_starts, importance_draws,
     saga_init, saga_rebase, saga_run, saga_step,
@@ -27,6 +35,13 @@ from ciao_tpu_torch.solvers.staged import StagedInfo, staged_saga
 from ciao_tpu_torch.solvers.svrg import (
     SVRG, SVRGCfg, SVRGState, svrg_init, svrg_run, svrg_step,
 )
+
+
+def iterator(solver, x0, **kwargs):
+    """Streaming mode (reference ``Finito.jl:186-234``): the solver's
+    bare iterable of states; its maxit, verbose and freq are ignored."""
+    return solver.iterator(x0, **kwargs)
+
 
 __all__ = [
     "SolverIterable", "Status", "halt", "loop", "run_solver_loop",
@@ -41,5 +56,7 @@ __all__ = [
     "finito_rebase", "DeepSolveInfo",
     "deep_solve", "StagedInfo", "staged_saga", "PolishResult",
     "fista_polish", "grad_mean_chunked", "grad_sum_chunked", "power_lmax",
-    "lsq_power_lmax",
+    "lsq_power_lmax", "Proshi", "ProshiCfg", "ProshiState", "proshi_init",
+    "proshi_run", "proshi_step", "proshi_resync", "sharing_objective",
+    "DeepSharingInfo", "deep_solve_sharing", "iterator",
 ]

@@ -47,6 +47,22 @@ def facade_device(device, x0) -> torch.device:
     return runtime.default_device()
 
 
+def default_terms(F, g, N, device):
+    """A facade's ``(F, g, N)`` on ``device``: N from F when not given,
+    the reference's defaults F = ``ZeroOracle(n_terms=N)`` (Finito.jl:78)
+    and g = ``Zero()`` (Finito.jl:69) for None."""
+    from ciao_tpu_torch.oracles import ZeroOracle
+    from ciao_tpu_torch.prox import Zero
+
+    if N is None:
+        if F is None:
+            raise ValueError("provide F or N")
+        N = F.num_terms
+    if F is None:
+        F = ZeroOracle(n_terms=N)
+    return F.to(device), (Zero() if g is None else g).to(device), N
+
+
 def real_dtype_of(x) -> torch.dtype:
     """The real dtype of a tensor or dtype (float32 for complex64)."""
     dtype = x if isinstance(x, torch.dtype) else torch.as_tensor(x).dtype

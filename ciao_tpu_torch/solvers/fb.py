@@ -13,8 +13,7 @@ compensated read as the SVRG anchor) plus an O(n) prox.
 Default γ = 1/mean(L): each f_i has modulus L_i, so the full smooth
 term (1/N)Σf_i has modulus ≤ mean(L_i).
 
-Not ported yet: complex iterates and ``F=None`` (the ZeroOracle default,
-ROADMAP.md queue 1 item 11).
+Not ported yet: complex iterates (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -24,10 +23,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ciao_tpu_torch.prox import Zero
 from ciao_tpu_torch.solvers.base import (
     SolverIterable,
     Status,
+    default_terms,
     facade_device,
     real_dtype_of,
     run_solver_loop,
@@ -124,16 +123,9 @@ class ForwardBackward:
     def _setup(self, x0, F, g, L, N):
         from ciao_tpu_torch.ops.fused_block import full_grad_available
 
-        if F is None:
-            raise NotImplementedError(
-                "F=None (the ZeroOracle default) is not ported yet: "
-                "ROADMAP.md, queue 1 item 11")
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        F = F.to(device)
-        g = (Zero() if g is None else g).to(device)
-        if N is None:
-            N = F.num_terms
+        F, g, N = default_terms(F, g, N, device)
         rdt = real_dtype_of(x0)
         if self.gamma is not None:
             gamma = torch.as_tensor(self.gamma, dtype=rdt, device=device)

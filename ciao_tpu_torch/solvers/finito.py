@@ -28,9 +28,7 @@ sweep). The schedules are the port's own draws (``ciao_tpu_torch.
 sampling``); :func:`finito_run` also takes an explicit schedule, so the
 parity tests can replay JAX's key chain.
 
-Not ported yet: ``F=None`` (the ZeroOracle default) and oracles other
-than least squares (ROADMAP.md queue 1 item 11), complex iterates (item
-3).
+Not ported yet: complex iterates (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -41,7 +39,6 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ciao_tpu_torch.prox import NormL1, Zero
 from ciao_tpu_torch.sampling import (
     Sweep,
     SweepState,
@@ -57,6 +54,7 @@ from ciao_tpu_torch.sampling import (
 from ciao_tpu_torch.solvers.base import (
     SolverIterable,
     Status,
+    default_terms,
     facade_device,
     rdiv,
     real_dtype_of,
@@ -700,10 +698,6 @@ def finito_step(F, g, state, cfg: FinitoCfg, variant: str):
 # facade
 # ---------------------------------------------------------------------------
 
-_NO_ZERO_ORACLE = ("F=None (the ZeroOracle default) is not ported yet: "
-                   "ROADMAP.md, queue 1 item 11")
-
-
 @dataclasses.dataclass(frozen=True)
 class Finito:
     """Finito/MISO solver facade (reference ``Finito.jl:32-64``).
@@ -779,18 +773,13 @@ class Finito:
     def _setup(self, x0, F, g, L, N):
         from ciao_tpu_torch.ops import fused_block as fb
 
-        if F is None:
-            raise NotImplementedError(_NO_ZERO_ORACLE)
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
         if x0.is_complex():
             raise NotImplementedError(
                 "complex iterates are not ported yet: ROADMAP.md, queue 1 "
                 "item 3")
-        F = F.to(device)
-        g = (Zero() if g is None else g).to(device)
-        if N is None:
-            N = F.num_terms
+        F, g, N = default_terms(F, g, N, device)
         rdt = real_dtype_of(x0)
         B = self.minibatch[1]
         variant = self._variant

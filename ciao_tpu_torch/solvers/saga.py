@@ -1,11 +1,11 @@
-"""SAGA / SAG solver family (coefficient table).
+"""SAGA / SAG solver family.
 
 Counterpart of ``ciao_tpu/solvers/saga.py``, a re-design of reference
-``src/algorithms/SAGA_SAG/SAGA_basic.jl``. The gradient table of a
-rank-1 oracle is stored as its exact (N,) coefficient vector
-(``table="coeff"``): one step draws a block (or an iid minibatch),
-refreshes its coefficients, forms the SAG (biased) or SAGA (unbiased)
-direction and applies the prox.
+``src/algorithms/SAGA_SAG/SAGA_basic.jl``. The gradient table is one
+(N, n) tensor (``table="full"``) or, for a rank-1 oracle, its exact (N,)
+coefficient vector (``table="coeff"``): one step draws a block (or an
+iid minibatch), refreshes its table rows, forms the SAG (biased) or SAGA
+(unbiased) direction and applies the prox.
 
 Defaults (SAGA_basic.jl:34-35): γ = 1/(3 L_max) for SAGA, 1/(16 L_max)
 for SAG. Init (SAGA_basic.jl:41-48): table = coefficients at x0, av =
@@ -19,9 +19,9 @@ sampling, coefficient tables and a CUDA device, :func:`saga_run` hands K
 steps at a time to a hand-written kernel: ``ops.saga_coeff_multistep``
 (N ≤ ``RESIDENT_MAX_ROWS``) or ``ops.saga_coeff_multistep_streamed``
 (larger N). Importance sampling (block j drawn with probability
-q_j ∝ L_j, direction weighted by 1/(d·q_j)) rides both.
-
-Not ported yet (ROADMAP.md, queue 1 item 7): the full (N, n) table.
+q_j ∝ L_j, direction weighted by 1/(d·q_j)) rides both. The full table's
+block steps run on ``ops.saga_block_update`` (one call a step) when its
+gate is open (f32 or bf16 rows, block sampling, no importance sampling).
 """
 
 from __future__ import annotations
@@ -40,13 +40,11 @@ from ciao_tpu_torch.sampling import (
 from ciao_tpu_torch.solvers.base import (
     SolverIterable,
     Status,
+    default_terms,
     facade_device,
     real_dtype_of,
     run_solver_loop,
 )
-
-_FULL_TABLE = ("the full (N, n) gradient table (table='full') is not ported "
-               "yet: ROADMAP.md, queue 1 item 7")
 
 # Steps per kernel launch of the multistep driver (K in the JAX package).
 LAUNCH_STEPS = 128
@@ -65,7 +63,9 @@ class SAGACfg(NamedTuple):
     sag: bool
     batch: int = 1
     block: bool = False  # uniform CONTIGUOUS block instead of iid subset
-    fused: bool = False  # K steps per launch of the resident kernel
+    # coefficient table: K steps per launch of the resident kernel; full
+    # table: each block step on kernel #1
+    fused: bool = False
     coeff: bool = False  # (N,) coefficient table instead of (N, n) rows
     fused_precision: str = "highest"  # dots in the kernel: exact f32 / bf16
     importance: bool = False  # blocks drawn ∝ L_j, direction · 1/(d·q_j)
@@ -80,7 +80,7 @@ class SAGACfg(NamedTuple):
 
 
 class SAGAState(NamedTuple):
-    s: torch.Tensor        # (N,) coefficient table
+    s: torch.Tensor        # (N,) coefficient table, or the (N, n) full table
     gamma: torch.Tensor    # scalar
     av: torch.Tensor       # (n,) running average of the table
     z: torch.Tensor        # (n,)
@@ -158,19 +158,18 @@ def stream_launch_K(d: int, factor: float = 1.0) -> int:
 # init / steps
 # ---------------------------------------------------------------------------
 
-def _check_cfg(cfg: SAGACfg):
-    if not cfg.coeff:
-        raise NotImplementedError(_FULL_TABLE)
-
-
 def saga_init(F, g, x0, gamma, seed: int, cfg: SAGACfg) -> SAGAState:
     """Reference SAGA_basic.jl:41-48. The gradient table
-    s_i = ∇f_i(x0) = c_i·a_i is stored as the exact (N,) coefficient
-    vector; the full passes are plain matrix products."""
-    _check_cfg(cfg)
+    s_i = ∇f_i(x0) is the (N, n) table of F.grad_all, or in coefficient
+    mode (oracles with ``supports_coeff``) the exact (N,) coefficient
+    vector c with s_i = c_i·a_i; the full passes are plain products."""
     gamma = torch.as_tensor(gamma, dtype=real_dtype_of(x0), device=x0.device)
-    s = F.coeff_all(x0)
-    av = F.apply_all(s) / cfg.N
+    if cfg.coeff:
+        s = F.coeff_all(x0)
+        av = F.apply_all(s) / cfg.N
+    else:
+        s = F.grad_all(x0)
+        av = torch.mean(s, dim=0)
     z = g.prox_only((1 - gamma) * x0, gamma)
     return SAGAState(s=s, gamma=gamma, av=av, z=z, seed=int(seed), it=1,
                      status=int(Status.RUNNING))
@@ -181,7 +180,10 @@ def saga_rebase(F, state: SAGAState, cfg: SAGACfg) -> SAGAState:
 
     The running average is maintained by deltas, so after swapping the
     oracle's storage mid-run (f32/bf16/int8 stages) it still reflects the
-    old rows, and the mismatch never decays. One pass over A repairs it."""
+    old rows, and the mismatch never decays. One pass over A repairs it.
+    The full table is storage-consistent by construction (av averages the
+    stored gradient rows, and deltas under the new rows keep it exact):
+    it is returned unchanged."""
     if not cfg.coeff:
         return state
     return state._replace(av=F.apply_all(state.s) / cfg.N)
@@ -215,7 +217,7 @@ def _block_choice(cfg: SAGACfg, state: SAGAState):
 
 
 def _saga_step_coeff(F, g, cfg: SAGACfg, state: SAGAState, start=None,
-                     wgt=None, inplace=False):
+                     wgt=None, inplace=False, idx=None):
     """Coefficient-table step: the innovation Σ (c_new − c_old)·a_i is
     one extra product over the same rows the coefficients read. The table
     is replaced, not written in place, so earlier states stay valid —
@@ -231,7 +233,8 @@ def _saga_step_coeff(F, g, cfg: SAGACfg, state: SAGAState, start=None,
         c_new = F.coeff_block(state.z, start, B)
         innov = F.apply_rows_block(c_new - state.s[idx], start, B)
     else:
-        idx = _iid_indices(state.seed, state.it, N, B, dev)
+        if idx is None:
+            idx = _iid_indices(state.seed, state.it, N, B, dev)
         c_new = F.coeff_batch(state.z, idx)
         innov = F.apply_rows(c_new - state.s[idx], idx)
     if inplace:
@@ -243,15 +246,60 @@ def _saga_step_coeff(F, g, cfg: SAGACfg, state: SAGAState, start=None,
     return state._replace(s=s, av=av, z=z, it=state.it + 1)
 
 
+def _saga_step_full(F, g, cfg: SAGACfg, state: SAGAState, start=None,
+                    wgt=None, inplace=False, idx=None):
+    """Full-table step (SAGA_basic.jl:55-65, batched): the block's (or
+    the iid minibatch's) gradients at z replace their table rows; the
+    innovation is their mean change. With ``cfg.fused`` a block step is
+    one call of kernel #1 (``F.fused_saga_block``), gradients, table
+    write and innovation in one pass. The table is written in place only
+    when the caller owns it (``inplace``)."""
+    N, B = cfg.N, cfg.batch
+    dev = state.z.device
+    s = state.s if inplace else state.s.clone()
+    if cfg.block:
+        if start is None:
+            start, wgt = _block_choice(cfg, state)
+        if cfg.fused:
+            s, innov = F.fused_saga_block(s, state.z, start, B,
+                                          precision=cfg.fused_precision)
+            av, w = _saga_direction(cfg, state, innov, B)
+            z = g.prox_only(w, state.gamma)
+            return state._replace(s=s, av=av, z=z, it=state.it + 1)
+        idx = torch.as_tensor(start, device=dev).long() + torch.arange(
+            B, device=dev)
+        G_B = F.grad_block(state.z, start, B)
+    else:
+        wgt = None
+        if idx is None:
+            idx = _iid_indices(state.seed, state.it, N, B, dev)
+        G_B = F.grad_batch(state.z, idx)
+    diff = torch.mean(G_B - s[idx], dim=0)
+    if cfg.sag:
+        av = state.av + diff * (B / N)
+        w = state.z - state.gamma * av
+    else:
+        w = state.z - state.gamma * (
+            diff * (1.0 if wgt is None else wgt) + state.av)
+        av = state.av + diff * (B / N)
+    s.index_copy_(0, idx, G_B)
+    z = g.prox_only(w, state.gamma)
+    return state._replace(s=s, av=av, z=z, it=state.it + 1)
+
+
 def _saga_step(F, g, cfg: SAGACfg, state: SAGAState, start=None, wgt=None,
-               inplace=False):
-    _check_cfg(cfg)
-    if cfg.importance and cfg.sag:
-        # SAG's average-first order has no weighted counterpart: it would
-        # ignore the 1/(d·q_j) weight and bias the direction
-        raise ValueError("SAGACfg(importance=True) is incompatible with "
-                         "sag=True")
-    return _saga_step_coeff(F, g, cfg, state, start, wgt, inplace)
+               inplace=False, idx=None):
+    if cfg.importance and (cfg.sag or (cfg.fused and not cfg.coeff)):
+        # SAG's average-first order and the full-table kernel have no
+        # weighted counterpart: they would ignore the 1/(d·q_j) weight and
+        # bias the direction (the facade refuses these; SAGACfg is also
+        # built directly)
+        raise ValueError(
+            "SAGACfg(importance=True) is incompatible with sag=True or "
+            "with fused=True on the full-table path (those step branches "
+            "ignore the importance unbiasedness weight)")
+    step = _saga_step_coeff if cfg.coeff else _saga_step_full
+    return step(F, g, cfg, state, start, wgt, inplace, idx)
 
 
 def _scalars_row(F, g, state, cfg: SAGACfg):
@@ -359,13 +407,21 @@ def _check_starts(starts, steps: int, cfg: SAGACfg, device):
 
 
 def saga_run(F, g, state, cfg: SAGACfg, steps: int, starts=None,
-             wgts=None):
+             wgts=None, idx=None):
     """Advance ``steps`` steps. ``starts`` optionally gives the (steps,)
     block starts to use instead of the (seed, it) draws, and ``wgts``
     (with ``starts``) their (steps,) direction weights 1/(d·q_j); without
-    ``wgts`` an explicit schedule is weighted 1."""
-    _check_cfg(cfg)
+    ``wgts`` an explicit schedule is weighted 1. ``idx`` gives an iid
+    run's (steps, batch) rows in place of its draws. A full-table run
+    copies the table once and then writes it in place."""
     dev = state.z.device
+    if idx is not None:
+        if cfg.block:
+            raise ValueError("an explicit idx schedule needs iid sampling")
+        idx = torch.as_tensor(idx).to(device=dev, dtype=torch.int64)
+        if tuple(idx.shape) != (steps, cfg.batch):
+            raise ValueError(f"idx has shape {tuple(idx.shape)}, expected "
+                             f"({steps}, {cfg.batch})")
     if starts is not None:
         starts = _check_starts(starts, steps, cfg, dev)
     if wgts is not None:
@@ -377,8 +433,22 @@ def saga_run(F, g, state, cfg: SAGACfg, steps: int, starts=None,
                              f"expected ({steps},)")
     if cfg.coeff and (cfg.fused or cfg.fused_stream) and steps >= 8:
         return _saga_run_fused(F, g, state, cfg, steps, starts, wgts)
+    full = not cfg.coeff
+    if full:
+        state = state._replace(s=state.s.clone())
+        if cfg.block and starts is None:
+            # the run's block draws in one vectorized pass (the stream of
+            # _block_choice, a pure function of (seed, it)): a step's host
+            # work is then its table refresh and its direction
+            if cfg.importance:
+                starts, wgts = importance_draws(state.seed, state.it, steps,
+                                                cfg, state.qcum, state.qinv)
+            else:
+                starts = block_starts(state.seed, state.it, steps,
+                                      cfg.N // cfg.batch, cfg.batch, dev)
     for i in range(steps):
-        state = _saga_step(F, g, cfg, state, *_explicit(starts, wgts, i))
+        state = _saga_step(F, g, cfg, state, *_explicit(starts, wgts, i),
+                           inplace=full, idx=None if idx is None else idx[i])
     return state
 
 
@@ -448,12 +518,13 @@ def _importance_setup(L, N: int, B: int, istrat: bool, rdt, device):
             L_eff, iwin)
 
 
-def _warn_fallback(who: str, F, g, x0):
+def _warn_fallback(who: str, F, g, x0, coeff: bool = True):
     """One-time warning when a block-sampling config of facade ``who``
-    (SAGA, SVRG) on a CUDA device lands on the stepwise path, naming the
-    first closed gate and its remedy. Silent for CPU iterates.
-    (N % batch != 0, the gate's shape condition, is refused by the
-    facades before they route.)"""
+    (SAGA, SVRG, Finito) on a CUDA device lands on the stepwise path,
+    naming the first closed gate and its remedy; ``coeff`` False for
+    SAGA's full (N, n) table. Silent for CPU iterates. (N % batch != 0,
+    the gate's shape condition, is refused by the facades before they
+    route.)"""
     if x0.device.type != "cuda":
         return
     if x0.dtype != torch.float32:
@@ -463,6 +534,14 @@ def _warn_fallback(who: str, F, g, x0):
             "use float32 iterates — precision belongs in the oracle's row "
             "storage (with_storage) and the deep_solve polish, not the "
             "iterate dtype",
+        )
+    elif not coeff:
+        runtime.warn_fused_fallback(
+            who, "the full-table (N, n) kernel serves f32 or bf16 dense "
+            "rows (fused_saga_block) without importance sampling, and int8 "
+            "rows never serve it",
+            "store the rows f32 or bf16, or use a rank-1 oracle so "
+            "table='auto' selects the coefficient table",
         )
     elif not (hasattr(F, "coeff_rows_data") and isinstance(g, (NormL1, Zero))):
         runtime.warn_fused_fallback(
@@ -515,20 +594,16 @@ class SAGA:
                              f"{self.table!r}")
 
     def _setup(self, x0, F, g, L, N):
-        if self.table == "full":
-            raise NotImplementedError(_FULL_TABLE)
-        if F is None:
-            raise NotImplementedError(
-                "F=None (the ZeroOracle default) is not ported yet: "
-                "ROADMAP.md, queue 1 item 11")
+        from ciao_tpu_torch.ops import fused_block
+
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        F = F.to(device)
-        g = (Zero() if g is None else g).to(device)
-        if N is None:
-            N = F.num_terms
-        if not getattr(F, "supports_coeff", False):
-            raise NotImplementedError(_FULL_TABLE)
+        F, g, N = default_terms(F, g, N, device)
+        rank1 = getattr(F, "supports_coeff", False)
+        coeff = rank1 if self.table == "auto" else self.table == "coeff"
+        if coeff and not rank1:
+            raise ValueError("SAGA table='coeff' needs a rank-1 oracle "
+                             "(supports_coeff)")
         if self.importance_sampling:
             # q_j ∝ L_j block draws, unbiased through the 1/(d·q_j)
             # direction weight; SAG's average-first order has no weighted
@@ -544,9 +619,14 @@ class SAGA:
             raise ValueError("SAGA block_sampling needs N divisible by batch")
         fused = fused_stream = istrat = False
         if self.block_sampling:
-            fused, fused_stream, istrat = _route(F, g, x0, N, self.batch)
+            if coeff:
+                fused, fused_stream, istrat = _route(F, g, x0, N, self.batch)
+            elif not self.importance_sampling:
+                # the full-table kernel: f32/bf16 rows (int8 rows need
+                # the coefficient table — the f32 table traffic dominates)
+                fused = fused_block.saga_block_available(F, x0, self.batch)
             if not (fused or fused_stream):
-                _warn_fallback("SAGA", F, g, x0)
+                _warn_fallback("SAGA", F, g, x0, coeff)
         rdt = real_dtype_of(x0)
         qcum = qinv = None
         iwin = 64
@@ -569,7 +649,7 @@ class SAGA:
             gamma = 1.0 / ((16.0 if self.SAG_flag else 3.0) * L_max)
         cfg = SAGACfg(
             N=N, sag=self.SAG_flag, batch=self.batch,
-            block=self.block_sampling, fused=fused, coeff=True,
+            block=self.block_sampling, fused=fused, coeff=coeff,
             fused_precision=self.fused_precision,
             importance=self.importance_sampling, fused_stream=fused_stream,
             istrat=istrat, iwin=iwin,

@@ -23,8 +23,7 @@ and a CUDA device the fused path runs every inner step on the
 ``ops.svrg_coeff_multistep`` kernel against the anchor coefficients
 ``canch`` and refreshes the anchor in one pass (``ops.coeff_apply_all``).
 
-Not ported yet: complex iterates and ``F=None`` (the ZeroOracle default,
-ROADMAP.md queue 1 item 11).
+Not ported yet: complex iterates (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -35,11 +34,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ciao_tpu_torch.prox import Zero
 from ciao_tpu_torch.sampling import _M32, _mix32, _seed_key
 from ciao_tpu_torch.solvers.base import (
     SolverIterable,
     Status,
+    default_terms,
     facade_device,
     real_dtype_of,
     run_solver_loop,
@@ -275,16 +274,9 @@ class SVRG:
         return self.maxit
 
     def _setup(self, x0, F, g, L, mu, N):
-        if F is None:
-            raise NotImplementedError(
-                "F=None (the ZeroOracle default) is not ported yet: "
-                "ROADMAP.md, queue 1 item 11")
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        F = F.to(device)
-        g = (Zero() if g is None else g).to(device)
-        if N is None:
-            N = F.num_terms
+        F, g, N = default_terms(F, g, N, device)
         rdt = real_dtype_of(x0)
         m = N if self.m is None else self.m
         if self.gamma is not None:

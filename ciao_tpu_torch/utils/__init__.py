@@ -1,5 +1,9 @@
 """Problem generators of the port."""
 
-from ciao_tpu_torch.utils.problems import LassoProblem, make_lasso
+from ciao_tpu_torch.utils.problems import (
+    LassoProblem, PlantedSharingProblem, SharingProblem, make_lasso,
+    make_sharing, make_sharing_planted,
+)
 
-__all__ = ["LassoProblem", "make_lasso"]
+__all__ = ["LassoProblem", "make_lasso", "SharingProblem", "make_sharing",
+           "PlantedSharingProblem", "make_sharing_planted"]

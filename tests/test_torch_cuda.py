@@ -1,9 +1,10 @@
 """The CUDA kernels ``saga_coeff_multistep``,
 ``saga_coeff_multistep_streamed``, ``svrg_coeff_multistep``,
 ``coeff_apply_all``, ``finito_coeff_multistep``,
-``finito_coeff_multistep_streamed``, ``lfinito_sweep_multistep`` and
-``finito_block_update`` against their plain versions, the facades'
-routing to them, and the polish's exact-f32 check.
+``finito_coeff_multistep_streamed``, ``lfinito_sweep_multistep``,
+``finito_block_update``, ``saga_block_update`` and ``proshi_multistep``
+against their plain versions, the facades' routing to them, and the
+polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -738,3 +739,189 @@ def test_finito_facade_sends_every_gated_run_to_a_kernel(dev, monkeypatch):
         assert [getattr(tfb, k).launches - b
                 for k, b in zip(kernels, before)] == want, kw
         assert float(objective(F, g, x)) < float(objective(F, g, x0)), kw
+
+
+# ---------------------------------------------------------------------------
+# kernels #1 and #18: SAGA's full table and ProShI's block table
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("storage,precision,n", [
+    ("f32", "highest", 256), ("f32", "default", 256),
+    ("bf16", "highest", 256), ("bf16", "default", 256),
+    ("f32", "highest", 202), ("bf16", "highest", 200),
+], ids=["f32", "f32-default", "bf16", "bf16-default", "f32-n202",
+        "bf16-n200"])
+def test_saga_block_kernel_matches_plain_version(dev, storage, precision, n):
+    """Kernel #1 on the block at rows 1,024-1,279 of N = 4,096 (the start
+    a device tensor): the block's rows and the innovation within 1e-6 of
+    their largest entries (1e-5 with bf16 dots); every other row bit for
+    bit as it was; int8 rows and a misaligned start raise."""
+    N, B, start = 4096, 256, 1024
+    F, (_, z, _), _, _, _ = _setup(dev, N, n, B, 1, storage, False, False,
+                                   seed=8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    s = torch.randn(N, n, generator=gen, device=dev)
+    sc = torch.tensor([float(N)], device=dev)
+    rows, offs = F.coeff_rows_data()
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    before = tfb.saga_block_update.launches
+    ks, kin = tfb.saga_block_update(rows, offs, s.clone(), z, st, sc, B,
+                                    precision=precision)
+    rs_, rin = tfb.saga_block_update_ref(rows, offs, s.clone(), z, start, sc,
+                                         B, precision=precision)
+    torch.cuda.synchronize()
+    assert tfb.saga_block_update.launches == before + 1
+    tol = 1e-5 if precision == "default" else 1e-6
+    blk = slice(start, start + B)
+    assert _rel(ks[blk], rs_[blk]) <= tol and _rel(kin, rin) <= 10 * tol
+    assert torch.equal(ks[:start], s[:start])
+    assert torch.equal(ks[start + B:], s[start + B:])
+    with pytest.raises(TypeError, match="int8"):
+        tfb.saga_block_update(rows.to(torch.int8), offs, s, z, 0, sc, B)
+    with pytest.raises(ValueError, match="multiple"):
+        tfb.saga_block_update(rows, offs, s, z, 100, sc, B)
+
+
+def _proshi_setup(dev, N, n, B, K, storage, gname, seed=0):
+    """A ProShI state and K block starts on the card, the scalars row by
+    ``solvers.proshi._scalars_row``."""
+    import math
+
+    from ciao_tpu_torch.prox import IndBox, NormL1, Zero
+    from ciao_tpu_torch.sampling import init_sweep
+    from ciao_tpu_torch.solvers.proshi import (
+        ProshiCfg, ProshiState, _coupling, _scalars_row,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    F = LeastSquaresRows(torch.randn(N, n, generator=gen, device=dev),
+                         torch.randn(N, generator=gen, device=dev), float(N))
+    if storage != "f32":
+        F = F.with_storage(storage)
+    g = {"box": IndBox(-math.inf, 1.0), "l1": NormL1(0.1),
+         "zero": Zero()}[gname].to(dev)
+    gamma = 0.999 / (n * (0.8 + 0.4 * torch.rand(N, generator=gen,
+                                                   device=dev)))
+    s = 0.05 * torch.randn(N, n, generator=gen, device=dev)
+    av, hat = s.sum(0), gamma.sum()
+    st = ProshiState(s=s, gamma=gamma, hat_gamma=hat, av=av,
+                     z=_coupling(g, av, hat), sweep=init_sweep(0, N, B, 2, dev),
+                     it=1, status=0)
+    starts = (torch.randint(N // B, (K,), generator=gen, device=dev) * B).to(
+        torch.int32)
+    sc = _scalars_row(F, g, st, ProshiCfg(N=N, batch=B, sweeping=2,
+                                          alpha=0.999))
+    return F, st, starts, sc
+
+
+def _proshi_run(fn, F, st, starts, sc, B, precision="highest", f=None):
+    rows, offs = F.coeff_rows_data()
+    out = [t.clone() for t in (st.s, st.av, st.z)]
+    fn(rows, offs, st.gamma, out[0], starts, out[1], out[2], sc, B,
+       precision=precision, rs=F.coeff_rows_scale(), f=f)
+    return out
+
+
+@pytest.mark.parametrize("gname", ["box", "l1", "zero"])
+@pytest.mark.parametrize("storage,n", [
+    ("f32", 256), ("bf16", 256), ("int8", 256), ("f32", 202), ("int8", 200),
+], ids=["f32", "bf16", "int8", "f32-n202", "int8-n200"])
+def test_proshi_kernel_matches_plain_version(dev, storage, n, gname):
+    """Kernel #18, 24 steps at N = 4,096, B = 256 (repeated blocks): s,
+    av and z within 1e-6 of their largest entries (the margins are exact
+    f32 with any rows); "default" precision gives the same result bit for
+    bit (the Pallas kernel ignores it too)."""
+    F, st, starts, sc = _proshi_setup(dev, 4096, n, 256, 24, storage, gname)
+    before = tfb.proshi_multistep.launches
+    kern = _proshi_run(tfb.proshi_multistep, F, st, starts, sc, 256)
+    low = _proshi_run(tfb.proshi_multistep, F, st, starts, sc, 256, "default")
+    ref = _proshi_run(tfb.proshi_multistep_ref, F, st, starts, sc, 256)
+    torch.cuda.synchronize()
+    assert tfb.proshi_multistep.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(kern, low))
+    assert float((ref[0] - st.s).abs().max()) > 0
+    for k, r in zip(kern, ref):
+        assert _rel(k, r) <= 1e-6
+    if gname == "zero":
+        assert not bool(kern[2].any())
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_proshi_masked_steps_are_identity(dev, storage):
+    """Kernel #18 clamped at f = 9 of K = 24 leaves s, av and z bit for bit
+    as the first 9 steps alone leave them; f = 0 leaves them as they
+    were; a bad count raises."""
+    F, st, starts, sc = _proshi_setup(dev, 4096, 256, 256, 24, storage, "box",
+                                      seed=3)
+    i32 = dict(dtype=torch.int32, device=dev)
+    got = _proshi_run(tfb.proshi_multistep, F, st, starts, sc, 256,
+                      f=torch.tensor([9], **i32))
+    want = _proshi_run(tfb.proshi_multistep, F, st, starts[:9], sc, 256)
+    zero = _proshi_run(tfb.proshi_multistep, F, st, starts, sc, 256,
+                       f=torch.tensor(0, **i32))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(zero, (st.s, st.av, st.z)))
+    with pytest.raises(ValueError, match="one count"):
+        _proshi_run(tfb.proshi_multistep, F, st, starts, sc, 256,
+                    f=torch.tensor([1, 2], **i32))
+
+
+def test_proshi_and_full_table_facades_run_on_the_kernels(dev):
+    """On the card the Proshi facade with a contiguous schedule runs on
+    kernel #18 (LAUNCH_STEPS steps a call, the remainder a short call)
+    and SAGA/SAG with table="full" on kernel #1 once a step, with no
+    fallback warning; the random sweep without block sampling warns and
+    runs stepwise; the objectives fall."""
+    import math
+    import warnings
+
+    from ciao_tpu_torch import SAG, SAGA, Proshi
+    from ciao_tpu_torch.monitor import objective, sharing_objective
+    from ciao_tpu_torch.prox import IndBox, NormL1
+    from ciao_tpu_torch import runtime
+
+    N, n, B = 4096, 64, 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    A = torch.randn(N, n, generator=gen, device=dev)
+    F = LeastSquaresRows(A, torch.randn(N, generator=gen, device=dev),
+                         float(N))
+    L = (A * A).sum(1) * N
+    x0 = torch.zeros(n, device=dev)
+    gb = IndBox(-math.inf, 1.0)
+    blocks0 = x0[None, :].expand(N, n)
+    for kw, want in ((dict(sweeping=2, maxit=201), 2),
+                     (dict(sweeping=3, maxit=130), 2),
+                     (dict(sweeping=1, block_sampling=True, maxit=65), 1)):
+        before = tfb.proshi_multistep.launches
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            x, it = Proshi(minibatch=(True, B), **kw)(x0, F=F, g=gb, L=L)
+        assert it == kw["maxit"]
+        assert tfb.proshi_multistep.launches - before == want, kw
+        assert float(sharing_objective(F, gb, x)) < float(
+            sharing_objective(F, gb, blocks0))
+    runtime.reset_fallback_warnings()
+    before = tfb.proshi_multistep.launches
+    with pytest.warns(UserWarning, match="contiguous-block stream"):
+        Proshi(minibatch=(True, B), sweeping=1, maxit=5)(x0, F=F, g=gb, L=L)
+    assert tfb.proshi_multistep.launches == before
+    runtime.reset_fallback_warnings()
+    g = NormL1(torch.tensor(0.01, device=dev))
+    for solver in (SAGA(maxit=41, table="full", block_sampling=True,
+                        batch=B),
+                   SAG(maxit=41, table="full", block_sampling=True,
+                       batch=B)):
+        before = tfb.saga_block_update.launches
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            x, it = solver(x0, F=F, g=g, L=L)
+        assert tfb.saga_block_update.launches - before == it - 1 == 40
+        assert float(objective(F, g, x)) < float(objective(F, g, x0))
+    with pytest.warns(UserWarning, match="full-table"):
+        SAGA(maxit=3, table="full", block_sampling=True, batch=B)(
+            x0, F=F.with_storage("int8"), g=g, L=L)
+    runtime.reset_fallback_warnings()

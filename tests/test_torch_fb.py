@@ -285,8 +285,10 @@ def test_fb_iterator_invariants_and_errors(lasso):
     assert it._rebase_fn(states[2]) is states[2]
     with pytest.raises(ValueError, match="smoothness"):
         ForwardBackward(maxit=2)(x0, F=F, g=g, N=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ForwardBackward(maxit=2, gamma=0.1)(x0, g=g, N=64)
+    # F=None: the zero oracle, so a step is the prox of the iterate
+    xz, _ = ForwardBackward(maxit=2, gamma=0.1)(x0 + 1.0, g=g, N=64)
+    np.testing.assert_array_equal(xz.numpy(),
+                                  g.prox_only(x0 + 1.0, 0.1).numpy())
     for kw in (dict(gamma=0.0), dict(maxit=0), dict(freq=0),
                dict(fused_precision="tf32")):
         with pytest.raises(ValueError):

@@ -587,8 +587,9 @@ def test_finito_iterator_contract(lasso, sweeping, LFinito, adaptive):
 
 def test_finito_bad_config_raises():
     """tests/test_ops.py:158 (table='coeff' with a RANDOM sweep), the
-    missing L of tests/test_lasso.py:175, the knobs' checks, and the
-    slices still to port naming their ROADMAP item."""
+    missing L of tests/test_lasso.py:175 (with F=None too: the zero
+    oracle still needs L or γ), the knobs' checks, and complex iterates,
+    still to port, naming their ROADMAP item."""
     prob = make_lasso(N=32, n=8, p=3, seed=2)
     F = LeastSquaresRows(_t(prob.A), _t(prob.b), 32.0)
     g, x0 = NormL1(1.0), torch.zeros(8, dtype=torch.float64)
@@ -596,7 +597,7 @@ def test_finito_bad_config_raises():
         Finito(maxit=10, sweeping=1, table="coeff")(x0, F=F, g=g, L=prob.L)
     with pytest.raises(ValueError, match="smoothness parameter absent"):
         Finito(maxit=10)(x0, F=F, g=g, N=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="smoothness parameter absent"):
         Finito(maxit=10)(x0, g=g, N=32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Finito(maxit=10)(torch.zeros(8, dtype=torch.complex128), F=F, g=g,

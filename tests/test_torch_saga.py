@@ -231,13 +231,18 @@ def test_iterator_and_init_equivalence(lasso6):
 
 
 def test_unported_options_raise(lasso6):
-    """Options of the JAX facade that the port does not cover yet raise
-    and name the ROADMAP item instead of running on another path; the
-    importance-sampling guards raise as JAX's do."""
+    """Options of the JAX facade that the port once left out now run: the
+    full (N, n) table gives the coefficient table's trajectory (the
+    compression is exact, tests/test_ops.py:119), a full-table init holds
+    the (N, n) gradients, ``F=None`` builds the zero oracle (and without
+    N raises JAX's "provide F or N"); the importance-sampling guards
+    raise as JAX's do."""
     prob, F, g = lasso6
     x0 = torch.zeros(3, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SAGA(maxit=10, table="full")(x0, F=F, g=g, L=prob.L)
+    xf, _ = SAGA(maxit=300, table="full")(x0, F=F, g=g, L=prob.L)
+    xc, _ = SAGA(maxit=300)(x0, F=F, g=g, L=prob.L)
+    np.testing.assert_allclose(xf.numpy(), xc.numpy(), rtol=1e-12,
+                               atol=1e-12)
     # importance sampling is ported; its guards are JAX's
     with pytest.raises(ValueError, match="SAGA only"):
         SAG(maxit=10, importance_sampling=True, block_sampling=True,
@@ -247,10 +252,13 @@ def test_unported_options_raise(lasso6):
     with pytest.raises(ValueError, match="provide L"):
         SAGA(maxit=10, importance_sampling=True, block_sampling=True,
              batch=2, gamma=0.1)(x0, F=F, g=g)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        saga_init(F, g, x0, 0.1, 0, SAGACfg(N=6, sag=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SAGA(maxit=10)(x0, g=g, N=6, L=prob.L)
+    st = saga_init(F, g, x0, 0.1, 0, SAGACfg(N=6, sag=False))
+    np.testing.assert_allclose(st.s.numpy(), F.grad_all(x0).numpy())
+    x, it = SAGA(maxit=10)(torch.ones(3, dtype=torch.float64), g=g, N=6,
+                           L=prob.L)
+    assert it == 10 and bool(torch.isfinite(x).all())
+    with pytest.raises(ValueError, match="provide F or N"):
+        SAGA(maxit=10)(x0, g=g, L=prob.L)
     with pytest.raises(ValueError, match="provide L"):
         SAGA(maxit=10)(x0, F=F, g=g)
     with pytest.raises(ValueError, match="divisible"):
@@ -351,7 +359,8 @@ def test_port_imports_no_jax():
         "import ciao_tpu_torch.runtime, ciao_tpu_torch.solvers.saga",
         "import ciao_tpu_torch.sampling, ciao_tpu_torch.solvers.deep",
         "import ciao_tpu_torch.solvers.polish, ciao_tpu_torch.solvers.staged",
-        "import ciao_tpu_torch.utils.problems",
+        "import ciao_tpu_torch.utils.problems, ciao_tpu_torch.solvers.proshi",
+        "import ciao_tpu_torch.solvers.deep_sharing, ciao_tpu_torch.oracles",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ciao_tpu'))",
         "assert not bad, bad",
@@ -368,7 +377,11 @@ def test_package_surface():
     for name in ("SAGA", "SAG", "LeastSquaresRows", "NormL1", "Zero",
                  "Status", "solution", "take", "loop", "halt", "deep_solve",
                  "DeepSolveInfo", "staged_saga", "StagedInfo", "fista_polish",
-                 "power_lmax", "lsq_power_lmax", "grad_mean_chunked"):
+                 "power_lmax", "lsq_power_lmax", "grad_mean_chunked",
+                 "Proshi", "deep_solve_sharing", "DeepSharingInfo",
+                 "iterator", "IndBox", "DiagQuadratic", "DenseQuadratic",
+                 "SqrDistBox", "SumOracle", "ZeroOracle", "proshi_resync",
+                 "sharing_objective"):
         assert hasattr(ct, name), name
     assert Zero().prox_only(torch.ones(2), 0.1).tolist() == [1.0, 1.0]
 

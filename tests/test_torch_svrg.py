@@ -441,8 +441,8 @@ def test_svrg_iterator_contract():
 def test_svrg_errors_and_warnings():
     """The JAX facade's guards: SVRG++ needs γ, the default γ needs L and
     μ (and warns when Theorem 3.1's ρ < 1 fails), block sampling needs N
-    divisible by batch, SVRG++ caps maxit at 25; F=None names its ROADMAP
-    item."""
+    divisible by batch, SVRG++ caps maxit at 25; F=None builds the zero
+    oracle, whose anchor gradient is 0."""
     prob, F, g = _lasso6(np.float64)
     x0 = torch.zeros(3, dtype=torch.float64)
     with pytest.raises(ValueError, match="SVRG\\+\\+: provide a stepsize"):
@@ -452,8 +452,8 @@ def test_svrg_errors_and_warnings():
     with pytest.raises(ValueError, match="divisible"):
         SVRG(maxit=2, gamma=0.01, block_sampling=True, batch=4)(
             x0, F=F, g=g)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SVRG(maxit=2, gamma=0.01)(x0, g=g, N=6)
+    xz, _ = SVRG(maxit=2, gamma=0.01)(x0, g=g, N=6)
+    np.testing.assert_array_equal(xz.numpy(), x0.numpy())
     with pytest.warns(UserWarning, match="reverted to 25"):
         assert SVRG(maxit=30, gamma=1e-3, plus=True)._effective_maxit() == 25
     with warnings.catch_warnings():
