@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main paths through its ten hand-written CUDA kernels,
+Drives the port's main paths through its fourteen hand-written CUDA kernels,
 ``ciao_tpu_torch/csrc/saga_coeff_multistep.cu`` (kernel #3 of PERF.md),
 ``saga_coeff_multistep_streamed.cu`` (kernel #4), ``svrg_coeff_multistep.cu``
 (kernel #5), ``coeff_apply_all.cu`` (kernel #6), ``finito_coeff_multistep.cu``
 (kernel #9), ``finito_coeff_multistep_streamed.cu`` (kernel #14),
 ``lfinito_sweep_multistep.cu`` (kernel #8), ``finito_block_update.cu``
-(kernel #2), ``saga_block_update.cu`` (kernel #1) and ``proshi_multistep.cu``
-(kernel #18):
+(kernel #2), ``saga_block_update.cu`` (kernel #1), ``proshi_multistep.cu``
+(kernel #18), ``katyusha_coeff_multistep.cu`` (kernel #10),
+``sarah_multistep.cu`` (kernel #11), ``lsvrg_coeff_multistep.cu`` (kernel
+#16) and ``lkatyusha_coeff_multistep.cu`` (kernel #17):
 
 - the SAGA headline of ``bench.py``: a dense Lasso with N = 262,144 rows of
   n = 1,024 columns stored int8 or f32, NormL1(0.1), block-sampled
@@ -40,12 +42,19 @@ Drives the port's main paths through its ten hand-written CUDA kernels,
 - SAGA's full (N, n) table at the headline on kernel #1 (f32 and bf16
   rows), and the ``SAGA(table="full")`` and ``SAG`` facades;
 - ``bench.py``'s sharing deep route: ``deep_solve_sharing`` on the planted
-  65,536 x 128 sharing problem to rel <= 1e-6 (stepwise by design).
+  65,536 x 128 sharing problem to rel <= 1e-6 (stepwise by design);
+- the families of ``bench.py`` whose inner step is SVRG's, at the headline
+  with f32 and int8 rows: Katyusha (ns) and SARAH, m = N/B = 64 inner steps
+  and 150 outer steps (kernels #10 and #11, anchors on #6), L-SVRG and
+  L-Katyusha, p = B/N and 24,576 steps (kernels #16 and #17, windows of at
+  most 32 steps ending at each coin flip, anchors on #6); their facades on
+  the planted Lasso, and Katyusha's time to rel 1e-3 on the planted 65,536 x
+  1,024 Lasso with 64 nonzeros (``bench.py:1596-1649``).
 
 Phases, one line each:
 
   1. device: CUDA present (else exit 2), the card's name and power limit;
-  2. build: the ten kernels compiled by nvcc from this checkout, in
+  2. build: the fourteen kernels compiled by nvcc from this checkout, in
      parallel;
   3. kernel #3 == plain version: f32/bf16/int8 rows, SAGA and SAG, with and
      without direction weights, at a small shape (and at widths that are not
@@ -111,7 +120,17 @@ Phases, one line each:
   4j. sharing deep route: rel against the f64 optimum, no kernel launch;
   8. times: kernel #18 per step and kernel #1 per block, in turns with
      their plain versions and with their bounds; ProShI steps and a
-     full-table SAGA epoch profiled.
+     full-table SAGA epoch profiled;
+  3k-3n. kernels #10, #11, #16, #17 == plain versions: f32/bf16/int8 rows,
+     "highest" and "default", NormL1 and Zero, Katyusha at τ₁ = 0.5 (ns)
+     and 0.3, the logistic and Huber formulas, a width that is not whole
+     16-byte chunks, the loopless kernels' masked windows (stop < K − 1
+     and stop = K − 1) bit for bit, and K = 8 at the headline;
+  4k-4n. Katyusha, SARAH, L-SVRG and L-Katyusha at the headline (f32 and
+     int8 rows) with launch counts and falling objectives, their facades
+     on the planted Lasso, and Katyusha's time to rel 1e-3;
+  9. times: the four kernels per step in turns with their plain versions
+     and with their bounds; a window of each family profiled.
 
 Then a JSON line of the kernels (with each one's bound, computed from this
 run's inputs), and last ``{"ok": true, "device": ...}``.
@@ -226,6 +245,26 @@ FULL_SAGA_FACADE = dict(batch=4_096, maxit=4_097, drop=4.0, sag_maxit=1_025,
 SHARING_DEEP = dict(N=65_536, n=128, p=16, batch=512, sweeping=2,
                     chunk_epochs=16, max_epochs=512, resync_chunk=4_096)
 SHARING_REL, SHARING_RECORD = 1e-6, 1.55e-7
+# the SVRG-shaped families of bench.py (:1471-1534) at the headline:
+# Katyusha (ns) and SARAH (γ = 1/(2·L_max), η = 1) with m = N/B = 64 inner
+# steps and 150 outer steps; L-SVRG (γ = 1/(6·L_max)) and L-Katyusha
+# (σ̂ = 0, θ₁ = 1/3, θ₂ = 1/2) with p = B/N and 24,576 steps
+VR_M, VR_OUTER, LOOPLESS_STEPS = N // B, 150, 24_576
+# the four kernels against their plain versions: d = 64 blocks, and the
+# loopless kernels' masked window (steps k > stop)
+VR_SMALL = dict(N=8_192, n=128, B=128, K=64, stop=22)
+# the facades on the facades' planted Lasso (FACADE), batch 1,024, default
+# stepsizes. A CPU run of the same seed (stepwise, the same draws) fell
+# 4,773-fold in Katyusha's 32 outer steps of m = 2N/B = 128, 132,247-fold in
+# SARAH's 256 of m = N/B = 64, 61.4-fold in L-SVRG's 16,384 steps and
+# 231,925-fold in L-Katyusha's 8,192; the bars keep a margin of at least 3x
+VR_FACADE = {"katyusha": dict(batch=1_024, maxit=33, drop=FACADE_DROP),
+             "sarah": dict(batch=1_024, maxit=257, drop=FACADE_DROP),
+             "lsvrg": dict(batch=1_024, maxit=16_385, drop=20.0),
+             "lkatyusha": dict(batch=1_024, maxit=8_193, drop=FACADE_DROP)}
+# bench.py:1596-1649: Katyusha's time to rel 1e-3 on a planted 65,536 x
+# 1,024 Lasso with 64 nonzeros, in chunks of 8 outer steps (at most 64)
+KATYUSHA_TTR = dict(N=65_536, p=64, chunk=8, max_chunks=64, rel=1e-3)
 
 # The card's published rates (NVIDIA's data sheet, H100 SXM): device
 # memory, and the peak for the rows' type — f32 outside the tensor cores,
@@ -296,19 +335,20 @@ def bound(nbytes: float, ops: float, itemsize: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def step_bound(F, starts, B_: int, vec_bytes: int, row_extra: int):
+def step_bound(F, starts, B_: int, vec_bytes: int, row_extra: int,
+               flops: float = 4.0):
     """The bound per step of K block steps on ``starts``: the rows, offsets
     and other per-row values (``row_extra`` bytes a row, and the int8
     scale) of every distinct block visited, once, and ``vec_bytes`` of
-    (n,) vectors, over K; 4·B·n operations a step (the margins and the
-    innovation)."""
+    (n,) vectors, over K; ``flops``·B·n operations a step (4: the margins
+    and the innovation)."""
     rows, _ = F.coeff_rows_data()
     n_, isz = rows.shape[1], rows.element_size()
     K = starts.shape[0]
     blocks = int(torch.unique(starts).numel())
     per_row = n_ * isz + row_extra + 4 * (rows.dtype == torch.int8)
     return bound((blocks * B_ * per_row + vec_bytes + 4 * K) / K,
-                 4.0 * B_ * n_, isz)
+                 flops * B_ * n_, isz)
 
 
 def kernel_inputs(F, gamma, gen, dev, B_: int, K: int, sag: bool,
@@ -2165,6 +2205,465 @@ def time_saga_block(r: dict, gen, dev, storage, card) -> dict:
     return dict(times, call_ms=times["ms"], ms=prof["kernel #1"])
 
 
+# ---------------------------------------------------------------------------
+# the SVRG-shaped families: Katyusha #10, SARAH #11, L-SVRG #16, L-Katyusha #17
+# ---------------------------------------------------------------------------
+
+# the four kernels: the wrapper, its plain version and a short label
+VR = {"katyusha": ("katyusha_coeff_multistep", "#10"),
+      "sarah": ("sarah_multistep", "#11"),
+      "lsvrg": ("lsvrg_coeff_multistep", "#16"),
+      "lkatyusha": ("lkatyusha_coeff_multistep", "#17")}
+
+
+def vr_inputs(F, gen, dev, B_: int, K: int, mode: int = 0) -> dict:
+    """Inputs of the four kernels on the card: an anchor point xa, its
+    coefficients and mean gradient (kernel #6's plain version), two
+    points near it and K block starts (repeats included). The logistic
+    mode takes ±1 offsets from the caller's rows."""
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.solvers.saga import block_starts
+
+    rows, offs = F.coeff_rows_data()
+    N_, n_ = rows.shape
+    xa = 0.05 * torch.randn(n_, generator=gen, device=dev)
+    near = xa + 0.01 * torch.randn(2, n_, generator=gen, device=dev)
+    seed = int(torch.randint(1 << 30, (1,), generator=gen, device=dev))
+    scale = 1.0 if mode == 1 else float(N_)
+    canch, gsum = fb.coeff_apply_all_ref(
+        rows, offs, xa, torch.tensor([scale, mode, 0.5], device=dev),
+        rs=F.coeff_rows_scale())
+    # the rows' smoothness: scale·‖a_i‖² (a quarter of ‖a_i‖² for logistic)
+    sq = (rows.float() ** 2).sum(1)
+    if F.coeff_rows_scale() is not None:
+        sq = sq * F.coeff_rows_scale() ** 2
+    Lmax = float(sq.max()) * (0.25 if mode == 1 else N_)
+    return dict(rows=rows, offs=offs, rs=F.coeff_rows_scale(), xa=xa,
+                near=near, canch=canch, av=gsum / N_, Lmax=Lmax, scale=scale,
+                mode=mode, starts=block_starts(seed, 1, K, N_ // B_, B_, dev))
+
+
+def vr_scalars(S: dict, kind: str, B_: int, lam: float, tau1: float = 0.3):
+    """The scalars row of ``kind`` at the inputs' formula mode (aux 0.5,
+    Huber's δ): Katyusha at τ₁ (0.5 is the ns schedule's first epoch),
+    τ₂ = 1/2; SARAH at γ = 1/(2 L_max), η = 0.7; L-SVRG at γ = 1/(6 L_max);
+    L-Katyusha at θ₁ = 1/3, θ₂ = 1/2, σ̂ = 0.01."""
+    L_, sc, md = S["Lmax"], S["scale"], S["mode"]
+    if kind == "katyusha":
+        a, b_ = 1.0 / (3.0 * tau1 * L_), 1.0 / (3.0 * L_)
+        row = [sc, a, b_, a * lam, b_ * lam, 1.0 / B_, md, tau1, 0.5, 0.5]
+    elif kind == "sarah":
+        g_ = 1.0 / (2.0 * L_)
+        row = [sc, g_, g_ * lam, 0.7, 1.0 / B_, md, 0.5]
+    elif kind == "lsvrg":
+        g_ = 1.0 / (6.0 * L_)
+        row = [sc, g_, g_ * lam, 1.0 / B_, md, 0.5]
+    else:
+        th1, th2, sig = 1.0 / 3.0, 0.5, 0.01
+        eta = th2 / ((1.0 + th2) * th1)
+        step, den = eta / L_, 1.0 + eta * sig
+        row = [sc, step, step / den * lam, 1.0 / den, eta * sig, th1, th2,
+               1.0 / B_, md, 0.5]
+    return torch.tensor(row, dtype=torch.float32,
+                        device=S["rows"].device)
+
+
+def vr_call(kind: str, fn, S: dict, sc, B_: int, precision="highest",
+            stop=None, starts=None, state=None):
+    """One call of kernel ``kind`` (or its plain version) ``fn`` from
+    copies of the inputs' state (or on ``state``, in place); returns its
+    outputs."""
+    st = S["starts"] if starts is None else starts
+    a = S["xa"]
+    if state is None:
+        p, q = S["near"][0].clone(), S["near"][1].clone()
+        state = {"katyusha": lambda: [p, q, torch.zeros_like(p)],
+                 "sarah": lambda: [torch.stack([a, p]), S["av"].clone()],
+                 "lsvrg": lambda: [p],
+                 "lkatyusha": lambda: [p, q]}[kind]()
+    kw = dict(precision=precision, rs=S["rs"])
+    rows, offs, canch, av = S["rows"], S["offs"], S["canch"], S["av"]
+    if kind == "katyusha":
+        return fn(rows, offs, canch, st, a, *state, av, sc, B_, **kw)
+    if kind == "sarah":
+        return fn(rows, offs, st, *state, sc, B_, **kw)
+    if kind == "lsvrg":
+        return fn(rows, offs, canch, st, stop, *state, av, sc, B_, **kw)
+    return fn(rows, offs, canch, st, stop, a, *state, av, sc, B_, **kw)
+
+
+def compare_vr(kind, F, gen, dev, B_, K, lam, precision, tag, mode=0,
+               tau1=0.3) -> float:
+    """Kernel ``kind`` and its plain version from one state on one
+    schedule: every output within Z_TOL of its largest entry (SARAH's
+    estimator, a gradient mean, within STATE_TOL); returns the largest
+    absolute error of the iterate (y, ww, w)."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = vr_inputs(F, gen, dev, B_, K, mode)
+    sc = vr_scalars(S, kind, B_, lam, tau1)
+    name = VR[kind][0]
+    kern, plain = getattr(fb, name), getattr(fb, f"{name}_ref")
+    lowp = fb._lowp(S["rows"], precision)
+    if kind == "sarah":
+        return compare_sarah(kern, plain, S, sc, B_, K, precision, lowp, tag)
+    kout = vr_call(kind, kern, S, sc, B_, precision)
+    rout = vr_call(kind, plain, S, sc, B_, precision)
+    torch.cuda.synchronize()
+    moved = float((rout[0] - S["near"][0]).abs().max())
+    if moved == 0.0:
+        raise AssertionError(f"{tag}: the steps did not move the iterate")
+    rels = [check_rel(tag, i, k, r, Z_TOL[lowp])
+            for i, (k, r) in enumerate(zip(kout, rout))]
+    err = float((kout[0] - rout[0]).abs().max())
+    log(f"  {tag}: max |d iterate| {err:.3e}, rel errors "
+        f"{', '.join(f'{r:.2e}' for r in rels)}; moved {moved:.3e}")
+    return err
+
+
+def check_rel(tag, i, k, r, tol) -> float:
+    """The error of kernel output ``i`` relative to the plain version's
+    largest entry; raises past ``tol`` or on a non-finite value."""
+    if not bool(torch.isfinite(k).all()):
+        raise AssertionError(f"{tag}: kernel output {i} is not finite")
+    rel = float((k - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+    if rel > tol:
+        raise AssertionError(f"{tag}: output {i} rel error {rel:.3e} > {tol}")
+    return rel
+
+
+def compare_sarah(kern, plain, S, sc, B_, K, precision, lowp, tag) -> float:
+    """Kernel #11 against its plain version step by step: each step of
+    the plain trajectory is taken once more by the kernel from the same
+    state (ww within Z_TOL of its largest entry, the estimator v, a
+    gradient mean, within STATE_TOL), and the kernel's K-step call
+    equals its K one-step calls bit for bit. SARAH's Δc = c(w) − c(w_prev)
+    subtracts two nearly equal margins, so a difference of summation
+    order grows step by step through the recursion; where the dots round
+    to bf16 it can flip the rounding of a point, so a K-step comparison
+    holds no fixed bound."""
+    ww0 = torch.stack([S["xa"], S["near"][0]])
+    ref = [ww0.clone(), S["av"].clone()]
+    chain = [ww0.clone(), S["av"].clone()]
+    worst = [0.0, 0.0]
+    err = 0.0
+    for k in range(K):
+        st = S["starts"][k:k + 1]
+        one = [t.clone() for t in ref]
+        kern(S["rows"], S["offs"], st, *one, sc, B_, precision=precision,
+             rs=S["rs"])
+        kern(S["rows"], S["offs"], st, *chain, sc, B_, precision=precision,
+             rs=S["rs"])
+        plain(S["rows"], S["offs"], st, *ref, sc, B_, precision=precision,
+              rs=S["rs"])
+        torch.cuda.synchronize()
+        for i, tol in ((0, Z_TOL[lowp]), (1, STATE_TOL[lowp])):
+            worst[i] = max(worst[i], check_rel(f"{tag} step {k}", i, one[i],
+                                               ref[i], tol))
+        err = max(err, float((one[0] - ref[0]).abs().max()))
+    full = [ww0.clone(), S["av"].clone()]
+    kern(S["rows"], S["offs"], S["starts"], *full, sc, B_,
+         precision=precision, rs=S["rs"])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(full, chain)):
+        raise AssertionError(f"{tag}: the K-step call differs from its "
+                             "one-step calls")
+    moved = float((ref[0][1] - ww0[1]).abs().max())
+    if moved == 0.0:
+        raise AssertionError(f"{tag}: the steps did not move w")
+    log(f"  {tag}: per step max |d ww| {err:.3e}, rel errors ww "
+        f"{worst[0]:.2e}, v {worst[1]:.2e}; the K-step call equals its "
+        f"{K} one-step calls bit for bit; moved {moved:.3e}")
+    return err
+
+
+def vr_masked_identity(kind, F, gen, dev, B_, K, stop, tag) -> None:
+    """Kernels #16 and #17 with stop read on the device: stop < K − 1
+    equals the first stop + 1 steps alone and stop = K − 1 the whole
+    call, bit for bit (wpre/ypre included)."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = vr_inputs(F, gen, dev, B_, K)
+    sc = vr_scalars(S, kind, B_, LAM)
+    fn = getattr(fb, VR[kind][0])
+    i32 = dict(dtype=torch.int32, device=dev)
+    pairs = ((vr_call(kind, fn, S, sc, B_, stop=torch.tensor([stop], **i32)),
+              vr_call(kind, fn, S, sc, B_, starts=S["starts"][:stop + 1])),
+             (vr_call(kind, fn, S, sc, B_, stop=torch.tensor([K - 1], **i32)),
+              vr_call(kind, fn, S, sc, B_)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{tag}: masked steps changed the state")
+    log(f"  {tag}: steps k > {stop} masked: outputs bit-identical to the "
+        f"first {stop + 1} steps alone; stop = {K - 1} bit-identical to "
+        "the whole call")
+
+
+def phase_check_vr(gen, dev) -> dict:
+    """3k-3n: each of the four kernels against its plain version in
+    f32 "highest", f32 "default", bf16 and int8 rows, NormL1 and Zero, at
+    N = 8,192, n = 128, B = 128, K = 64 (Katyusha at the ns τ₁ = 0.5 and a
+    fixed 0.3), the Huber and logistic formulas (the mode and aux slots of
+    each scalars row), a width that is not whole 16-byte chunks, the masked
+    windows of #16 and #17, and K = 8 at the headline."""
+    s = VR_SMALL
+    errs = dict.fromkeys(VR, 0.0)
+    for storage, precision in STORAGES:
+        F, _, _ = lasso(gen, dev, s["N"], s["n"], storage)
+        for kind in VR:
+            for lam in (LAM, 0.0):
+                for tau1 in ((0.5, 0.3) if kind == "katyusha" else (0.3,)):
+                    tag = (f"{VR[kind][1]} N={s['N']} n={s['n']} B={s['B']} "
+                           f"K={s['K']} {storage}/{precision} "
+                           f"{'NormL1' if lam else 'Zero'}"
+                           + (f" tau1={tau1}" if kind == "katyusha" else ""))
+                    errs[kind] = max(errs[kind], compare_vr(
+                        kind, F, gen, dev, s["B"], s["K"], lam, precision,
+                        tag, tau1=tau1))
+        del F
+    for storage, cols, mode in (("f32", 128, 1), ("int8", 128, 2),
+                                ("f32", 202, 0)):
+        F, _, _ = lasso(gen, dev, s["N"], cols, storage)
+        if mode == 1:
+            F = type(F)(F.A, torch.sign(F.b), 1.0, F.row_scale)
+        for kind in VR:
+            tag = (f"{VR[kind][1]} N={s['N']} n={cols} {storage} mode "
+                   f"{mode}")
+            errs[kind] = max(errs[kind], compare_vr(
+                kind, F, gen, dev, s["B"], s["K"], LAM, "highest", tag,
+                mode=mode))
+        del F
+    for storage in ("f32", "int8"):
+        F, _, _ = lasso(gen, dev, s["N"], s["n"], storage)
+        for kind in ("lsvrg", "lkatyusha"):
+            vr_masked_identity(kind, F, gen, dev, s["B"], s["K"], s["stop"],
+                               f"{VR[kind][1]} K={s['K']} {storage}")
+        del F
+    for storage in ("f32", "int8"):
+        F, _, _ = lasso(gen, dev, N, n, storage)
+        for kind in VR:
+            tag = f"{VR[kind][1]} N={N} n={n} B={B} K={HEADLINE_K} {storage}"
+            errs[kind] = max(errs[kind], compare_vr(
+                kind, F, gen, dev, B, HEADLINE_K, LAM, "highest", tag))
+        del F
+        torch.cuda.empty_cache()
+    return {VR[k][0]: v for k, v in errs.items()}
+
+
+def run_vr_headline(kind: str, gen, dev, storage: str, card: str) -> dict:
+    """bench.py's configuration of ``kind`` at the headline, through its
+    kernel and kernel #6 (init, then VR_OUTER outer steps or
+    LOOPLESS_STEPS steps of the family's run): launch counts, a falling
+    objective, ms per outer step or per step; returns what phase 9
+    profiles."""
+    import numpy as np
+
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers import katyusha as kat
+    from ciao_tpu_torch.solvers import lsvrg as ls
+    from ciao_tpu_torch.solvers import sarah as sar
+    from ciao_tpu_torch.solvers.lsvrg import (
+        LOOPLESS_LAUNCH, _windows, draw_coins,
+    )
+
+    F, _, L = lasso(gen, dev, N, n, storage)
+    g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    if not fb.svrg_multistep_available(F, g, x0, B):
+        raise AssertionError(f"{kind} {storage}: the kernel's gate is closed")
+    Lm = L.max()
+    p = B / N
+    if kind == "katyusha":
+        cfg = kat.KatyushaCfg(N=N, batch=B, m=VR_M, block=True, ns=True,
+                              fused=True)
+        st0 = kat.katyusha_init(F, g, x0, Lm, 0.5, 0.5, 0, cfg)
+        run, steps, sol = kat.katyusha_run, VR_OUTER, "x_tilde"
+    elif kind == "sarah":
+        cfg = sar.SARAHCfg(N=N, batch=B, m=VR_M, block=True, fused=True)
+        st0 = sar.sarah_init(F, g, x0, 1.0 / (2.0 * Lm), 1.0, 0, cfg)
+        run, steps, sol = sar.sarah_run, VR_OUTER, "x_tilde"
+    elif kind == "lsvrg":
+        cfg = ls.LSVRGCfg(N=N, batch=B, block=True, fused=True)
+        st0 = ls.lsvrg_init(F, g, x0, 1.0 / (6.0 * Lm), p, 0, cfg)
+        run, steps, sol = ls.lsvrg_run, LOOPLESS_STEPS, "w"
+    else:
+        cfg = ls.LKatyushaCfg(N=N, batch=B, block=True, fused=True)
+        st0 = ls.lkatyusha_init(F, g, x0, Lm, 0.0, 1.0 / 3.0, 0.5, p, 0, cfg)
+        run, steps, sol = ls.lkatyusha_run, LOOPLESS_STEPS, "y"
+    name, label = VR[kind]
+    obj0 = cost(F, g, getattr(st0, sol))
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(F, g, st0, cfg, steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    d = {k: v - before[k] for k, v in counts().items()}
+    obj1 = cost(F, g, getattr(st, sol))
+    if kind in ("katyusha", "sarah"):
+        want = {name: steps, "coeff_apply_all": steps}
+        unit = "outer step"
+    else:
+        wins = _windows(np.flatnonzero(draw_coins(0, 1, steps, p)), steps,
+                        LOOPLESS_LAUNCH)
+        want = {name: len(wins),
+                "coeff_apply_all": sum(f for _, _, f in wins)}
+        unit = "step"
+    moved = {k: v for k, v in d.items() if v}
+    for t in st:
+        if isinstance(t, torch.Tensor) and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{kind} {storage}: a state field is not "
+                                 "finite")
+    ms = dt * 1e3 / steps
+    log(f"  {kind} headline {storage}: N={N} n={n} B={B}, {steps} "
+        f"{unit}s: launches {moved}, objective {obj0:.6e} -> {obj1:.6e}, "
+        f"{ms:.4f} ms per {unit} end to end [{card}]")
+    if moved != want:
+        raise AssertionError(f"{kind} {storage}: launches {moved}, expected "
+                             f"{want}")
+    if not (math.isfinite(obj1) and obj1 < obj0) or st.it != steps + 1:
+        raise AssertionError(f"{kind} {storage}: objective {obj0} -> {obj1}, "
+                             f"it {st.it}")
+    return dict(ms=ms, F=F, g=g, st=st0, cfg=cfg, run=run)
+
+
+def run_vr_facade(kind: str, dev, prob, F, card: str) -> None:
+    """The family's facade, as a user calls it, on the facades' planted
+    Lasso: block sampling at batch 1,024 and its default stepsizes; cost −
+    f* must fall by its bar in VR_FACADE, every run on its kernel."""
+    import numpy as np
+
+    import ciao_tpu_torch as ct
+
+    kw = VR_FACADE[kind]
+    facade = {"katyusha": ct.Katyusha, "sarah": ct.SARAH,
+              "lsvrg": ct.LSVRG, "lkatyusha": ct.LKatyusha}[kind]
+    gap0 = prob.cost(np.zeros(n)) - prob.f_star
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, it = facade(maxit=kw["maxit"], batch=kw["batch"],
+                   block_sampling=True)(torch.zeros(n, device=dev), F=F,
+                                        g=ct.NormL1(prob.lam), L=prob.L)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    moved = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    gap1 = prob.cost(x.double().cpu().numpy()) - prob.f_star
+    log(f"  facade {facade.__name__}(block_sampling=True, batch="
+        f"{kw['batch']}, maxit={kw['maxit']}) on planted make_lasso(N="
+        f"{FACADE['N']}, n={n}): cost - f* {gap0:.6e} -> {gap1:.6e} "
+        f"({gap0 / gap1:.1f}-fold, bar {kw['drop']:g}), launches {moved}, "
+        f"{dt:.3f} s [{card}]")
+    if not (math.isfinite(gap1) and gap0 / gap1 >= kw["drop"]):
+        raise AssertionError(f"facade {kind}: cost - f* {gap0} -> {gap1}")
+    if not moved.get(VR[kind][0]) or set(moved) - {VR[kind][0],
+                                                    "coeff_apply_all"}:
+        raise AssertionError(f"facade {kind}: launches {moved}")
+
+
+def run_katyusha_to_rel(dev, seed: int, card: str) -> float:
+    """bench.py:1596-1649: Katyusha (ns, m = 2N/B, B = 4,096, f32 rows) on
+    the planted 65,536 x 1,024 Lasso with p = 64, in chunks of 8 outer
+    steps until the cost is within rel 1e-3 of f*; returns the seconds
+    (after one warm chunk, as bench.py times)."""
+    import numpy as np
+
+    from ciao_tpu_torch import LeastSquaresRows, NormL1
+    from ciao_tpu_torch.solvers.katyusha import (
+        KatyushaCfg, katyusha_init, katyusha_run,
+    )
+    from ciao_tpu_torch.utils.problems import make_lasso
+
+    c = KATYUSHA_TTR
+    Np = c["N"]
+    prob = make_lasso(N=Np, n=n, p=c["p"], seed=seed, dtype=np.float32,
+                      well_conditioned=True)
+    F = LeastSquaresRows(torch.tensor(prob.A, device=dev),
+                         torch.tensor(prob.b, device=dev), float(Np))
+    g = NormL1(torch.tensor(prob.lam, dtype=torch.float32, device=dev))
+    target = prob.f_star + c["rel"] * abs(prob.f_star)
+    A64 = torch.tensor(prob.A, dtype=torch.float64, device=dev)
+    b64 = torch.tensor(prob.b, dtype=torch.float64, device=dev)
+
+    def cost64(z):
+        r = A64 @ z.double() - b64
+        return float(0.5 * (r @ r) + prob.lam * z.double().abs().sum())
+
+    cfg = KatyushaCfg(N=Np, batch=B, m=2 * Np // B, block=True, ns=True,
+                      fused=True)
+    st0 = katyusha_init(F, g, torch.zeros(n, device=dev),
+                        float(np.max(prob.L)), 0.5, 0.5, 0, cfg)
+    katyusha_run(F, g, st0, cfg, c["chunk"])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, outers, reached = st0, 0, False
+    for _ in range(c["max_chunks"]):
+        if cost64(st.x_tilde) <= target:
+            reached = True
+            break
+        st = katyusha_run(F, g, st, cfg, c["chunk"])
+        outers += c["chunk"]
+    reached = reached or cost64(st.x_tilde) <= target
+    dt = time.perf_counter() - t0
+    rel = (cost64(st.x_tilde) - prob.f_star) / abs(prob.f_star)
+    log(f"  time to rel {c['rel']:g}, {Np} x {n} planted Lasso (p="
+        f"{c['p']}) [katyusha f32, ns, m={cfg.m}, B={B}]: "
+        f"{'reached' if reached else 'NOT reached'} in {dt:.3f} s, "
+        f"{outers} outer steps (~{2 * outers} epochs), rel {rel:.3e} "
+        f"[{card}]")
+    if not reached:
+        raise AssertionError(f"katyusha time to rel: not reached in {outers} "
+                             "outer steps")
+    return dt
+
+
+def time_vr(kind: str, r: dict, gen, dev, storage: str, card: str) -> dict:
+    """Kernel ``kind`` per step at the headline in turns with its plain
+    version: calls of LAUNCH_STEPS steps (Katyusha, SARAH) or of
+    LOOPLESS_LAUNCH steps (the loopless pair, whose windows are at most
+    that long), one state stepped on in place. The bound counts the rows,
+    b and (but SARAH) the anchor coefficients of the distinct blocks
+    visited, the (n,) vectors in and out, and 4·B·n operations a step
+    (SARAH's second margin: 6·B·n)."""
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.solvers.lsvrg import LOOPLESS_LAUNCH
+    from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
+
+    K = LOOPLESS_LAUNCH if kind in ("lsvrg", "lkatyusha") else LAUNCH_STEPS
+    S = vr_inputs(r["F"], gen, dev, B, K)
+    sc = vr_scalars(S, kind, B, LAM)
+    name = VR[kind][0]
+    p, q = S["near"][0].clone(), S["near"][1].clone()
+    state = {"katyusha": [p, q, torch.zeros_like(p)],
+             "sarah": [torch.stack([S["xa"], p]), S["av"].clone()],
+             "lsvrg": [p], "lkatyusha": [p, q]}[kind]
+    vec = {"katyusha": 8, "sarah": 6, "lsvrg": 4, "lkatyusha": 7}[kind]
+    bnd = step_bound(r["F"], S["starts"], B, vec * 4 * n,
+                     4 if kind == "sarah" else 8,
+                     6.0 if kind == "sarah" else 4.0)
+
+    def run(fn):
+        def call():
+            vr_call(kind, fn, S, sc, B, state=state)
+            return K
+        return call
+    times = time_turns(run(getattr(fb, name)), run(getattr(fb, f"{name}_ref")),
+                       f"kernel {VR[kind][1]}, {storage} rows, N={N} n={n} "
+                       f"B={B}", card, bnd)
+    if not all(bool(torch.isfinite(t).all()) for t in state):
+        raise AssertionError(f"the timed kernel {VR[kind][1]} steps gave "
+                             "non-finite values")
+    return times
+
+
+VR_GROUPS = {kind: {"kernel #6": ("apply_",),
+                    f"kernel {label}": ("rows_kernel", "finish_kernel",
+                                        "point_kernel")}
+             for kind, (_, label) in VR.items()}
+
+
 PROSHI_GROUPS = {"kernel #18": ("rows_kernel", "proshi_finish")}
 SAGA_BLOCK_GROUPS = {"kernel #1": ("rows_kernel", "finish_kernel")}
 FINITO_GROUPS = {"kernel #9": ("rows_kernel", "finito_finish")}
@@ -2178,14 +2677,18 @@ KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
            "svrg_coeff_multistep", "coeff_apply_all",
            "finito_coeff_multistep", "finito_coeff_multistep_streamed",
            "lfinito_sweep_multistep", "finito_block_update",
-           "saga_block_update", "proshi_multistep")
+           "saga_block_update", "proshi_multistep",
+           "katyusha_coeff_multistep", "sarah_multistep",
+           "lsvrg_coeff_multistep", "lkatyusha_coeff_multistep")
 # the def line of the TPU kernel each replaces, in ciao_tpu/ops/fused_block.py
 REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
             "svrg_coeff_multistep": 966, "coeff_apply_all": 798,
             "finito_coeff_multistep": 1343,
             "finito_coeff_multistep_streamed": 2324,
             "lfinito_sweep_multistep": 1170, "finito_block_update": 1032,
-            "saga_block_update": 164, "proshi_multistep": 2964}
+            "saga_block_update": 164, "proshi_multistep": 2964,
+            "katyusha_coeff_multistep": 1607, "sarah_multistep": 1774,
+            "lsvrg_coeff_multistep": 2628, "lkatyusha_coeff_multistep": 2772}
 
 
 def build_all() -> None:
@@ -2256,6 +2759,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -2587,6 +3091,54 @@ def main() -> int:
         f"{times8['#1', 'bf16']['ms']:.4f}, "
         f"{times8['#1', 'bf16']['call_ms']:.4f} [{card}]")
 
+    # 3k-3n. kernels #10, #11, #16, #17 == their plain versions
+    errs.update(phase_check_vr(gen, dev))
+    log(f"phase 3k-3n kernels #10, #11, #16, #17 == plain versions: ok, max "
+        f"|d iterate| " + ", ".join(f"{VR[k][1]} {errs[VR[k][0]]:.3e}"
+                                    for k in VR))
+    torch.cuda.empty_cache()
+
+    # 4k-4n. the SVRG-shaped families at the headline, their facades and
+    # Katyusha's time to rel 1e-3, each family with counts from 0
+    vr = {}
+    for phase, fam in zip("klmn", VR):
+        name = VR[fam][0]
+        reset_counts()
+        vr[fam] = {s_: run_vr_headline(fam, gen, dev, s_, card)
+                    for s_ in ("f32", "int8")}
+        run_vr_facade(fam, dev, fprob, fF, card)
+        if fam == "katyusha":
+            run_katyusha_to_rel(dev, args.seed, card)
+        c = counts()
+        if c[name] == 0 or c["coeff_apply_all"] == 0 or sum(
+                c.values()) != c[name] + c["coeff_apply_all"]:
+            raise AssertionError(f"the {fam} path did not run on kernels "
+                                 f"{VR[fam][1]} and #6 alone: {c}")
+        launches[name] = c[name]
+        launches["coeff_apply_all"] += c["coeff_apply_all"]
+        log(f"phase 4{phase} {fam} path: ok, launches "
+            f"{ {k: v for k, v in c.items() if v} }")
+        torch.cuda.empty_cache()
+
+    # 9. the four kernels in turns with their plain versions, and a window
+    # of each family profiled
+    times9 = {}
+    for fam, runs in vr.items():
+        steps = 8 if fam in ("katyusha", "sarah") else 2_048
+        for storage, r in runs.items():
+            times9[fam, storage] = time_vr(fam, r, gen, dev, storage, card)
+            profile_steps(f"{fam} at the headline, {storage} rows",
+                          lambda: r["run"](r["F"], r["g"], r["st"], r["cfg"],
+                                           steps), steps, card,
+                          VR_GROUPS[fam],
+                          unit="outer step" if steps == 8 else "step")
+    del vr, runs, r
+    log("phase 9 times: " + "; ".join(
+        f"kernel {VR[k][1]} {s_} {t['ms']:.4f} ms/step (plain "
+        f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.5f})"
+        for (k, s_), t in times9.items()) + f" [{card}]")
+
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         kernel_line("saga_coeff_multistep", launches["saga_coeff_multistep"],
                     errs["saga_coeff_multistep"], times["int8"]),
@@ -2613,9 +3165,11 @@ def main() -> int:
                     errs["saga_block_update"], times8["#1", "f32"]),
         kernel_line("proshi_multistep", launches["proshi_multistep"],
                     errs["proshi_multistep"], times8["#18", "f32"]),
+        *(kernel_line(VR[k][0], launches[VR[k][0]], errs[VR[k][0]],
+                      times9[k, "f32"]) for k in VR),
     ]}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -24,7 +24,11 @@ adaptive Finito; SAGA's full (N, n) table on ``saga_block_update``; the
 sharing family: ``Proshi`` on ``proshi_multistep`` (dense row oracles;
 the sharing terms ``DiagQuadratic``, ``SqrDistBox``, ``SumOracle`` run
 stepwise) with the coupling proxes ``IndBox``/``NormL1``/``Zero``, and
-``deep_solve_sharing``. The rest is queued in ROADMAP.md. Imports
+``deep_solve_sharing``; the families beyond the reference whose inner
+step is SVRG's: ``Katyusha`` (``katyusha_coeff_multistep``), ``SARAH``
+(``sarah_multistep``), ``LSVRG`` and ``LKatyusha``
+(``lsvrg_coeff_multistep``, ``lkatyusha_coeff_multistep``), each with
+its anchor on ``coeff_apply_all``. The rest is queued in ROADMAP.md. Imports
 torch and numpy, never jax. Entry points run on the card unless the
 caller names the CPU (a CPU tensor or ``device="cpu"``).
 """
@@ -36,8 +40,9 @@ from ciao_tpu_torch.oracles import (
 )
 from ciao_tpu_torch.prox import IndBox, NormL1, Zero
 from ciao_tpu_torch.solvers import (
-    FISTA, SAG, SAGA, SVRG, DeepSharingInfo, DeepSolveInfo, Finito,
-    ForwardBackward, Proshi, StagedInfo, deep_solve, deep_solve_sharing,
+    FISTA, LSVRG, SAG, SAGA, SARAH, SVRG, DeepSharingInfo, DeepSolveInfo,
+    Finito, ForwardBackward, Katyusha, LKatyusha, Proshi, StagedInfo,
+    deep_solve, deep_solve_sharing,
     fista_polish, grad_mean_chunked, halt, iterator, loop, lsq_power_lmax,
     power_lmax, proshi_resync, sharing_objective, solution, staged_saga,
     take,
@@ -63,6 +68,10 @@ __all__ = [
     "SVRG",
     "Finito",
     "Proshi",
+    "Katyusha",
+    "SARAH",
+    "LSVRG",
+    "LKatyusha",
     "ForwardBackward",
     "FISTA",
     "deep_solve",

@@ -26,6 +26,9 @@ from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.solvers.base import Status
 from ciao_tpu_torch.sampling import SweepState
 from ciao_tpu_torch.solvers.fb import FBState
+from ciao_tpu_torch.solvers.katyusha import KatyushaState
+from ciao_tpu_torch.solvers.lsvrg import LKatyushaState, LSVRGState
+from ciao_tpu_torch.solvers.sarah import SARAHState
 from ciao_tpu_torch.solvers.finito import (
     FinitoAdaptiveState, FinitoBasicState, FinitoCoeffState, LFinitoState,
 )
@@ -171,3 +174,60 @@ def proshi_state_from_numpy(s, gamma, hat_gamma, av, z, pos, order, it,
     return ProshiState(s=tensor_from_numpy(s, device),
                        **_common(gamma, hat_gamma, av, z, pos, order, it,
                                  seed, device))
+
+
+def _anchor(canch, device):
+    """A fused state's anchor coefficients, an (8, N/8) slab in the JAX
+    package, as the flat (N,) table; None (the stepwise routes) stays
+    None."""
+    return None if canch is None else _flat(canch, device)
+
+
+def katyusha_state_from_numpy(Lmax, tau1, tau2, av, x_tilde, y, z, it,
+                              seed: int = 0, canch=None,
+                              device=None) -> KatyushaState:
+    """``KatyushaState`` from the JAX state's fields (``canch`` flattened,
+    as :func:`svrg_state_from_numpy`'s)."""
+    return KatyushaState(
+        Lmax=tensor_from_numpy(Lmax, device),
+        tau1=tensor_from_numpy(tau1, device),
+        tau2=tensor_from_numpy(tau2, device), av=_flat(av, device),
+        x_tilde=_flat(x_tilde, device), y=_flat(y, device),
+        z=_flat(z, device), seed=int(seed), it=int(it),
+        status=int(Status.RUNNING), canch=_anchor(canch, device))
+
+
+def sarah_state_from_numpy(gamma, eta, x_tilde, it, seed: int = 0,
+                           device=None) -> SARAHState:
+    """``SARAHState`` from the JAX state's ``gamma``, ``eta``,
+    ``x_tilde`` and ``it``."""
+    return SARAHState(gamma=tensor_from_numpy(gamma, device),
+                      eta=tensor_from_numpy(eta, device),
+                      x_tilde=_flat(x_tilde, device), seed=int(seed),
+                      it=int(it), status=int(Status.RUNNING))
+
+
+def lsvrg_state_from_numpy(gamma, p, av, z, w, it, seed: int = 0,
+                           canch=None, device=None) -> LSVRGState:
+    """``LSVRGState`` from the JAX state's fields; ``p`` comes over as a
+    number (the port compares its coins with it in f32)."""
+    return LSVRGState(
+        gamma=tensor_from_numpy(gamma, device), p=float(np.asarray(p)),
+        av=_flat(av, device), z=_flat(z, device), w=_flat(w, device),
+        seed=int(seed), it=int(it), status=int(Status.RUNNING),
+        canch=_anchor(canch, device))
+
+
+def lkatyusha_state_from_numpy(Lmax, sigma, theta1, theta2, p, av, w_anchor,
+                               y, z, it, seed: int = 0, canch=None,
+                               device=None) -> LKatyushaState:
+    """``LKatyushaState`` from the JAX state's fields; ``p`` as in
+    :func:`lsvrg_state_from_numpy`."""
+    return LKatyushaState(
+        Lmax=tensor_from_numpy(Lmax, device),
+        sigma=tensor_from_numpy(sigma, device),
+        theta1=tensor_from_numpy(theta1, device),
+        theta2=tensor_from_numpy(theta2, device), p=float(np.asarray(p)),
+        av=_flat(av, device), w_anchor=_flat(w_anchor, device),
+        y=_flat(y, device), z=_flat(z, device), seed=int(seed), it=int(it),
+        status=int(Status.RUNNING), canch=_anchor(canch, device))

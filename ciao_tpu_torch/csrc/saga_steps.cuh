@@ -1,5 +1,5 @@
 // Coefficient block steps on an NVIDIA Hopper card (sm_90a): the device code
-// shared by six kernels of ciao_tpu_torch/ops/fused_block.py,
+// shared by ten kernels of ciao_tpu_torch/ops/fused_block.py,
 //
 //   saga_coeff_multistep.cu             replaces ciao_tpu/ops/fused_block.py
 //                                       saga_coeff_multistep (SAGA/SAG steps);
@@ -13,7 +13,16 @@
 //                                       finito_coeff_multistep_streamed (the
 //                                       same, steps k >= f masked);
 //   lfinito_sweep_multistep.cu          replaces lfinito_sweep_multistep
-//                                       (an LFinito block sweep).
+//                                       (an LFinito block sweep);
+//   katyusha_coeff_multistep.cu         replaces katyusha_coeff_multistep
+//                                       (Katyusha inner steps);
+//   sarah_multistep.cu                  replaces sarah_multistep (SARAH's
+//                                       recursive steps);
+//   lsvrg_coeff_multistep.cu            replaces lsvrg_coeff_multistep
+//                                       (L-SVRG steps, masked past stop);
+//   lkatyusha_coeff_multistep.cu        replaces lkatyusha_coeff_multistep
+//                                       (L-Katyusha steps, masked past
+//                                       stop).
 //
 // The Python wrappers and the design notes are in ops/fused_block.py; the plain
 // PyTorch versions of the same arithmetic are the *_ref functions there.
@@ -52,6 +61,19 @@
 // step k+1's, and the last finish leaves z alone, so the launch returns the
 // last block's prox point (not soft of the returned av).
 //
+// Katyusha and L-Katyusha take theirs at the coupled point x = t1 z + t2 x~
+// + (1 - t1 - t2) y (x~ the anchor point, constant in a launch) the same
+// way: a prologue forms step 0's x into an (n,) scratch, each finish, after
+// updating z and y on its columns, forms the next step's x there; the row
+// phase's Delta c is c(x) - c_anchor, the opposite sign of SVRG's. SARAH
+// takes two margins, at w_prev and at w, from one staged row: both points
+// are staged in shared memory (rounded to bf16 when the dots are), and its
+// finish writes w_prev <- w, w <- w_next column by column. L-SVRG and
+// L-Katyusha mask the steps past a stop index read on the device (step k is
+// masked iff k > *stop: the launch processes stop + 1 steps) and record the
+// pre-update iterate of each processed step (wpre, ypre), so the last one
+// leaves the launch.
+//
 // Row offsets are 64-bit (start * n reaches 1.3e9 at the 10,485,760 x 128
 // deep target); block starts are int32, which the wrappers check (N < 2^31).
 
@@ -65,30 +87,82 @@ constexpr int kRowThreads = 256;
 constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kMaxRowsPerCta = 32;
 
-// The scalars row of each method, scale first and (mode, aux) last:
-// SAGA     [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux];
-// SVRG     [scale, gamma, gamma*lambda, 1/B, mode, aux];
-// Finito   [scale, 1/N, hat, hat*lambda, mode, aux];
-// LFinito  [scale, hat, hat*lambda, 1/N, mode, aux].
-enum Method { kSaga = 0, kSvrg = 1, kFinito = 2, kLFinito = 3 };
+// The scalars row of each method, scale first and (mode, aux) where
+// ScalarIndex says:
+// SAGA        [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux];
+// SVRG        [scale, gamma, gamma*lambda, 1/B, mode, aux];
+// Finito      [scale, 1/N, hat, hat*lambda, mode, aux];
+// LFinito     [scale, hat, hat*lambda, 1/N, mode, aux];
+// Katyusha    [scale, alpha, beta, alpha*lambda, beta*lambda, 1/B, mode,
+//              tau1, tau2, aux];
+// SARAH       [scale, gamma, gamma*lambda, eta, 1/B, mode, aux];
+// L-SVRG      [scale, gamma, gamma*lambda, 1/B, mode, aux];
+// L-Katyusha  [scale, eta/L, tau*lambda, 1/(1 + eta*sigma), eta*sigma,
+//              theta1, theta2, 1/B, mode, aux].
+enum Method {
+  kSaga = 0,
+  kSvrg = 1,
+  kFinito = 2,
+  kLFinito = 3,
+  kKatyusha = 4,
+  kSarah = 5,
+  kLsvrg = 6,
+  kLKatyusha = 7
+};
 
-// Whether the row phase refreshes the coefficient table (SAGA, Finito) or
-// reads an anchor table (SVRG, LFinito).
+// Whether the row phase refreshes the coefficient table (SAGA, Finito), or
+// reads an anchor table (the others but SARAH, which has none).
 __host__ __device__ constexpr bool writes_table(Method M) {
   return M == kSaga || M == kFinito;
 }
 
+// Whether the margins are taken at the coupled point x and dc is
+// c(x) - c_anchor (Katyusha, L-Katyusha), not anchor minus live.
+__host__ __device__ constexpr bool coupled(Method M) {
+  return M == kKatyusha || M == kLKatyusha;
+}
+
+// Whether a step is masked past a stop index (k > *stop) rather than by a
+// clamp count (k >= *fclamp).
+__host__ __device__ constexpr bool stops(Method M) {
+  return M == kLsvrg || M == kLKatyusha;
+}
+
+// The (n,) points the row phase stages: SARAH's w_prev and w, else one.
+__host__ __device__ constexpr int points(Method M) {
+  return M == kSarah ? 2 : 1;
+}
+
 template <Method M>
 struct ScalarIndex {
-  static constexpr int kMode = M == kSaga ? 6 : 4;
-  static constexpr int kAux = M == kSaga ? 7 : 5;
+  static constexpr int kMode =
+      (M == kSaga || M == kKatyusha) ? 6
+      : M == kSarah                  ? 5
+      : M == kLKatyusha              ? 8
+                                     : 4;
+  static constexpr int kAux = (M == kKatyusha || M == kLKatyusha) ? 9
+                              : (M == kSaga)                      ? 7
+                              : (M == kSarah)                     ? 6
+                                                                  : 5;
 };
 
-// Shared memory: the tile (rows x n of T), then z (n floats), then per row
-// dc, b, c and rs (rows floats each); the per-row values are fetched while
-// the tile is in flight. c is the table (SAGA, Finito: written back) or the
-// anchor coefficients (SVRG, LFinito: read only); z is the point of the
-// margins.
+// Whether step k does nothing: past the clamp count (the streamed kernels)
+// or past the stop index (L-SVRG, L-Katyusha); a uniform branch.
+template <Method M>
+__device__ __forceinline__ bool step_masked(const int* fclamp, int k) {
+  if constexpr (stops(M)) {
+    return fclamp != nullptr && k > *fclamp;
+  } else {
+    return masked(fclamp, k);
+  }
+}
+
+// Shared memory: the tile (rows x n of T), then the points (n floats each),
+// then per row dc, b, c and rs (rows floats each); the per-row values are
+// fetched while the tile is in flight. c is the table (SAGA, Finito:
+// written back) or the anchor coefficients (read only; SARAH reads none);
+// z is the point of the margins (x for Katyusha and L-Katyusha; SARAH's
+// 2n values [w_prev; w]).
 template <Method M, typename T, bool kLowp, bool kVec>
 __global__ void __launch_bounds__(kRowThreads)
 rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
@@ -97,12 +171,12 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
             const int* __restrict__ fclamp, int k,
             const float* __restrict__ sc, float* __restrict__ part, int n,
             int rows) {
-  if (masked(fclamp, k)) return;
+  if (step_masked<M>(fclamp, k)) return;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   T* tile = reinterpret_cast<T*>(smem);
   float* zs = reinterpret_cast<float*>(smem + tile_bytes(rows, n, sizeof(T)));
-  float* dcs = zs + n;
+  float* dcs = zs + points(M) * n;
   float* bs = dcs + rows;
   float* cs = bs + rows;
   float* rss = cs + rows;
@@ -114,13 +188,13 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
 
   stage_rows<T, kVec>(tile, A + start * n, rows * n, tid, kRowThreads);
   if (kVec) __pipeline_commit();
-  for (int j = tid; j < n; j += kRowThreads) {
+  for (int j = tid; j < points(M) * n; j += kRowThreads) {
     const float v = z[j];
     zs[j] = kLowp ? bf16_round(v) : v;
   }
   if (tid < rows) {
     bs[tid] = b[start + tid];
-    cs[tid] = c[start + tid];
+    if constexpr (M != kSarah) cs[tid] = c[start + tid];
     rss[tid] = rs != nullptr ? rs[start + tid] : 1.0f;
   }
   if (kVec) __pipeline_wait_prior(0);
@@ -130,17 +204,31 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
   const int mode = static_cast<int>(sc[ScalarIndex<M>::kMode]);
   const float aux = sc[ScalarIndex<M>::kAux];
   for (int r = warp; r < rows; r += kRowWarps) {
-    float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
-    if (lane == 0) {
+    float dc;
+    if constexpr (M == kSarah) {
+      float m0, m1;
+      warp_dot2<kLowp, kVec>(tile + r * n, zs, zs + n, n, lane, m0, m1);
+      if (rs != nullptr) {
+        m0 *= rss[r];
+        m1 *= rss[r];
+      }
+      // grad f_i(w) - grad f_i(w_prev)
+      dc = coeff_formula(mode, m1, bs[r], scale, aux) -
+           coeff_formula(mode, m0, bs[r], scale, aux);
+    } else {
+      float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
       if (rs != nullptr) m *= rss[r];
       const float c_new = coeff_formula(mode, m, bs[r], scale, aux);
-      float dc;
       if (writes_table(M)) {
         dc = c_new - cs[r];
-        c[start + r] = c_new;
+        if (lane == 0) c[start + r] = c_new;
+      } else if (coupled(M)) {
+        dc = c_new - cs[r];  // live at x minus anchor
       } else {
         dc = cs[r] - c_new;  // anchor minus live
       }
+    }
+    if (lane == 0) {
       if (rs != nullptr) dc *= rss[r];
       dcs[r] = kLowp ? bf16_round(dc) : dc;
     }
@@ -269,6 +357,113 @@ prox_kernel(const float* __restrict__ av, float* __restrict__ z,
   if (j < n) z[j] = soft_threshold(av[j], sc[thr_slot]);
 }
 
+// The coupled point t1 z + t2 xa + (1 - t1 - t2) y of Katyusha and
+// L-Katyusha, in the plain versions' order of operations.
+__device__ __forceinline__ float coupled_point(float t1, float t2, float z,
+                                               float xa, float y) {
+  return (t1 * z + t2 * xa) + ((1.0f - t1) - t2) * y;
+}
+
+// x <- the coupled point on every column: step 0's margins' point. t1 and t2
+// are the scalars row's slots t_slot and t_slot + 1.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+point_kernel(const float* __restrict__ zm, const float* __restrict__ xa,
+             const float* __restrict__ y, float* __restrict__ x,
+             const float* __restrict__ sc, int t_slot, int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < n)
+    x[j] = coupled_point(sc[t_slot], sc[t_slot + 1], zm[j], xa[j], y[j]);
+}
+
+// Katyusha (Allen-Zhu 2018, Option II) on a block: with the estimate
+// g~ = av + sum / B, sum = sum (c(x) - c_anchor) a_i,
+// z <- soft(z - alpha g~, alpha lambda), y <- soft(x - beta g~, beta lambda),
+// ys += y; then the next step's x from the new z and y.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+katyusha_finish_kernel(const float* __restrict__ part, int parts,
+                       float* __restrict__ x, float* __restrict__ y,
+                       float* __restrict__ zm, float* __restrict__ ys,
+                       const float* __restrict__ xt,
+                       const float* __restrict__ av,
+                       const float* __restrict__ sc, int n) {
+  int j;
+  float innov;
+  if (!column_sum(part, parts, n, j, innov)) return;
+  const float gr = av[j] + innov * sc[5];
+  const float z_new = soft_threshold(zm[j] - sc[1] * gr, sc[3]);
+  const float y_new = soft_threshold(x[j] - sc[2] * gr, sc[4]);
+  zm[j] = z_new;
+  y[j] = y_new;
+  ys[j] += y_new;
+  x[j] = coupled_point(sc[7], sc[8], z_new, xt[j], y_new);
+}
+
+// SARAH's recursion and ProxSARAH's damped prox on a block: v += sum / B
+// with sum = sum (c(w) - c(w_prev)) a_i, y = soft(w - gamma v, gamma
+// lambda), then w_prev <- w and w <- w + eta (y - w). ww is [w_prev; w].
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+sarah_finish_kernel(const float* __restrict__ part, int parts,
+                    float* __restrict__ ww, float* __restrict__ v,
+                    const float* __restrict__ sc, int n) {
+  int j;
+  float innov;
+  if (!column_sum(part, parts, n, j, innov)) return;
+  const float v_new = v[j] + innov * sc[4];
+  const float w = ww[n + j];
+  const float yv = soft_threshold(w - sc[1] * v_new, sc[2]);
+  v[j] = v_new;
+  ww[j] = w;
+  ww[n + j] = w + sc[3] * (yv - w);
+}
+
+// L-SVRG (Kovalev et al. 2020, Alg. 2) on a block, masked past *stop:
+// wpre <- w, w <- soft(w + gamma (sum / B - av), gamma lambda) with
+// sum = sum (c_anchor - c(w)) a_i.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+lsvrg_finish_kernel(const float* __restrict__ part, int parts,
+                    float* __restrict__ w, float* __restrict__ wpre,
+                    const float* __restrict__ av,
+                    const float* __restrict__ sc,
+                    const int* __restrict__ stop, int k, int n) {
+  if (step_masked<kLsvrg>(stop, k)) return;
+  int j;
+  float innov;
+  if (!column_sum(part, parts, n, j, innov)) return;
+  const float w_old = w[j];
+  wpre[j] = w_old;
+  w[j] = soft_threshold(w_old + sc[1] * (innov * sc[3] - av[j]), sc[2]);
+}
+
+// L-Katyusha (Kovalev et al. 2020, Alg. 3, proximal z-step) on a block,
+// masked past *stop: g~ = av + sum / B with sum = sum (c(x) - c_anchor) a_i,
+// z_new = soft((z + eta sigma x - (eta/L) g~) / (1 + eta sigma), tau lambda),
+// ypre <- y, y <- x + theta1 (z_new - z), z <- z_new; then the next step's
+// x against the anchor point wa.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+lkatyusha_finish_kernel(const float* __restrict__ part, int parts,
+                        float* __restrict__ x, float* __restrict__ y,
+                        float* __restrict__ zm, float* __restrict__ ypre,
+                        const float* __restrict__ wa,
+                        const float* __restrict__ av,
+                        const float* __restrict__ sc,
+                        const int* __restrict__ stop, int k, int n) {
+  if (step_masked<kLKatyusha>(stop, k)) return;
+  int j;
+  float innov;
+  if (!column_sum(part, parts, n, j, innov)) return;
+  const float th1 = sc[5];
+  const float xj = x[j];
+  const float z_old = zm[j];
+  const float gr = av[j] + innov * sc[7];
+  const float z_new =
+      soft_threshold((z_old + sc[4] * xj - sc[1] * gr) * sc[3], sc[2]);
+  const float y_new = xj + th1 * (z_new - z_old);
+  ypre[j] = y[j];
+  y[j] = y_new;
+  zm[j] = z_new;
+  x[j] = coupled_point(th1, sc[6], z_new, wa[j], y_new);
+}
+
 // The arguments of one call: K steps on one stream. SAGA: c the table, z the
 // iterate, av the running average, zs NULL. SVRG: c the anchor coefficients
 // (read only), z the inner iterate w, av the anchor's mean gradient (read
@@ -278,7 +473,13 @@ prox_kernel(const float* __restrict__ av, float* __restrict__ z,
 // when invg_by_pos). LFinito: c the epoch's anchor coefficients (read only),
 // z the (n,) output (the margins' point, then the last block's prox point),
 // av the running average, zf the epoch's anchor point z_full and invg the
-// visited blocks' sums of 1/gamma_i in visit order.
+// visited blocks' sums of 1/gamma_i in visit order. Katyusha: c the anchor
+// coefficients c(x~), z an (n,) scratch for x, av the anchor's mean
+// gradient, zs the running sum of y, y and zm the two sequences, xa = x~.
+// SARAH: c NULL, z the (2, n) pair [w_prev; w], v the estimator. L-SVRG: c
+// the anchor coefficients, z the iterate w, av, pre = wpre, fclamp the stop
+// index. L-Katyusha: Katyusha's, with xa the anchor point w, pre = ypre and
+// fclamp the stop index.
 struct StepArgs {
   const void* A;
   const float* b;
@@ -298,13 +499,19 @@ struct StepArgs {
   const float* invg = nullptr;
   int invg_by_pos = 0;
   const float* zf = nullptr;
+  float* y = nullptr;
+  float* zm = nullptr;
+  const float* xa = nullptr;
+  float* pre = nullptr;
+  float* v = nullptr;
 };
 
 template <Method M, typename T, bool kLowp, bool kVec>
 cudaError_t run_steps(const StepArgs& a) {
   const int parts = a.B / a.rows;
-  const size_t smem = tile_bytes(a.rows, a.n, sizeof(T)) +
-                      sizeof(float) * static_cast<size_t>(a.n + 4 * a.rows);
+  const size_t smem =
+      tile_bytes(a.rows, a.n, sizeof(T)) +
+      sizeof(float) * static_cast<size_t>(points(M) * a.n + 4 * a.rows);
   auto kernel = rows_kernel<M, T, kLowp, kVec>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -314,9 +521,15 @@ cudaError_t run_steps(const StepArgs& a) {
   }
   const int finish_blocks = (a.n + kFinishCols - 1) / kFinishCols;
   constexpr int kFinishThreads = kFinishCols * kFinishWarps;
+  const int col_blocks = (a.n + kFinishThreads - 1) / kFinishThreads;
   if constexpr (M == kLFinito) {
-    prox_kernel<<<(a.n + kFinishThreads - 1) / kFinishThreads, kFinishThreads,
-                  0, a.stream>>>(a.av, a.z, a.sc, 2, a.n);
+    prox_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(a.av, a.z, a.sc,
+                                                              2, a.n);
+  } else if constexpr (coupled(M)) {
+    // step 0's x from the incoming z, anchor point and y (tau1, tau2 at 7, 8;
+    // theta1, theta2 at 5, 6)
+    point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
+        a.zm, a.xa, a.y, a.z, a.sc, M == kKatyusha ? 7 : 5, a.n);
   }
   for (int k = 0; k < a.K; ++k) {
     kernel<<<parts, kRowThreads, smem, a.stream>>>(
@@ -332,9 +545,22 @@ cudaError_t run_steps(const StepArgs& a) {
       finito_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.av, a.zb, a.invg, a.invg_by_pos, a.starts,
           a.B, a.sc, a.fclamp, k, a.n);
-    } else {
+    } else if constexpr (M == kLFinito) {
       lfinito_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.av, a.zf, a.invg, a.sc, k, a.K, a.n);
+    } else if constexpr (M == kKatyusha) {
+      katyusha_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+          a.part, parts, a.z, a.y, a.zm, a.zs, a.xa, a.av, a.sc, a.n);
+    } else if constexpr (M == kSarah) {
+      sarah_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+          a.part, parts, a.z, a.v, a.sc, a.n);
+    } else if constexpr (M == kLsvrg) {
+      lsvrg_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+          a.part, parts, a.z, a.pre, a.av, a.sc, a.fclamp, k, a.n);
+    } else {
+      lkatyusha_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+          a.part, parts, a.z, a.y, a.zm, a.pre, a.xa, a.av, a.sc, a.fclamp, k,
+          a.n);
     }
     if (k == 0) {
       const cudaError_t e = cudaGetLastError();

@@ -1,21 +1,27 @@
 """The coefficient kernels of the port, with their plain versions.
 
 Counterpart of ``ciao_tpu/ops/fused_block.py``, cut to what the SAGA,
-deep, SVRG, forward-backward, Finito and ProShI paths run: the oracle
-formula modes, the coupling prox modes, the scalar constants, the
-kernels' gates, and ten hand-written CUDA kernels for Hopper beside their
-plain PyTorch versions:
+deep, SVRG, forward-backward, Finito, ProShI, Katyusha, SARAH and
+loopless (L-SVRG, L-Katyusha) paths run: the oracle formula modes, the
+coupling prox modes, the scalar constants, the kernels' gates, and
+fourteen hand-written CUDA kernels for Hopper beside their plain PyTorch
+versions:
 
 - ``saga_coeff_multistep`` (``csrc/saga_coeff_multistep.cu``),
   ``saga_coeff_multistep_streamed`` (``csrc/saga_coeff_multistep_streamed.cu``),
   ``svrg_coeff_multistep`` (``csrc/svrg_coeff_multistep.cu``),
   ``finito_coeff_multistep`` (``csrc/finito_coeff_multistep.cu``),
   ``finito_coeff_multistep_streamed``
-  (``csrc/finito_coeff_multistep_streamed.cu``) and
-  ``lfinito_sweep_multistep`` (``csrc/lfinito_sweep_multistep.cu``): K
-  block steps each, sharing their device code (``csrc/saga_steps.cuh``);
+  (``csrc/finito_coeff_multistep_streamed.cu``),
+  ``lfinito_sweep_multistep`` (``csrc/lfinito_sweep_multistep.cu``),
+  ``katyusha_coeff_multistep`` (``csrc/katyusha_coeff_multistep.cu``),
+  ``sarah_multistep`` (``csrc/sarah_multistep.cu``),
+  ``lsvrg_coeff_multistep`` (``csrc/lsvrg_coeff_multistep.cu``) and
+  ``lkatyusha_coeff_multistep`` (``csrc/lkatyusha_coeff_multistep.cu``):
+  K block steps each, sharing their device code (``csrc/saga_steps.cuh``);
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
-  over all rows, the SVRG and LFinito anchors and the FB full gradient;
+  over all rows, the anchors of the SVRG-shaped families, LFinito's and
+  SARAH's, and the FB full gradient;
 - ``saga_block_update`` (``csrc/saga_block_update.cu``) and
   ``finito_block_update`` (``csrc/finito_block_update.cu``): the
   full-table SAGA and Finito refresh of one block, and
@@ -23,7 +29,7 @@ plain PyTorch versions:
   the block table; all three walk a block of an (N, n) table with the
   device code of ``csrc/table_rows.cuh``.
 
-The row primitives they share are in ``csrc/row_ops.cuh``. The other 9
+The row primitives they share are in ``csrc/row_ops.cuh``. The other 5
 TPU kernels of the JAX module are not ported yet (ROADMAP.md, queue 2).
 
 Layouts are flat: coefficient tables ``c``/``canch``, the offsets ``b``,
@@ -135,9 +141,11 @@ def saga_multistep_available(F, g, x0, B: int) -> bool:
 
 
 def svrg_multistep_available(F, g, x0, B: int) -> bool:
-    """Gate of :func:`svrg_coeff_multistep`: that of
-    :func:`saga_multistep_available`. The JAX gate's N % (8·B) slab rule,
-    ``_pick_tile`` ≥ 128 and ``batch > 1`` exist for the TPU alone."""
+    """Gate of :func:`svrg_coeff_multistep` and of the other SVRG-shaped
+    kernels (Katyusha, SARAH, L-SVRG, L-Katyusha: JAX's one
+    ``fused_inner_gate``): that of :func:`saga_multistep_available`. The
+    JAX gate's N % (8·B) slab rule, ``_pick_tile`` ≥ 128 and ``batch > 1``
+    exist for the TPU alone."""
     return saga_multistep_available(F, g, x0, B)
 
 
@@ -216,20 +224,22 @@ def _block_gate(F, x0, B: int, method: str) -> bool:
             and A.shape[1] <= MAX_COLS and A.shape[0] % B == 0)
 
 
-def _smem_bytes(rows: int, n: int, itemsize: int) -> int:
+def _smem_bytes(rows: int, n: int, itemsize: int, points: int = 1) -> int:
     """Dynamic shared memory of one row-phase CTA (``run_steps`` in the
-    CUDA source): the row tile rounded up to 16 bytes, then z and four
-    f32 values per row (Δc, b, c_old, rs)."""
-    return -(-rows * n * itemsize // 16) * 16 + 4 * (n + 4 * rows)
+    CUDA source): the row tile rounded up to 16 bytes, then the margins'
+    points (one (n,) vector, SARAH's two) and four f32 values per row
+    (Δc, b, c_old, rs)."""
+    return -(-rows * n * itemsize // 16) * 16 + 4 * (points * n + 4 * rows)
 
 
-def _rows_per_cta(B: int, n: int, itemsize: int) -> int:
+def _rows_per_cta(B: int, n: int, itemsize: int, points: int = 1) -> int:
     """Rows of the block each CTA of the row phase takes: the largest
     power of two up to 32 that divides B and whose tile fits in shared
-    memory (32 at the headline B = 4096, n = 1024: 128 CTAs, about one
-    per SM, with a 128 KB f32 tile)."""
+    memory beside ``points`` staged (n,) vectors (32 at the headline
+    B = 4096, n = 1024: 128 CTAs, about one per SM, with a 128 KB f32
+    tile)."""
     r = 32
-    while B % r or _smem_bytes(r, n, itemsize) > SMEM_BYTES:
+    while B % r or _smem_bytes(r, n, itemsize, points) > SMEM_BYTES:
         r //= 2
     return r
 
@@ -333,6 +343,17 @@ _ARGTYPES = {
     # A, storage, b, gamma, rs, s, starts, fclamp, sc, part, av, z, n, B,
     # rows, K, stream
     "proshi_multistep": "PIPPPPPPPPPPIIIIP",
+    # A, storage, lowp, b, rs, canch, xt, y, z, ys, av, x, starts, sc, part,
+    # n, B, rows, K, stream
+    "katyusha_coeff_multistep": "PII" + "P" * 12 + "IIII" + "P",
+    # A, storage, lowp, b, rs, ww, v, starts, sc, part, n, B, rows, K, stream
+    "sarah_multistep": "PII" + "P" * 7 + "IIII" + "P",
+    # A, storage, lowp, b, rs, canch, starts, stop, w, wpre, av, sc, part,
+    # n, B, rows, K, stream
+    "lsvrg_coeff_multistep": "PII" + "P" * 10 + "IIII" + "P",
+    # A, storage, lowp, b, rs, canch, starts, stop, wa, y, z, ypre, av, x,
+    # sc, part, n, B, rows, K, stream
+    "lkatyusha_coeff_multistep": "PII" + "P" * 13 + "IIII" + "P",
 }
 
 
@@ -389,16 +410,17 @@ def _check_rows(A, b, rs):
     return N, n
 
 
-def _check_steps(A, b, starts, B, rs):
+def _check_steps(A, b, starts, B, rs, points: int = 1):
     """Checks shared by the block-step kernels of ``saga_steps.cuh``;
-    returns (n, K, rows per CTA, the (B / rows, n) partials scratch)."""
+    returns (n, K, rows per CTA, the (B / rows, n) partials scratch).
+    ``points``: the (n,) vectors the row phase stages (SARAH's two)."""
     N, n = _check_rows(A, b, rs)
     K = starts.shape[0]
     # block starts are int32 on the device; row offsets are 64-bit there
     if N % B or K < 1 or n > MAX_COLS or N >= 2**31:
         raise ValueError(f"bad shape: N={N}, n={n}, B={B}, K={K}")
     _check("starts", starts, torch.int32, (K,), A.device)
-    rows = _rows_per_cta(B, n, A.element_size())
+    rows = _rows_per_cta(B, n, A.element_size(), points)
     part = torch.empty((B // rows, n), dtype=torch.float32, device=A.device)
     return n, K, rows, part
 
@@ -1327,6 +1349,383 @@ def proshi_multistep(A, b, gamma, s, starts, av, z, scalars, B: int,
     return s, av, z
 
 
+# ---------------------------------------------------------------------------
+# kernels #10, #11, #16, #17: Katyusha, SARAH, L-SVRG and L-Katyusha steps
+# ---------------------------------------------------------------------------
+
+def _block_rows(A, starts_k, B: int, lowp: bool):
+    """(indices, f32 rows as the dots see them) of one block."""
+    idx = starts_k.long() + torch.arange(B, device=A.device)
+    A_t = A.index_select(0, idx).to(torch.float32)
+    return idx, _bf16_round(A_t) if lowp else A_t
+
+
+def _margin_coeffs(A_t, idx, b, rs, p, scalars_mode_aux, scale, lowp):
+    """c_i(a_i·p) of a block's rows at the point ``p``, ``p`` rounded to
+    bf16 when the dots are."""
+    mode, aux = scalars_mode_aux
+    r = A_t @ (_bf16_round(p) if lowp else p)
+    if rs is not None:
+        r = r * rs[idx]
+    return _coeff_formula(mode, r, b[idx], scale, aux)
+
+
+def _innovation(A_t, idx, dc, rs, lowp):
+    """Σ dc_i·a_i (·rs_i for int8 rows), dc rounded to bf16 when the dots
+    are."""
+    if rs is not None:
+        dc = dc * rs[idx]
+    if lowp:
+        dc = _bf16_round(dc)
+    return dc @ A_t
+
+
+def _live_steps(K: int, stop) -> int:
+    """Steps a launch processes: all K, or stop + 1 (read on the host)."""
+    return K if stop is None else max(0, min(K, int(stop) + 1))
+
+
+def katyusha_coeff_multistep_ref(A, b, canch, starts, xt, y, z, ys, av,
+                                 scalars, B: int, precision: str = "highest",
+                                 rs=None):
+    """Plain PyTorch version of :func:`katyusha_coeff_multistep`: the same
+    K inner steps as a Python loop of tensor ops, with the same bf16
+    roundings. Updates ``y``, ``z`` and ``ys`` in place and returns them.
+    On the card it needs exact f32 products, which it checks and does not
+    set."""
+    runtime.require_exact_f32_matmul(A.device, "katyusha_coeff_multistep_ref")
+    lowp = _lowp(A, precision)
+    (scale, alpha, beta, athr, bthr, invB, mode, tau1, tau2,
+     aux) = scalars.unbind()
+    for k in range(starts.shape[0]):
+        x = tau1 * z + tau2 * xt + (1.0 - tau1 - tau2) * y
+        idx, A_t = _block_rows(A, starts[k], B, lowp)
+        dc = _margin_coeffs(A_t, idx, b, rs, x, (mode, aux), scale,
+                            lowp) - canch[idx]
+        gr = av + _innovation(A_t, idx, dc, rs, lowp) * invB
+        z.copy_(_soft(z - alpha * gr, athr))
+        y.copy_(_soft(x - beta * gr, bthr))
+        ys.add_(y)
+    return y, z, ys
+
+
+def katyusha_coeff_multistep(A, b, canch, starts, xt, y, z, ys, av, scalars,
+                             B: int, precision: str = "highest", rs=None):
+    """K = len(starts) Katyusha inner block steps (Allen-Zhu 2018, Option
+    II).
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:katyusha_coeff_multistep``. Step k takes
+    the block [starts[k], starts[k] + B) of the rows ``A`` (N, n), stored
+    f32, bf16 or int8 (then ``rs`` holds the (N,) f32 dequant scales),
+    forms x = τ₁z + τ₂x̃ + (1 − τ₁ − τ₂)y, the estimate ∇̃ = av + (1/B)·Σ
+    (c_i(x) − canch_i)·a_i against the anchor coefficients ``canch`` (N,)
+    of the anchor point ``xt`` (n,), and steps z ← soft(z − α∇̃, αλ),
+    y ← soft(x − β∇̃, βλ), ys += y. ``av`` is the anchor's mean gradient;
+    ``scalars`` the (10,) f32 row [scale, α, β, αλ, βλ, 1/B, mode, τ₁, τ₂,
+    aux]. ``y``, ``z`` and ``ys`` (n,) are updated in place and returned;
+    ``canch``, ``xt`` and ``av`` are read only.
+
+    CPU tensors take the plain version :func:`katyusha_coeff_multistep_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    The step is :func:`svrg_coeff_multistep`'s (``csrc/saga_steps.cuh``,
+    method ``kKatyusha``): bound by the block's rows, B·n·itemsize bytes
+    (16 MB f32, 4 MB int8 at B = 4,096, n = 1,024), and the anchor
+    coefficients, read, never written. The margins are taken at x, which
+    the TPU kernel forms in VMEM at each block's first tile; here a
+    prologue launch forms step 0's x in an (n,) scratch, and each finish,
+    whose columns are its own, updates z, y and ys and forms the next
+    step's x, so a step is still two stream-ordered launches.
+    """
+    if A.device.type == "cpu":
+        return katyusha_coeff_multistep_ref(A, b, canch, starts, xt, y, z, ys,
+                                            av, scalars, B,
+                                            precision=precision, rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"katyusha_coeff_multistep: no kernel for "
+                         f"{A.device}")
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    _check("canch", canch, f32, (A.shape[0],), dev)
+    for name, t in (("xt", xt), ("y", y), ("z", z), ("ys", ys), ("av", av)):
+        _check(name, t, f32, (n,), dev)
+    _check("scalars", scalars, f32, (10,), dev)
+    x = torch.empty(n, dtype=f32, device=dev)
+    _call("katyusha_coeff_multistep", dev, A.data_ptr(),
+          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), b.data_ptr(),
+          _ptr(rs), canch.data_ptr(), xt.data_ptr(), y.data_ptr(),
+          z.data_ptr(), ys.data_ptr(), av.data_ptr(), x.data_ptr(),
+          starts.data_ptr(), scalars.data_ptr(), part.data_ptr(), n, B, rows,
+          K)
+    katyusha_coeff_multistep.launches += 1
+    return y, z, ys
+
+
+def katyusha_inner_chunked(A, b, canch, xt, y, z, ys, av, scalars, B: int,
+                           starts, launch_steps: int,
+                           precision: str = "highest", rs=None):
+    """A whole Katyusha inner loop (the (m,) block starts ``starts``) as
+    launches of at most ``launch_steps`` steps of
+    :func:`katyusha_coeff_multistep`, y, z and ys carried across them in
+    place; the last launch takes the remainder, so no step runs
+    stepwise. Returns ``(y, z, ys, m)``, JAX's ``(y2, z2, ys2, done)``."""
+    m = starts.shape[0]
+    for k0 in range(0, m, launch_steps):
+        katyusha_coeff_multistep(A, b, canch, starts[k0:k0 + launch_steps],
+                                 xt, y, z, ys, av, scalars, B,
+                                 precision=precision, rs=rs)
+    return y, z, ys, m
+
+
+def sarah_multistep_ref(A, b, starts, ww, v, scalars, B: int,
+                        precision: str = "highest", rs=None):
+    """Plain PyTorch version of :func:`sarah_multistep`: the same K steps
+    as a Python loop of tensor ops, with the same bf16 roundings (both
+    points rounded, as the TPU's stacked (2, n) dot rounds them). Updates
+    ``ww`` and ``v`` in place and returns them. On the card it needs
+    exact f32 products, which it checks and does not set."""
+    runtime.require_exact_f32_matmul(A.device, "sarah_multistep_ref")
+    lowp = _lowp(A, precision)
+    scale, gamma, thr, eta, invB, mode, aux = scalars.unbind()
+    for k in range(starts.shape[0]):
+        idx, A_t = _block_rows(A, starts[k], B, lowp)
+        c_prev, c_w = (_margin_coeffs(A_t, idx, b, rs, ww[i], (mode, aux),
+                                      scale, lowp) for i in (0, 1))
+        v.add_(_innovation(A_t, idx, c_w - c_prev, rs, lowp) * invB)
+        w = ww[1].clone()
+        y = _soft(w - gamma * v, thr)
+        ww[0].copy_(w)
+        ww[1].copy_(w + eta * (y - w))
+    return ww, v
+
+
+def sarah_multistep(A, b, starts, ww, v, scalars, B: int,
+                    precision: str = "highest", rs=None):
+    """K = len(starts) SARAH / ProxSARAH recursive block steps.
+
+    Replaces the Pallas TPU kernel ``ciao_tpu/ops/fused_block.py:
+    sarah_multistep``. ``ww`` is the (2, n) pair [w_prev; w], ``v`` the
+    (n,) estimator. Step k takes the block [starts[k], starts[k] + B) of
+    the rows ``A`` (N, n), stored f32, bf16 or int8 (then ``rs`` holds the
+    (N,) f32 dequant scales): v ← v + (1/B)·Σ (c_i(w) − c_i(w_prev))·a_i,
+    y = soft(w − γv, γλ), then w_prev ← w and w ← w + η(y − w).
+    ``scalars`` is the (7,) f32 row [scale, γ, γλ, η, 1/B, mode, aux].
+    ``ww`` and ``v`` are updated in place and returned.
+
+    CPU tensors take the plain version :func:`sarah_multistep_ref`; CUDA
+    tensors launch the kernel or raise.
+
+    The step needs each row's margin at two points. The TPU kernel takes
+    both from one stacked (2, TILE) dot on the MXU; here the row phase
+    (``csrc/saga_steps.cuh``, method ``kSarah``) stages w_prev and w in
+    shared memory beside the rows (rounded to bf16 when the dots are) and
+    a warp walks each staged row once for both sums, so a step still
+    reads its block's rows once: B·n·itemsize bytes, 16 MB f32 and 4 MB
+    int8 at B = 4,096, n = 1,024, for 6·B·n operations. The shared
+    memory per CTA counts two (n,) vectors (:func:`_rows_per_cta`). The
+    finish writes w_prev ← w and w ← w_next column by column, and the
+    next step's row phase reads both in stream order.
+    """
+    if A.device.type == "cpu":
+        return sarah_multistep_ref(A, b, starts, ww, v, scalars, B,
+                                   precision=precision, rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"sarah_multistep: no kernel for {A.device}")
+    n, K, rows, part = _check_steps(A, b, starts, B, rs, points=2)
+    dev, f32 = A.device, torch.float32
+    _check("ww", ww, f32, (2, n), dev)
+    _check("v", v, f32, (n,), dev)
+    _check("scalars", scalars, f32, (7,), dev)
+    _call("sarah_multistep", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), ww.data_ptr(),
+          v.data_ptr(), starts.data_ptr(), scalars.data_ptr(),
+          part.data_ptr(), n, B, rows, K)
+    sarah_multistep.launches += 1
+    return ww, v
+
+
+def sarah_inner_chunked(A, b, ww, v, scalars, B: int, starts,
+                        launch_steps: int, precision: str = "highest",
+                        rs=None):
+    """A whole SARAH inner loop (the (m,) block starts ``starts``) as
+    launches of at most ``launch_steps`` steps of :func:`sarah_multistep`,
+    ww and v carried across them in place. Returns ``(ww, v, m)``, JAX's
+    ``(ww2, v2, done)``."""
+    m = starts.shape[0]
+    for k0 in range(0, m, launch_steps):
+        sarah_multistep(A, b, starts[k0:k0 + launch_steps], ww, v, scalars,
+                        B, precision=precision, rs=rs)
+    return ww, v, m
+
+
+def _check_stop(stop, dev):
+    """``stop`` as a (1,) int32 tensor on ``dev`` (or None)."""
+    if stop is None:
+        return None
+    if stop.numel() != 1:
+        raise ValueError(f"stop must hold one index, not {stop.numel()}")
+    stop = stop.reshape(1)
+    _check("stop", stop, torch.int32, (1,), dev)
+    return stop
+
+
+def lsvrg_coeff_multistep_ref(A, b, canch, starts, stop, w, av, scalars,
+                              B: int, precision: str = "highest", rs=None):
+    """Plain PyTorch version of :func:`lsvrg_coeff_multistep`: the first
+    ``stop + 1`` of the K steps (all K when ``stop`` is None) as a Python
+    loop of tensor ops. Updates ``w`` in place; returns ``(w, wpre)``.
+    Reads ``stop`` on the host. On the card it needs exact f32 products,
+    which it checks and does not set."""
+    runtime.require_exact_f32_matmul(A.device, "lsvrg_coeff_multistep_ref")
+    lowp = _lowp(A, precision)
+    scale, gamma, thr, invB, mode, aux = scalars.unbind()
+    wpre = w.clone()
+    for k in range(_live_steps(starts.shape[0], stop)):
+        idx, A_t = _block_rows(A, starts[k], B, lowp)
+        dc = canch[idx] - _margin_coeffs(A_t, idx, b, rs, w, (mode, aux),
+                                         scale, lowp)
+        wpre.copy_(w)
+        w.copy_(_soft(w + gamma * (_innovation(A_t, idx, dc, rs, lowp)
+                                   * invB - av), thr))
+    return w, wpre
+
+
+def lsvrg_coeff_multistep(A, b, canch, starts, stop, w, av, scalars, B: int,
+                          precision: str = "highest", rs=None):
+    """Up to K = len(starts) L-SVRG block steps (Kovalev et al. 2020, Alg.
+    2), the steps past ``stop`` masked.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:lsvrg_coeff_multistep``. Step k takes
+    the block [starts[k], starts[k] + B) of the rows ``A`` (N, n), stored
+    f32, bf16 or int8 (then ``rs`` holds the (N,) f32 dequant scales),
+    and steps w ← soft(w + γ((1/B)·Σ (canch_i − c_i(w))·a_i − av), γλ)
+    against the anchor coefficients ``canch`` (N,) and the anchor's mean
+    gradient ``av`` (n,). ``stop`` is the last step to process, a
+    one-element int32 tensor on the rows' device (read there, no host
+    sync), or None for all K; a masked step writes nothing. ``scalars``
+    is SVRG's (6,) f32 row [scale, γ, γλ, 1/B, mode, aux]. ``w`` is
+    updated in place; returns ``(w, wpre)``, wpre the pre-update iterate
+    of the last processed step (the anchor-jump target of a coin flip).
+
+    CPU tensors take the plain version :func:`lsvrg_coeff_multistep_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    The step is :func:`svrg_coeff_multistep`'s without the running sum
+    (``csrc/saga_steps.cuh``, method ``kLsvrg``), bound by the block's
+    rows (16 MB f32, 4 MB int8 at the headline). Both launches of a step
+    k > stop return before any other load. The TPU kernel must launch a
+    fixed K with the tail clamped onto the last processed block; the
+    port's driver knows each window's length on the host and launches
+    exactly the window's steps with ``stop`` None, so the masked steps
+    stay a tested option.
+    """
+    if A.device.type == "cpu":
+        return lsvrg_coeff_multistep_ref(A, b, canch, starts, stop, w, av,
+                                         scalars, B, precision=precision,
+                                         rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"lsvrg_coeff_multistep: no kernel for {A.device}")
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    stop = _check_stop(stop, dev)
+    _check("canch", canch, f32, (A.shape[0],), dev)
+    _check("w", w, f32, (n,), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("scalars", scalars, f32, (6,), dev)
+    wpre = w.clone()
+    _call("lsvrg_coeff_multistep", dev, A.data_ptr(),
+          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), b.data_ptr(),
+          _ptr(rs), canch.data_ptr(), starts.data_ptr(), _ptr(stop),
+          w.data_ptr(), wpre.data_ptr(), av.data_ptr(), scalars.data_ptr(),
+          part.data_ptr(), n, B, rows, K)
+    lsvrg_coeff_multistep.launches += 1
+    return w, wpre
+
+
+def lkatyusha_coeff_multistep_ref(A, b, canch, starts, stop, wa, y, z, av,
+                                  scalars, B: int, precision: str = "highest",
+                                  rs=None):
+    """Plain PyTorch version of :func:`lkatyusha_coeff_multistep`: the
+    first ``stop + 1`` of the K steps (all K when ``stop`` is None) as a
+    Python loop of tensor ops. Updates ``y`` and ``z`` in place; returns
+    ``(y, z, ypre)``. Reads ``stop`` on the host. On the card it needs
+    exact f32 products, which it checks and does not set."""
+    runtime.require_exact_f32_matmul(A.device,
+                                     "lkatyusha_coeff_multistep_ref")
+    lowp = _lowp(A, precision)
+    (scale, step, tthr, invden, etasig, th1, th2, invB, mode,
+     aux) = scalars.unbind()
+    ypre = y.clone()
+    for k in range(_live_steps(starts.shape[0], stop)):
+        x = th1 * z + th2 * wa + (1.0 - th1 - th2) * y
+        idx, A_t = _block_rows(A, starts[k], B, lowp)
+        dc = _margin_coeffs(A_t, idx, b, rs, x, (mode, aux), scale,
+                            lowp) - canch[idx]
+        gr = av + _innovation(A_t, idx, dc, rs, lowp) * invB
+        z_new = _soft((z + etasig * x - step * gr) * invden, tthr)
+        ypre.copy_(y)
+        y.copy_(x + th1 * (z_new - z))
+        z.copy_(z_new)
+    return y, z, ypre
+
+
+def lkatyusha_coeff_multistep(A, b, canch, starts, stop, wa, y, z, av,
+                              scalars, B: int, precision: str = "highest",
+                              rs=None):
+    """Up to K = len(starts) L-Katyusha block steps (Kovalev et al. 2020,
+    Alg. 3, proximal z-step), the steps past ``stop`` masked.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:lkatyusha_coeff_multistep``. Step k
+    takes the block [starts[k], starts[k] + B) of the rows ``A`` (N, n),
+    stored f32, bf16 or int8 (then ``rs`` holds the (N,) f32 dequant
+    scales), forms x = θ₁z + θ₂w + (1 − θ₁ − θ₂)y against the anchor
+    point ``wa`` (n,), the estimate ∇̃ = av + (1/B)·Σ (c_i(x) −
+    canch_i)·a_i, and steps z ← soft((z + ησ̂x − (η/L)∇̃)/(1 + ησ̂), τλ),
+    y ← x + θ₁(z_new − z). ``scalars`` is the (10,) f32 row [scale, η/L,
+    τλ, 1/(1 + ησ̂), ησ̂, θ₁, θ₂, 1/B, mode, aux]; ``stop`` as in
+    :func:`lsvrg_coeff_multistep`. ``y`` and ``z`` are updated in place;
+    returns ``(y, z, ypre)``, ypre the pre-update y of the last processed
+    step (the anchor-jump target).
+
+    CPU tensors take the plain version
+    :func:`lkatyusha_coeff_multistep_ref`; CUDA tensors launch the kernel
+    or raise.
+
+    The design is :func:`katyusha_coeff_multistep`'s (method
+    ``kLKatyusha`` of ``csrc/saga_steps.cuh``: a prologue forms step 0's
+    x, each finish the next) with the anchor point constant in the
+    launch and :func:`lsvrg_coeff_multistep`'s masking; bound by the
+    block's rows (16 MB f32, 4 MB int8 at the headline).
+    """
+    if A.device.type == "cpu":
+        return lkatyusha_coeff_multistep_ref(A, b, canch, starts, stop, wa, y,
+                                             z, av, scalars, B,
+                                             precision=precision, rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"lkatyusha_coeff_multistep: no kernel for "
+                         f"{A.device}")
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    stop = _check_stop(stop, dev)
+    _check("canch", canch, f32, (A.shape[0],), dev)
+    for name, t in (("wa", wa), ("y", y), ("z", z), ("av", av)):
+        _check(name, t, f32, (n,), dev)
+    _check("scalars", scalars, f32, (10,), dev)
+    ypre = y.clone()
+    x = torch.empty(n, dtype=f32, device=dev)
+    _call("lkatyusha_coeff_multistep", dev, A.data_ptr(),
+          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), b.data_ptr(),
+          _ptr(rs), canch.data_ptr(), starts.data_ptr(), _ptr(stop),
+          wa.data_ptr(), y.data_ptr(), z.data_ptr(), ypre.data_ptr(),
+          av.data_ptr(), x.data_ptr(), scalars.data_ptr(), part.data_ptr(),
+          n, B, rows, K)
+    lkatyusha_coeff_multistep.launches += 1
+    return y, z, ypre
+
+
 # Launches of the CUDA kernels (one per wrapper call that reaches one),
 # and those of them with direction weights (importance sampling).
 saga_coeff_multistep.launches = 0
@@ -1341,3 +1740,7 @@ lfinito_sweep_multistep.launches = 0
 saga_block_update.launches = 0
 finito_block_update.launches = 0
 proshi_multistep.launches = 0
+katyusha_coeff_multistep.launches = 0
+sarah_multistep.launches = 0
+lsvrg_coeff_multistep.launches = 0
+lkatyusha_coeff_multistep.launches = 0

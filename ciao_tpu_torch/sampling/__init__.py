@@ -289,7 +289,7 @@ def first_duplicate(blocks):
     as a 0-d int32 tensor on the blocks' device (no host sync): the clamp
     count of a launch that must not revisit a block. The port's SAGA and
     Finito drivers do not clamp; this serves :func:`gen_block_ids_clamped`,
-    the clamped drivers still to port (ProShI, Point-SAGA, SSNM) and the
+    the clamped JAX drivers still to port (Point-SAGA, SSNM) and the
     tests that replay JAX's clamped loop."""
     K = blocks.shape[0]
     eq = blocks[:, None] == blocks[None, :]                  # eq[j, i]

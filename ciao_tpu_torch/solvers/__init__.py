@@ -1,7 +1,7 @@
 """Solvers of the port (SAGA/SAG, SVRG/SVRG++, Finito/MISO with LFinito
-and adaptive Finito, ProShI, forward-backward and FISTA, the staged
-schedule, the polish, ``deep_solve`` and ``deep_solve_sharing``) and the
-iteration tools."""
+and adaptive Finito, ProShI, Katyusha, SARAH, L-SVRG and L-Katyusha,
+forward-backward and FISTA, the staged schedule, the polish,
+``deep_solve`` and ``deep_solve_sharing``) and the iteration tools."""
 
 from ciao_tpu_torch.solvers.base import (
     SolverIterable, Status, halt, loop, run_solver_loop, solution, take,
@@ -19,6 +19,15 @@ from ciao_tpu_torch.solvers.fb import (
     FISTA, FBCfg, FBState, ForwardBackward, fb_init, fb_run, fb_step,
     full_gradient,
 )
+from ciao_tpu_torch.solvers.katyusha import (
+    Katyusha, KatyushaCfg, KatyushaState, katyusha_init, katyusha_run,
+    katyusha_step,
+)
+from ciao_tpu_torch.solvers.lsvrg import (
+    LKatyusha, LKatyushaCfg, LKatyushaState, LSVRG, LSVRGCfg, LSVRGState,
+    lkatyusha_init, lkatyusha_rebase, lkatyusha_run, lkatyusha_step,
+    lsvrg_init, lsvrg_rebase, lsvrg_run, lsvrg_step,
+)
 from ciao_tpu_torch.solvers.polish import (
     PolishResult, fista_polish, grad_mean_chunked, grad_sum_chunked,
     lsq_power_lmax, power_lmax,
@@ -30,6 +39,9 @@ from ciao_tpu_torch.solvers.proshi import (
 from ciao_tpu_torch.solvers.saga import (
     SAG, SAGA, SAGACfg, SAGAState, block_starts, importance_draws,
     saga_init, saga_rebase, saga_run, saga_step,
+)
+from ciao_tpu_torch.solvers.sarah import (
+    SARAH, SARAHCfg, SARAHState, sarah_init, sarah_run, sarah_step,
 )
 from ciao_tpu_torch.solvers.staged import StagedInfo, staged_saga
 from ciao_tpu_torch.solvers.svrg import (
@@ -58,5 +70,11 @@ __all__ = [
     "fista_polish", "grad_mean_chunked", "grad_sum_chunked", "power_lmax",
     "lsq_power_lmax", "Proshi", "ProshiCfg", "ProshiState", "proshi_init",
     "proshi_run", "proshi_step", "proshi_resync", "sharing_objective",
-    "DeepSharingInfo", "deep_solve_sharing", "iterator",
+    "DeepSharingInfo", "deep_solve_sharing", "Katyusha", "KatyushaCfg",
+    "KatyushaState", "katyusha_init", "katyusha_run", "katyusha_step",
+    "SARAH", "SARAHCfg", "SARAHState", "sarah_init", "sarah_run",
+    "sarah_step", "LSVRG", "LSVRGCfg", "LSVRGState", "lsvrg_init",
+    "lsvrg_run", "lsvrg_step", "lsvrg_rebase", "LKatyusha", "LKatyushaCfg",
+    "LKatyushaState", "lkatyusha_init", "lkatyusha_run", "lkatyusha_step",
+    "lkatyusha_rebase", "iterator",
 ]

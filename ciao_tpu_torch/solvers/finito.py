@@ -58,6 +58,7 @@ from ciao_tpu_torch.solvers.base import (
     facade_device,
     rdiv,
     real_dtype_of,
+    refuse_complex,
     resolve_gamma_array,
     run_solver_loop,
 )
@@ -775,10 +776,7 @@ class Finito:
 
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        if x0.is_complex():
-            raise NotImplementedError(
-                "complex iterates are not ported yet: ROADMAP.md, queue 1 "
-                "item 3")
+        refuse_complex(x0)
         F, g, N = default_terms(F, g, N, device)
         rdt = real_dtype_of(x0)
         B = self.minibatch[1]

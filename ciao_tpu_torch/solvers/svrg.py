@@ -97,12 +97,14 @@ def inner_starts(seed: int, it: int, m: int, cfg: SVRGCfg, device):
                         cfg.batch, device)
 
 
-def inner_indices(seed: int, it: int, m: int, N: int, device):
+def inner_indices(seed: int, it: int, m: int, N: int, device, batch=None):
     """The m iid row indices (with replacement) of outer step ``it``,
-    from a generator seeded by (seed, it). (m,) int64."""
+    from a generator seeded by (seed, it): (m,) int64, or (m, batch) for
+    the minibatch inner loops of Katyusha and SARAH."""
     gen = torch.Generator(device=device)
     gen.manual_seed(_outer_seed(seed, it))
-    return torch.randint(N, (m,), generator=gen, device=device)
+    shape = (m,) if batch is None else (m, batch)
+    return torch.randint(N, shape, generator=gen, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +175,22 @@ def _inner_fused(F, g, cfg: SVRGCfg, state: SVRGState, starts):
     return w, zs
 
 
+def fused_inner_gate(who: str, block_sampling: bool, batch: int, F, g,
+                     x0) -> bool:
+    """The kernel gate of the SVRG-shaped families (SVRG, Katyusha,
+    SARAH, L-SVRG, L-Katyusha; JAX's ``fused_inner_gate``): block
+    sampling and ``ops.svrg_multistep_available``. A closed gate on a
+    CUDA device warns once, naming the facade ``who``."""
+    if not block_sampling:
+        return False
+    from ciao_tpu_torch.ops.fused_block import svrg_multistep_available
+
+    fused = svrg_multistep_available(F, g, x0, batch)
+    if not fused:
+        _warn_fallback(who, F, g, x0)
+    return fused
+
+
 def _svrg_step(F, g, cfg: SVRGCfg, state: SVRGState, starts=None,
                idx=None) -> SVRGState:
     """Outer iterate (SVRG_basic.jl:71-96): m inner steps, then the
@@ -203,10 +221,14 @@ def _svrg_step(F, g, cfg: SVRGCfg, state: SVRGState, starts=None,
         canch=canch)
 
 
-def _check_idx(idx, m: int, N: int, device):
+def _check_idx(idx, m: int, N: int, device, batch=None):
+    """An explicit iid schedule of shape (m,), or (m, batch), as
+    :func:`inner_indices` draws it."""
     idx = torch.as_tensor(idx).to(device=device, dtype=torch.int64)
-    if tuple(idx.shape) != (m,):
-        raise ValueError(f"idx has shape {tuple(idx.shape)}, expected ({m},)")
+    shape = (m,) if batch is None else (m, batch)
+    if tuple(idx.shape) != shape:
+        raise ValueError(f"idx has shape {tuple(idx.shape)}, expected "
+                         f"{shape}")
     if m and (int(idx.min()) < 0 or int(idx.max()) >= N):
         raise ValueError("idx must lie in [0, N)")
     return idx
@@ -300,15 +322,8 @@ class SVRG:
             gamma = torch.as_tensor(gam, dtype=rdt, device=device)
         if self.block_sampling and N % self.batch != 0:
             raise ValueError("SVRG block_sampling needs N divisible by batch")
-        fused = False
-        if self.block_sampling:
-            from ciao_tpu_torch.ops.fused_block import (
-                svrg_multistep_available,
-            )
-
-            fused = svrg_multistep_available(F, g, x0, self.batch)
-            if not fused:
-                _warn_fallback("SVRG", F, g, x0)
+        fused = fused_inner_gate("SVRG", self.block_sampling, self.batch, F,
+                                 g, x0)
         cfg = SVRGCfg(N=N, plus=self.plus, batch=self.batch,
                       block=self.block_sampling, fused=fused,
                       fused_precision=self.fused_precision)

@@ -2,8 +2,10 @@
 ``saga_coeff_multistep_streamed``, ``svrg_coeff_multistep``,
 ``coeff_apply_all``, ``finito_coeff_multistep``,
 ``finito_coeff_multistep_streamed``, ``lfinito_sweep_multistep``,
-``finito_block_update``, ``saga_block_update`` and ``proshi_multistep``
-against their plain versions, the facades' routing to them, and the
+``finito_block_update``, ``saga_block_update``, ``proshi_multistep``,
+``katyusha_coeff_multistep``, ``sarah_multistep``,
+``lsvrg_coeff_multistep`` and ``lkatyusha_coeff_multistep`` against
+their plain versions, the facades' routing to them, and the
 polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
@@ -924,4 +926,227 @@ def test_proshi_and_full_table_facades_run_on_the_kernels(dev):
     with pytest.warns(UserWarning, match="full-table"):
         SAGA(maxit=3, table="full", block_sampling=True, batch=B)(
             x0, F=F.with_storage("int8"), g=g, L=L)
+    runtime.reset_fallback_warnings()
+
+
+# ---------------------------------------------------------------------------
+# kernels #10, #11, #16, #17: Katyusha, SARAH, L-SVRG and L-Katyusha
+# ---------------------------------------------------------------------------
+
+def _vr_setup(dev, N, n, B, K, storage, mode=0, seed=0):
+    """Rows, an anchor point and its coefficients, av their mean gradient,
+    two points near the anchor and K block starts (repeats included). For
+    the logistic mode the offsets are ±1 labels."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    A = torch.randn(N, n, generator=gen, device=dev)
+    b = torch.randn(N, generator=gen, device=dev)
+    if mode == 1:
+        b = torch.sign(b)
+    F = LeastSquaresRows(A, b, float(N))
+    if storage != "f32":
+        F = F.with_storage(storage)
+    # the rows' smoothness: scale·‖a_i‖², a quarter of ‖a_i‖² for logistic
+    Lmax = float((A * A).sum(1).max()) * (0.25 if mode == 1 else N)
+    xa = 0.05 * torch.randn(n, generator=gen, device=dev)
+    near = xa + 0.01 * torch.randn(2, n, generator=gen, device=dev)
+    starts = (torch.randint(N // B, (K,), generator=gen, device=dev) * B).to(
+        torch.int32)
+    rows, offs = F.coeff_rows_data()
+    sc = torch.tensor([N if mode != 1 else 1.0, mode, 0.5], device=dev)
+    canch, gsum = tfb.coeff_apply_all_ref(rows, offs, xa, sc,
+                                          rs=F.coeff_rows_scale())
+    return dict(F=F, rows=rows, offs=offs, rs=F.coeff_rows_scale(),
+                Lmax=Lmax, xa=xa, near=near, starts=starts, canch=canch,
+                av=gsum / N, scale=float(sc[0]), mode=mode)
+
+
+def _vr_scalars(S, kind, B, lam, dev):
+    """The scalars row of ``kind`` with the setup's formula mode (aux =
+    0.5, the Huber δ) at its slot."""
+    L, sc, md = S["Lmax"], S["scale"], S["mode"]
+    if kind == "katyusha":
+        t1, t2 = 0.3, 0.5
+        a, be = 1.0 / (3.0 * t1 * L), 1.0 / (3.0 * L)
+        row = [sc, a, be, a * lam, be * lam, 1.0 / B, md, t1, t2, 0.5]
+    elif kind == "sarah":
+        g = 1.0 / (2.0 * L)
+        row = [sc, g, g * lam, 0.7, 1.0 / B, md, 0.5]
+    elif kind == "lsvrg":
+        g = 1.0 / (6.0 * L)
+        row = [sc, g, g * lam, 1.0 / B, md, 0.5]
+    else:
+        th1, th2, sig = 1.0 / 3.0, 0.5, 0.01
+        eta = th2 / ((1.0 + th2) * th1)
+        step, den = eta / L, 1.0 + eta * sig
+        row = [sc, step, step / den * lam, 1.0 / den, eta * sig, th1, th2,
+               1.0 / B, md, 0.5]
+    return torch.tensor(row, device=dev)
+
+
+def _vr_run(kind, fn, S, sc, B, precision="highest", stop=None, starts=None):
+    """One call of ``fn`` (kernel #10, #11, #16 or #17, or its plain
+    version) from fresh copies of the setup's state; returns its outputs."""
+    starts = S["starts"] if starts is None else starts
+    a, p, q = S["xa"], S["near"][0].clone(), S["near"][1].clone()
+    common = dict(precision=precision, rs=S["rs"])
+    rows, offs, canch, av = S["rows"], S["offs"], S["canch"], S["av"]
+    if kind == "katyusha":
+        ys = torch.zeros_like(p)
+        return fn(rows, offs, canch, starts, a, p, q, ys, av, sc, B, **common)
+    if kind == "sarah":
+        v = av.clone()
+        return fn(rows, offs, starts, torch.stack([a, p]), v, sc, B, **common)
+    if kind == "lsvrg":
+        return fn(rows, offs, canch, starts, stop, p, av, sc, B, **common)
+    return fn(rows, offs, canch, starts, stop, a, p, q, av, sc, B, **common)
+
+
+VR_KERNELS = {
+    "katyusha": ("katyusha_coeff_multistep", "katyusha_coeff_multistep_ref"),
+    "sarah": ("sarah_multistep", "sarah_multistep_ref"),
+    "lsvrg": ("lsvrg_coeff_multistep", "lsvrg_coeff_multistep_ref"),
+    "lkatyusha": ("lkatyusha_coeff_multistep",
+                  "lkatyusha_coeff_multistep_ref"),
+}
+
+
+@pytest.mark.parametrize("kind", list(VR_KERNELS))
+@pytest.mark.parametrize("storage,precision,n,mode,lam", [
+    ("f32", "highest", 128, 0, 0.1), ("f32", "default", 128, 0, 0.1),
+    ("bf16", "highest", 128, 0, 0.1), ("int8", "highest", 128, 0, 0.1),
+    ("f32", "highest", 128, 0, 0.0), ("f32", "highest", 202, 0, 0.1),
+    ("int8", "highest", 200, 0, 0.1), ("f32", "highest", 128, 1, 0.1),
+    ("f32", "highest", 128, 2, 0.1),
+], ids=["f32", "f32-default", "bf16", "int8", "zero", "f32-n202",
+        "int8-n200", "logistic", "huber"])
+def test_vr_kernel_matches_plain_version(dev, kind, storage, precision, n,
+                                         mode, lam):
+    """K = 64 steps at N = 8,192, B = 128 (repeats included) of kernels
+    #10, #11, #16 and #17 against their plain versions: every output
+    within 1e-6 of its largest entry for exact-f32 dots, 1e-5 where the
+    dots round to bf16 (SARAH's estimator v, a gradient mean, within 10x
+    that, as av elsewhere). The logistic and Huber modes check the mode
+    and aux slots of each scalars row; λ = 0 is the Zero prox."""
+    N, B, K = 8192, 128, 64
+    S = _vr_setup(dev, N, n, B, K, storage, mode)
+    sc = _vr_scalars(S, kind, B, lam, dev)
+    kname, rname = VR_KERNELS[kind]
+    before = getattr(tfb, kname).launches
+    got = _vr_run(kind, getattr(tfb, kname), S, sc, B, precision)
+    want = _vr_run(kind, getattr(tfb, rname), S, sc, B, precision)
+    torch.cuda.synchronize()
+    assert getattr(tfb, kname).launches == before + 1
+    tol = 1e-5 if tfb._lowp(S["rows"], precision) else 1e-6
+    assert float((want[0] - S["near"][0]).abs().max()) > 0
+    for i, (k, r) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(k).all())
+        bound = 10 * tol if (kind == "sarah" and i == 1) else tol
+        assert _rel(k, r) <= bound, (kind, i, _rel(k, r))
+
+
+@pytest.mark.parametrize("kind", ["lsvrg", "lkatyusha"])
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_loopless_masked_steps_are_identity(dev, kind, storage):
+    """Kernels #16 and #17 with stop read on the device: the steps past
+    stop write nothing, so a call with stop = 9 equals the first 10 steps
+    alone bit for bit (wpre/ypre included), stop = K - 1 equals stop None,
+    stop = 0 is one step; the plain versions agree."""
+    N, B, K = 8192, 128, 32
+    S = _vr_setup(dev, N, 128, B, K, storage, seed=3)
+    sc = _vr_scalars(S, kind, B, 0.1, dev)
+    kname, rname = VR_KERNELS[kind]
+    fn = getattr(tfb, kname)
+    i32 = dict(dtype=torch.int32, device=dev)
+    pairs = (
+        (_vr_run(kind, fn, S, sc, B, stop=torch.tensor([9], **i32)),
+         _vr_run(kind, fn, S, sc, B, starts=S["starts"][:10])),
+        (_vr_run(kind, fn, S, sc, B, stop=torch.tensor(K - 1, **i32)),
+         _vr_run(kind, fn, S, sc, B)),
+        (_vr_run(kind, fn, S, sc, B, stop=torch.tensor([0], **i32)),
+         _vr_run(kind, fn, S, sc, B, starts=S["starts"][:1])))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    plain = _vr_run(kind, getattr(tfb, rname), S, sc, B,
+                    stop=torch.tensor([9], **i32))
+    for k, r in zip(pairs[0][0], plain):
+        assert _rel(k, r) <= 1e-5
+    with pytest.raises(ValueError, match="one index"):
+        _vr_run(kind, fn, S, sc, B, stop=torch.tensor([1, 2], **i32))
+    with pytest.raises(TypeError, match="stop"):
+        _vr_run(kind, fn, S, sc, B, stop=torch.tensor([1], device=dev))
+
+
+@pytest.mark.parametrize("kind", list(VR_KERNELS))
+def test_vr_kernel_repeats_bit_for_bit_and_checks_arguments(dev, kind):
+    S = _vr_setup(dev, 4096, 256, 256, 16, "int8", seed=1)
+    sc = _vr_scalars(S, kind, 256, 0.1, dev)
+    fn = getattr(tfb, VR_KERNELS[kind][0])
+    runs = [_vr_run(kind, fn, S, sc, 256) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="scalars"):
+        _vr_run(kind, fn, S, torch.zeros(3, device=dev), 256)
+    with pytest.raises(TypeError, match="starts"):
+        _vr_run(kind, fn, S, sc, 256, starts=S["starts"].long())
+    with pytest.raises(ValueError, match="rs"):
+        _vr_run(kind, fn, dict(S, rs=None), sc, 256)
+
+
+def test_vr_facades_send_every_gated_run_to_their_kernels(dev):
+    """On the card the Katyusha, SARAH, L-SVRG and L-Katyusha facades
+    with block sampling run every inner step on their kernels (Katyusha
+    and SARAH: one launch per outer step of m ≤ 128 steps; the loopless
+    pair: one launch per window of ≤ 32 steps, even for a 3-step run) and
+    every anchor on kernel #6, with no fallback warning and no other
+    kernel; the objectives fall. A closed gate (an IndBox prox) warns and
+    runs stepwise."""
+    import math
+    import warnings
+
+    from ciao_tpu_torch import LSVRG, SARAH, Katyusha, LKatyusha, runtime
+    from ciao_tpu_torch.monitor import objective
+    from ciao_tpu_torch.prox import IndBox, NormL1
+
+    N, n, B = 4096, 64, 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    A = torch.randn(N, n, generator=gen, device=dev)
+    F = LeastSquaresRows(A, torch.randn(N, generator=gen, device=dev),
+                         float(N))
+    L = (A * A).sum(1) * N
+    g = NormL1(torch.tensor(0.01, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    names = [k for k, _ in VR_KERNELS.values()] + ["coeff_apply_all"]
+    others = ("saga_coeff_multistep", "svrg_coeff_multistep",
+              "finito_coeff_multistep")
+    cases = ((Katyusha(maxit=4, m=64, batch=B, block_sampling=True),
+              "katyusha_coeff_multistep", lambda it, d: d == it - 1),
+             (SARAH(maxit=4, batch=B, block_sampling=True),
+              "sarah_multistep", lambda it, d: d == it - 1),
+             (LSVRG(maxit=201, batch=B, block_sampling=True),
+              "lsvrg_coeff_multistep", lambda it, d: d >= 200 // 32),
+             (LKatyusha(maxit=201, batch=B, block_sampling=True),
+              "lkatyusha_coeff_multistep", lambda it, d: d >= 200 // 32),
+             (LSVRG(maxit=4, batch=B, block_sampling=True),
+              "lsvrg_coeff_multistep", lambda it, d: d >= 1))
+    for solver, kname, ok in cases:
+        before = {k: getattr(tfb, k).launches for k in names + list(others)}
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            x, it = solver(x0, F=F, g=g, L=L)
+        d = {k: getattr(tfb, k).launches - before[k] for k in before}
+        assert ok(it, d[kname]), (kname, d)
+        assert all(d[k] == 0 for k in d if k not in (kname,
+                                                     "coeff_apply_all"))
+        if kname in ("katyusha_coeff_multistep", "sarah_multistep"):
+            assert d["coeff_apply_all"] == it - 1
+        assert float(objective(F, g, x)) < float(objective(F, g, x0)), kname
+    runtime.reset_fallback_warnings()
+    before = tfb.katyusha_coeff_multistep.launches
+    with pytest.warns(UserWarning, match="Katyusha"):
+        Katyusha(maxit=2, m=8, batch=B, block_sampling=True)(
+            x0, F=F, g=IndBox(-math.inf, 1.0), L=L)
+    assert tfb.katyusha_coeff_multistep.launches == before
     runtime.reset_fallback_warnings()
