@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main paths through its fourteen hand-written CUDA kernels,
+Drives the port's main paths through its eighteen hand-written CUDA kernels,
 ``ciao_tpu_torch/csrc/saga_coeff_multistep.cu`` (kernel #3 of PERF.md),
 ``saga_coeff_multistep_streamed.cu`` (kernel #4), ``svrg_coeff_multistep.cu``
 (kernel #5), ``coeff_apply_all.cu`` (kernel #6), ``finito_coeff_multistep.cu``
@@ -12,7 +12,10 @@ Drives the port's main paths through its fourteen hand-written CUDA kernels,
 (kernel #2), ``saga_block_update.cu`` (kernel #1), ``proshi_multistep.cu``
 (kernel #18), ``katyusha_coeff_multistep.cu`` (kernel #10),
 ``sarah_multistep.cu`` (kernel #11), ``lsvrg_coeff_multistep.cu`` (kernel
-#16) and ``lkatyusha_coeff_multistep.cu`` (kernel #17):
+#16), ``lkatyusha_coeff_multistep.cu`` (kernel #17), ``ssnm_multistep.cu``
+(kernel #19), ``ssnm_multistep_streamed.cu`` (kernel #13),
+``point_saga_multistep.cu`` (kernel #12) and
+``point_saga_multistep_streamed.cu`` (kernel #15):
 
 - the SAGA headline of ``bench.py``: a dense Lasso with N = 262,144 rows of
   n = 1,024 columns stored int8 or f32, NormL1(0.1), block-sampled
@@ -49,12 +52,20 @@ Drives the port's main paths through its fourteen hand-written CUDA kernels,
   L-Katyusha, p = B/N and 24,576 steps (kernels #16 and #17, windows of at
   most 32 steps ending at each coin flip, anchors on #6); their facades on
   the planted Lasso, and Katyusha's time to rel 1e-3 on the planted 65,536 x
-  1,024 Lasso with 64 nonzeros (``bench.py:1596-1649``).
+  1,024 Lasso with 64 nonzeros (``bench.py:1596-1649``);
+- SSNM and Point-SAGA as ``bench.py`` runs them (:1495-1550, :756-817,
+  :946-987): SSNM at the headline (NormL1(0.1), τ = 0.5, η = 1/(1.5·L_max),
+  f32 and int8; kernel #19) and on the deep target (kernel #13);
+  Point-SAGA (g = Zero) at the headline with least-squares and logistic
+  rows (f32, int8), squared-hinge and Poisson rows (f32; kernel #12) and
+  on the deep target with least-squares rows (kernel #15); the ``SSNM`` and
+  ``PointSAGA`` facades on the planted Lasso; and ``deep_solve`` on
+  logistic rows (the logistic formula on kernel #3).
 
 Phases, one line each:
 
   1. device: CUDA present (else exit 2), the card's name and power limit;
-  2. build: the fourteen kernels compiled by nvcc from this checkout, in
+  2. build: the eighteen kernels compiled by nvcc from this checkout, in
      parallel;
   3. kernel #3 == plain version: f32/bf16/int8 rows, SAGA and SAG, with and
      without direction weights, at a small shape (and at widths that are not
@@ -131,6 +142,25 @@ Phases, one line each:
      on the planted Lasso, and Katyusha's time to rel 1e-3;
   9. times: the four kernels per step in turns with their plain versions
      and with their bounds; a window of each family profiled.
+  3o-3p. kernels #19, #13, #12, #15 == their plain version: SSNM in f32
+     "highest" and "default", bf16 and int8 rows at τ = 0.5 and 1, #13 with
+     f = K and f = 23; Point-SAGA in all five oracle modes (least squares,
+     logistic, Huber δ = 0.7, squared hinge, Poisson on 0.05·A) with f32 and
+     int8 rows, bf16 for least squares and logistic, #15 with f = 23; the
+     K-step calls equal to their one-step calls and the masked steps, bit
+     for bit; K = 8 at the headline and (inside 4g's block) at the deep
+     shape;
+  4p, 4r. (on the deep target, after 4g) SSNM on #13 and least-squares
+     Point-SAGA on #15, f32 and int8, two epochs each, and #13 and #15 per
+     step in turns with their plain version;
+  4o, 4q. SSNM and Point-SAGA at the headline with launch counts, falling
+     objectives, ms per step and a profiled window each;
+  4s. the ``SSNM`` (cost − f*) and ``PointSAGA`` (mean gradient) facades
+     on the planted Lasso against the folds of a CPU run of the same seed;
+  4t. ``deep_solve`` on logistic rows (2,048 x 32) to rel <= 1e-6 of the
+     f64 optimum;
+  10. times: kernels #19 and #12 per step at the headline in turns with
+     their plain version and with their bounds.
 
 Then a JSON line of the kernels (with each one's bound, computed from this
 run's inputs), and last ``{"ok": true, "device": ...}``.
@@ -2673,13 +2703,640 @@ LFINITO_GROUPS = {"kernel #6": ("apply_",),
                                 "prox_kernel")}
 
 
+# ---------------------------------------------------------------------------
+# SSNM #19, #13 and Point-SAGA #12, #15, and the row oracles beside least
+# squares
+# ---------------------------------------------------------------------------
+
+PS_KINDS = ("lsq", "logistic", "huber", "sqhinge", "poisson")
+# the kernel checks: d = 64 blocks, a masked window (steps k >= f)
+NEW_SMALL = dict(N=8_192, n=128, B=128, K=64, f=23)
+# bench.py's SSNM and Point-SAGA configurations at the headline
+# (:1495-1550, :756-817): 8 epochs of 64 steps (four 128-step launches)
+# each, cut from bench.py's 512 and 768 epochs; at the deep target
+# (:952-987) two epochs of d = 1,280 steps (20 launches), cut from
+# bench.py's timed runs
+NEW_STEPS = MAIN_STEPS
+NEW_DEEP_STEPS = 2 * (DEEP["N"] // DEEP["B"])
+# the facades on the facades' planted Lasso (FACADE), batch 1,024, 4,096
+# steps (64 epochs), default τ, η and γ: the fall of SSNM's (NormL1) cost −
+# f* and of PointSAGA's (g = None) mean gradient must agree to three digits
+# with a run of the same seed and schedule on the host's CPU
+NEW_FACADE = dict(batch=1_024, maxit=4_097)
+# deep_solve on logistic rows at tests/test_deep.py's shape (2,048 x 32,
+# NormL1(0.05), batch 256): rel against the f64 optimum, bar 1e-6. The
+# labels follow a planted direction, sign(A·w/√n + noise): with labels
+# independent of A, as the JAX test draws them, the optimum is x = 0
+LOGISTIC_DEEP = dict(N=2_048, n=32, lam=0.05, batch=256, chunk_epochs=8,
+                     max_epochs=64, plateau_rtol=1e-4, ref_steps=20_000,
+                     rel=1e-6)
+
+
+def row_oracle(kind: str, A, b, gen):
+    """The oracle ``kind`` on the rows ``A`` (f32, on the card) as bench.py
+    builds it beside least squares (:724-740): logistic and squared hinge
+    with the labels sign(b), Huber δ = 0.7 at scale N, Poisson on 0.05·A
+    with counts |round(3·N(0, 1))|; and its moduli's max for γ (the
+    margin's curvature bound times ‖a_i‖², Poisson's at |m| ≤ 1)."""
+    from ciao_tpu_torch.oracles import (
+        HuberRows, LeastSquaresRows, LogisticRows, PoissonRows,
+        SquaredHingeRows,
+    )
+
+    rows = A.shape[0]
+    sq = float((A * A).sum(dim=1).max())
+    if kind == "lsq":
+        return LeastSquaresRows(A, b, float(rows)), rows * sq
+    if kind == "logistic":
+        return LogisticRows(A, torch.sign(b)), 0.25 * sq
+    if kind == "huber":
+        return HuberRows(A, b, delta=0.7, scale=float(rows)), rows * sq
+    if kind == "sqhinge":
+        return SquaredHingeRows(A, torch.sign(b), scale=1.0), sq
+    cnt = torch.round(3.0 * torch.randn(rows, generator=gen,
+                                        device=A.device)).abs()
+    return PoissonRows(0.05 * A, cnt, scale=1.0), math.e * 0.0025 * sq
+
+
+def margin_rows(gen, dev, rows: int, cols: int, kind: str, storage: str):
+    """Gaussian rows and offsets on the card as ``lasso`` draws them, the
+    oracle ``kind`` on them stored ``storage``, and its moduli's max."""
+    A = torch.randn(rows, cols, generator=gen, device=dev)
+    b = torch.randn(rows, generator=gen, device=dev)
+    F, Lmax = row_oracle(kind, A, b, gen)
+    return (F if storage == "f32" else F.with_storage(storage)), Lmax
+
+
+def ssnm_inputs(F, gen, dev, B_: int, K: int, tau: float, lam: float):
+    """An SSNM-like state on the card: x small and random, c its
+    coefficients, gb their mean row gradient, the stored points near x,
+    K block starts (repeats included) and the scalars row at η =
+    1/(3τL_max)."""
+    from ciao_tpu_torch.solvers.saga import block_starts
+
+    rows, offs = F.coeff_rows_data()
+    N_, n_ = rows.shape
+    x = 0.05 * torch.randn(n_, generator=gen, device=dev)
+    c = F.coeff_all(x)
+    zb = x + 0.01 * torch.randn(N_ // B_, n_, generator=gen, device=dev)
+    seed = int(torch.randint(1 << 30, (1,), generator=gen, device=dev))
+    sq = (rows.float() ** 2).sum(1)
+    if F.coeff_rows_scale() is not None:
+        sq = sq * F.coeff_rows_scale() ** 2
+    eta = 1.0 / (3.0 * tau * float(sq.max()) * N_)
+    sc = torch.tensor([float(F.scale), eta, eta * lam, 1.0 / B_, 1.0 / N_,
+                       float(F.coeff_mode), tau, 0.0], dtype=torch.float32,
+                      device=dev)
+    return dict(state=(c, zb, x, F.apply_all(c) / N_), sc=sc,
+                starts=block_starts(seed, 1, K, N_ // B_, B_, dev))
+
+
+def ssnm_call(fn, F, S, B_, precision="highest", starts=None, state=None,
+              **kw):
+    """One call of ``fn`` (kernel #19, #13 or the plain version) from
+    copies of the inputs' state (or on ``state``, in place)."""
+    st = [t.clone() for t in S["state"]] if state is None else state
+    rows, offs = F.coeff_rows_data()
+    fn(rows, offs, S["starts"] if starts is None else starts, *st, S["sc"],
+       B_, precision=precision, rs=F.coeff_rows_scale(), **kw)
+    return st
+
+
+def compare_ssnm(F, gen, dev, B_, K, tau, precision, tag, streamed=False,
+                 f=None) -> float:
+    """Kernel #19 (#13 with clamp count ``f`` when ``streamed``) and the
+    plain version from one state on one schedule: x and the stored points
+    within Z_TOL of their largest entry, c and gb within STATE_TOL; returns
+    the largest absolute error of x."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = ssnm_inputs(F, gen, dev, B_, K, tau, LAM)
+    kern = fb.ssnm_multistep_streamed if streamed else fb.ssnm_multistep
+    kw = {} if f is None else dict(f=torch.tensor([f], dtype=torch.int32,
+                                                  device=dev))
+    plain_st = None if f is None else S["starts"][:f]
+    kout = ssnm_call(kern, F, S, B_, precision, **kw)
+    rout = ssnm_call(fb.ssnm_multistep_ref, F, S, B_, precision,
+                     starts=plain_st)
+    torch.cuda.synchronize()
+    lowp = fb._lowp(F.coeff_rows_data()[0], precision)
+    moved = float((rout[2] - S["state"][2]).abs().max())
+    if moved == 0.0:
+        raise AssertionError(f"{tag}: the steps did not move x")
+    rels = [check_rel(tag, i, k, r, (Z_TOL if i in (1, 2) else STATE_TOL)[
+        lowp]) for i, (k, r) in enumerate(zip(kout, rout))]
+    err = float((kout[2] - rout[2]).abs().max())
+    log(f"  {tag}: max |dx| {err:.3e}, rel errors c, zb, x, gb "
+        f"{', '.join(f'{r:.2e}' for r in rels)}; moved {moved:.3e}")
+    return err
+
+
+def ssnm_bit_for_bit(F, gen, dev, B_, K, f, tag) -> None:
+    """Kernel #19's K-step call equals its K one-step calls, #13 equals
+    #19, and #13 with f read on the device equals the first f steps alone,
+    all bit for bit: y is formed once a step, by the prologue or the
+    previous finish, with one rounding, and a masked step writes
+    nothing."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = ssnm_inputs(F, gen, dev, B_, K, 0.5, LAM)
+    whole = ssnm_call(fb.ssnm_multistep, F, S, B_)
+    steps = [t.clone() for t in S["state"]]
+    for k in range(K):
+        ssnm_call(fb.ssnm_multistep, F, S, B_, starts=S["starts"][k:k + 1],
+                  state=steps)
+    i32 = dict(dtype=torch.int32, device=dev)
+    pairs = ((whole, steps),
+             (ssnm_call(fb.ssnm_multistep_streamed, F, S, B_), whole),
+             (ssnm_call(fb.ssnm_multistep_streamed, F, S, B_,
+                        f=torch.tensor([f], **i32)),
+              ssnm_call(fb.ssnm_multistep, F, S, B_,
+                        starts=S["starts"][:f])))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, want)):
+            raise AssertionError(f"{tag}: not bit for bit")
+    log(f"  {tag}: the {K}-step call of #19 equals its one-step calls and "
+        f"#13's; #13 with f = {f} equals the first {f} steps alone, bit for "
+        "bit")
+
+
+def ps_inputs(F, gen, dev, B_: int, K: int, gamma: float):
+    """A Point-SAGA-like state on the card: x small and random, c its
+    coefficients, av their mean row gradient, the row square-norms, K
+    block starts (repeats included) and the scalars row at ``gamma``."""
+    from ciao_tpu_torch.solvers.point_saga import _sqnorms
+    from ciao_tpu_torch.solvers.saga import block_starts
+
+    rows, _ = F.coeff_rows_data()
+    N_, n_ = rows.shape
+    x = 0.05 * torch.randn(n_, generator=gen, device=dev)
+    c = F.coeff_all(x)
+    seed = int(torch.randint(1 << 30, (1,), generator=gen, device=dev))
+    sc = torch.tensor([float(getattr(F, "scale", 1.0)), gamma, 1.0 / B_,
+                       1.0 / N_, float(F.coeff_mode),
+                       float(getattr(F, "delta", 0.0))], dtype=torch.float32,
+                      device=dev)
+    return dict(state=(c, x, F.apply_all(c) / N_), na=_sqnorms(F, N_), sc=sc,
+                starts=block_starts(seed, 1, K, N_ // B_, B_, dev))
+
+
+def ps_call(fn, F, S, B_, precision="highest", starts=None, state=None,
+            **kw):
+    """One call of ``fn`` (kernel #12, #15 or the plain version) from
+    copies of the inputs' state (or on ``state``, in place)."""
+    c, x, av = [t.clone() for t in S["state"]] if state is None else state
+    rows, offs = F.coeff_rows_data()
+    fn(rows, offs, S["na"], c, S["starts"] if starts is None else starts, x,
+       av, S["sc"], B_, mode=F.coeff_mode, precision=precision,
+       rs=F.coeff_rows_scale(), **kw)
+    return [c, x, av]
+
+
+def compare_ps(F, Lmax, gen, dev, B_, K, precision, tag, streamed=False,
+               f=None, gamma=None) -> float:
+    """Kernel #12 (#15 with clamp count ``f`` when ``streamed``) against
+    the plain version step by step, at 10x the default γ (the Newton
+    solves then move θ well off its warm start): each step of the plain
+    trajectory is taken once more by the kernel from the same state (x
+    within Z_TOL of its largest entry, c and av within STATE_TOL), and the
+    kernel's whole K-step call (steps k ≥ f masked) equals its chain of
+    one-step calls bit for bit. Where the dots round to bf16, a last-bit
+    difference of v can flip the bf16 rounding of a component, and the
+    states drift apart step by step (1.1-2.7e-5 of x's largest entry after
+    64 steps on an H100 at 700 W), so a K-step comparison holds no fixed
+    bound. Returns the largest absolute error of x over the steps."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = ps_inputs(F, gen, dev, B_, K,
+                  10.0 / (3.0 * Lmax) if gamma is None else gamma)
+    kern = (fb.point_saga_multistep_streamed if streamed
+            else fb.point_saga_multistep)
+    lowp = fb._lowp(F.coeff_rows_data()[0], precision)
+    ref = [t.clone() for t in S["state"]]
+    chain = [t.clone() for t in S["state"]]
+    worst, err = [0.0, 0.0, 0.0], 0.0
+    for k in range(K if f is None else f):
+        st = S["starts"][k:k + 1]
+        one = ps_call(kern, F, S, B_, precision, starts=st,
+                      state=[t.clone() for t in ref])
+        ps_call(kern, F, S, B_, precision, starts=st, state=chain)
+        ps_call(fb.point_saga_multistep_ref, F, S, B_, precision, starts=st,
+                state=ref)
+        torch.cuda.synchronize()
+        for i, tol in ((0, STATE_TOL), (1, Z_TOL), (2, STATE_TOL)):
+            worst[i] = max(worst[i], check_rel(f"{tag} step {k}", i, one[i],
+                                               ref[i], tol[lowp]))
+        err = max(err, float((one[1] - ref[1]).abs().max()))
+    kw = {} if f is None else dict(f=torch.tensor([f], dtype=torch.int32,
+                                                  device=dev))
+    full = ps_call(kern, F, S, B_, precision, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b_) for a, b_ in zip(full, chain)):
+        raise AssertionError(f"{tag}: the K-step call differs from its "
+                             "one-step calls")
+    moved = float((ref[1] - S["state"][1]).abs().max())
+    if moved == 0.0:
+        raise AssertionError(f"{tag}: the steps did not move x")
+    log(f"  {tag}: per step max |dx| {err:.3e}, rel errors c, x, av "
+        f"{', '.join(f'{r:.2e}' for r in worst)}; the {K}-step call"
+        + ("" if f is None else f" (steps >= {f} masked)")
+        + f" equals its one-step calls bit for bit; moved {moved:.3e}")
+    return err
+
+
+def phase_check_new(gen, dev) -> dict:
+    """3o-3p: kernels #19 and #13 against their plain version in f32
+    "highest" and "default", bf16 and int8 rows at τ = 0.5 and τ = 1, #13
+    with f = K and f = 23, the bit-for-bit identities, and K = 8 at the
+    headline; kernels #12 and #15 in all five oracle modes with f32 and
+    int8 rows (and bf16 for least squares and logistic, "default" for
+    least squares) step by step, #15 masked, and K = 8 at the headline."""
+    s = NEW_SMALL
+    errs = dict.fromkeys(("ssnm_multistep", "ssnm_multistep_streamed",
+                          "point_saga_multistep",
+                          "point_saga_multistep_streamed"), 0.0)
+    shape = f"N={s['N']} n={s['n']} B={s['B']} K={s['K']}"
+    for storage, precision in STORAGES:
+        F, _, _ = lasso(gen, dev, s["N"], s["n"], storage)
+        for tau in (0.5, 1.0):
+            tag = f"{shape} {storage}/{precision} tau={tau}"
+            errs["ssnm_multistep"] = max(errs["ssnm_multistep"], compare_ssnm(
+                F, gen, dev, s["B"], s["K"], tau, precision, f"#19 {tag}"))
+        for f in (s["K"], s["f"]):
+            errs["ssnm_multistep_streamed"] = max(
+                errs["ssnm_multistep_streamed"], compare_ssnm(
+                    F, gen, dev, s["B"], s["K"], 0.5, precision,
+                    f"#13 {shape} {storage}/{precision} f={f}",
+                    streamed=True, f=f))
+        if precision == "highest" and storage != "bf16":
+            ssnm_bit_for_bit(F, gen, dev, s["B"], s["K"], s["f"],
+                             f"#19/#13 {shape} {storage}")
+        del F
+    for kind in PS_KINDS:
+        cases = [("f32", "highest"), ("int8", "highest")]
+        if kind in ("lsq", "logistic"):
+            cases.append(("bf16", "highest"))
+        if kind == "lsq":
+            cases.append(("f32", "default"))
+        for storage, precision in cases:
+            F, Lm = margin_rows(gen, dev, s["N"], s["n"], kind, storage)
+            tag = f"{shape} {kind} {storage}/{precision}"
+            errs["point_saga_multistep"] = max(
+                errs["point_saga_multistep"], compare_ps(
+                    F, Lm, gen, dev, s["B"], s["K"], precision, f"#12 {tag}"))
+            errs["point_saga_multistep_streamed"] = max(
+                errs["point_saga_multistep_streamed"], compare_ps(
+                    F, Lm, gen, dev, s["B"], s["K"], precision,
+                    f"#15 {tag} f={s['f']}", streamed=True, f=s["f"]))
+            del F
+    for storage in ("f32", "int8"):
+        F, _, _ = lasso(gen, dev, N, n, storage)
+        errs["ssnm_multistep"] = max(errs["ssnm_multistep"], compare_ssnm(
+            F, gen, dev, B, HEADLINE_K, 0.5, "highest",
+            f"#19 N={N} n={n} B={B} K={HEADLINE_K} {storage}"))
+        del F
+        for kind in ("lsq", "logistic"):
+            F, Lm = margin_rows(gen, dev, N, n, kind, storage)
+            errs["point_saga_multistep"] = max(
+                errs["point_saga_multistep"], compare_ps(
+                    F, Lm, gen, dev, B, HEADLINE_K, "highest",
+                    f"#12 N={N} n={n} B={B} K={HEADLINE_K} {kind} "
+                    f"{storage}"))
+            del F
+        torch.cuda.empty_cache()
+    return errs
+
+
+SSNM_GROUPS = {"kernel #19": ("rows_kernel", "ssnm_")}
+PS_GROUPS = {"kernel #12": ("rows_kernel", "point_saga_finish",
+                            "shifted_point")}
+
+
+def check_run(tag, st, moved, want, obj0, obj1, steps) -> None:
+    """A run's launches, finite state, falling objective and step count."""
+    for t in st:
+        if isinstance(t, torch.Tensor) and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{tag}: a state field is not finite")
+    if moved != want:
+        raise AssertionError(f"{tag}: launches {moved}, expected {want}")
+    if not (math.isfinite(obj1) and obj1 < obj0) or st.it != steps + 1:
+        raise AssertionError(f"{tag}: objective {obj0} -> {obj1}, it "
+                             f"{st.it}")
+
+
+def timed_run(run, st0, steps):
+    """(state, ms per step by the host clock, launches by kernel)."""
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(st0, steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return st, ms, {k: v - before[k] for k, v in counts().items()
+                    if v != before[k]}
+
+
+def run_ssnm(F, g, Lmax: float, B_: int, steps: int, streamed: bool,
+             tag: str, card: str) -> dict:
+    """SSNM at bench.py's setting (τ = 0.5, η = 1/(1.5·L_max), NormL1)
+    through ssnm_init and ssnm_run on kernel #19 (#13 when ``streamed``):
+    launches, a falling objective, ms per step."""
+    from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
+    from ciao_tpu_torch.solvers.ssnm import SSNMCfg, ssnm_init, ssnm_run
+
+    rows = F.coeff_rows_data()[0]
+    N_, n_ = rows.shape
+    cfg = SSNMCfg(N=N_, batch=B_, fused=not streamed, fused_stream=streamed)
+    st0 = ssnm_init(F, g, torch.zeros(n_, device=rows.device), 0.5,
+                    1.0 / (1.5 * Lmax), 0, cfg)
+    name = "ssnm_multistep" + ("_streamed" if streamed else "")
+    obj0 = cost(F, g, st0.x)
+    st, ms, moved = timed_run(lambda s, k: ssnm_run(F, g, s, cfg, k), st0,
+                              steps)
+    obj1 = cost(F, g, st.x)
+    log(f"  SSNM {tag}: N={N_} n={n_} B={B_}, {steps} steps: launches "
+        f"{moved}, objective {obj0:.6e} -> {obj1:.6e}, {ms:.4f} ms/step end "
+        f"to end [{card}]")
+    check_run(f"SSNM {tag}", st, moved,
+              {name: -(-steps // LAUNCH_STEPS)}, obj0, obj1, steps)
+    return dict(ms=ms, F=F, g=g, st=st0, cfg=cfg,
+                run=lambda k: ssnm_run(F, g, st0, cfg, k))
+
+
+def cost64(F, g, z) -> float:
+    """``cost`` at the f64 copy of z: the products widen the rows to f64.
+    bench.py's γ for the logistic, squared-hinge and Poisson rows moves
+    their objective by less than an f32 ulp of it in NEW_STEPS steps."""
+    return cost(F, g, z.double())
+
+
+def run_ps(F, gamma: float, B_: int, steps: int, streamed: bool, tag: str,
+           card: str, objective=cost) -> dict:
+    """Point-SAGA (g = Zero) at ``gamma`` through point_saga_init and
+    point_saga_run on kernel #12 (#15 when ``streamed``): launches, a
+    falling ``objective``, ms per step."""
+    from ciao_tpu_torch.prox import Zero
+    from ciao_tpu_torch.solvers.point_saga import (
+        PointSAGACfg, point_saga_init, point_saga_run,
+    )
+    from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
+
+    rows = F.coeff_rows_data()[0]
+    N_, n_ = rows.shape
+    g = Zero()
+    cfg = PointSAGACfg(N=N_, batch=B_, block=True, fused=not streamed,
+                       fused_stream=streamed)
+    st0 = point_saga_init(F, g, torch.zeros(n_, device=rows.device), gamma,
+                          0, cfg)
+    name = "point_saga_multistep" + ("_streamed" if streamed else "")
+    obj0 = objective(F, g, st0.x)
+    st, ms, moved = timed_run(lambda s, k: point_saga_run(F, g, s, cfg, k),
+                              st0, steps)
+    obj1 = objective(F, g, st.x)
+    log(f"  Point-SAGA {tag}: N={N_} n={n_} B={B_}, γ={gamma:.3e}, {steps} "
+        f"steps: launches {moved}, objective {obj0:.12e} -> {obj1:.12e}, "
+        f"{ms:.4f} ms/step end to end [{card}]")
+    check_run(f"Point-SAGA {tag}", st, moved,
+              {name: -(-steps // LAUNCH_STEPS)}, obj0, obj1, steps)
+    return dict(ms=ms, F=F, st=st0, cfg=cfg,
+                run=lambda k: point_saga_run(F, g, st0, cfg, k))
+
+
+def run_new_headline(gen, dev, card: str) -> dict:
+    """4o, 4q: SSNM and Point-SAGA at the headline, each with a profiled
+    window (device busy time and idle share). Point-SAGA as bench.py:
+    least squares f32 and int8 at γ = 1/(3·L_max), logistic f32 and int8
+    at γ = 1/(3·0.25·max ‖a_i‖²·N), squared hinge f32 at 1/(3·L_max),
+    Poisson f32 at 1/(30·L_max) (L_max of the least-squares rows)."""
+    from ciao_tpu_torch.prox import NormL1
+
+    out = {}
+    for storage in ("f32", "int8"):
+        F, _, L = lasso(gen, dev, N, n, storage)
+        g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
+        r = run_ssnm(F, g, float(L.max()), B, NEW_STEPS, False,
+                     f"headline {storage}", card)
+        r["prof"] = profile_steps(f"SSNM at the headline, {storage} rows",
+                                  lambda: r["run"](128), 128, card,
+                                  SSNM_GROUPS)
+        out["ssnm", storage] = r
+        del F
+    for kind, storage in (("lsq", "f32"), ("lsq", "int8"),
+                          ("logistic", "f32"), ("logistic", "int8"),
+                          ("sqhinge", "f32"), ("poisson", "f32")):
+        A = torch.randn(N, n, generator=gen, device=dev)
+        b = torch.randn(N, generator=gen, device=dev)
+        Lm = float((A * A).sum(dim=1).max()) * N
+        F, _ = row_oracle(kind, A, b, gen)
+        del A
+        if storage != "f32":
+            F = F.with_storage(storage)
+        gamma = {"lsq": 1.0 / (3.0 * Lm), "logistic": 1.0 / (0.75 * Lm),
+                 "sqhinge": 1.0 / (3.0 * Lm),
+                 "poisson": 1.0 / (30.0 * Lm)}[kind]
+        r = run_ps(F, gamma, B, NEW_STEPS, False,
+                   f"headline {kind} {storage}", card, cost64)
+        r["prof"] = profile_steps(
+            f"Point-SAGA at the headline, {kind} {storage} rows",
+            lambda: r["run"](128), 128, card, PS_GROUPS)
+        out["ps", kind, storage] = r
+        del F
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_new_deep(prob, gen, dev, card: str) -> dict:
+    """3o/3p at the deep shape (K = 8 of #13 and #15 against the plain
+    version), then 4p, 4r: SSNM (#13, NormL1(1), τ = 0.5, η =
+    1/(1.5·L_max)) and least-squares Point-SAGA (#15, g = Zero, γ =
+    1/(3·L_max)) on the deep target, f32 and int8 rows, NEW_DEEP_STEPS
+    each, with launch counts and falling objectives."""
+    errs = {"ssnm_multistep_streamed": 0.0,
+            "point_saga_multistep_streamed": 0.0}
+    Lm = float(prob.L.max())
+    for storage in ("f32", "int8"):
+        F = prob.oracle(storage)
+        tag = f"N={DEEP['N']} n={DEEP['n']} B={DEEP['B']} K={DEEP_K} {storage}"
+        errs["ssnm_multistep_streamed"] = max(
+            errs["ssnm_multistep_streamed"], compare_ssnm(
+                F, gen, dev, DEEP["B"], DEEP_K, 0.5, "highest", f"#13 {tag}",
+                streamed=True))
+        errs["point_saga_multistep_streamed"] = max(
+            errs["point_saga_multistep_streamed"], compare_ps(
+                F, Lm, gen, dev, DEEP["B"], DEEP_K, "highest", f"#15 {tag}",
+                streamed=True, gamma=1.0 / (3.0 * Lm)))
+    reset_counts()
+    runs = {}
+    for storage in ("f32", "int8"):
+        F = prob.oracle(storage)
+        runs["ssnm", storage] = run_ssnm(
+            F, prob.prox(), Lm, DEEP["B"], NEW_DEEP_STEPS, True,
+            f"deep target {storage}", card)
+        runs["ps", storage] = run_ps(
+            F, 1.0 / (3.0 * Lm), DEEP["B"], NEW_DEEP_STEPS, True,
+            f"deep target lsq {storage}", card)
+    c = counts()
+    want = {"ssnm_multistep_streamed", "point_saga_multistep_streamed"}
+    if any(c[k] == 0 for k in want) or sum(c.values()) != sum(
+            c[k] for k in want):
+        raise AssertionError(f"the deep SSNM and Point-SAGA paths did not "
+                             f"run on kernels #13 and #15 alone: {c}")
+    log(f"phase 4p/4r deep-target SSNM and Point-SAGA: ok, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    return dict(errs=errs, runs=runs, launches=c)
+
+
+def run_new_facades(dev, prob, F, card: str) -> None:
+    """4s: the SSNM facade (NormL1) and the PointSAGA facade (g = None,
+    block sampling) as a user calls them on the facades' planted Lasso,
+    on the card and then on the CPU with the same seed (the same block
+    draws): cost − f*, and the mean gradient's norm, must fall by the same
+    factor to three digits, and every card run takes #19 or #12."""
+    import numpy as np
+
+    import ciao_tpu_torch as ct
+
+    kw = NEW_FACADE
+    F_cpu = ct.LeastSquaresRows(F.A.cpu(), F.b.cpu(), F.scale.cpu())
+
+    def gap(Fx, x):
+        return prob.cost(x.double().cpu().numpy()) - prob.f_star
+
+    def gnorm(Fx, x):
+        return float(torch.linalg.vector_norm(Fx.grad_sum_all(x))
+                     / Fx.num_terms)
+
+    for make, name, measure, extra in (
+            (lambda d: ct.SSNM(maxit=kw["maxit"], batch=kw["batch"],
+                               device=d), "ssnm_multistep", gap,
+             lambda d: dict(g=ct.NormL1(prob.lam))),
+            (lambda d: ct.PointSAGA(maxit=kw["maxit"], batch=kw["batch"],
+                                    block_sampling=True, device=d),
+             "point_saga_multistep", gnorm, lambda d: {})):
+        folds, moved, dt = {}, None, 0.0
+        for where, Fx in ((dev, F), (torch.device("cpu"), F_cpu)):
+            x0 = torch.zeros(n, device=where)
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, _ = make(where)(x0, F=Fx, L=prob.L, **extra(where))
+            torch.cuda.synchronize()
+            if Fx is F:
+                dt = time.perf_counter() - t0
+                moved = {k: v - before[k] for k, v in counts().items()
+                         if v != before[k]}
+            m0, m1 = measure(Fx, x0), measure(Fx, x)
+            folds["card" if Fx is F else "cpu"] = (m0, m1, m0 / m1)
+        m0, m1, fold = folds["card"]
+        what = "cost - f*" if name == "ssnm_multistep" else "|mean grad|"
+        log(f"  facade {type(make(None)).__name__}(batch={kw['batch']}, "
+            f"maxit={kw['maxit']}) on planted make_lasso(N={FACADE['N']}, "
+            f"n={n}): {what} {m0:.6e} -> {m1:.6e} ({fold:.4f}-fold; the "
+            f"CPU run of the same seed {folds['cpu'][2]:.4f}-fold), launches "
+            f"{moved}, {dt:.3f} s [{card}]")
+        if not (math.isfinite(fold) and fold > 1.0
+                and np.isclose(fold, folds["cpu"][2], rtol=1e-3)):
+            raise AssertionError(f"facade {name}: fold {fold}, CPU "
+                                 f"{folds['cpu'][2]}")
+        if set(moved) != {name}:
+            raise AssertionError(f"facade {name}: launches {moved}")
+
+
+def run_logistic_deep(dev, card: str) -> float:
+    """4t: deep_solve on f32 LogisticRows (the logistic formula, mode 1,
+    on kernel #3 in the stochastic stage) at tests/test_deep.py's shape,
+    against the f64 optimum of 20,000 FISTA steps at the spectral stepsize
+    (the port's stepwise FISTA on the CPU); rel must be within 1e-6."""
+    from ciao_tpu_torch import FISTA, LogisticRows, NormL1, deep_solve
+
+    c = LOGISTIC_DEEP
+    g64 = torch.Generator().manual_seed(7)
+    A = torch.randn(c["N"], c["n"], generator=g64)
+    w = torch.randn(c["n"], generator=g64)
+    y = torch.sign(A @ w / math.sqrt(c["n"])
+                   + torch.randn(c["N"], generator=g64))
+    A64, y64 = A.double(), y.double()
+    lam_sp = float(torch.linalg.eigvalsh(0.25 * A64.T @ A64 / c["N"]).max())
+    xref, _ = FISTA(maxit=c["ref_steps"], gamma=0.95 / lam_sp)(
+        torch.zeros(c["n"], dtype=torch.float64),
+        F=LogisticRows(A64, y64), g=NormL1(torch.tensor(
+            c["lam"], dtype=torch.float64)), N=c["N"])
+
+    def cost64(z):
+        m = A64 @ z.double().cpu()
+        return float(torch.nn.functional.softplus(-y64 * m).mean()
+                     + c["lam"] * z.double().cpu().abs().sum())
+
+    f_star = cost64(xref)
+    if not bool((xref != 0).any()):
+        raise AssertionError("deep_solve logistic: the optimum is x = 0")
+    F = LogisticRows(A.to(dev), y.to(dev))
+    t0 = time.perf_counter()
+    x, info = deep_solve(
+        torch.zeros(c["n"], device=dev), F,
+        NormL1(torch.tensor(c["lam"], device=dev)),
+        L=0.25 * (A * A).sum(dim=1).to(dev), N=c["N"], batch=c["batch"],
+        chunk_epochs=c["chunk_epochs"], max_epochs=c["max_epochs"],
+        plateau_rtol=c["plateau_rtol"])
+    torch.cuda.synchronize()
+    rel = (cost64(x) - f_star) / abs(f_star)
+    log(f"  deep_solve logistic {c['N']} x {c['n']} NormL1({c['lam']}): rel "
+        f"{rel:.3e} against the f64 optimum (bar {c['rel']:g}), polish steps "
+        f"{info.polish_steps}, {time.perf_counter() - t0:.3f} s [{card}]")
+    if not -c["rel"] < rel <= c["rel"]:
+        raise AssertionError(f"deep_solve logistic: rel {rel}")
+    return rel
+
+
+def time_new(r: dict, kind: str, gen, dev, tag: str, card: str) -> dict:
+    """Kernel #19/#13 (``kind`` "ssnm") or #12/#15 ("ps") per step in
+    turns with its plain version: 128-step calls, one state stepped on in
+    place. The bound counts the rows, b and c (read and written; and
+    Point-SAGA's na, int8's rs) of the distinct blocks visited once, the
+    (n,) vectors in and out (SSNM: x, gb and the visited stored points;
+    Point-SAGA: x, av), and 4·B·n operations a step."""
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
+
+    F, cfg = r["F"], r["cfg"]
+    rows = F.coeff_rows_data()[0]
+    n_, B_ = rows.shape[1], cfg.batch
+    streamed = cfg.fused_stream
+    if kind == "ssnm":
+        S = ssnm_inputs(F, gen, dev, B_, LAUNCH_STEPS, 0.5, LAM)
+        name = "ssnm_multistep" + ("_streamed" if streamed else "")
+        blocks = int(torch.unique(S["starts"]).numel())
+        bnd = step_bound(F, S["starts"], B_, 16 * n_ + 8 * n_ * blocks, 12)
+        call = ssnm_call
+    else:
+        S = ps_inputs(F, gen, dev, B_, LAUNCH_STEPS, r["st"].gamma.item())
+        name = "point_saga_multistep" + ("_streamed" if streamed else "")
+        bnd = step_bound(F, S["starts"], B_, 16 * n_, 16)
+        call = ps_call
+    state = [t.clone() for t in S["state"]]
+
+    def run(fn):
+        def go():
+            call(fn, F, S, B_, state=state)
+            return LAUNCH_STEPS
+        return go
+    times = time_turns(run(getattr(fb, name)), run(getattr(fb, f"{name}_ref")),
+                       tag, card, bnd)
+    if not all(bool(torch.isfinite(t).all()) for t in state):
+        raise AssertionError(f"{tag}: the timed steps gave non-finite values")
+    return times
+
+
 KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
            "svrg_coeff_multistep", "coeff_apply_all",
            "finito_coeff_multistep", "finito_coeff_multistep_streamed",
            "lfinito_sweep_multistep", "finito_block_update",
            "saga_block_update", "proshi_multistep",
            "katyusha_coeff_multistep", "sarah_multistep",
-           "lsvrg_coeff_multistep", "lkatyusha_coeff_multistep")
+           "lsvrg_coeff_multistep", "lkatyusha_coeff_multistep",
+           "ssnm_multistep", "ssnm_multistep_streamed",
+           "point_saga_multistep", "point_saga_multistep_streamed")
 # the def line of the TPU kernel each replaces, in ciao_tpu/ops/fused_block.py
 REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
             "svrg_coeff_multistep": 966, "coeff_apply_all": 798,
@@ -2688,7 +3345,10 @@ REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
             "lfinito_sweep_multistep": 1170, "finito_block_update": 1032,
             "saga_block_update": 164, "proshi_multistep": 2964,
             "katyusha_coeff_multistep": 1607, "sarah_multistep": 1774,
-            "lsvrg_coeff_multistep": 2628, "lkatyusha_coeff_multistep": 2772}
+            "lsvrg_coeff_multistep": 2628, "lkatyusha_coeff_multistep": 2772,
+            "ssnm_multistep": 3133, "ssnm_multistep_streamed": 2160,
+            "point_saga_multistep": 1992,
+            "point_saga_multistep_streamed": 2474}
 
 
 def build_all() -> None:
@@ -2908,7 +3568,32 @@ def main() -> int:
                       lambda: finito_run(r["F"], r["g"], r["st"], r["cfg"],
                                          "lfinito", 2), 2, card,
                       LFINITO_GROUPS, unit="epoch")
-    del prob, lfin, Fd
+
+    # 3o/3p at the deep shape, then 4p, 4r: SSNM and Point-SAGA on the deep
+    # target, counts from 0 (inside), and kernels #13 and #15 timed
+    newdeep = run_new_deep(prob, gen, dev, card)
+    newdeep_errs = newdeep["errs"]
+    launches["ssnm_multistep_streamed"] = newdeep["launches"][
+        "ssnm_multistep_streamed"]
+    launches["point_saga_multistep_streamed"] = newdeep["launches"][
+        "point_saga_multistep_streamed"]
+    times10 = {}
+    for storage in ("f32", "int8"):
+        tag = f"{storage} rows, N={DEEP['N']} n={DEEP['n']} B={DEEP['B']}"
+        times10["#13", storage] = time_new(newdeep["runs"]["ssnm", storage],
+                                           "ssnm", gen, dev,
+                                           f"kernel #13, {tag}", card)
+        times10["#15", storage] = time_new(newdeep["runs"]["ps", storage],
+                                           "ps", gen, dev,
+                                           f"kernel #15, lsq {tag}", card)
+    for (fam, storage), r in newdeep["runs"].items():
+        profile_steps(f"{'SSNM' if fam == 'ssnm' else 'Point-SAGA'} at the "
+                      f"deep target, {storage} rows",
+                      lambda: r["run"](128), 128, card,
+                      {"kernel #13" if fam == "ssnm" else "kernel #15":
+                       SSNM_GROUPS["kernel #19"] if fam == "ssnm"
+                       else PS_GROUPS["kernel #12"]})
+    del prob, lfin, Fd, newdeep, r
     torch.cuda.empty_cache()
 
     # 4d. the SVRG path, counts from 0
@@ -3138,6 +3823,75 @@ def main() -> int:
         f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.5f})"
         for (k, s_), t in times9.items()) + f" [{card}]")
 
+    # 3o-3p. kernels #19, #13, #12, #15 == their plain versions
+    errs.update(phase_check_new(gen, dev))
+    for k, v in newdeep_errs.items():
+        errs[k] = max(errs[k], v)
+    log("phase 3o-3p kernels #19, #13, #12, #15 == plain versions: ok, max "
+        "|dx| " + ", ".join(f"{k} {errs[k]:.3e}" for k in (
+            "ssnm_multistep", "ssnm_multistep_streamed",
+            "point_saga_multistep", "point_saga_multistep_streamed")))
+    torch.cuda.empty_cache()
+
+    # 4o, 4q. SSNM and Point-SAGA at the headline, counts from 0
+    reset_counts()
+    newh = run_new_headline(gen, dev, card)
+    c = counts()
+    if (c["ssnm_multistep"] == 0 or c["point_saga_multistep"] == 0
+            or sum(c.values()) != c["ssnm_multistep"]
+            + c["point_saga_multistep"]):
+        raise AssertionError(f"the SSNM and Point-SAGA headline paths did "
+                             f"not run on kernels #19 and #12 alone: {c}")
+    log(f"phase 4o/4q SSNM and Point-SAGA headline paths: ok, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    launches["ssnm_multistep"] = c["ssnm_multistep"]
+    launches["point_saga_multistep"] = c["point_saga_multistep"]
+
+    # 4s. the SSNM and PointSAGA facades, counts from 0
+    reset_counts()
+    run_new_facades(dev, fprob, fF, card)
+    c = counts()
+    if (c["ssnm_multistep"] == 0 or c["point_saga_multistep"] == 0
+            or sum(c.values()) != c["ssnm_multistep"]
+            + c["point_saga_multistep"]):
+        raise AssertionError(f"the SSNM and PointSAGA facades did not run on "
+                             f"kernels #19 and #12 alone: {c}")
+    log(f"phase 4s SSNM and PointSAGA facades: ok, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    launches["ssnm_multistep"] += c["ssnm_multistep"]
+    launches["point_saga_multistep"] += c["point_saga_multistep"]
+
+    # 4t. deep_solve on logistic rows, counts from 0
+    reset_counts()
+    run_logistic_deep(dev, card)
+    c = counts()
+    if c["saga_coeff_multistep"] == 0 or sum(c.values()) != c[
+            "saga_coeff_multistep"]:
+        raise AssertionError(f"deep_solve on logistic rows did not run on "
+                             f"kernel #3 alone: {c}")
+    log(f"phase 4t deep_solve logistic: ok, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    launches["saga_coeff_multistep"] += c["saga_coeff_multistep"]
+
+    # 10. kernels #19 and #12 in turns with their plain versions at the
+    # headline
+    for storage in ("f32", "int8"):
+        tag = f"{storage} rows, N={N} n={n} B={B}"
+        times10["#19", storage] = time_new(newh["ssnm", storage], "ssnm", gen,
+                                           dev, f"kernel #19, {tag}", card)
+        for kind in ("lsq", "logistic"):
+            times10["#12", kind, storage] = time_new(
+                newh["ps", kind, storage], "ps", gen, dev,
+                f"kernel #12, {kind} {tag}", card)
+    log("phase 10 times: " + "; ".join(
+        f"kernel {' '.join(k)} {t['ms']:.4f} ms/step (plain "
+        f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.5f})"
+        for k, t in times10.items()) + "; end to end " + "; ".join(
+        f"{' '.join(k)} {r['ms']:.4f} ms/step, idle "
+        f"{1.0 - r['prof']['busy'] / r['prof']['step']:.3f}"
+        for k, r in newh.items()) + f" [{card}]")
+    del newh
+
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         kernel_line("saga_coeff_multistep", launches["saga_coeff_multistep"],
@@ -3167,6 +3921,18 @@ def main() -> int:
                     errs["proshi_multistep"], times8["#18", "f32"]),
         *(kernel_line(VR[k][0], launches[VR[k][0]], errs[VR[k][0]],
                       times9[k, "f32"]) for k in VR),
+        kernel_line("ssnm_multistep", launches["ssnm_multistep"],
+                    errs["ssnm_multistep"], times10["#19", "f32"]),
+        kernel_line("ssnm_multistep_streamed",
+                    launches["ssnm_multistep_streamed"],
+                    errs["ssnm_multistep_streamed"], times10["#13", "f32"]),
+        kernel_line("point_saga_multistep", launches["point_saga_multistep"],
+                    errs["point_saga_multistep"],
+                    times10["#12", "lsq", "f32"]),
+        kernel_line("point_saga_multistep_streamed",
+                    launches["point_saga_multistep_streamed"],
+                    errs["point_saga_multistep_streamed"],
+                    times10["#15", "f32"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

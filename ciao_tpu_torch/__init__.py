@@ -28,20 +28,25 @@ stepwise) with the coupling proxes ``IndBox``/``NormL1``/``Zero``, and
 step is SVRG's: ``Katyusha`` (``katyusha_coeff_multistep``), ``SARAH``
 (``sarah_multistep``), ``LSVRG`` and ``LKatyusha``
 (``lsvrg_coeff_multistep``, ``lkatyusha_coeff_multistep``), each with
-its anchor on ``coeff_apply_all``. The rest is queued in ROADMAP.md. Imports
+its anchor on ``coeff_apply_all``; ``SSNM`` (``ssnm_multistep``,
+``ssnm_multistep_streamed``) and ``PointSAGA`` (``point_saga_multistep``,
+``point_saga_multistep_streamed``), with the row oracles
+``LogisticRows``, ``HuberRows``, ``SquaredHingeRows`` and ``PoissonRows``
+beside ``LeastSquaresRows``. The rest is queued in ROADMAP.md. Imports
 torch and numpy, never jax. Entry points run on the card unless the
 caller names the CPU (a CPU tensor or ``device="cpu"``).
 """
 
 from ciao_tpu_torch import oracles, prox
 from ciao_tpu_torch.oracles import (
-    DenseQuadratic, DiagQuadratic, LeastSquaresRows, SqrDistBox, SumOracle,
-    ZeroOracle,
+    DenseQuadratic, DiagQuadratic, HuberRows, LeastSquaresRows, LogisticRows,
+    PoissonRows, SqrDistBox, SquaredHingeRows, SumOracle, ZeroOracle,
 )
 from ciao_tpu_torch.prox import IndBox, NormL1, Zero
 from ciao_tpu_torch.solvers import (
-    FISTA, LSVRG, SAG, SAGA, SARAH, SVRG, DeepSharingInfo, DeepSolveInfo,
-    Finito, ForwardBackward, Katyusha, LKatyusha, Proshi, StagedInfo,
+    FISTA, LSVRG, SAG, SAGA, SARAH, SSNM, SVRG, DeepSharingInfo,
+    DeepSolveInfo, Finito, ForwardBackward, Katyusha, LKatyusha, PointSAGA,
+    Proshi, StagedInfo,
     deep_solve, deep_solve_sharing,
     fista_polish, grad_mean_chunked, halt, iterator, loop, lsq_power_lmax,
     power_lmax, proshi_resync, sharing_objective, solution, staged_saga,
@@ -55,6 +60,10 @@ __all__ = [
     "oracles",
     "prox",
     "LeastSquaresRows",
+    "LogisticRows",
+    "HuberRows",
+    "SquaredHingeRows",
+    "PoissonRows",
     "DiagQuadratic",
     "DenseQuadratic",
     "SqrDistBox",
@@ -72,6 +81,8 @@ __all__ = [
     "SARAH",
     "LSVRG",
     "LKatyusha",
+    "SSNM",
+    "PointSAGA",
     "ForwardBackward",
     "FISTA",
     "deep_solve",

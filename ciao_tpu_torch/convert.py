@@ -22,7 +22,9 @@ import numpy as np
 import torch
 
 from ciao_tpu_torch import runtime
-from ciao_tpu_torch.oracles import LeastSquaresRows
+from ciao_tpu_torch.oracles import (
+    HuberRows, LeastSquaresRows, LogisticRows, PoissonRows, SquaredHingeRows,
+)
 from ciao_tpu_torch.solvers.base import Status
 from ciao_tpu_torch.sampling import SweepState
 from ciao_tpu_torch.solvers.fb import FBState
@@ -32,8 +34,10 @@ from ciao_tpu_torch.solvers.sarah import SARAHState
 from ciao_tpu_torch.solvers.finito import (
     FinitoAdaptiveState, FinitoBasicState, FinitoCoeffState, LFinitoState,
 )
+from ciao_tpu_torch.solvers.point_saga import PointSAGAState
 from ciao_tpu_torch.solvers.proshi import ProshiState
 from ciao_tpu_torch.solvers.saga import SAGAState
+from ciao_tpu_torch.solvers.ssnm import SSNMState
 from ciao_tpu_torch.solvers.svrg import SVRGState
 
 
@@ -60,6 +64,48 @@ def least_squares_from_numpy(A, b, scale, row_scale=None,
         tensor_from_numpy(scale, device),
         None if row_scale is None else tensor_from_numpy(row_scale, device),
     )
+
+
+def _rs(row_scale, device):
+    return None if row_scale is None else tensor_from_numpy(row_scale, device)
+
+
+def logistic_from_numpy(X, y, row_scale=None, device=None) -> LogisticRows:
+    """``LogisticRows`` from the JAX oracle's fields ``X`` (f32, bf16 or
+    int8), ``y`` and, for int8 rows, ``row_scale``."""
+    return LogisticRows(tensor_from_numpy(X, device),
+                        tensor_from_numpy(y, device),
+                        row_scale=_rs(row_scale, device))
+
+
+def huber_from_numpy(A, b, delta, scale, row_scale=None,
+                     device=None) -> HuberRows:
+    """``HuberRows`` from the JAX oracle's fields ``A``, ``b``, ``delta``,
+    ``scale`` and, for int8 rows, ``row_scale``."""
+    return HuberRows(tensor_from_numpy(A, device), tensor_from_numpy(b, device),
+                     delta=tensor_from_numpy(delta, device),
+                     scale=tensor_from_numpy(scale, device),
+                     row_scale=_rs(row_scale, device))
+
+
+def sqhinge_from_numpy(A, y, scale, row_scale=None,
+                       device=None) -> SquaredHingeRows:
+    """``SquaredHingeRows`` from the JAX oracle's fields ``A``, ``y``,
+    ``scale`` and, for int8 rows, ``row_scale``."""
+    return SquaredHingeRows(tensor_from_numpy(A, device),
+                            tensor_from_numpy(y, device),
+                            scale=tensor_from_numpy(scale, device),
+                            row_scale=_rs(row_scale, device))
+
+
+def poisson_from_numpy(A, y, scale, row_scale=None,
+                       device=None) -> PoissonRows:
+    """``PoissonRows`` from the JAX oracle's fields ``A``, ``y``,
+    ``scale`` and, for int8 rows, ``row_scale``."""
+    return PoissonRows(tensor_from_numpy(A, device),
+                       tensor_from_numpy(y, device),
+                       scale=tensor_from_numpy(scale, device),
+                       row_scale=_rs(row_scale, device))
 
 
 def saga_state_from_numpy(s, z, av, gamma, it, seed: int = 0,
@@ -231,3 +277,30 @@ def lkatyusha_state_from_numpy(Lmax, sigma, theta1, theta2, p, av, w_anchor,
         av=_flat(av, device), w_anchor=_flat(w_anchor, device),
         y=_flat(y, device), z=_flat(z, device), seed=int(seed), it=int(it),
         status=int(Status.RUNNING), canch=_anchor(canch, device))
+
+
+def ssnm_state_from_numpy(tau, eta, c, zb, gbar, x, it, seed: int = 0,
+                          device=None) -> SSNMState:
+    """``SSNMState`` from the JAX state's fields: ``c`` flattened (an
+    (8, N/8) slab or (N,)), the (d, n) stored points ``zb`` as they are
+    (a copy the state owns, even of a broadcast view)."""
+    return SSNMState(
+        tau=tensor_from_numpy(tau, device), eta=tensor_from_numpy(eta, device),
+        c=_flat(c, device), zb=tensor_from_numpy(zb, device),
+        gbar=_flat(gbar, device), x=_flat(x, device), seed=int(seed),
+        it=int(it), status=int(Status.RUNNING))
+
+
+def point_saga_state_from_numpy(gamma, c, av, x, it, seed: int = 0,
+                                na8=None, qcum=None, qinv=None,
+                                device=None) -> PointSAGAState:
+    """``PointSAGAState`` from the JAX state's fields: ``c`` and the kernel
+    routes' row square-norms ``na8`` (an (8, N/8) slab or a (1, N) row)
+    flattened; under importance sampling ``qcum`` and ``qinv``."""
+    return PointSAGAState(
+        gamma=tensor_from_numpy(gamma, device), c=_flat(c, device),
+        av=_flat(av, device), x=_flat(x, device), seed=int(seed), it=int(it),
+        status=int(Status.RUNNING),
+        na8=None if na8 is None else _flat(na8, device),
+        qcum=None if qcum is None else tensor_from_numpy(qcum, device),
+        qinv=None if qinv is None else tensor_from_numpy(qinv, device))

@@ -1,8 +1,8 @@
 // Row primitives shared by the port's kernels on an NVIDIA Hopper card
 // (sm_90a): the storage codes, the clamp-count mask of a step, the bf16
-// rounding of the dot operands, reads of
-// one or four row values from shared memory, a row's margin by one warp, the
-// transposed product over a tile, the oracle's coefficient formula, the L1
+// rounding of the dot operands, reads of one or four row values from shared
+// memory, a row's margin by one warp, the transposed product over a tile, the
+// oracle's coefficient formula, the Point-SAGA per-row prox, the L1
 // soft-threshold, the fixed-order sum of per-CTA partials and the size of a
 // row tile in shared memory.
 //
@@ -178,6 +178,56 @@ __device__ __forceinline__ float coeff_formula(int mode, float r, float b,
       return -scale * b * fmaxf(1.0f - b * r, 0.0f);
     default:
       return scale * (expf(fminf(r, kPoissonClamp)) - b);
+  }
+}
+
+// ops/fused_block.py pointprox_theta: Point-SAGA's per-row prox theta for the
+// oracle formula kMode (a template parameter: the host dispatches once per
+// call), from the margin mz at the row's prox point, the offset or label b, the
+// row square-norm na and the table coefficient c_old. Least squares and Huber
+// are closed forms, squared hinge one activity test of the deficit at mz,
+// logistic and Poisson 20 Newton steps from theta = c_old.
+constexpr int kPointProxNewtonSteps = 20;
+template <int kMode>
+__device__ __forceinline__ float pointprox_theta(float mz, float b, float na,
+                                                float c_old, float scale,
+                                                float gamma, float aux) {
+  if constexpr (kMode == kLogistic) {
+    // theta = -y sigmoid(-y (mz - gamma na theta))
+    const float gna2 = gamma * na;
+    float th = c_old;
+#pragma unroll 4
+    for (int it = 0; it < kPointProxNewtonSteps; ++it) {
+      const float s = 1.0f / (1.0f + expf(b * (mz - gna2 * th)));
+      th = th - (th + b * s) / (1.0f + gna2 * s * (1.0f - s));
+    }
+    return th;
+  } else if constexpr (kMode == kPoisson) {
+    // theta = scale (exp(min(mz - gamma na theta, M)) - y); the derivative
+    // keeps the clamp's branch
+    const float gna2 = gamma * na;
+    float th = c_old;
+#pragma unroll 4
+    for (int it = 0; it < kPointProxNewtonSteps; ++it) {
+      const float u = mz - gna2 * th;
+      const float e = expf(fminf(u, kPoissonClamp));
+      const float dphi = 1.0f + scale * gna2 * (u <= kPoissonClamp ? e : 0.0f);
+      th = th - (th - scale * (e - b)) / dphi;
+    }
+    return th;
+  } else if constexpr (kMode == kSqHinge) {
+    // active iff the deficit at the prox point mz is positive
+    const float deficit = 1.0f - b * mz;
+    return deficit > 0.0f
+               ? -scale * b * deficit / (1.0f + scale * gamma * na)
+               : 0.0f;
+  } else {
+    const float theta = scale * (mz - b) / (1.0f + gamma * scale * na);
+    if constexpr (kMode == kHuber) {
+      const float h = scale * aux;
+      return fminf(fmaxf(theta, -h), h);
+    }
+    return theta;
   }
 }
 

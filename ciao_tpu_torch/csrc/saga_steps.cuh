@@ -1,5 +1,5 @@
 // Coefficient block steps on an NVIDIA Hopper card (sm_90a): the device code
-// shared by ten kernels of ciao_tpu_torch/ops/fused_block.py,
+// shared by fourteen kernels of ciao_tpu_torch/ops/fused_block.py,
 //
 //   saga_coeff_multistep.cu             replaces ciao_tpu/ops/fused_block.py
 //                                       saga_coeff_multistep (SAGA/SAG steps);
@@ -22,7 +22,16 @@
 //                                       (L-SVRG steps, masked past stop);
 //   lkatyusha_coeff_multistep.cu        replaces lkatyusha_coeff_multistep
 //                                       (L-Katyusha steps, masked past
-//                                       stop).
+//                                       stop);
+//   ssnm_multistep.cu                   replaces ssnm_multistep (SSNM steps:
+//                                       SAGA's at a momentum point);
+//   ssnm_multistep_streamed.cu          replaces ssnm_multistep_streamed
+//                                       (the same, steps k >= f masked);
+//   point_saga_multistep.cu             replaces point_saga_multistep
+//                                       (Point-SAGA steps, a per-row prox);
+//   point_saga_multistep_streamed.cu    replaces
+//                                       point_saga_multistep_streamed (the
+//                                       same, steps k >= f masked).
 //
 // The Python wrappers and the design notes are in ops/fused_block.py; the plain
 // PyTorch versions of the same arithmetic are the *_ref functions there.
@@ -74,6 +83,18 @@
 // pre-update iterate of each processed step (wpre, ypre), so the last one
 // leaves the launch.
 //
+// SSNM takes its margins at the momentum point y = tau x + (1 - tau) zb_j of
+// the step's block j, and Point-SAGA at the shifted iterate v = x - gamma av,
+// each formed once per step into an (n,) scratch: a prologue launch forms step
+// 0's, and each finish, after updating its columns of the iterate, forms the
+// next step's. SSNM's row phase is SAGA's (the table refreshed at y); its
+// finish steps x from x, adds the innovation to the table mean gb and stores
+// y as block j's point. Point-SAGA's row phase replaces the coefficient
+// formula by the row's prox solve, a template parameter (one instantiation per
+// oracle mode): theta_i at the margin a_i . v + gamma c_i |a_i|^2 of the row's
+// prox point, the table write c_i <- theta_i and dc_i = c_i_old - theta_i; its
+// finish steps x <- v + (gamma / B) sum, av <- av - sum / N.
+//
 // Row offsets are 64-bit (start * n reaches 1.3e9 at the 10,485,760 x 128
 // deep target); block starts are int32, which the wrappers check (N < 2^31).
 
@@ -98,7 +119,9 @@ constexpr int kMaxRowsPerCta = 32;
 // SARAH       [scale, gamma, gamma*lambda, eta, 1/B, mode, aux];
 // L-SVRG      [scale, gamma, gamma*lambda, 1/B, mode, aux];
 // L-Katyusha  [scale, eta/L, tau*lambda, 1/(1 + eta*sigma), eta*sigma,
-//              theta1, theta2, 1/B, mode, aux].
+//              theta1, theta2, 1/B, mode, aux];
+// SSNM        [scale, eta, eta*lambda, 1/B, 1/N, mode, tau, aux];
+// Point-SAGA  [scale, gamma, 1/B, 1/N, mode, aux].
 enum Method {
   kSaga = 0,
   kSvrg = 1,
@@ -107,13 +130,16 @@ enum Method {
   kKatyusha = 4,
   kSarah = 5,
   kLsvrg = 6,
-  kLKatyusha = 7
+  kLKatyusha = 7,
+  kSsnm = 8,
+  kPointSaga = 9
 };
 
-// Whether the row phase refreshes the coefficient table (SAGA, Finito), or
-// reads an anchor table (the others but SARAH, which has none).
+// Whether the row phase refreshes the coefficient table with the formula
+// (SAGA, Finito, SSNM), or reads an anchor table (the others but SARAH, which
+// has none, and Point-SAGA, which writes its prox solve).
 __host__ __device__ constexpr bool writes_table(Method M) {
-  return M == kSaga || M == kFinito;
+  return M == kSaga || M == kFinito || M == kSsnm;
 }
 
 // Whether the margins are taken at the coupled point x and dc is
@@ -133,15 +159,21 @@ __host__ __device__ constexpr int points(Method M) {
   return M == kSarah ? 2 : 1;
 }
 
+// The f32 values the row phase stages per row: dc, b, c and rs, and
+// Point-SAGA's square-norm na.
+__host__ __device__ constexpr int row_values(Method M) {
+  return M == kPointSaga ? 5 : 4;
+}
+
 template <Method M>
 struct ScalarIndex {
   static constexpr int kMode =
       (M == kSaga || M == kKatyusha) ? 6
-      : M == kSarah                  ? 5
+      : (M == kSarah || M == kSsnm)  ? 5
       : M == kLKatyusha              ? 8
                                      : 4;
   static constexpr int kAux = (M == kKatyusha || M == kLKatyusha) ? 9
-                              : (M == kSaga)                      ? 7
+                              : (M == kSaga || M == kSsnm)        ? 7
                               : (M == kSarah)                     ? 6
                                                                   : 5;
 };
@@ -158,19 +190,20 @@ __device__ __forceinline__ bool step_masked(const int* fclamp, int k) {
 }
 
 // Shared memory: the tile (rows x n of T), then the points (n floats each),
-// then per row dc, b, c and rs (rows floats each); the per-row values are
-// fetched while the tile is in flight. c is the table (SAGA, Finito:
-// written back) or the anchor coefficients (read only; SARAH reads none);
-// z is the point of the margins (x for Katyusha and L-Katyusha; SARAH's
-// 2n values [w_prev; w]).
-template <Method M, typename T, bool kLowp, bool kVec>
+// then per row dc, b, c, rs and (Point-SAGA) na (rows floats each); the per-row
+// values are fetched while the tile is in flight. c is the table (SAGA,
+// Finito, SSNM, Point-SAGA: written back) or the anchor coefficients (read
+// only; SARAH reads none); z is the point of the margins (x for Katyusha and
+// L-Katyusha, y for SSNM, v for Point-SAGA; SARAH's 2n values [w_prev; w]).
+// kPMode is Point-SAGA's oracle mode (the other methods read theirs from sc).
+template <Method M, typename T, bool kLowp, bool kVec, int kPMode>
 __global__ void __launch_bounds__(kRowThreads)
 rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
-            const float* __restrict__ rs, float* __restrict__ c,
-            const float* __restrict__ z, const int* __restrict__ starts,
-            const int* __restrict__ fclamp, int k,
-            const float* __restrict__ sc, float* __restrict__ part, int n,
-            int rows) {
+            const float* __restrict__ rs, const float* __restrict__ na,
+            float* __restrict__ c, const float* __restrict__ z,
+            const int* __restrict__ starts, const int* __restrict__ fclamp,
+            int k, const float* __restrict__ sc, float* __restrict__ part,
+            int n, int rows) {
   if (step_masked<M>(fclamp, k)) return;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
@@ -180,6 +213,7 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
   float* bs = dcs + rows;
   float* cs = bs + rows;
   float* rss = cs + rows;
+  float* nas = rss + rows;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -196,6 +230,7 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
     bs[tid] = b[start + tid];
     if constexpr (M != kSarah) cs[tid] = c[start + tid];
     rss[tid] = rs != nullptr ? rs[start + tid] : 1.0f;
+    if constexpr (M == kPointSaga) nas[tid] = na[start + tid];
   }
   if (kVec) __pipeline_wait_prior(0);
   __syncthreads();
@@ -215,6 +250,17 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
       // grad f_i(w) - grad f_i(w_prev)
       dc = coeff_formula(mode, m1, bs[r], scale, aux) -
            coeff_formula(mode, m0, bs[r], scale, aux);
+    } else if constexpr (M == kPointSaga) {
+      float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
+      if (rs != nullptr) m *= rss[r];
+      // the row's prox point z_i = v + gamma c_i a_i has the margin
+      // m + gamma c_i |a_i|^2; every lane solves (the warp is uniform)
+      const float gamma = sc[1];
+      const float c_old = cs[r];
+      const float theta = pointprox_theta<kPMode>(
+          m + gamma * c_old * nas[r], bs[r], nas[r], c_old, scale, gamma, aux);
+      if (lane == 0) c[start + r] = theta;
+      dc = c_old - theta;
     } else {
       float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
       if (rs != nullptr) m *= rss[r];
@@ -464,6 +510,85 @@ lkatyusha_finish_kernel(const float* __restrict__ part, int parts,
   x[j] = coupled_point(th1, sc[6], z_new, wa[j], y_new);
 }
 
+// SSNM's momentum point tau x + (1 - tau) zb and Point-SAGA's shifted
+// iterate x - gamma av, each rounded as the plain versions round them (no
+// contraction into an fma).
+__device__ __forceinline__ float momentum_point(float tau, float x, float zb) {
+  return __fadd_rn(__fmul_rn(tau, x), __fmul_rn(1.0f - tau, zb));
+}
+__device__ __forceinline__ float shifted_point(float gamma, float x,
+                                               float av) {
+  return __fsub_rn(x, __fmul_rn(gamma, av));
+}
+
+// y <- the momentum point of step 0's block on every column.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+ssnm_point_kernel(const float* __restrict__ x, const float* __restrict__ zb,
+                  const int* __restrict__ starts, int B, float* __restrict__ y,
+                  const float* __restrict__ sc, int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < n)
+    y[j] = momentum_point(sc[6], x[j],
+                          zb[static_cast<int64_t>(starts[0] / B) * n + j]);
+}
+
+// v <- x - gamma av on every column: step 0's shifted iterate.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+shifted_point_kernel(const float* __restrict__ x,
+                     const float* __restrict__ av, float* __restrict__ v,
+                     const float* __restrict__ sc, int n) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < n) v[j] = shifted_point(sc[1], x[j], av[j]);
+}
+
+// SSNM (Zhou, Shang and Cheng 2019) on block j = starts[k] / B, the margins
+// taken at y: x <- soft(x - eta (sum / B + gb), eta lambda), gb += sum / N,
+// zb_j <- y; then the next step's y from the new x and the next block's
+// stored point (zb_j itself when the block repeats: this thread just wrote
+// it). A masked step writes nothing.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+ssnm_finish_kernel(const float* __restrict__ part, int parts,
+                   float* __restrict__ y, float* __restrict__ x,
+                   float* __restrict__ gb, float* __restrict__ zb,
+                   const int* __restrict__ starts, int B,
+                   const float* __restrict__ sc,
+                   const int* __restrict__ fclamp, int k, int K, int n) {
+  if (masked(fclamp, k)) return;
+  int j;
+  float innov;
+  if (!column_sum(part, parts, n, j, innov)) return;
+  const float yj = y[j];
+  const float x_new =
+      soft_threshold(x[j] - sc[1] * (innov * sc[3] + gb[j]), sc[2]);
+  x[j] = x_new;
+  gb[j] += innov * sc[4];
+  zb[static_cast<int64_t>(starts[k] / B) * n + j] = yj;
+  if (k + 1 < K)
+    y[j] = momentum_point(
+        sc[6], x_new, zb[static_cast<int64_t>(starts[k + 1] / B) * n + j]);
+}
+
+// Point-SAGA (Defazio 2016, the block mean of the rows' prox points) on a
+// block: with sum = sum (c_old - theta) a_i, x <- v + (gamma / B) sum,
+// av <- av - sum / N, then the next step's v = x - gamma av. A masked step
+// writes nothing.
+__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
+point_saga_finish_kernel(const float* __restrict__ part, int parts,
+                         float* __restrict__ v, float* __restrict__ x,
+                         float* __restrict__ av, const float* __restrict__ sc,
+                         const int* __restrict__ fclamp, int k, int n) {
+  if (masked(fclamp, k)) return;
+  int j;
+  float u;
+  if (!column_sum(part, parts, n, j, u)) return;
+  const float gamma = sc[1];
+  const float x_new = v[j] + (gamma * sc[2]) * u;
+  const float av_new = av[j] - u * sc[3];
+  x[j] = x_new;
+  av[j] = av_new;
+  v[j] = shifted_point(gamma, x_new, av_new);
+}
+
 // The arguments of one call: K steps on one stream. SAGA: c the table, z the
 // iterate, av the running average, zs NULL. SVRG: c the anchor coefficients
 // (read only), z the inner iterate w, av the anchor's mean gradient (read
@@ -479,7 +604,10 @@ lkatyusha_finish_kernel(const float* __restrict__ part, int parts,
 // SARAH: c NULL, z the (2, n) pair [w_prev; w], v the estimator. L-SVRG: c
 // the anchor coefficients, z the iterate w, av, pre = wpre, fclamp the stop
 // index. L-Katyusha: Katyusha's, with xa the anchor point w, pre = ypre and
-// fclamp the stop index.
+// fclamp the stop index. SSNM: c the table, z an (n,) scratch for y, av the
+// table mean gb, zb the (d, n) stored points, xi the iterate x. Point-SAGA: c
+// the table, z an (n,) scratch for v, av the table mean, xi the iterate x, na
+// the (N,) row square-norms.
 struct StepArgs {
   const void* A;
   const float* b;
@@ -504,15 +632,18 @@ struct StepArgs {
   const float* xa = nullptr;
   float* pre = nullptr;
   float* v = nullptr;
+  float* xi = nullptr;
+  const float* na = nullptr;
 };
 
-template <Method M, typename T, bool kLowp, bool kVec>
+template <Method M, typename T, bool kLowp, bool kVec, int kPMode>
 cudaError_t run_steps(const StepArgs& a) {
   const int parts = a.B / a.rows;
   const size_t smem =
       tile_bytes(a.rows, a.n, sizeof(T)) +
-      sizeof(float) * static_cast<size_t>(points(M) * a.n + 4 * a.rows);
-  auto kernel = rows_kernel<M, T, kLowp, kVec>;
+      sizeof(float) *
+          static_cast<size_t>(points(M) * a.n + row_values(M) * a.rows);
+  auto kernel = rows_kernel<M, T, kLowp, kVec, kPMode>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -530,11 +661,17 @@ cudaError_t run_steps(const StepArgs& a) {
     // theta1, theta2 at 5, 6)
     point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
         a.zm, a.xa, a.y, a.z, a.sc, M == kKatyusha ? 7 : 5, a.n);
+  } else if constexpr (M == kSsnm) {
+    ssnm_point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
+        a.xi, a.zb, a.starts, a.B, a.z, a.sc, a.n);
+  } else if constexpr (M == kPointSaga) {
+    shifted_point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
+        a.xi, a.av, a.z, a.sc, a.n);
   }
   for (int k = 0; k < a.K; ++k) {
     kernel<<<parts, kRowThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.A), a.b, a.rs, a.c, a.z, a.starts, a.fclamp, k,
-        a.sc, a.part, a.n, a.rows);
+        static_cast<const T*>(a.A), a.b, a.rs, a.na, a.c, a.z, a.starts,
+        a.fclamp, k, a.sc, a.part, a.n, a.rows);
     if constexpr (M == kSaga) {
       saga_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.av, a.sc, a.wgts, a.fclamp, k, a.n);
@@ -557,10 +694,17 @@ cudaError_t run_steps(const StepArgs& a) {
     } else if constexpr (M == kLsvrg) {
       lsvrg_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.pre, a.av, a.sc, a.fclamp, k, a.n);
-    } else {
+    } else if constexpr (M == kLKatyusha) {
       lkatyusha_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.y, a.zm, a.pre, a.xa, a.av, a.sc, a.fclamp, k,
           a.n);
+    } else if constexpr (M == kSsnm) {
+      ssnm_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+          a.part, parts, a.z, a.xi, a.av, a.zb, a.starts, a.B, a.sc, a.fclamp,
+          k, a.K, a.n);
+    } else {
+      point_saga_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+          a.part, parts, a.z, a.xi, a.av, a.sc, a.fclamp, k, a.n);
     }
     if (k == 0) {
       const cudaError_t e = cudaGetLastError();
@@ -570,17 +714,17 @@ cudaError_t run_steps(const StepArgs& a) {
   return cudaGetLastError();
 }
 
-template <Method M, typename T, bool kLowp>
+template <Method M, typename T, bool kLowp, int kPMode>
 cudaError_t dispatch_vec(bool vec, const StepArgs& a) {
-  return vec ? run_steps<M, T, kLowp, true>(a)
-             : run_steps<M, T, kLowp, false>(a);
+  return vec ? run_steps<M, T, kLowp, true, kPMode>(a)
+             : run_steps<M, T, kLowp, false, kPMode>(a);
 }
 
 // Checks the shape, picks the instantiation for the storage and queues the 2K
 // launches; returns cudaGetLastError() after the last (0 on success). rows
 // divides B and is at most 32; part is (B / rows, n) f32 scratch, 16-byte
-// aligned.
-template <Method M>
+// aligned. kPMode is Point-SAGA's oracle mode.
+template <Method M, int kPMode = 0>
 cudaError_t launch_steps(int storage, int lowp, const StepArgs& a) {
   if (a.rows < 1 || a.rows > kMaxRowsPerCta || a.B % a.rows != 0 || a.n < 1 ||
       a.K < 1)
@@ -588,12 +732,35 @@ cudaError_t launch_steps(int storage, int lowp, const StepArgs& a) {
   const bool vec = vec_rows(a.A, a.n, storage_itemsize(storage));
   switch (storage) {
     case kF32:
-      return lowp ? dispatch_vec<M, float, true>(vec, a)
-                  : dispatch_vec<M, float, false>(vec, a);
+      return lowp ? dispatch_vec<M, float, true, kPMode>(vec, a)
+                  : dispatch_vec<M, float, false, kPMode>(vec, a);
     case kBF16:
-      return dispatch_vec<M, __nv_bfloat16, true>(vec, a);
+      return dispatch_vec<M, __nv_bfloat16, true, kPMode>(vec, a);
     case kI8:
-      return dispatch_vec<M, int8_t, true>(vec, a);
+      return dispatch_vec<M, int8_t, true, kPMode>(vec, a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The host dispatch on the oracle mode of a method whose row phase takes it
+// as a template parameter (Point-SAGA): one instantiation per mode, so each
+// per-row solve is compiled for its formula alone. A template, so that only
+// the kernels that call it instantiate its 5 x 8 row phases.
+template <Method M>
+cudaError_t launch_steps_by_mode(int mode, int storage, int lowp,
+                                 const StepArgs& a) {
+  switch (mode) {
+    case kLsq:
+      return launch_steps<M, kLsq>(storage, lowp, a);
+    case kLogistic:
+      return launch_steps<M, kLogistic>(storage, lowp, a);
+    case kHuber:
+      return launch_steps<M, kHuber>(storage, lowp, a);
+    case kSqHinge:
+      return launch_steps<M, kSqHinge>(storage, lowp, a);
+    case kPoisson:
+      return launch_steps<M, kPoisson>(storage, lowp, a);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,10 +1,11 @@
 """The coefficient kernels of the port, with their plain versions.
 
 Counterpart of ``ciao_tpu/ops/fused_block.py``, cut to what the SAGA,
-deep, SVRG, forward-backward, Finito, ProShI, Katyusha, SARAH and
-loopless (L-SVRG, L-Katyusha) paths run: the oracle formula modes, the
-coupling prox modes, the scalar constants, the kernels' gates, and
-fourteen hand-written CUDA kernels for Hopper beside their plain PyTorch
+deep, SVRG, forward-backward, Finito, ProShI, Katyusha, SARAH, loopless
+(L-SVRG, L-Katyusha), SSNM and Point-SAGA paths run: the oracle formula
+modes, Point-SAGA's per-row prox (:func:`pointprox_theta`), the coupling
+prox modes, the scalar constants, the kernels' gates, and eighteen
+hand-written CUDA kernels for Hopper beside their plain PyTorch
 versions:
 
 - ``saga_coeff_multistep`` (``csrc/saga_coeff_multistep.cu``),
@@ -16,9 +17,14 @@ versions:
   ``lfinito_sweep_multistep`` (``csrc/lfinito_sweep_multistep.cu``),
   ``katyusha_coeff_multistep`` (``csrc/katyusha_coeff_multistep.cu``),
   ``sarah_multistep`` (``csrc/sarah_multistep.cu``),
-  ``lsvrg_coeff_multistep`` (``csrc/lsvrg_coeff_multistep.cu``) and
-  ``lkatyusha_coeff_multistep`` (``csrc/lkatyusha_coeff_multistep.cu``):
-  K block steps each, sharing their device code (``csrc/saga_steps.cuh``);
+  ``lsvrg_coeff_multistep`` (``csrc/lsvrg_coeff_multistep.cu``),
+  ``lkatyusha_coeff_multistep`` (``csrc/lkatyusha_coeff_multistep.cu``),
+  ``ssnm_multistep`` (``csrc/ssnm_multistep.cu``),
+  ``ssnm_multistep_streamed`` (``csrc/ssnm_multistep_streamed.cu``),
+  ``point_saga_multistep`` (``csrc/point_saga_multistep.cu``) and
+  ``point_saga_multistep_streamed``
+  (``csrc/point_saga_multistep_streamed.cu``): K block steps each,
+  sharing their device code (``csrc/saga_steps.cuh``);
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
   over all rows, the anchors of the SVRG-shaped families, LFinito's and
   SARAH's, and the FB full gradient;
@@ -29,12 +35,14 @@ versions:
   the block table; all three walk a block of an (N, n) table with the
   device code of ``csrc/table_rows.cuh``.
 
-The row primitives they share are in ``csrc/row_ops.cuh``. The other 5
-TPU kernels of the JAX module are not ported yet (ROADMAP.md, queue 2).
+The row primitives they share are in ``csrc/row_ops.cuh``. The last TPU
+kernel of the JAX module, ``coeff_value_apply_all``, is not ported yet
+(ROADMAP.md, queue 2).
 
 Layouts are flat: coefficient tables ``c``/``canch``, the offsets ``b``,
-the stepsizes ``gamma`` and the int8 dequant scales ``rs`` are ``(N,)``,
-iterates and averages are ``(n,)``, Finito's per-block anchors ``zb``
+the stepsizes ``gamma``, the int8 dequant scales ``rs`` and Point-SAGA's
+row square-norms ``na`` are ``(N,)``, iterates and averages are
+``(n,)``, Finito's per-block anchors and SSNM's stored points ``zb``
 ``(d, n)`` and the full tables ``s`` ``(N, n)``. The TPU's ``(8, N/8)``
 slab exists only for its VMEM tiling and has no meaning here.
 """
@@ -224,22 +232,25 @@ def _block_gate(F, x0, B: int, method: str) -> bool:
             and A.shape[1] <= MAX_COLS and A.shape[0] % B == 0)
 
 
-def _smem_bytes(rows: int, n: int, itemsize: int, points: int = 1) -> int:
+def _smem_bytes(rows: int, n: int, itemsize: int, points: int = 1,
+                values: int = 4) -> int:
     """Dynamic shared memory of one row-phase CTA (``run_steps`` in the
     CUDA source): the row tile rounded up to 16 bytes, then the margins'
-    points (one (n,) vector, SARAH's two) and four f32 values per row
-    (Δc, b, c_old, rs)."""
-    return -(-rows * n * itemsize // 16) * 16 + 4 * (points * n + 4 * rows)
+    points (one (n,) vector, SARAH's two) and ``values`` f32 values per
+    row (Δc, b, c_old, rs, and Point-SAGA's ‖a‖²)."""
+    return (-(-rows * n * itemsize // 16) * 16
+            + 4 * (points * n + values * rows))
 
 
-def _rows_per_cta(B: int, n: int, itemsize: int, points: int = 1) -> int:
+def _rows_per_cta(B: int, n: int, itemsize: int, points: int = 1,
+                  values: int = 4) -> int:
     """Rows of the block each CTA of the row phase takes: the largest
     power of two up to 32 that divides B and whose tile fits in shared
     memory beside ``points`` staged (n,) vectors (32 at the headline
     B = 4096, n = 1024: 128 CTAs, about one per SM, with a 128 KB f32
     tile)."""
     r = 32
-    while B % r or _smem_bytes(r, n, itemsize, points) > SMEM_BYTES:
+    while B % r or _smem_bytes(r, n, itemsize, points, values) > SMEM_BYTES:
         r //= 2
     return r
 
@@ -354,6 +365,14 @@ _ARGTYPES = {
     # A, storage, lowp, b, rs, canch, starts, stop, wa, y, z, ypre, av, x,
     # sc, part, n, B, rows, K, stream
     "lkatyusha_coeff_multistep": "PII" + "P" * 13 + "IIII" + "P",
+    # A, storage, lowp, b, rs, c, zb, x, gb, y, starts, [f,] sc, part, n, B,
+    # rows, K, stream
+    "ssnm_multistep": "PII" + "P" * 10 + "IIII" + "P",
+    "ssnm_multistep_streamed": "PII" + "P" * 11 + "IIII" + "P",
+    # A, storage, lowp, mode, b, rs, na, c, x, av, v, starts, [f,] sc, part,
+    # n, B, rows, K, stream
+    "point_saga_multistep": "PIII" + "P" * 10 + "IIII" + "P",
+    "point_saga_multistep_streamed": "PIII" + "P" * 11 + "IIII" + "P",
 }
 
 
@@ -394,6 +413,18 @@ def _check(name, t, dtype, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_f(f, dev):
+    """A streamed kernel's clamp count as a (1,) int32 tensor on ``dev``
+    (or None)."""
+    if f is None:
+        return None
+    if f.numel() != 1:
+        raise ValueError(f"f must hold one count, not {f.numel()}")
+    f = f.reshape(1)
+    _check("f", f, torch.int32, (1,), dev)
+    return f
+
+
 def _check_rows(A, b, rs):
     """Checks of the rows, offsets and dequant scales every kernel takes;
     returns (N, n)."""
@@ -410,17 +441,18 @@ def _check_rows(A, b, rs):
     return N, n
 
 
-def _check_steps(A, b, starts, B, rs, points: int = 1):
+def _check_steps(A, b, starts, B, rs, points: int = 1, values: int = 4):
     """Checks shared by the block-step kernels of ``saga_steps.cuh``;
     returns (n, K, rows per CTA, the (B / rows, n) partials scratch).
-    ``points``: the (n,) vectors the row phase stages (SARAH's two)."""
+    ``points``: the (n,) vectors the row phase stages (SARAH's two);
+    ``values``: the f32 values it stages per row (Point-SAGA's five)."""
     N, n = _check_rows(A, b, rs)
     K = starts.shape[0]
     # block starts are int32 on the device; row offsets are 64-bit there
     if N % B or K < 1 or n > MAX_COLS or N >= 2**31:
         raise ValueError(f"bad shape: N={N}, n={n}, B={B}, K={K}")
     _check("starts", starts, torch.int32, (K,), A.device)
-    rows = _rows_per_cta(B, n, A.element_size(), points)
+    rows = _rows_per_cta(B, n, A.element_size(), points, values)
     part = torch.empty((B // rows, n), dtype=torch.float32, device=A.device)
     return n, K, rows, part
 
@@ -537,13 +569,9 @@ def saga_coeff_multistep_streamed(A, b, starts, c, z, av, scalars, B: int,
     if A.device.type != "cuda":
         raise ValueError(f"saga_coeff_multistep_streamed: no kernel for "
                          f"{A.device}")
-    if f is not None:
-        if f.numel() != 1:
-            raise ValueError(f"f must hold one count, not {f.numel()}")
-        f = f.reshape(1)
-        _check("f", f, torch.int32, (1,), A.device)
+    f = _check_f(f, A.device)
     _launch("saga_coeff_multistep_streamed", A, b, starts, c, z, av, scalars,
-            B, precision, rs, wgts, (None if f is None else f.data_ptr(),))
+            B, precision, rs, wgts, (_ptr(f),))
     saga_coeff_multistep_streamed.launches += 1
     saga_coeff_multistep_streamed.weighted_launches += wgts is not None
     return c, z, av
@@ -942,14 +970,10 @@ def finito_coeff_multistep_streamed(A, b, starts, invg_k, c, zb, z, av,
     if A.device.type != "cuda":
         raise ValueError(f"finito_coeff_multistep_streamed: no kernel for "
                          f"{A.device}")
-    if f is not None:
-        if f.numel() != 1:
-            raise ValueError(f"f must hold one count, not {f.numel()}")
-        f = f.reshape(1)
-        _check("f", f, torch.int32, (1,), A.device)
+    f = _check_f(f, A.device)
     _launch_finito("finito_coeff_multistep_streamed", A, b, starts, c, zb,
                    invg_k, starts.shape[0], z, av, scalars, B, precision, rs,
-                   (None if f is None else f.data_ptr(),))
+                   (_ptr(f),))
     finito_coeff_multistep_streamed.launches += 1
     return c, zb, z, av
 
@@ -1336,11 +1360,7 @@ def proshi_multistep(A, b, gamma, s, starts, av, z, scalars, B: int,
     _check("av", av, f32, (n,), dev)
     _check("z", z, f32, (n,), dev)
     _check("scalars", scalars, f32, (8,), dev)
-    if f is not None:
-        if f.numel() != 1:
-            raise ValueError(f"f must hold one count, not {f.numel()}")
-        f = f.reshape(1)
-        _check("f", f, torch.int32, (1,), dev)
+    f = _check_f(f, dev)
     _call("proshi_multistep", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
           b.data_ptr(), gamma.data_ptr(), _ptr(rs), s.data_ptr(),
           starts.data_ptr(), _ptr(f), scalars.data_ptr(), part.data_ptr(),
@@ -1726,6 +1746,347 @@ def lkatyusha_coeff_multistep(A, b, canch, starts, stop, wa, y, z, av,
     return y, z, ypre
 
 
+# ---------------------------------------------------------------------------
+# kernels #19, #13: SSNM steps; #12, #15: Point-SAGA steps
+# ---------------------------------------------------------------------------
+
+def _ssnm_steps_ref(A, b, starts, c, zb, x, gb, scalars, B: int,
+                    precision: str, rs, who: str):
+    """The SSNM steps of both plain versions."""
+    runtime.require_exact_f32_matmul(A.device, who)
+    lowp = _lowp(A, precision)
+    scale, eta, thr, invB, invN, mode, tau, aux = scalars.unbind()
+    for k in range(starts.shape[0]):
+        j = (starts[k].long() // B).view(1)
+        y = tau * x + (1.0 - tau) * zb.index_select(0, j)[0]
+        idx, A_t = _block_rows(A, starts[k], B, lowp)
+        c_new = _margin_coeffs(A_t, idx, b, rs, y, (mode, aux), scale, lowp)
+        dc = c_new - c[idx]
+        c.index_copy_(0, idx, c_new)
+        innov = _innovation(A_t, idx, dc, rs, lowp)
+        x.copy_(_soft(x - eta * (innov * invB + gb), thr))
+        gb.add_(innov * invN)
+        zb.index_copy_(0, j, y[None])
+    return c, zb, x, gb
+
+
+def ssnm_multistep_ref(A, b, starts, c, zb, x, gb, scalars, B: int,
+                       precision: str = "highest", rs=None):
+    """Plain PyTorch version of :func:`ssnm_multistep`: the same K steps
+    as a Python loop of tensor ops, with the same bf16 roundings. Updates
+    ``c``, ``zb``, ``x`` and ``gb`` in place and returns them. On the card
+    it needs exact f32 products, which it checks and does not set."""
+    return _ssnm_steps_ref(A, b, starts, c, zb, x, gb, scalars, B, precision,
+                           rs, "ssnm_multistep_ref")
+
+
+def ssnm_multistep_streamed_ref(A, b, starts, c, zb, x, gb, scalars, B: int,
+                                precision: str = "highest", rs=None, f=None):
+    """Plain PyTorch version of :func:`ssnm_multistep_streamed`: the first
+    ``f`` of the K steps (all K when ``f`` is None); the masked steps
+    leave c, zb, x and gb as they are. Reads ``f`` on the host."""
+    live = starts.shape[0] if f is None else min(starts.shape[0], int(f))
+    return _ssnm_steps_ref(A, b, starts[:live], c, zb, x, gb, scalars, B,
+                           precision, rs, "ssnm_multistep_streamed_ref")
+
+
+def _launch_ssnm(name, A, b, starts, c, zb, x, gb, scalars, B, precision,
+                 rs, fclamp=()):
+    """Check the arguments of an SSNM kernel of ``saga_steps.cuh`` and
+    queue its 2K + 1 launches on the current stream."""
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    _check("c", c, f32, (A.shape[0],), dev)
+    # the kernel writes rows of zb, so it must own each (not an expand view)
+    _check("zb", zb, f32, (A.shape[0] // B, n), dev)
+    _check("x", x, f32, (n,), dev)
+    _check("gb", gb, f32, (n,), dev)
+    _check("scalars", scalars, f32, (8,), dev)
+    y = torch.empty(n, dtype=f32, device=dev)
+    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), c.data_ptr(),
+          zb.data_ptr(), x.data_ptr(), gb.data_ptr(), y.data_ptr(),
+          starts.data_ptr(), *fclamp, scalars.data_ptr(), part.data_ptr(), n,
+          B, rows, K)
+
+
+def ssnm_multistep(A, b, starts, c, zb, x, gb, scalars, B: int,
+                   precision: str = "highest", rs=None):
+    """K = len(starts) SSNM block steps (SAGA with sampled negative
+    momentum, Zhou, Shang and Cheng 2019).
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:ssnm_multistep``. Step k takes block
+    j = starts[k] / B of the rows ``A`` (N, n), stored f32, bf16 or int8
+    (then ``rs`` holds the (N,) f32 dequant scales): it forms the momentum
+    point y = τx + (1 − τ)zb_j from the iterate ``x`` (n,) and the block's
+    stored point in ``zb`` (d, n), refreshes the block's coefficients in
+    ``c`` (N,) at y, and with innov = Σ Δc_i·a_i steps
+    x ← soft(x − η(innov/B + gb), ηλ), gb += innov/N, zb_j ← y.
+    ``scalars`` is the (8,) f32 row [scale, η, ηλ, 1/B, 1/N, mode, τ,
+    aux]. ``c``, ``zb``, ``x`` and ``gb`` are updated in place and
+    returned; ``zb`` must own its rows (not an ``expand`` view).
+
+    CPU tensors take the plain version :func:`ssnm_multistep_ref`; CUDA
+    tensors launch the kernel or raise.
+
+    The step is :func:`saga_coeff_multistep`'s at the point y
+    (``csrc/saga_steps.cuh``, method ``kSsnm``): bound by the block's
+    rows, B·n·itemsize bytes (16 MB f32, 4 MB int8 at the 262,144 ×
+    1,024 headline's B = 4,096), plus the block's stored point read and
+    written. y is formed once per step into an (n,) scratch: a prologue
+    launch forms step 0's, and each finish, whose columns are its own,
+    writes x, gb and zb_j and then forms the next step's y from the new x
+    and the next block's stored point (zb_j itself when the block
+    repeats). Forming y twice, in the row phase and again in the finish,
+    would let the compiler contract the two expressions differently and
+    store a zb_j that differs from the point of the margins.
+    """
+    if A.device.type == "cpu":
+        return ssnm_multistep_ref(A, b, starts, c, zb, x, gb, scalars, B,
+                                  precision=precision, rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"ssnm_multistep: no kernel for {A.device}")
+    _launch_ssnm("ssnm_multistep", A, b, starts, c, zb, x, gb, scalars, B,
+                 precision, rs)
+    ssnm_multistep.launches += 1
+    return c, zb, x, gb
+
+
+def ssnm_multistep_streamed(A, b, starts, c, zb, x, gb, scalars, B: int,
+                            precision: str = "highest", rs=None, f=None):
+    """K = len(starts) SSNM block steps for any N, with the steps k ≥ ``f``
+    masked.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:ssnm_multistep_streamed``. Arguments
+    and in-place updates are those of :func:`ssnm_multistep`, plus ``f``:
+    the clamp count, a one-element int32 tensor on the rows' device, or
+    None for K. A masked step writes neither c nor zb nor x nor gb. CPU
+    tensors take the plain version :func:`ssnm_multistep_streamed_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    The TPU kernel streams c through aliased windows with zb in VMEM, so
+    its driver clamps each launch at the first same-launch revisit. Here
+    c and zb live in device memory and the launches are stream-ordered:
+    the port's driver launches with ``f`` = None, and the ``f < K``
+    semantics stay for the tests, read on the device by both launches of
+    every step. The design is :func:`ssnm_multistep`'s: at the
+    10,485,760 × 128 deep target (B = 8,192) a step reads 4 MB of f32
+    rows (1 MB int8).
+    """
+    if A.device.type == "cpu":
+        return ssnm_multistep_streamed_ref(A, b, starts, c, zb, x, gb,
+                                           scalars, B, precision=precision,
+                                           rs=rs, f=f)
+    if A.device.type != "cuda":
+        raise ValueError(f"ssnm_multistep_streamed: no kernel for "
+                         f"{A.device}")
+    f = _check_f(f, A.device)
+    _launch_ssnm("ssnm_multistep_streamed", A, b, starts, c, zb, x, gb,
+                 scalars, B, precision, rs, (_ptr(f),))
+    ssnm_multistep_streamed.launches += 1
+    return c, zb, x, gb
+
+
+POINTPROX_NEWTON_STEPS = 20  # Newton steps of the logistic and Poisson θ
+
+
+def pointprox_theta(mode: int, mz, b, na, c_old, scale, gamma, aux=0.0):
+    """The per-row prox θ of Point-SAGA for the oracle formula ``mode``
+    (a Python int: the kernels specialize on it), from the margin ``mz``
+    at the row's prox point, the offset or label ``b``, the row
+    square-norm ``na`` and the table coefficient ``c_old``:
+    least squares and Huber in closed form (Huber: one clip of the
+    least-squares θ, δ = ``aux``), squared hinge by one activity test of
+    the deficit at mz, logistic and Poisson by 20 Newton steps from
+    θ₀ = c_old. JAX's ``_pointprox_theta`` and the oracles'
+    ``_logistic_pointprox_theta`` / ``_poisson_pointprox_theta``."""
+    if mode == MODE_LOGISTIC:
+        gna2 = gamma * na
+        th = c_old
+        for _ in range(POINTPROX_NEWTON_STEPS):
+            s = torch.sigmoid(-b * (mz - gna2 * th))
+            th = th - (th + b * s) / (1.0 + gna2 * s * (1.0 - s))
+        return th
+    if mode == MODE_POISSON:
+        # φ(θ) = θ − c(θ) is increasing and concave (φ' ≥ 1): Newton
+        # converges globally; the clamp keeps exp finite
+        gna2 = gamma * na
+        th = c_old
+        for _ in range(POINTPROX_NEWTON_STEPS):
+            u = mz - gna2 * th
+            e = torch.exp(torch.clamp(u, max=POISSON_CLAMP))
+            dphi = 1.0 + scale * gna2 * torch.where(u <= POISSON_CLAMP, e,
+                                                    0.0)
+            th = th - (th - scale * (e - b)) / dphi
+        return th
+    if mode == MODE_SQHINGE:
+        deficit = 1.0 - b * mz
+        return torch.where(deficit > 0,
+                           -scale * b * deficit / (1.0 + scale * gamma * na),
+                           torch.zeros_like(mz))
+    theta = scale * (mz - b) / (1.0 + gamma * scale * na)
+    if mode == MODE_HUBER:
+        return torch.clamp(theta, -scale * aux, scale * aux)
+    if mode != MODE_LSQ:
+        raise ValueError(f"no Point-SAGA θ for oracle mode {mode}")
+    return theta
+
+
+
+def _point_saga_steps_ref(A, b, na, c, starts, x, av, scalars, B: int,
+                          mode: int, precision: str, rs, who: str):
+    """The Point-SAGA steps of both plain versions."""
+    runtime.require_exact_f32_matmul(A.device, who)
+    lowp = _lowp(A, precision)
+    scale, gamma, invB, invN, _, aux = scalars.unbind()
+    for k in range(starts.shape[0]):
+        v = x - gamma * av
+        idx, A_t = _block_rows(A, starts[k], B, lowp)
+        r = A_t @ (_bf16_round(v) if lowp else v)
+        if rs is not None:
+            r = r * rs[idx]
+        c_old = c[idx]
+        na_t = na[idx]
+        theta = pointprox_theta(mode, r + gamma * c_old * na_t, b[idx], na_t,
+                                c_old, scale, gamma, aux)
+        c.index_copy_(0, idx, theta)
+        u = _innovation(A_t, idx, c_old - theta, rs, lowp)
+        x.copy_(v + (gamma * invB) * u)
+        av.sub_(u * invN)
+    return c, x, av
+
+
+def point_saga_multistep_ref(A, b, na, c, starts, x, av, scalars, B: int,
+                             mode: int = MODE_LSQ, precision: str = "highest",
+                             rs=None):
+    """Plain PyTorch version of :func:`point_saga_multistep`: the same K
+    steps as a Python loop of tensor ops, with the same bf16 roundings.
+    Updates ``c``, ``x`` and ``av`` in place and returns them. On the card
+    it needs exact f32 products, which it checks and does not set."""
+    return _point_saga_steps_ref(A, b, na, c, starts, x, av, scalars, B,
+                                 mode, precision, rs,
+                                 "point_saga_multistep_ref")
+
+
+def point_saga_multistep_streamed_ref(A, b, na, c, starts, x, av, scalars,
+                                      B: int, mode: int = MODE_LSQ,
+                                      precision: str = "highest", rs=None,
+                                      f=None):
+    """Plain PyTorch version of :func:`point_saga_multistep_streamed`: the
+    first ``f`` of the K steps (all K when ``f`` is None); the masked
+    steps leave c, x and av as they are. Reads ``f`` on the host."""
+    live = starts.shape[0] if f is None else min(starts.shape[0], int(f))
+    return _point_saga_steps_ref(A, b, na, c, starts[:live], x, av, scalars,
+                                 B, mode, precision, rs,
+                                 "point_saga_multistep_streamed_ref")
+
+
+def _launch_point_saga(name, A, b, na, c, starts, x, av, scalars, B, mode,
+                       precision, rs, fclamp=()):
+    """Check the arguments of a Point-SAGA kernel of ``saga_steps.cuh``
+    and queue its 2K + 1 launches on the current stream."""
+    if mode not in (MODE_LSQ, MODE_LOGISTIC, MODE_HUBER, MODE_SQHINGE,
+                    MODE_POISSON):
+        raise ValueError(f"no Point-SAGA θ for oracle mode {mode}")
+    n, K, rows, part = _check_steps(A, b, starts, B, rs, values=5)
+    dev, f32 = A.device, torch.float32
+    _check("na", na, f32, (A.shape[0],), dev)
+    _check("c", c, f32, (A.shape[0],), dev)
+    _check("x", x, f32, (n,), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("scalars", scalars, f32, (6,), dev)
+    v = torch.empty(n, dtype=f32, device=dev)
+    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(_lowp(A, precision)), int(mode), b.data_ptr(), _ptr(rs),
+          na.data_ptr(), c.data_ptr(), x.data_ptr(), av.data_ptr(),
+          v.data_ptr(), starts.data_ptr(), *fclamp, scalars.data_ptr(),
+          part.data_ptr(), n, B, rows, K)
+
+
+def point_saga_multistep(A, b, na, c, starts, x, av, scalars, B: int,
+                         mode: int = MODE_LSQ, precision: str = "highest",
+                         rs=None):
+    """K = len(starts) Point-SAGA block steps (Defazio 2016, the block
+    mean of the rows' prox points).
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:point_saga_multistep``. Step k takes
+    the block [starts[k], starts[k] + B) of the rows ``A`` (N, n), stored
+    f32, bf16 or int8 (then ``rs`` holds the (N,) f32 dequant scales):
+    with v = x − γ·av it takes each row's margin at its prox point,
+    m_z = a_i·v + γ·c_i·na_i, solves the row's prox θ_i
+    (:func:`pointprox_theta` for the oracle formula ``mode``), writes
+    c_i ← θ_i, and with u = Σ (c_i_old − θ_i)·a_i steps x ← v + (γ/B)·u,
+    av ← av − u/N. ``na`` (N,) holds the row square-norms ‖a_i‖² (for
+    int8 rows the dequantized ones); ``scalars`` is the (6,) f32 row
+    [scale, γ, 1/B, 1/N, mode, aux]. ``c``, ``x`` and ``av`` are updated
+    in place and returned; x is the iterate, never v.
+
+    CPU tensors take the plain version :func:`point_saga_multistep_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    The step is :func:`saga_coeff_multistep`'s with the coefficient
+    formula replaced by the θ-solve (``csrc/saga_steps.cuh``, method
+    ``kPointSaga``): bound by the block's rows, B·n·itemsize bytes (16 MB
+    f32, 4 MB int8 at the headline), plus b, na, rs and the c slice. The
+    solve is a template parameter of the row phase, one instantiation per
+    mode with a host dispatch per call (the TPU kernel specializes
+    statically too: a dynamic select measured +25 % there on least
+    squares). Logistic and Poisson run 20 Newton steps per row, a few
+    ``expf`` each, on the warp after its margin reduction. v is formed
+    once per step into an (n,) scratch: a prologue launch forms step 0's,
+    each finish the next step's after writing x and av.
+    """
+    if A.device.type == "cpu":
+        return point_saga_multistep_ref(A, b, na, c, starts, x, av, scalars,
+                                        B, mode=mode, precision=precision,
+                                        rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"point_saga_multistep: no kernel for {A.device}")
+    _launch_point_saga("point_saga_multistep", A, b, na, c, starts, x, av,
+                       scalars, B, mode, precision, rs)
+    point_saga_multistep.launches += 1
+    return c, x, av
+
+
+def point_saga_multistep_streamed(A, b, na, c, starts, x, av, scalars,
+                                  B: int, mode: int = MODE_LSQ,
+                                  precision: str = "highest", rs=None,
+                                  f=None):
+    """K = len(starts) Point-SAGA block steps for any N, with the steps
+    k ≥ ``f`` masked.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:point_saga_multistep_streamed``.
+    Arguments and in-place updates are those of
+    :func:`point_saga_multistep`, plus ``f``: the clamp count, a
+    one-element int32 tensor on the rows' device, or None for K. A masked
+    step writes neither c nor x nor av. CPU tensors take the plain version
+    :func:`point_saga_multistep_streamed_ref`; CUDA tensors launch the
+    kernel or raise.
+
+    As for :func:`ssnm_multistep_streamed`, the table lives in device
+    memory and the launches are stream-ordered, so the port's driver
+    launches with ``f`` = None and the masked steps stay a tested option.
+    At the 10,485,760 × 128 deep target (B = 8,192) a step reads 4 MB of
+    f32 rows (1 MB int8).
+    """
+    if A.device.type == "cpu":
+        return point_saga_multistep_streamed_ref(
+            A, b, na, c, starts, x, av, scalars, B, mode=mode,
+            precision=precision, rs=rs, f=f)
+    if A.device.type != "cuda":
+        raise ValueError(f"point_saga_multistep_streamed: no kernel for "
+                         f"{A.device}")
+    f = _check_f(f, A.device)
+    _launch_point_saga("point_saga_multistep_streamed", A, b, na, c, starts,
+                       x, av, scalars, B, mode, precision, rs, (_ptr(f),))
+    point_saga_multistep_streamed.launches += 1
+    return c, x, av
+
+
 # Launches of the CUDA kernels (one per wrapper call that reaches one),
 # and those of them with direction weights (importance sampling).
 saga_coeff_multistep.launches = 0
@@ -1744,3 +2105,7 @@ katyusha_coeff_multistep.launches = 0
 sarah_multistep.launches = 0
 lsvrg_coeff_multistep.launches = 0
 lkatyusha_coeff_multistep.launches = 0
+ssnm_multistep.launches = 0
+ssnm_multistep_streamed.launches = 0
+point_saga_multistep.launches = 0
+point_saga_multistep_streamed.launches = 0

@@ -13,8 +13,9 @@ the per-row scale is applied to the row products, never to a dense
 dequantized A. Narrow rows are widened to the iterate's dtype inside each
 product, as JAX's type promotion does.
 
-Not ported yet: complex rows and the Point-SAGA pieces (ROADMAP.md,
-queue 1 item 3).
+The Point-SAGA pieces are :class:`PointProxRows`'s, with the closed-form
+θ = scale·(m_z − b)/(1 + γ·scale·‖a‖²). Not ported yet: complex rows
+(ROADMAP.md, queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ import torch
 from ciao_tpu_torch.oracles.base import (
     SmoothOracle, parse_storage_dtype, quantize_rows,
 )
+from ciao_tpu_torch.oracles.margin_rows import PointProxRows
 
 
-class LeastSquaresRows(SmoothOracle):
+class LeastSquaresRows(PointProxRows, SmoothOracle):
     supports_coeff = True
     coeff_mode = 0  # ops.fused_block.MODE_LSQ
 

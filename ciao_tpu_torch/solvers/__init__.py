@@ -1,6 +1,7 @@
 """Solvers of the port (SAGA/SAG, SVRG/SVRG++, Finito/MISO with LFinito
 and adaptive Finito, ProShI, Katyusha, SARAH, L-SVRG and L-Katyusha,
-forward-backward and FISTA, the staged schedule, the polish,
+SSNM, Point-SAGA, forward-backward and FISTA, the staged schedule, the
+polish,
 ``deep_solve`` and ``deep_solve_sharing``) and the iteration tools."""
 
 from ciao_tpu_torch.solvers.base import (
@@ -28,6 +29,10 @@ from ciao_tpu_torch.solvers.lsvrg import (
     lkatyusha_init, lkatyusha_rebase, lkatyusha_run, lkatyusha_step,
     lsvrg_init, lsvrg_rebase, lsvrg_run, lsvrg_step,
 )
+from ciao_tpu_torch.solvers.point_saga import (
+    PointSAGA, PointSAGACfg, PointSAGAState, point_saga_init,
+    point_saga_rebase, point_saga_run, point_saga_step,
+)
 from ciao_tpu_torch.solvers.polish import (
     PolishResult, fista_polish, grad_mean_chunked, grad_sum_chunked,
     lsq_power_lmax, power_lmax,
@@ -42,6 +47,9 @@ from ciao_tpu_torch.solvers.saga import (
 )
 from ciao_tpu_torch.solvers.sarah import (
     SARAH, SARAHCfg, SARAHState, sarah_init, sarah_run, sarah_step,
+)
+from ciao_tpu_torch.solvers.ssnm import (
+    SSNM, SSNMCfg, SSNMState, ssnm_init, ssnm_rebase, ssnm_run, ssnm_step,
 )
 from ciao_tpu_torch.solvers.staged import StagedInfo, staged_saga
 from ciao_tpu_torch.solvers.svrg import (
@@ -76,5 +84,8 @@ __all__ = [
     "sarah_step", "LSVRG", "LSVRGCfg", "LSVRGState", "lsvrg_init",
     "lsvrg_run", "lsvrg_step", "lsvrg_rebase", "LKatyusha", "LKatyushaCfg",
     "LKatyushaState", "lkatyusha_init", "lkatyusha_run", "lkatyusha_step",
-    "lkatyusha_rebase", "iterator",
+    "lkatyusha_rebase", "SSNM", "SSNMCfg", "SSNMState", "ssnm_init",
+    "ssnm_run", "ssnm_step", "ssnm_rebase", "PointSAGA", "PointSAGACfg",
+    "PointSAGAState", "point_saga_init", "point_saga_run", "point_saga_step",
+    "point_saga_rebase", "iterator",
 ]

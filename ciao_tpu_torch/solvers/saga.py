@@ -145,12 +145,10 @@ def importance_draws(seed: int, it0: int, k: int, cfg: SAGACfg, qcum,
 def stream_launch_K(d: int, factor: float = 1.0) -> int:
     """Launch size of the JAX package's clamped streamed launches: K ≤ d
     (its masked-redirect contract) and about √d, which keeps the
-    birthday clamp's committed share high. The port's drivers (SAGA,
-    Finito, ProShI) do not clamp and launch ``LAUNCH_STEPS``, so no path
-    of the port calls this: it and ``sampling.first_duplicate`` let the
-    tests hold the kernels' masked steps to JAX's clamped stream, and
-    size the clamped JAX drivers of the families still to port
-    (Point-SAGA, SSNM: ROADMAP.md queue 1 item 13)."""
+    birthday clamp's committed share high. The port's drivers do not
+    clamp and launch ``LAUNCH_STEPS``, so no path of the port calls this:
+    it and ``sampling.first_duplicate`` let the tests hold the kernels'
+    masked steps to JAX's clamped stream."""
     return min(64, d, max(8, (int(factor * d ** 0.5) // 8) * 8))
 
 

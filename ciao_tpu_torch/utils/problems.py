@@ -1,12 +1,13 @@
 """Synthetic problems with planted optima (numpy only).
 
-A copy of ``LassoProblem``/``make_lasso`` and of the sharing problems
+A copy of ``LassoProblem``/``make_lasso``, of ``LogisticProblem``/
+``make_logistic_l1`` and of the sharing problems
 ``make_sharing``/``make_sharing_planted`` from
 ``ciao_tpu/utils/problems.py``: importing that module runs
 ``ciao_tpu/__init__`` and so imports JAX, which the port must not. The
 construction is the same numpy code, so both packages draw bit-identical
 problems from one seed (reference ``test/test_lasso.jl:14-47``,
-``test/test_sharing.jl:11-28``).
+``test/test_logistic_l1.jl:12-29``, ``test/test_sharing.jl:11-28``).
 """
 
 from __future__ import annotations
@@ -91,6 +92,49 @@ def make_lasso(N=6, n=3, p=2, lam=1.0, rho=10.0, seed=0, dtype=np.float64,
 
     prob = LassoProblem(A=A, b=b, lam=float(lam), x_star=x_star, f_star=0.0, L=L)
     return prob._replace(f_star=prob.cost(x_star))
+
+
+class LogisticProblem(NamedTuple):
+    X: np.ndarray
+    y: np.ndarray
+    lam: float
+    x_star: np.ndarray
+    L: np.ndarray
+
+    def cost(self, x):
+        x = np.asarray(x)
+        t = -self.y * (self.X @ x)
+        return float(
+            np.sum(np.logaddexp(0.0, t)) / len(self.y)
+            + self.lam * np.sum(np.abs(x))
+        )
+
+
+def make_logistic_l1():
+    """The reference's fixed 8-sample, 5-feature problem
+    (test_logistic_l1.jl:12-29) with its hardcoded optimum."""
+    x_class1 = np.array(
+        [
+            [5.1, 3.5, 1.4, 0.2, 1.0],
+            [4.9, 3.0, 1.4, 0.2, 1.0],
+            [4.7, 3.2, 1.3, 0.2, 1.0],
+            [4.6, 3.1, 1.5, 0.2, 1.0],
+        ]
+    )
+    x_class2 = np.array(
+        [
+            [5.7, 3.0, 4.2, 1.2, 1.0],
+            [5.7, 2.9, 4.2, 1.3, 1.0],
+            [6.2, 2.9, 4.3, 1.3, 1.0],
+            [5.1, 2.5, 3.0, 1.1, 1.0],
+        ]
+    )
+    X = np.vstack([x_class1, x_class2])
+    y = np.concatenate([np.ones(4), -np.ones(4)])
+    x_star = np.array([0.0, 0.924160995722576, -1.1343956493097298, 0.0, 0.0])
+    N = len(y)
+    L = 0.25 * np.sum(X**2, axis=1)
+    return LogisticProblem(X=X, y=y, lam=1.0 / N, x_star=x_star, L=L)
 
 
 class SharingProblem(NamedTuple):

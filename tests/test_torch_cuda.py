@@ -4,9 +4,10 @@
 ``finito_coeff_multistep_streamed``, ``lfinito_sweep_multistep``,
 ``finito_block_update``, ``saga_block_update``, ``proshi_multistep``,
 ``katyusha_coeff_multistep``, ``sarah_multistep``,
-``lsvrg_coeff_multistep`` and ``lkatyusha_coeff_multistep`` against
-their plain versions, the facades' routing to them, and the
-polish's exact-f32 check.
+``lsvrg_coeff_multistep``, ``lkatyusha_coeff_multistep``,
+``ssnm_multistep``, ``ssnm_multistep_streamed``, ``point_saga_multistep``
+and ``point_saga_multistep_streamed`` against their plain versions, the
+facades' routing to them, and the polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -1149,4 +1150,290 @@ def test_vr_facades_send_every_gated_run_to_their_kernels(dev):
         Katyusha(maxit=2, m=8, batch=B, block_sampling=True)(
             x0, F=F, g=IndBox(-math.inf, 1.0), L=L)
     assert tfb.katyusha_coeff_multistep.launches == before
+    runtime.reset_fallback_warnings()
+
+
+# ---------------------------------------------------------------------------
+# kernels #19, #13: SSNM; #12, #15: Point-SAGA
+# ---------------------------------------------------------------------------
+
+def _row_oracle(dev, N, n, kind, storage, seed=0):
+    """A row oracle of ``kind`` on seeded rows, and its moduli's max."""
+    from ciao_tpu_torch.oracles import (
+        HuberRows, LogisticRows, PoissonRows, SquaredHingeRows,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    A = torch.randn(N, n, generator=gen, device=dev) / n ** 0.5
+    b = torch.randn(N, generator=gen, device=dev)
+    y = torch.sign(b)
+    sq = float((A * A).sum(1).max())
+    F, L = {
+        "lsq": lambda: (LeastSquaresRows(A, b, float(N)), N * sq),
+        "logistic": lambda: (LogisticRows(4.0 * A, y), 4.0 * sq),
+        "huber": lambda: (HuberRows(A, b, delta=0.7, scale=float(N)),
+                          N * sq),
+        "sqhinge": lambda: (SquaredHingeRows(4.0 * A, y, scale=2.0),
+                            32.0 * sq),
+        "poisson": lambda: (PoissonRows(0.5 * A, torch.poisson(
+            torch.full((N,), 2.0, device=dev), generator=gen)),
+            0.25 * 2.72 * sq),
+    }[kind]()
+    return (F if storage == "f32" else F.with_storage(storage)), L
+
+
+def _ssnm_state(dev, N, n, B, K, storage, seed=0):
+    F, L = _row_oracle(dev, N, n, "lsq", storage, seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    x = 0.05 * torch.randn(n, generator=gen, device=dev)
+    c = F.coeff_all(x)
+    zb = x + 0.01 * torch.randn(N // B, n, generator=gen, device=dev)
+    starts = (torch.randint(N // B, (K,), generator=gen, device=dev) * B).to(
+        torch.int32)
+    return F, L, (c, zb, x, F.apply_all(c) / N), starts
+
+
+def _ssnm_scalars(F, L, N, B, tau, lam, dev):
+    eta = 1.0 / (3.0 * tau * L)
+    return torch.tensor([float(F.scale), eta, eta * lam, 1.0 / B, 1.0 / N,
+                         0.0, tau, 0.0], device=dev)
+
+
+def _run_state(fn, F, state, *args, **kw):
+    st = [t.clone() for t in state]
+    rows, offs = F.coeff_rows_data()
+    fn(rows, offs, *args[:1], *st, *args[1:], rs=F.coeff_rows_scale(), **kw)
+    return st
+
+
+@pytest.mark.parametrize("kernel", ["ssnm_multistep",
+                                    "ssnm_multistep_streamed"])
+@pytest.mark.parametrize("storage,precision,n,tau", [
+    ("f32", "highest", 128, 0.5), ("f32", "default", 128, 0.5),
+    ("bf16", "highest", 128, 0.5), ("int8", "highest", 128, 0.5),
+    ("f32", "highest", 128, 1.0), ("f32", "highest", 202, 0.5),
+    ("int8", "highest", 200, 0.5)],
+    ids=["f32", "f32-default", "bf16", "int8", "tau1", "f32-n202",
+         "int8-n200"])
+def test_ssnm_kernel_matches_plain_version(dev, kernel, storage, precision,
+                                           n, tau):
+    """K = 64 steps at N = 8,192, B = 128 (repeats included) of kernels
+    #19 and #13 against their plain version: x and the stored points
+    within 1e-6 of their largest entry for exact-f32 dots, 1e-5 where the
+    dots round to bf16; c and gb within 10x that."""
+    N, B, K = 8192, 128, 64
+    F, L, state, starts = _ssnm_state(dev, N, n, B, K, storage)
+    sc = _ssnm_scalars(F, L, N, B, tau, 0.01, dev)
+    fn = getattr(tfb, kernel)
+    before = fn.launches
+    got = _run_state(fn, F, state, starts, sc, B, precision=precision)
+    want = _run_state(tfb.ssnm_multistep_ref, F, state, starts, sc, B,
+                      precision=precision)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    tol = 1e-5 if tfb._lowp(F.coeff_rows_data()[0], precision) else 1e-6
+    assert float((want[2] - state[2]).abs().max()) > 0
+    for i, (k, r) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(k).all())
+        assert _rel(k, r) <= (10 * tol if i in (0, 3) else tol), (i,
+                                                                  _rel(k, r))
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_ssnm_kernel_steps_and_masks_bit_for_bit(dev, storage):
+    """A K-step call of #19 equals its K one-step calls bit for bit (y is
+    formed once per step, by the prologue or the previous finish, with
+    the same rounding); #13 equals #19; with f = 23 read on the device the
+    masked steps write nothing, so the call equals the first 23 steps
+    alone, f = K equals f None; two runs repeat bit for bit."""
+    N, B, K = 8192, 128, 48
+    F, L, state, starts = _ssnm_state(dev, N, 128, B, K, storage, seed=4)
+    sc = _ssnm_scalars(F, L, N, B, 0.5, 0.01, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    whole = _run_state(tfb.ssnm_multistep, F, state, starts, sc, B)
+    steps = [t.clone() for t in state]
+    rows, offs = F.coeff_rows_data()
+    for k in range(K):
+        tfb.ssnm_multistep(rows, offs, starts[k:k + 1], *steps, sc, B,
+                           rs=F.coeff_rows_scale())
+    streamed = _run_state(tfb.ssnm_multistep_streamed, F, state, starts, sc,
+                          B)
+    masked = _run_state(tfb.ssnm_multistep_streamed, F, state, starts, sc, B,
+                        f=torch.tensor([23], **i32))
+    first = _run_state(tfb.ssnm_multistep, F, state, starts[:23], sc, B)
+    full = _run_state(tfb.ssnm_multistep_streamed, F, state, starts, sc, B,
+                      f=torch.tensor(K, **i32))
+    again = _run_state(tfb.ssnm_multistep, F, state, starts, sc, B)
+    torch.cuda.synchronize()
+    for a, b in ((whole, steps), (whole, streamed), (masked, first),
+                 (full, whole), (again, whole)):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    with pytest.raises(ValueError, match="zb"):
+        _run_state(tfb.ssnm_multistep, F, (state[0], state[1][:-1],
+                                           *state[2:]), starts, sc, B)
+
+
+PS_KINDS = ["lsq", "logistic", "huber", "sqhinge", "poisson"]
+
+
+def _ps_state(dev, N, n, B, K, kind, storage, seed=0):
+    from ciao_tpu_torch.solvers.point_saga import _sqnorms
+
+    F, L = _row_oracle(dev, N, n, kind, storage, seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    x = 0.05 * torch.randn(n, generator=gen, device=dev)
+    c = F.coeff_all(x)
+    starts = (torch.randint(N // B, (K,), generator=gen, device=dev) * B).to(
+        torch.int32)
+    return F, L, _sqnorms(F, N), (c, x, F.apply_all(c) / N), starts
+
+
+def _ps_scalars(F, gamma, N, B, dev):
+    return torch.tensor([float(getattr(F, "scale", 1.0)), gamma, 1.0 / B,
+                         1.0 / N, float(F.coeff_mode),
+                         float(getattr(F, "delta", 0.0))], device=dev)
+
+
+def _ps_run(fn, F, na, state, starts, sc, B, inplace=False, **kw):
+    st = state if inplace else [t.clone() for t in state]
+    rows, offs = F.coeff_rows_data()
+    fn(rows, offs, na, st[0], starts, st[1], st[2], sc, B,
+       mode=F.coeff_mode, rs=F.coeff_rows_scale(), **kw)
+    return st
+
+
+@pytest.mark.parametrize("kernel", ["point_saga_multistep",
+                                    "point_saga_multistep_streamed"])
+@pytest.mark.parametrize("kind,storage,precision,n", [
+    (k, s, "highest", 128) for k in PS_KINDS for s in ("f32", "int8")] + [
+    ("lsq", "bf16", "highest", 128), ("logistic", "bf16", "highest", 128),
+    ("lsq", "f32", "default", 128), ("logistic", "f32", "highest", 202)],
+    ids=[f"{k}-{s}" for k in PS_KINDS for s in ("f32", "int8")] + [
+        "lsq-bf16", "logistic-bf16", "lsq-f32-default", "logistic-n202"])
+def test_point_saga_kernel_matches_plain_version(dev, kernel, kind, storage,
+                                                 precision, n):
+    """64 steps at N = 8,192, B = 128 (repeats included) of kernels #12 and
+    #15 against their plain version in every oracle mode, at 10x the
+    default γ, step by step: each step of the plain trajectory is taken
+    once more by the kernel from the same state, x within 1e-6 of its
+    largest entry for exact-f32 dots, 1e-5 where the dots round to bf16,
+    c and av within 10x that. (Where the dots round to bf16 a last-bit
+    difference of v can flip a component's bf16 rounding, so whole
+    64-step calls drift apart by more: 1.1-2.7e-5 of x on the card.) The
+    K-step call equals its one-step calls bit for bit (the next test)."""
+    N, B, K = 8192, 128, 64
+    F, L, na, state, starts = _ps_state(dev, N, n, B, K, kind, storage)
+    sc = _ps_scalars(F, 10.0 / (3.0 * L), N, B, dev)
+    fn = getattr(tfb, kernel)
+    before = fn.launches
+    tol = 1e-5 if tfb._lowp(F.coeff_rows_data()[0], precision) else 1e-6
+    ref = [t.clone() for t in state]
+    for k in range(K):
+        got = _ps_run(fn, F, na, ref, starts[k:k + 1], sc, B,
+                      precision=precision)
+        _ps_run(tfb.point_saga_multistep_ref, F, na, ref, starts[k:k + 1],
+                sc, B, precision=precision, inplace=True)
+        torch.cuda.synchronize()
+        for i, (g_, r) in enumerate(zip(got, ref)):
+            assert bool(torch.isfinite(g_).all())
+            assert _rel(g_, r) <= (tol if i == 1 else 10 * tol), (
+                k, i, _rel(g_, r))
+    assert fn.launches == before + K
+    assert float((ref[1] - state[1]).abs().max()) > 0
+
+
+@pytest.mark.parametrize("kind", ["lsq", "logistic", "poisson"])
+def test_point_saga_kernel_steps_and_masks_bit_for_bit(dev, kind):
+    """A K-step call of #12 equals its K one-step calls bit for bit; #15
+    equals #12; with f = 23 the masked steps write nothing; f = K equals
+    f None; runs repeat bit for bit; an unknown mode raises."""
+    N, B, K = 8192, 128, 48
+    F, L, na, state, starts = _ps_state(dev, N, 128, B, K, kind, "int8",
+                                        seed=2)
+    sc = _ps_scalars(F, 10.0 / (3.0 * L), N, B, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    run = lambda fn, st=starts, **kw: _ps_run(  # noqa: E731
+        getattr(tfb, fn), F, na, state, st, sc, B, **kw)
+    whole = run("point_saga_multistep")
+    steps = [t.clone() for t in state]
+    rows, offs = F.coeff_rows_data()
+    for k in range(K):
+        tfb.point_saga_multistep(rows, offs, na, steps[0], starts[k:k + 1],
+                                 steps[1], steps[2], sc, B,
+                                 mode=F.coeff_mode, rs=F.coeff_rows_scale())
+    pairs = ((whole, steps), (run("point_saga_multistep_streamed"), whole),
+             (run("point_saga_multistep_streamed",
+                  f=torch.tensor([23], **i32)),
+              run("point_saga_multistep", starts[:23])),
+             (run("point_saga_multistep_streamed", f=torch.tensor(K, **i32)),
+              whole), (run("point_saga_multistep"), whole))
+    torch.cuda.synchronize()
+    for a, b in pairs:
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    with pytest.raises(ValueError, match="mode"):
+        tfb.point_saga_multistep(rows, offs, na, state[0].clone(), starts,
+                                 state[1].clone(), state[2].clone(), sc, B,
+                                 mode=5, rs=F.coeff_rows_scale())
+
+
+def test_ssnm_and_point_saga_facades_send_every_gated_run_to_a_kernel(
+        dev, monkeypatch):
+    """On the card the SSNM facade with NormL1 and the PointSAGA facade
+    with block sampling run every step on their kernels (#19 within JAX's
+    resident bounds, #13 beyond them; #12 for N ≤ RESIDENT_MAX_ROWS, #15
+    above it), ``LAUNCH_STEPS`` a call and the remainder in one more, with
+    no fallback warning and no other step kernel; the objectives fall. A
+    closed gate (SSNM with an IndBox prox) warns and runs stepwise."""
+    import math
+    import warnings
+
+    from ciao_tpu_torch import SSNM, PointSAGA, runtime
+    from ciao_tpu_torch.monitor import objective
+    from ciao_tpu_torch.prox import IndBox, NormL1, Zero
+    from ciao_tpu_torch.solvers import finito as tfinito
+    from ciao_tpu_torch.solvers import point_saga as tps
+
+    N, n, B = 4096, 64, 128
+    g = NormL1(torch.tensor(0.01, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    names = ("ssnm_multistep", "ssnm_multistep_streamed",
+             "point_saga_multistep", "point_saga_multistep_streamed",
+             "saga_coeff_multistep", "saga_coeff_multistep_streamed",
+             "finito_coeff_multistep")
+
+    def run(solver, F, L, gg, kname, calls):
+        before = {k: getattr(tfb, k).launches for k in names}
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            x, it = solver(x0, F=F, g=gg, L=L)
+        d = {k: getattr(tfb, k).launches - before[k] for k in names}
+        assert d[kname] == calls and all(
+            v == 0 for k, v in d.items() if k != kname), (kname, d)
+        gz = Zero() if gg is None else gg
+        assert float(objective(F, gz, x)) < float(objective(F, gz, x0))
+
+    F, L = _row_oracle(dev, N, n, "lsq", "f32", seed=5)
+    run(SSNM(maxit=201, batch=B), F, torch.full((N,), L, device=dev), g,
+        "ssnm_multistep", 2)
+    for kind in PS_KINDS:
+        Fk, Lk = _row_oracle(dev, N, n, kind, "int8", seed=6)
+        run(PointSAGA(maxit=130, batch=B, block_sampling=True), Fk,
+            torch.full((N,), Lk, device=dev), None, "point_saga_multistep",
+            2)
+    monkeypatch.setattr(tfinito, "RESIDENT_MAX_ROWS", N // 2)
+    monkeypatch.setattr(tps, "RESIDENT_MAX_ROWS", N // 2)
+    run(SSNM(maxit=130, batch=B), F, torch.full((N,), L, device=dev), g,
+        "ssnm_multistep_streamed", 2)
+    run(PointSAGA(maxit=130, batch=B, block_sampling=True), F,
+        torch.full((N,), L, device=dev), None,
+        "point_saga_multistep_streamed", 2)
+    runtime.reset_fallback_warnings()
+    before = tfb.ssnm_multistep.launches
+    with pytest.warns(UserWarning, match="SSNM"):
+        SSNM(maxit=3, batch=B)(x0, F=F, g=IndBox(-math.inf, 1.0),
+                               L=torch.full((N,), L, device=dev))
+    assert tfb.ssnm_multistep.launches == before
     runtime.reset_fallback_warnings()
