@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main paths through its eighteen hand-written CUDA kernels,
+Drives the port's main paths through its nineteen hand-written CUDA kernels,
 ``ciao_tpu_torch/csrc/saga_coeff_multistep.cu`` (kernel #3 of PERF.md),
 ``saga_coeff_multistep_streamed.cu`` (kernel #4), ``svrg_coeff_multistep.cu``
 (kernel #5), ``coeff_apply_all.cu`` (kernel #6), ``finito_coeff_multistep.cu``
@@ -14,8 +14,9 @@ Drives the port's main paths through its eighteen hand-written CUDA kernels,
 ``sarah_multistep.cu`` (kernel #11), ``lsvrg_coeff_multistep.cu`` (kernel
 #16), ``lkatyusha_coeff_multistep.cu`` (kernel #17), ``ssnm_multistep.cu``
 (kernel #19), ``ssnm_multistep_streamed.cu`` (kernel #13),
-``point_saga_multistep.cu`` (kernel #12) and
-``point_saga_multistep_streamed.cu`` (kernel #15):
+``point_saga_multistep.cu`` (kernel #12),
+``point_saga_multistep_streamed.cu`` (kernel #15) and
+``coeff_value_apply_all.cu`` (kernel #7):
 
 - the SAGA headline of ``bench.py``: a dense Lasso with N = 262,144 rows of
   n = 1,024 columns stored int8 or f32, NormL1(0.1), block-sampled
@@ -60,12 +61,17 @@ Drives the port's main paths through its eighteen hand-written CUDA kernels,
   rows (f32, int8), squared-hinge and Poisson rows (f32; kernel #12) and
   on the deep target with least-squares rows (kernel #15); the ``SSNM`` and
   ``PointSAGA`` facades on the planted Lasso; and ``deep_solve`` on
-  logistic rows (the logistic formula on kernel #3).
+  logistic rows (the logistic formula on kernel #3);
+- PANOC and ZeroFPR as ``bench.py`` runs them (:745-754, :838-848): ZeroFPR
+  fused at the headline with f32, bf16 and int8 rows and PANOC fused at f32
+  with adaptive γ off and on, every FBE evaluation one pass of kernel #7;
+  the ``PANOC`` and ``ZeroFPR`` facades on the planted Lasso; Davis-Yin and
+  Condat-Vũ (:850-903) at the headline, one kernel #6 pass a step.
 
 Phases, one line each:
 
   1. device: CUDA present (else exit 2), the card's name and power limit;
-  2. build: the eighteen kernels compiled by nvcc from this checkout, in
+  2. build: the nineteen kernels compiled by nvcc from this checkout, in
      parallel;
   3. kernel #3 == plain version: f32/bf16/int8 rows, SAGA and SAG, with and
      without direction weights, at a small shape (and at widths that are not
@@ -161,6 +167,20 @@ Phases, one line each:
      f64 optimum;
   10. times: kernels #19 and #12 per step at the headline in turns with
      their plain version and with their bounds.
+  3q. kernel #7 == plain version: every formula mode, f32/bf16/int8 rows,
+     "highest" and "default", at N = 8,192, n = 256, ragged N and widths that
+     are not whole 16-byte chunks, bit-for-bit repeats, c and gsum equal to
+     kernel #6's, one pass at the headline per storage; kernel #6's output
+     bit for bit its digest from before it shared its walk with #7;
+  4u. PANOC/ZeroFPR at the headline (128 steps each): kernel #7 launched once
+     per FBE evaluation and nothing else, ms per step, evaluations per step,
+     a profiled window's idle share;
+  4v. the ``PANOC`` and ``ZeroFPR`` facades on the planted Lasso: cost − f*
+     against the bar, beside the same facades on the CPU in f64;
+  4w. Davis-Yin and Condat-Vũ (FirstDifference; DenseMap 1,024 and 8,192 x
+     1,024 at f32) at the headline, 600 steps each, kernel #6 once a step;
+  11. times: kernel #7 per pass at the headline in turns with its plain
+     version and kernel #6, its bound, and the two-gemv + value yardstick.
 
 Then a JSON line of the kernels (with each one's bound, computed from this
 run's inputs), and last ``{"ok": true, "device": ...}``.
@@ -3328,6 +3348,457 @@ def time_new(r: dict, kind: str, gen, dev, tag: str, card: str) -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# PANOC/ZeroFPR on kernel #7, and the splitting methods on kernel #6
+# ---------------------------------------------------------------------------
+
+# bench.py's PANOC configurations at the headline (:745-754, :838-848):
+# ZeroFPR fused at f32, bf16 and int8 rows and PANOC fused with adaptive γ
+# off and on, 128 steps each from x0 = 0, γ = 0.95/mean(L), σ = 0.5·0.05/(2γ)
+PANOC_STEPS = 128
+# the Davis-Yin and Condat-Vũ configurations (:850-903): 600 steps each
+SPLIT_STEPS = 600
+DENSE_MAPS = (1_024, 8_192)
+# the PANOC and ZeroFPR facades on the facades' planted Lasso (FACADE), as a
+# user calls them with L, maxit steps: on the card with f32 rows, cost − f*
+# at most PANOC_FACADE["rel"]·f*; on the host's CPU in f64 on the same
+# (f32-rounded) data, below the card's. f32 cannot reach 1e-6·f* here: the
+# margins a_i·x − b_i cancel most of b_i, so an f32 run stalls
+# at 1.1-1.3e-5·f* on an H100 (the CPU's f64 runs of the same data reach
+# 6.9e-6 and 1.6e-7), and the bar keeps 4x margin
+PANOC_FACADE = dict(maxit=200, rel=5e-5)
+# kernel #7's checks: every mode and storage at APPLY_SMALL, ragged N and
+# widths that are not whole 16-byte chunks. The value within 1e-6 of
+# Σ|f_i|; c and gsum relative to their largest entries, by whether the dots
+# round to bf16: there a margin that differs by an ulp between the kernel
+# and the plain version (other summation orders) can flip a bf16-rounded
+# weighted coefficient by 2^-8 and move gsum by 2^-8·|c_i·a_i| (an H100
+# run saw 4.7e-5 of the largest entry in the logistic mode), so gsum keeps
+# kernel #6's bound, 1e-4
+VALUE_TOL = 1e-6
+C_TOL = {False: 1e-6, True: 1e-5}
+GSUM_TOL = {False: 1e-6, True: 1e-4}
+PANOC_GROUPS = {"kernel #7": ("apply_",)}
+# kernel #6's c and gsum before it shared its walk with kernel #7, on
+# golden_inputs with 64 CTAs (NVIDIA H100 80GB HBM3, CUDA 12.8's nvcc):
+# sha256, first 16 hex digits
+APPLY_GOLDEN = {
+    ("f32", "highest", 0): "4ed0a7e6a73817d1",
+    ("f32", "highest", 1): "cc96879e0bed424e",
+    ("f32", "default", 2): "fbb6d4962361206a",
+    ("bf16", "highest", 3): "4fe538cb1badfe5b",
+    ("int8", "highest", 4): "2bcf2dc551ae696b",
+}
+
+
+def golden_inputs(dev, storage, N_=8_192, n_=256):
+    """Exact dyadic rows, offsets and z (no generator, no libm): the inputs
+    of kernel #6's pinned digests."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    i = torch.arange(N_)[:, None]
+    j = torch.arange(n_)[None, :]
+    F = LeastSquaresRows((((i * 31 + j * 17) % 97) - 48).float() / 64,
+                         ((torch.arange(N_) * 13 % 29) - 14).float() / 8, 1.0)
+    if storage != "f32":
+        F = F.with_storage(storage)
+    A, b = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    z = ((torch.arange(n_) * 7 % 11) - 5).float() / 256
+    return A.to(dev), b.to(dev), z.to(dev), None if rs is None else rs.to(dev)
+
+
+def apply_digest(dev, storage, precision, mode, ctas=64) -> str:
+    """Kernel #6's c and gsum on ``golden_inputs`` with ``ctas`` CTAs (the
+    wrapper's own count depends on the card's SMs), as a digest."""
+    import hashlib
+
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    A, b, z, rs = golden_inputs(dev, storage)
+    N_, n_ = A.shape
+    sc = torch.tensor([1.0, mode, 0.5], device=dev)
+    c = torch.empty(N_, device=dev)
+    g = torch.empty(n_, device=dev)
+    hi = torch.empty(ctas, n_, device=dev)
+    lo = torch.empty(ctas, n_, device=dev)
+    fb._call("coeff_apply_all", dev, A.data_ptr(), fb._STORAGE_CODES[A.dtype],
+             int(fb._lowp(A, precision)), b.data_ptr(), fb._ptr(rs),
+             z.data_ptr(), sc.data_ptr(), c.data_ptr(), g.data_ptr(),
+             hi.data_ptr(), lo.data_ptr(), N_, n_,
+             fb._apply_rows(n_, A.element_size()), ctas)
+    torch.cuda.synchronize()
+    h = hashlib.sha256(c.cpu().numpy().tobytes())
+    h.update(g.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mode_offsets(b, mode: int):
+    """Offsets for a formula mode: labels ±1 for the classification modes,
+    counts for Poisson, the Gaussian offsets otherwise."""
+    if mode in (1, 3):
+        return torch.sign(b)
+    if mode == 4:
+        return torch.floor(2.0 * b.abs())
+    return b
+
+
+def compare_value_apply(rows, b, z, sc, precision, rs, tag) -> float:
+    """Kernel #7 against its plain version on one input: the value within
+    VALUE_TOL of Σ|f_i|, c and gsum within C_TOL and GSUM_TOL of their
+    largest entries; a second launch repeats bit for bit; c and gsum are kernel
+    #6's to the bit where both take the same tile. Returns the largest
+    absolute error of c and gsum (the value's, up to 1e11 at the
+    headline, is logged relative to Σ|f_i|)."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    kv, kc, kg = fb.coeff_value_apply_all(rows, b, z, sc, precision=precision,
+                                          rs=rs)
+    rv, rc, rg = fb.coeff_value_apply_all_ref(rows, b, z, sc,
+                                              precision=precision, rs=rs)
+    again = fb.coeff_value_apply_all(rows, b, z, sc, precision=precision,
+                                     rs=rs)
+    torch.cuda.synchronize()
+    lowp = fb._lowp(rows, precision)
+    r = fb._apply_margins_ref(rows, z, precision, rs)[1]
+    vabs = float(fb._value_formula(sc[1], r, b, sc[0], sc[2]).abs().sum())
+    ev = abs(float(kv) - float(rv))
+    if not (math.isfinite(float(kv)) and ev <= VALUE_TOL * vabs):
+        raise AssertionError(f"{tag}: value {float(kv)} vs {float(rv)} "
+                             f"(Σ|f_i| {vabs})")
+    worst = ev
+    for name, kt, rt, tol in (("c", kc, rc, C_TOL[lowp]),
+                              ("gsum", kg, rg, GSUM_TOL[lowp])):
+        if not bool(torch.isfinite(kt).all()):
+            raise AssertionError(f"{tag}: kernel {name} is not finite")
+        err = float((kt - rt).abs().max())
+        if err > tol * max(float(rt.abs().max()), 1e-30):
+            raise AssertionError(f"{tag}: {name} abs error {err}")
+        worst = max(worst, err)
+    if not all(torch.equal(x, y) for x, y in zip((kv, kc, kg), again)):
+        raise AssertionError(f"{tag}: kernel #7 does not repeat bit for bit")
+    same6 = None
+    n_ = rows.shape[1]
+    if fb._apply_rows(n_, rows.element_size(), values=3) == fb._apply_rows(
+            n_, rows.element_size()):
+        c6, g6 = fb.coeff_apply_all(rows, b, z, sc, precision=precision,
+                                    rs=rs)
+        torch.cuda.synchronize()
+        same6 = torch.equal(c6, kc) and torch.equal(g6, kg)
+        if not same6:
+            raise AssertionError(f"{tag}: kernel #7's c, gsum differ from "
+                                 f"kernel #6's")
+    log(f"  #7 {tag}: value rel {ev / max(vabs, 1e-30):.2e} of Σ|f_i|, c "
+        f"rel {float((kc - rc).abs().max()) / float(rc.abs().max()):.2e}, "
+        f"gsum rel {float((kg - rg).abs().max()) / float(rg.abs().max()):.2e}"
+        f"; repeat bit for bit; c, gsum == #6's: {same6}")
+    return worst
+
+
+def phase_check_value(gen, dev) -> float:
+    """3q: kernel #7 against its plain version in every mode, storage and
+    precision at APPLY_SMALL, at a ragged N and at widths that are not
+    whole 16-byte chunks, and one pass at the headline per storage (the
+    formula's scale 1, as phase 3c holds kernel #6); kernel #6's c and
+    gsum bit for bit their earlier output."""
+    worst = 0.0
+    for (storage, precision, mode), want in APPLY_GOLDEN.items():
+        got = apply_digest(dev, storage, precision, mode)
+        log(f"  #6 {storage}/{precision} mode {mode} on the pinned inputs: "
+            f"digest {got} (earlier build {want})")
+        if got != want:
+            raise AssertionError(f"kernel #6's output changed: {storage}/"
+                                 f"{precision} mode {mode}")
+    cases = [(s_, p_, APPLY_SMALL["N"], APPLY_SMALL["n"]) for s_, p_ in (
+        ("f32", "highest"), ("f32", "default"), ("bf16", "highest"),
+        ("int8", "highest"))]
+    cases += [("f32", "highest", APPLY_SMALL["N"] - 1, 202),
+              ("bf16", "highest", APPLY_SMALL["N"] - 2, 202),
+              ("int8", "highest", APPLY_SMALL["N"] - 192, 200)]
+    for storage, precision, rows_, cols in cases:
+        F, _, _ = lasso(gen, dev, rows_, cols, storage)
+        rows, offs = F.coeff_rows_data()
+        for mode in range(5):
+            z = 0.05 * torch.randn(cols, generator=gen, device=dev)
+            sc = torch.tensor([1.0, mode, 0.5], device=dev)
+            worst = max(worst, compare_value_apply(
+                rows, mode_offsets(offs, mode), z, sc, precision,
+                F.coeff_rows_scale(),
+                f"N={rows_} n={cols} {storage}/{precision} mode {mode}"))
+    for storage in ("f32", "bf16", "int8"):
+        F, _, _ = lasso(gen, dev, N, n, storage)
+        rows, offs = F.coeff_rows_data()
+        z = 0.05 * torch.randn(n, generator=gen, device=dev)
+        sc = torch.tensor([1.0, 0.0, 0.0], device=dev)
+        worst = max(worst, compare_value_apply(
+            rows, offs, z, sc, "highest", F.coeff_rows_scale(),
+            f"N={N} n={n} {storage} mode 0"))
+        del F, rows, offs
+    return worst
+
+
+class FBECount:
+    """Counts the FBE evaluations of ``solvers.panoc`` (a wrapper around
+    its ``_eval_fbe``, put in place and taken out by ``with``)."""
+
+    def __enter__(self):
+        from ciao_tpu_torch.solvers import panoc
+
+        self.evals = 0
+        self._real = panoc._eval_fbe
+
+        def counted(*args, **kw):
+            self.evals += 1
+            return self._real(*args, **kw)
+
+        panoc._eval_fbe = counted
+        return self
+
+    def __exit__(self, *exc):
+        from ciao_tpu_torch.solvers import panoc
+
+        panoc._eval_fbe = self._real
+
+
+def run_panoc_headline(gen, dev, card: str) -> dict:
+    """4u: ZeroFPR fused at f32, bf16 and int8 rows, and PANOC fused at f32
+    with adaptive γ off and on, PANOC_STEPS steps each through panoc_init
+    and panoc_run at the headline: kernel #7 launched once per FBE
+    evaluation and no other kernel, a falling objective, ms per step, FBE
+    evaluations per step (counted, and the ls_ewma gauge), a profiled
+    window with its idle share."""
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers.panoc import (
+        PANOCCfg, panoc_init, panoc_run,
+    )
+
+    out = {}
+    g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
+    runs = [("zerofpr", s_, False) for s_ in ("f32", "bf16", "int8")]
+    runs += [("panoc", "f32", False), ("panoc", "f32", True)]
+    F32, _, L = lasso(gen, dev, N, n, "f32")
+    gamma = (0.95 / L.mean()).to(torch.float32)
+    sigma = (0.5 * 0.05 / (2.0 * gamma)).to(torch.float32)
+    x0 = torch.zeros(n, device=dev)
+    for fam, storage, adaptive in runs:
+        F = F32 if storage == "f32" else F32.with_storage(storage)
+        cfg = PANOCCfg(N=N, zerofpr=fam == "zerofpr", fused=True,
+                       adaptive=adaptive)
+        tag = (f"{'ZeroFPR' if fam == 'zerofpr' else 'PANOC'} {storage}"
+               + (" adaptive" if adaptive else ""))
+        panoc_run(F, g, panoc_init(F, g, x0, gamma, sigma, cfg), cfg, 4)
+        with FBECount() as fbe:
+            before = counts()
+            st0 = panoc_init(F, g, x0, gamma, sigma, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = panoc_run(F, g, st0, cfg, PANOC_STEPS)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / PANOC_STEPS
+            moved = {k: v - before[k] for k, v in counts().items()
+                     if v != before[k]}
+        evals_step = (fbe.evals - 1) / PANOC_STEPS
+        obj0, obj1 = cost(F, g, st0.z), cost(F, g, st.z)
+        prof = profile_steps(f"{tag} at the headline",
+                             lambda: panoc_run(F, g, st0, cfg, 32), 32, card,
+                             PANOC_GROUPS)
+        log(f"  {tag}: N={N} n={n}, {PANOC_STEPS} steps: launches {moved}, "
+            f"{fbe.evals} FBE evaluations ({evals_step:.3f} a step, ls_ewma "
+            f"{float(st.ls_ewma):.3f}), objective {obj0:.6e} -> {obj1:.6e}, "
+            f"γ {float(st.gamma):.4e}, {ms:.4f} ms/step end to end [{card}]")
+        if moved != {"coeff_value_apply_all": fbe.evals}:
+            raise AssertionError(f"{tag}: launches {moved} for {fbe.evals} "
+                                 f"FBE evaluations")
+        for t in st:
+            if isinstance(t, torch.Tensor) and not bool(
+                    torch.isfinite(t).all()):
+                raise AssertionError(f"{tag}: a state field is not finite")
+        if not (math.isfinite(obj1) and obj1 < obj0) or st.it != (
+                PANOC_STEPS + 1):
+            raise AssertionError(f"{tag}: objective {obj0} -> {obj1}, it "
+                                 f"{st.it}")
+        out[fam, storage, adaptive] = dict(ms=ms, evals=evals_step,
+                                           ewma=float(st.ls_ewma), prof=prof,
+                                           launches=fbe.evals)
+        del F
+    return out
+
+
+def run_panoc_facades(dev, prob, F, card: str) -> None:
+    """4v: the PANOC and ZeroFPR facades as a user calls them (f32 rows,
+    NormL1, L) on the facades' planted Lasso: cost − f* at most
+    PANOC_FACADE["rel"]·f* on the card, every FBE evaluation one launch
+    of kernel #7; the same facades on the host's CPU in f64 on the same
+    f32-rounded data, whose cost − f* must end below the card's (the
+    card's gap is f32's floor, not the method's)."""
+    import ciao_tpu_torch as ct
+
+    kw = PANOC_FACADE
+    F64 = ct.LeastSquaresRows(F.A.double().cpu(), F.b.double().cpu(),
+                              float(FACADE["N"]))
+    for S in (ct.PANOC, ct.ZeroFPR):
+        rels = {}
+        for side, where, Fx, dt in (
+                ("card", dev, F, torch.float32),
+                ("cpu", torch.device("cpu"), F64, torch.float64)):
+            x0 = torch.zeros(n, dtype=dt, device=where)
+            with FBECount() as fbe:
+                before = counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x, it = S(maxit=kw["maxit"])(x0, F=Fx, g=ct.NormL1(prob.lam),
+                                             L=prob.L)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                moved = {k: v - before[k] for k, v in counts().items()
+                         if v != before[k]}
+            rel = (prob.cost(x.double().cpu().numpy()) - prob.f_star) \
+                / prob.f_star
+            rels[side] = rel
+            log(f"  facade {S.__name__}(maxit={kw['maxit']}) on planted "
+                f"make_lasso(N={FACADE['N']}, n={n}) on the "
+                f"{'card, f32' if side == 'card' else 'CPU, f64'}: "
+                f"rel {rel:.3e}, {fbe.evals} FBE evaluations, launches "
+                f"{moved}, {secs:.3f} s [{card}]")
+            if side == "card" and moved != {
+                    "coeff_value_apply_all": fbe.evals}:
+                raise AssertionError(f"facade {S.__name__}: launches {moved} "
+                                     f"for {fbe.evals} FBE evaluations")
+        if not (rels["card"] <= kw["rel"] and rels["cpu"] < rels["card"]):
+            raise AssertionError(f"facade {S.__name__}: rel {rels['card']} "
+                                 f"(bar {kw['rel']}), CPU f64 {rels['cpu']}")
+
+
+def run_splitting_headline(gen, dev, card: str) -> dict:
+    """4w: Davis-Yin (g = NormL1(0.1), h = IndBox(−1, 1), γ = 1/mean(L))
+    and Condat-Vũ (h = NormL1(0.05) of FirstDifference, σ = 0.5, τ =
+    0.99/(L_f/2 + σ‖K‖²)) at the headline with f32, bf16 and int8 rows,
+    and Condat-Vũ with DenseMap K (1,024 and 8,192 x 1,024, entries
+    N(0, 1/n)) at f32, SPLIT_STEPS steps each through dys_run and pd_run:
+    kernel #6 once a step and no other kernel, a falling objective, ms
+    per step."""
+    from ciao_tpu_torch.ops.linmap import DenseMap, FirstDifference
+    from ciao_tpu_torch.prox import IndBox, NormL1
+    from ciao_tpu_torch.solvers.dys import DYSCfg, dys_init, dys_run
+    from ciao_tpu_torch.solvers.primal_dual import PDCfg, pd_init, pd_run
+
+    out = {}
+    g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
+    F32, _, L = lasso(gen, dev, N, n, "f32")
+    Lf = float(L.mean())
+    x0 = torch.zeros(n, device=dev)
+    f32 = torch.float32
+    runs = [("dys", s_, None) for s_ in ("f32", "bf16", "int8")]
+    runs += [("cv", s_, None) for s_ in ("f32", "bf16", "int8")]
+    runs += [("cv", "f32", m) for m in DENSE_MAPS]
+    for fam, storage, mK in runs:
+        F = F32 if storage == "f32" else F32.with_storage(storage)
+        if fam == "dys":
+            h = IndBox(-1.0, 1.0).to(dev)
+            cfg = DYSCfg(N=N, fused=True)
+            st0 = dys_init(F, g, h, x0, torch.tensor(1.0 / Lf, dtype=f32,
+                                                     device=dev),
+                           torch.ones((), device=dev), cfg)
+            run = lambda s, k: dys_run(F, g, h, s, cfg, k)  # noqa: E731
+            tag = f"Davis-Yin {storage}"
+
+            def obj(st):
+                return cost(F, g, st.xg)
+        else:
+            h = NormL1(torch.tensor(0.05, dtype=f32, device=dev))
+            if mK is None:
+                K, nK2 = FirstDifference(), 4.0
+                tag = f"Condat-Vu {storage}"
+            else:
+                K = DenseMap(torch.randn(mK, n, generator=gen, device=dev)
+                             / math.sqrt(n))
+                nK2 = K.opnorm_bound(n) ** 2
+                tag = f"Condat-Vu f32 DenseMap {mK} x {n}"
+            cfg = PDCfg(N=N, fused=True)
+            st0 = pd_init(F, g, h, K, x0,
+                          torch.tensor(0.99 / (Lf / 2.0 + 0.5 * nK2),
+                                       dtype=f32, device=dev),
+                          torch.tensor(0.5, device=dev), cfg)
+            run = lambda s, k: pd_run(F, g, h, K, s, cfg, k)  # noqa: E731
+
+            def obj(st):
+                return cost(F, g, st.x) + float(h.value(K.matvec(st.x)))
+        run(st0, 8)  # warm
+        st, ms, moved = timed_run(run, st0, SPLIT_STEPS)
+        obj0, obj1 = obj(st0), obj(st)
+        log(f"  {tag}: N={N} n={n}, {SPLIT_STEPS} steps: launches {moved}, "
+            f"objective {obj0:.6e} -> {obj1:.6e}, {ms:.4f} ms/step end to "
+            f"end [{card}]")
+        check_run(tag, st, moved, {"coeff_apply_all": SPLIT_STEPS}, obj0,
+                  obj1, SPLIT_STEPS)
+        out[fam, storage, mK] = ms
+        del F
+    return out
+
+
+def time_value_apply(gen, dev, storage: str, card: str) -> dict:
+    """11: kernel #7 per pass at the headline (least squares, scale N), in
+    turns with its plain version and kernel #6 (plain, #7, #6, #7, #6,
+    plain), its bound, and the yardstick: torch.mv for the margins, the
+    coefficients and the value sum, torch.mv for Σ c_i·a_i (two reads of A;
+    f32 and bf16 rows only, torch.mv takes no int8); then #7 and #6 in
+    turns in the logistic and Poisson modes, whose value terms are
+    transcendental."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    F, _, _ = lasso(gen, dev, N, n, storage)
+    rows, offs = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    z = 0.05 * torch.randn(n, generator=gen, device=dev)
+    scale = float(N)
+    sc = torch.tensor([scale, 0.0, 0.0], device=dev)
+
+    def k7():
+        fb.coeff_value_apply_all(rows, offs, z, sc, rs=rs)
+
+    def k6():
+        fb.coeff_apply_all(rows, offs, z, sc, rs=rs)
+
+    def plain():
+        fb.coeff_value_apply_all_ref(rows, offs, z, sc, rs=rs)
+
+    def two_gemv():
+        res = torch.mv(rows, z.to(rows.dtype)).float() - offs
+        c = scale * res
+        val = torch.sum(0.5 * scale * res * res)
+        return val, torch.mv(rows.t(), c.to(rows.dtype))
+
+    pl = [time_events(plain, 2)]
+    t7, t6 = [], []
+    for _ in range(2):
+        t7.append(time_events(k7, 20))
+        t6.append(time_events(k6, 20))
+    pl.append(time_events(plain, 2))
+    lib = None if storage == "int8" else time_events(two_gemv, 20)
+    isz = rows.element_size()
+    nbytes = N * (n * isz + 8 + 4 * (storage == "int8")) + 8 * n + 16
+    b_ms, b_by = bound(nbytes, 4.0 * N * n, isz)
+    modes = {}
+    for mode in (1, 4):
+        bm = mode_offsets(offs, mode)
+        scm = torch.tensor([1.0, mode, 0.0], device=dev)
+        tm = [time_events(lambda: fn(rows, bm, z, scm, rs=rs), 20)
+              for _ in range(2)
+              for fn in (fb.coeff_value_apply_all, fb.coeff_apply_all)]
+        modes[mode] = ((tm[0] + tm[2]) / 2, (tm[1] + tm[3]) / 2)
+    log(f"  kernel #7, {storage} rows, N={N} n={n}: kernel "
+        f"{t7[0]:.4f}/{t7[1]:.4f} ms per pass, kernel #6 "
+        f"{t6[0]:.4f}/{t6[1]:.4f}, plain version {pl[0]:.4f}/{pl[1]:.4f}, "
+        f"bound {b_ms:.4f} ({b_by}: {nbytes} B at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), two-gemv + value yardstick "
+        f"{'none' if lib is None else f'{lib:.4f}'}; logistic #7 "
+        f"{modes[1][0]:.4f} (#6 {modes[1][1]:.4f}), Poisson #7 "
+        f"{modes[4][0]:.4f} (#6 {modes[4][1]:.4f}) [{card}]")
+    return dict(ms=sum(t7) / 2, plain_ms=sum(pl) / 2, bound_ms=b_ms,
+                bound_by=b_by, six_ms=sum(t6) / 2, two_gemv_ms=lib,
+                modes=modes)
+
+
 KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
            "svrg_coeff_multistep", "coeff_apply_all",
            "finito_coeff_multistep", "finito_coeff_multistep_streamed",
@@ -3336,7 +3807,8 @@ KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
            "katyusha_coeff_multistep", "sarah_multistep",
            "lsvrg_coeff_multistep", "lkatyusha_coeff_multistep",
            "ssnm_multistep", "ssnm_multistep_streamed",
-           "point_saga_multistep", "point_saga_multistep_streamed")
+           "point_saga_multistep", "point_saga_multistep_streamed",
+           "coeff_value_apply_all")
 # the def line of the TPU kernel each replaces, in ciao_tpu/ops/fused_block.py
 REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
             "svrg_coeff_multistep": 966, "coeff_apply_all": 798,
@@ -3348,7 +3820,8 @@ REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
             "lsvrg_coeff_multistep": 2628, "lkatyusha_coeff_multistep": 2772,
             "ssnm_multistep": 3133, "ssnm_multistep_streamed": 2160,
             "point_saga_multistep": 1992,
-            "point_saga_multistep_streamed": 2474}
+            "point_saga_multistep_streamed": 2474,
+            "coeff_value_apply_all": 916}
 
 
 def build_all() -> None:
@@ -3892,6 +4365,66 @@ def main() -> int:
         for k, r in newh.items()) + f" [{card}]")
     del newh
 
+    # 3q. kernel #7 == its plain version, kernel #6 bit for bit its earlier
+    # output
+    errs["coeff_value_apply_all"] = phase_check_value(gen, dev)
+    log(f"phase 3q kernel #7 == plain version, kernel #6 unchanged: ok, max "
+        f"abs err {errs['coeff_value_apply_all']:.3e}")
+    torch.cuda.empty_cache()
+
+    # 4u. PANOC and ZeroFPR at the headline, counts from 0
+    reset_counts()
+    pan = run_panoc_headline(gen, dev, card)
+    c = counts()
+    if c["coeff_value_apply_all"] == 0 or sum(c.values()) != c[
+            "coeff_value_apply_all"]:
+        raise AssertionError(f"the PANOC path did not run on kernel #7 "
+                             f"alone: {c}")
+    launches["coeff_value_apply_all"] = c["coeff_value_apply_all"]
+    log(f"phase 4u PANOC/ZeroFPR headline path: ok, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    torch.cuda.empty_cache()
+
+    # 4v. the PANOC and ZeroFPR facades, counts from 0
+    reset_counts()
+    run_panoc_facades(dev, fprob, fF, card)
+    c = counts()
+    if c["coeff_value_apply_all"] == 0 or sum(c.values()) != c[
+            "coeff_value_apply_all"]:
+        raise AssertionError(f"the PANOC facades did not run on kernel #7 "
+                             f"alone: {c}")
+    launches["coeff_value_apply_all"] += c["coeff_value_apply_all"]
+    log(f"phase 4v PANOC and ZeroFPR facades: ok, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+
+    # 4w. Davis-Yin and Condat-Vu at the headline, counts from 0
+    reset_counts()
+    split = run_splitting_headline(gen, dev, card)
+    c = counts()
+    if c["coeff_apply_all"] == 0 or sum(c.values()) != c["coeff_apply_all"]:
+        raise AssertionError(f"the splitting paths did not run on kernel #6 "
+                             f"alone: {c}")
+    launches["coeff_apply_all"] += c["coeff_apply_all"]
+    log(f"phase 4w Davis-Yin and Condat-Vu headline paths: ok, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    torch.cuda.empty_cache()
+
+    # 11. kernel #7 per pass in turns with its plain version and kernel #6
+    t11 = {s_: time_value_apply(gen, dev, s_, card)
+           for s_ in ("f32", "bf16", "int8")}
+    log("phase 11 times: " + "; ".join(
+        f"kernel #7 {s_} {t['ms']:.4f} ms/pass (kernel #6 {t['six_ms']:.4f}, "
+        f"plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f})"
+        for s_, t in t11.items()) + "; " + "; ".join(
+        f"{'ZeroFPR' if f == 'zerofpr' else 'PANOC'} {s_}"
+        f"{' adaptive' if a else ''} {r['ms']:.4f} ms/step, "
+        f"{r['evals']:.3f} FBE evaluations a step, idle "
+        f"{1.0 - r['prof']['busy'] / r['prof']['step']:.3f}"
+        for (f, s_, a), r in pan.items()) + "; " + "; ".join(
+        f"{'Davis-Yin' if f == 'dys' else 'Condat-Vu'} {s_}"
+        f"{'' if m is None else f' DenseMap {m}'} {ms:.4f} ms/step"
+        for (f, s_, m), ms in split.items()) + f" [{card}]")
+
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         kernel_line("saga_coeff_multistep", launches["saga_coeff_multistep"],
@@ -3933,6 +4466,9 @@ def main() -> int:
                     launches["point_saga_multistep_streamed"],
                     errs["point_saga_multistep_streamed"],
                     times10["#15", "f32"]),
+        kernel_line("coeff_value_apply_all",
+                    launches["coeff_value_apply_all"],
+                    errs["coeff_value_apply_all"], t11["f32"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,12 @@ its anchor on ``coeff_apply_all``; ``SSNM`` (``ssnm_multistep``,
 ``ssnm_multistep_streamed``) and ``PointSAGA`` (``point_saga_multistep``,
 ``point_saga_multistep_streamed``), with the row oracles
 ``LogisticRows``, ``HuberRows``, ``SquaredHingeRows`` and ``PoissonRows``
-beside ``LeastSquaresRows``. The rest is queued in ROADMAP.md. Imports
+beside ``LeastSquaresRows``; ``PANOC`` and ``ZeroFPR``, whose envelope
+reads run on ``coeff_value_apply_all``, and the splitting methods
+``DavisYin``/``DouglasRachford`` and ``CondatVu``/``ChambollePock`` with
+the linear maps of ``ops.linmap`` (full gradients on
+``coeff_apply_all``); the whole prox library of ``ciao_tpu.prox``. The
+rest is queued in ROADMAP.md. Imports
 torch and numpy, never jax. Entry points run on the card unless the
 caller names the CPU (a CPU tensor or ``device="cpu"``).
 """
@@ -42,11 +47,20 @@ from ciao_tpu_torch.oracles import (
     DenseQuadratic, DiagQuadratic, HuberRows, LeastSquaresRows, LogisticRows,
     PoissonRows, SqrDistBox, SquaredHingeRows, SumOracle, ZeroOracle,
 )
-from ciao_tpu_torch.prox import IndBox, NormL1, Zero
+from ciao_tpu_torch.ops.linmap import (
+    DenseMap, FirstDifference, FirstDifference2D, GradientMap2D, IdentityMap,
+)
+from ciao_tpu_torch.prox import (
+    MCP, SCAD, ElasticNet, GroupNormL21, HingeLoss, IndAffine, IndBallL1,
+    IndBallL2, IndBallLinf, IndBox, IndHalfspace, IndNonnegative,
+    IndNonpositive, IndPoint, IndSimplex, IndSphereL2, LogBarrier, NormL0,
+    NormL1, NormL2, NormL21, NormLinf, NormNuclear, SqrNormL2, Zero,
+)
 from ciao_tpu_torch.solvers import (
-    FISTA, LSVRG, SAG, SAGA, SARAH, SSNM, SVRG, DeepSharingInfo,
-    DeepSolveInfo, Finito, ForwardBackward, Katyusha, LKatyusha, PointSAGA,
-    Proshi, StagedInfo,
+    FISTA, LSVRG, PANOC, SAG, SAGA, SARAH, SSNM, SVRG, ChambollePock,
+    CondatVu, DavisYin, DeepSharingInfo, DeepSolveInfo, DouglasRachford,
+    Finito, ForwardBackward, Katyusha, LKatyusha, PointSAGA, Proshi,
+    StagedInfo, ZeroFPR,
     deep_solve, deep_solve_sharing,
     fista_polish, grad_mean_chunked, halt, iterator, loop, lsq_power_lmax,
     power_lmax, proshi_resync, sharing_objective, solution, staged_saga,
@@ -72,6 +86,33 @@ __all__ = [
     "NormL1",
     "Zero",
     "IndBox",
+    "GroupNormL21",
+    "NormL2",
+    "SqrNormL2",
+    "ElasticNet",
+    "IndBallL2",
+    "IndSimplex",
+    "NormNuclear",
+    "NormL0",
+    "NormL21",
+    "NormLinf",
+    "IndBallL1",
+    "IndBallLinf",
+    "IndNonnegative",
+    "IndNonpositive",
+    "IndHalfspace",
+    "IndPoint",
+    "IndAffine",
+    "IndSphereL2",
+    "LogBarrier",
+    "HingeLoss",
+    "MCP",
+    "SCAD",
+    "IdentityMap",
+    "DenseMap",
+    "FirstDifference",
+    "FirstDifference2D",
+    "GradientMap2D",
     "SAGA",
     "SAG",
     "SVRG",
@@ -85,6 +126,12 @@ __all__ = [
     "PointSAGA",
     "ForwardBackward",
     "FISTA",
+    "PANOC",
+    "ZeroFPR",
+    "DavisYin",
+    "DouglasRachford",
+    "CondatVu",
+    "ChambollePock",
     "deep_solve",
     "DeepSolveInfo",
     "deep_solve_sharing",

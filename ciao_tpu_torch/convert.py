@@ -29,6 +29,7 @@ from ciao_tpu_torch.solvers.base import Status
 from ciao_tpu_torch.sampling import SweepState
 from ciao_tpu_torch.solvers.fb import FBState
 from ciao_tpu_torch.solvers.katyusha import KatyushaState
+from ciao_tpu_torch.solvers.panoc import PANOCState
 from ciao_tpu_torch.solvers.lsvrg import LKatyushaState, LSVRGState
 from ciao_tpu_torch.solvers.sarah import SARAHState
 from ciao_tpu_torch.solvers.finito import (
@@ -304,3 +305,23 @@ def point_saga_state_from_numpy(gamma, c, av, x, it, seed: int = 0,
         na8=None if na8 is None else _flat(na8, device),
         qcum=None if qcum is None else tensor_from_numpy(qcum, device),
         qinv=None if qinv is None else tensor_from_numpy(qinv, device))
+
+
+def panoc_state_from_numpy(gamma, sigma, x, fx, gradx, z, gz, fbe, S, Y, rho,
+                           head, count, pbase, presid, tau, ls_ewma, it,
+                           status, device=None) -> PANOCState:
+    """``PANOCState`` from the JAX state's fields (``S``, ``Y`` (mem, n) as
+    they are, the ring cursors as int64, the status as an int), so that a
+    JAX trajectory goes on in the port."""
+    def t(a):
+        return tensor_from_numpy(a, device)
+
+    return PANOCState(
+        gamma=t(gamma), sigma=t(sigma), x=_flat(x, device), fx=t(fx),
+        gradx=_flat(gradx, device), z=_flat(z, device), gz=t(gz), fbe=t(fbe),
+        S=t(S), Y=t(Y), rho=_flat(rho, device),
+        head=t(np.asarray(head, np.int64)),
+        count=t(np.asarray(count, np.int64)), pbase=_flat(pbase, device),
+        presid=_flat(presid, device), tau=t(tau),
+        ls_ewma=t(np.asarray(ls_ewma, np.float32)), it=int(it),
+        status=int(status))

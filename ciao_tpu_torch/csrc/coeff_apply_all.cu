@@ -1,229 +1,16 @@
-// One pass over the rows on an NVIDIA Hopper card (sm_90a): every row's
-// coefficient c_i = c(a_i . z), written out, and the full gradient sum
+// Kernel #6 on an NVIDIA Hopper card (sm_90a): one pass over the rows, every
+// row's coefficient c_i = c(a_i . z), written out, and the full gradient sum
 // gsum = sum_i c_i a_i (x rs_i for int8 rows), two-sum compensated.
 //
-// Replaces the Pallas TPU kernel ciao_tpu/ops/fused_block.py:coeff_apply_all
-// (body _coeff_apply_kernel, compensation _comp_add). The Python wrapper and
-// the design note are ciao_tpu_torch/ops/fused_block.py coeff_apply_all, its
+// Replaces the Pallas TPU kernel ciao_tpu/ops/fused_block.py:coeff_apply_all.
+// The walk, the compensation and the design are apply_rows.cuh's, shared with
+// kernel #7 (coeff_value_apply_all.cu), here without the value column. The
+// Python wrapper is ciao_tpu_torch/ops/fused_block.py coeff_apply_all, its
 // plain PyTorch version coeff_apply_all_ref.
-//
-// Two launches on one stream:
-//
-//   (a) apply_rows_kernel: a grid of G CTAs (about two per SM) walks the
-//       ceil(N / R) tiles of R rows, tile t going to CTA t mod G. Each CTA
-//       double-buffers its tiles in shared memory: the next tile's 16-byte
-//       loads are in flight with cp.async while the current one is used, so
-//       the rows leave device memory once. Per tile: the margins (one warp
-//       per row, shuffle reduction), the formula, the write of c_i, and the
-//       tile's sum over its rows of c_i a_i into the CTA's per-column (hi, lo)
-//       two-sum pair, kept in device memory (hi_part, lo_part: (G, n)) and
-//       read and written only by the thread that owns the column;
-//   (b) apply_finish_kernel: per column, the G pairs combined by two-sum in a
-//       fixed order, gsum = hi + lo. No atomics: runs repeat bit for bit.
-//
-// The two-sum runs on __fadd_rn/__fsub_rn, which the compiler neither
-// contracts nor reassociates, so the compensation survives -O3: the error of
-// the cross-tile sum is O(eps^2) of the sum of magnitudes, the TPU kernel's
-// bound, at R-row tiles instead of its _pick_tile rows.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
-#include "row_ops.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 32;
-
-// Knuth two-sum: (hi, lo) <- (hi, lo) + p, the rounding error of the add
-// kept exactly in lo (ops/fused_block.py _comp_add).
-__device__ __forceinline__ void two_sum(float& hi, float& lo, float p) {
-  const float s = __fadd_rn(hi, p);
-  const float t = __fsub_rn(s, hi);
-  const float e = __fadd_rn(__fsub_rn(p, t), __fsub_rn(hi, __fsub_rn(s, t)));
-  lo = __fadd_rn(lo, e);
-  hi = s;
-}
-
-// Shared memory: two tile buffers (rows x n of T each), z (n floats), and the
-// rows' weighted coefficients cw (rows floats). sc = [scale, mode, aux].
-template <typename T, bool kLowp, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-apply_rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
-                  const float* __restrict__ rs, const float* __restrict__ z,
-                  const float* __restrict__ sc, float* __restrict__ c,
-                  float* __restrict__ hi_part, float* __restrict__ lo_part,
-                  int64_t N, int n, int rows) {
-  extern __shared__ float4 smem4[];
-  char* smem = reinterpret_cast<char*>(smem4);
-  const size_t tb = tile_bytes(rows, n, sizeof(T));
-  auto buf = [&](int i) { return reinterpret_cast<T*>(smem + i * tb); };
-  float* zs = reinterpret_cast<float*>(smem + 2 * tb);
-  float* cws = zs + n;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t tiles = (N + rows - 1) / rows;
-  float* hi = hi_part + static_cast<int64_t>(blockIdx.x) * n;
-  float* lo = lo_part + static_cast<int64_t>(blockIdx.x) * n;
-
-  // each thread zeroes the columns it owns in the transposed product below
-  if (kVec) {
-    for (int j = tid * 4; j < n; j += kThreads * 4) {
-      *reinterpret_cast<float4*>(hi + j) = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(lo + j) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {
-    for (int j = tid; j < n; j += kThreads) hi[j] = lo[j] = 0.0f;
-  }
-  for (int j = tid; j < n; j += kThreads) {
-    const float v = z[j];
-    zs[j] = kLowp ? bf16_round(v) : v;
-  }
-  const float scale = sc[0];
-  const int mode = static_cast<int>(sc[1]);
-  const float aux = sc[2];
-
-  // rows of tile t (the last tile may be short)
-  auto rows_of = [&](int64_t t) {
-    const int64_t left = N - t * rows;
-    return left < rows ? static_cast<int>(left) : rows;
-  };
-  auto stage = [&](T* dst, int64_t t) {
-    stage_rows<T, kVec>(dst, A + t * rows * n, rows_of(t) * n, tid, kThreads);
-  };
-  int s = 0;
-  if (blockIdx.x < tiles) stage(buf(0), blockIdx.x);
-  if (kVec) __pipeline_commit();
-  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x, s ^= 1) {
-    // the other buffer was last read before the previous iteration's final
-    // barrier, so the next tile may land in it now
-    if (t + gridDim.x < tiles) stage(buf(s ^ 1), t + gridDim.x);
-    if (kVec) {
-      __pipeline_commit();
-      __pipeline_wait_prior(1);  // all but the next tile's copies are done
-    }
-    __syncthreads();
-    const T* tile = buf(s);
-    const int64_t row0 = t * rows;
-    const int here = rows_of(t);
-
-    for (int r = warp; r < here; r += kWarps) {
-      const int64_t i = row0 + r;
-      float bi = 0.0f, rsi = 1.0f;
-      if (lane == 0) {  // in flight while the warp runs its dot
-        bi = b[i];
-        if (rs != nullptr) rsi = rs[i];
-      }
-      float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
-      if (lane == 0) {
-        if (rs != nullptr) m *= rsi;
-        const float ci = coeff_formula(mode, m, bi, scale, aux);
-        c[i] = ci;
-        const float cw = rs != nullptr ? ci * rsi : ci;
-        cws[r] = kLowp ? bf16_round(cw) : cw;
-      }
-    }
-    __syncthreads();
-
-    // the tile's sum of cw_r a_r, per owned column, into the (hi, lo) pair
-    if (kVec) {
-      for (int j = tid * 4; j < n; j += kThreads * 4) {
-        float acc[4];
-        tile_colsum4<kLowp>(tile, cws, here, n, j, acc);
-        float4 h = *reinterpret_cast<float4*>(hi + j);
-        float4 l = *reinterpret_cast<float4*>(lo + j);
-        two_sum(h.x, l.x, acc[0]);
-        two_sum(h.y, l.y, acc[1]);
-        two_sum(h.z, l.z, acc[2]);
-        two_sum(h.w, l.w, acc[3]);
-        *reinterpret_cast<float4*>(hi + j) = h;
-        *reinterpret_cast<float4*>(lo + j) = l;
-      }
-    } else {
-      for (int j = tid; j < n; j += kThreads) {
-        float h = hi[j], l = lo[j];
-        two_sum(h, l, tile_colsum<kLowp>(tile, cws, here, n, j));
-        hi[j] = h;
-        lo[j] = l;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Column j = blockIdx.x * 32 + lane: warp w two-sums the pairs p = w, w + 8,
-// ...; warp 0 then combines the eight pairs in order. gsum = hi + lo.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-apply_finish_kernel(const float* __restrict__ hi_part,
-                    const float* __restrict__ lo_part, int parts,
-                    float* __restrict__ gsum, int n) {
-  __shared__ float red_hi[kFinishWarps][kFinishCols];
-  __shared__ float red_lo[kFinishWarps][kFinishCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int j = blockIdx.x * kFinishCols + lane;
-  float h = 0.0f, l = 0.0f;
-  if (j < n)
-    for (int p = warp; p < parts; p += kFinishWarps) {
-      const int64_t o = static_cast<int64_t>(p) * n + j;
-      two_sum(h, l, hi_part[o]);
-      l = __fadd_rn(l, lo_part[o]);
-    }
-  red_hi[warp][lane] = h;
-  red_lo[warp][lane] = l;
-  __syncthreads();
-  if (warp != 0 || j >= n) return;
-  h = 0.0f;
-  l = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kFinishWarps; ++w) {
-    two_sum(h, l, red_hi[w][lane]);
-    l = __fadd_rn(l, red_lo[w][lane]);
-  }
-  gsum[j] = __fadd_rn(h, l);
-}
-
-template <typename T, bool kLowp, bool kVec>
-cudaError_t run_apply(const void* A, const float* b, const float* rs,
-                      const float* z, const float* sc, float* c, float* gsum,
-                      float* hi_part, float* lo_part, int64_t N, int n,
-                      int rows, int ctas, cudaStream_t stream) {
-  const size_t smem =
-      2 * tile_bytes(rows, n, sizeof(T)) +
-      sizeof(float) * (static_cast<size_t>(n) + static_cast<size_t>(rows));
-  auto kernel = apply_rows_kernel<T, kLowp, kVec>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<ctas, kThreads, smem, stream>>>(static_cast<const T*>(A), b, rs, z,
-                                           sc, c, hi_part, lo_part, N, n,
-                                           rows);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  apply_finish_kernel<<<(n + kFinishCols - 1) / kFinishCols,
-                        kFinishCols * kFinishWarps, 0, stream>>>(
-      hi_part, lo_part, ctas, gsum, n);
-  return cudaGetLastError();
-}
-
-template <typename T, bool kLowp>
-cudaError_t dispatch_apply(bool vec, const void* A, const float* b,
-                           const float* rs, const float* z, const float* sc,
-                           float* c, float* gsum, float* hi_part,
-                           float* lo_part, int64_t N, int n, int rows, int ctas,
-                           cudaStream_t stream) {
-  return vec ? run_apply<T, kLowp, true>(A, b, rs, z, sc, c, gsum, hi_part,
-                                         lo_part, N, n, rows, ctas, stream)
-             : run_apply<T, kLowp, false>(A, b, rs, z, sc, c, gsum, hi_part,
-                                          lo_part, N, n, rows, ctas, stream);
-}
-
-}  // namespace
+#include "apply_rows.cuh"
 
 // Returns cudaGetLastError() after queueing the two launches (0 on success).
 // A: (N, n) rows of `storage` (0 f32, 1 bf16, 2 int8); b, rs: (N,) f32 (rs
@@ -236,32 +23,7 @@ extern "C" int coeff_apply_all_launch(const void* A, int storage, int lowp,
                                       float* c, float* gsum, float* hi_part,
                                       float* lo_part, long long N, int n,
                                       int rows, int ctas, void* stream) {
-  if (rows < 1 || rows > kMaxRows || n < 1 || N < 1 || ctas < 1 ||
-      ctas > (N + rows - 1) / rows)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = vec_rows(A, n, storage_itemsize(storage));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (storage) {
-    case kF32:
-      e = lowp ? dispatch_apply<float, true>(vec, A, b, rs, z, sc, c, gsum,
-                                             hi_part, lo_part, N, n, rows,
-                                             ctas, st)
-               : dispatch_apply<float, false>(vec, A, b, rs, z, sc, c, gsum,
-                                              hi_part, lo_part, N, n, rows,
-                                              ctas, st);
-      break;
-    case kBF16:
-      e = dispatch_apply<__nv_bfloat16, true>(vec, A, b, rs, z, sc, c, gsum,
-                                              hi_part, lo_part, N, n, rows,
-                                              ctas, st);
-      break;
-    case kI8:
-      e = dispatch_apply<int8_t, true>(vec, A, b, rs, z, sc, c, gsum, hi_part,
-                                       lo_part, N, n, rows, ctas, st);
-      break;
-    default:
-      e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  return launch_apply<false>(A, storage, lowp, b, rs, z, sc, c, gsum, hi_part,
+                             lo_part, nullptr, nullptr, nullptr, N, n, rows,
+                             ctas, stream);
 }

@@ -2,7 +2,7 @@
 // (sm_90a): the storage codes, the clamp-count mask of a step, the bf16
 // rounding of the dot operands, reads of one or four row values from shared
 // memory, a row's margin by one warp, the transposed product over a tile, the
-// oracle's coefficient formula, the Point-SAGA per-row prox, the L1
+// oracle's coefficient and value formulas, the Point-SAGA per-row prox, the L1
 // soft-threshold, the fixed-order sum of per-CTA partials and the size of a
 // row tile in shared memory.
 //
@@ -178,6 +178,43 @@ __device__ __forceinline__ float coeff_formula(int mode, float r, float b,
       return -scale * b * fmaxf(1.0f - b * r, 0.0f);
     default:
       return scale * (expf(fminf(r, kPoissonClamp)) - b);
+  }
+}
+
+// ops/fused_block.py _value_formula: the row's loss f_i from the same margin r,
+// with expf/log1pf (not the fast intrinsics) and no contracted products, as the
+// plain version computes it. Poisson's value is extended linearly past the
+// clamp, the C^1 twin of the frozen coefficient.
+__device__ __forceinline__ float value_formula(int mode, float r, float b,
+                                               float scale, float aux) {
+  switch (mode) {
+    case kLsq: {
+      const float res = r - b;
+      return __fmul_rn(__fmul_rn(__fmul_rn(0.5f, scale), res), res);
+    }
+    case kLogistic: {
+      const float t = -__fmul_rn(b, r);
+      return fmaxf(t, 0.0f) + log1pf(expf(-fabsf(t)));
+    }
+    case kHuber: {
+      const float res = r - b;
+      const float a = fabsf(res);
+      const float v = a <= aux ? __fmul_rn(__fmul_rn(0.5f, res), res)
+                               : __fmul_rn(aux, a - __fmul_rn(0.5f, aux));
+      return __fmul_rn(scale, v);
+    }
+    case kSqHinge: {
+      const float h = fmaxf(1.0f - __fmul_rn(b, r), 0.0f);
+      return __fmul_rn(__fmul_rn(__fmul_rn(0.5f, scale), h), h);
+    }
+    default: {
+      // e^30 rounded to f32, as the plain version's exp(30) is
+      constexpr float kExpClamp = 1.0686474581524463e13f;
+      const float e = r <= kPoissonClamp
+                          ? expf(fminf(r, kPoissonClamp))
+                          : __fmul_rn(kExpClamp, 1.0f + (r - kPoissonClamp));
+      return __fmul_rn(scale, e - __fmul_rn(b, r));
+    }
   }
 }
 

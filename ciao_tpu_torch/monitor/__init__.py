@@ -65,30 +65,40 @@ class Trace:
         return default
 
 
-def observer(F, g, trace: Trace, objective_every: bool = True):
+def observer(F, g, trace: Trace, objective_every: bool = True, h=None,
+             K=None):
     """An ``observe(it, state)`` callback for the facades' ``observe=``
     hook: logs the objective and the stepsize-scaled fixed-point
     residual ||z_k − z_{k-1}||/γ̂ into ``trace`` every ``freq``
     iterations. A state whose solution is (N, n) (ProShI's blocks) logs
     the sharing objective at the blocks, not the finite-sum objective at
-    its coupling variable ``z``. The residual follows ``state.z`` where
-    the family carries one, else the solution. (JAX's ``h``/``K`` terms
-    of the three-term families come with those families.)"""
+    its coupling variable ``z``. ``h``/``K`` extend the objective for the
+    three-term families (Davis-Yin: + h(x); Condat-Vũ and Chambolle-Pock:
+    + h(Kx), K from ``ciao_tpu_torch.ops.linmap``). The residual follows
+    ``state.z`` where the family carries one, else the solution, scaled
+    by the state's ``hat_gamma``, ``gamma`` or (primal-dual) ``tau``."""
     prev = {}
 
     def observe(it, state):
         z = state.solution
         rec = {}
         if objective_every:
-            rec["obj"] = float(sharing_objective(F, g, z) if z.ndim == 2
-                               else objective(F, g, z))
+            if z.ndim == 2:
+                rec["obj"] = float(sharing_objective(F, g, z))
+            else:
+                obj = objective(F, g, z)
+                if h is not None:
+                    obj = obj + h.value(z if K is None else K.matvec(z))
+                rec["obj"] = float(obj)
         zres = getattr(state, "z", None)
         if zres is None:
             zres = z
         if "z" in prev:
-            gam = getattr(state, "hat_gamma", None)
-            if gam is None:
-                gam = getattr(state, "gamma", None)
+            gam = None
+            for name in ("hat_gamma", "gamma", "tau"):
+                gam = getattr(state, name, None)
+                if gam is not None:
+                    break
             gam = torch.max(torch.as_tensor(1.0 if gam is None else gam))
             rec["residual"] = float(fixed_point_residual(prev["z"], zres, gam))
         prev["z"] = zres

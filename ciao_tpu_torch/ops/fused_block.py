@@ -2,11 +2,11 @@
 
 Counterpart of ``ciao_tpu/ops/fused_block.py``, cut to what the SAGA,
 deep, SVRG, forward-backward, Finito, ProShI, Katyusha, SARAH, loopless
-(L-SVRG, L-Katyusha), SSNM and Point-SAGA paths run: the oracle formula
-modes, Point-SAGA's per-row prox (:func:`pointprox_theta`), the coupling
-prox modes, the scalar constants, the kernels' gates, and eighteen
-hand-written CUDA kernels for Hopper beside their plain PyTorch
-versions:
+(L-SVRG, L-Katyusha), SSNM, Point-SAGA, PANOC/ZeroFPR and splitting paths
+run: the oracle formula modes and their values, Point-SAGA's per-row prox
+(:func:`pointprox_theta`), the coupling prox modes, the scalar constants,
+the kernels' gates, and nineteen hand-written CUDA kernels for Hopper
+beside their plain PyTorch versions:
 
 - ``saga_coeff_multistep`` (``csrc/saga_coeff_multistep.cu``),
   ``saga_coeff_multistep_streamed`` (``csrc/saga_coeff_multistep_streamed.cu``),
@@ -27,7 +27,10 @@ versions:
   sharing their device code (``csrc/saga_steps.cuh``);
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
   over all rows, the anchors of the SVRG-shaped families, LFinito's and
-  SARAH's, and the FB full gradient;
+  SARAH's, and the full gradient of forward-backward, Davis-Yin and
+  Condat-Vũ; ``coeff_value_apply_all`` (``csrc/coeff_value_apply_all.cu``):
+  the same pass with the loss sum, PANOC's and ZeroFPR's envelope read;
+  both walk the rows with the device code of ``csrc/apply_rows.cuh``;
 - ``saga_block_update`` (``csrc/saga_block_update.cu``) and
   ``finito_block_update`` (``csrc/finito_block_update.cu``): the
   full-table SAGA and Finito refresh of one block, and
@@ -35,9 +38,9 @@ versions:
   the block table; all three walk a block of an (N, n) table with the
   device code of ``csrc/table_rows.cuh``.
 
-The row primitives they share are in ``csrc/row_ops.cuh``. The last TPU
-kernel of the JAX module, ``coeff_value_apply_all``, is not ported yet
-(ROADMAP.md, queue 2).
+The row primitives they share are in ``csrc/row_ops.cuh``. With
+``coeff_value_apply_all`` every TPU kernel of the JAX module has its
+counterpart here.
 
 Layouts are flat: coefficient tables ``c``/``canch``, the offsets ``b``,
 the stepsizes ``gamma``, the int8 dequant scales ``rs`` and Point-SAGA's
@@ -50,6 +53,7 @@ slab exists only for its VMEM tiling and has no meaning here.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -92,6 +96,34 @@ def _coeff_formula(mode, r, b_t, scale, aux=0.0):
                     torch.where(mode == MODE_HUBER, c_hub,
                                 torch.where(mode == MODE_SQHINGE, c_sqh,
                                             c_poi))))
+
+
+def _value_formula(mode, r, b_t, scale, aux=0.0):
+    """Per-row loss values f_i from the (dequantized) margin ``r`` for
+    every oracle mode, the value-side twin of :func:`_coeff_formula`
+    (PANOC's envelope needs f and ∇f from the same pass). Poisson's value
+    (up to the x-independent log(y!)) is extended linearly past the clamp,
+    C¹ with the frozen coefficient."""
+    mode = torch.as_tensor(mode, device=r.device)
+    res = r - b_t
+    v_lsq = 0.5 * scale * res * res
+    # stable log(1 + exp(t)), t = −y·r (b_t carries the labels y)
+    t = -b_t * r
+    v_log = torch.clamp(t, min=0.0) + torch.log1p(torch.exp(-torch.abs(t)))
+    a = torch.abs(res)
+    v_hub = scale * torch.where(a <= aux, 0.5 * res * res,
+                                aux * (a - 0.5 * aux))
+    h = torch.clamp(1.0 - b_t * r, min=0.0)
+    v_sqh = 0.5 * scale * h * h
+    M = POISSON_CLAMP
+    v_poi = scale * (torch.where(r <= M, torch.exp(torch.clamp(r, max=M)),
+                                 math.exp(M) * (1.0 + (r - M))) - b_t * r)
+    return torch.where(
+        mode == MODE_LSQ, v_lsq,
+        torch.where(mode == MODE_LOGISTIC, v_log,
+                    torch.where(mode == MODE_HUBER, v_hub,
+                                torch.where(mode == MODE_SQHINGE, v_sqh,
+                                            v_poi))))
 
 
 def _scalar(x, dev):
@@ -339,6 +371,9 @@ _ARGTYPES = {
     # A, storage, lowp, b, rs, z, sc, c, gsum, hi, lo, N, n, rows, ctas,
     # stream
     "coeff_apply_all": "PIIPPPPPPPPLIIIP",
+    # A, storage, lowp, b, rs, z, sc, val, c, gsum, hi, lo, vhi, vlo, N, n,
+    # rows, ctas, stream
+    "coeff_value_apply_all": "PII" + "P" * 11 + "LIII" + "P",
     # A, storage, lowp, b, rs, c, zb, invg, z, av, starts, [f,] sc, part,
     # n, B, rows, K, stream
     "finito_coeff_multistep": "PIIPPPPPPPPPPIIIIP",
@@ -682,20 +717,22 @@ def _two_sum(hi, lo, p):
     return s, lo + e
 
 
-def _apply_smem_bytes(rows: int, n: int, itemsize: int) -> int:
+def _apply_smem_bytes(rows: int, n: int, itemsize: int,
+                      values: int = 1) -> int:
     """Dynamic shared memory of one CTA of the row pass (``run_apply`` in
-    ``csrc/coeff_apply_all.cu``): two row tiles, z and one f32 per row."""
-    return 2 * (-(-rows * n * itemsize // 16) * 16) + 4 * (n + rows)
+    ``csrc/apply_rows.cuh``): two row tiles, z and ``values`` f32 per row
+    (the weighted coefficient; kernel #7 adds the margin and the offset)."""
+    return 2 * (-(-rows * n * itemsize // 16) * 16) + 4 * (n + values * rows)
 
 
-def _apply_rows(n: int, itemsize: int) -> int:
+def _apply_rows(n: int, itemsize: int, values: int = 1) -> int:
     """Rows of a tile of the row pass: the largest power of two up to 32
     whose two buffers let two CTAs share an SM (8 f32, 16 bf16, 32 int8
     rows at n = 1,024: 32 KB tiles), else one CTA (n up to MAX_COLS)."""
     for budget in (SMEM_BYTES // APPLY_CTAS_PER_SM - 1024, SMEM_BYTES):
         r = 32
         while r >= 1:
-            if _apply_smem_bytes(r, n, itemsize) <= budget:
+            if _apply_smem_bytes(r, n, itemsize, values) <= budget:
                 return r
             r //= 2
     raise ValueError(f"n = {n} is too wide for the one-pass kernel")
@@ -713,17 +750,10 @@ def _comp_sum_rows(p):
     return hi[0] + lo[0]
 
 
-def coeff_apply_all_ref(A, b, z, scalars, precision: str = "highest",
-                        rs=None):
-    """Plain PyTorch version of :func:`coeff_apply_all`, with the same
-    bf16 roundings and tiles: the margins as one product, the formula,
-    each tile's Σ c_i·a_i as a batched product, and the tiles' partials
-    added by a compensated pairwise tree. Returns new (c, gsum). On the
-    card it needs exact f32 products, which it checks and does not set."""
-    runtime.require_exact_f32_matmul(A.device, "coeff_apply_all_ref")
+def _apply_margins_ref(A, z, precision, rs):
+    """The rows as the dots see them (f32, bf16-rounded when ``_lowp``)
+    and the dequantized margins A·z of the plain versions of #6 and #7."""
     lowp = _lowp(A, precision)
-    scale, mode, aux = scalars.unbind()
-    N, n = A.shape
     A_f = A.to(torch.float32)
     zq = z
     if lowp:
@@ -732,17 +762,53 @@ def coeff_apply_all_ref(A, b, z, scalars, precision: str = "highest",
     r = A_f @ zq
     if rs is not None:
         r = r * rs
-    c = _coeff_formula(mode, r, b, scale, aux)
+    return A_f, r, lowp
+
+
+def _apply_gsum_ref(A_f, c, rs, lowp, R: int):
+    """Σ c_i·a_i (·rs_i) of the plain versions: each R-row tile's partial
+    as a batched product, the tiles' partials added by a compensated
+    pairwise tree."""
+    N, n = A_f.shape
     cw = c if rs is None else c * rs
     if lowp:
         cw = _bf16_round(cw)
-    R = _apply_rows(n, A.element_size())
     T = N // R
     parts = torch.bmm(cw[:T * R].view(T, 1, R),
                       A_f[:T * R].view(T, R, n)).view(T, n)
     if N % R:
         parts = torch.cat([parts, (cw[T * R:] @ A_f[T * R:])[None]])
-    return c, _comp_sum_rows(parts)
+    return _comp_sum_rows(parts)
+
+
+def coeff_apply_all_ref(A, b, z, scalars, precision: str = "highest",
+                        rs=None):
+    """Plain PyTorch version of :func:`coeff_apply_all`, with the same
+    bf16 roundings and tiles: the margins as one product, the formula,
+    each tile's Σ c_i·a_i as a batched product, and the tiles' partials
+    added by a compensated pairwise tree. Returns new (c, gsum). On the
+    card it needs exact f32 products, which it checks and does not set."""
+    runtime.require_exact_f32_matmul(A.device, "coeff_apply_all_ref")
+    scale, mode, aux = scalars.unbind()
+    A_f, r, lowp = _apply_margins_ref(A, z, precision, rs)
+    c = _coeff_formula(mode, r, b, scale, aux)
+    return c, _apply_gsum_ref(A_f, c, rs, lowp,
+                              _apply_rows(A.shape[1], A.element_size()))
+
+
+def _check_apply(A, b, z, scalars, rs):
+    N, n = _check_rows(A, b, rs)
+    if N < 1 or n > MAX_COLS:
+        raise ValueError(f"bad shape: N={N}, n={n}")
+    _check("z", z, torch.float32, (n,), A.device)
+    _check("scalars", scalars, torch.float32, (3,), A.device)
+    return N, n
+
+
+def _apply_ctas(dev, N: int, rows: int) -> int:
+    """CTAs of the row pass: two per SM, at most one per tile."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return min(-(-N // rows), APPLY_CTAS_PER_SM * sms)
 
 
 def coeff_apply_all(A, b, z, scalars, precision: str = "highest", rs=None):
@@ -777,16 +843,11 @@ def coeff_apply_all(A, b, z, scalars, precision: str = "highest", rs=None):
                                    rs=rs)
     if A.device.type != "cuda":
         raise ValueError(f"coeff_apply_all: no kernel for {A.device}")
-    N, n = _check_rows(A, b, rs)
-    if N < 1 or n > MAX_COLS:
-        raise ValueError(f"bad shape: N={N}, n={n}")
+    N, n = _check_apply(A, b, z, scalars, rs)
     dev, f32 = A.device, torch.float32
-    _check("z", z, f32, (n,), dev)
-    _check("scalars", scalars, f32, (3,), dev)
     lowp = _lowp(A, precision)
     rows = _apply_rows(n, A.element_size())
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ctas = min(-(-N // rows), APPLY_CTAS_PER_SM * sms)
+    ctas = _apply_ctas(dev, N, rows)
     c = torch.empty(N, dtype=f32, device=dev)
     gsum = torch.empty(n, dtype=f32, device=dev)
     hi = torch.empty((ctas, n), dtype=f32, device=dev)
@@ -807,6 +868,97 @@ def oracle_apply_all(F, z, precision: str = "highest"):
     scale, mode, _, aux = oracle_scalar_consts(F, None)
     return coeff_apply_all(rows, offs, z, torch.stack([scale, mode, aux]),
                            precision=precision, rs=F.coeff_rows_scale())
+
+
+# ---------------------------------------------------------------------------
+# kernel #7: the same pass with the loss sum (PANOC/ZeroFPR envelope)
+# ---------------------------------------------------------------------------
+
+def coeff_value_apply_all_ref(A, b, z, scalars, precision: str = "highest",
+                              rs=None):
+    """Plain PyTorch version of :func:`coeff_value_apply_all`: that of
+    :func:`coeff_apply_all` at the kernel's tile of R rows, and the loss
+    sum as the kernel forms it: each tile's R values, padded with zeros to
+    a warp's 32 lanes, added by the kernel's xor-shuffle tree in f32 (lane
+    i and lane i + 16, then + 8, ...), the tiles' sums added by a
+    compensated pairwise tree. Returns new (val, c, gsum), val 0-d. On the
+    card it needs exact f32 products, which it checks and does not set."""
+    runtime.require_exact_f32_matmul(A.device, "coeff_value_apply_all_ref")
+    scale, mode, aux = scalars.unbind()
+    A_f, r, lowp = _apply_margins_ref(A, z, precision, rs)
+    c = _coeff_formula(mode, r, b, scale, aux)
+    v = _value_formula(mode, r, b, scale, aux)
+    N, n = A.shape
+    R = _apply_rows(n, A.element_size(), values=3)
+    T = -(-N // R)
+    tv = torch.cat([v, v.new_zeros(T * R - N)]).view(T, R)
+    tv = torch.cat([tv, tv.new_zeros(T, 32 - R)], dim=1)
+    while tv.shape[1] > 1:
+        half = tv.shape[1] // 2
+        tv = tv[:, :half] + tv[:, half:]
+    val = _comp_sum_rows(tv)[0]
+    return val, c, _apply_gsum_ref(A_f, c, rs, lowp, R)
+
+
+def coeff_value_apply_all(A, b, z, scalars, precision: str = "highest",
+                          rs=None):
+    """PANOC's envelope read in one pass over all N rows: returns
+    ``(val, c, gsum)``, the 0-d loss sum Σ f_i(z), the (N,) coefficients
+    c_i = c(a_i·z) and the (n,) gradient sum Σ c_i·a_i (·rs_i for int8
+    rows), both sums two-sum compensated across tiles.
+
+    Replaces the Pallas TPU kernel
+    ``ciao_tpu/ops/fused_block.py:coeff_value_apply_all`` (in place of the
+    oracle's ``value_sum_and_grad_sum_all``, two reads of A). Operands as
+    :func:`coeff_apply_all`'s; the caller divides by N.
+
+    CPU tensors take the plain version :func:`coeff_value_apply_all_ref`;
+    CUDA tensors launch the kernel or raise.
+
+    Kernel #6's pass (``csrc/apply_rows.cuh``) with a value column, bound
+    by the same bytes (A read once, c written once): each row's value
+    comes from the margin its coefficient comes from; after each tile,
+    warp 0 computes the tile's R values one lane a row, adds them by a
+    fixed shuffle tree and two-sums that into the CTA's (hi, lo) value
+    pair, and the finish launch combines the G pairs in a fixed order
+    beside the columns. The value formula's logistic and Poisson terms
+    use ``log1pf``/``expf``. c and gsum equal kernel #6's bit for bit
+    where both take the same R; runs repeat bit for bit.
+    """
+    if A.device.type == "cpu":
+        return coeff_value_apply_all_ref(A, b, z, scalars,
+                                         precision=precision, rs=rs)
+    if A.device.type != "cuda":
+        raise ValueError(f"coeff_value_apply_all: no kernel for {A.device}")
+    N, n = _check_apply(A, b, z, scalars, rs)
+    dev, f32 = A.device, torch.float32
+    lowp = _lowp(A, precision)
+    rows = _apply_rows(n, A.element_size(), values=3)
+    ctas = _apply_ctas(dev, N, rows)
+    val = torch.empty((), dtype=f32, device=dev)
+    c = torch.empty(N, dtype=f32, device=dev)
+    gsum = torch.empty(n, dtype=f32, device=dev)
+    hi = torch.empty((ctas, n), dtype=f32, device=dev)
+    lo = torch.empty((ctas, n), dtype=f32, device=dev)
+    vpart = torch.empty((2, ctas), dtype=f32, device=dev)
+    _call("coeff_value_apply_all", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(lowp), b.data_ptr(), _ptr(rs), z.data_ptr(), scalars.data_ptr(),
+          val.data_ptr(), c.data_ptr(), gsum.data_ptr(), hi.data_ptr(),
+          lo.data_ptr(), vpart[0].data_ptr(), vpart[1].data_ptr(), N, n, rows,
+          ctas)
+    coeff_value_apply_all.launches += 1
+    return val, c, gsum
+
+
+def oracle_value_apply_all(F, z, precision: str = "highest"):
+    """:func:`coeff_value_apply_all` on a dense-rows oracle:
+    ``(Σ f_i(z), c(z), Σ c_i·a_i)``, the envelope's value and gradient
+    sums in one pass."""
+    rows, offs = F.coeff_rows_data()
+    scale, mode, _, aux = oracle_scalar_consts(F, None)
+    return coeff_value_apply_all(rows, offs, z,
+                                 torch.stack([scale, mode, aux]),
+                                 precision=precision, rs=F.coeff_rows_scale())
 
 
 # ---------------------------------------------------------------------------
@@ -2095,6 +2247,7 @@ saga_coeff_multistep_streamed.launches = 0
 saga_coeff_multistep_streamed.weighted_launches = 0
 svrg_coeff_multistep.launches = 0
 coeff_apply_all.launches = 0
+coeff_value_apply_all.launches = 0
 finito_coeff_multistep.launches = 0
 finito_coeff_multistep_streamed.launches = 0
 lfinito_sweep_multistep.launches = 0

@@ -119,6 +119,18 @@ class SmoothOracle(nn.Module, metaclass=abc.ABCMeta):
     def grad_sum_all(self, x):
         return torch.sum(self.grad_all(x), dim=0)
 
+    def value_sum_all(self, x):
+        """Σ_i f_i(x), the value-only full pass (adaptive PANOC's γ test);
+        row oracles override it with one margin pass."""
+        return self.value_sum_and_grad_sum_all(x)[0]
+
+    def value_sum_and_grad_sum_all(self, x):
+        """(Σ_i f_i(x), Σ_i ∇f_i(x)) in one full pass: PANOC's and
+        ZeroFPR's envelope read. Row oracles override it with both sums
+        from one margin, without the (N, n) gradients."""
+        vals, grads = self.value_and_grad_all(x)
+        return torch.sum(vals), torch.sum(grads, dim=0)
+
     def value_and_grad_pointwise(self, xs, idx):
         """Per-term values and grads, term idx[k] at xs[k]."""
         return vmap(self.value_and_grad_i)(xs, idx)

@@ -301,3 +301,17 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
     def value_sum_all(self, x):
         """Σ_i f_i(x) in one margin pass, without the (N, n) gradient."""
         return self.value_from_margin_all(self.margin_all(x))
+
+    def value_sum_and_grad_sum_all(self, x):
+        """(Σ_i f_i(x), Σ_i ∇f_i(x)) from one margin: two products over A
+        (PANOC's envelope read off the card's kernel), in the JAX
+        package's order of operations."""
+        A = self._rows(self.A, x.dtype)
+        r = A @ x
+        if self.row_scale is not None:
+            r = r * self.row_scale - self.b
+            w = r * self.row_scale
+        else:
+            r = r - self.b
+            w = r
+        return 0.5 * self.scale * torch.sum(r * r), self.scale * (w @ A)

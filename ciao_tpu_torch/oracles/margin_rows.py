@@ -322,3 +322,11 @@ class MarginRows(PointProxRows, SmoothOracle):
     def value_sum_all(self, x):
         """Σ_i f_i(x) in one margin pass, without the (N, n) gradient."""
         return self.value_from_margin_all(self.margin_all(x))
+
+    def value_sum_and_grad_sum_all(self, x):
+        """(Σ_i f_i(x), Σ_i ∇f_i(x)) from one margin: two products over A
+        (PANOC's envelope read off the card's kernel)."""
+        m = self._margins(self.A, self.row_scale, x)
+        return (torch.sum(self._values(m, self.b)),
+                self._combine(self._coeffs(m, self.b), self.A,
+                              self.row_scale))

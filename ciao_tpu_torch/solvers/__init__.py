@@ -1,8 +1,9 @@
 """Solvers of the port (SAGA/SAG, SVRG/SVRG++, Finito/MISO with LFinito
 and adaptive Finito, ProShI, Katyusha, SARAH, L-SVRG and L-Katyusha,
-SSNM, Point-SAGA, forward-backward and FISTA, the staged schedule, the
-polish,
-``deep_solve`` and ``deep_solve_sharing``) and the iteration tools."""
+SSNM, Point-SAGA, forward-backward and FISTA, PANOC and ZeroFPR,
+Davis-Yin and Douglas-Rachford, Condat-Vũ and Chambolle-Pock, the staged
+schedule, the polish, ``deep_solve`` and ``deep_solve_sharing``) and the
+iteration tools."""
 
 from ciao_tpu_torch.solvers.base import (
     SolverIterable, Status, halt, loop, run_solver_loop, solution, take,
@@ -10,6 +11,9 @@ from ciao_tpu_torch.solvers.base import (
 from ciao_tpu_torch.solvers.deep import DeepSolveInfo, deep_solve
 from ciao_tpu_torch.solvers.deep_sharing import (
     DeepSharingInfo, deep_solve_sharing,
+)
+from ciao_tpu_torch.solvers.dys import (
+    DavisYin, DouglasRachford, DYSCfg, DYSState, dys_init, dys_run, dys_step,
 )
 from ciao_tpu_torch.solvers.finito import (
     Finito, FinitoAdaptiveState, FinitoBasicState, FinitoCfg,
@@ -29,6 +33,10 @@ from ciao_tpu_torch.solvers.lsvrg import (
     lkatyusha_init, lkatyusha_rebase, lkatyusha_run, lkatyusha_step,
     lsvrg_init, lsvrg_rebase, lsvrg_run, lsvrg_step,
 )
+from ciao_tpu_torch.solvers.panoc import (
+    PANOC, THRASH_EVALS, PANOCCfg, PANOCState, ZeroFPR, panoc_init,
+    panoc_run, panoc_step, warn_if_thrashing,
+)
 from ciao_tpu_torch.solvers.point_saga import (
     PointSAGA, PointSAGACfg, PointSAGAState, point_saga_init,
     point_saga_rebase, point_saga_run, point_saga_step,
@@ -36,6 +44,10 @@ from ciao_tpu_torch.solvers.point_saga import (
 from ciao_tpu_torch.solvers.polish import (
     PolishResult, fista_polish, grad_mean_chunked, grad_sum_chunked,
     lsq_power_lmax, power_lmax,
+)
+from ciao_tpu_torch.solvers.primal_dual import (
+    ChambollePock, CondatVu, PDCfg, PDState, pd_init, pd_run, pd_step,
+    prox_conjugate,
 )
 from ciao_tpu_torch.solvers.proshi import (
     Proshi, ProshiCfg, ProshiState, proshi_init, proshi_resync, proshi_run,
@@ -87,5 +99,9 @@ __all__ = [
     "lkatyusha_rebase", "SSNM", "SSNMCfg", "SSNMState", "ssnm_init",
     "ssnm_run", "ssnm_step", "ssnm_rebase", "PointSAGA", "PointSAGACfg",
     "PointSAGAState", "point_saga_init", "point_saga_run", "point_saga_step",
-    "point_saga_rebase", "iterator",
+    "point_saga_rebase", "PANOC", "ZeroFPR", "PANOCCfg", "PANOCState",
+    "panoc_init", "panoc_run", "panoc_step", "warn_if_thrashing",
+    "THRASH_EVALS", "DavisYin", "DouglasRachford", "DYSCfg", "DYSState",
+    "dys_init", "dys_run", "dys_step", "CondatVu", "ChambollePock", "PDCfg",
+    "PDState", "pd_init", "pd_run", "pd_step", "prox_conjugate", "iterator",
 ]

@@ -5,9 +5,11 @@
 ``finito_block_update``, ``saga_block_update``, ``proshi_multistep``,
 ``katyusha_coeff_multistep``, ``sarah_multistep``,
 ``lsvrg_coeff_multistep``, ``lkatyusha_coeff_multistep``,
-``ssnm_multistep``, ``ssnm_multistep_streamed``, ``point_saga_multistep``
-and ``point_saga_multistep_streamed`` against their plain versions, the
-facades' routing to them, and the polish's exact-f32 check.
+``ssnm_multistep``, ``ssnm_multistep_streamed``, ``point_saga_multistep``,
+``point_saga_multistep_streamed`` and ``coeff_value_apply_all`` against
+their plain versions, ``coeff_apply_all`` bit for bit against its output
+before it shared its walk with ``coeff_value_apply_all``, the facades'
+routing to them, and the polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -1437,3 +1439,201 @@ def test_ssnm_and_point_saga_facades_send_every_gated_run_to_a_kernel(
                                L=torch.full((N,), L, device=dev))
     assert tfb.ssnm_multistep.launches == before
     runtime.reset_fallback_warnings()
+
+
+
+# ---------------------------------------------------------------------------
+# kernel #7: coeff_value_apply_all, and kernel #6 pinned bit for bit
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4],
+                         ids=["lsq", "logistic", "huber", "sqhinge",
+                              "poisson"])
+@pytest.mark.parametrize("storage,precision,N,n", [
+    ("f32", "highest", 8192, 256), ("f32", "default", 8192, 256),
+    ("bf16", "highest", 8192, 256), ("int8", "highest", 8192, 256),
+    ("f32", "highest", 8191, 202), ("int8", "highest", 8000, 200),
+], ids=["f32", "f32-default", "bf16", "int8", "f32-ragged", "int8-n200"])
+def test_value_apply_kernel_matches_plain_version(dev, storage, precision, N,
+                                                  n, mode):
+    """Every formula mode (labels ±1 for the classification modes, counts
+    for Poisson), ragged N and rows that are not whole 16-byte chunks: the
+    value within 1e-6 of Σ|f_i|; c within 1e-6 of its largest entry (1e-5
+    with bf16 dots), gsum within 1e-6 (1e-4 with bf16 dots: a weighted
+    coefficient whose bf16 rounding flips moves it by 2^-8·|c_i·a_i|, as
+    kernel #6's test allows); one launch; c and gsum are kernel #6's to
+    the bit where both take the same tile."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10 + mode)
+    F = LeastSquaresRows(torch.randn(N, n, generator=gen, device=dev),
+                         torch.randn(N, generator=gen, device=dev), float(N))
+    if storage != "f32":
+        F = F.with_storage(storage)
+    rows, b = F.coeff_rows_data()
+    if mode in (1, 3):
+        b = torch.sign(b)
+    elif mode == 4:
+        b = torch.floor(2.0 * b.abs())
+    rs = F.coeff_rows_scale()
+    z = 0.05 * torch.randn(n, generator=gen, device=dev)
+    sc = torch.tensor([N if mode in (0, 2) else 1.0, mode, 0.5], device=dev)
+    before = tfb.coeff_value_apply_all.launches
+    kv, kc, kg = tfb.coeff_value_apply_all(rows, b, z, sc,
+                                           precision=precision, rs=rs)
+    rv, rc, rg = tfb.coeff_value_apply_all_ref(rows, b, z, sc,
+                                               precision=precision, rs=rs)
+    torch.cuda.synchronize()
+    assert tfb.coeff_value_apply_all.launches == before + 1
+    r = tfb._apply_margins_ref(rows, z, precision, rs)[1]
+    vabs = float(tfb._value_formula(sc[1], r, b, sc[0], sc[2]).abs().sum())
+    lowp = tfb._lowp(rows, precision)
+    assert abs(float(kv) - float(rv)) <= 1e-6 * vabs
+    assert _rel(kc, rc) <= (1e-5 if lowp else 1e-6)
+    assert _rel(kg, rg) <= (1e-4 if lowp else 1e-6)
+    if tfb._apply_rows(n, rows.element_size(), values=3) == tfb._apply_rows(
+            n, rows.element_size()):
+        c6, g6 = tfb.coeff_apply_all(rows, b, z, sc, precision=precision,
+                                     rs=rs)
+        assert torch.equal(kc, c6) and torch.equal(kg, g6)
+
+
+def _golden_inputs(dev, storage, N=8192, n=256):
+    """Exact dyadic rows, offsets and z (no generator, no libm): the inputs
+    of kernel #6's pinned digests."""
+    i = torch.arange(N)[:, None]
+    j = torch.arange(n)[None, :]
+    F = LeastSquaresRows((((i * 31 + j * 17) % 97) - 48).float() / 64,
+                         ((torch.arange(N) * 13 % 29) - 14).float() / 8, 1.0)
+    if storage != "f32":
+        F = F.with_storage(storage)
+    A, b = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    z = ((torch.arange(n) * 7 % 11) - 5).float() / 256
+    return A.to(dev), b.to(dev), z.to(dev), None if rs is None else rs.to(dev)
+
+
+# sha256 (first 16 hex digits) of c and gsum of kernel #6 as it was built
+# before it shared its walk with kernel #7, on _golden_inputs with 64 CTAs
+# (NVIDIA H100 80GB HBM3, nvcc of CUDA 12.8)
+APPLY_GOLDEN = {
+    ("f32", "highest", 0): "4ed0a7e6a73817d1",
+    ("f32", "highest", 1): "cc96879e0bed424e",
+    ("f32", "default", 2): "fbb6d4962361206a",
+    ("bf16", "highest", 3): "4fe538cb1badfe5b",
+    ("int8", "highest", 4): "2bcf2dc551ae696b",
+}
+
+
+def apply_digest(dev, storage, precision, mode, ctas=64):
+    """Kernel #6's c and gsum on ``_golden_inputs`` with ``ctas`` CTAs (the
+    wrapper's count depends on the card), as a digest."""
+    import hashlib
+
+    A, b, z, rs = _golden_inputs(dev, storage)
+    N, n = A.shape
+    sc = torch.tensor([1.0, mode, 0.5], device=dev)
+    c = torch.empty(N, device=dev)
+    g = torch.empty(n, device=dev)
+    hi = torch.empty(ctas, n, device=dev)
+    lo = torch.empty(ctas, n, device=dev)
+    tfb._call("coeff_apply_all", dev, A.data_ptr(), tfb._STORAGE_CODES[A.dtype],
+              int(tfb._lowp(A, precision)), b.data_ptr(), tfb._ptr(rs),
+              z.data_ptr(), sc.data_ptr(), c.data_ptr(), g.data_ptr(),
+              hi.data_ptr(), lo.data_ptr(), N, n,
+              tfb._apply_rows(n, A.element_size()), ctas)
+    torch.cuda.synchronize()
+    h = hashlib.sha256(c.cpu().numpy().tobytes())
+    h.update(g.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("storage,precision,mode", list(APPLY_GOLDEN),
+                         ids=[f"{s}-{p}-mode{m}" for s, p, m in APPLY_GOLDEN])
+def test_apply_kernel_is_bit_for_bit_its_earlier_output(dev, storage,
+                                                        precision, mode):
+    """Kernel #6 shares its body with kernel #7 (``csrc/apply_rows.cuh``,
+    the value column off): its c and gsum keep their earlier bits."""
+    assert apply_digest(dev, storage, precision, mode) == APPLY_GOLDEN[
+        storage, precision, mode]
+
+
+def test_value_apply_kernel_repeats_bit_for_bit_and_checks_arguments(dev):
+    A, b, z, rs = _golden_inputs(dev, "int8")
+    sc = torch.tensor([1.0, 1.0, 0.0], device=dev)
+    outs = [tfb.coeff_value_apply_all(A, b, z, sc, rs=rs) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
+    A, b = A[:1024, :64].float().contiguous(), b[:1024].contiguous()
+    z = z[:64].contiguous()
+    with pytest.raises(ValueError, match="scalars"):
+        tfb.coeff_value_apply_all(A, b, z, torch.zeros(8, device=dev))
+    with pytest.raises(ValueError, match="z has shape"):
+        tfb.coeff_value_apply_all(A, b, z[:32], sc)
+    with pytest.raises(ValueError, match="on cpu"):
+        tfb.coeff_value_apply_all(A, b.cpu(), z, sc)
+    with pytest.raises(ValueError, match="rs"):
+        tfb.coeff_value_apply_all(A.to(torch.int8), b, z, sc)
+
+
+def test_panoc_and_splitting_facades_run_on_the_kernels(dev, monkeypatch):
+    """On the card, with the gate open: every FBE evaluation of PANOC and
+    ZeroFPR (fixed, adaptive, tol) is one launch of kernel #7 and no
+    other kernel runs, the two-product read is never taken; Davis-Yin and
+    Condat-Vũ take kernel #6 once a step. The objectives fall."""
+    import warnings
+
+    from ciao_tpu_torch import CondatVu, DavisYin, PANOC, ZeroFPR
+    from ciao_tpu_torch.monitor import objective
+    from ciao_tpu_torch.ops.linmap import FirstDifference
+    from ciao_tpu_torch.prox import IndBox, NormL1
+    from ciao_tpu_torch.solvers import panoc as tpanoc
+
+    N, n = 4224, 64
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    A = torch.randn(N, n, generator=gen, device=dev)
+    F = LeastSquaresRows(A, torch.randn(N, generator=gen, device=dev),
+                         float(N))
+    L = (A * A).sum(1) * N
+    g = NormL1(torch.tensor(0.01, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    evals = []
+    real_eval = tpanoc._eval_fbe
+
+    def counted(*args, **kw):
+        evals.append(1)
+        return real_eval(*args, **kw)
+
+    def refused(*args, **kw):
+        raise AssertionError("the two-product read ran on the card")
+
+    monkeypatch.setattr(tpanoc, "_eval_fbe", counted)
+    monkeypatch.setattr(F, "value_sum_and_grad_sum_all", refused)
+    names = ("coeff_value_apply_all", "coeff_apply_all",
+             "saga_coeff_multistep", "svrg_coeff_multistep")
+    for solver, kw in ((PANOC(maxit=20), dict(L=L)),
+                       (ZeroFPR(maxit=20), dict(L=L)),
+                       (PANOC(maxit=20, tol=1e-3), dict(L=L)),
+                       (ZeroFPR(maxit=20), {})):
+        evals.clear()
+        before = {k: getattr(tfb, k).launches for k in names}
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            x, _ = solver(x0, F=F, g=g, **kw)
+        d = {k: getattr(tfb, k).launches - before[k] for k in names}
+        assert d == {"coeff_value_apply_all": len(evals),
+                     "coeff_apply_all": 0, "saga_coeff_multistep": 0,
+                     "svrg_coeff_multistep": 0}, d
+        assert len(evals) >= 2
+        assert float(objective(F, g, x)) < float(objective(F, g, x0))
+    for solver, kw in ((DavisYin(maxit=21), dict(h=IndBox(-1.0, 1.0))),
+                       (CondatVu(maxit=21),
+                        dict(h=NormL1(0.05), K=FirstDifference()))):
+        before = {k: getattr(tfb, k).launches for k in names}
+        x, it = solver(x0, F=F, g=g, L=L, **kw)
+        d = {k: getattr(tfb, k).launches - before[k] for k in names}
+        assert it == 21 and d == {"coeff_value_apply_all": 0,
+                                  "coeff_apply_all": 20,
+                                  "saga_coeff_multistep": 0,
+                                  "svrg_coeff_multistep": 0}, d
+        assert float(objective(F, g, x)) < float(objective(F, g, x0))
