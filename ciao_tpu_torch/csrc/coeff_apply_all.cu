@@ -16,7 +16,9 @@
 // A: (N, n) rows of `storage` (0 f32, 1 bf16, 2 int8); b, rs: (N,) f32 (rs
 // NULL unless int8); z: (n,) f32; sc: (3,) f32 [scale, mode, aux]; c: (N,)
 // f32 and gsum: (n,) f32, written; hi_part, lo_part: (ctas, n) f32 scratch,
-// 16-byte aligned. rows is 1 to 32; ctas is at most ceil(N / rows).
+// 16-byte aligned. rows is 1 to 256 (a tile's whole rows, as many as fit 48
+// KB, or fewer: ops/fused_block.py _apply_rows); ctas is at most
+// ceil(N / rows).
 extern "C" int coeff_apply_all_launch(const void* A, int storage, int lowp,
                                       const float* b, const float* rs,
                                       const float* z, const float* sc,

@@ -9,12 +9,13 @@
 // _coeff_value_apply_kernel, value formula _value_formula). It is kernel #6's
 // walk (apply_rows.cuh) with its value column: each row's value comes from
 // the margin its coefficient comes from (value_formula in row_ops.cuh, one
-// lane a row in warp 0), each tile's R values are added by a fixed shuffle
-// tree and two-summed into the CTA's value pair, and the finish combines the
-// G pairs in a fixed order. c and gsum are
-// kernel #6's to the bit. Bound by bytes, as #6 is: A is read once, c written
-// once. The Python wrapper is ciao_tpu_torch/ops/fused_block.py
-// coeff_value_apply_all, its plain PyTorch version coeff_value_apply_all_ref.
+// lane a row, warp w taking rows 32w .. 32w + 31 of the tile), each warp's
+// values are added by a fixed xor tree, the warps' sums in warp order, the
+// tile's sum two-summed into the CTA's value pair, and the finish combines
+// the G pairs in a fixed order. c and gsum are kernel #6's to the bit. Bound
+// by bytes, as #6 is: A is read once, c written once. The Python wrapper is
+// ciao_tpu_torch/ops/fused_block.py coeff_value_apply_all, its plain PyTorch
+// version coeff_value_apply_all_ref.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 

@@ -81,6 +81,32 @@ __device__ __forceinline__ void row4(const int8_t* p, float (&v)[4]) {
     v[q] = static_cast<float>(static_cast<int8_t>(w >> (8 * q)));
 }
 
+// Full-rate widening for the one-pass walk (apply_rows.cuh), no I2F or F2F:
+// four int8 values of a word by the byte-permute trick (the word biased by
+// 0x80 a byte, each byte moved into the mantissa of 2^23, one FADD of
+// 2^23 + 128 takes the bias and the exponent out: exact), two bf16 values
+// of a word by a shift and a mask, and four f32 values rounded to bf16 by
+// two packed conversions.
+__device__ __forceinline__ void widen4_i8(unsigned w, float (&v)[4]) {
+  const unsigned x = w ^ 0x80808080u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    v[q] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7440u + q)) -
+           8388736.0f;
+}
+__device__ __forceinline__ void widen2_bf16(unsigned w, float* v) {
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ float4 round4_bf16(float4 x) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 q = __floats2bfloat162_rn(x.z, x.w);
+  float v[4];
+  widen2_bf16(*reinterpret_cast<const unsigned*>(&p), v);
+  widen2_bf16(*reinterpret_cast<const unsigned*>(&q), v + 2);
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
 // The margin a . zs of one row a of a tile in shared memory, by one warp: the
 // lanes stride the row (four values a lane on the kVec path) and a shuffle
 // reduction gives every lane the sum.

@@ -701,9 +701,20 @@ def svrg_coeff_multistep(A, b, starts, canch, w, zs, av, scalars, B: int,
 # kernel #6: one compensated pass over all rows (anchor, full gradient)
 # ---------------------------------------------------------------------------
 
-# CTAs of the row pass per SM: two, each with two tile buffers in half of
-# the SM's shared memory (less the 1 KB the card reserves per CTA).
+# The one-pass walk's tiles (``csrc/apply_rows.cuh``), whole rows in a ring
+# of APPLY_STAGES stages, at most APPLY_MAX_ROWS (the value column takes one
+# row a thread of the CTA's APPLY_THREADS). Up to APPLY_NARROW_COLS columns
+# (16 register columns a thread) two CTAs share an SM, each in half of its
+# shared memory (less the 1 KB the card reserves per CTA), with tiles of as
+# many rows as fit APPLY_TILE_BYTES and the half; wider rows take the wide
+# walk (64 register columns a thread), one CTA an SM, its tiles as many rows
+# as fit all of the SM's shared memory.
+APPLY_TILE_BYTES = 48 * 1024
+APPLY_THREADS = 256
+APPLY_MAX_ROWS = APPLY_THREADS
+APPLY_STAGES = 2
 APPLY_CTAS_PER_SM = 2
+APPLY_NARROW_COLS = 16 * APPLY_THREADS
 
 
 def _two_sum(hi, lo, p):
@@ -717,25 +728,44 @@ def _two_sum(hi, lo, p):
     return s, lo + e
 
 
-def _apply_smem_bytes(rows: int, n: int, itemsize: int,
-                      values: int = 1) -> int:
-    """Dynamic shared memory of one CTA of the row pass (``run_apply`` in
-    ``csrc/apply_rows.cuh``): two row tiles, z and ``values`` f32 per row
-    (the weighted coefficient; kernel #7 adds the margin and the offset)."""
-    return 2 * (-(-rows * n * itemsize // 16) * 16) + 4 * (n + values * rows)
+def _apply_smem_bytes(rows: int, n: int, itemsize: int) -> int:
+    """Dynamic shared memory of one CTA of the walk (``apply_smem_bytes``
+    in ``csrc/apply_rows.cuh``): APPLY_STAGES row tiles, z, two f32 a row
+    (the weighted coefficient, the margin), b and rs of each stage's rows,
+    four f32 a thread (the row slices' partials), the warps' value sums
+    and the ring's barriers."""
+    tile = -(-rows * n * itemsize // 16) * 16
+    return (APPLY_STAGES * tile + -(-4 * n // 16) * 16
+            + 8 * rows * (1 + APPLY_STAGES) + 16 * APPLY_THREADS
+            + 4 * (APPLY_THREADS // 32) + 8 * APPLY_STAGES)
 
 
-def _apply_rows(n: int, itemsize: int, values: int = 1) -> int:
-    """Rows of a tile of the row pass: the largest power of two up to 32
-    whose two buffers let two CTAs share an SM (8 f32, 16 bf16, 32 int8
-    rows at n = 1,024: 32 KB tiles), else one CTA (n up to MAX_COLS)."""
-    for budget in (SMEM_BYTES // APPLY_CTAS_PER_SM - 1024, SMEM_BYTES):
-        r = 32
-        while r >= 1:
-            if _apply_smem_bytes(r, n, itemsize, values) <= budget:
-                return r
-            r //= 2
-    raise ValueError(f"n = {n} is too wide for the one-pass kernel")
+def _apply_rows(n: int, itemsize: int) -> int:
+    """Rows of a tile of the walk, shared by the kernels #6 and #7 and their
+    plain versions, 1 to APPLY_MAX_ROWS: up to APPLY_NARROW_COLS columns as
+    many whole rows as fit APPLY_TILE_BYTES and half of the SM's shared
+    memory (256 int8 and 96 f32 rows at n = 128; 48 int8, 24 bf16 and 12
+    f32 rows at n = 1,024: 48 KB tiles; 11 int8 and 2 f32 rows at n =
+    4,096), beyond as many as fit all of it (the wide walk: 11 int8 and 2
+    f32 rows at n = 8,192, one f32 row at n = 16,384)."""
+    per_sm = _apply_ctas_per_sm(n)
+    budget = SMEM_BYTES if per_sm == 1 else SMEM_BYTES // per_sm - 1024
+    fixed = _apply_smem_bytes(0, n, itemsize)
+    rows = (budget - fixed) // (APPLY_STAGES * n * itemsize
+                                + 8 * (1 + APPLY_STAGES))
+    if per_sm > 1:
+        rows = min(rows, APPLY_TILE_BYTES // (n * itemsize))
+    rows = max(1, min(APPLY_MAX_ROWS, rows))
+    while rows > 1 and _apply_smem_bytes(rows, n, itemsize) > budget:
+        rows -= 1  # the 16-byte rounding of a tile
+    return rows
+
+
+def _apply_ctas_per_sm(n: int) -> int:
+    """CTAs of the walk an SM holds: two up to APPLY_NARROW_COLS columns,
+    one in the wide walk (its 64 register columns a thread take the SM's
+    registers)."""
+    return APPLY_CTAS_PER_SM if n <= APPLY_NARROW_COLS else 1
 
 
 def _comp_sum_rows(p):
@@ -752,14 +782,23 @@ def _comp_sum_rows(p):
 
 def _apply_margins_ref(A, z, precision, rs):
     """The rows as the dots see them (f32, bf16-rounded when ``_lowp``)
-    and the dequantized margins A·z of the plain versions of #6 and #7."""
+    and the dequantized margins A·z of the plain versions of #6 and #7.
+    Each margin is summed in f64 and rounded once to f32: the margin any
+    f32 summation order approaches. An f32 product of the library's own
+    order lands one to three ulps from it, as far as the kernel's order
+    does, and the two errors add up in a comparison: where a formula
+    clips the residual, three ulps of a margin between 2 and 4 are 1.4e-6
+    of a Huber c clipped at δ = 0.5."""
     lowp = _lowp(A, precision)
     A_f = A.to(torch.float32)
     zq = z
     if lowp:
         A_f = _bf16_round(A_f)
         zq = _bf16_round(z)
-    r = A_f @ zq
+    step = max(1, 2**27 // max(A.shape[1], 1))  # 1 GiB of f64 rows a chunk
+    zd = zq.double()
+    r = torch.cat([A_f[i:i + step].double() @ zd
+                   for i in range(0, A.shape[0], step)]).float()
     if rs is not None:
         r = r * rs
     return A_f, r, lowp
@@ -805,10 +844,11 @@ def _check_apply(A, b, z, scalars, rs):
     return N, n
 
 
-def _apply_ctas(dev, N: int, rows: int) -> int:
-    """CTAs of the row pass: two per SM, at most one per tile."""
+def _apply_ctas(dev, N: int, n: int, rows: int) -> int:
+    """CTAs of the walk: :func:`_apply_ctas_per_sm` on each SM, at most
+    one per tile."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return min(-(-N // rows), APPLY_CTAS_PER_SM * sms)
+    return min(-(-N // rows), _apply_ctas_per_sm(n) * sms)
 
 
 def coeff_apply_all(A, b, z, scalars, precision: str = "highest", rs=None):
@@ -828,15 +868,26 @@ def coeff_apply_all(A, b, z, scalars, precision: str = "highest", rs=None):
     tensors launch the kernel or raise.
 
     On an H100 the pass is bound by bytes: it must read A once, N·n·
-    itemsize bytes (1 GiB f32, 256 MiB int8 at 262,144 × 1,024), for
-    4·N·n flops. The TPU kernel walks its tiles in grid order and
-    carries the (hi, lo) pair in VMEM; here about two CTAs per SM each
-    walk every G-th tile of R rows (:func:`_apply_rows`), double-buffered
-    with cp.async, and two-sum each tile's partial into their own
-    (hi, lo) row of a (G, n) scratch; a second launch combines the G
-    pairs per column in a fixed order. No atomics: runs repeat bit for
-    bit. The compensation's adds are ``__fadd_rn``/``__fsub_rn``, which
-    ``-O3`` may not contract or reassociate.
+    itemsize bytes (1 GiB f32, 256 MiB int8 at 262,144 × 1,024), for 4·N·n
+    flops (16 µs of the card's f32 rate there, against 87-350 µs of
+    bytes), so it uses no tensor cores. The TPU kernel walks its tiles in
+    grid order and carries the (hi, lo) pair in VMEM; here the CTAs each
+    walk every G-th tile of R whole rows (:func:`_apply_rows`) in a ring
+    of two stages that one thread fills by bulk copies (``cp.async.bulk``
+    on an mbarrier): up to n = 4,096 two CTAs an SM with tiles of up to
+    48 KB (256 rows at n = 128 int8, 12-48 at n = 1,024), so that while
+    an SM's two CTAs use a tile each, two more are in flight; wider rows
+    one CTA an SM with tiles as large as its shared memory allows. Groups
+    of 8-32 lanes form eight rows' margins at once (a tile of few rows
+    splits each row over several groups); every thread owns fixed columns
+    (16, or 64 past n = 4,096) and a row slice of the column sums, and
+    two-sums each tile's partial into its (hi, lo) registers; a second
+    launch combines the G pairs per column in a fixed order. int8 values
+    are widened by the byte-permute trick, bf16 by a shift, and f32 rows
+    at "default" are rounded to bf16 once a value: no I2F or F2F per use.
+    No atomics: runs repeat bit for bit. The compensation's adds are
+    ``__fadd_rn``/``__fsub_rn``, which ``-O3`` may not contract or
+    reassociate. The design note is ``csrc/apply_rows.cuh``'s.
     """
     if A.device.type == "cpu":
         return coeff_apply_all_ref(A, b, z, scalars, precision=precision,
@@ -847,7 +898,7 @@ def coeff_apply_all(A, b, z, scalars, precision: str = "highest", rs=None):
     dev, f32 = A.device, torch.float32
     lowp = _lowp(A, precision)
     rows = _apply_rows(n, A.element_size())
-    ctas = _apply_ctas(dev, N, rows)
+    ctas = _apply_ctas(dev, N, n, rows)
     c = torch.empty(N, dtype=f32, device=dev)
     gsum = torch.empty(n, dtype=f32, device=dev)
     hi = torch.empty((ctas, n), dtype=f32, device=dev)
@@ -878,25 +929,29 @@ def coeff_value_apply_all_ref(A, b, z, scalars, precision: str = "highest",
                               rs=None):
     """Plain PyTorch version of :func:`coeff_value_apply_all`: that of
     :func:`coeff_apply_all` at the kernel's tile of R rows, and the loss
-    sum as the kernel forms it: each tile's R values, padded with zeros to
-    a warp's 32 lanes, added by the kernel's xor-shuffle tree in f32 (lane
-    i and lane i + 16, then + 8, ...), the tiles' sums added by a
-    compensated pairwise tree. Returns new (val, c, gsum), val 0-d. On the
-    card it needs exact f32 products, which it checks and does not set."""
+    sum as the kernel forms it: each tile's values, padded with zeros to
+    W = ⌈R/32⌉ warps of 32 lanes, each warp's 32 added by the kernel's
+    xor-shuffle tree in f32 (lane i and lane i + 16, then + 8, ...), the W
+    warp sums added in warp order, the tiles' sums added by a compensated
+    pairwise tree. Returns new (val, c, gsum), val 0-d. On the card it
+    needs exact f32 products, which it checks and does not set."""
     runtime.require_exact_f32_matmul(A.device, "coeff_value_apply_all_ref")
     scale, mode, aux = scalars.unbind()
     A_f, r, lowp = _apply_margins_ref(A, z, precision, rs)
     c = _coeff_formula(mode, r, b, scale, aux)
     v = _value_formula(mode, r, b, scale, aux)
     N, n = A.shape
-    R = _apply_rows(n, A.element_size(), values=3)
-    T = -(-N // R)
+    R = _apply_rows(n, A.element_size())
+    T, W = -(-N // R), -(-R // 32)
     tv = torch.cat([v, v.new_zeros(T * R - N)]).view(T, R)
-    tv = torch.cat([tv, tv.new_zeros(T, 32 - R)], dim=1)
-    while tv.shape[1] > 1:
-        half = tv.shape[1] // 2
-        tv = tv[:, :half] + tv[:, half:]
-    val = _comp_sum_rows(tv)[0]
+    tv = torch.cat([tv, tv.new_zeros(T, 32 * W - R)], dim=1).view(T, W, 32)
+    while tv.shape[2] > 1:
+        half = tv.shape[2] // 2
+        tv = tv[..., :half] + tv[..., half:]
+    tile = tv[:, 0, 0]
+    for w in range(1, W):
+        tile = tile + tv[:, w, 0]
+    val = _comp_sum_rows(tile[:, None])[0]
     return val, c, _apply_gsum_ref(A_f, c, rs, lowp, R)
 
 
@@ -918,12 +973,13 @@ def coeff_value_apply_all(A, b, z, scalars, precision: str = "highest",
     Kernel #6's pass (``csrc/apply_rows.cuh``) with a value column, bound
     by the same bytes (A read once, c written once): each row's value
     comes from the margin its coefficient comes from; after each tile,
-    warp 0 computes the tile's R values one lane a row, adds them by a
-    fixed shuffle tree and two-sums that into the CTA's (hi, lo) value
-    pair, and the finish launch combines the G pairs in a fixed order
-    beside the columns. The value formula's logistic and Poisson terms
-    use ``log1pf``/``expf``. c and gsum equal kernel #6's bit for bit
-    where both take the same R; runs repeat bit for bit.
+    warp w computes the values of the tile's rows 32w .. 32w + 31 one lane
+    a row and adds them by a fixed shuffle tree, the warps' sums are added
+    in warp order and two-summed into the CTA's (hi, lo) value pair, and
+    the finish launch combines the G pairs in a fixed order beside the
+    columns. The value formula's logistic and Poisson terms use
+    ``log1pf``/``expf``. c and gsum equal kernel #6's bit for bit (the
+    same tiles); runs repeat bit for bit.
     """
     if A.device.type == "cpu":
         return coeff_value_apply_all_ref(A, b, z, scalars,
@@ -933,8 +989,8 @@ def coeff_value_apply_all(A, b, z, scalars, precision: str = "highest",
     N, n = _check_apply(A, b, z, scalars, rs)
     dev, f32 = A.device, torch.float32
     lowp = _lowp(A, precision)
-    rows = _apply_rows(n, A.element_size(), values=3)
-    ctas = _apply_ctas(dev, N, rows)
+    rows = _apply_rows(n, A.element_size())
+    ctas = _apply_ctas(dev, N, n, rows)
     val = torch.empty((), dtype=f32, device=dev)
     c = torch.empty(N, dtype=f32, device=dev)
     gsum = torch.empty(n, dtype=f32, device=dev)

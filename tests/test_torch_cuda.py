@@ -7,9 +7,10 @@
 ``lsvrg_coeff_multistep``, ``lkatyusha_coeff_multistep``,
 ``ssnm_multistep``, ``ssnm_multistep_streamed``, ``point_saga_multistep``,
 ``point_saga_multistep_streamed`` and ``coeff_value_apply_all`` against
-their plain versions, ``coeff_apply_all`` bit for bit against its output
-before it shared its walk with ``coeff_value_apply_all``, the facades'
-routing to them, and the polish's exact-f32 check.
+their plain versions, ``coeff_apply_all`` bit for bit against its pinned
+digests, ``coeff_value_apply_all``'s c and gsum bit for bit
+``coeff_apply_all``'s, the facades' routing to them, and the polish's
+exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -397,21 +398,48 @@ def _apply_both(A, b, z, sc, precision, rs):
     return k, r
 
 
+# the walk's cases: 8,192 x 256; the deep target's width n = 128, whose
+# tiles hold 96 (f32), 192 (bf16) or 256 (int8) rows, with a ragged last
+# tile; ragged N; rows that are not whole 16-byte chunks (the plain path);
+# n = 4,096 (11 int8 rows a tile, the widest of the two-CTA walk) and the
+# wide walk beyond (one CTA an SM: 2 f32 rows at n = 8,192, 2 bf16 rows at
+# n = 16,384; its plain path at n = 8,200 int8)
+APPLY_CASES = [
+    ("f32", "highest", 8192, 256), ("f32", "default", 8192, 256),
+    ("bf16", "highest", 8192, 256), ("int8", "highest", 8192, 256),
+    ("f32", "highest", 65573, 128), ("f32", "default", 65573, 128),
+    ("bf16", "highest", 65573, 128), ("int8", "highest", 65573, 128),
+    ("f32", "highest", 8191, 202), ("int8", "highest", 8000, 200),
+    ("int8", "highest", 4099, 4096), ("f32", "default", 1029, 8192),
+    ("bf16", "highest", 517, 16384), ("int8", "highest", 1031, 8200),
+]
+APPLY_IDS = ["f32", "f32-default", "bf16", "int8", "f32-n128",
+             "f32-default-n128", "bf16-n128", "int8-n128", "f32-ragged",
+             "int8-n200", "int8-n4096", "f32-default-n8192", "bf16-n16384",
+             "int8-n8200"]
+
+
+def _apply_z(n, gen, dev):
+    """The point of the walk's cases: 0.05 per entry up to n = 1,024, and
+    scaled by sqrt(1024 / n) beyond, so that the margins of Gaussian rows
+    keep the spread they have at n = 1,024 (a standard deviation of
+    1.6)."""
+    return 0.05 * min(1.0, (1024 / n) ** 0.5) * torch.randn(
+        n, generator=gen, device=dev)
+
+
 @pytest.mark.parametrize("mode", [0, 1, 2, 3, 4],
                          ids=["lsq", "logistic", "huber", "sqhinge",
                               "poisson"])
-@pytest.mark.parametrize("storage,precision,N,n", [
-    ("f32", "highest", 8192, 256), ("f32", "default", 8192, 256),
-    ("bf16", "highest", 8192, 256), ("int8", "highest", 8192, 256),
-    ("f32", "highest", 8191, 202), ("int8", "highest", 8000, 200),
-], ids=["f32", "f32-default", "bf16", "int8", "f32-ragged", "int8-n200"])
+@pytest.mark.parametrize("storage,precision,N,n", APPLY_CASES, ids=APPLY_IDS)
 def test_apply_kernel_matches_plain_version(dev, storage, precision, N, n,
                                             mode):
-    """Every formula mode through the scalars row, ragged N and rows that
-    are not whole 16-byte chunks: c within 1e-6 of its largest entry
-    (1e-5 with bf16 dots), gsum within 1e-5 (1e-4): both sum in other
-    orders, and a margin that moves by an ulp can move a bf16-rounded
-    coefficient by 2^-8."""
+    """Every formula mode through the scalars row, tiles of more than 32
+    rows with a ragged last tile, ragged N and rows that are not whole
+    16-byte chunks: c within 1e-6 of its largest entry (1e-5 with bf16
+    dots), gsum within 1e-5 (1e-4): both sum in other orders, and a
+    margin that moves by an ulp can move a bf16-rounded coefficient by
+    2^-8."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(mode)
     F = LeastSquaresRows(torch.randn(N, n, generator=gen, device=dev),
@@ -419,7 +447,7 @@ def test_apply_kernel_matches_plain_version(dev, storage, precision, N, n,
     if storage != "f32":
         F = F.with_storage(storage)
     rows, offs = F.coeff_rows_data()
-    z = 0.05 * torch.randn(n, generator=gen, device=dev)
+    z = _apply_z(n, gen, dev)
     sc = torch.tensor([N if mode in (0, 2) else 1.0, mode, 0.5], device=dev)
     before = tfb.coeff_apply_all.launches
     (kc, kg), (rc, rg) = _apply_both(rows, offs, z, sc, precision,
@@ -447,6 +475,55 @@ def test_apply_kernel_compensates_and_repeats_bit_for_bit(dev):
     torch.cuda.synchronize()
     assert abs(float(g1[0]) - exact) < 0.05 * 1e-3 * (Np - TILE)
     assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8"])
+def test_apply_kernels_repeat_and_agree_bit_for_bit(dev, storage):
+    """At n = 128 (tiles of 96-256 rows, a ragged last tile): kernels #6
+    and #7 each repeat bit for bit, and #7's c and gsum are #6's."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    N, n = 65573, 128
+    F = LeastSquaresRows(torch.randn(N, n, generator=gen, device=dev),
+                         torch.randn(N, generator=gen, device=dev), float(N))
+    if storage != "f32":
+        F = F.with_storage(storage)
+    rows, b = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+    z = 0.05 * torch.randn(n, generator=gen, device=dev)
+    sc = torch.tensor([1.0, 1.0, 0.0], device=dev)
+    b = torch.sign(b)
+    six = [tfb.coeff_apply_all(rows, b, z, sc, rs=rs) for _ in range(2)]
+    seven = [tfb.coeff_value_apply_all(rows, b, z, sc, rs=rs)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*six))
+    assert all(torch.equal(x, y) for x, y in zip(*seven))
+    assert torch.equal(seven[0][1], six[0][0])
+    assert torch.equal(seven[0][2], six[0][1])
+
+
+@pytest.mark.parametrize("kernel", ["#6", "#7"])
+def test_apply_kernels_take_a_misaligned_A(dev, kernel):
+    """Rows that start 4 bytes past a 16-byte boundary take the plain path
+    (no bulk copy): the kernel against its plain version at the bounds of
+    test_apply_kernel_matches_plain_version."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    N, n = 4099, 128
+    flat = torch.randn(N * n + 1, generator=gen, device=dev)
+    A = flat[1:].view(N, n)
+    assert A.data_ptr() % 16 == 4
+    b = torch.randn(N, generator=gen, device=dev)
+    z = 0.05 * torch.randn(n, generator=gen, device=dev)
+    sc = torch.tensor([float(N), 0.0, 0.0], device=dev)
+    fn, ref = ((tfb.coeff_apply_all, tfb.coeff_apply_all_ref)
+               if kernel == "#6" else
+               (tfb.coeff_value_apply_all, tfb.coeff_value_apply_all_ref))
+    k, r = fn(A, b, z, sc), ref(A, b, z, sc)
+    torch.cuda.synchronize()
+    assert _rel(k[-2], r[-2]) <= 1e-6
+    assert _rel(k[-1], r[-1]) <= 1e-5
 
 
 def test_apply_wrapper_checks_its_arguments(dev):
@@ -1449,11 +1526,7 @@ def test_ssnm_and_point_saga_facades_send_every_gated_run_to_a_kernel(
 @pytest.mark.parametrize("mode", [0, 1, 2, 3, 4],
                          ids=["lsq", "logistic", "huber", "sqhinge",
                               "poisson"])
-@pytest.mark.parametrize("storage,precision,N,n", [
-    ("f32", "highest", 8192, 256), ("f32", "default", 8192, 256),
-    ("bf16", "highest", 8192, 256), ("int8", "highest", 8192, 256),
-    ("f32", "highest", 8191, 202), ("int8", "highest", 8000, 200),
-], ids=["f32", "f32-default", "bf16", "int8", "f32-ragged", "int8-n200"])
+@pytest.mark.parametrize("storage,precision,N,n", APPLY_CASES, ids=APPLY_IDS)
 def test_value_apply_kernel_matches_plain_version(dev, storage, precision, N,
                                                   n, mode):
     """Every formula mode (labels ±1 for the classification modes, counts
@@ -1462,7 +1535,7 @@ def test_value_apply_kernel_matches_plain_version(dev, storage, precision, N,
     with bf16 dots), gsum within 1e-6 (1e-4 with bf16 dots: a weighted
     coefficient whose bf16 rounding flips moves it by 2^-8·|c_i·a_i|, as
     kernel #6's test allows); one launch; c and gsum are kernel #6's to
-    the bit where both take the same tile."""
+    the bit (the same tiles)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(10 + mode)
     F = LeastSquaresRows(torch.randn(N, n, generator=gen, device=dev),
@@ -1475,7 +1548,7 @@ def test_value_apply_kernel_matches_plain_version(dev, storage, precision, N,
     elif mode == 4:
         b = torch.floor(2.0 * b.abs())
     rs = F.coeff_rows_scale()
-    z = 0.05 * torch.randn(n, generator=gen, device=dev)
+    z = _apply_z(n, gen, dev)
     sc = torch.tensor([N if mode in (0, 2) else 1.0, mode, 0.5], device=dev)
     before = tfb.coeff_value_apply_all.launches
     kv, kc, kg = tfb.coeff_value_apply_all(rows, b, z, sc,
@@ -1490,11 +1563,8 @@ def test_value_apply_kernel_matches_plain_version(dev, storage, precision, N,
     assert abs(float(kv) - float(rv)) <= 1e-6 * vabs
     assert _rel(kc, rc) <= (1e-5 if lowp else 1e-6)
     assert _rel(kg, rg) <= (1e-4 if lowp else 1e-6)
-    if tfb._apply_rows(n, rows.element_size(), values=3) == tfb._apply_rows(
-            n, rows.element_size()):
-        c6, g6 = tfb.coeff_apply_all(rows, b, z, sc, precision=precision,
-                                     rs=rs)
-        assert torch.equal(kc, c6) and torch.equal(kg, g6)
+    c6, g6 = tfb.coeff_apply_all(rows, b, z, sc, precision=precision, rs=rs)
+    assert torch.equal(kc, c6) and torch.equal(kg, g6)
 
 
 def _golden_inputs(dev, storage, N=8192, n=256):
@@ -1512,25 +1582,28 @@ def _golden_inputs(dev, storage, N=8192, n=256):
     return A.to(dev), b.to(dev), z.to(dev), None if rs is None else rs.to(dev)
 
 
-# sha256 (first 16 hex digits) of c and gsum of kernel #6 as it was built
-# before it shared its walk with kernel #7, on _golden_inputs with 64 CTAs
+# sha256 (first 16 hex digits) of c and gsum of kernel #6 from the walk of
+# 48 KB tiles, on _golden_inputs with 64 CTAs (43 at int8 rows: one a tile)
 # (NVIDIA H100 80GB HBM3, nvcc of CUDA 12.8)
 APPLY_GOLDEN = {
     ("f32", "highest", 0): "4ed0a7e6a73817d1",
-    ("f32", "highest", 1): "cc96879e0bed424e",
+    ("f32", "highest", 1): "d39380cf7f2921d4",
     ("f32", "default", 2): "fbb6d4962361206a",
     ("bf16", "highest", 3): "4fe538cb1badfe5b",
-    ("int8", "highest", 4): "2bcf2dc551ae696b",
+    ("int8", "highest", 4): "812e74b895accb8d",
 }
 
 
 def apply_digest(dev, storage, precision, mode, ctas=64):
-    """Kernel #6's c and gsum on ``_golden_inputs`` with ``ctas`` CTAs (the
-    wrapper's count depends on the card), as a digest."""
+    """Kernel #6's c and gsum on ``_golden_inputs`` with ``ctas`` CTAs, or
+    one a tile where the tiles are fewer (the wrapper's count depends on
+    the card), as a digest."""
     import hashlib
 
     A, b, z, rs = _golden_inputs(dev, storage)
     N, n = A.shape
+    rows = tfb._apply_rows(n, A.element_size())
+    ctas = min(ctas, -(-N // rows))  # at most one a tile: 43 at int8
     sc = torch.tensor([1.0, mode, 0.5], device=dev)
     c = torch.empty(N, device=dev)
     g = torch.empty(n, device=dev)
@@ -1539,8 +1612,7 @@ def apply_digest(dev, storage, precision, mode, ctas=64):
     tfb._call("coeff_apply_all", dev, A.data_ptr(), tfb._STORAGE_CODES[A.dtype],
               int(tfb._lowp(A, precision)), b.data_ptr(), tfb._ptr(rs),
               z.data_ptr(), sc.data_ptr(), c.data_ptr(), g.data_ptr(),
-              hi.data_ptr(), lo.data_ptr(), N, n,
-              tfb._apply_rows(n, A.element_size()), ctas)
+              hi.data_ptr(), lo.data_ptr(), N, n, rows, ctas)
     torch.cuda.synchronize()
     h = hashlib.sha256(c.cpu().numpy().tobytes())
     h.update(g.cpu().numpy().tobytes())
@@ -1552,7 +1624,7 @@ def apply_digest(dev, storage, precision, mode, ctas=64):
 def test_apply_kernel_is_bit_for_bit_its_earlier_output(dev, storage,
                                                         precision, mode):
     """Kernel #6 shares its body with kernel #7 (``csrc/apply_rows.cuh``,
-    the value column off): its c and gsum keep their earlier bits."""
+    the value column off): its c and gsum keep their pinned bits."""
     assert apply_digest(dev, storage, precision, mode) == APPLY_GOLDEN[
         storage, precision, mode]
 

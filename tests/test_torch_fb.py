@@ -102,6 +102,42 @@ def test_coeff_apply_all_ref_matches_pallas(storage, precision, mode):
                                atol=1e-1 * np.abs(jg).max() / Np)
 
 
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_coeff_apply_all_ref_ragged_wide_tiles_match_pallas(storage):
+    """At the deep target's width n = 128 the walk's tiles hold more than
+    32 rows (96 f32, 256 int8), and N = 1,088 leaves a ragged last tile
+    (32 f32 rows, 64 int8): the plain version against the Pallas kernel in
+    interpret mode (its 64-row tiles), at
+    test_coeff_apply_all_ref_matches_pallas's bounds."""
+    Np, npix = 1088, 128
+    R = tfb._apply_rows(npix, 4 if storage == "f32" else 1)
+    assert R > 32 and Np % R
+    prob = make_lasso(N=Np, n=npix, p=4, seed=9, dtype=np.float32)
+    JF = JLeastSquaresRows(A=jnp.asarray(prob.A),
+                           b=jnp.asarray(prob.b.astype(np.float32)),
+                           scale=jnp.asarray(float(Np), jnp.float32))
+    if storage != "f32":
+        JF = JF.with_storage(storage)
+    rs = None if JF.row_scale is None else np.asarray(JF.row_scale)
+    z = (0.3 * np.random.default_rng(9).standard_normal(npix)).astype(
+        np.float32)
+    sc = np.array([float(Np), jfb.MODE_LSQ, 0.0], np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        jc, jg = jfb.coeff_apply_all(
+            JF.A, jnp.asarray(prob.b.astype(np.float32))[None],
+            jnp.asarray(z)[None], jnp.asarray(sc)[None],
+            jfb._pick_tile(Np, Np, npix),
+            rs1=None if rs is None else jnp.asarray(rs)[None])
+    jc, jg = np.asarray(jc)[0], np.asarray(jg)[0]
+    c, g = tfb.coeff_apply_all(_t(JF.A), _t(prob.b.astype(np.float32)),
+                               _t(z), _t(sc),
+                               rs=None if rs is None else _t(rs))
+    np.testing.assert_allclose(c.numpy(), jc, rtol=1e-4,
+                               atol=1e-3 * np.abs(jc).max())
+    np.testing.assert_allclose(g.numpy(), jg, rtol=1e-3,
+                               atol=1e-1 * np.abs(jg).max() / Np)
+
+
 def test_coeff_apply_all_ref_is_the_oracle_pass():
     """Within the port, at a ragged N (no whole last tile): with f32 rows
     c is the oracle's coeff_all and gsum its grad_sum_all; with int8 rows
@@ -110,7 +146,7 @@ def test_coeff_apply_all_ref_is_the_oracle_pass():
     F = LeastSquaresRows(torch.tensor(prob.A), torch.tensor(prob.b), 1001.0)
     z = torch.tensor(np.random.default_rng(0).standard_normal(37) * 0.1,
                      dtype=torch.float32)
-    assert tfb._apply_rows(37, 4) == 32  # 31 whole tiles and 9 rows
+    assert tfb._apply_rows(37, 4) == 256  # 3 whole tiles and 233 rows
     c, g = tfb.oracle_apply_all(F, z)
     torch.testing.assert_close(c, F.coeff_all(z), rtol=1e-5, atol=1e-3)
     want = F.grad_sum_all(z)
@@ -155,15 +191,29 @@ def test_apply_wrapper_rejects_devices_without_kernel():
     assert not tfb.full_grad_available(F, torch.zeros(8))
 
 
-@pytest.mark.parametrize("n,itemsize,rows", [
-    (1024, 4, 8), (1024, 2, 16), (1024, 1, 32), (128, 4, 32),
-    (16_384, 4, 1), (16_384, 1, 1), (4_096, 1, 8),
+@pytest.mark.parametrize("n,itemsize,rows,per_sm", [
+    (1024, 4, 12, 2), (1024, 2, 24, 2), (1024, 1, 48, 2), (128, 4, 96, 2),
+    (128, 2, 192, 2), (128, 1, 256, 2), (64, 1, 256, 2), (3_072, 4, 4, 2),
+    (4_096, 1, 11, 2), (4_096, 4, 2, 2), (8_192, 4, 2, 1), (8_192, 1, 11, 1),
+    (12_288, 4, 1, 1), (16_384, 4, 1, 1), (16_384, 2, 2, 1),
+    (16_384, 1, 4, 1),
 ])
-def test_apply_rows_fit_shared_memory(n, itemsize, rows):
-    """Two CTAs of the row pass share an SM where their double-buffered
-    tiles fit half of its shared memory; the widest rows take one."""
+def test_apply_rows_fit_shared_memory(n, itemsize, rows, per_sm):
+    """Up to 4,096 columns two CTAs share an SM, each with tiles of as many
+    whole rows as fit 48 KB and its half of the shared memory, at most 256
+    (one a thread); wider rows take the wide walk, one CTA an SM, its tiles
+    as many rows as fit all of it, and the widest (n = 16,384 f32: one
+    64 KB row a tile) still fit."""
     assert tfb._apply_rows(n, itemsize) == rows
-    assert tfb._apply_smem_bytes(rows, n, itemsize) <= tfb.SMEM_BYTES
+    assert tfb._apply_ctas_per_sm(n) == per_sm
+    half = tfb.SMEM_BYTES // 2 - 1024
+    assert tfb._apply_smem_bytes(rows, n, itemsize) <= (
+        half if per_sm == 2 else tfb.SMEM_BYTES)
+    # the largest tile that fits: one row more does not
+    if rows < tfb.APPLY_MAX_ROWS and (per_sm == 1 or rows * n * itemsize
+                                      + n * itemsize <= 48 * 1024):
+        assert tfb._apply_smem_bytes(rows + 1, n, itemsize) > (
+            half if per_sm == 2 else tfb.SMEM_BYTES)
 
 
 # ---------------------------------------------------------------------------

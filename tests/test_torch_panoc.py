@@ -144,16 +144,59 @@ def test_coeff_value_apply_all_ref_matches_pallas(storage, precision, mode):
                                atol=1e-3 * np.abs(jc).max())
 
 
+@pytest.mark.parametrize("mode", [jfb.MODE_LSQ, jfb.MODE_LOGISTIC],
+                         ids=["lsq", "logistic"])
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_coeff_value_apply_all_ref_ragged_wide_tiles_match_pallas(storage,
+                                                                  mode):
+    """Tiles of more than 32 rows (96 f32, 256 int8 at n = 128: three to
+    eight warps' xor trees, added in warp order) and a ragged last tile
+    (32 f32 rows, 64 int8) at N = 1,088: the plain version against the
+    Pallas kernel in interpret mode (its 64-row tiles), at
+    test_coeff_value_apply_all_ref_matches_pallas's bounds."""
+    Np, npix = 1088, 128
+    R = tfb._apply_rows(npix, 4 if storage == "f32" else 1)
+    assert R > 32 and Np % R
+    rng = np.random.default_rng(21 + mode)
+    A = rng.normal(size=(Np, npix)).astype(np.float32)
+    b = rng.normal(size=Np).astype(np.float32)
+    if mode == jfb.MODE_LOGISTIC:
+        b = np.sign(b).astype(np.float32)
+    u = (0.3 * rng.normal(size=npix)).astype(np.float32)
+    JF = JLeastSquaresRows(A=jnp.asarray(A), b=jnp.asarray(b),
+                           scale=jnp.asarray(np.float32(Np)))
+    if storage != "f32":
+        JF = JF.with_storage(storage)
+    rs = _a(JF.row_scale)
+    sc = np.array([float(Np) if mode == jfb.MODE_LSQ else 1.0, mode, 0.0],
+                  np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        jv, jc, jg = jfb.coeff_value_apply_all(
+            JF.A, jnp.asarray(b)[None], jnp.asarray(u)[None],
+            jnp.asarray(sc)[None], jfb._pick_tile(Np, Np, npix),
+            rs1=None if rs is None else jnp.asarray(rs)[None])
+    jv, jc, jg = float(jv[0, 0]), np.asarray(jc)[0], np.asarray(jg)[0]
+    v, c, g = tfb.coeff_value_apply_all(_t(JF.A), _t(b), _t(u), _t(sc),
+                                        rs=None if rs is None else _t(rs))
+    quant = storage == "int8"
+    np.testing.assert_allclose(float(v), jv, rtol=2e-3 if quant else 2e-5)
+    np.testing.assert_allclose(
+        g.numpy(), jg, rtol=8e-3 if quant else 2e-4,
+        atol=np.abs(jg).max() * (4e-3 if quant else 1e-5))
+    np.testing.assert_allclose(c.numpy(), jc, rtol=1e-4,
+                               atol=1e-3 * np.abs(jc).max())
+
+
 def test_coeff_value_apply_all_ref_is_the_oracle_pass():
     """Within the port, at a ragged N (no whole last tile): c and gsum are
-    kernel #6's plain version's (the same tile here), the value is the
+    kernel #6's plain version's (the same tiles), the value is the
     oracle's Σf_i within f32 rounding, and ``oracle_value_apply_all``
     reads the oracle's rows, offsets and scalars."""
     prob = make_lasso(N=1001, n=37, p=3, seed=2, dtype=np.float32)
     F = LeastSquaresRows(torch.tensor(prob.A), torch.tensor(prob.b), 3.0)
     z = torch.tensor(np.random.default_rng(0).standard_normal(37) * 0.1,
                      dtype=torch.float32)
-    assert tfb._apply_rows(37, 4, values=3) == tfb._apply_rows(37, 4) == 32
+    assert tfb._apply_rows(37, 4) == 256  # 3 whole tiles and 233 rows
     v, c, g = tfb.oracle_value_apply_all(F, z)
     c6, g6 = tfb.oracle_apply_all(F, z)
     assert torch.equal(c, c6) and torch.equal(g, g6)
