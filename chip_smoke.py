@@ -146,12 +146,18 @@ Phases, one line each:
      "highest" and "default", NormL1 and Zero, Katyusha at τ₁ = 0.5 (ns)
      and 0.3, the logistic and Huber formulas, a width that is not whole
      16-byte chunks, the loopless kernels' masked windows (stop < K − 1
-     and stop = K − 1) bit for bit, and K = 8 at the headline;
+     and stop = K − 1) bit for bit, K = 8 at the headline, and the loopless
+     engine's grid at its edges (LOOPLESS_EDGES: B = 4,096 and 1,024 at n =
+     1,024, n = 16,384 and n = 202, f32 with a stop and int8 step by step,
+     each with its masked windows);
   4k-4n. Katyusha, SARAH, L-SVRG and L-Katyusha at the headline (f32 and
      int8 rows) with launch counts and falling objectives, their facades
      on the planted Lasso, and Katyusha's time to rel 1e-3;
   9. times: the four kernels per step in turns with their plain versions
-     and with their bounds; a window of each family profiled.
+     and with their bounds, the loopless pair also at B = 1,024 (the
+     facades' batch); a window of each family profiled, the loopless pair's
+     showing one launch of its kernel a call and no kernel of the
+     two-launch engine.
   3o-3p. kernels #19, #13, #12, #15 == their plain version: SSNM in f32
      "highest" and "default", bf16 and int8 rows at τ = 0.5 and 1, #13 with
      f = K and f = 23; Point-SAGA in all five oracle modes (least squares,
@@ -330,6 +336,13 @@ VR_M, VR_OUTER, LOOPLESS_STEPS = N // B, 150, 24_576
 # the four kernels against their plain versions: d = 64 blocks, and the
 # loopless kernels' masked window (steps k > stop)
 VR_SMALL = dict(N=8_192, n=128, B=128, K=64, stop=22)
+# the loopless engine's grid at its edges (N, n, B, K, stop): 128 CTAs of 32
+# and of 8 rows, one f32 row a stage (the wide build), rows that are not
+# whole 16-byte chunks
+LOOPLESS_EDGES = ((32_768, 1_024, 4_096, 32, 20),
+                  (32_768, 1_024, 1_024, 32, 20),
+                  (8_192, 16_384, 1_024, 8, 5), (8_192, 202, 1_024, 32, 20))
+LOOPLESS_KINDS = ("lsvrg", "lkatyusha")
 # the facades on the facades' planted Lasso (FACADE), batch 1,024, default
 # stepsizes. A CPU run of the same seed (stepwise, the same draws) fell
 # 4,773-fold in Katyusha's 32 outer steps of m = 2N/B = 128, 132,247-fold in
@@ -412,20 +425,26 @@ def bound(nbytes: float, ops: float, itemsize: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def step_bound(F, starts, B_: int, vec_bytes: int, row_extra: int,
-               flops: float = 4.0):
-    """The bound per step of K block steps on ``starts``: the rows, offsets
-    and other per-row values (``row_extra`` bytes a row, and the int8
-    scale) of every distinct block visited, once, and ``vec_bytes`` of
-    (n,) vectors, over K; ``flops``·B·n operations a step (4: the margins
-    and the innovation)."""
+def step_bytes(F, starts, B_: int, vec_bytes: int, row_extra: int) -> float:
+    """Bytes per step of K block steps on ``starts``: the rows, offsets and
+    other per-row values (``row_extra`` bytes a row, and the int8 scale) of
+    every distinct block visited, once, and ``vec_bytes`` of (n,) vectors,
+    over K."""
     rows, _ = F.coeff_rows_data()
-    n_, isz = rows.shape[1], rows.element_size()
     K = starts.shape[0]
     blocks = int(torch.unique(starts).numel())
-    per_row = n_ * isz + row_extra + 4 * (rows.dtype == torch.int8)
-    return bound((blocks * B_ * per_row + vec_bytes + 4 * K) / K,
-                 flops * B_ * n_, isz)
+    per_row = (rows.shape[1] * rows.element_size() + row_extra
+               + 4 * (rows.dtype == torch.int8))
+    return (blocks * B_ * per_row + vec_bytes + 4 * K) / K
+
+
+def step_bound(F, starts, B_: int, vec_bytes: int, row_extra: int,
+               flops: float = 4.0):
+    """The bound per step of K block steps on ``starts``: step_bytes, and
+    ``flops``·B·n operations a step (4: the margins and the innovation)."""
+    rows, _ = F.coeff_rows_data()
+    return bound(step_bytes(F, starts, B_, vec_bytes, row_extra),
+                 flops * B_ * rows.shape[1], rows.element_size())
 
 
 def kernel_inputs(F, gamma, gen, dev, B_: int, K: int, sag: bool,
@@ -1169,7 +1188,9 @@ def profile_steps(tag: str, fn, steps: int, card: str,
     """One call of ``fn`` (``steps`` solver steps, or epochs: ``unit``) by
     the host clock, then once more under torch.profiler: ms per step, the
     device's busy time per step split by kernel (``groups``: label → name
-    substrings), and the idle share 1 − busy/step."""
+    substrings), and the idle share 1 − busy/step; also the profiled call's
+    kernel launches by group (``calls``) and the names of its device
+    events (``names``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1184,15 +1205,19 @@ def profile_steps(tag: str, fn, steps: int, card: str,
         fn()
         torch.cuda.synchronize()
     split = dict.fromkeys([*groups, "other"], 0.0)
+    calls = dict.fromkeys([*groups, "other"], 0)
+    names = set()
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
+        names.add(e.key)
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
         key = next((k for k, subs in groups.items()
                     if any(sub in e.key for sub in subs)), "other")
         split[key] += us / 1e3 / steps
+        calls[key] += e.count
     busy = sum(split.values())
     if busy <= 0.0:
         raise AssertionError(f"profile {tag}: the trace shows no device time")
@@ -1200,7 +1225,7 @@ def profile_steps(tag: str, fn, steps: int, card: str,
         f"device busy {busy:.4f} ms per {unit} ("
         + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
         + f"), idle share {1.0 - busy / step:.3f} [{card}]")
-    return dict(step=step, busy=busy, **split)
+    return dict(step=step, busy=busy, **split, calls=calls, names=names)
 
 
 def time_events(fn, reps: int) -> float:
@@ -2487,12 +2512,13 @@ def vr_call(kind: str, fn, S: dict, sc, B_: int, precision="highest",
 
 
 def compare_vr(kind, F, gen, dev, B_, K, lam, precision, tag, mode=0,
-               tau1=0.3) -> float:
+               tau1=0.3, stop=None) -> float:
     """Kernel ``kind`` and its plain version from one state on one
     schedule: every output within Z_TOL of its largest entry; SARAH, and
     every kernel where the dots round to bf16, step by step
-    (compare_stepwise). Returns the largest absolute error of the iterate
-    (y, ww, w)."""
+    (compare_stepwise). ``stop``: the loopless pair's last step to process,
+    read on the device (exact-f32 dots only). Returns the largest absolute
+    error of the iterate (y, ww, w)."""
     from ciao_tpu_torch.ops import fused_block as fb
 
     S = vr_inputs(F, gen, dev, B_, K, mode)
@@ -2501,10 +2527,14 @@ def compare_vr(kind, F, gen, dev, B_, K, lam, precision, tag, mode=0,
     kern, plain = getattr(fb, name), getattr(fb, f"{name}_ref")
     lowp = fb._lowp(S["rows"], precision)
     if kind == "sarah" or lowp:
+        if stop is not None:
+            raise ValueError("a stop is compared with exact-f32 dots only")
         return compare_stepwise(kind, kern, plain, S, sc, B_, K, precision,
                                 lowp, tag)
-    kout = vr_call(kind, kern, S, sc, B_, precision)
-    rout = vr_call(kind, plain, S, sc, B_, precision)
+    st = None if stop is None else torch.tensor([stop], dtype=torch.int32,
+                                                device=dev)
+    kout = vr_call(kind, kern, S, sc, B_, precision, stop=st)
+    rout = vr_call(kind, plain, S, sc, B_, precision, stop=st)
     torch.cuda.synchronize()
     moved = float((rout[0] - S["near"][0]).abs().max())
     if moved == 0.0:
@@ -2606,7 +2636,9 @@ def phase_check_vr(gen, dev) -> dict:
     N = 8,192, n = 128, B = 128, K = 64 (Katyusha at the ns τ₁ = 0.5 and a
     fixed 0.3), the Huber and logistic formulas (the mode and aux slots of
     each scalars row), a width that is not whole 16-byte chunks, the masked
-    windows of #16 and #17, and K = 8 at the headline."""
+    windows of #16 and #17, K = 8 at the headline, and #16 and #17 at
+    LOOPLESS_EDGES (f32 with the stop, int8 step by step, and the masked
+    windows of both)."""
     s = VR_SMALL
     errs = dict.fromkeys(VR, 0.0)
     for storage, precision in STORAGES:
@@ -2648,6 +2680,18 @@ def phase_check_vr(gen, dev) -> dict:
                 kind, F, gen, dev, B, HEADLINE_K, LAM, "highest", tag))
         del F
         torch.cuda.empty_cache()
+    for N_, n_, B_, K_, stop in LOOPLESS_EDGES:
+        for storage in ("f32", "int8"):
+            F, _, _ = lasso(gen, dev, N_, n_, storage)
+            for kind in LOOPLESS_KINDS:
+                tag = (f"{VR[kind][1]} N={N_} n={n_} B={B_} K={K_} {storage}"
+                       + (f" stop={stop}" if storage == "f32" else ""))
+                errs[kind] = max(errs[kind], compare_vr(
+                    kind, F, gen, dev, B_, K_, LAM, "highest", tag,
+                    stop=stop if storage == "f32" else None))
+                vr_masked_identity(kind, F, gen, dev, B_, K_, stop, tag)
+            del F
+            torch.cuda.empty_cache()
     return {VR[k][0]: v for k, v in errs.items()}
 
 
@@ -2819,39 +2863,40 @@ def run_katyusha_to_rel(dev, seed: int, card: str) -> float:
     return dt
 
 
-def time_vr(kind: str, r: dict, gen, dev, storage: str, card: str) -> dict:
-    """Kernel ``kind`` per step at the headline in turns with its plain
-    version: calls of LAUNCH_STEPS steps (Katyusha, SARAH) or of
-    LOOPLESS_LAUNCH steps (the loopless pair, whose windows are at most
-    that long), one state stepped on in place. The bound counts the rows,
-    b and (but SARAH) the anchor coefficients of the distinct blocks
-    visited, the (n,) vectors in and out, and 4·B·n operations a step
-    (SARAH's second margin: 6·B·n)."""
+def time_vr(kind: str, r: dict, gen, dev, storage: str, card: str,
+            B_: int = B) -> dict:
+    """Kernel ``kind`` per step at the headline (blocks of ``B_`` rows) in
+    turns with its plain version: calls of LAUNCH_STEPS steps (Katyusha,
+    SARAH) or of LOOPLESS_LAUNCH steps (the loopless pair, whose windows
+    are at most that long), one state stepped on in place. The bound
+    counts the rows, b and (but SARAH) the anchor coefficients of the
+    distinct blocks visited, the (n,) vectors in and out, and 4·B·n
+    operations a step (SARAH's second margin: 6·B·n)."""
     from ciao_tpu_torch.ops import fused_block as fb
     from ciao_tpu_torch.solvers.lsvrg import LOOPLESS_LAUNCH
     from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS
 
     K = LOOPLESS_LAUNCH if kind in ("lsvrg", "lkatyusha") else LAUNCH_STEPS
-    S = vr_inputs(r["F"], gen, dev, B, K)
-    sc = vr_scalars(S, kind, B, LAM)
+    S = vr_inputs(r["F"], gen, dev, B_, K)
+    sc = vr_scalars(S, kind, B_, LAM)
     name = VR[kind][0]
     p, q = S["near"][0].clone(), S["near"][1].clone()
     state = {"katyusha": [p, q, torch.zeros_like(p)],
              "sarah": [torch.stack([S["xa"], p]), S["av"].clone()],
              "lsvrg": [p], "lkatyusha": [p, q]}[kind]
     vec = {"katyusha": 8, "sarah": 6, "lsvrg": 4, "lkatyusha": 7}[kind]
-    bnd = step_bound(r["F"], S["starts"], B, vec * 4 * n,
+    bnd = step_bound(r["F"], S["starts"], B_, vec * 4 * n,
                      4 if kind == "sarah" else 8,
                      6.0 if kind == "sarah" else 4.0)
 
     def run(fn):
         def call():
-            vr_call(kind, fn, S, sc, B, state=state)
+            vr_call(kind, fn, S, sc, B_, state=state)
             return K
         return call
     times = time_turns(run(getattr(fb, name)), run(getattr(fb, f"{name}_ref")),
                        f"kernel {VR[kind][1]}, {storage} rows, N={N} n={n} "
-                       f"B={B}", card, bnd)
+                       f"B={B_}", card, bnd)
     if not all(bool(torch.isfinite(t).all()) for t in state):
         raise AssertionError(f"the timed kernel {VR[kind][1]} steps gave "
                              "non-finite values")
@@ -2859,9 +2904,22 @@ def time_vr(kind: str, r: dict, gen, dev, storage: str, card: str) -> dict:
 
 
 VR_GROUPS = {kind: {"kernel #6": ("apply_",),
-                    f"kernel {label}": ("rows_kernel", "finish_kernel",
-                                        "point_kernel")}
+                    f"kernel {label}": ("loopless_steps_kernel",)
+                    if kind in LOOPLESS_KINDS else
+                    ("rows_kernel", "finish_kernel", "point_kernel")}
              for kind, (_, label) in VR.items()}
+# the two-launch engine's kernels, which no loopless window may show (by
+# function name: kernel #6's apply_rows_kernel is not one of them)
+TWO_LAUNCH = ("rows_kernel", "lsvrg_finish_kernel", "lkatyusha_finish_kernel",
+              "point_kernel")
+
+
+def kernel_name(key: str) -> str:
+    """The function name of a profiler's kernel key, without its return
+    type, namespace and template arguments."""
+    head = key.replace("(anonymous namespace)::", "")
+    head = head.split("<")[0].split("(")[0].split()
+    return head[-1].split("::")[-1] if head else key
 
 
 PROSHI_GROUPS = {"kernel #18": ("rows_kernel", "proshi_finish")}
@@ -4458,18 +4516,39 @@ def main() -> int:
     times9 = {}
     for fam, runs in vr.items():
         steps = 8 if fam in ("katyusha", "sarah") else 2_048
+        name, label = VR[fam]
         for storage, r in runs.items():
             times9[fam, storage] = time_vr(fam, r, gen, dev, storage, card)
-            profile_steps(f"{fam} at the headline, {storage} rows",
-                          lambda: r["run"](r["F"], r["g"], r["st"], r["cfg"],
-                                           steps), steps, card,
-                          VR_GROUPS[fam],
-                          unit="outer step" if steps == 8 else "step")
+            if fam in LOOPLESS_KINDS:
+                times9[fam, storage, VR_FACADE[fam]["batch"]] = time_vr(
+                    fam, r, gen, dev, storage, card,
+                    VR_FACADE[fam]["batch"])
+            before = counts()[name]
+            prof = profile_steps(f"{fam} at the headline, {storage} rows",
+                                 lambda: r["run"](r["F"], r["g"], r["st"],
+                                                  r["cfg"], steps), steps,
+                                 card, VR_GROUPS[fam],
+                                 unit="outer step" if steps == 8 else "step")
+            if fam in LOOPLESS_KINDS:
+                # profile_steps ran the same window three times
+                per_call = (counts()[name] - before) // 3
+                seen = prof["calls"][f"kernel {label}"]
+                stray = sorted(k for k in prof["names"]
+                               if kernel_name(k) in TWO_LAUNCH)
+                log(f"  {fam} {storage}: {seen} launches of "
+                    f"loopless_steps_kernel in the profiled window for "
+                    f"{per_call} wrapper calls; two-launch kernels: "
+                    f"{stray or 'none'}")
+                if seen != per_call or stray or per_call == 0:
+                    raise AssertionError(
+                        f"{fam} {storage}: {seen} kernel launches for "
+                        f"{per_call} calls, stray kernels {stray}")
     del vr, runs, r
     log("phase 9 times: " + "; ".join(
-        f"kernel {VR[k][1]} {s_} {t['ms']:.4f} ms/step (plain "
-        f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.5f})"
-        for (k, s_), t in times9.items()) + f" [{card}]")
+        f"kernel {VR[k[0]][1]} {k[1]}"
+        + (f" B={k[2]}" if len(k) > 2 else "")
+        + f" {t['ms']:.4f} ms/step (plain {t['plain_ms']:.4f}, bound "
+        f"{t['bound_ms']:.5f})" for k, t in times9.items()) + f" [{card}]")
 
     # 3o-3p. kernels #19, #13, #12, #15 == their plain versions
     errs.update(phase_check_new(gen, dev))

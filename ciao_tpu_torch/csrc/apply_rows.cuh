@@ -161,49 +161,9 @@ __host__ __device__ __forceinline__ int column_threads(int units) {
   return ct;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(1)
-               : "memory");
-}
-
-// One thread: expect `bytes` on the stage's barrier and start the bulk copy
-// of `bytes` from global `src` into shared `dst` that completes on it.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  const unsigned b = smem_addr(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   b),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(b)
-      : "memory");
-}
-
 // Wait for this thread's cp.async groups but the newest kStages - 1.
 __device__ __forceinline__ void wait_groups_but_newest() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 1) : "memory");
-}
-
-// Wait until the stage's barrier has completed phase `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned b = smem_addr(bar);
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(b), "r"(parity)
-        : "memory");
 }
 
 // One 16-byte chunk at `p` (shared memory) against the matching z values
@@ -366,7 +326,7 @@ apply_rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
     zs[j] = kLowp ? bf16_round(v) : v;
   }
   if (kVec && tid == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s]);
+    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();

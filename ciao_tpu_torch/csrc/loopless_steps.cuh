@@ -1,0 +1,667 @@
+// The persistent step engine of the loopless pair on an NVIDIA Hopper card
+// (sm_90a): a whole coin window of K block steps in one cooperative launch,
+//
+//   lsvrg_coeff_multistep.cu      replaces ciao_tpu/ops/fused_block.py
+//                                 lsvrg_coeff_multistep (L-SVRG steps, body
+//                                 _lsvrg_coeff_multi_kernel);
+//   lkatyusha_coeff_multistep.cu  replaces lkatyusha_coeff_multistep
+//                                 (L-Katyusha steps, body
+//                                 _lkatyusha_coeff_multi_kernel).
+//
+// The Python wrappers are in ciao_tpu_torch/ops/fused_block.py, beside the
+// plain PyTorch versions lsvrg_coeff_multistep_ref and
+// lkatyusha_coeff_multistep_ref, whose arithmetic (bf16 roundings included)
+// this computes; _loopless_grid there is the grid and ring rule below.
+//
+// What bounds it. A step must read its block's rows once: B.n.itemsize bytes,
+// 16 MiB f32 and 4 MiB int8 at B = 4,096, n = 1,024 (5.0 and 1.25 us at the
+// card's 3.35 TB/s), for 4.B.n flops: bytes, by a factor of 5 to 20. The
+// two-launch engine of saga_steps.cuh reached 31-35 % (f32) and 8-11 % (int8)
+// of that on an H100: a step was two stream-ordered launches (three for
+// L-Katyusha's first), a CTA staged all its rows before any margin, the finish
+// ran on n / 32 CTAs while the rest of the card idled, and no load of the next
+// step's rows could start before the finish had ended, though nothing but the
+// stream order held it: the rows do not depend on the iterate.
+//
+// The engine, one launch of G CTAs, all resident at once (a cooperative
+// launch; refused, never split, if they do not fit):
+//
+//   - the grid rule: CTA c owns rows [c R, c R + R) of every step's block, R
+//     the smallest power of two with ceil(B / R) <= the SMs (R = 32 at B =
+//     4,096 and 8 at B = 1,024: 128 CTAs either way; the last CTA of a B
+//     that R does not divide takes the rest);
+//   - the ring: P stages of S whole rows in shared memory (S the largest
+//     power of two up to R and 256 rows in 32 KB, one row where a row is
+//     larger; P as many as fit, 2 to 8: 8 f32 rows and 6 stages at n =
+//     1,024, one f32 row and 2 stages at n = 16,384);
+//     one producer warp fills stage after stage, each by one bulk copy
+//     (cp.async.bulk) of its contiguous rows and the rows' b, anchor
+//     coefficients and rs by cp.async, all completing on the stage's full
+//     mbarrier, and refills a stage as soon as its empty mbarrier says the
+//     eight consumer warps have read it. It runs ahead across step
+//     boundaries (step k + 1's rows, read from starts[k + 1], are loading
+//     while step k's finish and barriers run: with P S >= R all of them);
+//   - step k on the eight consumer warps: the point (w for L-SVRG, x for
+//     L-Katyusha) copied into shared memory, rounded to bf16 where the dots
+//     round, by plain loads from L2 (the last finish wrote it through the
+//     generic proxy); then for each stage as it lands: the margins, every
+//     thread taking its own units (the columns it owns in the column sums)
+//     of eight rows at once, reduced over the warp by a halving butterfly
+//     (nine shuffles for eight rows) and over the warps in warp order; the
+//     coefficient formula and dc, a thread a row (anchor minus live for
+//     L-SVRG, live at x minus anchor for L-Katyusha; rounded to bf16 where
+//     the dots round and scaled by rs for int8 rows); and the stage's rows
+//     added into column sums held in registers, each thread the same units
+//     all call. int8 is widened by the byte-permute trick, bf16 by a shift;
+//   - the CTA's partial into part[c, :], a grid-wide barrier, the finish:
+//     CTA c takes ceil(n / G) columns, sums their G partials in a fixed order
+//     (lanes over CTAs, a shuffle tree, then the eight warps in order: runs
+//     repeat bit for bit) and applies L-SVRG's w-step (wpre <- w) or
+//     L-Katyusha's z-step, y coupling, ypre and the next x to its columns,
+//     their state loaded beside the partials; a second barrier before the
+//     next step's point;
+//   - L-Katyusha's first x is formed by every CTA for all columns from z, the
+//     anchor point and y (each writes its own finish columns of the x
+//     scratch, so the finish reads the x the margins used); the stop index
+//     is read once: a call processes min(K, stop + 1) steps and the masked
+//     ones write nothing.
+//
+// What it reaches on an H100 (tools/loopless_step_times.py, PERF.md): a step
+// costs a floor of about 5 us whatever its rows (the two barriers, the finish
+// and the point's copy: B = 128, one row a CTA), and each stage adds a serial
+// chain of about 1 us (loads, FMAs, butterfly, barrier, formula, barrier,
+// column pass: latency, with two warps a scheduler), so the headline stays
+// well above its bytes. Two things that cost more, found on the way: the
+// units past a row's width, compiled in and switched off, still took their
+// instructions in every pass (hence the kRU tiers below), and two
+// sequentially consistent fences around each barrier's add cost about 0.3 us
+// (hence the release add and acquire polls).
+//
+// The grid-wide barrier is a word in device memory: each CTA adds 1 (CTA 0
+// adds 2^31 - (G - 1)), and the top bit flips when the last one arrives, so the
+// word's low bits are back at zero after every barrier (the scheme of
+// cooperative_groups' grid sync). The wrapper keeps one zeroed word a device
+// and never resets it; calls on one device must not overlap on two streams.
+
+#pragma once
+
+#include <atomic>
+
+#include "row_ops.cuh"
+
+namespace {
+
+enum LooplessMethod { kLsvrgSteps = 0, kLKatyushaSteps = 1 };
+
+constexpr int kLlThreads = 256;              // the consumer warps' threads
+constexpr int kLlWarps = kLlThreads / 32;
+constexpr int kLlBlock = kLlThreads + 32;    // and one producer warp
+constexpr int kLlMaxStages = 16;
+constexpr int kLlMaxStageRows = 256;
+// The widest rows (ops/fused_block.py MAX_COLS). A consumer thread owns kRU
+// units of the rows' columns (four columns on the 16-byte path, one on the
+// plain path) for the whole call, in registers: the build takes the fewest
+// that cover the row (16-byte path 1, 4 or 16 units: n up to 1,024, 4,096
+// and 16,384; plain path 4 or 64), since the units past the row still cost
+// their instructions in every margin and column pass.
+constexpr int kLlMaxCols = 16384;
+constexpr size_t kLlMaxSmem = 232448;
+
+// The arguments of one call. L-SVRG: pt the iterate w, pre = wpre; L-
+// Katyusha: pt the (n,) scratch of the coupled point x, y and z the
+// sequences, wa the anchor point, pre = ypre. part: (ctas, n) f32 scratch;
+// bar: the grid barrier's word.
+struct LooplessArgs {
+  const void* A;
+  const float* b;
+  const float* rs;
+  const float* canch;
+  const int* starts;
+  const int* stop;
+  float* pt;
+  float* pre;
+  const float* av;
+  const float* sc;
+  float* y;
+  float* z;
+  const float* wa;
+  float* part;
+  unsigned* bar;
+  int n, B, rows, ctas, stage_rows, stages, K;
+};
+
+// The grid rule (ops/fused_block.py _loopless_grid): R rows a CTA, the
+// smallest power of two with ceil(B / R) <= sms, and ceil(B / R) CTAs.
+inline void loopless_grid(int B, int sms, int& rows, int& ctas) {
+  rows = 1;
+  while ((B + rows - 1) / rows > sms) rows *= 2;
+  ctas = (B + rows - 1) / rows;
+}
+
+// Shared memory of a CTA (ops/fused_block.py _loopless_smem_bytes): the
+// ring, the point, the stages' full and empty barriers, then b, the anchor
+// coefficients and rs of each stage's rows, dc of two stages, the warps'
+// margin sums of a stage's rows and the finish's 256 warp sums.
+__host__ __device__ __forceinline__ size_t loopless_smem_bytes(int S, int P,
+                                                              int n,
+                                                              int itemsize) {
+  return P * tile_bytes(S, n, itemsize) + tile_bytes(1, n, 4) + 16 * size_t(P) +
+         4 * (3 * size_t(P) * S + (2 + kLlWarps) * size_t(S) + kLlThreads);
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kLlThreads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Arrive on the barrier once this thread's earlier cp.async copies have
+// landed (counted in the barrier's arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Every CTA's consumer threads wait here until all CTAs have arrived; their
+// writes before it are seen by every CTA's reads after it (cutlass/barrier.h's
+// scheme: the CTA's barrier, then thread 0's release add; thread 0's acquire
+// polls, then the CTA's barrier). `phase` (thread 0's) is the word's top bit
+// before the barrier; it flips when the last CTA arrives.
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& phase) {
+  consumer_sync();
+  if (threadIdx.x == 0) {
+    phase ^= 0x80000000u;
+    const unsigned inc = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(bar),
+                 "r"(inc)
+                 : "memory");
+    while ((load_acquire(bar) & 0x80000000u) != phase) {
+    }
+  }
+  consumer_sync();
+}
+
+// The values of a column unit of one row in shared memory as the dots see
+// them: four on the 16-byte path, one otherwise.
+template <bool kLowp, bool kVec>
+__device__ __forceinline__ void ll_unit(const float* p, float (&v)[4]) {
+  if (kVec) {
+    float4 x = *reinterpret_cast<const float4*>(p);
+    if (kLowp) x = round4_bf16(x);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    v[0] = row_value<kLowp>(*p);
+  }
+}
+template <bool kLowp, bool kVec>
+__device__ __forceinline__ void ll_unit(const __nv_bfloat16* p,
+                                        float (&v)[4]) {
+  if (kVec) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    widen2_bf16(x.x, v);
+    widen2_bf16(x.y, v + 2);
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+template <bool kLowp, bool kVec>
+__device__ __forceinline__ void ll_unit(const int8_t* p, float (&v)[4]) {
+  if (kVec)
+    widen4_i8(*reinterpret_cast<const unsigned*>(p), v);
+  else
+    v[0] = static_cast<float>(*p);
+}
+
+// The sums over a warp of each lane's partials p[0..7] of eight rows: three
+// halving steps (lane offsets 16, 8, 4), in each of which a lane keeps half of
+// its rows and sends its partner the other half, then two plain steps (2, 1):
+// lane l ends with the warp's sum of row l / 4, in a fixed order (nine
+// shuffles for eight rows, where a tree a row takes forty).
+__device__ __forceinline__ float warp_sums8(float (&p)[8], int lane) {
+#pragma unroll
+  for (int m = 4; m >= 1; m >>= 1) {
+    const int off = 4 * m;
+    const bool up = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < m; ++i) {
+      const float send = up ? p[i] : p[i + m];
+      const float keep = up ? p[i + m] : p[i];
+      p[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  p[0] += __shfl_xor_sync(0xffffffffu, p[0], 2);
+  p[0] += __shfl_xor_sync(0xffffffffu, p[0], 1);
+  return p[0];
+}
+
+template <int M, typename T, bool kLowp, bool kVec, int kRU>
+__global__ void __launch_bounds__(kLlBlock, 1)
+loopless_steps_kernel(const LooplessArgs a) {
+  constexpr int kUnit = kVec ? 4 : 1;  // columns of a unit
+  constexpr int kRegUnits = kRU;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = a.n, S = a.stage_rows, P = a.stages;
+  const size_t tb = tile_bytes(S, n, sizeof(T));
+  auto stage_ptr = [&](int s) { return reinterpret_cast<T*>(smem + s * tb); };
+  float* zs = reinterpret_cast<float*>(smem + P * tb);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + P * tb + tile_bytes(1, n, 4));
+  uint64_t* empty = full + P;
+  float* vals = reinterpret_cast<float*>(empty + P);  // [P][b, c, rs][S]
+  float* dcs = vals + 3 * P * S;                      // [2][S]
+  float* msum = dcs + 2 * S;                          // [8][S]
+  float* red = msum + kLlWarps * S;                   // [8][32]
+
+  const int K = a.K;
+  const int live = a.stop == nullptr ? K
+                   : *a.stop >= K - 1 ? K
+                   : (*a.stop < 0 ? 0 : *a.stop + 1);
+  if (live == 0) return;
+  const int G = gridDim.x;
+  const int cta = blockIdx.x;
+  const int first = cta * a.rows;  // the CTA's first row of a block
+  const int mine = min(a.rows, a.B - first);
+  const int spc = (mine + S - 1) / S;  // stages a step
+  const int total = live * spc;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t row_bytes = static_cast<size_t>(n) * sizeof(T);
+  const T* A = static_cast<const T*>(a.A);
+
+  if (tid == 0) {
+    for (int s = 0; s < P; ++s) {
+      // the producer's 32 lanes each arrive once a stage (and, on the 16-byte
+      // path, lane 0 once more with the bulk copy's bytes)
+      mbar_init(&full[s], kVec ? 33 : 32);
+      mbar_init(&empty[s], kLlWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kLlWarps) {
+    // the producer: stage t holds rows [i S, i S + here) of the CTA's share
+    // of step k's block, k = t / spc, i = t % spc
+    for (int t = 0; t < total; ++t) {
+      const int s = t % P;
+      if (t >= P) mbar_wait(&empty[s], (t / P - 1) & 1);
+      const int k = t / spc, i = t % spc;
+      const int64_t r0 = static_cast<int64_t>(a.starts[k]) + first + i * S;
+      const int here = min(S, mine - i * S);
+      T* dst = stage_ptr(s);
+      float* v = vals + 3 * S * s;
+      if (kVec) {
+        if (lane == 0)
+          bulk_load(dst, A + r0 * n, static_cast<unsigned>(here * row_bytes),
+                    &full[s]);
+        for (int r = lane; r < here; r += 32) {
+          __pipeline_memcpy_async(v + r, a.b + r0 + r, 4);
+          __pipeline_memcpy_async(v + S + r, a.canch + r0 + r, 4);
+          if (a.rs != nullptr)
+            __pipeline_memcpy_async(v + 2 * S + r, a.rs + r0 + r, 4);
+        }
+        cp_async_arrive(&full[s]);
+      } else {
+        const T* src = A + r0 * n;
+        for (int j = lane; j < here * n; j += 32) dst[j] = src[j];
+        for (int r = lane; r < here; r += 32) {
+          v[r] = a.b[r0 + r];
+          v[S + r] = a.canch[r0 + r];
+          v[2 * S + r] = a.rs != nullptr ? a.rs[r0 + r] : 1.0f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  const float* sc = a.sc;
+  const float scale = sc[0];
+  const int mode = static_cast<int>(sc[M == kLsvrgSteps ? 4 : 8]);
+  const float aux = sc[M == kLsvrgSteps ? 5 : 9];
+  const bool scaled = a.rs != nullptr;
+  // the finish's scalars (L-SVRG: gamma, gamma lambda, 1/B; L-Katyusha:
+  // eta/L, tau lambda, 1/(1 + eta sigma), eta sigma, theta1, theta2, 1/B)
+  float fs[7];
+#pragma unroll
+  for (int q = 0; q < 7; ++q)
+    fs[q] = M == kLsvrgSteps ? (q < 3 ? sc[1 + q] : 0.0f) : sc[1 + q];
+  const int units = n / kUnit;
+  // the finish: CTA c's columns [j0, j1) in blocks of cw columns, lpc lanes
+  // a column, 8 lpc slices of the G partials a column
+  const int cpc = (n + G - 1) / G;
+  const int j0 = min(n, cta * cpc);
+  const int j1 = min(n, j0 + cpc);
+  int cw = 1;
+  while (cw < cpc && cw < 32) cw *= 2;
+  const int lpc = 32 / cw;
+  const int fcol = lane % cw;
+  const int slice = warp * lpc + lane / cw;
+  const int slices = kLlWarps * lpc;
+
+  float acc[kRegUnits][kUnit];
+#pragma unroll
+  for (int kq = 0; kq < kRegUnits; ++kq)
+#pragma unroll
+    for (int q = 0; q < kUnit; ++q) acc[kq][q] = 0.0f;
+
+  auto finish_row = [&](const float* v, float* dc, int r, float m) {
+    const float rsv = scaled ? v[2 * S + r] : 1.0f;
+    if (scaled) m *= rsv;
+    const float c_live = coeff_formula(mode, m, v[r], scale, aux);
+    float d = M == kLsvrgSteps ? v[S + r] - c_live : c_live - v[S + r];
+    if (scaled) d *= rsv;
+    dc[r] = kLowp ? bf16_round(d) : d;
+  };
+
+  // the barrier word's top bit before this call's first barrier (no CTA can
+  // open it before this one arrives)
+  unsigned phase = tid == 0 ? load_acquire(a.bar) & 0x80000000u : 0u;
+  int t = 0;
+  for (int k = 0; k < live; ++k) {
+    // step k's point: w, or x (at k = 0 formed here from z, wa and y; each
+    // CTA writes its own finish columns of the x scratch)
+    auto point = [&](int j) {
+      if (M == kLKatyushaSteps && k == 0) {
+        const float x = coupled_point(sc[5], sc[6], __ldcg(a.z + j),
+                                      a.wa[j], __ldcg(a.y + j));
+        if (j >= j0 && j < j1) a.pt[j] = x;
+        return x;
+      }
+      return __ldcg(a.pt + j);
+    };
+    if (kVec) {
+#pragma unroll 4
+      for (int j = tid * 4; j < n; j += kLlThreads * 4) {
+        float x[4];
+        if (M == kLKatyushaSteps && k == 0) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) x[q] = point(j + q);
+        } else {
+          const float4 f = __ldcg(reinterpret_cast<const float4*>(a.pt + j));
+          x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
+        }
+        float4 o;
+        o.x = kLowp ? bf16_round(x[0]) : x[0];
+        o.y = kLowp ? bf16_round(x[1]) : x[1];
+        o.z = kLowp ? bf16_round(x[2]) : x[2];
+        o.w = kLowp ? bf16_round(x[3]) : x[3];
+        *reinterpret_cast<float4*>(zs + j) = o;
+      }
+    } else {
+#pragma unroll 4
+      for (int j = tid; j < n; j += kLlThreads) {
+        const float x = point(j);
+        zs[j] = kLowp ? bf16_round(x) : x;
+      }
+    }
+    consumer_sync();
+
+    for (int i = 0; i < spc; ++i, ++t) {
+      const int s = t % P;
+      const int here = min(S, mine - i * S);
+      const T* tile = stage_ptr(s);
+      const float* v = vals + 3 * S * s;
+      float* dc = dcs + (t & 1) * S;
+      mbar_wait(&full[s], (t / P) & 1);
+
+      // margins: every thread takes its units' share (the units it owns in
+      // the column sums) of the stage's rows, eight rows at once; warp_sums8
+      // leaves lane 4i the warp's sum of row i, and the eight warps' sums are
+      // added in warp order
+      for (int r0 = 0; r0 < here; r0 += 8) {
+        float p[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        const bool whole = here - r0 >= 8;
+#pragma unroll
+        for (int kq = 0; kq < kRegUnits; ++kq) {
+          const int u = tid + kq * kLlThreads;
+          if (u < units) {
+            float z[4];
+            if (kVec) {
+              const float4 f = *reinterpret_cast<const float4*>(zs + 4 * u);
+              z[0] = f.x, z[1] = f.y, z[2] = f.z, z[3] = f.w;
+            } else {
+              z[0] = zs[u];
+            }
+            const T* col = tile + static_cast<size_t>(r0) * n + u * kUnit;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              if (whole || r0 + i < here) {
+                float x[4];
+                ll_unit<kLowp, kVec>(col + static_cast<size_t>(i) * n, x);
+#pragma unroll
+                for (int e = 0; e < kUnit; ++e) p[i] = fmaf(x[e], z[e], p[i]);
+              }
+            }
+          }
+        }
+        const float m = warp_sums8(p, lane);
+        if ((lane & 3) == 0 && r0 + lane / 4 < here)
+          msum[warp * S + r0 + lane / 4] = m;
+      }
+      consumer_sync();
+      if (tid < here) {
+        float m = msum[tid];
+#pragma unroll
+        for (int w = 1; w < kLlWarps; ++w) m += msum[w * S + tid];
+        finish_row(v, dc, tid, m);
+      }
+      consumer_sync();
+
+      // the stage's rows into the column sums: each unit's rows in order,
+      // four rows' loads at once
+#pragma unroll
+      for (int kq = 0; kq < kRegUnits; ++kq) {
+        const int u = tid + kq * kLlThreads;
+        if (u < units) {
+          const T* col = tile + u * kUnit;
+          int r = 0;
+          for (; r + 4 <= here; r += 4) {
+            float x[4][4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              ll_unit<kLowp, kVec>(col + static_cast<size_t>(r + i) * n, x[i]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float d = dc[r + i];
+#pragma unroll
+              for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[i][q];
+            }
+          }
+          for (; r < here; ++r) {
+            float x[4];
+            ll_unit<kLowp, kVec>(col + static_cast<size_t>(r) * n, x);
+            const float d = dc[r];
+#pragma unroll
+            for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[q];
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
+    }
+
+    // the CTA's partial, then the finish of its columns
+    float* out = a.part + static_cast<int64_t>(cta) * n;
+#pragma unroll
+    for (int kq = 0; kq < kRegUnits; ++kq) {
+      const int u = tid + kq * kLlThreads;
+      if (u < units) {
+        if (kVec)
+          *reinterpret_cast<float4*>(out + 4 * u) =
+              make_float4(acc[kq][0], acc[kq][1], acc[kq][2], acc[kq][3]);
+        else
+          out[u] = acc[kq][0];
+      }
+#pragma unroll
+      for (int q = 0; q < kUnit; ++q) acc[kq][q] = 0.0f;
+    }
+    grid_sync(a.bar, phase);
+
+    for (int jb = j0; jb < j1; jb += cw) {
+      const int j = jb + fcol;
+      const bool owner = warp == 0 && lane < cw && j < j1;
+      // the column's state (L-SVRG: w, av; L-Katyusha: x, av, z, y, wa),
+      // loaded beside its partials
+      float st[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (owner) {
+        st[0] = __ldcg(a.pt + j);
+        st[1] = a.av[j];
+        if (M == kLKatyushaSteps) {
+          st[2] = __ldcg(a.z + j);
+          st[3] = __ldcg(a.y + j);
+          st[4] = a.wa[j];
+        }
+      }
+      float sum = 0.0f;
+      if (j < j1) {
+#pragma unroll 4
+        for (int q = slice; q < G; q += slices)
+          sum += __ldcg(a.part + static_cast<int64_t>(q) * n + j);
+      }
+      for (int off = cw; off < 32; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane < cw) red[warp * 32 + lane] = sum;
+      consumer_sync();
+      if (owner) {
+        float innov = red[lane];
+#pragma unroll
+        for (int w = 1; w < kLlWarps; ++w) innov += red[w * 32 + lane];
+        if (M == kLsvrgSteps) {
+          // L-SVRG (Kovalev et al. 2020, Alg. 2): wpre <- w,
+          // w <- soft(w + gamma (sum / B - av), gamma lambda)
+          a.pre[j] = st[0];
+          a.pt[j] =
+              soft_threshold(st[0] + fs[0] * (innov * fs[2] - st[1]), fs[1]);
+        } else {
+          // L-Katyusha (Alg. 3, proximal z-step): g~ = av + sum / B,
+          // z_new = soft((z + eta sigma x - (eta/L) g~) / (1 + eta sigma),
+          // tau lambda), ypre <- y, y <- x + theta1 (z_new - z), z <- z_new;
+          // then the next step's x against the anchor point wa
+          const float th1 = fs[4];
+          const float xj = st[0], z_old = st[2];
+          const float gr = st[1] + innov * fs[6];
+          const float z_new =
+              soft_threshold((z_old + fs[3] * xj - fs[0] * gr) * fs[2], fs[1]);
+          const float y_new = xj + th1 * (z_new - z_old);
+          a.pre[j] = st[3];
+          a.y[j] = y_new;
+          a.z[j] = z_new;
+          a.pt[j] = coupled_point(th1, fs[5], z_new, st[4], y_new);
+        }
+      }
+      consumer_sync();
+    }
+    if (k + 1 < live) grid_sync(a.bar, phase);
+  }
+}
+
+template <int M, typename T, bool kLowp, bool kVec, int kRU>
+cudaError_t run_loopless(const LooplessArgs& a, size_t smem, int sms,
+                         cudaStream_t stream) {
+  auto kernel = loopless_steps_kernel<M, T, kLowp, kVec, kRU>;
+  // the shared-memory attribute and the CTAs an SM holds, asked of the
+  // driver once for each (device, shared memory) this build meets in a row:
+  // a short window's call is bound by the host
+  static std::atomic<unsigned long long> known{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long key = (static_cast<unsigned long long>(smem) << 16) |
+                                 (static_cast<unsigned long long>(dev) << 8);
+  unsigned long long seen = known.load(std::memory_order_relaxed);
+  int per_sm = static_cast<int>(seen & 0xff);
+  if ((seen & ~0xffull) != key || seen == 0) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kLlBlock, smem);
+    if (e != cudaSuccess) return e;
+    known.store(key | static_cast<unsigned long long>(per_sm & 0xff),
+                std::memory_order_relaxed);
+  }
+  // every CTA must be resident at once, or the grid barrier never opens
+  if (per_sm * sms < a.ctas) return cudaErrorCooperativeLaunchTooLarge;
+  LooplessArgs arg = a;
+  void* args[] = {&arg};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                  dim3(a.ctas), dim3(kLlBlock), args, smem,
+                                  stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// The 16-byte path or the plain one, and the fewest register units a
+// thread that cover a row.
+template <int M, typename T, bool kLowp>
+cudaError_t dispatch_loopless(bool vec, const LooplessArgs& a, size_t smem,
+                              int sms, cudaStream_t stream) {
+  const int per_thread = ((vec ? a.n / 4 : a.n) + kLlThreads - 1) / kLlThreads;
+  auto run = vec ? (per_thread <= 1   ? run_loopless<M, T, kLowp, true, 1>
+                    : per_thread <= 4 ? run_loopless<M, T, kLowp, true, 4>
+                                      : run_loopless<M, T, kLowp, true, 16>)
+                 : (per_thread <= 4 ? run_loopless<M, T, kLowp, false, 4>
+                                    : run_loopless<M, T, kLowp, false, 64>);
+  return run(a, smem, sms, stream);
+}
+
+// Checks the grid and the ring against the rule, picks the instantiation and
+// makes the one cooperative launch; returns its error (0 on success).
+template <int M>
+int launch_loopless(int storage, int lowp, const LooplessArgs& a,
+                    void* stream) {
+  const int isz = storage_itemsize(storage);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int rows = 0, ctas = 0;
+  if (a.B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  loopless_grid(a.B, sms, rows, ctas);
+  const int S = a.stage_rows, P = a.stages;
+  if (a.n < 1 || a.n > kLlMaxCols || a.K < 1 ||
+      rows != a.rows || ctas != a.ctas || S < 1 || S > rows ||
+      S > kLlMaxStageRows || (S & (S - 1)) != 0 || P < 2 ||
+      P > kLlMaxStages || loopless_smem_bytes(S, P, a.n, isz) > kLlMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = loopless_smem_bytes(S, P, a.n, isz);
+  const bool vec = vec_rows(a.A, a.n, isz);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (storage) {
+    case kF32:
+      e = lowp ? dispatch_loopless<M, float, true>(vec, a, smem, sms, st)
+               : dispatch_loopless<M, float, false>(vec, a, smem, sms,
+                                                    st);
+      break;
+    case kBF16:
+      e = dispatch_loopless<M, __nv_bfloat16, true>(vec, a, smem, sms,
+                                                    st);
+      break;
+    case kI8:
+      e = dispatch_loopless<M, int8_t, true>(vec, a, smem, sms, st);
+      break;
+    default:
+      e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
+}
+
+}  // namespace

@@ -3,8 +3,9 @@
 // rounding of the dot operands, reads of one or four row values from shared
 // memory, a row's margin by one warp, the transposed product over a tile, the
 // oracle's coefficient and value formulas, the Point-SAGA per-row prox, the L1
-// soft-threshold, the fixed-order sum of per-CTA partials and the size of a
-// row tile in shared memory.
+// soft-threshold, the fixed-order sum of per-CTA partials, the coupled point of
+// Katyusha and L-Katyusha, bulk copies into shared memory on mbarriers and the
+// size of a row tile in shared memory.
 //
 // Precision follows the Pallas kernels' _stream_dot: when kLowp is set (rows
 // stored bf16 or int8, or f32 rows at "default" precision) both operands of
@@ -322,6 +323,58 @@ __device__ __forceinline__ bool column_sum(const float* __restrict__ part,
 #pragma unroll
   for (int w = 0; w < kFinishWarps; ++w) sum += red[w][lane];
   return true;
+}
+
+// The coupled point t1 z + t2 xa + (1 - t1 - t2) y of Katyusha and
+// L-Katyusha, in the plain versions' order of operations.
+__device__ __forceinline__ float coupled_point(float t1, float t2, float z,
+                                               float xa, float y) {
+  return (t1 * z + t2 * xa) + ((1.0f - t1) - t2) * y;
+}
+
+// Bulk copies into shared memory on mbarriers (the rings of apply_rows.cuh
+// and loopless_steps.cuh).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// A barrier whose phase completes after `count` arrivals (and the bytes
+// its arrivals expect).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One thread: arrive on the stage's barrier expecting `bytes` and start the
+// bulk copy of `bytes` from global `src` into shared `dst` that completes on
+// it.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   b),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Wait until the stage's barrier has completed phase `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned b = smem_addr(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
 }
 
 // Bytes of a row tile in shared memory, rounded up to 16 so that what follows

@@ -1,5 +1,5 @@
 // Coefficient block steps on an NVIDIA Hopper card (sm_90a): the device code
-// shared by fourteen kernels of ciao_tpu_torch/ops/fused_block.py,
+// shared by twelve kernels of ciao_tpu_torch/ops/fused_block.py,
 //
 //   saga_coeff_multistep.cu             replaces ciao_tpu/ops/fused_block.py
 //                                       saga_coeff_multistep (SAGA/SAG steps);
@@ -18,11 +18,6 @@
 //                                       (Katyusha inner steps);
 //   sarah_multistep.cu                  replaces sarah_multistep (SARAH's
 //                                       recursive steps);
-//   lsvrg_coeff_multistep.cu            replaces lsvrg_coeff_multistep
-//                                       (L-SVRG steps, masked past stop);
-//   lkatyusha_coeff_multistep.cu        replaces lkatyusha_coeff_multistep
-//                                       (L-Katyusha steps, masked past
-//                                       stop);
 //   ssnm_multistep.cu                   replaces ssnm_multistep (SSNM steps:
 //                                       SAGA's at a momentum point);
 //   ssnm_multistep_streamed.cu          replaces ssnm_multistep_streamed
@@ -34,7 +29,9 @@
 //                                       same, steps k >= f masked).
 //
 // The Python wrappers and the design notes are in ops/fused_block.py; the plain
-// PyTorch versions of the same arithmetic are the *_ref functions there.
+// PyTorch versions of the same arithmetic are the *_ref functions there. The
+// loopless pair (kernels #16 and #17) runs on its own persistent engine,
+// loopless_steps.cuh.
 //
 // One solver step on the block [s, s + B) of the (N, n) rows A is two launches:
 //
@@ -70,18 +67,13 @@
 // step k+1's, and the last finish leaves z alone, so the launch returns the
 // last block's prox point (not soft of the returned av).
 //
-// Katyusha and L-Katyusha take theirs at the coupled point x = t1 z + t2 x~
-// + (1 - t1 - t2) y (x~ the anchor point, constant in a launch) the same
-// way: a prologue forms step 0's x into an (n,) scratch, each finish, after
+// Katyusha takes its margins at the coupled point x = t1 z + t2 x~ + (1 - t1 -
+// t2) y (x~ the anchor point, constant in a launch) the same way: a prologue forms step 0's x into an (n,) scratch, each finish, after
 // updating z and y on its columns, forms the next step's x there; the row
 // phase's Delta c is c(x) - c_anchor, the opposite sign of SVRG's. SARAH
 // takes two margins, at w_prev and at w, from one staged row: both points
 // are staged in shared memory (rounded to bf16 when the dots are), and its
-// finish writes w_prev <- w, w <- w_next column by column. L-SVRG and
-// L-Katyusha mask the steps past a stop index read on the device (step k is
-// masked iff k > *stop: the launch processes stop + 1 steps) and record the
-// pre-update iterate of each processed step (wpre, ypre), so the last one
-// leaves the launch.
+// finish writes w_prev <- w, w <- w_next column by column.
 //
 // SSNM takes its margins at the momentum point y = tau x + (1 - tau) zb_j of
 // the step's block j, and Point-SAGA at the shifted iterate v = x - gamma av,
@@ -117,9 +109,6 @@ constexpr int kMaxRowsPerCta = 32;
 // Katyusha    [scale, alpha, beta, alpha*lambda, beta*lambda, 1/B, mode,
 //              tau1, tau2, aux];
 // SARAH       [scale, gamma, gamma*lambda, eta, 1/B, mode, aux];
-// L-SVRG      [scale, gamma, gamma*lambda, 1/B, mode, aux];
-// L-Katyusha  [scale, eta/L, tau*lambda, 1/(1 + eta*sigma), eta*sigma,
-//              theta1, theta2, 1/B, mode, aux];
 // SSNM        [scale, eta, eta*lambda, 1/B, 1/N, mode, tau, aux];
 // Point-SAGA  [scale, gamma, 1/B, 1/N, mode, aux].
 enum Method {
@@ -129,8 +118,6 @@ enum Method {
   kLFinito = 3,
   kKatyusha = 4,
   kSarah = 5,
-  kLsvrg = 6,
-  kLKatyusha = 7,
   kSsnm = 8,
   kPointSaga = 9
 };
@@ -143,15 +130,9 @@ __host__ __device__ constexpr bool writes_table(Method M) {
 }
 
 // Whether the margins are taken at the coupled point x and dc is
-// c(x) - c_anchor (Katyusha, L-Katyusha), not anchor minus live.
+// c(x) - c_anchor (Katyusha), not anchor minus live.
 __host__ __device__ constexpr bool coupled(Method M) {
-  return M == kKatyusha || M == kLKatyusha;
-}
-
-// Whether a step is masked past a stop index (k > *stop) rather than by a
-// clamp count (k >= *fclamp).
-__host__ __device__ constexpr bool stops(Method M) {
-  return M == kLsvrg || M == kLKatyusha;
+  return M == kKatyusha;
 }
 
 // The (n,) points the row phase stages: SARAH's w_prev and w, else one.
@@ -170,31 +151,19 @@ struct ScalarIndex {
   static constexpr int kMode =
       (M == kSaga || M == kKatyusha) ? 6
       : (M == kSarah || M == kSsnm)  ? 5
-      : M == kLKatyusha              ? 8
                                      : 4;
-  static constexpr int kAux = (M == kKatyusha || M == kLKatyusha) ? 9
-                              : (M == kSaga || M == kSsnm)        ? 7
-                              : (M == kSarah)                     ? 6
-                                                                  : 5;
+  static constexpr int kAux = M == kKatyusha                ? 9
+                              : (M == kSaga || M == kSsnm) ? 7
+                              : (M == kSarah)              ? 6
+                                                           : 5;
 };
-
-// Whether step k does nothing: past the clamp count (the streamed kernels)
-// or past the stop index (L-SVRG, L-Katyusha); a uniform branch.
-template <Method M>
-__device__ __forceinline__ bool step_masked(const int* fclamp, int k) {
-  if constexpr (stops(M)) {
-    return fclamp != nullptr && k > *fclamp;
-  } else {
-    return masked(fclamp, k);
-  }
-}
 
 // Shared memory: the tile (rows x n of T), then the points (n floats each),
 // then per row dc, b, c, rs and (Point-SAGA) na (rows floats each); the per-row
 // values are fetched while the tile is in flight. c is the table (SAGA,
 // Finito, SSNM, Point-SAGA: written back) or the anchor coefficients (read
-// only; SARAH reads none); z is the point of the margins (x for Katyusha and
-// L-Katyusha, y for SSNM, v for Point-SAGA; SARAH's 2n values [w_prev; w]).
+// only; SARAH reads none); z is the point of the margins (x for Katyusha, y
+// for SSNM, v for Point-SAGA; SARAH's 2n values [w_prev; w]).
 // kPMode is Point-SAGA's oracle mode (the other methods read theirs from sc).
 template <Method M, typename T, bool kLowp, bool kVec, int kPMode>
 __global__ void __launch_bounds__(kRowThreads)
@@ -204,7 +173,7 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
             const int* __restrict__ starts, const int* __restrict__ fclamp,
             int k, const float* __restrict__ sc, float* __restrict__ part,
             int n, int rows) {
-  if (step_masked<M>(fclamp, k)) return;
+  if (masked(fclamp, k)) return;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   T* tile = reinterpret_cast<T*>(smem);
@@ -403,15 +372,8 @@ prox_kernel(const float* __restrict__ av, float* __restrict__ z,
   if (j < n) z[j] = soft_threshold(av[j], sc[thr_slot]);
 }
 
-// The coupled point t1 z + t2 xa + (1 - t1 - t2) y of Katyusha and
-// L-Katyusha, in the plain versions' order of operations.
-__device__ __forceinline__ float coupled_point(float t1, float t2, float z,
-                                               float xa, float y) {
-  return (t1 * z + t2 * xa) + ((1.0f - t1) - t2) * y;
-}
-
-// x <- the coupled point on every column: step 0's margins' point. t1 and t2
-// are the scalars row's slots t_slot and t_slot + 1.
+// x <- the coupled point on every column: step 0's margins' point (Katyusha).
+// t1 and t2 are the scalars row's slots t_slot and t_slot + 1.
 __global__ void __launch_bounds__(kFinishCols * kFinishWarps)
 point_kernel(const float* __restrict__ zm, const float* __restrict__ xa,
              const float* __restrict__ y, float* __restrict__ x,
@@ -460,54 +422,6 @@ sarah_finish_kernel(const float* __restrict__ part, int parts,
   v[j] = v_new;
   ww[j] = w;
   ww[n + j] = w + sc[3] * (yv - w);
-}
-
-// L-SVRG (Kovalev et al. 2020, Alg. 2) on a block, masked past *stop:
-// wpre <- w, w <- soft(w + gamma (sum / B - av), gamma lambda) with
-// sum = sum (c_anchor - c(w)) a_i.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-lsvrg_finish_kernel(const float* __restrict__ part, int parts,
-                    float* __restrict__ w, float* __restrict__ wpre,
-                    const float* __restrict__ av,
-                    const float* __restrict__ sc,
-                    const int* __restrict__ stop, int k, int n) {
-  if (step_masked<kLsvrg>(stop, k)) return;
-  int j;
-  float innov;
-  if (!column_sum(part, parts, n, j, innov)) return;
-  const float w_old = w[j];
-  wpre[j] = w_old;
-  w[j] = soft_threshold(w_old + sc[1] * (innov * sc[3] - av[j]), sc[2]);
-}
-
-// L-Katyusha (Kovalev et al. 2020, Alg. 3, proximal z-step) on a block,
-// masked past *stop: g~ = av + sum / B with sum = sum (c(x) - c_anchor) a_i,
-// z_new = soft((z + eta sigma x - (eta/L) g~) / (1 + eta sigma), tau lambda),
-// ypre <- y, y <- x + theta1 (z_new - z), z <- z_new; then the next step's
-// x against the anchor point wa.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-lkatyusha_finish_kernel(const float* __restrict__ part, int parts,
-                        float* __restrict__ x, float* __restrict__ y,
-                        float* __restrict__ zm, float* __restrict__ ypre,
-                        const float* __restrict__ wa,
-                        const float* __restrict__ av,
-                        const float* __restrict__ sc,
-                        const int* __restrict__ stop, int k, int n) {
-  if (step_masked<kLKatyusha>(stop, k)) return;
-  int j;
-  float innov;
-  if (!column_sum(part, parts, n, j, innov)) return;
-  const float th1 = sc[5];
-  const float xj = x[j];
-  const float z_old = zm[j];
-  const float gr = av[j] + innov * sc[7];
-  const float z_new =
-      soft_threshold((z_old + sc[4] * xj - sc[1] * gr) * sc[3], sc[2]);
-  const float y_new = xj + th1 * (z_new - z_old);
-  ypre[j] = y[j];
-  y[j] = y_new;
-  zm[j] = z_new;
-  x[j] = coupled_point(th1, sc[6], z_new, wa[j], y_new);
 }
 
 // SSNM's momentum point tau x + (1 - tau) zb and Point-SAGA's shifted
@@ -601,10 +515,7 @@ point_saga_finish_kernel(const float* __restrict__ part, int parts,
 // visited blocks' sums of 1/gamma_i in visit order. Katyusha: c the anchor
 // coefficients c(x~), z an (n,) scratch for x, av the anchor's mean
 // gradient, zs the running sum of y, y and zm the two sequences, xa = x~.
-// SARAH: c NULL, z the (2, n) pair [w_prev; w], v the estimator. L-SVRG: c
-// the anchor coefficients, z the iterate w, av, pre = wpre, fclamp the stop
-// index. L-Katyusha: Katyusha's, with xa the anchor point w, pre = ypre and
-// fclamp the stop index. SSNM: c the table, z an (n,) scratch for y, av the
+// SARAH: c NULL, z the (2, n) pair [w_prev; w], v the estimator. SSNM: c the table, z an (n,) scratch for y, av the
 // table mean gb, zb the (d, n) stored points, xi the iterate x. Point-SAGA: c
 // the table, z an (n,) scratch for v, av the table mean, xi the iterate x, na
 // the (N,) row square-norms.
@@ -630,7 +541,6 @@ struct StepArgs {
   float* y = nullptr;
   float* zm = nullptr;
   const float* xa = nullptr;
-  float* pre = nullptr;
   float* v = nullptr;
   float* xi = nullptr;
   const float* na = nullptr;
@@ -657,10 +567,9 @@ cudaError_t run_steps(const StepArgs& a) {
     prox_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(a.av, a.z, a.sc,
                                                               2, a.n);
   } else if constexpr (coupled(M)) {
-    // step 0's x from the incoming z, anchor point and y (tau1, tau2 at 7, 8;
-    // theta1, theta2 at 5, 6)
+    // step 0's x from the incoming z, anchor point and y (tau1, tau2 at 7, 8)
     point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
-        a.zm, a.xa, a.y, a.z, a.sc, M == kKatyusha ? 7 : 5, a.n);
+        a.zm, a.xa, a.y, a.z, a.sc, 7, a.n);
   } else if constexpr (M == kSsnm) {
     ssnm_point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
         a.xi, a.zb, a.starts, a.B, a.z, a.sc, a.n);
@@ -691,13 +600,6 @@ cudaError_t run_steps(const StepArgs& a) {
     } else if constexpr (M == kSarah) {
       sarah_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.v, a.sc, a.n);
-    } else if constexpr (M == kLsvrg) {
-      lsvrg_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.pre, a.av, a.sc, a.fclamp, k, a.n);
-    } else if constexpr (M == kLKatyusha) {
-      lkatyusha_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.y, a.zm, a.pre, a.xa, a.av, a.sc, a.fclamp, k,
-          a.n);
     } else if constexpr (M == kSsnm) {
       ssnm_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.xi, a.av, a.zb, a.starts, a.B, a.sc, a.fclamp,

@@ -17,14 +17,16 @@ beside their plain PyTorch versions:
   ``lfinito_sweep_multistep`` (``csrc/lfinito_sweep_multistep.cu``),
   ``katyusha_coeff_multistep`` (``csrc/katyusha_coeff_multistep.cu``),
   ``sarah_multistep`` (``csrc/sarah_multistep.cu``),
-  ``lsvrg_coeff_multistep`` (``csrc/lsvrg_coeff_multistep.cu``),
-  ``lkatyusha_coeff_multistep`` (``csrc/lkatyusha_coeff_multistep.cu``),
   ``ssnm_multistep`` (``csrc/ssnm_multistep.cu``),
   ``ssnm_multistep_streamed`` (``csrc/ssnm_multistep_streamed.cu``),
   ``point_saga_multistep`` (``csrc/point_saga_multistep.cu``) and
   ``point_saga_multistep_streamed``
   (``csrc/point_saga_multistep_streamed.cu``): K block steps each,
   sharing their device code (``csrc/saga_steps.cuh``);
+- ``lsvrg_coeff_multistep`` (``csrc/lsvrg_coeff_multistep.cu``) and
+  ``lkatyusha_coeff_multistep`` (``csrc/lkatyusha_coeff_multistep.cu``):
+  the loopless pair's K block steps, one cooperative launch a call on the
+  persistent engine of ``csrc/loopless_steps.cuh``;
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
   over all rows, the anchors of the SVRG-shaped families, LFinito's and
   SARAH's, and the full gradient of forward-backward, Davis-Yin and
@@ -53,6 +55,7 @@ slab exists only for its VMEM tiling and has no meaning here.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -395,11 +398,11 @@ _ARGTYPES = {
     # A, storage, lowp, b, rs, ww, v, starts, sc, part, n, B, rows, K, stream
     "sarah_multistep": "PII" + "P" * 7 + "IIII" + "P",
     # A, storage, lowp, b, rs, canch, starts, stop, w, wpre, av, sc, part,
-    # n, B, rows, K, stream
-    "lsvrg_coeff_multistep": "PII" + "P" * 10 + "IIII" + "P",
+    # bar, n, B, rows, ctas, stage_rows, stages, K, stream
+    "lsvrg_coeff_multistep": "PII" + "P" * 11 + "I" * 7 + "P",
     # A, storage, lowp, b, rs, canch, starts, stop, wa, y, z, ypre, av, x,
-    # sc, part, n, B, rows, K, stream
-    "lkatyusha_coeff_multistep": "PII" + "P" * 13 + "IIII" + "P",
+    # sc, part, bar, n, B, rows, ctas, stage_rows, stages, K, stream
+    "lkatyusha_coeff_multistep": "PII" + "P" * 14 + "I" * 7 + "P",
     # A, storage, lowp, b, rs, c, zb, x, gb, y, starts, [f,] sc, part, n, B,
     # rows, K, stream
     "ssnm_multistep": "PII" + "P" * 10 + "IIII" + "P",
@@ -476,17 +479,23 @@ def _check_rows(A, b, rs):
     return N, n
 
 
-def _check_steps(A, b, starts, B, rs, points: int = 1, values: int = 4):
-    """Checks shared by the block-step kernels of ``saga_steps.cuh``;
-    returns (n, K, rows per CTA, the (B / rows, n) partials scratch).
-    ``points``: the (n,) vectors the row phase stages (SARAH's two);
-    ``values``: the f32 values it stages per row (Point-SAGA's five)."""
+def _check_blocks(A, b, starts, B, rs):
+    """Checks shared by every block-step kernel; returns (n, K)."""
     N, n = _check_rows(A, b, rs)
     K = starts.shape[0]
     # block starts are int32 on the device; row offsets are 64-bit there
     if N % B or K < 1 or n > MAX_COLS or N >= 2**31:
         raise ValueError(f"bad shape: N={N}, n={n}, B={B}, K={K}")
     _check("starts", starts, torch.int32, (K,), A.device)
+    return n, K
+
+
+def _check_steps(A, b, starts, B, rs, points: int = 1, values: int = 4):
+    """Checks shared by the block-step kernels of ``saga_steps.cuh``;
+    returns (n, K, rows per CTA, the (B / rows, n) partials scratch).
+    ``points``: the (n,) vectors the row phase stages (SARAH's two);
+    ``values``: the f32 values it stages per row (Point-SAGA's five)."""
+    n, K = _check_blocks(A, b, starts, B, rs)
     rows = _rows_per_cta(B, n, A.element_size(), points, values)
     part = torch.empty((B // rows, n), dtype=torch.float32, device=A.device)
     return n, K, rows, part
@@ -1787,6 +1796,94 @@ def sarah_inner_chunked(A, b, ww, v, scalars, B: int, starts,
     return ww, v, m
 
 
+# The persistent engine of kernels #16 and #17 (``csrc/loopless_steps.cuh``):
+# one cooperative launch a call, LOOPLESS_THREADS consumer threads and one
+# producer warp a CTA, a ring of 2 to LOOPLESS_MAX_STAGES stages of whole rows
+# (as many as fit LOOPLESS_STAGE_BYTES, at most LOOPLESS_MAX_STAGE_ROWS) in
+# shared memory.
+LOOPLESS_THREADS = 256
+LOOPLESS_STAGE_BYTES = 32 * 1024
+LOOPLESS_MAX_STAGES = 8
+LOOPLESS_MAX_STAGE_ROWS = 256
+
+
+def _loopless_smem_bytes(stage_rows: int, stages: int, n: int,
+                         itemsize: int) -> int:
+    """Dynamic shared memory of one CTA of the engine
+    (``loopless_smem_bytes`` in ``csrc/loopless_steps.cuh``): the ring,
+    the point, two mbarriers a stage, b, the anchor coefficient and rs of
+    each stage's rows, dc of two stages, the warps' margin sums of a
+    stage's rows and the finish's warp sums."""
+    tile = -(-stage_rows * n * itemsize // 16) * 16
+    return (stages * tile + -(-4 * n // 16) * 16 + 16 * stages
+            + 4 * (3 * stages * stage_rows + (2 + LOOPLESS_THREADS // 32)
+                   * stage_rows + LOOPLESS_THREADS))
+
+
+@functools.lru_cache(maxsize=64)
+def _loopless_grid(B: int, n: int, itemsize: int, sms: int):
+    """(rows a CTA, CTAs, rows a stage, stages) of the engine on a card of
+    ``sms`` SMs, as ``loopless_grid`` in ``csrc/loopless_steps.cuh``
+    checks it: R rows a CTA, the smallest power of two with ceil(B / R)
+    ≤ sms (R = 32 at B = 4,096 and 8 at B = 1,024: 128 CTAs on an H100's
+    132 SMs; the last CTA takes the rest of a B that R does not divide);
+    stages of S whole rows, the largest power of two up to R and
+    LOOPLESS_MAX_STAGE_ROWS whose tile fits LOOPLESS_STAGE_BYTES (at least
+    one row: 8 f32, 16 bf16 and 32 int8 rows at n = 1,024), and as many
+    stages as fit the SM's shared memory, up to LOOPLESS_MAX_STAGES (6 f32
+    stages at n = 1,024, 2 of one f32 row at n = 16,384)."""
+    rows = 1
+    while -(-B // rows) > sms:
+        rows *= 2
+    ctas = -(-B // rows)
+    S = 1
+    while (2 * S <= min(rows, LOOPLESS_MAX_STAGE_ROWS)
+           and 2 * S * n * itemsize <= LOOPLESS_STAGE_BYTES):
+        S *= 2
+    P = LOOPLESS_MAX_STAGES
+    while P > 2 and _loopless_smem_bytes(S, P, n, itemsize) > SMEM_BYTES:
+        P -= 1
+    return rows, ctas, S, P
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_barrier(index: int):
+    """The engine's grid barrier word on card ``index``: one zeroed int32,
+    made once; each barrier leaves its low bits at zero again, so it is
+    never reset. Calls on one card must not overlap on two streams."""
+    return torch.zeros(1, dtype=torch.int32,
+                       device=torch.device("cuda", index))
+
+
+def _loopless_launch(name, A, b, rs, canch, starts, stop, B, precision,
+                     vectors, scalars, n_sc):
+    """Check the arguments of kernel #16 or #17 and make its one
+    cooperative launch on the current stream. ``vectors``: the (n,) f32
+    tensors of the C call after ``stop``, by name, in its order."""
+    n, K = _check_blocks(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    stop = _check_stop(stop, dev)
+    _check("canch", canch, f32, (A.shape[0],), dev)
+    for key, t in vectors.items():
+        _check(key, t, f32, (n,), dev)
+    _check("scalars", scalars, f32, (n_sc,), dev)
+    rows, ctas, S, P = _loopless_grid(B, n, A.element_size(),
+                                      _sm_count(dev.index))
+    part = torch.empty((ctas, n), dtype=f32, device=dev)
+    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), canch.data_ptr(),
+          starts.data_ptr(), _ptr(stop),
+          *(t.data_ptr() for t in vectors.values()), scalars.data_ptr(),
+          part.data_ptr(), _grid_barrier(dev.index).data_ptr(), n, B, rows,
+          ctas, S, P, K)
+
+
 def _check_stop(stop, dev):
     """``stop`` as a (1,) int32 tensor on ``dev`` (or None)."""
     if stop is None:
@@ -1840,14 +1937,23 @@ def lsvrg_coeff_multistep(A, b, canch, starts, stop, w, av, scalars, B: int,
     CPU tensors take the plain version :func:`lsvrg_coeff_multistep_ref`;
     CUDA tensors launch the kernel or raise.
 
-    The step is :func:`svrg_coeff_multistep`'s without the running sum
-    (``csrc/saga_steps.cuh``, method ``kLsvrg``), bound by the block's
-    rows (16 MB f32, 4 MB int8 at the headline). Both launches of a step
-    k > stop return before any other load. The TPU kernel must launch a
-    fixed K with the tail clamped onto the last processed block; the
-    port's driver knows each window's length on the host and launches
-    exactly the window's steps with ``stop`` None, so the masked steps
-    stay a tested option.
+    The step is :func:`svrg_coeff_multistep`'s without the running sum,
+    bound by the block's rows (16 MB f32, 4 MB int8 at the headline). The
+    whole call is one cooperative launch of the persistent engine
+    (``csrc/loopless_steps.cuh``, method ``kLsvrgSteps``): a CTA owns a
+    fixed slice of every step's block (:func:`_loopless_grid`: 128 CTAs
+    at B = 4,096 and at B = 1,024 on an H100), a producer warp keeps a
+    ring of bulk-copied row stages loading ahead across steps, the
+    consumer warps take each stage's margins and add it into column sums
+    held in registers, and two grid-wide barriers a step bracket the
+    finish, which every CTA runs on its own columns. The stop index is
+    read once on the device: the call processes min(K, stop + 1) steps
+    and the masked ones write nothing. The TPU kernel must launch a fixed
+    K with the tail clamped onto the last processed block; the port's
+    driver knows each window's length on the host and launches exactly
+    the window's steps with ``stop`` None, so the masked steps stay a
+    tested option. A grid that cannot be resident at once raises
+    ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return lsvrg_coeff_multistep_ref(A, b, canch, starts, stop, w, av,
@@ -1855,19 +1961,9 @@ def lsvrg_coeff_multistep(A, b, canch, starts, stop, w, av, scalars, B: int,
                                          rs=rs)
     if A.device.type != "cuda":
         raise ValueError(f"lsvrg_coeff_multistep: no kernel for {A.device}")
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    stop = _check_stop(stop, dev)
-    _check("canch", canch, f32, (A.shape[0],), dev)
-    _check("w", w, f32, (n,), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("scalars", scalars, f32, (6,), dev)
     wpre = w.clone()
-    _call("lsvrg_coeff_multistep", dev, A.data_ptr(),
-          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), b.data_ptr(),
-          _ptr(rs), canch.data_ptr(), starts.data_ptr(), _ptr(stop),
-          w.data_ptr(), wpre.data_ptr(), av.data_ptr(), scalars.data_ptr(),
-          part.data_ptr(), n, B, rows, K)
+    _loopless_launch("lsvrg_coeff_multistep", A, b, rs, canch, starts, stop,
+                     B, precision, dict(w=w, wpre=wpre, av=av), scalars, 6)
     lsvrg_coeff_multistep.launches += 1
     return w, wpre
 
@@ -1922,11 +2018,12 @@ def lkatyusha_coeff_multistep(A, b, canch, starts, stop, wa, y, z, av,
     :func:`lkatyusha_coeff_multistep_ref`; CUDA tensors launch the kernel
     or raise.
 
-    The design is :func:`katyusha_coeff_multistep`'s (method
-    ``kLKatyusha`` of ``csrc/saga_steps.cuh``: a prologue forms step 0's
-    x, each finish the next) with the anchor point constant in the
-    launch and :func:`lsvrg_coeff_multistep`'s masking; bound by the
-    block's rows (16 MB f32, 4 MB int8 at the headline).
+    The engine is :func:`lsvrg_coeff_multistep`'s (method
+    ``kLKatyushaSteps`` of ``csrc/loopless_steps.cuh``), one cooperative
+    launch a call, with the margins at x: every CTA forms step 0's x on
+    all columns inside the launch (writing its own finish columns of the
+    x scratch), and each finish forms the next step's x on its columns;
+    bound by the block's rows (16 MB f32, 4 MB int8 at the headline).
     """
     if A.device.type == "cpu":
         return lkatyusha_coeff_multistep_ref(A, b, canch, starts, stop, wa, y,
@@ -1935,21 +2032,12 @@ def lkatyusha_coeff_multistep(A, b, canch, starts, stop, wa, y, z, av,
     if A.device.type != "cuda":
         raise ValueError(f"lkatyusha_coeff_multistep: no kernel for "
                          f"{A.device}")
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    stop = _check_stop(stop, dev)
-    _check("canch", canch, f32, (A.shape[0],), dev)
-    for name, t in (("wa", wa), ("y", y), ("z", z), ("av", av)):
-        _check(name, t, f32, (n,), dev)
-    _check("scalars", scalars, f32, (10,), dev)
     ypre = y.clone()
-    x = torch.empty(n, dtype=f32, device=dev)
-    _call("lkatyusha_coeff_multistep", dev, A.data_ptr(),
-          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), b.data_ptr(),
-          _ptr(rs), canch.data_ptr(), starts.data_ptr(), _ptr(stop),
-          wa.data_ptr(), y.data_ptr(), z.data_ptr(), ypre.data_ptr(),
-          av.data_ptr(), x.data_ptr(), scalars.data_ptr(), part.data_ptr(),
-          n, B, rows, K)
+    x = torch.empty_like(y)
+    _loopless_launch("lkatyusha_coeff_multistep", A, b, rs, canch, starts,
+                     stop, B, precision,
+                     dict(wa=wa, y=y, z=z, ypre=ypre, av=av, x=x), scalars,
+                     10)
     lkatyusha_coeff_multistep.launches += 1
     return y, z, ypre
 

@@ -1091,30 +1091,62 @@ VR_KERNELS = {
 }
 
 
-@pytest.mark.parametrize("kind", list(VR_KERNELS))
-@pytest.mark.parametrize("storage,precision,n,mode,lam", [
-    ("f32", "highest", 128, 0, 0.1), ("f32", "default", 128, 0, 0.1),
-    ("bf16", "highest", 128, 0, 0.1), ("int8", "highest", 128, 0, 0.1),
-    ("f32", "highest", 128, 0, 0.0), ("f32", "highest", 202, 0, 0.1),
-    ("int8", "highest", 200, 0, 0.1), ("f32", "highest", 128, 1, 0.1),
-    ("f32", "highest", 128, 2, 0.1),
-], ids=["f32", "f32-default", "bf16", "int8", "zero", "f32-n202",
-        "int8-n200", "logistic", "huber"])
+# (storage, precision, n, mode, λ, N, B, K, stop) of every kernel: K = 64
+# steps at N = 8,192, B = 128
+VR_CASES = {
+    "f32": ("f32", "highest", 128, 0, 0.1), "f32-default": ("f32", "default",
+                                                          128, 0, 0.1),
+    "bf16": ("bf16", "highest", 128, 0, 0.1), "int8": ("int8", "highest", 128,
+                                                        0, 0.1),
+    "zero": ("f32", "highest", 128, 0, 0.0), "f32-n202": ("f32", "highest",
+                                                          202, 0, 0.1),
+    "int8-n200": ("int8", "highest", 200, 0, 0.1),
+    "logistic": ("f32", "highest", 128, 1, 0.1),
+    "huber": ("f32", "highest", 128, 2, 0.1)}
+VR_SMALL = (8192, 128, 64, None)
+# the loopless pair's grid at width: 128 CTAs at B = 4,096 and 1,024 (32 and
+# 8 rows a CTA, four f32 stages a step at B = 4,096), K = 32 with and without
+# a stop; n = 16,384 (one f32 row a stage, two stages, the wide build)
+LOOPLESS_CASES = {
+    "B4096": ("f32", "highest", 1024, 0, 0.1, 32768, 4096, 32, None),
+    "B4096-stop": ("f32", "highest", 1024, 0, 0.1, 32768, 4096, 32, 20),
+    "B4096-int8-stop": ("int8", "highest", 1024, 0, 0.1, 32768, 4096, 32, 20),
+    "B4096-bf16": ("bf16", "highest", 1024, 0, 0.1, 32768, 4096, 32, None),
+    "B1024": ("f32", "highest", 1024, 0, 0.1, 32768, 1024, 32, None),
+    "B1024-stop": ("f32", "highest", 1024, 0, 0.1, 32768, 1024, 32, 20),
+    "B1024-int8": ("int8", "highest", 1024, 0, 0.1, 32768, 1024, 32, None),
+    "n16384": ("f32", "highest", 16384, 0, 0.1, 8192, 1024, 8, None),
+    "n16384-int8-stop": ("int8", "highest", 16384, 0, 0.1, 8192, 1024, 8, 5)}
+VR_PARAMS = ([(kind, *case, *VR_SMALL) for case in VR_CASES.values()
+              for kind in VR_KERNELS]
+             + [(kind, *case) for case in LOOPLESS_CASES.values()
+                for kind in ("lsvrg", "lkatyusha")])
+VR_IDS = ([f"{cid}-{kind}" for cid in VR_CASES for kind in VR_KERNELS]
+          + [f"{cid}-{kind}" for cid in LOOPLESS_CASES
+             for kind in ("lsvrg", "lkatyusha")])
+
+
+@pytest.mark.parametrize("kind,storage,precision,n,mode,lam,N,B,K,stop",
+                         VR_PARAMS, ids=VR_IDS)
 def test_vr_kernel_matches_plain_version(dev, kind, storage, precision, n,
-                                         mode, lam):
+                                         mode, lam, N, B, K, stop):
     """K = 64 steps at N = 8,192, B = 128 (repeats included) of kernels
     #10, #11, #16 and #17 against their plain versions: every output
     within 1e-6 of its largest entry for exact-f32 dots, 1e-5 where the
     dots round to bf16 (SARAH's estimator v, a gradient mean, within 10x
     that, as av elsewhere). The logistic and Huber modes check the mode
-    and aux slots of each scalars row; λ = 0 is the Zero prox."""
-    N, B, K = 8192, 128, 64
+    and aux slots of each scalars row; λ = 0 is the Zero prox. The
+    loopless pair also at its engine's width (LOOPLESS_CASES): B = 4,096
+    and 1,024 at n = 1,024, K = 32, with and without a stop, and n =
+    16,384."""
     S = _vr_setup(dev, N, n, B, K, storage, mode)
     sc = _vr_scalars(S, kind, B, lam, dev)
     kname, rname = VR_KERNELS[kind]
+    st = None if stop is None else torch.tensor([stop], dtype=torch.int32,
+                                                device=dev)
     before = getattr(tfb, kname).launches
-    got = _vr_run(kind, getattr(tfb, kname), S, sc, B, precision)
-    want = _vr_run(kind, getattr(tfb, rname), S, sc, B, precision)
+    got = _vr_run(kind, getattr(tfb, kname), S, sc, B, precision, stop=st)
+    want = _vr_run(kind, getattr(tfb, rname), S, sc, B, precision, stop=st)
     torch.cuda.synchronize()
     assert getattr(tfb, kname).launches == before + 1
     tol = 1e-5 if tfb._lowp(S["rows"], precision) else 1e-6
@@ -1123,6 +1155,34 @@ def test_vr_kernel_matches_plain_version(dev, kind, storage, precision, n,
         assert bool(torch.isfinite(k).all())
         bound = 10 * tol if (kind == "sarah" and i == 1) else tol
         assert _rel(k, r) <= bound, (kind, i, _rel(k, r))
+
+
+@pytest.mark.parametrize("kind", ["lsvrg", "lkatyusha"])
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_loopless_kernels_repeat_bit_for_bit_at_width(dev, kind, storage,
+                                                      monkeypatch):
+    """Kernels #16 and #17 at the headline width (n = 1,024, B = 4,096, K =
+    32: 128 CTAs, two grid barriers a step) give the same bits in two
+    calls; a grid other than the engine's rule is refused by the launch
+    (RuntimeError), nothing falls back."""
+    N, n, B, K = 32768, 1024, 4096, 32
+    S = _vr_setup(dev, N, n, B, K, storage, seed=5)
+    sc = _vr_scalars(S, kind, B, 0.1, dev)
+    fn = getattr(tfb, VR_KERNELS[kind][0])
+    runs = [_vr_run(kind, fn, S, sc, B) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    rule = tfb._loopless_grid
+
+    def halved(B_, n_, isz, sms):
+        rows, ctas, S_, P = rule(B_, n_, isz, sms)
+        return 2 * rows, -(-B_ // (2 * rows)), S_, P
+    monkeypatch.setattr(tfb, "_loopless_grid", halved)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _vr_run(kind, fn, S, sc, B)
+    assert fn.launches == before
 
 
 @pytest.mark.parametrize("kind", ["lsvrg", "lkatyusha"])

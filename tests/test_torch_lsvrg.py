@@ -198,6 +198,45 @@ def test_loopless_wrappers_on_cpu_and_masked_steps():
     assert _windows([31, 95], 40, 32) == [(0, 32, True), (32, 40, False)]
 
 
+H100_SMS = 132
+# (B, n, itemsize) -> (rows a CTA, CTAs, rows a stage, stages) on an H100
+GRID = {(4096, 1024, 4): (32, 128, 8, 6), (4096, 1024, 2): (32, 128, 16, 6),
+        (4096, 1024, 1): (32, 128, 32, 6), (1024, 1024, 4): (8, 128, 8, 6),
+        (1024, 1024, 1): (8, 128, 8, 8), (128, 1024, 4): (1, 128, 1, 8),
+        (4096, 16384, 4): (32, 128, 1, 2), (4096, 16384, 2): (32, 128, 1, 5),
+        (4096, 16384, 1): (32, 128, 2, 5)}
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1], ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("B,n", [(4096, 1024), (1024, 1024), (128, 1024),
+                                 (4096, 202), (4096, 16384)],
+                         ids=["headline", "B1024", "B128", "n202", "n16384"])
+def test_loopless_grid_fits_the_card(B, n, itemsize):
+    """The persistent engine's grid and ring (``_loopless_grid``, checked
+    again in ``csrc/loopless_steps.cuh``) on an H100's 132 SMs: rows × CTAs
+    = B, every CTA resident at once (CTAs ≤ SMs × the CTAs an SM holds by
+    shared memory and threads), the CTA's shared memory within 227 KB, at
+    least two stages of at most the CTA's rows, a power of two, in 32 KB
+    unless one row is larger; the headline's and the facades' batch on 128
+    CTAs, the headline's ring holding a whole step and more."""
+    rows, ctas, S, P = tfb._loopless_grid(B, n, itemsize, H100_SMS)
+    smem = tfb._loopless_smem_bytes(S, P, n, itemsize)
+    per_sm = min(2048 // (tfb.LOOPLESS_THREADS + 32),
+                 (228 * 1024) // (smem + 1024))
+    assert rows * ctas == B and (rows & (rows - 1)) == 0
+    assert per_sm >= 1 and ctas <= H100_SMS * per_sm
+    assert smem <= tfb.SMEM_BYTES == 232_448
+    assert 2 <= P <= tfb.LOOPLESS_MAX_STAGES and 1 <= S <= rows
+    assert (S & (S - 1)) == 0 and S <= tfb.LOOPLESS_MAX_STAGE_ROWS
+    assert S == 1 or S * n * itemsize <= tfb.LOOPLESS_STAGE_BYTES
+    assert P == tfb.LOOPLESS_MAX_STAGES or tfb._loopless_smem_bytes(
+        S, P + 1, n, itemsize) > tfb.SMEM_BYTES
+    if (B, n, itemsize) in GRID:
+        assert (rows, ctas, S, P) == GRID[B, n, itemsize]
+    if B >= 1024 and n <= 1024:
+        assert ctas == 128 and S * P > rows
+
+
 # ---------------------------------------------------------------------------
 # lsvrg_run and lkatyusha_run against JAX on JAX's draws
 # ---------------------------------------------------------------------------
