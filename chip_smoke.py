@@ -88,7 +88,10 @@ Phases, one line each:
      the streamed route through kernel #4 with weights;
   5. times at the headline shape: ms per step of kernel #3 and of its plain
      version, with the card's name and power limit;
-  5b. times at the deep target's shape: the same for kernel #4;
+  5b. times at the deep target's shape: the same for kernel #4, and a
+     window of SAGA's streamed route profiled (f32, int8), showing one
+     launch of the persistent engine a call and no kernel of the two-launch
+     engine;
   3c. kernel #6 == plain version: every formula mode, f32/bf16/int8 rows,
      "highest" and "default", at N = 8,192, n = 256 and at n = 128 (tiles
      of 96-256 rows, the last ragged), ragged N, widths that are not whole
@@ -106,7 +109,9 @@ Phases, one line each:
      after the build) and the two-gemv yardstick, and the same at the deep
      target's shape on its rows (f32 and int8, timed inside 4g's block);
      kernel #5 per step against its plain version; ms per SVRG outer step
-     and per FISTA step.
+     and per FISTA step; a window of SVRG outer steps profiled, showing one
+     launch of the persistent engine a kernel #5 call and no kernel of the
+     two-launch engine.
   3e. kernel #9 == plain version: every storage and precision, NormL1 and
      Zero, repeated blocks, at SMALL; K = 8 at the headline;
   3f. kernel #14 == plain version at SMALL_STREAM with f = K and f = 23,
@@ -860,6 +865,31 @@ def run_importance(prob, card: str) -> None:
         raise AssertionError(f"importance: objective {obj0} -> {obj1}")
 
 
+def profile_deep_saga(prob, storage: str, card: str) -> None:
+    """A profiled window of SAGA's streamed route on the deep target (two
+    calls of LAUNCH_STEPS steps of kernel #4 through ``saga_run``), which
+    fails unless every wrapper call was one launch of the persistent
+    engine and no kernel of the two-launch engine ran."""
+    from ciao_tpu_torch.ops.fused_block import saga_coeff_multistep_streamed
+    from ciao_tpu_torch.solvers.saga import (
+        LAUNCH_STEPS, SAGACfg, saga_init, saga_run,
+    )
+
+    F, g = prob.oracle(storage), prob.prox()
+    cfg = SAGACfg(N=DEEP["N"], sag=False, batch=DEEP["B"], block=True,
+                  coeff=True, fused_stream=True)
+    st = saga_init(F, g, torch.zeros(DEEP["n"], device=prob.dev), prob.gamma,
+                   0, cfg)
+    steps = 2 * LAUNCH_STEPS
+    before = saga_coeff_multistep_streamed.launches
+    prof = profile_steps(f"SAGA at the deep target, {storage} rows",
+                         lambda: saga_run(F, g, st, cfg, steps), steps, card,
+                         SAGA_DEEP_GROUPS)
+    # profile_steps ran the same window three times
+    check_one_launch(f"saga deep {storage}", prof, "kernel #4",
+                     (saga_coeff_multistep_streamed.launches - before) // 3)
+
+
 def time_per_step(fn, F, gamma, gen, dev, B_: int, K: int,
                   reps: int) -> float:
     """(ms per step, the starts) of ``fn`` (kernel wrapper or plain
@@ -1180,7 +1210,8 @@ def run_fista(dev, F, g, L, steps: int, tag: str, card: str,
 
 # kernels of a profiled window by name: the substrings of their launches
 SVRG_GROUPS = {"kernel #6": ("apply_",),
-               "kernel #5": ("rows_kernel", "svrg_finish")}
+               "kernel #5": ("loopless_steps_kernel",)}
+SAGA_DEEP_GROUPS = {"kernel #4": ("loopless_steps_kernel",)}
 
 
 def profile_steps(tag: str, fn, steps: int, card: str,
@@ -2908,10 +2939,26 @@ VR_GROUPS = {kind: {"kernel #6": ("apply_",),
                     if kind in LOOPLESS_KINDS else
                     ("rows_kernel", "finish_kernel", "point_kernel")}
              for kind, (_, label) in VR.items()}
-# the two-launch engine's kernels, which no loopless window may show (by
-# function name: kernel #6's apply_rows_kernel is not one of them)
-TWO_LAUNCH = ("rows_kernel", "lsvrg_finish_kernel", "lkatyusha_finish_kernel",
+# the two-launch engine's kernels, which no window of a kernel of the
+# persistent engine (#4, #5, #16, #17) may show (by function name: kernel
+# #6's apply_rows_kernel is not one of them)
+TWO_LAUNCH = ("rows_kernel", "saga_finish_kernel", "svrg_finish_kernel",
               "point_kernel")
+
+
+def check_one_launch(tag: str, prof: dict, label: str, calls: int) -> None:
+    """A profiled window of a kernel of the persistent engine: ``calls``
+    wrapper calls (the window's, as profile_steps ran it) must be as many
+    launches of ``loopless_steps_kernel`` (``label``'s group), and no
+    kernel of the two-launch engine may have run."""
+    seen = prof["calls"][label]
+    stray = sorted(k for k in prof["names"] if kernel_name(k) in TWO_LAUNCH)
+    log(f"  {tag}: {seen} launches of loopless_steps_kernel in the profiled "
+        f"window for {calls} wrapper calls; two-launch kernels: "
+        f"{stray or 'none'}")
+    if seen != calls or stray or calls == 0:
+        raise AssertionError(f"{tag}: {seen} kernel launches for {calls} "
+                             f"calls, stray kernels {stray}")
 
 
 def kernel_name(key: str) -> str:
@@ -4121,6 +4168,7 @@ def main() -> int:
     from ciao_tpu_torch.ops.fused_block import (
         saga_coeff_multistep, saga_coeff_multistep_ref,
         saga_coeff_multistep_streamed, saga_coeff_multistep_streamed_ref,
+        svrg_coeff_multistep,
     )
     from ciao_tpu_torch.prox import NormL1
     from ciao_tpu_torch.solvers.finito import finito_run
@@ -4220,6 +4268,7 @@ def main() -> int:
             prob.oracle(storage), prob.gamma, gen, dev, DEEP["B"],
             f"kernel #4, {storage} rows, N={DEEP['N']} n={DEEP['n']} "
             f"B={DEEP['B']}", card)
+        profile_deep_saga(prob, storage, card)
 
     # 3f, 3g at the deep shape, then 4g: the deep-shape Finito paths on the
     # deep target, counts from 0
@@ -4407,9 +4456,13 @@ def main() -> int:
     from ciao_tpu_torch.solvers.svrg import svrg_run
 
     for storage, r in svrg.items():
-        profile_steps(f"SVRG outer steps, {storage} rows",
-                      lambda: svrg_run(r["F"], r["g"], r["st"], r["cfg"], 10),
-                      10, card)
+        before = svrg_coeff_multistep.launches
+        prof = profile_steps(f"SVRG outer steps, {storage} rows",
+                             lambda: svrg_run(r["F"], r["g"], r["st"],
+                                              r["cfg"], 10), 10, card)
+        # profile_steps ran the same window three times
+        check_one_launch(f"svrg {storage}", prof, "kernel #5",
+                         (svrg_coeff_multistep.launches - before) // 3)
         fcfg = FBCfg(N=N, fast=True, fused=True)
         fst = fb_init(r["F"], r["g"], torch.zeros(n, device=dev),
                       1.0 / r["L"].mean(), fcfg)
@@ -4531,18 +4584,8 @@ def main() -> int:
                                  unit="outer step" if steps == 8 else "step")
             if fam in LOOPLESS_KINDS:
                 # profile_steps ran the same window three times
-                per_call = (counts()[name] - before) // 3
-                seen = prof["calls"][f"kernel {label}"]
-                stray = sorted(k for k in prof["names"]
-                               if kernel_name(k) in TWO_LAUNCH)
-                log(f"  {fam} {storage}: {seen} launches of "
-                    f"loopless_steps_kernel in the profiled window for "
-                    f"{per_call} wrapper calls; two-launch kernels: "
-                    f"{stray or 'none'}")
-                if seen != per_call or stray or per_call == 0:
-                    raise AssertionError(
-                        f"{fam} {storage}: {seen} kernel launches for "
-                        f"{per_call} calls, stray kernels {stray}")
+                check_one_launch(f"{fam} {storage}", prof, f"kernel {label}",
+                                 (counts()[name] - before) // 3)
     del vr, runs, r
     log("phase 9 times: " + "; ".join(
         f"kernel {VR[k[0]][1]} {k[1]}"

@@ -56,14 +56,16 @@ def _flat(a, device):
     return tensor_from_numpy(np.asarray(a).reshape(-1), device)
 
 
-def least_squares_from_numpy(A, b, scale, row_scale=None,
-                             device=None) -> LeastSquaresRows:
+def least_squares_from_numpy(A, b, scale, row_scale=None, device=None,
+                             supports_coeff: bool = True) -> LeastSquaresRows:
     """``LeastSquaresRows`` from the JAX oracle's fields ``A`` (f32,
-    bf16 or int8), ``b``, ``scale`` and, for int8 rows, ``row_scale``."""
+    bf16 or int8), ``b``, ``scale``, for int8 rows ``row_scale``, and
+    ``supports_coeff``."""
     return LeastSquaresRows(
         tensor_from_numpy(A, device), tensor_from_numpy(b, device),
         tensor_from_numpy(scale, device),
         None if row_scale is None else tensor_from_numpy(row_scale, device),
+        supports_coeff=supports_coeff,
     )
 
 
@@ -71,42 +73,47 @@ def _rs(row_scale, device):
     return None if row_scale is None else tensor_from_numpy(row_scale, device)
 
 
-def logistic_from_numpy(X, y, row_scale=None, device=None) -> LogisticRows:
+def logistic_from_numpy(X, y, row_scale=None, device=None,
+                        supports_coeff: bool = True) -> LogisticRows:
     """``LogisticRows`` from the JAX oracle's fields ``X`` (f32, bf16 or
-    int8), ``y`` and, for int8 rows, ``row_scale``."""
+    int8), ``y``, for int8 rows ``row_scale``, and ``supports_coeff``."""
     return LogisticRows(tensor_from_numpy(X, device),
                         tensor_from_numpy(y, device),
-                        row_scale=_rs(row_scale, device))
+                        row_scale=_rs(row_scale, device),
+                        supports_coeff=supports_coeff)
 
 
-def huber_from_numpy(A, b, delta, scale, row_scale=None,
-                     device=None) -> HuberRows:
+def huber_from_numpy(A, b, delta, scale, row_scale=None, device=None,
+                     supports_coeff: bool = True) -> HuberRows:
     """``HuberRows`` from the JAX oracle's fields ``A``, ``b``, ``delta``,
-    ``scale`` and, for int8 rows, ``row_scale``."""
+    ``scale``, for int8 rows ``row_scale``, and ``supports_coeff``."""
     return HuberRows(tensor_from_numpy(A, device), tensor_from_numpy(b, device),
                      delta=tensor_from_numpy(delta, device),
                      scale=tensor_from_numpy(scale, device),
-                     row_scale=_rs(row_scale, device))
+                     row_scale=_rs(row_scale, device),
+                     supports_coeff=supports_coeff)
 
 
-def sqhinge_from_numpy(A, y, scale, row_scale=None,
-                       device=None) -> SquaredHingeRows:
+def sqhinge_from_numpy(A, y, scale, row_scale=None, device=None,
+                       supports_coeff: bool = True) -> SquaredHingeRows:
     """``SquaredHingeRows`` from the JAX oracle's fields ``A``, ``y``,
-    ``scale`` and, for int8 rows, ``row_scale``."""
+    ``scale``, for int8 rows ``row_scale``, and ``supports_coeff``."""
     return SquaredHingeRows(tensor_from_numpy(A, device),
                             tensor_from_numpy(y, device),
                             scale=tensor_from_numpy(scale, device),
-                            row_scale=_rs(row_scale, device))
+                            row_scale=_rs(row_scale, device),
+                            supports_coeff=supports_coeff)
 
 
-def poisson_from_numpy(A, y, scale, row_scale=None,
-                       device=None) -> PoissonRows:
+def poisson_from_numpy(A, y, scale, row_scale=None, device=None,
+                       supports_coeff: bool = True) -> PoissonRows:
     """``PoissonRows`` from the JAX oracle's fields ``A``, ``y``,
-    ``scale`` and, for int8 rows, ``row_scale``."""
+    ``scale``, for int8 rows ``row_scale``, and ``supports_coeff``."""
     return PoissonRows(tensor_from_numpy(A, device),
                        tensor_from_numpy(y, device),
                        scale=tensor_from_numpy(scale, device),
-                       row_scale=_rs(row_scale, device))
+                       row_scale=_rs(row_scale, device),
+                       supports_coeff=supports_coeff)
 
 
 def saga_state_from_numpy(s, z, av, gamma, it, seed: int = 0,

@@ -32,8 +32,10 @@ extern "C" int lkatyusha_coeff_multistep_launch(
     float* y, float* z, float* ypre, const float* av, float* x,
     const float* sc, float* part, unsigned* bar, int n, int B, int rows,
     int ctas, int stage_rows, int stages, int K, void* stream) {
-  LooplessArgs a{A,  b,    rs,   canch, starts, stop, x,    ypre,
-                 av, sc,   y,    z,     wa,     part, bar,  n,
-                 B,  rows, ctas, stage_rows, stages, K};
+  // the kLKatyushaSteps kernels never write canch or av
+  LooplessArgs a{A,    b, rs,   const_cast<float*>(canch), starts,
+                 stop, x, ypre, const_cast<float*>(av),    sc,
+                 y,    z, wa,   part, bar, n, B, rows, ctas, stage_rows,
+                 stages, K};
   return launch_loopless<kLKatyushaSteps>(storage, lowp, a, stream);
 }

@@ -1,39 +1,48 @@
-// The persistent step engine of the loopless pair on an NVIDIA Hopper card
-// (sm_90a): a whole coin window of K block steps in one cooperative launch,
+// The persistent step engine of four step kernels on an NVIDIA Hopper card
+// (sm_90a): a whole call of K block steps in one cooperative launch,
 //
-//   lsvrg_coeff_multistep.cu      replaces ciao_tpu/ops/fused_block.py
-//                                 lsvrg_coeff_multistep (L-SVRG steps, body
-//                                 _lsvrg_coeff_multi_kernel);
-//   lkatyusha_coeff_multistep.cu  replaces lkatyusha_coeff_multistep
-//                                 (L-Katyusha steps, body
-//                                 _lkatyusha_coeff_multi_kernel).
+//   lsvrg_coeff_multistep.cu          replaces ciao_tpu/ops/fused_block.py
+//                                     lsvrg_coeff_multistep (L-SVRG steps,
+//                                     body _lsvrg_coeff_multi_kernel);
+//   lkatyusha_coeff_multistep.cu      replaces lkatyusha_coeff_multistep
+//                                     (L-Katyusha steps, body
+//                                     _lkatyusha_coeff_multi_kernel);
+//   svrg_coeff_multistep.cu           replaces svrg_coeff_multistep (SVRG
+//                                     inner steps, body
+//                                     _svrg_coeff_multi_kernel);
+//   saga_coeff_multistep_streamed.cu  replaces saga_coeff_multistep_streamed
+//                                     (SAGA/SAG steps for any N, steps k >= f
+//                                     masked, body _saga_stream_kernel).
 //
 // The Python wrappers are in ciao_tpu_torch/ops/fused_block.py, beside the
-// plain PyTorch versions lsvrg_coeff_multistep_ref and
-// lkatyusha_coeff_multistep_ref, whose arithmetic (bf16 roundings included)
-// this computes; _loopless_grid there is the grid and ring rule below.
+// plain PyTorch versions (the *_ref functions), whose arithmetic (bf16
+// roundings included) this computes; _loopless_grid there is the grid and
+// ring rule below.
 //
 // What bounds it. A step must read its block's rows once: B.n.itemsize bytes,
 // 16 MiB f32 and 4 MiB int8 at B = 4,096, n = 1,024 (5.0 and 1.25 us at the
-// card's 3.35 TB/s), for 4.B.n flops: bytes, by a factor of 5 to 20. The
-// two-launch engine of saga_steps.cuh reached 31-35 % (f32) and 8-11 % (int8)
-// of that on an H100: a step was two stream-ordered launches (three for
-// L-Katyusha's first), a CTA staged all its rows before any margin, the finish
-// ran on n / 32 CTAs while the rest of the card idled, and no load of the next
-// step's rows could start before the finish had ended, though nothing but the
-// stream order held it: the rows do not depend on the iterate.
+// card's 3.35 TB/s), 4 MiB f32 and 1 MiB int8 at the deep target's B = 8,192,
+// n = 128, for 4.B.n flops: bytes, by a factor of 5 to 20. The two-launch
+// engine of saga_steps.cuh reached 31-35 % (f32) and 8-11 % (int8) of that on
+// an H100 at the headline and 13 % (f32) at the deep shape, where the host's
+// enqueue of two launches a step set the pace: a CTA staged all its rows
+// before any margin, the finish ran on n / 32 CTAs while the rest of the card
+// idled, and no load of the next step's rows could start before the finish
+// had ended, though nothing but the stream order held it: the rows do not
+// depend on the iterate.
 //
 // The engine, one launch of G CTAs, all resident at once (a cooperative
 // launch; refused, never split, if they do not fit):
 //
 //   - the grid rule: CTA c owns rows [c R, c R + R) of every step's block, R
 //     the smallest power of two with ceil(B / R) <= the SMs (R = 32 at B =
-//     4,096 and 8 at B = 1,024: 128 CTAs either way; the last CTA of a B
-//     that R does not divide takes the rest);
+//     4,096, 8 at B = 1,024 and 64 at B = 8,192: 128 CTAs each time; the last
+//     CTA of a B that R does not divide takes the rest);
 //   - the ring: P stages of S whole rows in shared memory (S the largest
 //     power of two up to R and 256 rows in 32 KB, one row where a row is
 //     larger; P as many as fit, 2 to 8: 8 f32 rows and 6 stages at n =
-//     1,024, one f32 row and 2 stages at n = 16,384);
+//     1,024, 64 f32 rows and 6 stages at n = 128, one f32 row and 2 stages at
+//     n = 16,384);
 //     one producer warp fills stage after stage, each by one bulk copy
 //     (cp.async.bulk) of its contiguous rows and the rows' b, anchor
 //     coefficients and rs by cp.async, all completing on the stage's full
@@ -41,37 +50,59 @@
 //     eight consumer warps have read it. It runs ahead across step
 //     boundaries (step k + 1's rows, read from starts[k + 1], are loading
 //     while step k's finish and barriers run: with P S >= R all of them);
-//   - step k on the eight consumer warps: the point (w for L-SVRG, x for
-//     L-Katyusha) copied into shared memory, rounded to bf16 where the dots
-//     round, by plain loads from L2 (the last finish wrote it through the
-//     generic proxy); then for each stage as it lands: the margins, every
-//     thread taking its own units (the columns it owns in the column sums)
-//     of eight rows at once, reduced over the warp by a halving butterfly
-//     (nine shuffles for eight rows) and over the warps in warp order; the
-//     coefficient formula and dc, a thread a row (anchor minus live for
-//     L-SVRG, live at x minus anchor for L-Katyusha; rounded to bf16 where
-//     the dots round and scaled by rs for int8 rows); and the stage's rows
-//     added into column sums held in registers, each thread the same units
-//     all call. int8 is widened by the byte-permute trick, bf16 by a shift;
+//   - step k on the eight consumer warps: the point (w for L-SVRG and SVRG,
+//     x for L-Katyusha, z for SAGA) copied into shared memory, rounded to
+//     bf16 where the dots round, by plain loads from L2 (the last finish wrote
+//     it through the generic proxy); then for each stage as it lands: the
+//     margins, every thread taking its own units (the columns it owns in the
+//     column sums) of eight rows at once, reduced over the warp by a halving
+//     butterfly (nine shuffles for eight rows) and over the warps of its row
+//     group in warp order; the coefficient formula and dc, a thread a row
+//     (anchor minus live for L-SVRG and SVRG, live at x minus anchor for
+//     L-Katyusha, new minus old for SAGA, which writes the new one to its
+//     table; rounded to bf16 where the dots round and scaled by rs for int8
+//     rows); and the stage's rows added into column sums held in registers,
+//     each thread the same units all call. int8 is widened by the
+//     byte-permute trick, bf16 by a shift;
+//   - narrow rows: where a row has fewer column units than the 256 consumer
+//     threads (four columns a unit on the 16-byte path), the threads form g =
+//     256 / U row groups of U threads, U the units rounded up to a power of
+//     two and at least a warp (g = 8 at n = 128: a warp a group). Group i
+//     takes the stage's rows 8i..8i+7, 8(i + g)..., both for its margins and
+//     for its column sums, so every warp has work; at the step's end the
+//     groups' sums are added in group order through shared memory. The
+//     split is a build of its own (rows of at most 128 units): wider rows,
+//     n = 1,024 among them, keep one group and the code they had;
 //   - the CTA's partial into part[c, :], a grid-wide barrier, the finish:
 //     CTA c takes ceil(n / G) columns, sums their G partials in a fixed order
 //     (lanes over CTAs, a shuffle tree, then the eight warps in order: runs
-//     repeat bit for bit) and applies L-SVRG's w-step (wpre <- w) or
-//     L-Katyusha's z-step, y coupling, ypre and the next x to its columns,
-//     their state loaded beside the partials; a second barrier before the
-//     next step's point;
+//     repeat bit for bit) and applies L-SVRG's w-step (wpre <- w), SVRG's
+//     w-step and running sum (zs += w), SAGA's average, SAGA or SAG
+//     direction (weighted by wgts[k] where given) and prox, or L-Katyusha's
+//     z-step, y coupling, ypre and the next x to its columns, their state
+//     loaded beside the partials; a second barrier before the next step's
+//     point;
+//   - SAGA's table: the producer prefetches no coefficient of SAGA's rows,
+//     since a block revisited within the ring's lookahead (or overlapping an
+//     earlier block: starts need not be block-aligned) would read it stale.
+//     The formula thread of a row loads its old coefficient from L2 when its
+//     stage is taken, after the barriers that end the previous step, and
+//     writes the new one before the step's first barrier, so a revisit reads
+//     the previous visit's value;
 //   - L-Katyusha's first x is formed by every CTA for all columns from z, the
 //     anchor point and y (each writes its own finish columns of the x
 //     scratch, so the finish reads the x the margins used); the stop index
-//     is read once: a call processes min(K, stop + 1) steps and the masked
-//     ones write nothing.
+//     (L-SVRG, L-Katyusha) or clamp count (SAGA) is read once: a call
+//     processes min(K, stop + 1) or min(K, f) steps and the masked ones write
+//     nothing.
 //
 // What it reaches on an H100 (tools/loopless_step_times.py, PERF.md): a step
 // costs a floor of about 5 us whatever its rows (the two barriers, the finish
 // and the point's copy: B = 128, one row a CTA), and each stage adds a serial
 // chain of about 1 us (loads, FMAs, butterfly, barrier, formula, barrier,
 // column pass: latency, with two warps a scheduler), so the headline stays
-// well above its bytes. Two things that cost more, found on the way: the
+// well above its bytes. The deep target's step (one 64-row stage) takes
+// 5.9-6.1 us f32 and 5.2 int8, 4.8 us less than with one row group. Two things that cost more, found on the way: the
 // units past a row's width, compiled in and switched off, still took their
 // instructions in every pass (hence the kRU tiers below), and two
 // sequentially consistent fences around each barrier's add cost about 0.3 us
@@ -80,8 +111,12 @@
 // The grid-wide barrier is a word in device memory: each CTA adds 1 (CTA 0
 // adds 2^31 - (G - 1)), and the top bit flips when the last one arrives, so the
 // word's low bits are back at zero after every barrier (the scheme of
-// cooperative_groups' grid sync). The wrapper keeps one zeroed word a device
-// and never resets it; calls on one device must not overlap on two streams.
+// cooperative_groups' grid sync). A call reads the top bit once at its start.
+// The wrapper keeps one zeroed word for each (card, stream) and never resets
+// it: calls on one stream run one after the other, and calls on two streams
+// of one card, which may run at once, use two words. (A word a call, zeroed
+// by a memset on the stream before each launch, cost 0.1-0.2 us a step at
+// the engine's floor, B = 128 and K = 32, on an H100: PERF.md section 6.)
 
 #pragma once
 
@@ -91,7 +126,12 @@
 
 namespace {
 
-enum LooplessMethod { kLsvrgSteps = 0, kLKatyushaSteps = 1 };
+enum LooplessMethod {
+  kLsvrgSteps = 0,
+  kLKatyushaSteps = 1,
+  kSvrgSteps = 2,
+  kSagaSteps = 3
+};
 
 constexpr int kLlThreads = 256;              // the consumer warps' threads
 constexpr int kLlWarps = kLlThreads / 32;
@@ -107,20 +147,34 @@ constexpr int kLlMaxStageRows = 256;
 constexpr int kLlMaxCols = 16384;
 constexpr size_t kLlMaxSmem = 232448;
 
-// The arguments of one call. L-SVRG: pt the iterate w, pre = wpre; L-
-// Katyusha: pt the (n,) scratch of the coupled point x, y and z the
-// sequences, wa the anchor point, pre = ypre. part: (ctas, n) f32 scratch;
-// bar: the grid barrier's word.
+// The scalars row's (mode, aux) slot pair of each method; the finish's
+// scalars are the slots between the scale and the mode:
+// L-SVRG, SVRG  [scale, gamma, gamma*lambda, 1/B, mode, aux];
+// L-Katyusha    [scale, eta/L, tau*lambda, 1/(1 + eta*sigma), eta*sigma,
+//                theta1, theta2, 1/B, mode, aux];
+// SAGA          [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux].
+__host__ __device__ constexpr int mode_slot(int M) {
+  return M == kLKatyushaSteps ? 8 : (M == kSagaSteps ? 6 : 4);
+}
+
+// The arguments of one call. L-SVRG: pt the iterate w, pre = wpre, c the
+// anchor coefficients; L-Katyusha: pt the (n,) scratch of the coupled point
+// x, y and z the sequences, wa the anchor point, pre = ypre; SVRG: pt the
+// iterate w, zs the running sum; SAGA: pt the iterate z, c the table, av
+// the running average (written), stop the clamp count f, wgts the steps'
+// direction weights (or NULL). av is read only but for SAGA, c but for SAGA.
+// part: (ctas, n) f32 scratch; bar: the grid barrier's word of the call's
+// stream (low bits zero between calls).
 struct LooplessArgs {
   const void* A;
   const float* b;
   const float* rs;
-  const float* canch;
+  float* c;
   const int* starts;
   const int* stop;
   float* pt;
   float* pre;
-  const float* av;
+  float* av;
   const float* sc;
   float* y;
   float* z;
@@ -128,6 +182,8 @@ struct LooplessArgs {
   float* part;
   unsigned* bar;
   int n, B, rows, ctas, stage_rows, stages, K;
+  float* zs = nullptr;
+  const float* wgts = nullptr;
 };
 
 // The grid rule (ops/fused_block.py _loopless_grid): R rows a CTA, the
@@ -138,14 +194,32 @@ inline void loopless_grid(int B, int sms, int& rows, int& ctas) {
   ctas = (B + rows - 1) / rows;
 }
 
+// The row groups of the consumer threads for rows of `units` column units:
+// groups of U threads, U the units rounded up to a power of two, at least a
+// warp and at most all 256 threads.
+__host__ __device__ __forceinline__ int loopless_groups(int units) {
+  int U = 32;
+  while (U < units && U < kLlThreads) U *= 2;
+  return kLlThreads / U;
+}
+
+// f32 values of the groups' column sums: g rows of n where the 16-byte
+// path's units (the most groups) give g > 1.
+__host__ __device__ __forceinline__ int group_floats(int n) {
+  const int g = loopless_groups((n + 3) / 4);
+  return g > 1 ? g * n : 0;
+}
+
 // Shared memory of a CTA (ops/fused_block.py _loopless_smem_bytes): the
-// ring, the point, the stages' full and empty barriers, then b, the anchor
-// coefficients and rs of each stage's rows, dc of two stages, the warps'
-// margin sums of a stage's rows and the finish's 256 warp sums.
+// ring, the point, the groups' column sums, the stages' full and empty
+// barriers, then b, the anchor coefficients and rs of each stage's rows, dc
+// of two stages, the warps' margin sums of a stage's rows and the finish's
+// 256 warp sums.
 __host__ __device__ __forceinline__ size_t loopless_smem_bytes(int S, int P,
                                                               int n,
                                                               int itemsize) {
-  return P * tile_bytes(S, n, itemsize) + tile_bytes(1, n, 4) + 16 * size_t(P) +
+  return P * tile_bytes(S, n, itemsize) + tile_bytes(1, n, 4) +
+         tile_bytes(group_floats(n), 1, 4) + 16 * size_t(P) +
          4 * (3 * size_t(P) * S + (2 + kLlWarps) * size_t(S) + kLlThreads);
 }
 
@@ -247,18 +321,20 @@ __device__ __forceinline__ float warp_sums8(float (&p)[8], int lane) {
   return p[0];
 }
 
-template <int M, typename T, bool kLowp, bool kVec, int kRU>
+template <int M, typename T, bool kLowp, bool kVec, int kRU, bool kSplit>
 __global__ void __launch_bounds__(kLlBlock, 1)
 loopless_steps_kernel(const LooplessArgs a) {
   constexpr int kUnit = kVec ? 4 : 1;  // columns of a unit
   constexpr int kRegUnits = kRU;
+  constexpr bool kTable = M == kSagaSteps;  // the call writes its table
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = a.n, S = a.stage_rows, P = a.stages;
   const size_t tb = tile_bytes(S, n, sizeof(T));
   auto stage_ptr = [&](int s) { return reinterpret_cast<T*>(smem + s * tb); };
   float* zs = reinterpret_cast<float*>(smem + P * tb);
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(smem + P * tb + tile_bytes(1, n, 4));
+  float* gsum = reinterpret_cast<float*>(smem + P * tb + tile_bytes(1, n, 4));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + P * tb + tile_bytes(1, n, 4) + tile_bytes(group_floats(n), 1, 4));
   uint64_t* empty = full + P;
   float* vals = reinterpret_cast<float*>(empty + P);  // [P][b, c, rs][S]
   float* dcs = vals + 3 * P * S;                      // [2][S]
@@ -267,6 +343,7 @@ loopless_steps_kernel(const LooplessArgs a) {
 
   const int K = a.K;
   const int live = a.stop == nullptr ? K
+                   : kTable           ? max(0, min(K, *a.stop))
                    : *a.stop >= K - 1 ? K
                    : (*a.stop < 0 ? 0 : *a.stop + 1);
   if (live == 0) return;
@@ -295,7 +372,8 @@ loopless_steps_kernel(const LooplessArgs a) {
 
   if (warp == kLlWarps) {
     // the producer: stage t holds rows [i S, i S + here) of the CTA's share
-    // of step k's block, k = t / spc, i = t % spc
+    // of step k's block, k = t / spc, i = t % spc (SAGA's table is not
+    // prefetched: its consumers read it)
     for (int t = 0; t < total; ++t) {
       const int s = t % P;
       if (t >= P) mbar_wait(&empty[s], (t / P - 1) & 1);
@@ -310,7 +388,7 @@ loopless_steps_kernel(const LooplessArgs a) {
                     &full[s]);
         for (int r = lane; r < here; r += 32) {
           __pipeline_memcpy_async(v + r, a.b + r0 + r, 4);
-          __pipeline_memcpy_async(v + S + r, a.canch + r0 + r, 4);
+          if (!kTable) __pipeline_memcpy_async(v + S + r, a.c + r0 + r, 4);
           if (a.rs != nullptr)
             __pipeline_memcpy_async(v + 2 * S + r, a.rs + r0 + r, 4);
         }
@@ -320,7 +398,7 @@ loopless_steps_kernel(const LooplessArgs a) {
         for (int j = lane; j < here * n; j += 32) dst[j] = src[j];
         for (int r = lane; r < here; r += 32) {
           v[r] = a.b[r0 + r];
-          v[S + r] = a.canch[r0 + r];
+          if (!kTable) v[S + r] = a.c[r0 + r];
           v[2 * S + r] = a.rs != nullptr ? a.rs[r0 + r] : 1.0f;
         }
         mbar_arrive(&full[s]);
@@ -332,16 +410,21 @@ loopless_steps_kernel(const LooplessArgs a) {
   // the consumers
   const float* sc = a.sc;
   const float scale = sc[0];
-  const int mode = static_cast<int>(sc[M == kLsvrgSteps ? 4 : 8]);
-  const float aux = sc[M == kLsvrgSteps ? 5 : 9];
+  const int mode = static_cast<int>(sc[mode_slot(M)]);
+  const float aux = sc[mode_slot(M) + 1];
   const bool scaled = a.rs != nullptr;
-  // the finish's scalars (L-SVRG: gamma, gamma lambda, 1/B; L-Katyusha:
-  // eta/L, tau lambda, 1/(1 + eta sigma), eta sigma, theta1, theta2, 1/B)
+  // the finish's scalars, the row's slots between the scale and the mode
   float fs[7];
 #pragma unroll
-  for (int q = 0; q < 7; ++q)
-    fs[q] = M == kLsvrgSteps ? (q < 3 ? sc[1 + q] : 0.0f) : sc[1 + q];
+  for (int q = 0; q < 7; ++q) fs[q] = q < mode_slot(M) - 1 ? sc[1 + q] : 0.0f;
   const int units = n / kUnit;
+  // the row groups (kSplit builds, rows of at most 128 units): U threads a
+  // group own units loc + kq U of its rows; otherwise one group of all
+  const int groups = kSplit ? loopless_groups(units) : 1;
+  const int U = kLlThreads / groups;
+  const int grp = kSplit ? tid / U : 0;
+  const int loc = kSplit ? tid % U : tid;
+  const int wpg = U / 32;  // warps a group
   // the finish: CTA c's columns [j0, j1) in blocks of cw columns, lpc lanes
   // a column, 8 lpc slices of the G partials a column
   const int cpc = (n + G - 1) / G;
@@ -360,11 +443,20 @@ loopless_steps_kernel(const LooplessArgs a) {
 #pragma unroll
     for (int q = 0; q < kUnit; ++q) acc[kq][q] = 0.0f;
 
-  auto finish_row = [&](const float* v, float* dc, int r, float m) {
+  // row r of a stage whose rows start at row0: its margin m, its old SAGA
+  // coefficient c_old (loaded when the stage was taken)
+  auto finish_row = [&](const float* v, float* dc, int r, float m,
+                        int64_t row0, float c_old) {
     const float rsv = scaled ? v[2 * S + r] : 1.0f;
     if (scaled) m *= rsv;
     const float c_live = coeff_formula(mode, m, v[r], scale, aux);
-    float d = M == kLsvrgSteps ? v[S + r] - c_live : c_live - v[S + r];
+    float d;
+    if (kTable) {
+      a.c[row0 + r] = c_live;
+      d = c_live - c_old;
+    } else {
+      d = M == kLKatyushaSteps ? c_live - v[S + r] : v[S + r] - c_live;
+    }
     if (scaled) d *= rsv;
     dc[r] = kLowp ? bf16_round(d) : d;
   };
@@ -374,8 +466,8 @@ loopless_steps_kernel(const LooplessArgs a) {
   unsigned phase = tid == 0 ? load_acquire(a.bar) & 0x80000000u : 0u;
   int t = 0;
   for (int k = 0; k < live; ++k) {
-    // step k's point: w, or x (at k = 0 formed here from z, wa and y; each
-    // CTA writes its own finish columns of the x scratch)
+    // step k's point: w, z, or x (at k = 0 formed here from z, wa and y;
+    // each CTA writes its own finish columns of the x scratch)
     auto point = [&](int j) {
       if (M == kLKatyushaSteps && k == 0) {
         const float x = coupled_point(sc[5], sc[6], __ldcg(a.z + j),
@@ -418,18 +510,25 @@ loopless_steps_kernel(const LooplessArgs a) {
       const T* tile = stage_ptr(s);
       const float* v = vals + 3 * S * s;
       float* dc = dcs + (t & 1) * S;
+      // SAGA: the stage's first row, and the row's old coefficient from L2,
+      // in flight during the margins (every earlier visit's write is behind
+      // the barriers)
+      const int64_t row0 =
+          kTable ? static_cast<int64_t>(a.starts[k]) + first + i * S : 0;
+      const float c_old =
+          kTable && tid < here ? __ldcg(a.c + row0 + tid) : 0.0f;
       mbar_wait(&full[s], (t / P) & 1);
 
       // margins: every thread takes its units' share (the units it owns in
-      // the column sums) of the stage's rows, eight rows at once; warp_sums8
-      // leaves lane 4i the warp's sum of row i, and the eight warps' sums are
-      // added in warp order
-      for (int r0 = 0; r0 < here; r0 += 8) {
+      // the column sums) of its group's rows of the stage, eight rows at
+      // once; warp_sums8 leaves lane 4i the warp's sum of row i, and the
+      // group's warps' sums are added in warp order
+      for (int r0 = 8 * grp; r0 < here; r0 += 8 * groups) {
         float p[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
         const bool whole = here - r0 >= 8;
 #pragma unroll
         for (int kq = 0; kq < kRegUnits; ++kq) {
-          const int u = tid + kq * kLlThreads;
+          const int u = loc + kq * U;
           if (u < units) {
             float z[4];
             if (kVec) {
@@ -456,39 +555,45 @@ loopless_steps_kernel(const LooplessArgs a) {
       }
       consumer_sync();
       if (tid < here) {
-        float m = msum[tid];
+        const int w0 = ((tid >> 3) % groups) * wpg;  // the row's group
+        float m = msum[w0 * S + tid];
 #pragma unroll
-        for (int w = 1; w < kLlWarps; ++w) m += msum[w * S + tid];
-        finish_row(v, dc, tid, m);
+        for (int w = 1; w < wpg; ++w) m += msum[(w0 + w) * S + tid];
+        finish_row(v, dc, tid, m, row0, c_old);
       }
       consumer_sync();
 
-      // the stage's rows into the column sums: each unit's rows in order,
-      // four rows' loads at once
+      // the group's rows of the stage into the column sums: each unit's rows
+      // in order (a group's octets, or all rows at once), four rows' loads
+      // at once
 #pragma unroll
       for (int kq = 0; kq < kRegUnits; ++kq) {
-        const int u = tid + kq * kLlThreads;
+        const int u = loc + kq * U;
         if (u < units) {
           const T* col = tile + u * kUnit;
-          int r = 0;
-          for (; r + 4 <= here; r += 4) {
-            float x[4][4];
+          for (int o = 8 * grp; o < here; o += kSplit ? 8 * groups : here) {
+            const int end = kSplit ? min(here, o + 8) : here;
+            int r = o;
+            for (; r + 4 <= end; r += 4) {
+              float x[4][4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              ll_unit<kLowp, kVec>(col + static_cast<size_t>(r + i) * n, x[i]);
+              for (int i = 0; i < 4; ++i)
+                ll_unit<kLowp, kVec>(col + static_cast<size_t>(r + i) * n,
+                                     x[i]);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float d = dc[r + i];
+              for (int i = 0; i < 4; ++i) {
+                const float d = dc[r + i];
 #pragma unroll
-              for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[i][q];
+                for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[i][q];
+              }
             }
-          }
-          for (; r < here; ++r) {
-            float x[4];
-            ll_unit<kLowp, kVec>(col + static_cast<size_t>(r) * n, x);
-            const float d = dc[r];
+            for (; r < end; ++r) {
+              float x[4];
+              ll_unit<kLowp, kVec>(col + static_cast<size_t>(r) * n, x);
+              const float d = dc[r];
 #pragma unroll
-            for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[q];
+              for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[q];
+            }
           }
         }
       }
@@ -496,37 +601,50 @@ loopless_steps_kernel(const LooplessArgs a) {
       if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
     }
 
-    // the CTA's partial, then the finish of its columns
+    // the CTA's partial (the groups' sums added in group order), then the
+    // finish of its columns
     float* out = a.part + static_cast<int64_t>(cta) * n;
+    float* sums = groups == 1 ? out : gsum + grp * n;
 #pragma unroll
     for (int kq = 0; kq < kRegUnits; ++kq) {
-      const int u = tid + kq * kLlThreads;
+      const int u = loc + kq * U;
       if (u < units) {
         if (kVec)
-          *reinterpret_cast<float4*>(out + 4 * u) =
+          *reinterpret_cast<float4*>(sums + 4 * u) =
               make_float4(acc[kq][0], acc[kq][1], acc[kq][2], acc[kq][3]);
         else
-          out[u] = acc[kq][0];
+          sums[u] = acc[kq][0];
       }
 #pragma unroll
       for (int q = 0; q < kUnit; ++q) acc[kq][q] = 0.0f;
     }
+    if (groups > 1) {
+      consumer_sync();
+      for (int j = tid; j < units * kUnit; j += kLlThreads) {
+        float sum = gsum[j];
+        for (int g = 1; g < groups; ++g) sum += gsum[g * n + j];
+        out[j] = sum;
+      }
+    }
     grid_sync(a.bar, phase);
 
+    // SAGA's direction weight of step k
+    const float wgt = kTable && a.wgts != nullptr ? a.wgts[k] : 1.0f;
     for (int jb = j0; jb < j1; jb += cw) {
       const int j = jb + fcol;
       const bool owner = warp == 0 && lane < cw && j < j1;
-      // the column's state (L-SVRG: w, av; L-Katyusha: x, av, z, y, wa),
-      // loaded beside its partials
+      // the column's state (L-SVRG: w, av; SVRG: w, av, zs; SAGA: z, av;
+      // L-Katyusha: x, av, z, y, wa), loaded beside its partials
       float st[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (owner) {
         st[0] = __ldcg(a.pt + j);
-        st[1] = a.av[j];
+        st[1] = kTable ? __ldcg(a.av + j) : a.av[j];
         if (M == kLKatyushaSteps) {
           st[2] = __ldcg(a.z + j);
           st[3] = __ldcg(a.y + j);
           st[4] = a.wa[j];
         }
+        if (M == kSvrgSteps) st[2] = __ldcg(a.zs + j);
       }
       float sum = 0.0f;
       if (j < j1) {
@@ -542,12 +660,26 @@ loopless_steps_kernel(const LooplessArgs a) {
         float innov = red[lane];
 #pragma unroll
         for (int w = 1; w < kLlWarps; ++w) innov += red[w * 32 + lane];
-        if (M == kLsvrgSteps) {
+        if (M == kLsvrgSteps || M == kSvrgSteps) {
           // L-SVRG (Kovalev et al. 2020, Alg. 2): wpre <- w,
-          // w <- soft(w + gamma (sum / B - av), gamma lambda)
-          a.pre[j] = st[0];
-          a.pt[j] =
+          // w <- soft(w + gamma (sum / B - av), gamma lambda); SVRG
+          // (SVRG_basic.jl:74-81) the same w-step and zs += w
+          const float w_new =
               soft_threshold(st[0] + fs[0] * (innov * fs[2] - st[1]), fs[1]);
+          if (M == kLsvrgSteps)
+            a.pre[j] = st[0];
+          else
+            a.zs[j] = st[2] + w_new;
+          a.pt[j] = w_new;
+        } else if (kTable) {
+          // SAGA/SAG: av_new = av + sum / N; SAG steps from av_new, SAGA
+          // from sum wgt / B + av (the weight scales the direction only)
+          const float av_new = st[1] + innov * fs[3];
+          const float w = fs[4] > 0.0f
+                              ? st[0] - fs[0] * av_new
+                              : st[0] - fs[0] * (innov * (wgt * fs[2]) + st[1]);
+          a.av[j] = av_new;
+          a.pt[j] = soft_threshold(w, fs[1]);
         } else {
           // L-Katyusha (Alg. 3, proximal z-step): g~ = av + sum / B,
           // z_new = soft((z + eta sigma x - (eta/L) g~) / (1 + eta sigma),
@@ -571,10 +703,10 @@ loopless_steps_kernel(const LooplessArgs a) {
   }
 }
 
-template <int M, typename T, bool kLowp, bool kVec, int kRU>
+template <int M, typename T, bool kLowp, bool kVec, int kRU, bool kSplit>
 cudaError_t run_loopless(const LooplessArgs& a, size_t smem, int sms,
                          cudaStream_t stream) {
-  auto kernel = loopless_steps_kernel<M, T, kLowp, kVec, kRU>;
+  auto kernel = loopless_steps_kernel<M, T, kLowp, kVec, kRU, kSplit>;
   // the shared-memory attribute and the CTAs an SM holds, asked of the
   // driver once for each (device, shared memory) this build meets in a row:
   // a short window's call is bound by the host
@@ -608,17 +740,23 @@ cudaError_t run_loopless(const LooplessArgs& a, size_t smem, int sms,
   return cudaGetLastError();
 }
 
-// The 16-byte path or the plain one, and the fewest register units a
-// thread that cover a row.
+// The 16-byte path or the plain one, the fewest register units a thread
+// that cover a row, and the narrow-row split where a row has at most 128
+// units (two row groups or more; the other builds have one).
 template <int M, typename T, bool kLowp>
 cudaError_t dispatch_loopless(bool vec, const LooplessArgs& a, size_t smem,
                               int sms, cudaStream_t stream) {
-  const int per_thread = ((vec ? a.n / 4 : a.n) + kLlThreads - 1) / kLlThreads;
-  auto run = vec ? (per_thread <= 1   ? run_loopless<M, T, kLowp, true, 1>
-                    : per_thread <= 4 ? run_loopless<M, T, kLowp, true, 4>
-                                      : run_loopless<M, T, kLowp, true, 16>)
-                 : (per_thread <= 4 ? run_loopless<M, T, kLowp, false, 4>
-                                    : run_loopless<M, T, kLowp, false, 64>);
+  const int units = vec ? a.n / 4 : a.n;
+  const int per_thread = (units + kLlThreads - 1) / kLlThreads;
+  const bool split = loopless_groups(units) > 1;
+  auto run =
+      vec ? (split             ? run_loopless<M, T, kLowp, true, 1, true>
+             : per_thread <= 1 ? run_loopless<M, T, kLowp, true, 1, false>
+             : per_thread <= 4 ? run_loopless<M, T, kLowp, true, 4, false>
+                               : run_loopless<M, T, kLowp, true, 16, false>)
+          : (split             ? run_loopless<M, T, kLowp, false, 1, true>
+             : per_thread <= 4 ? run_loopless<M, T, kLowp, false, 4, false>
+                               : run_loopless<M, T, kLowp, false, 64, false>);
   return run(a, smem, sms, stream);
 }
 

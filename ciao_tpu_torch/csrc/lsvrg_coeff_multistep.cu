@@ -23,17 +23,20 @@
 // of each processed step (the caller fills it with w); av: (n,) f32 anchor
 // mean gradient, read only; sc: (6,) f32 scalars row [scale, gamma,
 // gamma*lambda, 1/B, mode, aux]; part: (ctas, n) f32 scratch, 16-byte
-// aligned; bar: the grid barrier's word (zero before the first call, left
-// so by each). rows, ctas: the grid rule's (checked against it); stage_rows,
-// stages: the ring (ops/fused_block.py _loopless_grid).
+// aligned; bar: the grid barrier's word of the stream (zero before its first
+// call, left so by each; calls on another stream take another word). rows,
+// ctas: the grid rule's (checked against it); stage_rows, stages: the ring
+// (ops/fused_block.py _loopless_grid).
 extern "C" int lsvrg_coeff_multistep_launch(
     const void* A, int storage, int lowp, const float* b, const float* rs,
     const float* canch, const int* starts, const int* stop, float* w,
     float* wpre, const float* av, const float* sc, float* part,
     unsigned* bar, int n, int B, int rows, int ctas, int stage_rows,
     int stages, int K, void* stream) {
-  LooplessArgs a{A,    b,  rs,      canch,   starts,  stop, w,  wpre,
-                 av,   sc, nullptr, nullptr, nullptr, part, bar, n,
-                 B,    rows, ctas,  stage_rows, stages, K};
+  // the kLsvrgSteps kernels never write canch or av
+  LooplessArgs a{A,       b,    rs,   const_cast<float*>(canch), starts,
+                 stop,    w,    wpre, const_cast<float*>(av),    sc,
+                 nullptr, nullptr, nullptr, part, bar, n, B, rows, ctas,
+                 stage_rows, stages, K};
   return launch_loopless<kLsvrgSteps>(storage, lowp, a, stream);
 }

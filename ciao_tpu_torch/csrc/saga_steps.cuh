@@ -1,12 +1,8 @@
 // Coefficient block steps on an NVIDIA Hopper card (sm_90a): the device code
-// shared by twelve kernels of ciao_tpu_torch/ops/fused_block.py,
+// shared by ten kernels of ciao_tpu_torch/ops/fused_block.py,
 //
 //   saga_coeff_multistep.cu             replaces ciao_tpu/ops/fused_block.py
 //                                       saga_coeff_multistep (SAGA/SAG steps);
-//   saga_coeff_multistep_streamed.cu    replaces saga_coeff_multistep_streamed
-//                                       (the same, steps k >= f masked);
-//   svrg_coeff_multistep.cu             replaces svrg_coeff_multistep (SVRG
-//                                       inner steps against an anchor table);
 //   finito_coeff_multistep.cu           replaces finito_coeff_multistep
 //                                       (Finito steps, per-block anchors zb);
 //   finito_coeff_multistep_streamed.cu  replaces
@@ -29,9 +25,9 @@
 //                                       same, steps k >= f masked).
 //
 // The Python wrappers and the design notes are in ops/fused_block.py; the plain
-// PyTorch versions of the same arithmetic are the *_ref functions there. The
-// loopless pair (kernels #16 and #17) runs on its own persistent engine,
-// loopless_steps.cuh.
+// PyTorch versions of the same arithmetic are the *_ref functions there.
+// Kernels #4 (streamed SAGA), #5 (SVRG), #16 and #17 (the loopless pair) run
+// on the persistent engine of loopless_steps.cuh.
 //
 // One solver step on the block [s, s + B) of the (N, n) rows A is two launches:
 //
@@ -43,13 +39,12 @@
 //       the coefficient difference dc_i and the CTA's partial innovation
 //       sum_rows dc_i . a_i into part[cta, :]. SAGA: dc_i = c_new - c_old and
 //       the table write c_i <- c_new (and Finito, whose table is the same).
-//       SVRG: dc_i = c_anchor_i - c_live, the anchor table read only (and
-//       LFinito, against its epoch's anchor);
+//       LFinito: dc_i = c_anchor_i - c_live against its epoch's anchor table,
+//       read only;
 //   (b) the finish kernel, 32 columns per CTA: the partials summed in a fixed
 //       order (no atomics, so runs repeat bit for bit), then SAGA's running
 //       average, SAG or SAGA direction and L1 soft-threshold
-//       (saga_finish_kernel), SVRG's w <- soft(w + gamma (d - av)) and
-//       zs += w with d = sum / B (svrg_finish_kernel), Finito's
+//       (saga_finish_kernel), Finito's
 //       av += hat invg_j (z - zb_j) - (hat/N) sum, zb_j <- z, z <- soft(av)
 //       (finito_finish_kernel), or LFinito's av += (hat/N) sum +
 //       hat invg_k (z - z_full) and the next block's z <- soft(av)
@@ -103,7 +98,6 @@ constexpr int kMaxRowsPerCta = 32;
 // The scalars row of each method, scale first and (mode, aux) where
 // ScalarIndex says:
 // SAGA        [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux];
-// SVRG        [scale, gamma, gamma*lambda, 1/B, mode, aux];
 // Finito      [scale, 1/N, hat, hat*lambda, mode, aux];
 // LFinito     [scale, hat, hat*lambda, 1/N, mode, aux];
 // Katyusha    [scale, alpha, beta, alpha*lambda, beta*lambda, 1/B, mode,
@@ -113,7 +107,6 @@ constexpr int kMaxRowsPerCta = 32;
 // Point-SAGA  [scale, gamma, 1/B, 1/N, mode, aux].
 enum Method {
   kSaga = 0,
-  kSvrg = 1,
   kFinito = 2,
   kLFinito = 3,
   kKatyusha = 4,
@@ -123,8 +116,8 @@ enum Method {
 };
 
 // Whether the row phase refreshes the coefficient table with the formula
-// (SAGA, Finito, SSNM), or reads an anchor table (the others but SARAH, which
-// has none, and Point-SAGA, which writes its prox solve).
+// (SAGA, Finito, SSNM), or reads an anchor table (LFinito, Katyusha; SARAH
+// has none, and Point-SAGA writes its prox solve).
 __host__ __device__ constexpr bool writes_table(Method M) {
   return M == kSaga || M == kFinito || M == kSsnm;
 }
@@ -291,25 +284,6 @@ saga_finish_kernel(const float* __restrict__ part, int parts,
                              : z_old - gamma * (innov * (wgt * inv_b) + av_old);
   av[j] = av_new;
   z[j] = soft_threshold(w, thr);
-}
-
-// SVRG_basic.jl:74-81 on a block: d = (1/B) sum (c_anchor - c_live) a_i,
-// w <- prox(w + gamma (d - av)), zs += w. av (the anchor's mean gradient) is
-// read only.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-svrg_finish_kernel(const float* __restrict__ part, int parts,
-                   float* __restrict__ w, float* __restrict__ zs,
-                   const float* __restrict__ av, const float* __restrict__ sc,
-                   int n) {
-  int j;
-  float innov;
-  if (!column_sum(part, parts, n, j, innov)) return;
-  const float gamma = sc[1];
-  const float thr = sc[2];
-  const float d = innov * sc[3];
-  const float w_new = soft_threshold(w[j] + gamma * (d - av[j]), thr);
-  w[j] = w_new;
-  zs[j] += w_new;
 }
 
 // Finito_basic.jl:110-118 on block j = starts[k] / B, in the coefficient
@@ -504,10 +478,7 @@ point_saga_finish_kernel(const float* __restrict__ part, int parts,
 }
 
 // The arguments of one call: K steps on one stream. SAGA: c the table, z the
-// iterate, av the running average, zs NULL. SVRG: c the anchor coefficients
-// (read only), z the inner iterate w, av the anchor's mean gradient (read
-// only), zs the running sum of the inner iterates; wgts and fclamp NULL.
-// Finito: c the table, z the iterate, av the running average, zb the (d, n)
+// iterate, av the running average, zs NULL. Finito: c the table, z the iterate, av the running average, zb the (d, n)
 // per-block anchors and invg their sums of 1/gamma_i (by block id, or by step
 // when invg_by_pos). LFinito: c the epoch's anchor coefficients (read only),
 // z the (n,) output (the margins' point, then the last block's prox point),
@@ -584,9 +555,6 @@ cudaError_t run_steps(const StepArgs& a) {
     if constexpr (M == kSaga) {
       saga_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.av, a.sc, a.wgts, a.fclamp, k, a.n);
-    } else if constexpr (M == kSvrg) {
-      svrg_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.zs, a.av, a.sc, a.n);
     } else if constexpr (M == kFinito) {
       finito_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.av, a.zb, a.invg, a.invg_by_pos, a.starts,

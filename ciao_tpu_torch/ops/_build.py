@@ -4,8 +4,10 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``ciao_tpu_torch/_build/`` at first use; device code shared by several
 kernels lives in ``csrc/*.cuh`` headers. The library's name carries a
-hash of the source, the headers and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs at import time, and
+hash of the source, the headers it includes (followed through their own
+``#include "..."`` lines) and the flags, so an edited source is rebuilt,
+a stale library is never loaded, and an edited header rebuilds only the
+kernels that include it. Nothing here runs at import time, and
 nothing is built on a machine without ``nvcc``: :func:`load` raises.
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,13 +55,31 @@ def nvcc_path() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def headers(src: Path) -> list[Path]:
+    """The ``csrc`` headers that ``src`` includes with ``#include "..."``,
+    directly or through other such headers, each once, in the order first
+    met."""
+    seen: list[Path] = []
+    todo = [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            path = src.parent / inc.decode()
+            if path.is_file() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
     returns the library's path. The compiler's report (registers, shared
     memory, spills from ``-Xptxas -v``) is kept beside it as ``.log``."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(CSRC.glob("*.cuh")):
+    for header in headers(src):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"

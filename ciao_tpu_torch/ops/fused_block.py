@@ -364,13 +364,15 @@ def saga_coeff_multistep_streamed_ref(A, b, starts, c, z, av, scalars,
 
 
 _ARGTYPES = {
-    # A, storage, lowp, b, rs, c, z, av, starts, wgts, [f,] sc, part,
-    # n, B, rows, K, stream
+    # A, storage, lowp, b, rs, c, z, av, starts, wgts, sc, part, n, B, rows,
+    # K, stream
     "saga_coeff_multistep": "PIIPPPPPPPPPIIIIP",
-    "saga_coeff_multistep_streamed": "PIIPPPPPPPPPPIIIIP",
-    # A, storage, lowp, b, rs, canch, w, zs, av, starts, sc, part, n, B,
-    # rows, K, stream
-    "svrg_coeff_multistep": "PIIPPPPPPPPPIIIIP",
+    # A, storage, lowp, b, rs, c, starts, f, wgts, z, av, sc, part, bar, n,
+    # B, rows, ctas, stage_rows, stages, K, stream
+    "saga_coeff_multistep_streamed": "PII" + "P" * 11 + "I" * 7 + "P",
+    # A, storage, lowp, b, rs, canch, starts, w, zs, av, sc, part, bar, n, B,
+    # rows, ctas, stage_rows, stages, K, stream
+    "svrg_coeff_multistep": "PII" + "P" * 10 + "I" * 7 + "P",
     # A, storage, lowp, b, rs, z, sc, c, gsum, hi, lo, N, n, rows, ctas,
     # stream
     "coeff_apply_all": "PIIPPPPPPPPLIIIP",
@@ -501,27 +503,6 @@ def _check_steps(A, b, starts, B, rs, points: int = 1, values: int = 4):
     return n, K, rows, part
 
 
-def _launch(name, A, b, starts, c, z, av, scalars, B, precision, rs, wgts,
-            fclamp=()):
-    """Check the arguments of a SAGA kernel of ``saga_steps.cuh`` and
-    queue its 2K launches on the current stream. ``fclamp`` is the
-    streamed kernel's extra argument, its clamp count's pointer (or
-    None)."""
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    _check("c", c, f32, (A.shape[0],), dev)
-    _check("z", z, f32, (n,), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("scalars", scalars, f32, (8,), dev)
-    if wgts is not None:
-        _check("wgts", wgts, f32, (K,), dev)
-    lowp = _lowp(A, precision)
-    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype], int(lowp),
-          b.data_ptr(), _ptr(rs), c.data_ptr(), z.data_ptr(), av.data_ptr(),
-          starts.data_ptr(), _ptr(wgts), *fclamp, scalars.data_ptr(),
-          part.data_ptr(), n, B, rows, K)
-
-
 def saga_coeff_multistep(A, b, starts, c, z, av, scalars, B: int,
                          precision: str = "highest", rs=None, wgts=None):
     """K = len(starts) SAGA/SAG coefficient-table block steps.
@@ -562,8 +543,18 @@ def saga_coeff_multistep(A, b, starts, c, z, av, scalars, B: int,
                                         wgts=wgts)
     if A.device.type != "cuda":
         raise ValueError(f"saga_coeff_multistep: no kernel for {A.device}")
-    _launch("saga_coeff_multistep", A, b, starts, c, z, av, scalars, B,
-            precision, rs, wgts)
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    _check("c", c, f32, (A.shape[0],), dev)
+    _check("z", z, f32, (n,), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("scalars", scalars, f32, (8,), dev)
+    if wgts is not None:
+        _check("wgts", wgts, f32, (K,), dev)
+    _call("saga_coeff_multistep", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
+          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), c.data_ptr(),
+          z.data_ptr(), av.data_ptr(), starts.data_ptr(), _ptr(wgts),
+          scalars.data_ptr(), part.data_ptr(), n, B, rows, K)
     saga_coeff_multistep.launches += 1
     saga_coeff_multistep.weighted_launches += wgts is not None
     return c, z, av
@@ -592,19 +583,28 @@ def saga_coeff_multistep_streamed(A, b, starts, c, z, av, scalars, B: int,
     at its first repeated block (``f``), and ``_redirect_masked`` points
     the masked steps at a block with no committed visit, because a
     masked TPU step still writes its window back. Here c is a flat (N,)
-    table in device memory and every step's two launches are ordered on
-    one stream, so a revisit reads the previous step's c: the port's
-    driver launches with ``f`` = None, and a masked step needs no
-    redirect because it writes nothing. ``f`` stays a device tensor, read
-    by both launches of every step on the device (no host sync), and
-    both return before any other load when the step is masked.
+    table in device memory, and a revisit inside a call reads the
+    previous visit's c (below): the port's driver launches with ``f`` =
+    None, and a masked step needs no redirect because it writes nothing.
+    ``f`` stays a device tensor, read once on the device (no host sync):
+    the call processes min(K, f) steps.
 
-    The design and its bound are :func:`saga_coeff_multistep`'s, whose
-    device code this kernel shares (``csrc/saga_steps.cuh``). At the deep
-    target (N = 10,485,760, n = 128, B = 8,192) a step reads 4 MB of f32
-    rows (1 MB int8) in 256 row-phase CTAs of 32 rows, and the finish
-    phase has only 4 CTAs of 32 columns, each summing 256 partials, so
-    the finish phase and the launch gaps weigh more than at the headline.
+    The step is bound by the block's rows: 4 MiB f32, 1 MiB int8 at the
+    deep target (N = 10,485,760, n = 128, B = 8,192). The whole call is
+    one cooperative launch of the persistent engine of
+    :func:`lsvrg_coeff_multistep` (``csrc/loopless_steps.cuh``, method
+    ``kSagaSteps``): 128 CTAs of 64 rows at the deep target, each taking
+    its rows as one stage of the ring the producer warp keeps loading
+    ahead across steps, its 128-column rows split over eight row groups
+    of one warp (one group would leave seven warps idle), and the finish
+    of SAGA's average, direction and prox spread over every CTA between
+    two grid barriers a step. The producer prefetches the rows, b and rs
+    but not the table: the formula thread of a row reads its old
+    coefficient from L2 when it takes the stage, after the barriers that
+    end the previous step, and writes the new one before the step's
+    first barrier, so revisits inside the call, aligned or not, read the
+    previous visit's coefficients. Any start in [0, N − B] is taken. A
+    grid that cannot be resident at once raises ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return saga_coeff_multistep_streamed_ref(
@@ -614,8 +614,11 @@ def saga_coeff_multistep_streamed(A, b, starts, c, z, av, scalars, B: int,
         raise ValueError(f"saga_coeff_multistep_streamed: no kernel for "
                          f"{A.device}")
     f = _check_f(f, A.device)
-    _launch("saga_coeff_multistep_streamed", A, b, starts, c, z, av, scalars,
-            B, precision, rs, wgts, (_ptr(f),))
+    if wgts is not None:
+        _check("wgts", wgts, torch.float32, (starts.shape[0],), A.device)
+    _loopless_launch("saga_coeff_multistep_streamed", A, b, rs, dict(c=c),
+                     starts, B, precision, scalars, 8,
+                     (_ptr(f), _ptr(wgts)), dict(z=z, av=av))
     saga_coeff_multistep_streamed.launches += 1
     saga_coeff_multistep_streamed.weighted_launches += wgts is not None
     return c, z, av
@@ -676,13 +679,14 @@ def svrg_coeff_multistep(A, b, starts, canch, w, zs, av, scalars, B: int,
     CPU tensors take the plain version :func:`svrg_coeff_multistep_ref`;
     CUDA tensors launch the kernel or raise.
 
-    The design and its bound are :func:`saga_coeff_multistep`'s, whose
-    two-launch step and device code it shares (``csrc/saga_steps.cuh``,
-    method ``kSvrg``): a step must read the block's rows, B·n·itemsize
-    bytes (16 MB f32, 4 MB int8 at B = 4096, n = 1024), and the anchor
-    coefficients are read, never written, so the row phase writes no
-    table. The finish phase sums the partials in a fixed order and
-    applies the direction, the prox and the running sum.
+    A step must read the block's rows, B·n·itemsize bytes (16 MiB f32,
+    4 MiB int8 at B = 4,096, n = 1,024); the anchor coefficients are
+    read, never written. The step is :func:`lsvrg_coeff_multistep`'s
+    plus the running sum, and so is the engine: the whole call is one
+    cooperative launch of ``csrc/loopless_steps.cuh`` (method
+    ``kSvrgSteps``), whose finish also adds each step's w to zs on its
+    columns. A grid that cannot be resident at once raises
+    ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return svrg_coeff_multistep_ref(A, b, starts, canch, w, zs, av,
@@ -690,18 +694,9 @@ def svrg_coeff_multistep(A, b, starts, canch, w, zs, av, scalars, B: int,
                                         rs=rs)
     if A.device.type != "cuda":
         raise ValueError(f"svrg_coeff_multistep: no kernel for {A.device}")
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    _check("canch", canch, f32, (A.shape[0],), dev)
-    _check("w", w, f32, (n,), dev)
-    _check("zs", zs, f32, (n,), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("scalars", scalars, f32, (6,), dev)
-    lowp = _lowp(A, precision)
-    _call("svrg_coeff_multistep", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          int(lowp), b.data_ptr(), _ptr(rs), canch.data_ptr(), w.data_ptr(),
-          zs.data_ptr(), av.data_ptr(), starts.data_ptr(), scalars.data_ptr(),
-          part.data_ptr(), n, B, rows, K)
+    _loopless_launch("svrg_coeff_multistep", A, b, rs, dict(canch=canch),
+                     starts, B, precision, scalars, 6, (),
+                     dict(w=w, zs=zs, av=av))
     svrg_coeff_multistep.launches += 1
     return w, zs
 
@@ -1796,26 +1791,41 @@ def sarah_inner_chunked(A, b, ww, v, scalars, B: int, starts,
     return ww, v, m
 
 
-# The persistent engine of kernels #16 and #17 (``csrc/loopless_steps.cuh``):
-# one cooperative launch a call, LOOPLESS_THREADS consumer threads and one
-# producer warp a CTA, a ring of 2 to LOOPLESS_MAX_STAGES stages of whole rows
-# (as many as fit LOOPLESS_STAGE_BYTES, at most LOOPLESS_MAX_STAGE_ROWS) in
-# shared memory.
+# The persistent engine of kernels #4, #5, #16 and #17
+# (``csrc/loopless_steps.cuh``): one cooperative launch a call,
+# LOOPLESS_THREADS consumer threads and one producer warp a CTA, a ring of 2
+# to LOOPLESS_MAX_STAGES stages of whole rows (as many as fit
+# LOOPLESS_STAGE_BYTES, at most LOOPLESS_MAX_STAGE_ROWS) in shared memory.
 LOOPLESS_THREADS = 256
 LOOPLESS_STAGE_BYTES = 32 * 1024
 LOOPLESS_MAX_STAGES = 8
 LOOPLESS_MAX_STAGE_ROWS = 256
 
 
+def _loopless_groups(units: int) -> int:
+    """The engine's row groups for rows of ``units`` column units
+    (``loopless_groups`` in ``csrc/loopless_steps.cuh``): groups of U
+    threads, U the units rounded up to a power of two, at least a warp
+    and at most LOOPLESS_THREADS (8 groups at n = 128 on the 16-byte
+    path, whose units are four columns; 1 from 1,024 columns)."""
+    U = 32
+    while U < units and U < LOOPLESS_THREADS:
+        U *= 2
+    return LOOPLESS_THREADS // U
+
+
 def _loopless_smem_bytes(stage_rows: int, stages: int, n: int,
                          itemsize: int) -> int:
     """Dynamic shared memory of one CTA of the engine
     (``loopless_smem_bytes`` in ``csrc/loopless_steps.cuh``): the ring,
-    the point, two mbarriers a stage, b, the anchor coefficient and rs of
-    each stage's rows, dc of two stages, the warps' margin sums of a
-    stage's rows and the finish's warp sums."""
+    the point, the row groups' column sums (g rows of n where the 16-byte
+    path gives g > 1 groups), two mbarriers a stage, b, the anchor
+    coefficient and rs of each stage's rows, dc of two stages, the warps'
+    margin sums of a stage's rows and the finish's warp sums."""
     tile = -(-stage_rows * n * itemsize // 16) * 16
-    return (stages * tile + -(-4 * n // 16) * 16 + 16 * stages
+    g = _loopless_groups(-(-n // 4))
+    groups = -(-4 * g * n // 16) * 16 if g > 1 else 0
+    return (stages * tile + -(-4 * n // 16) * 16 + groups + 16 * stages
             + 4 * (3 * stages * stage_rows + (2 + LOOPLESS_THREADS // 32)
                    * stage_rows + LOOPLESS_THREADS))
 
@@ -1825,13 +1835,14 @@ def _loopless_grid(B: int, n: int, itemsize: int, sms: int):
     """(rows a CTA, CTAs, rows a stage, stages) of the engine on a card of
     ``sms`` SMs, as ``loopless_grid`` in ``csrc/loopless_steps.cuh``
     checks it: R rows a CTA, the smallest power of two with ceil(B / R)
-    ≤ sms (R = 32 at B = 4,096 and 8 at B = 1,024: 128 CTAs on an H100's
-    132 SMs; the last CTA takes the rest of a B that R does not divide);
-    stages of S whole rows, the largest power of two up to R and
-    LOOPLESS_MAX_STAGE_ROWS whose tile fits LOOPLESS_STAGE_BYTES (at least
-    one row: 8 f32, 16 bf16 and 32 int8 rows at n = 1,024), and as many
-    stages as fit the SM's shared memory, up to LOOPLESS_MAX_STAGES (6 f32
-    stages at n = 1,024, 2 of one f32 row at n = 16,384)."""
+    ≤ sms (R = 32 at B = 4,096, 8 at B = 1,024 and 64 at B = 8,192: 128
+    CTAs on an H100's 132 SMs; the last CTA takes the rest of a B that R
+    does not divide); stages of S whole rows, the largest power of two up
+    to R and LOOPLESS_MAX_STAGE_ROWS whose tile fits LOOPLESS_STAGE_BYTES
+    (at least one row: 8 f32, 16 bf16 and 32 int8 rows at n = 1,024, 64
+    rows of any storage at n = 128), and as many stages as fit the SM's
+    shared memory, up to LOOPLESS_MAX_STAGES (6 f32 stages at n = 1,024
+    and at n = 128, 2 of one f32 row at n = 16,384)."""
     rows = 1
     while -(-B // rows) > sms:
         rows *= 2
@@ -1853,35 +1864,42 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _grid_barrier(index: int):
-    """The engine's grid barrier word on card ``index``: one zeroed int32,
-    made once; each barrier leaves its low bits at zero again, so it is
-    never reset. Calls on one card must not overlap on two streams."""
+def _grid_barrier(index: int, stream: int):
+    """The engine's grid-barrier word for the CUDA stream ``stream`` (its
+    handle) of card ``index``: one zeroed int32, made once; each barrier
+    leaves its low bits at zero again, so it is never reset. Calls on one
+    stream run one after the other; calls on two streams, which may run at
+    once, take two words. A word a call, zeroed by a memset before each
+    launch, cost 0.1-0.2 µs a step at the engine's floor on an H100
+    (PERF.md section 6)."""
     return torch.zeros(1, dtype=torch.int32,
                        device=torch.device("cuda", index))
 
 
-def _loopless_launch(name, A, b, rs, canch, starts, stop, B, precision,
-                     vectors, scalars, n_sc):
-    """Check the arguments of kernel #16 or #17 and make its one
-    cooperative launch on the current stream. ``vectors``: the (n,) f32
-    tensors of the C call after ``stop``, by name, in its order."""
+def _loopless_launch(name, A, b, rs, table, starts, B, precision, scalars,
+                     n_sc, before, vectors):
+    """Check the arguments of a kernel of the persistent engine (#4, #5,
+    #16, #17) and make its one cooperative launch on the current stream.
+    ``table``: the (N,) f32 coefficients, by name; ``before``: the C
+    call's pointers between ``starts`` and the vectors (the stop index or
+    clamp count, SAGA's weights), checked by the caller; ``vectors``: the
+    (n,) f32 tensors after them, by name, in its order."""
     n, K = _check_blocks(A, b, starts, B, rs)
     dev, f32 = A.device, torch.float32
-    stop = _check_stop(stop, dev)
-    _check("canch", canch, f32, (A.shape[0],), dev)
+    (key, c), = table.items()
+    _check(key, c, f32, (A.shape[0],), dev)
     for key, t in vectors.items():
         _check(key, t, f32, (n,), dev)
     _check("scalars", scalars, f32, (n_sc,), dev)
     rows, ctas, S, P = _loopless_grid(B, n, A.element_size(),
                                       _sm_count(dev.index))
     part = torch.empty((ctas, n), dtype=f32, device=dev)
+    bar = _grid_barrier(dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), canch.data_ptr(),
-          starts.data_ptr(), _ptr(stop),
+          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), c.data_ptr(),
+          starts.data_ptr(), *before,
           *(t.data_ptr() for t in vectors.values()), scalars.data_ptr(),
-          part.data_ptr(), _grid_barrier(dev.index).data_ptr(), n, B, rows,
-          ctas, S, P, K)
+          part.data_ptr(), bar.data_ptr(), n, B, rows, ctas, S, P, K)
 
 
 def _check_stop(stop, dev):
@@ -1962,8 +1980,10 @@ def lsvrg_coeff_multistep(A, b, canch, starts, stop, w, av, scalars, B: int,
     if A.device.type != "cuda":
         raise ValueError(f"lsvrg_coeff_multistep: no kernel for {A.device}")
     wpre = w.clone()
-    _loopless_launch("lsvrg_coeff_multistep", A, b, rs, canch, starts, stop,
-                     B, precision, dict(w=w, wpre=wpre, av=av), scalars, 6)
+    stop = _check_stop(stop, A.device)
+    _loopless_launch("lsvrg_coeff_multistep", A, b, rs, dict(canch=canch),
+                     starts, B, precision, scalars, 6, (_ptr(stop),),
+                     dict(w=w, wpre=wpre, av=av))
     lsvrg_coeff_multistep.launches += 1
     return w, wpre
 
@@ -2034,10 +2054,10 @@ def lkatyusha_coeff_multistep(A, b, canch, starts, stop, wa, y, z, av,
                          f"{A.device}")
     ypre = y.clone()
     x = torch.empty_like(y)
-    _loopless_launch("lkatyusha_coeff_multistep", A, b, rs, canch, starts,
-                     stop, B, precision,
-                     dict(wa=wa, y=y, z=z, ypre=ypre, av=av, x=x), scalars,
-                     10)
+    stop = _check_stop(stop, A.device)
+    _loopless_launch("lkatyusha_coeff_multistep", A, b, rs, dict(canch=canch),
+                     starts, B, precision, scalars, 10, (_ptr(stop),),
+                     dict(wa=wa, y=y, z=z, ypre=ypre, av=av, x=x))
     lkatyusha_coeff_multistep.launches += 1
     return y, z, ypre
 

@@ -71,11 +71,14 @@ class SumOracle(SmoothOracle):
 
 class ZeroOracle(SmoothOracle):
     """f_i == 0 for all i: the reference's default F (Finito.jl:78),
-    which the facades build for ``F=None``."""
+    which the facades build for ``F=None``. ``example`` is JAX's field, a
+    shape/dtype template for gradients, kept (as a buffer) and not read."""
 
-    def __init__(self, n_terms: int):
+    def __init__(self, n_terms: int, example=None):
         super().__init__()
         self.n_terms = int(n_terms)
+        self.register_buffer(
+            "example", None if example is None else torch.as_tensor(example))
 
     @property
     def num_terms(self) -> int:

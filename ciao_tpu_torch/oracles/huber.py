@@ -22,8 +22,9 @@ from ciao_tpu_torch.oracles.margin_rows import MarginRows, as_tensor
 class HuberRows(MarginRows):
     coeff_mode = 2  # ops.fused_block.MODE_HUBER
 
-    def __init__(self, A, b, delta=1.0, scale=1.0, row_scale=None):
-        super().__init__(A, b, row_scale)
+    def __init__(self, A, b, delta=1.0, scale=1.0, row_scale=None,
+                 supports_coeff: bool = True):
+        super().__init__(A, b, row_scale, supports_coeff)
         self.register_buffer("delta", as_tensor(delta, self.b))
         self.register_buffer("scale", as_tensor(scale, self.b))
 

@@ -29,11 +29,16 @@ from ciao_tpu_torch.oracles.margin_rows import PointProxRows
 
 
 class LeastSquaresRows(PointProxRows, SmoothOracle):
-    supports_coeff = True
+    """``supports_coeff`` (JAX's field, default True): whether solvers
+    may keep the (N,) coefficient table; False steers ``SAGA(table=
+    "auto")`` to the full (N, n) table."""
+
     coeff_mode = 0  # ops.fused_block.MODE_LSQ
 
-    def __init__(self, A, b, scale, row_scale=None):
+    def __init__(self, A, b, scale, row_scale=None,
+                 supports_coeff: bool = True):
         super().__init__()
+        self.supports_coeff = bool(supports_coeff)
         if A.is_complex():
             raise NotImplementedError(
                 "complex rows are not ported yet (ROADMAP.md, queue 1)")
@@ -61,8 +66,10 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
             raise ValueError("rows are already int8-quantized")
         if dtype == torch.int8:
             q, rs = quantize_rows(self.A)
-            return LeastSquaresRows(q, self.b, self.scale, row_scale=rs)
-        return LeastSquaresRows(self.A.to(dtype), self.b, self.scale)
+            return LeastSquaresRows(q, self.b, self.scale, row_scale=rs,
+                                    supports_coeff=self.supports_coeff)
+        return LeastSquaresRows(self.A.to(dtype), self.b, self.scale,
+                                supports_coeff=self.supports_coeff)
 
     def _rows(self, A_B, dtype):
         return A_B if A_B.dtype == dtype else A_B.to(dtype)

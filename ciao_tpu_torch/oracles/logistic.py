@@ -30,8 +30,8 @@ def _log1pexp(t):
 class LogisticRows(MarginRows):
     coeff_mode = 1  # ops.fused_block.MODE_LOGISTIC
 
-    def __init__(self, X, y, row_scale=None):
-        super().__init__(X, y, row_scale)
+    def __init__(self, X, y, row_scale=None, supports_coeff: bool = True):
+        super().__init__(X, y, row_scale, supports_coeff)
 
     @property
     def X(self):

@@ -111,11 +111,12 @@ class PointProxRows:
 class MarginRows(PointProxRows, SmoothOracle):
     """Protocol shared by the margin-loss rows (see the module note)."""
 
-    supports_coeff = True
     coeff_mode = -1  # ops.fused_block.MODE_*: set by each subclass
 
-    def __init__(self, A, b, row_scale=None):
+    def __init__(self, A, b, row_scale=None, supports_coeff: bool = True):
         super().__init__()
+        # JAX's field: False steers SAGA(table="auto") to the full table
+        self.supports_coeff = bool(supports_coeff)
         A = as_tensor(A)
         if A.is_complex():
             raise NotImplementedError(
@@ -134,7 +135,8 @@ class MarginRows(PointProxRows, SmoothOracle):
         raise NotImplementedError
 
     def _consts(self) -> dict:
-        """The constructor's keyword arguments besides the data."""
+        """The constructor's keyword arguments besides the data and
+        ``supports_coeff``."""
         return {}
 
     @property
@@ -153,8 +155,11 @@ class MarginRows(PointProxRows, SmoothOracle):
             raise ValueError("rows are already int8-quantized")
         if dtype == torch.int8:
             q, rs = quantize_rows(self.A)
-            return type(self)(q, self.b, row_scale=rs, **self._consts())
-        return type(self)(self.A.to(dtype), self.b, **self._consts())
+            return type(self)(q, self.b, row_scale=rs,
+                              supports_coeff=self.supports_coeff,
+                              **self._consts())
+        return type(self)(self.A.to(dtype), self.b,
+                          supports_coeff=self.supports_coeff, **self._consts())
 
     # ---- row access: a view for a host start, a gather for a device
     # start (no host sync) --------------------------------------------

@@ -28,8 +28,9 @@ from ciao_tpu_torch.oracles.margin_rows import MarginRows, as_tensor
 class PoissonRows(MarginRows):
     coeff_mode = 4  # ops.fused_block.MODE_POISSON
 
-    def __init__(self, A, y, scale=1.0, row_scale=None):
-        super().__init__(A, y, row_scale)
+    def __init__(self, A, y, scale=1.0, row_scale=None,
+                 supports_coeff: bool = True):
+        super().__init__(A, y, row_scale, supports_coeff)
         self.register_buffer("scale", as_tensor(scale, self.b))
 
     @property

@@ -7,10 +7,11 @@
 ``lsvrg_coeff_multistep``, ``lkatyusha_coeff_multistep``,
 ``ssnm_multistep``, ``ssnm_multistep_streamed``, ``point_saga_multistep``,
 ``point_saga_multistep_streamed`` and ``coeff_value_apply_all`` against
-their plain versions, ``coeff_apply_all`` bit for bit against its pinned
-digests, ``coeff_value_apply_all``'s c and gsum bit for bit
-``coeff_apply_all``'s, the facades' routing to them, and the polish's
-exact-f32 check.
+their plain versions, ``coeff_apply_all`` and the loopless pair bit for
+bit against their pinned digests, ``coeff_value_apply_all``'s c and gsum
+bit for bit ``coeff_apply_all``'s, the four kernels of the persistent
+engine (#4, #5, #16, #17) on two streams at once, the facades' routing to
+them, and the polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -1157,14 +1158,60 @@ def test_vr_kernel_matches_plain_version(dev, kind, storage, precision, n,
         assert _rel(k, r) <= bound, (kind, i, _rel(k, r))
 
 
+# sha256 (first 16 hex digits) of kernels #16's and #17's outputs on
+# loopless_digest's inputs, from the engine as it was before kernels #4 and
+# #5 joined it (NVIDIA H100 80GB HBM3, 132 SMs, nvcc of CUDA 12.8)
+LOOPLESS_GOLDEN = {
+    ("lsvrg", "f32"): "1b86d247d1dd5e39",
+    ("lsvrg", "int8"): "de61e002d1d466f6",
+    ("lkatyusha", "f32"): "207eb3a290eead61",
+    ("lkatyusha", "int8"): "b909aff2bb48f3dd",
+}
+
+
+def loopless_digest(dev, kind, storage):
+    """Kernel #16's (w, wpre) or #17's (y, z, ypre) after one call of K =
+    32 steps at the headline width (N = 32,768, n = 1,024, B = 4,096: 128
+    CTAs on a card of 132 SMs) on exact dyadic inputs (no generator, no
+    libm), as a digest."""
+    import hashlib
+
+    N, n, B, K = 32768, 1024, 4096, 32
+    A, b, z, rs = _golden_inputs(dev, storage, N, n)
+    i, j = torch.arange(N), torch.arange(n)
+    canch = ((i * 5 % 23 - 11).float() / 32).to(dev)
+    av = ((j * 3 % 13 - 6).float() / 1024).to(dev)
+    y = ((j * 5 % 7 - 3).float() / 128).to(dev)
+    starts = (torch.arange(K) * 5 % 8 * B).to(torch.int32).to(dev)
+    if kind == "lsvrg":
+        sc = torch.tensor([1.0, 2.0**-12, 2.0**-18, 1.0 / B, 0.0, 0.5],
+                          device=dev)
+        out = tfb.lsvrg_coeff_multistep(A, b, canch, starts, None, z.clone(),
+                                        av, sc, B, rs=rs)
+    else:
+        sc = torch.tensor([1.0, 2.0**-12, 2.0**-18, 0.99, 0.01, 1.0 / 3.0,
+                           0.5, 1.0 / B, 0.0, 0.5], device=dev)
+        out = tfb.lkatyusha_coeff_multistep(A, b, canch, starts, None, z,
+                                            y.clone(), z.clone(), av, sc, B,
+                                            rs=rs)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 @pytest.mark.parametrize("kind", ["lsvrg", "lkatyusha"])
 @pytest.mark.parametrize("storage", ["f32", "int8"])
 def test_loopless_kernels_repeat_bit_for_bit_at_width(dev, kind, storage,
                                                       monkeypatch):
     """Kernels #16 and #17 at the headline width (n = 1,024, B = 4,096, K =
     32: 128 CTAs, two grid barriers a step) give the same bits in two
-    calls; a grid other than the engine's rule is refused by the launch
-    (RuntimeError), nothing falls back."""
+    calls, and on a 132-SM card the bits of the engine before #4 and #5
+    joined it (``LOOPLESS_GOLDEN``: one row group at this width, so the
+    narrow-row split leaves their arithmetic as it was); a grid other
+    than the engine's rule is refused by the launch (RuntimeError),
+    nothing falls back."""
     N, n, B, K = 32768, 1024, 4096, 32
     S = _vr_setup(dev, N, n, B, K, storage, seed=5)
     sc = _vr_scalars(S, kind, B, 0.1, dev)
@@ -1173,6 +1220,9 @@ def test_loopless_kernels_repeat_bit_for_bit_at_width(dev, kind, storage,
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+    if tfb._sm_count(dev.index) == 132:
+        assert loopless_digest(dev, kind, storage) == LOOPLESS_GOLDEN[
+            kind, storage]
     rule = tfb._loopless_grid
 
     def halved(B_, n_, isz, sms):
@@ -1290,6 +1340,320 @@ def test_vr_facades_send_every_gated_run_to_their_kernels(dev):
             x0, F=F, g=IndBox(-math.inf, 1.0), L=L)
     assert tfb.katyusha_coeff_multistep.launches == before
     runtime.reset_fallback_warnings()
+
+
+# ---------------------------------------------------------------------------
+# kernels #4 and #5 on the persistent engine, and the engine's barrier word
+# a stream
+# ---------------------------------------------------------------------------
+
+# (N, n, B, K) of kernel #4 at the engine's widths: the deep target's B =
+# 8,192 at its n = 128 (64 rows a CTA, eight row groups of a warp) and the
+# headline width n = 1,024 (one group)
+ENGINE_SAGA = {"n128": (65536, 128, 8192, 32), "n1024": (32768, 1024, 4096,
+                                                          32)}
+ENGINE_STORAGES = [("f32", "highest"), ("f32", "default"), ("bf16", "highest"),
+                   ("int8", "highest")]
+ENGINE_STORAGE_IDS = ["f32", "f32-default", "bf16", "int8"]
+
+
+def _revisits(N, B, K, gen, dev, aligned=True):
+    """K block starts that revisit blocks inside one call: step 1 repeats
+    step 0 (adjacent), step 4 step 2 and step 7 step 4 (within the ring's
+    lookahead of up to eight stages), the rest drawn. Unaligned: any
+    start in [0, N − B], steps 10-13 overlapping each other by part of a
+    block."""
+    if aligned:
+        s = torch.randint(N // B, (K,), generator=gen, device=dev) * B
+    else:
+        s = torch.randint(N - B + 1, (K,), generator=gen, device=dev)
+        s[10] = 37
+        s[11] = 37 + B // 2 + 3
+        s[12] = 37 + B // 3
+        s[13] = 38
+    s[1] = s[0]
+    s[4] = s[2]
+    s[7] = s[4]
+    return s.to(torch.int32)
+
+
+def _saga_steps(fn, F, state, starts, sc, B, precision, wgts, f=None):
+    """One call of kernel #4 or its plain version on copies of
+    ``state``."""
+    rows, offs = F.coeff_rows_data()
+    st = [t.clone() for t in state]
+    fn(rows, offs, starts, *st, sc, B, precision=precision,
+       rs=F.coeff_rows_scale(), wgts=wgts, f=f)
+    return st
+
+
+def _check_engine_saga(F, state, starts, sc, B, precision, wgts, live,
+                       got):
+    """``got``, kernel #4's call with ``live`` steps processed, against
+    the plain version: the whole call where the dots are exact f32 (z
+    within 1e-6 of its largest entry, c and av 1e-5); where they round to
+    bf16, step by step (each plain step taken once more by the kernel from
+    the same state, within 1e-5 and 1e-4: one flipped bf16 rounding
+    carries through every later step, so a K-step comparison holds no
+    fixed bound), and the call equals its one-step calls bit for bit."""
+    lowp = tfb._lowp(F.coeff_rows_data()[0], precision)
+    tol = 1e-5 if lowp else 1e-6
+    kern, plain = (tfb.saga_coeff_multistep_streamed,
+                   tfb.saga_coeff_multistep_streamed_ref)
+    w = None if wgts is None else wgts[:live]
+    if not lowp:
+        want = _saga_steps(plain, F, state, starts[:live], sc, B, precision,
+                           w)
+        torch.cuda.synchronize()
+        pairs = [(got, want)]
+    else:
+        ref, chain, pairs = list(state), list(state), []
+        for k in range(live):
+            s1, w1 = starts[k:k + 1], None if w is None else w[k:k + 1]
+            pairs.append((_saga_steps(kern, F, ref, s1, sc, B, precision, w1),
+                          _saga_steps(plain, F, ref, s1, sc, B, precision,
+                                      w1)))
+            chain = _saga_steps(kern, F, chain, s1, sc, B, precision, w1)
+            ref = pairs[-1][1]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, chain))
+    for (kc, kz, kav), (rc, rz, rav) in pairs:
+        assert bool(torch.isfinite(kz).all())
+        assert _rel(kz, rz) <= tol
+        assert _rel(kav, rav) <= 10 * tol
+        assert _rel(kc, rc) <= 10 * tol
+    assert float((pairs[-1][1][1] - state[1]).abs().max()) > 0
+
+
+@pytest.mark.parametrize("f", [None, 0, 16], ids=["f=None", "f=0", "f=K/2"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["uniform", "wgts"])
+@pytest.mark.parametrize("sag", [False, True], ids=["saga", "sag"])
+@pytest.mark.parametrize("storage,precision", ENGINE_STORAGES,
+                         ids=ENGINE_STORAGE_IDS)
+@pytest.mark.parametrize("shape", list(ENGINE_SAGA))
+def test_streamed_kernel_on_the_engine_matches_plain_version(
+        dev, shape, storage, precision, sag, weighted, f):
+    """Kernel #4, one cooperative launch a call, at the deep target's
+    width (n = 128, B = 8,192) and at n = 1,024, on a schedule that
+    revisits blocks inside the call (adjacent and within the ring's
+    lookahead, where a prefetched coefficient would be stale), with and
+    without weights, SAGA and SAG, the clamp count f read on the device:
+    f = 0 leaves the state bit for bit as it was, f = K/2 is the first
+    K/2 steps; against the plain version (``_check_engine_saga``)."""
+    N, n, B, K = ENGINE_SAGA[shape]
+    F, state, _, sc, wgts = _setup(dev, N, n, B, K, storage, sag, weighted,
+                                   seed=21)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    starts = _revisits(N, B, K, gen, dev)
+    fc = None if f is None else torch.tensor([f], dtype=torch.int32,
+                                             device=dev)
+    before = tfb.saga_coeff_multistep_streamed.launches
+    got = _saga_steps(tfb.saga_coeff_multistep_streamed, F, state, starts,
+                      sc, B, precision, wgts, fc)
+    torch.cuda.synchronize()
+    assert tfb.saga_coeff_multistep_streamed.launches == before + 1
+    if f == 0:
+        assert all(torch.equal(a, b) for a, b in zip(got, state))
+        return
+    _check_engine_saga(F, state, starts, sc, B, precision, wgts,
+                       K if f is None else f, got)
+
+
+@pytest.mark.parametrize("storage,precision", ENGINE_STORAGES,
+                         ids=ENGINE_STORAGE_IDS)
+@pytest.mark.parametrize("shape", list(ENGINE_SAGA))
+def test_streamed_kernel_takes_unaligned_overlapping_starts(dev, shape,
+                                                            storage,
+                                                            precision):
+    """Kernel #4 on starts that are not multiples of B (the wrapper takes
+    any start in [0, N − B]) and overlap each other inside the call, so
+    one CTA reads coefficients that another wrote a step before: against
+    the plain version as above, with weights."""
+    N, n, B, K = ENGINE_SAGA[shape]
+    F, state, _, sc, wgts = _setup(dev, N, n, B, K, storage, False, True,
+                                   seed=23)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    starts = _revisits(N, B, K, gen, dev, aligned=False)
+    assert bool((starts % B != 0).any())
+    got = _saga_steps(tfb.saga_coeff_multistep_streamed, F, state, starts,
+                      sc, B, precision, wgts)
+    torch.cuda.synchronize()
+    _check_engine_saga(F, state, starts, sc, B, precision, wgts, K, got)
+
+
+# (N, n, B) of kernel #5 at the headline width, and its calls' K: a driver
+# call of LAUNCH_STEPS = 128 steps and a short remainder call
+ENGINE_SVRG = (32768, 1024, 4096)
+
+
+@pytest.mark.parametrize("K", [128, 5], ids=["K=128", "K=5"])
+@pytest.mark.parametrize("storage,precision", ENGINE_STORAGES,
+                         ids=ENGINE_STORAGE_IDS)
+def test_svrg_kernel_on_the_engine_matches_plain_version(dev, storage,
+                                                         precision, K):
+    """Kernel #5, one cooperative launch a call, at n = 1,024, B = 4,096
+    against its plain version: w and zs within 1e-6 of their largest
+    entry over the whole call where the dots are exact f32; where they
+    round to bf16, within 1e-5 step by step (each plain step taken once
+    more by the kernel from the same state), the call equal to its
+    one-step calls bit for bit."""
+    N, n, B = ENGINE_SVRG
+    F, canch, state, av, starts, sc = _svrg_setup(dev, N, n, B, K, storage,
+                                                   0.1, seed=25)
+    rows, offs = F.coeff_rows_data()
+    rs = F.coeff_rows_scale()
+
+    def run(fn, st, s):
+        out = [t.clone() for t in st]
+        fn(rows, offs, s, canch, *out, av, sc, B, precision=precision,
+           rs=rs)
+        return out
+
+    before = tfb.svrg_coeff_multistep.launches
+    got = run(tfb.svrg_coeff_multistep, state, starts)
+    torch.cuda.synchronize()
+    assert tfb.svrg_coeff_multistep.launches == before + 1
+    lowp = tfb._lowp(rows, precision)
+    if not lowp:
+        pairs = [(got, run(tfb.svrg_coeff_multistep_ref, state, starts))]
+    else:
+        ref, chain, pairs = list(state), list(state), []
+        for k in range(K):
+            s = starts[k:k + 1]
+            pairs.append((run(tfb.svrg_coeff_multistep, ref, s),
+                          run(tfb.svrg_coeff_multistep_ref, ref, s)))
+            chain = run(tfb.svrg_coeff_multistep, chain, s)
+            ref = pairs[-1][1]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, chain))
+    torch.cuda.synchronize()
+    tol = 1e-5 if lowp else 1e-6
+    for (kw, kzs), (rw, rzs) in pairs:
+        assert bool(torch.isfinite(kw).all())
+        assert _rel(kw, rw) <= tol
+        assert _rel(kzs, rzs) <= tol
+    assert float((pairs[-1][1][0] - state[0]).abs().max()) > 0
+
+
+@pytest.mark.parametrize("kernel", ["#4 n128", "#4 n1024", "#5"])
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_engine_kernels_repeat_bit_for_bit_at_width(dev, kernel, storage,
+                                                    monkeypatch):
+    """Kernels #4 (at the deep target's width and at n = 1,024, weighted,
+    with revisits) and #5 (at the headline width, K = 128) give the same
+    bits in two calls; a grid other than the engine's rule is refused by
+    the launch (RuntimeError), nothing falls back."""
+    if kernel == "#5":
+        N, n, B = ENGINE_SVRG
+        F, canch, state, av, starts, sc = _svrg_setup(dev, N, n, B, 128,
+                                                       storage, 0.1, seed=26)
+        rows, offs = F.coeff_rows_data()
+        fn = tfb.svrg_coeff_multistep
+
+        def run():
+            st = [t.clone() for t in state]
+            fn(rows, offs, starts, canch, *st, av, sc, B,
+               rs=F.coeff_rows_scale())
+            return st
+    else:
+        N, n, B, K = ENGINE_SAGA[kernel.split()[1]]
+        F, state, _, sc, wgts = _setup(dev, N, n, B, K, storage, False, True,
+                                       seed=27)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(28)
+        starts = _revisits(N, B, K, gen, dev)
+        fn = tfb.saga_coeff_multistep_streamed
+
+        def run():
+            return _saga_steps(fn, F, state, starts, sc, B, "highest", wgts)
+    runs = [run() for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert not torch.equal(runs[0][-1], state[-1])
+    rule = tfb._loopless_grid
+
+    def halved(B_, n_, isz, sms):
+        rows_, ctas, S_, P = rule(B_, n_, isz, sms)
+        return 2 * rows_, -(-B_ // (2 * rows_)), S_, P
+    monkeypatch.setattr(tfb, "_loopless_grid", halved)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        run()
+    assert fn.launches == before
+
+
+TWO_STREAMS = r"""
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from ciao_tpu_torch.ops import fused_block as tfb
+from ciao_tpu_torch.oracles import LeastSquaresRows
+
+B, reps = int(sys.argv[2]), 20
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev)
+gen.manual_seed(29)
+N, n, K = 16 * B, 1024, 32
+A = torch.randn(N, n, generator=gen, device=dev)
+F = LeastSquaresRows(A, torch.randn(N, generator=gen, device=dev), float(N))
+rows, offs = F.coeff_rows_data()
+xa = 0.05 * torch.randn(n, generator=gen, device=dev)
+canch = F.coeff_all(xa)
+av = F.apply_all(canch) / N
+g = 1.0 / (6.0 * float((A * A).sum(1).max()) * N)
+sc = torch.tensor([N, g, g * 0.1, 1.0 / B, 0.0, 0.0], device=dev)
+starts = [(torch.randint(16, (K,), generator=gen, device=dev) * B).to(
+    torch.int32) for _ in range(2)]
+w0 = [xa + 0.01 * torch.randn(n, generator=gen, device=dev)
+      for _ in range(2)]
+
+
+def call(i):
+    w = w0[i].clone()
+    _, wpre = tfb.lsvrg_coeff_multistep(rows, offs, canch, starts[i], None,
+                                        w, av, sc, B)
+    return w, wpre
+
+
+alone = [call(i) for i in range(2)]
+torch.cuda.synchronize()
+streams = [torch.cuda.Stream(dev) for _ in range(2)]
+assert streams[0].cuda_stream != streams[1].cuda_stream
+for _ in range(reps):
+    outs = [None, None]
+    for i in range(2):
+        streams[i].wait_stream(torch.cuda.current_stream(dev))
+    for i in range(2):
+        with torch.cuda.stream(streams[i]):
+            outs[i] = call(i)
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(outs[i], alone[i])), i
+print("two streams: ok")
+"""
+
+
+@pytest.mark.parametrize("B", [128, 64])
+def test_loopless_calls_on_two_streams_are_their_single_stream_runs(dev, B):
+    """Two calls of kernel #16 with small grids (B = 128: one row a CTA,
+    128 CTAs; B = 64: 64, so both grids fit the card's 132 SMs at once)
+    queued together on two streams, 20 times: each gives its
+    single-stream result bit for bit (each stream has its own grid-barrier
+    word, ``fused_block._grid_barrier``). Run in a child process with a
+    time limit, so that a hung barrier fails the test and does not stall
+    the suite."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", TWO_STREAMS, root, str(B)],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "two streams: ok" in proc.stdout
 
 
 # ---------------------------------------------------------------------------

@@ -204,13 +204,17 @@ GRID = {(4096, 1024, 4): (32, 128, 8, 6), (4096, 1024, 2): (32, 128, 16, 6),
         (4096, 1024, 1): (32, 128, 32, 6), (1024, 1024, 4): (8, 128, 8, 6),
         (1024, 1024, 1): (8, 128, 8, 8), (128, 1024, 4): (1, 128, 1, 8),
         (4096, 16384, 4): (32, 128, 1, 2), (4096, 16384, 2): (32, 128, 1, 5),
-        (4096, 16384, 1): (32, 128, 2, 5)}
+        (4096, 16384, 1): (32, 128, 2, 5), (8192, 128, 4): (64, 128, 64, 6),
+        (8192, 128, 2): (64, 128, 64, 8), (8192, 128, 1): (64, 128, 64, 8)}
+# the row groups of the narrow-row split (16-byte path: units of 4 columns)
+GROUPS = {128: 8, 202: 4, 1024: 1, 16384: 1}
 
 
 @pytest.mark.parametrize("itemsize", [4, 2, 1], ids=["f32", "bf16", "int8"])
 @pytest.mark.parametrize("B,n", [(4096, 1024), (1024, 1024), (128, 1024),
-                                 (4096, 202), (4096, 16384)],
-                         ids=["headline", "B1024", "B128", "n202", "n16384"])
+                                 (4096, 202), (4096, 16384), (8192, 128)],
+                         ids=["headline", "B1024", "B128", "n202", "n16384",
+                              "deep"])
 def test_loopless_grid_fits_the_card(B, n, itemsize):
     """The persistent engine's grid and ring (``_loopless_grid``, checked
     again in ``csrc/loopless_steps.cuh``) on an H100's 132 SMs: rows × CTAs
@@ -218,7 +222,11 @@ def test_loopless_grid_fits_the_card(B, n, itemsize):
     shared memory and threads), the CTA's shared memory within 227 KB, at
     least two stages of at most the CTA's rows, a power of two, in 32 KB
     unless one row is larger; the headline's and the facades' batch on 128
-    CTAs, the headline's ring holding a whole step and more."""
+    CTAs, the headline's ring holding a whole step and more. The deep
+    target's B = 8,192 at n = 128 (kernel #4): 64 rows a CTA on 128 CTAs,
+    one 64-row stage a step (32 KB f32), its 32 units of four columns a
+    row split over 8 row groups of a warp, whose column sums the shared
+    memory holds; at n = 1,024 one group, and no room taken for them."""
     rows, ctas, S, P = tfb._loopless_grid(B, n, itemsize, H100_SMS)
     smem = tfb._loopless_smem_bytes(S, P, n, itemsize)
     per_sm = min(2048 // (tfb.LOOPLESS_THREADS + 32),
@@ -235,6 +243,15 @@ def test_loopless_grid_fits_the_card(B, n, itemsize):
         assert (rows, ctas, S, P) == GRID[B, n, itemsize]
     if B >= 1024 and n <= 1024:
         assert ctas == 128 and S * P > rows
+    g = tfb._loopless_groups(-(-n // 4))
+    assert g == GROUPS[n] and tfb.LOOPLESS_THREADS % g == 0
+    # the ring, the point, the mbarriers and the per-row values, then g rows
+    # of n f32 column sums where g > 1
+    ring = P * (-(-S * n * itemsize // 16) * 16) + -(-4 * n // 16) * 16
+    rest = 16 * P + 4 * (3 * P * S + 10 * S + 256)
+    assert smem == ring + rest + (-(-4 * g * n // 16) * 16 if g > 1 else 0)
+    if (B, n) == (8192, 128):
+        assert S == rows == 64 and S * n * itemsize <= 32 * 1024
 
 
 # ---------------------------------------------------------------------------

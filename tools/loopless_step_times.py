@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
-"""Times kernels #16 (``lsvrg_coeff_multistep``) and #17
-(``lkatyusha_coeff_multistep``) of one checkout of the port on one NVIDIA
-GPU, so that two versions of the loopless pair can be compared in one call.
+"""Times the kernels of the persistent engine (``csrc/loopless_steps.cuh``)
+of one checkout of the port on one NVIDIA GPU, so that two versions can be
+compared in one call: #16 (``lsvrg_coeff_multistep``) and #17
+(``lkatyusha_coeff_multistep``), #5 (``svrg_coeff_multistep``) at the
+headline and #4 (``saga_coeff_multistep_streamed``) at the deep target.
 
     python3 tools/loopless_step_times.py [--root DIR] [--tag NAME] [--seed 0]
+                                         [--kernels 16,17,5,4]
 
-Builds the two kernels from ``DIR/ciao_tpu_torch/csrc`` (default: this
+Builds the kernels from ``DIR/ciao_tpu_torch/csrc`` (default: this
 checkout) with that checkout's ``ops/_build.py`` and imports that checkout's
 wrappers; the inputs and helpers are this checkout's ``chip_smoke.py``
-(``vr_inputs``, ``vr_scalars``, ``vr_call``). Times each kernel per step by
-CUDA events, in calls of K = 32 steps (``LOOPLESS_LAUNCH``, the longest
-coin window) and K = 4 (short windows pay the call's fixed cost), two turns
-of each with #16 and #17 alternating, one state stepped on in place, at
-262,144 x 1,024 Gaussian rows stored f32, bf16 and int8 (least-squares
-formula, scale N) with blocks of B = 4,096 (the headline), 1,024 (the
-facades' batch) and 128 (one row a CTA of the persistent engine: its
-floor, the barriers and the finish of a step with next to no rows; the
-two-launch engine runs it on 128 CTAs too). Beside each time: the step's
-bound at 3.35 TB/s and its bytes at the card's read ceiling (``torch.sum``
-over 2 GiB of f32, measured in the same process), and the card's name and
-power limit. Prints one JSON line. To compare two checkouts A and B, run A,
-B, B, A in one call.
+(``vr_inputs``, ``vr_scalars``, ``vr_call``, ``svrg_inputs``,
+``kernel_inputs``, ``step_bound``). Times each kernel per step by CUDA
+events, two turns each, one state stepped on in place:
+
+- #16 and #17 alternating, in calls of K = 32 steps (``LOOPLESS_LAUNCH``,
+  the longest coin window) and K = 4 (short windows pay the call's fixed
+  cost), at 262,144 x 1,024 Gaussian rows stored f32, bf16 and int8
+  (least-squares formula, scale N) with blocks of B = 4,096 (the
+  headline), 1,024 (the facades' batch) and 128 (one row a CTA of the
+  persistent engine: its floor, the barriers and the finish of a step with
+  next to no rows);
+- #5 on the same rows at B = 4,096 in calls of K = 128 (``LAUNCH_STEPS``,
+  the SVRG driver's call), f32, bf16 and int8;
+- #4 at the deep target's shape, 10,485,760 x 128 Gaussian rows, B =
+  8,192, in calls of K = 128 (the SAGA driver's), f32 and int8.
+
+Beside each time: the step's bound at 3.35 TB/s and its bytes at the card's
+read ceiling (``torch.sum`` over 2 GiB of f32, measured in the same
+process), and the card's name and power limit. Prints one JSON line. To
+compare two checkouts A and B, run A, B, B, A in one call.
 """
 
 from __future__ import annotations
@@ -38,42 +48,23 @@ N, n = 262_144, 1_024
 BATCHES = (("headline", 4_096), ("facades", 1_024), ("floor", 128))
 STEPS = (32, 4)
 KINDS = (("#16", "lsvrg", 4), ("#17", "lkatyusha", 7))  # (n,) vectors moved
+CALL_STEPS = 128  # the SAGA and SVRG drivers' LAUNCH_STEPS
+SVRG_B = 4_096
+DEEP_N, DEEP_n, DEEP_B = 10 * 1024 * 1024, 128, 8_192
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(HERE))
-    ap.add_argument("--tag", default="")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("loopless_step_times: no CUDA device", file=sys.stderr)
-        return 2
-    root = os.path.abspath(args.root)
-    # this checkout's chip_smoke.py (its helpers), the other's package
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(os.path.dirname(HERE), "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    sys.path.insert(0, root)
-    from ciao_tpu_torch.ops import _build
-    from ciao_tpu_torch.ops import fused_block as fb
+def _record(out, cs, F, starts, B, vec_bytes, row_extra, ceil, **kw):
+    """One timed entry with its bound and its bytes at the ceiling."""
+    nbytes = cs.step_bytes(F, starts, B, vec_bytes, row_extra)
+    b_ms, b_by = cs.step_bound(F, starts, B, vec_bytes, row_extra)
+    out["steps"].append(dict(B=B, bound_ms=b_ms, bound_by=b_by,
+                             ceil_ms=nbytes / ceil * 1e3, **kw))
+
+
+def time_loopless(out, cs, fb, A, b, gen, dev, ceil):
+    """#16 and #17 at every batch and call length, in alternation."""
     from ciao_tpu_torch.oracles import LeastSquaresRows
 
-    if not fb.__file__.startswith(root):
-        raise RuntimeError(f"imported {fb.__file__}, not from {root}")
-    for _, kind, _ in KINDS:
-        _build.load(cs.VR[kind][0])
-    dev = torch.device("cuda", 0)
-    card = cs.card_info()
-    ceil = cs.read_ceiling(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    out = {"tag": args.tag, "root": root, "card": card,
-           "ceiling_gb_s": ceil / 1e9, "steps": []}
-    A = torch.randn(N, n, generator=gen, device=dev)
-    b = torch.randn(N, generator=gen, device=dev)
     for storage in ("f32", "bf16", "int8"):
         F = LeastSquaresRows(A, b, float(N))
         if storage != "f32":
@@ -99,16 +90,120 @@ def main() -> int:
                                for t in state):
                         raise AssertionError(f"{label} {storage} B={B}: "
                                              "non-finite state")
-                    nbytes = cs.step_bytes(F, S["starts"], B, vec * 4 * n, 8)
-                    b_ms, b_by = cs.bound(nbytes, 4.0 * B * n,
-                                          F.coeff_rows_data()[0]
-                                          .element_size())
-                    out["steps"].append(dict(
-                        kernel=label, shape=shape, B=B, storage=storage,
-                        K=K, ms=times[label], bound_ms=b_ms, bound_by=b_by,
-                        ceil_ms=nbytes / ceil * 1e3))
+                    _record(out, cs, F, S["starts"], B, vec * 4 * n, 8, ceil,
+                            kernel=label, shape=shape, storage=storage, K=K,
+                            ms=times[label])
         del F
         torch.cuda.empty_cache()
+
+
+def time_svrg(out, cs, fb, A, b, gen, dev, ceil):
+    """#5 at the headline in calls of CALL_STEPS steps."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    B = SVRG_B
+    gamma = 1.0 / (3.0 * float((A * A).sum(1).max()) * N)
+    for storage in ("f32", "bf16", "int8"):
+        F = LeastSquaresRows(A, b, float(N))
+        if storage != "f32":
+            F = F.with_storage(storage)
+        rows, offs = F.coeff_rows_data()
+        rs = F.coeff_rows_scale()
+        canch, (w, zs), av, starts, sc = cs.svrg_inputs(
+            F, 0.3 * gamma, gen, dev, B, CALL_STEPS, cs.LAM)
+
+        def call():
+            fb.svrg_coeff_multistep(rows, offs, starts, canch, w, zs, av, sc,
+                                    B, rs=rs)
+        ms = [cs.time_events(call, 5) / CALL_STEPS for _ in range(2)]
+        if not bool(torch.isfinite(w).all()):
+            raise AssertionError(f"#5 {storage}: non-finite w")
+        # rows, b and canch of the visited blocks; w, zs in and out, av
+        _record(out, cs, F, starts, B, 5 * 4 * n, 8, ceil, kernel="#5",
+                shape="headline", storage=storage, K=CALL_STEPS, ms=ms)
+        del F
+        torch.cuda.empty_cache()
+
+
+def time_saga_deep(out, cs, fb, gen, dev, ceil):
+    """#4 at the deep target's shape in calls of CALL_STEPS steps."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    A = torch.randn(DEEP_N, DEEP_n, generator=gen, device=dev)
+    b = torch.randn(DEEP_N, generator=gen, device=dev)
+    gamma = 1.0 / (3.0 * float((A * A).sum(1).max()) * DEEP_N)
+    for storage in ("f32", "int8"):
+        F = LeastSquaresRows(A, b, float(DEEP_N))
+        if storage != "f32":
+            F = F.with_storage(storage)
+        rows, offs = F.coeff_rows_data()
+        rs = F.coeff_rows_scale()
+        c, z, av, starts, sc, _ = cs.kernel_inputs(
+            F, gamma, gen, dev, DEEP_B, CALL_STEPS, False, False)
+
+        def call():
+            fb.saga_coeff_multistep_streamed(rows, offs, starts, c, z, av,
+                                             sc, DEEP_B, rs=rs)
+        ms = [cs.time_events(call, 5) / CALL_STEPS for _ in range(2)]
+        if not bool(torch.isfinite(z).all()):
+            raise AssertionError(f"#4 {storage}: non-finite z")
+        # rows, b, c read and written of the visited blocks; z and av in and
+        # out
+        _record(out, cs, F, starts, DEEP_B, 4 * 4 * DEEP_n, 12, ceil,
+                kernel="#4", shape="deep", storage=storage, K=CALL_STEPS,
+                ms=ms)
+        del F, c
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(HERE))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", default="16,17,5,4",
+                    help="which of #16/#17 (together), #5, #4 to time")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("loopless_step_times: no CUDA device", file=sys.stderr)
+        return 2
+    which = set(args.kernels.split(","))
+    root = os.path.abspath(args.root)
+    # this checkout's chip_smoke.py (its helpers), the other's package
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(HERE), "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    sys.path.insert(0, root)
+    from ciao_tpu_torch.ops import _build
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    if not fb.__file__.startswith(root):
+        raise RuntimeError(f"imported {fb.__file__}, not from {root}")
+    names = ([cs.VR[kind][0] for _, kind, _ in KINDS]
+             if which & {"16", "17"} else [])
+    names += ["svrg_coeff_multistep"] if "5" in which else []
+    names += ["saga_coeff_multistep_streamed"] if "4" in which else []
+    for name in names:
+        _build.load(name)
+    dev = torch.device("cuda", 0)
+    card = cs.card_info()
+    ceil = cs.read_ceiling(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"tag": args.tag, "root": root, "card": card,
+           "ceiling_gb_s": ceil / 1e9, "steps": []}
+    A = torch.randn(N, n, generator=gen, device=dev)
+    b = torch.randn(N, generator=gen, device=dev)
+    if which & {"16", "17"}:
+        time_loopless(out, cs, fb, A, b, gen, dev, ceil)
+    if "5" in which:
+        time_svrg(out, cs, fb, A, b, gen, dev, ceil)
+    del A, b
+    torch.cuda.empty_cache()
+    if "4" in which:
+        time_saga_deep(out, cs, fb, gen, dev, ceil)
     print(json.dumps(out), flush=True)
     return 0
 
