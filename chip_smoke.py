@@ -151,18 +151,18 @@ Phases, one line each:
      "highest" and "default", NormL1 and Zero, Katyusha at τ₁ = 0.5 (ns)
      and 0.3, the logistic and Huber formulas, a width that is not whole
      16-byte chunks, the loopless kernels' masked windows (stop < K − 1
-     and stop = K − 1) bit for bit, K = 8 at the headline, and the loopless
-     engine's grid at its edges (LOOPLESS_EDGES: B = 4,096 and 1,024 at n =
-     1,024, n = 16,384 and n = 202, f32 with a stop and int8 step by step,
-     each with its masked windows);
+     and stop = K − 1) bit for bit, K = 8 at the headline, and the
+     persistent engine's grid at its edges for all four (LOOPLESS_EDGES: B
+     = 4,096 and 1,024 at n = 1,024, n = 16,384 and n = 202; the loopless
+     pair f32 with a stop and int8 step by step, each with its masked
+     windows);
   4k-4n. Katyusha, SARAH, L-SVRG and L-Katyusha at the headline (f32 and
      int8 rows) with launch counts and falling objectives, their facades
      on the planted Lasso, and Katyusha's time to rel 1e-3;
   9. times: the four kernels per step in turns with their plain versions
-     and with their bounds, the loopless pair also at B = 1,024 (the
-     facades' batch); a window of each family profiled, the loopless pair's
-     showing one launch of its kernel a call and no kernel of the
-     two-launch engine.
+     and with their bounds, also at B = 1,024 (the facades' batch); a
+     window of each family profiled, showing one launch of its kernel of
+     the persistent engine a call and no kernel of the two-launch engine.
   3o-3p. kernels #19, #13, #12, #15 == their plain version: SSNM in f32
      "highest" and "default", bf16 and int8 rows at τ = 0.5 and 1, #13 with
      f = K and f = 23; Point-SAGA in all five oracle modes (least squares,
@@ -341,9 +341,10 @@ VR_M, VR_OUTER, LOOPLESS_STEPS = N // B, 150, 24_576
 # the four kernels against their plain versions: d = 64 blocks, and the
 # loopless kernels' masked window (steps k > stop)
 VR_SMALL = dict(N=8_192, n=128, B=128, K=64, stop=22)
-# the loopless engine's grid at its edges (N, n, B, K, stop): 128 CTAs of 32
-# and of 8 rows, one f32 row a stage (the wide build), rows that are not
-# whole 16-byte chunks
+# the persistent engine's grid at its edges (N, n, B, K, stop): 128 CTAs of
+# 32 and of 8 rows, one f32 row a stage (the wide build; SARAH's one-stage
+# ring), rows that are not whole 16-byte chunks; the stop is the loopless
+# pair's (LOOPLESS_KINDS)
 LOOPLESS_EDGES = ((32_768, 1_024, 4_096, 32, 20),
                   (32_768, 1_024, 1_024, 32, 20),
                   (8_192, 16_384, 1_024, 8, 5), (8_192, 202, 1_024, 32, 20))
@@ -2667,9 +2668,9 @@ def phase_check_vr(gen, dev) -> dict:
     N = 8,192, n = 128, B = 128, K = 64 (Katyusha at the ns τ₁ = 0.5 and a
     fixed 0.3), the Huber and logistic formulas (the mode and aux slots of
     each scalars row), a width that is not whole 16-byte chunks, the masked
-    windows of #16 and #17, K = 8 at the headline, and #16 and #17 at
-    LOOPLESS_EDGES (f32 with the stop, int8 step by step, and the masked
-    windows of both)."""
+    windows of #16 and #17, K = 8 at the headline, and all four at
+    LOOPLESS_EDGES (#16 and #17 f32 with the stop, int8 step by step, and
+    the masked windows of both; #10 and #11 as everywhere else)."""
     s = VR_SMALL
     errs = dict.fromkeys(VR, 0.0)
     for storage, precision in STORAGES:
@@ -2714,13 +2715,15 @@ def phase_check_vr(gen, dev) -> dict:
     for N_, n_, B_, K_, stop in LOOPLESS_EDGES:
         for storage in ("f32", "int8"):
             F, _, _ = lasso(gen, dev, N_, n_, storage)
-            for kind in LOOPLESS_KINDS:
+            for kind in VR:
+                st = (stop if storage == "f32" and kind in LOOPLESS_KINDS
+                      else None)
                 tag = (f"{VR[kind][1]} N={N_} n={n_} B={B_} K={K_} {storage}"
-                       + (f" stop={stop}" if storage == "f32" else ""))
+                       + (f" stop={st}" if st is not None else ""))
                 errs[kind] = max(errs[kind], compare_vr(
-                    kind, F, gen, dev, B_, K_, LAM, "highest", tag,
-                    stop=stop if storage == "f32" else None))
-                vr_masked_identity(kind, F, gen, dev, B_, K_, stop, tag)
+                    kind, F, gen, dev, B_, K_, LAM, "highest", tag, stop=st))
+                if kind in LOOPLESS_KINDS:
+                    vr_masked_identity(kind, F, gen, dev, B_, K_, stop, tag)
             del F
             torch.cuda.empty_cache()
     return {VR[k][0]: v for k, v in errs.items()}
@@ -2935,13 +2938,11 @@ def time_vr(kind: str, r: dict, gen, dev, storage: str, card: str,
 
 
 VR_GROUPS = {kind: {"kernel #6": ("apply_",),
-                    f"kernel {label}": ("loopless_steps_kernel",)
-                    if kind in LOOPLESS_KINDS else
-                    ("rows_kernel", "finish_kernel", "point_kernel")}
+                    f"kernel {label}": ("loopless_steps_kernel",)}
              for kind, (_, label) in VR.items()}
 # the two-launch engine's kernels, which no window of a kernel of the
-# persistent engine (#4, #5, #16, #17) may show (by function name: kernel
-# #6's apply_rows_kernel is not one of them)
+# persistent engine (#4, #5, #10, #11, #16, #17) may show (by function
+# name: kernel #6's apply_rows_kernel is not one of them)
 TWO_LAUNCH = ("rows_kernel", "saga_finish_kernel", "svrg_finish_kernel",
               "point_kernel")
 
@@ -4139,18 +4140,46 @@ def kernel_line(name: str, launches: int, max_err: float, t: dict) -> dict:
             "bound_by": t["bound_by"], "library_ms": None}
 
 
+class Count(int):
+    """A kernel's launches that carry its steps (``steps``: K a launch of
+    a step kernel, one a block update, none a pass), through sums and
+    differences, so that the path's tally of launches also gives its
+    steps."""
+
+    def __new__(cls, launches: int, steps: int = 0):
+        self = super().__new__(cls, launches)
+        self.steps = steps
+        return self
+
+    def __add__(self, other):
+        return Count(int(self) + int(other),
+                     self.steps + getattr(other, "steps", 0))
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return Count(int(self) - int(other),
+                     self.steps - getattr(other, "steps", 0))
+
+
 def reset_counts() -> None:
-    """Every kernel's launch count to 0."""
+    """Every kernel's launch and step counts to 0."""
     from ciao_tpu_torch.ops import fused_block as fb
 
     for name in KERNELS:
-        getattr(fb, name).launches = 0
+        fn = getattr(fb, name)
+        fn.launches = 0
+        if hasattr(fn, "steps"):
+            fn.steps = 0
 
 
 def counts() -> dict:
+    """Every kernel's launches since the last reset, with its steps."""
     from ciao_tpu_torch.ops import fused_block as fb
 
-    return {name: getattr(fb, name).launches for name in KERNELS}
+    return {name: Count(getattr(fb, name).launches,
+                        getattr(getattr(fb, name), "steps", 0))
+            for name in KERNELS}
 
 
 def main() -> int:
@@ -4572,20 +4601,17 @@ def main() -> int:
         name, label = VR[fam]
         for storage, r in runs.items():
             times9[fam, storage] = time_vr(fam, r, gen, dev, storage, card)
-            if fam in LOOPLESS_KINDS:
-                times9[fam, storage, VR_FACADE[fam]["batch"]] = time_vr(
-                    fam, r, gen, dev, storage, card,
-                    VR_FACADE[fam]["batch"])
+            times9[fam, storage, VR_FACADE[fam]["batch"]] = time_vr(
+                fam, r, gen, dev, storage, card, VR_FACADE[fam]["batch"])
             before = counts()[name]
             prof = profile_steps(f"{fam} at the headline, {storage} rows",
                                  lambda: r["run"](r["F"], r["g"], r["st"],
                                                   r["cfg"], steps), steps,
                                  card, VR_GROUPS[fam],
                                  unit="outer step" if steps == 8 else "step")
-            if fam in LOOPLESS_KINDS:
-                # profile_steps ran the same window three times
-                check_one_launch(f"{fam} {storage}", prof, f"kernel {label}",
-                                 (counts()[name] - before) // 3)
+            # profile_steps ran the same window three times
+            check_one_launch(f"{fam} {storage}", prof, f"kernel {label}",
+                             (counts()[name] - before) // 3)
     del vr, runs, r
     log("phase 9 times: " + "; ".join(
         f"kernel {VR[k[0]][1]} {k[1]}"
@@ -4728,6 +4754,9 @@ def main() -> int:
         for (f, s_, m), ms in split.items()) + f" [{card}]")
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log("steps on the main path (launches x K): " + json.dumps(
+        {name: getattr(launches[name], "steps", 0) for name in KERNELS
+         if name in launches}))
     log(json.dumps({"kernels": [
         kernel_line("saga_coeff_multistep", launches["saga_coeff_multistep"],
                     errs["saga_coeff_multistep"], times["int8"]),

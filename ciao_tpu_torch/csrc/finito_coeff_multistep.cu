@@ -29,7 +29,7 @@ extern "C" int finito_coeff_multistep_launch(
     float* c, float* zb, const float* invg, float* z, float* av,
     const int* starts, const float* sc, float* part, int n, int B, int rows,
     int K, void* stream) {
-  StepArgs a{A, b, rs, c, z, av, nullptr, starts, nullptr, nullptr,
+  StepArgs a{A, b, rs, c, z, av, starts, nullptr, nullptr,
              sc, part, n, B, rows, K, static_cast<cudaStream_t>(stream)};
   a.zb = zb;
   a.invg = invg;

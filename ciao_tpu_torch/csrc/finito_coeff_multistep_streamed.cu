@@ -28,7 +28,7 @@ extern "C" int finito_coeff_multistep_streamed_launch(
     float* c, float* zb, const float* invg_k, float* z, float* av,
     const int* starts, const int* fclamp, const float* sc, float* part, int n,
     int B, int rows, int K, void* stream) {
-  StepArgs a{A, b, rs, c, z, av, nullptr, starts, nullptr, fclamp,
+  StepArgs a{A, b, rs, c, z, av, starts, nullptr, fclamp,
              sc, part, n, B, rows, K, static_cast<cudaStream_t>(stream)};
   a.zb = zb;
   a.invg = invg_k;

@@ -28,7 +28,7 @@ extern "C" int lfinito_sweep_multistep_launch(
     float* z, const int* starts, const float* sc, float* part, int n, int B,
     int rows, int K, void* stream) {
   // the kLFinito kernels never write canch
-  StepArgs a{A, b, rs, const_cast<float*>(canch), z, av, nullptr, starts,
+  StepArgs a{A, b, rs, const_cast<float*>(canch), z, av, starts,
              nullptr, nullptr, sc, part, n, B, rows, K,
              static_cast<cudaStream_t>(stream)};
   a.invg = invg;

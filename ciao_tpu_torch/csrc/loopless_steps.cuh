@@ -1,4 +1,4 @@
-// The persistent step engine of four step kernels on an NVIDIA Hopper card
+// The persistent step engine of six step kernels on an NVIDIA Hopper card
 // (sm_90a): a whole call of K block steps in one cooperative launch,
 //
 //   lsvrg_coeff_multistep.cu          replaces ciao_tpu/ops/fused_block.py
@@ -12,7 +12,13 @@
 //                                     _svrg_coeff_multi_kernel);
 //   saga_coeff_multistep_streamed.cu  replaces saga_coeff_multistep_streamed
 //                                     (SAGA/SAG steps for any N, steps k >= f
-//                                     masked, body _saga_stream_kernel).
+//                                     masked, body _saga_stream_kernel);
+//   katyusha_coeff_multistep.cu       replaces katyusha_coeff_multistep
+//                                     (Katyusha inner steps, body
+//                                     _katyusha_coeff_multi_kernel);
+//   sarah_multistep.cu                replaces sarah_multistep (SARAH's
+//                                     recursive steps, body
+//                                     _sarah_multi_kernel).
 //
 // The Python wrappers are in ciao_tpu_torch/ops/fused_block.py, beside the
 // plain PyTorch versions (the *_ref functions), whose arithmetic (bf16
@@ -42,26 +48,33 @@
 //     power of two up to R and 256 rows in 32 KB, one row where a row is
 //     larger; P as many as fit, 2 to 8: 8 f32 rows and 6 stages at n =
 //     1,024, 64 f32 rows and 6 stages at n = 128, one f32 row and 2 stages at
-//     n = 16,384);
+//     n = 16,384; one stage only where two do not fit beside SARAH's two
+//     points, f32 rows wider than 14,456 columns: the producer then loads a
+//     stage once the consumers have read the last, with no overlap);
 //     one producer warp fills stage after stage, each by one bulk copy
 //     (cp.async.bulk) of its contiguous rows and the rows' b, anchor
-//     coefficients and rs by cp.async, all completing on the stage's full
+//     coefficients (none for SAGA and SARAH) and rs by cp.async, all
+//     completing on the stage's full
 //     mbarrier, and refills a stage as soon as its empty mbarrier says the
 //     eight consumer warps have read it. It runs ahead across step
 //     boundaries (step k + 1's rows, read from starts[k + 1], are loading
 //     while step k's finish and barriers run: with P S >= R all of them);
 //   - step k on the eight consumer warps: the point (w for L-SVRG and SVRG,
-//     x for L-Katyusha, z for SAGA) copied into shared memory, rounded to
-//     bf16 where the dots round, by plain loads from L2 (the last finish wrote
-//     it through the generic proxy); then for each stage as it lands: the
-//     margins, every thread taking its own units (the columns it owns in the
-//     column sums) of eight rows at once, reduced over the warp by a halving
-//     butterfly (nine shuffles for eight rows) and over the warps of its row
-//     group in warp order; the coefficient formula and dc, a thread a row
+//     x for L-Katyusha and Katyusha, z for SAGA, both w_prev and w for SARAH)
+//     copied into shared memory, rounded to bf16 where the dots round, by
+//     plain loads from L2 (the last finish wrote it through the generic
+//     proxy); then for each stage as it lands: the margins, every thread
+//     taking its own units (the columns it owns in the column sums) of eight
+//     rows at once, reduced over the warp by a halving butterfly (nine
+//     shuffles for eight rows) and over the warps of its row group in warp
+//     order (SARAH: each loaded unit feeds two sets of sums, one a point,
+//     and two butterflies reduce them, so both margins come from one read of
+//     the staged row); the coefficient formula and dc, a thread a row
 //     (anchor minus live for L-SVRG and SVRG, live at x minus anchor for
-//     L-Katyusha, new minus old for SAGA, which writes the new one to its
-//     table; rounded to bf16 where the dots round and scaled by rs for int8
-//     rows); and the stage's rows added into column sums held in registers,
+//     L-Katyusha and Katyusha, new minus old for SAGA, which writes the new
+//     one to its table, c at w minus c at w_prev for SARAH; rounded to bf16
+//     where the dots round and scaled by rs for int8 rows); and the stage's
+//     rows added into column sums held in registers,
 //     each thread the same units all call. int8 is widened by the
 //     byte-permute trick, bf16 by a shift;
 //   - narrow rows: where a row has fewer column units than the 256 consumer
@@ -78,10 +91,12 @@
 //     (lanes over CTAs, a shuffle tree, then the eight warps in order: runs
 //     repeat bit for bit) and applies L-SVRG's w-step (wpre <- w), SVRG's
 //     w-step and running sum (zs += w), SAGA's average, SAGA or SAG
-//     direction (weighted by wgts[k] where given) and prox, or L-Katyusha's
-//     z-step, y coupling, ypre and the next x to its columns, their state
-//     loaded beside the partials; a second barrier before the next step's
-//     point;
+//     direction (weighted by wgts[k] where given) and prox, L-Katyusha's
+//     z-step, y coupling, ypre and the next x, Katyusha's (Option II) z- and
+//     y-steps, running sum (ys += y) and next x, or SARAH's recursion (v +=
+//     sum / B), damped prox and shift (w_prev <- w, w <- w + eta (y - w)) to
+//     its columns, their state loaded beside the partials; a second barrier
+//     before the next step's point;
 //   - SAGA's table: the producer prefetches no coefficient of SAGA's rows,
 //     since a block revisited within the ring's lookahead (or overlapping an
 //     earlier block: starts need not be block-aligned) would read it stale.
@@ -89,8 +104,8 @@
 //     stage is taken, after the barriers that end the previous step, and
 //     writes the new one before the step's first barrier, so a revisit reads
 //     the previous visit's value;
-//   - L-Katyusha's first x is formed by every CTA for all columns from z, the
-//     anchor point and y (each writes its own finish columns of the x
+//   - the two Katyushas' first x is formed by every CTA for all columns from
+//     z, the anchor point and y (each writes its own finish columns of the x
 //     scratch, so the finish reads the x the margins used); the stop index
 //     (L-SVRG, L-Katyusha) or clamp count (SAGA) is read once: a call
 //     processes min(K, stop + 1) or min(K, f) steps and the masked ones write
@@ -130,7 +145,9 @@ enum LooplessMethod {
   kLsvrgSteps = 0,
   kLKatyushaSteps = 1,
   kSvrgSteps = 2,
-  kSagaSteps = 3
+  kSagaSteps = 3,
+  kKatyushaSteps = 4,
+  kSarahSteps = 5
 };
 
 constexpr int kLlThreads = 256;              // the consumer warps' threads
@@ -147,14 +164,38 @@ constexpr int kLlMaxStageRows = 256;
 constexpr int kLlMaxCols = 16384;
 constexpr size_t kLlMaxSmem = 232448;
 
-// The scalars row's (mode, aux) slot pair of each method; the finish's
-// scalars are the slots between the scale and the mode:
+// The scalars row's mode and aux slots of each method; the finish's scalars
+// are the slots between the scale and the mode:
 // L-SVRG, SVRG  [scale, gamma, gamma*lambda, 1/B, mode, aux];
 // L-Katyusha    [scale, eta/L, tau*lambda, 1/(1 + eta*sigma), eta*sigma,
 //                theta1, theta2, 1/B, mode, aux];
-// SAGA          [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux].
+// SAGA          [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux];
+// Katyusha      [scale, alpha, beta, alpha*lambda, beta*lambda, 1/B, mode,
+//                tau1, tau2, aux];
+// SARAH         [scale, gamma, gamma*lambda, eta, 1/B, mode, aux].
 __host__ __device__ constexpr int mode_slot(int M) {
-  return M == kLKatyushaSteps ? 8 : (M == kSagaSteps ? 6 : 4);
+  return M == kLKatyushaSteps                        ? 8
+         : (M == kSagaSteps || M == kKatyushaSteps) ? 6
+         : M == kSarahSteps                          ? 5
+                                                     : 4;
+}
+__host__ __device__ constexpr int aux_slot(int M) {
+  return M == kKatyushaSteps ? 9 : mode_slot(M) + 1;
+}
+
+// Whether the margins are taken at the coupled point x (the Katyushas), and
+// the slot of its (t1, t2) pair: L-Katyusha's theta1, theta2, Katyusha's
+// tau1, tau2.
+__host__ __device__ constexpr bool coupled(int M) {
+  return M == kLKatyushaSteps || M == kKatyushaSteps;
+}
+__host__ __device__ constexpr int tau_slot(int M) {
+  return M == kKatyushaSteps ? 7 : 5;
+}
+
+// The (n,) points the margins are taken at: SARAH's w_prev and w, else one.
+__host__ __device__ constexpr int ll_points(int M) {
+  return M == kSarahSteps ? 2 : 1;
 }
 
 // The arguments of one call. L-SVRG: pt the iterate w, pre = wpre, c the
@@ -162,7 +203,11 @@ __host__ __device__ constexpr int mode_slot(int M) {
 // x, y and z the sequences, wa the anchor point, pre = ypre; SVRG: pt the
 // iterate w, zs the running sum; SAGA: pt the iterate z, c the table, av
 // the running average (written), stop the clamp count f, wgts the steps'
-// direction weights (or NULL). av is read only but for SAGA, c but for SAGA.
+// direction weights (or NULL); Katyusha: pt the (n,) scratch of x, y and z
+// the sequences, wa the anchor point, zs the running sum of y; SARAH: pt
+// the (2, n) pair [w_prev; w], av the estimator v (written), c NULL. av is
+// read only but for SAGA and SARAH, c but for SAGA; stop and pre are NULL
+// but for L-SVRG, L-Katyusha (and SAGA's stop).
 // part: (ctas, n) f32 scratch; bar: the grid barrier's word of the call's
 // stream (low bits zero between calls).
 struct LooplessArgs {
@@ -211,16 +256,18 @@ __host__ __device__ __forceinline__ int group_floats(int n) {
 }
 
 // Shared memory of a CTA (ops/fused_block.py _loopless_smem_bytes): the
-// ring, the point, the groups' column sums, the stages' full and empty
-// barriers, then b, the anchor coefficients and rs of each stage's rows, dc
-// of two stages, the warps' margin sums of a stage's rows and the finish's
-// 256 warp sums.
+// ring, the `pts` points, the groups' column sums, the stages' full and
+// empty barriers, then b, the anchor coefficients and rs of each stage's
+// rows, dc of two stages, the warps' margin sums of a stage's rows (one set
+// a point) and the finish's 256 warp sums.
 __host__ __device__ __forceinline__ size_t loopless_smem_bytes(int S, int P,
                                                               int n,
-                                                              int itemsize) {
-  return P * tile_bytes(S, n, itemsize) + tile_bytes(1, n, 4) +
+                                                              int itemsize,
+                                                              int pts) {
+  return P * tile_bytes(S, n, itemsize) + tile_bytes(pts, n, 4) +
          tile_bytes(group_floats(n), 1, 4) + 16 * size_t(P) +
-         4 * (3 * size_t(P) * S + (2 + kLlWarps) * size_t(S) + kLlThreads);
+         4 * (3 * size_t(P) * S + (2 + pts * kLlWarps) * size_t(S) +
+              kLlThreads);
 }
 
 __device__ __forceinline__ void consumer_sync() {
@@ -327,19 +374,24 @@ loopless_steps_kernel(const LooplessArgs a) {
   constexpr int kUnit = kVec ? 4 : 1;  // columns of a unit
   constexpr int kRegUnits = kRU;
   constexpr bool kTable = M == kSagaSteps;  // the call writes its table
+  // the producer loads the rows' anchor coefficients (SARAH has none)
+  constexpr bool kAnchor = !kTable && M != kSarahSteps;
+  constexpr int kPts = ll_points(M);
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = a.n, S = a.stage_rows, P = a.stages;
   const size_t tb = tile_bytes(S, n, sizeof(T));
   auto stage_ptr = [&](int s) { return reinterpret_cast<T*>(smem + s * tb); };
-  float* zs = reinterpret_cast<float*>(smem + P * tb);
-  float* gsum = reinterpret_cast<float*>(smem + P * tb + tile_bytes(1, n, 4));
+  float* zs = reinterpret_cast<float*>(smem + P * tb);  // [kPts][n]
+  float* gsum =
+      reinterpret_cast<float*>(smem + P * tb + tile_bytes(kPts, n, 4));
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      smem + P * tb + tile_bytes(1, n, 4) + tile_bytes(group_floats(n), 1, 4));
+      smem + P * tb + tile_bytes(kPts, n, 4) +
+      tile_bytes(group_floats(n), 1, 4));
   uint64_t* empty = full + P;
   float* vals = reinterpret_cast<float*>(empty + P);  // [P][b, c, rs][S]
   float* dcs = vals + 3 * P * S;                      // [2][S]
-  float* msum = dcs + 2 * S;                          // [8][S]
-  float* red = msum + kLlWarps * S;                   // [8][32]
+  float* msum = dcs + 2 * S;                          // [kPts][8][S]
+  float* red = msum + kPts * kLlWarps * S;            // [8][32]
 
   const int K = a.K;
   const int live = a.stop == nullptr ? K
@@ -373,7 +425,7 @@ loopless_steps_kernel(const LooplessArgs a) {
   if (warp == kLlWarps) {
     // the producer: stage t holds rows [i S, i S + here) of the CTA's share
     // of step k's block, k = t / spc, i = t % spc (SAGA's table is not
-    // prefetched: its consumers read it)
+    // prefetched: its consumers read it; SARAH has none)
     for (int t = 0; t < total; ++t) {
       const int s = t % P;
       if (t >= P) mbar_wait(&empty[s], (t / P - 1) & 1);
@@ -388,7 +440,7 @@ loopless_steps_kernel(const LooplessArgs a) {
                     &full[s]);
         for (int r = lane; r < here; r += 32) {
           __pipeline_memcpy_async(v + r, a.b + r0 + r, 4);
-          if (!kTable) __pipeline_memcpy_async(v + S + r, a.c + r0 + r, 4);
+          if (kAnchor) __pipeline_memcpy_async(v + S + r, a.c + r0 + r, 4);
           if (a.rs != nullptr)
             __pipeline_memcpy_async(v + 2 * S + r, a.rs + r0 + r, 4);
         }
@@ -398,7 +450,7 @@ loopless_steps_kernel(const LooplessArgs a) {
         for (int j = lane; j < here * n; j += 32) dst[j] = src[j];
         for (int r = lane; r < here; r += 32) {
           v[r] = a.b[r0 + r];
-          if (!kTable) v[S + r] = a.c[r0 + r];
+          if (kAnchor) v[S + r] = a.c[r0 + r];
           v[2 * S + r] = a.rs != nullptr ? a.rs[r0 + r] : 1.0f;
         }
         mbar_arrive(&full[s]);
@@ -411,7 +463,7 @@ loopless_steps_kernel(const LooplessArgs a) {
   const float* sc = a.sc;
   const float scale = sc[0];
   const int mode = static_cast<int>(sc[mode_slot(M)]);
-  const float aux = sc[mode_slot(M) + 1];
+  const float aux = sc[aux_slot(M)];
   const bool scaled = a.rs != nullptr;
   // the finish's scalars, the row's slots between the scale and the mode
   float fs[7];
@@ -443,19 +495,24 @@ loopless_steps_kernel(const LooplessArgs a) {
 #pragma unroll
     for (int q = 0; q < kUnit; ++q) acc[kq][q] = 0.0f;
 
-  // row r of a stage whose rows start at row0: its margin m, its old SAGA
-  // coefficient c_old (loaded when the stage was taken)
-  auto finish_row = [&](const float* v, float* dc, int r, float m,
+  // row r of a stage whose rows start at row0: its margin m (SARAH's at w,
+  // m0 at w_prev), its old SAGA coefficient c_old (loaded when the stage
+  // was taken)
+  auto finish_row = [&](const float* v, float* dc, int r, float m, float m0,
                         int64_t row0, float c_old) {
     const float rsv = scaled ? v[2 * S + r] : 1.0f;
     if (scaled) m *= rsv;
     const float c_live = coeff_formula(mode, m, v[r], scale, aux);
     float d;
-    if (kTable) {
+    if constexpr (kTable) {
       a.c[row0 + r] = c_live;
       d = c_live - c_old;
+    } else if constexpr (M == kSarahSteps) {
+      // grad f_i(w) - grad f_i(w_prev)
+      if (scaled) m0 *= rsv;
+      d = c_live - coeff_formula(mode, m0, v[r], scale, aux);
     } else {
-      d = M == kLKatyushaSteps ? c_live - v[S + r] : v[S + r] - c_live;
+      d = coupled(M) ? c_live - v[S + r] : v[S + r] - c_live;
     }
     if (scaled) d *= rsv;
     dc[r] = kLowp ? bf16_round(d) : d;
@@ -466,12 +523,14 @@ loopless_steps_kernel(const LooplessArgs a) {
   unsigned phase = tid == 0 ? load_acquire(a.bar) & 0x80000000u : 0u;
   int t = 0;
   for (int k = 0; k < live; ++k) {
-    // step k's point: w, z, or x (at k = 0 formed here from z, wa and y;
-    // each CTA writes its own finish columns of the x scratch)
+    // step k's point: w, z, x (at k = 0 formed here from z, wa and y;
+    // each CTA writes its own finish columns of the x scratch), or SARAH's
+    // w_prev and w, one after the other
     auto point = [&](int j) {
-      if (M == kLKatyushaSteps && k == 0) {
-        const float x = coupled_point(sc[5], sc[6], __ldcg(a.z + j),
-                                      a.wa[j], __ldcg(a.y + j));
+      if (coupled(M) && k == 0) {
+        const float x =
+            coupled_point(sc[tau_slot(M)], sc[tau_slot(M) + 1],
+                          __ldcg(a.z + j), a.wa[j], __ldcg(a.y + j));
         if (j >= j0 && j < j1) a.pt[j] = x;
         return x;
       }
@@ -479,9 +538,9 @@ loopless_steps_kernel(const LooplessArgs a) {
     };
     if (kVec) {
 #pragma unroll 4
-      for (int j = tid * 4; j < n; j += kLlThreads * 4) {
+      for (int j = tid * 4; j < kPts * n; j += kLlThreads * 4) {
         float x[4];
-        if (M == kLKatyushaSteps && k == 0) {
+        if (coupled(M) && k == 0) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) x[q] = point(j + q);
         } else {
@@ -497,7 +556,7 @@ loopless_steps_kernel(const LooplessArgs a) {
       }
     } else {
 #pragma unroll 4
-      for (int j = tid; j < n; j += kLlThreads) {
+      for (int j = tid; j < kPts * n; j += kLlThreads) {
         const float x = point(j);
         zs[j] = kLowp ? bf16_round(x) : x;
       }
@@ -521,21 +580,26 @@ loopless_steps_kernel(const LooplessArgs a) {
 
       // margins: every thread takes its units' share (the units it owns in
       // the column sums) of its group's rows of the stage, eight rows at
-      // once; warp_sums8 leaves lane 4i the warp's sum of row i, and the
-      // group's warps' sums are added in warp order
+      // once (SARAH: each loaded unit into the sums of both points);
+      // warp_sums8 leaves lane 4i the warp's sum of row i, and the group's
+      // warps' sums are added in warp order
       for (int r0 = 8 * grp; r0 < here; r0 += 8 * groups) {
-        float p[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        float p[kPts][8] = {};
         const bool whole = here - r0 >= 8;
 #pragma unroll
         for (int kq = 0; kq < kRegUnits; ++kq) {
           const int u = loc + kq * U;
           if (u < units) {
-            float z[4];
-            if (kVec) {
-              const float4 f = *reinterpret_cast<const float4*>(zs + 4 * u);
-              z[0] = f.x, z[1] = f.y, z[2] = f.z, z[3] = f.w;
-            } else {
-              z[0] = zs[u];
+            float z[kPts][4];
+#pragma unroll
+            for (int q = 0; q < kPts; ++q) {
+              if (kVec) {
+                const float4 f =
+                    *reinterpret_cast<const float4*>(zs + q * n + 4 * u);
+                z[q][0] = f.x, z[q][1] = f.y, z[q][2] = f.z, z[q][3] = f.w;
+              } else {
+                z[q][0] = zs[q * n + u];
+              }
             }
             const T* col = tile + static_cast<size_t>(r0) * n + u * kUnit;
 #pragma unroll
@@ -544,22 +608,33 @@ loopless_steps_kernel(const LooplessArgs a) {
                 float x[4];
                 ll_unit<kLowp, kVec>(col + static_cast<size_t>(i) * n, x);
 #pragma unroll
-                for (int e = 0; e < kUnit; ++e) p[i] = fmaf(x[e], z[e], p[i]);
+                for (int q = 0; q < kPts; ++q)
+#pragma unroll
+                  for (int e = 0; e < kUnit; ++e)
+                    p[q][i] = fmaf(x[e], z[q][e], p[q][i]);
               }
             }
           }
         }
-        const float m = warp_sums8(p, lane);
-        if ((lane & 3) == 0 && r0 + lane / 4 < here)
-          msum[warp * S + r0 + lane / 4] = m;
+#pragma unroll
+        for (int q = 0; q < kPts; ++q) {
+          const float m = warp_sums8(p[q], lane);
+          if ((lane & 3) == 0 && r0 + lane / 4 < here)
+            msum[(q * kLlWarps + warp) * S + r0 + lane / 4] = m;
+        }
       }
       consumer_sync();
       if (tid < here) {
         const int w0 = ((tid >> 3) % groups) * wpg;  // the row's group
-        float m = msum[w0 * S + tid];
+        float m[kPts];
 #pragma unroll
-        for (int w = 1; w < wpg; ++w) m += msum[(w0 + w) * S + tid];
-        finish_row(v, dc, tid, m, row0, c_old);
+        for (int q = 0; q < kPts; ++q) {
+          const float* ms = msum + q * kLlWarps * S;
+          m[q] = ms[w0 * S + tid];
+#pragma unroll
+          for (int w = 1; w < wpg; ++w) m[q] += ms[(w0 + w) * S + tid];
+        }
+        finish_row(v, dc, tid, m[kPts - 1], m[0], row0, c_old);
       }
       consumer_sync();
 
@@ -634,17 +709,19 @@ loopless_steps_kernel(const LooplessArgs a) {
       const int j = jb + fcol;
       const bool owner = warp == 0 && lane < cw && j < j1;
       // the column's state (L-SVRG: w, av; SVRG: w, av, zs; SAGA: z, av;
-      // L-Katyusha: x, av, z, y, wa), loaded beside its partials
-      float st[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      // L-Katyusha: x, av, z, y, wa; Katyusha: x, av, z, y, wa, ys; SARAH:
+      // w, v), loaded beside its partials
+      float st[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (owner) {
-        st[0] = __ldcg(a.pt + j);
-        st[1] = kTable ? __ldcg(a.av + j) : a.av[j];
-        if (M == kLKatyushaSteps) {
+        st[0] = __ldcg(a.pt + (M == kSarahSteps ? n : 0) + j);
+        st[1] = kTable || M == kSarahSteps ? __ldcg(a.av + j) : a.av[j];
+        if (coupled(M)) {
           st[2] = __ldcg(a.z + j);
           st[3] = __ldcg(a.y + j);
           st[4] = a.wa[j];
         }
         if (M == kSvrgSteps) st[2] = __ldcg(a.zs + j);
+        if (M == kKatyushaSteps) st[5] = __ldcg(a.zs + j);
       }
       float sum = 0.0f;
       if (j < j1) {
@@ -680,6 +757,29 @@ loopless_steps_kernel(const LooplessArgs a) {
                               : st[0] - fs[0] * (innov * (wgt * fs[2]) + st[1]);
           a.av[j] = av_new;
           a.pt[j] = soft_threshold(w, fs[1]);
+        } else if (M == kKatyushaSteps) {
+          // Katyusha (Allen-Zhu 2018, Option II): g~ = av + sum / B,
+          // z <- soft(z - alpha g~, alpha lambda), y <- soft(x - beta g~,
+          // beta lambda), ys += y; then the next step's x against the anchor
+          // point wa
+          const float gr = st[1] + innov * fs[4];
+          const float z_new = soft_threshold(st[2] - fs[0] * gr, fs[2]);
+          const float y_new = soft_threshold(st[0] - fs[1] * gr, fs[3]);
+          a.z[j] = z_new;
+          a.y[j] = y_new;
+          a.zs[j] = st[5] + y_new;
+          a.pt[j] = coupled_point(sc[tau_slot(M)], sc[tau_slot(M) + 1], z_new,
+                                  st[4], y_new);
+        } else if (M == kSarahSteps) {
+          // SARAH's recursion and ProxSARAH's damped prox: v += sum / B,
+          // y = soft(w - gamma v, gamma lambda), w_prev <- w,
+          // w <- w + eta (y - w)
+          const float v_new = st[1] + innov * fs[3];
+          const float w = st[0];
+          const float yv = soft_threshold(w - fs[0] * v_new, fs[1]);
+          a.av[j] = v_new;
+          a.pt[j] = w;
+          a.pt[n + j] = w + fs[2] * (yv - w);
         } else {
           // L-Katyusha (Alg. 3, proximal z-step): g~ = av + sum / B,
           // z_new = soft((z + eta sigma x - (eta/L) g~) / (1 + eta sigma),
@@ -774,13 +874,16 @@ int launch_loopless(int storage, int lowp, const LooplessArgs& a,
   int rows = 0, ctas = 0;
   if (a.B < 1) return static_cast<int>(cudaErrorInvalidValue);
   loopless_grid(a.B, sms, rows, ctas);
-  const int S = a.stage_rows, P = a.stages;
+  const int S = a.stage_rows, P = a.stages, pts = ll_points(M);
+  // at least two stages, one only where two do not fit (SARAH's two points
+  // beside f32 rows wider than 14,456 columns)
   if (a.n < 1 || a.n > kLlMaxCols || a.K < 1 ||
       rows != a.rows || ctas != a.ctas || S < 1 || S > rows ||
-      S > kLlMaxStageRows || (S & (S - 1)) != 0 || P < 2 ||
-      P > kLlMaxStages || loopless_smem_bytes(S, P, a.n, isz) > kLlMaxSmem)
+      S > kLlMaxStageRows || (S & (S - 1)) != 0 || P < 1 ||
+      (P == 1 && loopless_smem_bytes(S, 2, a.n, isz, pts) <= kLlMaxSmem) ||
+      P > kLlMaxStages || loopless_smem_bytes(S, P, a.n, isz, pts) > kLlMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = loopless_smem_bytes(S, P, a.n, isz);
+  const size_t smem = loopless_smem_bytes(S, P, a.n, isz, pts);
   const bool vec = vec_rows(a.A, a.n, isz);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (storage) {

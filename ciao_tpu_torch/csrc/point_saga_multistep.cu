@@ -32,7 +32,7 @@ extern "C" int point_saga_multistep_launch(
     const float* rs, const float* na, float* c, float* x, float* av, float* v,
     const int* starts, const float* sc, float* part, int n, int B, int rows,
     int K, void* stream) {
-  StepArgs a{A, b, rs, c, v, av, nullptr, starts, nullptr, nullptr,
+  StepArgs a{A, b, rs, c, v, av, starts, nullptr, nullptr,
              sc, part, n, B, rows, K, static_cast<cudaStream_t>(stream)};
   a.xi = x;
   a.na = na;

@@ -131,38 +131,6 @@ __device__ __forceinline__ float warp_dot(const T* a, const float* zs, int n,
   return acc;
 }
 
-// The two margins a . z0 and a . z1 of one row from one read of it, by one
-// warp (SARAH's margins at w_prev and w): warp_dot's walk with two sums.
-template <bool kLowp, bool kVec, typename T>
-__device__ __forceinline__ void warp_dot2(const T* a, const float* z0,
-                                          const float* z1, int n, int lane,
-                                          float& m0, float& m1) {
-  float acc0 = 0.0f, acc1 = 0.0f;
-  if (kVec) {
-    for (int j = lane * 4; j < n; j += 32 * 4) {
-      float v[4];
-      row4<kLowp>(a + j, v);
-      const float4 p = *reinterpret_cast<const float4*>(z0 + j);
-      const float4 q = *reinterpret_cast<const float4*>(z1 + j);
-      acc0 += v[0] * p.x + v[1] * p.y + v[2] * p.z + v[3] * p.w;
-      acc1 += v[0] * q.x + v[1] * q.y + v[2] * q.z + v[3] * q.w;
-    }
-  } else {
-    for (int j = lane; j < n; j += 32) {
-      const float v = row_value<kLowp>(a[j]);
-      acc0 += v * z0[j];
-      acc1 += v * z1[j];
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc0 += __shfl_xor_sync(0xffffffffu, acc0, off);
-    acc1 += __shfl_xor_sync(0xffffffffu, acc1, off);
-  }
-  m0 = acc0;
-  m1 = acc1;
-}
-
 // The transposed product over a tile of `rows` rows of width n: sum over the
 // rows, in order, of d[r] times the row's values at columns j..j+3 (kVec) or
 // at column j alone.

@@ -20,7 +20,7 @@ extern "C" int saga_coeff_multistep_launch(
     float* c, float* z, float* av, const int* starts, const float* wgts,
     const float* sc, float* part, int n, int B, int rows, int K,
     void* stream) {
-  const StepArgs a{A, b, rs, c, z, av, nullptr, starts, wgts, nullptr,
+  const StepArgs a{A, b, rs, c, z, av, starts, wgts, nullptr,
                    sc, part, n, B, rows, K,
                    static_cast<cudaStream_t>(stream)};
   return static_cast<int>(launch_steps<kSaga>(storage, lowp, a));

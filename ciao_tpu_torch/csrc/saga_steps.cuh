@@ -1,5 +1,5 @@
 // Coefficient block steps on an NVIDIA Hopper card (sm_90a): the device code
-// shared by ten kernels of ciao_tpu_torch/ops/fused_block.py,
+// shared by eight kernels of ciao_tpu_torch/ops/fused_block.py,
 //
 //   saga_coeff_multistep.cu             replaces ciao_tpu/ops/fused_block.py
 //                                       saga_coeff_multistep (SAGA/SAG steps);
@@ -10,10 +10,6 @@
 //                                       same, steps k >= f masked);
 //   lfinito_sweep_multistep.cu          replaces lfinito_sweep_multistep
 //                                       (an LFinito block sweep);
-//   katyusha_coeff_multistep.cu         replaces katyusha_coeff_multistep
-//                                       (Katyusha inner steps);
-//   sarah_multistep.cu                  replaces sarah_multistep (SARAH's
-//                                       recursive steps);
 //   ssnm_multistep.cu                   replaces ssnm_multistep (SSNM steps:
 //                                       SAGA's at a momentum point);
 //   ssnm_multistep_streamed.cu          replaces ssnm_multistep_streamed
@@ -26,8 +22,9 @@
 //
 // The Python wrappers and the design notes are in ops/fused_block.py; the plain
 // PyTorch versions of the same arithmetic are the *_ref functions there.
-// Kernels #4 (streamed SAGA), #5 (SVRG), #16 and #17 (the loopless pair) run
-// on the persistent engine of loopless_steps.cuh.
+// Kernels #4 (streamed SAGA), #5 (SVRG), #10 (Katyusha), #11 (SARAH), #16
+// and #17 (the loopless pair) run on the persistent engine of
+// loopless_steps.cuh.
 //
 // One solver step on the block [s, s + B) of the (N, n) rows A is two launches:
 //
@@ -62,14 +59,6 @@
 // step k+1's, and the last finish leaves z alone, so the launch returns the
 // last block's prox point (not soft of the returned av).
 //
-// Katyusha takes its margins at the coupled point x = t1 z + t2 x~ + (1 - t1 -
-// t2) y (x~ the anchor point, constant in a launch) the same way: a prologue forms step 0's x into an (n,) scratch, each finish, after
-// updating z and y on its columns, forms the next step's x there; the row
-// phase's Delta c is c(x) - c_anchor, the opposite sign of SVRG's. SARAH
-// takes two margins, at w_prev and at w, from one staged row: both points
-// are staged in shared memory (rounded to bf16 when the dots are), and its
-// finish writes w_prev <- w, w <- w_next column by column.
-//
 // SSNM takes its margins at the momentum point y = tau x + (1 - tau) zb_j of
 // the step's block j, and Point-SAGA at the shifted iterate v = x - gamma av,
 // each formed once per step into an (n,) scratch: a prologue launch forms step
@@ -100,37 +89,21 @@ constexpr int kMaxRowsPerCta = 32;
 // SAGA        [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux];
 // Finito      [scale, 1/N, hat, hat*lambda, mode, aux];
 // LFinito     [scale, hat, hat*lambda, 1/N, mode, aux];
-// Katyusha    [scale, alpha, beta, alpha*lambda, beta*lambda, 1/B, mode,
-//              tau1, tau2, aux];
-// SARAH       [scale, gamma, gamma*lambda, eta, 1/B, mode, aux];
 // SSNM        [scale, eta, eta*lambda, 1/B, 1/N, mode, tau, aux];
 // Point-SAGA  [scale, gamma, 1/B, 1/N, mode, aux].
 enum Method {
   kSaga = 0,
   kFinito = 2,
   kLFinito = 3,
-  kKatyusha = 4,
-  kSarah = 5,
   kSsnm = 8,
   kPointSaga = 9
 };
 
 // Whether the row phase refreshes the coefficient table with the formula
-// (SAGA, Finito, SSNM), or reads an anchor table (LFinito, Katyusha; SARAH
-// has none, and Point-SAGA writes its prox solve).
+// (SAGA, Finito, SSNM), or reads an anchor table (LFinito; Point-SAGA
+// writes its prox solve).
 __host__ __device__ constexpr bool writes_table(Method M) {
   return M == kSaga || M == kFinito || M == kSsnm;
-}
-
-// Whether the margins are taken at the coupled point x and dc is
-// c(x) - c_anchor (Katyusha), not anchor minus live.
-__host__ __device__ constexpr bool coupled(Method M) {
-  return M == kKatyusha;
-}
-
-// The (n,) points the row phase stages: SARAH's w_prev and w, else one.
-__host__ __device__ constexpr int points(Method M) {
-  return M == kSarah ? 2 : 1;
 }
 
 // The f32 values the row phase stages per row: dc, b, c and rs, and
@@ -141,22 +114,15 @@ __host__ __device__ constexpr int row_values(Method M) {
 
 template <Method M>
 struct ScalarIndex {
-  static constexpr int kMode =
-      (M == kSaga || M == kKatyusha) ? 6
-      : (M == kSarah || M == kSsnm)  ? 5
-                                     : 4;
-  static constexpr int kAux = M == kKatyusha                ? 9
-                              : (M == kSaga || M == kSsnm) ? 7
-                              : (M == kSarah)              ? 6
-                                                           : 5;
+  static constexpr int kMode = M == kSaga ? 6 : (M == kSsnm ? 5 : 4);
+  static constexpr int kAux = (M == kSaga || M == kSsnm) ? 7 : 5;
 };
 
-// Shared memory: the tile (rows x n of T), then the points (n floats each),
-// then per row dc, b, c, rs and (Point-SAGA) na (rows floats each); the per-row
+// Shared memory: the tile (rows x n of T), then the point (n floats), then
+// per row dc, b, c, rs and (Point-SAGA) na (rows floats each); the per-row
 // values are fetched while the tile is in flight. c is the table (SAGA,
 // Finito, SSNM, Point-SAGA: written back) or the anchor coefficients (read
-// only; SARAH reads none); z is the point of the margins (x for Katyusha, y
-// for SSNM, v for Point-SAGA; SARAH's 2n values [w_prev; w]).
+// only); z is the point of the margins (y for SSNM, v for Point-SAGA).
 // kPMode is Point-SAGA's oracle mode (the other methods read theirs from sc).
 template <Method M, typename T, bool kLowp, bool kVec, int kPMode>
 __global__ void __launch_bounds__(kRowThreads)
@@ -171,7 +137,7 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
   char* smem = reinterpret_cast<char*>(smem4);
   T* tile = reinterpret_cast<T*>(smem);
   float* zs = reinterpret_cast<float*>(smem + tile_bytes(rows, n, sizeof(T)));
-  float* dcs = zs + points(M) * n;
+  float* dcs = zs + n;
   float* bs = dcs + rows;
   float* cs = bs + rows;
   float* rss = cs + rows;
@@ -184,13 +150,13 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
 
   stage_rows<T, kVec>(tile, A + start * n, rows * n, tid, kRowThreads);
   if (kVec) __pipeline_commit();
-  for (int j = tid; j < points(M) * n; j += kRowThreads) {
+  for (int j = tid; j < n; j += kRowThreads) {
     const float v = z[j];
     zs[j] = kLowp ? bf16_round(v) : v;
   }
   if (tid < rows) {
     bs[tid] = b[start + tid];
-    if constexpr (M != kSarah) cs[tid] = c[start + tid];
+    cs[tid] = c[start + tid];
     rss[tid] = rs != nullptr ? rs[start + tid] : 1.0f;
     if constexpr (M == kPointSaga) nas[tid] = na[start + tid];
   }
@@ -202,17 +168,7 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
   const float aux = sc[ScalarIndex<M>::kAux];
   for (int r = warp; r < rows; r += kRowWarps) {
     float dc;
-    if constexpr (M == kSarah) {
-      float m0, m1;
-      warp_dot2<kLowp, kVec>(tile + r * n, zs, zs + n, n, lane, m0, m1);
-      if (rs != nullptr) {
-        m0 *= rss[r];
-        m1 *= rss[r];
-      }
-      // grad f_i(w) - grad f_i(w_prev)
-      dc = coeff_formula(mode, m1, bs[r], scale, aux) -
-           coeff_formula(mode, m0, bs[r], scale, aux);
-    } else if constexpr (M == kPointSaga) {
+    if constexpr (M == kPointSaga) {
       float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
       if (rs != nullptr) m *= rss[r];
       // the row's prox point z_i = v + gamma c_i a_i has the margin
@@ -230,8 +186,6 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
       if (writes_table(M)) {
         dc = c_new - cs[r];
         if (lane == 0) c[start + r] = c_new;
-      } else if (coupled(M)) {
-        dc = c_new - cs[r];  // live at x minus anchor
       } else {
         dc = cs[r] - c_new;  // anchor minus live
       }
@@ -346,58 +300,6 @@ prox_kernel(const float* __restrict__ av, float* __restrict__ z,
   if (j < n) z[j] = soft_threshold(av[j], sc[thr_slot]);
 }
 
-// x <- the coupled point on every column: step 0's margins' point (Katyusha).
-// t1 and t2 are the scalars row's slots t_slot and t_slot + 1.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-point_kernel(const float* __restrict__ zm, const float* __restrict__ xa,
-             const float* __restrict__ y, float* __restrict__ x,
-             const float* __restrict__ sc, int t_slot, int n) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < n)
-    x[j] = coupled_point(sc[t_slot], sc[t_slot + 1], zm[j], xa[j], y[j]);
-}
-
-// Katyusha (Allen-Zhu 2018, Option II) on a block: with the estimate
-// g~ = av + sum / B, sum = sum (c(x) - c_anchor) a_i,
-// z <- soft(z - alpha g~, alpha lambda), y <- soft(x - beta g~, beta lambda),
-// ys += y; then the next step's x from the new z and y.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-katyusha_finish_kernel(const float* __restrict__ part, int parts,
-                       float* __restrict__ x, float* __restrict__ y,
-                       float* __restrict__ zm, float* __restrict__ ys,
-                       const float* __restrict__ xt,
-                       const float* __restrict__ av,
-                       const float* __restrict__ sc, int n) {
-  int j;
-  float innov;
-  if (!column_sum(part, parts, n, j, innov)) return;
-  const float gr = av[j] + innov * sc[5];
-  const float z_new = soft_threshold(zm[j] - sc[1] * gr, sc[3]);
-  const float y_new = soft_threshold(x[j] - sc[2] * gr, sc[4]);
-  zm[j] = z_new;
-  y[j] = y_new;
-  ys[j] += y_new;
-  x[j] = coupled_point(sc[7], sc[8], z_new, xt[j], y_new);
-}
-
-// SARAH's recursion and ProxSARAH's damped prox on a block: v += sum / B
-// with sum = sum (c(w) - c(w_prev)) a_i, y = soft(w - gamma v, gamma
-// lambda), then w_prev <- w and w <- w + eta (y - w). ww is [w_prev; w].
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-sarah_finish_kernel(const float* __restrict__ part, int parts,
-                    float* __restrict__ ww, float* __restrict__ v,
-                    const float* __restrict__ sc, int n) {
-  int j;
-  float innov;
-  if (!column_sum(part, parts, n, j, innov)) return;
-  const float v_new = v[j] + innov * sc[4];
-  const float w = ww[n + j];
-  const float yv = soft_threshold(w - sc[1] * v_new, sc[2]);
-  v[j] = v_new;
-  ww[j] = w;
-  ww[n + j] = w + sc[3] * (yv - w);
-}
-
 // SSNM's momentum point tau x + (1 - tau) zb and Point-SAGA's shifted
 // iterate x - gamma av, each rounded as the plain versions round them (no
 // contraction into an fma).
@@ -478,18 +380,16 @@ point_saga_finish_kernel(const float* __restrict__ part, int parts,
 }
 
 // The arguments of one call: K steps on one stream. SAGA: c the table, z the
-// iterate, av the running average, zs NULL. Finito: c the table, z the iterate, av the running average, zb the (d, n)
-// per-block anchors and invg their sums of 1/gamma_i (by block id, or by step
-// when invg_by_pos). LFinito: c the epoch's anchor coefficients (read only),
-// z the (n,) output (the margins' point, then the last block's prox point),
-// av the running average, zf the epoch's anchor point z_full and invg the
-// visited blocks' sums of 1/gamma_i in visit order. Katyusha: c the anchor
-// coefficients c(x~), z an (n,) scratch for x, av the anchor's mean
-// gradient, zs the running sum of y, y and zm the two sequences, xa = x~.
-// SARAH: c NULL, z the (2, n) pair [w_prev; w], v the estimator. SSNM: c the table, z an (n,) scratch for y, av the
-// table mean gb, zb the (d, n) stored points, xi the iterate x. Point-SAGA: c
-// the table, z an (n,) scratch for v, av the table mean, xi the iterate x, na
-// the (N,) row square-norms.
+// iterate, av the running average. Finito: c the table, z the iterate, av
+// the running average, zb the (d, n) per-block anchors and invg their sums
+// of 1/gamma_i (by block id, or by step when invg_by_pos). LFinito: c the
+// epoch's anchor coefficients (read only), z the (n,) output (the margins'
+// point, then the last block's prox point), av the running average, zf the
+// epoch's anchor point z_full and invg the visited blocks' sums of
+// 1/gamma_i in visit order. SSNM: c the table, z an (n,) scratch for y, av
+// the table mean gb, zb the (d, n) stored points, xi the iterate x.
+// Point-SAGA: c the table, z an (n,) scratch for v, av the table mean, xi
+// the iterate x, na the (N,) row square-norms.
 struct StepArgs {
   const void* A;
   const float* b;
@@ -497,7 +397,6 @@ struct StepArgs {
   float* c;
   float* z;
   float* av;
-  float* zs;
   const int* starts;
   const float* wgts;
   const int* fclamp;
@@ -509,10 +408,6 @@ struct StepArgs {
   const float* invg = nullptr;
   int invg_by_pos = 0;
   const float* zf = nullptr;
-  float* y = nullptr;
-  float* zm = nullptr;
-  const float* xa = nullptr;
-  float* v = nullptr;
   float* xi = nullptr;
   const float* na = nullptr;
 };
@@ -523,7 +418,7 @@ cudaError_t run_steps(const StepArgs& a) {
   const size_t smem =
       tile_bytes(a.rows, a.n, sizeof(T)) +
       sizeof(float) *
-          static_cast<size_t>(points(M) * a.n + row_values(M) * a.rows);
+          static_cast<size_t>(a.n + row_values(M) * a.rows);
   auto kernel = rows_kernel<M, T, kLowp, kVec, kPMode>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -537,10 +432,6 @@ cudaError_t run_steps(const StepArgs& a) {
   if constexpr (M == kLFinito) {
     prox_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(a.av, a.z, a.sc,
                                                               2, a.n);
-  } else if constexpr (coupled(M)) {
-    // step 0's x from the incoming z, anchor point and y (tau1, tau2 at 7, 8)
-    point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
-        a.zm, a.xa, a.y, a.z, a.sc, 7, a.n);
   } else if constexpr (M == kSsnm) {
     ssnm_point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
         a.xi, a.zb, a.starts, a.B, a.z, a.sc, a.n);
@@ -562,12 +453,6 @@ cudaError_t run_steps(const StepArgs& a) {
     } else if constexpr (M == kLFinito) {
       lfinito_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.av, a.zf, a.invg, a.sc, k, a.K, a.n);
-    } else if constexpr (M == kKatyusha) {
-      katyusha_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.y, a.zm, a.zs, a.xa, a.av, a.sc, a.n);
-    } else if constexpr (M == kSarah) {
-      sarah_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.v, a.sc, a.n);
     } else if constexpr (M == kSsnm) {
       ssnm_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.xi, a.av, a.zb, a.starts, a.B, a.sc, a.fclamp,

@@ -267,25 +267,21 @@ def _block_gate(F, x0, B: int, method: str) -> bool:
             and A.shape[1] <= MAX_COLS and A.shape[0] % B == 0)
 
 
-def _smem_bytes(rows: int, n: int, itemsize: int, points: int = 1,
-                values: int = 4) -> int:
+def _smem_bytes(rows: int, n: int, itemsize: int, values: int = 4) -> int:
     """Dynamic shared memory of one row-phase CTA (``run_steps`` in the
     CUDA source): the row tile rounded up to 16 bytes, then the margins'
-    points (one (n,) vector, SARAH's two) and ``values`` f32 values per
-    row (Δc, b, c_old, rs, and Point-SAGA's ‖a‖²)."""
-    return (-(-rows * n * itemsize // 16) * 16
-            + 4 * (points * n + values * rows))
+    point (one (n,) vector) and ``values`` f32 values per row (Δc, b,
+    c_old, rs, and Point-SAGA's ‖a‖²)."""
+    return -(-rows * n * itemsize // 16) * 16 + 4 * (n + values * rows)
 
 
-def _rows_per_cta(B: int, n: int, itemsize: int, points: int = 1,
-                  values: int = 4) -> int:
+def _rows_per_cta(B: int, n: int, itemsize: int, values: int = 4) -> int:
     """Rows of the block each CTA of the row phase takes: the largest
     power of two up to 32 that divides B and whose tile fits in shared
-    memory beside ``points`` staged (n,) vectors (32 at the headline
-    B = 4096, n = 1024: 128 CTAs, about one per SM, with a 128 KB f32
-    tile)."""
+    memory beside the staged (n,) point (32 at the headline B = 4096,
+    n = 1024: 128 CTAs, about one per SM, with a 128 KB f32 tile)."""
     r = 32
-    while B % r or _smem_bytes(r, n, itemsize, points, values) > SMEM_BYTES:
+    while B % r or _smem_bytes(r, n, itemsize, values) > SMEM_BYTES:
         r //= 2
     return r
 
@@ -394,11 +390,12 @@ _ARGTYPES = {
     # A, storage, b, gamma, rs, s, starts, fclamp, sc, part, av, z, n, B,
     # rows, K, stream
     "proshi_multistep": "PIPPPPPPPPPPIIIIP",
-    # A, storage, lowp, b, rs, canch, xt, y, z, ys, av, x, starts, sc, part,
-    # n, B, rows, K, stream
-    "katyusha_coeff_multistep": "PII" + "P" * 12 + "IIII" + "P",
-    # A, storage, lowp, b, rs, ww, v, starts, sc, part, n, B, rows, K, stream
-    "sarah_multistep": "PII" + "P" * 7 + "IIII" + "P",
+    # A, storage, lowp, b, rs, canch, starts, xt, y, z, ys, av, x, sc, part,
+    # bar, n, B, rows, ctas, stage_rows, stages, K, stream
+    "katyusha_coeff_multistep": "PII" + "P" * 13 + "I" * 7 + "P",
+    # A, storage, lowp, b, rs, starts, ww, v, sc, part, bar, n, B, rows,
+    # ctas, stage_rows, stages, K, stream
+    "sarah_multistep": "PII" + "P" * 8 + "I" * 7 + "P",
     # A, storage, lowp, b, rs, canch, starts, stop, w, wpre, av, sc, part,
     # bar, n, B, rows, ctas, stage_rows, stages, K, stream
     "lsvrg_coeff_multistep": "PII" + "P" * 11 + "I" * 7 + "P",
@@ -492,13 +489,13 @@ def _check_blocks(A, b, starts, B, rs):
     return n, K
 
 
-def _check_steps(A, b, starts, B, rs, points: int = 1, values: int = 4):
+def _check_steps(A, b, starts, B, rs, values: int = 4):
     """Checks shared by the block-step kernels of ``saga_steps.cuh``;
     returns (n, K, rows per CTA, the (B / rows, n) partials scratch).
-    ``points``: the (n,) vectors the row phase stages (SARAH's two);
-    ``values``: the f32 values it stages per row (Point-SAGA's five)."""
+    ``values``: the f32 values the row phase stages per row (Point-SAGA's
+    five)."""
     n, K = _check_blocks(A, b, starts, B, rs)
-    rows = _rows_per_cta(B, n, A.element_size(), points, values)
+    rows = _rows_per_cta(B, n, A.element_size(), values)
     part = torch.empty((B // rows, n), dtype=torch.float32, device=A.device)
     return n, K, rows, part
 
@@ -556,6 +553,7 @@ def saga_coeff_multistep(A, b, starts, c, z, av, scalars, B: int,
           z.data_ptr(), av.data_ptr(), starts.data_ptr(), _ptr(wgts),
           scalars.data_ptr(), part.data_ptr(), n, B, rows, K)
     saga_coeff_multistep.launches += 1
+    saga_coeff_multistep.steps += starts.shape[0]
     saga_coeff_multistep.weighted_launches += wgts is not None
     return c, z, av
 
@@ -620,6 +618,7 @@ def saga_coeff_multistep_streamed(A, b, starts, c, z, av, scalars, B: int,
                      starts, B, precision, scalars, 8,
                      (_ptr(f), _ptr(wgts)), dict(z=z, av=av))
     saga_coeff_multistep_streamed.launches += 1
+    saga_coeff_multistep_streamed.steps += starts.shape[0]
     saga_coeff_multistep_streamed.weighted_launches += wgts is not None
     return c, z, av
 
@@ -698,6 +697,7 @@ def svrg_coeff_multistep(A, b, starts, canch, w, zs, av, scalars, B: int,
                      starts, B, precision, scalars, 6, (),
                      dict(w=w, zs=zs, av=av))
     svrg_coeff_multistep.launches += 1
+    svrg_coeff_multistep.steps += starts.shape[0]
     return w, zs
 
 
@@ -1145,6 +1145,7 @@ def finito_coeff_multistep(A, b, starts, c, zb, invg, z, av, scalars,
     _launch_finito("finito_coeff_multistep", A, b, starts, c, zb, invg,
                    A.shape[0] // B, z, av, scalars, B, precision, rs)
     finito_coeff_multistep.launches += 1
+    finito_coeff_multistep.steps += starts.shape[0]
     return c, zb, z, av
 
 
@@ -1187,6 +1188,7 @@ def finito_coeff_multistep_streamed(A, b, starts, invg_k, c, zb, z, av,
                    invg_k, starts.shape[0], z, av, scalars, B, precision, rs,
                    (_ptr(f),))
     finito_coeff_multistep_streamed.launches += 1
+    finito_coeff_multistep_streamed.steps += starts.shape[0]
     return c, zb, z, av
 
 
@@ -1275,6 +1277,7 @@ def lfinito_sweep_multistep(A, b, canch, starts, av, zf, invg, scalars,
           av.data_ptr(), z.data_ptr(), starts.data_ptr(), scalars.data_ptr(),
           part.data_ptr(), n, B, rows, K)
     lfinito_sweep_multistep.launches += 1
+    lfinito_sweep_multistep.steps += starts.shape[0]
     return av, z
 
 
@@ -1426,6 +1429,7 @@ def saga_block_update(A, b, s, z, start, scalars, B: int,
     innov = _launch_block("saga_block_update", A, b, s, z, start, scalars, 1,
                           B, precision)
     saga_block_update.launches += 1
+    saga_block_update.steps += 1
     return s, innov
 
 
@@ -1466,6 +1470,7 @@ def finito_block_update(A, b, s, gamma, z, start, scalars, B: int,
     innov = _launch_block("finito_block_update", A, b, s, z, start, scalars,
                           3, B, precision, gamma=(gamma,))
     finito_block_update.launches += 1
+    finito_block_update.steps += 1
     return s, innov
 
 
@@ -1578,6 +1583,7 @@ def proshi_multistep(A, b, gamma, s, starts, av, z, scalars, B: int,
           starts.data_ptr(), _ptr(f), scalars.data_ptr(), part.data_ptr(),
           av.data_ptr(), z.data_ptr(), n, B, rows, K)
     proshi_multistep.launches += 1
+    proshi_multistep.steps += starts.shape[0]
     return s, av, z
 
 
@@ -1661,14 +1667,17 @@ def katyusha_coeff_multistep(A, b, canch, starts, xt, y, z, ys, av, scalars,
     CPU tensors take the plain version :func:`katyusha_coeff_multistep_ref`;
     CUDA tensors launch the kernel or raise.
 
-    The step is :func:`svrg_coeff_multistep`'s (``csrc/saga_steps.cuh``,
-    method ``kKatyusha``): bound by the block's rows, B·n·itemsize bytes
-    (16 MB f32, 4 MB int8 at B = 4,096, n = 1,024), and the anchor
-    coefficients, read, never written. The margins are taken at x, which
-    the TPU kernel forms in VMEM at each block's first tile; here a
-    prologue launch forms step 0's x in an (n,) scratch, and each finish,
-    whose columns are its own, updates z, y and ys and forms the next
-    step's x, so a step is still two stream-ordered launches.
+    The step is :func:`lkatyusha_coeff_multistep`'s with Katyusha's
+    finish: bound by the block's rows, B·n·itemsize bytes (16 MB f32,
+    4 MB int8 at B = 4,096, n = 1,024), and the anchor coefficients,
+    read, never written. The whole call is one cooperative launch of the
+    persistent engine (``csrc/loopless_steps.cuh``, method
+    ``kKatyushaSteps``): every CTA forms step 0's x on all columns inside
+    the launch (writing its own finish columns of an (n,) scratch), the
+    margins are taken at x, and each step's finish, between two grid
+    barriers, updates z, y and ys on the CTA's columns and forms the next
+    step's x there. A grid that cannot be resident at once raises
+    ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return katyusha_coeff_multistep_ref(A, b, canch, starts, xt, y, z, ys,
@@ -1677,20 +1686,12 @@ def katyusha_coeff_multistep(A, b, canch, starts, xt, y, z, ys, av, scalars,
     if A.device.type != "cuda":
         raise ValueError(f"katyusha_coeff_multistep: no kernel for "
                          f"{A.device}")
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    _check("canch", canch, f32, (A.shape[0],), dev)
-    for name, t in (("xt", xt), ("y", y), ("z", z), ("ys", ys), ("av", av)):
-        _check(name, t, f32, (n,), dev)
-    _check("scalars", scalars, f32, (10,), dev)
-    x = torch.empty(n, dtype=f32, device=dev)
-    _call("katyusha_coeff_multistep", dev, A.data_ptr(),
-          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), b.data_ptr(),
-          _ptr(rs), canch.data_ptr(), xt.data_ptr(), y.data_ptr(),
-          z.data_ptr(), ys.data_ptr(), av.data_ptr(), x.data_ptr(),
-          starts.data_ptr(), scalars.data_ptr(), part.data_ptr(), n, B, rows,
-          K)
+    x = torch.empty_like(y)
+    _loopless_launch("katyusha_coeff_multistep", A, b, rs, dict(canch=canch),
+                     starts, B, precision, scalars, 10, (),
+                     dict(xt=xt, y=y, z=z, ys=ys, av=av, x=x))
     katyusha_coeff_multistep.launches += 1
+    katyusha_coeff_multistep.steps += starts.shape[0]
     return y, z, ys
 
 
@@ -1749,31 +1750,31 @@ def sarah_multistep(A, b, starts, ww, v, scalars, B: int,
     tensors launch the kernel or raise.
 
     The step needs each row's margin at two points. The TPU kernel takes
-    both from one stacked (2, TILE) dot on the MXU; here the row phase
-    (``csrc/saga_steps.cuh``, method ``kSarah``) stages w_prev and w in
-    shared memory beside the rows (rounded to bf16 when the dots are) and
-    a warp walks each staged row once for both sums, so a step still
-    reads its block's rows once: B·n·itemsize bytes, 16 MB f32 and 4 MB
-    int8 at B = 4,096, n = 1,024, for 6·B·n operations. The shared
-    memory per CTA counts two (n,) vectors (:func:`_rows_per_cta`). The
-    finish writes w_prev ← w and w ← w_next column by column, and the
-    next step's row phase reads both in stream order.
+    both from one stacked (2, TILE) dot on the MXU; here the whole call is
+    one cooperative launch of the persistent engine
+    (``csrc/loopless_steps.cuh``, method ``kSarahSteps``), whose consumer
+    warps copy both points into shared memory (rounded to bf16 when the
+    dots are) and feed each unit they load of a staged row into two sets
+    of sums, so a step still reads its block's rows once: B·n·itemsize
+    bytes, 16 MB f32 and 4 MB int8 at B = 4,096, n = 1,024, for 6·B·n
+    operations. There is no coefficient table to load. Each step's
+    finish, between two grid barriers, writes v, w_prev ← w and
+    w ← w_next on the CTA's columns. The shared memory counts both
+    points (:func:`_loopless_grid` with ``points=2``): f32 rows wider
+    than 14,456 columns leave room for one ring stage only, which the
+    producer refills once it has been read. A grid that cannot be
+    resident at once raises ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return sarah_multistep_ref(A, b, starts, ww, v, scalars, B,
                                    precision=precision, rs=rs)
     if A.device.type != "cuda":
         raise ValueError(f"sarah_multistep: no kernel for {A.device}")
-    n, K, rows, part = _check_steps(A, b, starts, B, rs, points=2)
-    dev, f32 = A.device, torch.float32
-    _check("ww", ww, f32, (2, n), dev)
-    _check("v", v, f32, (n,), dev)
-    _check("scalars", scalars, f32, (7,), dev)
-    _call("sarah_multistep", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), ww.data_ptr(),
-          v.data_ptr(), starts.data_ptr(), scalars.data_ptr(),
-          part.data_ptr(), n, B, rows, K)
+    _check("ww", ww, torch.float32, (2, A.shape[-1]), A.device)
+    _loopless_launch("sarah_multistep", A, b, rs, {}, starts, B, precision,
+                     scalars, 7, (ww.data_ptr(),), dict(v=v), points=2)
     sarah_multistep.launches += 1
+    sarah_multistep.steps += starts.shape[0]
     return ww, v
 
 
@@ -1791,11 +1792,12 @@ def sarah_inner_chunked(A, b, ww, v, scalars, B: int, starts,
     return ww, v, m
 
 
-# The persistent engine of kernels #4, #5, #16 and #17
+# The persistent engine of kernels #4, #5, #10, #11, #16 and #17
 # (``csrc/loopless_steps.cuh``): one cooperative launch a call,
 # LOOPLESS_THREADS consumer threads and one producer warp a CTA, a ring of 2
 # to LOOPLESS_MAX_STAGES stages of whole rows (as many as fit
-# LOOPLESS_STAGE_BYTES, at most LOOPLESS_MAX_STAGE_ROWS) in shared memory.
+# LOOPLESS_STAGE_BYTES, at most LOOPLESS_MAX_STAGE_ROWS) in shared memory,
+# one stage where two do not fit beside SARAH's two points.
 LOOPLESS_THREADS = 256
 LOOPLESS_STAGE_BYTES = 32 * 1024
 LOOPLESS_MAX_STAGES = 8
@@ -1815,23 +1817,26 @@ def _loopless_groups(units: int) -> int:
 
 
 def _loopless_smem_bytes(stage_rows: int, stages: int, n: int,
-                         itemsize: int) -> int:
+                         itemsize: int, points: int = 1) -> int:
     """Dynamic shared memory of one CTA of the engine
     (``loopless_smem_bytes`` in ``csrc/loopless_steps.cuh``): the ring,
-    the point, the row groups' column sums (g rows of n where the 16-byte
-    path gives g > 1 groups), two mbarriers a stage, b, the anchor
-    coefficient and rs of each stage's rows, dc of two stages, the warps'
-    margin sums of a stage's rows and the finish's warp sums."""
+    the ``points`` (n,) points (SARAH's two), the row groups' column sums
+    (g rows of n where the 16-byte path gives g > 1 groups), two
+    mbarriers a stage, b, the anchor coefficient and rs of each stage's
+    rows, dc of two stages, the warps' margin sums of a stage's rows (a
+    set a point) and the finish's warp sums."""
     tile = -(-stage_rows * n * itemsize // 16) * 16
     g = _loopless_groups(-(-n // 4))
     groups = -(-4 * g * n // 16) * 16 if g > 1 else 0
-    return (stages * tile + -(-4 * n // 16) * 16 + groups + 16 * stages
-            + 4 * (3 * stages * stage_rows + (2 + LOOPLESS_THREADS // 32)
-                   * stage_rows + LOOPLESS_THREADS))
+    return (stages * tile + -(-4 * points * n // 16) * 16 + groups
+            + 16 * stages
+            + 4 * (3 * stages * stage_rows
+                   + (2 + points * LOOPLESS_THREADS // 32) * stage_rows
+                   + LOOPLESS_THREADS))
 
 
 @functools.lru_cache(maxsize=64)
-def _loopless_grid(B: int, n: int, itemsize: int, sms: int):
+def _loopless_grid(B: int, n: int, itemsize: int, sms: int, points: int = 1):
     """(rows a CTA, CTAs, rows a stage, stages) of the engine on a card of
     ``sms`` SMs, as ``loopless_grid`` in ``csrc/loopless_steps.cuh``
     checks it: R rows a CTA, the smallest power of two with ceil(B / R)
@@ -1841,8 +1846,11 @@ def _loopless_grid(B: int, n: int, itemsize: int, sms: int):
     to R and LOOPLESS_MAX_STAGE_ROWS whose tile fits LOOPLESS_STAGE_BYTES
     (at least one row: 8 f32, 16 bf16 and 32 int8 rows at n = 1,024, 64
     rows of any storage at n = 128), and as many stages as fit the SM's
-    shared memory, up to LOOPLESS_MAX_STAGES (6 f32 stages at n = 1,024
-    and at n = 128, 2 of one f32 row at n = 16,384)."""
+    shared memory beside the ``points`` points, up to LOOPLESS_MAX_STAGES
+    (6 f32 stages at n = 1,024 and at n = 128, 2 of one f32 row at n =
+    16,384). Two stages fit beside one point at every width up to
+    MAX_COLS; beside SARAH's two points they fit f32 rows up to 14,456
+    columns, and wider f32 rows take one stage (n = 16,384: 197,732 B)."""
     rows = 1
     while -(-B // rows) > sms:
         rows *= 2
@@ -1852,7 +1860,8 @@ def _loopless_grid(B: int, n: int, itemsize: int, sms: int):
            and 2 * S * n * itemsize <= LOOPLESS_STAGE_BYTES):
         S *= 2
     P = LOOPLESS_MAX_STAGES
-    while P > 2 and _loopless_smem_bytes(S, P, n, itemsize) > SMEM_BYTES:
+    while (P > 1 and _loopless_smem_bytes(S, P, n, itemsize, points)
+           > SMEM_BYTES):
         P -= 1
     return rows, ctas, S, P
 
@@ -1877,27 +1886,29 @@ def _grid_barrier(index: int, stream: int):
 
 
 def _loopless_launch(name, A, b, rs, table, starts, B, precision, scalars,
-                     n_sc, before, vectors):
+                     n_sc, before, vectors, points: int = 1):
     """Check the arguments of a kernel of the persistent engine (#4, #5,
-    #16, #17) and make its one cooperative launch on the current stream.
-    ``table``: the (N,) f32 coefficients, by name; ``before``: the C
-    call's pointers between ``starts`` and the vectors (the stop index or
-    clamp count, SAGA's weights), checked by the caller; ``vectors``: the
-    (n,) f32 tensors after them, by name, in its order."""
+    #10, #11, #16, #17) and make its one cooperative launch on the current
+    stream. ``table``: the (N,) f32 coefficients, by name (SARAH has
+    none: empty); ``before``: the C call's pointers between ``starts`` and
+    the vectors (the stop index or clamp count, SAGA's weights, SARAH's
+    pair), checked by the caller; ``vectors``: the (n,) f32 tensors after
+    them, by name, in its order; ``points``: the points the margins are
+    taken at (SARAH's two)."""
     n, K = _check_blocks(A, b, starts, B, rs)
     dev, f32 = A.device, torch.float32
-    (key, c), = table.items()
-    _check(key, c, f32, (A.shape[0],), dev)
+    for key, c in table.items():
+        _check(key, c, f32, (A.shape[0],), dev)
     for key, t in vectors.items():
         _check(key, t, f32, (n,), dev)
     _check("scalars", scalars, f32, (n_sc,), dev)
     rows, ctas, S, P = _loopless_grid(B, n, A.element_size(),
-                                      _sm_count(dev.index))
+                                      _sm_count(dev.index), points)
     part = torch.empty((ctas, n), dtype=f32, device=dev)
     bar = _grid_barrier(dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), c.data_ptr(),
-          starts.data_ptr(), *before,
+          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs),
+          *(c.data_ptr() for c in table.values()), starts.data_ptr(), *before,
           *(t.data_ptr() for t in vectors.values()), scalars.data_ptr(),
           part.data_ptr(), bar.data_ptr(), n, B, rows, ctas, S, P, K)
 
@@ -1985,6 +1996,7 @@ def lsvrg_coeff_multistep(A, b, canch, starts, stop, w, av, scalars, B: int,
                      starts, B, precision, scalars, 6, (_ptr(stop),),
                      dict(w=w, wpre=wpre, av=av))
     lsvrg_coeff_multistep.launches += 1
+    lsvrg_coeff_multistep.steps += starts.shape[0]
     return w, wpre
 
 
@@ -2059,6 +2071,7 @@ def lkatyusha_coeff_multistep(A, b, canch, starts, stop, wa, y, z, av,
                      starts, B, precision, scalars, 10, (_ptr(stop),),
                      dict(wa=wa, y=y, z=z, ypre=ypre, av=av, x=x))
     lkatyusha_coeff_multistep.launches += 1
+    lkatyusha_coeff_multistep.steps += starts.shape[0]
     return y, z, ypre
 
 
@@ -2166,6 +2179,7 @@ def ssnm_multistep(A, b, starts, c, zb, x, gb, scalars, B: int,
     _launch_ssnm("ssnm_multistep", A, b, starts, c, zb, x, gb, scalars, B,
                  precision, rs)
     ssnm_multistep.launches += 1
+    ssnm_multistep.steps += starts.shape[0]
     return c, zb, x, gb
 
 
@@ -2202,6 +2216,7 @@ def ssnm_multistep_streamed(A, b, starts, c, zb, x, gb, scalars, B: int,
     _launch_ssnm("ssnm_multistep_streamed", A, b, starts, c, zb, x, gb,
                  scalars, B, precision, rs, (_ptr(f),))
     ssnm_multistep_streamed.launches += 1
+    ssnm_multistep_streamed.steps += starts.shape[0]
     return c, zb, x, gb
 
 
@@ -2364,6 +2379,7 @@ def point_saga_multistep(A, b, na, c, starts, x, av, scalars, B: int,
     _launch_point_saga("point_saga_multistep", A, b, na, c, starts, x, av,
                        scalars, B, mode, precision, rs)
     point_saga_multistep.launches += 1
+    point_saga_multistep.steps += starts.shape[0]
     return c, x, av
 
 
@@ -2400,11 +2416,13 @@ def point_saga_multistep_streamed(A, b, na, c, starts, x, av, scalars,
     _launch_point_saga("point_saga_multistep_streamed", A, b, na, c, starts,
                        x, av, scalars, B, mode, precision, rs, (_ptr(f),))
     point_saga_multistep_streamed.launches += 1
+    point_saga_multistep_streamed.steps += starts.shape[0]
     return c, x, av
 
 
 # Launches of the CUDA kernels (one per wrapper call that reaches one),
-# and those of them with direction weights (importance sampling).
+# and those of them with direction weights (importance sampling); the step
+# kernels' steps (K = len(starts) a launch, one block a block update).
 saga_coeff_multistep.launches = 0
 saga_coeff_multistep.weighted_launches = 0
 saga_coeff_multistep_streamed.launches = 0
@@ -2426,3 +2444,20 @@ ssnm_multistep.launches = 0
 ssnm_multistep_streamed.launches = 0
 point_saga_multistep.launches = 0
 point_saga_multistep_streamed.launches = 0
+saga_block_update.steps = 0
+finito_block_update.steps = 0
+saga_coeff_multistep.steps = 0
+saga_coeff_multistep_streamed.steps = 0
+svrg_coeff_multistep.steps = 0
+finito_coeff_multistep.steps = 0
+finito_coeff_multistep_streamed.steps = 0
+lfinito_sweep_multistep.steps = 0
+proshi_multistep.steps = 0
+katyusha_coeff_multistep.steps = 0
+sarah_multistep.steps = 0
+lsvrg_coeff_multistep.steps = 0
+lkatyusha_coeff_multistep.steps = 0
+ssnm_multistep.steps = 0
+ssnm_multistep_streamed.steps = 0
+point_saga_multistep.steps = 0
+point_saga_multistep_streamed.steps = 0

@@ -7,11 +7,12 @@
 ``lsvrg_coeff_multistep``, ``lkatyusha_coeff_multistep``,
 ``ssnm_multistep``, ``ssnm_multistep_streamed``, ``point_saga_multistep``,
 ``point_saga_multistep_streamed`` and ``coeff_value_apply_all`` against
-their plain versions, ``coeff_apply_all`` and the loopless pair bit for
-bit against their pinned digests, ``coeff_value_apply_all``'s c and gsum
-bit for bit ``coeff_apply_all``'s, the four kernels of the persistent
-engine (#4, #5, #16, #17) on two streams at once, the facades' routing to
-them, and the polish's exact-f32 check.
+their plain versions, ``coeff_apply_all`` and the kernels of the
+persistent engine bit for bit against their pinned digests,
+``coeff_value_apply_all``'s c and gsum bit for bit ``coeff_apply_all``'s,
+the kernels of the persistent engine (#4, #5, #10, #11, #16, #17) on two
+streams at once and in turns on one, the facades' routing to them, and
+the polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -1105,9 +1106,10 @@ VR_CASES = {
     "logistic": ("f32", "highest", 128, 1, 0.1),
     "huber": ("f32", "highest", 128, 2, 0.1)}
 VR_SMALL = (8192, 128, 64, None)
-# the loopless pair's grid at width: 128 CTAs at B = 4,096 and 1,024 (32 and
-# 8 rows a CTA, four f32 stages a step at B = 4,096), K = 32 with and without
-# a stop; n = 16,384 (one f32 row a stage, two stages, the wide build)
+# the engine's grid at width: 128 CTAs at B = 4,096 and 1,024 (32 and 8 rows
+# a CTA, four f32 stages a step at B = 4,096), K = 32 with and without a stop
+# (the loopless pair's); n = 16,384 (one f32 row a stage, two stages, the
+# wide build; SARAH's f32 rows there take the one-stage ring)
 LOOPLESS_CASES = {
     "B4096": ("f32", "highest", 1024, 0, 0.1, 32768, 4096, 32, None),
     "B4096-stop": ("f32", "highest", 1024, 0, 0.1, 32768, 4096, 32, 20),
@@ -1118,13 +1120,21 @@ LOOPLESS_CASES = {
     "B1024-int8": ("int8", "highest", 1024, 0, 0.1, 32768, 1024, 32, None),
     "n16384": ("f32", "highest", 16384, 0, 0.1, 8192, 1024, 8, None),
     "n16384-int8-stop": ("int8", "highest", 16384, 0, 0.1, 8192, 1024, 8, 5)}
+# Katyusha and SARAH take no stop: their cases at width are the same
+# without it, each once
+WIDE_CASES = {cid.replace("-stop", ""): case[:-1] + (None,)
+              for cid, case in LOOPLESS_CASES.items()}
 VR_PARAMS = ([(kind, *case, *VR_SMALL) for case in VR_CASES.values()
               for kind in VR_KERNELS]
              + [(kind, *case) for case in LOOPLESS_CASES.values()
-                for kind in ("lsvrg", "lkatyusha")])
+                for kind in ("lsvrg", "lkatyusha")]
+             + [(kind, *case) for case in WIDE_CASES.values()
+                for kind in ("katyusha", "sarah")])
 VR_IDS = ([f"{cid}-{kind}" for cid in VR_CASES for kind in VR_KERNELS]
           + [f"{cid}-{kind}" for cid in LOOPLESS_CASES
-             for kind in ("lsvrg", "lkatyusha")])
+             for kind in ("lsvrg", "lkatyusha")]
+          + [f"{cid}-{kind}" for cid in WIDE_CASES
+             for kind in ("katyusha", "sarah")])
 
 
 @pytest.mark.parametrize("kind,storage,precision,n,mode,lam,N,B,K,stop",
@@ -1136,10 +1146,10 @@ def test_vr_kernel_matches_plain_version(dev, kind, storage, precision, n,
     within 1e-6 of its largest entry for exact-f32 dots, 1e-5 where the
     dots round to bf16 (SARAH's estimator v, a gradient mean, within 10x
     that, as av elsewhere). The logistic and Huber modes check the mode
-    and aux slots of each scalars row; λ = 0 is the Zero prox. The
-    loopless pair also at its engine's width (LOOPLESS_CASES): B = 4,096
-    and 1,024 at n = 1,024, K = 32, with and without a stop, and n =
-    16,384."""
+    and aux slots of each scalars row; λ = 0 is the Zero prox. All four
+    also at the persistent engine's width (LOOPLESS_CASES, the loopless
+    pair with and without a stop): B = 4,096 and 1,024 at n = 1,024, K =
+    32, and n = 16,384 (SARAH's one-stage ring at f32)."""
     S = _vr_setup(dev, N, n, B, K, storage, mode)
     sc = _vr_scalars(S, kind, B, lam, dev)
     kname, rname = VR_KERNELS[kind]
@@ -1158,22 +1168,27 @@ def test_vr_kernel_matches_plain_version(dev, kind, storage, precision, n,
         assert _rel(k, r) <= bound, (kind, i, _rel(k, r))
 
 
-# sha256 (first 16 hex digits) of kernels #16's and #17's outputs on
-# loopless_digest's inputs, from the engine as it was before kernels #4 and
-# #5 joined it (NVIDIA H100 80GB HBM3, 132 SMs, nvcc of CUDA 12.8)
+# sha256 (first 16 hex digits) of the kernels' outputs on loopless_digest's
+# inputs: #16's and #17's from the engine as it was before kernels #4 and #5
+# joined it, #10's and #11's from their first build on it (NVIDIA H100 80GB
+# HBM3, 132 SMs, nvcc of CUDA 12.8)
 LOOPLESS_GOLDEN = {
     ("lsvrg", "f32"): "1b86d247d1dd5e39",
     ("lsvrg", "int8"): "de61e002d1d466f6",
     ("lkatyusha", "f32"): "207eb3a290eead61",
     ("lkatyusha", "int8"): "b909aff2bb48f3dd",
+    ("katyusha", "f32"): "69bdf9bba8171166",
+    ("katyusha", "int8"): "7c30a0e6ba001d47",
+    ("sarah", "f32"): "b6b32b4e8d5f0124",
+    ("sarah", "int8"): "dbc4a187df664d4c",
 }
 
 
 def loopless_digest(dev, kind, storage):
-    """Kernel #16's (w, wpre) or #17's (y, z, ypre) after one call of K =
-    32 steps at the headline width (N = 32,768, n = 1,024, B = 4,096: 128
-    CTAs on a card of 132 SMs) on exact dyadic inputs (no generator, no
-    libm), as a digest."""
+    """Kernel #16's (w, wpre), #17's (y, z, ypre), #10's (y, z, ys) or
+    #11's (ww, v) after one call of K = 32 steps at the headline width (N
+    = 32,768, n = 1,024, B = 4,096: 128 CTAs on a card of 132 SMs) on
+    exact dyadic inputs (no generator, no libm), as a digest."""
     import hashlib
 
     N, n, B, K = 32768, 1024, 4096, 32
@@ -1188,6 +1203,17 @@ def loopless_digest(dev, kind, storage):
                           device=dev)
         out = tfb.lsvrg_coeff_multistep(A, b, canch, starts, None, z.clone(),
                                         av, sc, B, rs=rs)
+    elif kind == "katyusha":
+        sc = torch.tensor([1.0, 2.0**-12, 2.0**-13, 2.0**-18, 2.0**-19,
+                           1.0 / B, 0.0, 0.25, 0.5, 0.5], device=dev)
+        out = tfb.katyusha_coeff_multistep(A, b, canch, starts, z, y.clone(),
+                                           z.clone(), torch.zeros_like(z), av,
+                                           sc, B, rs=rs)
+    elif kind == "sarah":
+        sc = torch.tensor([1.0, 2.0**-12, 2.0**-18, 0.75, 1.0 / B, 0.0, 0.5],
+                          device=dev)
+        out = tfb.sarah_multistep(A, b, starts, torch.stack([z, y]),
+                                  av.clone(), sc, B, rs=rs)
     else:
         sc = torch.tensor([1.0, 2.0**-12, 2.0**-18, 0.99, 0.01, 1.0 / 3.0,
                            0.5, 1.0 / B, 0.0, 0.5], device=dev)
@@ -1201,16 +1227,18 @@ def loopless_digest(dev, kind, storage):
     return h.hexdigest()[:16]
 
 
-@pytest.mark.parametrize("kind", ["lsvrg", "lkatyusha"])
+@pytest.mark.parametrize("kind", ["lsvrg", "lkatyusha", "katyusha",
+                                  "sarah"])
 @pytest.mark.parametrize("storage", ["f32", "int8"])
 def test_loopless_kernels_repeat_bit_for_bit_at_width(dev, kind, storage,
                                                       monkeypatch):
-    """Kernels #16 and #17 at the headline width (n = 1,024, B = 4,096, K =
-    32: 128 CTAs, two grid barriers a step) give the same bits in two
-    calls, and on a 132-SM card the bits of the engine before #4 and #5
-    joined it (``LOOPLESS_GOLDEN``: one row group at this width, so the
-    narrow-row split leaves their arithmetic as it was); a grid other
-    than the engine's rule is refused by the launch (RuntimeError),
+    """Kernels #16, #17, #10 and #11 at the headline width (n = 1,024, B =
+    4,096, K = 32: 128 CTAs, two grid barriers a step) give the same bits
+    in two calls, and on a 132-SM card their pinned bits
+    (``LOOPLESS_GOLDEN``: #16's and #17's from the engine before #4 and
+    #5 joined it, one row group at this width, so neither the narrow-row
+    split nor the methods added since changed their arithmetic); a grid
+    other than the engine's rule is refused by the launch (RuntimeError),
     nothing falls back."""
     N, n, B, K = 32768, 1024, 4096, 32
     S = _vr_setup(dev, N, n, B, K, storage, seed=5)
@@ -1225,8 +1253,8 @@ def test_loopless_kernels_repeat_bit_for_bit_at_width(dev, kind, storage,
             kind, storage]
     rule = tfb._loopless_grid
 
-    def halved(B_, n_, isz, sms):
-        rows, ctas, S_, P = rule(B_, n_, isz, sms)
+    def halved(B_, n_, isz, sms, points=1):
+        rows, ctas, S_, P = rule(B_, n_, isz, sms, points)
         return 2 * rows, -(-B_ // (2 * rows)), S_, P
     monkeypatch.setattr(tfb, "_loopless_grid", halved)
     before = fn.launches
@@ -1282,6 +1310,64 @@ def test_vr_kernel_repeats_bit_for_bit_and_checks_arguments(dev, kind):
         _vr_run(kind, fn, S, sc, 256, starts=S["starts"].long())
     with pytest.raises(ValueError, match="rs"):
         _vr_run(kind, fn, dict(S, rs=None), sc, 256)
+
+
+ALTERNATION = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[2])
+import torch
+import test_torch_cuda as t
+from ciao_tpu_torch.ops import fused_block as tfb
+
+dev = torch.device("cuda", 0)
+# (kind, N, n, B, K): #10 at the headline width (128 CTAs of 32 rows), #11
+# at n = 16,384 (its one-stage ring), #16 on 64 CTAs of one row
+cases = (("katyusha", 32768, 1024, 4096, 8), ("sarah", 8192, 16384, 1024, 8),
+         ("lsvrg", 8192, 1024, 64, 32))
+runs = []
+for i, (kind, N, n, B, K) in enumerate(cases):
+    S = t._vr_setup(dev, N, n, B, K, "f32", seed=40 + i)
+    runs.append((kind, S, t._vr_scalars(S, kind, B, 0.1, dev), B))
+plain = [t._vr_run(k, getattr(tfb, t.VR_KERNELS[k][1]), S, sc, B)
+         for k, S, sc, B in runs]
+first = None
+for rep in range(4):
+    outs = [t._vr_run(k, getattr(tfb, t.VR_KERNELS[k][0]), S, sc, B)
+            for k, S, sc, B in runs]
+    torch.cuda.synchronize()
+    for (k, _, _, _), got, want in zip(runs, outs, plain):
+        for i, (a, b) in enumerate(zip(got, want)):
+            bound = 1e-5 if (k == "sarah" and i == 1) else 1e-6
+            assert bool(torch.isfinite(a).all()), (k, i)
+            assert t._rel(a, b) <= bound, (k, i, t._rel(a, b))
+    if first is None:
+        first = outs
+    for got, again in zip(outs, first):
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+print("alternation: ok")
+"""
+
+
+def test_engine_kernels_in_turns_on_one_stream_match_plain_versions(dev):
+    """Calls of #10, #11 and #16 in turns on one stream, four rounds with
+    no host sync between the calls of a round: the three kernels share the
+    stream's grid-barrier word, with grids of 128 CTAs (#10, #11) and 64
+    (#16) and one or two stages a step, and each call still matches its
+    plain version (1e-6 of the largest entry, SARAH's v 1e-5) and repeats
+    the first round's bits. Run in a child process with a time limit, so
+    that a barrier left in a wrong state fails the test and does not stall
+    the suite."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", ALTERNATION,
+                           os.path.dirname(here), here],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "alternation: ok" in proc.stdout
 
 
 def test_vr_facades_send_every_gated_run_to_their_kernels(dev):
@@ -1575,8 +1661,8 @@ def test_engine_kernels_repeat_bit_for_bit_at_width(dev, kernel, storage,
     assert not torch.equal(runs[0][-1], state[-1])
     rule = tfb._loopless_grid
 
-    def halved(B_, n_, isz, sms):
-        rows_, ctas, S_, P = rule(B_, n_, isz, sms)
+    def halved(B_, n_, isz, sms, points=1):
+        rows_, ctas, S_, P = rule(B_, n_, isz, sms, points)
         return 2 * rows_, -(-B_ // (2 * rows_)), S_, P
     monkeypatch.setattr(tfb, "_loopless_grid", halved)
     before = fn.launches

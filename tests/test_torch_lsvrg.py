@@ -254,6 +254,72 @@ def test_loopless_grid_fits_the_card(B, n, itemsize):
         assert S == rows == 64 and S * n * itemsize <= 32 * 1024
 
 
+@pytest.mark.parametrize("key", list(GRID), ids=[
+    f"B{B}-n{n}-{ {4: 'f32', 2: 'bf16', 1: 'int8'}[i]}" for B, n, i in GRID])
+def test_loopless_one_point_rule_is_unchanged(key):
+    """The grid, ring and shared memory of the one-point kernels (#4, #5,
+    #10, #16, #17) with the points counted: ``points=1`` is the default,
+    value for value, and the shared memory is the ring, one point, the
+    mbarriers, the per-row values, one set of margin sums and the warp
+    sums (and the narrow rows' group sums)."""
+    B, n, itemsize = key
+    grid = tfb._loopless_grid(B, n, itemsize, H100_SMS, 1)
+    assert grid == tfb._loopless_grid(B, n, itemsize, H100_SMS) == GRID[key]
+    _, _, S, P = grid
+    g = tfb._loopless_groups(-(-n // 4))
+    want = (P * (-(-S * n * itemsize // 16) * 16) + -(-4 * n // 16) * 16
+            + (-(-4 * g * n // 16) * 16 if g > 1 else 0) + 16 * P
+            + 4 * (3 * P * S + 10 * S + 256))
+    assert tfb._loopless_smem_bytes(S, P, n, itemsize, 1) == want
+    assert tfb._loopless_smem_bytes(S, P, n, itemsize) == want
+
+
+# (B, n, itemsize) -> (rows a CTA, CTAs, rows a stage, stages) beside
+# SARAH's two points (kernel #11) on an H100
+GRID2 = {(4096, 1024, 4): (32, 128, 8, 6), (4096, 1024, 2): (32, 128, 16, 6),
+         (4096, 1024, 1): (32, 128, 32, 6), (8192, 128, 4): (64, 128, 64, 6),
+         (8192, 128, 2): (64, 128, 64, 8), (8192, 128, 1): (64, 128, 64, 8),
+         (4096, 16384, 4): (32, 128, 1, 1), (4096, 16384, 2): (32, 128, 1, 3),
+         (4096, 16384, 1): (32, 128, 2, 3)}
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1], ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("B,n", [(4096, 1024), (8192, 128), (4096, 16384)],
+                         ids=["headline", "deep", "n16384"])
+def test_loopless_grid_beside_two_points(B, n, itemsize):
+    """SARAH's two points on the engine (``_loopless_grid`` with
+    ``points=2``, checked again in ``csrc/loopless_steps.cuh``): the grid
+    and the stage rows are one point's; the shared memory is one point's
+    plus the second point and a second set of margin sums, within 227 KB;
+    as many stages as fit, two or more wherever two fit, and one only
+    where two do not: f32 rows at n = 16,384 (two stages would take
+    263,296 B), the widest shape the kernel's gate admits."""
+    one = tfb._loopless_grid(B, n, itemsize, H100_SMS)
+    rows, ctas, S, P = tfb._loopless_grid(B, n, itemsize, H100_SMS, 2)
+    assert (rows, ctas, S, P) == GRID2[B, n, itemsize]
+    assert (rows, ctas, S) == one[:3] and 1 <= P <= one[3]
+    smem = tfb._loopless_smem_bytes(S, P, n, itemsize, 2)
+    assert smem <= tfb.SMEM_BYTES
+    assert smem - tfb._loopless_smem_bytes(S, P, n, itemsize) == (
+        -(-8 * n // 16) * 16 - -(-4 * n // 16) * 16 + 4 * 8 * S)
+    assert P == tfb.LOOPLESS_MAX_STAGES or tfb._loopless_smem_bytes(
+        S, P + 1, n, itemsize, 2) > tfb.SMEM_BYTES
+    two = tfb._loopless_smem_bytes(S, 2, n, itemsize, 2)
+    assert (P >= 2) == (two <= tfb.SMEM_BYTES)
+    assert (P == 1) == ((n, itemsize) == (16384, 4))
+    if P == 1:
+        assert two == 263_296
+
+
+@pytest.mark.parametrize("n,stages", [(14_456, 2), (14_460, 1)])
+def test_loopless_two_points_keep_two_stages_to_14456_f32_columns(n, stages):
+    """Beside SARAH's two points, two stages of one f32 row fit up to
+    14,456 columns; a wider row takes the one-stage ring."""
+    for B in (4096, 1024):
+        assert tfb._loopless_grid(B, n, 4, H100_SMS, 2)[3] == stages
+        assert tfb._loopless_grid(B, n, 4, H100_SMS)[3] >= 2
+
+
 # ---------------------------------------------------------------------------
 # lsvrg_run and lkatyusha_run against JAX on JAX's draws
 # ---------------------------------------------------------------------------

@@ -105,8 +105,9 @@ def test_sarah_multistep_ref_matches_pallas(storage, precision, prox):
 def test_sarah_wrapper_on_cpu_and_shared_memory():
     """CPU tensors take the plain version and count no launch; the
     chunked driver runs every step; a device with no kernel raises; the
-    row phase's shared memory counts SARAH's two staged points, so at
-    the widest row its tile shrinks where one point's would not."""
+    engine's shared memory counts SARAH's two staged points and their two
+    sets of margin sums, so at the widest f32 row its ring holds one
+    stage where one point's holds two."""
     prob = make_lasso(N=256, n=16, p=3, seed=1, dtype=np.float32)
     A, b = torch.tensor(prob.A), torch.tensor(prob.b)
     starts = torch.tensor([0, 64, 64, 192], dtype=torch.int32)
@@ -129,13 +130,13 @@ def test_sarah_wrapper_on_cpu_and_shared_memory():
             torch.empty((2, 8), device="meta"), torch.empty(8, device="meta"),
             torch.empty(7, device="meta"), 16)
     cols = tfb.MAX_COLS
-    assert tfb._rows_per_cta(4096, cols, 4, points=2) == 1
-    assert tfb._rows_per_cta(4096, cols, 4) == 2
+    assert tfb._loopless_grid(4096, cols, 4, 132, 2)[2:] == (1, 1)
+    assert tfb._loopless_grid(4096, cols, 4, 132)[2:] == (1, 2)
     for pts in (1, 2):
-        r = tfb._rows_per_cta(4096, cols, 4, points=pts)
-        assert tfb._smem_bytes(r, cols, 4, pts) <= tfb.SMEM_BYTES
-    assert tfb._smem_bytes(32, 1024, 4, 2) - tfb._smem_bytes(32, 1024, 4) \
-        == 4 * 1024
+        _, _, S, P = tfb._loopless_grid(4096, cols, 4, 132, pts)
+        assert tfb._loopless_smem_bytes(S, P, cols, 4, pts) <= tfb.SMEM_BYTES
+    assert (tfb._loopless_smem_bytes(8, 6, 1024, 4, 2)
+            - tfb._loopless_smem_bytes(8, 6, 1024, 4)) == 4 * 1024 + 4 * 8 * 8
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,12 @@
 """Times the kernels of the persistent engine (``csrc/loopless_steps.cuh``)
 of one checkout of the port on one NVIDIA GPU, so that two versions can be
 compared in one call: #16 (``lsvrg_coeff_multistep``) and #17
-(``lkatyusha_coeff_multistep``), #5 (``svrg_coeff_multistep``) at the
+(``lkatyusha_coeff_multistep``), #5 (``svrg_coeff_multistep``), #10
+(``katyusha_coeff_multistep``) and #11 (``sarah_multistep``) at the
 headline and #4 (``saga_coeff_multistep_streamed``) at the deep target.
 
     python3 tools/loopless_step_times.py [--root DIR] [--tag NAME] [--seed 0]
-                                         [--kernels 16,17,5,4]
+                                         [--kernels 16,17,5,4,10,11]
 
 Builds the kernels from ``DIR/ciao_tpu_torch/csrc`` (default: this
 checkout) with that checkout's ``ops/_build.py`` and imports that checkout's
@@ -25,7 +26,13 @@ events, two turns each, one state stepped on in place:
 - #5 on the same rows at B = 4,096 in calls of K = 128 (``LAUNCH_STEPS``,
   the SVRG driver's call), f32, bf16 and int8;
 - #4 at the deep target's shape, 10,485,760 x 128 Gaussian rows, B =
-  8,192, in calls of K = 128 (the SAGA driver's), f32 and int8.
+  8,192, in calls of K = 128 (SAGA's ``LAUNCH_STEPS``), f32 and int8;
+- #10 and #11 alternating on the headline's rows, f32, bf16 and int8, at
+  B = 4,096 and 1,024 (the facades' batch) in calls of K = 64 (the
+  headline's m = N/B, ``chip_smoke.VR_M``, one Katyusha or SARAH inner
+  loop a call). The parent's wrappers of these two take the same
+  arguments, so a checkout from before they joined the engine is timed
+  the same way.
 
 Beside each time: the step's bound at 3.35 TB/s and its bytes at the card's
 read ceiling (``torch.sum`` over 2 GiB of f32, measured in the same
@@ -48,15 +55,20 @@ N, n = 262_144, 1_024
 BATCHES = (("headline", 4_096), ("facades", 1_024), ("floor", 128))
 STEPS = (32, 4)
 KINDS = (("#16", "lsvrg", 4), ("#17", "lkatyusha", 7))  # (n,) vectors moved
+# Katyusha's and SARAH's: (n,) vectors moved, bytes a row beside the row
+# (b, and but SARAH the anchor coefficient), operations a row and column
+VR_KINDS = (("#10", "katyusha", 8, 8, 4.0), ("#11", "sarah", 6, 4, 6.0))
+VR_BATCHES = (("headline", 4_096), ("facades", 1_024))
 CALL_STEPS = 128  # the SAGA and SVRG drivers' LAUNCH_STEPS
 SVRG_B = 4_096
 DEEP_N, DEEP_n, DEEP_B = 10 * 1024 * 1024, 128, 8_192
 
 
-def _record(out, cs, F, starts, B, vec_bytes, row_extra, ceil, **kw):
+def _record(out, cs, F, starts, B, vec_bytes, row_extra, ceil, flops=4.0,
+            **kw):
     """One timed entry with its bound and its bytes at the ceiling."""
     nbytes = cs.step_bytes(F, starts, B, vec_bytes, row_extra)
-    b_ms, b_by = cs.step_bound(F, starts, B, vec_bytes, row_extra)
+    b_ms, b_by = cs.step_bound(F, starts, B, vec_bytes, row_extra, flops)
     out["steps"].append(dict(B=B, bound_ms=b_ms, bound_by=b_by,
                              ceil_ms=nbytes / ceil * 1e3, **kw))
 
@@ -93,6 +105,42 @@ def time_loopless(out, cs, fb, A, b, gen, dev, ceil):
                     _record(out, cs, F, S["starts"], B, vec * 4 * n, 8, ceil,
                             kernel=label, shape=shape, storage=storage, K=K,
                             ms=times[label])
+        del F
+        torch.cuda.empty_cache()
+
+
+def time_vr(out, cs, fb, A, b, gen, dev, ceil):
+    """#10 and #11 at both batches in calls of VR_M steps, in
+    alternation."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    K = cs.VR_M
+    for storage in ("f32", "bf16", "int8"):
+        F = LeastSquaresRows(A, b, float(N))
+        if storage != "f32":
+            F = F.with_storage(storage)
+        for shape, B in VR_BATCHES:
+            runs = {}
+            for label, kind, *_ in VR_KINDS:
+                S = cs.vr_inputs(F, gen, dev, B, K)
+                sc = cs.vr_scalars(S, kind, B, cs.LAM)
+                state = cs.vr_state(kind, S)
+                runs[label] = (kind, getattr(fb, cs.VR[kind][0]), S, sc,
+                               state)
+            times = {label: [] for label in runs}
+            for _ in range(2):
+                for label, (kind, fn, S, sc, state) in runs.items():
+                    def call(kind=kind, fn=fn, S=S, sc=sc, state=state):
+                        cs.vr_call(kind, fn, S, sc, B, state=state)
+                    times[label].append(cs.time_events(call, 10) / K)
+            for label, kind, vec, extra, flops in VR_KINDS:
+                _, _, S, _, state = runs[label]
+                if not all(bool(torch.isfinite(t).all()) for t in state):
+                    raise AssertionError(f"{label} {storage} B={B}: "
+                                         "non-finite state")
+                _record(out, cs, F, S["starts"], B, vec * 4 * n, extra, ceil,
+                        flops, kernel=label, shape=shape, storage=storage,
+                        K=K, ms=times[label])
         del F
         torch.cuda.empty_cache()
 
@@ -161,8 +209,9 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(HERE))
     ap.add_argument("--tag", default="")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="16,17,5,4",
-                    help="which of #16/#17 (together), #5, #4 to time")
+    ap.add_argument("--kernels", default="16,17,5,4,10,11",
+                    help="which of #16/#17 (together), #5, #4, #10/#11 "
+                         "(together) to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("loopless_step_times: no CUDA device", file=sys.stderr)
@@ -184,6 +233,8 @@ def main() -> int:
              if which & {"16", "17"} else [])
     names += ["svrg_coeff_multistep"] if "5" in which else []
     names += ["saga_coeff_multistep_streamed"] if "4" in which else []
+    names += ([cs.VR[kind][0] for _, kind, *_ in VR_KINDS]
+              if which & {"10", "11"} else [])
     for name in names:
         _build.load(name)
     dev = torch.device("cuda", 0)
@@ -200,6 +251,8 @@ def main() -> int:
         time_loopless(out, cs, fb, A, b, gen, dev, ceil)
     if "5" in which:
         time_svrg(out, cs, fb, A, b, gen, dev, ceil)
+    if which & {"10", "11"}:
+        time_vr(out, cs, fb, A, b, gen, dev, ceil)
     del A, b
     torch.cuda.empty_cache()
     if "4" in which:
