@@ -4,8 +4,8 @@
 // Replaces the Pallas TPU kernel
 // ciao_tpu/ops/fused_block.py:finito_coeff_multistep_streamed (body
 // _finito_stream_kernel). The device code is in saga_steps.cuh (method
-// kFinito), shared with finito_coeff_multistep.cu; the Python wrapper and the
-// design note are ciao_tpu_torch/ops/fused_block.py
+// kFinito: SAGA's row phase, finito_finish_kernel); the Python wrapper and
+// the design note are ciao_tpu_torch/ops/fused_block.py
 // finito_coeff_multistep_streamed, its plain PyTorch version
 // finito_coeff_multistep_streamed_ref.
 //
@@ -21,8 +21,14 @@
 
 #include "saga_steps.cuh"
 
-// As finito_coeff_multistep_launch, with invg_k: (K,) f32 by step, and
-// fclamp: one int32 on the device, the clamp count f, or NULL for f = K.
+// Returns cudaGetLastError() after queueing the 2K launches (0 on success).
+// A: (N, n) rows of `storage` (0 f32, 1 bf16, 2 int8); b, c, rs: (N,) f32
+// (rs NULL unless int8); zb: (N / B, n) f32 per-block anchors and c, z, av
+// ((n,) f32) updated in place; invg_k: (K,) f32 sums of 1/gamma_i of the
+// steps' blocks, by step; starts: (K,) int32 block starts; fclamp: one int32
+// on the device, the clamp count f, or NULL for f = K; sc: (6,) f32 scalars
+// row [scale, 1/N, hat, hat*lambda, mode, aux]; part: (B / rows, n) f32
+// scratch, 16-byte aligned. rows divides B and is at most 32.
 extern "C" int finito_coeff_multistep_streamed_launch(
     const void* A, int storage, int lowp, const float* b, const float* rs,
     float* c, float* zb, const float* invg_k, float* z, float* av,
@@ -32,6 +38,5 @@ extern "C" int finito_coeff_multistep_streamed_launch(
              sc, part, n, B, rows, K, static_cast<cudaStream_t>(stream)};
   a.zb = zb;
   a.invg = invg_k;
-  a.invg_by_pos = 1;
   return static_cast<int>(launch_steps<kFinito>(storage, lowp, a));
 }

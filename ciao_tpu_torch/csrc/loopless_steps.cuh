@@ -1,4 +1,4 @@
-// The persistent step engine of six step kernels on an NVIDIA Hopper card
+// The persistent step engine of eight step kernels on an NVIDIA Hopper card
 // (sm_90a): a whole call of K block steps in one cooperative launch,
 //
 //   lsvrg_coeff_multistep.cu          replaces ciao_tpu/ops/fused_block.py
@@ -18,7 +18,14 @@
 //                                     _katyusha_coeff_multi_kernel);
 //   sarah_multistep.cu                replaces sarah_multistep (SARAH's
 //                                     recursive steps, body
-//                                     _sarah_multi_kernel).
+//                                     _sarah_multi_kernel);
+//   finito_coeff_multistep.cu         replaces finito_coeff_multistep
+//                                     (Finito-basic coefficient steps with
+//                                     per-block anchors, body
+//                                     _finito_coeff_multi_kernel);
+//   lfinito_sweep_multistep.cu        replaces lfinito_sweep_multistep (an
+//                                     LFinito block sweep, body
+//                                     _lfinito_sweep_kernel).
 //
 // The Python wrappers are in ciao_tpu_torch/ops/fused_block.py, beside the
 // plain PyTorch versions (the *_ref functions), whose arithmetic (bf16
@@ -60,7 +67,8 @@
 //     boundaries (step k + 1's rows, read from starts[k + 1], are loading
 //     while step k's finish and barriers run: with P S >= R all of them);
 //   - step k on the eight consumer warps: the point (w for L-SVRG and SVRG,
-//     x for L-Katyusha and Katyusha, z for SAGA, both w_prev and w for SARAH)
+//     x for L-Katyusha and Katyusha, z for SAGA, Finito and LFinito, both
+//     w_prev and w for SARAH)
 //     copied into shared memory, rounded to bf16 where the dots round, by
 //     plain loads from L2 (the last finish wrote it through the generic
 //     proxy); then for each stage as it lands: the margins, every thread
@@ -71,8 +79,9 @@
 //     and two butterflies reduce them, so both margins come from one read of
 //     the staged row); the coefficient formula and dc, a thread a row
 //     (anchor minus live for L-SVRG and SVRG, live at x minus anchor for
-//     L-Katyusha and Katyusha, new minus old for SAGA, which writes the new
-//     one to its table, c at w minus c at w_prev for SARAH; rounded to bf16
+//     L-Katyusha and Katyusha, new minus old for SAGA and Finito, which
+//     write the new one to their table, anchor minus live for LFinito, c at
+//     w minus c at w_prev for SARAH; rounded to bf16
 //     where the dots round and scaled by rs for int8 rows); and the stage's
 //     rows added into column sums held in registers,
 //     each thread the same units all call. int8 is widened by the
@@ -93,20 +102,33 @@
 //     w-step and running sum (zs += w), SAGA's average, SAGA or SAG
 //     direction (weighted by wgts[k] where given) and prox, L-Katyusha's
 //     z-step, y coupling, ypre and the next x, Katyusha's (Option II) z- and
-//     y-steps, running sum (ys += y) and next x, or SARAH's recursion (v +=
-//     sum / B), damped prox and shift (w_prev <- w, w <- w + eta (y - w)) to
-//     its columns, their state loaded beside the partials; a second barrier
-//     before the next step's point;
-//   - SAGA's table: the producer prefetches no coefficient of SAGA's rows,
+//     y-steps, running sum (ys += y) and next x, SARAH's recursion (v +=
+//     sum / B), damped prox and shift (w_prev <- w, w <- w + eta (y - w)),
+//     Finito's average against block j's anchor (av += hat invg_j (z -
+//     zb_j) - (hat / N) sum, zb_j <- z, z <- soft(av)) or LFinito's against
+//     the epoch's anchor point (av += (hat / N) sum + hat invg_k (z - zf),
+//     then the next block's z <- soft(av) but after the call's last step)
+//     to its columns, their state loaded beside the partials; a second
+//     barrier before the next step's point;
+//   - SAGA's and Finito's table: the producer prefetches no coefficient of
+//     their rows,
 //     since a block revisited within the ring's lookahead (or overlapping an
 //     earlier block: starts need not be block-aligned) would read it stale.
 //     The formula thread of a row loads its old coefficient from L2 when its
 //     stage is taken, after the barriers that end the previous step, and
 //     writes the new one before the step's first barrier, so a revisit reads
-//     the previous visit's value;
+//     the previous visit's value. Finito's anchor row zb_j is read and
+//     written by the finish alone (a column's owner thread, the same every
+//     step), its z by the next step's point: every value written in the
+//     launch (c, zb, z, av) is read by coherent loads from L2, never through
+//     the read-only path, which may return a line that an earlier step of
+//     the launch wrote over;
 //   - the two Katyushas' first x is formed by every CTA for all columns from
-//     z, the anchor point and y (each writes its own finish columns of the x
-//     scratch, so the finish reads the x the margins used); the stop index
+//     z, the anchor point and y, and LFinito's first z = soft(av, hat
+//     lambda) from the incoming av (each CTA writes its own finish columns
+//     of the point, so the finish reads the point the margins used; every
+//     CTA reads av before its first barrier, and the finishes write av only
+//     after it); the stop index
 //     (L-SVRG, L-Katyusha) or clamp count (SAGA) is read once: a call
 //     processes min(K, stop + 1) or min(K, f) steps and the masked ones write
 //     nothing.
@@ -147,7 +169,9 @@ enum LooplessMethod {
   kSvrgSteps = 2,
   kSagaSteps = 3,
   kKatyushaSteps = 4,
-  kSarahSteps = 5
+  kSarahSteps = 5,
+  kFinitoSteps = 6,
+  kLFinitoSteps = 7
 };
 
 constexpr int kLlThreads = 256;              // the consumer warps' threads
@@ -172,7 +196,9 @@ constexpr size_t kLlMaxSmem = 232448;
 // SAGA          [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux];
 // Katyusha      [scale, alpha, beta, alpha*lambda, beta*lambda, 1/B, mode,
 //                tau1, tau2, aux];
-// SARAH         [scale, gamma, gamma*lambda, eta, 1/B, mode, aux].
+// SARAH         [scale, gamma, gamma*lambda, eta, 1/B, mode, aux];
+// Finito        [scale, 1/N, hat, hat*lambda, mode, aux];
+// LFinito       [scale, hat, hat*lambda, 1/N, mode, aux].
 __host__ __device__ constexpr int mode_slot(int M) {
   return M == kLKatyushaSteps                        ? 8
          : (M == kSagaSteps || M == kKatyushaSteps) ? 6
@@ -198,6 +224,17 @@ __host__ __device__ constexpr int ll_points(int M) {
   return M == kSarahSteps ? 2 : 1;
 }
 
+// Whether the call writes its coefficient table (SAGA, Finito).
+__host__ __device__ constexpr bool ll_table(int M) {
+  return M == kSagaSteps || M == kFinitoSteps;
+}
+
+// Whether every CTA forms step 0's point inside the launch: the Katyushas'
+// x and LFinito's z = soft(av).
+__host__ __device__ constexpr bool forms_point(int M) {
+  return coupled(M) || M == kLFinitoSteps;
+}
+
 // The arguments of one call. L-SVRG: pt the iterate w, pre = wpre, c the
 // anchor coefficients; L-Katyusha: pt the (n,) scratch of the coupled point
 // x, y and z the sequences, wa the anchor point, pre = ypre; SVRG: pt the
@@ -205,9 +242,15 @@ __host__ __device__ constexpr int ll_points(int M) {
 // the running average (written), stop the clamp count f, wgts the steps'
 // direction weights (or NULL); Katyusha: pt the (n,) scratch of x, y and z
 // the sequences, wa the anchor point, zs the running sum of y; SARAH: pt
-// the (2, n) pair [w_prev; w], av the estimator v (written), c NULL. av is
-// read only but for SAGA and SARAH, c but for SAGA; stop and pre are NULL
-// but for L-SVRG, L-Katyusha (and SAGA's stop).
+// the (2, n) pair [w_prev; w], av the estimator v (written), c NULL;
+// Finito: pt the iterate z, c the table, av the running average, zb the
+// (d, n) per-block anchors (all written), invg the blocks' sums of
+// 1/gamma_i by block id; LFinito: pt the (n,) output z (the margins' point,
+// then the last block's prox point), c the epoch's anchor coefficients, av
+// the running average (written), wa the anchor point z_full, invg the
+// visited blocks' sums of 1/gamma_i in visit order. av is read only but for
+// SAGA, SARAH and the Finitos, c but for SAGA and Finito; stop and pre are
+// NULL but for L-SVRG, L-Katyusha (and SAGA's stop).
 // part: (ctas, n) f32 scratch; bar: the grid barrier's word of the call's
 // stream (low bits zero between calls).
 struct LooplessArgs {
@@ -229,6 +272,8 @@ struct LooplessArgs {
   int n, B, rows, ctas, stage_rows, stages, K;
   float* zs = nullptr;
   const float* wgts = nullptr;
+  float* zb = nullptr;
+  const float* invg = nullptr;
 };
 
 // The grid rule (ops/fused_block.py _loopless_grid): R rows a CTA, the
@@ -373,7 +418,7 @@ __global__ void __launch_bounds__(kLlBlock, 1)
 loopless_steps_kernel(const LooplessArgs a) {
   constexpr int kUnit = kVec ? 4 : 1;  // columns of a unit
   constexpr int kRegUnits = kRU;
-  constexpr bool kTable = M == kSagaSteps;  // the call writes its table
+  constexpr bool kTable = ll_table(M);  // the call writes its table
   // the producer loads the rows' anchor coefficients (SARAH has none)
   constexpr bool kAnchor = !kTable && M != kSarahSteps;
   constexpr int kPts = ll_points(M);
@@ -424,8 +469,8 @@ loopless_steps_kernel(const LooplessArgs a) {
 
   if (warp == kLlWarps) {
     // the producer: stage t holds rows [i S, i S + here) of the CTA's share
-    // of step k's block, k = t / spc, i = t % spc (SAGA's table is not
-    // prefetched: its consumers read it; SARAH has none)
+    // of step k's block, k = t / spc, i = t % spc (SAGA's and Finito's table
+    // is not prefetched: its consumers read it; SARAH has none)
     for (int t = 0; t < total; ++t) {
       const int s = t % P;
       if (t >= P) mbar_wait(&empty[s], (t / P - 1) & 1);
@@ -523,14 +568,17 @@ loopless_steps_kernel(const LooplessArgs a) {
   unsigned phase = tid == 0 ? load_acquire(a.bar) & 0x80000000u : 0u;
   int t = 0;
   for (int k = 0; k < live; ++k) {
-    // step k's point: w, z, x (at k = 0 formed here from z, wa and y;
-    // each CTA writes its own finish columns of the x scratch), or SARAH's
-    // w_prev and w, one after the other
+    // step k's point: w, z, x (at k = 0 formed here, the Katyushas' x from
+    // z, wa and y, LFinito's z from av; each CTA writes its own finish
+    // columns of the point), or SARAH's w_prev and w, one after the other
     auto point = [&](int j) {
-      if (coupled(M) && k == 0) {
-        const float x =
-            coupled_point(sc[tau_slot(M)], sc[tau_slot(M) + 1],
-                          __ldcg(a.z + j), a.wa[j], __ldcg(a.y + j));
+      if (forms_point(M) && k == 0) {
+        float x;
+        if constexpr (coupled(M))
+          x = coupled_point(sc[tau_slot(M)], sc[tau_slot(M) + 1],
+                            __ldcg(a.z + j), a.wa[j], __ldcg(a.y + j));
+        else
+          x = soft_threshold(__ldcg(a.av + j), fs[1]);
         if (j >= j0 && j < j1) a.pt[j] = x;
         return x;
       }
@@ -540,7 +588,7 @@ loopless_steps_kernel(const LooplessArgs a) {
 #pragma unroll 4
       for (int j = tid * 4; j < kPts * n; j += kLlThreads * 4) {
         float x[4];
-        if (coupled(M) && k == 0) {
+        if (forms_point(M) && k == 0) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) x[q] = point(j + q);
         } else {
@@ -703,18 +751,31 @@ loopless_steps_kernel(const LooplessArgs a) {
     }
     grid_sync(a.bar, phase);
 
-    // SAGA's direction weight of step k
-    const float wgt = kTable && a.wgts != nullptr ? a.wgts[k] : 1.0f;
+    // SAGA's direction weight of step k; the Finitos' sum of 1/gamma_i of
+    // step k's block (Finito's by block id, LFinito's by visit) and
+    // Finito's anchor row of that block
+    const float wgt =
+        M == kSagaSteps && a.wgts != nullptr ? a.wgts[k] : 1.0f;
+    const float ig = M == kFinitoSteps    ? a.invg[a.starts[k] / a.B]
+                     : M == kLFinitoSteps ? a.invg[k]
+                                          : 0.0f;
+    float* zb_row =
+        M == kFinitoSteps
+            ? a.zb + static_cast<int64_t>(a.starts[k] / a.B) * n
+            : nullptr;
     for (int jb = j0; jb < j1; jb += cw) {
       const int j = jb + fcol;
       const bool owner = warp == 0 && lane < cw && j < j1;
       // the column's state (L-SVRG: w, av; SVRG: w, av, zs; SAGA: z, av;
       // L-Katyusha: x, av, z, y, wa; Katyusha: x, av, z, y, wa, ys; SARAH:
-      // w, v), loaded beside its partials
+      // w, v; Finito: z, av, zb_j; LFinito: z, av, zf), loaded beside its
+      // partials
       float st[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (owner) {
         st[0] = __ldcg(a.pt + (M == kSarahSteps ? n : 0) + j);
-        st[1] = kTable || M == kSarahSteps ? __ldcg(a.av + j) : a.av[j];
+        st[1] = kTable || M == kSarahSteps || M == kLFinitoSteps
+                    ? __ldcg(a.av + j)
+                    : a.av[j];
         if (coupled(M)) {
           st[2] = __ldcg(a.z + j);
           st[3] = __ldcg(a.y + j);
@@ -722,6 +783,8 @@ loopless_steps_kernel(const LooplessArgs a) {
         }
         if (M == kSvrgSteps) st[2] = __ldcg(a.zs + j);
         if (M == kKatyushaSteps) st[5] = __ldcg(a.zs + j);
+        if (M == kFinitoSteps) st[2] = __ldcg(zb_row + j);
+        if (M == kLFinitoSteps) st[2] = a.wa[j];
       }
       float sum = 0.0f;
       if (j < j1) {
@@ -748,7 +811,7 @@ loopless_steps_kernel(const LooplessArgs a) {
           else
             a.zs[j] = st[2] + w_new;
           a.pt[j] = w_new;
-        } else if (kTable) {
+        } else if (M == kSagaSteps) {
           // SAGA/SAG: av_new = av + sum / N; SAG steps from av_new, SAGA
           // from sum wgt / B + av (the weight scales the direction only)
           const float av_new = st[1] + innov * fs[3];
@@ -780,6 +843,23 @@ loopless_steps_kernel(const LooplessArgs a) {
           a.av[j] = v_new;
           a.pt[j] = w;
           a.pt[n + j] = w + fs[2] * (yv - w);
+        } else if (M == kFinitoSteps) {
+          // Finito_basic.jl:110-118 on block j: av += hat invg_j (z - zb_j)
+          // - (hat / N) sum, zb_j <- z, z <- soft(av, hat lambda)
+          const float av_new = st[1] + ((fs[1] * ig) * (st[0] - st[2]) -
+                                        (fs[1] * fs[0]) * innov);
+          a.av[j] = av_new;
+          zb_row[j] = st[0];
+          a.pt[j] = soft_threshold(av_new, fs[2]);
+        } else if (M == kLFinitoSteps) {
+          // Finito_LFinito.jl:92-100 on the k'th visited block: av += (hat /
+          // N) sum + hat invg_k (z - zf), sum = sum (c_anchor - c(z)) a_i;
+          // then the next block's z = soft(av, hat lambda), but after the
+          // call's last block, whose z the call returns
+          const float av_new = st[1] + ((fs[0] * fs[2]) * innov +
+                                        (fs[0] * ig) * (st[0] - st[2]));
+          a.av[j] = av_new;
+          if (k + 1 < live) a.pt[j] = soft_threshold(av_new, fs[1]);
         } else {
           // L-Katyusha (Alg. 3, proximal z-step): g~ = av + sum / B,
           // z_new = soft((z + eta sigma x - (eta/L) g~) / (1 + eta sigma),

@@ -1,15 +1,12 @@
 // Coefficient block steps on an NVIDIA Hopper card (sm_90a): the device code
-// shared by eight kernels of ciao_tpu_torch/ops/fused_block.py,
+// shared by six kernels of ciao_tpu_torch/ops/fused_block.py,
 //
 //   saga_coeff_multistep.cu             replaces ciao_tpu/ops/fused_block.py
 //                                       saga_coeff_multistep (SAGA/SAG steps);
-//   finito_coeff_multistep.cu           replaces finito_coeff_multistep
-//                                       (Finito steps, per-block anchors zb);
 //   finito_coeff_multistep_streamed.cu  replaces
-//                                       finito_coeff_multistep_streamed (the
-//                                       same, steps k >= f masked);
-//   lfinito_sweep_multistep.cu          replaces lfinito_sweep_multistep
-//                                       (an LFinito block sweep);
+//                                       finito_coeff_multistep_streamed
+//                                       (Finito steps, per-block anchors zb,
+//                                       steps k >= f masked);
 //   ssnm_multistep.cu                   replaces ssnm_multistep (SSNM steps:
 //                                       SAGA's at a momentum point);
 //   ssnm_multistep_streamed.cu          replaces ssnm_multistep_streamed
@@ -22,9 +19,9 @@
 //
 // The Python wrappers and the design notes are in ops/fused_block.py; the plain
 // PyTorch versions of the same arithmetic are the *_ref functions there.
-// Kernels #4 (streamed SAGA), #5 (SVRG), #10 (Katyusha), #11 (SARAH), #16
-// and #17 (the loopless pair) run on the persistent engine of
-// loopless_steps.cuh.
+// Kernels #4 (streamed SAGA), #5 (SVRG), #8 (LFinito), #9 (Finito), #10
+// (Katyusha), #11 (SARAH), #16 and #17 (the loopless pair) run on the
+// persistent engine of loopless_steps.cuh.
 //
 // One solver step on the block [s, s + B) of the (N, n) rows A is two launches:
 //
@@ -35,17 +32,13 @@
 //       shuffle reduction), the int8 dequant scale, the coefficient formula,
 //       the coefficient difference dc_i and the CTA's partial innovation
 //       sum_rows dc_i . a_i into part[cta, :]. SAGA: dc_i = c_new - c_old and
-//       the table write c_i <- c_new (and Finito, whose table is the same).
-//       LFinito: dc_i = c_anchor_i - c_live against its epoch's anchor table,
-//       read only;
+//       the table write c_i <- c_new (and Finito, whose table is the same);
 //   (b) the finish kernel, 32 columns per CTA: the partials summed in a fixed
 //       order (no atomics, so runs repeat bit for bit), then SAGA's running
 //       average, SAG or SAGA direction and L1 soft-threshold
-//       (saga_finish_kernel), Finito's
-//       av += hat invg_j (z - zb_j) - (hat/N) sum, zb_j <- z, z <- soft(av)
-//       (finito_finish_kernel), or LFinito's av += (hat/N) sum +
-//       hat invg_k (z - z_full) and the next block's z <- soft(av)
-//       (lfinito_finish_kernel).
+//       (saga_finish_kernel), or Finito's
+//       av += hat invg_k (z - zb_j) - (hat/N) sum, zb_j <- z, z <- soft(av)
+//       (finito_finish_kernel).
 //
 // The K steps are issued from the host on one stream with no host sync; the
 // stream order carries the iterate and the table from one step to the next.
@@ -53,11 +46,6 @@
 // clamp count (fclamp not NULL, one int32 on the device) both launches of a
 // step k >= *fclamp return before any other load, so a masked step writes
 // nothing and leaves the state bit for bit as the step before left it.
-//
-// LFinito takes its margins at z = soft(av) of the block's start: a prologue
-// launch forms step 0's z from the incoming av, the finish of step k forms
-// step k+1's, and the last finish leaves z alone, so the launch returns the
-// last block's prox point (not soft of the returned av).
 //
 // SSNM takes its margins at the momentum point y = tau x + (1 - tau) zb_j of
 // the step's block j, and Point-SAGA at the shifted iterate v = x - gamma av,
@@ -88,23 +76,14 @@ constexpr int kMaxRowsPerCta = 32;
 // ScalarIndex says:
 // SAGA        [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux];
 // Finito      [scale, 1/N, hat, hat*lambda, mode, aux];
-// LFinito     [scale, hat, hat*lambda, 1/N, mode, aux];
 // SSNM        [scale, eta, eta*lambda, 1/B, 1/N, mode, tau, aux];
 // Point-SAGA  [scale, gamma, 1/B, 1/N, mode, aux].
 enum Method {
   kSaga = 0,
   kFinito = 2,
-  kLFinito = 3,
   kSsnm = 8,
   kPointSaga = 9
 };
-
-// Whether the row phase refreshes the coefficient table with the formula
-// (SAGA, Finito, SSNM), or reads an anchor table (LFinito; Point-SAGA
-// writes its prox solve).
-__host__ __device__ constexpr bool writes_table(Method M) {
-  return M == kSaga || M == kFinito || M == kSsnm;
-}
 
 // The f32 values the row phase stages per row: dc, b, c and rs, and
 // Point-SAGA's square-norm na.
@@ -121,8 +100,8 @@ struct ScalarIndex {
 // Shared memory: the tile (rows x n of T), then the point (n floats), then
 // per row dc, b, c, rs and (Point-SAGA) na (rows floats each); the per-row
 // values are fetched while the tile is in flight. c is the table (SAGA,
-// Finito, SSNM, Point-SAGA: written back) or the anchor coefficients (read
-// only); z is the point of the margins (y for SSNM, v for Point-SAGA).
+// Finito, SSNM: refreshed by the formula; Point-SAGA: its prox solve), written
+// back; z is the point of the margins (y for SSNM, v for Point-SAGA).
 // kPMode is Point-SAGA's oracle mode (the other methods read theirs from sc).
 template <Method M, typename T, bool kLowp, bool kVec, int kPMode>
 __global__ void __launch_bounds__(kRowThreads)
@@ -183,12 +162,8 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
       float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
       if (rs != nullptr) m *= rss[r];
       const float c_new = coeff_formula(mode, m, bs[r], scale, aux);
-      if (writes_table(M)) {
-        dc = c_new - cs[r];
-        if (lane == 0) c[start + r] = c_new;
-      } else {
-        dc = cs[r] - c_new;  // anchor minus live
-      }
+      dc = c_new - cs[r];
+      if (lane == 0) c[start + r] = c_new;
     }
     if (lane == 0) {
       if (rs != nullptr) dc *= rss[r];
@@ -241,15 +216,14 @@ saga_finish_kernel(const float* __restrict__ part, int parts,
 }
 
 // Finito_basic.jl:110-118 on block j = starts[k] / B, in the coefficient
-// parameterization: innov = hat invg_j (z - zb_j) - (hat/N) sum, av += innov,
-// zb_j <- z, z <- soft(av, hat lambda). invg holds the blocks' sums of 1/gamma_i
-// by block id (invg_by_pos 0) or by step (1, pre-gathered). A masked step
-// writes nothing.
+// parameterization: innov = hat invg_k (z - zb_j) - (hat/N) sum, av += innov,
+// zb_j <- z, z <- soft(av, hat lambda). invg_k holds the sum of 1/gamma_i of
+// step k's block (pre-gathered by step). A masked step writes nothing.
 __global__ void __launch_bounds__(kFinishCols * kFinishWarps)
 finito_finish_kernel(const float* __restrict__ part, int parts,
                      float* __restrict__ z, float* __restrict__ av,
                      float* __restrict__ zb, const float* __restrict__ invg,
-                     int invg_by_pos, const int* __restrict__ starts, int B,
+                     const int* __restrict__ starts, int B,
                      const float* __restrict__ sc,
                      const int* __restrict__ fclamp, int k, int n) {
   if (masked(fclamp, k)) return;
@@ -260,7 +234,7 @@ finito_finish_kernel(const float* __restrict__ part, int parts,
   const float inv_n = sc[1];
   const float hat = sc[2];
   const float thr = sc[3];
-  const float ig = invg[invg_by_pos ? k : block];
+  const float ig = invg[k];
   float* zb_j = zb + static_cast<int64_t>(block) * n + j;
   const float z_old = z[j];
   const float av_new =
@@ -268,36 +242,6 @@ finito_finish_kernel(const float* __restrict__ part, int parts,
   av[j] = av_new;
   *zb_j = z_old;
   z[j] = soft_threshold(av_new, thr);
-}
-
-// Finito_LFinito.jl:92-100 on the k'th visited block: av += (hat/N) sum +
-// hat invg_k (z - z_full) with sum = sum (c_anchor - c(z)) a_i, invg in visit
-// order; then the next block's z = soft(av, hat lambda), except after the
-// last block, whose z the launch returns.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-lfinito_finish_kernel(const float* __restrict__ part, int parts,
-                      float* __restrict__ z, float* __restrict__ av,
-                      const float* __restrict__ zf,
-                      const float* __restrict__ invg,
-                      const float* __restrict__ sc, int k, int K, int n) {
-  int j;
-  float sum;
-  if (!column_sum(part, parts, n, j, sum)) return;
-  const float hat = sc[1];
-  const float thr = sc[2];
-  const float inv_n = sc[3];
-  const float av_new =
-      av[j] + ((hat * inv_n) * sum + (hat * invg[k]) * (z[j] - zf[j]));
-  av[j] = av_new;
-  if (k + 1 < K) z[j] = soft_threshold(av_new, thr);
-}
-
-// z <- soft(av, sc[thr_slot]) on every column: LFinito's first block.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-prox_kernel(const float* __restrict__ av, float* __restrict__ z,
-            const float* __restrict__ sc, int thr_slot, int n) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < n) z[j] = soft_threshold(av[j], sc[thr_slot]);
 }
 
 // SSNM's momentum point tau x + (1 - tau) zb and Point-SAGA's shifted
@@ -381,12 +325,8 @@ point_saga_finish_kernel(const float* __restrict__ part, int parts,
 
 // The arguments of one call: K steps on one stream. SAGA: c the table, z the
 // iterate, av the running average. Finito: c the table, z the iterate, av
-// the running average, zb the (d, n) per-block anchors and invg their sums
-// of 1/gamma_i (by block id, or by step when invg_by_pos). LFinito: c the
-// epoch's anchor coefficients (read only), z the (n,) output (the margins'
-// point, then the last block's prox point), av the running average, zf the
-// epoch's anchor point z_full and invg the visited blocks' sums of
-// 1/gamma_i in visit order. SSNM: c the table, z an (n,) scratch for y, av
+// the running average, zb the (d, n) per-block anchors and invg the sums
+// of 1/gamma_i of the steps' blocks, by step. SSNM: c the table, z an (n,) scratch for y, av
 // the table mean gb, zb the (d, n) stored points, xi the iterate x.
 // Point-SAGA: c the table, z an (n,) scratch for v, av the table mean, xi
 // the iterate x, na the (N,) row square-norms.
@@ -406,8 +346,6 @@ struct StepArgs {
   cudaStream_t stream;
   float* zb = nullptr;
   const float* invg = nullptr;
-  int invg_by_pos = 0;
-  const float* zf = nullptr;
   float* xi = nullptr;
   const float* na = nullptr;
 };
@@ -429,10 +367,7 @@ cudaError_t run_steps(const StepArgs& a) {
   const int finish_blocks = (a.n + kFinishCols - 1) / kFinishCols;
   constexpr int kFinishThreads = kFinishCols * kFinishWarps;
   const int col_blocks = (a.n + kFinishThreads - 1) / kFinishThreads;
-  if constexpr (M == kLFinito) {
-    prox_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(a.av, a.z, a.sc,
-                                                              2, a.n);
-  } else if constexpr (M == kSsnm) {
+  if constexpr (M == kSsnm) {
     ssnm_point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
         a.xi, a.zb, a.starts, a.B, a.z, a.sc, a.n);
   } else if constexpr (M == kPointSaga) {
@@ -448,11 +383,8 @@ cudaError_t run_steps(const StepArgs& a) {
           a.part, parts, a.z, a.av, a.sc, a.wgts, a.fclamp, k, a.n);
     } else if constexpr (M == kFinito) {
       finito_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.av, a.zb, a.invg, a.invg_by_pos, a.starts,
-          a.B, a.sc, a.fclamp, k, a.n);
-    } else if constexpr (M == kLFinito) {
-      lfinito_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.av, a.zf, a.invg, a.sc, k, a.K, a.n);
+          a.part, parts, a.z, a.av, a.zb, a.invg, a.starts, a.B, a.sc,
+          a.fclamp, k, a.n);
     } else if constexpr (M == kSsnm) {
       ssnm_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.xi, a.av, a.zb, a.starts, a.B, a.sc, a.fclamp,

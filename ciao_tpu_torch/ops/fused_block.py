@@ -9,24 +9,25 @@ the kernels' gates, and nineteen hand-written CUDA kernels for Hopper
 beside their plain PyTorch versions:
 
 - ``saga_coeff_multistep`` (``csrc/saga_coeff_multistep.cu``),
-  ``saga_coeff_multistep_streamed`` (``csrc/saga_coeff_multistep_streamed.cu``),
-  ``svrg_coeff_multistep`` (``csrc/svrg_coeff_multistep.cu``),
-  ``finito_coeff_multistep`` (``csrc/finito_coeff_multistep.cu``),
   ``finito_coeff_multistep_streamed``
   (``csrc/finito_coeff_multistep_streamed.cu``),
-  ``lfinito_sweep_multistep`` (``csrc/lfinito_sweep_multistep.cu``),
-  ``katyusha_coeff_multistep`` (``csrc/katyusha_coeff_multistep.cu``),
-  ``sarah_multistep`` (``csrc/sarah_multistep.cu``),
   ``ssnm_multistep`` (``csrc/ssnm_multistep.cu``),
   ``ssnm_multistep_streamed`` (``csrc/ssnm_multistep_streamed.cu``),
   ``point_saga_multistep`` (``csrc/point_saga_multistep.cu``) and
   ``point_saga_multistep_streamed``
-  (``csrc/point_saga_multistep_streamed.cu``): K block steps each,
-  sharing their device code (``csrc/saga_steps.cuh``);
-- ``lsvrg_coeff_multistep`` (``csrc/lsvrg_coeff_multistep.cu``) and
+  (``csrc/point_saga_multistep_streamed.cu``): K block steps each, two
+  launches a step, sharing their device code (``csrc/saga_steps.cuh``);
+- ``saga_coeff_multistep_streamed``
+  (``csrc/saga_coeff_multistep_streamed.cu``),
+  ``svrg_coeff_multistep`` (``csrc/svrg_coeff_multistep.cu``),
+  ``finito_coeff_multistep`` (``csrc/finito_coeff_multistep.cu``),
+  ``lfinito_sweep_multistep`` (``csrc/lfinito_sweep_multistep.cu``),
+  ``katyusha_coeff_multistep`` (``csrc/katyusha_coeff_multistep.cu``),
+  ``sarah_multistep`` (``csrc/sarah_multistep.cu``),
+  ``lsvrg_coeff_multistep`` (``csrc/lsvrg_coeff_multistep.cu``) and
   ``lkatyusha_coeff_multistep`` (``csrc/lkatyusha_coeff_multistep.cu``):
-  the loopless pair's K block steps, one cooperative launch a call on the
-  persistent engine of ``csrc/loopless_steps.cuh``;
+  K block steps each, one cooperative launch a call on the persistent
+  engine of ``csrc/loopless_steps.cuh``;
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
   over all rows, the anchors of the SVRG-shaped families, LFinito's and
   SARAH's, and the full gradient of forward-backward, Davis-Yin and
@@ -375,13 +376,15 @@ _ARGTYPES = {
     # A, storage, lowp, b, rs, z, sc, val, c, gsum, hi, lo, vhi, vlo, N, n,
     # rows, ctas, stream
     "coeff_value_apply_all": "PII" + "P" * 11 + "LIII" + "P",
-    # A, storage, lowp, b, rs, c, zb, invg, z, av, starts, [f,] sc, part,
-    # n, B, rows, K, stream
-    "finito_coeff_multistep": "PIIPPPPPPPPPPIIIIP",
-    "finito_coeff_multistep_streamed": "PIIPPPPPPPPPPPIIIIP",
-    # A, storage, lowp, b, rs, canch, zf, invg, av, z, starts, sc, part, n,
+    # A, storage, lowp, b, rs, c, starts, zb, invg, z, av, sc, part, bar, n,
+    # B, rows, ctas, stage_rows, stages, K, stream
+    "finito_coeff_multistep": "PII" + "P" * 11 + "I" * 7 + "P",
+    # A, storage, lowp, b, rs, c, zb, invg_k, z, av, starts, f, sc, part, n,
     # B, rows, K, stream
-    "lfinito_sweep_multistep": "PIIPPPPPPPPPPIIIIP",
+    "finito_coeff_multistep_streamed": "PIIPPPPPPPPPPPIIIIP",
+    # A, storage, lowp, b, rs, canch, starts, invg, av, z, zf, sc, part, bar,
+    # n, B, rows, ctas, stage_rows, stages, K, stream
+    "lfinito_sweep_multistep": "PII" + "P" * 11 + "I" * 7 + "P",
     # A, storage, lowp, b, s, gamma, z, start, sc, part, innov, n, B, rows,
     # stream
     "finito_block_update": "PIIPPPPPPPPIIIP",
@@ -1087,25 +1090,11 @@ def finito_coeff_multistep_streamed_ref(A, b, starts, invg_k, c, zb, z, av,
                              "finito_coeff_multistep_streamed_ref")
 
 
-def _launch_finito(name, A, b, starts, c, zb, invg, n_invg, z, av, scalars,
-                   B, precision, rs, fclamp=()):
-    """Check the arguments of a Finito kernel of ``saga_steps.cuh`` and
-    queue its 2K launches on the current stream."""
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    _check("c", c, f32, (A.shape[0],), dev)
-    # a stride-0 view (``expand``) would make every row one: the kernel
-    # writes rows of zb, so it must own each
-    _check("zb", zb, f32, (A.shape[0] // B, n), dev)
-    _check("invg", invg, f32, (n_invg,), dev)
-    _check("z", z, f32, (n,), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("scalars", scalars, f32, (6,), dev)
-    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), c.data_ptr(),
-          zb.data_ptr(), invg.data_ptr(), z.data_ptr(), av.data_ptr(),
-          starts.data_ptr(), *fclamp, scalars.data_ptr(), part.data_ptr(), n,
-          B, rows, K)
+def _check_anchors(A, zb, B):
+    """Finito's (d, n) per-block anchors: a stride-0 view (``expand``)
+    would make every row one, and the kernels write rows of zb, so it must
+    own each."""
+    _check("zb", zb, torch.float32, (A.shape[0] // B, A.shape[-1]), A.device)
 
 
 def finito_coeff_multistep(A, b, starts, c, zb, invg, z, av, scalars,
@@ -1128,13 +1117,20 @@ def finito_coeff_multistep(A, b, starts, c, zb, invg, z, av, scalars,
     CPU tensors take the plain version :func:`finito_coeff_multistep_ref`;
     CUDA tensors launch the kernel or raise.
 
-    The step is :func:`saga_coeff_multistep`'s (``saga_steps.cuh``,
-    method ``kFinito``): bound by the block's rows, B·n·itemsize bytes
-    (16 MB f32, 4 MB int8 at the 262,144 × 1,024 headline's B = 4,096),
-    plus one anchor row read and written. The row phase is SAGA's; the
-    finish reads block j's anchor row and Σ 1/γ from device memory (no
-    d ≤ 1,024 cap, as the TPU's SMEM row had) and writes the row back, so
-    a block revisited within a launch sees the previous step's c and zb.
+    The step is bound by the block's rows, B·n·itemsize bytes (16 MB f32,
+    4 MB int8 at the 262,144 × 1,024 headline's B = 4,096), plus one
+    anchor row read and written. The whole call is one cooperative launch
+    of the persistent engine (``csrc/loopless_steps.cuh``, method
+    ``kFinitoSteps``): the row phase is
+    :func:`saga_coeff_multistep_streamed`'s, whose formula threads read
+    each row's old coefficient from L2 when they take its stage and write
+    the new one before the step's first grid barrier; the finish, between
+    the step's two grid barriers, reads block j's anchor row and Σ 1/γ
+    from device memory (no d ≤ 1,024 cap, as the TPU's SMEM row had) and
+    writes the row back on the CTA's columns. Everything the call writes
+    (c, zb, z, av) is read back by coherent loads, so a block revisited
+    within the call sees the previous visit's c and zb. A grid that
+    cannot be resident at once raises ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return finito_coeff_multistep_ref(A, b, starts, c, zb, invg, z, av,
@@ -1142,8 +1138,11 @@ def finito_coeff_multistep(A, b, starts, c, zb, invg, z, av, scalars,
                                           rs=rs)
     if A.device.type != "cuda":
         raise ValueError(f"finito_coeff_multistep: no kernel for {A.device}")
-    _launch_finito("finito_coeff_multistep", A, b, starts, c, zb, invg,
-                   A.shape[0] // B, z, av, scalars, B, precision, rs)
+    _check_anchors(A, zb, B)
+    _check("invg", invg, torch.float32, (A.shape[0] // B,), A.device)
+    _loopless_launch("finito_coeff_multistep", A, b, rs, dict(c=c), starts,
+                     B, precision, scalars, 6,
+                     (zb.data_ptr(), invg.data_ptr()), dict(z=z, av=av))
     finito_coeff_multistep.launches += 1
     finito_coeff_multistep.steps += starts.shape[0]
     return c, zb, z, av
@@ -1171,10 +1170,11 @@ def finito_coeff_multistep_streamed(A, b, starts, invg_k, c, zb, z, av,
     revisit. Here c and zb live in device memory and the launches are
     stream-ordered: the port's driver launches with ``f`` = None, and the
     ``f < K`` semantics stay for the tests, read on the device by both
-    launches of every step. The design and bound are
-    :func:`finito_coeff_multistep`'s, whose device code this kernel
-    shares: at the 10,485,760 × 128 deep shape (B = 8,192) a step reads
-    4 MB of f32 rows (1 MB int8).
+    launches of every step. Each step is two launches of
+    ``csrc/saga_steps.cuh`` (method ``kFinito``): SAGA's row phase, then
+    a finish on n/32 CTAs that applies :func:`finito_coeff_multistep`'s
+    average, anchor and prox. At the 10,485,760 × 128 deep shape (B =
+    8,192) a step reads 4 MB of f32 rows (1 MB int8).
     """
     if A.device.type == "cpu":
         return finito_coeff_multistep_streamed_ref(
@@ -1184,9 +1184,19 @@ def finito_coeff_multistep_streamed(A, b, starts, invg_k, c, zb, z, av,
         raise ValueError(f"finito_coeff_multistep_streamed: no kernel for "
                          f"{A.device}")
     f = _check_f(f, A.device)
-    _launch_finito("finito_coeff_multistep_streamed", A, b, starts, c, zb,
-                   invg_k, starts.shape[0], z, av, scalars, B, precision, rs,
-                   (_ptr(f),))
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
+    dev, f32 = A.device, torch.float32
+    _check("c", c, f32, (A.shape[0],), dev)
+    _check_anchors(A, zb, B)
+    _check("invg_k", invg_k, f32, (K,), dev)
+    _check("z", z, f32, (n,), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("scalars", scalars, f32, (6,), dev)
+    _call("finito_coeff_multistep_streamed", dev, A.data_ptr(),
+          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), b.data_ptr(),
+          _ptr(rs), c.data_ptr(), zb.data_ptr(), invg_k.data_ptr(),
+          z.data_ptr(), av.data_ptr(), starts.data_ptr(), _ptr(f),
+          scalars.data_ptr(), part.data_ptr(), n, B, rows, K)
     finito_coeff_multistep_streamed.launches += 1
     finito_coeff_multistep_streamed.steps += starts.shape[0]
     return c, zb, z, av
@@ -1248,14 +1258,20 @@ def lfinito_sweep_multistep(A, b, canch, starts, av, zf, invg, scalars,
     CPU tensors take the plain version :func:`lfinito_sweep_multistep_ref`;
     CUDA tensors launch the kernel or raise.
 
-    The step is :func:`svrg_coeff_multistep`'s (``saga_steps.cuh``,
-    method ``kLFinito``): bound by the block's rows, B·n·itemsize bytes
-    (4 MB f32, 1 MB int8 at the 10,485,760 × 128 deep shape's B = 8,192),
-    and the anchor coefficients, read, never written. The TPU kernel
-    carries av and z in VMEM and forms z at each block's first tile;
-    here a prologue launch forms the first block's z, the finish of step
-    k forms step k+1's (its columns are its own), and the last finish
-    leaves z as the returned prox point.
+    The step is :func:`svrg_coeff_multistep`'s row phase against the
+    anchor coefficients (read, never written), bound by the block's rows,
+    B·n·itemsize bytes (4 MB f32, 1 MB int8 at the 10,485,760 × 128 deep
+    shape's B = 8,192). The TPU kernel carries av and z in VMEM and forms
+    z at each block's first tile. Here the whole call is one cooperative
+    launch of the persistent engine (``csrc/loopless_steps.cuh``, method
+    ``kLFinitoSteps``; at the deep shape 128 CTAs of 64 rows, one stage a
+    step, the 128-column rows split over eight row groups): every CTA
+    forms the first block's z = soft(av) on all columns before its first
+    grid barrier (writing its own finish columns of z), the finish of
+    step k, between two grid barriers, steps av and forms step k+1's z on
+    the CTA's columns, and the last finish leaves z as the returned prox
+    point. A grid that cannot be resident at once raises
+    ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return lfinito_sweep_multistep_ref(A, b, canch, starts, av, zf, invg,
@@ -1263,19 +1279,11 @@ def lfinito_sweep_multistep(A, b, canch, starts, av, zf, invg, scalars,
                                            rs=rs)
     if A.device.type != "cuda":
         raise ValueError(f"lfinito_sweep_multistep: no kernel for {A.device}")
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    _check("canch", canch, f32, (A.shape[0],), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("zf", zf, f32, (n,), dev)
-    _check("invg", invg, f32, (K,), dev)
-    _check("scalars", scalars, f32, (6,), dev)
-    z = torch.empty(n, dtype=f32, device=dev)
-    _call("lfinito_sweep_multistep", dev, A.data_ptr(),
-          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), b.data_ptr(),
-          _ptr(rs), canch.data_ptr(), zf.data_ptr(), invg.data_ptr(),
-          av.data_ptr(), z.data_ptr(), starts.data_ptr(), scalars.data_ptr(),
-          part.data_ptr(), n, B, rows, K)
+    _check("invg", invg, torch.float32, (starts.shape[0],), A.device)
+    z = torch.empty(A.shape[-1], dtype=torch.float32, device=A.device)
+    _loopless_launch("lfinito_sweep_multistep", A, b, rs, dict(canch=canch),
+                     starts, B, precision, scalars, 6, (invg.data_ptr(),),
+                     dict(av=av, z=z, zf=zf))
     lfinito_sweep_multistep.launches += 1
     lfinito_sweep_multistep.steps += starts.shape[0]
     return av, z
@@ -1792,7 +1800,7 @@ def sarah_inner_chunked(A, b, ww, v, scalars, B: int, starts,
     return ww, v, m
 
 
-# The persistent engine of kernels #4, #5, #10, #11, #16 and #17
+# The persistent engine of kernels #4, #5, #8, #9, #10, #11, #16 and #17
 # (``csrc/loopless_steps.cuh``): one cooperative launch a call,
 # LOOPLESS_THREADS consumer threads and one producer warp a CTA, a ring of 2
 # to LOOPLESS_MAX_STAGES stages of whole rows (as many as fit
@@ -1888,11 +1896,12 @@ def _grid_barrier(index: int, stream: int):
 def _loopless_launch(name, A, b, rs, table, starts, B, precision, scalars,
                      n_sc, before, vectors, points: int = 1):
     """Check the arguments of a kernel of the persistent engine (#4, #5,
-    #10, #11, #16, #17) and make its one cooperative launch on the current
-    stream. ``table``: the (N,) f32 coefficients, by name (SARAH has
-    none: empty); ``before``: the C call's pointers between ``starts`` and
-    the vectors (the stop index or clamp count, SAGA's weights, SARAH's
-    pair), checked by the caller; ``vectors``: the (n,) f32 tensors after
+    #8, #9, #10, #11, #16, #17) and make its one cooperative launch on the
+    current stream. ``table``: the (N,) f32 coefficients, by name (SARAH
+    has none: empty); ``before``: the C call's pointers between ``starts``
+    and the vectors (the stop index or clamp count, SAGA's weights,
+    SARAH's pair, Finito's anchors and Σ 1/γ, LFinito's Σ 1/γ), checked by
+    the caller; ``vectors``: the (n,) f32 tensors after
     them, by name, in its order; ``points``: the points the margins are
     taken at (SARAH's two)."""
     n, K = _check_blocks(A, b, starts, B, rs)

@@ -602,9 +602,11 @@ def _finito_run_fused(F, g, state: FinitoCoeffState, cfg: FinitoCfg,
     No clamp: JAX's streamed driver stops each launch at its first
     same-launch revisit because its TPU kernel streams c through aliased
     windows, and aligns importance windows for the same reason. Here c
-    and zb live in device memory and each step's launches are
-    stream-ordered, so every launch commits all its steps (``f`` = None).
-    Both packages commit the stepwise stream."""
+    and zb live in device memory and a revisit within a call reads the
+    previous visit's values (#9: the persistent engine's grid barriers
+    order them; #14: each step's two launches are stream-ordered), so
+    every call commits all its steps (``f`` = None). Both packages commit
+    the stepwise stream."""
     from ciao_tpu_torch.ops import fused_block as fb
 
     N, B = cfg.N, cfg.batch

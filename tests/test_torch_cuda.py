@@ -10,9 +10,10 @@
 their plain versions, ``coeff_apply_all`` and the kernels of the
 persistent engine bit for bit against their pinned digests,
 ``coeff_value_apply_all``'s c and gsum bit for bit ``coeff_apply_all``'s,
-the kernels of the persistent engine (#4, #5, #10, #11, #16, #17) on two
-streams at once and in turns on one, the facades' routing to them, and
-the polish's exact-f32 check.
+the kernels of the persistent engine (#4, #5, #8, #9, #10, #11, #16,
+#17) at its edges, #8, #9 and #16 on two streams at once and #10, #11 and
+#16 in turns on one, the facades' routing to them, and the polish's
+exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -1170,8 +1171,8 @@ def test_vr_kernel_matches_plain_version(dev, kind, storage, precision, n,
 
 # sha256 (first 16 hex digits) of the kernels' outputs on loopless_digest's
 # inputs: #16's and #17's from the engine as it was before kernels #4 and #5
-# joined it, #10's and #11's from their first build on it (NVIDIA H100 80GB
-# HBM3, 132 SMs, nvcc of CUDA 12.8)
+# joined it, #10's and #11's, and #9's and #8's, from their first builds on
+# it (NVIDIA H100 80GB HBM3, 132 SMs, nvcc of CUDA 12.8)
 LOOPLESS_GOLDEN = {
     ("lsvrg", "f32"): "1b86d247d1dd5e39",
     ("lsvrg", "int8"): "de61e002d1d466f6",
@@ -1181,14 +1182,19 @@ LOOPLESS_GOLDEN = {
     ("katyusha", "int8"): "7c30a0e6ba001d47",
     ("sarah", "f32"): "b6b32b4e8d5f0124",
     ("sarah", "int8"): "dbc4a187df664d4c",
+    ("finito", "f32"): "1161747bc93e7414",
+    ("finito", "int8"): "5c47bfd9bea3fcee",
+    ("lfinito", "f32"): "b14d13c974849feb",
+    ("lfinito", "int8"): "5c9cfa7975dabd22",
 }
 
 
 def loopless_digest(dev, kind, storage):
-    """Kernel #16's (w, wpre), #17's (y, z, ypre), #10's (y, z, ys) or
-    #11's (ww, v) after one call of K = 32 steps at the headline width (N
-    = 32,768, n = 1,024, B = 4,096: 128 CTAs on a card of 132 SMs) on
-    exact dyadic inputs (no generator, no libm), as a digest."""
+    """Kernel #16's (w, wpre), #17's (y, z, ypre), #10's (y, z, ys),
+    #11's (ww, v), #9's (c, zb, z, av) or #8's (av, z) after one call of K
+    = 32 steps at the headline width (N = 32,768, n = 1,024, B = 4,096:
+    128 CTAs on a card of 132 SMs; the blocks revisited every eight steps)
+    on exact dyadic inputs (no generator, no libm), as a digest."""
     import hashlib
 
     N, n, B, K = 32768, 1024, 4096, 32
@@ -1214,6 +1220,21 @@ def loopless_digest(dev, kind, storage):
                           device=dev)
         out = tfb.sarah_multistep(A, b, starts, torch.stack([z, y]),
                                   av.clone(), sc, B, rs=rs)
+    elif kind == "finito":
+        d = N // B
+        zb = ((torch.arange(d)[:, None] * 3 + j * 5) % 17 - 8).float() / 512
+        invg = (torch.arange(d) % 3 + 4).float() * 128
+        sc = torch.tensor([1.0, 1.0 / N, 2.0**-12, 2.0**-18, 0.0, 0.5],
+                          device=dev)
+        out = tfb.finito_coeff_multistep(A, b, starts, canch.clone(),
+                                         zb.to(dev), invg.to(dev), z.clone(),
+                                         av.clone(), sc, B, rs=rs)
+    elif kind == "lfinito":
+        invg = (torch.arange(K) % 3 + 4).float() * 128
+        sc = torch.tensor([1.0, 2.0**-12, 2.0**-18, 1.0 / N, 0.0, 0.5],
+                          device=dev)
+        out = tfb.lfinito_sweep_multistep(A, b, canch, starts, av.clone(), y,
+                                          invg.to(dev), sc, B, rs=rs)
     else:
         sc = torch.tensor([1.0, 2.0**-12, 2.0**-18, 0.99, 0.01, 1.0 / 3.0,
                            0.5, 1.0 / B, 0.0, 0.5], device=dev)
@@ -1671,6 +1692,180 @@ def test_engine_kernels_repeat_bit_for_bit_at_width(dev, kernel, storage,
     assert fn.launches == before
 
 
+# ---------------------------------------------------------------------------
+# kernels #9 and #8 on the persistent engine
+# ---------------------------------------------------------------------------
+
+# (N, n, B, K, storage, precision) of kernels #9 and #8 at the engine's
+# edges: the deep target's width (n = 128, B = 8,192: 64 rows a CTA, eight
+# row groups of a warp), the headline width at B = 4,096 and 1,024 (one
+# group; 32 and 8 rows a CTA, four and one f32 stages a step), one f32 row a
+# stage (n = 16,384: two stages, the wide build), widths that are not whole
+# 16-byte chunks (the plain path), and a B that the rows a CTA do not divide
+# (4,100 = 128 x 32 + 4 on 132 SMs: the last CTA takes four rows)
+FINITO_EDGES = {
+    "n128": (65536, 128, 8192, 32, "f32", "highest"),
+    "n128-default": (65536, 128, 8192, 32, "f32", "default"),
+    "n128-int8": (65536, 128, 8192, 32, "int8", "highest"),
+    "n1024": (32768, 1024, 4096, 32, "f32", "highest"),
+    "n1024-bf16": (32768, 1024, 4096, 32, "bf16", "highest"),
+    "n1024-int8": (32768, 1024, 4096, 32, "int8", "highest"),
+    "n1024-B1024": (32768, 1024, 1024, 32, "f32", "highest"),
+    "n16384": (8192, 16384, 1024, 8, "f32", "highest"),
+    "n202": (8192, 202, 1024, 32, "f32", "highest"),
+    "n200-int8": (8192, 200, 1024, 32, "int8", "highest"),
+    "B4100": (32800, 1024, 4100, 16, "f32", "highest"),
+}
+FINITO_FNS = {"finito": ("finito_coeff_multistep",
+                         "finito_coeff_multistep_ref"),
+              "lfinito": ("lfinito_sweep_multistep",
+                          "lfinito_sweep_multistep_ref")}
+# each kernel's outputs, and the indices of its point z and average av
+FINITO_OUTS = {"finito": (("c", "zb", "z", "av"), 2, 3),
+               "lfinito": (("av", "z"), 1, 0)}
+
+
+def _engine_finito_setup(dev, kind, N, n, B, K, storage, lam=0.1, seed=31):
+    """Kernel #9's state (``_finito_setup``) or #8's epoch start (the
+    anchor z_full = z, its coefficients, av = z_full − hat·Σ c_i a_i/N), on
+    a schedule that revisits blocks inside the call (``_revisits``)."""
+    F, (c, zb, z, av), _, invg, _, sc9 = _finito_setup(dev, N, n, B, K,
+                                                       storage, lam, seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    rows, offs = F.coeff_rows_data()
+    S = dict(kind=kind, rows=rows, offs=offs, rs=F.coeff_rows_scale(), B=B,
+             invg=invg, starts=_revisits(N, B, K, gen, dev), lam=lam)
+    if kind == "finito":
+        S.update(sc=sc9, state=(c, zb, z, av))
+    else:
+        hat = float(sc9[2])
+        canch = F.coeff_all(z)
+        S.update(sc=torch.tensor([N, hat, hat * lam, 1.0 / N, 0.0, 0.0],
+                                 device=dev),
+                 canch=canch, zf=z, hat=hat,
+                 state=(z - hat / N * F.apply_all(canch),))
+    return S
+
+
+def _engine_finito_call(fn, S, state, starts=None, precision="highest"):
+    """One call of kernel #9 or #8, or its plain version, on ``state``
+    (#9's [c, zb, z, av], #8's [av]) in place; returns the outputs (#9's
+    c, zb, z, av; #8's av, z)."""
+    starts = S["starts"] if starts is None else starts
+    kw = dict(precision=precision, rs=S["rs"])
+    if S["kind"] == "finito":
+        c, zb, z, av = state
+        fn(S["rows"], S["offs"], starts, c, zb, S["invg"], z, av, S["sc"],
+           S["B"], **kw)
+        return list(state)
+    iv = S["invg"][starts.long() // S["B"]].contiguous()
+    return list(fn(S["rows"], S["offs"], S["canch"], starts, state[0],
+                   S["zf"], iv, S["sc"], S["B"], **kw))
+
+
+def _fresh(state):
+    return [t.clone() for t in state]
+
+
+def _check_engine_finito(S, precision, got):
+    """``got``, one call of kernel #9 or #8 from S's state, against the
+    plain version, as ``_check_engine_saga`` holds #4: the whole call where
+    the dots are exact f32 (z within 1e-6 of its largest entry, c, zb and
+    av within 1e-5); where they round to bf16, step by step (each plain
+    step taken once more by the kernel from the same state, within 1e-5
+    and 1e-4), and the call equals its one-step calls bit for bit."""
+    kern, plain = (getattr(tfb, f) for f in FINITO_FNS[S["kind"]])
+    names, zi, ai = FINITO_OUTS[S["kind"]]
+    lowp = tfb._lowp(S["rows"], precision)
+    tol = 1e-5 if lowp else 1e-6
+    if not lowp:
+        pairs = [(got, _engine_finito_call(plain, S, _fresh(S["state"]),
+                                           precision=precision))]
+    else:
+        ref, chain, pairs = _fresh(S["state"]), _fresh(S["state"]), []
+        for k in range(S["starts"].shape[0]):
+            s1 = S["starts"][k:k + 1]
+            one = _engine_finito_call(kern, S, _fresh(ref), s1, precision)
+            want = _engine_finito_call(plain, S, ref, s1, precision)
+            pairs.append((one, _fresh(want)))
+            last = _engine_finito_call(kern, S, chain, s1, precision)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, last))
+    torch.cuda.synchronize()
+    for kout, rout in pairs:
+        for i, (k, r) in enumerate(zip(kout, rout)):
+            assert bool(torch.isfinite(k).all()), names[i]
+            bound = tol if i == zi else 10 * tol
+            assert _rel(k, r) <= bound, (names[i], _rel(k, r))
+    assert float((pairs[-1][1][ai] - S["state"][-1]).abs().max()) > 0
+
+
+@pytest.mark.parametrize("kind", list(FINITO_FNS))
+@pytest.mark.parametrize("shape", list(FINITO_EDGES))
+def test_finito_kernels_on_the_engine_take_revisits_and_match_plain_versions(
+        dev, shape, kind):
+    """Kernels #9 and #8, one cooperative launch a call, at the engine's
+    edges (``FINITO_EDGES``), on a schedule that revisits blocks inside the
+    call, adjacently and within the ring's lookahead (#9's table c, anchors
+    zb and point z are written and read back inside the launch, where the
+    read-only path could return a stale line), against the plain versions
+    in every output (``_check_engine_finito``); #8's z is the last block's
+    prox point, not soft of the returned av."""
+    N, n, B, K, storage, precision = FINITO_EDGES[shape]
+    S = _engine_finito_setup(dev, kind, N, n, B, K, storage)
+    fn = getattr(tfb, FINITO_FNS[kind][0])
+    before = fn.launches
+    got = _engine_finito_call(fn, S, _fresh(S["state"]), precision=precision)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _check_engine_finito(S, precision, got)
+    if kind == "lfinito":
+        av, z = got
+        thr = S["hat"] * S["lam"]
+        assert not torch.equal(
+            z, torch.sign(av) * torch.clamp(av.abs() - thr, min=0))
+
+
+# (N, n, B, K) of #9 and #8 at the headline width and the deep target's
+FINITO_WIDTHS = {"n1024": (32768, 1024, 4096, 32),
+                 "n128": (65536, 128, 8192, 32)}
+
+
+@pytest.mark.parametrize("kind", list(FINITO_FNS))
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+@pytest.mark.parametrize("width", list(FINITO_WIDTHS))
+def test_finito_kernels_repeat_bit_for_bit_at_width(dev, width, storage,
+                                                    kind, monkeypatch):
+    """Kernels #9 and #8 at the headline width (n = 1,024, B = 4,096) and
+    the deep target's (n = 128, B = 8,192), K = 32 with revisits, give the
+    same bits in two calls, and on a 132-SM card their pinned bits at n =
+    1,024 (``LOOPLESS_GOLDEN``); a grid other than the engine's rule is
+    refused by the launch (RuntimeError) and counts no launch: nothing
+    falls back."""
+    N, n, B, K = FINITO_WIDTHS[width]
+    S = _engine_finito_setup(dev, kind, N, n, B, K, storage, seed=33)
+    fn = getattr(tfb, FINITO_FNS[kind][0])
+    runs = [_engine_finito_call(fn, S, _fresh(S["state"])) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert not torch.equal(runs[0][FINITO_OUTS[kind][2]], S["state"][-1])
+    if width == "n1024" and tfb._sm_count(dev.index) == 132:
+        assert loopless_digest(dev, kind, storage) == LOOPLESS_GOLDEN[
+            kind, storage]
+    rule = tfb._loopless_grid
+
+    def halved(B_, n_, isz, sms, points=1):
+        rows_, ctas, S_, P = rule(B_, n_, isz, sms, points)
+        return 2 * rows_, -(-B_ // (2 * rows_)), S_, P
+    monkeypatch.setattr(tfb, "_loopless_grid", halved)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _engine_finito_call(fn, S, _fresh(S["state"]))
+    assert fn.launches == before
+
+
 TWO_STREAMS = r"""
 import sys
 import torch
@@ -1678,7 +1873,7 @@ sys.path.insert(0, sys.argv[1])
 from ciao_tpu_torch.ops import fused_block as tfb
 from ciao_tpu_torch.oracles import LeastSquaresRows
 
-B, reps = int(sys.argv[2]), 20
+B, kind, reps = int(sys.argv[2]), sys.argv[3], 20
 dev = torch.device("cuda", 0)
 gen = torch.Generator(device=dev)
 gen.manual_seed(29)
@@ -1695,9 +1890,26 @@ starts = [(torch.randint(16, (K,), generator=gen, device=dev) * B).to(
     torch.int32) for _ in range(2)]
 w0 = [xa + 0.01 * torch.randn(n, generator=gen, device=dev)
       for _ in range(2)]
+# Finito's: per-block anchors near xa, their sums of 1/gamma (hat·invg_j =
+# 1/16), scalars [scale, 1/N, hat, hat·lambda, mode, aux] (#9) and
+# [scale, hat, hat·lambda, 1/N, mode, aux] (#8)
+hat = 1.0 / (float((A * A).sum(1).mean()) * N)
+zb0 = xa + 0.01 * torch.randn(16, n, generator=gen, device=dev)
+invg = torch.full((16,), 1.0 / (16 * hat), device=dev)
+sc9 = torch.tensor([N, 1.0 / N, hat, hat * 0.1, 0.0, 0.0], device=dev)
+sc8 = torch.tensor([N, hat, hat * 0.1, 1.0 / N, 0.0, 0.0], device=dev)
 
 
 def call(i):
+    if kind == "finito":
+        c, zb, z, a = canch.clone(), zb0.clone(), w0[i].clone(), av.clone()
+        tfb.finito_coeff_multistep(rows, offs, starts[i], c, zb, invg, z, a,
+                                   sc9, B)
+        return c, zb, z, a
+    if kind == "lfinito":
+        return tfb.lfinito_sweep_multistep(
+            rows, offs, canch, starts[i], w0[i].clone(), xa,
+            invg[starts[i].long() // B], sc8, B)
     w = w0[i].clone()
     _, wpre = tfb.lsvrg_coeff_multistep(rows, offs, canch, starts[i], None,
                                         w, av, sc, B)
@@ -1722,21 +1934,24 @@ print("two streams: ok")
 """
 
 
+@pytest.mark.parametrize("kind", ["lsvrg", "finito", "lfinito"])
 @pytest.mark.parametrize("B", [128, 64])
-def test_loopless_calls_on_two_streams_are_their_single_stream_runs(dev, B):
-    """Two calls of kernel #16 with small grids (B = 128: one row a CTA,
-    128 CTAs; B = 64: 64, so both grids fit the card's 132 SMs at once)
-    queued together on two streams, 20 times: each gives its
+def test_loopless_calls_on_two_streams_are_their_single_stream_runs(dev, B,
+                                                                   kind):
+    """Two calls of kernel #16, #9 or #8 with small grids (B = 128: one row
+    a CTA, 128 CTAs; B = 64: 64, so both grids fit the card's 132 SMs at
+    once) queued together on two streams, 20 times: each gives its
     single-stream result bit for bit (each stream has its own grid-barrier
-    word, ``fused_block._grid_barrier``). Run in a child process with a
-    time limit, so that a hung barrier fails the test and does not stall
-    the suite."""
+    word, ``fused_block._grid_barrier``; #9 writes its table, anchors and
+    point inside the launch). Run in a child process with a time limit, so
+    that a hung barrier fails the test and does not stall the suite."""
     import os
     import subprocess
     import sys
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run([sys.executable, "-c", TWO_STREAMS, root, str(B)],
+    proc = subprocess.run([sys.executable, "-c", TWO_STREAMS, root, str(B),
+                           kind],
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "two streams: ok" in proc.stdout

@@ -3,18 +3,21 @@
 of one checkout of the port on one NVIDIA GPU, so that two versions can be
 compared in one call: #16 (``lsvrg_coeff_multistep``) and #17
 (``lkatyusha_coeff_multistep``), #5 (``svrg_coeff_multistep``), #10
-(``katyusha_coeff_multistep``) and #11 (``sarah_multistep``) at the
-headline and #4 (``saga_coeff_multistep_streamed``) at the deep target.
+(``katyusha_coeff_multistep``), #11 (``sarah_multistep``) and #9
+(``finito_coeff_multistep``) at the headline, and #4
+(``saga_coeff_multistep_streamed``) and #8 (``lfinito_sweep_multistep``)
+at the deep target.
 
     python3 tools/loopless_step_times.py [--root DIR] [--tag NAME] [--seed 0]
-                                         [--kernels 16,17,5,4,10,11]
+                                         [--kernels 16,17,5,4,10,11,9,8]
 
 Builds the kernels from ``DIR/ciao_tpu_torch/csrc`` (default: this
-checkout) with that checkout's ``ops/_build.py`` and imports that checkout's
-wrappers; the inputs and helpers are this checkout's ``chip_smoke.py``
-(``vr_inputs``, ``vr_scalars``, ``vr_call``, ``svrg_inputs``,
-``kernel_inputs``, ``step_bound``). Times each kernel per step by CUDA
-events, two turns each, one state stepped on in place:
+checkout; all at once, one ``nvcc`` each) with that checkout's
+``ops/_build.py`` and imports that checkout's wrappers; the inputs and
+helpers are this checkout's ``chip_smoke.py`` (``vr_inputs``,
+``vr_scalars``, ``vr_call``, ``svrg_inputs``, ``kernel_inputs``,
+``finito_inputs``, ``lfinito_inputs``, ``step_bound``). Times each kernel
+per step by CUDA events, two turns each, one state stepped on in place:
 
 - #16 and #17 alternating, in calls of K = 32 steps (``LOOPLESS_LAUNCH``,
   the longest coin window) and K = 4 (short windows pay the call's fixed
@@ -32,7 +35,16 @@ events, two turns each, one state stepped on in place:
   headline's m = N/B, ``chip_smoke.VR_M``, one Katyusha or SARAH inner
   loop a call). The parent's wrappers of these two take the same
   arguments, so a checkout from before they joined the engine is timed
-  the same way.
+  the same way;
+- #9 on the headline's rows, f32, bf16 and int8, at B = 4,096 (the Finito
+  headline) and 1,024 (the ``Finito`` facade's batch) in calls of K = 128
+  (``LAUNCH_STEPS``, a kernel call of ``finito_run``), repeated blocks
+  drawn;
+- #8 at the deep target's shape, f32 and int8, in calls of K = 512
+  (``LFINITO_CHUNK``, a call of ``lfinito_sweep_chunked``) visiting 512
+  distinct blocks, av restarted from the epoch's start every call.
+The wrappers of #9 and #8 from before they joined the engine take the same
+arguments too.
 
 Beside each time: the step's bound at 3.35 TB/s and its bytes at the card's
 read ceiling (``torch.sum`` over 2 GiB of f32, measured in the same
@@ -47,6 +59,7 @@ import importlib.util
 import json
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -62,6 +75,8 @@ VR_BATCHES = (("headline", 4_096), ("facades", 1_024))
 CALL_STEPS = 128  # the SAGA and SVRG drivers' LAUNCH_STEPS
 SVRG_B = 4_096
 DEEP_N, DEEP_n, DEEP_B = 10 * 1024 * 1024, 128, 8_192
+FINITO_BATCHES = (("headline", 4_096), ("facades", 1_024))
+LFINITO_STEPS = 512  # fused_block.LFINITO_CHUNK
 
 
 def _record(out, cs, F, starts, B, vec_bytes, row_extra, ceil, flops=4.0,
@@ -173,12 +188,68 @@ def time_svrg(out, cs, fb, A, b, gen, dev, ceil):
         torch.cuda.empty_cache()
 
 
-def time_saga_deep(out, cs, fb, gen, dev, ceil):
+def time_finito(out, cs, fb, A, b, gen, dev, ceil):
+    """#9 at the headline at both batches in calls of CALL_STEPS steps."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    for storage in ("f32", "bf16", "int8"):
+        F = LeastSquaresRows(A, b, float(N))
+        if storage != "f32":
+            F = F.with_storage(storage)
+        for shape, B in FINITO_BATCHES:
+            S = cs.finito_inputs(F, gen, dev, B, CALL_STEPS, cs.LAM)
+            state = [t.clone() for t in S["state"]]
+
+            def call(S=S, B=B, state=state):
+                cs.run_finito_kernel(fb.finito_coeff_multistep, F, S, B,
+                                     state=state)
+            ms = [cs.time_events(call, 5) / CALL_STEPS for _ in range(2)]
+            if not all(bool(torch.isfinite(t).all()) for t in state):
+                raise AssertionError(f"#9 {storage} B={B}: non-finite state")
+            # rows, b and c read and written of the visited blocks; their
+            # anchor rows read and written; z and av in and out; Σ 1/γ
+            distinct = int(torch.unique(S["starts"]).numel())
+            _record(out, cs, F, S["starts"], B,
+                    16 * n + 8 * n * distinct + 4 * (N // B), 12, ceil,
+                    kernel="#9", shape=shape, storage=storage, K=CALL_STEPS,
+                    ms=ms)
+        del F
+        torch.cuda.empty_cache()
+
+
+def time_lfinito_deep(out, cs, fb, A, b, gen, dev, ceil):
+    """#8 at the deep target's shape in calls of LFINITO_STEPS blocks."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    K = LFINITO_STEPS
+    for storage in ("f32", "int8"):
+        F = LeastSquaresRows(A, b, float(DEEP_N))
+        if storage != "f32":
+            F = F.with_storage(storage)
+        rows, offs = F.coeff_rows_data()
+        rs = F.coeff_rows_scale()
+        S = cs.lfinito_inputs(F, gen, dev, DEEP_B, K, cs.LAM)
+        zs = []
+
+        def call():
+            zs[:] = fb.lfinito_sweep_multistep(
+                rows, offs, S["canch"], S["starts"], S["av"].clone(),
+                S["zf"], S["invg_v"], S["sc"], DEEP_B, rs=rs)
+        ms = [cs.time_events(call, 3) / K for _ in range(2)]
+        if not all(bool(torch.isfinite(t).all()) for t in zs):
+            raise AssertionError(f"#8 {storage}: non-finite av or z")
+        # rows, b and the anchor coefficients of the visited blocks; av in
+        # and out, z_full, z out; Σ 1/γ by visit
+        _record(out, cs, F, S["starts"], DEEP_B, 16 * DEEP_n + 4 * K, 8,
+                ceil, kernel="#8", shape="deep", storage=storage, K=K, ms=ms)
+        del F, S
+        torch.cuda.empty_cache()
+
+
+def time_saga_deep(out, cs, fb, A, b, gen, dev, ceil):
     """#4 at the deep target's shape in calls of CALL_STEPS steps."""
     from ciao_tpu_torch.oracles import LeastSquaresRows
 
-    A = torch.randn(DEEP_N, DEEP_n, generator=gen, device=dev)
-    b = torch.randn(DEEP_N, generator=gen, device=dev)
     gamma = 1.0 / (3.0 * float((A * A).sum(1).max()) * DEEP_N)
     for storage in ("f32", "int8"):
         F = LeastSquaresRows(A, b, float(DEEP_N))
@@ -209,9 +280,9 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(HERE))
     ap.add_argument("--tag", default="")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="16,17,5,4,10,11",
+    ap.add_argument("--kernels", default="16,17,5,4,10,11,9,8",
                     help="which of #16/#17 (together), #5, #4, #10/#11 "
-                         "(together) to time")
+                         "(together), #9, #8 to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("loopless_step_times: no CUDA device", file=sys.stderr)
@@ -235,6 +306,10 @@ def main() -> int:
     names += ["saga_coeff_multistep_streamed"] if "4" in which else []
     names += ([cs.VR[kind][0] for _, kind, *_ in VR_KINDS]
               if which & {"10", "11"} else [])
+    names += ["finito_coeff_multistep"] if "9" in which else []
+    names += ["lfinito_sweep_multistep"] if "8" in which else []
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        list(pool.map(_build.build, names))
     for name in names:
         _build.load(name)
     dev = torch.device("cuda", 0)
@@ -253,10 +328,18 @@ def main() -> int:
         time_svrg(out, cs, fb, A, b, gen, dev, ceil)
     if which & {"10", "11"}:
         time_vr(out, cs, fb, A, b, gen, dev, ceil)
+    if "9" in which:
+        time_finito(out, cs, fb, A, b, gen, dev, ceil)
     del A, b
     torch.cuda.empty_cache()
-    if "4" in which:
-        time_saga_deep(out, cs, fb, gen, dev, ceil)
+    if which & {"4", "8"}:
+        A = torch.randn(DEEP_N, DEEP_n, generator=gen, device=dev)
+        b = torch.randn(DEEP_N, generator=gen, device=dev)
+        if "4" in which:
+            time_saga_deep(out, cs, fb, A, b, gen, dev, ceil)
+        if "8" in which:
+            time_lfinito_deep(out, cs, fb, A, b, gen, dev, ceil)
+        del A, b
     print(json.dumps(out), flush=True)
     return 0
 
