@@ -116,7 +116,8 @@ Phases, one line each:
      Zero, repeated blocks, at SMALL; K = 8 at the headline; f32 and int8
      rows at the persistent engine's edges (LOOPLESS_EDGES);
   3f. kernel #14 == plain version at SMALL_STREAM with f = K and f = 23,
-     masked steps bit for bit, and K = 8 at the deep shape;
+     masked steps bit for bit, f32 and int8 rows at the persistent engine's
+     edges (LOOPLESS_EDGES, blocks revisited), and K = 8 at the deep shape;
   3g. kernel #8 == plain version: a whole shuffled sweep of d = 64 blocks at
      SMALL_STREAM, a whole sweep at LOOPLESS_EDGES (f32 and int8), and K =
      8 at the deep shape, its z the last block's prox point;
@@ -124,9 +125,10 @@ Phases, one line each:
      headline, rows outside the block bit for bit;
   4g. deep-shape Finito paths (after 4b/4c, on the same problem): streamed
      Finito and importance-sampled Finito on #14, LFinito on #6 and #8,
-     ms/epoch and epochs/s; times of #14 and #8 per step, and two LFinito
-     epochs profiled, showing one launch of the persistent engine a kernel
-     #8 call and no kernel of the two-launch engine;
+     ms/epoch and epochs/s; times of #14 and #8 per step, and a window of
+     streamed Finito steps and two LFinito epochs profiled, showing one
+     launch of the persistent engine a kernel #14 or #8 call and no kernel
+     of the two-launch engine;
   4f. Finito headline path: 256 epochs at f32 and int8 rows on #9, and the
      facades: the coefficient table on #9, the full table on #2, adaptive
      with no kernel;
@@ -138,7 +140,8 @@ Phases, one line each:
   3i. kernel #18 == plain version: f32/bf16/int8 rows, IndBox/NormL1/Zero
      couplings, "default" precision bit for bit the same as "highest", a
      masked window (f < K) with masked steps bit for bit, a narrow width on
-     the one-value path, and K = 8 at the ProShI configuration;
+     the one-value path, f32 and int8 rows at the persistent engine's edges
+     (LOOPLESS_EDGES), and K = 8 at the ProShI configuration;
   3j. kernel #1 == plain version: f32 and bf16 rows, both precisions, at
      SMALL and at the headline, rows outside the block bit for bit;
   4h. ProShI path: cyclic 8,192 steps at f32 and int8 rows, shuffled,
@@ -148,8 +151,10 @@ Phases, one line each:
      SAGA/SAG facades on kernel #1 alone;
   4j. sharing deep route: rel against the f64 optimum, no kernel launch;
   8. times: kernel #18 per step and kernel #1 per block, in turns with
-     their plain versions and with their bounds; ProShI steps and a
-     full-table SAGA epoch profiled;
+     their plain versions and with their bounds; ProShI steps profiled
+     (one launch of the persistent engine a kernel #18 call, no kernel of
+     the two-launch engine or of the table walk) and a full-table SAGA
+     epoch;
   3k-3n. kernels #10, #11, #16, #17 == plain versions: f32/bf16/int8 rows,
      "highest" and "default", NormL1 and Zero, Katyusha at τ₁ = 0.5 (ns)
      and 0.3, the logistic and Huber formulas, a width that is not whole
@@ -1212,6 +1217,14 @@ def run_fista(dev, F, g, L, steps: int, tag: str, card: str,
 SVRG_GROUPS = {"kernel #6": ("apply_",),
                "kernel #5": ("loopless_steps_kernel",)}
 SAGA_DEEP_GROUPS = {"kernel #4": ("loopless_steps_kernel",)}
+# profiled runs of a window before a trace that shows no device time, or
+# (a kernel of the persistent engine) fewer launches than calls, is taken
+# for a fault of the window and not for records the tracer dropped
+PROFILE_TRIES = 3
+# host seconds the profiled window stays open before and after the call:
+# the tracer keeps only device events inside its window by its own clock,
+# so a window that closes on the call's last event may lose edge events
+PROFILE_MARGIN_S = 0.005
 
 
 def profile_steps(tag: str, fn, steps: int, card: str,
@@ -1220,8 +1233,14 @@ def profile_steps(tag: str, fn, steps: int, card: str,
     the host clock, then once more under torch.profiler: ms per step, the
     device's busy time per step split by kernel (``groups``: label → name
     substrings), and the idle share 1 − busy/step; also the profiled call's
-    kernel launches by group (``calls``) and the names of its device
-    events (``names``)."""
+    kernel launches by group (``calls``), the names of its device events
+    (``names``) and the calls of ``fn`` made in all (``runs``). A trace
+    that shows no device time at all, though ``fn`` ran on the card, lost
+    its records in the tracer (an H100 at 700 W gave one such trace of a
+    window of two launches that another run traced whole): the call is
+    profiled again, up to PROFILE_TRIES profiled calls in all. The window
+    opens PROFILE_MARGIN_S before the call and closes as long after it;
+    the idle share is taken against the host clock's unprofiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1231,32 +1250,41 @@ def profile_steps(tag: str, fn, steps: int, card: str,
     fn()
     torch.cuda.synchronize()
     step = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    split = dict.fromkeys([*groups, "other"], 0.0)
-    calls = dict.fromkeys([*groups, "other"], 0)
-    names = set()
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        names.add(e.key)
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        key = next((k for k, subs in groups.items()
-                    if any(sub in e.key for sub in subs)), "other")
-        split[key] += us / 1e3 / steps
-        calls[key] += e.count
-    busy = sum(split.values())
-    if busy <= 0.0:
-        raise AssertionError(f"profile {tag}: the trace shows no device time")
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        split = dict.fromkeys([*groups, "other"], 0.0)
+        calls = dict.fromkeys([*groups, "other"], 0)
+        names = set()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            names.add(e.key)
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            key = next((k for k, subs in groups.items()
+                        if any(sub in e.key for sub in subs)), "other")
+            split[key] += us / 1e3 / steps
+            calls[key] += e.count
+        busy = sum(split.values())
+        if busy > 0.0:
+            break
+        if attempt == PROFILE_TRIES:
+            raise AssertionError(f"profile {tag}: {PROFILE_TRIES} traces "
+                                 "show no device time")
+        log(f"  profile {tag}: the trace shows no device time; profiling "
+            f"the call again ({attempt + 1} of {PROFILE_TRIES})")
     log(f"  profiled {tag}: {step:.4f} ms per {unit} by the host clock; "
         f"device busy {busy:.4f} ms per {unit} ("
         + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
         + f"), idle share {1.0 - busy / step:.3f} [{card}]")
-    return dict(step=step, busy=busy, **split, calls=calls, names=names)
+    return dict(step=step, busy=busy, **split, calls=calls, names=names,
+                runs=2 + attempt)
 
 
 def time_events(fn, reps: int) -> float:
@@ -1494,13 +1522,15 @@ def run_finito_kernel(fn, F, S, B_, precision="highest", f=None,
 
 
 def compare_finito(F, gen, dev, B_, K, lam, precision, tag, streamed=False,
-                   f=None) -> float:
+                   f=None, distinct=None) -> float:
     """Kernel #9 (or #14 with clamp count ``f``) against its plain version
-    from one state on one schedule: z within Z_TOL of its largest entry,
-    c, zb and av within STATE_TOL; returns the largest |dz|."""
+    from one state on one schedule (distinct blocks, by default for #14
+    alone): z within Z_TOL of its largest entry, c, zb and av within
+    STATE_TOL; returns the largest |dz|."""
     from ciao_tpu_torch.ops import fused_block as fb
 
-    S = finito_inputs(F, gen, dev, B_, K, lam, distinct=streamed)
+    S = finito_inputs(F, gen, dev, B_, K, lam,
+                      distinct=streamed if distinct is None else distinct)
     fns = ((fb.finito_coeff_multistep_streamed,
             fb.finito_coeff_multistep_streamed_ref) if streamed else
            (fb.finito_coeff_multistep, fb.finito_coeff_multistep_ref))
@@ -1654,10 +1684,10 @@ def phase_check_finito(gen, dev) -> float:
 
 def phase_check_finito_small(gen, dev):
     """3f and 3g at SMALL_STREAM (d = 64): kernel #14 with f = K and f =
-    23, masked steps bit for bit; kernel #8 over a whole shuffled sweep of
-    the 64 blocks, and over a whole sweep at the persistent engine's edges
-    (LOOPLESS_EDGES, f32 and int8 rows). Returns the two largest
-    errors."""
+    23, masked steps bit for bit, and at the persistent engine's edges
+    (LOOPLESS_EDGES, f32 and int8 rows, blocks revisited); kernel #8 over a
+    whole shuffled sweep of the 64 blocks, and over a whole sweep at the
+    edges. Returns the two largest errors."""
     s = SMALL_STREAM
     w14 = w8 = 0.0
     for storage, precision in STORAGES:
@@ -1676,9 +1706,13 @@ def phase_check_finito_small(gen, dev):
                 F, gen, dev, s["B"], d, lam, precision,
                 f"#8 sweep of d={d} blocks, N={s['N']} n={s['n']} "
                 f"{storage}/{precision} {'NormL1' if lam else 'Zero'}"))
-    for N_, n_, B_, _, _ in LOOPLESS_EDGES:
+    for N_, n_, B_, K_, _ in LOOPLESS_EDGES:
         for storage in ("f32", "int8"):
             F, _, _ = lasso(gen, dev, N_, n_, storage)
+            w14 = max(w14, compare_finito(
+                F, gen, dev, B_, K_, LAM, "highest",
+                f"#14 N={N_} n={n_} B={B_} K={K_} {storage} (revisits)",
+                streamed=True, distinct=False))
             d = N_ // B_
             w8 = max(w8, compare_lfinito(
                 F, gen, dev, B_, d, LAM, "highest",
@@ -1809,7 +1843,8 @@ def run_deep_finito(prob, card: str) -> dict:
     Finito through the facade on the streamed route, and LFinito
     (kernels #6 and #8) at f32 and int8 rows: one warm-up epoch, then
     LFINITO_EPOCHS timed. Every objective falls. Returns LFinito's ms per
-    epoch and what phase 7 profiles again."""
+    epoch and what 4g's block profiles again (LFinito's by storage,
+    streamed Finito's by ("stream", storage))."""
     from ciao_tpu_torch import Finito
     from ciao_tpu_torch.ops import fused_block as fb
     from ciao_tpu_torch.solvers.finito import (
@@ -1849,6 +1884,7 @@ def run_deep_finito(prob, card: str) -> dict:
                 math.isfinite(obj1) and obj1 < obj0):
             raise AssertionError(f"deep finito {storage}: {d14} launches, "
                                  f"objective {obj0} -> {obj1}")
+        out["stream", storage] = dict(F=F, g=g, st=st, cfg=cfg)
     F = prob.oracle()
     steps = DEEP_FINITO_EPOCHS * d
     solver = Finito(maxit=steps + 1, sweeping=1, minibatch=(True, Bd),
@@ -2084,12 +2120,18 @@ def run_proshi_kernel(fn, F, S, B_, precision="highest", f=None, starts=None,
     return [s, av, z]
 
 
-def compare_proshi(F, gname, gen, dev, B_, K, tag, f=None) -> float:
+def compare_proshi(F, gname, gen, dev, B_, K, tag, f=None,
+                   z_by_av=False) -> float:
     """Kernel #18 against its plain version from one state on one
     schedule (clamp count ``f``): z within Z_TOL of its largest entry, s
     and av within STATE_TOL (the margins are exact f32 with any rows, so
     the exact-f32 bounds); "default" precision gives the kernel's
-    "highest" result bit for bit. Returns the largest |ds|."""
+    "highest" result bit for bit. Returns the largest |ds|. With
+    ``z_by_av`` z is held to Z_TOL of max |av| / hat instead: z =
+    (prox_g(av) − av)/hat is a difference of av-sized values, which at N
+    ≥ 8,192 rows can dwarf z's largest entry (IndBox clips at 1 an av of
+    tens), so the two versions' f32 av, 1e-8 apart relative to max |av|,
+    differ by more than Z_TOL of max |z| there."""
     from ciao_tpu_torch.ops import fused_block as fb
 
     S = proshi_inputs(F, coupling(gname, dev), gen, dev, B_, K)
@@ -2102,11 +2144,13 @@ def compare_proshi(F, gname, gen, dev, B_, K, tag, f=None) -> float:
     moved = float((ref[0] - S["st"].s).abs().max())
     if moved == 0.0:
         raise AssertionError(f"{tag}: the steps did not move s")
-    rel = float((kern[2] - ref[2]).abs().max()) / max(
-        float(ref[2].abs().max()), 1e-30)
-    if rel > Z_TOL[False]:
+    scale = (float(ref[1].abs().max()) / float(S["st"].hat_gamma) if z_by_av
+             else float(ref[2].abs().max()))
+    rel = float((kern[2] - ref[2]).abs().max()) / max(scale, 1e-30)
+    if not (bool(torch.isfinite(kern[2]).all()) and rel <= Z_TOL[False]):
         raise AssertionError(f"{tag}: z rel error {rel:.3e} > {Z_TOL[False]}")
-    check_close(tag, list(zip(("s", "av", "z"), kern, ref)), False, moved)
+    check_close(tag, list(zip(("s", "av", "z"), kern, ref))[:3 - z_by_av],
+                False, moved)
     return float((kern[0] - ref[0]).abs().max())
 
 
@@ -2135,7 +2179,8 @@ def proshi_masked_identity(F, gen, dev, B_, K, f, tag) -> None:
 def phase_check_proshi(gen, dev) -> float:
     """3i: kernel #18 at PROSHI_SMALL (f = K and a masked f < K) across
     storages and couplings, the masked steps bit for bit; the ragged
-    narrow width; K = PROSHI_K at the configuration."""
+    narrow width; f32 and int8 rows at the persistent engine's edges
+    (LOOPLESS_EDGES); K = PROSHI_K at the configuration."""
     s, worst = PROSHI_SMALL, 0.0
     for storage in ("f32", "bf16", "int8"):
         F, _, _ = lasso(gen, dev, s["N"], s["n"], storage)
@@ -2156,6 +2201,15 @@ def phase_check_proshi(gen, dev) -> float:
             F, "NormL1", gen, dev, r["B"], r["K"],
             f"#18 N={r['N']} n={r['n']} (one-value path) B={r['B']} "
             f"K={r['K']} {storage} NormL1"))
+    for N_, n_, B_, K_, _ in LOOPLESS_EDGES:
+        for storage in ("f32", "int8"):
+            F, _, _ = lasso(gen, dev, N_, n_, storage)
+            worst = max(worst, compare_proshi(
+                F, "IndBox", gen, dev, B_, K_,
+                f"#18 N={N_} n={n_} B={B_} K={K_} {storage} IndBox",
+                z_by_av=True))
+            del F
+            torch.cuda.empty_cache()
     for storage in ("f32", "bf16", "int8"):
         F, _, _ = lasso(gen, dev, PROSHI["N"], n, storage)
         worst = max(worst, compare_proshi(
@@ -2960,14 +3014,15 @@ def time_vr(kind: str, r: dict, gen, dev, storage: str, card: str,
 VR_GROUPS = {kind: {"kernel #6": ("apply_",),
                     f"kernel {label}": ("loopless_steps_kernel",)}
              for kind, (_, label) in VR.items()}
-# the two-launch engine's kernels, which no window of a kernel of the
-# persistent engine (#4, #5, #8, #9, #10, #11, #16, #17) may show (by
-# function name: kernel #6's apply_rows_kernel is not one of them; the
-# finish and prologue kernels that #9 and #8 launched before they joined
-# the engine among them)
+# the two-launch engines' kernels, which no window of a kernel of the
+# persistent engine (#4, #5, #8, #9, #10, #11, #14, #16, #17, #18) may show
+# (by function name: kernel #6's apply_rows_kernel is not one of them; the
+# finish and prologue kernels that #9, #8, #14 and #18 launched before they
+# joined the engine, and #18's table walk, among them)
 TWO_LAUNCH = ("rows_kernel", "saga_finish_kernel", "svrg_finish_kernel",
               "point_kernel", "finito_finish_kernel",
-              "lfinito_finish_kernel", "prox_kernel")
+              "lfinito_finish_kernel", "prox_kernel", "proshi_finish_kernel",
+              "table_rows_kernel")
 
 
 def check_one_launch(tag: str, prof: dict, label: str, calls: int) -> None:
@@ -2985,17 +3040,12 @@ def check_one_launch(tag: str, prof: dict, label: str, calls: int) -> None:
                              f"calls, stray kernels {stray}")
 
 
-# profiled windows of a kernel of the persistent engine before one that
-# holds fewer launches than calls is taken for a dropped trace record
-PROFILE_TRIES = 3
-
-
 def profile_one_launch(tag: str, fn, steps: int, card: str, groups: dict,
                        label: str, name: str, unit: str = "step") -> dict:
     """profile_steps of a window of kernel ``name`` (``label``'s group),
     then check_one_launch with the wrapper calls the window made (its
-    launch count over the three runs profile_steps makes, divided by
-    three). The wrapper counts a call only once its launch has returned
+    launch count over profile_steps' runs of the window, divided by their
+    number). The wrapper counts a call only once its launch has returned
     without error, so a trace that holds fewer launches than calls and
     no kernel of the two-launch engine has dropped a record (an H100 at
     700 W showed 9 of 10 launches of kernel #5 in one such window, with
@@ -3005,7 +3055,7 @@ def profile_one_launch(tag: str, fn, steps: int, card: str, groups: dict,
     for attempt in range(1, PROFILE_TRIES + 1):
         before = counts()[name]
         prof = profile_steps(tag, fn, steps, card, groups, unit=unit)
-        calls = (counts()[name] - before) // 3
+        calls = (counts()[name] - before) // prof["runs"]
         seen = prof["calls"][label]
         stray = [k for k in prof["names"] if kernel_name(k) in TWO_LAUNCH]
         if seen < calls and not stray and attempt < PROFILE_TRIES:
@@ -3026,9 +3076,10 @@ def kernel_name(key: str) -> str:
     return head[-1].split("::")[-1] if head else key
 
 
-PROSHI_GROUPS = {"kernel #18": ("rows_kernel", "proshi_finish")}
+PROSHI_GROUPS = {"kernel #18": ("loopless_steps_kernel",)}
 SAGA_BLOCK_GROUPS = {"kernel #1": ("rows_kernel", "finish_kernel")}
 FINITO_GROUPS = {"kernel #9": ("loopless_steps_kernel",)}
+FINITO_STREAM_GROUPS = {"kernel #14": ("loopless_steps_kernel",)}
 BLOCK_GROUPS = {"kernel #2": ("rows_kernel", "finish_kernel")}
 LFINITO_GROUPS = {"kernel #6": ("apply_",),
                   "kernel #8": ("loopless_steps_kernel",)}
@@ -4389,6 +4440,13 @@ def main() -> int:
                                              f"kernel #14, {tag}", card)
         times7["#8", storage] = time_lfinito(Fd, gen, dev, DEEP["B"],
                                              f"kernel #8, {tag}", card)
+        r = lfin["stream", storage]
+        profile_one_launch(
+            f"streamed Finito steps at the deep shape, {storage} rows",
+            lambda: finito_run(r["F"], r["g"], r["st"], r["cfg"],
+                               "basic_coeff", 256), 256, card,
+            FINITO_STREAM_GROUPS, "kernel #14",
+            "finito_coeff_multistep_streamed")
         r = lfin[storage]
         profile_one_launch(
             f"LFinito epochs at the deep shape, {storage} rows",
@@ -4599,9 +4657,10 @@ def main() -> int:
     for storage in ("f32", "int8"):
         r = prosh[storage]
         times8["#18", storage] = time_proshi(r, gen, dev, storage, card)
-        profile_steps(f"ProShI steps at the configuration, {storage} rows",
-                      lambda: proshi_run(r["F"], r["g"], r["st"], r["cfg"],
-                                         256), 256, card, PROSHI_GROUPS)
+        profile_one_launch(
+            f"ProShI steps at the configuration, {storage} rows",
+            lambda: proshi_run(r["F"], r["g"], r["st"], r["cfg"], 256), 256,
+            card, PROSHI_GROUPS, "kernel #18", "proshi_multistep")
     for storage in ("f32", "bf16"):
         times8["#1", storage] = time_saga_block(full[storage], gen, dev,
                                                 storage, card)

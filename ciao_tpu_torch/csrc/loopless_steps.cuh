@@ -1,4 +1,4 @@
-// The persistent step engine of eight step kernels on an NVIDIA Hopper card
+// The persistent step engine of ten step kernels on an NVIDIA Hopper card
 // (sm_90a): a whole call of K block steps in one cooperative launch,
 //
 //   lsvrg_coeff_multistep.cu          replaces ciao_tpu/ops/fused_block.py
@@ -25,7 +25,17 @@
 //                                     _finito_coeff_multi_kernel);
 //   lfinito_sweep_multistep.cu        replaces lfinito_sweep_multistep (an
 //                                     LFinito block sweep, body
-//                                     _lfinito_sweep_kernel).
+//                                     _lfinito_sweep_kernel);
+//   finito_coeff_multistep_streamed.cu
+//                                     replaces
+//                                     finito_coeff_multistep_streamed
+//                                     (Finito's steps for any N, Σ 1/gamma
+//                                     by step, steps k >= f masked, body
+//                                     _finito_stream_kernel);
+//   proshi_multistep.cu               replaces proshi_multistep (ProShI
+//                                     sharing steps on the (N, n) block
+//                                     table, steps k >= f masked, body
+//                                     _proshi_multi_kernel).
 //
 // The Python wrappers are in ciao_tpu_torch/ops/fused_block.py, beside the
 // plain PyTorch versions (the *_ref functions), whose arithmetic (bf16
@@ -67,8 +77,8 @@
 //     boundaries (step k + 1's rows, read from starts[k + 1], are loading
 //     while step k's finish and barriers run: with P S >= R all of them);
 //   - step k on the eight consumer warps: the point (w for L-SVRG and SVRG,
-//     x for L-Katyusha and Katyusha, z for SAGA, Finito and LFinito, both
-//     w_prev and w for SARAH)
+//     x for L-Katyusha and Katyusha, z for SAGA, the Finitos and ProShI,
+//     both w_prev and w for SARAH)
 //     copied into shared memory, rounded to bf16 where the dots round, by
 //     plain loads from L2 (the last finish wrote it through the generic
 //     proxy); then for each stage as it lands: the margins, every thread
@@ -81,7 +91,7 @@
 //     (anchor minus live for L-SVRG and SVRG, live at x minus anchor for
 //     L-Katyusha and Katyusha, new minus old for SAGA and Finito, which
 //     write the new one to their table, anchor minus live for LFinito, c at
-//     w minus c at w_prev for SARAH; rounded to bf16
+//     w minus c at w_prev for SARAH, ProShI's row weight w_i; rounded to bf16
 //     where the dots round and scaled by rs for int8 rows); and the stage's
 //     rows added into column sums held in registers,
 //     each thread the same units all call. int8 is widened by the
@@ -105,11 +115,27 @@
 //     y-steps, running sum (ys += y) and next x, SARAH's recursion (v +=
 //     sum / B), damped prox and shift (w_prev <- w, w <- w + eta (y - w)),
 //     Finito's average against block j's anchor (av += hat invg_j (z -
-//     zb_j) - (hat / N) sum, zb_j <- z, z <- soft(av)) or LFinito's against
-//     the epoch's anchor point (av += (hat / N) sum + hat invg_k (z - zf),
-//     then the next block's z <- soft(av) but after the call's last step)
-//     to its columns, their state loaded beside the partials; a second
-//     barrier before the next step's point;
+//     zb_j) - (hat / N) sum, zb_j <- z, z <- soft(av); streamed Finito's
+//     the same with invg by step), LFinito's against the epoch's anchor
+//     point (av += (hat / N) sum + hat invg_k (z - zf), then the next
+//     block's z <- soft(av) but after the call's last step) or ProShI's
+//     coupling (av += sum, z = (prox_g(av) - av) / hat) to its columns,
+//     their state loaded beside the partials; a second barrier before the
+//     next step's point;
+//   - ProShI's (N, n) table: each row's margin is taken at its own point
+//     s_i + gamma_i z, so the row phase reads the table rows as well as A's.
+//     A thread reads its units of a round of rows (eight a row group, two
+//     or one where a thread owns 4 or 16 units) into registers with
+//     coherent loads, takes its share of the margins from them, and after
+//     the formula (w_i = (gamma_i / N) c_i) writes s_new = s_i + gamma_i z -
+//     w_i a_i from the values it holds and adds s_new - s_old into its
+//     column sums: each table value leaves device memory once and goes back
+//     once, before the step's first barrier. The next round's loads are
+//     issued before this round's work, within the step (its rows are
+//     distinct), never across its barriers. gamma_i takes the anchor
+//     coefficient's slot of the stage (the producer prefetches it: it is
+//     only read). The margins are exact f32 at any storage, as the Pallas
+//     kernel's;
 //   - SAGA's and Finito's table: the producer prefetches no coefficient of
 //     their rows,
 //     since a block revisited within the ring's lookahead (or overlapping an
@@ -129,9 +155,9 @@
 //     of the point, so the finish reads the point the margins used; every
 //     CTA reads av before its first barrier, and the finishes write av only
 //     after it); the stop index
-//     (L-SVRG, L-Katyusha) or clamp count (SAGA) is read once: a call
-//     processes min(K, stop + 1) or min(K, f) steps and the masked ones write
-//     nothing.
+//     (L-SVRG, L-Katyusha) or clamp count (SAGA, streamed Finito, ProShI) is
+//     read once: a call processes min(K, stop + 1) or min(K, f) steps and
+//     the masked ones write nothing.
 //
 // What it reaches on an H100 (tools/loopless_step_times.py, PERF.md): a step
 // costs a floor of about 5 us whatever its rows (the two barriers, the finish
@@ -171,8 +197,14 @@ enum LooplessMethod {
   kKatyushaSteps = 4,
   kSarahSteps = 5,
   kFinitoSteps = 6,
-  kLFinitoSteps = 7
+  kLFinitoSteps = 7,
+  kFinitoStreamSteps = 8,
+  kProshiSteps = 9
 };
+
+// ProShI's coupling prox (the scalars row's gmode): Zero (z = 0), IndBox
+// (clip to [glo, ghi]), NormL1 (soft-threshold at glo = hat lambda).
+enum GProx { kGproxZero = 0, kGproxBox = 1, kGproxL1 = 2 };
 
 constexpr int kLlThreads = 256;              // the consumer warps' threads
 constexpr int kLlWarps = kLlThreads / 32;
@@ -189,7 +221,8 @@ constexpr int kLlMaxCols = 16384;
 constexpr size_t kLlMaxSmem = 232448;
 
 // The scalars row's mode and aux slots of each method; the finish's scalars
-// are the slots between the scale and the mode:
+// are the slots between the scale and the mode (ProShI reads its own where
+// it uses them, to leave its widest builds the registers):
 // L-SVRG, SVRG  [scale, gamma, gamma*lambda, 1/B, mode, aux];
 // L-Katyusha    [scale, eta/L, tau*lambda, 1/(1 + eta*sigma), eta*sigma,
 //                theta1, theta2, 1/B, mode, aux];
@@ -197,16 +230,20 @@ constexpr size_t kLlMaxSmem = 232448;
 // Katyusha      [scale, alpha, beta, alpha*lambda, beta*lambda, 1/B, mode,
 //                tau1, tau2, aux];
 // SARAH         [scale, gamma, gamma*lambda, eta, 1/B, mode, aux];
-// Finito        [scale, 1/N, hat, hat*lambda, mode, aux];
-// LFinito       [scale, hat, hat*lambda, 1/N, mode, aux].
+// Finito (both) [scale, 1/N, hat, hat*lambda, mode, aux];
+// LFinito       [scale, hat, hat*lambda, 1/N, mode, aux];
+// ProShI        [scale, 1/N, 1/hat, mode, glo, ghi, gmode, aux].
 __host__ __device__ constexpr int mode_slot(int M) {
   return M == kLKatyushaSteps                        ? 8
          : (M == kSagaSteps || M == kKatyushaSteps) ? 6
          : M == kSarahSteps                          ? 5
+         : M == kProshiSteps                         ? 3
                                                      : 4;
 }
 __host__ __device__ constexpr int aux_slot(int M) {
-  return M == kKatyushaSteps ? 9 : mode_slot(M) + 1;
+  return M == kKatyushaSteps ? 9
+         : M == kProshiSteps ? 7
+                             : mode_slot(M) + 1;
 }
 
 // Whether the margins are taken at the coupled point x (the Katyushas), and
@@ -224,9 +261,23 @@ __host__ __device__ constexpr int ll_points(int M) {
   return M == kSarahSteps ? 2 : 1;
 }
 
-// Whether the call writes its coefficient table (SAGA, Finito).
+// Finito's coefficient steps: Σ 1/gamma by block id (#9) or by step (#14).
+__host__ __device__ constexpr bool finito_coeff(int M) {
+  return M == kFinitoSteps || M == kFinitoStreamSteps;
+}
+
+// Whether the call writes its coefficient table (SAGA, the Finitos).
 __host__ __device__ constexpr bool ll_table(int M) {
-  return M == kSagaSteps || M == kFinitoSteps;
+  return M == kSagaSteps || finito_coeff(M);
+}
+
+// ProShI's rows a row group takes at once (a round): a thread holds its
+// units' table values of them (kPR x kRU x kUnit floats: 32, and 64 for the
+// widest builds of one row) from its margins to its column pass.
+__host__ __device__ constexpr int proshi_rows(bool vec, int ru, bool split) {
+  return split ? 8
+         : vec ? (ru >= 16 ? 1 : ru >= 4 ? 2 : 8)
+               : (ru >= 64 ? 1 : 8);
 }
 
 // Whether every CTA forms step 0's point inside the launch: the Katyushas'
@@ -245,12 +296,16 @@ __host__ __device__ constexpr bool forms_point(int M) {
 // the (2, n) pair [w_prev; w], av the estimator v (written), c NULL;
 // Finito: pt the iterate z, c the table, av the running average, zb the
 // (d, n) per-block anchors (all written), invg the blocks' sums of
-// 1/gamma_i by block id; LFinito: pt the (n,) output z (the margins' point,
-// then the last block's prox point), c the epoch's anchor coefficients, av
-// the running average (written), wa the anchor point z_full, invg the
-// visited blocks' sums of 1/gamma_i in visit order. av is read only but for
-// SAGA, SARAH and the Finitos, c but for SAGA and Finito; stop and pre are
-// NULL but for L-SVRG, L-Katyusha (and SAGA's stop).
+// 1/gamma_i by block id (streamed Finito: by step, and stop its clamp count
+// f); LFinito: pt the (n,) output z (the margins' point, then the last
+// block's prox point), c the epoch's anchor coefficients, av the running
+// average (written), wa the anchor point z_full, invg the visited blocks'
+// sums of 1/gamma_i in visit order; ProShI: pt the point z, av the coupling
+// sum, s the (N, n) table (all written), c the stepsizes gamma_i (read
+// only, in the anchor coefficients' slot), stop the clamp count f. av is
+// read only but for SAGA, SARAH, the Finitos and ProShI, c but for SAGA and
+// the Finitos; stop and pre are NULL but for L-SVRG, L-Katyusha (and the
+// clamp counts of SAGA, streamed Finito and ProShI).
 // part: (ctas, n) f32 scratch; bar: the grid barrier's word of the call's
 // stream (low bits zero between calls).
 struct LooplessArgs {
@@ -274,6 +329,7 @@ struct LooplessArgs {
   const float* wgts = nullptr;
   float* zb = nullptr;
   const float* invg = nullptr;
+  float* s = nullptr;
 };
 
 // The grid rule (ops/fused_block.py _loopless_grid): R rows a CTA, the
@@ -391,6 +447,46 @@ __device__ __forceinline__ void ll_unit(const int8_t* p, float (&v)[4]) {
     v[0] = static_cast<float>(*p);
 }
 
+// Asks L2 for the lines of [p, p + bytes), split over the consumer threads:
+// a hint that moves no value into the SM (a later coherent load sees every
+// write made since), so it may run ahead of the grid barriers.
+__device__ __forceinline__ void l2_warm(const float* p, int64_t bytes,
+                                        int tid) {
+  const uintptr_t first = reinterpret_cast<uintptr_t>(p) & ~uintptr_t(127);
+  const uintptr_t end = reinterpret_cast<uintptr_t>(p) + bytes;
+  for (uintptr_t q = first + 128 * uintptr_t(tid); q < end;
+       q += 128 * uintptr_t(kLlThreads))
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(q));
+}
+
+// ProShI's table values of a thread: its units loc + kq U of the table rows
+// row, row + 1, ... (rows of them; zeros past them and past the row's units),
+// read by coherent loads (the launch writes the table).
+template <bool kVec, int kPR, int kRU, int kUnit>
+__device__ __forceinline__ void proshi_load(float (&so)[kPR][kRU][kUnit],
+                                            const float* s, int64_t row,
+                                            int rows, int n, int loc, int U,
+                                            int units) {
+#pragma unroll
+  for (int i = 0; i < kPR; ++i)
+#pragma unroll
+    for (int kq = 0; kq < kRU; ++kq) {
+      const int u = loc + kq * U;
+#pragma unroll
+      for (int e = 0; e < kUnit; ++e) so[i][kq][e] = 0.0f;
+      if (i < rows && u < units) {
+        const float* src = s + (row + i) * n + u * kUnit;
+        if constexpr (kVec) {
+          const float4 f = __ldcg(reinterpret_cast<const float4*>(src));
+          so[i][kq][0] = f.x, so[i][kq][1] = f.y;
+          so[i][kq][2] = f.z, so[i][kq][3] = f.w;
+        } else {
+          so[i][kq][0] = __ldcg(src);
+        }
+      }
+    }
+}
+
 // The sums over a warp of each lane's partials p[0..7] of eight rows: three
 // halving steps (lane offsets 16, 8, 4), in each of which a lane keeps half of
 // its rows and sends its partner the other half, then two plain steps (2, 1):
@@ -439,8 +535,8 @@ loopless_steps_kernel(const LooplessArgs a) {
   float* red = msum + kPts * kLlWarps * S;            // [8][32]
 
   const int K = a.K;
-  const int live = a.stop == nullptr ? K
-                   : kTable           ? max(0, min(K, *a.stop))
+  const int live = a.stop == nullptr                ? K
+                   : kTable || M == kProshiSteps ? max(0, min(K, *a.stop))
                    : *a.stop >= K - 1 ? K
                    : (*a.stop < 0 ? 0 : *a.stop + 1);
   if (live == 0) return;
@@ -542,12 +638,16 @@ loopless_steps_kernel(const LooplessArgs a) {
 
   // row r of a stage whose rows start at row0: its margin m (SARAH's at w,
   // m0 at w_prev), its old SAGA coefficient c_old (loaded when the stage
-  // was taken)
+  // was taken); ProShI's dc is w_i = (gamma_i / N) c_i (rs_i), the weight of
+  // the row in its table refresh
   auto finish_row = [&](const float* v, float* dc, int r, float m, float m0,
                         int64_t row0, float c_old) {
     const float rsv = scaled ? v[2 * S + r] : 1.0f;
     if (scaled) m *= rsv;
-    const float c_live = coeff_formula(mode, m, v[r], scale, aux);
+    const float c_live =
+        M == kProshiSteps
+            ? coeff_formula(static_cast<int>(sc[3]), m, v[r], sc[0], sc[7])
+            : coeff_formula(mode, m, v[r], scale, aux);
     float d;
     if constexpr (kTable) {
       a.c[row0 + r] = c_live;
@@ -556,6 +656,8 @@ loopless_steps_kernel(const LooplessArgs a) {
       // grad f_i(w) - grad f_i(w_prev)
       if (scaled) m0 *= rsv;
       d = c_live - coeff_formula(mode, m0, v[r], scale, aux);
+    } else if constexpr (M == kProshiSteps) {
+      d = (v[S + r] * sc[1]) * c_live;
     } else {
       d = coupled(M) ? c_live - v[S + r] : v[S + r] - c_live;
     }
@@ -611,117 +713,254 @@ loopless_steps_kernel(const LooplessArgs a) {
     }
     consumer_sync();
 
-    for (int i = 0; i < spc; ++i, ++t) {
-      const int s = t % P;
-      const int here = min(S, mine - i * S);
-      const T* tile = stage_ptr(s);
-      const float* v = vals + 3 * S * s;
-      float* dc = dcs + (t & 1) * S;
-      // SAGA: the stage's first row, and the row's old coefficient from L2,
-      // in flight during the margins (every earlier visit's write is behind
-      // the barriers)
-      const int64_t row0 =
-          kTable ? static_cast<int64_t>(a.starts[k]) + first + i * S : 0;
-      const float c_old =
-          kTable && tid < here ? __ldcg(a.c + row0 + tid) : 0.0f;
-      mbar_wait(&full[s], (t / P) & 1);
-
-      // margins: every thread takes its units' share (the units it owns in
-      // the column sums) of its group's rows of the stage, eight rows at
-      // once (SARAH: each loaded unit into the sums of both points);
-      // warp_sums8 leaves lane 4i the warp's sum of row i, and the group's
-      // warps' sums are added in warp order
-      for (int r0 = 8 * grp; r0 < here; r0 += 8 * groups) {
-        float p[kPts][8] = {};
-        const bool whole = here - r0 >= 8;
+    if constexpr (M == kProshiSteps) {
+      // ProShI (ProShI_basic.jl:111-123): each row at its own point s_i +
+      // gamma_i z, its table row read once, into registers, and written
+      // back. The step's rows go in rounds of RR rows (a group's kPR at
+      // once, every group's in turn), each round inside one stage: a
+      // thread loads its units of the round's table rows by coherent loads
+      // (a block revisited by a later step of the launch reads this step's
+      // writes), takes its share of m_i = a_i . (s_i + gamma_i z), and after
+      // the formula writes s_new = (s_i + gamma_i z) - w_i a_i and adds s_new
+      // - s_old into its column sums. The rows of a step are distinct, so the
+      // next round's loads are issued before this round's work (where a
+      // thread holds 32 values a round, the 16-byte path's narrower rows);
+      // never across the step's barriers. L2 is asked for the rows two
+      // rounds ahead, across the barriers too: a hint, not a read.
+      constexpr int kPR = proshi_rows(kVec, kRU, kSplit);
+      constexpr int kSlots = kPR * kRegUnits * kUnit <= 32 ? 2 : 1;
+      const int RR = min(S, kPR * groups);
+      const int rounds = (mine + RR - 1) / RR;
+      const int64_t base = static_cast<int64_t>(a.starts[k]) + first;
+      // the thread's table values of a round in flight or in use, a slot a
+      // round (two where they fit: the next round's load ahead)
+      float sv[kSlots][kPR][kRegUnits][kUnit];
+      // the thread's rows of round j: j RR + grp kPR + i of the CTA's share,
+      // while below the round's end
+      auto first_row = [&](int j) { return j * RR + grp * kPR; };
+      auto rows_of = [&](int j) {
+        return min(j * RR + RR, mine) - first_row(j);
+      };
+      // round g of the call counted from this step's first: its rows asked
+      // of L2 kWarm rounds ahead, this step's or the next's (the register
+      // loads, a round ahead, do not cover the bytes' latency alone; three
+      // rounds ahead was slower than none on an H100, two the fastest)
+      constexpr int kWarm = 2;
+      auto warm = [&](int g) {
+        const int kk = k + g / rounds, jj = g % rounds;
+        if (kk < live)
+          l2_warm(a.s + (static_cast<int64_t>(a.starts[kk]) + first +
+                         jj * RR) * n,
+                  static_cast<int64_t>(min(RR, mine - jj * RR)) * n * 4, tid);
+      };
+      if (k == 0)
+        for (int g = 0; g < kWarm; ++g) warm(g);
+      if (kSlots == 2)
+        proshi_load<kVec>(sv[0], a.s, base + first_row(0), rows_of(0), n, loc,
+                          U, units);
+      for (int j0 = 0; j0 < rounds; j0 += kSlots) {
 #pragma unroll
+        for (int h = 0; h < kSlots; ++h) {
+          const int j = j0 + h;
+          if (j >= rounds) break;
+          const int jl = kSlots == 1 ? j : j + 1;  // the round loaded now
+          if (jl < rounds)
+            proshi_load<kVec>(sv[kSlots == 1 ? 0 : 1 - h], a.s,
+                              base + first_row(jl), rows_of(jl), n, loc, U,
+                              units);
+          warm(j + kWarm);
+          const int ist = j * RR / S;  // the round's stage of the step
+          const int lr0 = j * RR - ist * S;
+          const int ts = t + ist;
+          const int s = ts % P;
+          const int here = min(S, mine - ist * S);
+          const int rend = min(lr0 + RR, here);
+          const int rb = lr0 + grp * kPR;  // the thread's first row, in stage
+          const T* tile = stage_ptr(s);
+          const float* v = vals + 3 * S * s;
+          float* dc = dcs + (ts & 1) * S;
+          if (lr0 == 0) mbar_wait(&full[s], (ts / P) & 1);
+          float p[8] = {};
+#pragma unroll
+          for (int kq = 0; kq < kRegUnits; ++kq) {
+            const int u = loc + kq * U;
+            if (u < units) {
+              float z[4];
+              ll_unit<false, kVec>(zs + u * kUnit, z);
+#pragma unroll
+              for (int i = 0; i < kPR; ++i) {
+                if (rb + i < rend) {
+                  float x[4];
+                  ll_unit<false, kVec>(
+                      tile + static_cast<size_t>(rb + i) * n + u * kUnit, x);
+                  const float g = v[S + rb + i];
+#pragma unroll
+                  for (int e = 0; e < kUnit; ++e)
+                    p[i] = fmaf(x[e], sv[h][i][kq][e] + g * z[e], p[i]);
+                }
+              }
+            }
+          }
+          const float m = warp_sums8(p, lane);
+          if ((lane & 3) == 0 && lane / 4 < kPR && rb + lane / 4 < rend)
+            msum[warp * S + rb + lane / 4] = m;
+          consumer_sync();
+          if (tid < rend - lr0) {
+            const int w0 = (tid / kPR) * wpg;  // the row's group
+            float mm = msum[w0 * S + lr0 + tid];
+            for (int w = 1; w < wpg; ++w) mm += msum[(w0 + w) * S + lr0 + tid];
+            finish_row(v, dc, lr0 + tid, mm, mm, 0, 0.0f);
+          }
+          consumer_sync();
+#pragma unroll
+          for (int i = 0; i < kPR; ++i) {
+            if (rb + i < rend) {
+              const float w = dc[rb + i];
+              const float g = v[S + rb + i];
+              float* srow = a.s + (base + ist * S + rb + i) * n;
+#pragma unroll
+              for (int kq = 0; kq < kRegUnits; ++kq) {
+                const int u = loc + kq * U;
+                if (u < units) {
+                  float x[4], z[4], sn[4];
+                  ll_unit<false, kVec>(
+                      tile + static_cast<size_t>(rb + i) * n + u * kUnit, x);
+                  ll_unit<false, kVec>(zs + u * kUnit, z);
+#pragma unroll
+                  for (int e = 0; e < kUnit; ++e) {
+                    const float so = sv[h][i][kq][e];
+                    sn[e] = (so + g * z[e]) - w * x[e];
+                    acc[kq][e] += sn[e] - so;
+                  }
+                  if constexpr (kVec)
+                    *reinterpret_cast<float4*>(srow + u * kUnit) =
+                        make_float4(sn[0], sn[1], sn[2], sn[3]);
+                  else
+                    srow[u] = sn[0];
+                }
+              }
+            }
+          }
+          if (rend == here) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
+          }
+        }
+      }
+      t += spc;
+    } else {
+      for (int i = 0; i < spc; ++i, ++t) {
+        const int s = t % P;
+        const int here = min(S, mine - i * S);
+        const T* tile = stage_ptr(s);
+        const float* v = vals + 3 * S * s;
+        float* dc = dcs + (t & 1) * S;
+        // SAGA: the stage's first row, and the row's old coefficient from L2,
+        // in flight during the margins (every earlier visit's write is behind
+        // the barriers)
+        const int64_t row0 =
+            kTable ? static_cast<int64_t>(a.starts[k]) + first + i * S : 0;
+        const float c_old =
+            kTable && tid < here ? __ldcg(a.c + row0 + tid) : 0.0f;
+        mbar_wait(&full[s], (t / P) & 1);
+
+        // margins: every thread takes its units' share (the units it owns in
+        // the column sums) of its group's rows of the stage, eight rows at
+        // once (SARAH: each loaded unit into the sums of both points);
+        // warp_sums8 leaves lane 4i the warp's sum of row i, and the group's
+        // warps' sums are added in warp order
+        for (int r0 = 8 * grp; r0 < here; r0 += 8 * groups) {
+          float p[kPts][8] = {};
+          const bool whole = here - r0 >= 8;
+  #pragma unroll
+          for (int kq = 0; kq < kRegUnits; ++kq) {
+            const int u = loc + kq * U;
+            if (u < units) {
+              float z[kPts][4];
+  #pragma unroll
+              for (int q = 0; q < kPts; ++q) {
+                if (kVec) {
+                  const float4 f =
+                      *reinterpret_cast<const float4*>(zs + q * n + 4 * u);
+                  z[q][0] = f.x, z[q][1] = f.y, z[q][2] = f.z, z[q][3] = f.w;
+                } else {
+                  z[q][0] = zs[q * n + u];
+                }
+              }
+              const T* col = tile + static_cast<size_t>(r0) * n + u * kUnit;
+  #pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                if (whole || r0 + i < here) {
+                  float x[4];
+                  ll_unit<kLowp, kVec>(col + static_cast<size_t>(i) * n, x);
+  #pragma unroll
+                  for (int q = 0; q < kPts; ++q)
+  #pragma unroll
+                    for (int e = 0; e < kUnit; ++e)
+                      p[q][i] = fmaf(x[e], z[q][e], p[q][i]);
+                }
+              }
+            }
+          }
+  #pragma unroll
+          for (int q = 0; q < kPts; ++q) {
+            const float m = warp_sums8(p[q], lane);
+            if ((lane & 3) == 0 && r0 + lane / 4 < here)
+              msum[(q * kLlWarps + warp) * S + r0 + lane / 4] = m;
+          }
+        }
+        consumer_sync();
+        if (tid < here) {
+          const int w0 = ((tid >> 3) % groups) * wpg;  // the row's group
+          float m[kPts];
+  #pragma unroll
+          for (int q = 0; q < kPts; ++q) {
+            const float* ms = msum + q * kLlWarps * S;
+            m[q] = ms[w0 * S + tid];
+  #pragma unroll
+            for (int w = 1; w < wpg; ++w) m[q] += ms[(w0 + w) * S + tid];
+          }
+          finish_row(v, dc, tid, m[kPts - 1], m[0], row0, c_old);
+        }
+        consumer_sync();
+
+        // the group's rows of the stage into the column sums: each unit's rows
+        // in order (a group's octets, or all rows at once), four rows' loads
+        // at once
+  #pragma unroll
         for (int kq = 0; kq < kRegUnits; ++kq) {
           const int u = loc + kq * U;
           if (u < units) {
-            float z[kPts][4];
-#pragma unroll
-            for (int q = 0; q < kPts; ++q) {
-              if (kVec) {
-                const float4 f =
-                    *reinterpret_cast<const float4*>(zs + q * n + 4 * u);
-                z[q][0] = f.x, z[q][1] = f.y, z[q][2] = f.z, z[q][3] = f.w;
-              } else {
-                z[q][0] = zs[q * n + u];
+            const T* col = tile + u * kUnit;
+            for (int o = 8 * grp; o < here; o += kSplit ? 8 * groups : here) {
+              const int end = kSplit ? min(here, o + 8) : here;
+              int r = o;
+              for (; r + 4 <= end; r += 4) {
+                float x[4][4];
+  #pragma unroll
+                for (int i = 0; i < 4; ++i)
+                  ll_unit<kLowp, kVec>(col + static_cast<size_t>(r + i) * n,
+                                       x[i]);
+  #pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  const float d = dc[r + i];
+  #pragma unroll
+                  for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[i][q];
+                }
               }
-            }
-            const T* col = tile + static_cast<size_t>(r0) * n + u * kUnit;
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              if (whole || r0 + i < here) {
+              for (; r < end; ++r) {
                 float x[4];
-                ll_unit<kLowp, kVec>(col + static_cast<size_t>(i) * n, x);
-#pragma unroll
-                for (int q = 0; q < kPts; ++q)
-#pragma unroll
-                  for (int e = 0; e < kUnit; ++e)
-                    p[q][i] = fmaf(x[e], z[q][e], p[q][i]);
+                ll_unit<kLowp, kVec>(col + static_cast<size_t>(r) * n, x);
+                const float d = dc[r];
+  #pragma unroll
+                for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[q];
               }
             }
           }
         }
-#pragma unroll
-        for (int q = 0; q < kPts; ++q) {
-          const float m = warp_sums8(p[q], lane);
-          if ((lane & 3) == 0 && r0 + lane / 4 < here)
-            msum[(q * kLlWarps + warp) * S + r0 + lane / 4] = m;
-        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
       }
-      consumer_sync();
-      if (tid < here) {
-        const int w0 = ((tid >> 3) % groups) * wpg;  // the row's group
-        float m[kPts];
-#pragma unroll
-        for (int q = 0; q < kPts; ++q) {
-          const float* ms = msum + q * kLlWarps * S;
-          m[q] = ms[w0 * S + tid];
-#pragma unroll
-          for (int w = 1; w < wpg; ++w) m[q] += ms[(w0 + w) * S + tid];
-        }
-        finish_row(v, dc, tid, m[kPts - 1], m[0], row0, c_old);
-      }
-      consumer_sync();
-
-      // the group's rows of the stage into the column sums: each unit's rows
-      // in order (a group's octets, or all rows at once), four rows' loads
-      // at once
-#pragma unroll
-      for (int kq = 0; kq < kRegUnits; ++kq) {
-        const int u = loc + kq * U;
-        if (u < units) {
-          const T* col = tile + u * kUnit;
-          for (int o = 8 * grp; o < here; o += kSplit ? 8 * groups : here) {
-            const int end = kSplit ? min(here, o + 8) : here;
-            int r = o;
-            for (; r + 4 <= end; r += 4) {
-              float x[4][4];
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                ll_unit<kLowp, kVec>(col + static_cast<size_t>(r + i) * n,
-                                     x[i]);
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const float d = dc[r + i];
-#pragma unroll
-                for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[i][q];
-              }
-            }
-            for (; r < end; ++r) {
-              float x[4];
-              ll_unit<kLowp, kVec>(col + static_cast<size_t>(r) * n, x);
-              const float d = dc[r];
-#pragma unroll
-              for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[q];
-            }
-          }
-        }
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
     }
 
     // the CTA's partial (the groups' sums added in group order), then the
@@ -752,15 +991,16 @@ loopless_steps_kernel(const LooplessArgs a) {
     grid_sync(a.bar, phase);
 
     // SAGA's direction weight of step k; the Finitos' sum of 1/gamma_i of
-    // step k's block (Finito's by block id, LFinito's by visit) and
-    // Finito's anchor row of that block
+    // step k's block (Finito's by block id, streamed Finito's by step,
+    // LFinito's by visit) and Finito's anchor row of that block
     const float wgt =
         M == kSagaSteps && a.wgts != nullptr ? a.wgts[k] : 1.0f;
-    const float ig = M == kFinitoSteps    ? a.invg[a.starts[k] / a.B]
-                     : M == kLFinitoSteps ? a.invg[k]
-                                          : 0.0f;
+    const float ig = M == kFinitoSteps ? a.invg[a.starts[k] / a.B]
+                     : M == kLFinitoSteps || M == kFinitoStreamSteps
+                         ? a.invg[k]
+                         : 0.0f;
     float* zb_row =
-        M == kFinitoSteps
+        finito_coeff(M)
             ? a.zb + static_cast<int64_t>(a.starts[k] / a.B) * n
             : nullptr;
     for (int jb = j0; jb < j1; jb += cw) {
@@ -768,12 +1008,13 @@ loopless_steps_kernel(const LooplessArgs a) {
       const bool owner = warp == 0 && lane < cw && j < j1;
       // the column's state (L-SVRG: w, av; SVRG: w, av, zs; SAGA: z, av;
       // L-Katyusha: x, av, z, y, wa; Katyusha: x, av, z, y, wa, ys; SARAH:
-      // w, v; Finito: z, av, zb_j; LFinito: z, av, zf), loaded beside its
-      // partials
+      // w, v; Finito: z, av, zb_j; LFinito: z, av, zf; ProShI: z, av),
+      // loaded beside its partials
       float st[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (owner) {
         st[0] = __ldcg(a.pt + (M == kSarahSteps ? n : 0) + j);
-        st[1] = kTable || M == kSarahSteps || M == kLFinitoSteps
+        st[1] = kTable || M == kSarahSteps || M == kLFinitoSteps ||
+                        M == kProshiSteps
                     ? __ldcg(a.av + j)
                     : a.av[j];
         if (coupled(M)) {
@@ -783,7 +1024,7 @@ loopless_steps_kernel(const LooplessArgs a) {
         }
         if (M == kSvrgSteps) st[2] = __ldcg(a.zs + j);
         if (M == kKatyushaSteps) st[5] = __ldcg(a.zs + j);
-        if (M == kFinitoSteps) st[2] = __ldcg(zb_row + j);
+        if (finito_coeff(M)) st[2] = __ldcg(zb_row + j);
         if (M == kLFinitoSteps) st[2] = a.wa[j];
       }
       float sum = 0.0f;
@@ -843,7 +1084,7 @@ loopless_steps_kernel(const LooplessArgs a) {
           a.av[j] = v_new;
           a.pt[j] = w;
           a.pt[n + j] = w + fs[2] * (yv - w);
-        } else if (M == kFinitoSteps) {
+        } else if (finito_coeff(M)) {
           // Finito_basic.jl:110-118 on block j: av += hat invg_j (z - zb_j)
           // - (hat / N) sum, zb_j <- z, z <- soft(av, hat lambda)
           const float av_new = st[1] + ((fs[1] * ig) * (st[0] - st[2]) -
@@ -860,6 +1101,20 @@ loopless_steps_kernel(const LooplessArgs a) {
                                         (fs[0] * ig) * (st[0] - st[2]));
           a.av[j] = av_new;
           if (k + 1 < live) a.pt[j] = soft_threshold(av_new, fs[1]);
+        } else if (M == kProshiSteps) {
+          // ProShI_basic.jl:111-123: av += sum, z = (prox_g(av) - av) / hat,
+          // prox_g by gmode: the identity, clip(av, glo, ghi) (NaN passes
+          // through) or the soft-threshold at glo
+          const float av_new = st[1] + innov;
+          const float glo = sc[4], ghi = sc[5];
+          const int gmode = static_cast<int>(sc[6]);
+          float p = av_new;
+          if (gmode == kGproxBox)
+            p = av_new < glo ? glo : (av_new > ghi ? ghi : av_new);
+          else if (gmode == kGproxL1)
+            p = soft_threshold(av_new, glo);
+          a.av[j] = av_new;
+          a.pt[j] = (p - av_new) * sc[2];
         } else {
           // L-Katyusha (Alg. 3, proximal z-step): g~ = av + sum / B,
           // z_new = soft((z + eta sigma x - (eta/L) g~) / (1 + eta sigma),
@@ -964,20 +1219,30 @@ int launch_loopless(int storage, int lowp, const LooplessArgs& a,
       P > kLlMaxStages || loopless_smem_bytes(S, P, a.n, isz, pts) > kLlMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = loopless_smem_bytes(S, P, a.n, isz, pts);
-  const bool vec = vec_rows(a.A, a.n, isz);
+  // ProShI's 16-byte path also reads and writes its table rows and point in
+  // whole 16-byte chunks
+  const bool vec = vec_rows(a.A, a.n, isz) &&
+                   (M != kProshiSteps ||
+                    (vec_rows(a.s, a.n, 4) && vec_rows(a.pt, a.n, 4)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // ProShI's margins are exact f32 whatever the rows and precision (the
+  // Pallas kernel ignores its precision): its builds are kLowp false alone
+  constexpr bool kRound = M != kProshiSteps;
   switch (storage) {
     case kF32:
-      e = lowp ? dispatch_loopless<M, float, true>(vec, a, smem, sms, st)
-               : dispatch_loopless<M, float, false>(vec, a, smem, sms,
-                                                    st);
+      if constexpr (kRound)
+        e = lowp ? dispatch_loopless<M, float, true>(vec, a, smem, sms, st)
+                 : dispatch_loopless<M, float, false>(vec, a, smem, sms,
+                                                      st);
+      else
+        e = dispatch_loopless<M, float, false>(vec, a, smem, sms, st);
       break;
     case kBF16:
-      e = dispatch_loopless<M, __nv_bfloat16, true>(vec, a, smem, sms,
-                                                    st);
+      e = dispatch_loopless<M, __nv_bfloat16, kRound>(vec, a, smem, sms,
+                                                      st);
       break;
     case kI8:
-      e = dispatch_loopless<M, int8_t, true>(vec, a, smem, sms, st);
+      e = dispatch_loopless<M, int8_t, kRound>(vec, a, smem, sms, st);
       break;
     default:
       e = cudaErrorInvalidValue;

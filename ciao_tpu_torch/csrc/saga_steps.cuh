@@ -1,12 +1,8 @@
 // Coefficient block steps on an NVIDIA Hopper card (sm_90a): the device code
-// shared by six kernels of ciao_tpu_torch/ops/fused_block.py,
+// shared by five kernels of ciao_tpu_torch/ops/fused_block.py,
 //
 //   saga_coeff_multistep.cu             replaces ciao_tpu/ops/fused_block.py
 //                                       saga_coeff_multistep (SAGA/SAG steps);
-//   finito_coeff_multistep_streamed.cu  replaces
-//                                       finito_coeff_multistep_streamed
-//                                       (Finito steps, per-block anchors zb,
-//                                       steps k >= f masked);
 //   ssnm_multistep.cu                   replaces ssnm_multistep (SSNM steps:
 //                                       SAGA's at a momentum point);
 //   ssnm_multistep_streamed.cu          replaces ssnm_multistep_streamed
@@ -20,8 +16,8 @@
 // The Python wrappers and the design notes are in ops/fused_block.py; the plain
 // PyTorch versions of the same arithmetic are the *_ref functions there.
 // Kernels #4 (streamed SAGA), #5 (SVRG), #8 (LFinito), #9 (Finito), #10
-// (Katyusha), #11 (SARAH), #16 and #17 (the loopless pair) run on the
-// persistent engine of loopless_steps.cuh.
+// (Katyusha), #11 (SARAH), #14 (streamed Finito), #16 and #17 (the loopless
+// pair) and #18 (ProShI) run on the persistent engine of loopless_steps.cuh.
 //
 // One solver step on the block [s, s + B) of the (N, n) rows A is two launches:
 //
@@ -32,13 +28,11 @@
 //       shuffle reduction), the int8 dequant scale, the coefficient formula,
 //       the coefficient difference dc_i and the CTA's partial innovation
 //       sum_rows dc_i . a_i into part[cta, :]. SAGA: dc_i = c_new - c_old and
-//       the table write c_i <- c_new (and Finito, whose table is the same);
+//       the table write c_i <- c_new;
 //   (b) the finish kernel, 32 columns per CTA: the partials summed in a fixed
 //       order (no atomics, so runs repeat bit for bit), then SAGA's running
 //       average, SAG or SAGA direction and L1 soft-threshold
-//       (saga_finish_kernel), or Finito's
-//       av += hat invg_k (z - zb_j) - (hat/N) sum, zb_j <- z, z <- soft(av)
-//       (finito_finish_kernel).
+//       (saga_finish_kernel), or the finish of SSNM or Point-SAGA below.
 //
 // The K steps are issued from the host on one stream with no host sync; the
 // stream order carries the iterate and the table from one step to the next.
@@ -75,12 +69,10 @@ constexpr int kMaxRowsPerCta = 32;
 // The scalars row of each method, scale first and (mode, aux) where
 // ScalarIndex says:
 // SAGA        [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux];
-// Finito      [scale, 1/N, hat, hat*lambda, mode, aux];
 // SSNM        [scale, eta, eta*lambda, 1/B, 1/N, mode, tau, aux];
 // Point-SAGA  [scale, gamma, 1/B, 1/N, mode, aux].
 enum Method {
   kSaga = 0,
-  kFinito = 2,
   kSsnm = 8,
   kPointSaga = 9
 };
@@ -100,7 +92,7 @@ struct ScalarIndex {
 // Shared memory: the tile (rows x n of T), then the point (n floats), then
 // per row dc, b, c, rs and (Point-SAGA) na (rows floats each); the per-row
 // values are fetched while the tile is in flight. c is the table (SAGA,
-// Finito, SSNM: refreshed by the formula; Point-SAGA: its prox solve), written
+// SSNM: refreshed by the formula; Point-SAGA: its prox solve), written
 // back; z is the point of the margins (y for SSNM, v for Point-SAGA).
 // kPMode is Point-SAGA's oracle mode (the other methods read theirs from sc).
 template <Method M, typename T, bool kLowp, bool kVec, int kPMode>
@@ -215,35 +207,6 @@ saga_finish_kernel(const float* __restrict__ part, int parts,
   z[j] = soft_threshold(w, thr);
 }
 
-// Finito_basic.jl:110-118 on block j = starts[k] / B, in the coefficient
-// parameterization: innov = hat invg_k (z - zb_j) - (hat/N) sum, av += innov,
-// zb_j <- z, z <- soft(av, hat lambda). invg_k holds the sum of 1/gamma_i of
-// step k's block (pre-gathered by step). A masked step writes nothing.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-finito_finish_kernel(const float* __restrict__ part, int parts,
-                     float* __restrict__ z, float* __restrict__ av,
-                     float* __restrict__ zb, const float* __restrict__ invg,
-                     const int* __restrict__ starts, int B,
-                     const float* __restrict__ sc,
-                     const int* __restrict__ fclamp, int k, int n) {
-  if (masked(fclamp, k)) return;
-  int j;
-  float sum;
-  if (!column_sum(part, parts, n, j, sum)) return;
-  const int block = starts[k] / B;
-  const float inv_n = sc[1];
-  const float hat = sc[2];
-  const float thr = sc[3];
-  const float ig = invg[k];
-  float* zb_j = zb + static_cast<int64_t>(block) * n + j;
-  const float z_old = z[j];
-  const float av_new =
-      av[j] + ((hat * ig) * (z_old - *zb_j) - (hat * inv_n) * sum);
-  av[j] = av_new;
-  *zb_j = z_old;
-  z[j] = soft_threshold(av_new, thr);
-}
-
 // SSNM's momentum point tau x + (1 - tau) zb and Point-SAGA's shifted
 // iterate x - gamma av, each rounded as the plain versions round them (no
 // contraction into an fma).
@@ -324,10 +287,8 @@ point_saga_finish_kernel(const float* __restrict__ part, int parts,
 }
 
 // The arguments of one call: K steps on one stream. SAGA: c the table, z the
-// iterate, av the running average. Finito: c the table, z the iterate, av
-// the running average, zb the (d, n) per-block anchors and invg the sums
-// of 1/gamma_i of the steps' blocks, by step. SSNM: c the table, z an (n,) scratch for y, av
-// the table mean gb, zb the (d, n) stored points, xi the iterate x.
+// iterate, av the running average. SSNM: c the table, z an (n,) scratch for
+// y, av the table mean gb, zb the (d, n) stored points, xi the iterate x.
 // Point-SAGA: c the table, z an (n,) scratch for v, av the table mean, xi
 // the iterate x, na the (N,) row square-norms.
 struct StepArgs {
@@ -345,7 +306,6 @@ struct StepArgs {
   int n, B, rows, K;
   cudaStream_t stream;
   float* zb = nullptr;
-  const float* invg = nullptr;
   float* xi = nullptr;
   const float* na = nullptr;
 };
@@ -381,10 +341,6 @@ cudaError_t run_steps(const StepArgs& a) {
     if constexpr (M == kSaga) {
       saga_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.av, a.sc, a.wgts, a.fclamp, k, a.n);
-    } else if constexpr (M == kFinito) {
-      finito_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.av, a.zb, a.invg, a.starts, a.B, a.sc,
-          a.fclamp, k, a.n);
     } else if constexpr (M == kSsnm) {
       ssnm_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.xi, a.av, a.zb, a.starts, a.B, a.sc, a.fclamp,

@@ -1,23 +1,20 @@
 // The walk over one block of an (N, n) table on an NVIDIA Hopper card
-// (sm_90a): the device code shared by three kernels of
+// (sm_90a): the device code shared by two kernels of
 // ciao_tpu_torch/ops/fused_block.py,
 //
 //   saga_block_update.cu    replaces ciao_tpu/ops/fused_block.py
 //                           saga_block_update (SAGA's full-table refresh);
-//   finito_block_update.cu  replaces finito_block_update (Finito's);
-//   proshi_multistep.cu     replaces proshi_multistep (K ProShI steps).
+//   finito_block_update.cu  replaces finito_block_update (Finito's).
 //
-// Each rewrites the rows [s0, s0 + B) of the table s in place and sums the
-// block's innovation. The row phase, table_rows_kernel, runs B / R CTAs of R
-// rows (R <= 32):
+// (ProShI's K steps on its table, proshi_multistep.cu, run on the persistent
+// engine of loopless_steps.cuh.) Each rewrites the rows [s0, s0 + B) of the
+// table s in place and sums the block's innovation. The row phase,
+// table_rows_kernel, runs B / R CTAs of R rows (R <= 32):
 //
 //   1. the CTA's R rows of A are copied into shared memory with cp.async (read
-//      from device memory once), with the per-row values (b, gamma, rs);
-//   2. one warp per row takes the row's margin and coefficient (the rule):
-//        SAGA, Finito  m_i = a_i . z,               c_i = scale (m_i - b_i);
-//        ProShI        m_i = a_i . (s_i + gamma_i z) (each row has its own
-//                      point, read from the table), c_i the oracle formula of
-//                      m_i (rs_i), kept as w_i = (gamma_i / N) c_i (rs_i);
+//      from device memory once), with the per-row values (b, gamma);
+//   2. one warp per row takes the row's margin m_i = a_i . z and coefficient
+//      c_i = scale (m_i - b_i);
 //   3. the column walk: each thread owns four columns (one on the narrow
 //      path) and walks the R rows in order, kChunk rows at a time: it loads
 //      the chunk's old table values (their loads in flight together), then
@@ -25,24 +22,18 @@
 //      part[cta, :]:
 //        SAGA    s_i <- c_i a_i                      sum (s_new - s_old)
 //        Finito  s_i <- z - (gamma_i / N) c_i a_i    sum (s_new - s_old) hat/gamma_i
-//        ProShI  s_i <- (s_i + gamma_i z) - w_i a_i  sum (s_new - s_old)
 //
-// A second launch sums the partials per column in a fixed order (no atomics,
-// so runs repeat bit for bit): innov_finish_kernel for the one-block kernels,
-// the ProShI finish in proshi_multistep.cu.
+// A second launch, innov_finish_kernel, sums the partials per column in a
+// fixed order (no atomics, so runs repeat bit for bit).
 //
 // Bound: bytes. A block moves its rows, its table rows read and written and
 // the per-row values: 12 B a column of a row with f32 rows, about 48 MB at
-// B = 4,096, n = 1,024. ProShI reads a row's table values twice (the margin,
-// then the walk), the second time from L2, where the CTA's 128 KB at most
-// were just read.
+// B = 4,096, n = 1,024.
 //
 // Precision: SAGA and Finito follow the Pallas kernels' _row_grad: bf16 rows
 // are widened to f32 and the margin's dot is exact f32 at "highest" (z is not
-// rounded); at "default" (kLowp) both dot operands round to bf16. ProShI's
-// Pallas kernel ignores its precision: its margin is an exact f32 product of
-// the widened row and the table row, so it always runs with kLowp false. The
-// walk always uses the stored row values.
+// rounded); at "default" (kLowp) both dot operands round to bf16. The walk
+// always uses the stored row values.
 
 #pragma once
 
@@ -58,15 +49,12 @@ constexpr int kTableMaxRows = 32;
 constexpr int kChunk = 8;
 
 // The rules. row_setup fills a row's two per-row values w, h from gamma_i;
-// coeff turns the margin into the value the walk uses (c_i, or ProShI's
-// w_i); value and innov are the walk's new table value and the weight of its
-// innovation.
+// coeff turns the margin into the value the walk uses (c_i); value and innov
+// are the walk's new table value and the weight of its innovation.
 struct SagaRule {
   // sc = [scale]
-  static constexpr bool kPointwise = false;
   __device__ static void row_setup(const float*, float, float&, float&) {}
-  __device__ static float coeff(float m, float b, float, float, float,
-                                const float* sc) {
+  __device__ static float coeff(float m, float b, const float* sc) {
     return sc[0] * (m - b);
   }
   __device__ static float value(float, float a, float, float c, float) {
@@ -77,14 +65,12 @@ struct SagaRule {
 
 struct FinitoRule {
   // sc = [scale, 1/N, hat]; w = gamma_i / N, h = hat / gamma_i
-  static constexpr bool kPointwise = false;
   __device__ static void row_setup(const float* sc, float g, float& w,
                                    float& h) {
     w = g * sc[1];
     h = sc[2] / g;
   }
-  __device__ static float coeff(float m, float b, float, float, float,
-                                const float* sc) {
+  __device__ static float coeff(float m, float b, const float* sc) {
     return sc[0] * (m - b);
   }
   __device__ static float value(float, float a, float zj, float c, float w) {
@@ -93,69 +79,17 @@ struct FinitoRule {
   __device__ static float innov(float d, float h) { return d * h; }
 };
 
-struct ProshiRule {
-  // sc = [scale, 1/N, 1/hat, mode, glo, ghi, gmode, aux]; w = gamma_i,
-  // h = gamma_i / N
-  static constexpr bool kPointwise = true;
-  __device__ static void row_setup(const float* sc, float g, float& w,
-                                   float& h) {
-    w = g;
-    h = g * sc[1];
-  }
-  __device__ static float coeff(float m, float b, float rs, float, float h,
-                                const float* sc) {
-    const float c = coeff_formula(static_cast<int>(sc[3]), m * rs, b, sc[0],
-                                  sc[7]);
-    return (h * c) * rs;
-  }
-  __device__ static float value(float so, float a, float zj, float c,
-                                float w) {
-    return (so + w * zj) - c * a;
-  }
-  __device__ static float innov(float d, float) { return d; }
-};
-
-// ProShI's margin a . (s + g z) of one row, by one warp: a from the tile in
-// shared memory, the table row s from device memory, z from shared memory.
-template <bool kVec, typename T>
-__device__ __forceinline__ float warp_dot_at(const T* a, const float* srow,
-                                             float g, const float* zs, int n,
-                                             int lane) {
-  float acc = 0.0f;
-  if (kVec) {
-    for (int j = lane * 4; j < n; j += 32 * 4) {
-      float v[4];
-      row4<false>(a + j, v);
-      const float4 ss = *reinterpret_cast<const float4*>(srow + j);
-      const float4 zz = *reinterpret_cast<const float4*>(zs + j);
-      acc += v[0] * (ss.x + g * zz.x) + v[1] * (ss.y + g * zz.y) +
-             v[2] * (ss.z + g * zz.z) + v[3] * (ss.w + g * zz.w);
-    }
-  } else {
-    for (int j = lane; j < n; j += 32)
-      acc += row_value<false>(a[j]) * (srow[j] + g * zs[j]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
-}
-
 // Shared memory: the tile (rows x n of T), then z as the dot sees it (n
-// floats), then per row the coefficient (b until the margins are done), the
-// rule's two values w and h, and rs. The block of step k starts at starts[k]
-// (the one-block kernels pass their start with k = 0); a step masked by the
-// clamp count returns before any load.
+// floats), then per row the coefficient (b until the margins are done) and
+// the rule's two values w and h. The block starts at *start.
 template <class Rule, typename T, bool kLowp, bool kVec>
 __global__ void __launch_bounds__(kTableThreads)
 table_rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
-                  const float* __restrict__ rs, float* __restrict__ s,
-                  const float* __restrict__ gamma,
-                  const float* __restrict__ z, const int* __restrict__ starts,
-                  int k, const int* __restrict__ fclamp,
+                  float* __restrict__ s, const float* __restrict__ gamma,
+                  const float* __restrict__ z,
+                  const int* __restrict__ block_start,
                   const float* __restrict__ sc, float* __restrict__ part,
                   int n, int rows) {
-  if (masked(fclamp, k)) return;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   T* tile = reinterpret_cast<T*>(smem);
@@ -163,12 +97,11 @@ table_rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
   float* cs = zs + n;
   float* ws = cs + rows;
   float* hs = ws + rows;
-  float* rss = hs + rows;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int64_t start =
-      static_cast<int64_t>(starts[k]) + static_cast<int64_t>(blockIdx.x) * rows;
+  const int64_t start = static_cast<int64_t>(*block_start) +
+                        static_cast<int64_t>(blockIdx.x) * rows;
 
   stage_rows<T, kVec>(tile, A + start * n, rows * n, tid, kTableThreads);
   if (kVec) __pipeline_commit();
@@ -178,7 +111,6 @@ table_rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
   }
   if (tid < rows) {
     cs[tid] = b[start + tid];
-    rss[tid] = rs != nullptr ? rs[start + tid] : 1.0f;
     Rule::row_setup(sc, gamma != nullptr ? gamma[start + tid] : 0.0f,
                     ws[tid], hs[tid]);
   }
@@ -188,12 +120,8 @@ table_rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
   // The table's rows of the CTA: row r of the block at s + (start + r) * n.
   float* srow = s + start * n;
   for (int r = warp; r < rows; r += kTableWarps) {
-    const float m =
-        Rule::kPointwise
-            ? warp_dot_at<kVec>(tile + r * n, srow + static_cast<int64_t>(r) * n,
-                                ws[r], zs, n, lane)
-            : warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
-    if (lane == 0) cs[r] = Rule::coeff(m, cs[r], rss[r], ws[r], hs[r], sc);
+    const float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
+    if (lane == 0) cs[r] = Rule::coeff(m, cs[r], sc);
   }
   __syncthreads();
 
@@ -264,12 +192,13 @@ innov_finish_kernel(const float* __restrict__ part, int parts,
   if (column_sum(part, parts, n, j, sum)) innov[j] = sum;
 }
 
-// Dynamic shared memory of one row-phase CTA (ops/fused_block.py
-// _smem_bytes); above 48 KB the kernel must opt in.
+// Dynamic shared memory of one row-phase CTA (within ops/fused_block.py
+// _smem_bytes, which the wrapper's rows rule counts with a fourth value a
+// row); above 48 KB the kernel must opt in.
 template <typename T, typename Kernel>
 cudaError_t table_smem(Kernel kernel, int rows, int n, size_t& smem) {
   smem = tile_bytes(rows, n, sizeof(T)) +
-         sizeof(float) * static_cast<size_t>(n + 4 * rows);
+         sizeof(float) * static_cast<size_t>(n + 3 * rows);
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -299,8 +228,8 @@ cudaError_t run_block(const BlockArgs& a) {
   cudaError_t e = table_smem<T>(kernel, a.rows, a.n, smem);
   if (e != cudaSuccess) return e;
   kernel<<<parts, kTableThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.A), a.b, nullptr, a.s, a.gamma, a.z, a.start, 0,
-      nullptr, a.sc, a.part, a.n, a.rows);
+      static_cast<const T*>(a.A), a.b, a.s, a.gamma, a.z, a.start, a.sc,
+      a.part, a.n, a.rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   innov_finish_kernel<<<(a.n + kFinishCols - 1) / kFinishCols,

@@ -9,8 +9,6 @@ the kernels' gates, and nineteen hand-written CUDA kernels for Hopper
 beside their plain PyTorch versions:
 
 - ``saga_coeff_multistep`` (``csrc/saga_coeff_multistep.cu``),
-  ``finito_coeff_multistep_streamed``
-  (``csrc/finito_coeff_multistep_streamed.cu``),
   ``ssnm_multistep`` (``csrc/ssnm_multistep.cu``),
   ``ssnm_multistep_streamed`` (``csrc/ssnm_multistep_streamed.cu``),
   ``point_saga_multistep`` (``csrc/point_saga_multistep.cu``) and
@@ -24,9 +22,12 @@ beside their plain PyTorch versions:
   ``lfinito_sweep_multistep`` (``csrc/lfinito_sweep_multistep.cu``),
   ``katyusha_coeff_multistep`` (``csrc/katyusha_coeff_multistep.cu``),
   ``sarah_multistep`` (``csrc/sarah_multistep.cu``),
-  ``lsvrg_coeff_multistep`` (``csrc/lsvrg_coeff_multistep.cu``) and
-  ``lkatyusha_coeff_multistep`` (``csrc/lkatyusha_coeff_multistep.cu``):
-  K block steps each, one cooperative launch a call on the persistent
+  ``lsvrg_coeff_multistep`` (``csrc/lsvrg_coeff_multistep.cu``),
+  ``lkatyusha_coeff_multistep`` (``csrc/lkatyusha_coeff_multistep.cu``),
+  ``finito_coeff_multistep_streamed``
+  (``csrc/finito_coeff_multistep_streamed.cu``) and ``proshi_multistep``
+  (``csrc/proshi_multistep.cu``, K ProShI steps on the block table): K
+  block steps each, one cooperative launch a call on the persistent
   engine of ``csrc/loopless_steps.cuh``;
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
   over all rows, the anchors of the SVRG-shaped families, LFinito's and
@@ -36,10 +37,8 @@ beside their plain PyTorch versions:
   both walk the rows with the device code of ``csrc/apply_rows.cuh``;
 - ``saga_block_update`` (``csrc/saga_block_update.cu``) and
   ``finito_block_update`` (``csrc/finito_block_update.cu``): the
-  full-table SAGA and Finito refresh of one block, and
-  ``proshi_multistep`` (``csrc/proshi_multistep.cu``): K ProShI steps on
-  the block table; all three walk a block of an (N, n) table with the
-  device code of ``csrc/table_rows.cuh``.
+  full-table SAGA and Finito refresh of one block; both walk a block of
+  an (N, n) table with the device code of ``csrc/table_rows.cuh``.
 
 The row primitives they share are in ``csrc/row_ops.cuh``. With
 ``coeff_value_apply_all`` every TPU kernel of the JAX module has its
@@ -379,9 +378,9 @@ _ARGTYPES = {
     # A, storage, lowp, b, rs, c, starts, zb, invg, z, av, sc, part, bar, n,
     # B, rows, ctas, stage_rows, stages, K, stream
     "finito_coeff_multistep": "PII" + "P" * 11 + "I" * 7 + "P",
-    # A, storage, lowp, b, rs, c, zb, invg_k, z, av, starts, f, sc, part, n,
-    # B, rows, K, stream
-    "finito_coeff_multistep_streamed": "PIIPPPPPPPPPPPIIIIP",
+    # A, storage, lowp, b, rs, c, starts, zb, invg_k, f, z, av, sc, part,
+    # bar, n, B, rows, ctas, stage_rows, stages, K, stream
+    "finito_coeff_multistep_streamed": "PII" + "P" * 12 + "I" * 7 + "P",
     # A, storage, lowp, b, rs, canch, starts, invg, av, z, zf, sc, part, bar,
     # n, B, rows, ctas, stage_rows, stages, K, stream
     "lfinito_sweep_multistep": "PII" + "P" * 11 + "I" * 7 + "P",
@@ -390,9 +389,9 @@ _ARGTYPES = {
     "finito_block_update": "PIIPPPPPPPPIIIP",
     # the same without gamma
     "saga_block_update": "PIIPPPPPPPIIIP",
-    # A, storage, b, gamma, rs, s, starts, fclamp, sc, part, av, z, n, B,
-    # rows, K, stream
-    "proshi_multistep": "PIPPPPPPPPPPIIIIP",
+    # A, storage, lowp, b, rs, gamma, starts, s, f, av, z, sc, part, bar, n,
+    # B, rows, ctas, stage_rows, stages, K, stream
+    "proshi_multistep": "PII" + "P" * 11 + "I" * 7 + "P",
     # A, storage, lowp, b, rs, canch, starts, xt, y, z, ys, av, x, sc, part,
     # bar, n, B, rows, ctas, stage_rows, stages, K, stream
     "katyusha_coeff_multistep": "PII" + "P" * 13 + "I" * 7 + "P",
@@ -1167,14 +1166,20 @@ def finito_coeff_multistep_streamed(A, b, starts, invg_k, c, zb, z, av,
 
     The TPU kernel streams c through aliased windows and keeps zb in
     VMEM, so its driver clamps each launch at the first same-launch
-    revisit. Here c and zb live in device memory and the launches are
-    stream-ordered: the port's driver launches with ``f`` = None, and the
-    ``f < K`` semantics stay for the tests, read on the device by both
-    launches of every step. Each step is two launches of
-    ``csrc/saga_steps.cuh`` (method ``kFinito``): SAGA's row phase, then
-    a finish on n/32 CTAs that applies :func:`finito_coeff_multistep`'s
-    average, anchor and prox. At the 10,485,760 × 128 deep shape (B =
-    8,192) a step reads 4 MB of f32 rows (1 MB int8).
+    revisit. Here c and zb live in device memory: the port's driver
+    launches with ``f`` = None, and the ``f < K`` semantics stay for the
+    tests. The whole call is one cooperative launch of the persistent
+    engine (``csrc/loopless_steps.cuh``, method ``kFinitoStreamSteps``),
+    :func:`finito_coeff_multistep`'s method but for two reads: step k's
+    Σ 1/γ is ``invg_k[k]``, and ``f`` is read once on the device (no host
+    sync), the call processing min(K, f) steps. At the 10,485,760 × 128
+    deep shape (B = 8,192) a step reads 4 MB of f32 rows (1 MB int8): 128
+    CTAs of 64 rows, one stage a step, the rows split over eight row
+    groups of a warp, as :func:`saga_coeff_multistep_streamed` takes
+    them. Everything the call writes (c, zb, z, av) is read back by
+    coherent loads behind the engine's grid barriers, so a block
+    revisited within the call sees the previous visit's c and zb. A grid
+    that cannot be resident at once raises ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return finito_coeff_multistep_streamed_ref(
@@ -1184,19 +1189,12 @@ def finito_coeff_multistep_streamed(A, b, starts, invg_k, c, zb, z, av,
         raise ValueError(f"finito_coeff_multistep_streamed: no kernel for "
                          f"{A.device}")
     f = _check_f(f, A.device)
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    _check("c", c, f32, (A.shape[0],), dev)
     _check_anchors(A, zb, B)
-    _check("invg_k", invg_k, f32, (K,), dev)
-    _check("z", z, f32, (n,), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("scalars", scalars, f32, (6,), dev)
-    _call("finito_coeff_multistep_streamed", dev, A.data_ptr(),
-          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), b.data_ptr(),
-          _ptr(rs), c.data_ptr(), zb.data_ptr(), invg_k.data_ptr(),
-          z.data_ptr(), av.data_ptr(), starts.data_ptr(), _ptr(f),
-          scalars.data_ptr(), part.data_ptr(), n, B, rows, K)
+    _check("invg_k", invg_k, torch.float32, (starts.shape[0],), A.device)
+    _loopless_launch("finito_coeff_multistep_streamed", A, b, rs, dict(c=c),
+                     starts, B, precision, scalars, 6,
+                     (zb.data_ptr(), invg_k.data_ptr(), _ptr(f)),
+                     dict(z=z, av=av))
     finito_coeff_multistep_streamed.launches += 1
     finito_coeff_multistep_streamed.steps += starts.shape[0]
     return c, zb, z, av
@@ -1466,8 +1464,8 @@ def finito_block_update(A, b, s, gamma, z, start, scalars, B: int,
     rows in shared memory with ``cp.async``, take the margins a warp a
     row, then walk the rows in order a column per thread, reading and
     writing the table and summing a partial innovation; a second launch
-    sums the partials in a fixed order. The walk is shared with kernels
-    #1 and #18 (``csrc/table_rows.cuh``). The TPU kernel streams its
+    sums the partials in a fixed order. The walk is shared with kernel
+    #1 (``csrc/table_rows.cuh``). The TPU kernel streams its
     tiles in grid order with the table aliased in and out.
     """
     if A.device.type == "cpu":
@@ -1559,17 +1557,22 @@ def proshi_multistep(A, b, gamma, s, starts, av, z, scalars, B: int,
     37,797,888 B with rs, 0.0113 ms). Unlike the SAGA and Finito blocks,
     each row's margin is taken at its own point s_i + γ_i·z, so a row's
     table values must be read before the margin and written after it.
-    Each step is two stream-ordered launches: the table walk of
-    ``csrc/table_rows.cuh`` (rule ``ProshiRule``: rows staged with
-    ``cp.async``, a warp a row reads its table row for the margin, the
-    column walk reads it again, from L2, and writes it) and a finish that
-    sums the CTAs' partials in a fixed order and applies the coupling
-    prox. The TPU kernel carries av and z in VMEM across its (K, tiles)
-    grid and must not revisit a block within a launch (the streamed table
-    would race its aliased write-back), so its shuffled and random
-    drivers clamp; here the table lives in device memory and the steps
-    are stream-ordered, so the port's driver does not clamp and ``f``
-    stays a tested option.
+    The whole call is one cooperative launch of the persistent engine
+    (``csrc/loopless_steps.cuh``, method ``kProshiSteps``): the producer
+    warp stages the rows, b, γ and rs ahead across steps; a consumer
+    thread reads its columns of a round of table rows once into
+    registers (the next round's loads in flight while it works on this
+    one), takes its share of the margins from them and, after the
+    formula, writes the new table values from the same registers; the
+    finish between two grid barriers a step applies av, the coupling
+    prox and z. The TPU kernel carries av and z in VMEM across its (K,
+    tiles) grid and must not revisit a block within a launch (the
+    streamed table would race its aliased write-back), so its shuffled
+    and random drivers clamp; here the table lives in device memory and
+    every value written in the launch is read back by coherent loads
+    behind the grid barriers, so the port's driver does not clamp and
+    ``f`` stays a tested option, read once on the device. A grid that
+    cannot be resident at once raises ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return proshi_multistep_ref(A, b, gamma, s, starts, av, z, scalars, B,
@@ -1577,19 +1580,12 @@ def proshi_multistep(A, b, gamma, s, starts, av, z, scalars, B: int,
     if A.device.type != "cuda":
         raise ValueError(f"proshi_multistep: no kernel for {A.device}")
     _block_lowp(precision)
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    N = A.shape[0]
-    _check("gamma", gamma, f32, (N,), dev)
-    _check("s", s, f32, (N, n), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("z", z, f32, (n,), dev)
-    _check("scalars", scalars, f32, (8,), dev)
+    dev = A.device
+    _check("s", s, torch.float32, tuple(A.shape), dev)
     f = _check_f(f, dev)
-    _call("proshi_multistep", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          b.data_ptr(), gamma.data_ptr(), _ptr(rs), s.data_ptr(),
-          starts.data_ptr(), _ptr(f), scalars.data_ptr(), part.data_ptr(),
-          av.data_ptr(), z.data_ptr(), n, B, rows, K)
+    _loopless_launch("proshi_multistep", A, b, rs, dict(gamma=gamma), starts,
+                     B, "highest", scalars, 8, (s.data_ptr(), _ptr(f)),
+                     dict(av=av, z=z), lowp=False)
     proshi_multistep.launches += 1
     proshi_multistep.steps += starts.shape[0]
     return s, av, z
@@ -1894,16 +1890,18 @@ def _grid_barrier(index: int, stream: int):
 
 
 def _loopless_launch(name, A, b, rs, table, starts, B, precision, scalars,
-                     n_sc, before, vectors, points: int = 1):
+                     n_sc, before, vectors, points: int = 1, lowp=None):
     """Check the arguments of a kernel of the persistent engine (#4, #5,
-    #8, #9, #10, #11, #16, #17) and make its one cooperative launch on the
-    current stream. ``table``: the (N,) f32 coefficients, by name (SARAH
-    has none: empty); ``before``: the C call's pointers between ``starts``
-    and the vectors (the stop index or clamp count, SAGA's weights,
-    SARAH's pair, Finito's anchors and Σ 1/γ, LFinito's Σ 1/γ), checked by
-    the caller; ``vectors``: the (n,) f32 tensors after
-    them, by name, in its order; ``points``: the points the margins are
-    taken at (SARAH's two)."""
+    #8, #9, #10, #11, #14, #16, #17, #18) and make its one cooperative
+    launch on the current stream. ``table``: the (N,) f32 coefficients,
+    by name (SARAH has none: empty; ProShI's γ); ``before``: the C call's
+    pointers between ``starts`` and the vectors (the stop index or clamp
+    count, SAGA's weights, SARAH's pair, the Finitos' anchors and Σ 1/γ,
+    LFinito's Σ 1/γ, ProShI's table), checked by the caller; ``vectors``:
+    the (n,) f32 tensors after them, by name, in its order; ``points``:
+    the points the margins are taken at (SARAH's two); ``lowp``: whether
+    the dots round to bf16, by default as ``precision`` and the rows
+    say."""
     n, K = _check_blocks(A, b, starts, B, rs)
     dev, f32 = A.device, torch.float32
     for key, c in table.items():
@@ -1915,8 +1913,10 @@ def _loopless_launch(name, A, b, rs, table, starts, B, precision, scalars,
                                       _sm_count(dev.index), points)
     part = torch.empty((ctas, n), dtype=f32, device=dev)
     bar = _grid_barrier(dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs),
+    if lowp is None:
+        lowp = _lowp(A, precision)
+    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype], int(lowp),
+          b.data_ptr(), _ptr(rs),
           *(c.data_ptr() for c in table.values()), starts.data_ptr(), *before,
           *(t.data_ptr() for t in vectors.values()), scalars.data_ptr(),
           part.data_ptr(), bar.data_ptr(), n, B, rows, ctas, S, P, K)

@@ -603,10 +603,9 @@ def _finito_run_fused(F, g, state: FinitoCoeffState, cfg: FinitoCfg,
     same-launch revisit because its TPU kernel streams c through aliased
     windows, and aligns importance windows for the same reason. Here c
     and zb live in device memory and a revisit within a call reads the
-    previous visit's values (#9: the persistent engine's grid barriers
-    order them; #14: each step's two launches are stream-ordered), so
-    every call commits all its steps (``f`` = None). Both packages commit
-    the stepwise stream."""
+    previous visit's values (#9 and #14: the persistent engine's grid
+    barriers order them), so every call commits all its steps (``f`` =
+    None). Both packages commit the stepwise stream."""
     from ciao_tpu_torch.ops import fused_block as fb
 
     N, B = cfg.N, cfg.batch

@@ -250,7 +250,8 @@ def _proshi_run_fused(F, g, state: ProshiState, cfg: ProshiCfg, steps: int,
     No clamp: JAX's kernel streams the table through aliased windows, so
     a launch must not revisit a block; its drivers cut K to d (cyclic)
     or clamp at the first revisit. Here the table lives in device memory
-    and each step's launches are stream-ordered, so every call commits
+    and a revisit within a call reads the previous visit's rows (the
+    persistent engine's grid barriers order them), so every call commits
     all its steps: both packages commit the stepwise stream."""
     from ciao_tpu_torch.ops.fused_block import proshi_multistep
 

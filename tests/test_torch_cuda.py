@@ -10,10 +10,10 @@
 their plain versions, ``coeff_apply_all`` and the kernels of the
 persistent engine bit for bit against their pinned digests,
 ``coeff_value_apply_all``'s c and gsum bit for bit ``coeff_apply_all``'s,
-the kernels of the persistent engine (#4, #5, #8, #9, #10, #11, #16,
-#17) at its edges, #8, #9 and #16 on two streams at once and #10, #11 and
-#16 in turns on one, the facades' routing to them, and the polish's
-exact-f32 check.
+the kernels of the persistent engine (#4, #5, #8, #9, #10, #11, #14,
+#16, #17, #18) at its edges, #8, #9, #14, #16 and #18 on two streams at
+once and #10, #11 and #16 in turns on one, the facades' routing to them,
+and the polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -1171,8 +1171,10 @@ def test_vr_kernel_matches_plain_version(dev, kind, storage, precision, n,
 
 # sha256 (first 16 hex digits) of the kernels' outputs on loopless_digest's
 # inputs: #16's and #17's from the engine as it was before kernels #4 and #5
-# joined it, #10's and #11's, and #9's and #8's, from their first builds on
-# it (NVIDIA H100 80GB HBM3, 132 SMs, nvcc of CUDA 12.8)
+# joined it, #10's and #11's, #9's and #8's, and #14's and #18's, from their
+# first builds on it (NVIDIA H100 80GB HBM3, 132 SMs, nvcc of CUDA 12.8).
+# #14 on these block-aligned starts, with Σ 1/γ by step equal to #9's by
+# block, gives #9's bits
 LOOPLESS_GOLDEN = {
     ("lsvrg", "f32"): "1b86d247d1dd5e39",
     ("lsvrg", "int8"): "de61e002d1d466f6",
@@ -1186,15 +1188,20 @@ LOOPLESS_GOLDEN = {
     ("finito", "int8"): "5c47bfd9bea3fcee",
     ("lfinito", "f32"): "b14d13c974849feb",
     ("lfinito", "int8"): "5c9cfa7975dabd22",
+    ("finito_stream", "f32"): "1161747bc93e7414",
+    ("finito_stream", "int8"): "5c47bfd9bea3fcee",
+    ("proshi", "f32"): "452f551559aa9555",
+    ("proshi", "int8"): "f2a1747b4ed2372d",
 }
 
 
 def loopless_digest(dev, kind, storage):
     """Kernel #16's (w, wpre), #17's (y, z, ypre), #10's (y, z, ys),
-    #11's (ww, v), #9's (c, zb, z, av) or #8's (av, z) after one call of K
-    = 32 steps at the headline width (N = 32,768, n = 1,024, B = 4,096:
-    128 CTAs on a card of 132 SMs; the blocks revisited every eight steps)
-    on exact dyadic inputs (no generator, no libm), as a digest."""
+    #11's (ww, v), #9's or #14's (c, zb, z, av), #8's (av, z) or #18's (s,
+    av, z) after one call of K = 32 steps at the headline width (N =
+    32,768, n = 1,024, B = 4,096: 128 CTAs on a card of 132 SMs; the
+    blocks revisited every eight steps) on exact dyadic inputs (no
+    generator, no libm), as a digest."""
     import hashlib
 
     N, n, B, K = 32768, 1024, 4096, 32
@@ -1220,15 +1227,27 @@ def loopless_digest(dev, kind, storage):
                           device=dev)
         out = tfb.sarah_multistep(A, b, starts, torch.stack([z, y]),
                                   av.clone(), sc, B, rs=rs)
-    elif kind == "finito":
+    elif kind in ("finito", "finito_stream"):
         d = N // B
         zb = ((torch.arange(d)[:, None] * 3 + j * 5) % 17 - 8).float() / 512
-        invg = (torch.arange(d) % 3 + 4).float() * 128
+        invg = ((torch.arange(d) % 3 + 4).float() * 128).to(dev)
         sc = torch.tensor([1.0, 1.0 / N, 2.0**-12, 2.0**-18, 0.0, 0.5],
                           device=dev)
-        out = tfb.finito_coeff_multistep(A, b, starts, canch.clone(),
-                                         zb.to(dev), invg.to(dev), z.clone(),
-                                         av.clone(), sc, B, rs=rs)
+        if kind == "finito":
+            out = tfb.finito_coeff_multistep(A, b, starts, canch.clone(),
+                                             zb.to(dev), invg, z.clone(),
+                                             av.clone(), sc, B, rs=rs)
+        else:
+            out = tfb.finito_coeff_multistep_streamed(
+                A, b, starts, invg[starts.long() // B], canch.clone(),
+                zb.to(dev), z.clone(), av.clone(), sc, B, rs=rs)
+    elif kind == "proshi":
+        s = (((i[:, None] * 3 + j * 5) % 17 - 8).float() / 512).to(dev)
+        gamma = ((i % 3 + 4).float() * 2.0**-14).to(dev)
+        sc = torch.tensor([1.0, 1.0 / N, 2.0**-6, 0.0, -float("inf"),
+                           2.0**-6, 1.0, 0.5], device=dev)
+        out = tfb.proshi_multistep(A, b, gamma, s, starts, av.clone(),
+                                   z.clone(), sc, B, rs=rs)
     elif kind == "lfinito":
         invg = (torch.arange(K) % 3 + 4).float() * 128
         sc = torch.tensor([1.0, 2.0**-12, 2.0**-18, 1.0 / N, 0.0, 0.5],
@@ -1719,16 +1738,20 @@ FINITO_EDGES = {
 FINITO_FNS = {"finito": ("finito_coeff_multistep",
                          "finito_coeff_multistep_ref"),
               "lfinito": ("lfinito_sweep_multistep",
-                          "lfinito_sweep_multistep_ref")}
+                          "lfinito_sweep_multistep_ref"),
+              "finito_stream": ("finito_coeff_multistep_streamed",
+                                "finito_coeff_multistep_streamed_ref")}
 # each kernel's outputs, and the indices of its point z and average av
 FINITO_OUTS = {"finito": (("c", "zb", "z", "av"), 2, 3),
-               "lfinito": (("av", "z"), 1, 0)}
+               "lfinito": (("av", "z"), 1, 0),
+               "finito_stream": (("c", "zb", "z", "av"), 2, 3)}
 
 
 def _engine_finito_setup(dev, kind, N, n, B, K, storage, lam=0.1, seed=31):
-    """Kernel #9's state (``_finito_setup``) or #8's epoch start (the
-    anchor z_full = z, its coefficients, av = z_full − hat·Σ c_i a_i/N), on
-    a schedule that revisits blocks inside the call (``_revisits``)."""
+    """Kernel #9's or #14's state (``_finito_setup``) or #8's epoch start
+    (the anchor z_full = z, its coefficients, av = z_full − hat·Σ c_i
+    a_i/N), on a schedule that revisits blocks inside the call
+    (``_revisits``)."""
     F, (c, zb, z, av), _, invg, _, sc9 = _finito_setup(dev, N, n, B, K,
                                                        storage, lam, seed=seed)
     gen = torch.Generator(device=dev)
@@ -1736,7 +1759,7 @@ def _engine_finito_setup(dev, kind, N, n, B, K, storage, lam=0.1, seed=31):
     rows, offs = F.coeff_rows_data()
     S = dict(kind=kind, rows=rows, offs=offs, rs=F.coeff_rows_scale(), B=B,
              invg=invg, starts=_revisits(N, B, K, gen, dev), lam=lam)
-    if kind == "finito":
+    if kind != "lfinito":
         S.update(sc=sc9, state=(c, zb, z, av))
     else:
         hat = float(sc9[2])
@@ -1748,16 +1771,23 @@ def _engine_finito_setup(dev, kind, N, n, B, K, storage, lam=0.1, seed=31):
     return S
 
 
-def _engine_finito_call(fn, S, state, starts=None, precision="highest"):
-    """One call of kernel #9 or #8, or its plain version, on ``state``
-    (#9's [c, zb, z, av], #8's [av]) in place; returns the outputs (#9's
-    c, zb, z, av; #8's av, z)."""
+def _engine_finito_call(fn, S, state, starts=None, precision="highest",
+                        f=None):
+    """One call of kernel #9, #14 (clamp count ``f``) or #8, or its plain
+    version, on ``state`` (#9's and #14's [c, zb, z, av], #8's [av]) in
+    place; returns the outputs (#9's and #14's c, zb, z, av; #8's av,
+    z)."""
     starts = S["starts"] if starts is None else starts
     kw = dict(precision=precision, rs=S["rs"])
     if S["kind"] == "finito":
         c, zb, z, av = state
         fn(S["rows"], S["offs"], starts, c, zb, S["invg"], z, av, S["sc"],
            S["B"], **kw)
+        return list(state)
+    if S["kind"] == "finito_stream":
+        fn(S["rows"], S["offs"], starts,
+           S["invg"][starts.long() // S["B"]].contiguous(), *state, S["sc"],
+           S["B"], f=f, **kw)
         return list(state)
     iv = S["invg"][starts.long() // S["B"]].contiguous()
     return list(fn(S["rows"], S["offs"], S["canch"], starts, state[0],
@@ -1769,7 +1799,7 @@ def _fresh(state):
 
 
 def _check_engine_finito(S, precision, got):
-    """``got``, one call of kernel #9 or #8 from S's state, against the
+    """``got``, one call of kernel #9, #14 or #8 from S's state, against the
     plain version, as ``_check_engine_saga`` holds #4: the whole call where
     the dots are exact f32 (z within 1e-6 of its largest entry, c, zb and
     av within 1e-5); where they round to bf16, step by step (each plain
@@ -1805,13 +1835,13 @@ def _check_engine_finito(S, precision, got):
 @pytest.mark.parametrize("shape", list(FINITO_EDGES))
 def test_finito_kernels_on_the_engine_take_revisits_and_match_plain_versions(
         dev, shape, kind):
-    """Kernels #9 and #8, one cooperative launch a call, at the engine's
-    edges (``FINITO_EDGES``), on a schedule that revisits blocks inside the
-    call, adjacently and within the ring's lookahead (#9's table c, anchors
-    zb and point z are written and read back inside the launch, where the
-    read-only path could return a stale line), against the plain versions
-    in every output (``_check_engine_finito``); #8's z is the last block's
-    prox point, not soft of the returned av."""
+    """Kernels #9, #14 and #8, one cooperative launch a call, at the
+    engine's edges (``FINITO_EDGES``), on a schedule that revisits blocks
+    inside the call, adjacently and within the ring's lookahead (#9's and
+    #14's table c, anchors zb and point z are written and read back inside
+    the launch, where the read-only path could return a stale line),
+    against the plain versions in every output (``_check_engine_finito``);
+    #8's z is the last block's prox point, not soft of the returned av."""
     N, n, B, K, storage, precision = FINITO_EDGES[shape]
     S = _engine_finito_setup(dev, kind, N, n, B, K, storage)
     fn = getattr(tfb, FINITO_FNS[kind][0])
@@ -1837,12 +1867,12 @@ FINITO_WIDTHS = {"n1024": (32768, 1024, 4096, 32),
 @pytest.mark.parametrize("width", list(FINITO_WIDTHS))
 def test_finito_kernels_repeat_bit_for_bit_at_width(dev, width, storage,
                                                     kind, monkeypatch):
-    """Kernels #9 and #8 at the headline width (n = 1,024, B = 4,096) and
-    the deep target's (n = 128, B = 8,192), K = 32 with revisits, give the
-    same bits in two calls, and on a 132-SM card their pinned bits at n =
-    1,024 (``LOOPLESS_GOLDEN``); a grid other than the engine's rule is
-    refused by the launch (RuntimeError) and counts no launch: nothing
-    falls back."""
+    """Kernels #9, #14 and #8 at the headline width (n = 1,024, B =
+    4,096) and the deep target's (n = 128, B = 8,192), K = 32 with
+    revisits, give the same bits in two calls, and on a 132-SM card their
+    pinned bits at n = 1,024 (``LOOPLESS_GOLDEN``); a grid other than the
+    engine's rule is refused by the launch (RuntimeError) and counts no
+    launch: nothing falls back."""
     N, n, B, K = FINITO_WIDTHS[width]
     S = _engine_finito_setup(dev, kind, N, n, B, K, storage, seed=33)
     fn = getattr(tfb, FINITO_FNS[kind][0])
@@ -1864,6 +1894,152 @@ def test_finito_kernels_repeat_bit_for_bit_at_width(dev, width, storage,
     with pytest.raises(RuntimeError, match="launch failed"):
         _engine_finito_call(fn, S, _fresh(S["state"]))
     assert fn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# kernels #14 and #18 on the persistent engine
+# ---------------------------------------------------------------------------
+
+# (N, n, B, K, storage) of kernel #18 at the engine's edges: the narrow-row
+# split (n = 128, B = 8,192: 64 rows a CTA), the headline width at B = 4,096
+# and 1,024 (a round of eight rows a stage f32; four of them a 32-row int8
+# stage), two rows a round (n = 4,096, four units a thread), one f32 row a
+# stage (n = 16,384, sixteen units: one row a round, no load ahead), widths
+# that are not whole 16-byte chunks (the plain path, four and 64 units a
+# thread), and a B that the rows a CTA do not divide
+PROSHI_EDGES = {
+    "n128": (65536, 128, 8192, 32, "f32"),
+    "n1024": (32768, 1024, 4096, 32, "f32"),
+    "n1024-bf16": (32768, 1024, 4096, 32, "bf16"),
+    "n1024-int8": (32768, 1024, 4096, 32, "int8"),
+    "n1024-B1024": (32768, 1024, 1024, 32, "f32"),
+    "n4096-int8": (16384, 4096, 2048, 16, "int8"),
+    "n16384": (8192, 16384, 1024, 8, "f32"),
+    "n202": (8192, 202, 1024, 32, "f32"),
+    "n200-int8": (8192, 200, 1024, 32, "int8"),
+    "n1030": (8192, 1030, 1024, 16, "f32"),
+    "B4100": (32800, 1024, 4100, 16, "f32"),
+}
+
+
+def _engine_proshi_setup(dev, N, n, B, K, storage, gname, seed=41):
+    """A ProShI state (``_proshi_setup``) on a schedule that revisits
+    blocks inside the call (``_revisits``)."""
+    F, st, _, sc = _proshi_setup(dev, N, n, B, K, storage, gname, seed=seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    return F, st, _revisits(N, B, K, gen, dev), sc
+
+
+@pytest.mark.parametrize("gname", ["box", "l1", "zero"])
+@pytest.mark.parametrize("shape", list(PROSHI_EDGES))
+def test_proshi_on_the_engine_takes_revisits_and_matches_plain_version(
+        dev, shape, gname):
+    """Kernel #18, one cooperative launch a call, at the engine's edges
+    (``PROSHI_EDGES``), on a schedule that revisits blocks inside the
+    call, adjacently and within the ring's lookahead (the table rows, av
+    and z are written and read back inside the launch): s and av within
+    1e-6 of their largest entries (the margins are exact f32 with any
+    rows), "default" precision the same bits; z ≡ 0 with g = Zero. z =
+    (prox_g(av) − av)/hat is a difference of av-sized values, the prox
+    1-Lipschitz, so it is held to 1e-6 of max |av| / hat, the bound the
+    av check gives it: its largest entry can be far below that (IndBox
+    clips at 1 an av of tens at N ≥ 8,192), and both versions' f32 av,
+    1e-8 apart relative to max |av| there, then differ by more than 1e-6
+    of max |z|."""
+    N, n, B, K, storage = PROSHI_EDGES[shape]
+    F, st, starts, sc = _engine_proshi_setup(dev, N, n, B, K, storage, gname)
+    before = tfb.proshi_multistep.launches
+    kern = _proshi_run(tfb.proshi_multistep, F, st, starts, sc, B)
+    low = _proshi_run(tfb.proshi_multistep, F, st, starts, sc, B, "default")
+    ref = _proshi_run(tfb.proshi_multistep_ref, F, st, starts, sc, B)
+    torch.cuda.synchronize()
+    assert tfb.proshi_multistep.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(kern, low))
+    assert float((ref[0] - st.s).abs().max()) > 0
+    for name, k, r in zip(("s", "av"), kern, ref):
+        assert bool(torch.isfinite(k).all()), name
+        assert _rel(k, r) <= 1e-6, (name, _rel(k, r))
+    assert bool(torch.isfinite(kern[2]).all())
+    dz = float((kern[2] - ref[2]).abs().max())
+    assert dz <= 1e-6 * float(ref[1].abs().max()) / float(st.hat_gamma), dz
+    if gname == "zero":
+        assert not bool(kern[2].any())
+
+
+# (N, n, B, K) of #18 at the headline width and the deep target's
+PROSHI_WIDTHS = {"n1024": (32768, 1024, 4096, 32),
+                 "n128": (65536, 128, 8192, 32)}
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+@pytest.mark.parametrize("width", list(PROSHI_WIDTHS))
+def test_proshi_repeats_bit_for_bit_at_width(dev, width, storage,
+                                             monkeypatch):
+    """Kernel #18 at the headline width (n = 1,024, B = 4,096) and the
+    deep target's (n = 128, B = 8,192), K = 32 with revisits, gives the
+    same bits in two calls, and on a 132-SM card its pinned bits at n =
+    1,024 (``LOOPLESS_GOLDEN``); a grid other than the engine's rule is
+    refused by the launch (RuntimeError) and counts no launch: nothing
+    falls back to the two-launch walk or to the plain version."""
+    N, n, B, K = PROSHI_WIDTHS[width]
+    F, st, starts, sc = _engine_proshi_setup(dev, N, n, B, K, storage, "box",
+                                             seed=43)
+    fn = tfb.proshi_multistep
+    runs = [_proshi_run(fn, F, st, starts, sc, B) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert not torch.equal(runs[0][0], st.s)
+    if width == "n1024" and tfb._sm_count(dev.index) == 132:
+        assert loopless_digest(dev, "proshi", storage) == LOOPLESS_GOLDEN[
+            "proshi", storage]
+    rule = tfb._loopless_grid
+
+    def halved(B_, n_, isz, sms, points=1):
+        rows_, ctas, S_, P = rule(B_, n_, isz, sms, points)
+        return 2 * rows_, -(-B_ // (2 * rows_)), S_, P
+    monkeypatch.setattr(tfb, "_loopless_grid", halved)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _proshi_run(fn, F, st, starts, sc, B)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+@pytest.mark.parametrize("width", list(PROSHI_WIDTHS))
+@pytest.mark.parametrize("kind", ["proshi", "finito_stream"])
+def test_engine_clamp_count_masks_steps_bit_for_bit(dev, kind, width,
+                                                    storage):
+    """Kernels #18 and #14 with the clamp count read on the device, at the
+    headline width and the deep target's, on a schedule with revisits: f
+    = 9 of K = 32 gives the first 9 steps alone bit for bit, f = K the
+    call without a count, and f = 0 leaves every input as it was."""
+    N, n, B, K = PROSHI_WIDTHS[width]
+    i32 = dict(dtype=torch.int32, device=dev)
+    if kind == "proshi":
+        F, st, starts, sc = _engine_proshi_setup(dev, N, n, B, K, storage,
+                                                 "l1", seed=45)
+        state = (st.s, st.av, st.z)
+
+        def run(starts_=starts, f=None):
+            return _proshi_run(tfb.proshi_multistep, F, st, starts_, sc, B,
+                               f=f)
+    else:
+        S = _engine_finito_setup(dev, kind, N, n, B, K, storage, seed=45)
+        state = S["state"]
+
+        def run(starts_=S["starts"], f=None):
+            return _engine_finito_call(tfb.finito_coeff_multistep_streamed,
+                                       S, _fresh(state), starts_, f=f)
+    starts_all = starts if kind == "proshi" else S["starts"]
+    pairs = ((run(f=torch.tensor([9], **i32)), run(starts_all[:9])),
+             (run(f=torch.tensor([K], **i32)), run()),
+             (run(f=torch.tensor([0], **i32)), list(state)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not torch.equal(pairs[0][0][0], state[0])
 
 
 TWO_STREAMS = r"""
@@ -1898,6 +2074,15 @@ zb0 = xa + 0.01 * torch.randn(16, n, generator=gen, device=dev)
 invg = torch.full((16,), 1.0 / (16 * hat), device=dev)
 sc9 = torch.tensor([N, 1.0 / N, hat, hat * 0.1, 0.0, 0.0], device=dev)
 sc8 = torch.tensor([N, hat, hat * 0.1, 1.0 / N, 0.0, 0.0], device=dev)
+# ProShI's: gamma_i = 0.999/|a_i|^2, a table s near 0, av = sum s,
+# IndBox(-inf, 1): scalars [scale, 1/N, 1/hat, mode, glo, ghi, gmode, aux]
+gam = 0.999 / (A * A).sum(1)
+s0 = 0.05 * torch.randn(N, n, generator=gen, device=dev)
+av18 = s0.sum(0)
+ghat = float(gam.sum())
+z18 = (torch.clamp(av18, max=1.0) - av18) / ghat
+sc18 = torch.tensor([N, 1.0 / N, 1.0 / ghat, 0.0, -float("inf"), 1.0, 1.0,
+                     0.0], device=dev)
 
 
 def call(i):
@@ -1906,6 +2091,16 @@ def call(i):
         tfb.finito_coeff_multistep(rows, offs, starts[i], c, zb, invg, z, a,
                                    sc9, B)
         return c, zb, z, a
+    if kind == "finito_stream":
+        c, zb, z, a = canch.clone(), zb0.clone(), w0[i].clone(), av.clone()
+        tfb.finito_coeff_multistep_streamed(
+            rows, offs, starts[i], invg[starts[i].long() // B], c, zb, z, a,
+            sc9, B)
+        return c, zb, z, a
+    if kind == "proshi":
+        s_, a, z = s0.clone(), av18.clone(), z18.clone()
+        tfb.proshi_multistep(rows, offs, gam, s_, starts[i], a, z, sc18, B)
+        return s_, a, z
     if kind == "lfinito":
         return tfb.lfinito_sweep_multistep(
             rows, offs, canch, starts[i], w0[i].clone(), xa,
@@ -1934,17 +2129,19 @@ print("two streams: ok")
 """
 
 
-@pytest.mark.parametrize("kind", ["lsvrg", "finito", "lfinito"])
+@pytest.mark.parametrize("kind", ["lsvrg", "finito", "lfinito",
+                                  "finito_stream", "proshi"])
 @pytest.mark.parametrize("B", [128, 64])
 def test_loopless_calls_on_two_streams_are_their_single_stream_runs(dev, B,
                                                                    kind):
-    """Two calls of kernel #16, #9 or #8 with small grids (B = 128: one row
-    a CTA, 128 CTAs; B = 64: 64, so both grids fit the card's 132 SMs at
-    once) queued together on two streams, 20 times: each gives its
-    single-stream result bit for bit (each stream has its own grid-barrier
-    word, ``fused_block._grid_barrier``; #9 writes its table, anchors and
-    point inside the launch). Run in a child process with a time limit, so
-    that a hung barrier fails the test and does not stall the suite."""
+    """Two calls of kernel #16, #9, #8, #14 or #18 with small grids (B =
+    128: one row a CTA, 128 CTAs; B = 64: 64, so both grids fit the card's
+    132 SMs at once) queued together on two streams, 20 times: each gives
+    its single-stream result bit for bit (each stream has its own
+    grid-barrier word, ``fused_block._grid_barrier``; #9 and #14 write
+    their table, anchors and point inside the launch, #18 its table, av
+    and z). Run in a child process with a time limit, so that a hung
+    barrier fails the test and does not stall the suite."""
     import os
     import subprocess
     import sys

@@ -4,19 +4,21 @@ of one checkout of the port on one NVIDIA GPU, so that two versions can be
 compared in one call: #16 (``lsvrg_coeff_multistep``) and #17
 (``lkatyusha_coeff_multistep``), #5 (``svrg_coeff_multistep``), #10
 (``katyusha_coeff_multistep``), #11 (``sarah_multistep``) and #9
-(``finito_coeff_multistep``) at the headline, and #4
-(``saga_coeff_multistep_streamed``) and #8 (``lfinito_sweep_multistep``)
-at the deep target.
+(``finito_coeff_multistep``) at the headline, #4
+(``saga_coeff_multistep_streamed``), #8 (``lfinito_sweep_multistep``) and
+#14 (``finito_coeff_multistep_streamed``) at the deep target, and #18
+(``proshi_multistep``) at the ProShI configuration.
 
     python3 tools/loopless_step_times.py [--root DIR] [--tag NAME] [--seed 0]
-                                         [--kernels 16,17,5,4,10,11,9,8]
+                                         [--kernels 16,17,5,4,10,11,9,8,18,14]
 
 Builds the kernels from ``DIR/ciao_tpu_torch/csrc`` (default: this
 checkout; all at once, one ``nvcc`` each) with that checkout's
 ``ops/_build.py`` and imports that checkout's wrappers; the inputs and
 helpers are this checkout's ``chip_smoke.py`` (``vr_inputs``,
 ``vr_scalars``, ``vr_call``, ``svrg_inputs``, ``kernel_inputs``,
-``finito_inputs``, ``lfinito_inputs``, ``step_bound``). Times each kernel
+``finito_inputs``, ``lfinito_inputs``, ``proshi_inputs``,
+``run_proshi_kernel``, ``step_bound``). Times each kernel
 per step by CUDA events, two turns each, one state stepped on in place:
 
 - #16 and #17 alternating, in calls of K = 32 steps (``LOOPLESS_LAUNCH``,
@@ -42,14 +44,28 @@ per step by CUDA events, two turns each, one state stepped on in place:
   drawn;
 - #8 at the deep target's shape, f32 and int8, in calls of K = 512
   (``LFINITO_CHUNK``, a call of ``lfinito_sweep_chunked``) visiting 512
-  distinct blocks, av restarted from the epoch's start every call.
-The wrappers of #9 and #8 from before they joined the engine take the same
-arguments too.
+  distinct blocks, av restarted from the epoch's start every call;
+- #14 at the deep target's shape, f32 and int8, in calls of K = 128
+  (``LAUNCH_STEPS``, a call of the streamed Finito driver) visiting 128
+  distinct blocks;
+- #18 at the ProShI configuration (the first 65,536 rows of the
+  headline's, n = 1,024, B = 4,096, IndBox(-inf, 1)), f32, bf16 and int8,
+  in calls of K = 128 (``LAUNCH_STEPS``) on the cyclic sweep of its d = 16
+  blocks (each visited eight times a call); its bound counts every step's
+  block rows, table rows read and written, b, γ (and rs), as a step must
+  move them (the table rows change every visit).
+The wrappers of #9, #8, #14 and #18 from before they joined the engine take
+the same arguments too.
 
 Beside each time: the step's bound at 3.35 TB/s and its bytes at the card's
 read ceiling (``torch.sum`` over 2 GiB of f32, measured in the same
-process), and the card's name and power limit. Prints one JSON line. To
-compare two checkouts A and B, run A, B, B, A in one call.
+process), and the card's name and power limit. With ``--profile``, #18's
+and #14's entries also hold one call traced by ``torch.profiler``: the
+device time a step by kernel, the host clock's time a step and the rest
+(gaps: launches, barriers the trace does not see), and, where the
+profiler's CUPTI metrics are given, the DRAM bytes a step
+(``dram__bytes_read.sum``, ``dram__bytes_write.sum``). Prints one JSON
+line. To compare two checkouts A and B, run A, B, B, A in one call.
 """
 
 from __future__ import annotations
@@ -59,6 +75,7 @@ import importlib.util
 import json
 import os
 import sys
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -77,6 +94,69 @@ SVRG_B = 4_096
 DEEP_N, DEEP_n, DEEP_B = 10 * 1024 * 1024, 128, 8_192
 FINITO_BATCHES = (("headline", 4_096), ("facades", 1_024))
 LFINITO_STEPS = 512  # fused_block.LFINITO_CHUNK
+PROSHI_N, PROSHI_B = 65_536, 4_096  # chip_smoke.PROSHI
+DRAM_METRICS = ("dram__bytes_read.sum", "dram__bytes_write.sum")
+PROFILE = False  # --profile
+
+
+def _profile(call, K: int) -> dict:
+    """One call traced: device ms a step by kernel name, the host clock's
+    ms a step, their difference (gaps), and the DRAM bytes a step where
+    the CUPTI metrics are given (else the reason they are not)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / K
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.key.replace("(anonymous namespace)::", "").split("<")[0]
+        name = name.split("(")[0].split()[-1] if name.split() else e.key
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        split[name] = split.get(name, 0.0) + us / 1e3 / K
+    busy = sum(split.values())
+    out = dict(wall_ms=wall, busy_ms=busy, gap_ms=wall - busy,
+               kernels_ms=split)
+    try:
+        cfg = torch.profiler._ExperimentalConfig(
+            profiler_metrics=list(DRAM_METRICS),
+            profiler_measure_per_kernel=False)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     experimental_config=cfg) as prof:
+            call()
+            torch.cuda.synchronize()
+        found = {m: 0.0 for m in DRAM_METRICS}
+        seen = False
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh).get("traceEvents", [])
+        for e in events:
+            args = e.get("args") or {}
+            for m in DRAM_METRICS:
+                if m in args:
+                    found[m] += float(args[m])
+                    seen = True
+        out["dram_bytes_per_step"] = ({m: v / K for m, v in found.items()}
+                                      if seen else "not given by the "
+                                      "profiler")
+    except Exception as exc:  # a machine may refuse CUPTI's counters
+        out["dram_bytes_per_step"] = f"not measured: {exc!r}"[:300]
+    return out
 
 
 def _record(out, cs, F, starts, B, vec_bytes, row_extra, ceil, flops=4.0,
@@ -246,6 +326,77 @@ def time_lfinito_deep(out, cs, fb, A, b, gen, dev, ceil):
         torch.cuda.empty_cache()
 
 
+def time_finito_deep(out, cs, fb, A, b, gen, dev, ceil):
+    """#14 at the deep target's shape in calls of CALL_STEPS distinct
+    blocks."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    for storage in ("f32", "int8"):
+        F = LeastSquaresRows(A, b, float(DEEP_N))
+        if storage != "f32":
+            F = F.with_storage(storage)
+        S = cs.finito_inputs(F, gen, dev, DEEP_B, CALL_STEPS, cs.LAM,
+                             distinct=True)
+        state = [t.clone() for t in S["state"]]
+
+        def call(S=S, state=state):
+            cs.run_finito_kernel(fb.finito_coeff_multistep_streamed, F, S,
+                                 DEEP_B, state=state)
+        ms = [cs.time_events(call, 5) / CALL_STEPS for _ in range(2)]
+        if not all(bool(torch.isfinite(t).all()) for t in state):
+            raise AssertionError(f"#14 {storage}: non-finite state")
+        extra = dict(profile=_profile(call, CALL_STEPS)) if PROFILE else {}
+        # rows, b and c read and written of the visited blocks; their
+        # anchor rows read and written; z and av in and out; Σ 1/γ by step
+        _record(out, cs, F, S["starts"], DEEP_B,
+                16 * DEEP_n + 8 * DEEP_n * CALL_STEPS + 4 * CALL_STEPS, 12,
+                ceil, kernel="#14", shape="deep", storage=storage,
+                K=CALL_STEPS, ms=ms, **extra)
+        del F, S, state
+        torch.cuda.empty_cache()
+
+
+def time_proshi(out, cs, fb, A, b, gen, dev, ceil):
+    """#18 at the ProShI configuration in calls of CALL_STEPS cyclic
+    steps."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    d = PROSHI_N // PROSHI_B
+    g = cs.coupling("IndBox", dev)
+    starts = ((torch.arange(CALL_STEPS, device=dev) % d) * PROSHI_B).to(
+        torch.int32)
+    for storage in ("f32", "bf16", "int8"):
+        F = LeastSquaresRows(A[:PROSHI_N].contiguous(), b[:PROSHI_N].clone(),
+                             float(PROSHI_N))
+        if storage != "f32":
+            F = F.with_storage(storage)
+        S = cs.proshi_inputs(F, g, gen, dev, PROSHI_B, CALL_STEPS)
+        st = S["st"]
+        state = [t.clone() for t in (st.s, st.av, st.z)]
+
+        def call(F=F, S=S, state=state):
+            cs.run_proshi_kernel(fb.proshi_multistep, F, S, PROSHI_B,
+                                 starts=starts, state=state)
+        ms = [cs.time_events(call, 5) / CALL_STEPS for _ in range(2)]
+        if not all(bool(torch.isfinite(t).all()) for t in state):
+            raise AssertionError(f"#18 {storage}: non-finite state")
+        extra = dict(profile=_profile(call, CALL_STEPS)) if PROFILE else {}
+        rows = F.coeff_rows_data()[0]
+        # every step: its block's rows, table rows read and written, b, γ
+        # (and rs); av and z in and out a call
+        per_row = (n * rows.element_size() + 8 * n + 8
+                   + 4 * (rows.dtype == torch.int8))
+        nbytes = PROSHI_B * per_row + 16 * n / CALL_STEPS
+        b_ms, b_by = cs.bound(nbytes, 7.0 * PROSHI_B * n,
+                              rows.element_size())
+        out["steps"].append(dict(
+            kernel="#18", shape="proshi", storage=storage, K=CALL_STEPS,
+            B=PROSHI_B, ms=ms, bound_ms=b_ms, bound_by=b_by,
+            ceil_ms=nbytes / ceil * 1e3, model_bytes=nbytes, **extra))
+        del F, S, st, state
+        torch.cuda.empty_cache()
+
+
 def time_saga_deep(out, cs, fb, A, b, gen, dev, ceil):
     """#4 at the deep target's shape in calls of CALL_STEPS steps."""
     from ciao_tpu_torch.oracles import LeastSquaresRows
@@ -280,10 +431,14 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(HERE))
     ap.add_argument("--tag", default="")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="16,17,5,4,10,11,9,8",
+    ap.add_argument("--kernels", default="16,17,5,4,10,11,9,8,18,14",
                     help="which of #16/#17 (together), #5, #4, #10/#11 "
-                         "(together), #9, #8 to time")
+                         "(together), #9, #8, #18, #14 to time")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace one call of #18 and of #14 as well")
     args = ap.parse_args()
+    global PROFILE
+    PROFILE = args.profile
     if not torch.cuda.is_available():
         print("loopless_step_times: no CUDA device", file=sys.stderr)
         return 2
@@ -308,6 +463,8 @@ def main() -> int:
               if which & {"10", "11"} else [])
     names += ["finito_coeff_multistep"] if "9" in which else []
     names += ["lfinito_sweep_multistep"] if "8" in which else []
+    names += ["proshi_multistep"] if "18" in which else []
+    names += ["finito_coeff_multistep_streamed"] if "14" in which else []
     with ThreadPoolExecutor(max(1, len(names))) as pool:
         list(pool.map(_build.build, names))
     for name in names:
@@ -330,15 +487,19 @@ def main() -> int:
         time_vr(out, cs, fb, A, b, gen, dev, ceil)
     if "9" in which:
         time_finito(out, cs, fb, A, b, gen, dev, ceil)
+    if "18" in which:
+        time_proshi(out, cs, fb, A, b, gen, dev, ceil)
     del A, b
     torch.cuda.empty_cache()
-    if which & {"4", "8"}:
+    if which & {"4", "8", "14"}:
         A = torch.randn(DEEP_N, DEEP_n, generator=gen, device=dev)
         b = torch.randn(DEEP_N, generator=gen, device=dev)
         if "4" in which:
             time_saga_deep(out, cs, fb, A, b, gen, dev, ceil)
         if "8" in which:
             time_lfinito_deep(out, cs, fb, A, b, gen, dev, ceil)
+        if "14" in which:
+            time_finito_deep(out, cs, fb, A, b, gen, dev, ceil)
         del A, b
     print(json.dumps(out), flush=True)
     return 0
