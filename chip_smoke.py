@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed 0]
 
 Drives the port's main paths through its nineteen hand-written CUDA kernels,
-``ciao_tpu_torch/csrc/saga_coeff_multistep.cu`` (kernel #3 of PERF.md),
-``saga_coeff_multistep_streamed.cu`` (kernel #4), ``svrg_coeff_multistep.cu``
+``ciao_tpu_torch/csrc/saga_coeff_multistep_streamed.cu`` (kernels #3 and #4
+of PERF.md: #3 is its entry with no clamp count), ``svrg_coeff_multistep.cu``
 (kernel #5), ``coeff_apply_all.cu`` (kernel #6), ``finito_coeff_multistep.cu``
 (kernel #9), ``finito_coeff_multistep_streamed.cu`` (kernel #14),
 ``lfinito_sweep_multistep.cu`` (kernel #8), ``finito_block_update.cu``
@@ -71,11 +71,12 @@ Drives the port's main paths through its nineteen hand-written CUDA kernels,
 Phases, one line each:
 
   1. device: CUDA present (else exit 2), the card's name and power limit;
-  2. build: the nineteen kernels compiled by nvcc from this checkout, in
-     parallel;
+  2. build: the nineteen kernels' eighteen sources compiled by nvcc from
+     this checkout, in parallel;
   3. kernel #3 == plain version: f32/bf16/int8 rows, SAGA and SAG, with and
      without direction weights, at a small shape (and at widths that are not
-     whole 16-byte chunks) and at the headline shape;
+     whole 16-byte chunks), at the headline shape, and f32 and int8 rows at
+     the persistent engine's edges (LOOPLESS_EDGES);
   3b. kernel #4 == plain version: the same matrix at N = 8,192, n = 128,
      B = 128, K = 64 with clamp counts f = K and f = 23, masked steps bit
      for bit, and K = 8 at the deep target's shape;
@@ -87,7 +88,10 @@ Phases, one line each:
   4c. importance route: ``SAGA(importance_sampling=True)`` for 32 epochs on
      the streamed route through kernel #4 with weights;
   5. times at the headline shape: ms per step of kernel #3 and of its plain
-     version, with the card's name and power limit;
+     version, with the card's name and power limit, and a window of SAGA's
+     headline steps profiled (int8, f32), showing one launch of the
+     persistent engine a kernel #3 call and no kernel of the two-launch
+     engine;
   5b. times at the deep target's shape: the same for kernel #4, and a
      window of SAGA's streamed route profiled (f32, int8), showing one
      launch of the persistent engine a call and no kernel of the two-launch
@@ -178,12 +182,15 @@ Phases, one line each:
      int8 rows, bf16 for least squares and logistic, #15 with f = 23; the
      K-step calls equal to their one-step calls and the masked steps, bit
      for bit; K = 8 at the headline and (inside 4g's block) at the deep
-     shape;
+     shape; #12 with logistic f32 and int8 rows at the persistent engine's
+     edges (LOOPLESS_EDGES);
   4p, 4r. (on the deep target, after 4g) SSNM on #13 and least-squares
      Point-SAGA on #15, f32 and int8, two epochs each, and #13 and #15 per
      step in turns with their plain version;
   4o, 4q. SSNM and Point-SAGA at the headline with launch counts, falling
-     objectives, ms per step and a profiled window each;
+     objectives, ms per step and a profiled window each (Point-SAGA's,
+     reported in phase 10, showing one launch of the persistent engine a
+     kernel #12 call and no kernel of the two-launch engine);
   4s. the ``SSNM`` (cost − f*) and ``PointSAGA`` (mean gradient) facades
      on the planted Lasso against the folds of a CPU run of the same seed;
   4t. ``deep_solve`` on logistic rows (2,048 x 32) to rel <= 1e-6 of the
@@ -351,8 +358,8 @@ VR_M, VR_OUTER, LOOPLESS_STEPS = N // B, 150, 24_576
 VR_SMALL = dict(N=8_192, n=128, B=128, K=64, stop=22)
 # the persistent engine's grid at its edges (N, n, B, K, stop): 128 CTAs of
 # 32 and of 8 rows, one f32 row a stage (the wide build; SARAH's one-stage
-# ring), rows that are not whole 16-byte chunks; the stop is the loopless
-# pair's (LOOPLESS_KINDS)
+# ring; Point-SAGA's solves a stage at a time), rows that are not whole
+# 16-byte chunks; the stop is the loopless pair's (LOOPLESS_KINDS)
 LOOPLESS_EDGES = ((32_768, 1_024, 4_096, 32, 20),
                   (32_768, 1_024, 1_024, 32, 20),
                   (8_192, 16_384, 1_024, 8, 5), (8_192, 202, 1_024, 32, 20))
@@ -584,6 +591,14 @@ def phase_check(gen, dev) -> float:
         worst = max(worst, compare(F, gamma, gen, dev, B, HEADLINE_K, False,
                                    False, "highest", tag))
         del F
+    for N_, n_, B_, K_, _ in LOOPLESS_EDGES:
+        for storage in ("f32", "int8"):
+            F, gamma, _ = lasso(gen, dev, N_, n_, storage)
+            worst = max(worst, compare(
+                F, gamma, gen, dev, B_, K_, False, True, "highest",
+                f"#3 N={N_} n={n_} B={B_} K={K_} {storage} SAGA wgts"))
+            del F
+            torch.cuda.empty_cache()
     return worst
 
 
@@ -893,6 +908,28 @@ def profile_deep_saga(prob, storage: str, card: str) -> None:
                        lambda: saga_run(F, g, st, cfg, steps), steps, card,
                        SAGA_DEEP_GROUPS, "kernel #4",
                        "saga_coeff_multistep_streamed")
+
+
+def profile_headline_saga(run: dict, storage: str, card: str) -> None:
+    """A profiled window of SAGA at the headline (two calls of LAUNCH_STEPS
+    steps of kernel #3 through ``saga_run``), which fails unless every
+    wrapper call was one launch of the persistent engine and no kernel of
+    the two-launch engine ran."""
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers.saga import (
+        LAUNCH_STEPS, SAGACfg, saga_init, saga_run,
+    )
+
+    F = run["F"]
+    dev = F.coeff_rows_data()[0].device
+    g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
+    cfg = SAGACfg(N=N, sag=False, batch=B, block=True, coeff=True,
+                  fused=True)
+    st = saga_init(F, g, torch.zeros(n, device=dev), run["gamma"], 0, cfg)
+    steps = 2 * LAUNCH_STEPS
+    profile_one_launch(f"SAGA at the headline, {storage} rows",
+                       lambda: saga_run(F, g, st, cfg, steps), steps, card,
+                       SAGA_GROUPS, "kernel #3", "saga_coeff_multistep")
 
 
 def time_per_step(fn, F, gamma, gen, dev, B_: int, K: int,
@@ -1217,6 +1254,7 @@ def run_fista(dev, F, g, L, steps: int, tag: str, card: str,
 SVRG_GROUPS = {"kernel #6": ("apply_",),
                "kernel #5": ("loopless_steps_kernel",)}
 SAGA_DEEP_GROUPS = {"kernel #4": ("loopless_steps_kernel",)}
+SAGA_GROUPS = {"kernel #3": ("loopless_steps_kernel",)}
 # profiled runs of a window before a trace that shows no device time, or
 # (a kernel of the persistent engine) fewer launches than calls, is taken
 # for a fault of the window and not for records the tracer dropped
@@ -3015,14 +3053,15 @@ VR_GROUPS = {kind: {"kernel #6": ("apply_",),
                     f"kernel {label}": ("loopless_steps_kernel",)}
              for kind, (_, label) in VR.items()}
 # the two-launch engines' kernels, which no window of a kernel of the
-# persistent engine (#4, #5, #8, #9, #10, #11, #14, #16, #17, #18) may show
-# (by function name: kernel #6's apply_rows_kernel is not one of them; the
-# finish and prologue kernels that #9, #8, #14 and #18 launched before they
-# joined the engine, and #18's table walk, among them)
+# persistent engine (#3, #4, #5, #8, #9, #10, #11, #12, #14, #16, #17, #18)
+# may show (by function name: kernel #6's apply_rows_kernel is not one of
+# them; the finish and prologue kernels that #3, #9, #8, #12, #14 and #18
+# launched before they joined the engine, and #18's table walk, among them)
 TWO_LAUNCH = ("rows_kernel", "saga_finish_kernel", "svrg_finish_kernel",
               "point_kernel", "finito_finish_kernel",
               "lfinito_finish_kernel", "prox_kernel", "proshi_finish_kernel",
-              "table_rows_kernel")
+              "table_rows_kernel", "point_saga_finish_kernel",
+              "shifted_point_kernel")
 
 
 def check_one_launch(tag: str, prof: dict, label: str, calls: int) -> None:
@@ -3387,12 +3426,22 @@ def phase_check_new(gen, dev) -> dict:
                     f"{storage}"))
             del F
         torch.cuda.empty_cache()
+    for N_, n_, B_, K_, _ in LOOPLESS_EDGES:
+        for storage in ("f32", "int8"):
+            F, Lm = margin_rows(gen, dev, N_, n_, "logistic", storage)
+            errs["point_saga_multistep"] = max(
+                errs["point_saga_multistep"], compare_ps(
+                    F, Lm, gen, dev, B_, K_, "highest",
+                    f"#12 N={N_} n={n_} B={B_} K={K_} logistic {storage}"))
+            del F
+            torch.cuda.empty_cache()
     return errs
 
 
 SSNM_GROUPS = {"kernel #19": ("rows_kernel", "ssnm_")}
-PS_GROUPS = {"kernel #12": ("rows_kernel", "point_saga_finish",
-                            "shifted_point")}
+PS_GROUPS = {"kernel #12": ("loopless_steps_kernel",)}
+PS_STREAM_GROUPS = {"kernel #15": ("rows_kernel", "point_saga_finish",
+                                   "shifted_point")}
 
 
 def check_run(tag, st, moved, want, obj0, obj1, steps) -> None:
@@ -3519,9 +3568,10 @@ def run_new_headline(gen, dev, card: str) -> dict:
                  "poisson": 1.0 / (30.0 * Lm)}[kind]
         r = run_ps(F, gamma, B, NEW_STEPS, False,
                    f"headline {kind} {storage}", card, cost64)
-        r["prof"] = profile_steps(
+        r["prof"] = profile_one_launch(
             f"Point-SAGA at the headline, {kind} {storage} rows",
-            lambda: r["run"](128), 128, card, PS_GROUPS)
+            lambda: r["run"](128), 128, card, PS_GROUPS, "kernel #12",
+            "point_saga_multistep")
         out["ps", kind, storage] = r
         del F
         torch.cuda.empty_cache()
@@ -4196,20 +4246,27 @@ REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
             "coeff_value_apply_all": 916}
 
 
+# the source of each kernel's C entry, by kernel (csrc/<name>.cu but for
+# #3, whose wrapper launches #4's entry with no clamp count)
+SOURCE = {"saga_coeff_multistep": "saga_coeff_multistep_streamed"}
+SOURCES = tuple(dict.fromkeys(SOURCE.get(k, k) for k in KERNELS))
+
+
 def build_all() -> None:
-    """The kernels' nvcc runs started together, then loaded."""
+    """The kernels' nvcc runs, one a source, started together, then
+    loaded."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ciao_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(_build.build, KERNELS))
-    for name in KERNELS:
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_build.build, SOURCES))
+    for name in SOURCES:
         _build.load(name)
-    log(f"phase 2 build: {', '.join(f'{k}.cu' for k in KERNELS)} built "
+    log(f"phase 2 build: {', '.join(f'{k}.cu' for k in SOURCES)} built "
         f"and loaded in {time.perf_counter() - t0:.2f} s")
-    for name in KERNELS:
+    for name in SOURCES:
         for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -4239,7 +4296,7 @@ def kernel_line(name: str, launches: int, max_err: float, t: dict) -> dict:
     """One kernel's entry of the JSON line: what this run measured and the
     bound it computed from this run's inputs."""
     return {"name": name, "route": "cuda",
-            "source": f"ciao_tpu_torch/csrc/{name}.cu",
+            "source": f"ciao_tpu_torch/csrc/{SOURCE.get(name, name)}.cu",
             "replaces": f"ciao_tpu/ops/fused_block.py:{REPLACES[name]}",
             "launches": launches, "max_abs_err": max_err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4481,9 +4538,8 @@ def main() -> int:
         profile_steps(f"{'SSNM' if fam == 'ssnm' else 'Point-SAGA'} at the "
                       f"deep target, {storage} rows",
                       lambda: r["run"](128), 128, card,
-                      {"kernel #13" if fam == "ssnm" else "kernel #15":
-                       SSNM_GROUPS["kernel #19"] if fam == "ssnm"
-                       else PS_GROUPS["kernel #12"]})
+                      {"kernel #13": SSNM_GROUPS["kernel #19"]}
+                      if fam == "ssnm" else PS_STREAM_GROUPS)
     del prob, lfin, Fd, newdeep, r
     torch.cuda.empty_cache()
 
@@ -4582,6 +4638,7 @@ def main() -> int:
             saga_coeff_multistep, saga_coeff_multistep_ref, run["F"],
             run["gamma"], gen, dev, B,
             f"kernel #3, {storage} rows, N={N} n={n} B={B}", card)
+        profile_headline_saga(run, storage, card)
     del int8, f32
     log(f"phase 5 times: int8 kernel {times['int8']['ms']:.4f} ms/step, "
         f"plain {times['int8']['plain_ms']:.4f}; f32 kernel "

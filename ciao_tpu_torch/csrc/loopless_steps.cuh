@@ -1,4 +1,4 @@
-// The persistent step engine of ten step kernels on an NVIDIA Hopper card
+// The persistent step engine of twelve step kernels on an NVIDIA Hopper card
 // (sm_90a): a whole call of K block steps in one cooperative launch,
 //
 //   lsvrg_coeff_multistep.cu          replaces ciao_tpu/ops/fused_block.py
@@ -12,7 +12,10 @@
 //                                     _svrg_coeff_multi_kernel);
 //   saga_coeff_multistep_streamed.cu  replaces saga_coeff_multistep_streamed
 //                                     (SAGA/SAG steps for any N, steps k >= f
-//                                     masked, body _saga_stream_kernel);
+//                                     masked, body _saga_stream_kernel) and,
+//                                     with no clamp count,
+//                                     saga_coeff_multistep (body
+//                                     _saga_coeff_multi_kernel);
 //   katyusha_coeff_multistep.cu       replaces katyusha_coeff_multistep
 //                                     (Katyusha inner steps, body
 //                                     _katyusha_coeff_multi_kernel);
@@ -35,7 +38,11 @@
 //   proshi_multistep.cu               replaces proshi_multistep (ProShI
 //                                     sharing steps on the (N, n) block
 //                                     table, steps k >= f masked, body
-//                                     _proshi_multi_kernel).
+//                                     _proshi_multi_kernel);
+//   point_saga_multistep.cu           replaces point_saga_multistep
+//                                     (Point-SAGA steps, a prox solve a
+//                                     row, body _point_saga_multi_kernel,
+//                                     theta solve _pointprox_theta).
 //
 // The Python wrappers are in ciao_tpu_torch/ops/fused_block.py, beside the
 // plain PyTorch versions (the *_ref functions), whose arithmetic (bf16
@@ -78,7 +85,7 @@
 //     while step k's finish and barriers run: with P S >= R all of them);
 //   - step k on the eight consumer warps: the point (w for L-SVRG and SVRG,
 //     x for L-Katyusha and Katyusha, z for SAGA, the Finitos and ProShI,
-//     both w_prev and w for SARAH)
+//     both w_prev and w for SARAH, v = x - gamma av for Point-SAGA)
 //     copied into shared memory, rounded to bf16 where the dots round, by
 //     plain loads from L2 (the last finish wrote it through the generic
 //     proxy); then for each stage as it lands: the margins, every thread
@@ -91,11 +98,30 @@
 //     (anchor minus live for L-SVRG and SVRG, live at x minus anchor for
 //     L-Katyusha and Katyusha, new minus old for SAGA and Finito, which
 //     write the new one to their table, anchor minus live for LFinito, c at
-//     w minus c at w_prev for SARAH, ProShI's row weight w_i; rounded to bf16
-//     where the dots round and scaled by rs for int8 rows); and the stage's
-//     rows added into column sums held in registers,
+//     w minus c at w_prev for SARAH, ProShI's row weight w_i, old minus the
+//     prox solve theta_i for Point-SAGA, which writes theta_i to its table;
+//     rounded to bf16 where the dots round and scaled by rs for int8 rows);
+//     and the stage's rows added into column sums held in registers,
 //     each thread the same units all call. int8 is widened by the
 //     byte-permute trick, bf16 by a shift;
+//   - Point-SAGA's prox solve: logistic and Poisson rows take 20 Newton
+//     steps a row (an expf and two IEEE divisions each, 4.2-4.5 us in a
+//     chain on an H100), so where a step has two stages or more their step
+//     takes the margins of all its stages first, each row's margin kept by
+//     the thread of its index in the CTA's share (one barrier a stage: the
+//     stages' margin sums alternate between two buffers), then solves every
+//     row of the share at once, a thread a row, and only then adds the
+//     stages into the column sums: one chain a step on the critical path,
+//     not one a stage (at n = 1,024, B = 4,096, four f32 stages of eight
+//     rows, two bf16 of sixteen; one int8 stage of 32, as at B = 1,024 and
+//     n = 128, is one chain anyway). This needs the step's stages in the
+//     ring at once, a thread a row and at most four units a thread
+//     (ceil(R / S) <= P, R <= 256, S <= 32, n <= 4,096 on the 16-byte
+//     path); elsewhere (at B = 4,096 f32 rows of 2,048 columns or more,
+//     bf16 of 4,096; n = 1,024 f32 at B = 8,192), and for the closed forms
+//     (least squares, Huber, squared hinge, for which holding a step's
+//     stages cost 0.3 us a step and 0.6 us a stage on an H100), each stage
+//     solves its rows after its margins, as the other methods' formulas;
 //   - narrow rows: where a row has fewer column units than the 256 consumer
 //     threads (four columns a unit on the 16-byte path), the threads form g =
 //     256 / U row groups of U threads, U the units rounded up to a power of
@@ -136,8 +162,8 @@
 //     coefficient's slot of the stage (the producer prefetches it: it is
 //     only read). The margins are exact f32 at any storage, as the Pallas
 //     kernel's;
-//   - SAGA's and Finito's table: the producer prefetches no coefficient of
-//     their rows,
+//   - SAGA's, Finito's and Point-SAGA's table: the producer prefetches no
+//     coefficient of their rows,
 //     since a block revisited within the ring's lookahead (or overlapping an
 //     earlier block: starts need not be block-aligned) would read it stale.
 //     The formula thread of a row loads its old coefficient from L2 when its
@@ -150,8 +176,9 @@
 //     the read-only path, which may return a line that an earlier step of
 //     the launch wrote over;
 //   - the two Katyushas' first x is formed by every CTA for all columns from
-//     z, the anchor point and y, and LFinito's first z = soft(av, hat
-//     lambda) from the incoming av (each CTA writes its own finish columns
+//     z, the anchor point and y, LFinito's first z = soft(av, hat lambda)
+//     from the incoming av, and Point-SAGA's first v = x - gamma av from
+//     the iterate and av (each CTA writes its own finish columns
 //     of the point, so the finish reads the point the margins used; every
 //     CTA reads av before its first barrier, and the finishes write av only
 //     after it); the stop index
@@ -199,7 +226,8 @@ enum LooplessMethod {
   kFinitoSteps = 6,
   kLFinitoSteps = 7,
   kFinitoStreamSteps = 8,
-  kProshiSteps = 9
+  kProshiSteps = 9,
+  kPointSagaSteps = 10
 };
 
 // ProShI's coupling prox (the scalars row's gmode): Zero (z = 0), IndBox
@@ -232,7 +260,10 @@ constexpr size_t kLlMaxSmem = 232448;
 // SARAH         [scale, gamma, gamma*lambda, eta, 1/B, mode, aux];
 // Finito (both) [scale, 1/N, hat, hat*lambda, mode, aux];
 // LFinito       [scale, hat, hat*lambda, 1/N, mode, aux];
-// ProShI        [scale, 1/N, 1/hat, mode, glo, ghi, gmode, aux].
+// ProShI        [scale, 1/N, 1/hat, mode, glo, ghi, gmode, aux];
+// Point-SAGA    [scale, gamma, 1/B, 1/N, mode, aux] (its prox solve takes
+//                the wrapper's mode, LooplessArgs::pmode, as the plain
+//                version does, not the row's).
 __host__ __device__ constexpr int mode_slot(int M) {
   return M == kLKatyushaSteps                        ? 8
          : (M == kSagaSteps || M == kKatyushaSteps) ? 6
@@ -266,9 +297,10 @@ __host__ __device__ constexpr bool finito_coeff(int M) {
   return M == kFinitoSteps || M == kFinitoStreamSteps;
 }
 
-// Whether the call writes its coefficient table (SAGA, the Finitos).
+// Whether the call writes its coefficient table (SAGA, the Finitos,
+// Point-SAGA).
 __host__ __device__ constexpr bool ll_table(int M) {
-  return M == kSagaSteps || finito_coeff(M);
+  return M == kSagaSteps || finito_coeff(M) || M == kPointSagaSteps;
 }
 
 // ProShI's rows a row group takes at once (a round): a thread holds its
@@ -281,9 +313,9 @@ __host__ __device__ constexpr int proshi_rows(bool vec, int ru, bool split) {
 }
 
 // Whether every CTA forms step 0's point inside the launch: the Katyushas'
-// x and LFinito's z = soft(av).
+// x, LFinito's z = soft(av) and Point-SAGA's v = x - gamma av.
 __host__ __device__ constexpr bool forms_point(int M) {
-  return coupled(M) || M == kLFinitoSteps;
+  return coupled(M) || M == kLFinitoSteps || M == kPointSagaSteps;
 }
 
 // The arguments of one call. L-SVRG: pt the iterate w, pre = wpre, c the
@@ -302,10 +334,14 @@ __host__ __device__ constexpr bool forms_point(int M) {
 // average (written), wa the anchor point z_full, invg the visited blocks'
 // sums of 1/gamma_i in visit order; ProShI: pt the point z, av the coupling
 // sum, s the (N, n) table (all written), c the stepsizes gamma_i (read
-// only, in the anchor coefficients' slot), stop the clamp count f. av is
-// read only but for SAGA, SARAH, the Finitos and ProShI, c but for SAGA and
-// the Finitos; stop and pre are NULL but for L-SVRG, L-Katyusha (and the
-// clamp counts of SAGA, streamed Finito and ProShI).
+// only, in the anchor coefficients' slot), stop the clamp count f;
+// Point-SAGA: pt the (n,) scratch of the shifted iterate v, z the iterate
+// x, av the table mean, c the table (all written), na the row square-norms
+// (read only, in the anchor coefficients' slot), pmode the oracle formula
+// of its prox solve. av is read only but for SAGA, SARAH, the Finitos,
+// ProShI and Point-SAGA, c but for SAGA, the Finitos and Point-SAGA; stop
+// and pre are NULL but for L-SVRG, L-Katyusha (and the clamp counts of
+// SAGA, streamed Finito and ProShI).
 // part: (ctas, n) f32 scratch; bar: the grid barrier's word of the call's
 // stream (low bits zero between calls).
 struct LooplessArgs {
@@ -330,6 +366,8 @@ struct LooplessArgs {
   float* zb = nullptr;
   const float* invg = nullptr;
   float* s = nullptr;
+  const float* na = nullptr;
+  int pmode = 0;
 };
 
 // The grid rule (ops/fused_block.py _loopless_grid): R rows a CTA, the
@@ -515,8 +553,11 @@ loopless_steps_kernel(const LooplessArgs a) {
   constexpr int kUnit = kVec ? 4 : 1;  // columns of a unit
   constexpr int kRegUnits = kRU;
   constexpr bool kTable = ll_table(M);  // the call writes its table
-  // the producer loads the rows' anchor coefficients (SARAH has none)
-  constexpr bool kAnchor = !kTable && M != kSarahSteps;
+  // the producer loads the rows' anchor coefficients (SARAH has none) or
+  // Point-SAGA's square-norms
+  constexpr bool kAnchor =
+      M == kPointSagaSteps || (!kTable && M != kSarahSteps);
+  const float* anchor = M == kPointSagaSteps ? a.na : a.c;
   constexpr int kPts = ll_points(M);
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = a.n, S = a.stage_rows, P = a.stages;
@@ -565,8 +606,9 @@ loopless_steps_kernel(const LooplessArgs a) {
 
   if (warp == kLlWarps) {
     // the producer: stage t holds rows [i S, i S + here) of the CTA's share
-    // of step k's block, k = t / spc, i = t % spc (SAGA's and Finito's table
-    // is not prefetched: its consumers read it; SARAH has none)
+    // of step k's block, k = t / spc, i = t % spc (SAGA's, Finito's and
+    // Point-SAGA's table is not prefetched: its consumers read it; SARAH
+    // has none)
     for (int t = 0; t < total; ++t) {
       const int s = t % P;
       if (t >= P) mbar_wait(&empty[s], (t / P - 1) & 1);
@@ -581,7 +623,8 @@ loopless_steps_kernel(const LooplessArgs a) {
                     &full[s]);
         for (int r = lane; r < here; r += 32) {
           __pipeline_memcpy_async(v + r, a.b + r0 + r, 4);
-          if (kAnchor) __pipeline_memcpy_async(v + S + r, a.c + r0 + r, 4);
+          if (kAnchor)
+            __pipeline_memcpy_async(v + S + r, anchor + r0 + r, 4);
           if (a.rs != nullptr)
             __pipeline_memcpy_async(v + 2 * S + r, a.rs + r0 + r, 4);
         }
@@ -591,7 +634,7 @@ loopless_steps_kernel(const LooplessArgs a) {
         for (int j = lane; j < here * n; j += 32) dst[j] = src[j];
         for (int r = lane; r < here; r += 32) {
           v[r] = a.b[r0 + r];
-          if (kAnchor) v[S + r] = a.c[r0 + r];
+          if (kAnchor) v[S + r] = anchor[r0 + r];
           v[2 * S + r] = a.rs != nullptr ? a.rs[r0 + r] : 1.0f;
         }
         mbar_arrive(&full[s]);
@@ -603,7 +646,8 @@ loopless_steps_kernel(const LooplessArgs a) {
   // the consumers
   const float* sc = a.sc;
   const float scale = sc[0];
-  const int mode = static_cast<int>(sc[mode_slot(M)]);
+  const int mode =
+      M == kPointSagaSteps ? a.pmode : static_cast<int>(sc[mode_slot(M)]);
   const float aux = sc[aux_slot(M)];
   const bool scaled = a.rs != nullptr;
   // the finish's scalars, the row's slots between the scale and the mode
@@ -637,9 +681,11 @@ loopless_steps_kernel(const LooplessArgs a) {
     for (int q = 0; q < kUnit; ++q) acc[kq][q] = 0.0f;
 
   // row r of a stage whose rows start at row0: its margin m (SARAH's at w,
-  // m0 at w_prev), its old SAGA coefficient c_old (loaded when the stage
-  // was taken); ProShI's dc is w_i = (gamma_i / N) c_i (rs_i), the weight of
-  // the row in its table refresh
+  // m0 at w_prev), its old table coefficient c_old (loaded when the stage
+  // or step was taken); ProShI's dc is w_i = (gamma_i / N) c_i (rs_i), the
+  // weight of the row in its table refresh; Point-SAGA's c_i is its prox
+  // solve theta_i at the margin m + gamma c_old |a_i|^2 of the row's prox
+  // point, and dc = c_old - theta_i
   auto finish_row = [&](const float* v, float* dc, int r, float m, float m0,
                         int64_t row0, float c_old) {
     const float rsv = scaled ? v[2 * S + r] : 1.0f;
@@ -647,11 +693,14 @@ loopless_steps_kernel(const LooplessArgs a) {
     const float c_live =
         M == kProshiSteps
             ? coeff_formula(static_cast<int>(sc[3]), m, v[r], sc[0], sc[7])
+        : M == kPointSagaSteps
+            ? pointprox_theta_of(mode, m + sc[1] * c_old * v[S + r], v[r],
+                                 v[S + r], c_old, scale, sc[1], aux)
             : coeff_formula(mode, m, v[r], scale, aux);
     float d;
     if constexpr (kTable) {
       a.c[row0 + r] = c_live;
-      d = c_live - c_old;
+      d = M == kPointSagaSteps ? c_old - c_live : c_live - c_old;
     } else if constexpr (M == kSarahSteps) {
       // grad f_i(w) - grad f_i(w_prev)
       if (scaled) m0 *= rsv;
@@ -679,6 +728,8 @@ loopless_steps_kernel(const LooplessArgs a) {
         if constexpr (coupled(M))
           x = coupled_point(sc[tau_slot(M)], sc[tau_slot(M) + 1],
                             __ldcg(a.z + j), a.wa[j], __ldcg(a.y + j));
+        else if constexpr (M == kPointSagaSteps)
+          x = shifted_point(fs[0], __ldcg(a.z + j), __ldcg(a.av + j));
         else
           x = soft_threshold(__ldcg(a.av + j), fs[1]);
         if (j >= j0 && j < j1) a.pt[j] = x;
@@ -849,35 +900,20 @@ loopless_steps_kernel(const LooplessArgs a) {
       }
       t += spc;
     } else {
-      for (int i = 0; i < spc; ++i, ++t) {
-        const int s = t % P;
-        const int here = min(S, mine - i * S);
-        const T* tile = stage_ptr(s);
-        const float* v = vals + 3 * S * s;
-        float* dc = dcs + (t & 1) * S;
-        // SAGA: the stage's first row, and the row's old coefficient from L2,
-        // in flight during the margins (every earlier visit's write is behind
-        // the barriers)
-        const int64_t row0 =
-            kTable ? static_cast<int64_t>(a.starts[k]) + first + i * S : 0;
-        const float c_old =
-            kTable && tid < here ? __ldcg(a.c + row0 + tid) : 0.0f;
-        mbar_wait(&full[s], (t / P) & 1);
-
-        // margins: every thread takes its units' share (the units it owns in
-        // the column sums) of its group's rows of the stage, eight rows at
-        // once (SARAH: each loaded unit into the sums of both points);
-        // warp_sums8 leaves lane 4i the warp's sum of row i, and the group's
-        // warps' sums are added in warp order
+      // margins: every thread takes its units' share (the units it owns in
+      // the column sums) of its group's rows of a stage, eight rows at once
+      // (SARAH: each loaded unit into the sums of both points); warp_sums8
+      // leaves lane 4i the warp's sum of row i
+      auto stage_margins = [&](const T* tile, int here, float* ms) {
         for (int r0 = 8 * grp; r0 < here; r0 += 8 * groups) {
           float p[kPts][8] = {};
           const bool whole = here - r0 >= 8;
-  #pragma unroll
+#pragma unroll
           for (int kq = 0; kq < kRegUnits; ++kq) {
             const int u = loc + kq * U;
             if (u < units) {
               float z[kPts][4];
-  #pragma unroll
+#pragma unroll
               for (int q = 0; q < kPts; ++q) {
                 if (kVec) {
                   const float4 f =
@@ -888,46 +924,45 @@ loopless_steps_kernel(const LooplessArgs a) {
                 }
               }
               const T* col = tile + static_cast<size_t>(r0) * n + u * kUnit;
-  #pragma unroll
+#pragma unroll
               for (int i = 0; i < 8; ++i) {
                 if (whole || r0 + i < here) {
                   float x[4];
                   ll_unit<kLowp, kVec>(col + static_cast<size_t>(i) * n, x);
-  #pragma unroll
+#pragma unroll
                   for (int q = 0; q < kPts; ++q)
-  #pragma unroll
+#pragma unroll
                     for (int e = 0; e < kUnit; ++e)
                       p[q][i] = fmaf(x[e], z[q][e], p[q][i]);
                 }
               }
             }
           }
-  #pragma unroll
+#pragma unroll
           for (int q = 0; q < kPts; ++q) {
             const float m = warp_sums8(p[q], lane);
             if ((lane & 3) == 0 && r0 + lane / 4 < here)
-              msum[(q * kLlWarps + warp) * S + r0 + lane / 4] = m;
+              ms[(q * kLlWarps + warp) * S + r0 + lane / 4] = m;
           }
         }
-        consumer_sync();
-        if (tid < here) {
-          const int w0 = ((tid >> 3) % groups) * wpg;  // the row's group
-          float m[kPts];
-  #pragma unroll
-          for (int q = 0; q < kPts; ++q) {
-            const float* ms = msum + q * kLlWarps * S;
-            m[q] = ms[w0 * S + tid];
-  #pragma unroll
-            for (int w = 1; w < wpg; ++w) m[q] += ms[(w0 + w) * S + tid];
-          }
-          finish_row(v, dc, tid, m[kPts - 1], m[0], row0, c_old);
+      };
+      // row r's margins from the warps' sums of its group in ms, added in
+      // warp order
+      auto row_margins = [&](const float* ms, int r, float (&m)[kPts]) {
+        const int w0 = ((r >> 3) % groups) * wpg;  // the row's group
+#pragma unroll
+        for (int q = 0; q < kPts; ++q) {
+          const float* mq = ms + q * kLlWarps * S;
+          m[q] = mq[w0 * S + r];
+#pragma unroll
+          for (int w = 1; w < wpg; ++w) m[q] += mq[(w0 + w) * S + r];
         }
-        consumer_sync();
-
-        // the group's rows of the stage into the column sums: each unit's rows
-        // in order (a group's octets, or all rows at once), four rows' loads
-        // at once
-  #pragma unroll
+      };
+      // the group's rows of a stage into the column sums, weighted by dc:
+      // each unit's rows in order (a group's octets, or all rows at once),
+      // four rows' loads at once; then the stage is released
+      auto stage_sums = [&](const T* tile, int here, const float* dc, int s) {
+#pragma unroll
         for (int kq = 0; kq < kRegUnits; ++kq) {
           const int u = loc + kq * U;
           if (u < units) {
@@ -937,14 +972,14 @@ loopless_steps_kernel(const LooplessArgs a) {
               int r = o;
               for (; r + 4 <= end; r += 4) {
                 float x[4][4];
-  #pragma unroll
+#pragma unroll
                 for (int i = 0; i < 4; ++i)
                   ll_unit<kLowp, kVec>(col + static_cast<size_t>(r + i) * n,
                                        x[i]);
-  #pragma unroll
+#pragma unroll
                 for (int i = 0; i < 4; ++i) {
                   const float d = dc[r + i];
-  #pragma unroll
+#pragma unroll
                   for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[i][q];
                 }
               }
@@ -952,7 +987,7 @@ loopless_steps_kernel(const LooplessArgs a) {
                 float x[4];
                 ll_unit<kLowp, kVec>(col + static_cast<size_t>(r) * n, x);
                 const float d = dc[r];
-  #pragma unroll
+#pragma unroll
                 for (int q = 0; q < kUnit; ++q) acc[kq][q] += d * x[q];
               }
             }
@@ -960,6 +995,77 @@ loopless_steps_kernel(const LooplessArgs a) {
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
+      };
+      // Point-SAGA's logistic and Poisson rows, where a step has two stages
+      // or more and fits: every stage's margins (thread j keeping row j's of
+      // the CTA's share; the stages' margin sums alternate between msum and
+      // red, free until the finish, so one barrier a stage keeps a stage's
+      // sums until they are read), then the Newton solves of all its rows at
+      // once, their dc in the buffer the last stage did not use, then the
+      // column sums stage by stage: one chain a step, not one a stage. The
+      // step fits where its stages are in the ring at once, a thread takes a
+      // row, msum or red holds their dc and red a stage's margin sums (with
+      // one stage, the stage loop below solves the step's rows at once
+      // already). Built only for rows of up to four units a thread (n <=
+      // 4,096 on the 16-byte path, 1,024 on the plain one), the main path's
+      // widths: in every build it made the file's compile 2.3 times as long
+      bool stepped = false;
+      if constexpr (M == kPointSagaSteps && kRU <= 4) {
+        if ((mode == kLogistic || mode == kPoisson) && spc >= 2 &&
+            spc <= P && spc <= kLlWarps && mine <= kLlThreads &&
+            kLlWarps * S <= kLlThreads) {
+          const int64_t base = static_cast<int64_t>(a.starts[k]) + first;
+          const float c_old = tid < mine ? __ldcg(a.c + base + tid) : 0.0f;
+          float m[kPts] = {};
+          for (int i = 0; i < spc; ++i) {
+            const int ts = t + i;
+            const int here = min(S, mine - i * S);
+            float* ms = i & 1 ? red : msum;
+            mbar_wait(&full[ts % P], (ts / P) & 1);
+            stage_margins(stage_ptr(ts % P), here, ms);
+            consumer_sync();
+            if (tid >= i * S && tid < i * S + here)
+              row_margins(ms, tid - i * S, m);
+          }
+          float* dc = spc & 1 ? red : msum;
+          if (tid < mine) {
+            const int i = tid / S;
+            finish_row(vals + 3 * S * ((t + i) % P), dc + i * S, tid - i * S,
+                       m[0], m[0], base + i * S, c_old);
+          }
+          consumer_sync();
+          for (int i = 0; i < spc; ++i, ++t)
+            stage_sums(stage_ptr(t % P), min(S, mine - i * S), dc + i * S,
+                       t % P);
+          stepped = true;
+        }
+      }
+      // a stage at a time: its margins, its rows' formula, its column sums
+      if (!stepped) {
+        for (int i = 0; i < spc; ++i, ++t) {
+          const int s = t % P;
+          const int here = min(S, mine - i * S);
+          const T* tile = stage_ptr(s);
+          const float* v = vals + 3 * S * s;
+          float* dc = dcs + (t & 1) * S;
+          // SAGA: the stage's first row, and the row's old coefficient from
+          // L2, in flight during the margins (every earlier visit's write is
+          // behind the barriers)
+          const int64_t row0 =
+              kTable ? static_cast<int64_t>(a.starts[k]) + first + i * S : 0;
+          const float c_old =
+              kTable && tid < here ? __ldcg(a.c + row0 + tid) : 0.0f;
+          mbar_wait(&full[s], (t / P) & 1);
+          stage_margins(tile, here, msum);
+          consumer_sync();
+          if (tid < here) {
+            float m[kPts];
+            row_margins(msum, tid, m);
+            finish_row(v, dc, tid, m[kPts - 1], m[0], row0, c_old);
+          }
+          consumer_sync();
+          stage_sums(tile, here, dc, s);
+        }
       }
     }
 
@@ -1008,7 +1114,8 @@ loopless_steps_kernel(const LooplessArgs a) {
       const bool owner = warp == 0 && lane < cw && j < j1;
       // the column's state (L-SVRG: w, av; SVRG: w, av, zs; SAGA: z, av;
       // L-Katyusha: x, av, z, y, wa; Katyusha: x, av, z, y, wa, ys; SARAH:
-      // w, v; Finito: z, av, zb_j; LFinito: z, av, zf; ProShI: z, av),
+      // w, v; Finito: z, av, zb_j; LFinito: z, av, zf; ProShI: z, av;
+      // Point-SAGA: v, av),
       // loaded beside its partials
       float st[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (owner) {
@@ -1115,6 +1222,16 @@ loopless_steps_kernel(const LooplessArgs a) {
             p = soft_threshold(av_new, glo);
           a.av[j] = av_new;
           a.pt[j] = (p - av_new) * sc[2];
+        } else if (M == kPointSagaSteps) {
+          // Point-SAGA (Defazio 2016, the block mean of the rows' prox
+          // points): with sum = sum (c_old - theta) a_i, x <- v + (gamma /
+          // B) sum, av <- av - sum / N, then the next step's v = x - gamma
+          // av (x, never v, is the iterate)
+          const float x_new = st[0] + (fs[0] * fs[1]) * innov;
+          const float av_new = st[1] - innov * fs[2];
+          a.z[j] = x_new;
+          a.av[j] = av_new;
+          a.pt[j] = shifted_point(fs[0], x_new, av_new);
         } else {
           // L-Katyusha (Alg. 3, proximal z-step): g~ = av + sum / B,
           // z_new = soft((z + eta sigma x - (eta/L) g~) / (1 + eta sigma),

@@ -26,7 +26,7 @@ extern "C" int point_saga_multistep_streamed_launch(
     const float* rs, const float* na, float* c, float* x, float* av, float* v,
     const int* starts, const int* fclamp, const float* sc, float* part, int n,
     int B, int rows, int K, void* stream) {
-  StepArgs a{A, b, rs, c, v, av, starts, nullptr, fclamp,
+  StepArgs a{A, b, rs, c, v, av, starts, fclamp,
              sc, part, n, B, rows, K, static_cast<cudaStream_t>(stream)};
   a.xi = x;
   a.na = na;

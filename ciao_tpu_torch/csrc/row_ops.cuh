@@ -263,6 +263,37 @@ __device__ __forceinline__ float pointprox_theta(float mz, float b, float na,
   }
 }
 
+// pointprox_theta for the oracle formula `mode` given at run time (the
+// persistent engine's Point-SAGA: one build for all five formulas, a
+// uniform branch a row), each formula's arithmetic as above. Not inlined:
+// the five solves are compiled once for a source, not into each of the
+// engine's 28 builds (a call a row and step costs nothing beside a chain of
+// microseconds).
+__device__ __noinline__ float pointprox_theta_of(int mode, float mz, float b,
+                                                 float na, float c_old,
+                                                 float scale, float gamma,
+                                                 float aux) {
+  switch (mode) {
+    case kLogistic:
+      return pointprox_theta<kLogistic>(mz, b, na, c_old, scale, gamma, aux);
+    case kHuber:
+      return pointprox_theta<kHuber>(mz, b, na, c_old, scale, gamma, aux);
+    case kSqHinge:
+      return pointprox_theta<kSqHinge>(mz, b, na, c_old, scale, gamma, aux);
+    case kPoisson:
+      return pointprox_theta<kPoisson>(mz, b, na, c_old, scale, gamma, aux);
+    default:
+      return pointprox_theta<kLsq>(mz, b, na, c_old, scale, gamma, aux);
+  }
+}
+
+// Point-SAGA's shifted iterate x - gamma av, rounded as the plain versions
+// round it (no contraction into an fma).
+__device__ __forceinline__ float shifted_point(float gamma, float x,
+                                               float av) {
+  return __fsub_rn(x, __fmul_rn(gamma, av));
+}
+
 // The L1 soft-threshold sign(w)·max(|w| − thr, 0), NaN passed through.
 __device__ __forceinline__ float soft_threshold(float w, float thr) {
   const float sgn = w > 0.0f ? 1.0f : (w < 0.0f ? -1.0f : 0.0f);

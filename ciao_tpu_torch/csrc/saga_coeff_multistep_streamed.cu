@@ -18,6 +18,13 @@
 // it is; the clamp count f is read on the device once, and the masked steps
 // write nothing.
 //
+// With fclamp NULL this entry is also kernel #3, which replaces
+// ciao_tpu/ops/fused_block.py:saga_coeff_multistep (body
+// _saga_coeff_multi_kernel: the same steps on block-aligned starts, the
+// table resident in VMEM): its wrapper, fused_block.saga_coeff_multistep,
+// launches this library's engine builds rather than compiling the same 28
+// instantiations again.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 #include "loopless_steps.cuh"

@@ -1,23 +1,22 @@
 // Coefficient block steps on an NVIDIA Hopper card (sm_90a): the device code
-// shared by five kernels of ciao_tpu_torch/ops/fused_block.py,
+// shared by three kernels of ciao_tpu_torch/ops/fused_block.py,
 //
-//   saga_coeff_multistep.cu             replaces ciao_tpu/ops/fused_block.py
-//                                       saga_coeff_multistep (SAGA/SAG steps);
-//   ssnm_multistep.cu                   replaces ssnm_multistep (SSNM steps:
-//                                       SAGA's at a momentum point);
+//   ssnm_multistep.cu                   replaces ciao_tpu/ops/fused_block.py
+//                                       ssnm_multistep (SSNM steps: SAGA's
+//                                       at a momentum point);
 //   ssnm_multistep_streamed.cu          replaces ssnm_multistep_streamed
 //                                       (the same, steps k >= f masked);
-//   point_saga_multistep.cu             replaces point_saga_multistep
-//                                       (Point-SAGA steps, a per-row prox);
 //   point_saga_multistep_streamed.cu    replaces
-//                                       point_saga_multistep_streamed (the
-//                                       same, steps k >= f masked).
+//                                       point_saga_multistep_streamed
+//                                       (Point-SAGA steps, a per-row prox,
+//                                       steps k >= f masked).
 //
 // The Python wrappers and the design notes are in ops/fused_block.py; the plain
 // PyTorch versions of the same arithmetic are the *_ref functions there.
-// Kernels #4 (streamed SAGA), #5 (SVRG), #8 (LFinito), #9 (Finito), #10
-// (Katyusha), #11 (SARAH), #14 (streamed Finito), #16 and #17 (the loopless
-// pair) and #18 (ProShI) run on the persistent engine of loopless_steps.cuh.
+// Kernels #3 and #4 (SAGA), #5 (SVRG), #8 (LFinito), #9 (Finito), #10
+// (Katyusha), #11 (SARAH), #12 (Point-SAGA), #14 (streamed Finito), #16 and
+// #17 (the loopless pair) and #18 (ProShI) run on the persistent engine of
+// loopless_steps.cuh.
 //
 // One solver step on the block [s, s + B) of the (N, n) rows A is two launches:
 //
@@ -27,12 +26,11 @@
 //       this once. From shared memory: the margins a_i . z (one warp per row,
 //       shuffle reduction), the int8 dequant scale, the coefficient formula,
 //       the coefficient difference dc_i and the CTA's partial innovation
-//       sum_rows dc_i . a_i into part[cta, :]. SAGA: dc_i = c_new - c_old and
+//       sum_rows dc_i . a_i into part[cta, :]. SSNM: dc_i = c_new - c_old and
 //       the table write c_i <- c_new;
 //   (b) the finish kernel, 32 columns per CTA: the partials summed in a fixed
-//       order (no atomics, so runs repeat bit for bit), then SAGA's running
-//       average, SAG or SAGA direction and L1 soft-threshold
-//       (saga_finish_kernel), or the finish of SSNM or Point-SAGA below.
+//       order (no atomics, so runs repeat bit for bit), then the finish of
+//       SSNM or Point-SAGA below.
 //
 // The K steps are issued from the host on one stream with no host sync; the
 // stream order carries the iterate and the table from one step to the next.
@@ -68,11 +66,9 @@ constexpr int kMaxRowsPerCta = 32;
 
 // The scalars row of each method, scale first and (mode, aux) where
 // ScalarIndex says:
-// SAGA        [scale, gamma, gamma*lambda, 1/B, 1/N, sag, mode, aux];
 // SSNM        [scale, eta, eta*lambda, 1/B, 1/N, mode, tau, aux];
 // Point-SAGA  [scale, gamma, 1/B, 1/N, mode, aux].
 enum Method {
-  kSaga = 0,
   kSsnm = 8,
   kPointSaga = 9
 };
@@ -85,15 +81,15 @@ __host__ __device__ constexpr int row_values(Method M) {
 
 template <Method M>
 struct ScalarIndex {
-  static constexpr int kMode = M == kSaga ? 6 : (M == kSsnm ? 5 : 4);
-  static constexpr int kAux = (M == kSaga || M == kSsnm) ? 7 : 5;
+  static constexpr int kMode = M == kSsnm ? 5 : 4;
+  static constexpr int kAux = M == kSsnm ? 7 : 5;
 };
 
 // Shared memory: the tile (rows x n of T), then the point (n floats), then
 // per row dc, b, c, rs and (Point-SAGA) na (rows floats each); the per-row
-// values are fetched while the tile is in flight. c is the table (SAGA,
-// SSNM: refreshed by the formula; Point-SAGA: its prox solve), written
-// back; z is the point of the margins (y for SSNM, v for Point-SAGA).
+// values are fetched while the tile is in flight. c is the table (SSNM:
+// refreshed by the formula; Point-SAGA: its prox solve), written back; z
+// is the point of the margins (y for SSNM, v for Point-SAGA).
 // kPMode is Point-SAGA's oracle mode (the other methods read theirs from sc).
 template <Method M, typename T, bool kLowp, bool kVec, int kPMode>
 __global__ void __launch_bounds__(kRowThreads)
@@ -180,42 +176,11 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
   }
 }
 
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-saga_finish_kernel(const float* __restrict__ part, int parts,
-                   float* __restrict__ z, float* __restrict__ av,
-                   const float* __restrict__ sc,
-                   const float* __restrict__ wgts,
-                   const int* __restrict__ fclamp, int k, int n) {
-  if (masked(fclamp, k)) return;
-  int j;
-  float innov;
-  if (!column_sum(part, parts, n, j, innov)) return;
-  const float gamma = sc[1];
-  const float thr = sc[2];
-  const float inv_b = sc[3];
-  const float inv_n = sc[4];
-  const float sag = sc[5];
-  const float av_old = av[j];
-  const float z_old = z[j];
-  const float av_new = av_old + innov * inv_n;
-  const float wgt = wgts != nullptr ? wgts[k] : 1.0f;
-  // SAG refreshes the average before the direction, SAGA after; the weight
-  // scales the SAGA direction only, never the average's delta.
-  const float w = sag > 0.0f ? z_old - gamma * av_new
-                             : z_old - gamma * (innov * (wgt * inv_b) + av_old);
-  av[j] = av_new;
-  z[j] = soft_threshold(w, thr);
-}
-
-// SSNM's momentum point tau x + (1 - tau) zb and Point-SAGA's shifted
-// iterate x - gamma av, each rounded as the plain versions round them (no
-// contraction into an fma).
+// SSNM's momentum point tau x + (1 - tau) zb, rounded as the plain versions
+// round it (no contraction into an fma; Point-SAGA's shifted iterate is
+// row_ops.cuh shifted_point).
 __device__ __forceinline__ float momentum_point(float tau, float x, float zb) {
   return __fadd_rn(__fmul_rn(tau, x), __fmul_rn(1.0f - tau, zb));
-}
-__device__ __forceinline__ float shifted_point(float gamma, float x,
-                                               float av) {
-  return __fsub_rn(x, __fmul_rn(gamma, av));
 }
 
 // y <- the momentum point of step 0's block on every column.
@@ -286,9 +251,9 @@ point_saga_finish_kernel(const float* __restrict__ part, int parts,
   v[j] = shifted_point(gamma, x_new, av_new);
 }
 
-// The arguments of one call: K steps on one stream. SAGA: c the table, z the
-// iterate, av the running average. SSNM: c the table, z an (n,) scratch for
-// y, av the table mean gb, zb the (d, n) stored points, xi the iterate x.
+// The arguments of one call: K steps on one stream. SSNM: c the table, z an
+// (n,) scratch for y, av the table mean gb, zb the (d, n) stored points, xi
+// the iterate x.
 // Point-SAGA: c the table, z an (n,) scratch for v, av the table mean, xi
 // the iterate x, na the (N,) row square-norms.
 struct StepArgs {
@@ -299,7 +264,6 @@ struct StepArgs {
   float* z;
   float* av;
   const int* starts;
-  const float* wgts;
   const int* fclamp;
   const float* sc;
   float* part;
@@ -338,10 +302,7 @@ cudaError_t run_steps(const StepArgs& a) {
     kernel<<<parts, kRowThreads, smem, a.stream>>>(
         static_cast<const T*>(a.A), a.b, a.rs, a.na, a.c, a.z, a.starts,
         a.fclamp, k, a.sc, a.part, a.n, a.rows);
-    if constexpr (M == kSaga) {
-      saga_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.av, a.sc, a.wgts, a.fclamp, k, a.n);
-    } else if constexpr (M == kSsnm) {
+    if constexpr (M == kSsnm) {
       ssnm_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
           a.part, parts, a.z, a.xi, a.av, a.zb, a.starts, a.B, a.sc, a.fclamp,
           k, a.K, a.n);

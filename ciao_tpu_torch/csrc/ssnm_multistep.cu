@@ -31,7 +31,7 @@ extern "C" int ssnm_multistep_launch(const void* A, int storage, int lowp,
                                      const int* starts, const float* sc,
                                      float* part, int n, int B, int rows,
                                      int K, void* stream) {
-  StepArgs a{A, b, rs, c, y, gb, starts, nullptr, nullptr,
+  StepArgs a{A, b, rs, c, y, gb, starts, nullptr,
              sc, part, n, B, rows, K, static_cast<cudaStream_t>(stream)};
   a.zb = zb;
   a.xi = x;

@@ -26,7 +26,7 @@ extern "C" int ssnm_multistep_streamed_launch(
     float* c, float* zb, float* x, float* gb, float* y, const int* starts,
     const int* fclamp, const float* sc, float* part, int n, int B, int rows,
     int K, void* stream) {
-  StepArgs a{A, b, rs, c, y, gb, starts, nullptr, fclamp,
+  StepArgs a{A, b, rs, c, y, gb, starts, fclamp,
              sc, part, n, B, rows, K, static_cast<cudaStream_t>(stream)};
   a.zb = zb;
   a.xi = x;

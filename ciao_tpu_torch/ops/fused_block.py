@@ -8,15 +8,14 @@ run: the oracle formula modes and their values, Point-SAGA's per-row prox
 the kernels' gates, and nineteen hand-written CUDA kernels for Hopper
 beside their plain PyTorch versions:
 
-- ``saga_coeff_multistep`` (``csrc/saga_coeff_multistep.cu``),
-  ``ssnm_multistep`` (``csrc/ssnm_multistep.cu``),
-  ``ssnm_multistep_streamed`` (``csrc/ssnm_multistep_streamed.cu``),
-  ``point_saga_multistep`` (``csrc/point_saga_multistep.cu``) and
+- ``ssnm_multistep`` (``csrc/ssnm_multistep.cu``),
+  ``ssnm_multistep_streamed`` (``csrc/ssnm_multistep_streamed.cu``) and
   ``point_saga_multistep_streamed``
   (``csrc/point_saga_multistep_streamed.cu``): K block steps each, two
   launches a step, sharing their device code (``csrc/saga_steps.cuh``);
 - ``saga_coeff_multistep_streamed``
-  (``csrc/saga_coeff_multistep_streamed.cu``),
+  (``csrc/saga_coeff_multistep_streamed.cu``), and with it
+  ``saga_coeff_multistep`` (the same entry with no clamp count),
   ``svrg_coeff_multistep`` (``csrc/svrg_coeff_multistep.cu``),
   ``finito_coeff_multistep`` (``csrc/finito_coeff_multistep.cu``),
   ``lfinito_sweep_multistep`` (``csrc/lfinito_sweep_multistep.cu``),
@@ -25,10 +24,12 @@ beside their plain PyTorch versions:
   ``lsvrg_coeff_multistep`` (``csrc/lsvrg_coeff_multistep.cu``),
   ``lkatyusha_coeff_multistep`` (``csrc/lkatyusha_coeff_multistep.cu``),
   ``finito_coeff_multistep_streamed``
-  (``csrc/finito_coeff_multistep_streamed.cu``) and ``proshi_multistep``
-  (``csrc/proshi_multistep.cu``, K ProShI steps on the block table): K
-  block steps each, one cooperative launch a call on the persistent
-  engine of ``csrc/loopless_steps.cuh``;
+  (``csrc/finito_coeff_multistep_streamed.cu``), ``proshi_multistep``
+  (``csrc/proshi_multistep.cu``, K ProShI steps on the block table) and
+  ``point_saga_multistep`` (``csrc/point_saga_multistep.cu``, K
+  Point-SAGA steps, a prox solve a row): K block steps each, one
+  cooperative launch a call on the persistent engine of
+  ``csrc/loopless_steps.cuh``;
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
   over all rows, the anchors of the SVRG-shaped families, LFinito's and
   SARAH's, and the full gradient of forward-backward, Davis-Yin and
@@ -360,9 +361,6 @@ def saga_coeff_multistep_streamed_ref(A, b, starts, c, z, av, scalars,
 
 
 _ARGTYPES = {
-    # A, storage, lowp, b, rs, c, z, av, starts, wgts, sc, part, n, B, rows,
-    # K, stream
-    "saga_coeff_multistep": "PIIPPPPPPPPPIIIIP",
     # A, storage, lowp, b, rs, c, starts, f, wgts, z, av, sc, part, bar, n,
     # B, rows, ctas, stage_rows, stages, K, stream
     "saga_coeff_multistep_streamed": "PII" + "P" * 11 + "I" * 7 + "P",
@@ -408,9 +406,11 @@ _ARGTYPES = {
     # rows, K, stream
     "ssnm_multistep": "PII" + "P" * 10 + "IIII" + "P",
     "ssnm_multistep_streamed": "PII" + "P" * 11 + "IIII" + "P",
-    # A, storage, lowp, mode, b, rs, na, c, x, av, v, starts, [f,] sc, part,
+    # A, storage, lowp, b, rs, c, na, starts, mode, x, av, v, sc, part, bar,
+    # n, B, rows, ctas, stage_rows, stages, K, stream
+    "point_saga_multistep": "PII" + "P" * 5 + "I" + "P" * 6 + "I" * 7 + "P",
+    # A, storage, lowp, mode, b, rs, na, c, x, av, v, starts, f, sc, part,
     # n, B, rows, K, stream
-    "point_saga_multistep": "PIII" + "P" * 10 + "IIII" + "P",
     "point_saga_multistep_streamed": "PIII" + "P" * 11 + "IIII" + "P",
 }
 
@@ -492,7 +492,8 @@ def _check_blocks(A, b, starts, B, rs):
 
 
 def _check_steps(A, b, starts, B, rs, values: int = 4):
-    """Checks shared by the block-step kernels of ``saga_steps.cuh``;
+    """Checks shared by the block-step kernels of ``saga_steps.cuh`` (#19,
+    #13, #15);
     returns (n, K, rows per CTA, the (B / rows, n) partials scratch).
     ``values``: the f32 values the row phase stages per row (Point-SAGA's
     five)."""
@@ -522,19 +523,19 @@ def saga_coeff_multistep(A, b, starts, c, z, av, scalars, B: int,
 
     On an H100 the step is bound by bytes: it must read the block's rows,
     B·n·itemsize bytes — 16 MB f32, 4 MB int8 at the headline B = 4096,
-    n = 1024 — for 4·B·n flops. A TPU grid runs in order and carries z
-    and av between steps in VMEM; CUDA blocks do not, and step k+1's
-    margins need z after step k's prox, which needs the whole block's
-    reduction. So each step is two launches on one stream, queued from
-    the host with no sync. The row phase runs B/R CTAs (R = 32 rows at
-    the headline: 128 CTAs for 132 SMs); each copies its R contiguous
-    rows into shared memory with every 16-byte load in flight, so the
-    rows leave device memory once, and from there computes the margins,
-    the formula, the table write and a partial innovation. The finish
-    phase sums the partials in a fixed order (no atomics, so runs repeat
-    bit for bit) and applies the average, the direction and the prox. A
-    persistent kernel or a CUDA graph, which would remove the per-step
-    launch cost, is later work.
+    n = 1024 — for 4·B·n flops. A TPU grid runs in order and carries z,
+    av and the VMEM-resident table between steps; CUDA blocks do not, and
+    step k+1's margins need z after step k's prox, which needs the whole
+    block's reduction. The whole call is one cooperative launch of the
+    persistent engine (``csrc/loopless_steps.cuh``, method
+    ``kSagaSteps``): it is :func:`saga_coeff_multistep_streamed` with no
+    clamp count, the same C entry and builds, so on block-aligned starts
+    both give the same bits. The table is written every step and never
+    prefetched: the formula thread of a row reads its old coefficient
+    from L2 behind the barriers that end the previous step and writes the
+    new one before the step's first barrier, so revisits inside a call
+    read the previous visit's coefficients. A grid that cannot be
+    resident at once raises ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return saga_coeff_multistep_ref(A, b, starts, c, z, av, scalars, B,
@@ -542,18 +543,11 @@ def saga_coeff_multistep(A, b, starts, c, z, av, scalars, B: int,
                                         wgts=wgts)
     if A.device.type != "cuda":
         raise ValueError(f"saga_coeff_multistep: no kernel for {A.device}")
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    _check("c", c, f32, (A.shape[0],), dev)
-    _check("z", z, f32, (n,), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("scalars", scalars, f32, (8,), dev)
     if wgts is not None:
-        _check("wgts", wgts, f32, (K,), dev)
-    _call("saga_coeff_multistep", dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), c.data_ptr(),
-          z.data_ptr(), av.data_ptr(), starts.data_ptr(), _ptr(wgts),
-          scalars.data_ptr(), part.data_ptr(), n, B, rows, K)
+        _check("wgts", wgts, torch.float32, (starts.shape[0],), A.device)
+    _loopless_launch("saga_coeff_multistep_streamed", A, b, rs, dict(c=c),
+                     starts, B, precision, scalars, 8, (None, _ptr(wgts)),
+                     dict(z=z, av=av))
     saga_coeff_multistep.launches += 1
     saga_coeff_multistep.steps += starts.shape[0]
     saga_coeff_multistep.weighted_launches += wgts is not None
@@ -1796,10 +1790,10 @@ def sarah_inner_chunked(A, b, ww, v, scalars, B: int, starts,
     return ww, v, m
 
 
-# The persistent engine of kernels #4, #5, #8, #9, #10, #11, #16 and #17
-# (``csrc/loopless_steps.cuh``): one cooperative launch a call,
-# LOOPLESS_THREADS consumer threads and one producer warp a CTA, a ring of 2
-# to LOOPLESS_MAX_STAGES stages of whole rows (as many as fit
+# The persistent engine of kernels #3, #4, #5, #8, #9, #10, #11, #12, #14,
+# #16, #17 and #18 (``csrc/loopless_steps.cuh``): one cooperative launch a
+# call, LOOPLESS_THREADS consumer threads and one producer warp a CTA, a ring
+# of 2 to LOOPLESS_MAX_STAGES stages of whole rows (as many as fit
 # LOOPLESS_STAGE_BYTES, at most LOOPLESS_MAX_STAGE_ROWS) in shared memory,
 # one stage where two do not fit beside SARAH's two points.
 LOOPLESS_THREADS = 256
@@ -1891,13 +1885,14 @@ def _grid_barrier(index: int, stream: int):
 
 def _loopless_launch(name, A, b, rs, table, starts, B, precision, scalars,
                      n_sc, before, vectors, points: int = 1, lowp=None):
-    """Check the arguments of a kernel of the persistent engine (#4, #5,
-    #8, #9, #10, #11, #14, #16, #17, #18) and make its one cooperative
-    launch on the current stream. ``table``: the (N,) f32 coefficients,
-    by name (SARAH has none: empty; ProShI's γ); ``before``: the C call's
-    pointers between ``starts`` and the vectors (the stop index or clamp
-    count, SAGA's weights, SARAH's pair, the Finitos' anchors and Σ 1/γ,
-    LFinito's Σ 1/γ, ProShI's table), checked by the caller; ``vectors``:
+    """Check the arguments of a kernel of the persistent engine (#3, #4,
+    #5, #8, #9, #10, #11, #12, #14, #16, #17, #18) and make its one
+    cooperative launch on the current stream. ``table``: the (N,) f32
+    coefficients, by name (SARAH has none: empty; ProShI's γ; Point-SAGA's
+    c and ‖a_i‖²); ``before``: the C call's arguments between ``starts``
+    and the vectors (the stop index or clamp count, SAGA's weights,
+    SARAH's pair, the Finitos' anchors and Σ 1/γ, LFinito's Σ 1/γ,
+    ProShI's table, Point-SAGA's mode), checked by the caller; ``vectors``:
     the (n,) f32 tensors after them, by name, in its order; ``points``:
     the points the margins are taken at (SARAH's two); ``lowp``: whether
     the dots round to bf16, by default as ``precision`` and the rows
@@ -2168,8 +2163,8 @@ def ssnm_multistep(A, b, starts, c, zb, x, gb, scalars, B: int,
     CPU tensors take the plain version :func:`ssnm_multistep_ref`; CUDA
     tensors launch the kernel or raise.
 
-    The step is :func:`saga_coeff_multistep`'s at the point y
-    (``csrc/saga_steps.cuh``, method ``kSsnm``): bound by the block's
+    The step is SAGA's at the point y (``csrc/saga_steps.cuh``, method
+    ``kSsnm``, two launches a step): bound by the block's
     rows, B·n·itemsize bytes (16 MB f32, 4 MB int8 at the 262,144 ×
     1,024 headline's B = 4,096), plus the block's stored point read and
     written. y is formed once per step into an (n,) scratch: a prologue
@@ -2230,6 +2225,8 @@ def ssnm_multistep_streamed(A, b, starts, c, zb, x, gb, scalars, B: int,
 
 
 POINTPROX_NEWTON_STEPS = 20  # Newton steps of the logistic and Poisson θ
+_POINTPROX_MODES = (MODE_LSQ, MODE_LOGISTIC, MODE_HUBER, MODE_SQHINGE,
+                    MODE_POISSON)  # the oracle formulas with a θ-solve
 
 
 def pointprox_theta(mode: int, mz, b, na, c_old, scale, gamma, aux=0.0):
@@ -2323,28 +2320,6 @@ def point_saga_multistep_streamed_ref(A, b, na, c, starts, x, av, scalars,
                                  "point_saga_multistep_streamed_ref")
 
 
-def _launch_point_saga(name, A, b, na, c, starts, x, av, scalars, B, mode,
-                       precision, rs, fclamp=()):
-    """Check the arguments of a Point-SAGA kernel of ``saga_steps.cuh``
-    and queue its 2K + 1 launches on the current stream."""
-    if mode not in (MODE_LSQ, MODE_LOGISTIC, MODE_HUBER, MODE_SQHINGE,
-                    MODE_POISSON):
-        raise ValueError(f"no Point-SAGA θ for oracle mode {mode}")
-    n, K, rows, part = _check_steps(A, b, starts, B, rs, values=5)
-    dev, f32 = A.device, torch.float32
-    _check("na", na, f32, (A.shape[0],), dev)
-    _check("c", c, f32, (A.shape[0],), dev)
-    _check("x", x, f32, (n,), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("scalars", scalars, f32, (6,), dev)
-    v = torch.empty(n, dtype=f32, device=dev)
-    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          int(_lowp(A, precision)), int(mode), b.data_ptr(), _ptr(rs),
-          na.data_ptr(), c.data_ptr(), x.data_ptr(), av.data_ptr(),
-          v.data_ptr(), starts.data_ptr(), *fclamp, scalars.data_ptr(),
-          part.data_ptr(), n, B, rows, K)
-
-
 def point_saga_multistep(A, b, na, c, starts, x, av, scalars, B: int,
                          mode: int = MODE_LSQ, precision: str = "highest",
                          rs=None):
@@ -2368,16 +2343,27 @@ def point_saga_multistep(A, b, na, c, starts, x, av, scalars, B: int,
     CUDA tensors launch the kernel or raise.
 
     The step is :func:`saga_coeff_multistep`'s with the coefficient
-    formula replaced by the θ-solve (``csrc/saga_steps.cuh``, method
-    ``kPointSaga``): bound by the block's rows, B·n·itemsize bytes (16 MB
-    f32, 4 MB int8 at the headline), plus b, na, rs and the c slice. The
-    solve is a template parameter of the row phase, one instantiation per
-    mode with a host dispatch per call (the TPU kernel specializes
-    statically too: a dynamic select measured +25 % there on least
-    squares). Logistic and Poisson run 20 Newton steps per row, a few
-    ``expf`` each, on the warp after its margin reduction. v is formed
-    once per step into an (n,) scratch: a prologue launch forms step 0's,
-    each finish the next step's after writing x and av.
+    formula replaced by the θ-solve: bound by the block's rows,
+    B·n·itemsize bytes (16 MB f32, 4 MB int8 at the headline), plus b,
+    na, rs and the c slice. The whole call is one cooperative launch of
+    the persistent engine (``csrc/loopless_steps.cuh``, method
+    ``kPointSagaSteps``). Every CTA forms step 0's v from x and av; each
+    finish writes x, av and the next step's v for its columns. The table
+    is written in the call and never prefetched (the formula thread of a
+    row reads c_old behind the barriers), the square-norms ride the
+    producer's ring beside b and rs. Logistic and Poisson rows take 20
+    Newton steps a row (an ``expf`` and two IEEE divisions each), a chain
+    of 4.2-4.5 µs on an H100, so where a step has several stages their
+    step takes the margins of all its stages first, then solves every row
+    of the CTA's share at once, a thread a row, and then adds the stages
+    into its column sums: one chain a step, where the step's stages fit
+    the ring, a thread takes a row and n ≤ 4,096 (every storage at n =
+    1,024 and B = 4,096 or 1,024, and at n = 128; f32 rows of 2,048
+    columns or more at B = 4,096 take one chain a stage). The closed
+    forms take a stage at a time, as the other formulas do. The mode is a value of the call (one build for all five
+    formulas: a uniform branch a row, where the TPU kernel specializes
+    statically). A grid that cannot be resident at once raises
+    ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return point_saga_multistep_ref(A, b, na, c, starts, x, av, scalars,
@@ -2385,8 +2371,12 @@ def point_saga_multistep(A, b, na, c, starts, x, av, scalars, B: int,
                                         rs=rs)
     if A.device.type != "cuda":
         raise ValueError(f"point_saga_multistep: no kernel for {A.device}")
-    _launch_point_saga("point_saga_multistep", A, b, na, c, starts, x, av,
-                       scalars, B, mode, precision, rs)
+    if mode not in _POINTPROX_MODES:
+        raise ValueError(f"no Point-SAGA θ for oracle mode {mode}")
+    v = torch.empty_like(x)
+    _loopless_launch("point_saga_multistep", A, b, rs, dict(c=c, na=na),
+                     starts, B, precision, scalars, 6, (int(mode),),
+                     dict(x=x, av=av, v=v))
     point_saga_multistep.launches += 1
     point_saga_multistep.steps += starts.shape[0]
     return c, x, av
@@ -2408,9 +2398,12 @@ def point_saga_multistep_streamed(A, b, na, c, starts, x, av, scalars,
     :func:`point_saga_multistep_streamed_ref`; CUDA tensors launch the
     kernel or raise.
 
-    As for :func:`ssnm_multistep_streamed`, the table lives in device
-    memory and the launches are stream-ordered, so the port's driver
-    launches with ``f`` = None and the masked steps stay a tested option.
+    It runs on the two-launch engine (``csrc/saga_steps.cuh``, method
+    ``kPointSaga``: a row phase and a finish a step, the θ-solve a
+    template of the row phase). As for :func:`ssnm_multistep_streamed`,
+    the table lives in device memory and the launches are stream-ordered,
+    so the port's driver launches with ``f`` = None and the masked steps
+    stay a tested option.
     At the 10,485,760 × 128 deep target (B = 8,192) a step reads 4 MB of
     f32 rows (1 MB int8).
     """
@@ -2421,9 +2414,22 @@ def point_saga_multistep_streamed(A, b, na, c, starts, x, av, scalars,
     if A.device.type != "cuda":
         raise ValueError(f"point_saga_multistep_streamed: no kernel for "
                          f"{A.device}")
+    if mode not in _POINTPROX_MODES:
+        raise ValueError(f"no Point-SAGA θ for oracle mode {mode}")
     f = _check_f(f, A.device)
-    _launch_point_saga("point_saga_multistep_streamed", A, b, na, c, starts,
-                       x, av, scalars, B, mode, precision, rs, (_ptr(f),))
+    n, K, rows, part = _check_steps(A, b, starts, B, rs, values=5)
+    dev, f32 = A.device, torch.float32
+    _check("na", na, f32, (A.shape[0],), dev)
+    _check("c", c, f32, (A.shape[0],), dev)
+    _check("x", x, f32, (n,), dev)
+    _check("av", av, f32, (n,), dev)
+    _check("scalars", scalars, f32, (6,), dev)
+    v = torch.empty(n, dtype=f32, device=dev)
+    _call("point_saga_multistep_streamed", dev, A.data_ptr(),
+          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), int(mode),
+          b.data_ptr(), _ptr(rs), na.data_ptr(), c.data_ptr(), x.data_ptr(),
+          av.data_ptr(), v.data_ptr(), starts.data_ptr(), _ptr(f),
+          scalars.data_ptr(), part.data_ptr(), n, B, rows, K)
     point_saga_multistep_streamed.launches += 1
     point_saga_multistep_streamed.steps += starts.shape[0]
     return c, x, av

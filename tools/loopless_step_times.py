@@ -4,13 +4,14 @@ of one checkout of the port on one NVIDIA GPU, so that two versions can be
 compared in one call: #16 (``lsvrg_coeff_multistep``) and #17
 (``lkatyusha_coeff_multistep``), #5 (``svrg_coeff_multistep``), #10
 (``katyusha_coeff_multistep``), #11 (``sarah_multistep``) and #9
-(``finito_coeff_multistep``) at the headline, #4
+(``finito_coeff_multistep``), #3 (``saga_coeff_multistep``) and #12
+(``point_saga_multistep``) at the headline, #4
 (``saga_coeff_multistep_streamed``), #8 (``lfinito_sweep_multistep``) and
 #14 (``finito_coeff_multistep_streamed``) at the deep target, and #18
 (``proshi_multistep``) at the ProShI configuration.
 
     python3 tools/loopless_step_times.py [--root DIR] [--tag NAME] [--seed 0]
-                                         [--kernels 16,17,5,4,10,11,9,8,18,14]
+        [--kernels 16,17,5,4,10,11,9,8,18,14,3,12] [--profile]
 
 Builds the kernels from ``DIR/ciao_tpu_torch/csrc`` (default: this
 checkout; all at once, one ``nvcc`` each) with that checkout's
@@ -18,7 +19,8 @@ checkout; all at once, one ``nvcc`` each) with that checkout's
 helpers are this checkout's ``chip_smoke.py`` (``vr_inputs``,
 ``vr_scalars``, ``vr_call``, ``svrg_inputs``, ``kernel_inputs``,
 ``finito_inputs``, ``lfinito_inputs``, ``proshi_inputs``,
-``run_proshi_kernel``, ``step_bound``). Times each kernel
+``run_proshi_kernel``, ``row_oracle``, ``ps_inputs``, ``ps_call``,
+``step_bound``). Times each kernel
 per step by CUDA events, two turns each, one state stepped on in place:
 
 - #16 and #17 alternating, in calls of K = 32 steps (``LOOPLESS_LAUNCH``,
@@ -53,14 +55,23 @@ per step by CUDA events, two turns each, one state stepped on in place:
   in calls of K = 128 (``LAUNCH_STEPS``) on the cyclic sweep of its d = 16
   blocks (each visited eight times a call); its bound counts every step's
   block rows, table rows read and written, b, γ (and rs), as a step must
-  move them (the table rows change every visit).
-The wrappers of #9, #8, #14 and #18 from before they joined the engine take
-the same arguments too.
+  move them (the table rows change every visit);
+- #3 on the headline's rows, f32, bf16 and int8, at B = 4,096 (the SAGA
+  headline) and 1,024 (the facades' batch) in calls of K = 128
+  (``LAUNCH_STEPS``, a call of ``saga_run``), least squares, blocks drawn
+  with repeats;
+- #12 on the headline's rows with least-squares and logistic rows (labels
+  sign(b); γ as ``chip_smoke.run_new_headline``'s), f32, bf16 and int8, at
+  B = 4,096 and 1,024 in calls of K = 128 (a call of ``point_saga_run``):
+  logistic minus least squares is what the Newton solves cost a step.
+The wrappers of #3, #9, #8, #12, #14 and #18 from before they joined the
+engine take the same arguments too.
 
 Beside each time: the step's bound at 3.35 TB/s and its bytes at the card's
 read ceiling (``torch.sum`` over 2 GiB of f32, measured in the same
-process), and the card's name and power limit. With ``--profile``, #18's
-and #14's entries also hold one call traced by ``torch.profiler``: the
+process), and the card's name and power limit. With ``--profile``, #18's,
+#14's and #12's (f32, B = 4,096, both modes) entries also hold one call
+traced by ``torch.profiler``: the
 device time a step by kernel, the host clock's time a step and the rest
 (gaps: launches, barriers the trace does not see), and, where the
 profiler's CUPTI metrics are given, the DRAM bytes a step
@@ -95,6 +106,9 @@ DEEP_N, DEEP_n, DEEP_B = 10 * 1024 * 1024, 128, 8_192
 FINITO_BATCHES = (("headline", 4_096), ("facades", 1_024))
 LFINITO_STEPS = 512  # fused_block.LFINITO_CHUNK
 PROSHI_N, PROSHI_B = 65_536, 4_096  # chip_smoke.PROSHI
+# Point-SAGA's modes and their γ = 1/(c·max ‖a_i‖²·N) (chip_smoke's
+# run_new_headline)
+PS_MODES = (("lsq", 3.0), ("logistic", 0.75))
 DRAM_METRICS = ("dram__bytes_read.sum", "dram__bytes_write.sum")
 PROFILE = False  # --profile
 
@@ -397,6 +411,66 @@ def time_proshi(out, cs, fb, A, b, gen, dev, ceil):
         torch.cuda.empty_cache()
 
 
+def time_saga(out, cs, fb, A, b, gen, dev, ceil):
+    """#3 at the headline at both batches in calls of CALL_STEPS steps."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    gamma = 1.0 / (3.0 * float((A * A).sum(1).max()) * N)
+    for storage in ("f32", "bf16", "int8"):
+        F = LeastSquaresRows(A, b, float(N))
+        if storage != "f32":
+            F = F.with_storage(storage)
+        rows, offs = F.coeff_rows_data()
+        rs = F.coeff_rows_scale()
+        for shape, B in FINITO_BATCHES:
+            c, z, av, starts, sc, _ = cs.kernel_inputs(
+                F, gamma, gen, dev, B, CALL_STEPS, False, False)
+
+            def call(c=c, z=z, av=av, starts=starts, sc=sc, B=B):
+                fb.saga_coeff_multistep(rows, offs, starts, c, z, av, sc, B,
+                                        rs=rs)
+            ms = [cs.time_events(call, 5) / CALL_STEPS for _ in range(2)]
+            if not bool(torch.isfinite(z).all()):
+                raise AssertionError(f"#3 {storage} B={B}: non-finite z")
+            # rows, b, c read and written of the visited blocks; z and av in
+            # and out
+            _record(out, cs, F, starts, B, 4 * 4 * n, 12, ceil, kernel="#3",
+                    shape=shape, storage=storage, K=CALL_STEPS, ms=ms)
+        del F
+        torch.cuda.empty_cache()
+
+
+def time_point_saga(out, cs, fb, A, b, gen, dev, ceil):
+    """#12 at the headline, least-squares and logistic rows, at both
+    batches in calls of CALL_STEPS steps."""
+    Lm = float((A * A).sum(1).max()) * N
+    for storage in ("f32", "bf16", "int8"):
+        for kind, cg in PS_MODES:
+            F, _ = cs.row_oracle(kind, A, b, gen)
+            if storage != "f32":
+                F = F.with_storage(storage)
+            for shape, B in FINITO_BATCHES:
+                S = cs.ps_inputs(F, gen, dev, B, CALL_STEPS, 1.0 / (cg * Lm))
+                state = [t.clone() for t in S["state"]]
+
+                def call(S=S, B=B, state=state):
+                    cs.ps_call(fb.point_saga_multistep, F, S, B, state=state)
+                ms = [cs.time_events(call, 5) / CALL_STEPS for _ in range(2)]
+                if not all(bool(torch.isfinite(t).all()) for t in state):
+                    raise AssertionError(f"#12 {kind} {storage} B={B}: "
+                                         "non-finite state")
+                extra = (dict(profile=_profile(call, CALL_STEPS))
+                         if PROFILE and storage == "f32" and B == 4_096
+                         else {})
+                # rows, b, na and c read and written of the visited blocks;
+                # x and av in and out
+                _record(out, cs, F, S["starts"], B, 16 * n, 16, ceil,
+                        kernel="#12", mode=kind, shape=shape,
+                        storage=storage, K=CALL_STEPS, ms=ms, **extra)
+            del F
+            torch.cuda.empty_cache()
+
+
 def time_saga_deep(out, cs, fb, A, b, gen, dev, ceil):
     """#4 at the deep target's shape in calls of CALL_STEPS steps."""
     from ciao_tpu_torch.oracles import LeastSquaresRows
@@ -431,11 +505,11 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(HERE))
     ap.add_argument("--tag", default="")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="16,17,5,4,10,11,9,8,18,14",
+    ap.add_argument("--kernels", default="16,17,5,4,10,11,9,8,18,14,3,12",
                     help="which of #16/#17 (together), #5, #4, #10/#11 "
-                         "(together), #9, #8, #18, #14 to time")
+                         "(together), #9, #8, #18, #14, #3, #12 to time")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one call of #18 and of #14 as well")
+                    help="trace one call of #18, #14 and #12 as well")
     args = ap.parse_args()
     global PROFILE
     PROFILE = args.profile
@@ -465,6 +539,13 @@ def main() -> int:
     names += ["lfinito_sweep_multistep"] if "8" in which else []
     names += ["proshi_multistep"] if "18" in which else []
     names += ["finito_coeff_multistep_streamed"] if "14" in which else []
+    # #3's C entry: its own source, or #4's where the checkout has none
+    own = os.path.exists(os.path.join(_build.CSRC, "saga_coeff_multistep.cu"))
+    names += ([("saga_coeff_multistep" if own
+                else "saga_coeff_multistep_streamed")] if "3" in which
+              else [])
+    names += ["point_saga_multistep"] if "12" in which else []
+    names = list(dict.fromkeys(names))
     with ThreadPoolExecutor(max(1, len(names))) as pool:
         list(pool.map(_build.build, names))
     for name in names:
@@ -489,6 +570,10 @@ def main() -> int:
         time_finito(out, cs, fb, A, b, gen, dev, ceil)
     if "18" in which:
         time_proshi(out, cs, fb, A, b, gen, dev, ceil)
+    if "3" in which:
+        time_saga(out, cs, fb, A, b, gen, dev, ceil)
+    if "12" in which:
+        time_point_saga(out, cs, fb, A, b, gen, dev, ceil)
     del A, b
     torch.cuda.empty_cache()
     if which & {"4", "8", "14"}:

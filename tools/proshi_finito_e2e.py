@@ -69,6 +69,31 @@ def main() -> int:
     return 0
 
 
+def drive(cs, card: str, label: str, run, st0, steps: int, objective,
+          groups: dict) -> dict:
+    """One run's record: ``run(st0, steps)`` by the host clock around a
+    synchronize (after a one-step call that builds and warms the kernel),
+    the objective before and after (it must fall), and a window of WINDOW
+    steps profiled (``cs.profile_steps``: the device's busy time by
+    ``groups`` and the idle share)."""
+    obj0 = objective(st0)
+    run(st0, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(st0, steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    obj1 = objective(st)
+    if not (math.isfinite(obj1) and obj1 < obj0):
+        raise AssertionError(f"{label}: objective {obj0} -> {obj1}")
+    prof = cs.profile_steps(label, lambda: run(st0, WINDOW), WINDOW, card,
+                            groups)
+    return dict(run=label, steps=steps, ms_per_step=ms,
+                objective=[obj0, obj1], profiled_ms=prof["step"],
+                busy_ms=prof["busy"], idle=1.0 - prof["busy"] / prof["step"],
+                split={k: prof[k] for k in groups})
+
+
 def measure(cs, dev, gen, card: str) -> list:
     """The runs' records (``cs``: a ``chip_smoke`` module)."""
     from ciao_tpu_torch.solvers.finito import (
@@ -80,24 +105,8 @@ def measure(cs, dev, gen, card: str) -> list:
 
     runs = []
 
-    def drive(label, run, st0, steps, objective, groups):
-        obj0 = objective(st0)
-        run(st0, 1)  # builds and warms the kernel
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = run(st0, steps)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / steps
-        obj1 = objective(st)
-        if not (math.isfinite(obj1) and obj1 < obj0):
-            raise AssertionError(f"{label}: objective {obj0} -> {obj1}")
-        prof = cs.profile_steps(label, lambda: run(st0, WINDOW), WINDOW,
-                                card, groups)
-        runs.append(dict(
-            run=label, steps=steps, ms_per_step=ms, objective=[obj0, obj1],
-            profiled_ms=prof["step"], busy_ms=prof["busy"],
-            idle=1.0 - prof["busy"] / prof["step"],
-            split={k: prof[k] for k in groups}))
+    def drive_run(*a):
+        runs.append(drive(cs, card, *a))
 
     P = cs.PROSHI
     g = cs.coupling("IndBox", dev)
@@ -107,7 +116,7 @@ def measure(cs, dev, gen, card: str) -> list:
         cfg = ProshiCfg(N=P["N"], batch=P["B"], sweeping=2, alpha=0.999,
                         fused=True)
         st0 = proshi_init(F, g, x0, 0.999 * P["N"] / L, 0, cfg)
-        drive(f"ProShI cyclic {storage}",
+        drive_run(f"ProShI cyclic {storage}",
               lambda st, k, F=F, cfg=cfg: proshi_run(F, g, st, cfg, k),
               st0, P["steps"], lambda st, F=F: cs.sharing_obj(F, g, st),
               {"kernel #18": ("proshi", "loopless_steps", "table_rows")})
@@ -122,7 +131,7 @@ def measure(cs, dev, gen, card: str) -> list:
         cfg = FinitoCfg(N=Nd, batch=Bd, sweeping=3, alpha=0.999,
                         fused_stream=True)
         st0 = finito_coeff_init(F, gd, xd, 0.999 * Nd / prob.L, 0, cfg)
-        drive(f"streamed Finito deep {storage}",
+        drive_run(f"streamed Finito deep {storage}",
               lambda st, k, F=F, cfg=cfg: finito_run(F, gd, st, cfg,
                                                      "basic_coeff", k),
               st0, cs.DEEP_FINITO_EPOCHS * (Nd // Bd),
