@@ -12,8 +12,9 @@ of PERF.md: #3 is its entry with no clamp count), ``svrg_coeff_multistep.cu``
 (kernel #2), ``saga_block_update.cu`` (kernel #1), ``proshi_multistep.cu``
 (kernel #18), ``katyusha_coeff_multistep.cu`` (kernel #10),
 ``sarah_multistep.cu`` (kernel #11), ``lsvrg_coeff_multistep.cu`` (kernel
-#16), ``lkatyusha_coeff_multistep.cu`` (kernel #17), ``ssnm_multistep.cu``
-(kernel #19), ``ssnm_multistep_streamed.cu`` (kernel #13),
+#16), ``lkatyusha_coeff_multistep.cu`` (kernel #17),
+``ssnm_multistep_streamed.cu`` (kernels #13 and #19: #19 is its entry with
+no clamp count),
 ``point_saga_multistep.cu`` (kernel #12),
 ``point_saga_multistep_streamed.cu`` (kernel #15) and
 ``coeff_value_apply_all.cu`` (kernel #7):
@@ -71,7 +72,7 @@ of PERF.md: #3 is its entry with no clamp count), ``svrg_coeff_multistep.cu``
 Phases, one line each:
 
   1. device: CUDA present (else exit 2), the card's name and power limit;
-  2. build: the nineteen kernels' eighteen sources compiled by nvcc from
+  2. build: the nineteen kernels' seventeen sources compiled by nvcc from
      this checkout, in parallel;
   3. kernel #3 == plain version: f32/bf16/int8 rows, SAGA and SAG, with and
      without direction weights, at a small shape (and at widths that are not
@@ -182,15 +183,18 @@ Phases, one line each:
      int8 rows, bf16 for least squares and logistic, #15 with f = 23; the
      K-step calls equal to their one-step calls and the masked steps, bit
      for bit; K = 8 at the headline and (inside 4g's block) at the deep
-     shape; #12 with logistic f32 and int8 rows at the persistent engine's
-     edges (LOOPLESS_EDGES);
+     shape; #19 with f32 and int8 rows, #13 with f32 rows and a clamp
+     count, and #12 with logistic f32 and int8 rows at the persistent
+     engine's edges (LOOPLESS_EDGES);
   4p, 4r. (on the deep target, after 4g) SSNM on #13 and least-squares
      Point-SAGA on #15, f32 and int8, two epochs each, and #13 and #15 per
-     step in turns with their plain version;
+     step in turns with their plain version; a window of each profiled
+     (SSNM's showing one launch of the persistent engine a kernel #13 call
+     and no kernel of the two-launch engine);
   4o, 4q. SSNM and Point-SAGA at the headline with launch counts, falling
-     objectives, ms per step and a profiled window each (Point-SAGA's,
-     reported in phase 10, showing one launch of the persistent engine a
-     kernel #12 call and no kernel of the two-launch engine);
+     objectives, ms per step and a profiled window each (reported in phase
+     10, showing one launch of the persistent engine a kernel #19 or #12
+     call and no kernel of the two-launch engine);
   4s. the ``SSNM`` (cost − f*) and ``PointSAGA`` (mean gradient) facades
      on the planted Lasso against the folds of a CPU run of the same seed;
   4t. ``deep_solve`` on logistic rows (2,048 x 32) to rel <= 1e-6 of the
@@ -3053,15 +3057,17 @@ VR_GROUPS = {kind: {"kernel #6": ("apply_",),
                     f"kernel {label}": ("loopless_steps_kernel",)}
              for kind, (_, label) in VR.items()}
 # the two-launch engines' kernels, which no window of a kernel of the
-# persistent engine (#3, #4, #5, #8, #9, #10, #11, #12, #14, #16, #17, #18)
-# may show (by function name: kernel #6's apply_rows_kernel is not one of
-# them; the finish and prologue kernels that #3, #9, #8, #12, #14 and #18
-# launched before they joined the engine, and #18's table walk, among them)
+# persistent engine (#3, #4, #5, #8, #9, #10, #11, #12, #13, #14, #16, #17,
+# #18, #19) may show (by function name: kernel #6's apply_rows_kernel is not
+# one of them; the finish and prologue kernels that #3, #9, #8, #12, #13,
+# #14, #18 and #19 launched before they joined the engine, and #18's table
+# walk, among them)
 TWO_LAUNCH = ("rows_kernel", "saga_finish_kernel", "svrg_finish_kernel",
               "point_kernel", "finito_finish_kernel",
               "lfinito_finish_kernel", "prox_kernel", "proshi_finish_kernel",
               "table_rows_kernel", "point_saga_finish_kernel",
-              "shifted_point_kernel")
+              "shifted_point_kernel", "ssnm_point_kernel",
+              "ssnm_finish_kernel")
 
 
 def check_one_launch(tag: str, prof: dict, label: str, calls: int) -> None:
@@ -3188,11 +3194,12 @@ def margin_rows(gen, dev, rows: int, cols: int, kind: str, storage: str):
     return (F if storage == "f32" else F.with_storage(storage)), Lmax
 
 
-def ssnm_inputs(F, gen, dev, B_: int, K: int, tau: float, lam: float):
+def ssnm_inputs(F, gen, dev, B_: int, K: int, tau: float, lam: float,
+                distinct=False):
     """An SSNM-like state on the card: x small and random, c its
     coefficients, gb their mean row gradient, the stored points near x,
-    K block starts (repeats included) and the scalars row at η =
-    1/(3τL_max)."""
+    K block starts (repeats included unless ``distinct``) and the scalars
+    row at η = 1/(3τL_max)."""
     from ciao_tpu_torch.solvers.saga import block_starts
 
     rows, offs = F.coeff_rows_data()
@@ -3208,8 +3215,10 @@ def ssnm_inputs(F, gen, dev, B_: int, K: int, tau: float, lam: float):
     sc = torch.tensor([float(F.scale), eta, eta * lam, 1.0 / B_, 1.0 / N_,
                        float(F.coeff_mode), tau, 0.0], dtype=torch.float32,
                       device=dev)
-    return dict(state=(c, zb, x, F.apply_all(c) / N_), sc=sc,
-                starts=block_starts(seed, 1, K, N_ // B_, B_, dev))
+    starts = (((torch.randperm(N_ // B_, generator=gen, device=dev)[:K]
+                * B_).to(torch.int32)) if distinct
+              else block_starts(seed, 1, K, N_ // B_, B_, dev))
+    return dict(state=(c, zb, x, F.apply_all(c) / N_), sc=sc, starts=starts)
 
 
 def ssnm_call(fn, F, S, B_, precision="highest", starts=None, state=None,
@@ -3369,8 +3378,9 @@ def compare_ps(F, Lmax, gen, dev, B_, K, precision, tag, streamed=False,
 def phase_check_new(gen, dev) -> dict:
     """3o-3p: kernels #19 and #13 against their plain version in f32
     "highest" and "default", bf16 and int8 rows at τ = 0.5 and τ = 1, #13
-    with f = K and f = 23, the bit-for-bit identities, and K = 8 at the
-    headline; kernels #12 and #15 in all five oracle modes with f32 and
+    with f = K and f = 23, the bit-for-bit identities, K = 8 at the
+    headline, and at the persistent engine's edges (#19 f32 and int8, #13
+    f32 with the edge's clamp count); kernels #12 and #15 in all five oracle modes with f32 and
     int8 rows (and bf16 for least squares and logistic, "default" for
     least squares) step by step, #15 masked, and K = 8 at the headline."""
     s = NEW_SMALL
@@ -3426,8 +3436,18 @@ def phase_check_new(gen, dev) -> dict:
                     f"{storage}"))
             del F
         torch.cuda.empty_cache()
-    for N_, n_, B_, K_, _ in LOOPLESS_EDGES:
+    for N_, n_, B_, K_, f_ in LOOPLESS_EDGES:
         for storage in ("f32", "int8"):
+            F, _, _ = lasso(gen, dev, N_, n_, storage)
+            tag = f"N={N_} n={n_} B={B_} K={K_} {storage}"
+            errs["ssnm_multistep"] = max(errs["ssnm_multistep"], compare_ssnm(
+                F, gen, dev, B_, K_, 0.5, "highest", f"#19 {tag}"))
+            if storage == "f32":
+                errs["ssnm_multistep_streamed"] = max(
+                    errs["ssnm_multistep_streamed"], compare_ssnm(
+                        F, gen, dev, B_, K_, 0.5, "highest",
+                        f"#13 {tag} f={f_}", streamed=True, f=f_))
+            del F
             F, Lm = margin_rows(gen, dev, N_, n_, "logistic", storage)
             errs["point_saga_multistep"] = max(
                 errs["point_saga_multistep"], compare_ps(
@@ -3438,7 +3458,8 @@ def phase_check_new(gen, dev) -> dict:
     return errs
 
 
-SSNM_GROUPS = {"kernel #19": ("rows_kernel", "ssnm_")}
+SSNM_GROUPS = {"kernel #19": ("loopless_steps_kernel",)}
+SSNM_STREAM_GROUPS = {"kernel #13": ("loopless_steps_kernel",)}
 PS_GROUPS = {"kernel #12": ("loopless_steps_kernel",)}
 PS_STREAM_GROUPS = {"kernel #15": ("rows_kernel", "point_saga_finish",
                                    "shifted_point")}
@@ -3548,9 +3569,9 @@ def run_new_headline(gen, dev, card: str) -> dict:
         g = NormL1(torch.tensor(LAM, dtype=torch.float32, device=dev))
         r = run_ssnm(F, g, float(L.max()), B, NEW_STEPS, False,
                      f"headline {storage}", card)
-        r["prof"] = profile_steps(f"SSNM at the headline, {storage} rows",
-                                  lambda: r["run"](128), 128, card,
-                                  SSNM_GROUPS)
+        r["prof"] = profile_one_launch(
+            f"SSNM at the headline, {storage} rows", lambda: r["run"](128),
+            128, card, SSNM_GROUPS, "kernel #19", "ssnm_multistep")
         out["ssnm", storage] = r
         del F
     for kind, storage in (("lsq", "f32"), ("lsq", "int8"),
@@ -4247,8 +4268,10 @@ REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
 
 
 # the source of each kernel's C entry, by kernel (csrc/<name>.cu but for
-# #3, whose wrapper launches #4's entry with no clamp count)
-SOURCE = {"saga_coeff_multistep": "saga_coeff_multistep_streamed"}
+# #3 and #19, whose wrappers launch #4's and #13's entries with no clamp
+# count)
+SOURCE = {"saga_coeff_multistep": "saga_coeff_multistep_streamed",
+          "ssnm_multistep": "ssnm_multistep_streamed"}
 SOURCES = tuple(dict.fromkeys(SOURCE.get(k, k) for k in KERNELS))
 
 
@@ -4535,11 +4558,14 @@ def main() -> int:
                                            "ps", gen, dev,
                                            f"kernel #15, lsq {tag}", card)
     for (fam, storage), r in newdeep["runs"].items():
-        profile_steps(f"{'SSNM' if fam == 'ssnm' else 'Point-SAGA'} at the "
-                      f"deep target, {storage} rows",
-                      lambda: r["run"](128), 128, card,
-                      {"kernel #13": SSNM_GROUPS["kernel #19"]}
-                      if fam == "ssnm" else PS_STREAM_GROUPS)
+        if fam == "ssnm":
+            profile_one_launch(
+                f"SSNM at the deep target, {storage} rows",
+                lambda: r["run"](128), 128, card, SSNM_STREAM_GROUPS,
+                "kernel #13", "ssnm_multistep_streamed")
+        else:
+            profile_steps(f"Point-SAGA at the deep target, {storage} rows",
+                          lambda: r["run"](128), 128, card, PS_STREAM_GROUPS)
     del prob, lfin, Fd, newdeep, r
     torch.cuda.empty_cache()
 

@@ -1,4 +1,4 @@
-// The persistent step engine of twelve step kernels on an NVIDIA Hopper card
+// The persistent step engine of fourteen step kernels on an NVIDIA Hopper card
 // (sm_90a): a whole call of K block steps in one cooperative launch,
 //
 //   lsvrg_coeff_multistep.cu          replaces ciao_tpu/ops/fused_block.py
@@ -42,7 +42,16 @@
 //   point_saga_multistep.cu           replaces point_saga_multistep
 //                                     (Point-SAGA steps, a prox solve a
 //                                     row, body _point_saga_multi_kernel,
-//                                     theta solve _pointprox_theta).
+//                                     theta solve _pointprox_theta);
+//   ssnm_multistep_streamed.cu        replaces ssnm_multistep_streamed
+//                                     (SSNM steps for any N, steps k >= f
+//                                     masked, body _ssnm_stream_kernel)
+//                                     and, with no clamp count,
+//                                     ssnm_multistep (body
+//                                     _ssnm_multi_kernel).
+//
+// Kernel #15 (point_saga_multistep_streamed) is the one step kernel left on
+// the two-launch engine of saga_steps.cuh.
 //
 // The Python wrappers are in ciao_tpu_torch/ops/fused_block.py, beside the
 // plain PyTorch versions (the *_ref functions), whose arithmetic (bf16
@@ -85,7 +94,8 @@
 //     while step k's finish and barriers run: with P S >= R all of them);
 //   - step k on the eight consumer warps: the point (w for L-SVRG and SVRG,
 //     x for L-Katyusha and Katyusha, z for SAGA, the Finitos and ProShI,
-//     both w_prev and w for SARAH, v = x - gamma av for Point-SAGA)
+//     both w_prev and w for SARAH, v = x - gamma av for Point-SAGA, the
+//     momentum point y = tau x + (1 - tau) zb_j for SSNM)
 //     copied into shared memory, rounded to bf16 where the dots round, by
 //     plain loads from L2 (the last finish wrote it through the generic
 //     proxy); then for each stage as it lands: the margins, every thread
@@ -96,10 +106,11 @@
 //     and two butterflies reduce them, so both margins come from one read of
 //     the staged row); the coefficient formula and dc, a thread a row
 //     (anchor minus live for L-SVRG and SVRG, live at x minus anchor for
-//     L-Katyusha and Katyusha, new minus old for SAGA and Finito, which
-//     write the new one to their table, anchor minus live for LFinito, c at
-//     w minus c at w_prev for SARAH, ProShI's row weight w_i, old minus the
-//     prox solve theta_i for Point-SAGA, which writes theta_i to its table;
+//     L-Katyusha and Katyusha, new minus old for SAGA, SSNM and Finito,
+//     which write the new one to their table, anchor minus live for
+//     LFinito, c at w minus c at w_prev for SARAH, ProShI's row weight w_i,
+//     old minus the prox solve theta_i for Point-SAGA, which writes theta_i
+//     to its table;
 //     rounded to bf16 where the dots round and scaled by rs for int8 rows);
 //     and the stage's rows added into column sums held in registers,
 //     each thread the same units all call. int8 is widened by the
@@ -144,8 +155,11 @@
 //     zb_j) - (hat / N) sum, zb_j <- z, z <- soft(av); streamed Finito's
 //     the same with invg by step), LFinito's against the epoch's anchor
 //     point (av += (hat / N) sum + hat invg_k (z - zf), then the next
-//     block's z <- soft(av) but after the call's last step) or ProShI's
-//     coupling (av += sum, z = (prox_g(av) - av) / hat) to its columns,
+//     block's z <- soft(av) but after the call's last step), ProShI's
+//     coupling (av += sum, z = (prox_g(av) - av) / hat), Point-SAGA's x-
+//     and av-steps or SSNM's (x <- soft(x - eta (sum / B + gb), eta
+//     lambda), gb += sum / N, zb_j <- y, then the next step's y from the
+//     new x and the next block's stored point) to its columns,
 //     their state loaded beside the partials; a second barrier before the
 //     next step's point;
 //   - ProShI's (N, n) table: each row's margin is taken at its own point
@@ -162,29 +176,32 @@
 //     coefficient's slot of the stage (the producer prefetches it: it is
 //     only read). The margins are exact f32 at any storage, as the Pallas
 //     kernel's;
-//   - SAGA's, Finito's and Point-SAGA's table: the producer prefetches no
-//     coefficient of their rows,
+//   - SAGA's, SSNM's, Finito's and Point-SAGA's table: the producer
+//     prefetches no coefficient of their rows,
 //     since a block revisited within the ring's lookahead (or overlapping an
 //     earlier block: starts need not be block-aligned) would read it stale.
 //     The formula thread of a row loads its old coefficient from L2 when its
 //     stage is taken, after the barriers that end the previous step, and
 //     writes the new one before the step's first barrier, so a revisit reads
-//     the previous visit's value. Finito's anchor row zb_j is read and
-//     written by the finish alone (a column's owner thread, the same every
-//     step), its z by the next step's point: every value written in the
-//     launch (c, zb, z, av) is read by coherent loads from L2, never through
-//     the read-only path, which may return a line that an earlier step of
-//     the launch wrote over;
+//     the previous visit's value. Finito's anchor row zb_j and SSNM's stored
+//     point zb_j are read and written by the finish alone (a column's owner
+//     thread, the same every step; SSNM's step 0 point reads its block's
+//     before the first barrier), the point by the next step: every value
+//     written in the launch (c, zb, z, x, av) is read by coherent loads from
+//     L2, never through the read-only path, which may return a line that an
+//     earlier step of the launch wrote over;
 //   - the two Katyushas' first x is formed by every CTA for all columns from
 //     z, the anchor point and y, LFinito's first z = soft(av, hat lambda)
-//     from the incoming av, and Point-SAGA's first v = x - gamma av from
-//     the iterate and av (each CTA writes its own finish columns
-//     of the point, so the finish reads the point the margins used; every
-//     CTA reads av before its first barrier, and the finishes write av only
-//     after it); the stop index
-//     (L-SVRG, L-Katyusha) or clamp count (SAGA, streamed Finito, ProShI) is
-//     read once: a call processes min(K, stop + 1) or min(K, f) steps and
-//     the masked ones write nothing.
+//     from the incoming av, Point-SAGA's first v = x - gamma av from the
+//     iterate and av, and SSNM's first y from x and step 0's stored point
+//     (each CTA writes its own finish columns of the point, so the finish
+//     reads the point the margins used, and SSNM stores that very y as
+//     zb_j: y is formed once a step, never twice, which the compiler might
+//     contract in two ways; every CTA reads its inputs before its first
+//     barrier, and the finishes write them only after it); the stop index
+//     (L-SVRG, L-Katyusha) or clamp count (SAGA, SSNM, streamed Finito,
+//     ProShI) is read once: a call processes min(K, stop + 1) or min(K, f)
+//     steps and the masked ones write nothing.
 //
 // What it reaches on an H100 (tools/loopless_step_times.py, PERF.md): a step
 // costs a floor of about 5 us whatever its rows (the two barriers, the finish
@@ -227,7 +244,8 @@ enum LooplessMethod {
   kLFinitoSteps = 7,
   kFinitoStreamSteps = 8,
   kProshiSteps = 9,
-  kPointSagaSteps = 10
+  kPointSagaSteps = 10,
+  kSsnmSteps = 11
 };
 
 // ProShI's coupling prox (the scalars row's gmode): Zero (z = 0), IndBox
@@ -263,28 +281,29 @@ constexpr size_t kLlMaxSmem = 232448;
 // ProShI        [scale, 1/N, 1/hat, mode, glo, ghi, gmode, aux];
 // Point-SAGA    [scale, gamma, 1/B, 1/N, mode, aux] (its prox solve takes
 //                the wrapper's mode, LooplessArgs::pmode, as the plain
-//                version does, not the row's).
+//                version does, not the row's);
+// SSNM          [scale, eta, eta*lambda, 1/B, 1/N, mode, tau, aux].
 __host__ __device__ constexpr int mode_slot(int M) {
   return M == kLKatyushaSteps                        ? 8
          : (M == kSagaSteps || M == kKatyushaSteps) ? 6
-         : M == kSarahSteps                          ? 5
+         : (M == kSarahSteps || M == kSsnmSteps)     ? 5
          : M == kProshiSteps                         ? 3
                                                      : 4;
 }
 __host__ __device__ constexpr int aux_slot(int M) {
-  return M == kKatyushaSteps ? 9
-         : M == kProshiSteps ? 7
-                             : mode_slot(M) + 1;
+  return M == kKatyushaSteps                        ? 9
+         : (M == kProshiSteps || M == kSsnmSteps) ? 7
+                                                    : mode_slot(M) + 1;
 }
 
 // Whether the margins are taken at the coupled point x (the Katyushas), and
 // the slot of its (t1, t2) pair: L-Katyusha's theta1, theta2, Katyusha's
-// tau1, tau2.
+// tau1, tau2; SSNM's tau.
 __host__ __device__ constexpr bool coupled(int M) {
   return M == kLKatyushaSteps || M == kKatyushaSteps;
 }
 __host__ __device__ constexpr int tau_slot(int M) {
-  return M == kKatyushaSteps ? 7 : 5;
+  return M == kKatyushaSteps ? 7 : M == kSsnmSteps ? 6 : 5;
 }
 
 // The (n,) points the margins are taken at: SARAH's w_prev and w, else one.
@@ -298,9 +317,10 @@ __host__ __device__ constexpr bool finito_coeff(int M) {
 }
 
 // Whether the call writes its coefficient table (SAGA, the Finitos,
-// Point-SAGA).
+// Point-SAGA, SSNM).
 __host__ __device__ constexpr bool ll_table(int M) {
-  return M == kSagaSteps || finito_coeff(M) || M == kPointSagaSteps;
+  return M == kSagaSteps || finito_coeff(M) || M == kPointSagaSteps ||
+         M == kSsnmSteps;
 }
 
 // ProShI's rows a row group takes at once (a round): a thread holds its
@@ -313,9 +333,11 @@ __host__ __device__ constexpr int proshi_rows(bool vec, int ru, bool split) {
 }
 
 // Whether every CTA forms step 0's point inside the launch: the Katyushas'
-// x, LFinito's z = soft(av) and Point-SAGA's v = x - gamma av.
+// x, LFinito's z = soft(av), Point-SAGA's v = x - gamma av and SSNM's y =
+// tau x + (1 - tau) zb_j.
 __host__ __device__ constexpr bool forms_point(int M) {
-  return coupled(M) || M == kLFinitoSteps || M == kPointSagaSteps;
+  return coupled(M) || M == kLFinitoSteps || M == kPointSagaSteps ||
+         M == kSsnmSteps;
 }
 
 // The arguments of one call. L-SVRG: pt the iterate w, pre = wpre, c the
@@ -338,10 +360,13 @@ __host__ __device__ constexpr bool forms_point(int M) {
 // Point-SAGA: pt the (n,) scratch of the shifted iterate v, z the iterate
 // x, av the table mean, c the table (all written), na the row square-norms
 // (read only, in the anchor coefficients' slot), pmode the oracle formula
-// of its prox solve. av is read only but for SAGA, SARAH, the Finitos,
-// ProShI and Point-SAGA, c but for SAGA, the Finitos and Point-SAGA; stop
-// and pre are NULL but for L-SVRG, L-Katyusha (and the clamp counts of
-// SAGA, streamed Finito and ProShI).
+// of its prox solve; SSNM: pt the (n,) scratch of the momentum point y, z
+// the iterate x, av the table mean gb, c the table, zb the (d, n) stored
+// points (all written), stop the clamp count f. av is read only but for
+// SAGA, SARAH, the Finitos, ProShI, Point-SAGA and SSNM, c but for SAGA,
+// the Finitos, Point-SAGA and SSNM; stop and pre are NULL but for L-SVRG,
+// L-Katyusha (and the clamp counts of SAGA, streamed Finito, ProShI and
+// SSNM).
 // part: (ctas, n) f32 scratch; bar: the grid barrier's word of the call's
 // stream (low bits zero between calls).
 struct LooplessArgs {
@@ -606,9 +631,9 @@ loopless_steps_kernel(const LooplessArgs a) {
 
   if (warp == kLlWarps) {
     // the producer: stage t holds rows [i S, i S + here) of the CTA's share
-    // of step k's block, k = t / spc, i = t % spc (SAGA's, Finito's and
-    // Point-SAGA's table is not prefetched: its consumers read it; SARAH
-    // has none)
+    // of step k's block, k = t / spc, i = t % spc (SAGA's, SSNM's,
+    // Finito's and Point-SAGA's table is not prefetched: its consumers read
+    // it; SARAH has none)
     for (int t = 0; t < total; ++t) {
       const int s = t % P;
       if (t >= P) mbar_wait(&empty[s], (t / P - 1) & 1);
@@ -717,11 +742,22 @@ loopless_steps_kernel(const LooplessArgs a) {
   // the barrier word's top bit before this call's first barrier (no CTA can
   // open it before this one arrives)
   unsigned phase = tid == 0 ? load_acquire(a.bar) & 0x80000000u : 0u;
+  // SSNM's stored point of step 0's block, which step 0's y takes
+  const float* zb0 =
+      M == kSsnmSteps ? a.zb + static_cast<int64_t>(a.starts[0] / a.B) * n
+                      : nullptr;
   int t = 0;
   for (int k = 0; k < live; ++k) {
-    // step k's point: w, z, x (at k = 0 formed here, the Katyushas' x from
-    // z, wa and y, LFinito's z from av; each CTA writes its own finish
-    // columns of the point), or SARAH's w_prev and w, one after the other
+    // SSNM: the blocks of steps k and k + 1, read at the step's start, so
+    // that the finish's load of the next stored point does not wait behind
+    // a read of starts (0.2-0.3 us a step on an H100)
+    const int blk = M == kSsnmSteps ? a.starts[k] / a.B : 0;
+    const int blk_next =
+        M == kSsnmSteps && k + 1 < live ? a.starts[k + 1] / a.B : blk;
+    // step k's point: w, z, x, v, y (at k = 0 formed here, the Katyushas' x
+    // from z, wa and y, LFinito's z from av, Point-SAGA's v from x and av,
+    // SSNM's y from x and zb_j; each CTA writes its own finish columns of
+    // the point), or SARAH's w_prev and w, one after the other
     auto point = [&](int j) {
       if (forms_point(M) && k == 0) {
         float x;
@@ -730,6 +766,9 @@ loopless_steps_kernel(const LooplessArgs a) {
                             __ldcg(a.z + j), a.wa[j], __ldcg(a.y + j));
         else if constexpr (M == kPointSagaSteps)
           x = shifted_point(fs[0], __ldcg(a.z + j), __ldcg(a.av + j));
+        else if constexpr (M == kSsnmSteps)
+          x = momentum_point(sc[tau_slot(M)], __ldcg(a.z + j),
+                             __ldcg(zb0 + j));
         else
           x = soft_threshold(__ldcg(a.av + j), fs[1]);
         if (j >= j0 && j < j1) a.pt[j] = x;
@@ -1048,7 +1087,7 @@ loopless_steps_kernel(const LooplessArgs a) {
           const T* tile = stage_ptr(s);
           const float* v = vals + 3 * S * s;
           float* dc = dcs + (t & 1) * S;
-          // SAGA: the stage's first row, and the row's old coefficient from
+          // a table: the stage's first row, and the row's old coefficient from
           // L2, in flight during the margins (every earlier visit's write is
           // behind the barriers)
           const int64_t row0 =
@@ -1098,7 +1137,8 @@ loopless_steps_kernel(const LooplessArgs a) {
 
     // SAGA's direction weight of step k; the Finitos' sum of 1/gamma_i of
     // step k's block (Finito's by block id, streamed Finito's by step,
-    // LFinito's by visit) and Finito's anchor row of that block
+    // LFinito's by visit); Finito's anchor row or SSNM's stored point of
+    // that block, and SSNM's of step k + 1's block
     const float wgt =
         M == kSagaSteps && a.wgts != nullptr ? a.wgts[k] : 1.0f;
     const float ig = M == kFinitoSteps ? a.invg[a.starts[k] / a.B]
@@ -1106,16 +1146,19 @@ loopless_steps_kernel(const LooplessArgs a) {
                          ? a.invg[k]
                          : 0.0f;
     float* zb_row =
-        finito_coeff(M)
-            ? a.zb + static_cast<int64_t>(a.starts[k] / a.B) * n
-            : nullptr;
+        finito_coeff(M)   ? a.zb + static_cast<int64_t>(a.starts[k] / a.B) * n
+        : M == kSsnmSteps ? a.zb + static_cast<int64_t>(blk) * n
+                          : nullptr;
+    const float* zb_next =
+        M == kSsnmSteps ? a.zb + static_cast<int64_t>(blk_next) * n : nullptr;
     for (int jb = j0; jb < j1; jb += cw) {
       const int j = jb + fcol;
       const bool owner = warp == 0 && lane < cw && j < j1;
       // the column's state (L-SVRG: w, av; SVRG: w, av, zs; SAGA: z, av;
       // L-Katyusha: x, av, z, y, wa; Katyusha: x, av, z, y, wa, ys; SARAH:
       // w, v; Finito: z, av, zb_j; LFinito: z, av, zf; ProShI: z, av;
-      // Point-SAGA: v, av),
+      // Point-SAGA: v, av; SSNM: y, gb, x and column j of step k + 1's
+      // stored point),
       // loaded beside its partials
       float st[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (owner) {
@@ -1132,6 +1175,10 @@ loopless_steps_kernel(const LooplessArgs a) {
         if (M == kSvrgSteps) st[2] = __ldcg(a.zs + j);
         if (M == kKatyushaSteps) st[5] = __ldcg(a.zs + j);
         if (finito_coeff(M)) st[2] = __ldcg(zb_row + j);
+        if (M == kSsnmSteps) {
+          st[2] = __ldcg(a.z + j);
+          st[3] = __ldcg(zb_next + j);
+        }
         if (M == kLFinitoSteps) st[2] = a.wa[j];
       }
       float sum = 0.0f;
@@ -1232,6 +1279,22 @@ loopless_steps_kernel(const LooplessArgs a) {
           a.z[j] = x_new;
           a.av[j] = av_new;
           a.pt[j] = shifted_point(fs[0], x_new, av_new);
+        } else if (M == kSsnmSteps) {
+          // SSNM (Zhou, Shang and Cheng 2019) on block j, the margins taken
+          // at y: x <- soft(x - eta (sum / B + gb), eta lambda), gb += sum /
+          // N, zb_j <- y (the unrounded y the margins rounded); then the
+          // next step's y from the new x and the next block's stored point.
+          // Only this thread writes column j of zb, so that point is the
+          // value loaded beside the partials, or y where the next block is
+          // this one: no load waits behind the store
+          const float x_new =
+              soft_threshold(st[2] - fs[0] * (innov * fs[2] + st[1]), fs[1]);
+          a.z[j] = x_new;
+          a.av[j] = st[1] + innov * fs[3];
+          zb_row[j] = st[0];
+          if (k + 1 < live)
+            a.pt[j] = momentum_point(sc[tau_slot(M)], x_new,
+                                     blk_next == blk ? st[0] : st[3]);
         } else {
           // L-Katyusha (Alg. 3, proximal z-step): g~ = av + sum / B,
           // z_new = soft((z + eta sigma x - (eta/L) g~) / (1 + eta sigma),

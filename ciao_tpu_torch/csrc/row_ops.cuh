@@ -294,6 +294,12 @@ __device__ __forceinline__ float shifted_point(float gamma, float x,
   return __fsub_rn(x, __fmul_rn(gamma, av));
 }
 
+// SSNM's momentum point tau x + (1 - tau) zb, rounded as the plain versions
+// round it (no contraction into an fma).
+__device__ __forceinline__ float momentum_point(float tau, float x, float zb) {
+  return __fadd_rn(__fmul_rn(tau, x), __fmul_rn(1.0f - tau, zb));
+}
+
 // The L1 soft-threshold sign(w)·max(|w| − thr, 0), NaN passed through.
 __device__ __forceinline__ float soft_threshold(float w, float thr) {
   const float sgn = w > 0.0f ? 1.0f : (w < 0.0f ? -1.0f : 0.0f);

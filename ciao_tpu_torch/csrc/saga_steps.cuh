@@ -1,22 +1,18 @@
-// Coefficient block steps on an NVIDIA Hopper card (sm_90a): the device code
-// shared by three kernels of ciao_tpu_torch/ops/fused_block.py,
+// Coefficient block steps on an NVIDIA Hopper card (sm_90a), two launches a
+// step: the device code of one kernel of ciao_tpu_torch/ops/fused_block.py,
 //
-//   ssnm_multistep.cu                   replaces ciao_tpu/ops/fused_block.py
-//                                       ssnm_multistep (SSNM steps: SAGA's
-//                                       at a momentum point);
-//   ssnm_multistep_streamed.cu          replaces ssnm_multistep_streamed
-//                                       (the same, steps k >= f masked);
 //   point_saga_multistep_streamed.cu    replaces
+//                                       ciao_tpu/ops/fused_block.py
 //                                       point_saga_multistep_streamed
 //                                       (Point-SAGA steps, a per-row prox,
 //                                       steps k >= f masked).
 //
-// The Python wrappers and the design notes are in ops/fused_block.py; the plain
-// PyTorch versions of the same arithmetic are the *_ref functions there.
+// The Python wrapper and the design note are in ops/fused_block.py; the plain
+// PyTorch version of the same arithmetic is the *_ref function there.
 // Kernels #3 and #4 (SAGA), #5 (SVRG), #8 (LFinito), #9 (Finito), #10
-// (Katyusha), #11 (SARAH), #12 (Point-SAGA), #14 (streamed Finito), #16 and
-// #17 (the loopless pair) and #18 (ProShI) run on the persistent engine of
-// loopless_steps.cuh.
+// (Katyusha), #11 (SARAH), #12 (Point-SAGA), #13 and #19 (SSNM), #14
+// (streamed Finito), #16 and #17 (the loopless pair) and #18 (ProShI) run on
+// the persistent engine of loopless_steps.cuh.
 //
 // One solver step on the block [s, s + B) of the (N, n) rows A is two launches:
 //
@@ -26,11 +22,10 @@
 //       this once. From shared memory: the margins a_i . z (one warp per row,
 //       shuffle reduction), the int8 dequant scale, the coefficient formula,
 //       the coefficient difference dc_i and the CTA's partial innovation
-//       sum_rows dc_i . a_i into part[cta, :]. SSNM: dc_i = c_new - c_old and
-//       the table write c_i <- c_new;
+//       sum_rows dc_i . a_i into part[cta, :];
 //   (b) the finish kernel, 32 columns per CTA: the partials summed in a fixed
-//       order (no atomics, so runs repeat bit for bit), then the finish of
-//       SSNM or Point-SAGA below.
+//       order (no atomics, so runs repeat bit for bit), then Point-SAGA's
+//       finish below.
 //
 // The K steps are issued from the host on one stream with no host sync; the
 // stream order carries the iterate and the table from one step to the next.
@@ -39,17 +34,14 @@
 // step k >= *fclamp return before any other load, so a masked step writes
 // nothing and leaves the state bit for bit as the step before left it.
 //
-// SSNM takes its margins at the momentum point y = tau x + (1 - tau) zb_j of
-// the step's block j, and Point-SAGA at the shifted iterate v = x - gamma av,
-// each formed once per step into an (n,) scratch: a prologue launch forms step
+// Point-SAGA takes its margins at the shifted iterate v = x - gamma av,
+// formed once per step into an (n,) scratch: a prologue launch forms step
 // 0's, and each finish, after updating its columns of the iterate, forms the
-// next step's. SSNM's row phase is SAGA's (the table refreshed at y); its
-// finish steps x from x, adds the innovation to the table mean gb and stores
-// y as block j's point. Point-SAGA's row phase replaces the coefficient
-// formula by the row's prox solve, a template parameter (one instantiation per
-// oracle mode): theta_i at the margin a_i . v + gamma c_i |a_i|^2 of the row's
-// prox point, the table write c_i <- theta_i and dc_i = c_i_old - theta_i; its
-// finish steps x <- v + (gamma / B) sum, av <- av - sum / N.
+// next step's. Its row phase is the row's prox solve, a template parameter
+// (one instantiation per oracle mode): theta_i at the margin a_i . v + gamma
+// c_i |a_i|^2 of the row's prox point, the table write c_i <- theta_i and
+// dc_i = c_i_old - theta_i; its finish steps x <- v + (gamma / B) sum, av <-
+// av - sum / N.
 //
 // Row offsets are 64-bit (start * n reaches 1.3e9 at the 10,485,760 x 128
 // deep target); block starts are int32, which the wrappers check (N < 2^31).
@@ -64,33 +56,22 @@ constexpr int kRowThreads = 256;
 constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kMaxRowsPerCta = 32;
 
-// The scalars row of each method, scale first and (mode, aux) where
-// ScalarIndex says:
-// SSNM        [scale, eta, eta*lambda, 1/B, 1/N, mode, tau, aux];
-// Point-SAGA  [scale, gamma, 1/B, 1/N, mode, aux].
+// The methods of the engine: Point-SAGA alone, its scalars row [scale,
+// gamma, 1/B, 1/N, mode, aux].
 enum Method {
-  kSsnm = 8,
   kPointSaga = 9
 };
 
-// The f32 values the row phase stages per row: dc, b, c and rs, and
-// Point-SAGA's square-norm na.
-__host__ __device__ constexpr int row_values(Method M) {
-  return M == kPointSaga ? 5 : 4;
-}
-
-template <Method M>
-struct ScalarIndex {
-  static constexpr int kMode = M == kSsnm ? 5 : 4;
-  static constexpr int kAux = M == kSsnm ? 7 : 5;
-};
+// The f32 values the row phase stages per row: dc, b, c, rs and the
+// square-norm na.
+constexpr int kRowValues = 5;
+constexpr int kAuxSlot = 5;
 
 // Shared memory: the tile (rows x n of T), then the point (n floats), then
-// per row dc, b, c, rs and (Point-SAGA) na (rows floats each); the per-row
-// values are fetched while the tile is in flight. c is the table (SSNM:
-// refreshed by the formula; Point-SAGA: its prox solve), written back; z
-// is the point of the margins (y for SSNM, v for Point-SAGA).
-// kPMode is Point-SAGA's oracle mode (the other methods read theirs from sc).
+// per row dc, b, c, rs and na (rows floats each); the per-row values are
+// fetched while the tile is in flight. c is the table, refreshed by the
+// prox solve and written back; z is the point of the margins, v. kPMode is
+// Point-SAGA's oracle mode.
 template <Method M, typename T, bool kLowp, bool kVec, int kPMode>
 __global__ void __launch_bounds__(kRowThreads)
 rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
@@ -125,34 +106,24 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
     bs[tid] = b[start + tid];
     cs[tid] = c[start + tid];
     rss[tid] = rs != nullptr ? rs[start + tid] : 1.0f;
-    if constexpr (M == kPointSaga) nas[tid] = na[start + tid];
+    nas[tid] = na[start + tid];
   }
   if (kVec) __pipeline_wait_prior(0);
   __syncthreads();
 
   const float scale = sc[0];
-  const int mode = static_cast<int>(sc[ScalarIndex<M>::kMode]);
-  const float aux = sc[ScalarIndex<M>::kAux];
+  const float aux = sc[kAuxSlot];
   for (int r = warp; r < rows; r += kRowWarps) {
-    float dc;
-    if constexpr (M == kPointSaga) {
-      float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
-      if (rs != nullptr) m *= rss[r];
-      // the row's prox point z_i = v + gamma c_i a_i has the margin
-      // m + gamma c_i |a_i|^2; every lane solves (the warp is uniform)
-      const float gamma = sc[1];
-      const float c_old = cs[r];
-      const float theta = pointprox_theta<kPMode>(
-          m + gamma * c_old * nas[r], bs[r], nas[r], c_old, scale, gamma, aux);
-      if (lane == 0) c[start + r] = theta;
-      dc = c_old - theta;
-    } else {
-      float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
-      if (rs != nullptr) m *= rss[r];
-      const float c_new = coeff_formula(mode, m, bs[r], scale, aux);
-      dc = c_new - cs[r];
-      if (lane == 0) c[start + r] = c_new;
-    }
+    float m = warp_dot<kLowp, kVec>(tile + r * n, zs, n, lane);
+    if (rs != nullptr) m *= rss[r];
+    // the row's prox point z_i = v + gamma c_i a_i has the margin
+    // m + gamma c_i |a_i|^2; every lane solves (the warp is uniform)
+    const float gamma = sc[1];
+    const float c_old = cs[r];
+    const float theta = pointprox_theta<kPMode>(
+        m + gamma * c_old * nas[r], bs[r], nas[r], c_old, scale, gamma, aux);
+    if (lane == 0) c[start + r] = theta;
+    float dc = c_old - theta;
     if (lane == 0) {
       if (rs != nullptr) dc *= rss[r];
       dcs[r] = kLowp ? bf16_round(dc) : dc;
@@ -176,24 +147,6 @@ rows_kernel(const T* __restrict__ A, const float* __restrict__ b,
   }
 }
 
-// SSNM's momentum point tau x + (1 - tau) zb, rounded as the plain versions
-// round it (no contraction into an fma; Point-SAGA's shifted iterate is
-// row_ops.cuh shifted_point).
-__device__ __forceinline__ float momentum_point(float tau, float x, float zb) {
-  return __fadd_rn(__fmul_rn(tau, x), __fmul_rn(1.0f - tau, zb));
-}
-
-// y <- the momentum point of step 0's block on every column.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-ssnm_point_kernel(const float* __restrict__ x, const float* __restrict__ zb,
-                  const int* __restrict__ starts, int B, float* __restrict__ y,
-                  const float* __restrict__ sc, int n) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < n)
-    y[j] = momentum_point(sc[6], x[j],
-                          zb[static_cast<int64_t>(starts[0] / B) * n + j]);
-}
-
 // v <- x - gamma av on every column: step 0's shifted iterate.
 __global__ void __launch_bounds__(kFinishCols * kFinishWarps)
 shifted_point_kernel(const float* __restrict__ x,
@@ -201,33 +154,6 @@ shifted_point_kernel(const float* __restrict__ x,
                      const float* __restrict__ sc, int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j < n) v[j] = shifted_point(sc[1], x[j], av[j]);
-}
-
-// SSNM (Zhou, Shang and Cheng 2019) on block j = starts[k] / B, the margins
-// taken at y: x <- soft(x - eta (sum / B + gb), eta lambda), gb += sum / N,
-// zb_j <- y; then the next step's y from the new x and the next block's
-// stored point (zb_j itself when the block repeats: this thread just wrote
-// it). A masked step writes nothing.
-__global__ void __launch_bounds__(kFinishCols * kFinishWarps)
-ssnm_finish_kernel(const float* __restrict__ part, int parts,
-                   float* __restrict__ y, float* __restrict__ x,
-                   float* __restrict__ gb, float* __restrict__ zb,
-                   const int* __restrict__ starts, int B,
-                   const float* __restrict__ sc,
-                   const int* __restrict__ fclamp, int k, int K, int n) {
-  if (masked(fclamp, k)) return;
-  int j;
-  float innov;
-  if (!column_sum(part, parts, n, j, innov)) return;
-  const float yj = y[j];
-  const float x_new =
-      soft_threshold(x[j] - sc[1] * (innov * sc[3] + gb[j]), sc[2]);
-  x[j] = x_new;
-  gb[j] += innov * sc[4];
-  zb[static_cast<int64_t>(starts[k] / B) * n + j] = yj;
-  if (k + 1 < K)
-    y[j] = momentum_point(
-        sc[6], x_new, zb[static_cast<int64_t>(starts[k + 1] / B) * n + j]);
 }
 
 // Point-SAGA (Defazio 2016, the block mean of the rows' prox points) on a
@@ -251,11 +177,9 @@ point_saga_finish_kernel(const float* __restrict__ part, int parts,
   v[j] = shifted_point(gamma, x_new, av_new);
 }
 
-// The arguments of one call: K steps on one stream. SSNM: c the table, z an
-// (n,) scratch for y, av the table mean gb, zb the (d, n) stored points, xi
-// the iterate x.
-// Point-SAGA: c the table, z an (n,) scratch for v, av the table mean, xi
-// the iterate x, na the (N,) row square-norms.
+// The arguments of one call: K steps on one stream. c the table, z an (n,)
+// scratch for v, av the table mean, xi the iterate x, na the (N,) row
+// square-norms.
 struct StepArgs {
   const void* A;
   const float* b;
@@ -269,7 +193,6 @@ struct StepArgs {
   float* part;
   int n, B, rows, K;
   cudaStream_t stream;
-  float* zb = nullptr;
   float* xi = nullptr;
   const float* na = nullptr;
 };
@@ -279,8 +202,7 @@ cudaError_t run_steps(const StepArgs& a) {
   const int parts = a.B / a.rows;
   const size_t smem =
       tile_bytes(a.rows, a.n, sizeof(T)) +
-      sizeof(float) *
-          static_cast<size_t>(a.n + row_values(M) * a.rows);
+      sizeof(float) * static_cast<size_t>(a.n + kRowValues * a.rows);
   auto kernel = rows_kernel<M, T, kLowp, kVec, kPMode>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -291,25 +213,14 @@ cudaError_t run_steps(const StepArgs& a) {
   const int finish_blocks = (a.n + kFinishCols - 1) / kFinishCols;
   constexpr int kFinishThreads = kFinishCols * kFinishWarps;
   const int col_blocks = (a.n + kFinishThreads - 1) / kFinishThreads;
-  if constexpr (M == kSsnm) {
-    ssnm_point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
-        a.xi, a.zb, a.starts, a.B, a.z, a.sc, a.n);
-  } else if constexpr (M == kPointSaga) {
-    shifted_point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
-        a.xi, a.av, a.z, a.sc, a.n);
-  }
+  shifted_point_kernel<<<col_blocks, kFinishThreads, 0, a.stream>>>(
+      a.xi, a.av, a.z, a.sc, a.n);
   for (int k = 0; k < a.K; ++k) {
     kernel<<<parts, kRowThreads, smem, a.stream>>>(
         static_cast<const T*>(a.A), a.b, a.rs, a.na, a.c, a.z, a.starts,
         a.fclamp, k, a.sc, a.part, a.n, a.rows);
-    if constexpr (M == kSsnm) {
-      ssnm_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.xi, a.av, a.zb, a.starts, a.B, a.sc, a.fclamp,
-          k, a.K, a.n);
-    } else {
-      point_saga_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
-          a.part, parts, a.z, a.xi, a.av, a.sc, a.fclamp, k, a.n);
-    }
+    point_saga_finish_kernel<<<finish_blocks, kFinishThreads, 0, a.stream>>>(
+        a.part, parts, a.z, a.xi, a.av, a.sc, a.fclamp, k, a.n);
     if (k == 0) {
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return e;
@@ -324,10 +235,10 @@ cudaError_t dispatch_vec(bool vec, const StepArgs& a) {
              : run_steps<M, T, kLowp, false, kPMode>(a);
 }
 
-// Checks the shape, picks the instantiation for the storage and queues the 2K
-// launches; returns cudaGetLastError() after the last (0 on success). rows
-// divides B and is at most 32; part is (B / rows, n) f32 scratch, 16-byte
-// aligned. kPMode is Point-SAGA's oracle mode.
+// Checks the shape, picks the instantiation for the storage and queues the
+// 2K + 1 launches; returns cudaGetLastError() after the last (0 on success).
+// rows divides B and is at most 32; part is (B / rows, n) f32 scratch,
+// 16-byte aligned. kPMode is Point-SAGA's oracle mode.
 template <Method M, int kPMode = 0>
 cudaError_t launch_steps(int storage, int lowp, const StepArgs& a) {
   if (a.rows < 1 || a.rows > kMaxRowsPerCta || a.B % a.rows != 0 || a.n < 1 ||
@@ -347,10 +258,9 @@ cudaError_t launch_steps(int storage, int lowp, const StepArgs& a) {
   }
 }
 
-// The host dispatch on the oracle mode of a method whose row phase takes it
-// as a template parameter (Point-SAGA): one instantiation per mode, so each
-// per-row solve is compiled for its formula alone. A template, so that only
-// the kernels that call it instantiate its 5 x 8 row phases.
+// The host dispatch on the oracle mode, which the row phase takes as a
+// template parameter: one instantiation per mode, so each per-row solve is
+// compiled for its formula alone.
 template <Method M>
 cudaError_t launch_steps_by_mode(int mode, int storage, int lowp,
                                  const StepArgs& a) {

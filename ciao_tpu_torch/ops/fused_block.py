@@ -8,11 +8,9 @@ run: the oracle formula modes and their values, Point-SAGA's per-row prox
 the kernels' gates, and nineteen hand-written CUDA kernels for Hopper
 beside their plain PyTorch versions:
 
-- ``ssnm_multistep`` (``csrc/ssnm_multistep.cu``),
-  ``ssnm_multistep_streamed`` (``csrc/ssnm_multistep_streamed.cu``) and
-  ``point_saga_multistep_streamed``
-  (``csrc/point_saga_multistep_streamed.cu``): K block steps each, two
-  launches a step, sharing their device code (``csrc/saga_steps.cuh``);
+- ``point_saga_multistep_streamed``
+  (``csrc/point_saga_multistep_streamed.cu``): K block steps, two
+  launches a step (``csrc/saga_steps.cuh``, which serves it alone);
 - ``saga_coeff_multistep_streamed``
   (``csrc/saga_coeff_multistep_streamed.cu``), and with it
   ``saga_coeff_multistep`` (the same entry with no clamp count),
@@ -27,9 +25,11 @@ beside their plain PyTorch versions:
   (``csrc/finito_coeff_multistep_streamed.cu``), ``proshi_multistep``
   (``csrc/proshi_multistep.cu``, K ProShI steps on the block table) and
   ``point_saga_multistep`` (``csrc/point_saga_multistep.cu``, K
-  Point-SAGA steps, a prox solve a row): K block steps each, one
-  cooperative launch a call on the persistent engine of
-  ``csrc/loopless_steps.cuh``;
+  Point-SAGA steps, a prox solve a row),
+  ``ssnm_multistep_streamed`` (``csrc/ssnm_multistep_streamed.cu``, K
+  SSNM steps) and with it ``ssnm_multistep`` (the same entry with no
+  clamp count): K block steps each, one cooperative launch a call on the
+  persistent engine of ``csrc/loopless_steps.cuh``;
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
   over all rows, the anchors of the SVRG-shaped families, LFinito's and
   SARAH's, and the full gradient of forward-backward, Davis-Yin and
@@ -402,10 +402,9 @@ _ARGTYPES = {
     # A, storage, lowp, b, rs, canch, starts, stop, wa, y, z, ypre, av, x,
     # sc, part, bar, n, B, rows, ctas, stage_rows, stages, K, stream
     "lkatyusha_coeff_multistep": "PII" + "P" * 14 + "I" * 7 + "P",
-    # A, storage, lowp, b, rs, c, zb, x, gb, y, starts, [f,] sc, part, n, B,
-    # rows, K, stream
-    "ssnm_multistep": "PII" + "P" * 10 + "IIII" + "P",
-    "ssnm_multistep_streamed": "PII" + "P" * 11 + "IIII" + "P",
+    # A, storage, lowp, b, rs, c, starts, zb, f, y, x, gb, sc, part, bar, n,
+    # B, rows, ctas, stage_rows, stages, K, stream
+    "ssnm_multistep_streamed": "PII" + "P" * 12 + "I" * 7 + "P",
     # A, storage, lowp, b, rs, c, na, starts, mode, x, av, v, sc, part, bar,
     # n, B, rows, ctas, stage_rows, stages, K, stream
     "point_saga_multistep": "PII" + "P" * 5 + "I" + "P" * 6 + "I" * 7 + "P",
@@ -491,14 +490,12 @@ def _check_blocks(A, b, starts, B, rs):
     return n, K
 
 
-def _check_steps(A, b, starts, B, rs, values: int = 4):
-    """Checks shared by the block-step kernels of ``saga_steps.cuh`` (#19,
-    #13, #15);
-    returns (n, K, rows per CTA, the (B / rows, n) partials scratch).
-    ``values``: the f32 values the row phase stages per row (Point-SAGA's
-    five)."""
+def _check_steps(A, b, starts, B, rs):
+    """Checks of the block-step kernel of ``saga_steps.cuh`` (#15 alone);
+    returns (n, K, rows per CTA, the (B / rows, n) partials scratch). Its
+    row phase stages five f32 values a row (Δc, b, c_old, rs, ‖a‖²)."""
     n, K = _check_blocks(A, b, starts, B, rs)
-    rows = _rows_per_cta(B, n, A.element_size(), values)
+    rows = _rows_per_cta(B, n, A.element_size(), 5)
     part = torch.empty((B // rows, n), dtype=torch.float32, device=A.device)
     return n, K, rows, part
 
@@ -1084,9 +1081,9 @@ def finito_coeff_multistep_streamed_ref(A, b, starts, invg_k, c, zb, z, av,
 
 
 def _check_anchors(A, zb, B):
-    """Finito's (d, n) per-block anchors: a stride-0 view (``expand``)
-    would make every row one, and the kernels write rows of zb, so it must
-    own each."""
+    """Finito's (d, n) per-block anchors or SSNM's stored points: a
+    stride-0 view (``expand``) would make every row one, and the kernels
+    write rows of zb, so it must own each."""
     _check("zb", zb, torch.float32, (A.shape[0] // B, A.shape[-1]), A.device)
 
 
@@ -1886,13 +1883,14 @@ def _grid_barrier(index: int, stream: int):
 def _loopless_launch(name, A, b, rs, table, starts, B, precision, scalars,
                      n_sc, before, vectors, points: int = 1, lowp=None):
     """Check the arguments of a kernel of the persistent engine (#3, #4,
-    #5, #8, #9, #10, #11, #12, #14, #16, #17, #18) and make its one
-    cooperative launch on the current stream. ``table``: the (N,) f32
+    #5, #8, #9, #10, #11, #12, #13, #14, #16, #17, #18, #19) and make its
+    one cooperative launch on the current stream. ``table``: the (N,) f32
     coefficients, by name (SARAH has none: empty; ProShI's γ; Point-SAGA's
     c and ‖a_i‖²); ``before``: the C call's arguments between ``starts``
     and the vectors (the stop index or clamp count, SAGA's weights,
     SARAH's pair, the Finitos' anchors and Σ 1/γ, LFinito's Σ 1/γ,
-    ProShI's table, Point-SAGA's mode), checked by the caller; ``vectors``:
+    ProShI's table, Point-SAGA's mode, SSNM's stored points and clamp
+    count), checked by the caller; ``vectors``:
     the (n,) f32 tensors after them, by name, in its order; ``points``:
     the points the margins are taken at (SARAH's two); ``lowp``: whether
     the dots round to bf16, by default as ``precision`` and the rows
@@ -2123,26 +2121,6 @@ def ssnm_multistep_streamed_ref(A, b, starts, c, zb, x, gb, scalars, B: int,
                            precision, rs, "ssnm_multistep_streamed_ref")
 
 
-def _launch_ssnm(name, A, b, starts, c, zb, x, gb, scalars, B, precision,
-                 rs, fclamp=()):
-    """Check the arguments of an SSNM kernel of ``saga_steps.cuh`` and
-    queue its 2K + 1 launches on the current stream."""
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    _check("c", c, f32, (A.shape[0],), dev)
-    # the kernel writes rows of zb, so it must own each (not an expand view)
-    _check("zb", zb, f32, (A.shape[0] // B, n), dev)
-    _check("x", x, f32, (n,), dev)
-    _check("gb", gb, f32, (n,), dev)
-    _check("scalars", scalars, f32, (8,), dev)
-    y = torch.empty(n, dtype=f32, device=dev)
-    _call(name, dev, A.data_ptr(), _STORAGE_CODES[A.dtype],
-          int(_lowp(A, precision)), b.data_ptr(), _ptr(rs), c.data_ptr(),
-          zb.data_ptr(), x.data_ptr(), gb.data_ptr(), y.data_ptr(),
-          starts.data_ptr(), *fclamp, scalars.data_ptr(), part.data_ptr(), n,
-          B, rows, K)
-
-
 def ssnm_multistep(A, b, starts, c, zb, x, gb, scalars, B: int,
                    precision: str = "highest", rs=None):
     """K = len(starts) SSNM block steps (SAGA with sampled negative
@@ -2163,25 +2141,39 @@ def ssnm_multistep(A, b, starts, c, zb, x, gb, scalars, B: int,
     CPU tensors take the plain version :func:`ssnm_multistep_ref`; CUDA
     tensors launch the kernel or raise.
 
-    The step is SAGA's at the point y (``csrc/saga_steps.cuh``, method
-    ``kSsnm``, two launches a step): bound by the block's
-    rows, B·n·itemsize bytes (16 MB f32, 4 MB int8 at the 262,144 ×
-    1,024 headline's B = 4,096), plus the block's stored point read and
-    written. y is formed once per step into an (n,) scratch: a prologue
-    launch forms step 0's, and each finish, whose columns are its own,
-    writes x, gb and zb_j and then forms the next step's y from the new x
-    and the next block's stored point (zb_j itself when the block
-    repeats). Forming y twice, in the row phase and again in the finish,
-    would let the compiler contract the two expressions differently and
-    store a zb_j that differs from the point of the margins.
+    The step is SAGA's at the point y: bound by the block's rows,
+    B·n·itemsize bytes (16 MB f32, 4 MB int8 at the 262,144 × 1,024
+    headline's B = 4,096), plus the block's stored point read and
+    written. The whole call is one cooperative launch of the persistent
+    engine (``csrc/loopless_steps.cuh``, method ``kSsnmSteps``): it is
+    :func:`ssnm_multistep_streamed` with no clamp count, the same C entry
+    and builds, so on block-aligned starts both give the same bits. The
+    row phase is :func:`saga_coeff_multistep`'s: the table is written
+    every step and never prefetched, each row's formula thread reading
+    its old coefficient from L2 behind the barriers that end the previous
+    step. y is formed once per step into an (n,) scratch: every CTA forms
+    step 0's from x and the block's stored point, and each finish, whose
+    columns are its own, writes x, gb and zb_j and then forms the next
+    step's y from the new x and the next block's stored point (y itself
+    when the block repeats: a column of zb is written by its finish
+    thread alone, so the next point is loaded beside the partials, the
+    blocks of the step and the next read at the step's start). Forming y
+    twice, for the margins and
+    again in the finish, would let the compiler contract the two
+    expressions differently and store a zb_j that differs from the point
+    of the margins. A grid that cannot be resident at once raises
+    ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return ssnm_multistep_ref(A, b, starts, c, zb, x, gb, scalars, B,
                                   precision=precision, rs=rs)
     if A.device.type != "cuda":
         raise ValueError(f"ssnm_multistep: no kernel for {A.device}")
-    _launch_ssnm("ssnm_multistep", A, b, starts, c, zb, x, gb, scalars, B,
-                 precision, rs)
+    _check_anchors(A, zb, B)
+    y = torch.empty(A.shape[-1], dtype=torch.float32, device=A.device)
+    _loopless_launch("ssnm_multistep_streamed", A, b, rs, dict(c=c), starts,
+                     B, precision, scalars, 8, (zb.data_ptr(), None),
+                     dict(y=y, x=x, gb=gb))
     ssnm_multistep.launches += 1
     ssnm_multistep.steps += starts.shape[0]
     return c, zb, x, gb
@@ -2202,12 +2194,20 @@ def ssnm_multistep_streamed(A, b, starts, c, zb, x, gb, scalars, B: int,
 
     The TPU kernel streams c through aliased windows with zb in VMEM, so
     its driver clamps each launch at the first same-launch revisit. Here
-    c and zb live in device memory and the launches are stream-ordered:
-    the port's driver launches with ``f`` = None, and the ``f < K``
-    semantics stay for the tests, read on the device by both launches of
-    every step. The design is :func:`ssnm_multistep`'s: at the
-    10,485,760 × 128 deep target (B = 8,192) a step reads 4 MB of f32
-    rows (1 MB int8).
+    c and zb live in device memory, read and written in place by the one
+    launch, a block revisited within the call reading the previous
+    visit's c and zb: the port's driver launches with ``f`` = None, and
+    the ``f < K`` semantics stay for the tests. ``f`` is read once on the
+    device (no host sync): the call processes min(K, f) steps. The design
+    is :func:`ssnm_multistep`'s (``csrc/loopless_steps.cuh``, method
+    ``kSsnmSteps``): at the 10,485,760 × 128 deep target (B = 8,192) a
+    step reads 4 MB of f32 rows (1 MB int8), 128 CTAs of 64 rows, one
+    stage a step, the rows split over eight row groups of a warp, as
+    :func:`saga_coeff_multistep_streamed` takes them. Everything the call
+    writes (c, zb, x, gb, y) is read back by coherent loads behind the
+    engine's grid barriers. Any start in [0, N − B] is taken, step k's
+    stored point being zb[starts[k] // B]. A grid that cannot be
+    resident at once raises ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return ssnm_multistep_streamed_ref(A, b, starts, c, zb, x, gb,
@@ -2217,8 +2217,11 @@ def ssnm_multistep_streamed(A, b, starts, c, zb, x, gb, scalars, B: int,
         raise ValueError(f"ssnm_multistep_streamed: no kernel for "
                          f"{A.device}")
     f = _check_f(f, A.device)
-    _launch_ssnm("ssnm_multistep_streamed", A, b, starts, c, zb, x, gb,
-                 scalars, B, precision, rs, (_ptr(f),))
+    _check_anchors(A, zb, B)
+    y = torch.empty(A.shape[-1], dtype=torch.float32, device=A.device)
+    _loopless_launch("ssnm_multistep_streamed", A, b, rs, dict(c=c), starts,
+                     B, precision, scalars, 8, (zb.data_ptr(), _ptr(f)),
+                     dict(y=y, x=x, gb=gb))
     ssnm_multistep_streamed.launches += 1
     ssnm_multistep_streamed.steps += starts.shape[0]
     return c, zb, x, gb
@@ -2400,10 +2403,9 @@ def point_saga_multistep_streamed(A, b, na, c, starts, x, av, scalars,
 
     It runs on the two-launch engine (``csrc/saga_steps.cuh``, method
     ``kPointSaga``: a row phase and a finish a step, the θ-solve a
-    template of the row phase). As for :func:`ssnm_multistep_streamed`,
-    the table lives in device memory and the launches are stream-ordered,
-    so the port's driver launches with ``f`` = None and the masked steps
-    stay a tested option.
+    template of the row phase). The table lives in device memory and the
+    launches are stream-ordered, so the port's driver launches with ``f``
+    = None and the masked steps stay a tested option.
     At the 10,485,760 × 128 deep target (B = 8,192) a step reads 4 MB of
     f32 rows (1 MB int8).
     """
@@ -2417,7 +2419,7 @@ def point_saga_multistep_streamed(A, b, na, c, starts, x, av, scalars,
     if mode not in _POINTPROX_MODES:
         raise ValueError(f"no Point-SAGA θ for oracle mode {mode}")
     f = _check_f(f, A.device)
-    n, K, rows, part = _check_steps(A, b, starts, B, rs, values=5)
+    n, K, rows, part = _check_steps(A, b, starts, B, rs)
     dev, f32 = A.device, torch.float32
     _check("na", na, f32, (A.shape[0],), dev)
     _check("c", c, f32, (A.shape[0],), dev)

@@ -11,9 +11,10 @@ their plain versions, ``coeff_apply_all`` and the kernels of the
 persistent engine bit for bit against their pinned digests,
 ``coeff_value_apply_all``'s c and gsum bit for bit ``coeff_apply_all``'s,
 the kernels of the persistent engine (#3, #4, #5, #8, #9, #10, #11, #12,
-#14, #16, #17, #18) at its edges, #3, #8, #9, #12, #14, #16 and #18 on
-two streams at once and #10, #11 and #16 in turns on one, the facades'
-routing to them, and the polish's exact-f32 check.
+#13, #14, #16, #17, #18, #19) at its edges, #3, #8, #9, #12, #13, #14, #16,
+#18 and #19 on two streams at once and #10, #11 and #16 in turns on one,
+SSNM's on hand-made block revisits, the facades' routing to them, and the
+polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -1171,11 +1172,11 @@ def test_vr_kernel_matches_plain_version(dev, kind, storage, precision, n,
 
 # sha256 (first 16 hex digits) of the kernels' outputs on loopless_digest's
 # inputs: #16's and #17's from the engine as it was before kernels #4 and #5
-# joined it, #10's and #11's, #9's and #8's, #14's and #18's, and #3's and
-# #12's (logistic rows: the Newton solves pinned), from their first builds
-# on it (NVIDIA H100 80GB HBM3, 132 SMs, nvcc of CUDA 12.8). #14 on these
-# block-aligned starts, with Σ 1/γ by step equal to #9's by block, gives
-# #9's bits; #4 with no clamp count gives #3's
+# joined it, #10's and #11's, #9's and #8's, #14's and #18's, #3's and
+# #12's (logistic rows: the Newton solves pinned), and #19's, from their
+# first builds on it (NVIDIA H100 80GB HBM3, 132 SMs, nvcc of CUDA 12.8).
+# #14 on these block-aligned starts, with Σ 1/γ by step equal to #9's by
+# block, gives #9's bits; #4 with no clamp count gives #3's, #13 #19's
 LOOPLESS_GOLDEN = {
     ("lsvrg", "f32"): "1b86d247d1dd5e39",
     ("lsvrg", "int8"): "de61e002d1d466f6",
@@ -1197,15 +1198,18 @@ LOOPLESS_GOLDEN = {
     ("saga", "int8"): "b5f33c250208d47b",
     ("point_saga", "f32"): "04fa23c347303456",
     ("point_saga", "int8"): "3765bc8958ce2316",
+    ("ssnm", "f32"): "c88efc20cf5bbcf6",
+    ("ssnm", "int8"): "09b4128dd7a0f0cb",
 }
 
 
 def loopless_digest(dev, kind, storage):
     """Kernel #16's (w, wpre), #17's (y, z, ypre), #10's (y, z, ys),
     #11's (ww, v), #9's or #14's (c, zb, z, av), #8's (av, z), #18's (s,
-    av, z), #3's or #4's ("saga_stream", no clamp count) (c, z, av) or
+    av, z), #3's or #4's ("saga_stream", no clamp count) (c, z, av),
     #12's (c, x, av; logistic rows, labels sign(b), γ‖a_i‖² about 0.75)
-    after one call of K = 32 steps at the headline width (N =
+    or #19's or #13's ("ssnm_stream", no clamp count) (c, zb, x, gb; τ =
+    0.5) after one call of K = 32 steps at the headline width (N =
     32,768, n = 1,024, B = 4,096: 128 CTAs on a card of 132 SMs; the
     blocks revisited every eight steps) on exact dyadic inputs (no
     generator, no libm), as a digest."""
@@ -1273,6 +1277,14 @@ def loopless_digest(dev, kind, storage):
         out = tfb.point_saga_multistep(A, y, na, canch.clone(), starts,
                                        z.clone(), av.clone(), sc, B, mode=1,
                                        rs=rs)
+    elif kind in ("ssnm", "ssnm_stream"):
+        zb = ((torch.arange(N // B)[:, None] * 3 + j * 5) % 17 - 8).float()
+        sc = torch.tensor([1.0, 2.0**-12, 2.0**-18, 1.0 / B, 1.0 / N, 0.0,
+                           0.5, 0.5], device=dev)
+        fn = (tfb.ssnm_multistep if kind == "ssnm"
+              else tfb.ssnm_multistep_streamed)
+        out = fn(A, b, starts, canch.clone(), (zb / 512).to(dev), z.clone(),
+                 av.clone(), sc, B, rs=rs)
     elif kind == "lfinito":
         invg = (torch.arange(K) % 3 + 4).float() * 128
         sc = torch.tensor([1.0, 2.0**-12, 2.0**-18, 1.0 / N, 0.0, 0.5],
@@ -1293,29 +1305,44 @@ def loopless_digest(dev, kind, storage):
 
 
 @pytest.mark.parametrize("kind", ["lsvrg", "lkatyusha", "katyusha",
-                                  "sarah"])
+                                  "sarah", "ssnm"])
 @pytest.mark.parametrize("storage", ["f32", "int8"])
 def test_loopless_kernels_repeat_bit_for_bit_at_width(dev, kind, storage,
                                                       monkeypatch):
-    """Kernels #16, #17, #10 and #11 at the headline width (n = 1,024, B =
-    4,096, K = 32: 128 CTAs, two grid barriers a step) give the same bits
-    in two calls, and on a 132-SM card their pinned bits
-    (``LOOPLESS_GOLDEN``: #16's and #17's from the engine before #4 and
-    #5 joined it, one row group at this width, so neither the narrow-row
-    split nor the methods added since changed their arithmetic); a grid
-    other than the engine's rule is refused by the launch (RuntimeError),
-    nothing falls back."""
+    """Kernels #16, #17, #10, #11 and #19 at the headline width (n =
+    1,024, B = 4,096, K = 32: 128 CTAs, two grid barriers a step; #19 on
+    blocks drawn with repeats) give the same bits in two calls, and on a
+    132-SM card their pinned bits (``LOOPLESS_GOLDEN``: #16's and #17's
+    from the engine before #4 and #5 joined it, one row group at this
+    width, so neither the narrow-row split nor the methods added since
+    changed their arithmetic; #19's equal #13's with no clamp count); a
+    grid other than the engine's rule is refused by the launch
+    (RuntimeError), nothing falls back to the two-launch engine or to the
+    plain version."""
     N, n, B, K = 32768, 1024, 4096, 32
-    S = _vr_setup(dev, N, n, B, K, storage, seed=5)
-    sc = _vr_scalars(S, kind, B, 0.1, dev)
-    fn = getattr(tfb, VR_KERNELS[kind][0])
-    runs = [_vr_run(kind, fn, S, sc, B) for _ in range(2)]
+    if kind == "ssnm":
+        F, L, state, starts = _ssnm_state(dev, N, n, B, K, storage, seed=5)
+        sc = _ssnm_scalars(F, L, N, B, 0.5, 0.1, dev)
+        fn = tfb.ssnm_multistep
+
+        def run():
+            return _run_state(fn, F, state, starts, sc, B)
+    else:
+        S = _vr_setup(dev, N, n, B, K, storage, seed=5)
+        sc = _vr_scalars(S, kind, B, 0.1, dev)
+        fn = getattr(tfb, VR_KERNELS[kind][0])
+
+        def run():
+            return _vr_run(kind, fn, S, sc, B)
+    runs = [run() for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     if tfb._sm_count(dev.index) == 132:
-        assert loopless_digest(dev, kind, storage) == LOOPLESS_GOLDEN[
-            kind, storage]
+        got = loopless_digest(dev, kind, storage)
+        assert got == LOOPLESS_GOLDEN[kind, storage], got
+        if kind == "ssnm":
+            assert loopless_digest(dev, "ssnm_stream", storage) == got
     rule = tfb._loopless_grid
 
     def halved(B_, n_, isz, sms, points=1):
@@ -1324,7 +1351,7 @@ def test_loopless_kernels_repeat_bit_for_bit_at_width(dev, kind, storage,
     monkeypatch.setattr(tfb, "_loopless_grid", halved)
     before = fn.launches
     with pytest.raises(RuntimeError, match="launch failed"):
-        _vr_run(kind, fn, S, sc, B)
+        run()
     assert fn.launches == before
 
 
@@ -2219,6 +2246,10 @@ sc3 = torch.tensor([N, g, g * 0.1, 1.0 / B, 1.0 / N, 0.0, 0.0, 0.0],
                    device=dev)
 sc12 = torch.tensor([N, g, 1.0 / B, 1.0 / N, 0.0, 0.0], device=dev)
 na = (A * A).sum(1)
+# SSNM's [scale, eta, eta·lambda, 1/B, 1/N, mode, tau, aux] (#19, #13), its
+# stored points Finito's anchors
+sc19 = torch.tensor([N, g, g * 0.1, 1.0 / B, 1.0 / N, 0.0, 0.5, 0.0],
+                    device=dev)
 
 
 def call(i):
@@ -2235,6 +2266,12 @@ def call(i):
         tfb.finito_coeff_multistep(rows, offs, starts[i], c, zb, invg, z, a,
                                    sc9, B)
         return c, zb, z, a
+    if kind in ("ssnm", "ssnm_stream"):
+        c, zb, x, a = canch.clone(), zb0.clone(), w0[i].clone(), av.clone()
+        fn = (tfb.ssnm_multistep if kind == "ssnm"
+              else tfb.ssnm_multistep_streamed)
+        fn(rows, offs, starts[i], c, zb, x, a, sc19, B)
+        return c, zb, x, a
     if kind == "finito_stream":
         c, zb, z, a = canch.clone(), zb0.clone(), w0[i].clone(), av.clone()
         tfb.finito_coeff_multistep_streamed(
@@ -2275,19 +2312,20 @@ print("two streams: ok")
 
 @pytest.mark.parametrize("kind", ["lsvrg", "finito", "lfinito",
                                   "finito_stream", "proshi", "saga",
-                                  "point_saga"])
+                                  "point_saga", "ssnm", "ssnm_stream"])
 @pytest.mark.parametrize("B", [128, 64])
 def test_loopless_calls_on_two_streams_are_their_single_stream_runs(dev, B,
                                                                    kind):
-    """Two calls of kernel #16, #9, #8, #14, #18, #3 or #12 with small
-    grids (B =
+    """Two calls of kernel #16, #9, #8, #14, #18, #3, #12, #19 or #13 with
+    small grids (B =
     128: one row a CTA, 128 CTAs; B = 64: 64, so both grids fit the card's
     132 SMs at once) queued together on two streams, 20 times: each gives
     its single-stream result bit for bit (each stream has its own
     grid-barrier word, ``fused_block._grid_barrier``; #9 and #14 write
     their table, anchors and point inside the launch, #18 its table, av
     and z, #3 and #12 their table, iterate and av, #12 its shifted
-    point). Run in a child process with a time limit, so that a hung
+    point, #19 and #13 their table, stored points, iterate, table mean
+    and momentum point). Run in a child process with a time limit, so that a hung
     barrier fails the test and does not stall the suite."""
     import os
     import subprocess
@@ -2392,8 +2430,8 @@ def test_ssnm_kernel_matches_plain_version(dev, kernel, storage, precision,
 @pytest.mark.parametrize("storage", ["f32", "int8"])
 def test_ssnm_kernel_steps_and_masks_bit_for_bit(dev, storage):
     """A K-step call of #19 equals its K one-step calls bit for bit (y is
-    formed once per step, by the prologue or the previous finish, with
-    the same rounding); #13 equals #19; with f = 23 read on the device the
+    formed once per step, by every CTA at step 0 or by the previous
+    finish, with the same rounding); #13 equals #19; with f = 23 read on the device the
     masked steps write nothing, so the call equals the first 23 steps
     alone, f = K equals f None; two runs repeat bit for bit."""
     N, B, K = 8192, 128, 48
@@ -2421,6 +2459,78 @@ def test_ssnm_kernel_steps_and_masks_bit_for_bit(dev, storage):
     with pytest.raises(ValueError, match="zb"):
         _run_state(tfb.ssnm_multistep, F, (state[0], state[1][:-1],
                                            *state[2:]), starts, sc, B)
+
+
+# (N, n, B) of #19 and #13 on hand-made revisits: the deep target's width
+# (n = 128, B = 8,192: 64 rows a CTA, one stage a step, eight row groups of
+# a warp, the ring up to six stages ahead) and the headline width (n =
+# 1,024, B = 4,096: 32 rows a CTA, four f32 stages a step); d = 8 blocks
+SSNM_EDGES = {"n128": (65536, 128, 8192), "n1024": (32768, 1024, 4096)}
+# the blocks of the K = 24 steps: step 1 repeats step 0 (the same block
+# twice in a row), step 5 step 3 (within the ring's lookahead), step 23
+# step 0 (the call's first block at its last step), and block 7 is visited
+# at steps 9 and 14 and by no step between, so a clamp count f = 12 cuts
+# between the two visits
+SSNM_REVISITS = (0, 0, 1, 2, 3, 2, 4, 5, 6, 7, 1, 3, 5, 4, 7, 6, 2, 2, 1, 3,
+                 4, 6, 5, 0)
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+@pytest.mark.parametrize("shape", list(SSNM_EDGES))
+def test_ssnm_on_the_engine_takes_hand_made_revisits(dev, shape, storage):
+    """Kernel #19, one cooperative launch a call, on ``SSNM_REVISITS``
+    (the stored point zb_j and the table are written and read back inside
+    the launch, and the finish forms the next step's y from the zb_j it
+    has just stored where a block repeats), against
+    ``ssnm_multistep_ref``: x and the stored points within 1e-6 of their
+    largest entry, c and gb within 1e-5, over the whole call with exact
+    f32 dots; with int8 rows (bf16 dots) step by step, each plain step
+    taken once more by the kernel from the same state, within 1e-5 and
+    1e-4 (a flipped bf16 rounding carries through every later step), the
+    call equal to its one-step calls bit for bit. #13 with no clamp count
+    equals #19 bit for bit, and with f = 12 read on the device (between
+    the two visits of block 7) the first 12 steps alone."""
+    N, n, B = SSNM_EDGES[shape]
+    K = len(SSNM_REVISITS)
+    F, L, state, _ = _ssnm_state(dev, N, n, B, K, storage, seed=61)
+    starts = torch.tensor(SSNM_REVISITS, dtype=torch.int32, device=dev) * B
+    sc = _ssnm_scalars(F, L, N, B, 0.5, 0.01, dev)
+    before = tfb.ssnm_multistep.launches
+    whole = _run_state(tfb.ssnm_multistep, F, state, starts, sc, B)
+    torch.cuda.synchronize()
+    assert tfb.ssnm_multistep.launches == before + 1
+    lowp = storage != "f32"
+    tol = 1e-5 if lowp else 1e-6
+    if not lowp:
+        pairs = [(whole, _run_state(tfb.ssnm_multistep_ref, F, state, starts,
+                                    sc, B))]
+    else:
+        ref, chain, pairs = list(state), list(state), []
+        for k in range(K):
+            s1 = starts[k:k + 1]
+            pairs.append((_run_state(tfb.ssnm_multistep, F, ref, s1, sc, B),
+                          _run_state(tfb.ssnm_multistep_ref, F, ref, s1, sc,
+                                     B)))
+            chain = _run_state(tfb.ssnm_multistep, F, chain, s1, sc, B)
+            ref = pairs[-1][1]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(whole, chain))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for i, (k_, r) in enumerate(zip(got, want)):
+            assert bool(torch.isfinite(k_).all())
+            assert _rel(k_, r) <= (10 * tol if i in (0, 3) else tol), (
+                i, _rel(k_, r))
+    assert float((pairs[-1][1][2] - state[2]).abs().max()) > 0
+    f12 = torch.tensor([12], dtype=torch.int32, device=dev)
+    pairs = ((_run_state(tfb.ssnm_multistep_streamed, F, state, starts, sc,
+                         B), whole),
+             (_run_state(tfb.ssnm_multistep_streamed, F, state, starts, sc, B,
+                         f=f12),
+              _run_state(tfb.ssnm_multistep, F, state, starts[:12], sc, B)))
+    torch.cuda.synchronize()
+    for a, b in pairs:
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 PS_KINDS = ["lsq", "logistic", "huber", "sqhinge", "poisson"]

@@ -4,14 +4,15 @@ of one checkout of the port on one NVIDIA GPU, so that two versions can be
 compared in one call: #16 (``lsvrg_coeff_multistep``) and #17
 (``lkatyusha_coeff_multistep``), #5 (``svrg_coeff_multistep``), #10
 (``katyusha_coeff_multistep``), #11 (``sarah_multistep``) and #9
-(``finito_coeff_multistep``), #3 (``saga_coeff_multistep``) and #12
-(``point_saga_multistep``) at the headline, #4
-(``saga_coeff_multistep_streamed``), #8 (``lfinito_sweep_multistep``) and
-#14 (``finito_coeff_multistep_streamed``) at the deep target, and #18
+(``finito_coeff_multistep``), #3 (``saga_coeff_multistep``), #12
+(``point_saga_multistep``) and #19 (``ssnm_multistep``) at the headline,
+#4 (``saga_coeff_multistep_streamed``), #8 (``lfinito_sweep_multistep``),
+#14 (``finito_coeff_multistep_streamed``) and #13
+(``ssnm_multistep_streamed``) at the deep target, and #18
 (``proshi_multistep``) at the ProShI configuration.
 
     python3 tools/loopless_step_times.py [--root DIR] [--tag NAME] [--seed 0]
-        [--kernels 16,17,5,4,10,11,9,8,18,14,3,12] [--profile]
+        [--kernels 16,17,5,4,10,11,9,8,18,14,3,12,19,13] [--profile]
 
 Builds the kernels from ``DIR/ciao_tpu_torch/csrc`` (default: this
 checkout; all at once, one ``nvcc`` each) with that checkout's
@@ -20,7 +21,7 @@ helpers are this checkout's ``chip_smoke.py`` (``vr_inputs``,
 ``vr_scalars``, ``vr_call``, ``svrg_inputs``, ``kernel_inputs``,
 ``finito_inputs``, ``lfinito_inputs``, ``proshi_inputs``,
 ``run_proshi_kernel``, ``row_oracle``, ``ps_inputs``, ``ps_call``,
-``step_bound``). Times each kernel
+``ssnm_inputs``, ``ssnm_call``, ``step_bound``). Times each kernel
 per step by CUDA events, two turns each, one state stepped on in place:
 
 - #16 and #17 alternating, in calls of K = 32 steps (``LOOPLESS_LAUNCH``,
@@ -63,15 +64,21 @@ per step by CUDA events, two turns each, one state stepped on in place:
 - #12 on the headline's rows with least-squares and logistic rows (labels
   sign(b); γ as ``chip_smoke.run_new_headline``'s), f32, bf16 and int8, at
   B = 4,096 and 1,024 in calls of K = 128 (a call of ``point_saga_run``):
-  logistic minus least squares is what the Newton solves cost a step.
-The wrappers of #3, #9, #8, #12, #14 and #18 from before they joined the
-engine take the same arguments too.
+  logistic minus least squares is what the Newton solves cost a step;
+- #19 on the headline's rows (least squares, τ = 0.5), f32, bf16 and
+  int8, at B = 4,096 (the SSNM headline) and 1,024 (the ``SSNM``
+  facade's batch) in calls of K = 128 (a call of ``ssnm_run``), blocks
+  drawn with repeats;
+- #13 at the deep target's shape, f32 and int8, in calls of K = 128
+  (a call of the streamed SSNM driver) visiting 128 distinct blocks.
+The wrappers of #3, #9, #8, #12, #13, #14, #18 and #19 from before they
+joined the engine take the same arguments too.
 
 Beside each time: the step's bound at 3.35 TB/s and its bytes at the card's
 read ceiling (``torch.sum`` over 2 GiB of f32, measured in the same
 process), and the card's name and power limit. With ``--profile``, #18's,
-#14's and #12's (f32, B = 4,096, both modes) entries also hold one call
-traced by ``torch.profiler``: the
+#14's, #13's, #12's and #19's (f32, B = 4,096; #12 in both modes)
+entries also hold one call traced by ``torch.profiler``: the
 device time a step by kernel, the host clock's time a step and the rest
 (gaps: launches, barriers the trace does not see), and, where the
 profiler's CUPTI metrics are given, the DRAM bytes a step
@@ -471,6 +478,66 @@ def time_point_saga(out, cs, fb, A, b, gen, dev, ceil):
             torch.cuda.empty_cache()
 
 
+def time_ssnm(out, cs, fb, A, b, gen, dev, ceil):
+    """#19 at the headline at both batches in calls of CALL_STEPS steps."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    for storage in ("f32", "bf16", "int8"):
+        F = LeastSquaresRows(A, b, float(N))
+        if storage != "f32":
+            F = F.with_storage(storage)
+        for shape, B in FINITO_BATCHES:
+            S = cs.ssnm_inputs(F, gen, dev, B, CALL_STEPS, 0.5, cs.LAM)
+            state = [t.clone() for t in S["state"]]
+
+            def call(S=S, B=B, state=state):
+                cs.ssnm_call(fb.ssnm_multistep, F, S, B, state=state)
+            ms = [cs.time_events(call, 5) / CALL_STEPS for _ in range(2)]
+            if not all(bool(torch.isfinite(t).all()) for t in state):
+                raise AssertionError(f"#19 {storage} B={B}: non-finite "
+                                     "state")
+            extra = (dict(profile=_profile(call, CALL_STEPS))
+                     if PROFILE and storage == "f32" and B == 4_096 else {})
+            # rows, b and c read and written of the visited blocks; their
+            # stored points read and written; x and gb in and out
+            distinct = int(torch.unique(S["starts"]).numel())
+            _record(out, cs, F, S["starts"], B, 16 * n + 8 * n * distinct,
+                    12, ceil, kernel="#19", shape=shape, storage=storage,
+                    K=CALL_STEPS, ms=ms, **extra)
+        del F
+        torch.cuda.empty_cache()
+
+
+def time_ssnm_deep(out, cs, fb, A, b, gen, dev, ceil):
+    """#13 at the deep target's shape in calls of CALL_STEPS distinct
+    blocks."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    for storage in ("f32", "int8"):
+        F = LeastSquaresRows(A, b, float(DEEP_N))
+        if storage != "f32":
+            F = F.with_storage(storage)
+        S = cs.ssnm_inputs(F, gen, dev, DEEP_B, CALL_STEPS, 0.5, cs.LAM,
+                           distinct=True)
+        state = [t.clone() for t in S["state"]]
+
+        def call(S=S, state=state):
+            cs.ssnm_call(fb.ssnm_multistep_streamed, F, S, DEEP_B,
+                         state=state)
+        ms = [cs.time_events(call, 5) / CALL_STEPS for _ in range(2)]
+        if not all(bool(torch.isfinite(t).all()) for t in state):
+            raise AssertionError(f"#13 {storage}: non-finite state")
+        extra = dict(profile=_profile(call, CALL_STEPS)) if PROFILE else {}
+        # rows, b and c read and written of the visited blocks; their
+        # stored points read and written; x and gb in and out
+        _record(out, cs, F, S["starts"], DEEP_B,
+                16 * DEEP_n + 8 * DEEP_n * CALL_STEPS, 12, ceil,
+                kernel="#13", shape="deep", storage=storage, K=CALL_STEPS,
+                ms=ms, **extra)
+        del F, S, state
+        torch.cuda.empty_cache()
+
+
 def time_saga_deep(out, cs, fb, A, b, gen, dev, ceil):
     """#4 at the deep target's shape in calls of CALL_STEPS steps."""
     from ciao_tpu_torch.oracles import LeastSquaresRows
@@ -505,11 +572,14 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(HERE))
     ap.add_argument("--tag", default="")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="16,17,5,4,10,11,9,8,18,14,3,12",
+    ap.add_argument("--kernels",
+                    default="16,17,5,4,10,11,9,8,18,14,3,12,19,13",
                     help="which of #16/#17 (together), #5, #4, #10/#11 "
-                         "(together), #9, #8, #18, #14, #3, #12 to time")
+                         "(together), #9, #8, #18, #14, #3, #12, #19, #13 "
+                         "to time")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one call of #18, #14 and #12 as well")
+                    help="trace one call of #18, #14, #12, #19 and #13 as "
+                         "well")
     args = ap.parse_args()
     global PROFILE
     PROFILE = args.profile
@@ -545,6 +615,11 @@ def main() -> int:
                 else "saga_coeff_multistep_streamed")] if "3" in which
               else [])
     names += ["point_saga_multistep"] if "12" in which else []
+    # #19's likewise, #13's where the checkout has none
+    own = os.path.exists(os.path.join(_build.CSRC, "ssnm_multistep.cu"))
+    names += ([("ssnm_multistep" if own else "ssnm_multistep_streamed")]
+              if "19" in which else [])
+    names += ["ssnm_multistep_streamed"] if "13" in which else []
     names = list(dict.fromkeys(names))
     with ThreadPoolExecutor(max(1, len(names))) as pool:
         list(pool.map(_build.build, names))
@@ -574,9 +649,11 @@ def main() -> int:
         time_saga(out, cs, fb, A, b, gen, dev, ceil)
     if "12" in which:
         time_point_saga(out, cs, fb, A, b, gen, dev, ceil)
+    if "19" in which:
+        time_ssnm(out, cs, fb, A, b, gen, dev, ceil)
     del A, b
     torch.cuda.empty_cache()
-    if which & {"4", "8", "14"}:
+    if which & {"4", "8", "14", "13"}:
         A = torch.randn(DEEP_N, DEEP_n, generator=gen, device=dev)
         b = torch.randn(DEEP_N, generator=gen, device=dev)
         if "4" in which:
@@ -585,6 +662,8 @@ def main() -> int:
             time_lfinito_deep(out, cs, fb, A, b, gen, dev, ceil)
         if "14" in which:
             time_finito_deep(out, cs, fb, A, b, gen, dev, ceil)
+        if "13" in which:
+            time_ssnm_deep(out, cs, fb, A, b, gen, dev, ceil)
         del A, b
     print(json.dumps(out), flush=True)
     return 0
