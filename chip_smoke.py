@@ -14,10 +14,9 @@ of PERF.md: #3 is its entry with no clamp count), ``svrg_coeff_multistep.cu``
 ``sarah_multistep.cu`` (kernel #11), ``lsvrg_coeff_multistep.cu`` (kernel
 #16), ``lkatyusha_coeff_multistep.cu`` (kernel #17),
 ``ssnm_multistep_streamed.cu`` (kernels #13 and #19: #19 is its entry with
-no clamp count),
-``point_saga_multistep.cu`` (kernel #12),
-``point_saga_multistep_streamed.cu`` (kernel #15) and
-``coeff_value_apply_all.cu`` (kernel #7):
+no clamp count), ``point_saga_multistep_streamed.cu`` (kernels #15 and #12:
+#12 is its entry with no clamp count) and ``coeff_value_apply_all.cu``
+(kernel #7):
 
 - the SAGA headline of ``bench.py``: a dense Lasso with N = 262,144 rows of
   n = 1,024 columns stored int8 or f32, NormL1(0.1), block-sampled
@@ -72,7 +71,7 @@ no clamp count),
 Phases, one line each:
 
   1. device: CUDA present (else exit 2), the card's name and power limit;
-  2. build: the nineteen kernels' seventeen sources compiled by nvcc from
+  2. build: the nineteen kernels' sixteen sources compiled by nvcc from
      this checkout, in parallel;
   3. kernel #3 == plain version: f32/bf16/int8 rows, SAGA and SAG, with and
      without direction weights, at a small shape (and at widths that are not
@@ -182,15 +181,17 @@ Phases, one line each:
      logistic, Huber δ = 0.7, squared hinge, Poisson on 0.05·A) with f32 and
      int8 rows, bf16 for least squares and logistic, #15 with f = 23; the
      K-step calls equal to their one-step calls and the masked steps, bit
-     for bit; K = 8 at the headline and (inside 4g's block) at the deep
-     shape; #19 with f32 and int8 rows, #13 with f32 rows and a clamp
-     count, and #12 with logistic f32 and int8 rows at the persistent
-     engine's edges (LOOPLESS_EDGES);
+     for bit, #15 with no clamp count equal to #12 and f = 0 writing
+     nothing; K = 8 at the headline and (inside 4g's block) at the deep
+     shape, #15 there with least-squares and logistic rows; #19 with f32
+     and int8 rows, #13 with f32 rows and a clamp count, and #12 and #15
+     (with a clamp count) with logistic f32 and int8 rows at the
+     persistent engine's edges (LOOPLESS_EDGES);
   4p, 4r. (on the deep target, after 4g) SSNM on #13 and least-squares
      Point-SAGA on #15, f32 and int8, two epochs each, and #13 and #15 per
-     step in turns with their plain version; a window of each profiled
-     (SSNM's showing one launch of the persistent engine a kernel #13 call
-     and no kernel of the two-launch engine);
+     step in turns with their plain version; a window of each profiled,
+     showing one launch of the persistent engine a kernel #13 or #15 call
+     and no kernel of the two-launch engine;
   4o, 4q. SSNM and Point-SAGA at the headline with launch counts, falling
      objectives, ms per step and a profiled window each (reported in phase
      10, showing one launch of the persistent engine a kernel #19 or #12
@@ -3291,10 +3292,11 @@ def ssnm_bit_for_bit(F, gen, dev, B_, K, f, tag) -> None:
         "bit")
 
 
-def ps_inputs(F, gen, dev, B_: int, K: int, gamma: float):
+def ps_inputs(F, gen, dev, B_: int, K: int, gamma: float, distinct=False):
     """A Point-SAGA-like state on the card: x small and random, c its
     coefficients, av their mean row gradient, the row square-norms, K
-    block starts (repeats included) and the scalars row at ``gamma``."""
+    block starts (repeats included unless ``distinct``) and the scalars
+    row at ``gamma``."""
     from ciao_tpu_torch.solvers.point_saga import _sqnorms
     from ciao_tpu_torch.solvers.saga import block_starts
 
@@ -3307,8 +3309,11 @@ def ps_inputs(F, gen, dev, B_: int, K: int, gamma: float):
                        1.0 / N_, float(F.coeff_mode),
                        float(getattr(F, "delta", 0.0))], dtype=torch.float32,
                       device=dev)
+    starts = (((torch.randperm(N_ // B_, generator=gen, device=dev)[:K]
+                * B_).to(torch.int32)) if distinct
+              else block_starts(seed, 1, K, N_ // B_, B_, dev))
     return dict(state=(c, x, F.apply_all(c) / N_), na=_sqnorms(F, N_), sc=sc,
-                starts=block_starts(seed, 1, K, N_ // B_, B_, dev))
+                starts=starts)
 
 
 def ps_call(fn, F, S, B_, precision="highest", starts=None, state=None,
@@ -3375,14 +3380,40 @@ def compare_ps(F, Lmax, gen, dev, B_, K, precision, tag, streamed=False,
     return err
 
 
+def ps_bit_for_bit(F, Lmax, gen, dev, B_, K, f, tag) -> None:
+    """Kernel #15 with no clamp count equals #12 (one C entry), #15 with
+    f read on the device equals #12 on the first f steps alone, and f = 0
+    writes nothing, all bit for bit."""
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    S = ps_inputs(F, gen, dev, B_, K, 10.0 / (3.0 * Lmax))
+    i32 = dict(dtype=torch.int32, device=dev)
+    pairs = ((ps_call(fb.point_saga_multistep_streamed, F, S, B_),
+              ps_call(fb.point_saga_multistep, F, S, B_)),
+             (ps_call(fb.point_saga_multistep_streamed, F, S, B_,
+                      f=torch.tensor([f], **i32)),
+              ps_call(fb.point_saga_multistep, F, S, B_,
+                      starts=S["starts"][:f])),
+             (ps_call(fb.point_saga_multistep_streamed, F, S, B_,
+                      f=torch.tensor([0], **i32)), list(S["state"])))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, want)):
+            raise AssertionError(f"{tag}: not bit for bit")
+    log(f"  {tag}: #15 equals #12, with f = {f} the first {f} steps of "
+        "#12, with f = 0 its inputs, bit for bit")
+
+
 def phase_check_new(gen, dev) -> dict:
     """3o-3p: kernels #19 and #13 against their plain version in f32
     "highest" and "default", bf16 and int8 rows at τ = 0.5 and τ = 1, #13
     with f = K and f = 23, the bit-for-bit identities, K = 8 at the
     headline, and at the persistent engine's edges (#19 f32 and int8, #13
-    f32 with the edge's clamp count); kernels #12 and #15 in all five oracle modes with f32 and
-    int8 rows (and bf16 for least squares and logistic, "default" for
-    least squares) step by step, #15 masked, and K = 8 at the headline."""
+    f32 with the edge's clamp count); kernels #12 and #15 in all five
+    oracle modes with f32 and int8 rows (and bf16 for least squares and
+    logistic, "default" for least squares) step by step, #15 masked and
+    bit for bit #12's, K = 8 at the headline, and at the engine's edges
+    (#12 and #15 with the edge's clamp count, logistic f32 and int8)."""
     s = NEW_SMALL
     errs = dict.fromkeys(("ssnm_multistep", "ssnm_multistep_streamed",
                           "point_saga_multistep",
@@ -3420,6 +3451,9 @@ def phase_check_new(gen, dev) -> dict:
                 errs["point_saga_multistep_streamed"], compare_ps(
                     F, Lm, gen, dev, s["B"], s["K"], precision,
                     f"#15 {tag} f={s['f']}", streamed=True, f=s["f"]))
+            if precision == "highest":
+                ps_bit_for_bit(F, Lm, gen, dev, s["B"], s["K"], s["f"],
+                               f"#15/#12 {tag}")
             del F
     for storage in ("f32", "int8"):
         F, _, _ = lasso(gen, dev, N, n, storage)
@@ -3453,6 +3487,11 @@ def phase_check_new(gen, dev) -> dict:
                 errs["point_saga_multistep"], compare_ps(
                     F, Lm, gen, dev, B_, K_, "highest",
                     f"#12 N={N_} n={n_} B={B_} K={K_} logistic {storage}"))
+            errs["point_saga_multistep_streamed"] = max(
+                errs["point_saga_multistep_streamed"], compare_ps(
+                    F, Lm, gen, dev, B_, K_, "highest",
+                    f"#15 N={N_} n={n_} B={B_} K={K_} logistic {storage} "
+                    f"f={f_}", streamed=True, f=f_))
             del F
             torch.cuda.empty_cache()
     return errs
@@ -3461,8 +3500,7 @@ def phase_check_new(gen, dev) -> dict:
 SSNM_GROUPS = {"kernel #19": ("loopless_steps_kernel",)}
 SSNM_STREAM_GROUPS = {"kernel #13": ("loopless_steps_kernel",)}
 PS_GROUPS = {"kernel #12": ("loopless_steps_kernel",)}
-PS_STREAM_GROUPS = {"kernel #15": ("rows_kernel", "point_saga_finish",
-                                   "shifted_point")}
+PS_STREAM_GROUPS = {"kernel #15": ("loopless_steps_kernel",)}
 
 
 def check_run(tag, st, moved, want, obj0, obj1, steps) -> None:
@@ -3600,14 +3638,21 @@ def run_new_headline(gen, dev, card: str) -> dict:
 
 
 def run_new_deep(prob, gen, dev, card: str) -> dict:
-    """3o/3p at the deep shape (K = 8 of #13 and #15 against the plain
-    version), then 4p, 4r: SSNM (#13, NormL1(1), τ = 0.5, η =
-    1/(1.5·L_max)) and least-squares Point-SAGA (#15, g = Zero, γ =
-    1/(3·L_max)) on the deep target, f32 and int8 rows, NEW_DEEP_STEPS
-    each, with launch counts and falling objectives."""
+    """3o/3p at the deep shape (K = 8 of #13, and of #15 on least-squares
+    and on logistic rows, against the plain version), then 4p, 4r: SSNM
+    (#13, NormL1(1), τ = 0.5, η = 1/(1.5·L_max)) and least-squares
+    Point-SAGA (#15, g = Zero, γ = 1/(3·L_max)) on the deep target, f32
+    and int8 rows, NEW_DEEP_STEPS each, with launch counts and falling
+    objectives. The logistic rows are the deep target's with the labels
+    sign(b), at 10x the default γ (γ‖a_i‖² up to 13: every Newton solve
+    moves θ well off its warm start)."""
+    from ciao_tpu_torch.oracles import LogisticRows
+
     errs = {"ssnm_multistep_streamed": 0.0,
             "point_saga_multistep_streamed": 0.0}
     Lm = float(prob.L.max())
+    logistic = LogisticRows(prob.A, torch.sign(prob.b))
+    Lg = 0.25 * Lm / DEEP["N"]
     for storage in ("f32", "int8"):
         F = prob.oracle(storage)
         tag = f"N={DEEP['N']} n={DEEP['n']} B={DEEP['B']} K={DEEP_K} {storage}"
@@ -3619,6 +3664,14 @@ def run_new_deep(prob, gen, dev, card: str) -> dict:
             errs["point_saga_multistep_streamed"], compare_ps(
                 F, Lm, gen, dev, DEEP["B"], DEEP_K, "highest", f"#15 {tag}",
                 streamed=True, gamma=1.0 / (3.0 * Lm)))
+        F = logistic if storage == "f32" else logistic.with_storage(storage)
+        errs["point_saga_multistep_streamed"] = max(
+            errs["point_saga_multistep_streamed"], compare_ps(
+                F, Lg, gen, dev, DEEP["B"], DEEP_K, "highest",
+                f"#15 {tag} logistic", streamed=True))
+        del F
+    del logistic
+    torch.cuda.empty_cache()
     reset_counts()
     runs = {}
     for storage in ("f32", "int8"):
@@ -3886,7 +3939,17 @@ def compare_value_apply(rows, b, z, sc, precision, rs, tag) -> float:
     largest entries; a second launch repeats bit for bit; c and gsum are
     kernel #6's to the bit (the same tiles). Returns the largest
     absolute error of c and gsum (the value's, up to 1e11 at the
-    headline, is logged relative to Σ|f_i|)."""
+    headline, is logged relative to Σ|f_i|).
+
+    Where the dots round to bf16, the product weighs row i by c_i·rs_i
+    rounded to bf16, and a c_i within C_TOL of the plain one can round to
+    the neighbouring bf16 value: one such row of int8 rows moved gsum by
+    2^-10 × 127.6 = 0.1246 (a weight in [1/8, 1/4) times the row's entry
+    of 127) at N = 4,099, n = 4,096, squared hinge, on an H100. So there
+    the kernel's gsum is also held within GSUM_TOL to the plain product
+    at the kernel's own c, and the bound on gsum against the plain
+    version adds, for those rows alone, their weights' difference times
+    their largest entry: what they can move any column by."""
     from ciao_tpu_torch.ops import fused_block as fb
 
     kv, kc, kg = fb.coeff_value_apply_all(rows, b, z, sc, precision=precision,
@@ -3897,19 +3960,37 @@ def compare_value_apply(rows, b, z, sc, precision, rs, tag) -> float:
                                      rs=rs)
     torch.cuda.synchronize()
     lowp = fb._lowp(rows, precision)
-    r = fb._apply_margins_ref(rows, z, precision, rs)[1]
+    A_f, r, _ = fb._apply_margins_ref(rows, z, precision, rs)
     vabs = float(fb._value_formula(sc[1], r, b, sc[0], sc[2]).abs().sum())
     ev = abs(float(kv) - float(rv))
     if not (math.isfinite(float(kv)) and ev <= VALUE_TOL * vabs):
         raise AssertionError(f"{tag}: value {float(kv)} vs {float(rv)} "
                              f"(Σ|f_i| {vabs})")
-    worst = 0.0
+    worst, flips = 0.0, 0
     for name, kt, rt, tol in (("c", kc, rc, C_TOL[lowp]),
                               ("gsum", kg, rg, GSUM_TOL[lowp])):
         if not bool(torch.isfinite(kt).all()):
             raise AssertionError(f"{tag}: kernel {name} is not finite")
         err = float((kt - rt).abs().max())
-        if err > tol * max(float(rt.abs().max()), 1e-30):
+        bound = tol * max(float(rt.abs().max()), 1e-30)
+        if name == "gsum" and lowp:
+            def weights(c):
+                return fb._bf16_round(c if rs is None else c * rs)
+            dw = (weights(kc) - weights(rc)).abs()
+            flipped = dw > 0
+            flips = int(flipped.sum())
+            if flips:
+                own = fb._apply_gsum_ref(A_f, kc, rs, lowp,
+                                         fb._apply_rows(rows.shape[1],
+                                                        rows.element_size()))
+                e_own = float((kg - own).abs().max())
+                if e_own > bound:
+                    raise AssertionError(f"{tag}: gsum abs error {e_own} "
+                                         "against the plain product at the "
+                                         "kernel's c")
+                bound += float((dw[flipped]
+                                * A_f[flipped].abs().amax(dim=1)).sum())
+        if err > bound:
             raise AssertionError(f"{tag}: {name} abs error {err}")
         worst = max(worst, err)
     if not all(torch.equal(x, y) for x, y in zip((kv, kc, kg), again)):
@@ -3923,7 +4004,9 @@ def compare_value_apply(rows, b, z, sc, precision, rs, tag) -> float:
     log(f"  #7 {tag}: value rel {ev / max(vabs, 1e-30):.2e} of Σ|f_i|, c "
         f"rel {float((kc - rc).abs().max()) / float(rc.abs().max()):.2e}, "
         f"gsum rel {float((kg - rg).abs().max()) / float(rg.abs().max()):.2e}"
-        f"; repeat bit for bit; c, gsum == #6's: {same6}")
+        + (f" ({flips} rows' bf16 weights a neighbour apart)" if flips
+           else "")
+        + f"; repeat bit for bit; c, gsum == #6's: {same6}")
     return worst
 
 
@@ -4268,10 +4351,11 @@ REPLACES = {"saga_coeff_multistep": 371, "saga_coeff_multistep_streamed": 577,
 
 
 # the source of each kernel's C entry, by kernel (csrc/<name>.cu but for
-# #3 and #19, whose wrappers launch #4's and #13's entries with no clamp
-# count)
+# #3, #19 and #12, whose wrappers launch #4's, #13's and #15's entries with
+# no clamp count)
 SOURCE = {"saga_coeff_multistep": "saga_coeff_multistep_streamed",
-          "ssnm_multistep": "ssnm_multistep_streamed"}
+          "ssnm_multistep": "ssnm_multistep_streamed",
+          "point_saga_multistep": "point_saga_multistep_streamed"}
 SOURCES = tuple(dict.fromkeys(SOURCE.get(k, k) for k in KERNELS))
 
 
@@ -4564,8 +4648,10 @@ def main() -> int:
                 lambda: r["run"](128), 128, card, SSNM_STREAM_GROUPS,
                 "kernel #13", "ssnm_multistep_streamed")
         else:
-            profile_steps(f"Point-SAGA at the deep target, {storage} rows",
-                          lambda: r["run"](128), 128, card, PS_STREAM_GROUPS)
+            profile_one_launch(
+                f"Point-SAGA at the deep target, {storage} rows",
+                lambda: r["run"](128), 128, card, PS_STREAM_GROUPS,
+                "kernel #15", "point_saga_multistep_streamed")
     del prob, lfin, Fd, newdeep, r
     torch.cuda.empty_cache()
 

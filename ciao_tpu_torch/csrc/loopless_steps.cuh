@@ -1,5 +1,5 @@
-// The persistent step engine of fourteen step kernels on an NVIDIA Hopper card
-// (sm_90a): a whole call of K block steps in one cooperative launch,
+// The persistent step engine of all fifteen step kernels on an NVIDIA Hopper
+// card (sm_90a): a whole call of K block steps in one cooperative launch,
 //
 //   lsvrg_coeff_multistep.cu          replaces ciao_tpu/ops/fused_block.py
 //                                     lsvrg_coeff_multistep (L-SVRG steps,
@@ -39,19 +39,21 @@
 //                                     sharing steps on the (N, n) block
 //                                     table, steps k >= f masked, body
 //                                     _proshi_multi_kernel);
-//   point_saga_multistep.cu           replaces point_saga_multistep
-//                                     (Point-SAGA steps, a prox solve a
-//                                     row, body _point_saga_multi_kernel,
-//                                     theta solve _pointprox_theta);
+//   point_saga_multistep_streamed.cu  replaces
+//                                     point_saga_multistep_streamed
+//                                     (Point-SAGA steps for any N, a prox
+//                                     solve a row, steps k >= f masked,
+//                                     body _point_saga_stream_kernel) and,
+//                                     with no clamp count,
+//                                     point_saga_multistep (body
+//                                     _point_saga_multi_kernel, theta
+//                                     solve _pointprox_theta);
 //   ssnm_multistep_streamed.cu        replaces ssnm_multistep_streamed
 //                                     (SSNM steps for any N, steps k >= f
 //                                     masked, body _ssnm_stream_kernel)
 //                                     and, with no clamp count,
 //                                     ssnm_multistep (body
 //                                     _ssnm_multi_kernel).
-//
-// Kernel #15 (point_saga_multistep_streamed) is the one step kernel left on
-// the two-launch engine of saga_steps.cuh.
 //
 // The Python wrappers are in ciao_tpu_torch/ops/fused_block.py, beside the
 // plain PyTorch versions (the *_ref functions), whose arithmetic (bf16
@@ -61,14 +63,15 @@
 // What bounds it. A step must read its block's rows once: B.n.itemsize bytes,
 // 16 MiB f32 and 4 MiB int8 at B = 4,096, n = 1,024 (5.0 and 1.25 us at the
 // card's 3.35 TB/s), 4 MiB f32 and 1 MiB int8 at the deep target's B = 8,192,
-// n = 128, for 4.B.n flops: bytes, by a factor of 5 to 20. The two-launch
-// engine of saga_steps.cuh reached 31-35 % (f32) and 8-11 % (int8) of that on
-// an H100 at the headline and 13 % (f32) at the deep shape, where the host's
-// enqueue of two launches a step set the pace: a CTA staged all its rows
-// before any margin, the finish ran on n / 32 CTAs while the rest of the card
-// idled, and no load of the next step's rows could start before the finish
-// had ended, though nothing but the stream order held it: the rows do not
-// depend on the iterate.
+// n = 128, for 4.B.n flops: bytes, by a factor of 5 to 20. The kernels this
+// engine replaced, a row phase and a finish launched in turn for each step,
+// reached 31-35 % (f32) and 8-11 % (int8) of that on an H100 at the headline
+// and 13 % (f32) at the deep shape, where the host's enqueue of two launches
+// a step set the pace: a CTA staged all its rows before any margin, the
+// finish ran on n / 32 CTAs while the rest of the card idled, and no load of
+// the next step's rows could start before the finish had ended, though
+// nothing but the stream order held it: the rows do not depend on the
+// iterate.
 //
 // The engine, one launch of G CTAs, all resident at once (a cooperative
 // launch; refused, never split, if they do not fit):
@@ -200,8 +203,8 @@
 //     contract in two ways; every CTA reads its inputs before its first
 //     barrier, and the finishes write them only after it); the stop index
 //     (L-SVRG, L-Katyusha) or clamp count (SAGA, SSNM, streamed Finito,
-//     ProShI) is read once: a call processes min(K, stop + 1) or min(K, f)
-//     steps and the masked ones write nothing.
+//     ProShI, Point-SAGA) is read once: a call processes min(K, stop + 1)
+//     or min(K, f) steps and the masked ones write nothing.
 //
 // What it reaches on an H100 (tools/loopless_step_times.py, PERF.md): a step
 // costs a floor of about 5 us whatever its rows (the two barriers, the finish
@@ -360,13 +363,13 @@ __host__ __device__ constexpr bool forms_point(int M) {
 // Point-SAGA: pt the (n,) scratch of the shifted iterate v, z the iterate
 // x, av the table mean, c the table (all written), na the row square-norms
 // (read only, in the anchor coefficients' slot), pmode the oracle formula
-// of its prox solve; SSNM: pt the (n,) scratch of the momentum point y, z
-// the iterate x, av the table mean gb, c the table, zb the (d, n) stored
-// points (all written), stop the clamp count f. av is read only but for
-// SAGA, SARAH, the Finitos, ProShI, Point-SAGA and SSNM, c but for SAGA,
-// the Finitos, Point-SAGA and SSNM; stop and pre are NULL but for L-SVRG,
-// L-Katyusha (and the clamp counts of SAGA, streamed Finito, ProShI and
-// SSNM).
+// of its prox solve, stop the clamp count f; SSNM: pt the (n,) scratch of
+// the momentum point y, z the iterate x, av the table mean gb, c the table,
+// zb the (d, n) stored points (all written), stop the clamp count f. av is
+// read only but for SAGA, SARAH, the Finitos, ProShI, Point-SAGA and SSNM,
+// c but for SAGA, the Finitos, Point-SAGA and SSNM; stop and pre are NULL
+// but for L-SVRG, L-Katyusha (and the clamp counts of SAGA, streamed
+// Finito, ProShI, Point-SAGA and SSNM).
 // part: (ctas, n) f32 scratch; bar: the grid barrier's word of the call's
 // stream (low bits zero between calls).
 struct LooplessArgs {
@@ -1273,12 +1276,12 @@ loopless_steps_kernel(const LooplessArgs a) {
           // Point-SAGA (Defazio 2016, the block mean of the rows' prox
           // points): with sum = sum (c_old - theta) a_i, x <- v + (gamma /
           // B) sum, av <- av - sum / N, then the next step's v = x - gamma
-          // av (x, never v, is the iterate)
+          // av but after the call's last step (x, never v, is the iterate)
           const float x_new = st[0] + (fs[0] * fs[1]) * innov;
           const float av_new = st[1] - innov * fs[2];
           a.z[j] = x_new;
           a.av[j] = av_new;
-          a.pt[j] = shifted_point(fs[0], x_new, av_new);
+          if (k + 1 < live) a.pt[j] = shifted_point(fs[0], x_new, av_new);
         } else if (M == kSsnmSteps) {
           // SSNM (Zhou, Shang and Cheng 2019) on block j, the margins taken
           // at y: x <- soft(x - eta (sum / B + gb), eta lambda), gb += sum /

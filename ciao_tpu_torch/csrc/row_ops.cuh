@@ -1,11 +1,10 @@
 // Row primitives shared by the port's kernels on an NVIDIA Hopper card
-// (sm_90a): the storage codes, the clamp-count mask of a step, the bf16
-// rounding of the dot operands, reads of one or four row values from shared
-// memory, a row's margin by one warp, the transposed product over a tile, the
-// oracle's coefficient and value formulas, the Point-SAGA per-row prox, the L1
-// soft-threshold, the fixed-order sum of per-CTA partials, the coupled point of
-// Katyusha and L-Katyusha, bulk copies into shared memory on mbarriers and the
-// size of a row tile in shared memory.
+// (sm_90a): the storage codes, the bf16 rounding of the dot operands, reads
+// of one or four row values from shared memory, a row's margin by one warp,
+// the oracle's coefficient and value formulas, the Point-SAGA per-row prox,
+// the L1 soft-threshold, the fixed-order sum of per-CTA partials, the coupled
+// point of Katyusha and L-Katyusha, bulk copies into shared memory on
+// mbarriers and the size of a row tile in shared memory.
 //
 // Precision follows the Pallas kernels' _stream_dot: when kLowp is set (rows
 // stored bf16 or int8, or f32 rows at "default" precision) both operands of
@@ -28,12 +27,6 @@ constexpr float kPoissonClamp = 30.0f;  // ops/fused_block.py POISSON_CLAMP
 // the partials of a column.
 constexpr int kFinishCols = 32;
 constexpr int kFinishWarps = 8;
-
-// Whether step k is masked by the clamp count (a uniform branch: every thread
-// of the launch reads the same value).
-__device__ __forceinline__ bool masked(const int* fclamp, int k) {
-  return fclamp != nullptr && k >= *fclamp;
-}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -131,31 +124,6 @@ __device__ __forceinline__ float warp_dot(const T* a, const float* zs, int n,
   return acc;
 }
 
-// The transposed product over a tile of `rows` rows of width n: sum over the
-// rows, in order, of d[r] times the row's values at columns j..j+3 (kVec) or
-// at column j alone.
-template <bool kLowp, typename T>
-__device__ __forceinline__ void tile_colsum4(const T* tile, const float* d,
-                                             int rows, int n, int j,
-                                             float (&acc)[4]) {
-  acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;
-  for (int r = 0; r < rows; ++r) {
-    float v[4];
-    row4<kLowp>(tile + r * n + j, v);
-    const float dr = d[r];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] += dr * v[q];
-  }
-}
-template <bool kLowp, typename T>
-__device__ __forceinline__ float tile_colsum(const T* tile, const float* d,
-                                             int rows, int n, int j) {
-  float acc = 0.0f;
-  for (int r = 0; r < rows; ++r)
-    acc += d[r] * row_value<kLowp>(tile[r * n + j]);
-  return acc;
-}
-
 // ops/fused_block.py _coeff_formula: c_i from the (dequantized) margin r.
 __device__ __forceinline__ float coeff_formula(int mode, float r, float b,
                                                float scale, float aux) {
@@ -214,9 +182,9 @@ __device__ __forceinline__ float value_formula(int mode, float r, float b,
 }
 
 // ops/fused_block.py pointprox_theta: Point-SAGA's per-row prox theta for the
-// oracle formula kMode (a template parameter: the host dispatches once per
-// call), from the margin mz at the row's prox point, the offset or label b, the
-// row square-norm na and the table coefficient c_old. Least squares and Huber
+// oracle formula kMode (pointprox_theta_of below takes it at run time), from
+// the margin mz at the row's prox point, the offset or label b, the row
+// square-norm na and the table coefficient c_old. Least squares and Huber
 // are closed forms, squared hinge one activity test of the deficit at mz,
 // logistic and Poisson 20 Newton steps from theta = c_old.
 constexpr int kPointProxNewtonSteps = 20;

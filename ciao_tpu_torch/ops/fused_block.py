@@ -8,9 +8,6 @@ run: the oracle formula modes and their values, Point-SAGA's per-row prox
 the kernels' gates, and nineteen hand-written CUDA kernels for Hopper
 beside their plain PyTorch versions:
 
-- ``point_saga_multistep_streamed``
-  (``csrc/point_saga_multistep_streamed.cu``): K block steps, two
-  launches a step (``csrc/saga_steps.cuh``, which serves it alone);
 - ``saga_coeff_multistep_streamed``
   (``csrc/saga_coeff_multistep_streamed.cu``), and with it
   ``saga_coeff_multistep`` (the same entry with no clamp count),
@@ -23,13 +20,15 @@ beside their plain PyTorch versions:
   ``lkatyusha_coeff_multistep`` (``csrc/lkatyusha_coeff_multistep.cu``),
   ``finito_coeff_multistep_streamed``
   (``csrc/finito_coeff_multistep_streamed.cu``), ``proshi_multistep``
-  (``csrc/proshi_multistep.cu``, K ProShI steps on the block table) and
-  ``point_saga_multistep`` (``csrc/point_saga_multistep.cu``, K
-  Point-SAGA steps, a prox solve a row),
-  ``ssnm_multistep_streamed`` (``csrc/ssnm_multistep_streamed.cu``, K
-  SSNM steps) and with it ``ssnm_multistep`` (the same entry with no
-  clamp count): K block steps each, one cooperative launch a call on the
-  persistent engine of ``csrc/loopless_steps.cuh``;
+  (``csrc/proshi_multistep.cu``, K ProShI steps on the block table),
+  ``point_saga_multistep_streamed``
+  (``csrc/point_saga_multistep_streamed.cu``, K Point-SAGA steps, a prox
+  solve a row) and with it ``point_saga_multistep`` (the same entry with
+  no clamp count), ``ssnm_multistep_streamed``
+  (``csrc/ssnm_multistep_streamed.cu``, K SSNM steps) and with it
+  ``ssnm_multistep`` (the same entry with no clamp count): K block steps
+  each, one cooperative launch a call on the persistent engine of
+  ``csrc/loopless_steps.cuh``;
 - ``coeff_apply_all`` (``csrc/coeff_apply_all.cu``): one compensated pass
   over all rows, the anchors of the SVRG-shaped families, LFinito's and
   SARAH's, and the full gradient of forward-backward, Davis-Yin and
@@ -268,21 +267,21 @@ def _block_gate(F, x0, B: int, method: str) -> bool:
             and A.shape[1] <= MAX_COLS and A.shape[0] % B == 0)
 
 
-def _smem_bytes(rows: int, n: int, itemsize: int, values: int = 4) -> int:
-    """Dynamic shared memory of one row-phase CTA (``run_steps`` in the
-    CUDA source): the row tile rounded up to 16 bytes, then the margins'
-    point (one (n,) vector) and ``values`` f32 values per row (Δc, b,
-    c_old, rs, and Point-SAGA's ‖a‖²)."""
-    return -(-rows * n * itemsize // 16) * 16 + 4 * (n + values * rows)
+def _smem_bytes(rows: int, n: int, itemsize: int) -> int:
+    """Dynamic shared memory of one row-phase CTA of the table walk, as
+    the rows rule counts it: the row tile rounded up to 16 bytes, then the
+    margins' point (one (n,) vector) and four f32 values per row (one more
+    than ``table_smem`` in ``csrc/table_rows.cuh`` stages)."""
+    return -(-rows * n * itemsize // 16) * 16 + 4 * (n + 4 * rows)
 
 
-def _rows_per_cta(B: int, n: int, itemsize: int, values: int = 4) -> int:
+def _rows_per_cta(B: int, n: int, itemsize: int) -> int:
     """Rows of the block each CTA of the row phase takes: the largest
     power of two up to 32 that divides B and whose tile fits in shared
     memory beside the staged (n,) point (32 at the headline B = 4096,
     n = 1024: 128 CTAs, about one per SM, with a 128 KB f32 tile)."""
     r = 32
-    while B % r or _smem_bytes(r, n, itemsize, values) > SMEM_BYTES:
+    while B % r or _smem_bytes(r, n, itemsize) > SMEM_BYTES:
         r //= 2
     return r
 
@@ -405,12 +404,10 @@ _ARGTYPES = {
     # A, storage, lowp, b, rs, c, starts, zb, f, y, x, gb, sc, part, bar, n,
     # B, rows, ctas, stage_rows, stages, K, stream
     "ssnm_multistep_streamed": "PII" + "P" * 12 + "I" * 7 + "P",
-    # A, storage, lowp, b, rs, c, na, starts, mode, x, av, v, sc, part, bar,
-    # n, B, rows, ctas, stage_rows, stages, K, stream
-    "point_saga_multistep": "PII" + "P" * 5 + "I" + "P" * 6 + "I" * 7 + "P",
-    # A, storage, lowp, mode, b, rs, na, c, x, av, v, starts, f, sc, part,
-    # n, B, rows, K, stream
-    "point_saga_multistep_streamed": "PIII" + "P" * 11 + "IIII" + "P",
+    # A, storage, lowp, b, rs, c, na, starts, mode, f, x, av, v, sc, part,
+    # bar, n, B, rows, ctas, stage_rows, stages, K, stream
+    "point_saga_multistep_streamed": ("PII" + "P" * 5 + "I" + "P" * 7
+                                      + "I" * 7 + "P"),
 }
 
 
@@ -488,16 +485,6 @@ def _check_blocks(A, b, starts, B, rs):
         raise ValueError(f"bad shape: N={N}, n={n}, B={B}, K={K}")
     _check("starts", starts, torch.int32, (K,), A.device)
     return n, K
-
-
-def _check_steps(A, b, starts, B, rs):
-    """Checks of the block-step kernel of ``saga_steps.cuh`` (#15 alone);
-    returns (n, K, rows per CTA, the (B / rows, n) partials scratch). Its
-    row phase stages five f32 values a row (Δc, b, c_old, rs, ‖a‖²)."""
-    n, K = _check_blocks(A, b, starts, B, rs)
-    rows = _rows_per_cta(B, n, A.element_size(), 5)
-    part = torch.empty((B // rows, n), dtype=torch.float32, device=A.device)
-    return n, K, rows, part
 
 
 def saga_coeff_multistep(A, b, starts, c, z, av, scalars, B: int,
@@ -2350,11 +2337,14 @@ def point_saga_multistep(A, b, na, c, starts, x, av, scalars, B: int,
     B·n·itemsize bytes (16 MB f32, 4 MB int8 at the headline), plus b,
     na, rs and the c slice. The whole call is one cooperative launch of
     the persistent engine (``csrc/loopless_steps.cuh``, method
-    ``kPointSagaSteps``). Every CTA forms step 0's v from x and av; each
-    finish writes x, av and the next step's v for its columns. The table
-    is written in the call and never prefetched (the formula thread of a
-    row reads c_old behind the barriers), the square-norms ride the
-    producer's ring beside b and rs. Logistic and Poisson rows take 20
+    ``kPointSagaSteps``), through the C entry of
+    :func:`point_saga_multistep_streamed` with no clamp count: the two
+    share one build and their bits. Every CTA forms step 0's v from x and
+    av; each finish writes x and av for its columns, and the next step's v
+    but after the call's last step. The table is written in the call and
+    never prefetched (the formula thread of a row reads c_old behind the
+    barriers), the square-norms ride the producer's ring beside b and rs.
+    Logistic and Poisson rows take 20
     Newton steps a row (an ``expf`` and two IEEE divisions each), a chain
     of 4.2-4.5 µs on an H100, so where a step has several stages their
     step takes the margins of all its stages first, then solves every row
@@ -2377,9 +2367,9 @@ def point_saga_multistep(A, b, na, c, starts, x, av, scalars, B: int,
     if mode not in _POINTPROX_MODES:
         raise ValueError(f"no Point-SAGA θ for oracle mode {mode}")
     v = torch.empty_like(x)
-    _loopless_launch("point_saga_multistep", A, b, rs, dict(c=c, na=na),
-                     starts, B, precision, scalars, 6, (int(mode),),
-                     dict(x=x, av=av, v=v))
+    _loopless_launch("point_saga_multistep_streamed", A, b, rs,
+                     dict(c=c, na=na), starts, B, precision, scalars, 6,
+                     (int(mode), None), dict(x=x, av=av, v=v))
     point_saga_multistep.launches += 1
     point_saga_multistep.steps += starts.shape[0]
     return c, x, av
@@ -2401,13 +2391,23 @@ def point_saga_multistep_streamed(A, b, na, c, starts, x, av, scalars,
     :func:`point_saga_multistep_streamed_ref`; CUDA tensors launch the
     kernel or raise.
 
-    It runs on the two-launch engine (``csrc/saga_steps.cuh``, method
-    ``kPointSaga``: a row phase and a finish a step, the θ-solve a
-    template of the row phase). The table lives in device memory and the
-    launches are stream-ordered, so the port's driver launches with ``f``
-    = None and the masked steps stay a tested option.
-    At the 10,485,760 × 128 deep target (B = 8,192) a step reads 4 MB of
-    f32 rows (1 MB int8).
+    The TPU kernel streams c through aliased windows, so its driver
+    clamps each launch at the first same-launch revisit. Here c lives in
+    device memory, read and written in place by the one launch, a block
+    revisited within the call reading the previous visit's c: the port's
+    driver launches with ``f`` = None, and the ``f < K`` semantics stay
+    for the tests. ``f`` is read once on the device (no host sync): the
+    call processes min(K, f) steps, and f = 0 returns before it forms
+    step 0's v. The design is :func:`point_saga_multistep`'s
+    (``csrc/loopless_steps.cuh``, method ``kPointSagaSteps``; one C entry
+    serves both): at the 10,485,760 × 128 deep target (B = 8,192) a step
+    reads 4 MB of f32 rows (1 MB int8), 128 CTAs of 64 rows, one stage a
+    step in every storage, so each CTA solves its 64 rows' θ at once, one
+    Newton chain a step for logistic and Poisson rows; the rows are split
+    over eight row groups of a warp, as
+    :func:`saga_coeff_multistep_streamed` takes them. Any start in
+    [0, N − B] is taken. A grid that cannot be resident at once raises
+    ``RuntimeError``.
     """
     if A.device.type == "cpu":
         return point_saga_multistep_streamed_ref(
@@ -2419,19 +2419,10 @@ def point_saga_multistep_streamed(A, b, na, c, starts, x, av, scalars,
     if mode not in _POINTPROX_MODES:
         raise ValueError(f"no Point-SAGA θ for oracle mode {mode}")
     f = _check_f(f, A.device)
-    n, K, rows, part = _check_steps(A, b, starts, B, rs)
-    dev, f32 = A.device, torch.float32
-    _check("na", na, f32, (A.shape[0],), dev)
-    _check("c", c, f32, (A.shape[0],), dev)
-    _check("x", x, f32, (n,), dev)
-    _check("av", av, f32, (n,), dev)
-    _check("scalars", scalars, f32, (6,), dev)
-    v = torch.empty(n, dtype=f32, device=dev)
-    _call("point_saga_multistep_streamed", dev, A.data_ptr(),
-          _STORAGE_CODES[A.dtype], int(_lowp(A, precision)), int(mode),
-          b.data_ptr(), _ptr(rs), na.data_ptr(), c.data_ptr(), x.data_ptr(),
-          av.data_ptr(), v.data_ptr(), starts.data_ptr(), _ptr(f),
-          scalars.data_ptr(), part.data_ptr(), n, B, rows, K)
+    v = torch.empty_like(x)
+    _loopless_launch("point_saga_multistep_streamed", A, b, rs,
+                     dict(c=c, na=na), starts, B, precision, scalars, 6,
+                     (int(mode), _ptr(f)), dict(x=x, av=av, v=v))
     point_saga_multistep_streamed.launches += 1
     point_saga_multistep_streamed.steps += starts.shape[0]
     return c, x, av

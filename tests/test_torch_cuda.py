@@ -11,10 +11,10 @@ their plain versions, ``coeff_apply_all`` and the kernels of the
 persistent engine bit for bit against their pinned digests,
 ``coeff_value_apply_all``'s c and gsum bit for bit ``coeff_apply_all``'s,
 the kernels of the persistent engine (#3, #4, #5, #8, #9, #10, #11, #12,
-#13, #14, #16, #17, #18, #19) at its edges, #3, #8, #9, #12, #13, #14, #16,
-#18 and #19 on two streams at once and #10, #11 and #16 in turns on one,
-SSNM's on hand-made block revisits, the facades' routing to them, and the
-polish's exact-f32 check.
+#13, #14, #15, #16, #17, #18, #19) at its edges, #3, #8, #9, #12, #13, #14,
+#15, #16, #18 and #19 on two streams at once and #10, #11 and #16 in turns
+on one, SSNM's and Point-SAGA's on hand-made block revisits, the facades'
+routing to them, and the polish's exact-f32 check.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -1207,8 +1207,9 @@ def loopless_digest(dev, kind, storage):
     """Kernel #16's (w, wpre), #17's (y, z, ypre), #10's (y, z, ys),
     #11's (ww, v), #9's or #14's (c, zb, z, av), #8's (av, z), #18's (s,
     av, z), #3's or #4's ("saga_stream", no clamp count) (c, z, av),
-    #12's (c, x, av; logistic rows, labels sign(b), γ‖a_i‖² about 0.75)
-    or #19's or #13's ("ssnm_stream", no clamp count) (c, zb, x, gb; τ =
+    #12's or #15's ("point_saga_stream", no clamp count) (c, x, av;
+    logistic rows, labels sign(b), γ‖a_i‖² about 0.75) or #19's or #13's
+    ("ssnm_stream", no clamp count) (c, zb, x, gb; τ =
     0.5) after one call of K = 32 steps at the headline width (N =
     32,768, n = 1,024, B = 4,096: 128 CTAs on a card of 132 SMs; the
     blocks revisited every eight steps) on exact dyadic inputs (no
@@ -1266,7 +1267,7 @@ def loopless_digest(dev, kind, storage):
               else tfb.saga_coeff_multistep_streamed)
         out = fn(A, b, starts, canch.clone(), z.clone(), av.clone(), sc, B,
                  rs=rs)
-    elif kind == "point_saga":
+    elif kind in ("point_saga", "point_saga_stream"):
         y = torch.where(b >= 0, 1.0, -1.0)
         Af = A.cpu().double()
         if rs is not None:
@@ -1274,9 +1275,10 @@ def loopless_digest(dev, kind, storage):
         na = (Af * Af).sum(1).float().to(dev)
         sc = torch.tensor([1.0, 2.0**-8, 1.0 / B, 1.0 / N, 1.0, 0.0],
                           device=dev)
-        out = tfb.point_saga_multistep(A, y, na, canch.clone(), starts,
-                                       z.clone(), av.clone(), sc, B, mode=1,
-                                       rs=rs)
+        fn = (tfb.point_saga_multistep if kind == "point_saga"
+              else tfb.point_saga_multistep_streamed)
+        out = fn(A, y, na, canch.clone(), starts, z.clone(), av.clone(), sc,
+                 B, mode=1, rs=rs)
     elif kind in ("ssnm", "ssnm_stream"):
         zb = ((torch.arange(N // B)[:, None] * 3 + j * 5) % 17 - 8).float()
         sc = torch.tensor([1.0, 2.0**-12, 2.0**-18, 1.0 / B, 1.0 / N, 0.0,
@@ -1305,22 +1307,31 @@ def loopless_digest(dev, kind, storage):
 
 
 @pytest.mark.parametrize("kind", ["lsvrg", "lkatyusha", "katyusha",
-                                  "sarah", "ssnm"])
+                                  "sarah", "ssnm", "point_saga_stream"])
 @pytest.mark.parametrize("storage", ["f32", "int8"])
 def test_loopless_kernels_repeat_bit_for_bit_at_width(dev, kind, storage,
                                                       monkeypatch):
-    """Kernels #16, #17, #10, #11 and #19 at the headline width (n =
-    1,024, B = 4,096, K = 32: 128 CTAs, two grid barriers a step; #19 on
-    blocks drawn with repeats) give the same bits in two calls, and on a
-    132-SM card their pinned bits (``LOOPLESS_GOLDEN``: #16's and #17's
-    from the engine before #4 and #5 joined it, one row group at this
-    width, so neither the narrow-row split nor the methods added since
-    changed their arithmetic; #19's equal #13's with no clamp count); a
+    """Kernels #16, #17, #10, #11, #19 and #15 at the headline width (n =
+    1,024, B = 4,096, K = 32: 128 CTAs, two grid barriers a step; #19 and
+    #15 on blocks drawn with repeats, #15 on logistic rows) give the same
+    bits in two calls, and on a 132-SM card their pinned bits
+    (``LOOPLESS_GOLDEN``: #16's and #17's from the engine before #4 and #5
+    joined it, one row group at this width, so neither the narrow-row
+    split nor the methods added since changed their arithmetic; #19's
+    equal #13's with no clamp count, #15's with no clamp count #12's); a
     grid other than the engine's rule is refused by the launch
-    (RuntimeError), nothing falls back to the two-launch engine or to the
-    plain version."""
+    (RuntimeError) and counts no launch: nothing falls back to another
+    kernel or to the plain version."""
     N, n, B, K = 32768, 1024, 4096, 32
-    if kind == "ssnm":
+    if kind == "point_saga_stream":
+        F, L, na, state, starts = _ps_state(dev, N, n, B, K, "logistic",
+                                            storage, seed=5)
+        sc = _ps_scalars(F, 10.0 / (3.0 * L), N, B, dev)
+        fn = tfb.point_saga_multistep_streamed
+
+        def run():
+            return _ps_run(fn, F, na, state, starts, sc, B)
+    elif kind == "ssnm":
         F, L, state, starts = _ssnm_state(dev, N, n, B, K, storage, seed=5)
         sc = _ssnm_scalars(F, L, N, B, 0.5, 0.1, dev)
         fn = tfb.ssnm_multistep
@@ -1339,8 +1350,9 @@ def test_loopless_kernels_repeat_bit_for_bit_at_width(dev, kind, storage,
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     if tfb._sm_count(dev.index) == 132:
+        pinned = "point_saga" if kind == "point_saga_stream" else kind
         got = loopless_digest(dev, kind, storage)
-        assert got == LOOPLESS_GOLDEN[kind, storage], got
+        assert got == LOOPLESS_GOLDEN[pinned, storage], got
         if kind == "ssnm":
             assert loopless_digest(dev, "ssnm_stream", storage) == got
     rule = tfb._loopless_grid
@@ -1355,14 +1367,18 @@ def test_loopless_kernels_repeat_bit_for_bit_at_width(dev, kind, storage,
     assert fn.launches == before
 
 
-@pytest.mark.parametrize("kind", ["lsvrg", "lkatyusha"])
+@pytest.mark.parametrize("kind", ["lsvrg", "lkatyusha", "point_saga_stream"])
 @pytest.mark.parametrize("storage", ["f32", "int8"])
 def test_loopless_masked_steps_are_identity(dev, kind, storage):
     """Kernels #16 and #17 with stop read on the device: the steps past
     stop write nothing, so a call with stop = 9 equals the first 10 steps
     alone bit for bit (wpre/ypre included), stop = K - 1 equals stop None,
-    stop = 0 is one step; the plain versions agree."""
+    stop = 0 is one step; the plain versions agree. #15 with its clamp
+    count f (``_point_saga_masks``)."""
     N, B, K = 8192, 128, 32
+    if kind == "point_saga_stream":
+        _point_saga_masks(dev, N, B, K, storage)
+        return
     S = _vr_setup(dev, N, 128, B, K, storage, seed=3)
     sc = _vr_scalars(S, kind, B, 0.1, dev)
     kname, rname = VR_KERNELS[kind]
@@ -1386,6 +1402,60 @@ def test_loopless_masked_steps_are_identity(dev, kind, storage):
         _vr_run(kind, fn, S, sc, B, stop=torch.tensor([1, 2], **i32))
     with pytest.raises(TypeError, match="stop"):
         _vr_run(kind, fn, S, sc, B, stop=torch.tensor([1], device=dev))
+
+
+def _point_saga_masks(dev, N, B, K, storage):
+    """Kernel #15 on logistic rows with f read on the device: f = 10
+    equals the first 10 steps alone bit for bit, f = K and f > K equal f
+    None, f = 1 is one step (within the plain version's tolerances of
+    ``test_point_saga_kernel_matches_plain_version``), f = 0 writes
+    nothing. The shifted iterate v, the call's scratch: f = 0 leaves it
+    as it was, f = 1 leaves step 0's v = x − γ·av, formed by every CTA,
+    and f = 2 the v that step 0's finish formed from its x and av, no
+    later one. A clamp count of two values or another dtype raises."""
+    F, L, na, state, starts = _ps_state(dev, N, 128, B, K, "logistic",
+                                        storage, seed=3)
+    sc = _ps_scalars(F, 10.0 / (3.0 * L), N, B, dev)
+    fn = tfb.point_saga_multistep_streamed
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def run(st=starts, **kw):
+        return _ps_run(fn, F, na, state, st, sc, B, **kw)
+    pairs = ((run(f=torch.tensor([10], **i32)), run(starts[:10])),
+             (run(f=torch.tensor(K, **i32)), run()),
+             (run(f=torch.tensor([K + 5], **i32)), run()),
+             (run(f=torch.tensor([0], **i32)), list(state)))
+    one = run(f=torch.tensor([1], **i32))
+    plain = _ps_run(tfb.point_saga_multistep_streamed_ref, F, na, state,
+                    starts, sc, B, f=torch.tensor([1], **i32))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tol = 1e-5 if storage != "f32" else 1e-6
+    assert float((plain[1] - state[1]).abs().max()) > 0
+    for i, (k, r) in enumerate(zip(one, plain)):
+        assert _rel(k, r) <= (tol if i == 1 else 10 * tol), (i, _rel(k, r))
+    rows, offs = F.coeff_rows_data()
+    gamma = sc[1]
+
+    def scratch(f):
+        c, x, av = [t.clone() for t in state]
+        v = torch.full_like(x, float("nan"))
+        fc = torch.tensor([f], **i32)
+        tfb._loopless_launch(
+            "point_saga_multistep_streamed", rows, offs,
+            F.coeff_rows_scale(), dict(c=c, na=na), starts, B, "highest",
+            sc, 6, (int(F.coeff_mode), fc.data_ptr()),
+            dict(x=x, av=av, v=v))
+        torch.cuda.synchronize()
+        return v
+    assert bool(torch.isnan(scratch(0)).all())
+    assert torch.equal(scratch(1), state[1] - gamma * state[2])
+    assert torch.equal(scratch(2), one[1] - gamma * one[2])
+    with pytest.raises(ValueError, match="one count"):
+        run(f=torch.tensor([1, 2], **i32))
+    with pytest.raises(TypeError, match="f must"):
+        run(f=torch.tensor([1], device=dev))
 
 
 @pytest.mark.parametrize("kind", list(VR_KERNELS))
@@ -2241,7 +2311,7 @@ sc18 = torch.tensor([N, 1.0 / N, 1.0 / ghat, 0.0, -float("inf"), 1.0, 1.0,
                      0.0], device=dev)
 # SAGA's [scale, gamma, gamma·lambda, 1/B, 1/N, sag, mode, aux] (#3);
 # Point-SAGA's least-squares [scale, gamma, 1/B, 1/N, mode, aux] and the
-# rows' square-norms (#12)
+# rows' square-norms (#12, #15)
 sc3 = torch.tensor([N, g, g * 0.1, 1.0 / B, 1.0 / N, 0.0, 0.0, 0.0],
                    device=dev)
 sc12 = torch.tensor([N, g, 1.0 / B, 1.0 / N, 0.0, 0.0], device=dev)
@@ -2257,9 +2327,11 @@ def call(i):
         c, z, a = canch.clone(), w0[i].clone(), av.clone()
         tfb.saga_coeff_multistep(rows, offs, starts[i], c, z, a, sc3, B)
         return c, z, a
-    if kind == "point_saga":
+    if kind in ("point_saga", "point_saga_stream"):
         c, x, a = canch.clone(), w0[i].clone(), av.clone()
-        tfb.point_saga_multistep(rows, offs, na, c, starts[i], x, a, sc12, B)
+        fn = (tfb.point_saga_multistep if kind == "point_saga"
+              else tfb.point_saga_multistep_streamed)
+        fn(rows, offs, na, c, starts[i], x, a, sc12, B)
         return c, x, a
     if kind == "finito":
         c, zb, z, a = canch.clone(), zb0.clone(), w0[i].clone(), av.clone()
@@ -2312,19 +2384,20 @@ print("two streams: ok")
 
 @pytest.mark.parametrize("kind", ["lsvrg", "finito", "lfinito",
                                   "finito_stream", "proshi", "saga",
-                                  "point_saga", "ssnm", "ssnm_stream"])
+                                  "point_saga", "point_saga_stream", "ssnm",
+                                  "ssnm_stream"])
 @pytest.mark.parametrize("B", [128, 64])
 def test_loopless_calls_on_two_streams_are_their_single_stream_runs(dev, B,
                                                                    kind):
-    """Two calls of kernel #16, #9, #8, #14, #18, #3, #12, #19 or #13 with
-    small grids (B =
+    """Two calls of kernel #16, #9, #8, #14, #18, #3, #12, #15, #19 or
+    #13 with small grids (B =
     128: one row a CTA, 128 CTAs; B = 64: 64, so both grids fit the card's
     132 SMs at once) queued together on two streams, 20 times: each gives
     its single-stream result bit for bit (each stream has its own
     grid-barrier word, ``fused_block._grid_barrier``; #9 and #14 write
     their table, anchors and point inside the launch, #18 its table, av
-    and z, #3 and #12 their table, iterate and av, #12 its shifted
-    point, #19 and #13 their table, stored points, iterate, table mean
+    and z, #3, #12 and #15 their table, iterate and av, #12 and #15 their
+    shifted point, #19 and #13 their table, stored points, iterate, table mean
     and momentum point). Run in a child process with a time limit, so that a hung
     barrier fails the test and does not stall the suite."""
     import os
@@ -2605,13 +2678,11 @@ def test_point_saga_kernel_matches_plain_version(dev, kernel, kind, storage,
 
 @pytest.mark.parametrize("kind", ["lsq", "logistic", "poisson"])
 def test_point_saga_kernel_steps_and_masks_bit_for_bit(dev, kind):
-    """A K-step call of #12 equals its K one-step calls bit for bit; #15
-    (the two-launch engine) holds each of #12's steps, from the same
-    state, within the tolerances of
-    ``test_point_saga_kernel_matches_plain_version`` (the two engines sum
-    in other orders); with f = 23 #15's masked steps write nothing, so the
-    call equals #15's own run of the first 23 steps bit for bit; f = K
-    equals f None; runs repeat bit for bit; an unknown mode raises."""
+    """A K-step call of #12 equals its K one-step calls bit for bit, and
+    each of #15's one-step calls, from the same state, equals #12's (one
+    C entry on the engine); #15 equals #12; with f = 23 the masked steps
+    write nothing, so the call equals #12 on the first 23 steps alone; f
+    = K equals f None; runs repeat bit for bit; an unknown mode raises."""
     N, B, K = 8192, 128, 48
     F, L, na, state, starts = _ps_state(dev, N, 128, B, K, kind, "int8",
                                         seed=2)
@@ -2621,7 +2692,6 @@ def test_point_saga_kernel_steps_and_masks_bit_for_bit(dev, kind):
         getattr(tfb, fn), F, na, state, st, sc, B, **kw)
     whole = run("point_saga_multistep")
     steps = [t.clone() for t in state]
-    tol = 1e-5  # int8 rows: the dots round to bf16
     for k in range(K):
         s1 = starts[k:k + 1]
         other = _ps_run(tfb.point_saga_multistep_streamed, F, na, steps, s1,
@@ -2629,18 +2699,13 @@ def test_point_saga_kernel_steps_and_masks_bit_for_bit(dev, kind):
         _ps_run(tfb.point_saga_multistep, F, na, steps, s1, sc, B,
                 inplace=True)
         torch.cuda.synchronize()
-        for i, (a, b) in enumerate(zip(other, steps)):
-            assert bool(torch.isfinite(a).all())
-            assert _rel(a, b) <= (tol if i == 1 else 10 * tol), (
-                k, i, _rel(a, b))
-    streamed = run("point_saga_multistep_streamed")
-    pairs = ((whole, steps),
+        assert all(torch.equal(a, b) for a, b in zip(other, steps)), k
+    pairs = ((whole, steps), (run("point_saga_multistep_streamed"), whole),
              (run("point_saga_multistep_streamed",
                   f=torch.tensor([23], **i32)),
-              run("point_saga_multistep_streamed", starts[:23])),
+              run("point_saga_multistep", starts[:23])),
              (run("point_saga_multistep_streamed", f=torch.tensor(K, **i32)),
-              streamed), (run("point_saga_multistep"), whole),
-             (run("point_saga_multistep_streamed"), streamed))
+              whole), (run("point_saga_multistep"), whole))
     torch.cuda.synchronize()
     for a, b in pairs:
         assert all(torch.equal(u, v) for u, v in zip(a, b))
@@ -2650,6 +2715,61 @@ def test_point_saga_kernel_steps_and_masks_bit_for_bit(dev, kind):
                                  state[0].clone(), starts, state[1].clone(),
                                  state[2].clone(), sc, B, mode=5,
                                  rs=F.coeff_rows_scale())
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+@pytest.mark.parametrize("kind", ["lsq", "logistic"])
+@pytest.mark.parametrize("shape", list(SSNM_EDGES))
+def test_point_saga_on_the_engine_takes_hand_made_revisits(dev, shape, kind,
+                                                           storage):
+    """Kernel #15, one cooperative launch a call, on ``SSNM_REVISITS`` (a
+    block twice in a row, within the ring's lookahead, the call's first
+    block at its last step; the table written and read back inside the
+    launch) at the deep target's width (n = 128, B = 8,192: one stage a
+    step, each CTA's 64 rows solved at once, eight row groups of a warp)
+    and the headline's (n = 1,024, B = 4,096: four f32 stages a step,
+    logistic rows solved after all of them), at 10x the default γ, step by
+    step against the plain version (each plain step taken once more by the
+    kernel from the same state; x within 1e-6 of its largest entry, 1e-5
+    where the dots round to bf16, c and av within 10x that); the call
+    equals its one-step calls and #12 bit for bit, and with f = 12 read on
+    the device (between the two visits of block 7) #12 on the first 12
+    steps alone."""
+    N, n, B = SSNM_EDGES[shape]
+    K = len(SSNM_REVISITS)
+    F, L, na, state, _ = _ps_state(dev, N, n, B, K, kind, storage, seed=63)
+    starts = torch.tensor(SSNM_REVISITS, dtype=torch.int32, device=dev) * B
+    sc = _ps_scalars(F, 10.0 / (3.0 * L), N, B, dev)
+    fn = tfb.point_saga_multistep_streamed
+    tol = 1e-5 if storage != "f32" else 1e-6
+    before = fn.launches
+    whole = _ps_run(fn, F, na, state, starts, sc, B)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = [t.clone() for t in state]
+    chain = [t.clone() for t in state]
+    for k in range(K):
+        s1 = starts[k:k + 1]
+        got = _ps_run(fn, F, na, ref, s1, sc, B)
+        _ps_run(fn, F, na, chain, s1, sc, B, inplace=True)
+        _ps_run(tfb.point_saga_multistep_streamed_ref, F, na, ref, s1, sc, B,
+                inplace=True)
+        torch.cuda.synchronize()
+        for i, (g_, r) in enumerate(zip(got, ref)):
+            assert bool(torch.isfinite(g_).all())
+            assert _rel(g_, r) <= (tol if i == 1 else 10 * tol), (
+                k, i, _rel(g_, r))
+    assert float((ref[1] - state[1]).abs().max()) > 0
+    f12 = torch.tensor([12], dtype=torch.int32, device=dev)
+    pairs = ((whole, chain),
+             (whole, _ps_run(tfb.point_saga_multistep, F, na, state, starts,
+                             sc, B)),
+             (_ps_run(fn, F, na, state, starts, sc, B, f=f12),
+              _ps_run(tfb.point_saga_multistep, F, na, state, starts[:12],
+                      sc, B)))
+    torch.cuda.synchronize()
+    for a, b in pairs:
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 def test_ssnm_and_point_saga_facades_send_every_gated_run_to_a_kernel(

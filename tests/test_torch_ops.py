@@ -7,7 +7,11 @@ kernel it replaces (``ciao_tpu.ops.fused_block.saga_coeff_multistep``),
 run in TPU interpret mode as ``tests/test_ops.py`` runs it, on the same
 numpy inputs and the same explicit block schedule. The kernel itself is
 held against the plain version on the card by tests/test_torch_cuda.py.
+The ctypes signatures of every kernel library are held here against the
+C entries of their sources.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 from ciao_tpu.ops import fused_block as jfb
 from ciao_tpu.oracles import LeastSquaresRows as JLeastSquaresRows
 from ciao_tpu.utils.problems import make_lasso as jmake_lasso
+from ciao_tpu_torch.ops import _build
 from ciao_tpu_torch.ops import fused_block as tfb
 from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.prox import NormL1, Zero
@@ -204,6 +209,39 @@ def test_rows_per_cta_fits_shared_memory(B, n, itemsize, rows):
     assert tfb._smem_bytes(rows, n, itemsize) <= tfb.SMEM_BYTES
     assert (rows == 32 or B % (2 * rows)
             or tfb._smem_bytes(2 * rows, n, itemsize) > tfb.SMEM_BYTES)
+
+
+_ENTRY = re.compile(r'extern "C" int (\w+)_launch\(([^)]*)\)')
+
+
+@pytest.mark.parametrize("name", sorted(tfb._ARGTYPES))
+def test_argtypes_match_the_c_entry(name):
+    """The ctypes signature of each kernel library (``_ARGTYPES``) lists
+    its C entry's parameters in their order: ``P`` for a pointer, ``I``
+    for an int, ``L`` for a long long. A wrong kind passes a pointer as
+    32 bits, a missing one shifts every argument after it: faults only a
+    card would show."""
+    m = _ENTRY.search((_build.CSRC / f"{name}.cu").read_text())
+    assert m is not None and m.group(1) == name
+    kinds = ""
+    for param in m.group(2).split(","):
+        param = " ".join(param.split())
+        kinds += ("P" if "*" in param
+                  else "L" if param.startswith("long long ")
+                  else "I" if param.startswith("int ") else "?")
+    assert kinds == tfb._ARGTYPES[name]
+
+
+def test_every_kernel_source_is_bound_and_its_headers_exist():
+    """Each ``csrc/*.cu`` is the library of an entry of ``_ARGTYPES``,
+    and every header a source includes is in ``csrc``."""
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    assert {p.stem for p in sources} == set(tfb._ARGTYPES)
+    for src in sources:
+        for header in _build.headers(src):
+            assert header.parent == _build.CSRC, (src.name, header)
+        for inc in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (_build.CSRC / inc).is_file(), (src.name, inc)
 
 
 def test_ref_rejects_unknown_precision():

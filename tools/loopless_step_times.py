@@ -7,12 +7,13 @@ compared in one call: #16 (``lsvrg_coeff_multistep``) and #17
 (``finito_coeff_multistep``), #3 (``saga_coeff_multistep``), #12
 (``point_saga_multistep``) and #19 (``ssnm_multistep``) at the headline,
 #4 (``saga_coeff_multistep_streamed``), #8 (``lfinito_sweep_multistep``),
-#14 (``finito_coeff_multistep_streamed``) and #13
-(``ssnm_multistep_streamed``) at the deep target, and #18
-(``proshi_multistep``) at the ProShI configuration.
+#14 (``finito_coeff_multistep_streamed``), #13
+(``ssnm_multistep_streamed``) and #15 (``point_saga_multistep_streamed``)
+at the deep target, and #18 (``proshi_multistep``) at the ProShI
+configuration.
 
     python3 tools/loopless_step_times.py [--root DIR] [--tag NAME] [--seed 0]
-        [--kernels 16,17,5,4,10,11,9,8,18,14,3,12,19,13] [--profile]
+        [--kernels 16,17,5,4,10,11,9,8,18,14,3,12,19,13,15] [--profile]
 
 Builds the kernels from ``DIR/ciao_tpu_torch/csrc`` (default: this
 checkout; all at once, one ``nvcc`` each) with that checkout's
@@ -70,15 +71,22 @@ per step by CUDA events, two turns each, one state stepped on in place:
   facade's batch) in calls of K = 128 (a call of ``ssnm_run``), blocks
   drawn with repeats;
 - #13 at the deep target's shape, f32 and int8, in calls of K = 128
-  (a call of the streamed SSNM driver) visiting 128 distinct blocks.
-The wrappers of #3, #9, #8, #12, #13, #14, #18 and #19 from before they
-joined the engine take the same arguments too.
+  (a call of the streamed SSNM driver) visiting 128 distinct blocks;
+- #15 at the deep target's shape with least-squares and logistic rows
+  (labels sign(b); γ as #12's), f32, bf16 and int8, in calls of K = 128
+  (a call of the streamed Point-SAGA driver) visiting 128 distinct
+  blocks.
+The wrappers of #3, #9, #8, #12, #13, #14, #15, #18 and #19 from before
+they joined the engine take the same arguments too; #3's, #12's and
+#19's C entries are their own sources where a checkout has them, else
+#4's, #15's and #13's.
 
 Beside each time: the step's bound at 3.35 TB/s and its bytes at the card's
 read ceiling (``torch.sum`` over 2 GiB of f32, measured in the same
 process), and the card's name and power limit. With ``--profile``, #18's,
-#14's, #13's, #12's and #19's (f32, B = 4,096; #12 in both modes)
-entries also hold one call traced by ``torch.profiler``: the
+#14's, #13's, #12's and #19's (f32, B = 4,096; #12 in both modes) and
+#15's (f32, both modes) entries also hold one call traced by
+``torch.profiler``: the
 device time a step by kernel, the host clock's time a step and the rest
 (gaps: launches, barriers the trace does not see), and, where the
 profiler's CUPTI metrics are given, the DRAM bytes a step
@@ -538,6 +546,37 @@ def time_ssnm_deep(out, cs, fb, A, b, gen, dev, ceil):
         torch.cuda.empty_cache()
 
 
+def time_point_saga_deep(out, cs, fb, A, b, gen, dev, ceil):
+    """#15 at the deep target's shape, least-squares and logistic rows, in
+    calls of CALL_STEPS distinct blocks."""
+    Lm = float((A * A).sum(1).max()) * DEEP_N
+    for storage in ("f32", "bf16", "int8"):
+        for kind, cg in PS_MODES:
+            F, _ = cs.row_oracle(kind, A, b, gen)
+            if storage != "f32":
+                F = F.with_storage(storage)
+            S = cs.ps_inputs(F, gen, dev, DEEP_B, CALL_STEPS,
+                             1.0 / (cg * Lm), distinct=True)
+            state = [t.clone() for t in S["state"]]
+
+            def call(S=S, state=state):
+                cs.ps_call(fb.point_saga_multistep_streamed, F, S, DEEP_B,
+                           state=state)
+            ms = [cs.time_events(call, 5) / CALL_STEPS for _ in range(2)]
+            if not all(bool(torch.isfinite(t).all()) for t in state):
+                raise AssertionError(f"#15 {kind} {storage}: non-finite "
+                                     "state")
+            extra = (dict(profile=_profile(call, CALL_STEPS))
+                     if PROFILE and storage == "f32" else {})
+            # rows, b, na and c read and written of the visited blocks; x
+            # and av in and out
+            _record(out, cs, F, S["starts"], DEEP_B, 16 * DEEP_n, 16, ceil,
+                    kernel="#15", mode=kind, shape="deep", storage=storage,
+                    K=CALL_STEPS, ms=ms, **extra)
+            del F, S, state
+            torch.cuda.empty_cache()
+
+
 def time_saga_deep(out, cs, fb, A, b, gen, dev, ceil):
     """#4 at the deep target's shape in calls of CALL_STEPS steps."""
     from ciao_tpu_torch.oracles import LeastSquaresRows
@@ -573,13 +612,13 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels",
-                    default="16,17,5,4,10,11,9,8,18,14,3,12,19,13",
+                    default="16,17,5,4,10,11,9,8,18,14,3,12,19,13,15",
                     help="which of #16/#17 (together), #5, #4, #10/#11 "
-                         "(together), #9, #8, #18, #14, #3, #12, #19, #13 "
-                         "to time")
+                         "(together), #9, #8, #18, #14, #3, #12, #19, #13, "
+                         "#15 to time")
     ap.add_argument("--profile", action="store_true",
-                    help="trace one call of #18, #14, #12, #19 and #13 as "
-                         "well")
+                    help="trace one call of #18, #14, #12, #19, #13 and #15 "
+                         "as well")
     args = ap.parse_args()
     global PROFILE
     PROFILE = args.profile
@@ -609,17 +648,20 @@ def main() -> int:
     names += ["lfinito_sweep_multistep"] if "8" in which else []
     names += ["proshi_multistep"] if "18" in which else []
     names += ["finito_coeff_multistep_streamed"] if "14" in which else []
-    # #3's C entry: its own source, or #4's where the checkout has none
-    own = os.path.exists(os.path.join(_build.CSRC, "saga_coeff_multistep.cu"))
-    names += ([("saga_coeff_multistep" if own
-                else "saga_coeff_multistep_streamed")] if "3" in which
-              else [])
-    names += ["point_saga_multistep"] if "12" in which else []
-    # #19's likewise, #13's where the checkout has none
-    own = os.path.exists(os.path.join(_build.CSRC, "ssnm_multistep.cu"))
-    names += ([("ssnm_multistep" if own else "ssnm_multistep_streamed")]
+
+    def entry(own, shared):
+        """A kernel's C entry: its own source, or the entry its wrapper
+        shares where the checkout has none (#3's #4's, #12's #15's, #19's
+        #13's)."""
+        return own if (_build.CSRC / f"{own}.cu").exists() else shared
+    names += ([entry("saga_coeff_multistep", "saga_coeff_multistep_streamed")]
+              if "3" in which else [])
+    names += ([entry("point_saga_multistep", "point_saga_multistep_streamed")]
+              if "12" in which else [])
+    names += ([entry("ssnm_multistep", "ssnm_multistep_streamed")]
               if "19" in which else [])
     names += ["ssnm_multistep_streamed"] if "13" in which else []
+    names += ["point_saga_multistep_streamed"] if "15" in which else []
     names = list(dict.fromkeys(names))
     with ThreadPoolExecutor(max(1, len(names))) as pool:
         list(pool.map(_build.build, names))
@@ -653,7 +695,7 @@ def main() -> int:
         time_ssnm(out, cs, fb, A, b, gen, dev, ceil)
     del A, b
     torch.cuda.empty_cache()
-    if which & {"4", "8", "14", "13"}:
+    if which & {"4", "8", "14", "13", "15"}:
         A = torch.randn(DEEP_N, DEEP_n, generator=gen, device=dev)
         b = torch.randn(DEEP_N, generator=gen, device=dev)
         if "4" in which:
@@ -664,6 +706,8 @@ def main() -> int:
             time_finito_deep(out, cs, fb, A, b, gen, dev, ceil)
         if "13" in which:
             time_ssnm_deep(out, cs, fb, A, b, gen, dev, ceil)
+        if "15" in which:
+            time_point_saga_deep(out, cs, fb, A, b, gen, dev, ceil)
         del A, b
     print(json.dumps(out), flush=True)
     return 0
