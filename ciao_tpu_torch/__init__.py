@@ -36,16 +36,21 @@ beside ``LeastSquaresRows``; ``PANOC`` and ``ZeroFPR``, whose envelope
 reads run on ``coeff_value_apply_all``, and the splitting methods
 ``DavisYin``/``DouglasRachford`` and ``CondatVu``/``ChambollePock`` with
 the linear maps of ``ops.linmap`` (full gradients on
-``coeff_apply_all``); the whole prox library of ``ciao_tpu.prox``. The
-rest is queued in ROADMAP.md. Imports
+``coeff_apply_all``); the whole prox library of ``ciao_tpu.prox``; the
+sparse rows ``SparseLeastSquaresELL``, ``HybridSparseLeastSquares``,
+``SparseLogisticELL`` and ``HybridSparseLogistic`` with
+``make_sparse_lasso_ell`` and ``deep_solve``'s block-protocol polish
+(gathers and scatter-adds in PyTorch: no kernel serves them, as none
+does in the JAX package). The rest is queued in ROADMAP.md. Imports
 torch and numpy, never jax. Entry points run on the card unless the
 caller names the CPU (a CPU tensor or ``device="cpu"``).
 """
 
 from ciao_tpu_torch import oracles, prox
 from ciao_tpu_torch.oracles import (
-    DenseQuadratic, DiagQuadratic, HuberRows, LeastSquaresRows, LogisticRows,
-    PoissonRows, SqrDistBox, SquaredHingeRows, SumOracle, ZeroOracle,
+    DenseQuadratic, DiagQuadratic, HuberRows, HybridSparseLeastSquares,
+    LeastSquaresRows, LogisticRows, PoissonRows, SparseLeastSquaresELL,
+    SqrDistBox, SquaredHingeRows, SumOracle, ZeroOracle,
 )
 from ciao_tpu_torch.ops.linmap import (
     DenseMap, FirstDifference, FirstDifference2D, GradientMap2D, IdentityMap,
@@ -83,6 +88,8 @@ __all__ = [
     "SqrDistBox",
     "SumOracle",
     "ZeroOracle",
+    "SparseLeastSquaresELL",
+    "HybridSparseLeastSquares",
     "NormL1",
     "Zero",
     "IndBox",

@@ -23,7 +23,9 @@ import torch
 
 from ciao_tpu_torch import runtime
 from ciao_tpu_torch.oracles import (
-    HuberRows, LeastSquaresRows, LogisticRows, PoissonRows, SquaredHingeRows,
+    HuberRows, HybridSparseLeastSquares, HybridSparseLogistic,
+    LeastSquaresRows, LogisticRows, PoissonRows, SparseLeastSquaresELL,
+    SparseLogisticELL, SquaredHingeRows,
 )
 from ciao_tpu_torch.solvers.base import Status
 from ciao_tpu_torch.sampling import SweepState
@@ -114,6 +116,42 @@ def poisson_from_numpy(A, y, scale, row_scale=None, device=None,
                        scale=tensor_from_numpy(scale, device),
                        row_scale=_rs(row_scale, device),
                        supports_coeff=supports_coeff)
+
+
+def sparse_least_squares_ell_from_numpy(idx, val, b, scale, n_dim,
+                                        device=None) -> SparseLeastSquaresELL:
+    """``SparseLeastSquaresELL`` from the JAX oracle's fields ``idx``
+    (int32, kept so), ``val``, ``b``, ``scale`` and ``n_dim``."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return SparseLeastSquaresELL(t(idx), t(val), t(b), t(scale), int(n_dim))
+
+
+def hybrid_sparse_least_squares_from_numpy(
+        A_hot, hot_cols, idx, val, b, scale, n_dim,
+        device=None) -> HybridSparseLeastSquares:
+    """``HybridSparseLeastSquares`` from the JAX oracle's fields: the hot
+    block ``A_hot`` (f32, or bf16 bit for bit), ``hot_cols`` and ``idx``
+    (int32), ``val``, ``b``, ``scale`` and ``n_dim``."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return HybridSparseLeastSquares(t(A_hot), t(hot_cols), t(idx), t(val),
+                                    t(b), t(scale), int(n_dim))
+
+
+def sparse_logistic_ell_from_numpy(idx, val, y, n_dim,
+                                   device=None) -> SparseLogisticELL:
+    """``SparseLogisticELL`` from the JAX oracle's fields ``idx``, ``val``,
+    ``y`` and ``n_dim``."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return SparseLogisticELL(t(idx), t(val), t(y), int(n_dim))
+
+
+def hybrid_sparse_logistic_from_numpy(A_hot, hot_cols, idx, val, y, n_dim,
+                                      device=None) -> HybridSparseLogistic:
+    """``HybridSparseLogistic`` from the JAX oracle's fields ``A_hot``,
+    ``hot_cols``, ``idx``, ``val``, ``y`` and ``n_dim``."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return HybridSparseLogistic(t(A_hot), t(hot_cols), t(idx), t(val), t(y),
+                                int(n_dim))
 
 
 def saga_state_from_numpy(s, z, av, gamma, it, seed: int = 0,

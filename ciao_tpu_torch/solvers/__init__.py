@@ -42,8 +42,9 @@ from ciao_tpu_torch.solvers.point_saga import (
     point_saga_rebase, point_saga_run, point_saga_step,
 )
 from ciao_tpu_torch.solvers.polish import (
-    PolishResult, fista_polish, grad_mean_chunked, grad_sum_chunked,
-    lsq_power_lmax, power_lmax,
+    PolishResult, fista_polish, grad_mean_chunked, grad_mean_chunked_blocks,
+    grad_sum_chunked, grad_sum_chunked_blocks, lsq_power_lmax, power_lmax,
+    power_lmax_quadratic, power_lmax_weighted,
 )
 from ciao_tpu_torch.solvers.primal_dual import (
     ChambollePock, CondatVu, PDCfg, PDState, pd_init, pd_run, pd_step,
@@ -88,7 +89,8 @@ __all__ = [
     "finito_rebase", "DeepSolveInfo",
     "deep_solve", "StagedInfo", "staged_saga", "PolishResult",
     "fista_polish", "grad_mean_chunked", "grad_sum_chunked", "power_lmax",
-    "lsq_power_lmax", "Proshi", "ProshiCfg", "ProshiState", "proshi_init",
+    "lsq_power_lmax", "grad_mean_chunked_blocks", "grad_sum_chunked_blocks",
+    "power_lmax_weighted", "power_lmax_quadratic", "Proshi", "ProshiCfg", "ProshiState", "proshi_init",
     "proshi_run", "proshi_step", "proshi_resync", "sharing_objective",
     "DeepSharingInfo", "deep_solve_sharing", "Katyusha", "KatyushaCfg",
     "KatyushaState", "katyusha_init", "katyusha_run", "katyusha_step",

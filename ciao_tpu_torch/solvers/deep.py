@@ -11,10 +11,15 @@ Counterpart of ``ciao_tpu/solvers/deep.py``:
    ``eta_safety``/λ̂, λ̂ from :func:`ciao_tpu_torch.solvers.power_lmax`,
    until the fixed-point residual stalls.
 
+Sparse oracles (ELL and hot/cold hybrid) have no dense stored rows: their
+polish runs through the block protocol, with λ̂ from
+``power_lmax_quadratic`` (least squares) or ``power_lmax_weighted``
+(logistic rows, pointwise trust-region weights at the stochastic stage's
+point).
+
 The accuracy the JAX package reached on the deep target (rel 7.62e-9,
 polish floor 2.83e-8) holds on any hardware and is what the port is
-held to. Not ported yet: the block-protocol route of the sparse oracles
-(ROADMAP.md, queue 1 item 16).
+held to.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ciao_tpu_torch.solvers.polish import fista_polish, power_lmax
+from ciao_tpu_torch.solvers.polish import (
+    fista_polish, power_lmax, power_lmax_quadratic, power_lmax_weighted,
+)
 from ciao_tpu_torch.solvers.staged import StagedInfo, staged_saga
 
 
@@ -76,7 +83,11 @@ def deep_solve(
 
     ``F`` is a rank-1 coefficient oracle with dense f32 (or bf16) rows;
     the margin protocol (``coeff_from_margin``,
-    ``hess_weight_from_margin``) supplies the loss. For a staged start
+    ``hess_weight_from_margin``) supplies the loss. The sparse layouts
+    (ELL and hybrid) of the least-squares and logistic families are
+    served too: the polish gradient runs through the block protocol
+    (logistic rows: pass ``margin_slack`` covering the polish's margin
+    motion). For a staged start
     pass e.g. ``storages=("int8", "f32")``: the narrow stages are built
     with ``F.with_storage`` and the polish always runs on ``F`` itself.
     ``g`` needs ``prox_only``. ``importance_sampling=True`` draws the
@@ -90,11 +101,15 @@ def deep_solve(
     """
     from ciao_tpu_torch.prox import Zero
 
-    if not hasattr(F, "coeff_rows_data"):
-        raise NotImplementedError(
-            "deep_solve for oracles without dense rows (the block-protocol "
-            "polish of the sparse layouts) is not ported yet: ROADMAP.md, "
-            "queue 1 item 16")
+    # sparse rows (no dense stored rows) polish through the block protocol
+    block_protocol = not hasattr(F, "coeff_rows_data")
+    mode = getattr(F, "coeff_mode", None)
+    if block_protocol and mode not in (0, 1):
+        raise ValueError(
+            "deep_solve: automatic polish stepsizes for oracles without "
+            "dense rows cover the quadratic (least-squares) and logistic "
+            "families — pass a dense-rows oracle or precompute η yourself "
+            "via fista_polish")
     if N is None:
         N = F.num_terms
 
@@ -108,15 +123,22 @@ def deep_solve(
     if g is None:
         g = Zero()
 
-    lmax = float(power_lmax(F, z, seed + 1, iters=power_iters,
-                            margin_slack=margin_slack))
+    if not block_protocol:
+        lmax = float(power_lmax(F, z, seed + 1, iters=power_iters,
+                                margin_slack=margin_slack))
+    elif mode == 0:
+        lmax = float(power_lmax_quadratic(F, seed + 1, iters=power_iters))
+    else:
+        lmax = float(power_lmax_weighted(F, z, seed + 1, iters=power_iters,
+                                         margin_slack=margin_slack))
     eta = torch.tensor(eta_safety / lmax, dtype=torch.float32)
     chunk = _largest_divisor_leq(N, polish_chunk)
 
     fp_hist: List[float] = []
     steps = 0
     for _ in range(polish_max_rounds):
-        res = fista_polish(F, g, z, eta, polish_steps, chunk)
+        res = fista_polish(F, g, z, eta, polish_steps, chunk,
+                           block_protocol=block_protocol)
         z = res.x
         steps += polish_steps
         fp = float(res.fp_res)

@@ -22,9 +22,12 @@ which no compiler contracts, and its (hi, lo) carry stays f32 on the
 device. Dense f32/bf16 rows only: int8 rows define another operator,
 which belongs to the staged schedule, not the polish.
 
-Not ported yet (ROADMAP.md, queue 1 item 16): the block-protocol
-versions for the sparse oracles (``grad_sum_chunked_blocks``,
-``power_lmax_weighted``, ``power_lmax_quadratic``).
+The sparse oracles (ELL and hot/cold hybrid) have no dense stored rows.
+Their polish runs through the block protocol: ``grad_sum_chunked_blocks``
+takes each chunk's ``coeff_block`` and ``apply_rows_block`` with the same
+two-sum carry, and the stepsize comes from ``power_lmax_quadratic`` (least
+squares: H·v = (∇Σf(v) − ∇Σf(0))/N exactly) or ``power_lmax_weighted``
+(margin-weighted, the logistic rows' pointwise trust-region weights).
 """
 
 from __future__ import annotations
@@ -74,18 +77,44 @@ def grad_mean_chunked(F, x, chunk: int):
     return grad_sum_chunked(F, x, chunk) / F.num_terms
 
 
-def fista_polish(F, g, x0, eta, steps: int, chunk: int = 32_768):
+def grad_sum_chunked_blocks(F, x, chunk: int):
+    """Σᵢ ∇fᵢ(x) through the block protocol (``coeff_block`` and
+    ``apply_rows_block`` per chunk of ``chunk`` rows) with the compensated
+    cross-chunk carry of :func:`grad_sum_chunked`: the sparse oracles'
+    polish gradient. Any rank-1 block oracle works; dense rows prefer
+    :func:`grad_sum_chunked`, which reads each row once, not twice."""
+    N = F.num_terms
+    if N % chunk:
+        raise ValueError(f"chunk {chunk} must divide N={N}")
+    hi = torch.zeros(x.numel(), dtype=x.dtype, device=x.device)
+    lo = torch.zeros_like(hi)
+    for start in range(0, N, chunk):
+        c = F.coeff_block(x, start, chunk)
+        hi, lo = _two_sum(hi, lo, F.apply_rows_block(c, start, chunk))
+    return hi + lo
+
+
+def grad_mean_chunked_blocks(F, x, chunk: int):
+    """(1/N)·Σᵢ ∇fᵢ(x) through the block protocol, compensated."""
+    return grad_sum_chunked_blocks(F, x, chunk) / F.num_terms
+
+
+def fista_polish(F, g, x0, eta, steps: int, chunk: int = 32_768,
+                 block_protocol: bool = False):
     """``steps`` monotone-FISTA steps x ← prox_g(y − η∇f(y), η) with the
     compensated chunked gradient, queued on the device with no host
     read. Restart: when ⟨y − x_new, x_new − x⟩ > 0 the momentum points
-    uphill, and it resets. Returns the iterate and the last step's
-    fixed-point residual."""
+    uphill, and it resets. ``block_protocol=True`` takes the gradient
+    through :func:`grad_mean_chunked_blocks`, the sparse oracles' path.
+    Returns the iterate and the last step's fixed-point residual."""
+    grad_fn = (grad_mean_chunked_blocks if block_protocol
+               else grad_mean_chunked)
     eta = torch.as_tensor(eta, dtype=x0.dtype, device=x0.device)
     x = y = x0
     t = torch.ones((), dtype=x0.dtype, device=x0.device)
     res = torch.zeros((), dtype=x0.dtype, device=x0.device)
     for _ in range(steps):
-        gr = grad_mean_chunked(F, y, chunk)
+        gr = grad_fn(F, y, chunk)
         x_new = g.prox_only(y - eta * gr, eta)
         res = torch.linalg.vector_norm(x_new - y) / eta
         restart = torch.dot(y - x_new, x_new - x) > 0
@@ -112,16 +141,65 @@ def power_lmax(F, x, seed: int, iters: int = 8, margin_slack=0.0):
     A = A.to(torch.promote_types(A.dtype, torch.float32))
     w = F.hess_weight_from_margin(A @ x.to(torch.float32).to(A.dtype),
                                   margin_slack)
-    gen = torch.Generator().manual_seed(seed)
-    v = torch.randn(n, generator=gen, dtype=torch.float32).to(A.device,
-                                                              A.dtype)
-    v = v / torch.linalg.vector_norm(v)
+    v = _start_vector(n, seed, A.device, A.dtype)
     lam = None
     for _ in range(iters):
         hv = ((w * (A @ v)) @ A) / N
         lam = torch.linalg.vector_norm(hv)
         # all-zero weights (an anchor with no active rows) stay finite
         v = hv / torch.clamp(lam, min=torch.finfo(hv.dtype).tiny)
+    return lam
+
+
+def _start_vector(n: int, seed: int, device, dtype):
+    """The power iteration's unit start: a normal draw of a CPU ``torch``
+    generator seeded with ``seed`` (so every device starts alike), drawn
+    in f32 and then moved to ``device`` and ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    v = torch.randn(n, generator=gen, dtype=torch.float32).to(device, dtype)
+    return v / torch.linalg.vector_norm(v)
+
+
+def power_lmax_weighted(F, x, seed: int, iters: int = 8, margin_slack=0.0):
+    """λmax of the margin-weighted mean Hessian H̄ = (1/N)·Aᵀ diag(w̄ᵢ) A
+    of a block-protocol (sparse ELL or hybrid) oracle, the analogue of
+    :func:`power_lmax` without dense stored rows: w̄ᵢ =
+    ``F.hess_weight_from_margin`` at the margins of ``x`` (one
+    ``margin_all`` pass), then per iteration a ``margin_all`` and an
+    ``apply_all`` pass. Least squares gets its constant ``scale``;
+    logistic rows their pointwise trust-region bound over
+    ``margin_slack``. Returns a 0-d tensor."""
+    if not all(hasattr(F, m) for m in ("margin_all", "apply_all",
+                                       "hess_weight_from_margin")):
+        raise ValueError(
+            "power_lmax_weighted needs the block margin protocol "
+            "(margin_all / apply_all / hess_weight_from_margin)")
+    N = F.num_terms
+    m = F.margin_all(x.to(torch.float32))
+    w = F.hess_weight_from_margin(m, margin_slack)
+    v = _start_vector(F.dim, seed, m.device, m.dtype)
+    lam = None
+    for _ in range(iters):
+        hv = F.apply_all(w * F.margin_all(v)) / N
+        lam = torch.linalg.vector_norm(hv)
+        v = hv / torch.clamp(lam, min=torch.finfo(hv.dtype).tiny)
+    return lam
+
+
+def power_lmax_quadratic(F, seed: int, iters: int = 8):
+    """λmax of the mean Hessian of a quadratic (least-squares family,
+    ``coeff_mode == 0``) oracle without dense stored rows: ∇ is affine,
+    so H·v = (∇Σf(v) − ∇Σf(0))/N exactly: one ``grad_sum_all`` pass an
+    iteration beside ∇Σf(0), taken once. Returns a 0-d tensor."""
+    N = F.num_terms
+    dev = next(F.buffers()).device
+    g0 = F.grad_sum_all(torch.zeros(F.dim, dtype=torch.float32, device=dev))
+    v = _start_vector(F.dim, seed, dev, g0.dtype)
+    lam = None
+    for _ in range(iters):
+        hv = (F.grad_sum_all(v) - g0) / N
+        lam = torch.linalg.vector_norm(hv)
+        v = hv / lam
     return lam
 
 

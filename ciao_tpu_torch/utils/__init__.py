@@ -2,9 +2,11 @@
 
 from ciao_tpu_torch.utils.problems import (
     LassoProblem, LogisticProblem, PlantedSharingProblem, SharingProblem,
-    make_lasso, make_logistic_l1, make_sharing, make_sharing_planted,
+    SparseLassoProblem, make_lasso, make_logistic_l1, make_sharing,
+    make_sharing_planted, make_sparse_lasso_ell,
 )
 
 __all__ = ["LassoProblem", "make_lasso", "LogisticProblem",
            "make_logistic_l1", "SharingProblem", "make_sharing",
-           "PlantedSharingProblem", "make_sharing_planted"]
+           "PlantedSharingProblem", "make_sharing_planted",
+           "SparseLassoProblem", "make_sparse_lasso_ell"]

@@ -8,6 +8,11 @@ A copy of ``LassoProblem``/``make_lasso``, of ``LogisticProblem``/
 construction is the same numpy code, so both packages draw bit-identical
 problems from one seed (reference ``test/test_lasso.jl:14-47``,
 ``test/test_logistic_l1.jl:12-29``, ``test/test_sharing.jl:11-28``).
+
+The planted sparse Lasso (:func:`make_sparse_lasso_ell`) follows the JAX
+package's recipe step by step but is built with torch on the device,
+from a ``torch.Generator`` seeded with ``seed``: its draws are the port's
+own, so the two packages plant different problems of the same kind.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class LassoProblem(NamedTuple):
@@ -234,3 +240,134 @@ def make_sharing_planted(N=4096, n=128, p=None, seed=0):
         d=d, q=q, lam=lam, x_star=x_star, u_star=u_star, v_star=v,
         f_star=f_star, L=np.max(d, axis=1),
     )
+
+
+class SparseLassoProblem(NamedTuple):
+    """Planted power-law sparse Lasso (rcv1-style): the same operator in
+    both sparse layouts, with the exact optimum known by construction.
+    Built on the device (:func:`make_sparse_lasso_ell`)."""
+
+    ell: object          # SparseLeastSquaresELL     (pure-ELL layout)
+    hybrid: object       # HybridSparseLeastSquares  (hot/cold layout)
+    lam: float
+    x_star: torch.Tensor  # (n,) on the device
+    f_star: float        # exact optimal cost ½‖y*‖² + λ‖x*‖₁
+    L: torch.Tensor      # (N,) per-row moduli (× N scaling) on the device
+
+
+def nan_median_nearest(v):
+    """The median of ``v``'s non-NaN entries as JAX's
+    ``jnp.nanquantile(v, 0.5, method="nearest")`` takes it: at the half
+    index of an even count it is the lower of the two middle entries,
+    where numpy's and torch's "nearest" round the index half to even. At
+    q = 0.5 the index's fraction is 0 or ½, so torch's "lower" is JAX's
+    rule. torch's quantiles take at most 2^24 entries (the rcv1 shape's
+    65,536 columns are well inside)."""
+    return torch.nanquantile(v, 0.5, interpolation="lower")
+
+
+def make_sparse_lasso_ell(N=4096, n=4096, *, hot=256, k_hot=12, k_cold=4,
+                          p=32, lam=1.0, rho=10.0, beta=1.1, seed=0,
+                          device=None) -> SparseLassoProblem:
+    """Plant a p-sparse Lasso on a power-law sparse design, returned in
+    both sparse layouts (pure ELL and hot/cold hybrid) over the same
+    operator; ``ciao_tpu/utils/problems.py``'s recipe, with torch on
+    ``device`` (default: the card when there is one) and the port's own
+    draws from ``seed``.
+
+    Each row draws ``k_hot`` entries from the hot columns [0, hot) and
+    ``k_cold`` from the cold tail [hot, n), both with (j+1)^-beta
+    popularity; cold duplicates within a row are zeroed, the first kept,
+    so the cold ‖·‖² is exact (hot duplicates merge additively: the
+    hybrid's dense block merges them, ELL keeps the raw slots, and the
+    operator is the same). A unit dual y* gives the signed column
+    correlations s = Aᵀy*. Column-norm equalisation: the KKT scale
+    α_j = λ/|s_j| forces a support column's norm to r_j = λ·ν_j/|s_j|
+    (ν the raw column norm); the support is the p columns whose r_j lies
+    closest above t, the median of r, and every other column takes
+    α_j = min(0.95·λ/|s_j|, 0.8·t/ν_j): a strict dual slack, so that no
+    column is near-active. x* lives on the support with the signs of s,
+    b = A x* + y*, and the KKT conditions hold exactly:
+    f* = ½‖y*‖² + λ‖x*‖₁. ``L`` is each row's ‖a_i‖² × N, of the merged
+    hot entries. The hot block is lane-padded to
+    ``max(128, ⌈hot/128⌉·128)`` columns, ``hot_cols`` its column ids."""
+    from ciao_tpu_torch import runtime
+    from ciao_tpu_torch.oracles.sparse import (
+        HybridSparseLeastSquares, SparseLeastSquaresELL,
+    )
+
+    dev = torch.device(runtime.default_device() if device is None
+                       else device)
+    f32 = torch.float32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=dev, dtype=f32)
+
+    hot_pad = max(128, -(-hot // 128) * 128)
+    wj = (torch.arange(n, dtype=f32, device=dev) + 1.0) ** (-beta)
+    cdf_h = torch.cumsum(wj[:hot], 0)
+    cdf_h = cdf_h / cdf_h[-1]
+    cdf_c = torch.cumsum(wj[hot:], 0)
+    cdf_c = cdf_c / cdf_c[-1]
+    hot_idx = torch.searchsorted(cdf_h, uniform(N, k_hot), right=True)
+    cold_idx = hot + torch.searchsorted(cdf_c, uniform(N, k_cold),
+                                        right=True)
+    # a cold slot is a duplicate when an earlier slot of its row holds the
+    # same column (N × k_cold × k_cold bools: 128 MiB at 524,288 × 16)
+    earlier = cold_idx[:, :, None] == cold_idx[:, None, :]
+    tri = torch.tril(torch.ones(k_cold, k_cold, dtype=torch.bool,
+                                device=dev), -1)
+    is_dup = torch.any(earlier & tri, dim=2)
+    del earlier
+    hot_val = uniform(N, k_hot) * 2 - 1
+    cold_val = (uniform(N, k_cold) * 2 - 1) * (~is_dup)
+    y = uniform(N)
+    y = y / torch.sqrt(torch.dot(y, y))
+
+    def scatter(h, c):
+        """Σ over each column's slots (a scatter-add; duplicates merge)."""
+        out = torch.zeros(n, dtype=f32, device=dev)
+        out.index_add_(0, hot_idx.reshape(-1), h.reshape(-1))
+        return out.index_add_(0, cold_idx.reshape(-1), c.reshape(-1))
+
+    s = scatter(y[:, None] * hot_val, y[:, None] * cold_val)
+    c = s.abs()
+    nu = torch.sqrt(scatter(hot_val * hot_val, cold_val * cold_val))
+    r = lam * nu / torch.clamp(c, min=1e-30)     # forced support norm
+    r = torch.where(nu > 0, r, torch.inf)
+    t = nan_median_nearest(torch.where(torch.isfinite(r), r, torch.nan))
+    key_rank = torch.where(r >= t, r - t, torch.inf)
+    kth = torch.sort(key_rank).values[p - 1]
+    supp = key_rank <= kth
+    alpha = torch.where(
+        supp, lam / torch.clamp(c, min=1e-30),
+        torch.minimum(0.95 * lam / torch.clamp(c, min=1e-30),
+                      0.8 * t / torch.clamp(nu, min=1e-30)))
+    hot_val = hot_val * alpha[hot_idx]
+    cold_val = cold_val * alpha[cold_idx]
+    xs = torch.where(supp, uniform(n) * np.float32(rho / np.sqrt(p))
+                     * torch.sign(s), 0.0)
+    m = (torch.sum(hot_val * xs[hot_idx], dim=1)
+         + torch.sum(cold_val * xs[cold_idx], dim=1))
+    b = m + y
+    # the merged hot block (the hybrid layout's dense part)
+    A_hot = torch.zeros(N, hot_pad, dtype=f32, device=dev)
+    rows = torch.arange(N, device=dev)[:, None].expand(N, k_hot)
+    A_hot.index_put_((rows, hot_idx), hot_val, accumulate=True)
+    L = (torch.sum(A_hot * A_hot, dim=1)
+         + torch.sum(cold_val * cold_val, dim=1)) * N
+
+    scale = torch.tensor(float(N), dtype=f32, device=dev)
+    ell = SparseLeastSquaresELL(
+        torch.cat([hot_idx, cold_idx], dim=1).to(torch.int32),
+        torch.cat([hot_val, cold_val], dim=1), b, scale, n)
+    hybrid = HybridSparseLeastSquares(
+        A_hot, torch.arange(hot_pad, dtype=torch.int32, device=dev),
+        cold_idx.to(torch.int32), cold_val, b, scale, n)
+    xs64 = xs.double()
+    y64 = y.double()
+    f_star = 0.5 * float(y64 @ y64) + lam * float(xs64.abs().sum())
+    return SparseLassoProblem(ell=ell, hybrid=hybrid, lam=float(lam),
+                              x_star=xs, f_star=f_star, L=L)

@@ -14,7 +14,9 @@ the kernels of the persistent engine (#3, #4, #5, #8, #9, #10, #11, #12,
 #13, #14, #15, #16, #17, #18, #19) at its edges, #3, #8, #9, #12, #13, #14,
 #15, #16, #18 and #19 on two streams at once and #10, #11 and #16 in turns
 on one, SSNM's and Point-SAGA's on hand-made block revisits, the facades'
-routing to them, and the polish's exact-f32 check.
+routing to them, and the polish's exact-f32 check; and the sparse rows,
+which no kernel serves: their protocols on the card against the CPU, and
+the SAGA facade on them launching no kernel.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -3023,3 +3025,127 @@ def test_panoc_and_splitting_facades_run_on_the_kernels(dev, monkeypatch):
                                   "saga_coeff_multistep": 0,
                                   "svrg_coeff_multistep": 0}, d
         assert float(objective(F, g, x)) < float(objective(F, g, x0))
+
+
+# ---------------------------------------------------------------------------
+# sparse rows: no kernel serves them, by design
+# ---------------------------------------------------------------------------
+
+SPARSE_KINDS = ["ell_lsq", "hybrid_lsq", "ell_logistic", "hybrid_logistic"]
+
+
+def _sparse_oracle(kind, device):
+    """A power-law f64 matrix (four near-dense columns, a sparse tail, row
+    5 all padding) as the sparse oracle ``kind`` on ``device``."""
+    import numpy as np
+
+    from ciao_tpu_torch.oracles import (
+        HybridSparseLeastSquares, HybridSparseLogistic,
+        SparseLeastSquaresELL, SparseLogisticELL,
+    )
+
+    rng = np.random.default_rng(7)
+    N, n = 256, 64
+    A = np.zeros((N, n))
+    for c in (5, 11, 30, 41):
+        m = rng.random(N) < 0.9
+        A[m, c] = rng.standard_normal(m.sum())
+    for i in range(N):
+        cols = rng.choice(n, size=rng.integers(0, 7), replace=False)
+        A[i, cols] = rng.standard_normal(len(cols))
+    A[5] = 0.0
+    b = A @ rng.standard_normal(n) + 0.05 * rng.standard_normal(N)
+    y = np.where(b > 0, 1.0, -1.0)
+    return {"ell_lsq": lambda: SparseLeastSquaresELL.from_dense(
+                A, b, float(N), device=device),
+            "hybrid_lsq": lambda: HybridSparseLeastSquares.from_dense(
+                A, b, float(N), D=4, device=device),
+            "ell_logistic": lambda: SparseLogisticELL.from_dense(
+                A, y, device=device),
+            "hybrid_logistic": lambda: HybridSparseLogistic.from_dense(
+                A, y, D=4, device=device)}[kind]()
+
+
+@pytest.mark.parametrize("kind", SPARSE_KINDS)
+def test_sparse_protocols_on_the_card_match_the_cpu(dev, kind):
+    """Every protocol method of the four sparse classes on the card
+    against the same call on the CPU, in f64: within 1e-12 of the largest
+    entry (the card's scatter-adds sum with atomics, in another order)."""
+    cpu = torch.device("cpu")
+    P, G = _sparse_oracle(kind, cpu), _sparse_oracle(kind, dev)
+    gen = torch.Generator().manual_seed(2)
+    N, n = P.num_terms, P.dim
+    x = torch.randn(n, generator=gen, dtype=torch.float64)
+    x2 = torch.randn(n, generator=gen, dtype=torch.float64)
+    xs = torch.randn(4, n, generator=gen, dtype=torch.float64)
+    idx = torch.tensor([3, 5, 99, 64])
+    mask = torch.tensor([True, True, False, True])
+    w4 = torch.randn(4, generator=gen, dtype=torch.float64)
+    w16 = torch.randn(16, generator=gen, dtype=torch.float64)
+    wN = torch.randn(N, generator=gen, dtype=torch.float64)
+    cases = [
+        ("margin_all", (x,)), ("coeff_all", (x,)), ("coeff_batch", (x, idx)),
+        ("coeff_block", (x, 0, 16)), ("coeff_block", (x, 16, 16)),
+        ("apply_rows", (w4, idx)), ("apply_rows_block", (w16, 0, 16)),
+        ("apply_all", (wN,)), ("grad_sum_all", (x,)),
+        ("grad_sum_batch", (x, idx, mask)), ("grad_sum_diff", (x, x2, idx)),
+        ("grad_sum_diff_block", (x, x2, 0, 16)), ("grad_block", (x, 0, 16)),
+        ("grad_batch", (x, idx)), ("grad_pointwise", (xs, idx)),
+        ("value_and_grad_i", (x, 5)), ("value_and_grad_i", (x, 7)),
+        ("value_sum_all", (x,)), ("value_sum_and_grad_sum_all", (x,)),
+        ("hess_weight_from_margin", (x[:1].repeat(N), 0.3)),
+    ]
+
+    def on(a, d):
+        return a.to(d) if isinstance(a, torch.Tensor) else a
+
+    for name, args in cases:
+        want = getattr(P, name)(*args)
+        got = getattr(G, name)(*(on(a, dev) for a in args))
+        pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+        for g_, w_ in pairs:
+            assert g_.device.type == "cuda", name
+            err = float((g_.cpu() - w_).abs().max())
+            assert err <= 1e-12 * max(float(w_.abs().max()), 1e-300), (
+                name, err)
+    # a device start gathers the rows a host start slices
+    assert torch.equal(G.coeff_block(on(x, dev), torch.tensor(16, device=dev),
+                                     16),
+                       G.coeff_block(on(x, dev), 16, 16))
+
+
+def test_sparse_saga_facade_on_the_card_launches_no_kernel(dev):
+    """The SAGA facade with block sampling on the port's planted sparse
+    Lasso: no kernel wrapper launches, the objective falls on both
+    layouts, and the fallback warning names the hybrid for pure ELL and
+    stays silent for the hybrid."""
+    import warnings
+
+    from ciao_tpu_torch import SAGA, runtime
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.utils import make_sparse_lasso_ell
+
+    prob = make_sparse_lasso_ell(N=4_096, n=512, hot=64, k_hot=8, k_cold=4,
+                                 p=16, rho=1.0, seed=0, device=dev)
+    g = NormL1(torch.tensor(prob.lam, device=dev))
+    wrappers = [f for f in vars(tfb).values()
+                if callable(f) and hasattr(f, "launches")]
+    assert len(wrappers) >= 19
+    before = [f.launches for f in wrappers]
+    x0 = torch.zeros(512, device=dev)
+    runtime.reset_fallback_warnings()
+    try:
+        for F, warns in ((prob.ell, True), (prob.hybrid, False)):
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                x, _ = SAGA(maxit=512, batch=256, block_sampling=True)(
+                    x0, F=F, g=g, L=prob.L)
+            ours = [str(w.message) for w in seen
+                    if "stepwise PyTorch path" in str(w.message)]
+            assert (len(ours) == 1 and "HybridSparseLeastSquares" in ours[0]
+                    if warns else not ours), ours
+            assert x.device.type == "cuda"
+            assert float(F.value_sum_all(x)) < float(F.value_sum_all(x0))
+    finally:
+        runtime.reset_fallback_warnings()
+    assert [f.launches for f in wrappers] == before

@@ -140,10 +140,12 @@ def test_deep_solve_importance_stage():
 
 
 def test_deep_solve_needs_dense_rows():
-    """The block-protocol route of the sparse oracles is not ported: an
-    oracle without dense rows raises before any work, naming the item."""
+    """An oracle without dense rows takes the block-protocol route, whose
+    automatic stepsize covers the quadratic and logistic families alone
+    (the sparse rows): any other oracle without dense rows raises JAX's
+    ValueError before any work."""
     class Blocks(torch.nn.Module):
         num_terms = 8
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 16"):
+    with pytest.raises(ValueError, match="quadratic"):
         deep_solve(torch.zeros(2), Blocks(), None, L=np.ones(8), batch=2)

@@ -361,6 +361,7 @@ def test_port_imports_no_jax():
         "import ciao_tpu_torch.solvers.polish, ciao_tpu_torch.solvers.staged",
         "import ciao_tpu_torch.utils.problems, ciao_tpu_torch.solvers.proshi",
         "import ciao_tpu_torch.solvers.deep_sharing, ciao_tpu_torch.oracles",
+        "import ciao_tpu_torch.oracles.sparse",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ciao_tpu'))",
         "assert not bad, bad",
