@@ -70,7 +70,11 @@ no clamp count), ``point_saga_multistep_streamed.cu`` (kernels #15 and #12:
 - the sparse route of ``bench.py`` (``bench_sparse_e2e``, :1261-1383): the
   planted power-law sparse Lasso in the ELL and hot/cold hybrid layouts,
   FISTA and SAGA on both, ``deep_solve`` on both with least-squares and
-  logistic rows; it runs none of the nineteen kernels, by design.
+  logistic rows; it runs none of the nineteen kernels, by design;
+- the primal-dual deep route of ``bench.py`` (``bench_pd_deep``,
+  :1131-1258): ``deep_solve_pd`` on the planted 262,144 x 1,024 fused lasso
+  and three-term problems assembled on the card; it runs none of the
+  nineteen kernels, by design.
 
 Phases, one line each:
 
@@ -231,6 +235,16 @@ Phases, one line each:
      sparse logistic rows of the same design, both layouts, to rel <= 1e-6
      of an f64 ELL FISTA reference; (b) the full rcv1 shape 524,288 x
      65,536 (hot 1,024, k 48 + 16): SAGA at B = 4,096 on each layout;
+  4y. the primal-dual deep route (compensated Condat-Vũ and the certified
+     reduced solves in torch; no kernel launches, by design): bench.py's
+     bench_pd_deep plants of 262,144 x 1,024 f32 rows with 16 jumps built
+     on the card, ``deep_solve_pd`` on the fused lasso (h = λ‖D·‖₁) and on
+     the three-term objective (g = λ₁‖·‖₁ as well) at chunk 4,096, 256 steps
+     a round, at most 8,192: each leg refined and certified, rel <= 1e-6
+     from the difference-form gap, the three-term leg's planted zeros
+     exactly zero; seconds split into the Condat-Vũ rounds and the
+     refinement, ms a step, and a profiled window of 64 steps (idle share,
+     device launches a step);
   11. times: kernel #7 per pass at the headline in turns with its plain
      version and kernel #6, its bound, the read ceiling and the two-gemv +
      value yardstick, and the same at the deep target's shape.
@@ -4583,6 +4597,187 @@ def run_sparse_full(dev, seed: int, card: str) -> dict:
     return out
 
 
+# 4y: the primal-dual deep route, bench.py's bench_pd_deep (:1131) at its
+# widths: fused lasso and three-term problems of 262,144 x 1,024 f32 rows
+# (1 GiB) with 16 jumps, x*, v*, u* and λ from the port's plants at a token
+# N, the design C and residual y drawn on the card from a torch.Generator
+# seeded from --seed (the port's own draws, not jax.random's: :1154-1167);
+# deep_solve_pd at bench.py's chunk of 4,096 rows, 256 steps a round and at
+# most 8,192 steps; a window of PD_PROFILE_STEPS compensated steps profiled
+PD_DEEP = dict(N=262_144, n=1_024, jumps=16, chunk=4_096, chunk_steps=256,
+               max_steps=8_192)
+PD_PROFILE_STEPS = 64
+PD_GROUPS = {"products": ("gemv", "gemm", "xmma", "cutlass", "dot_kernel",
+                          "splitK"),
+             "reductions": ("reduce_kernel",)}
+
+
+def pd_plant(dev, seed: int, x_star, corr):
+    """bench.py's device plant (:1154-1167): C ~ U(−1, 1) of (N, n) and y ~
+    N(0, I)/‖y‖ in f32 from ``seed``, c = corr − Cᵀy (exact f32), A = C +
+    y·cᵀ (formed in C's storage) and b = A·x* + y, so that Aᵀy = corr to
+    f32 rounding and r* = −y. Returns (A, b, y)."""
+    S = PD_DEEP
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.empty(S["N"], S["n"], device=dev).uniform_(-1.0, 1.0,
+                                                         generator=gen)
+    y = torch.randn(S["N"], generator=gen, device=dev)
+    y = y / torch.linalg.vector_norm(y)
+    c = torch.tensor(corr, dtype=torch.float32, device=dev) - y @ A
+    A += y[:, None] * c[None, :]
+    b = A @ torch.tensor(x_star, dtype=torch.float32, device=dev) + y
+    return A, b, y
+
+
+def quad_gap(A, y, d64, chunk: int) -> float:
+    """½‖u‖² − ⟨u, y⟩ with u = A·d, d = z − x* (host f64) in double-single
+    halves: the smooth part's gap f(z) − f(x*) in difference form against
+    r* = −y, free of cancellation, chunk sums added with a two-sum carry
+    (bench.py:1190-1207)."""
+    import numpy as np
+
+    from ciao_tpu_torch.ops.fused_block import _two_sum
+
+    d_hi = np.asarray(d64, np.float32)
+    d_lo = np.asarray(d64 - d_hi.astype(np.float64), np.float32)
+    d_hi = torch.from_numpy(d_hi).to(A.device)
+    d_lo = torch.from_numpy(d_lo).to(A.device)
+    hi = torch.zeros((), device=A.device)
+    lo = torch.zeros((), device=A.device)
+    for start in range(0, A.shape[0], chunk):
+        A_B = A.narrow(0, start, chunk)
+        u = A_B @ d_hi + A_B @ d_lo
+        p = torch.sum(0.5 * u * u - u * y.narrow(0, start, chunk))
+        hi, lo = _two_sum(hi, lo, p)
+    return float(hi + lo)
+
+
+def run_pd_leg(dev, seed: int, three: bool, card: str) -> dict:
+    """One leg of 4y: the plant on the card, deep_solve_pd on it with its
+    seconds split into the Condat-Vũ rounds and the refinement (each timed
+    by wrapping the module's function, with a synchronize either side), rel
+    from quad_gap as bench.py:1205-1212 and :1246-1254 compute it, and a
+    profiled window of PD_PROFILE_STEPS compensated steps (ms a step, idle
+    share, device events a step)."""
+    import numpy as np
+
+    from ciao_tpu_torch import (
+        CondatVu, FirstDifference, LeastSquaresRows, deep_solve_pd,
+    )
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers import deep_pd
+    from ciao_tpu_torch.utils import (
+        make_fused_lasso_planted, make_three_term_planted,
+    )
+
+    S = PD_DEEP
+    N_, n_ = S["N"], S["n"]
+    make = make_three_term_planted if three else make_fused_lasso_planted
+    pp = make(N=8, n=n_, jumps=S["jumps"], seed=0)
+    Dt_v = np.zeros(n_)
+    Dt_v[:-1] -= pp.v_star
+    Dt_v[1:] += pp.v_star
+    corr = pp.u_star + Dt_v if three else Dt_v
+    t0 = time.perf_counter()
+    A, b, y = pd_plant(dev, seed + int(three), pp.x_star, corr)
+    torch.cuda.synchronize()
+    plant_s = time.perf_counter() - t0
+    F = LeastSquaresRows(A, b, float(N_))
+    lam = torch.tensor(pp.lam2 if three else pp.lam, device=dev)
+    g = NormL1(torch.tensor(pp.lam1, device=dev)) if three else None
+    h, K = NormL1(lam), FirstDifference()
+
+    spent = dict(cv=0.0, refine=0.0, rounds=0, refines=0)
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t1
+            spent["rounds" if key == "cv" else "refines"] += 1
+            return out
+        return run
+
+    wrapped = {"pd_run_compensated": "cv", "tv_refine": "refine",
+               "tv_refine3": "refine"}
+    saved = {name: getattr(deep_pd, name) for name in wrapped}
+    for name, key in wrapped.items():
+        setattr(deep_pd, name, timed(key, saved[name]))
+    try:
+        t0 = time.perf_counter()
+        x, info = deep_solve_pd(
+            torch.zeros(n_, device=dev), F, g=g, h=h, K=K, N=N_,
+            chunk=S["chunk"], chunk_steps=S["chunk_steps"],
+            max_steps=S["max_steps"], seed=seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(deep_pd, name, fn)
+    if x.device != A.device:
+        raise AssertionError(f"deep_solve_pd came back on {x.device}, not "
+                             f"on the rows' {A.device}")
+
+    x64 = x.double().cpu().numpy()
+    gap = quad_gap(A, y, x64 - pp.x_star, S["chunk"])
+    tv = np.sum(np.abs(np.diff(x64))) - np.sum(np.abs(np.diff(pp.x_star)))
+    if three:
+        ns = (pp.lam1 * (np.sum(np.abs(x64)) - np.sum(np.abs(pp.x_star)))
+              + pp.lam2 * tv)
+        f_star = (0.5 + pp.lam1 * np.sum(np.abs(pp.x_star))
+                  + pp.lam2 * np.sum(np.abs(np.diff(pp.x_star))))
+    else:
+        ns = pp.lam * tv
+        f_star = 0.5 + pp.lam * np.sum(np.abs(np.diff(pp.x_star)))
+    rel = (gap + ns) / f_star
+    jumps_ok = bool(np.array_equal(np.nonzero(np.diff(x64))[0],
+                                   np.nonzero(np.diff(pp.x_star))[0]))
+    zeros = bool(np.all(x64[pp.x_star == 0] == 0.0)) if three else None
+    tag = "three-term" if three else "fused lasso"
+
+    # the profiled window: PD_PROFILE_STEPS compensated steps from x
+    facade = CondatVu(tau=info.tau, sigma=info.sigma, device=dev)
+    _, Fp, gp, hp, Kp, cfg, init = facade._setup(x, F, g, h, K, None, N_)
+    st = init()
+    c = deep_pd._chunk_of(N_, S["chunk"])
+    prof = profile_steps(
+        f"compensated Condat-Vu {tag}, N={N_} n={n_} chunk={c}",
+        lambda: deep_pd.pd_run_compensated(Fp, gp, hp, Kp, st, cfg,
+                                           PD_PROFILE_STEPS, c),
+        PD_PROFILE_STEPS, card, PD_GROUPS)
+    per_step = sum(prof["calls"].values()) / PD_PROFILE_STEPS
+    out = dict(rel=rel, certified=info.certified, refined=info.refined,
+               steps=info.steps, s=secs, cv_s=spent["cv"],
+               refine_s=spent["refine"],
+               ms=spent["cv"] * 1e3 / max(info.steps, 1),
+               idle=1.0 - prof["busy"] / prof["step"], launches=per_step,
+               zeros=zeros)
+    log(f"  pd deep {tag} {N_} x {n_}: rel {rel:.3e}, refined "
+        f"{info.refined}, certified {info.certified}, {info.steps} Condat-Vu "
+        f"steps in {spent['rounds']} rounds, jump set recovered {jumps_ok}"
+        + ("" if zeros is None else f", planted zeros exact {zeros}")
+        + f"; {secs:.3f} s in all: Condat-Vu {spent['cv']:.3f} s "
+        f"({out['ms']:.4f} ms/step), refine {spent['refine']:.3f} s "
+        f"({spent['refines']} call(s)), the rest (power bound, setup) "
+        f"{secs - spent['cv'] - spent['refine']:.3f} s; λ̂ "
+        f"{info.lam_hat:.6e}, τ {info.tau:.6e}; plant built in {plant_s:.2f} "
+        f"s; profiled window {prof['step']:.4f} ms/step, idle "
+        f"{out['idle']:.3f}, {per_step:.1f} device launches a step "
+        f"({ {k: v for k, v in prof['calls'].items()} }) [{card}]")
+    if not (info.refined and info.certified):
+        raise AssertionError(f"pd deep {tag}: refined {info.refined}, "
+                             f"certified {info.certified}")
+    if not (math.isfinite(rel) and abs(rel) <= DEEP_REL):
+        raise AssertionError(f"pd deep {tag}: rel {rel}")
+    if three and not zeros:
+        raise AssertionError("pd deep three-term: a planted zero is not "
+                             "exactly zero")
+    del A, b, y, F
+    return out
+
+
 def time_value_apply(gen, dev, storage: str, card: str,
                      ceil: float) -> dict:
     """11: kernel #7 per pass at the headline (least squares, scale N), in
@@ -5362,6 +5557,29 @@ def main() -> int:
         + f"; seconds (a) {sp['a_s']:.2f}, (b) {spf['s']:.2f}, (c) "
         f"{sp['c_s']:.2f}, (d) {sp['d_s']:.2f}, all "
         f"{time.perf_counter() - t0:.2f} [{card}]")
+
+    # 4y. the primal-dual deep route (no kernel by design), counts from 0
+    t0 = time.perf_counter()
+    reset_counts()
+    pd = {}
+    for leg in ("fused lasso", "three-term"):
+        pd[leg] = run_pd_leg(dev, args.seed, leg == "three-term", card)
+        torch.cuda.empty_cache()
+    c = counts()
+    if sum(c.values()):
+        raise AssertionError(f"the primal-dual deep route launched kernels: "
+                             f"{c}")
+    log(f"phase 4y primal-dual deep route: ok, none of the {len(c)} kernels "
+        f"launched; at {PD_DEEP['N']} x {PD_DEEP['n']}, " + "; ".join(
+            f"{k}: rel {v['rel']:.3e}, refined {v['refined']}, certified "
+            f"{v['certified']}, {v['steps']} steps, {v['s']:.3f} s "
+            f"(Condat-Vu {v['cv_s']:.3f} s, refine {v['refine_s']:.3f} s), "
+            f"{v['ms']:.4f} ms/step, idle {v['idle']:.3f}, "
+            f"{v['launches']:.1f} launches/step"
+            + ("" if v["zeros"] is None else
+               f", planted zeros exact {v['zeros']}")
+            for k, v in pd.items())
+        + f"; all {time.perf_counter() - t0:.2f} s [{card}]")
 
     # 11. kernel #7 per pass in turns with its plain version and kernel #6
     t11 = {s_: time_value_apply(gen, dev, s_, card, ceil)

@@ -41,7 +41,10 @@ sparse rows ``SparseLeastSquaresELL``, ``HybridSparseLeastSquares``,
 ``SparseLogisticELL`` and ``HybridSparseLogistic`` with
 ``make_sparse_lasso_ell`` and ``deep_solve``'s block-protocol polish
 (gathers and scatter-adds in PyTorch: no kernel serves them, as none
-does in the JAX package). The rest is queued in ROADMAP.md. Imports
+does in the JAX package); the primal-dual deep route ``deep_solve_pd``
+with ``tv_refine`` and ``tv_refine3`` (compensated Condat-Vũ and the
+certified reduced solves, PyTorch products with no kernel, as in the
+JAX package). The rest is queued in ROADMAP.md. Imports
 torch and numpy, never jax. Entry points run on the card unless the
 caller names the CPU (a CPU tensor or ``device="cpu"``).
 """
@@ -63,13 +66,13 @@ from ciao_tpu_torch.prox import (
 )
 from ciao_tpu_torch.solvers import (
     FISTA, LSVRG, PANOC, SAG, SAGA, SARAH, SSNM, SVRG, ChambollePock,
-    CondatVu, DavisYin, DeepSharingInfo, DeepSolveInfo, DouglasRachford,
-    Finito, ForwardBackward, Katyusha, LKatyusha, PointSAGA, Proshi,
-    StagedInfo, ZeroFPR,
-    deep_solve, deep_solve_sharing,
+    CondatVu, DavisYin, DeepPDInfo, DeepSharingInfo, DeepSolveInfo,
+    DouglasRachford, Finito, ForwardBackward, Katyusha, LKatyusha, PointSAGA,
+    Proshi, StagedInfo, ZeroFPR,
+    deep_solve, deep_solve_pd, deep_solve_sharing,
     fista_polish, grad_mean_chunked, halt, iterator, loop, lsq_power_lmax,
     power_lmax, proshi_resync, sharing_objective, solution, staged_saga,
-    take,
+    take, tv_refine, tv_refine3,
 )
 from ciao_tpu_torch.solvers.base import Status
 
@@ -143,6 +146,10 @@ __all__ = [
     "DeepSolveInfo",
     "deep_solve_sharing",
     "DeepSharingInfo",
+    "deep_solve_pd",
+    "DeepPDInfo",
+    "tv_refine",
+    "tv_refine3",
     "proshi_resync",
     "sharing_objective",
     "staged_saga",

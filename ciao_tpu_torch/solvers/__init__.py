@@ -2,13 +2,16 @@
 and adaptive Finito, ProShI, Katyusha, SARAH, L-SVRG and L-Katyusha,
 SSNM, Point-SAGA, forward-backward and FISTA, PANOC and ZeroFPR,
 Davis-Yin and Douglas-Rachford, Condat-Vũ and Chambolle-Pock, the staged
-schedule, the polish, ``deep_solve`` and ``deep_solve_sharing``) and the
-iteration tools."""
+schedule, the polish, ``deep_solve``, ``deep_solve_sharing`` and
+``deep_solve_pd``) and the iteration tools."""
 
 from ciao_tpu_torch.solvers.base import (
     SolverIterable, Status, halt, loop, run_solver_loop, solution, take,
 )
 from ciao_tpu_torch.solvers.deep import DeepSolveInfo, deep_solve
+from ciao_tpu_torch.solvers.deep_pd import (
+    DeepPDInfo, deep_solve_pd, tv_refine, tv_refine3,
+)
 from ciao_tpu_torch.solvers.deep_sharing import (
     DeepSharingInfo, deep_solve_sharing,
 )
@@ -92,7 +95,8 @@ __all__ = [
     "lsq_power_lmax", "grad_mean_chunked_blocks", "grad_sum_chunked_blocks",
     "power_lmax_weighted", "power_lmax_quadratic", "Proshi", "ProshiCfg", "ProshiState", "proshi_init",
     "proshi_run", "proshi_step", "proshi_resync", "sharing_objective",
-    "DeepSharingInfo", "deep_solve_sharing", "Katyusha", "KatyushaCfg",
+    "DeepSharingInfo", "deep_solve_sharing", "DeepPDInfo", "deep_solve_pd",
+    "tv_refine", "tv_refine3", "Katyusha", "KatyushaCfg",
     "KatyushaState", "katyusha_init", "katyusha_run", "katyusha_step",
     "SARAH", "SARAHCfg", "SARAHState", "sarah_init", "sarah_run",
     "sarah_step", "LSVRG", "LSVRGCfg", "LSVRGState", "lsvrg_init",

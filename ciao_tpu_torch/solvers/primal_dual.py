@@ -15,7 +15,8 @@ largest τ with a 0.99 margin, L_f = mean(L) and ‖K‖ from the map's
 ``opnorm_bound``. The only O(N) work is the full gradient: on the card
 one pass of kernel #6 (``solvers.fb.full_gradient``). Not ported yet:
 complex iterates (the facade refuses them), the DP/TP variants and the
-checkpoints (ROADMAP.md, queue 1 items 3, 17 and 18).
+checkpoints (ROADMAP.md, queue 1 items 3, 17 and 18). The deep route of
+this class is ``solvers.deep_pd``.
 """
 
 from __future__ import annotations
@@ -71,9 +72,16 @@ def pd_init(F, g, h, K, x0, tau, sigma, cfg: PDCfg) -> PDState:
                    status=int(Status.RUNNING))
 
 
-def _pd_step(F, g, h, K, cfg: PDCfg, state: PDState) -> PDState:
+def _pd_step(F, g, h, K, cfg: PDCfg, state: PDState,
+             grad_fn=None) -> PDState:
+    """One Condat-Vũ step. ``grad_fn(x)``, when given, takes the place of
+    the full gradient (the deep route's compensated chunked mean)."""
     tau, sigma = state.tau, state.sigma
-    grad = full_gradient(F, cfg.N, state.x, cfg.fused, cfg.fused_precision)
+    if grad_fn is None:
+        grad = full_gradient(F, cfg.N, state.x, cfg.fused,
+                             cfg.fused_precision)
+    else:
+        grad = grad_fn(state.x)
     x_new = g.prox_only(state.x - tau * (grad + K.rmatvec(state.y)), tau)
     u = state.y + sigma * K.matvec(2.0 * x_new - state.x)
     y_new = prox_conjugate(h, u, sigma)

@@ -1,8 +1,9 @@
 """Synthetic problems with planted optima (numpy only).
 
 A copy of ``LassoProblem``/``make_lasso``, of ``LogisticProblem``/
-``make_logistic_l1`` and of the sharing problems
-``make_sharing``/``make_sharing_planted`` from
+``make_logistic_l1``, of the sharing problems
+``make_sharing``/``make_sharing_planted`` and of the primal-dual plants
+``make_fused_lasso_planted``/``make_three_term_planted`` from
 ``ciao_tpu/utils/problems.py``: importing that module runs
 ``ciao_tpu/__init__`` and so imports JAX, which the port must not. The
 construction is the same numpy code, so both packages draw bit-identical
@@ -371,3 +372,151 @@ def make_sparse_lasso_ell(N=4096, n=4096, *, hot=256, k_hot=12, k_cold=4,
     f_star = 0.5 * float(y64 @ y64) + lam * float(xs64.abs().sum())
     return SparseLassoProblem(ell=ell, hybrid=hybrid, lam=float(lam),
                               x_star=xs, f_star=f_star, L=L)
+
+
+class PlantedFusedLassoProblem(NamedTuple):
+    """Any-scale fused lasso (1-D analysis sparsity) with a CLOSED-FORM
+    exact optimum — the deep-accuracy instance for the primal-dual
+    class (Condat-Vũ / Chambolle-Pock), which the prox-of-g-only
+    reference cannot express at all."""
+
+    A: np.ndarray        # (N, n) design, f64
+    b: np.ndarray        # (N,)
+    lam: float           # h = lam * ||.||_1 on Dx (D = FirstDifference)
+    x_star: np.ndarray   # (n,) exact optimum (piecewise constant)
+    v_star: np.ndarray   # (n-1,) optimal dual, |v| <= lam, interior off-jump
+    f_star: float        # exact optimal value
+    L: np.ndarray        # (N,) per-row moduli x N (the library convention)
+
+    def cost(self, x) -> float:
+        """½‖Ax − b‖² + λ‖Dx‖₁ in f64 (the un-normalized quadratic —
+        same convention as :class:`LassoProblem`)."""
+        x = np.asarray(x, np.float64)
+        r = self.A @ x - self.b
+        return float(0.5 * np.dot(r, r) + self.lam * np.sum(np.abs(np.diff(x))))
+
+
+def make_fused_lasso_planted(N=4096, n=256, jumps=None, lam=1.0, rho=5.0,
+                             seed=0):
+    """Plant the EXACT optimum of  ½‖Ax−b‖² + λ‖Dx‖₁  ((Dx)_i =
+    x_{i+1}−x_i) at ANY (N, n) scale via a RANK-ONE dual correction.
+
+    Stationarity needs  Aᵀ(Ax*−b) + Dᵀv = 0  with v ∈ λ∂‖Dx*‖₁. Draw a
+    unit residual y*, set b = Ax* + y* so the condition becomes
+    Aᵀy* = Dᵀv, and ENFORCE it exactly with a rank-1 update of a raw
+    unit-uniform design C:
+
+        A = C + y*·cᵀ,   c = Dᵀv − Cᵀy*       (‖y*‖ = 1)
+
+    — unlike the column-rescaling trick of :func:`make_lasso` (which
+    here would divide by near-zero entries of Dᵀv and destroy the
+    conditioning), the rank-1 correction perturbs each column by O(1)
+    against the O(√N) column norms, so κ(AᵀA) stays that of a random
+    design. x* is piecewise constant with ``jumps`` sign-alternating
+    levels; v takes λ·sign at the jumps and strictly interior values
+    (≤ 0.6λ) on the flat runs, so the optimum is unique and the jump
+    set is stable. Everything is computed and returned in f64;
+    f* = ½ + λ‖Dx*‖₁ exactly (‖y*‖ = 1)."""
+    if jumps is None:
+        jumps = max(2, n // 32)
+    assert 2 <= jumps + 1 <= n
+    rng = np.random.default_rng(seed)
+
+    # piecewise-constant x*: jumps+1 sign-alternating levels
+    bounds = np.sort(rng.choice(np.arange(1, n), size=jumps, replace=False))
+    levels = rho * (0.5 + rng.random(jumps + 1)) * \
+        (-1.0) ** np.arange(jumps + 1)
+    x_star = np.repeat(levels, np.diff(np.concatenate(([0], bounds, [n]))))
+
+    d = np.diff(x_star)
+    v = rng.uniform(-0.6, 0.6, n - 1) * lam      # interior on flat runs
+    jump_mask = d != 0
+    v[jump_mask] = lam * np.sign(d[jump_mask])
+
+    Dt_v = np.zeros(n)
+    Dt_v[:-1] -= v
+    Dt_v[1:] += v
+
+    y = rng.standard_normal(N)
+    y /= np.linalg.norm(y)
+    C = rng.uniform(-1.0, 1.0, (N, n))
+    A = C + np.outer(y, Dt_v - C.T @ y)          # Aᵀy* = Dᵀv exactly
+    b = A @ x_star + y
+
+    f_star = 0.5 + lam * float(np.sum(np.abs(d)))
+    L = np.sum(A * A, axis=1) * N                # row moduli x N
+    return PlantedFusedLassoProblem(
+        A=A, b=b, lam=float(lam), x_star=x_star, v_star=v,
+        f_star=f_star, L=L,
+    )
+
+
+class PlantedThreeTermProblem(NamedTuple):
+    """Any-scale THREE-TERM fused lasso with a closed-form optimum:
+    ½‖Ax−b‖² + λ₁‖x‖₁ + λ₂‖Dx‖₁ (sparse AND piecewise-constant)."""
+
+    A: np.ndarray
+    b: np.ndarray
+    lam1: float          # ℓ1 weight on x
+    lam2: float          # ℓ1 weight on Dx
+    x_star: np.ndarray   # piecewise constant WITH exact-zero segments
+    u_star: np.ndarray   # (n,) ℓ1 dual, |u| ≤ λ₁, interior on zeros
+    v_star: np.ndarray   # (n-1,) TV dual, |v| ≤ λ₂, interior off-jump
+    f_star: float
+    L: np.ndarray
+
+    def cost(self, x) -> float:
+        x = np.asarray(x, np.float64)
+        r = self.A @ x - self.b
+        return float(0.5 * np.dot(r, r) + self.lam1 * np.sum(np.abs(x))
+                     + self.lam2 * np.sum(np.abs(np.diff(x))))
+
+
+def make_three_term_planted(N=4096, n=256, jumps=None, lam1=0.5, lam2=1.0,
+                            rho=5.0, seed=0):
+    """Plant the exact optimum of the THREE-TERM objective by the same
+    rank-1 dual correction as :func:`make_fused_lasso_planted`, with
+    TWO multipliers: stationarity needs ``Aᵀy* = u + Dᵀv`` where
+    u ∈ λ₁∂‖x*‖₁ (λ₁·sign on the support, interior ≤ 0.6λ₁ on the
+    zero segments) and v ∈ λ₂∂‖Dx*‖₁ (λ₂·sign at jumps, interior
+    ≤ 0.6λ₂ on flat runs). Every third segment is pinned EXACTLY zero
+    so both structures are non-trivial. Everything f64;
+    f* = ½ + λ₁‖x*‖₁ + λ₂‖Dx*‖₁ exactly."""
+    if jumps is None:
+        jumps = max(3, n // 32)
+    assert 3 <= jumps + 1 <= n
+    rng = np.random.default_rng(seed)
+
+    bounds = np.sort(rng.choice(np.arange(1, n), size=jumps, replace=False))
+    widths = np.diff(np.concatenate(([0], bounds, [n])))
+    levels = rho * (0.5 + rng.random(jumps + 1)) * \
+        (-1.0) ** np.arange(jumps + 1)
+    levels[::3] = 0.0                       # exact-zero segments
+    # a zero level between same-sign neighbors still jumps; but two
+    # ADJACENT zeros would merge — the ::3 pattern never does that
+    x_star = np.repeat(levels, widths)
+
+    d = np.diff(x_star)
+    v = rng.uniform(-0.6, 0.6, n - 1) * lam2
+    jm = d != 0
+    v[jm] = lam2 * np.sign(d[jm])
+    u = np.where(x_star != 0, lam1 * np.sign(x_star),
+                 rng.uniform(-0.6, 0.6, n) * lam1)
+
+    Dt_v = np.zeros(n)
+    Dt_v[:-1] -= v
+    Dt_v[1:] += v
+
+    y = rng.standard_normal(N)
+    y /= np.linalg.norm(y)
+    C = rng.uniform(-1.0, 1.0, (N, n))
+    A = C + np.outer(y, u + Dt_v - C.T @ y)   # Aᵀy* = u + Dᵀv exactly
+    b = A @ x_star + y
+
+    f_star = (0.5 + lam1 * float(np.sum(np.abs(x_star)))
+              + lam2 * float(np.sum(np.abs(d))))
+    L = np.sum(A * A, axis=1) * N
+    return PlantedThreeTermProblem(
+        A=A, b=b, lam1=float(lam1), lam2=float(lam2), x_star=x_star,
+        u_star=u, v_star=v, f_star=f_star, L=L,
+    )

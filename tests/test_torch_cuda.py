@@ -16,7 +16,9 @@ the kernels of the persistent engine (#3, #4, #5, #8, #9, #10, #11, #12,
 on one, SSNM's and Point-SAGA's on hand-made block revisits, the facades'
 routing to them, and the polish's exact-f32 check; and the sparse rows,
 which no kernel serves: their protocols on the card against the CPU, and
-the SAGA facade on them launching no kernel.
+the SAGA facade on them launching no kernel; and the primal-dual deep
+route, which no kernel serves either: ``deep_solve_pd`` on the card by
+default and certified there, and its refinements repeating bit for bit.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -3149,3 +3151,62 @@ def test_sparse_saga_facade_on_the_card_launches_no_kernel(dev):
     finally:
         runtime.reset_fallback_warnings()
     assert [f.launches for f in wrappers] == before
+
+
+def _fused_lasso(dev, N=8_192, n=256, seed=0):
+    """tests/test_deep_pd.py:67's planted fused lasso, f32 rows on ``dev``."""
+    from ciao_tpu_torch.utils import make_fused_lasso_planted
+
+    p = make_fused_lasso_planted(N=N, n=n, jumps=8, seed=seed)
+    F = LeastSquaresRows(torch.tensor(p.A, dtype=torch.float32, device=dev),
+                         torch.tensor(p.b, dtype=torch.float32, device=dev),
+                         float(N))
+    return p, F
+
+
+def test_deep_solve_pd_defaults_to_the_card_and_certifies(dev):
+    """``deep_solve_pd`` with an x0 that is no tensor and rows built on the
+    CPU runs on the card; the planted fused lasso certifies there with rel
+    ≤ 1e-8 against the exact f64 optimum, flat runs exact, and no kernel
+    wrapper launches (the route has no kernel)."""
+    import numpy as np
+
+    from ciao_tpu_torch import FirstDifference, NormL1, deep_solve_pd
+
+    p, F = _fused_lasso(torch.device("cpu"))
+    wrappers = [f for f in vars(tfb).values()
+                if callable(f) and hasattr(f, "launches")]
+    before = [f.launches for f in wrappers]
+    x, info = deep_solve_pd(np.zeros(256, np.float32), F,
+                            h=NormL1(torch.tensor(p.lam)),
+                            K=FirstDifference(), N=8_192, chunk=1_024,
+                            chunk_steps=512, max_steps=32_768)
+    assert x.device.type == "cuda" and F.A.device.type == "cuda"
+    assert info.refined and info.certified
+    xn = x.double().cpu().numpy()
+    rel = (p.cost(xn) - p.f_star) / abs(p.f_star)
+    assert 0 <= rel <= 1e-8
+    true_J = np.abs(np.diff(p.x_star)) > 0
+    assert np.all(np.diff(xn)[~true_J] == 0.0)
+    assert [f.launches for f in wrappers] == before
+
+
+def test_refinements_repeat_bit_for_bit_on_the_card(dev):
+    """``tv_refine`` and ``tv_refine3`` run twice on one iterate give the
+    same bits: A·S is a product against the one-hot indicator, with no
+    scatter-add, so the certificate repeats."""
+    import numpy as np
+
+    from ciao_tpu_torch import tv_refine, tv_refine3
+
+    p, F = _fused_lasso(dev, N=4_096, n=128)
+    rng = np.random.default_rng(11)
+    x = torch.tensor(p.x_star + 1e-6 * rng.standard_normal(128),
+                     dtype=torch.float32, device=dev)
+    (x1, c1, v1), (x2, c2, v2) = (tv_refine(F, x, p.lam, chunk=1_024)
+                                  for _ in range(2))
+    assert c1 and c1 == c2 and x1.device.type == "cuda"
+    assert torch.equal(x1, x2) and np.array_equal(v1, v2)
+    (y1, d1), (y2, d2) = (tv_refine3(F, x, 0.0, p.lam, chunk=1_024)
+                          for _ in range(2))
+    assert d1 and d1 == d2 and torch.equal(y1, y2)

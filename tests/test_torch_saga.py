@@ -361,7 +361,7 @@ def test_port_imports_no_jax():
         "import ciao_tpu_torch.solvers.polish, ciao_tpu_torch.solvers.staged",
         "import ciao_tpu_torch.utils.problems, ciao_tpu_torch.solvers.proshi",
         "import ciao_tpu_torch.solvers.deep_sharing, ciao_tpu_torch.oracles",
-        "import ciao_tpu_torch.oracles.sparse",
+        "import ciao_tpu_torch.oracles.sparse, ciao_tpu_torch.solvers.deep_pd",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ciao_tpu'))",
         "assert not bad, bad",
@@ -382,7 +382,8 @@ def test_package_surface():
                  "Proshi", "deep_solve_sharing", "DeepSharingInfo",
                  "iterator", "IndBox", "DiagQuadratic", "DenseQuadratic",
                  "SqrDistBox", "SumOracle", "ZeroOracle", "proshi_resync",
-                 "sharing_objective"):
+                 "sharing_objective", "deep_solve_pd", "DeepPDInfo",
+                 "tv_refine", "tv_refine3"):
         assert hasattr(ct, name), name
     assert Zero().prox_only(torch.ones(2), 0.1).tolist() == [1.0, 1.0]
 
