@@ -245,6 +245,20 @@ Phases, one line each:
      exactly zero; seconds split into the Condat-Vũ rounds and the
      refinement, ms a step, and a profiled window of 64 steps (idle share,
      device launches a step);
+  4z. complex rows and iterates (PyTorch ops; no kernel launches, by
+     design, as the JAX package sends a complex iterate past every kernel
+     gate): a planted complex64 Lasso of 262,144 x 1,024 rows (2 GiB) built
+     on the card (make_lasso's KKT recipe with complex C and y, checked),
+     whether TF32 touches complex64 products, FISTA at the spectral step
+     to rel 1e-3 (steps, seconds), a short run of SAGA, SVRG, Finito,
+     Katyusha, SARAH, L-SVRG, Point-SAGA, PANOC and Condat-Vũ through
+     their facades, each cost falling, with ms a step, device launches a
+     step, the idle share of a profiled window and the bound of the rows a
+     step reads; one SAGA and one Point-SAGA step held to the same step
+     recomputed in complex128 on the drawn block, closer than 1 % of how
+     far it moves without the conjugates; CustomOracle's Welsch loss
+     through SARAH and PANOC at tests/test_nonconvex.py's 256 x 16 and
+     bars, and Precompose of a scalar logistic loss == LogisticRows;
   11. times: kernel #7 per pass at the headline in turns with its plain
      version and kernel #6, its bound, the read ceiling and the two-gemv +
      value yardstick, and the same at the deep target's shape.
@@ -4778,6 +4792,454 @@ def run_pd_leg(dev, seed: int, three: bool, card: str) -> dict:
     return out
 
 
+# 4z: complex rows and iterates (no kernel by design: the JAX package sends
+# a complex iterate past every kernel gate, with no fallback warning): a
+# planted complex64 Lasso of the headline's 262,144 x 1,024 (2 GiB of rows)
+# built on the card from a torch.Generator seeded from --seed; FISTA to rel
+# 1e-3 at the spectral step; a short run of each family through its
+# facade's iterator (COMPLEX_RUNS: facade steps), a profiled window each,
+# and one step of SAGA and of Point-SAGA held to complex128 on the drawn
+# block; then CustomOracle and Precompose on the card (WELSCH, PRECOMPOSE)
+COMPLEX = dict(N=262_144, n=1_024, p=16, B=4_096, lam=1.0, rho=10.0,
+               power_iters=30, chunk=8, max_chunks=64, rel=1e-3)
+COMPLEX_RUNS = dict(saga=64, svrg=1, finito=64, katyusha=1, sarah=1,
+                    lsvrg=64, point_saga=64, panoc=4, condat_vu=16)
+COMPLEX_TV = 0.05  # Condat-Vũ's h = 0.05‖D·‖₁, as 4w
+WELSCH = dict(N=256, n=16, frac=0.2, sigma=1.0)  # tests/test_nonconvex.py
+PRECOMPOSE = dict(N=4_096, n=64)
+
+
+def c_adjoint(A, u):
+    """Aᴴu = Σ_i conj(a_i)·u_i in one read of A."""
+    return torch.conj_physical(u.conj() @ A)
+
+
+def complex_plant(dev, seed: int) -> dict:
+    """make_lasso's KKT recipe (well-conditioned) with complex draws on the
+    card: y a complex Gaussian unit vector, C with real and imaginary
+    parts U(−1, 1), column scales α_j = min(λ/|C_jᴴy|, the largest
+    on-support scale) so that |A_jᴴy| = λ on the p columns of largest
+    |C_jᴴy| and ≤ λ off them, x*_j = u_j·ρ/√p along the phase of A_jᴴy,
+    b = Ax* + y. Then r* = −y and Aᴴy ∈ λ∂‖x*‖₁: x* is optimal, f* =
+    cost(x*) exact up to complex64 rounding. Checks the KKT conditions and
+    that the rows and x* are truly complex."""
+    S = COMPLEX
+    N_, n_, p_, lam = S["N"], S["n"], S["p"], S["lam"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(N_, dtype=torch.complex64, generator=gen, device=dev)
+    y = y / torch.linalg.vector_norm(y)
+    A = torch.empty(N_, n_, dtype=torch.complex64, device=dev)
+    torch.view_as_real(A).uniform_(-1.0, 1.0, generator=gen)
+    cty = c_adjoint(A, y)
+    mag = cty.abs()
+    order = torch.argsort(mag, descending=True)
+    sup = order[:p_]
+    alpha = torch.clamp(lam / mag, max=float(lam / mag[order[p_ - 1]]))
+    A.mul_(alpha)
+    u = torch.rand(p_, generator=gen, device=dev)
+    x = torch.zeros(n_, dtype=torch.complex64, device=dev)
+    x[sup] = (u * (S["rho"] / math.sqrt(p_))) * (cty[sup] / mag[sup])
+    b = A @ x + y
+    L = N_ * torch.linalg.vector_norm(A, dim=1) ** 2
+    P = dict(A=A, b=b, x=x, L=L, lam=lam, sup=sup)
+    P["f_star"] = complex_cost(P, x)
+    d = c_adjoint(A, y)
+    on = float((d[sup] - lam * x[sup] / x[sup].abs()).abs().max())
+    off = torch.ones(n_, dtype=torch.bool, device=dev)
+    off[sup] = False
+    off_max = float(d[off].abs().max())
+    imag = float(A.imag.abs().max()), float(x[sup].imag.abs().max())
+    if not (on <= 1e-3 * lam and off_max <= lam * (1 + 1e-3)
+            and min(imag) > 0.01):
+        raise AssertionError(f"complex plant: KKT on the support off by {on},"
+                             f" off-support max {off_max}, largest imaginary "
+                             f"parts {imag}")
+    P["kkt"] = (on, off_max)
+    return P
+
+
+def complex_cost(P, x, lam=None, tv: float = 0.0) -> float:
+    """½‖Ax − b‖² + λ‖x‖₁ (+ tv·‖Dx‖₁) with the product in complex64 and the
+    sums in f64; ``lam`` defaults to the plant's."""
+    r = P["A"] @ x - P["b"]
+    lam = P["lam"] if lam is None else lam
+    xd = x.to(torch.complex128)
+    return (0.5 * float(torch.sum(r.real.double() ** 2
+                                  + r.imag.double() ** 2))
+            + lam * float(xd.abs().sum())
+            + tv * float((xd[1:] - xd[:-1]).abs().sum()))
+
+
+def complex_power(P, dev, seed: int) -> float:
+    """λ̂ of AᴴA by COMPLEX['power_iters'] power steps (two reads of A each)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    v = torch.randn(P["A"].shape[1], dtype=torch.complex64, generator=gen,
+                    device=dev)
+    v = v / torch.linalg.vector_norm(v)
+    lam_hat = 0.0
+    for _ in range(COMPLEX["power_iters"]):
+        w = c_adjoint(P["A"], P["A"] @ v)
+        lam_hat = float(torch.linalg.vector_norm(w))
+        v = w / lam_hat
+    return lam_hat
+
+
+def complex_tf32(P) -> dict:
+    """Whether TF32 changes complex64 products on this card: an (8,192 x
+    1,024) x (1,024 x 8) complex64 product with allow_tf32 off and on,
+    against the complex128 product; and whether the plain paths' check
+    (``runtime.require_exact_f32_matmul``) refuses TF32 whatever the
+    dtype. The flag is restored."""
+    from ciao_tpu_torch import runtime
+
+    A = P["A"][:8_192]
+    V = P["A"][:A.shape[1], :8].clone()
+    exact = (A.to(torch.complex128) @ V.to(torch.complex128))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            got = (A @ V).to(torch.complex128)
+            out[flag] = float((got - exact).abs().max()
+                              / exact.abs().max())
+        try:
+            runtime.require_exact_f32_matmul(A.device, "4z")
+            refused = False
+        except RuntimeError:
+            refused = True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    runtime.require_exact_f32_matmul(A.device, "4z")
+    if not refused:
+        raise AssertionError("require_exact_f32_matmul let TF32 through")
+    return dict(off=out[False], on=out[True], refused=refused)
+
+
+def complex_oracle(P):
+    """The plant's rows as the port's oracle, scale N (the objective is
+    ½‖Ax − b‖² + λ‖x‖₁)."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    return LeastSquaresRows(P["A"], P["b"], float(COMPLEX["N"]))
+
+
+def complex_fista(P, gamma: float, card: str) -> dict:
+    """The FISTA facade at γ = ``gamma`` from x = 0, in chunks of
+    COMPLEX['chunk'] steps until rel = (cost − f*)/f* ≤ COMPLEX['rel']:
+    seconds (steps only, by the host clock, after a warm-up chunk), steps
+    (one gradient each: two reads of A on the stepwise path) and rel."""
+    from ciao_tpu_torch import FISTA
+    from ciao_tpu_torch.prox import NormL1
+
+    S = COMPLEX
+    dev = P["A"].device
+    F = complex_oracle(P)
+    g = NormL1(torch.tensor(S["lam"], device=dev))
+    it = FISTA(gamma=gamma).iterator(
+        torch.zeros(S["n"], dtype=torch.complex64, device=dev), F=F, g=g,
+        N=S["N"])
+    st = next(iter(it))
+    step = it._step_fn
+    warm = st
+    for _ in range(S["chunk"]):  # the first products' one-time set-up
+        warm = step(warm)
+    del warm
+    secs, steps, rel = 0.0, 0, math.inf
+    for _ in range(S["max_chunks"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(S["chunk"]):
+            st = step(st)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        steps += S["chunk"]
+        rel = (complex_cost(P, st.solution) - P["f_star"]) / P["f_star"]
+        if rel <= S["rel"]:
+            break
+    if not rel <= S["rel"]:
+        raise AssertionError(f"complex FISTA: rel {rel} after {steps} steps")
+    if st.solution.dtype != torch.complex64:
+        raise AssertionError(f"complex FISTA: dtype {st.solution.dtype}")
+    log(f"  complex FISTA to rel {S['rel']:g}: {steps} steps ({2 * steps} "
+        f"reads of the 2 GiB rows), {secs:.3f} s ({secs * 1e3 / steps:.4f} "
+        f"ms/step), rel {rel:.3e} [{card}]")
+    return dict(s=secs, steps=steps, rel=rel)
+
+
+# complex64 step vs complex128, as a share of how far the same step moves
+# with the conjugates left out
+COMPLEX_STEP_TOL = 1e-2
+
+
+def complex_step_want(P, name: str, st, conj: bool = True):
+    """One block step of SAGA or Point-SAGA from ``st``, recomputed in
+    complex128 on the block that (seed, it) draws, from the textbook
+    formulas with the conjugates written out (``conj=False`` drops them,
+    as a slip in the port's row products would): SAGA's direction from the
+    block's new and stored gradients conj(a_i)·scale·(a_i·z − b_i) and the
+    complex soft-threshold; Point-SAGA's mean of the closed-form prox
+    points z_j = u_j − γ·conj(a_j)·θ_j, u_j = v + γ·conj(a_j)·c_j. Returns
+    (the new iterate, the old one)."""
+    from ciao_tpu_torch.solvers.saga import block_starts
+
+    S = COMPLEX
+    N_, B_ = S["N"], S["B"]
+    c128 = torch.complex128
+    dev = P["A"].device
+    j0 = int(block_starts(st.seed, st.it, 1, N_ // B_, B_, dev)[0])
+    A_B = P["A"][j0:j0 + B_].to(c128)
+    b_B = P["b"][j0:j0 + B_].to(c128)
+    Ac = A_B.conj() if conj else A_B
+    scale = float(N_)
+    gamma = float(st.gamma)
+    if name == "saga":
+        z = st.z.to(c128)
+        r = scale * (A_B @ z - b_B)
+        old = st.s[j0:j0 + B_].to(c128)
+        g_old = Ac * old[:, None] if old.dim() == 1 else old
+        diff = torch.mean(Ac * r[:, None] - g_old, dim=0)
+        w = z - gamma * (diff + st.av.to(c128))
+        mag = w.abs()
+        thr = gamma * S["lam"]
+        new = torch.where(mag > thr, w * (1.0 - thr / mag.clamp(min=thr)),
+                          torch.zeros_like(w))
+        return new, z
+    x = st.x.to(c128)
+    v = x - gamma * st.av.to(c128)
+    c = st.c[j0:j0 + B_].to(c128)
+    aa = torch.sum(A_B * Ac, dim=1)  # |a_j|² (Σ a_j² without conj)
+    theta = scale * (A_B @ v + gamma * c * aa - b_B) / (
+        1.0 + gamma * scale * aa)
+    new = v + (gamma / B_) * ((c - theta) @ Ac)
+    return new, x
+
+
+def complex_step_check(P, name: str, st, step, card: str) -> dict:
+    """Holds one facade step of SAGA or Point-SAGA from ``st`` against
+    :func:`complex_step_want`: the error must be under COMPLEX_STEP_TOL
+    of the distance between that step and the same step without the
+    conjugates, so a slip in the port's conjugates fails it. Both are
+    printed also as shares of the step's length."""
+    want, prev = complex_step_want(P, name, st)
+    slip, _ = complex_step_want(P, name, st, conj=False)
+    got = step(st).solution.to(torch.complex128)
+    length = float((want - prev).abs().max())
+    err = float((got - want).abs().max())
+    slip_d = float((slip - want).abs().max())
+    log(f"  complex {name} step against complex128 on the drawn block: "
+        f"error {err:.3e}, {err / length:.3e} of the step's length; the "
+        f"same step without conjugates {slip_d:.3e} ({slip_d / length:.3e}"
+        f" of it); error/slip {err / slip_d:.3e} (tolerance "
+        f"{COMPLEX_STEP_TOL:g}) [{card}]")
+    if not err < COMPLEX_STEP_TOL * slip_d:
+        raise AssertionError(f"complex {name} step: error {err}, "
+                             f"conjugate slip {slip_d}")
+    return dict(err=err / length, slip=slip_d / length,
+                ratio=err / slip_d)
+
+
+def complex_runs(P, lam_hat: float, ceil: float, card: str) -> dict:
+    """A short run of each family (COMPLEX_RUNS facade steps) through its
+    facade's iterator from x = 0 on the plant: the cost falls (Point-SAGA's
+    smooth part; Condat-Vũ's with its TV term), ms a step by the host
+    clock and a profiled window (idle share, device launches a step), and
+    the bound: the rows the step must read (B a block step, N an anchor or
+    gradient pass, as this run's draws need them) in complex64 at the
+    card's measured read ceiling ``ceil``."""
+    from ciao_tpu_torch import (
+        SAGA, SARAH, SVRG, CondatVu, Finito, Katyusha, LSVRG, PANOC,
+        PointSAGA,
+    )
+    from ciao_tpu_torch.ops.linmap import FirstDifference
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers.lsvrg import draw_coins
+
+    S = COMPLEX
+    N_, n_, B_ = S["N"], S["n"], S["B"]
+    dev = P["A"].device
+    F = complex_oracle(P)
+    L = P["L"]
+    Lmax = float(L.max())
+    g = NormL1(torch.tensor(S["lam"], device=dev))
+    x0 = torch.zeros(n_, dtype=torch.complex64, device=dev)
+    blk = dict(batch=B_, block_sampling=True)
+    kw = dict(F=F, g=g, L=L, N=N_)
+    facades = {
+        "saga": (SAGA(**blk), kw, B_),
+        "svrg": (SVRG(m=N_ // B_, gamma=1.0 / (3.0 * Lmax), **blk),
+                 dict(F=F, g=g, N=N_), N_ + N_),
+        "finito": (Finito(minibatch=(True, B_), sweeping=3), kw, B_),
+        "katyusha": (Katyusha(**blk), kw, N_ + 2 * N_),
+        "sarah": (SARAH(**blk), kw, N_ + N_),
+        "lsvrg": (LSVRG(**blk), kw, None),
+        "point_saga": (PointSAGA(**blk), dict(F=F, L=L, N=N_), B_),
+        "panoc": (PANOC(gamma=0.95 / lam_hat), kw, None),
+        "condat_vu": (CondatVu(), dict(kw, h=NormL1(COMPLEX_TV),
+                                       K=FirstDifference()), N_),
+    }
+    out = {}
+    for name, (solver, args, rows) in facades.items():
+        steps = COMPLEX_RUNS[name]
+        it = solver.iterator(x0, **args)
+        st0 = next(iter(it))
+        step = it._step_fn
+
+        def run(st0=st0, step=step, steps=steps):
+            st = st0
+            for _ in range(steps):
+                st = step(st)
+            return st
+
+        lam = 0.0 if name == "point_saga" else S["lam"]
+        tv = COMPLEX_TV if name == "condat_vu" else 0.0
+        with FBECount() as fbe:
+            prof = profile_steps(f"complex {name}, N={N_} n={n_} B={B_}", run,
+                                 steps, card, PD_GROUPS)
+            evals = fbe.evals
+        st = run()
+        check = (complex_step_check(P, name, step(st0), step, card)
+                 if name in ("saga", "point_saga") else None)
+        if name == "lsvrg":
+            flips = int(draw_coins(st0.seed, st0.it, steps, st0.p).sum())
+            rows = B_ + flips * N_ / steps
+        elif name == "panoc":
+            rows = N_ * evals / prof["runs"] / steps
+        c0 = complex_cost(P, st0.solution, lam, tv)
+        c1 = complex_cost(P, st.solution, lam, tv)
+        if st.solution.dtype != torch.complex64:
+            raise AssertionError(f"complex {name}: dtype "
+                                 f"{st.solution.dtype}")
+        if not (math.isfinite(c1) and c1 < c0):
+            raise AssertionError(f"complex {name}: cost {c0} -> {c1}")
+        bound_ms = rows * n_ * 8 / ceil * 1e3
+        out[name] = dict(ms=prof["step"], idle=1.0 - prof["busy"]
+                         / prof["step"], launches=sum(prof["calls"].values())
+                         / steps, bound_ms=bound_ms, rows=rows, c0=c0, c1=c1,
+                         steps=steps, check=check)
+        log(f"  complex {name}: {steps} step(s), cost {c0:.6e} -> {c1:.6e}; "
+            f"{prof['step']:.4f} ms/step, {out[name]['launches']:.1f} device "
+            f"launches a step, idle {out[name]['idle']:.3f}; bound "
+            f"{bound_ms:.4f} ms/step ({rows:.0f} rows of complex64 at "
+            f"{ceil / 1e9:.1f} GB/s) [{card}]")
+    return out
+
+
+def _welsch_problem(dev):
+    """tests/test_nonconvex.py's planted signal with 20 % gross outliers
+    (numpy's generator, seed 0), on the card."""
+    import numpy as np
+
+    S = WELSCH
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((S["N"], S["n"])).astype(np.float32)
+    x_true = rng.standard_normal(S["n"]).astype(np.float32)
+    b = A @ x_true + 0.01 * rng.standard_normal(S["N"]).astype(np.float32)
+    out = rng.choice(S["N"], size=int(S["frac"] * S["N"]), replace=False)
+    b[out] += 50.0 * rng.standard_normal(out.size).astype(np.float32)
+    x0 = np.linalg.lstsq(A, np.clip(b, -5, 5), rcond=None)[0]
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
+    return t(A), t(b), x_true, t(x0), (A * A).sum(axis=1), np.linalg.lstsq(
+        A, b, rcond=None)[0]
+
+
+def run_compose(dev, card: str) -> dict:
+    """CustomOracle and Precompose on the card: the Welsch loss of
+    tests/test_nonconvex.py through SARAH (200 outer steps of 32 blocks of
+    8) and PANOC (200 steps) from the least-squares warm start, held to
+    JAX's bars (max |x − x_true| < 0.05, least squares 5x farther off,
+    ‖Σ∇f_i‖/N < 1e-4 and 1e-5); Precompose of a scalar logistic loss over
+    a_iᵀ rows against LogisticRows on PRECOMPOSE's rows (values and
+    gradients of every row, and their sum, within 1e-5 of the largest)."""
+    import numpy as np
+
+    from ciao_tpu_torch import (
+        PANOC, SARAH, CustomOracle, Precompose, runtime,
+    )
+    from ciao_tpu_torch.oracles import LogisticRows
+
+    sigma = WELSCH["sigma"]
+    A, b, x_true, x0, L, x_ls = _welsch_problem(dev)
+
+    def welsch(x, d):
+        r = torch.dot(d["a"], x) - d["b"]
+        return 0.5 * sigma ** 2 * (1.0 - torch.exp(-(r * r) / sigma ** 2))
+
+    F = CustomOracle({"a": A, "b": b}, fun=welsch)
+    N_ = WELSCH["N"]
+    out = {}
+    for name, solver, gbar in (
+            ("SARAH", SARAH(maxit=200, m=32, batch=8, block_sampling=True),
+             1e-4),
+            ("PANOC", PANOC(maxit=200), 1e-5)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # no kernel takes a CustomOracle (JAX's gate warns of it as well)
+        with runtime.expected_fallback():
+            x, _ = solver(x0, F=F, L=L, N=N_)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        err = float(np.max(np.abs(x.double().cpu().numpy() - x_true)))
+        gn = float(torch.linalg.vector_norm(F.grad_sum_all(x))) / N_
+        ls_err = float(np.max(np.abs(x_ls - x_true)))
+        log(f"  CustomOracle Welsch {name} on the card: max |x − x_true| "
+            f"{err:.3e} (least squares {ls_err:.3e}), ‖Σ∇f_i‖/N {gn:.3e}, "
+            f"{secs:.2f} s [{card}]")
+        if not (x.device == A.device and err < 0.05 and ls_err > 5 * err
+                and gn < gbar):
+            raise AssertionError(f"CustomOracle Welsch {name}: err {err}, "
+                                 f"least squares {ls_err}, gradient {gn}")
+        out[name] = dict(err=err, gn=gn, s=secs)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    X = torch.randn(PRECOMPOSE["N"], PRECOMPOSE["n"], generator=gen,
+                    device=dev)
+    y = torch.where(torch.rand(PRECOMPOSE["N"], generator=gen, device=dev)
+                    > 0.5, 1.0, -1.0)
+    pre = Precompose(CustomOracle(
+        {"y": y}, fun=lambda v, d: torch.nn.functional.softplus(
+            -d["y"] * v[0])), X[:, None, :])
+    folded = LogisticRows(X, y)
+    x = torch.randn(PRECOMPOSE["n"], generator=gen, device=dev)
+    idx = torch.arange(PRECOMPOSE["N"], device=dev)
+    err = 0.0
+    for got, want in zip((*pre.value_and_grad_batch(x, idx),
+                          pre.grad_sum_all(x)),
+                         (*folded.value_and_grad_batch(x, idx),
+                          folded.grad_sum_all(x))):
+        err = max(err, float((got - want).abs().max() / want.abs().max()))
+    log(f"  Precompose logistic == LogisticRows on the card: max rel err "
+        f"{err:.3e} over {PRECOMPOSE['N']} x {PRECOMPOSE['n']} [{card}]")
+    if not err < 1e-5:
+        raise AssertionError(f"Precompose logistic: rel err {err}")
+    out["precompose_err"] = err
+    return out
+
+
+def run_complex(dev, seed: int, ceil: float, card: str) -> dict:
+    """Phase 4z; returns its numbers."""
+    t0 = time.perf_counter()
+    P = complex_plant(dev, seed)
+    torch.cuda.synchronize()
+    plant_s = time.perf_counter() - t0
+    log(f"  complex plant {COMPLEX['N']} x {COMPLEX['n']} complex64 "
+        f"({P['A'].numel() * 8 / 2**30:.0f} GiB) built on the card in "
+        f"{plant_s:.2f} s: f* {P['f_star']:.9f}, KKT on the support off by "
+        f"{P['kkt'][0]:.2e}, off-support max {P['kkt'][1]:.6f} (λ = "
+        f"{P['lam']:g}) [{card}]")
+    tf32 = complex_tf32(P)
+    log(f"  TF32 on complex64 products: rel err {tf32['off']:.3e} with "
+        f"allow_tf32 off, {tf32['on']:.3e} on; require_exact_f32_matmul "
+        f"refuses TF32 {tf32['refused']} [{card}]")
+    lam_hat = complex_power(P, dev, seed)
+    fista = complex_fista(P, 0.95 / lam_hat, card)
+    runs = complex_runs(P, lam_hat, ceil, card)
+    del P
+    torch.cuda.empty_cache()
+    compose = run_compose(dev, card)
+    return dict(plant_s=plant_s, tf32=tf32, lam_hat=lam_hat, fista=fista,
+                runs=runs, compose=compose)
+
+
 def time_value_apply(gen, dev, storage: str, card: str,
                      ceil: float) -> dict:
     """11: kernel #7 per pass at the headline (least squares, scale N), in
@@ -5580,6 +6042,31 @@ def main() -> int:
                f", planted zeros exact {v['zeros']}")
             for k, v in pd.items())
         + f"; all {time.perf_counter() - t0:.2f} s [{card}]")
+
+    # 4z. complex rows and iterates (no kernel by design), counts from 0
+    t0 = time.perf_counter()
+    reset_counts()
+    cx = run_complex(dev, args.seed, ceil, card)
+    c = counts()
+    if sum(c.values()):
+        raise AssertionError(f"the complex route launched kernels: {c}")
+    log(f"phase 4z complex route: ok, none of the {len(c)} kernels launched; "
+        f"at {COMPLEX['N']} x {COMPLEX['n']} complex64, FISTA to rel "
+        f"{COMPLEX['rel']:g} in {cx['fista']['steps']} steps, "
+        f"{cx['fista']['s']:.3f} s; " + "; ".join(
+            f"{k} {v['ms']:.4f} ms/step (bound {v['bound_ms']:.4f}), "
+            f"{v['launches']:.1f} launches/step, idle {v['idle']:.3f}"
+            for k, v in cx["runs"].items())
+        + "; " + ", ".join(
+            f"{k} step vs complex128 error/slip {v['check']['ratio']:.2e}"
+            for k, v in cx["runs"].items() if v["check"])
+        + f"; CustomOracle Welsch SARAH max err "
+        f"{cx['compose']['SARAH']['err']:.3e}, PANOC "
+        f"{cx['compose']['PANOC']['err']:.3e}; Precompose rel err "
+        f"{cx['compose']['precompose_err']:.2e}; TF32 changes complex64 "
+        f"products by {cx['tf32']['on']:.2e} (off {cx['tf32']['off']:.2e}); "
+        f"all {time.perf_counter() - t0:.2f} s [{card}]")
+    torch.cuda.empty_cache()
 
     # 11. kernel #7 per pass in turns with its plain version and kernel #6
     t11 = {s_: time_value_apply(gen, dev, s_, card, ceil)

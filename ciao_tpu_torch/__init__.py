@@ -44,16 +44,21 @@ sparse rows ``SparseLeastSquaresELL``, ``HybridSparseLeastSquares``,
 does in the JAX package); the primal-dual deep route ``deep_solve_pd``
 with ``tv_refine`` and ``tv_refine3`` (compensated Condat-Vũ and the
 certified reduced solves, PyTorch products with no kernel, as in the
-JAX package). The rest is queued in ROADMAP.md. Imports
+JAX package); complex rows and iterates (complex64, complex128) through
+``LeastSquaresRows`` and every facade whose JAX counterpart runs them,
+on the stepwise PyTorch paths (no kernel takes them, as none does in
+the JAX package); ``Precompose`` and ``CustomOracle`` (autodiff through
+``torch.func``). The rest is queued in ROADMAP.md. Imports
 torch and numpy, never jax. Entry points run on the card unless the
 caller names the CPU (a CPU tensor or ``device="cpu"``).
 """
 
 from ciao_tpu_torch import oracles, prox
 from ciao_tpu_torch.oracles import (
-    DenseQuadratic, DiagQuadratic, HuberRows, HybridSparseLeastSquares,
-    LeastSquaresRows, LogisticRows, PoissonRows, SparseLeastSquaresELL,
-    SqrDistBox, SquaredHingeRows, SumOracle, ZeroOracle,
+    CustomOracle, DenseQuadratic, DiagQuadratic, HuberRows,
+    HybridSparseLeastSquares, LeastSquaresRows, LogisticRows, PoissonRows,
+    Precompose, SparseLeastSquaresELL, SqrDistBox, SquaredHingeRows,
+    SumOracle, ZeroOracle,
 )
 from ciao_tpu_torch.ops.linmap import (
     DenseMap, FirstDifference, FirstDifference2D, GradientMap2D, IdentityMap,
@@ -91,6 +96,8 @@ __all__ = [
     "SqrDistBox",
     "SumOracle",
     "ZeroOracle",
+    "Precompose",
+    "CustomOracle",
     "SparseLeastSquaresELL",
     "HybridSparseLeastSquares",
     "NormL1",

@@ -9,7 +9,9 @@ combinators ``SumOracle`` and ``ZeroOracle``."""
 from ciao_tpu_torch.oracles.base import (
     SmoothOracle, parse_storage_dtype, quantize_rows,
 )
-from ciao_tpu_torch.oracles.compose import SumOracle, ZeroOracle
+from ciao_tpu_torch.oracles.compose import (
+    CustomOracle, Precompose, SumOracle, ZeroOracle,
+)
 from ciao_tpu_torch.oracles.huber import HuberRows
 from ciao_tpu_torch.oracles.least_squares import LeastSquaresRows
 from ciao_tpu_torch.oracles.logistic import LogisticRows
@@ -26,6 +28,7 @@ from ciao_tpu_torch.oracles.sqhinge import SquaredHingeRows
 __all__ = ["SmoothOracle", "LeastSquaresRows", "LogisticRows", "HuberRows",
            "SquaredHingeRows", "PoissonRows", "DiagQuadratic",
            "DenseQuadratic", "SqrDistBox", "SumOracle", "ZeroOracle",
+           "Precompose", "CustomOracle",
            "SparseLeastSquaresELL", "HybridSparseLeastSquares",
            "SparseLogisticELL", "HybridSparseLogistic",
            "parse_storage_dtype", "quantize_rows"]

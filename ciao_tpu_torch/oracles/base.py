@@ -63,6 +63,11 @@ def quantize_rows(A):
     return q, rs
 
 
+def abs_sq(r):
+    """|r|² = Re(r·r̄) in r's real dtype (r·r on real values)."""
+    return torch.real(r * r.conj())
+
+
 def _arange(start, size: int, device):
     return torch.as_tensor(start, device=device).long() + torch.arange(
         size, device=device)

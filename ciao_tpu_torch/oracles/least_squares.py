@@ -1,21 +1,28 @@
 """Row-wise least-squares oracle.
 
-Counterpart of ``ciao_tpu/oracles/least_squares.py`` for real rows:
+Counterpart of ``ciao_tpu/oracles/least_squares.py``:
 
     f_i(x) = (scale / 2) * |<a_i, x> - b_i|^2
-    grad f_i(x) = scale * a_i * (<a_i, x> - b_i)
+    grad f_i(x) = scale * conj(a_i) * (<a_i, x> - b_i)
 
-stored as ONE stacked matrix ``A (N, n)``. Storage modes
-(``with_storage``): f32, bf16 rows (half the traffic) and int8 rows with
-per-row symmetric scales (a quarter). With quantized rows every path
+with <a, x> = Σ_j a_j·x_j (no conjugate on a); on real rows the
+conjugates are no-ops (``Tensor.conj`` of a real tensor is the tensor
+itself). The rows are stored as ONE stacked matrix ``A (N, n)``. Storage
+modes (``with_storage``): f32, bf16 rows (half the traffic) and int8 rows
+with per-row symmetric scales (a quarter). With quantized rows every path
 computes exactly with the perturbed operator Ã = diag(row_scale)·Q, and
 the per-row scale is applied to the row products, never to a dense
 dequantized A. Narrow rows are widened to the iterate's dtype inside each
 product, as JAX's type promotion does.
 
 The Point-SAGA pieces are :class:`PointProxRows`'s, with the closed-form
-θ = scale·(m_z − b)/(1 + γ·scale·‖a‖²). Not ported yet: complex rows
-(ROADMAP.md, queue 1 item 3).
+θ = scale·(m_z − b)/(1 + γ·scale·‖a‖²), ‖a‖² = Re(a·ā).
+
+Complex rows (complex64 or complex128, the reference's dtype sweep) take
+every path above except narrow storage: int8 raises JAX's ValueError,
+and a real storage dtype (bf16, f32) raises too, where JAX's cast would
+drop the imaginary part. No kernel serves complex rows; the facades'
+gates take f32 iterates only.
 """
 
 from __future__ import annotations
@@ -23,9 +30,16 @@ from __future__ import annotations
 import torch
 
 from ciao_tpu_torch.oracles.base import (
-    SmoothOracle, parse_storage_dtype, quantize_rows,
+    SmoothOracle, abs_sq, parse_storage_dtype, quantize_rows,
 )
 from ciao_tpu_torch.oracles.margin_rows import PointProxRows
+
+
+def _wconj(w, A):
+    """Σ_i w_i·conj(a_i) = conj(w̄ @ A), one read of the rows (a product
+    with ``A.conj()`` would first copy the rows conjugated); both
+    conjugates are no-ops on real tensors."""
+    return torch.conj_physical(w.conj() @ A)
 
 
 class LeastSquaresRows(PointProxRows, SmoothOracle):
@@ -39,13 +53,11 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
                  supports_coeff: bool = True):
         super().__init__()
         self.supports_coeff = bool(supports_coeff)
-        if A.is_complex():
-            raise NotImplementedError(
-                "complex rows are not ported yet (ROADMAP.md, queue 1)")
         self.register_buffer("A", A)
         self.register_buffer("b", b)
         self.register_buffer(
-            "scale", torch.as_tensor(scale, dtype=b.dtype, device=b.device)
+            "scale", torch.as_tensor(scale, dtype=b.dtype.to_real(),
+                                     device=b.device)
             if not isinstance(scale, torch.Tensor) else scale)
         self.register_buffer("row_scale", row_scale)
 
@@ -60,10 +72,18 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
     def with_storage(self, dtype=torch.bfloat16):
         """Copy with the data rows STORED in ``dtype`` (f32, bf16, or
         int8 via symmetric per-row quantization ``a_i ≈ row_scale_i·q_i``).
-        Solver state and iterates stay f32 either way."""
+        Solver state and iterates stay f32 either way. Complex rows keep
+        a complex dtype: int8 raises JAX's error, and a real dtype raises
+        where JAX's cast would drop the imaginary part."""
         dtype = parse_storage_dtype(dtype)
         if self.row_scale is not None:
             raise ValueError("rows are already int8-quantized")
+        if self.A.is_complex() and dtype == torch.int8:
+            raise ValueError("int8 storage requires real rows")
+        if self.A.is_complex() and not dtype.is_complex:
+            raise ValueError(
+                f"{dtype} storage of complex rows would drop their "
+                "imaginary part; store them complex64 or complex128")
         if dtype == torch.int8:
             q, rs = quantize_rows(self.A)
             return LeastSquaresRows(q, self.b, self.scale, row_scale=rs,
@@ -81,13 +101,16 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         return A_B if rs_B is None else A_B * rs_B[:, None]
 
     def _grads(self, Ad, r):
-        return self.scale * Ad * r[:, None]
+        return self.scale * Ad.conj() * r[:, None]
+
+    def _values(self, r):
+        """½·scale·Re(r·r̄), in the real dtype of the residuals."""
+        return 0.5 * self.scale * abs_sq(r)
 
     def value_and_grad_all(self, x):
         Ad = self._dense(self.A, self.row_scale, x.dtype)
         r = Ad @ x - self.b
-        vals = 0.5 * self.scale * (r * r)
-        return vals, self._grads(Ad, r)
+        return self._values(r), self._grads(Ad, r)
 
     def grad_all(self, x):
         """The (N, n) table of row gradients (the full-table inits)."""
@@ -100,7 +123,7 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         if self.row_scale is not None:
             a = a * self.row_scale[i]
         r = a @ x - self.b[i]
-        return 0.5 * self.scale * (r * r), self.scale * a * r
+        return self._values(r), self.scale * a.conj() * r
 
     def grad_block(self, x, start, size: int):
         """Row gradients of the contiguous block [start, start + size)."""
@@ -132,7 +155,7 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
 
     def value_and_grad_pointwise(self, xs, idx):
         r, Ad = self._pointwise(*self._gather(idx), xs)
-        return 0.5 * self.scale * (r * r), self._grads(Ad, r)
+        return self._values(r), self._grads(Ad, r)
 
     def _full_table_rows(self):
         if self.row_scale is not None:
@@ -188,7 +211,7 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
                 None if self.row_scale is None else self.row_scale[idx])
 
     # ---- coefficient (rank-1) gradient structure ---------------------
-    # grad f_i(x) = c_i(x) · a_i with SCALAR c_i = scale·(a_i·x − b_i):
+    # grad f_i(x) = c_i(x) · conj(a_i) with SCALAR c_i = scale·(a_i·x − b_i):
     # an (N,) coefficient vector is an exact compression of the (N, n)
     # gradient table.
 
@@ -207,9 +230,10 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         return self.scale * (m - b_B)
 
     def _combine(self, w, A_B, rs_B):
+        """Σ_i w_i·conj(a_i) (·rs_i for int8 rows)."""
         if rs_B is not None:
             w = w * rs_B
-        return w @ self._rows(A_B, w.dtype)
+        return _wconj(w, self._rows(A_B, w.dtype))
 
     def coeff_batch(self, x, idx):
         """c_i(x) for i in idx."""
@@ -222,7 +246,7 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         return self._coeff(self.A, self.b, self.row_scale, x)
 
     def apply_rows(self, w, idx):
-        """Σ_i w_i · a_i over i in idx (the table-delta matvec)."""
+        """Σ_i w_i · conj(a_i) over i in idx (the table-delta matvec)."""
         A_B, _, rs_B = self._gather(idx)
         return self._combine(w, A_B, rs_B)
 
@@ -245,10 +269,10 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
             d = torch.where(mask, d, 0)
         if rs_B is not None:
             d = d * rs_B
-        return self.scale * (d @ A_B)
+        return self.scale * _wconj(d, A_B)
 
     def grad_sum_diff(self, x1, x2, idx, mask=None):
-        """Σ_{i ∈ idx} ∇f_i(x1) − ∇f_i(x2) = scale·A_Bᵀ A_B (x1 − x2):
+        """Σ_{i ∈ idx} ∇f_i(x1) − ∇f_i(x2) = scale·A_Bᴴ A_B (x1 − x2):
         the SVRG anchor-minus-live direction in one read of the rows;
         ``mask`` zeroes the padded lanes of a ragged block."""
         A_B, _, rs_B = self._gather(idx)
@@ -265,7 +289,7 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         if self.row_scale is not None:
             r = r * self.row_scale - self.b
             return self.scale * ((r * self.row_scale) @ A)
-        return self.scale * ((r - self.b) @ A)
+        return self.scale * _wconj(r - self.b, A)
 
     # ---- margin protocol: the row product A·x first, then the affine
     # part of the coefficient. The int8 per-row scale is applied to the
@@ -285,7 +309,7 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         ``scale`` for least squares (global and exact; ``margin_slack``
         is ignored). Consumed by ``solvers.polish.power_lmax``."""
         del margin_slack
-        return self.scale.to(r.dtype)
+        return torch.real(self.scale).to(r.dtype.to_real())
 
     def coeff_from_margin(self, r, start, size: int):
         _, b_B, rs_B = self._slice(start, size)
@@ -302,8 +326,7 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         """Σ_i f_i from the raw margins A·x."""
         if self.row_scale is not None:
             r = r * self.row_scale
-        res = r - self.b
-        return 0.5 * self.scale * torch.sum(res * res)
+        return 0.5 * self.scale * torch.sum(abs_sq(r - self.b))
 
     def value_sum_all(self, x):
         """Σ_i f_i(x) in one margin pass, without the (N, n) gradient."""
@@ -321,4 +344,5 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         else:
             r = r - self.b
             w = r
-        return 0.5 * self.scale * torch.sum(r * r), self.scale * (w @ A)
+        return (0.5 * self.scale * torch.sum(abs_sq(r)),
+                self.scale * _wconj(w, A))

@@ -34,7 +34,7 @@ import torch
 
 from ciao_tpu_torch import runtime
 from ciao_tpu_torch.oracles.base import (
-    SmoothOracle, parse_storage_dtype, quantize_rows,
+    SmoothOracle, abs_sq, parse_storage_dtype, quantize_rows,
 )
 from ciao_tpu_torch.ops.fused_block import pointprox_theta
 
@@ -54,11 +54,13 @@ class PointProxRows:
     ``pointprox_*``): the prox of one row is z − γθ·a_j with a scalar θ
     from the oracle's solve (``_theta``) at the margin
     m_z = a_j·v + γ·c_j·‖a_j‖² of the row's own prox point. The core
-    returns (θ_B, Σ_j (c_j − θ_j)·a_j): one margin product and one apply
-    product over the same rows. The row square-norms are summed in the
-    stored dtype (a bf16 sum for bf16 rows, as JAX's ``jnp.sum(A_B * A_B,
-    axis=1)``) and then used at the iterate's dtype, as JAX promotes
-    them against its f32 stepsize. θ is the kernels' per-row solve for
+    returns (θ_B, Σ_j (c_j − θ_j)·conj(a_j)): one margin product and one
+    apply product over the same rows (the conjugate, through ``_combine``,
+    matters for complex least-squares rows alone). The row square-norms
+    Re(a_j·ā_j) are summed in the stored dtype (a bf16 sum for bf16 rows,
+    as JAX's ``jnp.sum(A_B * A_B, axis=1)``) and then used at the
+    iterate's real dtype, as JAX promotes them against its f32
+    stepsize. θ is the kernels' per-row solve for
     the host's ``coeff_mode`` (``ops.fused_block.pointprox_theta``, with
     its ``scale`` and Huber's ``delta``). A host needs ``_slice``,
     ``_gather``, ``_rows`` and ``_combine``."""
@@ -77,7 +79,7 @@ class PointProxRows:
             mv = mv * rs_B
             na2 = torch.sum(Ad * Ad, dim=1) * (rs_B * rs_B)
         else:
-            na2 = torch.sum(A_B * A_B, dim=1).to(v.dtype)
+            na2 = torch.sum(abs_sq(A_B), dim=1).to(v.dtype.to_real())
         mz = mv + gamma * c_B * na2
         theta = self._theta(mz, b_B, na2, c_B, gamma)
         return theta, self._combine(c_B - theta, A_B, rs_B)
@@ -94,13 +96,13 @@ class PointProxRows:
         A_B = self._slice(start, size)[0]
         if self.row_scale is not None:
             A_B = A_B.to(torch.float32)
-        return torch.sum(A_B * A_B, dim=1)
+        return torch.sum(abs_sq(A_B), dim=1)
 
     def pointprox_theta_block(self, m_raw, na2_raw, c_B, gamma, start,
                               size: int):
         """θ from the RAW (un-descaled) margins and square-norms."""
         _, b_B, rs_B = self._slice(start, size)
-        na2_raw = na2_raw.to(m_raw.dtype)
+        na2_raw = na2_raw.to(m_raw.dtype.to_real())
         if rs_B is not None:
             m_raw = m_raw * rs_B
             na2_raw = na2_raw * (rs_B * rs_B)
@@ -119,8 +121,11 @@ class MarginRows(PointProxRows, SmoothOracle):
         self.supports_coeff = bool(supports_coeff)
         A = as_tensor(A)
         if A.is_complex():
+            # the margin of a complex row is complex, and these losses
+            # (and the JAX package's tests) define none for it
             raise NotImplementedError(
-                "complex rows are not ported yet (ROADMAP.md, queue 1 item 3)")
+                f"{type(self).__name__} takes real rows only: its loss "
+                "of a complex margin is not defined")
         self.register_buffer("A", A)
         self.register_buffer("b", as_tensor(b).to(A.device))
         self.register_buffer("row_scale", None if row_scale is None

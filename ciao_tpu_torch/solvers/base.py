@@ -63,14 +63,6 @@ def default_terms(F, g, N, device):
     return F.to(device), (Zero() if g is None else g).to(device), N
 
 
-def refuse_complex(x0) -> None:
-    """Raise for a complex iterate in a facade that has no complex path
-    yet."""
-    if x0.is_complex():
-        raise NotImplementedError(
-            "complex iterates are not ported yet: ROADMAP.md, queue 1 item 3")
-
-
 def real_dtype_of(x) -> torch.dtype:
     """The real dtype of a tensor or dtype (float32 for complex64)."""
     dtype = x if isinstance(x, torch.dtype) else torch.as_tensor(x).dtype

@@ -14,8 +14,11 @@ relaxation λ ∈ (0, 2 − γL_f/2):
 started from prox_g(x0); with f = 0 it is Douglas-Rachford
 (:func:`DouglasRachford`). The only O(N) work is the full gradient at
 x_g: on the card one pass of kernel #6 (``solvers.fb.full_gradient``),
-as FISTA's. Not ported yet: complex iterates (the facade refuses them)
-and the DP/TP variants (ROADMAP.md, queue 1 items 3 and 18).
+as FISTA's. Complex iterates take the stepwise gradient (the kernel's
+gate takes f32 iterates alone); the JAX package has no complex test of
+Davis-Yin, and its facade converges on complex128 rows as the port's
+does. Not ported yet: the DP/TP variants (ROADMAP.md, queue 1 item
+18).
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ from ciao_tpu_torch.solvers.base import (
     default_terms,
     facade_device,
     real_dtype_of,
-    refuse_complex,
     run_solver_loop,
 )
 from ciao_tpu_torch.solvers.fb import full_gradient
@@ -117,7 +119,6 @@ class DavisYin:
 
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        refuse_complex(x0)
         F, g, N = default_terms(F, g, N, device)
         h = (Zero() if h is None else h).to(device)
         rdt = real_dtype_of(x0)

@@ -13,7 +13,8 @@ compensated read as the SVRG anchor) plus an O(n) prox.
 Default γ = 1/mean(L): each f_i has modulus L_i, so the full smooth
 term (1/N)Σf_i has modulus ≤ mean(L_i).
 
-Not ported yet: complex iterates (ROADMAP.md queue 1 item 3).
+Complex iterates (complex64, complex128) take the stepwise path, as in
+the JAX package: the kernel's gate takes f32 iterates alone.
 """
 
 from __future__ import annotations

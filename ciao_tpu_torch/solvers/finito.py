@@ -28,7 +28,11 @@ sweep). The schedules are the port's own draws (``ciao_tpu_torch.
 sampling``); :func:`finito_run` also takes an explicit schedule, so the
 parity tests can replay JAX's key chain.
 
-Not ported yet: complex iterates (ROADMAP.md queue 1 item 3).
+Complex iterates (complex64, complex128) take the stepwise paths of every
+variant, as in the JAX package: the kernels' gates take f32 iterates
+alone, and no fallback warning is raised for them. The stepsizes stay
+real, and the adaptive line search's model takes Re⟨∇f_i, z − s_i⟩.
+Importance sampling refuses them, as JAX's does.
 """
 
 from __future__ import annotations
@@ -58,7 +62,6 @@ from ciao_tpu_torch.solvers.base import (
     facade_device,
     rdiv,
     real_dtype_of,
-    refuse_complex,
     resolve_gamma_array,
     run_solver_loop,
 )
@@ -521,7 +524,7 @@ def _finito_adaptive_step(F, g, cfg: FinitoCfg, state: FinitoAdaptiveState,
     while True:
         abort = bool(gi < cfg.tol_b / N)
         fi_z = F.value_i(z, i).to(rdt)
-        model = (fi_xi + torch.dot(gradf_i, res).to(rdt)
+        model = (fi_xi + torch.real(torch.vdot(gradf_i, res)).to(rdt)
                  + rdiv(0.5 * N * cfg.alpha, gi)
                  * torch.sum(torch.abs(res) ** 2).to(rdt))
         tolv = 10 * eps * (1 + torch.abs(fi_z))
@@ -777,7 +780,6 @@ class Finito:
 
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        refuse_complex(x0)
         F, g, N = default_terms(F, g, N, device)
         rdt = real_dtype_of(x0)
         B = self.minibatch[1]
@@ -826,6 +828,9 @@ class Finito:
             # clipped, π-scale CDF)
             if L is None:
                 raise ValueError("Finito importance_sampling: provide L")
+            if x0.is_complex():
+                raise ValueError(
+                    "Finito importance_sampling: real dtypes only")
             qcum, qinv, _, iwin = _importance_setup(L, N, B, True, rdt,
                                                     device)
             cfg = cfg._replace(importance=True, istrat=True, iwin=iwin)

@@ -25,8 +25,10 @@ inner step of an outer step runs on ``ops.katyusha_coeff_multistep``
 anchor coefficients ``canch``, and the anchor refresh is one pass of
 ``ops.coeff_apply_all``.
 
-Not ported yet: complex iterates (ROADMAP.md queue 1 item 3) and
-checkpoints (item 17).
+Complex iterates (complex64, complex128) take the stepwise path, as in
+the JAX package (the kernels' gates take f32 iterates alone); τ and the
+other scalars stay real. Not ported yet: checkpoints (ROADMAP.md, queue
+1 item 17).
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ from ciao_tpu_torch.solvers.base import (
     facade_device,
     rdiv,
     real_dtype_of,
-    refuse_complex,
     run_solver_loop,
 )
 from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS, _check_starts
@@ -259,7 +260,6 @@ class Katyusha:
     def _setup(self, x0, F, g, L, N):
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        refuse_complex(x0)
         F, g, N = default_terms(F, g, N, device)
         if L is None:
             raise ValueError("Katyusha: provide the smoothness moduli L")

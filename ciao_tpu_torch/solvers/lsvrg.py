@@ -32,8 +32,11 @@ windows of at most ``LOOPLESS_LAUNCH`` steps, each ending at its first
 coin flip; the anchor refresh (one ``ops.coeff_apply_all`` pass at the
 flip step's pre-update iterate) runs between windows.
 
-Not ported yet: complex iterates (ROADMAP.md queue 1 item 3), checkpoints
-(item 17) and the data- and tensor-parallel variants (item 18).
+Complex iterates (complex64, complex128) take the stepwise path, as in
+the JAX package (the kernels' gates take f32 iterates alone); γ, the
+coins and the momentum weights stay real. Not ported yet: checkpoints
+(ROADMAP.md, queue 1 item 17) and the data- and tensor-parallel variants
+(item 18).
 """
 
 from __future__ import annotations
@@ -52,7 +55,6 @@ from ciao_tpu_torch.solvers.base import (
     facade_device,
     rdiv,
     real_dtype_of,
-    refuse_complex,
     run_solver_loop,
 )
 from ciao_tpu_torch.solvers.saga import _check_starts, _uniforms, block_starts
@@ -324,7 +326,6 @@ class LSVRG:
     def _setup(self, x0, F, g, L, N):
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        refuse_complex(x0)
         F, g, N = default_terms(F, g, N, device)
         rdt = real_dtype_of(x0)
         if self.gamma is not None:
@@ -553,7 +554,6 @@ class LKatyusha:
     def _setup(self, x0, F, g, L, N):
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        refuse_complex(x0)
         F, g, N = default_terms(F, g, N, device)
         if L is None:
             raise ValueError("LKatyusha: provide the smoothness moduli L")

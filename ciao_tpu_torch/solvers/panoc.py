@@ -33,8 +33,11 @@ gathered with ``index_select``, and a non-finite direction falls back to
 −r by ``torch.where``. A step of fixed-γ PANOC syncs once per trial, so
 1 in the steady state, where τ = 1 is accepted first.
 
-Not ported yet: complex iterates (ROADMAP.md, queue 1 item 3; the facades
-refuse them), and the DP/TP variants (item 18).
+Complex iterates (complex64, complex128) run as real 2n-vectors: every
+inner product of the two-loop recursion and the FBE is Re⟨·,·⟩
+(``_rdot``), so the ring's ρ is 1/Re⟨s, y⟩; they take the stepwise
+envelope read (kernel #7's gate takes f32 iterates alone). Not ported
+yet: the DP/TP variants (ROADMAP.md, queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -52,7 +55,6 @@ from ciao_tpu_torch.solvers.base import (
     facade_device,
     rdiv,
     real_dtype_of,
-    refuse_complex,
     run_solver_loop,
 )
 
@@ -423,7 +425,6 @@ class PANOC:
 
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        refuse_complex(x0)
         F, g, N = default_terms(F, g, N, device)
         rdt = real_dtype_of(x0)
         adaptive = self.adaptive or (self.gamma is None and L is None)

@@ -29,8 +29,12 @@ sampling, an in-kernel θ-solve (``coeff_mode`` 0-4) and a CUDA device,
 ``LAUNCH_STEPS`` a call and the last call the remainder: unlike JAX's
 drivers, no step runs stepwise after the launches.
 
-Not ported yet: complex rows and iterates (ROADMAP.md queue 1 item 3),
-the data- and tensor-parallel variants (items 17 and 18).
+Complex rows and iterates (complex64, complex128) take the stepwise
+path, as in the JAX package (the kernels' gates take f32 iterates
+alone): the row prox is z − γθ·conj(a_j) with ‖a_j‖² = Re(a_j·ā_j).
+Importance sampling refuses them, as JAX's does. Not ported yet:
+checkpoints and the data- and tensor-parallel variants (ROADMAP.md,
+queue 1 items 17 and 18).
 """
 
 from __future__ import annotations
@@ -49,7 +53,6 @@ from ciao_tpu_torch.solvers.base import (
     facade_device,
     rdiv,
     real_dtype_of,
-    refuse_complex,
     run_solver_loop,
 )
 from ciao_tpu_torch.solvers.saga import (
@@ -292,7 +295,6 @@ class PointSAGA:
     def _setup(self, x0, F, g, L, N):
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        refuse_complex(x0)
         if g is not None and not isinstance(g, Zero):
             raise ValueError(
                 "PointSAGA solves min (1/N)Σ f_i(x) — it has no separate "
@@ -319,6 +321,9 @@ class PointSAGA:
                     "importance_sampling needs block_sampling=True")
             if L is None:
                 raise ValueError("PointSAGA importance_sampling: provide L")
+            if x0.is_complex():
+                raise ValueError(
+                    "PointSAGA importance_sampling: real dtypes only")
             qcum, qinv, L_eff, iwin = _importance_setup(L, N, B, True, rdt,
                                                         device)
         if self.gamma is not None:

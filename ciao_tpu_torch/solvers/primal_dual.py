@@ -13,9 +13,10 @@ with f = 0, Chambolle-Pock (JMIV 2011). Primal step τ, dual step σ:
 Convergence requires τ·(L_f/2 + σ‖K‖²) ≤ 1. Defaults: σ = 1/‖K‖ and the
 largest τ with a 0.99 margin, L_f = mean(L) and ‖K‖ from the map's
 ``opnorm_bound``. The only O(N) work is the full gradient: on the card
-one pass of kernel #6 (``solvers.fb.full_gradient``). Not ported yet:
-complex iterates (the facade refuses them), the DP/TP variants and the
-checkpoints (ROADMAP.md, queue 1 items 3, 17 and 18). The deep route of
+one pass of kernel #6 (``solvers.fb.full_gradient``); complex iterates
+take the stepwise gradient (``tests/test_primal_dual.py:244``'s complex
+Chambolle-Pock among them). Not ported yet: the DP/TP variants and the
+checkpoints (ROADMAP.md, queue 1 items 17 and 18). The deep route of
 this class is ``solvers.deep_pd``.
 """
 
@@ -33,7 +34,6 @@ from ciao_tpu_torch.solvers.base import (
     default_terms,
     facade_device,
     real_dtype_of,
-    refuse_complex,
     run_solver_loop,
 )
 from ciao_tpu_torch.solvers.fb import full_gradient
@@ -146,7 +146,6 @@ class CondatVu:
 
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        refuse_complex(x0)
         F, g, N = default_terms(F, g, N, device)
         h = (Zero() if h is None else h).to(device)
         K = (IdentityMap() if K is None else K).to(device)

@@ -355,7 +355,8 @@ class Proshi:
         # sizes its TPU clamp and has no counterpart here.
         sweep_ok = self.sweeping != Sweep.RANDOM or self.block_sampling
         fused = sweep_ok and proshi_multistep_available(F, g, x0, B)
-        if not fused and B > 1 and x0.device.type == "cuda":
+        if (not fused and B > 1 and x0.device.type == "cuda"
+                and not x0.dtype.is_complex):
             if self.sweeping == Sweep.RANDOM and not self.block_sampling:
                 runtime.warn_fused_fallback(
                     "Proshi", "the RANDOM sweep only fuses through the "

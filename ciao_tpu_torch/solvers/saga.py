@@ -524,8 +524,10 @@ def _warn_fallback(who: str, F, g, x0, coeff: bool = True):
     the gate's shape condition, is refused by the facades before they
     route.) Sparse rows are served by no kernel, by design: the hybrid
     layout is their fast path and stays silent, and pure ELL names the
-    hybrid as the remedy."""
-    if x0.device.type != "cuda":
+    hybrid as the remedy. Complex iterates are silent too: no kernel
+    serves them, by design, so there is nothing to fix (JAX's
+    exemption)."""
+    if x0.device.type != "cuda" or x0.dtype.is_complex:
         return
     if hasattr(F, "nnz_per_row"):
         if not hasattr(F, "hot_width"):

@@ -20,8 +20,9 @@ one pass of ``ops.coeff_apply_all`` and every inner step runs on
 ``ops.sarah_multistep`` (``LAUNCH_STEPS`` a call), which takes both
 margins of a row from one read of it.
 
-Not ported yet: complex iterates (ROADMAP.md queue 1 item 3) and
-checkpoints (item 17).
+Complex iterates (complex64, complex128) take the stepwise path, as in
+the JAX package (the kernels' gates take f32 iterates alone); γ and η
+stay real. Not ported yet: checkpoints (ROADMAP.md, queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from ciao_tpu_torch.solvers.base import (
     facade_device,
     rdiv,
     real_dtype_of,
-    refuse_complex,
     run_solver_loop,
 )
 from ciao_tpu_torch.solvers.saga import LAUNCH_STEPS, _check_starts
@@ -209,7 +209,6 @@ class SARAH:
     def _setup(self, x0, F, g, L, N):
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        refuse_complex(x0)
         F, g, N = default_terms(F, g, N, device)
         rdt = real_dtype_of(x0)
         if self.gamma is not None:

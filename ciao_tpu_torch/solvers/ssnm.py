@@ -24,8 +24,11 @@ resident bounds, ``finito._resident``) or ``ops.ssnm_multistep_streamed``
 (beyond them), ``LAUNCH_STEPS`` a call and the last call the remainder:
 unlike JAX's drivers, no step runs stepwise after the launches.
 
-Not ported yet: complex iterates (ROADMAP.md queue 1 item 3), the
-data- and tensor-parallel variants (items 17 and 18).
+Complex iterates (complex64, complex128) take the stepwise path (the
+kernels' gates take f32 iterates alone); the JAX package has no complex
+test of SSNM, and its facade converges on complex128 rows as the port's
+does. Not ported yet: checkpoints and the data- and tensor-parallel
+variants (ROADMAP.md, queue 1 items 17 and 18).
 """
 
 from __future__ import annotations
@@ -42,7 +45,6 @@ from ciao_tpu_torch.solvers.base import (
     facade_device,
     rdiv,
     real_dtype_of,
-    refuse_complex,
     run_solver_loop,
 )
 from ciao_tpu_torch.solvers.saga import (
@@ -228,7 +230,6 @@ class SSNM:
 
         device = facade_device(self.device, x0)
         x0 = torch.as_tensor(x0, device=device)
-        refuse_complex(x0)
         F, g, N = default_terms(F, g, N, device)
         if not getattr(F, "supports_coeff", False):
             raise ValueError(

@@ -23,7 +23,9 @@ and a CUDA device the fused path runs every inner step on the
 ``ops.svrg_coeff_multistep`` kernel against the anchor coefficients
 ``canch`` and refreshes the anchor in one pass (``ops.coeff_apply_all``).
 
-Not ported yet: complex iterates (ROADMAP.md queue 1 item 3).
+Complex iterates (complex64, complex128) take the stepwise path, as in
+the JAX package: the kernels' gates take f32 iterates alone, and no
+fallback warning is raised for them. γ stays real.
 """
 
 from __future__ import annotations

@@ -18,7 +18,11 @@ routing to them, and the polish's exact-f32 check; and the sparse rows,
 which no kernel serves: their protocols on the card against the CPU, and
 the SAGA facade on them launching no kernel; and the primal-dual deep
 route, which no kernel serves either: ``deep_solve_pd`` on the card by
-default and certified there, and its refinements repeating bit for bit.
+default and certified there, and its refinements repeating bit for bit;
+and complex rows and iterates, which no kernel serves by design: each
+complex facade on the card against the CPU, a complex iterate closing
+every gate with no fallback warning, and ``CustomOracle`` and
+``Precompose`` on the card.
 
 These tests need an NVIDIA GPU (marker ``cuda``) and skip without one:
 the kernel has no CPU mode. They import no JAX, so they run on a
@@ -3210,3 +3214,142 @@ def test_refinements_repeat_bit_for_bit_on_the_card(dev):
     (y1, d1), (y2, d2) = (tv_refine3(F, x, 0.0, p.lam, chunk=1_024)
                           for _ in range(2))
     assert d1 and d1 == d2 and torch.equal(y1, y2)
+
+
+# ---------------------------------------------------------------------------
+# complex rows and iterates, Precompose and CustomOracle: no kernel serves
+# them (the JAX package sends a complex iterate past every kernel gate)
+# ---------------------------------------------------------------------------
+
+def _complex_rows(N=256, n=16, seed=0):
+    """Truly complex rows and offsets (c128, on the CPU) with L_i = N‖a_i‖²."""
+    gen = torch.Generator().manual_seed(seed)
+    A = torch.randn(N, n, dtype=torch.complex128, generator=gen)
+    b = torch.randn(N, dtype=torch.complex128, generator=gen)
+    return A, b, N * torch.linalg.vector_norm(A, dim=1) ** 2
+
+
+def _complex_facades(N, B):
+    from ciao_tpu_torch import (
+        FISTA, LSVRG, PANOC, SAGA, SARAH, SSNM, SVRG, CondatVu, DavisYin,
+        Finito, Katyusha, LKatyusha, PointSAGA, Proshi, ZeroFPR,
+    )
+
+    blk = dict(batch=B, block_sampling=True)
+    return {"saga": SAGA(maxit=65, **blk),
+            "sag": SAGA(maxit=65, SAG_flag=True, **blk),
+            "svrg": SVRG(maxit=3, m=N // B, gamma=1e-4, **blk),
+            "finito": Finito(maxit=65, minibatch=(True, B), sweeping=2),
+            "lfinito": Finito(maxit=3, minibatch=(True, B), sweeping=2,
+                              LFinito=True),
+            "finito_adaptive": Finito(maxit=65, sweeping=2, adaptive=True),
+            "fista": FISTA(maxit=20), "katyusha": Katyusha(maxit=2, **blk),
+            "sarah": SARAH(maxit=2, **blk), "lsvrg": LSVRG(maxit=65, **blk),
+            "lkatyusha": LKatyusha(maxit=65, **blk),
+            "ssnm": SSNM(maxit=65, batch=B),
+            "point_saga": PointSAGA(maxit=65, **blk),
+            "panoc": PANOC(maxit=10), "zerofpr": ZeroFPR(maxit=10),
+            "davis_yin": DavisYin(maxit=20), "condat_vu": CondatVu(maxit=20),
+            "proshi": Proshi(maxit=33, minibatch=(True, B), sweeping=2)}
+
+
+@pytest.mark.parametrize("name", list(_complex_facades(256, 32)))
+def test_complex_facades_on_the_card_match_the_cpu(dev, name):
+    """Each complex facade in c128 on the card walks the CPU's trajectory
+    (the same draws: block starts and coins are hashes of (seed, it), and
+    the Finito sweeps are cyclic),
+    to 1e-9 of the largest entry, with the dtype kept, no kernel launched
+    and no fallback warning."""
+    import warnings
+
+    from ciao_tpu_torch import NormL1, runtime
+
+    A, b, L = _complex_rows()
+    solver = _complex_facades(256, 32)[name]
+    kw = dict(L=L.numpy(), N=256)
+    if name != "point_saga":
+        kw["g"] = NormL1(0.05)
+    wrappers = [f for f in vars(tfb).values()
+                if callable(f) and hasattr(f, "launches")]
+    before = [f.launches for f in wrappers]
+    runtime.reset_fallback_warnings()
+    xs = {}
+    for where in ("cpu", "cuda"):
+        F = LeastSquaresRows(A.to(where), b.to(where), 256.0)
+        x0 = torch.zeros(16, dtype=torch.complex128, device=where)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            xs[where], _ = solver(x0, F=F, **kw)
+    assert [f.launches for f in wrappers] == before
+    got, want = xs["cuda"], xs["cpu"]
+    assert got.device.type == "cuda" and got.dtype == torch.complex128
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-9 * float(want.abs().max()))
+
+
+def test_complex64_iterate_closes_every_gate_on_the_card(dev):
+    """A complex64 iterate on f32-sized complex rows on the card: every
+    kernel gate is closed (each asks for f32 iterates), SAGA with block
+    sampling warns of no fallback and launches no kernel, and its cost
+    falls."""
+    import warnings
+
+    from ciao_tpu_torch import SAGA, NormL1, runtime
+    from ciao_tpu_torch.prox import Zero
+
+    A, b, L = _complex_rows(N=4_096, n=128)
+    F = LeastSquaresRows(A.to(dev, torch.complex64),
+                         b.to(dev, torch.complex64), 4_096.0)
+    x0 = torch.zeros(128, dtype=torch.complex64, device=dev)
+    for gate in (tfb.full_grad_available(F, x0),
+                 tfb.saga_multistep_available(F, Zero(), x0, 512),
+                 tfb.proshi_multistep_available(F, Zero(), x0, 512)):
+        assert gate is False
+    wrappers = [f for f in vars(tfb).values()
+                if callable(f) and hasattr(f, "launches")]
+    before = [f.launches for f in wrappers]
+    runtime.reset_fallback_warnings()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        x, _ = SAGA(maxit=129, batch=512, block_sampling=True)(
+            x0, F=F, g=NormL1(0.05), L=L.numpy())
+    assert [f.launches for f in wrappers] == before
+    assert x.dtype == torch.complex64
+    assert float(F.value_sum_all(x)) < float(F.value_sum_all(x0))
+
+
+def test_custom_oracle_and_precompose_on_the_card(dev):
+    """CustomOracle's data move with ``.to``; its batched paths (gathered
+    data, vmapped gradient) on the card equal the CPU's, on a complex
+    iterate with the rows' convention conj(a)·r; Precompose of a scalar
+    logistic loss equals LogisticRows on the card."""
+    from ciao_tpu_torch import CustomOracle, Precompose
+    from ciao_tpu_torch.oracles import LogisticRows
+
+    A, b, _ = _complex_rows(N=64, n=8)
+
+    def fun(x, d):
+        r = d["a"] @ x - d["b"]
+        return 0.5 * (r.real ** 2 + r.imag ** 2)
+
+    Fc = CustomOracle({"a": A, "b": b}, fun=fun)
+    Fd = CustomOracle({"a": A, "b": b}, fun=fun).to(dev)
+    assert Fd.data["a"].device.type == "cuda"
+    x = torch.randn(8, dtype=torch.complex128)
+    idx = torch.tensor([5, 0, 63, 5])
+    for got, want in zip(Fd.value_and_grad_batch(x.to(dev), idx.to(dev)),
+                         Fc.value_and_grad_batch(x, idx)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-12, atol=1e-12)
+    rows = LeastSquaresRows(A.to(dev), b.to(dev), 1.0)
+    torch.testing.assert_close(Fd.grad_sum_all(x.to(dev)),
+                               rows.grad_sum_all(x.to(dev)), rtol=1e-12,
+                               atol=1e-12)
+    X = torch.randn(512, 16, device=dev)
+    y = torch.where(torch.rand(512, device=dev) > 0.5, 1.0, -1.0)
+    pre = Precompose(CustomOracle({"y": y}, fun=lambda v, d: (
+        torch.nn.functional.softplus(-d["y"] * v[0]))), X[:, None, :])
+    folded = LogisticRows(X, y)
+    z = torch.randn(16, device=dev)
+    for got, want in zip(pre.value_and_grad_all(z),
+                         folded.value_and_grad_all(z)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

@@ -22,6 +22,7 @@ from ciao_tpu.solvers import saga as jsaga
 from ciao_tpu_torch import LeastSquaresRows, NormL1, deep_solve, staged_saga
 from ciao_tpu_torch.solvers import SAGACfg, fista_polish, saga_init, saga_run
 from ciao_tpu_torch.utils.problems import make_lasso
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n = 2048, 32
 

@@ -39,16 +39,7 @@ from ciao_tpu_torch.solvers import deep_pd, primal_dual
 from ciao_tpu_torch.utils import (
     make_fused_lasso_planted, make_three_term_planted,
 )
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's steps here are thousands of small products: one torch
-    thread runs them as fast, and leaves the cores to the suite's other
-    workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 F32 = {"f32": (torch.float32, jnp.float32),

@@ -12,6 +12,7 @@ from ciao_tpu_torch.prox import NormL1
 from ciao_tpu_torch.solvers import SAGA, SVRG, ForwardBackward
 from ciao_tpu_torch.solvers.base import facade_device
 from ciao_tpu_torch.utils.problems import make_lasso
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

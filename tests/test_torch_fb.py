@@ -30,6 +30,7 @@ from ciao_tpu_torch.solvers import (
     FISTA, FBCfg, ForwardBackward, fb_init, fb_run, fb_step, full_gradient,
     solution, take,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -36,6 +36,7 @@ from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.prox import NormL1, Zero
 from ciao_tpu_torch.solvers import finito as tfin
 from ciao_tpu_torch.solvers import loop, take
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):
@@ -588,8 +589,9 @@ def test_finito_iterator_contract(lasso, sweeping, LFinito, adaptive):
 def test_finito_bad_config_raises():
     """tests/test_ops.py:158 (table='coeff' with a RANDOM sweep), the
     missing L of tests/test_lasso.py:175 (with F=None too: the zero
-    oracle still needs L or γ), the knobs' checks, and complex iterates,
-    still to port, naming their ROADMAP item."""
+    oracle still needs L or γ), the knobs' checks, and a complex iterate
+    on real rows, which runs the real trajectory with a zero imaginary
+    part."""
     prob = make_lasso(N=32, n=8, p=3, seed=2)
     F = LeastSquaresRows(_t(prob.A), _t(prob.b), 32.0)
     g, x0 = NormL1(1.0), torch.zeros(8, dtype=torch.float64)
@@ -599,9 +601,12 @@ def test_finito_bad_config_raises():
         Finito(maxit=10)(x0, F=F, g=g, N=32)
     with pytest.raises(ValueError, match="smoothness parameter absent"):
         Finito(maxit=10)(x0, g=g, N=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Finito(maxit=10)(torch.zeros(8, dtype=torch.complex128), F=F, g=g,
-                         L=prob.L)
+    xc, _ = Finito(maxit=10)(torch.zeros(8, dtype=torch.complex128), F=F,
+                             g=g, L=prob.L)
+    xr, _ = Finito(maxit=10)(x0, F=F, g=g, L=prob.L)
+    assert xc.dtype == torch.complex128
+    np.testing.assert_allclose(xc.numpy(), xr.numpy(), rtol=1e-12,
+                               atol=1e-14)
     for kw in (dict(gamma=-1.0), dict(maxit=0), dict(sweeping=4),
                dict(table="dense"), dict(fused_precision="tf32"),
                dict(tol_b=0.0), dict(minibatch=(True, 0))):

@@ -28,6 +28,7 @@ from ciao_tpu_torch.convert import least_squares_from_numpy
 from ciao_tpu_torch.ops import fused_block as tfb
 from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.prox import NormL1
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -32,6 +32,7 @@ from ciao_tpu_torch.solvers import (
     Katyusha, KatyushaCfg, katyusha_init, katyusha_run, katyusha_step,
     solution, take,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):
@@ -346,8 +347,11 @@ def test_katyusha_refusals(lasso):
         Katyusha(maxit=2)(_x0(), F=F, g=g)
     with pytest.raises(ValueError, match="m must be"):
         Katyusha(maxit=2, m=0)(_x0(), F=F, g=g, L=prob.L)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        Katyusha(maxit=2)(torch.zeros(nf, dtype=torch.complex128), F=F, g=g,
-                          L=prob.L)
+    xc, _ = Katyusha(maxit=3)(torch.zeros(nf, dtype=torch.complex128), F=F,
+                       g=g, L=prob.L)
+    xr, _ = Katyusha(maxit=3)(_x0(), F=F, g=g, L=prob.L)
+    assert xc.dtype == torch.complex128
+    np.testing.assert_allclose(xc.numpy(), xr.numpy(), rtol=1e-12,
+                               atol=1e-14)
     x, _ = Katyusha(maxit=3)(_x0(), g=g, L=prob.L, N=Nf)
     np.testing.assert_array_equal(x.numpy(), _x0().numpy())

@@ -34,6 +34,7 @@ from ciao_tpu_torch.oracles import (
 )
 from ciao_tpu_torch.prox import NormL1
 from ciao_tpu_torch.solvers.saga import saga_init, saga_run
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n, B, LAM = 64, 8, 8, 0.05
 KINDS = ["lsq", "logistic", "huber", "sqhinge", "poisson"]

@@ -34,6 +34,7 @@ from ciao_tpu_torch.oracles import (
 )
 from ciao_tpu_torch.prox import NormL1
 from ciao_tpu_torch.utils import make_logistic_l1
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n, B = 64, 16, 8
 KINDS = ["lsq", "logistic", "huber", "sqhinge", "poisson"]

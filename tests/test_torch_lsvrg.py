@@ -39,6 +39,7 @@ from ciao_tpu_torch.solvers import (
 from ciao_tpu_torch.solvers.lsvrg import (
     LOOPLESS_LAUNCH, _windows, draw_coins,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):
@@ -634,8 +635,11 @@ def test_loopless_refusals(lasso):
                                                      L=prob.L)
         with pytest.raises(ValueError, match=msg):
             S(maxit=2)(_x0(), F=F, g=g)
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            S(maxit=2)(torch.zeros(nf, dtype=torch.complex128), F=F, g=g,
-                       L=prob.L)
+        xc, _ = S(maxit=3)(torch.zeros(nf, dtype=torch.complex128), F=F,
+                           g=g, L=prob.L)
+        xr, _ = S(maxit=3)(_x0(), F=F, g=g, L=prob.L)
+        assert xc.dtype == torch.complex128
+        np.testing.assert_allclose(xc.numpy(), xr.numpy(), rtol=1e-12,
+                                   atol=1e-14)
         x, _ = S(maxit=3)(_x0(), g=g, L=prob.L, N=Nf)
         np.testing.assert_array_equal(x.numpy(), _x0().numpy())

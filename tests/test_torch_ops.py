@@ -26,6 +26,7 @@ from ciao_tpu_torch.ops import _build
 from ciao_tpu_torch.ops import fused_block as tfb
 from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.prox import NormL1, Zero
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n, B, K = 1024, 128, 128, 16
 SLAB = (jfb.SLAB_ROWS, N // jfb.SLAB_ROWS)

@@ -21,6 +21,7 @@ from ciao_tpu_torch.oracles import (
     LeastSquaresRows, parse_storage_dtype, quantize_rows,
 )
 from ciao_tpu_torch.utils.problems import make_lasso
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n = 96, 24
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
@@ -149,9 +150,16 @@ def test_with_storage_rules():
     with pytest.raises(ValueError, match="unknown storage"):
         parse_storage_dtype("int4")
     assert parse_storage_dtype("i8") is torch.int8
-    with pytest.raises(NotImplementedError, match="complex"):
-        LeastSquaresRows(torch.zeros(4, 2, dtype=torch.complex64),
+    # complex rows keep a complex storage: int8 raises JAX's error, and a
+    # real dtype would drop the imaginary part
+    C = LeastSquaresRows(torch.ones(4, 2, dtype=torch.complex64),
                          torch.zeros(4, dtype=torch.complex64), 4.0)
+    assert C.scale.dtype == torch.float32
+    assert C.with_storage(torch.complex128).A.dtype == torch.complex128
+    with pytest.raises(ValueError, match="int8 storage requires real rows"):
+        C.with_storage("int8")
+    with pytest.raises(ValueError, match="imaginary part"):
+        C.with_storage("bf16")
 
 
 def test_oracle_is_a_module_of_buffers():

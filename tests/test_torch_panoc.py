@@ -39,6 +39,7 @@ from ciao_tpu_torch.oracles import LeastSquaresRows, LogisticRows, SmoothOracle
 from ciao_tpu_torch.prox import MCP, NormL1
 from ciao_tpu_torch.solvers import panoc as tpanoc
 from ciao_tpu_torch.solvers.base import Status, take
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n = 64, 8
 MODES = [jfb.MODE_LSQ, jfb.MODE_LOGISTIC, jfb.MODE_HUBER, jfb.MODE_SQHINGE,
@@ -390,10 +391,16 @@ def test_fused_route_matches_the_two_product_read(lasso, monkeypatch):
 
 
 def test_complex_iterates_are_refused(lasso):
+    """No longer refused: a complex iterate on real rows runs the real
+    trajectory (the ring's ρ = 1/Re⟨s, y⟩) with a zero imaginary part."""
     prob, JF, jg, F, g = lasso
-    with pytest.raises(NotImplementedError, match="complex"):
-        PANOC(maxit=3)(torch.zeros(n, dtype=torch.complex128), F=F, g=g,
-                       L=prob.L)
+    for S in (PANOC(maxit=12), ZeroFPR(maxit=12)):
+        xc, _ = S(torch.zeros(n, dtype=torch.complex128), F=F, g=g,
+                  L=prob.L)
+        xr, _ = S(_x0(), F=F, g=g, L=prob.L)
+        assert xc.dtype == torch.complex128
+        np.testing.assert_allclose(xc.numpy(), xr.numpy(), rtol=1e-10,
+                                   atol=1e-12)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ from ciao_tpu_torch.solvers import (
     point_saga_run, solution, take,
 )
 from ciao_tpu_torch.solvers import point_saga as tps
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -26,6 +26,7 @@ from ciao_tpu_torch.solvers.polish import (
     _two_sum, fista_polish, grad_mean_chunked, lsq_power_lmax, power_lmax,
 )
 from ciao_tpu_torch.utils.problems import make_lasso
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n = 4096, 64
 RTOL = {np.float32: 2e-5, np.float64: 1e-12}

@@ -52,6 +52,7 @@ from ciao_tpu_torch.oracles import (
 from ciao_tpu_torch.prox import IndBox, NormL1, Zero
 from ciao_tpu_torch.solvers import proshi as tpro
 from ciao_tpu_torch.utils.problems import make_sharing, make_sharing_planted
+from torch_threads import one_torch_thread  # noqa: F401
 
 MAXIT, TOL = 1000, 1e-4
 

@@ -14,6 +14,7 @@ import torch
 from ciao_tpu.prox import NormL1 as JNormL1
 from ciao_tpu.prox import Zero as JZero
 from ciao_tpu_torch.prox import NormL1, ProxOperator, Zero
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = [np.float32, np.float64]
 RTOL = {np.float32: 1e-6, np.float64: 1e-14}

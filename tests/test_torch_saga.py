@@ -33,6 +33,7 @@ from ciao_tpu_torch.solvers import (
     SAG, SAGA, SAGACfg, Status, block_starts, halt, importance_draws, loop,
     saga_init, saga_rebase, saga_run, saga_step, solution, take,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 Np, npix, Bp = 1024, 128, 128
 
@@ -362,6 +363,7 @@ def test_port_imports_no_jax():
         "import ciao_tpu_torch.utils.problems, ciao_tpu_torch.solvers.proshi",
         "import ciao_tpu_torch.solvers.deep_sharing, ciao_tpu_torch.oracles",
         "import ciao_tpu_torch.oracles.sparse, ciao_tpu_torch.solvers.deep_pd",
+        "import ciao_tpu_torch.oracles.compose",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ciao_tpu'))",
         "assert not bad, bad",
@@ -383,8 +385,10 @@ def test_package_surface():
                  "iterator", "IndBox", "DiagQuadratic", "DenseQuadratic",
                  "SqrDistBox", "SumOracle", "ZeroOracle", "proshi_resync",
                  "sharing_objective", "deep_solve_pd", "DeepPDInfo",
-                 "tv_refine", "tv_refine3"):
+                 "tv_refine", "tv_refine3", "Precompose", "CustomOracle"):
         assert hasattr(ct, name), name
+        if name in ("Precompose", "CustomOracle"):
+            assert getattr(ct.oracles, name) is getattr(ct, name)
     assert Zero().prox_only(torch.ones(2), 0.1).tolist() == [1.0, 1.0]
 
 

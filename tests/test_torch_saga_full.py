@@ -33,6 +33,7 @@ from ciao_tpu_torch.oracles import LeastSquaresRows
 from ciao_tpu_torch.prox import NormL1
 from ciao_tpu_torch.solvers import saga as tsaga
 from ciao_tpu_torch.solvers.saga import SAGACfg, saga_init, saga_rebase, saga_run
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

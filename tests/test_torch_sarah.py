@@ -29,6 +29,7 @@ from ciao_tpu_torch.prox import NormL1
 from ciao_tpu_torch.solvers import (
     SARAH, SARAHCfg, sarah_init, sarah_run, sarah_step, solution, take,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):
@@ -302,9 +303,12 @@ def test_sarah_refusals(lasso):
         SARAH(maxit=2)(_x0(), F=F, g=g)
     with pytest.raises(ValueError, match="m must be"):
         SARAH(maxit=2, m=0)(_x0(), F=F, g=g, L=prob.L)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        SARAH(maxit=2)(torch.zeros(nf, dtype=torch.complex128), F=F, g=g,
-                       L=prob.L)
+    xc, _ = SARAH(maxit=3)(torch.zeros(nf, dtype=torch.complex128), F=F,
+                       g=g, L=prob.L)
+    xr, _ = SARAH(maxit=3)(_x0(), F=F, g=g, L=prob.L)
+    assert xc.dtype == torch.complex128
+    np.testing.assert_allclose(xc.numpy(), xr.numpy(), rtol=1e-12,
+                               atol=1e-14)
     _, it = SARAH(maxit=2, gamma=1e-3)(_x0(), F=F, g=g)
     assert it == 2
     x, _ = SARAH(maxit=3, gamma=1e-3)(_x0(), g=g, N=Nf)

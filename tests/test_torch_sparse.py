@@ -51,6 +51,7 @@ from ciao_tpu_torch.solvers import saga as tsaga
 from ciao_tpu_torch.solvers import svrg as tsvrg
 from ciao_tpu_torch.utils import make_sparse_lasso_ell
 from ciao_tpu_torch.utils.problems import nan_median_nearest
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n, K = 128, 32, 8          # tests/test_sparse.py's ELL fixtures
 N_H, n_H = 160, 48            # its hybrid fixtures

@@ -36,6 +36,7 @@ from ciao_tpu_torch.prox import (
 from ciao_tpu_torch.solvers import dys, primal_dual
 from ciao_tpu_torch.solvers.base import take
 from ciao_tpu_torch.solvers.primal_dual import prox_conjugate
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n = 64, 8
 F64 = torch.float64
@@ -372,7 +373,8 @@ def test_dys_box_constrained_lasso(lasso):
 def test_iterators_and_refusals(lasso):
     """The first state is x0 and the last equals the batch run (Davis-Yin
     and Condat-Vũ); no L and no stepsize raise; user stepsizes that break
-    τ(L/2 + σ‖K‖²) ≤ 1 warn; complex iterates are refused."""
+    τ(L/2 + σ‖K‖²) ≤ 1 warn; a complex iterate on real rows runs the
+    real trajectory."""
     prob, JF, jg, F, g = lasso
     h = IndBox(-1.0, 1.0)
     solver = DavisYin(maxit=5)
@@ -398,9 +400,13 @@ def test_iterators_and_refusals(lasso):
     with pytest.warns(UserWarning, match="convergence condition"):
         CondatVu(tau=5.0, sigma=5.0, maxit=2)(
             torch.zeros(16, dtype=F64), F=Fq, h=hq, K=K, L=L, N=16)
-    for S in (DavisYin(maxit=2), CondatVu(maxit=2)):
-        with pytest.raises(NotImplementedError, match="complex"):
-            S(torch.zeros(16, dtype=torch.complex128), g=hq, N=1)
+    for S, kw in ((DavisYin(maxit=4), {}), (CondatVu(maxit=4), dict(K=K))):
+        xc, _ = S(torch.zeros(16, dtype=torch.complex128), F=Fq, h=hq, L=L,
+                  N=16, **kw)
+        xr, _ = S(torch.zeros(16, dtype=F64), F=Fq, h=hq, L=L, N=16, **kw)
+        assert xc.dtype == torch.complex128
+        np.testing.assert_allclose(xc.numpy(), xr.numpy(), rtol=1e-12,
+                                   atol=1e-14)
 
 
 def _tv_certificate(x, b, lam):

@@ -36,6 +36,7 @@ from ciao_tpu_torch.solvers import (
 )
 from ciao_tpu_torch.solvers import finito as tfinito
 from ciao_tpu_torch.solvers.base import Status
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):
@@ -330,7 +331,8 @@ def test_facade_defaults_match_jax(lasso):
 def test_facade_routing_and_errors(lasso, monkeypatch):
     """Closed gate (CPU) → stepwise; the opened gate → kernel #19 within
     JAX's resident bounds, #13 beyond them (a lowered RESIDENT_MAX_ROWS);
-    the errors of JAX's facade."""
+    the errors of JAX's facade; a complex iterate on real rows runs the
+    real trajectory stepwise."""
     prob, JF, jg, F, g = lasso
     x0 = torch.zeros(nL, dtype=torch.float64)
     cfg = SSNM(batch=BL)._setup(x0, F, g, prob.L, None)[3]
@@ -349,8 +351,13 @@ def test_facade_routing_and_errors(lasso, monkeypatch):
         SSNM(batch=BL)(x0, F=F, g=g)
     with pytest.raises(ValueError, match="tau"):
         SSNM(tau=1.5)
-    with pytest.raises(NotImplementedError, match="complex"):
-        SSNM(batch=BL)(x0.to(torch.complex128), F=F, g=g, L=prob.L)
+    monkeypatch.undo()  # the real gate: a complex iterate closes it
+    xc, _ = SSNM(maxit=5, batch=BL)(x0.to(torch.complex128), F=F, g=g,
+                                    L=prob.L)
+    xr, _ = SSNM(maxit=5, batch=BL)(x0, F=F, g=g, L=prob.L)
+    assert xc.dtype == torch.complex128
+    np.testing.assert_allclose(xc.numpy(), xr.numpy(), rtol=1e-12,
+                               atol=1e-14)
 
 
 def test_facade_converges_and_iterator(lasso):

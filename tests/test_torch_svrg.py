@@ -38,6 +38,7 @@ from ciao_tpu_torch.solvers import (
     svrg_step, take,
 )
 from ciao_tpu_torch.solvers.svrg import inner_indices, inner_starts
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):
