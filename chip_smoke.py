@@ -74,7 +74,12 @@ no clamp count), ``point_saga_multistep_streamed.cu`` (kernels #15 and #12:
 - the primal-dual deep route of ``bench.py`` (``bench_pd_deep``,
   :1131-1258): ``deep_solve_pd`` on the planted 262,144 x 1,024 fused lasso
   and three-term problems assembled on the card; it runs none of the
-  nineteen kernels, by design.
+  nineteen kernels, by design;
+- checkpoints (``ciao_tpu_torch.checkpoint``) at full width: the headline
+  and SAGA's 1 GiB full table saved, loaded and resumed, an async save
+  while the solver steps, and every facade's iterator resumed;
+- the entry point ``ciao_tpu_torch.entry`` and the six examples of
+  ``examples_torch/`` at their default sizes.
 
 Phases, one line each:
 
@@ -234,7 +239,9 @@ Phases, one line each:
      ``deep_solve`` on both layouts to rel <= 1e-6; (d) ``deep_solve`` on
      sparse logistic rows of the same design, both layouts, to rel <= 1e-6
      of an f64 ELL FISTA reference; (b) the full rcv1 shape 524,288 x
-     65,536 (hot 1,024, k 48 + 16): SAGA at B = 4,096 on each layout;
+     65,536 (hot 1,024, k 48 + 16): SAGA at B = 4,096 on each layout, then
+     the plant built again at --seed (the first freed) and held to the
+     first bit for bit in every field;
   4y. the primal-dual deep route (compensated Condat-Vũ and the certified
      reduced solves in torch; no kernel launches, by design): bench.py's
      bench_pd_deep plants of 262,144 x 1,024 f32 rows with 16 jumps built
@@ -259,6 +266,31 @@ Phases, one line each:
      far it moves without the conjugates; CustomOracle's Welsch loss
      through SARAH and PANOC at tests/test_nonconvex.py's 256 x 16 and
      bars, and Precompose of a scalar logistic loss == LogisticRows;
+  4ck. checkpoints: (a) the headline's coefficient SAGA through saga_run,
+     2·128 steps straight against 128, ``save``, ``load`` and 128 more,
+     split at a launch boundary so that both issue the same kernel #3
+     launches, z, av and s bit for bit; (b) SAGA's full table at the
+     headline (1 GiB of f32, kernel #1 a step) through the iterator:
+     ``save`` and ``load`` timed (seconds, GB/s), ``save_async`` and 64
+     steps while the write runs (ms a step with and without a write in
+     flight), the file equal to its snapshot and the resume from it equal
+     to the straight run, bit for bit; (c) an int8-stage SAGA state
+     resumed under f32 rows with ``rebase=True``, its av within 1e-6 of
+     kernel #6's f32 pass over its table; (d) every facade's iterator on
+     the facades' planted Lasso (SAGA, SAG, SVRG, SVRG++, FISTA, Finito's
+     coefficient and full tables, LFinito, adaptive Finito, ProShI,
+     Katyusha, SARAH, L-SVRG, L-Katyusha, SSNM, Point-SAGA, PANOC,
+     ZeroFPR, Davis-Yin, Condat-Vũ) and a complex64 SAGA state on 4z's
+     plant, stopped, saved, loaded onto the card and resumed, bit for bit
+     the straight run, with the kernels each resume launched; (e) a
+     sparse-route SAGA state, held to 1e-5 of its largest entry (its
+     scatter-adds add with atomics);
+  4ex. ``entry()`` (one kernel #4 launch), then each example of
+     ``examples_torch/`` at its default size (``large_scale_lasso`` in f32,
+     bf16 and int8), its asserts holding, with its own numbers and the
+     kernels it launched: #6 and #8 for the LFinito examples, #3 or #4
+     (and #6) for ``deep_accuracy``, none for ``fused_lasso_tv``,
+     ``tv_denoise_2d`` and ``sparse_logistic``;
   11. times: kernel #7 per pass at the headline in turns with its plain
      version and kernel #6, its bound, the read ceiling and the two-gemv +
      value yardstick, and the same at the deep target's shape.
@@ -4359,16 +4391,16 @@ SPARSE_GROUPS = {"gather": ("indexSelect", "gather"),
                  "hot product": ("gemv", "gemm", "cutlass", "xmma")}
 
 
-def sparse_problem(dev, shape: dict):
-    """make_sparse_lasso_ell at ``shape`` on the card, with its build time
-    logged."""
+def sparse_problem(dev, shape: dict, seed=None):
+    """make_sparse_lasso_ell at ``shape`` on the card (at ``seed``, else
+    the shape's), with its build time logged."""
     from ciao_tpu_torch.utils import make_sparse_lasso_ell
 
     t0 = time.perf_counter()
     prob = make_sparse_lasso_ell(
         N=shape["N"], n=shape["n"], hot=shape["hot"], k_hot=shape["k_hot"],
         k_cold=shape["k_cold"], p=shape["p"], rho=shape["rho"],
-        seed=shape["seed"], device=dev)
+        seed=shape["seed"] if seed is None else seed, device=dev)
     torch.cuda.synchronize()
     log(f"  planted sparse Lasso {shape['N']} x {shape['n']} (hot "
         f"{shape['hot']}, k {shape['k_hot']} + {shape['k_cold']}, p "
@@ -4599,14 +4631,39 @@ def run_sparse_logistic(prob, dev, seed: int, card: str) -> dict:
     return out
 
 
+def plant_fields(prob) -> dict:
+    """Every field of a sparse plant by name (both layouts' buffers and
+    widths, x*, f*, λ, L), its tensors copied to the host."""
+    out = dict(f_star=prob.f_star, lam=prob.lam, x_star=prob.x_star.cpu(),
+               L=prob.L.cpu())
+    for lay in ("ell", "hybrid"):
+        F = getattr(prob, lay)
+        out[f"{lay}.dim"] = F.dim
+        out.update((f"{lay}.{k}", v.cpu()) for k, v in F.named_buffers())
+    return out
+
+
 def run_sparse_full(dev, seed: int, card: str) -> dict:
     """4x (b): SAGA at blocks of 4,096 rows on each layout of the full
-    rcv1 shape of bench.py (:1361-1383)."""
+    rcv1 shape of bench.py (:1361-1383), planted at ``seed``; then the
+    plant built again at ``seed`` (the first freed), which must equal the
+    first bit for bit, every field (``repeat``: the count of fields)."""
     t0 = time.perf_counter()
-    prob = sparse_problem(dev, SPARSE_FULL)
+    prob = sparse_problem(dev, SPARSE_FULL, seed)
+    first = plant_fields(prob)
     out = sparse_saga(prob, SPARSE_FULL["B"], seed, card)
     del prob
     torch.cuda.empty_cache()
+    second = plant_fields(sparse_problem(dev, SPARSE_FULL, seed))
+    torch.cuda.empty_cache()
+    differ = [k for k, v in first.items()
+              if not (torch.equal(v, second[k]) if torch.is_tensor(v)
+                      else v == second[k])]
+    if differ or first.keys() != second.keys():
+        raise AssertionError(f"two sparse plants at seed {seed} differ in "
+                             f"{differ}: f* {first['f_star']!r} and "
+                             f"{second['f_star']!r}")
+    out["repeat"] = len(first)
     out["s"] = time.perf_counter() - t0
     return out
 
@@ -5304,6 +5361,467 @@ def time_value_apply(gen, dev, storage: str, card: str,
     return dict(ms=sum(t7) / 2, plain_ms=sum(pl) / 2, bound_ms=b_ms,
                 bound_by=b_by, ceil_ms=ceil_ms, six_ms=sum(t6) / 2,
                 two_gemv_ms=lib, modes=modes)
+
+
+# 4ck: checkpoints at full width. The headline coefficient run through
+# saga_run split at a launch boundary (LAUNCH_STEPS), so that both runs issue
+# the same kernel #3 launches; SAGA's 1 GiB full table at the headline
+# through the iterator (kernel #1 a step), saved, loaded, and saved in the
+# background while CKPT_ASYNC_STEPS more steps run; a rebase of an int8-stage
+# state; every facade's iterator on the facades' planted Lasso stopped after
+# CKPT_STOP states, saved, loaded onto the card and resumed to CKPT_STATES,
+# bit for bit the straight run; one complex64 SAGA state on 4z's plant, and
+# one sparse-route SAGA state, held to CKPT_SPARSE_TOL of its largest entry
+# (its scatter-adds add with atomics, so its bits do not repeat)
+CKPT_ASYNC_STEPS = 64
+CKPT_STOP, CKPT_STATES = 6, 12
+CKPT_SPARSE_TOL = 1e-5
+REBASE_TOL = 1e-6
+
+
+def ckpt_leaves(node, path="state"):
+    """(path, value) of every tensor and scalar of a state."""
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        for f, v in zip(node._fields, node):
+            yield from ckpt_leaves(v, f"{path}.{f}")
+    elif isinstance(node, (tuple, list)):
+        for i, v in enumerate(node):
+            yield from ckpt_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, node
+
+
+def ckpt_compare(a, b, tag: str, tol: float = 0.0) -> float:
+    """Raise unless two states hold the same fields, each tensor on one
+    device with one dtype and equal bit for bit (``tol`` = 0) or within
+    ``tol`` of its largest entry; returns the largest such error."""
+    la, lb = list(ckpt_leaves(a)), list(ckpt_leaves(b))
+    if type(a) is not type(b) or [p for p, _ in la] != [p for p, _ in lb]:
+        raise AssertionError(f"{tag}: the states' fields differ")
+    worst = 0.0
+    for (p, x), (_, y) in zip(la, lb):
+        if not torch.is_tensor(x):
+            if x != y:
+                raise AssertionError(f"{tag}: {p} {x!r} != {y!r}")
+            continue
+        if (x.dtype, x.shape, x.device) != (y.dtype, y.shape, y.device):
+            raise AssertionError(f"{tag}: {p} is {x.dtype} {tuple(x.shape)} "
+                                 f"on {x.device} and {y.dtype} "
+                                 f"{tuple(y.shape)} on {y.device}")
+        if tol == 0.0:
+            if not torch.equal(x, y):
+                raise AssertionError(f"{tag}: {p} differs")
+            continue
+        err = float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+        worst = max(worst, err)
+        if not err <= tol:
+            raise AssertionError(f"{tag}: {p} off by {err:.3e} of its "
+                                 f"largest entry")
+    return worst
+
+
+def state_bytes(state) -> int:
+    return sum(v.numel() * v.element_size() for _, v in ckpt_leaves(state)
+               if torch.is_tensor(v))
+
+
+def split_resume(make_iter, path: str, dev, tol: float = 0.0) -> dict:
+    """CKPT_STATES states of ``make_iter()`` straight; CKPT_STOP states, a
+    save, a load onto ``dev`` and the resume to CKPT_STATES, held to the
+    straight run (bit for bit at ``tol`` = 0); the kernels the resume
+    launched, counted from 0."""
+    from ciao_tpu_torch import checkpoint
+    from ciao_tpu_torch.solvers import loop, take
+
+    straight = loop(take(iter(make_iter()), CKPT_STATES))
+    mid = loop(take(iter(make_iter()), CKPT_STOP))
+    checkpoint.save(path, mid)
+    back = checkpoint.load(path, device=dev)
+    ckpt_compare(back, mid, "load")
+    del mid
+    reset_counts()
+    resumed = loop(take(checkpoint.resume_iterator(make_iter(), back),
+                        CKPT_STATES - CKPT_STOP + 1))
+    torch.cuda.synchronize()
+    c = counts()
+    err = ckpt_compare(resumed, straight, "resume", tol)
+    return dict(launches={k: v for k, v in c.items() if v}, err=err)
+
+
+def ckpt_facades(L_max: float):
+    """(name, solver, keywords) of every facade of 4ck on the facades'
+    planted Lasso."""
+    from ciao_tpu_torch import (
+        FISTA, LSVRG, PANOC, SAG, SAGA, SARAH, SSNM, SVRG, CondatVu,
+        DavisYin, Finito, FirstDifference, IndBox, Katyusha, LKatyusha,
+        NormL1, PointSAGA, Proshi, ZeroFPR,
+    )
+
+    Bf = FACADE["batch"]
+    bs = dict(block_sampling=True, batch=Bf)
+    gam = 1.0 / (3.0 * L_max)
+    return [
+        ("SAGA", SAGA(**bs), {}),
+        ("SAG", SAG(**bs), {}),
+        ("SVRG", SVRG(m=FACADE["N"] // Bf, gamma=gam, **bs), {}),
+        ("SVRG++", SVRG(m=1, gamma=gam, plus=True, **bs), {}),
+        ("FISTA", FISTA(), {}),
+        ("Finito", Finito(sweeping=3, minibatch=(True, Bf)), {}),
+        ("Finito full table", Finito(sweeping=3, minibatch=(True, Bf),
+                                     table="full"), {}),
+        ("LFinito", Finito(sweeping=3, minibatch=(True, Bf), LFinito=True),
+         {}),
+        ("Finito adaptive", Finito(adaptive=True), {}),
+        ("ProShI", Proshi(sweeping=2, minibatch=(True, PROSHI["B"])),
+         dict(g=IndBox(-float("inf"), PROSHI["hi"]))),
+        ("Katyusha", Katyusha(**bs), {}),
+        ("SARAH", SARAH(**bs), {}),
+        ("L-SVRG", LSVRG(**bs), {}),
+        ("L-Katyusha", LKatyusha(**bs), {}),
+        ("SSNM", SSNM(batch=Bf), {}),
+        ("Point-SAGA", PointSAGA(**bs), dict(g=None)),
+        ("PANOC", PANOC(), {}),
+        ("ZeroFPR", ZeroFPR(), {}),
+        ("Davis-Yin", DavisYin(), dict(h=IndBox(-1.0, 1.0))),
+        ("Condat-Vu", CondatVu(), dict(h=NormL1(0.05), K=FirstDifference())),
+    ]
+
+
+def ckpt_headline(gen, dev, tmp: str, card: str) -> dict:
+    """4ck (a): 2·LAUNCH_STEPS steps of the headline's coefficient SAGA
+    through saga_run straight, and LAUNCH_STEPS, save, load and
+    LAUNCH_STEPS more: z, av and s bit for bit, each run on kernel #3's
+    launches of LAUNCH_STEPS."""
+    from ciao_tpu_torch import checkpoint
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers.saga import (
+        LAUNCH_STEPS, SAGACfg, saga_init, saga_run,
+    )
+
+    F, gamma, _ = lasso(gen, dev, N, n, "f32")
+    g = NormL1(torch.tensor(0.1, device=dev))
+    cfg = SAGACfg(N=N, sag=False, batch=B, block=True, coeff=True,
+                  fused=True)
+    st0 = saga_init(F, g, torch.zeros(n, device=dev), gamma, 0, cfg)
+    reset_counts()
+    straight = saga_run(F, g, st0, cfg, 2 * LAUNCH_STEPS)
+    first = saga_run(F, g, st0, cfg, LAUNCH_STEPS)
+    checkpoint.save(f"{tmp}/headline.pt", first)
+    back = checkpoint.load(f"{tmp}/headline.pt", device=dev)
+    resumed = saga_run(F, g, back, cfg, LAUNCH_STEPS)
+    torch.cuda.synchronize()
+    c = counts()
+    if c["saga_coeff_multistep"] != 4 or sum(c.values()) != 4:
+        raise AssertionError(f"4ck headline: {c}, not two kernel #3 "
+                             f"launches a run")
+    ckpt_compare(resumed, straight, "4ck headline")
+    log(f"  4ck headline SAGA {N} x {n} f32, B={B}: {2 * LAUNCH_STEPS} "
+        f"steps straight == {LAUNCH_STEPS} + save + load + {LAUNCH_STEPS} "
+        f"bit for bit (z, av, s), each run 2 kernel #3 launches [{card}]")
+    return c
+
+
+def async_steps(path: str, state, stream) -> dict:
+    """``save_async(path, state)``, then CKPT_ASYNC_STEPS steps of
+    ``stream`` while the write runs: ms a step, whether the write was still
+    running after them, seconds to the write's end; the file must equal
+    ``state`` bit for bit. Returns the numbers and the last state."""
+    from ciao_tpu_torch import checkpoint
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr = checkpoint.save_async(path, state)
+    ret_s = time.perf_counter() - t0
+    for _ in range(CKPT_ASYNC_STEPS):
+        last = next(stream)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / CKPT_ASYNC_STEPS
+    in_flight = not mgr.done()
+    mgr.wait_until_finished()
+    done_s = time.perf_counter() - t0
+    ckpt_compare(checkpoint.load(path, device=state.z.device), state,
+                 "4ck async file against its snapshot")
+    return dict(ret_s=ret_s, ms=ms, in_flight=in_flight, done_s=done_s,
+                last=last)
+
+
+def ckpt_full_table(gen, dev, tmp: str, card: str) -> dict:
+    """4ck (b): SAGA's full table at the headline (1 GiB of f32) through the
+    iterator: ``save`` and ``load`` timed; ``save_async``, then
+    CKPT_ASYNC_STEPS steps while the write runs (the process's first
+    write: its staging buffers and snapshot allocated cold), the file equal to the snapshot and those
+    steps equal to the straight run, bit for bit; the resume from the file
+    equal to the straight run bit for bit, CKPT_ASYNC_STEPS steps of it
+    timed with no write, then as many beside a second write (the cache
+    warm)."""
+    from ciao_tpu_torch import SAGA, checkpoint
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers import loop, take
+
+    F, _, L = lasso(gen, dev, N, n, "f32")
+    solver = SAGA(table="full", block_sampling=True, batch=B)
+
+    def make_iter():
+        return solver.iterator(torch.zeros(n, device=dev), F=F,
+                               g=NormL1(torch.tensor(0.1, device=dev)),
+                               L=L)
+
+    stop, total = 17, 17 + CKPT_ASYNC_STEPS
+    straight = loop(take(iter(make_iter()), total))
+    stream = iter(make_iter())
+    mid = loop(take(stream, stop))
+    nbytes = state_bytes(mid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(f"{tmp}/full.pt", mid)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = checkpoint.load(f"{tmp}/full.pt", device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ckpt_compare(back, mid, "4ck full table load")
+    del back
+    reset_counts()
+    cold = async_steps(f"{tmp}/cold.pt", mid, stream)
+    ckpt_compare(cold.pop("last"), straight,
+                 "4ck full table, steps beside the write")
+    snap = checkpoint.load(f"{tmp}/cold.pt", device=dev)
+    del mid, stream
+    resume = checkpoint.resume_iterator(make_iter(), snap)
+    next(resume)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CKPT_ASYNC_STEPS):
+        state = next(resume)
+    torch.cuda.synchronize()
+    without_ms = (time.perf_counter() - t0) * 1e3 / CKPT_ASYNC_STEPS
+    ckpt_compare(state, straight, "4ck full table resume")
+    del snap, straight
+    warm = async_steps(f"{tmp}/warm.pt", state, resume)
+    del warm["last"], state, resume
+    c = counts()
+    if c["saga_block_update"] != 3 * CKPT_ASYNC_STEPS or sum(
+            c.values()) != c["saga_block_update"]:
+        raise AssertionError(f"4ck full table: {c}, not kernel #1 a step")
+    out = dict(bytes=nbytes, save_s=save_s, load_s=load_s, cold=cold,
+               warm=warm, without_ms=without_ms, launches=c)
+    log(f"  4ck SAGA full table {N} x {n} f32 through the iterator "
+        f"({nbytes / 2**30:.3f} GiB state): save {save_s:.3f} s "
+        f"({nbytes / save_s / 1e9:.2f} GB/s), load onto the card "
+        f"{load_s:.3f} s ({nbytes / load_s / 1e9:.2f} GB/s); "
+        + "; ".join(
+            f"save_async ({k}) returned in "
+            f"{v['ret_s'] * 1e3:.1f} ms, {CKPT_ASYNC_STEPS} steps beside the "
+            f"write {v['ms']:.4f} ms/step (write still running after them: "
+            f"{v['in_flight']}), the write done {v['done_s']:.3f} s after "
+            f"the call" for k, v in (("cold", cold), ("warm", warm)))
+        + f"; {CKPT_ASYNC_STEPS} steps with no write {without_ms:.4f} "
+        f"ms/step; each file == its snapshot and the steps and the resume "
+        f"== the straight run, bit for bit; kernel #1 "
+        f"{c['saga_block_update']} launches [{card}]")
+    return out
+
+
+def ckpt_rebase(dev, fprob, fF, card: str) -> float:
+    """4ck (c): an int8-stage SAGA state resumed under the f32 rows with
+    ``rebase=True``: its first av equals Σ s_i·a_i / N from one f32 pass of
+    kernel #6 over its table (c_i = s_i: least-squares mode at scale 1,
+    z = 0, offsets −s) to REBASE_TOL of its largest entry."""
+    from ciao_tpu_torch import SAGA, checkpoint
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers import loop, take
+
+    solver = SAGA(block_sampling=True, batch=FACADE["batch"])
+    x0 = torch.zeros(n, device=dev)
+    g = NormL1(torch.tensor(fprob.lam, dtype=torch.float32, device=dev))
+    st = loop(take(iter(solver.iterator(x0, F=fF.with_storage("int8"), g=g,
+                                        L=fprob.L)), 30))
+    first = next(checkpoint.resume_iterator(
+        solver.iterator(x0, F=fF, g=g, L=fprob.L), st, rebase=True))
+    rows, _ = fF.coeff_rows_data()
+    _, gsum = fb.coeff_apply_all(
+        rows, -st.s, torch.zeros(n, device=dev),
+        torch.tensor([1.0, fb.MODE_LSQ, 0.0], device=dev))
+    want = gsum / FACADE["N"]
+    err = float((first.av - want).abs().max() / want.abs().max())
+    moved = float((first.av - st.av).abs().max() / want.abs().max())
+    log(f"  4ck rebase: an int8-stage SAGA state resumed under f32 rows, "
+        f"first av off kernel #6's f32 pass over its table by {err:.3e} of "
+        f"its largest entry (bar {REBASE_TOL:g}); the int8 av was off by "
+        f"{moved:.3e} [{card}]")
+    if not (err <= REBASE_TOL and moved > err):
+        raise AssertionError(f"4ck rebase: av off by {err}, moved {moved}")
+    return err
+
+
+def ckpt_complex_and_sparse(dev, seed: int, tmp: str, card: str) -> dict:
+    """4ck (e): one complex64 SAGA state on 4z's plant, bit for bit, and
+    one SAGA state on the sparse route's ELL rows (4x (a)'s plant), held to
+    CKPT_SPARSE_TOL."""
+    from ciao_tpu_torch import SAGA, LeastSquaresRows
+    from ciao_tpu_torch.prox import NormL1
+
+    out = {}
+    P = complex_plant(dev, seed)
+    F = LeastSquaresRows(P["A"], P["b"], float(COMPLEX["N"]))
+    solver = SAGA(block_sampling=True, batch=COMPLEX["B"])
+    out["complex64 SAGA"] = split_resume(
+        lambda: solver.iterator(
+            torch.zeros(COMPLEX["n"], dtype=torch.complex64, device=dev),
+            F=F, g=NormL1(P["lam"]), L=P["L"]), f"{tmp}/complex.pt", dev)
+    del P, F
+    torch.cuda.empty_cache()
+    prob = sparse_problem(dev, SPARSE, seed)
+    solver = SAGA(block_sampling=True, batch=SPARSE["B"])
+    out["sparse ELL SAGA"] = split_resume(
+        lambda: solver.iterator(
+            torch.zeros(SPARSE["n"], device=dev), F=prob.ell,
+            g=NormL1(torch.tensor(prob.lam, device=dev)), L=prob.L),
+        f"{tmp}/sparse.pt", dev, tol=CKPT_SPARSE_TOL)
+    del prob
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_checkpoints(gen, dev, seed: int, card: str) -> dict:
+    """Phase 4ck; returns its numbers."""
+    import tempfile
+
+    from ciao_tpu_torch.prox import NormL1
+
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ciao-ckpt-") as tmp:
+        out = {"headline": ckpt_headline(gen, dev, tmp, card)}
+        torch.cuda.empty_cache()
+        out["full"] = ckpt_full_table(gen, dev, tmp, card)
+        torch.cuda.empty_cache()
+        fprob, fF = facade_problem(dev, seed)
+        out["rebase"] = ckpt_rebase(dev, fprob, fF, card)
+        g = NormL1(torch.tensor(fprob.lam, dtype=torch.float32,
+                                device=dev))
+        facades = {}
+        for name, solver, extra in ckpt_facades(float(fprob.L.max())):
+            kw = dict(F=fF, g=g, L=fprob.L, N=FACADE["N"])
+            kw.update(extra)
+            t0 = time.perf_counter()
+            facades[name] = split_resume(
+                lambda: solver.iterator(torch.zeros(n, device=dev), **kw),
+                f"{tmp}/facade.pt", dev)
+            facades[name]["s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        del fprob, fF
+        torch.cuda.empty_cache()
+        facades.update(ckpt_complex_and_sparse(dev, seed, tmp, card))
+    out["facades"] = facades
+    out["s"] = time.perf_counter() - t_all
+    log(f"  4ck resumes ({CKPT_STOP} states, save, load onto the card, "
+        f"{CKPT_STATES - CKPT_STOP} more == {CKPT_STATES} straight): "
+        + "; ".join(f"{k} {resume_text(v)}" for k, v in facades.items())
+        + f" [{card}]")
+    return out
+
+
+def resume_text(r: dict) -> str:
+    held = ("bit for bit" if r["err"] == 0.0
+            else f"within {r['err']:.2e} of the largest entry")
+    kernels = ", ".join(f"{k} {v}" for k, v in r["launches"].items())
+    return f"{held}, resume launched {kernels or 'no kernel'}"
+
+
+# 4ex: the entry point and the examples of examples_torch/ at their default
+# sizes, each with the kernels it launched; large_scale_lasso in f32, bf16
+# and int8 (8,388,608 rows)
+EX_KERNELS = {"entry": ("saga_coeff_multistep_streamed",),
+              # deep_solve's SAGA stage at 2^20 rows (saga.RESIDENT_MAX_ROWS);
+              # its polish runs no kernel
+              "deep_accuracy": ("saga_coeff_multistep",),
+              "large_scale_lasso": ("coeff_apply_all",
+                                    "lfinito_sweep_multistep"),
+              "lasso_10m": ("coeff_apply_all", "lfinito_sweep_multistep"),
+              "fused_lasso_tv": (), "tv_denoise_2d": (),
+              "sparse_logistic": ()}
+
+
+def load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(ROOT, "examples_torch",
+                                               f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples(card: str) -> dict:
+    """Phase 4ex: ``entry()`` (one launch of kernel #4), then each example's
+    ``main()`` on the card at its defaults, its asserts holding; the
+    kernels each launched, counted from 0, must be EX_KERNELS' (#6 and #8
+    for the LFinito examples, #3 for deep_accuracy, none for the routes
+    with no kernel)."""
+    from ciao_tpu_torch.entry import entry
+
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    fn, args = entry()
+    st = fn(*args)
+    torch.cuda.synchronize()
+    c = counts()
+    if c["saga_coeff_multistep_streamed"] != 1 or sum(c.values()) != 1:
+        raise AssertionError(f"entry(): {c}, not one kernel #4 launch")
+    out["entry"] = dict(it=st.it, s=time.perf_counter() - t0, launches=c)
+    log(f"  4ex entry(): it = {st.it}, one kernel #4 launch, "
+        f"{out['entry']['s']:.2f} s with its setup [{card}]")
+    del fn, args, st
+    runs = [("deep_accuracy", {}), ("large_scale_lasso", dict(storage="f32")),
+            ("large_scale_lasso", dict(storage="bf16")),
+            ("large_scale_lasso", dict(storage="int8")), ("lasso_10m", {}),
+            ("fused_lasso_tv", {}), ("tv_denoise_2d", {}),
+            ("sparse_logistic", {})]
+    for name, kw in runs:
+        tag = name + "".join(f" {v}" for v in kw.values())
+        mod = load_example(name)
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = mod.main(**kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = {k: v for k, v in counts().items() if v}
+        want = EX_KERNELS[name]
+        if set(c) != set(want):
+            raise AssertionError(f"4ex {tag}: launched {c}, not {want}")
+        out[tag] = dict(result=res, s=dt, launches=c)
+        del mod, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def example_text(tag: str, r: dict) -> str:
+    """One example's numbers for 4ex's line (``tag``: its name, and the
+    storage of its rows where it runs more than one)."""
+    res, name = r["result"], tag.split(" ")[0]
+    if name == "deep_accuracy":
+        what = f"rel {res:.3e}"
+    elif name == "fused_lasso_tv":
+        what = (f"rel {res[0]:.3e} in {res[2].steps} steps, certified "
+                f"{res[2].certified}")
+    elif name == "tv_denoise_2d":
+        what = ", ".join(f"{k} {v.shape[0]} x {v.shape[1]}"
+                         for k, v in res.items())
+    elif name == "sparse_logistic":
+        what = (f"objective {res['objective0']:.6f} -> SAGA {res['saga']:.6f} "
+                f"({res['saga_steps']} steps, {res['saga_s']:.2f} s), "
+                f"Katyusha {res['katyusha']:.6f} ({res['katyusha_outer']} "
+                f"outer steps, {res['katyusha_s']:.2f} s)")
+    else:
+        what = (f"N {res['N']}, {res['ms_per_epoch']:.2f} ms/epoch over "
+                f"{res['epochs']} epochs, objective {res['objective0']:.6f} "
+                f"-> {res['objective']:.6f}")
+    kernels = ", ".join(f"{k} {v}" for k, v in r["launches"].items())
+    return f"{tag}: {what}, {r['s']:.2f} s, launched {kernels or 'no kernel'}"
 
 
 KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
@@ -6010,7 +6528,9 @@ def main() -> int:
         + f", bits repeat {sp['saga']['repeat']}; at "
         f"{SPARSE_FULL['N']} x {SPARSE_FULL['n']} B={SPARSE_FULL['B']} "
         + ", ".join(f"{k} {v['ms']:.4f} (idle {v['idle']:.3f})"
-                    for k, v in spf.items() if k != "s")
+                    for k, v in spf.items() if k not in ("s", "repeat"))
+        + f"; two builds of it at --seed bit-equal in all {spf['repeat']} "
+        f"fields (support, x*, f*, L, both layouts)"
         + "; deep rel " + ", ".join(
             f"lsq {k} {v['rel']:.3e} ({v['s']:.2f} s)"
             for k, v in sp["deep"].items()) + ", " + ", ".join(
@@ -6067,6 +6587,40 @@ def main() -> int:
         f"products by {cx['tf32']['on']:.2e} (off {cx['tf32']['off']:.2e}); "
         f"all {time.perf_counter() - t0:.2f} s [{card}]")
     torch.cuda.empty_cache()
+
+    # 4ck. checkpoints, counts from 0 in each part
+    ck = run_checkpoints(gen, dev, args.seed, card)
+    for part in (ck["headline"], ck["full"]["launches"],
+                 *(v["launches"] for v in ck["facades"].values())):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    fu = ck["full"]
+    exact = [k for k, v in ck["facades"].items() if v["err"] == 0.0]
+    log(f"phase 4ck checkpoints: ok; headline SAGA split at a launch "
+        f"boundary bit for bit; the {fu['bytes'] / 2**30:.3f} GiB full-table "
+        f"state saved in {fu['save_s']:.3f} s "
+        f"({fu['bytes'] / fu['save_s'] / 1e9:.2f} GB/s), loaded in "
+        f"{fu['load_s']:.3f} s ({fu['bytes'] / fu['load_s'] / 1e9:.2f} "
+        f"GB/s); SAGA full table {fu['cold']['ms']:.4f} ms/step beside an "
+        f"async write (the first), {fu['warm']['ms']:.4f} (a later one), "
+        f"{fu['without_ms']:.4f} with none, the async files == their "
+        f"snapshots and the resume == the straight run bit for bit; "
+        f"rebase within {ck['rebase']:.3e}; {len(exact)} of "
+        f"{len(ck['facades'])} resumes bit for bit ({', '.join(exact)}), "
+        f"the sparse one within "
+        f"{ck['facades']['sparse ELL SAGA']['err']:.3e}; {ck['s']:.2f} s "
+        f"[{card}]")
+
+    # 4ex. the entry point and the examples, counts from 0 in each
+    t0 = time.perf_counter()
+    ex = run_examples(card)
+    for r in ex.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"phase 4ex entry point and examples: ok; entry() it = "
+        f"{ex['entry']['it']} on one kernel #4 launch; " + "; ".join(
+            example_text(k, v) for k, v in ex.items() if k != "entry")
+        + f"; all {time.perf_counter() - t0:.2f} s [{card}]")
 
     # 11. kernel #7 per pass in turns with its plain version and kernel #6
     t11 = {s_: time_value_apply(gen, dev, s_, card, ceil)

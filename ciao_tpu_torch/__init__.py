@@ -48,7 +48,10 @@ JAX package); complex rows and iterates (complex64, complex128) through
 ``LeastSquaresRows`` and every facade whose JAX counterpart runs them,
 on the stepwise PyTorch paths (no kernel takes them, as none does in
 the JAX package); ``Precompose`` and ``CustomOracle`` (autodiff through
-``torch.func``). The rest is queued in ROADMAP.md. Imports
+``torch.func``); checkpoints (``ciao_tpu_torch.checkpoint``: ``save``,
+``load``, ``save_async``, ``load_like``, ``resume_iterator``); the
+single-card entry point ``ciao_tpu_torch.entry`` and the examples of
+``examples_torch/``. The rest is queued in ROADMAP.md. Imports
 torch and numpy, never jax. Entry points run on the card unless the
 caller names the CPU (a CPU tensor or ``device="cpu"``).
 """

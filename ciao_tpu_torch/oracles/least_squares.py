@@ -35,6 +35,13 @@ from ciao_tpu_torch.oracles.base import (
 from ciao_tpu_torch.oracles.margin_rows import PointProxRows
 
 
+# A full pass widens rows stored narrower than the iterate (bf16, int8)
+# to its dtype. Above this many entries it widens them a chunk of rows at
+# a time, so that no widened copy of the whole matrix exists: int8 rows of
+# 8,388,608 x 1,024 would widen to 32 GiB of f32.
+_WIDEN_CHUNK_ENTRIES = 1 << 27
+
+
 def _wconj(w, A):
     """Σ_i w_i·conj(a_i) = conj(w̄ @ A), one read of the rows (a product
     with ``A.conj()`` would first copy the rows conjugated); both
@@ -282,14 +289,39 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         A_B, _, rs_B = self._slice(start, size)
         return self._grad_sum_diff(A_B, rs_B, x1, x2)
 
+    def _row_chunks(self, dtype):
+        """A full pass's rows as ``(A_c, b_c, rs_c)`` chunks widened to
+        ``dtype``: one chunk, unless the rows are narrower and hold more
+        than _WIDEN_CHUNK_ENTRIES."""
+        N, n = self.A.shape[0], self.A.shape[-1]
+        k = N
+        if self.A.dtype != dtype and N * n > _WIDEN_CHUNK_ENTRIES:
+            k = max(1, _WIDEN_CHUNK_ENTRIES // n)
+        for s in range(0, N, k):
+            A_c, b_c, rs_c = self._slice(s, min(k, N - s))
+            yield self._rows(A_c, dtype), b_c, rs_c
+
+    def _residual_pass(self, x):
+        """([r_c], Σ_i w_i·conj(a_i)) in one widening of each chunk c of
+        rows: the chunks' residuals r = rs·(A x) − b and the weights w =
+        rs·r (w = r with no row scale), two products over A in the JAX
+        package's order of operations."""
+        r, g = [], None
+        for A_c, b_c, rs_c in self._row_chunks(x.dtype):
+            r_c = A_c @ x
+            if rs_c is not None:
+                r_c = r_c * rs_c - b_c
+                g_c = _wconj(r_c * rs_c, A_c)
+            else:
+                r_c = r_c - b_c
+                g_c = _wconj(r_c, A_c)
+            r.append(r_c)
+            g = g_c if g is None else g + g_c
+        return r, g
+
     def grad_sum_all(self, x):
         """Σ_i ∇f_i(x) over all rows: two products over A."""
-        A = self._rows(self.A, x.dtype)
-        r = A @ x
-        if self.row_scale is not None:
-            r = r * self.row_scale - self.b
-            return self.scale * ((r * self.row_scale) @ A)
-        return self.scale * _wconj(r - self.b, A)
+        return self.scale * self._residual_pass(x)[1]
 
     # ---- margin protocol: the row product A·x first, then the affine
     # part of the coefficient. The int8 per-row scale is applied to the
@@ -302,7 +334,7 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         return self._rows(self._slice(start, size)[0], x.dtype) @ x
 
     def margin_all(self, x):
-        return self._rows(self.A, x.dtype) @ x
+        return torch.cat([A_c @ x for A_c, _, _ in self._row_chunks(x.dtype)])
 
     def hess_weight_from_margin(self, r, margin_slack=0.0):
         """Bound on the margin curvature d²f_i/dm²: the constant
@@ -336,13 +368,6 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
         """(Σ_i f_i(x), Σ_i ∇f_i(x)) from one margin: two products over A
         (PANOC's envelope read off the card's kernel), in the JAX
         package's order of operations."""
-        A = self._rows(self.A, x.dtype)
-        r = A @ x
-        if self.row_scale is not None:
-            r = r * self.row_scale - self.b
-            w = r * self.row_scale
-        else:
-            r = r - self.b
-            w = r
-        return (0.5 * self.scale * torch.sum(abs_sq(r)),
-                self.scale * _wconj(w, A))
+        r, g = self._residual_pass(x)
+        return (0.5 * self.scale * torch.sum(abs_sq(torch.cat(r))),
+                self.scale * g)

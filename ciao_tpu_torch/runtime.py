@@ -45,6 +45,19 @@ def default_device() -> torch.device:
     return torch.device("cuda", 0) if on_cuda() else torch.device("cpu")
 
 
+def entry_device(device=None) -> torch.device:
+    """The device of an entry point or example (``entry()``, an example's
+    ``main``): the one the caller names, else the first CUDA device. With
+    no card and no device named it raises, rather than run on the CPU
+    unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not on_cuda():
+        raise RuntimeError("no CUDA device: this entry point runs on the "
+                           "card; pass device='cpu' to run it on the CPU")
+    return torch.device("cuda", 0)
+
+
 def require_exact_f32_matmul(device, who: str) -> None:
     """Raise if f32 matrix products on ``device`` would run in TF32.
 

@@ -113,7 +113,12 @@ class SolverIterable:
         self._can_abort = can_abort
 
     def __iter__(self):
-        state = self._init_fn()
+        yield from self.resume(self._init_fn())
+
+    def resume(self, state):
+        """The stream from ``state``: yields it, then keeps stepping
+        (``checkpoint.resume_iterator`` continues a restored state
+        here)."""
         yield state
         while True:
             state = self._step_fn(state)

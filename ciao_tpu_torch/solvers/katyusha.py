@@ -27,8 +27,7 @@ anchor coefficients ``canch``, and the anchor refresh is one pass of
 
 Complex iterates (complex64, complex128) take the stepwise path, as in
 the JAX package (the kernels' gates take f32 iterates alone); τ and the
-other scalars stay real. Not ported yet: checkpoints (ROADMAP.md, queue
-1 item 17).
+other scalars stay real.
 """
 
 from __future__ import annotations

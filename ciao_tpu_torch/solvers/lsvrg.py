@@ -34,9 +34,8 @@ flip step's pre-update iterate) runs between windows.
 
 Complex iterates (complex64, complex128) take the stepwise path, as in
 the JAX package (the kernels' gates take f32 iterates alone); γ, the
-coins and the momentum weights stay real. Not ported yet: checkpoints
-(ROADMAP.md, queue 1 item 17) and the data- and tensor-parallel variants
-(item 18).
+coins and the momentum weights stay real. Not ported yet: the data- and
+tensor-parallel variants (ROADMAP.md, queue 1 item 18).
 """
 
 from __future__ import annotations

@@ -32,9 +32,8 @@ drivers, no step runs stepwise after the launches.
 Complex rows and iterates (complex64, complex128) take the stepwise
 path, as in the JAX package (the kernels' gates take f32 iterates
 alone): the row prox is z − γθ·conj(a_j) with ‖a_j‖² = Re(a_j·ā_j).
-Importance sampling refuses them, as JAX's does. Not ported yet:
-checkpoints and the data- and tensor-parallel variants (ROADMAP.md,
-queue 1 items 17 and 18).
+Importance sampling refuses them, as JAX's does. Not ported yet: the
+data- and tensor-parallel variants (ROADMAP.md, queue 1 item 18).
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ margins of a row from one read of it.
 
 Complex iterates (complex64, complex128) take the stepwise path, as in
 the JAX package (the kernels' gates take f32 iterates alone); γ and η
-stay real. Not ported yet: checkpoints (ROADMAP.md, queue 1 item 17).
+stay real.
 """
 
 from __future__ import annotations

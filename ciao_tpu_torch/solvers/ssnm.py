@@ -27,8 +27,8 @@ unlike JAX's drivers, no step runs stepwise after the launches.
 Complex iterates (complex64, complex128) take the stepwise path (the
 kernels' gates take f32 iterates alone); the JAX package has no complex
 test of SSNM, and its facade converges on complex128 rows as the port's
-does. Not ported yet: checkpoints and the data- and tensor-parallel
-variants (ROADMAP.md, queue 1 items 17 and 18).
+does. Not ported yet: the data- and tensor-parallel variants
+(ROADMAP.md, queue 1 item 18).
 """
 
 from __future__ import annotations

@@ -267,6 +267,18 @@ def nan_median_nearest(v):
     return torch.nanquantile(v, 0.5, interpolation="lower")
 
 
+def column_sums(cols, vals, n: int) -> torch.Tensor:
+    """The (n,) sums of ``vals`` by column id ``cols`` (tensors of one
+    shape), in ``vals``' dtype on its device, the same bits on every
+    device and in every run: summed in f64 on the host in index order
+    (``numpy.bincount``), then rounded once. CUDA's ``index_add_`` adds
+    with atomics in no fixed order."""
+    out = np.bincount(cols.reshape(-1).to(torch.int32).cpu().numpy(),
+                      weights=vals.reshape(-1).double().cpu().numpy(),
+                      minlength=n)
+    return torch.from_numpy(out).to(device=vals.device, dtype=vals.dtype)
+
+
 def make_sparse_lasso_ell(N=4096, n=4096, *, hot=256, k_hot=12, k_cold=4,
                           p=32, lam=1.0, rho=10.0, beta=1.1, seed=0,
                           device=None) -> SparseLassoProblem:
@@ -282,7 +294,10 @@ def make_sparse_lasso_ell(N=4096, n=4096, *, hot=256, k_hot=12, k_cold=4,
     so the cold ‖·‖² is exact (hot duplicates merge additively: the
     hybrid's dense block merges them, ELL keeps the raw slots, and the
     operator is the same). A unit dual y* gives the signed column
-    correlations s = Aᵀy*. Column-norm equalisation: the KKT scale
+    correlations s = Aᵀy*; the popularity CDFs, s and ν² are summed in a
+    fixed order (on the host; :func:`column_sums`), as is the hot block's
+    merge, so that a seed gives one problem on every device and in every
+    run. Column-norm equalisation: the KKT scale
     α_j = λ/|s_j| forces a support column's norm to r_j = λ·ν_j/|s_j|
     (ν the raw column norm); the support is the p columns whose r_j lies
     closest above t, the median of r, and every other column takes
@@ -307,11 +322,15 @@ def make_sparse_lasso_ell(N=4096, n=4096, *, hot=256, k_hot=12, k_cold=4,
         return torch.rand(shape, generator=gen, device=dev, dtype=f32)
 
     hot_pad = max(128, -(-hot // 128) * 128)
-    wj = (torch.arange(n, dtype=f32, device=dev) + 1.0) ** (-beta)
-    cdf_h = torch.cumsum(wj[:hot], 0)
-    cdf_h = cdf_h / cdf_h[-1]
-    cdf_c = torch.cumsum(wj[hot:], 0)
-    cdf_c = cdf_c / cdf_c[-1]
+    wj = (np.arange(n, dtype=np.float64) + 1.0) ** (-beta)
+
+    def cdf(w):
+        """The normalised CDF of popularities ``w``: a host f64 cumsum (a
+        CUDA scan adds in no fixed order), rounded to f32 once."""
+        c = np.cumsum(w)
+        return torch.tensor(c / c[-1], dtype=f32, device=dev)
+
+    cdf_h, cdf_c = cdf(wj[:hot]), cdf(wj[hot:])
     hot_idx = torch.searchsorted(cdf_h, uniform(N, k_hot), right=True)
     cold_idx = hot + torch.searchsorted(cdf_c, uniform(N, k_cold),
                                         right=True)
@@ -327,15 +346,13 @@ def make_sparse_lasso_ell(N=4096, n=4096, *, hot=256, k_hot=12, k_cold=4,
     y = uniform(N)
     y = y / torch.sqrt(torch.dot(y, y))
 
-    def scatter(h, c):
-        """Σ over each column's slots (a scatter-add; duplicates merge)."""
-        out = torch.zeros(n, dtype=f32, device=dev)
-        out.index_add_(0, hot_idx.reshape(-1), h.reshape(-1))
-        return out.index_add_(0, cold_idx.reshape(-1), c.reshape(-1))
-
-    s = scatter(y[:, None] * hot_val, y[:, None] * cold_val)
+    cols = torch.cat([hot_idx, cold_idx], dim=1)
+    s = column_sums(cols, torch.cat([y[:, None] * hot_val,
+                                     y[:, None] * cold_val], dim=1), n)
     c = s.abs()
-    nu = torch.sqrt(scatter(hot_val * hot_val, cold_val * cold_val))
+    nu = torch.sqrt(column_sums(cols, torch.cat([hot_val * hot_val,
+                                                 cold_val * cold_val],
+                                                dim=1), n))
     r = lam * nu / torch.clamp(c, min=1e-30)     # forced support norm
     r = torch.where(nu > 0, r, torch.inf)
     t = nan_median_nearest(torch.where(torch.isfinite(r), r, torch.nan))
@@ -355,8 +372,8 @@ def make_sparse_lasso_ell(N=4096, n=4096, *, hot=256, k_hot=12, k_cold=4,
     b = m + y
     # the merged hot block (the hybrid layout's dense part)
     A_hot = torch.zeros(N, hot_pad, dtype=f32, device=dev)
-    rows = torch.arange(N, device=dev)[:, None].expand(N, k_hot)
-    A_hot.index_put_((rows, hot_idx), hot_val, accumulate=True)
+    for j in range(k_hot):  # a slot of every row at a time: no adds collide
+        A_hot.scatter_add_(1, hot_idx[:, j:j + 1], hot_val[:, j:j + 1])
     L = (torch.sum(A_hot * A_hot, dim=1)
          + torch.sum(cold_val * cold_val, dim=1)) * N
 

@@ -3353,3 +3353,156 @@ def test_custom_oracle_and_precompose_on_the_card(dev):
     for got, want in zip(pre.value_and_grad_all(z),
                          folded.value_and_grad_all(z)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the sparse plant's repeatability, checkpoints and the entry point
+# ---------------------------------------------------------------------------
+
+def _fields(node, path="x"):
+    """(path, value) of every tensor and scalar of a NamedTuple tree."""
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        for f, v in zip(node._fields, node):
+            yield from _fields(v, f"{path}.{f}")
+    elif hasattr(node, "named_buffers"):
+        for f, v in node.named_buffers():
+            yield f"{path}.{f}", v
+    else:
+        yield path, node
+
+
+def _bit_equal(a, b):
+    la, lb = list(_fields(a)), list(_fields(b))
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (p, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and x.device == y.device, p
+            assert torch.equal(x, y), p
+        else:
+            assert x == y, p
+
+
+def test_sparse_plant_is_a_function_of_its_seed(dev):
+    """Two builds of ``make_sparse_lasso_ell`` at one seed on the card are
+    bit-equal, every field of both layouts, x*, f* and L, at a shape whose
+    power-law columns repeat thousands of times (the column sums that pick
+    the support, and the popularity CDFs, are summed in a fixed order, not
+    by atomics or a CUDA scan; n = 65,536 is the rcv1 shape's width)."""
+    from ciao_tpu_torch.utils.problems import make_sparse_lasso_ell
+
+    kw = dict(N=131_072, n=65_536, hot=1_024, k_hot=24, k_cold=8, p=64,
+              rho=1.0, seed=5, device=dev)
+    a = make_sparse_lasso_ell(**kw)
+    b = make_sparse_lasso_ell(**kw)
+    assert int(torch.bincount(a.ell.idx.reshape(-1).long()).max()) > 1_000
+    _bit_equal(a, b)
+    assert a.f_star == b.f_star and a.lam == b.lam
+
+
+def test_async_save_while_the_solver_steps(dev, tmp_path):
+    """A full-table SAGA state (kernel #1 a step) saved with save_async,
+    then 16 more steps while the write is in flight: the file holds the
+    snapshot bit for bit, and a resume from it equals the straight run
+    bit for bit."""
+    from ciao_tpu_torch import SAGA, NormL1, checkpoint
+    from ciao_tpu_torch.solvers import loop, take
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    N, n, B = 16_384, 512, 1_024
+    A = torch.randn(N, n, generator=gen, device=dev)
+    F = LeastSquaresRows(A, torch.randn(N, generator=gen, device=dev),
+                         float(N))
+    L = (A * A).sum(1) * N
+    solver = SAGA(table="full", block_sampling=True, batch=B)
+
+    def it():
+        return solver.iterator(torch.zeros(n, device=dev), F=F,
+                               g=NormL1(0.1), L=L)
+
+    before = tfb.saga_block_update.launches
+    straight = loop(take(iter(it()), 33))
+    assert tfb.saga_block_update.launches - before == 32
+    stream = iter(it())
+    mid = loop(take(stream, 17))
+    snap = [t.clone() for t in (mid.s, mid.z, mid.av)]
+    mgr = checkpoint.save_async(tmp_path / "full.pt", mid)
+    state = mid
+    for _ in range(16):
+        state = next(stream)
+    mgr.wait_until_finished()
+    assert torch.equal(state.z, straight.z)
+    back = checkpoint.load(tmp_path / "full.pt", device=dev)
+    for a, b in zip((back.s, back.z, back.av), snap):
+        assert a.device == b.device and torch.equal(a, b)
+    resumed = loop(take(checkpoint.resume_iterator(it(), back), 17))
+    _bit_equal(resumed, straight)
+
+
+def test_async_save_stages_through_two_buffers(dev, tmp_path, monkeypatch):
+    """save_async's host copy goes through two pinned buffers in turn: with
+    buffers of 1 MiB + 3 bytes, a state holding many buffers' worth of
+    complex, f64, f32 and integer tensors comes back bit for bit."""
+    from ciao_tpu_torch import checkpoint
+    from ciao_tpu_torch.solvers.saga import SAGAState
+
+    monkeypatch.setattr(checkpoint, "_STAGE_BYTES", (1 << 20) + 3)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    st = SAGAState(
+        s=torch.randn(1_000_003, dtype=torch.complex64, generator=gen,
+                      device=dev),
+        gamma=torch.tensor(0.5, device=dev),
+        av=torch.randn(777, generator=gen, device=dev),
+        z=torch.randint(-9, 9, (3, 5), generator=gen, device=dev),
+        seed=1, it=2, status=0,
+        qcum=torch.rand(300_001, dtype=torch.float64, generator=gen,
+                        device=dev))
+    checkpoint.save_async(tmp_path / "st.pt", st).wait_until_finished()
+    back = checkpoint.load(tmp_path / "st.pt", device=dev)
+    for a, b in zip(back, st):
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and a.device == b.device
+            assert torch.equal(a, b)
+        else:
+            assert a == b
+
+
+def test_load_onto_the_card_from_a_cpu_file(dev, tmp_path):
+    """A state saved on the CPU loads onto cuda:0, every tensor there,
+    and ``load_like`` follows a card template; by default ``load`` takes
+    the card."""
+    from ciao_tpu_torch import SAGA, NormL1, checkpoint
+    from ciao_tpu_torch.solvers import loop, take
+
+    gen = torch.Generator().manual_seed(4)
+    A = torch.randn(512, 32, generator=gen)
+    F = LeastSquaresRows(A, torch.randn(512, generator=gen), 512.0)
+    L = ((A * A).sum(1) * 512).numpy()
+    st = loop(take(iter(SAGA(block_sampling=True, batch=64).iterator(
+        torch.zeros(32), F=F, g=NormL1(0.1), L=L)), 5))
+    checkpoint.save(tmp_path / "cpu.pt", st)
+    for back in (checkpoint.load(tmp_path / "cpu.pt", device=dev),
+                 checkpoint.load(tmp_path / "cpu.pt")):
+        for p, v in _fields(back):
+            if isinstance(v, torch.Tensor):
+                assert v.device == dev, p
+        assert torch.equal(back.z.cpu(), st.z)
+    like = checkpoint.load(tmp_path / "cpu.pt", device=dev)
+    assert checkpoint.load_like(tmp_path / "cpu.pt", like).s.device == dev
+
+
+def test_entry_launches_kernel_4_once(dev):
+    """``entry()`` defaults to the card; its fn is one launch of kernel
+    #4 (8 steps) and nothing else."""
+    from ciao_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert args[2].z.device == dev
+    names = ("saga_coeff_multistep_streamed", "saga_coeff_multistep",
+             "coeff_apply_all")
+    before = {k: getattr(tfb, k).launches for k in names}
+    out = fn(*args)
+    torch.cuda.synchronize()
+    after = {k: getattr(tfb, k).launches - before[k] for k in names}
+    assert after == {"saga_coeff_multistep_streamed": 1,
+                     "saga_coeff_multistep": 0, "coeff_apply_all": 0}
+    assert out.it == args[2].it + 8 and bool(torch.isfinite(out.z).all())

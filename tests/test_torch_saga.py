@@ -9,6 +9,7 @@ stepwise suite: z rtol 1e-4; av and c rtol 1e-3 for f32 rows, and for
 int8 rows (bf16-rounded dot operands) atols scaled by the largest entry.
 """
 
+import pathlib
 import subprocess
 import sys
 
@@ -348,10 +349,15 @@ def test_fallback_warning_once_per_reason(monkeypatch):
     runtime.reset_fallback_warnings()
 
 
+EXAMPLES_TORCH = pathlib.Path(__file__).resolve().parent.parent / (
+    "examples_torch")
+
+
 def test_port_imports_no_jax():
     """The port never imports JAX: a fresh interpreter that imports every
-    module of the package has no jax in sys.modules. (This process
-    already has jax, through tests/conftest.py.)"""
+    module of the package, the entry point and the examples of
+    ``examples_torch/`` has no jax in sys.modules. (This process already
+    has jax, through tests/conftest.py.)"""
     code = "\n".join([
         "import sys",
         "import ciao_tpu_torch",
@@ -364,6 +370,12 @@ def test_port_imports_no_jax():
         "import ciao_tpu_torch.solvers.deep_sharing, ciao_tpu_torch.oracles",
         "import ciao_tpu_torch.oracles.sparse, ciao_tpu_torch.solvers.deep_pd",
         "import ciao_tpu_torch.oracles.compose",
+        "import ciao_tpu_torch.checkpoint, ciao_tpu_torch.entry",
+        "import importlib.util, pathlib",
+        f"for p in sorted(pathlib.Path({str(EXAMPLES_TORCH)!r})"
+        ".glob('*.py')):",
+        "    spec = importlib.util.spec_from_file_location(p.stem, p)",
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))",
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ciao_tpu'))",
         "assert not bad, bad",

@@ -50,7 +50,7 @@ from ciao_tpu_torch.solvers import polish as tpolish
 from ciao_tpu_torch.solvers import saga as tsaga
 from ciao_tpu_torch.solvers import svrg as tsvrg
 from ciao_tpu_torch.utils import make_sparse_lasso_ell
-from ciao_tpu_torch.utils.problems import nan_median_nearest
+from ciao_tpu_torch.utils.problems import column_sums, nan_median_nearest
 from torch_threads import one_torch_thread  # noqa: F401
 
 N, n, K = 128, 32, 8          # tests/test_sparse.py's ELL fixtures
@@ -639,6 +639,26 @@ def test_make_sparse_lasso_ell_follows_the_recipe(hot, hot_pad):
     cost = 0.5 * float(r @ r) + prob.lam * float(
         prob.x_star.double().abs().sum())
     assert abs(cost - prob.f_star) <= 1e-6 * prob.f_star
+
+
+def test_column_sums_match_an_f64_add_at():
+    """``column_sums``, the plant's fixed-order sums by column, on its own
+    kind of draws (power-law column ids with thousands of repeats, f32
+    values): equal to an f64 ``numpy.add.at`` of the same draws to 1e-6,
+    relative, column by column; two calls give the same bits."""
+    rng = np.random.default_rng(7)
+    n = 4_096
+    w = (np.arange(n) + 1.0) ** -1.1
+    cols = rng.choice(n, size=(8_192, 12), p=w / w.sum())
+    vals = rng.uniform(-1, 1, size=cols.shape).astype(np.float32)
+    got = column_sums(torch.tensor(cols), torch.tensor(vals), n)
+    want = np.zeros(n)
+    np.add.at(want, cols.reshape(-1), vals.reshape(-1).astype(np.float64))
+    assert got.dtype == torch.float32
+    assert np.bincount(cols.ravel()).max() > 1_000
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    assert torch.equal(column_sums(torch.tensor(cols), torch.tensor(vals), n),
+                       got)
 
 
 def test_nan_median_nearest_is_jaxs_rule():
