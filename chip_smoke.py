@@ -291,6 +291,23 @@ Phases, one line each:
      kernels it launched: #6 and #8 for the LFinito examples, #3 or #4
      (and #6) for ``deep_accuracy``, none for ``fused_lasso_tv``,
      ``tv_denoise_2d`` and ``sparse_logistic``;
+  4dp. the data-parallel path (``ciao_tpu_torch.parallel``): (a) one rank
+     over NCCL: bench.py's DP rounds at the headline (DPSAGA, K = 128 steps
+     a round on kernel #3, 512 rounds, the exact av every 50; f32 and
+     int8), the first round held to the single-card coefficient SAGA on
+     the same starts within 1e-6 and ms a step beside the single-card
+     SAGA's; SVRG++'s local inner loop, m 64 -> 8,192 over 8 outer steps,
+     on kernels #5 and #6 and on the plain path (ms an inner step);
+     ``deep_solve_dp`` on deep_accuracy.py's 1,048,576 x 128 problem to
+     rel <= 1e-6 (seconds); (b) two ranks on the one card over gloo (CUDA
+     tensors; NCCL refuses two ranks on one device), spawned after the
+     build, 131,072 headline rows each: DPSAGA (#3) and coefficient
+     DPFinito (#9) local rounds, the LFinito local sweep (#6, #8), DPSVRG's
+     local inner loop (#5, #6) and DPProshi's cyclic local rounds on
+     ProShI's 65,536 x 1,024 configuration (#18), each on its kernel path
+     and its plain path (the gate closed), held within 1e-6 (z) and 1e-5
+     (av, tables), the replicated vectors bit for bit across the ranks;
+     the launches of the DP path counted (the comparison runs excluded);
   11. times: kernel #7 per pass at the headline in turns with its plain
      version and kernel #6, its bound, the read ceiling and the two-gemv +
      value yardstick, and the same at the deep target's shape.
@@ -5824,6 +5841,413 @@ def example_text(tag: str, r: dict) -> str:
     return f"{tag}: {what}, {r['s']:.2f} s, launched {kernels or 'no kernel'}"
 
 
+# ---------------------------------------------------------------------------
+# phase 4dp: the data-parallel path (ciao_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+# (a) one rank over NCCL: bench.py's DP rounds at the headline (K = 128
+# steps a round, 512 rounds, an exact av recompute every 50), SVRG++'s
+# local inner loop with m growing 64 -> 8,192 over 8 outer steps, and
+# deep_solve_dp on examples_torch/deep_accuracy.py's planted problem
+DP = dict(K=128, rounds=512, rebase=50, warm=4, svrg_m0=64, svrg_outer=8)
+DP_DEEP = dict(N=1_048_576, n=128, p=16, B=8_192, local_steps=128,
+               chunk_rounds=8, max_rounds=128, plateau_rtol=1e-4)
+# (b) two ranks on the one card over gloo, 131,072 headline rows each (and
+# ProShI's 65,536 x 1,024 configuration): a few rounds of each family on
+# its kernel path and on its plain path
+DP_TWO = dict(ranks=2, K=32, rounds=2, lfinito_epochs=1, svrg_m=128,
+              svrg_outer=2, proshi_K=16, proshi_rounds=2)
+# (a)'s SVRG++ z_full, kernel path vs plain path, over 16,320 inner steps
+# of f32 drift: read 6.556e-07 and 6.619e-07 on an H100 80GB HBM3 at
+# 700 W; 1e-5 leaves that 15-fold room, Z_TOL[False] would leave 1.5-fold
+DP_SVRG_TOL = 1e-5
+# the kernels of the DP path, each with the family whose rounds launch it
+DP_KERNELS = {"saga_coeff_multistep": "saga", "finito_coeff_multistep":
+              "finito", "lfinito_sweep_multistep": "lfinito",
+              "svrg_coeff_multistep": "svrg", "coeff_apply_all": "lfinito",
+              "proshi_multistep": "proshi"}
+DP_LABEL = {"saga_coeff_multistep": "#3", "svrg_coeff_multistep": "#5",
+            "coeff_apply_all": "#6", "lfinito_sweep_multistep": "#8",
+            "finito_coeff_multistep": "#9", "proshi_multistep": "#18"}
+
+
+def rel_gap(a, b) -> float:
+    """max |a − b| over b's largest entry."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+
+
+def timed(fn):
+    """(result, seconds) of fn() with the card synchronized around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def count_of(fn, names) -> tuple:
+    """(fn(), the launches of ``names`` it made), from the counts'
+    difference (no reset: the phase's own reset stands)."""
+    c0 = counts()
+    out = fn()
+    c1 = counts()
+    return out, {k: c1[k] - c0[k] for k in names}
+
+
+def dp_saga_one_rank(mesh, gen, dev, storage: str, seed: int, card: str):
+    """DPSAGA local rounds on one rank (bench.py:1651-1684): the first
+    round held against single-card coefficient SAGA on the same starts,
+    then DP['rounds'] rounds timed, and the single-card SAGA run of the
+    same steps beside them."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.parallel import dp as tdp
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers.saga import SAGACfg, saga_init, saga_run
+
+    F, gamma, _ = lasso(gen, dev, N, n, storage)
+    g = NormL1(torch.tensor(LAM, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    Fd = parallel.shard_finite_sum(F, mesh)
+    if not fb.saga_multistep_available(Fd, g, x0, B):
+        raise AssertionError("4dp: kernel #3's gate is closed on the rank's "
+                             "rows")
+    K, R = DP["K"], DP["rounds"]
+    cfg = tdp.DPCfg(N=N, D=1, b_loc=B, sweeping=1, alpha=0.999, block=True,
+                    coeff=True, local_steps=K, fused=True,
+                    rebase_every=DP["rebase"])
+    init, _, run, _ = parallel.build_dp_functions("saga", mesh, Fd, g, cfg)
+    st0 = init(x0, gamma, seed)
+    starts = tdp._local_round_starts(seed, 1, N, B, K, 1, mesh.rank, dev)
+    r1, c1 = count_of(lambda: run(st0, 1, starts=starts[None]),
+                      ["saga_coeff_multistep"])
+    scfg = SAGACfg(N=N, sag=False, batch=B, block=True, fused=True,
+                   coeff=True)
+    s0 = saga_init(F, g, x0, gamma, seed, scfg)
+    s1 = saga_run(F, g, s0, scfg, K, starts=starts)
+    err = max(rel_gap(r1.z, s1.z), rel_gap(r1.av, s1.av))
+    if not err <= 1e-6:
+        raise AssertionError(f"4dp {storage}: the first DP round is {err:.3e} "
+                             f"off single-card SAGA on its starts")
+    run(st0, DP["warm"])
+    (st, c), dt = timed(lambda: count_of(lambda: run(st0, R),
+                                         ["saga_coeff_multistep"]))
+    c = {k: v + c1[k] for k, v in c.items()}
+    _, dt1 = timed(lambda: saga_run(F, g, s0, scfg, R * K))
+    cost0, cost1 = cost(F, g, x0), cost(F, g, st.z)
+    if not (math.isfinite(cost1) and cost1 < cost0):
+        raise AssertionError(f"4dp {storage}: DP SAGA cost {cost0} -> "
+                             f"{cost1}")
+    ms, ms1 = dt / (R * K) * 1e3, dt1 / (R * K) * 1e3
+    log(f"  4dp (a) DPSAGA {storage}, one rank over NCCL, K = {K}, {R} "
+        f"rounds (exact av every {DP['rebase']}): {ms:.5f} ms/step, "
+        f"single-card SAGA {ms1:.5f} ms/step ({ms / ms1:.3f}x), "
+        f"{(c['saga_coeff_multistep'] - c1['saga_coeff_multistep']) / R:.3f} "
+        f"kernel #3 launches a round; first round vs single-card on its "
+        f"starts {err:.3e}; cost {cost0:.6e} -> {cost1:.6e} [{card}]")
+    return dict(ms=ms, single_ms=ms1, err=err, launches=c)
+
+
+def dp_svrg_plus_one_rank(mesh, gen, dev, seed: int, card: str):
+    """SVRG++'s local inner loop on one rank (bench.py:1686-1709): m
+    from 64 to 8,192 over 8 outer steps, on kernels #5 and #6, then on
+    the plain path (the same DP code with the gate closed)."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.parallel import dp as tdp
+    from ciao_tpu_torch.prox import NormL1
+
+    F, _, L = lasso(gen, dev, N, n, "f32")
+    g = NormL1(torch.tensor(LAM, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    Fd = parallel.shard_finite_sum(F, mesh)
+    if not fb.svrg_multistep_available(Fd, g, x0, B):
+        raise AssertionError("4dp: kernel #5's gate is closed")
+    gamma = torch.tensor(1.0 / (10.0 * float(L.max())), device=dev)
+    m0, T = DP["svrg_m0"], DP["svrg_outer"]
+    inner = m0 * (2 ** T - 1)
+    out = {}
+    for fused in (True, False):
+        cfg = tdp.DPCfg(N=N, D=1, b_loc=B, sweeping=1, alpha=0.999,
+                        plus=True, block=True, coeff=fused, local=True,
+                        fused=fused)
+        init, _, run, _ = parallel.build_dp_functions("svrg", mesh, Fd, g,
+                                                      cfg)
+        st0 = init(x0, gamma, seed, m0)
+        names = ["svrg_coeff_multistep", "coeff_apply_all"]
+        (st, c), dt = timed(lambda: count_of(lambda: run(st0, T), names))
+        out[fused] = dict(st=st, ms=dt / inner * 1e3, launches=c)
+    err = rel_gap(out[True]["st"].z_full, out[False]["st"].z_full)
+    cost0, cost1 = cost(F, g, x0), cost(F, g, out[True]["st"].z_full)
+    if not (err <= DP_SVRG_TOL and cost1 < cost0):
+        raise AssertionError(f"4dp SVRG++: kernel path {err:.3e} off the "
+                             f"plain path (> {DP_SVRG_TOL}), cost {cost0} -> "
+                             f"{cost1}")
+    if out[False]["launches"]["svrg_coeff_multistep"]:
+        raise AssertionError("4dp SVRG++: the plain path launched #5")
+    lk = out[True]["launches"]
+    log(f"  4dp (a) SVRG++ local inner, one rank, m {m0} -> "
+        f"{m0 * 2 ** (T - 1)} over {T} outer steps ({inner} inner steps): "
+        f"kernels {out[True]['ms']:.5f} ms/inner step "
+        f"({lk['svrg_coeff_multistep']} #5 and {lk['coeff_apply_all']} #6 "
+        f"launches), plain path {out[False]['ms']:.5f} ms/inner step; "
+        f"z_full {err:.3e} apart; cost {cost0:.6e} -> {cost1:.6e} [{card}]")
+    return dict(ms=out[True]["ms"], plain_ms=out[False]["ms"], err=err,
+                launches=lk)
+
+
+def dp_deep_one_rank(mesh, dev, card: str):
+    """deep_solve_dp on deep_accuracy.py's planted problem (1,048,576 x
+    128, B = 8,192) to rel <= 1e-6."""
+    import numpy as np
+
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.utils.problems import make_lasso
+
+    P = DP_DEEP
+    prob = make_lasso(N=P["N"], n=P["n"], p=P["p"], seed=0, dtype=np.float32,
+                      well_conditioned=True)
+    F = LeastSquaresRows(torch.tensor(prob.A, device=dev),
+                         torch.tensor(prob.b, device=dev), float(P["N"]))
+    g = NormL1(float(prob.lam))
+    (x, info), dt = timed(lambda: parallel.deep_solve_dp(
+        torch.zeros(P["n"], device=dev), F, g, L=prob.L, N=P["N"],
+        mesh=mesh, batch=P["B"], local_steps=P["local_steps"],
+        chunk_rounds=P["chunk_rounds"], max_rounds=P["max_rounds"],
+        plateau_rtol=P["plateau_rtol"]))
+    rel = (prob.cost(x.double().cpu().numpy()) - prob.f_star) / abs(
+        prob.f_star)
+    if not rel <= 1e-6:
+        raise AssertionError(f"4dp deep_solve_dp: rel {rel:.3e} > 1e-6")
+    log(f"  4dp (a) deep_solve_dp, one rank, {P['N']} x {P['n']} at B = "
+        f"{P['B']}: rel {rel:.3e} in {dt:.2f} s ({info.staged.epochs[0]} "
+        f"SAGA epochs in {len(info.staged.objectives)} chunks, "
+        f"{info.polish_steps} polish steps, lambda_max {info.lmax:.4e}) "
+        f"[{card}]")
+    return dict(rel=rel, s=dt)
+
+
+def dp_two_rank_runs(mesh, seed: int) -> dict:
+    """One rank's part of (b): each family a few rounds on its kernel
+    path and on its plain path (the gate closed), on this rank's rows of
+    the headline (ProShI: of its 65,536 x 1,024 configuration)."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.parallel import dp as tdp
+    from ciao_tpu_torch.prox import NormL1
+
+    dev = mesh.device
+    T = DP_TWO
+    D = mesh.size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 4_000)  # the same rows on every rank
+    F, gamma_saga, L = lasso(gen, dev, N, n, "f32")
+    Fd = parallel.shard_finite_sum(F, mesh)
+    del F  # the rank keeps only its rows
+    rows_bytes = Fd.A.untyped_storage().nbytes()
+    if rows_bytes != (N // D) * n * 4:
+        raise AssertionError(f"4dp (b): the rank's part holds {rows_bytes} "
+                             f"bytes of rows, not its {N // D} rows")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    lo, hi = mesh.rows(N)
+    g = NormL1(torch.tensor(LAM, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    b_loc = B // D
+    gam_fin = (0.999 * N / L[lo:hi]).float().contiguous()
+    gam_svrg = torch.tensor(1.0 / (10.0 * float(L.max())), device=dev)
+    gates = {"saga": fb.saga_multistep_available(Fd, g, x0, b_loc),
+             "finito": fb.finito_multistep_available(Fd, g, x0, b_loc),
+             "lfinito": fb.lfinito_sweep_available(Fd, g, x0, b_loc),
+             "svrg": fb.svrg_multistep_available(Fd, g, x0, b_loc)}
+    base = dict(N=N, D=D, b_loc=b_loc, alpha=0.999)
+    runs = {
+        "saga": ("saga", dict(base, sweeping=1, block=True, coeff=True,
+                              local_steps=T["K"], rebase_every=50),
+                 gamma_saga, (), T["rounds"], ("z", "av", "s")),
+        "finito": ("finito_coeff", dict(base, sweeping=3, coeff=True,
+                                        local_steps=T["K"], rebase_every=50),
+                   gam_fin, (), T["rounds"], ("z", "av", "c", "zb")),
+        "lfinito": ("lfinito", dict(base, sweeping=3, local=True), gam_fin,
+                    (), T["lfinito_epochs"], ("z", "av", "z_full")),
+        "svrg": ("svrg", dict(base, sweeping=1, block=True, local=True),
+                 gam_svrg, (T["svrg_m"],), T["svrg_outer"],
+                 ("z_full", "w", "av")),
+    }
+    out = {}
+
+    def one(family, cfg, gamma, extra, steps, Fr, gr, xr, fields):
+        res = {}
+        for fused in (True, False):
+            c = dict(cfg, fused=fused)
+            if family == "svrg":
+                c["coeff"] = fused
+            init, _, run, _ = parallel.build_dp_functions(
+                family, mesh, Fr, gr, tdp.DPCfg(**c))
+            st0 = init(xr, gamma, seed, *extra)
+            (st, cn), dt = timed(lambda: count_of(
+                lambda: run(st0, steps), list(DP_KERNELS)))
+            res[fused] = dict({f: getattr(st, f).cpu() for f in fields},
+                              s=dt, launches={k: int(v) for k, v in
+                                              cn.items()},
+                              steps={k: v.steps for k, v in cn.items()})
+        return res
+
+    for name, (family, cfg, gamma, extra, steps, fields) in runs.items():
+        if not gates[name]:
+            raise AssertionError(f"4dp (b) {name}: the kernel gate is closed")
+        out[name] = one(family, cfg, gamma, extra, steps, Fd, g, x0, fields)
+    # ProShI on its configuration, IndBox(-inf, hi) coupling
+    Np = PROSHI["N"]
+    pgen = torch.Generator(device=dev)
+    pgen.manual_seed(seed + 5_000)
+    Fp, _, Lp = lasso(pgen, dev, Np, n, "f32")
+    Fpd = parallel.shard_finite_sum(Fp, mesh)
+    gp = coupling("IndBox", dev)
+    xp = torch.zeros(n, device=dev)
+    plo, phi = mesh.rows(Np)
+    if not fb.proshi_multistep_available(Fpd, gp, xp, PROSHI["B"] // D):
+        raise AssertionError("4dp (b) proshi: the kernel gate is closed")
+    pcfg = dict(N=Np, D=D, b_loc=PROSHI["B"] // D, alpha=0.999, sweeping=2,
+                local_steps=T["proshi_K"], rebase_every=50)
+    out["proshi"] = one("proshi", pcfg,
+                        (0.999 * Np / Lp[plo:phi]).float().contiguous(), (),
+                        T["proshi_rounds"], Fpd, gp, xp, ("z", "av", "s"))
+    out["held"] = dict(rows=rows_bytes, allocated=held)
+    return out
+
+
+def dp_rank_main(rank: int, D: int, store: str, out_dir: str, seed: int):
+    """A rank process of (b): gloo over a FileStore, CUDA tensors on the
+    one card, its results written to out_dir."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ciao_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, D), rank=rank,
+                            world_size=D,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        mesh = parallel.make_mesh(device="cuda:0")
+        out = dp_two_rank_runs(mesh, seed)
+        torch.cuda.synchronize()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_two_ranks(seed: int, card: str) -> dict:
+    """(b): DP_TWO['ranks'] processes on the one card over gloo, spawned
+    after the build (they load it), each family's kernel path held to
+    its plain path on each rank, and the replicated vectors held bit for
+    bit across the ranks. Returns the launches of the kernel paths,
+    summed over the ranks."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    D = DP_TWO["ranks"]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(dp_rank_main,
+                           args=(D, os.path.join(tmp, "store"), tmp, seed),
+                           nprocs=D, join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(D)]
+    launches = {k: 0 for k in DP_KERNELS}
+    parts = []
+    held = [o.pop("held") for o in outs]
+    for fam in outs[0]:
+        worst = 0.0
+        for r, o in enumerate(outs):
+            kern, plain = o[fam][True], o[fam][False]
+            for f, v in kern.items():
+                if not isinstance(v, torch.Tensor):
+                    continue
+                tol = Z_TOL[False] if f in ("z", "z_full", "w") else (
+                    STATE_TOL[False])
+                e = rel_gap(v, plain[f])
+                if not e <= tol:
+                    raise AssertionError(f"4dp (b) {fam} rank {r}: {f} of "
+                                         f"the kernel path {e:.3e} off the "
+                                         f"plain path (> {tol})")
+                worst = max(worst, e)
+            for path in (True, False):
+                for f in ("z", "av", "z_full", "w"):
+                    if f in o[fam][path] and not torch.equal(
+                            o[fam][path][f], outs[0][fam][path][f]):
+                        raise AssertionError(f"4dp (b) {fam}: {f} differs "
+                                             f"between ranks 0 and {r}")
+            if any(o[fam][False]["launches"].values()):
+                raise AssertionError(f"4dp (b) {fam}: the plain path "
+                                     f"launched {o[fam][False]['launches']}")
+            for k, v in kern["launches"].items():
+                launches[k] += Count(v, kern["steps"][k])
+        mine = [k for k, f in DP_KERNELS.items() if f == fam]
+        if any(outs[0][fam][True]["launches"][k] == 0 for k in mine):
+            raise AssertionError(f"4dp (b) {fam}: no launch of {mine}: "
+                                 f"{outs[0][fam][True]['launches']}")
+        parts.append(
+            f"{fam} {worst:.2e} (kernels {outs[0][fam][True]['s']:.2f} s, "
+            f"plain {outs[0][fam][False]['s']:.2f} s on rank 0; " + ", ".join(
+                f"{DP_LABEL[k]} x{outs[0][fam][True]['launches'][k]}"
+                for k in DP_KERNELS if outs[0][fam][True]['launches'][k])
+            + " a rank)")
+    log(f"  4dp (b) {D} ranks on the one card over gloo (CUDA tensors), "
+        f"{N // D} headline rows a rank (ProShI {PROSHI['N'] // D}): kernel "
+        f"path vs plain path, largest gap " + "; ".join(parts)
+        + f"; z and av bit for bit across the ranks; each rank holds "
+        f"{held[0]['rows'] / 2 ** 20:.1f} MiB of rows, "
+        + ", ".join(f"{h['allocated'] / 2 ** 20:.1f}" for h in held)
+        + f" MiB allocated after the cut; {wall:.2f} s with the spawn "
+        f"[{card}]")
+    return launches
+
+
+def run_dp(dev, gen, seed: int, card: str) -> dict:
+    """Phase 4dp: (a) one rank over NCCL, (b) two ranks on the one card
+    over gloo. Returns the DP path's launches of each kernel (the
+    comparison runs against single-card SAGA and the plain paths
+    excluded)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ciao_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in DP_KERNELS}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh(device=dev)
+            saga = {s_: dp_saga_one_rank(mesh, gen, dev, s_, seed, card)
+                    for s_ in ("f32", "int8")}
+            svrg = dp_svrg_plus_one_rank(mesh, gen, dev, seed, card)
+            deep = dp_deep_one_rank(mesh, dev, card)
+        finally:
+            dist.destroy_process_group()
+    for r in (*saga.values(), svrg):
+        for k, v in r["launches"].items():
+            launches[k] += v
+    t_a = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for k, v in dp_two_ranks(seed, card).items():
+        launches[k] += v
+    return dict(saga=saga, svrg=svrg, deep=deep, launches=launches,
+                s_a=t_a, s=time.perf_counter() - t0)
+
+
 KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
            "svrg_coeff_multistep", "coeff_apply_all",
            "finito_coeff_multistep", "finito_coeff_multistep_streamed",
@@ -6621,6 +7045,25 @@ def main() -> int:
         f"{ex['entry']['it']} on one kernel #4 launch; " + "; ".join(
             example_text(k, v) for k, v in ex.items() if k != "entry")
         + f"; all {time.perf_counter() - t0:.2f} s [{card}]")
+
+    # 4dp. the data-parallel path: (a) one rank over NCCL, (b) two ranks on
+    # the one card over gloo; counts from 0, the comparison runs excluded
+    reset_counts()
+    dp = run_dp(dev, gen, args.seed, card)
+    for k, v in dp["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+        if v == 0:
+            raise AssertionError(f"4dp: the DP path launched no {k}")
+    log(f"phase 4dp data-parallel path: ok; DPSAGA f32 "
+        f"{dp['saga']['f32']['ms']:.5f} ms/step (single-card "
+        f"{dp['saga']['f32']['single_ms']:.5f}), int8 "
+        f"{dp['saga']['int8']['ms']:.5f} (single-card "
+        f"{dp['saga']['int8']['single_ms']:.5f}); SVRG++ local inner "
+        f"{dp['svrg']['ms']:.5f} ms/inner step on #5/#6, "
+        f"{dp['svrg']['plain_ms']:.5f} plain; deep_solve_dp rel "
+        f"{dp['deep']['rel']:.3e} in {dp['deep']['s']:.2f} s; DP launches "
+        + json.dumps(dp["launches"]) + f"; (a) {dp['s_a']:.2f} s, all "
+        f"{dp['s']:.2f} s [{card}]")
 
     # 11. kernel #7 per pass in turns with its plain version and kernel #6
     t11 = {s_: time_value_apply(gen, dev, s_, card, ceil)

@@ -1677,6 +1677,25 @@ def katyusha_coeff_multistep(A, b, canch, starts, xt, y, z, ys, av, scalars,
     return y, z, ys
 
 
+def svrg_inner_chunked(A, b, canch, w, zs, av, scalars, B: int, m: int,
+                       starts_fn, precision: str = "highest", rs=None,
+                       launch_steps: int = 64):
+    """The first ``floor(m/K)·K`` of an SVRG inner loop's m block steps
+    as launches of K = min(``launch_steps``, m) steps of
+    :func:`svrg_coeff_multistep`, w and the running sum ``zs`` carried
+    across them in place. ``starts_fn(k0, K)`` gives the (K,) int32
+    block starts of inner steps [k0, k0 + K): the caller owns the draws,
+    so the single-card and data-parallel paths keep their own. Returns
+    ``(w, zs, done)``, JAX's ``(w2, zs2, done)``; the caller runs the
+    m − done remaining steps on its stepwise path, on the same draws."""
+    K = min(launch_steps, m)
+    done = (m // K) * K
+    for k0 in range(0, done, K):
+        svrg_coeff_multistep(A, b, starts_fn(k0, K), canch, w, zs, av,
+                             scalars, B, precision=precision, rs=rs)
+    return w, zs, done
+
+
 def katyusha_inner_chunked(A, b, canch, xt, y, z, ys, av, scalars, B: int,
                            starts, launch_steps: int,
                            precision: str = "highest", rs=None):

@@ -389,6 +389,10 @@ class HybridSparseLeastSquares(_HotBlock, _LeastSquares, SparseRows):
     multiple of 128, ``hot_cols`` (D,) int32 original column ids, the ELL
     tail ``idx``/``val``, ``b``, ``scale``, ``n_dim``."""
 
+    # the (D,) hot columns (and their int64 copy) stay whole on every rank
+    # of a data mesh, even when N happens to equal D
+    dp_replicated = ("hot_cols", "_hot64")
+
     def __init__(self, A_hot, hot_cols, idx, val, b, scale, n_dim: int,
                  supports_coeff: bool = True):
         super().__init__(idx, val, b, n_dim, A_hot, hot_cols,
@@ -432,6 +436,10 @@ class SparseLogisticELL(_Logistic, SparseRows):
 class HybridSparseLogistic(_HotBlock, _Logistic, SparseRows):
     """Logistic rows split hot/cold: ``A_hot``, ``hot_cols``, the ELL
     tail ``idx``/``val``, labels ``y``, ``n_dim``."""
+
+    # the (D,) hot columns (and their int64 copy) stay whole on every rank
+    # of a data mesh, even when N happens to equal D
+    dp_replicated = ("hot_cols", "_hot64")
 
     def __init__(self, A_hot, hot_cols, idx, val, y, n_dim: int,
                  supports_coeff: bool = True):

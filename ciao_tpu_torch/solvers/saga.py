@@ -302,17 +302,17 @@ def _saga_step(F, g, cfg: SAGACfg, state: SAGAState, start=None, wgt=None,
 
 def _scalars_row(F, g, state, cfg: SAGACfg):
     """The kernels' (8,) f32 scalars row [scale, γ, γλ, 1/B, 1/N, sag,
-    mode, aux] on the state's device."""
+    mode, aux] on the rows' device, filled there (a host copy would
+    drain the queue of launches)."""
     from ciao_tpu_torch.ops.fused_block import oracle_scalar_consts
 
-    dev = state.z.device
     scale, mode, lam, aux = oracle_scalar_consts(F, g)
-    gamma = state.gamma.to(dev).float()
-    consts = torch.tensor([1.0 / cfg.batch, 1.0 / cfg.N,
-                           1.0 if cfg.sag else 0.0],
-                          dtype=torch.float32, device=dev)
-    return torch.cat([torch.stack([scale, gamma, gamma * lam.float()]),
-                      consts, torch.stack([mode, aux])])
+    gamma = state.gamma.to(scale.device).float()
+    return torch.stack([scale, gamma, gamma * lam.float(),
+                        torch.full_like(scale, 1.0 / cfg.batch),
+                        torch.full_like(scale, 1.0 / cfg.N),
+                        torch.full_like(scale, 1.0 if cfg.sag else 0.0),
+                        mode, aux])
 
 
 def _explicit(starts, wgts, i: int):

@@ -3506,3 +3506,158 @@ def test_entry_launches_kernel_4_once(dev):
     assert after == {"saga_coeff_multistep_streamed": 1,
                      "saga_coeff_multistep": 0, "coeff_apply_all": 0}
     assert out.it == args[2].it + 8 and bool(torch.isfinite(out.z).all())
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel path on the card (ciao_tpu_torch.parallel): one gloo
+# rank in this process, CUDA tensors; each family's kernel path against
+# its plain path (the same DP code with the gate closed)
+# ---------------------------------------------------------------------------
+
+DP_SMALL = dict(N=8_192, n=256, B=512)
+
+
+def test_make_mesh_raises_without_a_group(dev):
+    """No process group, no mesh: the ranks are the caller's to start."""
+    import torch.distributed as dist
+
+    from ciao_tpu_torch.parallel import make_mesh
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        make_mesh()
+
+
+def test_oracle_part_on_the_card_holds_only_its_rows(dev):
+    """An oracle already on the rank's card: its part copies the rank's
+    rows (the storage behind A holds n_loc rows), so the whole matrix
+    can be freed."""
+    from ciao_tpu_torch.parallel import shard_finite_sum
+    from ciao_tpu_torch.parallel.mesh import Mesh
+
+    N, n = DP_SMALL["N"], DP_SMALL["n"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    F = LeastSquaresRows(torch.randn(N, n, generator=gen, device=dev),
+                         torch.randn(N, generator=gen, device=dev), float(N))
+    part = shard_finite_sum(F, Mesh(group=None, rank=1, size=2, device=dev))
+    n_loc = N // 2
+    assert part.A.untyped_storage().nbytes() == n_loc * n * 4
+    assert part.b.untyped_storage().nbytes() == n_loc * 4
+    assert torch.equal(part.A, F.A[n_loc:])
+
+
+@pytest.fixture(scope="module")
+def dp_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import torch.distributed as dist
+
+    from ciao_tpu_torch.parallel import make_mesh
+
+    store = tmp_path_factory.mktemp("dp") / "store"
+    dist.init_process_group("gloo", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    yield make_mesh()
+    dist.destroy_process_group()
+
+
+def test_make_mesh_defaults_to_the_card_and_raises_without_one(dp_mesh,
+                                                               monkeypatch):
+    """The mesh's device is the card of the local rank; with no card and
+    no device named, make_mesh raises instead of running on the CPU."""
+    from ciao_tpu_torch.parallel import make_mesh
+
+    assert dp_mesh.device == torch.device("cuda", 0) and dp_mesh.size == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert make_mesh(device="cpu").device == torch.device("cpu")
+
+
+def _dp_family(mesh, dev, family, seed=0):
+    """(kernel path state, plain path state, the kernel path's launches,
+    the plain path's) of a few rounds of ``family`` on the DP_SMALL Lasso
+    (ProShI: its IndBox(-inf, 1) coupling)."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.parallel import dp as tdp
+    from ciao_tpu_torch.prox import IndBox, NormL1
+
+    N, n, B = DP_SMALL["N"], DP_SMALL["n"], DP_SMALL["B"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    A = torch.randn(N, n, generator=gen, device=dev)
+    F = parallel.shard_finite_sum(
+        LeastSquaresRows(A, torch.randn(N, generator=gen, device=dev),
+                         float(N)), mesh)
+    L = (A * A).sum(1) * N
+    g = (IndBox(-float("inf"), 1.0) if family == "proshi"
+         else NormL1(0.1)).to(dev)
+    x0 = torch.zeros(n, device=dev)
+    base = dict(N=N, D=1, b_loc=B, alpha=0.999)
+    gam_i = (0.999 * N / L).contiguous()
+    gam_s = torch.tensor(1.0 / (3.0 * float(L.max())), device=dev)
+    spec = {
+        "saga": ("saga", dict(base, sweeping=1, block=True, coeff=True,
+                              local_steps=16, rebase_every=2), gam_s, (), 3),
+        "finito": ("finito_coeff", dict(base, sweeping=3, coeff=True,
+                                        local_steps=16, rebase_every=2),
+                   gam_i, (), 3),
+        "lfinito": ("lfinito", dict(base, sweeping=3, local=True), gam_i,
+                    (), 2),
+        "svrg": ("svrg", dict(base, sweeping=1, block=True, local=True,
+                              plus=False), gam_s / 3.3, (80,), 2),
+        "svrg_plus": ("svrg", dict(base, sweeping=1, block=True, local=True,
+                                   plus=True), gam_s / 3.3, (48,), 3),
+        "proshi": ("proshi", dict(base, sweeping=2, local_steps=8,
+                                  rebase_every=2), gam_i, (), 3),
+    }[family]
+    fam, cfg, gamma, extra, steps = spec
+    out = []
+    for fused in (True, False):
+        c = dict(cfg, fused=fused)
+        if fam == "svrg":
+            c["coeff"] = fused
+        init, _, run, _ = parallel.build_dp_functions(fam, mesh, F, g,
+                                                      tdp.DPCfg(**c))
+        before = {k: getattr(tfb, k).launches for k in _DP_KERNELS}
+        st = run(init(x0, gamma, 0, *extra), steps)
+        torch.cuda.synchronize()
+        out += [st, {k: getattr(tfb, k).launches - before[k]
+                     for k in _DP_KERNELS}]
+    return out
+
+
+_DP_KERNELS = ("saga_coeff_multistep", "svrg_coeff_multistep",
+               "coeff_apply_all", "lfinito_sweep_multistep",
+               "finito_coeff_multistep", "proshi_multistep")
+_DP_LAUNCHED = {"saga": ("saga_coeff_multistep",),
+                "finito": ("finito_coeff_multistep",),
+                "lfinito": ("coeff_apply_all", "lfinito_sweep_multistep"),
+                "svrg": ("svrg_coeff_multistep", "coeff_apply_all"),
+                "svrg_plus": ("svrg_coeff_multistep", "coeff_apply_all"),
+                "proshi": ("proshi_multistep",)}
+
+
+@pytest.mark.parametrize("family", list(_DP_LAUNCHED))
+def test_dp_kernel_path_matches_plain_path(dp_mesh, dev, family):
+    """Each DP family's kernel path (#3 SAGA rounds, #9 Finito rounds,
+    #6 and #8 LFinito epochs, #5 and #6 SVRG and SVRG++ local inner
+    loops, #18 ProShI rounds) on one gloo rank against the same DP code
+    with the gate closed: the replicated vectors within 1e-6 of their
+    largest entry, av and the tables within 1e-5; only the kernel path
+    launches."""
+    kst, kl, pst, pl = _dp_family(dp_mesh, dev, family)
+    for k in _DP_LAUNCHED[family]:
+        assert kl[k] > 0, (k, kl)
+    assert not any(pl.values()), pl
+    for f, v in kst._asdict().items():
+        if not isinstance(v, torch.Tensor) or f == "gamma":
+            continue
+        w = getattr(pst, f)
+        if w is None:  # the anchor coefficients: the kernel path's own
+            continue
+        tol = 1e-6 if f in ("z", "z_full", "w", "x") else 1e-5
+        err = float((v.double() - w.double()).abs().max()
+                    / w.double().abs().max().clamp(min=1e-300))
+        assert err <= tol, (family, f, err)

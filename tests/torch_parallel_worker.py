@@ -1,0 +1,387 @@
+"""Rank processes of the port's data-parallel CPU tests.
+
+Imports torch and the port alone, never JAX, so that the processes that
+``torch.multiprocessing`` spawns from a test start without it. A test
+module builds its cases (numpy problems, configs, each rank's schedule)
+in the parent, and :func:`spawn` runs every case on D gloo ranks over a
+``FileStore``, one torch thread a rank, returning each rank's results:
+
+    results = spawn(cases, D, tmp_path)   # results[rank][case name]
+
+A case is a dict whose ``"fn"`` names one of the runners below.
+"""
+
+from __future__ import annotations
+
+import datetime
+import itertools
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from ciao_tpu_torch import parallel
+from ciao_tpu_torch.oracles import (
+    DiagQuadratic, HuberRows, HybridSparseLeastSquares, LeastSquaresRows,
+    SparseLeastSquaresELL, SqrDistBox, SumOracle,
+)
+from ciao_tpu_torch.parallel import dp as tdp
+from ciao_tpu_torch.prox import IndBox, NormL1
+
+TIMEOUT = datetime.timedelta(seconds=120)
+
+
+# ---------------------------------------------------------------------------
+# problems
+# ---------------------------------------------------------------------------
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def oracle(spec):
+    """The whole oracle of a case (numpy data in ``spec["oracle"]``)."""
+    o = spec["oracle"]
+    kind = o["kind"]
+    if kind == "lsq":
+        F = LeastSquaresRows(_t(o["A"]), _t(o["b"]), float(o["scale"]))
+        return F.with_storage(o["storage"]) if o.get("storage") else F
+    if kind == "huber":
+        return HuberRows(_t(o["A"]), _t(o["b"]), float(o["delta"]),
+                         float(o["scale"]))
+    if kind == "ell":
+        return SparseLeastSquaresELL.from_dense(o["A"], o["b"],
+                                                float(o["scale"]),
+                                                device="cpu")
+    if kind == "hybrid":
+        return HybridSparseLeastSquares.from_dense(
+            o["A"], o["b"], float(o["scale"]), D=o["D"], device="cpu")
+    if kind == "sharing":
+        return SumOracle([DiagQuadratic(_t(o["d"]), _t(o["q"])),
+                          SqrDistBox(_t(o["lo"]), _t(o["hi"]),
+                                     _t(o["eta"]), n_terms=o["n_terms"])])
+    raise ValueError(kind)
+
+
+def prox(spec):
+    p = spec.get("prox", {"kind": "l1", "lam": 0.0})
+    if p["kind"] == "l1":
+        return NormL1(_t(p["lam"]))
+    return IndBox(_t(p["lo"]), _t(p["hi"]))
+
+
+def _np(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return v
+
+
+def fields(state) -> dict:
+    return {k: _np(v) for k, v in state._asdict().items()}
+
+
+def _sched(spec, key, rank):
+    """The rank's explicit schedule: a tensor, or a list of tensors (one
+    an outer step of SVRG++)."""
+    s = spec.get(key)
+    if s is None:
+        return None
+    s = s[rank]
+    if isinstance(s, list):
+        return [_t(a) for a in s]
+    return _t(s)
+
+
+# ---------------------------------------------------------------------------
+# runners
+# ---------------------------------------------------------------------------
+
+def build(mesh, spec):
+    """``build_dp_functions`` on the case's config, from init through
+    ``spec["steps"]`` steps (``run``, or ``step`` one at a time with
+    ``"stepwise"``) on the explicit schedule; the final state's
+    fields."""
+    N = spec["cfg"]["N"]
+    F = parallel.shard_finite_sum(oracle(spec), mesh, N)
+    g = prox(spec)
+    cfg = tdp.DPCfg(**spec["cfg"])
+    init, step, run, rebase = parallel.build_dp_functions(
+        spec["family"], mesh, F, g, cfg)
+    gamma = spec.get("gamma")
+    if gamma is not None:
+        gamma = _t(gamma)
+        if gamma.dim() == 1:
+            gamma = gamma[slice(*mesh.rows(N))].contiguous()
+    st = init(_t(spec["x0"]), gamma, spec.get("seed", 0),
+              *spec.get("extra", ()))
+    starts, idx = _sched(spec, "starts", mesh.rank), _sched(spec, "idx",
+                                                           mesh.rank)
+    if spec.get("stepwise"):
+        for t in range(spec["steps"]):
+            st = step(st, None if starts is None else starts[t],
+                      None if idx is None else idx[t])
+    else:
+        st = run(st, spec["steps"], starts=starts, idx=idx)
+    if spec.get("rebase"):
+        st = rebase(st)
+    return fields(st)
+
+
+def run_vs_step(mesh, spec):
+    """The same config from init through ``spec["steps"]`` steps twice on
+    the rank's own draws: one ``run`` call (its draws in one pass) and
+    ``step`` calls (each its own draw)."""
+    N = spec["cfg"]["N"]
+    F = parallel.shard_finite_sum(oracle(spec), mesh, N)
+    cfg = tdp.DPCfg(**spec["cfg"])
+    init, step, run, _ = parallel.build_dp_functions(
+        spec["family"], mesh, F, prox(spec), cfg)
+    gamma = _t(spec["gamma"])
+    if gamma.dim() == 1:
+        gamma = gamma[slice(*mesh.rows(N))].contiguous()
+    st0 = init(_t(spec["x0"]), gamma, spec.get("seed", 0))
+    a = run(st0, spec["steps"])
+    b = st0
+    for _ in range(spec["steps"]):
+        b = step(b)
+    return dict(run=fields(a), step=fields(b))
+
+
+def _solver(mesh, spec):
+    cls = getattr(parallel, spec["cls"])
+    return cls(mesh=mesh, **spec.get("kw", {}))
+
+
+def _call_args(mesh, spec):
+    F = oracle(spec)
+    if spec.get("shard", True):
+        F = parallel.shard_finite_sum(F, mesh, spec.get("N"))
+    L = spec.get("L")
+    return dict(F=F, g=prox(spec), L=None if L is None else _t(L),
+                N=spec.get("N"))
+
+
+def facade(mesh, spec):
+    """A facade call (``x``, ``it``), or with ``"take": k`` the fields of
+    the k'th state of its iterator."""
+    solver = _solver(mesh, spec)
+    x0 = _t(spec["x0"])
+    kw = _call_args(mesh, spec)
+    if "take" in spec:
+        states = list(itertools.islice(solver.iterator(x0, **kw),
+                                       spec["take"]))
+        out = fields(states[-1])
+        out["n_states"] = len(states)
+        return out
+    x, it = solver(x0, **kw)
+    return {"x": _np(x), "it": it}
+
+
+def errors(mesh, spec):
+    """The messages of facade calls that must raise ValueError."""
+    out = []
+    for call in spec["calls"]:
+        try:
+            facade(mesh, dict(spec, **call))
+        except ValueError as e:
+            out.append(str(e))
+        else:
+            out.append(None)
+    return out
+
+
+def layout(mesh, spec):
+    """Each leaf of the rank's oracle part: shape and dtype, the bytes of
+    the storage behind it, with the part's record."""
+    F = parallel.shard_finite_sum(oracle(spec), mesh, spec.get("N"))
+    specs = parallel.data_specs(oracle(spec), spec.get("N") or
+                                oracle(spec).num_terms)
+    leaves = {k: (tuple(v.shape), str(v.dtype)) for k, v in
+              F.named_buffers()}
+    storage = {k: v.untyped_storage().nbytes() for k, v in
+               F.named_buffers()}
+    leaves_rows = {k: _np(v) for k, v in F.named_buffers()
+                   if k in spec.get("values", ())}
+    return dict(leaves=leaves, specs=specs, dp_shard=F.dp_shard,
+                num_terms=F.num_terms, values=leaves_rows, storage=storage)
+
+
+def rebase_resume(mesh, spec):
+    """Run the family on the int8 rows for ``steps`` states, resume under
+    the f32 rows with ``rebase=True`` (``checkpoint.resume_iterator``),
+    and report the first resumed state and the state ``more`` later."""
+    from ciao_tpu_torch.checkpoint import resume_iterator
+
+    solver = _solver(mesh, spec)
+    x0 = _t(spec["x0"])
+    kw = _call_args(mesh, spec)
+    kq = dict(kw, F=parallel.shard_finite_sum(oracle(spec).with_storage(
+        "int8"), mesh))
+    it = iter(solver.iterator(x0, **kq))
+    for _ in range(spec["steps"]):
+        st = next(it)
+    it32 = solver.iterator(x0, **kw)
+    res = resume_iterator(it32, st, rebase=True)
+    first = next(res)
+    last = first
+    for _ in range(spec.get("more", 0)):
+        last = next(res)
+    F32 = kw["F"]
+    out = dict(first=fields(first), last=fields(last), int8=fields(st))
+    if hasattr(first, "c"):
+        out["apply"] = _np(F32.apply_all(first.c))
+    else:
+        out["apply"] = _np(F32.apply_all(first.s))
+    return out
+
+
+def deep(mesh, spec):
+    """``deep_solve_dp`` on the case's problem."""
+    kw = _call_args(mesh, spec)
+    x, info = parallel.deep_solve_dp(_t(spec["x0"]), kw["F"], kw["g"],
+                                     L=kw["L"], N=spec["N"], mesh=mesh,
+                                     **spec["kw"])
+    return dict(x=_np(x), lmax=info.lmax, polish_steps=info.polish_steps,
+                objectives=info.staged.objectives)
+
+
+def power(mesh, spec):
+    """``power_lmax_dp`` at the case's point."""
+    from ciao_tpu_torch.parallel.deep import power_lmax_dp
+
+    kw = _call_args(mesh, spec)
+    return float(power_lmax_dp(mesh, kw["F"], _t(spec["x"]), spec["seed"],
+                               spec["N"], iters=spec["iters"]))
+
+
+def mesh_info(mesh, spec):
+    """The mesh, its refusals, and one all-reduce of each dtype."""
+    out = dict(rank=mesh.rank, size=mesh.size, device=str(mesh.device),
+               shape=mesh.shape)
+    try:
+        parallel.make_mesh(n_data=mesh.size + 1, device="cpu")
+    except ValueError as e:
+        out["n_data_error"] = str(e)
+    for dt in (torch.float64, torch.complex128):
+        out[str(dt)] = _np(tdp._psum(mesh, torch.ones(3, dtype=dt) *
+                                     (mesh.rank + 1)))
+    return out
+
+
+def schedules(mesh, spec):
+    """The rank's own draws: round starts, indices, block starts."""
+    out = {}
+    for sw in (1, 2, 3):
+        out[f"round{sw}"] = _np(tdp._local_round_starts(
+            spec["seed"], spec["it0"], spec["n_loc"], spec["B"], spec["K"],
+            sw, mesh.rank, "cpu"))
+        out[f"single{sw}"] = np.array([
+            int(tdp.local_block_start(spec["seed"], spec["it0"] + k,
+                                      spec["n_loc"], spec["B"], sw,
+                                      mesh.rank))
+            for k in range(spec["K"])])
+        out[f"idx{sw}"] = _np(tdp.local_indices(
+            spec["seed"], spec["it0"], spec["n_loc"], spec["B"], sw,
+            mesh.rank))
+    return out
+
+
+def single_round(mesh, spec):
+    """One DP SAGA local round of K steps on kernel #3's path at D = 1
+    beside the single-card coefficient SAGA on the same block starts
+    (the multistep driver, on the same kernel path): both states."""
+    from ciao_tpu_torch.solvers.saga import SAGACfg, saga_init, saga_run
+
+    N, B, K = spec["N"], spec["B"], spec["K"]
+    F = oracle(spec)
+    g = prox(spec)
+    x0, gamma = _t(spec["x0"]), _t(spec["gamma"])
+    starts = _t(spec["starts"])
+    cfg = tdp.DPCfg(N=N, D=mesh.size, b_loc=B, sweeping=1, alpha=0.999,
+                    block=True, coeff=True, local_steps=K, fused=True,
+                    rebase_every=50)
+    init, _, run, _ = parallel.build_dp_functions(
+        "saga", mesh, parallel.shard_finite_sum(F, mesh), g, cfg)
+    dp = run(init(x0, gamma, 0), 1, starts=starts[None])
+    scfg = SAGACfg(N=N, sag=False, batch=B, block=True, fused=True,
+                   coeff=True)
+    sc = saga_run(F, g, saga_init(F, g, x0, gamma, 0, scfg), scfg, K,
+                  starts=starts)
+    return dict(dp=fields(dp), single=fields(sc))
+
+
+RUNNERS = dict(build=build, facade=facade, errors=errors, layout=layout,
+               rebase_resume=rebase_resume, deep=deep, power=power,
+               mesh_info=mesh_info, schedules=schedules,
+               single_round=single_round, run_vs_step=run_vs_step)
+
+
+# ---------------------------------------------------------------------------
+# the processes
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank, D, store_path, cases_path, out_dir):
+    torch.set_num_threads(1)
+    store = dist.FileStore(store_path, D)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=D,
+                            timeout=TIMEOUT)
+    try:
+        mesh = parallel.make_mesh(device="cpu")
+        cases = torch.load(cases_path, weights_only=False)
+        out = {"_seconds": {}}
+        for name, spec in cases.items():
+            t0 = time.perf_counter()
+            try:
+                out[name] = RUNNERS[spec["fn"]](mesh, spec)
+                out["_seconds"][name] = time.perf_counter() - t0
+            except Exception:
+                # the case's collectives may now be out of step across the
+                # ranks: record the error and stop
+                out[name] = {"error": traceback.format_exc()}
+                break
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(cases: dict, D: int, tmp_path, reverse: bool = False) -> list:
+    """Run ``cases`` on D gloo ranks; returns each rank's ``{case name:
+    result}`` (a failed case's result is ``{"error": traceback}``, and no
+    later case runs). ``reverse`` starts the ranks one by one, the last
+    first, in place of ``torch.multiprocessing.start_processes``."""
+    tmp = str(tmp_path)
+    cases_path = os.path.join(tmp, "cases.pt")
+    torch.save(cases, cases_path)
+    args = (D, os.path.join(tmp, "store"), cases_path, tmp)
+    if reverse:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_rank_main, args=(r,) + args)
+                 for r in reversed(range(D))]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        assert all(p.exitcode == 0 for p in procs), [p.exitcode
+                                                     for p in procs]
+    else:
+        mp.start_processes(_rank_main, args=args, nprocs=D, join=True,
+                           start_method="spawn")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(D)]
+
+
+def result(results, name: str, rank: int = 0):
+    """One case's result on one rank; raises with the rank's traceback
+    when the case failed there."""
+    r = results[rank].get(name)
+    if r is None:
+        raise AssertionError(f"case {name} did not run on rank {rank} "
+                             f"(an earlier case failed)")
+    if isinstance(r, dict) and "error" in r:
+        raise AssertionError(f"case {name} failed on rank {rank}:\n"
+                             f"{r['error']}")
+    return r
