@@ -304,9 +304,22 @@ Phases, one line each:
      build, 131,072 headline rows each: DPSAGA (#3) and coefficient
      DPFinito (#9) local rounds, the LFinito local sweep (#6, #8), DPSVRG's
      local inner loop (#5, #6) and DPProshi's cyclic local rounds on
-     ProShI's 65,536 x 1,024 configuration (#18), each on its kernel path
+     ProShI's 65,536 x 1,024 configuration (#18), and DPKatyusha's and
+     DPSARAH's local inner loops (#10, #11, #6), each on its kernel path
      and its plain path (the gate closed), held within 1e-6 (z) and 1e-5
-     (av, tables), the replicated vectors bit for bit across the ranks;
+     (av, tables; Katyusha's and SARAH's vectors); DPLSVRG, DPLKatyusha, DPPointSAGA, DPSSNM,
+     DPDavisYin, DPCondatVu, DPPANOC and DPZeroFPR a few steps each (no
+     kernel), PANOC's and ZeroFPR's FBE evaluations equal on both ranks;
+     every replicated vector bit for bit across the ranks; (c) one rank
+     over NCCL at the headline: DPKatyusha and DPSARAH with local inner
+     loops of m = 2N/batch = 128 steps on #10/#11 and #6 (f32 and int8),
+     the first outer step held to the single-card fused solver on the same
+     starts within 1e-6, ms an inner step beside the single card's and the
+     launches an outer step; short runs of the eight families with no
+     kernel (the cost falls, ms a step, launches a step and the idle share
+     of a profiled window, PANOC's FBE evaluations a step, none of the 19
+     kernels launched); ``deep_solve_pd_dp`` on 4y's fused-lasso plant,
+     certified to rel <= 1e-6, its seconds beside 4y's ``deep_solve_pd``;
      the launches of the DP path counted (the comparison runs excluded);
   11. times: kernel #7 per pass at the headline in turns with its plain
      version and kernel #6, its bound, the read ceiling and the two-gemv +
@@ -4740,26 +4753,20 @@ def quad_gap(A, y, d64, chunk: int) -> float:
     return float(hi + lo)
 
 
-def run_pd_leg(dev, seed: int, three: bool, card: str) -> dict:
-    """One leg of 4y: the plant on the card, deep_solve_pd on it with its
-    seconds split into the Condat-Vũ rounds and the refinement (each timed
-    by wrapping the module's function, with a synchronize either side), rel
-    from quad_gap as bench.py:1205-1212 and :1246-1254 compute it, and a
-    profiled window of PD_PROFILE_STEPS compensated steps (ms a step, idle
-    share, device events a step)."""
+def pd_problem(dev, seed: int, three: bool) -> dict:
+    """A leg's planted problem on the card: the optimum's host plant
+    (``pp``), the rows and offsets from pd_plant, the oracle and the
+    terms g, h = λ‖D·‖₁, K, and the plant's seconds."""
     import numpy as np
 
-    from ciao_tpu_torch import (
-        CondatVu, FirstDifference, LeastSquaresRows, deep_solve_pd,
-    )
+    from ciao_tpu_torch import FirstDifference, LeastSquaresRows
     from ciao_tpu_torch.prox import NormL1
-    from ciao_tpu_torch.solvers import deep_pd
     from ciao_tpu_torch.utils import (
         make_fused_lasso_planted, make_three_term_planted,
     )
 
     S = PD_DEEP
-    N_, n_ = S["N"], S["n"]
+    n_ = S["n"]
     make = make_three_term_planted if three else make_fused_lasso_planted
     pp = make(N=8, n=n_, jumps=S["jumps"], seed=0)
     Dt_v = np.zeros(n_)
@@ -4769,11 +4776,51 @@ def run_pd_leg(dev, seed: int, three: bool, card: str) -> dict:
     t0 = time.perf_counter()
     A, b, y = pd_plant(dev, seed + int(three), pp.x_star, corr)
     torch.cuda.synchronize()
-    plant_s = time.perf_counter() - t0
-    F = LeastSquaresRows(A, b, float(N_))
     lam = torch.tensor(pp.lam2 if three else pp.lam, device=dev)
-    g = NormL1(torch.tensor(pp.lam1, device=dev)) if three else None
-    h, K = NormL1(lam), FirstDifference()
+    return dict(pp=pp, A=A, b=b, y=y, F=LeastSquaresRows(A, b, float(S["N"])),
+                g=NormL1(torch.tensor(pp.lam1, device=dev)) if three else None,
+                h=NormL1(lam), K=FirstDifference(),
+                plant_s=time.perf_counter() - t0)
+
+
+def pd_rel(P: dict, x, three: bool) -> tuple:
+    """(rel, jump set recovered, planted zeros exact or None) of a leg's
+    solution x, rel from quad_gap as bench.py:1205-1212 and :1246-1254
+    compute it."""
+    import numpy as np
+
+    pp = P["pp"]
+    x64 = x.double().cpu().numpy()
+    gap = quad_gap(P["A"], P["y"], x64 - pp.x_star, PD_DEEP["chunk"])
+    tv = np.sum(np.abs(np.diff(x64))) - np.sum(np.abs(np.diff(pp.x_star)))
+    if three:
+        ns = (pp.lam1 * (np.sum(np.abs(x64)) - np.sum(np.abs(pp.x_star)))
+              + pp.lam2 * tv)
+        f_star = (0.5 + pp.lam1 * np.sum(np.abs(pp.x_star))
+                  + pp.lam2 * np.sum(np.abs(np.diff(pp.x_star))))
+    else:
+        ns = pp.lam * tv
+        f_star = 0.5 + pp.lam * np.sum(np.abs(np.diff(pp.x_star)))
+    jumps_ok = bool(np.array_equal(np.nonzero(np.diff(x64))[0],
+                                   np.nonzero(np.diff(pp.x_star))[0]))
+    zeros = bool(np.all(x64[pp.x_star == 0] == 0.0)) if three else None
+    return (gap + ns) / f_star, jumps_ok, zeros
+
+
+def run_pd_leg(dev, seed: int, three: bool, card: str) -> dict:
+    """One leg of 4y: the plant on the card, deep_solve_pd on it with its
+    seconds split into the Condat-Vũ rounds and the refinement (each timed
+    by wrapping the module's function, with a synchronize either side),
+    rel (pd_rel), and a profiled window of PD_PROFILE_STEPS compensated
+    steps (ms a step, idle share, device events a step)."""
+    from ciao_tpu_torch import CondatVu, deep_solve_pd
+    from ciao_tpu_torch.solvers import deep_pd
+
+    S = PD_DEEP
+    N_, n_ = S["N"], S["n"]
+    P = pd_problem(dev, seed, three)
+    A, F, g, h, K = P["A"], P["F"], P["g"], P["h"], P["K"]
+    plant_s = P["plant_s"]
 
     spent = dict(cv=0.0, refine=0.0, rounds=0, refines=0)
 
@@ -4808,21 +4855,7 @@ def run_pd_leg(dev, seed: int, three: bool, card: str) -> dict:
         raise AssertionError(f"deep_solve_pd came back on {x.device}, not "
                              f"on the rows' {A.device}")
 
-    x64 = x.double().cpu().numpy()
-    gap = quad_gap(A, y, x64 - pp.x_star, S["chunk"])
-    tv = np.sum(np.abs(np.diff(x64))) - np.sum(np.abs(np.diff(pp.x_star)))
-    if three:
-        ns = (pp.lam1 * (np.sum(np.abs(x64)) - np.sum(np.abs(pp.x_star)))
-              + pp.lam2 * tv)
-        f_star = (0.5 + pp.lam1 * np.sum(np.abs(pp.x_star))
-                  + pp.lam2 * np.sum(np.abs(np.diff(pp.x_star))))
-    else:
-        ns = pp.lam * tv
-        f_star = 0.5 + pp.lam * np.sum(np.abs(np.diff(pp.x_star)))
-    rel = (gap + ns) / f_star
-    jumps_ok = bool(np.array_equal(np.nonzero(np.diff(x64))[0],
-                                   np.nonzero(np.diff(pp.x_star))[0]))
-    zeros = bool(np.all(x64[pp.x_star == 0] == 0.0)) if three else None
+    rel, jumps_ok, zeros = pd_rel(P, x, three)
     tag = "three-term" if three else "fused lasso"
 
     # the profiled window: PD_PROFILE_STEPS compensated steps from x
@@ -4862,7 +4895,7 @@ def run_pd_leg(dev, seed: int, three: bool, card: str) -> dict:
     if three and not zeros:
         raise AssertionError("pd deep three-term: a planted zero is not "
                              "exactly zero")
-    del A, b, y, F
+    del A, F, P
     return out
 
 
@@ -5856,19 +5889,30 @@ DP_DEEP = dict(N=1_048_576, n=128, p=16, B=8_192, local_steps=128,
 # ProShI's 65,536 x 1,024 configuration): a few rounds of each family on
 # its kernel path and on its plain path
 DP_TWO = dict(ranks=2, K=32, rounds=2, lfinito_epochs=1, svrg_m=128,
-              svrg_outer=2, proshi_K=16, proshi_rounds=2)
+              svrg_outer=2, proshi_K=16, proshi_rounds=2, vr_m=64,
+              vr_outer=2, plain_steps=16, full_steps=4)
 # (a)'s SVRG++ z_full, kernel path vs plain path, over 16,320 inner steps
 # of f32 drift: read 6.556e-07 and 6.619e-07 on an H100 80GB HBM3 at
-# 700 W; 1e-5 leaves that 15-fold room, Z_TOL[False] would leave 1.5-fold
+# 700 W; 1e-5 leaves that 15-fold room, Z_TOL[False] would leave 1.5-fold.
+# (b)'s Katyusha and SARAH local inner loops (2 outer steps of 64 on
+# 131,072 headline rows a rank) take the same bar: SARAH's x̃ read
+# 1.134e-06 on the same card, its estimator's recursion carrying the f32
+# drift of the kernel's dots from step to step
 DP_SVRG_TOL = 1e-5
 # the kernels of the DP path, each with the family whose rounds launch it
 DP_KERNELS = {"saga_coeff_multistep": "saga", "finito_coeff_multistep":
               "finito", "lfinito_sweep_multistep": "lfinito",
               "svrg_coeff_multistep": "svrg", "coeff_apply_all": "lfinito",
-              "proshi_multistep": "proshi"}
+              "proshi_multistep": "proshi",
+              "katyusha_coeff_multistep": "katyusha",
+              "sarah_multistep": "sarah"}
 DP_LABEL = {"saga_coeff_multistep": "#3", "svrg_coeff_multistep": "#5",
             "coeff_apply_all": "#6", "lfinito_sweep_multistep": "#8",
-            "finito_coeff_multistep": "#9", "proshi_multistep": "#18"}
+            "finito_coeff_multistep": "#9", "proshi_multistep": "#18",
+            "katyusha_coeff_multistep": "#10", "sarah_multistep": "#11"}
+# the vectors of each DP state that are the same on every rank
+DP_REPLICATED = ("z", "av", "z_full", "w", "x_tilde", "y", "x", "gbar",
+                 "w_anchor", "xg", "fbe", "S", "Y", "rho", "ls_ewma")
 
 
 def rel_gap(a, b) -> float:
@@ -6030,6 +6074,235 @@ def dp_deep_one_rank(mesh, dev, card: str):
     return dict(rel=rel, s=dt)
 
 
+# (c) one rank over NCCL: the families beyond the reference at the headline.
+# DPKatyusha and DPSARAH with their local inner loops on kernels #10 and #11
+# (the anchor and the bootstrap on #6) at m = 2N/batch = 128 inner steps an
+# outer step, their first outer step held to the single-card fused solver on
+# the same starts; short runs of the families JAX's DP path runs without a
+# kernel; deep_solve_pd_dp on 4y's fused-lasso plant
+DQ = dict(m=2 * N // B, outer=16, steps=256, profile=32, full_steps=32,
+          full_profile=8, panoc_steps=16, panoc_profile=4)
+# the first DP outer step against the single-card facade's, relative to the
+# largest entry of each vector
+DQ_FIRST_TOL = 1e-6
+DQ_VR = {"katyusha": ("katyusha_coeff_multistep", "#10"),
+         "sarah": ("sarah_multistep", "#11")}
+DQ_LABEL = {"katyusha": "DPKatyusha", "sarah": "DPSARAH"}
+
+
+def dq_vr_one_rank(mesh, gen, dev, kind: str, storage: str, seed: int,
+                   card: str) -> dict:
+    """DPKatyusha (ns) or DPSARAH with local_inner on one rank: the
+    first outer step held to the single-card fused solver on the DP's own
+    starts, then runs of DQ['outer'] outer steps timed beside the single
+    card's (a warm-up run of each, then four turns of each in alternating
+    order; ms an inner step the mean of the turns), with the launches of
+    #10/#11 and #6 an outer step."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.ops import fused_block as fb
+    from ciao_tpu_torch.parallel import dp as tdp
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.solvers import katyusha as kat
+    from ciao_tpu_torch.solvers import sarah as sar
+
+    F, _, L = lasso(gen, dev, N, n, storage)
+    Fd = parallel.shard_finite_sum(F, mesh)
+    del F
+    g = NormL1(torch.tensor(LAM, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    if not fb.svrg_multistep_available(Fd, g, x0, B):
+        raise AssertionError(f"4dp (c) {kind}: the kernel gate is closed")
+    m, T = DQ["m"], DQ["outer"]
+    Lm = L.max()
+    name, label = DQ_VR[kind]
+    cfg = tdp.DPCfg(N=N, D=1, b_loc=B, sweeping=1, alpha=0.999, block=True,
+                    coeff=True, local=True, m_inner=m, fused=True,
+                    variant="ns" if kind == "katyusha" else "basic")
+    init, _, run, _ = parallel.build_dp_functions(kind, mesh, Fd, g, cfg)
+    if kind == "katyusha":
+        st0 = init(x0, Lm, seed, 0.5, 0.5)
+        scfg = kat.KatyushaCfg(N=N, batch=B, m=m, block=True, ns=True,
+                               fused=True)
+        s0 = kat.katyusha_init(Fd, g, x0, Lm, 0.5, 0.5, seed, scfg)
+        srun, fields = kat.katyusha_run, ("x_tilde", "y", "z", "av")
+    else:
+        st0 = init(x0, 1.0 / (2.0 * Lm), seed, 1.0)
+        scfg = sar.SARAHCfg(N=N, batch=B, m=m, block=True, fused=True)
+        s0 = sar.sarah_init(Fd, g, x0, 1.0 / (2.0 * Lm), 1.0, seed, scfg)
+        srun, fields = sar.sarah_run, ("x_tilde",)
+    names = [name, "coeff_apply_all"]
+    starts = tdp._inner_schedule(mesh, cfg, seed, 1, m, 0, m, None, None, dev)
+    r1, c1 = count_of(lambda: run(st0, 1, starts=[starts]), names)
+    s1 = srun(Fd, g, s0, scfg, 1, starts=[starts])
+    err = max(rel_gap(getattr(r1, f), getattr(s1, f)) for f in fields)
+    if not err <= DQ_FIRST_TOL:
+        raise AssertionError(f"4dp (c) {kind} {storage}: the first DP outer "
+                             f"step is {err:.3e} off the single card's on "
+                             f"its starts (> {DQ_FIRST_TOL})")
+    # a warm-up run of each, then four turns of each in alternating order
+    (st, c), _ = timed(lambda: count_of(lambda: run(st0, T), names))
+    srun(Fd, g, s0, scfg, T)
+    turns = {"dp": [], "single": []}
+    for t in range(4):
+        for k in (("dp", "single") if t % 2 == 0 else ("single", "dp")):
+            if k == "dp":
+                (_, ct), dt = timed(lambda: count_of(lambda: run(st0, T),
+                                                     names))
+                c = {q: c[q] + ct[q] for q in names}
+            else:
+                _, dt = timed(lambda: srun(Fd, g, s0, scfg, T))
+            turns[k].append(dt / (T * m) * 1e3)
+    cost0, cost1 = cost(Fd, g, x0), cost(Fd, g, st.x_tilde)
+    if not (math.isfinite(cost1) and cost1 < cost0):
+        raise AssertionError(f"4dp (c) {kind} {storage}: cost {cost0} -> "
+                             f"{cost1}")
+    runs = 5 * T
+    if c[name] != runs or c["coeff_apply_all"] != runs:
+        raise AssertionError(f"4dp (c) {kind} {storage}: launches {c} over "
+                             f"{runs} outer steps, not one {label} and one "
+                             f"#6 each")
+    ms, ms1 = (sum(turns["dp"]) / 4, sum(turns["single"]) / 4)
+    log(f"  4dp (c) {DQ_LABEL[kind]} {storage} local_inner, one rank over "
+        f"NCCL, m = {m}, {T} outer steps a turn: {ms:.5f} ms/inner step "
+        f"(turns {', '.join(f'{x:.5f}' for x in turns['dp'])}), "
+        f"single-card fused {ms1:.5f} "
+        f"({', '.join(f'{x:.5f}' for x in turns['single'])}), "
+        f"{ms / ms1:.3f}x; {c[name] / runs:.0f} {label} and "
+        f"{c['coeff_apply_all'] / runs:.0f} #6 launches an outer step; "
+        f"first "
+        f"outer step vs single card on its starts {err:.3e} "
+        f"({', '.join(fields)}); cost {cost0:.6e} -> {cost1:.6e} [{card}]")
+    return dict(ms=ms, single_ms=ms1, err=err,
+                launches={k: c[k] + c1[k] for k in names})
+
+
+def dq_cost(F, g, h, K, z) -> float:
+    """(1/N)Σ f_i + g (+ h(Kz)) at z."""
+    v = cost(F, g, z)
+    if h is not None:
+        v += float(h.value(z if K is None else K.matvec(z)))
+    return v
+
+
+def dq_plain_one_rank(mesh, gen, dev, seed: int, card: str) -> dict:
+    """The families JAX's DP path runs without a kernel, on one rank at
+    the headline (f32 rows), through their facades' init and run: the
+    cost falls, ms a step, a profiled window's device launches a step and
+    idle share, PANOC's FBE evaluations a step, and none of the nineteen
+    kernels launched."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.ops.linmap import FirstDifference
+    from ciao_tpu_torch.prox import IndBox, NormL1
+    from ciao_tpu_torch.solvers import panoc
+
+    F, _, L = lasso(gen, dev, N, n, "f32")
+    Fd = parallel.shard_finite_sum(F, mesh)
+    del F
+    g = NormL1(torch.tensor(LAM, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    box = IndBox(torch.tensor(-1.0, device=dev), torch.tensor(1.0, device=dev))
+    tv = NormL1(torch.tensor(0.05, device=dev))
+    K = FirstDifference()
+    S, P = DQ["steps"], DQ["profile"]
+    fams = {
+        "DPLSVRG": (parallel.DPLSVRG(mesh=mesh, batch=B, block_sampling=True,
+                                     seed=seed), g, None, None, S, P),
+        "DPLKatyusha": (parallel.DPLKatyusha(mesh=mesh, batch=B,
+                                             block_sampling=True, seed=seed),
+                        g, None, None, S, P),
+        "DPPointSAGA": (parallel.DPPointSAGA(mesh=mesh, batch=B, seed=seed),
+                        None, None, None, S, P),
+        "DPSSNM": (parallel.DPSSNM(mesh=mesh, batch=B, seed=seed), g, None,
+                   None, S, P),
+        "DPDavisYin": (parallel.DPDavisYin(mesh=mesh), g, box, None,
+                       DQ["full_steps"], DQ["full_profile"]),
+        "DPCondatVu": (parallel.DPCondatVu(mesh=mesh), g, tv, K,
+                       DQ["full_steps"], DQ["full_profile"]),
+        "DPPANOC": (parallel.DPPANOC(mesh=mesh), g, None, None,
+                    DQ["panoc_steps"], DQ["panoc_profile"]),
+        "DPZeroFPR": (parallel.DPZeroFPR(mesh=mesh), g, None, None,
+                      DQ["panoc_steps"], DQ["panoc_profile"]),
+    }
+    evals = [0]
+    inner = panoc._eval_fbe
+
+    def counted(*a, **k):
+        evals[0] += 1
+        return inner(*a, **k)
+
+    out = {}
+    panoc._eval_fbe = counted
+    try:
+        for tag, (solver, gg, h, KK, steps, prof_steps) in fams.items():
+            if tag in ("DPDavisYin", "DPCondatVu"):
+                args = (x0, Fd, gg, h) + ((KK,) if KK is not None else ()) + (
+                    L, None)
+            else:
+                args = (x0, Fd, gg, L, None)
+            _, Fr, _, init, _, run, _ = solver._setup(*args)
+            st0 = init()
+            gc = gg if gg is not None else NormL1(torch.tensor(0.0,
+                                                               device=dev))
+            cost0 = dq_cost(Fr, gc, h if KK is not None else None, KK,
+                            st0.solution)
+            evals[0] = 0
+            (st, c), dt = timed(lambda: count_of(lambda: run(st0, steps),
+                                                 KERNELS))
+            ev = evals[0] / steps
+            cost1 = dq_cost(Fr, gc, h if KK is not None else None, KK,
+                            st.solution)
+            if any(c.values()):
+                raise AssertionError(f"4dp (c) {tag}: launched "
+                                     f"{ {k: v for k, v in c.items() if v} }")
+            if not (math.isfinite(cost1) and cost1 < cost0):
+                raise AssertionError(f"4dp (c) {tag}: cost {cost0} -> "
+                                     f"{cost1}")
+            prof = profile_steps(f"4dp (c) {tag}", lambda: run(st0, prof_steps),
+                                 prof_steps, card, {})
+            out[tag] = dict(ms=dt * 1e3 / steps, steps=steps, cost0=cost0,
+                            cost1=cost1, evals=ev,
+                            launches=sum(prof["calls"].values()) / prof_steps,
+                            idle=1.0 - prof["busy"] / prof["step"])
+    finally:
+        panoc._eval_fbe = inner
+    log("  4dp (c) one rank over NCCL at the headline (f32), no kernel: "
+        + "; ".join(
+            f"{k} {v['steps']} steps {v['ms']:.4f} ms/step, cost "
+            f"{v['cost0']:.6e} -> {v['cost1']:.6e}, "
+            f"{v['launches']:.1f} device launches/step, idle "
+            f"{v['idle']:.3f}"
+            + (f", {v['evals']:.3f} FBE evaluations/step"
+               if k in ("DPPANOC", "DPZeroFPR") else "")
+            for k, v in out.items())
+        + f"; none of the {len(KERNELS)} kernels launched [{card}]")
+    return out
+
+
+def dq_deep_pd_one_rank(mesh, dev, seed: int, card: str) -> dict:
+    """deep_solve_pd_dp on 4y's fused-lasso plant (bench.py's
+    bench_pd_deep, 262,144 x 1,024): certified, rel <= 1e-6, seconds."""
+    from ciao_tpu_torch import parallel
+
+    S = PD_DEEP
+    P = pd_problem(dev, seed, False)
+    (x, info), dt = timed(lambda: parallel.deep_solve_pd_dp(
+        torch.zeros(S["n"], device=dev), P["F"], h=P["h"], K=P["K"],
+        N=S["N"], mesh=mesh, chunk_steps=S["chunk_steps"],
+        max_steps=S["max_steps"], polish_chunk=S["chunk"], seed=seed))
+    rel, jumps_ok, _ = pd_rel(P, x, False)
+    log(f"  4dp (c) deep_solve_pd_dp, one rank, fused lasso {S['N']} x "
+        f"{S['n']}: rel {rel:.3e}, refined {info.refined}, certified "
+        f"{info.certified}, jump set recovered {jumps_ok}, {info.steps} "
+        f"Condat-Vu steps, {dt:.3f} s [{card}]")
+    if not (info.refined and info.certified):
+        raise AssertionError(f"4dp (c) deep_solve_pd_dp: refined "
+                             f"{info.refined}, certified {info.certified}")
+    if not (math.isfinite(rel) and abs(rel) <= DEEP_REL):
+        raise AssertionError(f"4dp (c) deep_solve_pd_dp: rel {rel}")
+    del P
+    return dict(rel=rel, s=dt, steps=info.steps)
+
+
 def dp_two_rank_runs(mesh, seed: int) -> dict:
     """One rank's part of (b): each family a few rounds on its kernel
     path and on its plain path (the gate closed), on this rank's rows of
@@ -6063,6 +6336,8 @@ def dp_two_rank_runs(mesh, seed: int) -> dict:
              "finito": fb.finito_multistep_available(Fd, g, x0, b_loc),
              "lfinito": fb.lfinito_sweep_available(Fd, g, x0, b_loc),
              "svrg": fb.svrg_multistep_available(Fd, g, x0, b_loc)}
+    gates["katyusha"] = gates["sarah"] = gates["svrg"]
+    Lm = L.max()
     base = dict(N=N, D=D, b_loc=b_loc, alpha=0.999)
     runs = {
         "saga": ("saga", dict(base, sweeping=1, block=True, coeff=True,
@@ -6076,6 +6351,14 @@ def dp_two_rank_runs(mesh, seed: int) -> dict:
         "svrg": ("svrg", dict(base, sweeping=1, block=True, local=True),
                  gam_svrg, (T["svrg_m"],), T["svrg_outer"],
                  ("z_full", "w", "av")),
+        "katyusha": ("katyusha", dict(base, sweeping=1, block=True,
+                                      local=True, m_inner=T["vr_m"],
+                                      variant="ns"),
+                     Lm, (0.5, 0.5), T["vr_outer"],
+                     ("x_tilde", "y", "z", "av")),
+        "sarah": ("sarah", dict(base, sweeping=1, block=True, local=True,
+                                m_inner=T["vr_m"]),
+                  1.0 / (2.0 * Lm), (1.0,), T["vr_outer"], ("x_tilde",)),
     }
     out = {}
 
@@ -6083,7 +6366,7 @@ def dp_two_rank_runs(mesh, seed: int) -> dict:
         res = {}
         for fused in (True, False):
             c = dict(cfg, fused=fused)
-            if family == "svrg":
+            if family in ("svrg", "katyusha", "sarah"):
                 c["coeff"] = fused
             init, _, run, _ = parallel.build_dp_functions(
                 family, mesh, Fr, gr, tdp.DPCfg(**c))
@@ -6117,6 +6400,65 @@ def dp_two_rank_runs(mesh, seed: int) -> dict:
                         (0.999 * Np / Lp[plo:phi]).float().contiguous(), (),
                         T["proshi_rounds"], Fpd, gp, xp, ("z", "av", "s"))
     out["held"] = dict(rows=rows_bytes, allocated=held)
+    out["plain"] = dp_two_rank_plain(mesh, Fd, g, L, seed)
+    return out
+
+
+def dp_two_rank_plain(mesh, Fd, g, L, seed: int) -> dict:
+    """(b)'s families with no kernel in JAX's DP path, a few steps each
+    through their facades on this rank's rows: the replicated vectors of
+    the last state, the launches of the nineteen kernels (none), and
+    PANOC's and ZeroFPR's FBE evaluations on this rank."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.ops.linmap import FirstDifference
+    from ciao_tpu_torch.prox import IndBox, NormL1
+    from ciao_tpu_torch.solvers import panoc
+
+    dev = mesh.device
+    T = DP_TWO
+    x0 = torch.zeros(n, device=dev)
+    box = IndBox(torch.tensor(-1.0, device=dev), torch.tensor(1.0, device=dev))
+    tv = NormL1(torch.tensor(0.05, device=dev))
+    steps, full = T["plain_steps"], T["full_steps"]
+    fams = {
+        "lsvrg": (parallel.DPLSVRG(mesh=mesh, batch=B, block_sampling=True,
+                                   seed=seed), (x0, Fd, g, L, None), steps),
+        "lkatyusha": (parallel.DPLKatyusha(mesh=mesh, batch=B,
+                                           block_sampling=True, seed=seed),
+                      (x0, Fd, g, L, None), steps),
+        "point_saga": (parallel.DPPointSAGA(mesh=mesh, batch=B, seed=seed),
+                       (x0, Fd, None, L, None), steps),
+        "ssnm": (parallel.DPSSNM(mesh=mesh, batch=B, seed=seed),
+                 (x0, Fd, g, L, None), steps),
+        "dys": (parallel.DPDavisYin(mesh=mesh), (x0, Fd, g, box, L, None),
+                full),
+        "pd": (parallel.DPCondatVu(mesh=mesh),
+               (x0, Fd, g, tv, FirstDifference(), L, None), full),
+        "panoc": (parallel.DPPANOC(mesh=mesh), (x0, Fd, g, L, None), full),
+        "zerofpr": (parallel.DPZeroFPR(mesh=mesh), (x0, Fd, g, L, None),
+                    full),
+    }
+    evals = [0]
+    inner = panoc._eval_fbe
+
+    def counted(*a, **k):
+        evals[0] += 1
+        return inner(*a, **k)
+
+    out = {}
+    panoc._eval_fbe = counted
+    try:
+        for fam, (solver, args, k) in fams.items():
+            _, _, _, init, _, run, _ = solver._setup(*args)
+            evals[0] = 0
+            st, c = count_of(lambda: run(init(), k), KERNELS)
+            out[fam] = dict({f: v.cpu() for f, v in st._asdict().items()
+                             if f in DP_REPLICATED
+                             and isinstance(v, torch.Tensor)},
+                            evals=evals[0], it=st.it,
+                            launches=sum(int(v) for v in c.values()))
+    finally:
+        panoc._eval_fbe = inner
     return out
 
 
@@ -6166,6 +6508,7 @@ def dp_two_ranks(seed: int, card: str) -> dict:
     launches = {k: 0 for k in DP_KERNELS}
     parts = []
     held = [o.pop("held") for o in outs]
+    no_kernel = [o.pop("plain") for o in outs]
     for fam in outs[0]:
         worst = 0.0
         for r, o in enumerate(outs):
@@ -6173,8 +6516,9 @@ def dp_two_ranks(seed: int, card: str) -> dict:
             for f, v in kern.items():
                 if not isinstance(v, torch.Tensor):
                     continue
-                tol = Z_TOL[False] if f in ("z", "z_full", "w") else (
-                    STATE_TOL[False])
+                tol = (DP_SVRG_TOL if fam in ("katyusha", "sarah") else
+                       Z_TOL[False] if f in ("z", "z_full", "w") else
+                       STATE_TOL[False])
                 e = rel_gap(v, plain[f])
                 if not e <= tol:
                     raise AssertionError(f"4dp (b) {fam} rank {r}: {f} of "
@@ -6182,7 +6526,7 @@ def dp_two_ranks(seed: int, card: str) -> dict:
                                          f"plain path (> {tol})")
                 worst = max(worst, e)
             for path in (True, False):
-                for f in ("z", "av", "z_full", "w"):
+                for f in DP_REPLICATED:
                     if f in o[fam][path] and not torch.equal(
                             o[fam][path][f], outs[0][fam][path][f]):
                         raise AssertionError(f"4dp (b) {fam}: {f} differs "
@@ -6202,10 +6546,32 @@ def dp_two_ranks(seed: int, card: str) -> dict:
                 f"{DP_LABEL[k]} x{outs[0][fam][True]['launches'][k]}"
                 for k in DP_KERNELS if outs[0][fam][True]['launches'][k])
             + " a rank)")
+    for fam, p0 in no_kernel[0].items():
+        for r, pr in enumerate(no_kernel):
+            mine = pr[fam]
+            for f, v in mine.items():
+                if isinstance(v, torch.Tensor) and not torch.equal(v, p0[f]):
+                    raise AssertionError(f"4dp (b) {fam}: {f} differs "
+                                         f"between ranks 0 and {r}")
+            if mine["launches"]:
+                raise AssertionError(f"4dp (b) {fam}: rank {r} launched "
+                                     f"{mine['launches']} kernels")
+            if (mine["evals"], mine["it"]) != (p0["evals"], p0["it"]):
+                raise AssertionError(
+                    f"4dp (b) {fam}: rank {r} took {mine['evals']} FBE "
+                    f"evaluations in {mine['it'] - 1} steps, rank 0 "
+                    f"{p0['evals']} in {p0['it'] - 1}")
+    parts.append("no kernel, replicated vectors bit for bit across the "
+                 "ranks: " + ", ".join(
+                     f"{fam} ({p0['it'] - 1} steps"
+                     + (f", {p0['evals']} FBE evaluations on each rank"
+                        if fam in ("panoc", "zerofpr") else "") + ")"
+                     for fam, p0 in no_kernel[0].items()))
     log(f"  4dp (b) {D} ranks on the one card over gloo (CUDA tensors), "
         f"{N // D} headline rows a rank (ProShI {PROSHI['N'] // D}): kernel "
         f"path vs plain path, largest gap " + "; ".join(parts)
-        + f"; z and av bit for bit across the ranks; each rank holds "
+        + f"; the replicated vectors bit for bit across the ranks; each "
+        f"rank holds "
         f"{held[0]['rows'] / 2 ** 20:.1f} MiB of rows, "
         + ", ".join(f"{h['allocated'] / 2 ** 20:.1f}" for h in held)
         + f" MiB allocated after the cut; {wall:.2f} s with the spawn "
@@ -6214,10 +6580,10 @@ def dp_two_ranks(seed: int, card: str) -> dict:
 
 
 def run_dp(dev, gen, seed: int, card: str) -> dict:
-    """Phase 4dp: (a) one rank over NCCL, (b) two ranks on the one card
-    over gloo. Returns the DP path's launches of each kernel (the
-    comparison runs against single-card SAGA and the plain paths
-    excluded)."""
+    """Phase 4dp: (a) and (c) one rank over NCCL, (b) two ranks on the
+    one card over gloo. Returns the DP path's launches of each kernel
+    (the comparison runs against the single-card solvers and the plain
+    paths excluded)."""
     import tempfile
 
     import torch.distributed as dist
@@ -6235,17 +6601,26 @@ def run_dp(dev, gen, seed: int, card: str) -> dict:
                     for s_ in ("f32", "int8")}
             svrg = dp_svrg_plus_one_rank(mesh, gen, dev, seed, card)
             deep = dp_deep_one_rank(mesh, dev, card)
+            t_a = time.perf_counter() - t0
+            vr = {(k, s_): dq_vr_one_rank(mesh, gen, dev, k, s_, seed, card)
+                  for k in DQ_VR for s_ in ("f32", "int8")}
+            torch.cuda.empty_cache()
+            plain = dq_plain_one_rank(mesh, gen, dev, seed, card)
+            torch.cuda.empty_cache()
+            deep_pd = dq_deep_pd_one_rank(mesh, dev, seed, card)
+            t_c = time.perf_counter() - t0 - t_a
         finally:
             dist.destroy_process_group()
-    for r in (*saga.values(), svrg):
+    for r in (*saga.values(), svrg, *vr.values()):
         for k, v in r["launches"].items():
             launches[k] += v
-    t_a = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    t_b = time.perf_counter()
     for k, v in dp_two_ranks(seed, card).items():
         launches[k] += v
-    return dict(saga=saga, svrg=svrg, deep=deep, launches=launches,
-                s_a=t_a, s=time.perf_counter() - t0)
+    return dict(saga=saga, svrg=svrg, deep=deep, vr=vr, plain=plain,
+                deep_pd=deep_pd, launches=launches, s_a=t_a, s_c=t_c,
+                s_b=time.perf_counter() - t_b, s=time.perf_counter() - t0)
 
 
 KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
@@ -7061,9 +7436,18 @@ def main() -> int:
         f"{dp['saga']['int8']['single_ms']:.5f}); SVRG++ local inner "
         f"{dp['svrg']['ms']:.5f} ms/inner step on #5/#6, "
         f"{dp['svrg']['plain_ms']:.5f} plain; deep_solve_dp rel "
-        f"{dp['deep']['rel']:.3e} in {dp['deep']['s']:.2f} s; DP launches "
-        + json.dumps(dp["launches"]) + f"; (a) {dp['s_a']:.2f} s, all "
-        f"{dp['s']:.2f} s [{card}]")
+        f"{dp['deep']['rel']:.3e} in {dp['deep']['s']:.2f} s; " + "; ".join(
+            f"{DQ_LABEL[k]} {s_} local inner {v['ms']:.5f} ms/inner step "
+            f"(single-card fused {v['single_ms']:.5f}), first outer step "
+            f"{v['err']:.3e} off"
+            for (k, s_), v in dp["vr"].items())
+        + f"; deep_solve_pd_dp rel {dp['deep_pd']['rel']:.3e} in "
+        f"{dp['deep_pd']['s']:.2f} s (4y's deep_solve_pd "
+        f"{pd['fused lasso']['s']:.2f} s, rel "
+        f"{pd['fused lasso']['rel']:.3e}); DP launches "
+        + json.dumps(dp["launches"]) + f"; (a) {dp['s_a']:.2f} s, (c) "
+        f"{dp['s_c']:.2f} s, (b) {dp['s_b']:.2f} s, all {dp['s']:.2f} s "
+        f"[{card}]")
 
     # 11. kernel #7 per pass in turns with its plain version and kernel #6
     t11 = {s_: time_value_apply(gen, dev, s_, card, ceil)

@@ -1,6 +1,9 @@
-"""``deep_solve_dp``: the deep-accuracy endgame over a data mesh.
+"""``deep_solve_dp`` and ``deep_solve_pd_dp``: the deep-accuracy
+endgames over a data mesh.
 
-Counterpart of ``ciao_tpu/parallel/deep.py``'s ``deep_solve_dp``: the
+Counterpart of ``ciao_tpu/parallel/deep.py``'s ``deep_solve_dp`` and
+``deep_solve_pd_dp`` (:func:`deep_solve_pd_dp`, the primal-dual route,
+has its own note). ``deep_solve_dp`` is the
 single-card plan (:func:`ciao_tpu_torch.deep_solve`, stochastic stage to
 the f32 gradient floor, then compensated-gradient FISTA polish) built
 from the DP pieces:
@@ -144,3 +147,96 @@ def deep_solve_dp(
         observe(x)
     return x, DeepSolveInfo(staged=sinfo, lmax=lmax, eta=eta,
                             polish_steps=polish_steps, fp_res=[])
+
+
+def deep_solve_pd_dp(
+    x0,
+    F,
+    g=None,
+    h=None,
+    K=None,
+    L=None,
+    N: Optional[int] = None,
+    *,
+    mesh=None,
+    tau: Optional[float] = None,
+    sigma: Optional[float] = None,
+    chunk_steps: int = 256,
+    max_steps: int = 8192,
+    refine_try_rtol: float = 3e-5,
+    plateau_rtol: float = 5e-8,
+    polish_chunk: int = 32_768,
+    power_iters: int = 12,
+    seed: int = 0,
+):
+    """The primal-dual deep route (:func:`ciao_tpu_torch.deep_solve_pd`)
+    over a DP mesh: :class:`DPCondatVu` with ``polish_chunk`` (each rank's
+    gradient in compensated chunks and ONE all-reduce a step) at the
+    spectral stepsize of :func:`power_lmax_dp`, run in rounds of
+    ``chunk_steps`` steps, with the same early certified ``tv_refine``
+    tries once the iterate settles. The refinement runs over each rank's
+    rows: the compensated segment Gram, right-hand side and certificate
+    gradient are summed over the ranks as f64 (hi, lo) halves before the
+    k×k f64 solve, which every rank does alike on the host.
+
+    ``F`` is the rank's part (``shard_finite_sum``) of a dense-rows
+    oracle, or the whole oracle, cut here. As in the JAX package, the
+    refinement takes its default ``jump_rtol``/``cert_rtol`` and the
+    three-term objective gets no ``tv_refine3``. Every rank returns the
+    same ``(x, DeepPDInfo)``; on a failed certificate the unrefined
+    iterate (``info.certified``)."""
+    from ciao_tpu_torch.ops.linmap import FirstDifference, IdentityMap
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+    from ciao_tpu_torch.parallel.dp import DPCondatVu, _dp_problem
+    from ciao_tpu_torch.prox import NormL1, Zero
+    from ciao_tpu_torch.solvers.deep_pd import DeepPDInfo, _tv_refine
+
+    mesh, x0, Fd, _, N = _dp_problem(mesh, x0, F, None, N,
+                                     "deep_solve_pd_dp")
+    D = mesh.size
+    lam_hat = None
+    if tau is None:
+        # spectral τ with deep_solve_pd's 1.2 margin: the power iteration
+        # approaches λmax from below, and an overlarge τ oscillates
+        lam_hat = 1.2 * float(power_lmax_dp(mesh, Fd, x0.to(torch.float32),
+                                            seed, N, iters=power_iters))
+        Kn = K if K is not None else IdentityMap()
+        normK = float(Kn.opnorm_bound(x0.shape[0]))
+        sigma = 1.0 / max(normK, 1e-12) if sigma is None else sigma
+        tau = 0.99 / (lam_hat / 2.0 + sigma * normK * normK)
+
+    pchunk = _largest_divisor_leq(N // D, polish_chunk)
+    solver = DPCondatVu(mesh=mesh, tau=tau, sigma=sigma, polish_chunk=pchunk)
+    _, Fd, (g_r, h_r, K_r), init, _, run, _ = solver._setup(x0, Fd, g, h, K,
+                                                            L, N)
+    state = init()
+    tv_shape = (isinstance(Fd, LeastSquaresRows) and isinstance(g_r, Zero)
+                and isinstance(h_r, NormL1)
+                and isinstance(K_r, FirstDifference))
+
+    dx_rels: List[float] = []
+    info = DeepPDInfo(steps=0, dx_rels=dx_rels, lam_hat=lam_hat,
+                      tau=float(tau), sigma=float(sigma))
+    for _ in range(max(1, max_steps // chunk_steps)):
+        x_prev = state.x
+        state = run(state, chunk_steps)
+        info.steps += chunk_steps
+        # the iterate is the same on every rank, so is each branch below
+        dx = float(torch.linalg.vector_norm(state.x - x_prev)
+                   / torch.clamp(torch.linalg.vector_norm(state.x),
+                                 min=1e-30))
+        dx_rels.append(dx)
+        if tv_shape and dx <= refine_try_rtol:
+            d = torch.abs(torch.diff(state.x))
+            n_jumps = int(torch.sum(d > 1e-3 * torch.max(d)))
+            if 4 * n_jumps <= state.x.shape[0]:
+                x_hat, certified, _ = _tv_refine(
+                    Fd, state.x, float(h_r.lam), pchunk, 1e-3, 0.01,
+                    N_total=N, reduce=lambda t: _psum(mesh, t))
+                info.certified = certified
+                if certified:
+                    info.refined = True
+                    return x_hat, info
+        if dx <= plateau_rtol:
+            break
+    return state.x, info

@@ -1,9 +1,13 @@
 """Data-parallel (index-block sharded) solver paths on ``torch.distributed``.
 
-Counterpart of ``ciao_tpu/parallel/dp.py`` for the reference's own
-families (SAGA/SAG, SVRG/SVRG++, Finito basic, coefficient, LFinito and
-adaptive, ProShI) and the forward-backward/FISTA polish of
-:func:`~ciao_tpu_torch.parallel.deep.deep_solve_dp`. JAX runs each step
+Counterpart of ``ciao_tpu/parallel/dp.py``: the reference's own families
+(SAGA/SAG, SVRG/SVRG++, Finito basic, coefficient, LFinito and adaptive,
+ProShI), the forward-backward/FISTA polish of
+:func:`~ciao_tpu_torch.parallel.deep.deep_solve_dp`, and the families
+beyond the reference (Katyusha, SARAH, L-SVRG, L-Katyusha, Point-SAGA,
+SSNM, Davis-Yin/Douglas-Rachford, Condat-Vũ/Chambolle-Pock,
+PANOC/ZeroFPR; Condat-Vũ's compensated route serves
+:func:`~ciao_tpu_torch.parallel.deep.deep_solve_pd_dp`). JAX runs each step
 under ``shard_map`` on a device mesh; here each rank is a process that
 holds its own rows (:func:`~ciao_tpu_torch.parallel.mesh.shard_finite_sum`)
 and runs the same local step:
@@ -26,7 +30,9 @@ a pure function of (seed, step, rank): the rank is folded into the seed
 (:func:`_rank_seed`) as JAX folds ``axis_index`` into its key. torch
 cannot draw threefry, so every ``run`` also takes the rank's explicit
 schedule (``starts`` or ``idx``), which the parity tests derive from
-JAX's own (key, it, axis_index) draws.
+JAX's own (key, it, axis_index) draws. L-SVRG's and L-Katyusha's anchor
+coins are drawn from (seed, it) alone, the same on every rank, as JAX's
+are from (key, it); ``coins`` replaces them.
 
 Sweeping over the local block (reference ``Finito.jl:153``): 1 = a fresh
 uniform draw a step; 2 = cyclic over static contiguous sub-blocks; 3 =
@@ -37,9 +43,13 @@ rounds run on #3 ``saga_coeff_multistep``, coefficient Finito's on #9
 ``finito_coeff_multistep``, LFinito's local epoch on #6
 ``coeff_apply_all`` and #8 (``lfinito_sweep_chunked``), SVRG's local
 inner loop on #5 (``svrg_inner_chunked``, SVRG++ too: launches of
-min(64, m) steps and a stepwise remainder) with its anchor on #6, and ProShI's
-cyclic local rounds on #18 ``proshi_multistep``. Each launch runs on the
-rank's own rows; a kernel that fails raises.
+min(64, m) steps and a stepwise remainder) with its anchor on #6,
+ProShI's cyclic local rounds on #18 ``proshi_multistep``, and
+Katyusha's local inner loop on #10 (``katyusha_inner_chunked``) and
+SARAH's on #11 (``sarah_inner_chunked``), their anchor and bootstrap on
+#6. Each launch
+runs on the rank's own rows; a kernel that fails raises. The other
+families beyond the reference run no kernel over the mesh, as in JAX.
 """
 
 from __future__ import annotations
@@ -182,9 +192,12 @@ class DPCfg(NamedTuple):
     fused: bool = False   # the kernel path of the local round
     rebase_every: int = 0  # local rounds between exact av recomputes
     local: bool = False   # LFinito local sweep / SVRG local inner loop
+    m_inner: int = 0      # Katyusha/SARAH inner steps; PANOC's L-BFGS memory
     variant: str = "basic"
     tol_b: float = 1e-9   # adaptive backtracking underflow bound
-    polish_chunk: int = 0  # FB/FISTA: compensated chunked local gradient
+    max_ls: int = 10      # PANOC/ZeroFPR line-search trial bound
+    adaptive: bool = False  # PANOC/ZeroFPR γ-backtracking mode
+    polish_chunk: int = 0  # FB/FISTA/Condat-Vũ: compensated chunked gradient
 
     @property
     def n_loc(self):
@@ -836,32 +849,43 @@ def _svrg_init_local(F, g, mesh, cfg: DPCfg, x0, gamma, seed, m):
                        status=int(Status.RUNNING))
 
 
-def _svrg_schedule(mesh, cfg: DPCfg, state, k0: int, k: int, starts, idx):
-    """Inner steps k0..k0+k-1 of the outer step: block starts (k,) int32,
-    or iid rows (k, b_loc) drawn with replacement from the rank's block;
-    the explicit ``starts``/``idx`` when given."""
-    dev = state.z.device
+def _inner_schedule(mesh, cfg: DPCfg, seed: int, it: int, m: int, k0: int,
+                    k: int, starts, idx, dev):
+    """Inner steps k0..k0+k-1 of outer step ``it`` (of m): block starts
+    (k,) int32, or iid rows (k, b_loc) drawn with replacement from the
+    rank's block; the explicit ``starts``/``idx`` when given. SVRG's,
+    Katyusha's and SARAH's inner loops share it."""
     if cfg.block:
         if starts is not None:
             return torch.as_tensor(starts).to(dev, torch.int32)[k0:k0 + k]
-        return _local_round_starts(_outer_seed(state.seed, state.it),
-                                   k0 + 1, cfg.n_loc, cfg.b_loc, k,
-                                   Sweep.RANDOM, mesh.rank, dev)
+        return _local_round_starts(_outer_seed(seed, it), k0 + 1, cfg.n_loc,
+                                   cfg.b_loc, k, Sweep.RANDOM, mesh.rank, dev)
     if idx is not None:
         return torch.as_tensor(idx, device=dev).long()[k0:k0 + k]
     gen = torch.Generator(device=dev)
-    gen.manual_seed(_rank_seed(_outer_seed(state.seed, state.it), mesh.rank)
+    gen.manual_seed(_rank_seed(_outer_seed(seed, it), mesh.rank)
                     & ((1 << 63) - 1))
-    full = torch.randint(cfg.n_loc, (state.m, cfg.b_loc), generator=gen,
+    full = torch.randint(cfg.n_loc, (m, cfg.b_loc), generator=gen,
                          device=dev)
     return full[k0:k0 + k]
 
 
+def _svrg_schedule(mesh, cfg: DPCfg, state, k0: int, k: int, starts, idx):
+    return _inner_schedule(mesh, cfg, state.seed, state.it, state.m, k0, k,
+                           starts, idx, state.z.device)
+
+
+def _inner_diff(F, cfg: DPCfg, x1, x2, sched_k):
+    """Σ over an inner step's rows of ∇f_i(x1) − ∇f_i(x2), the rank's:
+    a block start or iid rows."""
+    if cfg.block:
+        return F.grad_sum_diff_block(x1, x2, sched_k, cfg.b_loc)
+    return F.grad_sum_diff(x1, x2, sched_k)
+
+
 def _svrg_direction(F, cfg: DPCfg, state, w, sched_k):
     """Σ over the step's rows of ∇f_i(z_full) − ∇f_i(w), the rank's."""
-    if cfg.block:
-        return F.grad_sum_diff_block(state.z_full, w, sched_k, cfg.b_loc)
-    return F.grad_sum_diff(state.z_full, w, sched_k)
+    return _inner_diff(F, cfg, state.z_full, w, sched_k)
 
 
 def _svrg_step_local(F, g, mesh, cfg: DPCfg, state, starts=None, idx=None):
@@ -1102,6 +1126,562 @@ def _fb_step_local(F, g, mesh, cfg: DPCfg, state, starts=None, idx=None):
     return state._replace(t=t_new, x=x_new, y=y_new, it=state.it + 1)
 
 
+# ---------------------------------------------------------------------------
+# Katyusha
+# ---------------------------------------------------------------------------
+
+class DPKatyushaState(NamedTuple):
+    Lmax: torch.Tensor
+    tau1: torch.Tensor
+    tau2: torch.Tensor
+    av: torch.Tensor        # (n,) anchor μ = ∇f(x̃), the same on every rank
+    x_tilde: torch.Tensor   # (n,) outer iterate
+    y: torch.Tensor
+    z: torch.Tensor
+    seed: int
+    it: int
+    status: int
+    # fused local-inner mode only: the rank's (n_loc,) anchor
+    # coefficients c(x̃); None otherwise
+    canch: Optional[torch.Tensor] = None
+
+    @property
+    def solution(self):
+        return self.x_tilde
+
+
+def _as_real(v, x0):
+    """``v`` as a 0-d tensor of x0's real dtype on x0's device."""
+    return torch.as_tensor(v, dtype=real_dtype_of(x0), device=x0.device)
+
+
+def _katyusha_init_local(F, g, mesh, cfg: DPCfg, x0, Lmax, seed, tau1,
+                         tau2):
+    """Sharded Katyusha bootstrap: the anchor's full gradient is one local
+    pass and one all-reduce; fused, the rank's anchor coefficients are
+    kept."""
+    canch = None
+    if cfg.fused:
+        canch = F.coeff_all(x0)
+        av = _psum(mesh, F.apply_all(canch)) / cfg.N
+    else:
+        av = _psum(mesh, F.grad_sum_all(x0)) / cfg.N
+    return DPKatyushaState(
+        Lmax=_as_real(Lmax, x0), tau1=_as_real(tau1, x0),
+        tau2=_as_real(tau2, x0), av=av, x_tilde=x0, y=x0, z=x0,
+        seed=int(seed), it=1, status=int(Status.RUNNING), canch=canch)
+
+
+def _katyusha_step_local(F, g, mesh, cfg: DPCfg, state, starts=None,
+                         idx=None):
+    """One sharded Katyusha outer step. LOCKSTEP: each of the m inner
+    steps draws one block (or b_loc rows) a rank and all-reduces the
+    variance-reduced direction (global inner batch b_loc·D). LOCAL
+    (``cfg.local``): the inner loop runs on the rank's rows against the
+    global anchor, and the boundary averages (y, z, Σy) in one stacked
+    all-reduce and refreshes the anchor in another. Fused (local only, on
+    the card): the m inner steps are launches of #10
+    (``katyusha_inner_chunked``, ``LAUNCH_STEPS`` a launch, the last the
+    remainder) against the rank's anchor coefficients, and the anchor is
+    one #6 ``coeff_apply_all`` pass. ``starts`` ((m,)) or ``idx`` ((m,
+    b_loc)) replace the outer step's draws."""
+    from ciao_tpu_torch.solvers.katyusha import KatyushaCfg, _katyusha_schedule
+
+    N, B, m = cfg.N, cfg.b_loc, cfg.m_inner
+    dev = state.y.device
+    tau1, tau2, alpha, beta = _katyusha_schedule(
+        KatyushaCfg(N=N, ns=cfg.variant == "ns"), state)
+    av, xt = state.av, state.x_tilde
+    sched = _inner_schedule(mesh, cfg, state.seed, state.it, m, 0, m, starts,
+                            idx, dev)
+    canch = state.canch
+    if cfg.local and cfg.fused:
+        from ciao_tpu_torch.ops.fused_block import (
+            katyusha_inner_chunked, oracle_scalar_consts,
+        )
+
+        rows, offs = F.coeff_rows_data()
+        scale, mode, lam, aux = oracle_scalar_consts(F, g)
+        f32 = lambda v: v.to(device=rows.device, dtype=torch.float32)  # noqa: E731
+        lam = lam.float()
+        scalars = torch.stack([scale, f32(alpha), f32(beta),
+                               f32(alpha * lam), f32(beta * lam),
+                               torch.full_like(scale, 1.0 / B), mode,
+                               f32(tau1), f32(tau2), aux])
+        y, z = state.y.clone(), state.z.clone()
+        ysum = torch.zeros_like(y)
+        katyusha_inner_chunked(rows, offs, canch, xt, y, z, ysum, av,
+                               scalars, B, sched.contiguous(), LAUNCH_STEPS,
+                               rs=F.coeff_rows_scale())
+    else:
+        y, z = state.y, state.z
+        ysum = torch.zeros_like(y)
+        for k in range(m):
+            x = tau1 * z + tau2 * xt + (1.0 - tau1 - tau2) * y
+            diff = _inner_diff(F, cfg, x, xt, sched[k])
+            gr = av + (diff / B if cfg.local
+                       else _psum(mesh, diff) / (B * cfg.D))
+            z = g.prox_only(z - alpha * gr, alpha)
+            y = g.prox_only(x - beta * gr, beta)
+            ysum = ysum + y
+    if cfg.local:
+        y, z, ysum = (_psum(mesh, torch.stack([y, z, ysum])) / cfg.D).unbind()
+    x_tilde = ysum / m
+    if cfg.local and cfg.fused:
+        from ciao_tpu_torch.ops.fused_block import oracle_apply_all
+
+        canch, gsum = oracle_apply_all(F, x_tilde)
+        av = _psum(mesh, gsum) / N
+    else:
+        av = _psum(mesh, F.grad_sum_all(x_tilde)) / N
+    return state._replace(
+        tau1=tau1.to(state.tau1.dtype) if cfg.variant == "ns" else state.tau1,
+        av=av, x_tilde=x_tilde, y=y, z=z, it=state.it + 1, canch=canch)
+
+
+# ---------------------------------------------------------------------------
+# SARAH
+# ---------------------------------------------------------------------------
+
+class DPSARAHState(NamedTuple):
+    gamma: torch.Tensor
+    eta: torch.Tensor       # ProxSARAH damping
+    x_tilde: torch.Tensor   # (n,) outer iterate, the same on every rank
+    seed: int
+    it: int
+    status: int
+
+    @property
+    def solution(self):
+        return self.x_tilde
+
+
+def _sarah_init_local(F, g, mesh, cfg: DPCfg, x0, gamma, seed, eta):
+    """Sharded SARAH bootstrap: table-free and no gradient work (the
+    full pass v₀ belongs to the outer step)."""
+    return DPSARAHState(gamma=_as_real(gamma, x0), eta=_as_real(eta, x0),
+                        x_tilde=x0, seed=int(seed), it=1,
+                        status=int(Status.RUNNING))
+
+
+def _sarah_step_local(F, g, mesh, cfg: DPCfg, state, starts=None, idx=None):
+    """One sharded SARAH outer step: v₀ is the all-reduced full gradient
+    (fused, one #6 pass), then m recursive inner steps. LOCKSTEP: each
+    inner step all-reduces the estimator's innovation (global inner batch
+    b_loc·D). LOCAL (``cfg.local``): each rank runs its own chain on its
+    rows from the shared bootstrap (fused, on #11 ``sarah_inner_chunked``)
+    and the boundary averages the chains' last iterates: with the next
+    v₀, two all-reduces an outer step."""
+    from ciao_tpu_torch.solvers.sarah import _damped_prox
+
+    N, B, m = cfg.N, cfg.b_loc, cfg.m_inner
+    gamma, eta = state.gamma, state.eta
+    dev = state.x_tilde.device
+    if cfg.fused:
+        from ciao_tpu_torch.ops.fused_block import oracle_apply_all
+
+        v0 = _psum(mesh, oracle_apply_all(F, state.x_tilde)[1]) / N
+    else:
+        v0 = _psum(mesh, F.grad_sum_all(state.x_tilde)) / N
+    w_prev = state.x_tilde
+    w = _damped_prox(g, w_prev, v0, gamma, eta)
+    sched = _inner_schedule(mesh, cfg, state.seed, state.it, m, 0, m, starts,
+                            idx, dev)
+    if cfg.local and cfg.fused:
+        from ciao_tpu_torch.ops.fused_block import (
+            oracle_scalar_consts, sarah_inner_chunked,
+        )
+
+        rows, offs = F.coeff_rows_data()
+        scale, mode, lam, aux = oracle_scalar_consts(F, g)
+        f32 = lambda t: t.to(device=rows.device, dtype=torch.float32)  # noqa: E731
+        scalars = torch.stack([scale, f32(gamma), f32(gamma * lam.float()),
+                               f32(eta), torch.full_like(scale, 1.0 / B),
+                               mode, aux])
+        ww = torch.stack([w_prev, w])
+        sarah_inner_chunked(rows, offs, ww, v0.clone(), scalars, B,
+                            sched.contiguous(), LAUNCH_STEPS,
+                            rs=F.coeff_rows_scale())
+        w = ww[1]
+    else:
+        v = v0
+        for k in range(m):
+            diff = _inner_diff(F, cfg, w, w_prev, sched[k])
+            v = v + (diff / B if cfg.local
+                     else _psum(mesh, diff) / (B * cfg.D))
+            w_prev, w = w, _damped_prox(g, w, v, gamma, eta)
+    if cfg.local:
+        w = _psum(mesh, w) / cfg.D
+    return state._replace(x_tilde=w, it=state.it + 1)
+
+
+# ---------------------------------------------------------------------------
+# L-SVRG / L-Katyusha
+# ---------------------------------------------------------------------------
+
+class DPLSVRGState(NamedTuple):
+    gamma: torch.Tensor
+    p: float                # anchor-refresh probability (compared in f32)
+    av: torch.Tensor        # (n,) anchor gradient, the same on every rank
+    z: torch.Tensor         # (n,) anchor point
+    w: torch.Tensor         # (n,) iterate
+    seed: int
+    it: int
+    status: int
+
+    @property
+    def solution(self):
+        return self.w
+
+
+class DPLKatyushaState(NamedTuple):
+    Lmax: torch.Tensor
+    sigma: torch.Tensor
+    theta1: torch.Tensor
+    theta2: torch.Tensor
+    p: float
+    av: torch.Tensor        # (n,) anchor gradient ∇f(w_anchor)
+    w_anchor: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    seed: int
+    it: int
+    status: int
+
+    @property
+    def solution(self):
+        return self.y
+
+
+def _loopless_draws(mesh, cfg: DPCfg, state, starts, idx, coins):
+    """(the rank's sample, the step's coin): a block start or b_loc rows
+    drawn with replacement from the rank's block, folded with the rank;
+    and the Bernoulli(p) anchor coin of ``solvers.lsvrg.draw_coins``,
+    a function of (seed, it) alone, so the same on every rank. The
+    explicit ``starts``/``idx``/``coins`` when given."""
+    from ciao_tpu_torch.solvers.lsvrg import _step_rows, draw_coins
+
+    dev = state.av.device
+    if cfg.block:
+        sample = starts if starts is not None else local_block_start(
+            state.seed, state.it, cfg.n_loc, cfg.b_loc, Sweep.RANDOM,
+            mesh.rank, dev)
+    elif idx is not None:
+        sample = torch.as_tensor(idx, device=dev).long()
+    else:
+        sample = _step_rows(_rank_seed(state.seed, mesh.rank), state.it,
+                            cfg.n_loc, cfg.b_loc, dev)
+    flip = (bool(coins) if coins is not None
+            else bool(draw_coins(state.seed, state.it, 1, state.p)[0]))
+    return sample, flip
+
+
+def _loopless_sums(F, mesh, cfg: DPCfg, x1, x2, sample, flip, anchor_at):
+    """The step's ONE stacked all-reduce: the rank's Σ ∇f_i(x1) − ∇f_i(x2)
+    over its sample, and on a coin flip its rows' full gradient at
+    ``anchor_at`` (zeros otherwise): the branch hangs on the replicated
+    coin, the collective does not."""
+    d_loc = _inner_diff(F, cfg, x1, x2, sample)
+    ref = F.grad_sum_all(anchor_at) if flip else torch.zeros_like(d_loc)
+    return _psum(mesh, torch.stack([d_loc, ref])).unbind()
+
+
+def _lsvrg_init_local(F, g, mesh, cfg: DPCfg, x0, gamma, seed, p):
+    """Sharded L-SVRG bootstrap: the anchor gradient is one local pass
+    and one all-reduce."""
+    av = _psum(mesh, F.grad_sum_all(x0)) / cfg.N
+    return DPLSVRGState(gamma=_as_real(gamma, x0), p=float(p), av=av, z=x0,
+                        w=x0, seed=int(seed), it=1,
+                        status=int(Status.RUNNING))
+
+
+def _lsvrg_step_local(F, g, mesh, cfg: DPCfg, state, starts=None, idx=None,
+                      coins=None):
+    """One sharded loopless-SVRG step: the variance-reduced direction
+    (global batch b_loc·D) and the coin-gated refresh partial in one
+    all-reduce; on a flip the anchor jumps to the pre-update w."""
+    N, B = cfg.N, cfg.b_loc
+    gamma, w = state.gamma, state.w
+    sample, flip = _loopless_draws(mesh, cfg, state, starts, idx, coins)
+    d, ref = _loopless_sums(F, mesh, cfg, state.z, w, sample, flip, w)
+    w_new = g.prox_only(w + gamma * (d / (B * cfg.D) - state.av), gamma)
+    if flip:
+        return state._replace(av=ref / N, z=w, w=w_new, it=state.it + 1)
+    return state._replace(w=w_new, it=state.it + 1)
+
+
+def _lsvrg_rebase_local(F, g, mesh, cfg: DPCfg, state):
+    """Exact anchor gradient at the anchor point (one local pass and one
+    all-reduce), after a row-storage swap: at small p the carried μ keeps
+    the old rows' gradient until the next flip."""
+    return state._replace(av=_psum(mesh, F.grad_sum_all(state.z)) / cfg.N)
+
+
+def _lkatyusha_init_local(F, g, mesh, cfg: DPCfg, x0, Lmax, seed, sigma,
+                          theta1, theta2, p):
+    """Sharded L-Katyusha bootstrap: one local pass and one all-reduce
+    for the anchor gradient."""
+    av = _psum(mesh, F.grad_sum_all(x0)) / cfg.N
+    return DPLKatyushaState(
+        Lmax=_as_real(Lmax, x0), sigma=_as_real(sigma, x0),
+        theta1=_as_real(theta1, x0), theta2=_as_real(theta2, x0),
+        p=float(p), av=av, w_anchor=x0, y=x0, z=x0, seed=int(seed), it=1,
+        status=int(Status.RUNNING))
+
+
+def _lkatyusha_step_local(F, g, mesh, cfg: DPCfg, state, starts=None,
+                          idx=None, coins=None):
+    """One sharded loopless-Katyusha step: the momentum coupling and the
+    prox are computed alike on every rank; the block's anchor-to-live
+    diff and the coin-gated refresh partial (at y) are one all-reduce."""
+    N, B = cfg.N, cfg.b_loc
+    th1, th2, sig = state.theta1, state.theta2, state.sigma
+    eta = th2 / ((1.0 + th2) * th1)
+    step = eta / state.Lmax
+    w = state.w_anchor
+    x = th1 * state.z + th2 * w + (1.0 - th1 - th2) * state.y
+    sample, flip = _loopless_draws(mesh, cfg, state, starts, idx, coins)
+    d, ref = _loopless_sums(F, mesh, cfg, x, w, sample, flip, state.y)
+    gr = state.av + d / (B * cfg.D)
+    denom = 1.0 + eta * sig
+    z_new = g.prox_only((state.z + (eta * sig) * x - step * gr) / denom,
+                        step / denom)
+    y_new = x + th1 * (z_new - state.z)
+    if flip:
+        state = state._replace(av=ref / N, w_anchor=state.y)
+    return state._replace(y=y_new, z=z_new, it=state.it + 1)
+
+
+def _lkatyusha_rebase_local(F, g, mesh, cfg: DPCfg, state):
+    """Exact anchor gradient at the anchor point (cf.
+    :func:`_lsvrg_rebase_local`)."""
+    return state._replace(
+        av=_psum(mesh, F.grad_sum_all(state.w_anchor)) / cfg.N)
+
+
+# ---------------------------------------------------------------------------
+# Point-SAGA and SSNM
+# ---------------------------------------------------------------------------
+
+class DPPointSAGAState(NamedTuple):
+    gamma: torch.Tensor
+    c: torch.Tensor         # (n_loc,) this rank's prox coefficients
+    av: torch.Tensor        # (n,) table mean, the same on every rank
+    x: torch.Tensor         # (n,) iterate
+    seed: int
+    it: int
+    status: int
+
+    @property
+    def solution(self):
+        return self.x
+
+
+class DPSSNMState(NamedTuple):
+    tau: torch.Tensor       # momentum weight
+    eta: torch.Tensor       # stepsize
+    c: torch.Tensor         # (n_loc,) this rank's coefficients
+    zb: torch.Tensor        # (d_loc, n) this rank's blocks' stored points
+    gbar: torch.Tensor      # (n,) global table mean
+    x: torch.Tensor         # (n,) iterate
+    seed: int
+    it: int
+    status: int
+
+    @property
+    def solution(self):
+        return self.x
+
+
+def _step_start(mesh, cfg: DPCfg, state, starts):
+    """The step's block start: the explicit one, else the rank's draw."""
+    if starts is not None:
+        return starts
+    return local_block_start(state.seed, state.it, cfg.n_loc, cfg.b_loc,
+                             cfg.sweeping, mesh.rank, state.x.device)
+
+
+def _point_saga_init_local(F, g, mesh, cfg: DPCfg, x0, gamma, seed):
+    """Sharded Point-SAGA bootstrap: the rank's coefficients and one
+    all-reduced table mean."""
+    c = F.coeff_all(x0)
+    av = _psum(mesh, F.apply_all(c)) / cfg.N
+    return DPPointSAGAState(gamma=_as_real(gamma, x0), c=c, av=av, x=x0,
+                            seed=int(seed), it=1, status=int(Status.RUNNING))
+
+
+def _point_saga_step_local(F, g, mesh, cfg: DPCfg, state, starts=None,
+                           idx=None):
+    """One sharded Point-SAGA step: each rank proxes a block of its rows
+    around the shared shifted iterate (``pointprox_block``); the block
+    contributions u = Σ(c − θ)·a are ONE all-reduce."""
+    N, B = cfg.N, cfg.b_loc
+    gamma = state.gamma
+    v = state.x - gamma * state.av
+    start = _step_start(mesh, cfg, state, starts)
+    rows = _block(start, B, v.device)
+    theta, u_loc = F.pointprox_block(v, state.c[rows], gamma, start, B)
+    state.c.index_copy_(0, rows, theta)
+    u = _psum(mesh, u_loc)
+    return state._replace(x=v + (gamma / (B * cfg.D)) * u,
+                          av=state.av - u / N, it=state.it + 1)
+
+
+def _point_saga_rebase_local(F, g, mesh, cfg: DPCfg, state):
+    """Exact table mean from the rank's coefficients (one apply and one
+    all-reduce), after a row-storage swap."""
+    return state._replace(av=_psum(mesh, F.apply_all(state.c)) / cfg.N)
+
+
+def _ssnm_init_local(F, g, mesh, cfg: DPCfg, x0, tau, seed, eta):
+    """Sharded SSNM bootstrap: the rank's coefficients and one all-reduced
+    table mean; each of its d_loc blocks' stored point x0."""
+    c = F.coeff_all(x0)
+    gbar = _psum(mesh, F.apply_all(c)) / cfg.N
+    zb = x0.expand(cfg.n_loc // cfg.b_loc, x0.shape[0]).clone()
+    return DPSSNMState(tau=_as_real(tau, x0), eta=_as_real(eta, x0), c=c,
+                       zb=zb, gbar=gbar, x=x0, seed=int(seed), it=1,
+                       status=int(Status.RUNNING))
+
+
+def _ssnm_rebase_local(F, g, mesh, cfg: DPCfg, state):
+    """Exact ḡ from the rank's coefficients (cf.
+    :func:`_point_saga_rebase_local`)."""
+    return state._replace(gbar=_psum(mesh, F.apply_all(state.c)) / cfg.N)
+
+
+def _ssnm_step_local(F, g, mesh, cfg: DPCfg, state, starts=None, idx=None):
+    """One sharded SSNM step: each rank draws a block of its rows and
+    forms its OWN momentum point y_r = τx + (1 − τ)·φ_j from that block's
+    stored point (each term anchored at its own point, so the averaged
+    direction stays unbiased); the innovation is ONE all-reduce, the
+    mirror step and the table-mean update are computed alike on every
+    rank."""
+    N, B = cfg.N, cfg.b_loc
+    tau, eta = state.tau, state.eta
+    start = _step_start(mesh, cfg, state, starts)
+    rows = _block(start, B, state.x.device)
+    j = rows[:1] // B
+    y = tau * state.x + (1.0 - tau) * state.zb.index_select(0, j)[0]
+    c_new = F.coeff_block(y, start, B)
+    innov = _psum(mesh, F.apply_rows_block(c_new - state.c[rows], start, B))
+    x = g.prox_only(state.x - eta * (innov / (B * cfg.D) + state.gbar), eta)
+    state.c.index_copy_(0, rows, c_new)
+    state.zb.index_copy_(0, j, y[None])
+    return state._replace(gbar=state.gbar + innov / N, x=x, it=state.it + 1)
+
+
+# ---------------------------------------------------------------------------
+# Davis-Yin, Condat-Vũ, PANOC/ZeroFPR: full-gradient methods
+# ---------------------------------------------------------------------------
+
+def _full_grad_fn(F, mesh, cfg: DPCfg):
+    """∇f(x) = psum(the rank's Σ∇f_i(x))/N: one local pass (compensated
+    chunks with ``polish_chunk``, as :func:`_fb_step_local`) and ONE
+    all-reduce."""
+    if cfg.polish_chunk:
+        from ciao_tpu_torch.solvers.polish import grad_sum_chunked
+
+        return lambda x: _psum(mesh, grad_sum_chunked(
+            F, x, cfg.polish_chunk)) / cfg.N
+    return lambda x: _psum(mesh, F.grad_sum_all(x)) / cfg.N
+
+
+def _dys_init_local(F, gh, mesh, cfg: DPCfg, x0, gamma, seed, lam):
+    """Sharded Davis-Yin bootstrap: table-free, only the rows are cut.
+    ``gh`` is the pair (g, h) of proximable terms; ``seed`` is unused
+    (the method draws nothing)."""
+    from ciao_tpu_torch.solvers.dys import DYSState
+
+    return DYSState(gamma=_as_real(gamma, x0), lam=_as_real(lam, x0), z=x0,
+                    xg=x0, it=1, status=int(Status.RUNNING))
+
+
+def _dys_step_local(F, gh, mesh, cfg: DPCfg, state, starts=None, idx=None):
+    """One sharded Davis-Yin step: ``solvers.dys._dys_step`` with the
+    full gradient one local pass and ONE all-reduce (its ``grad_fn``);
+    both proxes are computed alike on every rank."""
+    from ciao_tpu_torch.solvers.dys import _dys_step
+
+    g, h = gh
+    return _dys_step(F, g, h, None, state, grad_fn=_full_grad_fn(F, mesh,
+                                                                  cfg))
+
+
+def _pd_init_local(F, ghk, mesh, cfg: DPCfg, x0, tau, seed, sigma):
+    """Sharded Condat-Vũ bootstrap: table-free. ``ghk`` is (g, h, K);
+    ``seed`` is unused."""
+    from ciao_tpu_torch.solvers.primal_dual import PDState
+
+    K = ghk[2]
+    return PDState(tau=_as_real(tau, x0), sigma=_as_real(sigma, x0), x=x0,
+                   y=torch.zeros(K.out_dim(x0.shape[0]), dtype=x0.dtype,
+                                 device=x0.device),
+                   it=1, status=int(Status.RUNNING))
+
+
+def _pd_step_local(F, ghk, mesh, cfg: DPCfg, state, starts=None, idx=None):
+    """One sharded Condat-Vũ step: ``solvers.primal_dual._pd_step`` with
+    the full gradient one local pass (compensated chunks with
+    ``polish_chunk``) and ONE all-reduce; K's products, both proxes and
+    the dual update are computed alike on every rank."""
+    from ciao_tpu_torch.solvers.primal_dual import _pd_step
+
+    g, h, K = ghk
+    return _pd_step(F, g, h, K, None, state,
+                    grad_fn=_full_grad_fn(F, mesh, cfg))
+
+
+class _PsumFBEOracle:
+    """The oracle PANOC's step sees on a rank: each entry it uses runs on
+    the rank's rows and all-reduces its sums, so ``solvers.panoc``'s step
+    (L-BFGS, line search, adaptive γ) runs unchanged and alike on every
+    rank. Every value its host reads (a trial's accept test, a halving's
+    descent test) is computed from all-reduced sums, so every rank takes
+    the same trial count and the same branch."""
+
+    def __init__(self, mesh, F):
+        self._mesh, self._F = mesh, F
+
+    def value_sum_and_grad_sum_all(self, u):
+        v, gsum = self._F.value_sum_and_grad_sum_all(u)
+        return _psum(self._mesh, v), _psum(self._mesh, gsum)
+
+    def value_sum_all(self, u):
+        return _psum(self._mesh, self._F.value_sum_all(u))
+
+    def grad_sum_all(self, u):
+        return _psum(self._mesh, self._F.grad_sum_all(u))
+
+
+def _panoc_cfg(cfg: DPCfg):
+    """The single-card config of the DP step: no ``tol`` and no kernel
+    (JAX's DP config leaves ``fused`` off)."""
+    from ciao_tpu_torch.solvers.panoc import PANOCCfg
+
+    return PANOCCfg(N=cfg.N, mem=cfg.m_inner, max_ls=cfg.max_ls,
+                    zerofpr=cfg.variant == "zerofpr", tol=None,
+                    adaptive=cfg.adaptive)
+
+
+def _panoc_init_local(F, g, mesh, cfg: DPCfg, x0, gamma, seed, sigma):
+    """Sharded PANOC/ZeroFPR bootstrap: ``solvers.panoc.panoc_init`` on
+    :class:`_PsumFBEOracle`; the L-BFGS ring and every iterate are the
+    same on every rank. ``seed`` is unused."""
+    from ciao_tpu_torch.solvers.panoc import panoc_init
+
+    return panoc_init(_PsumFBEOracle(mesh, F), g, x0, _as_real(gamma, x0),
+                      _as_real(sigma, x0), _panoc_cfg(cfg))
+
+
+def _panoc_step_local(F, g, mesh, cfg: DPCfg, state, starts=None, idx=None):
+    """One sharded PANOC/ZeroFPR step: every FBE evaluation is one local
+    pass and two all-reduces (the value and the gradient)."""
+    from ciao_tpu_torch.solvers.panoc import _panoc_step
+
+    return _panoc_step(_PsumFBEOracle(mesh, F), g, _panoc_cfg(cfg), state)
+
+
 def _rebase_identity_local(F, g, mesh, cfg: DPCfg, state):
     """Families whose anchor is recomputed from a full pass every epoch
     (LFinito, SVRG) repair themselves in one epoch; the full-table Finito
@@ -1127,14 +1707,33 @@ _FAMILY = {
     "fb": (_fb_init_local, _fb_step_local, _rebase_identity_local, ()),
     "proshi": (_proshi_init_local, _proshi_step_or_round,
                _rebase_identity_local, ("s",)),
+    "katyusha": (_katyusha_init_local, _katyusha_step_local,
+                 _rebase_identity_local, ()),
+    "lsvrg": (_lsvrg_init_local, _lsvrg_step_local, _lsvrg_rebase_local, ()),
+    "lkatyusha": (_lkatyusha_init_local, _lkatyusha_step_local,
+                  _lkatyusha_rebase_local, ()),
+    "sarah": (_sarah_init_local, _sarah_step_local, _rebase_identity_local,
+              ()),
+    "dys": (_dys_init_local, _dys_step_local, _rebase_identity_local, ()),
+    "pd": (_pd_init_local, _pd_step_local, _rebase_identity_local, ()),
+    "panoc": (_panoc_init_local, _panoc_step_local, _rebase_identity_local,
+              ()),
+    "point_saga": (_point_saga_init_local, _point_saga_step_local,
+                   _point_saga_rebase_local, ("c",)),
+    "ssnm": (_ssnm_init_local, _ssnm_step_local, _ssnm_rebase_local,
+             ("c", "zb")),
 }
+# the families whose steps flip the replicated anchor coin
+_COIN_FAMILIES = ("lsvrg", "lkatyusha")
 
 
 def _draws_blocks(family: str, cfg: DPCfg) -> bool:
     """Whether each step (round) of ``family`` draws contiguous block
     starts from :func:`_local_round_starts`'s stream."""
-    if family == "saga":
+    if family in ("saga", "lsvrg", "lkatyusha"):
         return cfg.block
+    if family in ("point_saga", "ssnm"):
+        return True
     if family in ("finito", "proshi"):
         return cfg.sweeping != Sweep.RANDOM or (
             family == "proshi" and cfg.local_steps > 1)
@@ -1149,34 +1748,47 @@ def _owned(state, names):
 
 def build_dp_functions(family: str, mesh: Mesh, F, g, cfg: DPCfg):
     """``(init, step, run, rebase)`` of a family on this rank: plain
-    closures over the rank's oracle part ``F``, the prox ``g``, the mesh
-    and the config (the counterpart of JAX's jitted ``shard_map`` bodies).
+    closures over the rank's oracle part ``F``, the prox ``g`` (Davis-
+    Yin's pair (g, h), Condat-Vũ's (g, h, K)), the mesh and the config
+    (the counterpart of JAX's jitted ``shard_map`` bodies).
 
-      * ``init(x0, gamma, seed, *extra)`` (SVRG's extra is m);
-      * ``step(state, starts=None, idx=None)``: one step (a local round),
-        the state passed in left valid;
-      * ``run(state, steps, starts=None, idx=None)``: ``steps`` steps,
-        the tables copied once and then written in place; a state that is
-        not RUNNING stays as it is;
+      * ``init(x0, a, seed, *extra)``, ``a`` the family's first scalar:
+        γ (SAGA, SVRG, Finito, ProShI, FB, L-SVRG, SARAH, Point-SAGA,
+        Davis-Yin, PANOC), L_max (Katyusha, L-Katyusha), τ (SSNM,
+        Condat-Vũ); ``extra``: SVRG's m, Katyusha's (τ₁, τ₂), L-SVRG's p,
+        L-Katyusha's (σ, θ₁, θ₂, p), SARAH's η, SSNM's η, Davis-Yin's λ,
+        Condat-Vũ's σ, PANOC's σ;
+      * ``step(state, starts=None, idx=None, coins=None)``: one step (a
+        local round, an outer step), the state passed in left valid;
+      * ``run(state, steps, starts=None, idx=None, coins=None)``:
+        ``steps`` steps, the tables copied once and then written in place;
+        a state that is not RUNNING stays as it is;
       * ``rebase(state)``: the storage-swap repair.
 
     ``starts``/``idx`` give the rank's explicit schedule, one entry a
-    step: a block start (a round's (K,) starts; SVRG's (m_t,) inner
-    starts; LFinito's (d_loc,) starts in visit order), or rows ((b_loc,)
-    for SAGA, Finito and ProShI; SVRG's (m_t, b_loc); the adaptive
-    variant's global index)."""
+    step: a block start (a round's (K,) starts; SVRG's, Katyusha's and
+    SARAH's (m,) inner starts; LFinito's (d_loc,) starts in visit order),
+    or rows ((b_loc,) for SAGA, Finito, ProShI, L-SVRG and L-Katyusha;
+    the (m, b_loc) inner rows of SVRG, Katyusha and SARAH; the adaptive
+    variant's global index). ``coins`` gives L-SVRG's and L-Katyusha's
+    anchor coins, one a step; by default they are drawn from (seed, it)
+    alone, the same on every rank."""
     init_local, step_local, rebase_local, tables = _FAMILY[family]
 
-    def init(x0, gamma, seed, *extra):
-        return init_local(F, g, mesh, cfg, x0, gamma, seed, *extra)
+    def init(x0, a, seed, *extra):
+        return init_local(F, g, mesh, cfg, x0, a, seed, *extra)
 
-    def step(state, starts=None, idx=None):
+    def one(state, starts, idx, coin):
+        if coin is None:
+            return step_local(F, g, mesh, cfg, state, starts, idx)
+        return step_local(F, g, mesh, cfg, state, starts, idx, coin)
+
+    def step(state, starts=None, idx=None, coins=None):
         if state.status != Status.RUNNING:
             return state
-        return step_local(F, g, mesh, cfg, _owned(state, tables), starts,
-                          idx)
+        return one(_owned(state, tables), starts, idx, coins)
 
-    def run(state, steps, starts=None, idx=None):
+    def run(state, steps, starts=None, idx=None, coins=None):
         if state.status != Status.RUNNING:
             return state
         state = _owned(state, tables)
@@ -1186,12 +1798,16 @@ def build_dp_functions(family: str, mesh: Mesh, F, g, cfg: DPCfg):
             K = max(cfg.local_steps, 1)
             starts = _local_round_starts(
                 state.seed, state.it, cfg.n_loc, cfg.b_loc, steps * K,
-                cfg.sweeping, mesh.rank, state.z.device)
+                cfg.sweeping, mesh.rank, _device_of(state))
             starts = starts.view(steps, K) if K > 1 else starts
+        if coins is None and family in _COIN_FAMILIES:
+            from ciao_tpu_torch.solvers.lsvrg import draw_coins
+
+            coins = draw_coins(state.seed, state.it, steps, state.p)
         for t in range(steps):
-            state = step_local(F, g, mesh, cfg, state,
-                               None if starts is None else starts[t],
-                               None if idx is None else idx[t])
+            state = one(state, None if starts is None else starts[t],
+                        None if idx is None else idx[t],
+                        None if coins is None else coins[t])
             if state.status != Status.RUNNING:
                 break
         return state
@@ -1200,6 +1816,11 @@ def build_dp_functions(family: str, mesh: Mesh, F, g, cfg: DPCfg):
         return rebase_local(F, g, mesh, cfg, state)
 
     return init, step, run, rebase
+
+
+def _device_of(state):
+    """The device of a state's first tensor field."""
+    return next(v for v in state if isinstance(v, torch.Tensor)).device
 
 
 # ---------------------------------------------------------------------------
@@ -1262,8 +1883,40 @@ def _facade_fns(family, mesh, F, g, cfg, x0, gamma, seed, *extra):
             rebase_c)
 
 
+class _DPRun:
+    """``__call__`` and ``iterator`` of a DP facade whose ``_setup``
+    returns ``(x0, F, g, init, step, run, rebase)``; ``_shown`` names the
+    state field that ``verbose`` prints."""
+
+    _shown = "gamma"
+    _can_abort = False
+
+    @property
+    def _maxit(self):
+        return self.maxit
+
+    def __call__(self, x0, F=None, g=None, L=None, N=None, observe=None):
+        x0, F, g, init, step, run, _ = self._setup(x0, F, g, L, N)
+        shown = self._shown
+        disp = lambda it, st: print(  # noqa: E731
+            f"{it:5d} | {float(getattr(st, shown)):.3e}")
+        state, it = run_solver_loop(init, run, self._maxit, self.verbose,
+                                    self.freq, disp, observe)
+        self._after(state)
+        return state.solution, it
+
+    def _after(self, state):
+        """A hook on the final state of ``__call__``."""
+
+    def iterator(self, x0, F=None, g=None, L=None, N=None):
+        x0_orig = x0
+        x0, F, g, init, step, run, rebase = self._setup(x0, F, g, L, N)
+        return SolverIterable(x0_orig, init, step, rebase_fn=rebase,
+                              can_abort=self._can_abort)
+
+
 @dataclasses.dataclass(frozen=True)
-class DPFinito:
+class DPFinito(_DPRun):
     """Data-parallel Finito/MISO (basic or LFinito, or adaptive) over a
     mesh. Same knobs as :class:`ciao_tpu_torch.solvers.Finito` where
     they apply; ``batch`` is the GLOBAL minibatch (split evenly over the
@@ -1304,6 +1957,13 @@ class DPFinito:
     rebase_every: int = 50  # local rounds between exact av recomputes
     local_sweep: bool = False  # LFinito: local epoch sweeps (2 collectives)
     seed: int = 0
+    _shown = "hat_gamma"
+
+    @property
+    def _can_abort(self):
+        # adaptive Finito is the reference families' only DP variant that
+        # can abort
+        return self.adaptive
 
     def _setup(self, x0, F, g, L, N):
         from ciao_tpu_torch.ops import fused_block as fb
@@ -1381,23 +2041,9 @@ class DPFinito:
         return (x0, F, g) + _facade_fns("finito_adaptive", mesh, F, g, cfg,
                                         x0, None, self.seed)
 
-    def __call__(self, x0, F=None, g=None, L=None, N=None, observe=None):
-        x0, F, g, init, step, run, _ = self._setup(x0, F, g, L, N)
-        disp = lambda it, st: print(f"{it:5d} | {float(st.hat_gamma):.3e}")
-        state, it = run_solver_loop(init, run, self.maxit, self.verbose,
-                                    self.freq, disp, observe)
-        return state.solution, it
-
-    def iterator(self, x0, F=None, g=None, L=None, N=None):
-        x0_orig = x0
-        x0, F, g, init, step, run, rebase = self._setup(x0, F, g, L, N)
-        # adaptive Finito is the only DP family that can abort
-        return SolverIterable(x0_orig, init, step, rebase_fn=rebase,
-                              can_abort=self.adaptive)
-
 
 @dataclasses.dataclass(frozen=True)
-class DPSAGA:
+class DPSAGA(_DPRun):
     """Data-parallel minibatch SAGA/SAG over a mesh.
 
     ``local_steps > 1``: the LOCAL-UPDATE mode (beyond the reference;
@@ -1461,18 +2107,6 @@ class DPSAGA:
         return (x0, F, g) + _facade_fns("saga", mesh, F, g, cfg, x0, gamma,
                                         self.seed)
 
-    def __call__(self, x0, F=None, g=None, L=None, N=None, observe=None):
-        x0, F, g, init, step, run, _ = self._setup(x0, F, g, L, N)
-        disp = lambda it, st: print(f"{it:5d} | {float(st.gamma):.3e}")
-        state, it = run_solver_loop(init, run, self.maxit, self.verbose,
-                                    self.freq, disp, observe)
-        return state.solution, it
-
-    def iterator(self, x0, F=None, g=None, L=None, N=None):
-        x0_orig = x0
-        x0, F, g, init, step, run, rebase = self._setup(x0, F, g, L, N)
-        return SolverIterable(x0_orig, init, step, rebase_fn=rebase)
-
 
 def DPSAG(**kwargs):
     """``DPSAGA(SAG_flag=True)``."""
@@ -1480,7 +2114,7 @@ def DPSAG(**kwargs):
 
 
 @dataclasses.dataclass(frozen=True)
-class DPSVRG:
+class DPSVRG(_DPRun):
     """Data-parallel SVRG/SVRG++: all-reduced full-gradient anchors,
     averaged variance-reduced inner directions (global inner batch
     D·b_loc).
@@ -1536,24 +2170,13 @@ class DPSVRG:
         return (x0, F, g) + _facade_fns("svrg", mesh, F, g, cfg, x0, gamma,
                                         self.seed, m)
 
-    def _effective_maxit(self):
+    @property
+    def _maxit(self):
         return min(self.maxit, 25) if self.plus else self.maxit
-
-    def __call__(self, x0, F=None, g=None, L=None, N=None, observe=None):
-        x0, F, g, init, step, run, _ = self._setup(x0, F, g, L, N)
-        disp = lambda it, st: print(f"{it:5d} | {float(st.gamma):.3e}")
-        state, it = run_solver_loop(init, run, self._effective_maxit(),
-                                    self.verbose, self.freq, disp, observe)
-        return state.solution, it
-
-    def iterator(self, x0, F=None, g=None, L=None, N=None):
-        x0_orig = x0
-        x0, F, g, init, step, run, rebase = self._setup(x0, F, g, L, N)
-        return SolverIterable(x0_orig, init, step, rebase_fn=rebase)
 
 
 @dataclasses.dataclass(frozen=True)
-class DPProshi:
+class DPProshi(_DPRun):
     """Data-parallel ProShI: the block variables x_i cut by i over the
     ranks; the coupling Σ s_i is an all-reduce and z is computed alike on
     every rank: the sharing problem's all-reduce and broadcast.
@@ -1577,6 +2200,7 @@ class DPProshi:
     local_steps: int = 1
     rebase_every: int = 50  # local rounds between exact av recomputes
     seed: int = 0
+    _shown = "hat_gamma"
 
     def _setup(self, x0, F, g, L, N):
         from ciao_tpu_torch.ops import fused_block as fb
@@ -1603,21 +2227,9 @@ class DPProshi:
         return (x0, F, g) + _facade_fns("proshi", mesh, F, g, cfg, x0, gamma,
                                         self.seed)
 
-    def __call__(self, x0, F=None, g=None, L=None, N=None, observe=None):
-        x0, F, g, init, step, run, _ = self._setup(x0, F, g, L, N)
-        disp = lambda it, st: print(f"{it:5d} | {float(st.hat_gamma):.3e}")
-        state, it = run_solver_loop(init, run, self.maxit, self.verbose,
-                                    self.freq, disp, observe)
-        return state.solution, it
-
-    def iterator(self, x0, F=None, g=None, L=None, N=None):
-        x0_orig = x0
-        x0, F, g, init, step, run, rebase = self._setup(x0, F, g, L, N)
-        return SolverIterable(x0_orig, init, step, rebase_fn=rebase)
-
 
 @dataclasses.dataclass(frozen=True)
-class DPForwardBackward:
+class DPForwardBackward(_DPRun):
     """Data-parallel ISTA/FISTA (beyond the reference; see
     :class:`ciao_tpu_torch.solvers.ForwardBackward`): each step one local
     pass over the rank's rows and ONE x-sized all-reduce; ``fast=True``
@@ -1667,19 +2279,601 @@ class DPForwardBackward:
                     polish_chunk=self.polish_chunk)
         return (x0, F, g) + _facade_fns("fb", mesh, F, g, cfg, x0, gamma, 0)
 
-    def __call__(self, x0, F=None, g=None, L=None, N=None, observe=None):
-        x0, F, g, init, step, run, _ = self._setup(x0, F, g, L, N)
-        disp = lambda it, st: print(f"{it:5d} | {float(st.gamma):.3e}")
-        state, it = run_solver_loop(init, run, self.maxit, self.verbose,
-                                    self.freq, disp, observe)
-        return state.solution, it
-
-    def iterator(self, x0, F=None, g=None, L=None, N=None):
-        x0_orig = x0
-        x0, F, g, init, step, run, rebase = self._setup(x0, F, g, L, N)
-        return SolverIterable(x0_orig, init, step, rebase_fn=rebase)
-
 
 def DPFISTA(**kwargs) -> DPForwardBackward:
     """``DPForwardBackward(fast=True)``."""
     return DPForwardBackward(fast=True, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# facades of the families beyond the reference
+# ---------------------------------------------------------------------------
+
+def _check_loop(maxit: int, freq: int):
+    if maxit < 1 or freq < 1:
+        raise ValueError("maxit and freq must be at least 1")
+
+
+def _check_positive(**kw):
+    for k, v in kw.items():
+        if v is not None and not v > 0:
+            raise ValueError(f"{k} must be positive, not {v}")
+
+
+def _check_blocks(N, D, b_loc, block_sampling: bool, who: str):
+    if block_sampling and (N // D) % b_loc != 0:
+        raise ValueError(f"{who} block_sampling needs N/D divisible by "
+                         f"batch/D")
+
+
+def _L_max(L, x0, who: str):
+    if L is None:
+        raise ValueError(f"{who}: provide the smoothness moduli L")
+    return torch.max(torch.as_tensor(L, dtype=real_dtype_of(x0),
+                                     device=x0.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class DPKatyusha(_DPRun):
+    """Data-parallel Katyusha (beyond the reference; see
+    :class:`ciao_tpu_torch.solvers.Katyusha`).
+
+    Lockstep (default): each inner step draws one block (or b_loc rows) a
+    rank and all-reduces the variance-reduced direction (global inner
+    batch = D·b_loc, one all-reduce an inner step). ``local_inner=True``
+    runs the m-step inner loop on each rank's rows and pays two
+    collectives an outer step (see :func:`_katyusha_step_local`); with
+    ``block_sampling=True``, a rank-1 oracle, f32 iterates and a
+    NormL1/Zero prox on the card the inner loop runs on #10 and the
+    anchor on #6. ``m`` counts inner steps an outer step and defaults to
+    2N/batch; ``maxit`` counts outer steps."""
+
+    mesh: object = None
+    batch: int = 0
+    maxit: int = 1000
+    verbose: bool = False
+    freq: int = 100
+    m: Optional[int] = None
+    tau1: Optional[float] = None
+    tau2: float = 0.5
+    sigma: Optional[float] = None
+    block_sampling: bool = False
+    local_inner: bool = False
+    seed: int = 0
+    _shown = "tau1"
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        if not 0.0 < self.tau2 < 1.0:
+            raise ValueError(f"tau2 must lie in (0, 1), not {self.tau2}")
+        if self.tau1 is not None and not 0.0 < self.tau1 <= 1.0 - self.tau2:
+            raise ValueError(f"tau1 must lie in (0, 1 - tau2], not "
+                             f"{self.tau1}")
+
+    def _setup(self, x0, F, g, L, N):
+        from ciao_tpu_torch.solvers.svrg import fused_inner_gate
+
+        mesh, x0, F, g, N = _dp_problem(self.mesh, x0, F, g, N, "DPKatyusha")
+        Lmax = _L_max(L, x0, "DPKatyusha")
+        batch = self.batch or mesh.size
+        D, b_loc = _validate_mesh_batch(N, mesh, batch, Sweep.RANDOM,
+                                        "DPKatyusha")
+        _check_blocks(N, D, b_loc, self.block_sampling, "DPKatyusha")
+        m = (2 * N) // batch if self.m is None else self.m
+        if m < 1:
+            raise ValueError("DPKatyusha: m must be >= 1")
+        ns = self.tau1 is None and self.sigma is None
+        if self.tau1 is not None:
+            tau1 = _as_real(self.tau1, x0)
+        elif self.sigma is not None:
+            tau1 = torch.clamp(torch.sqrt(
+                m * batch * _as_real(self.sigma, x0) / (3.0 * Lmax)), max=0.5)
+        else:
+            tau1 = _as_real(0.5, x0)
+        # the single-card gate, on the rank's own rows
+        fused = self.local_inner and fused_inner_gate(
+            "DPKatyusha", self.block_sampling, b_loc, F, g, x0)
+        cfg = DPCfg(N=N, D=D, b_loc=b_loc, sweeping=Sweep.RANDOM,
+                    alpha=0.999, block=self.block_sampling, coeff=fused,
+                    local=self.local_inner, m_inner=m, fused=fused,
+                    variant="ns" if ns else "sc")
+        return (x0, F, g) + _facade_fns("katyusha", mesh, F, g, cfg, x0,
+                                        Lmax, self.seed, tau1, self.tau2)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPLSVRG(_DPRun):
+    """Data-parallel loopless SVRG (beyond the reference; see
+    :class:`ciao_tpu_torch.solvers.LSVRG`): each step a block (or b_loc
+    rows) a rank, the direction averaged over the ranks (global batch
+    D·b_loc). The anchor coin is the same on every rank (drawn from
+    (seed, it) alone) and the refresh partial rides the direction's
+    all-reduce: one collective a step. ``p`` defaults to batch/N;
+    ``maxit`` counts steps. No kernel, as in the JAX package."""
+
+    mesh: object = None
+    gamma: Optional[float] = None
+    batch: int = 0
+    maxit: int = 10000
+    verbose: bool = False
+    freq: int = 1000
+    p: Optional[float] = None
+    block_sampling: bool = False
+    seed: int = 0
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(gamma=self.gamma)
+        if self.p is not None and not 0.0 <= self.p <= 1.0:
+            raise ValueError(f"p must lie in [0, 1], not {self.p}")
+
+    def _setup(self, x0, F, g, L, N):
+        mesh, x0, F, g, N = _dp_problem(self.mesh, x0, F, g, N, "DPLSVRG")
+        batch = self.batch or mesh.size
+        D, b_loc = _validate_mesh_batch(N, mesh, batch, Sweep.RANDOM,
+                                        "DPLSVRG")
+        if self.gamma is None:
+            if L is None:
+                raise ValueError("DPLSVRG: provide L or γ")
+            gamma = 1.0 / (6.0 * _L_max(L, x0, "DPLSVRG"))
+        else:
+            gamma = _as_real(self.gamma, x0)
+        _check_blocks(N, D, b_loc, self.block_sampling, "DPLSVRG")
+        cfg = DPCfg(N=N, D=D, b_loc=b_loc, sweeping=Sweep.RANDOM,
+                    alpha=0.999, block=self.block_sampling)
+        p = batch / N if self.p is None else self.p
+        return (x0, F, g) + _facade_fns("lsvrg", mesh, F, g, cfg, x0, gamma,
+                                        self.seed, p)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPLKatyusha(_DPRun):
+    """Data-parallel loopless Katyusha (beyond the reference; see
+    :class:`ciao_tpu_torch.solvers.LKatyusha`), with :class:`DPLSVRG`'s
+    collectives: the coin the same on every rank, the refresh partial in
+    the direction's all-reduce, one collective a step."""
+
+    mesh: object = None
+    batch: int = 0
+    maxit: int = 10000
+    verbose: bool = False
+    freq: int = 1000
+    p: Optional[float] = None
+    theta1: Optional[float] = None
+    theta2: float = 0.5
+    sigma: Optional[float] = None
+    block_sampling: bool = False
+    seed: int = 0
+    _shown = "theta1"
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        if not 0.0 < self.theta2 < 1.0:
+            raise ValueError(f"theta2 must lie in (0, 1), not {self.theta2}")
+        if self.p is not None and not 0.0 <= self.p <= 1.0:
+            raise ValueError(f"p must lie in [0, 1], not {self.p}")
+        if self.theta1 is not None and not (
+                0.0 < self.theta1 <= 1.0 - self.theta2):
+            raise ValueError(f"theta1 must lie in (0, 1 - theta2], not "
+                             f"{self.theta1}")
+
+    def _setup(self, x0, F, g, L, N):
+        mesh, x0, F, g, N = _dp_problem(self.mesh, x0, F, g, N,
+                                        "DPLKatyusha")
+        Lmax = _L_max(L, x0, "DPLKatyusha")
+        batch = self.batch or mesh.size
+        D, b_loc = _validate_mesh_batch(N, mesh, batch, Sweep.RANDOM,
+                                        "DPLKatyusha")
+        _check_blocks(N, D, b_loc, self.block_sampling, "DPLKatyusha")
+        sigma = _as_real(0.0 if self.sigma is None else self.sigma, x0)
+        if self.theta1 is not None:
+            theta1 = _as_real(self.theta1, x0)
+        elif self.sigma is not None:
+            theta1 = torch.clamp(torch.sqrt(2.0 * sigma * N / (3.0 * batch)),
+                                 max=0.5)
+        else:
+            theta1 = _as_real(1.0 / 3.0, x0)
+        cfg = DPCfg(N=N, D=D, b_loc=b_loc, sweeping=Sweep.RANDOM,
+                    alpha=0.999, block=self.block_sampling)
+        p = batch / N if self.p is None else self.p
+        return (x0, F, g) + _facade_fns("lkatyusha", mesh, F, g, cfg, x0,
+                                        Lmax, self.seed, sigma, theta1,
+                                        self.theta2, p)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPSARAH(_DPRun):
+    """Data-parallel SARAH/ProxSARAH (beyond the reference; see
+    :class:`ciao_tpu_torch.solvers.SARAH`).
+
+    Lockstep (default): each inner step draws one block (or b_loc rows) a
+    rank and all-reduces the estimator's innovation (global inner batch
+    D·b_loc). ``local_inner=True`` runs each rank's recursive chain on its
+    rows from the shared full-gradient bootstrap and pays two collectives
+    an outer step (see :func:`_sarah_step_local`); with the gate of
+    :class:`DPKatyusha` open on the card, the chain runs on #11 and the
+    bootstrap on #6. ``m`` defaults to N // batch; ``maxit`` counts outer
+    steps."""
+
+    mesh: object = None
+    gamma: Optional[float] = None
+    batch: int = 0
+    maxit: int = 1000
+    verbose: bool = False
+    freq: int = 100
+    m: Optional[int] = None
+    eta: float = 1.0
+    block_sampling: bool = False
+    local_inner: bool = False
+    seed: int = 0
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(gamma=self.gamma)
+        if not 0.0 < self.eta <= 1.0:
+            raise ValueError(f"eta must lie in (0, 1], not {self.eta}")
+
+    def _setup(self, x0, F, g, L, N):
+        from ciao_tpu_torch.solvers.svrg import fused_inner_gate
+
+        mesh, x0, F, g, N = _dp_problem(self.mesh, x0, F, g, N, "DPSARAH")
+        batch = self.batch or mesh.size
+        D, b_loc = _validate_mesh_batch(N, mesh, batch, Sweep.RANDOM,
+                                        "DPSARAH")
+        _check_blocks(N, D, b_loc, self.block_sampling, "DPSARAH")
+        if self.gamma is not None:
+            gamma = _as_real(self.gamma, x0)
+        elif L is None:
+            raise ValueError("DPSARAH: provide the smoothness moduli L, or a "
+                             "stepsize γ")
+        else:
+            gamma = 1.0 / (2.0 * _L_max(L, x0, "DPSARAH"))
+        m = N // batch if self.m is None else self.m
+        if m < 1:
+            raise ValueError("DPSARAH: m must be >= 1")
+        fused = self.local_inner and fused_inner_gate(
+            "DPSARAH", self.block_sampling, b_loc, F, g, x0)
+        cfg = DPCfg(N=N, D=D, b_loc=b_loc, sweeping=Sweep.RANDOM,
+                    alpha=0.999, block=self.block_sampling, coeff=fused,
+                    local=self.local_inner, m_inner=m, fused=fused)
+        return (x0, F, g) + _facade_fns("sarah", mesh, F, g, cfg, x0, gamma,
+                                        self.seed, self.eta)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPPointSAGA(_DPRun):
+    """Data-parallel Point-SAGA (beyond the reference; see
+    :class:`ciao_tpu_torch.solvers.PointSAGA`): the (N,) prox-coefficient
+    table cut by rows; each step every rank proxes one contiguous block
+    of its rows (global batch D·b_loc) and the only traffic is one
+    x-sized all-reduce. Solves min (1/N)Σf_i (no composite g); needs a
+    ``supports_pointprox`` oracle. No kernel, as in the JAX package."""
+
+    mesh: object = None
+    gamma: Optional[float] = None
+    batch: int = 0
+    maxit: int = 10000
+    verbose: bool = False
+    freq: int = 1000
+    sweeping: int = 1
+    seed: int = 0
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(gamma=self.gamma)
+
+    def _setup(self, x0, F, g, L, N):
+        if g is not None and not isinstance(g, Zero):
+            raise ValueError("DPPointSAGA solves min (1/N)Σ f_i(x): no "
+                             "separate composite g (see PointSAGA)")
+        if not getattr(F, "supports_pointprox", False):
+            raise ValueError(
+                "DPPointSAGA needs a scalar-loss row oracle with the "
+                f"pointprox protocol; {type(F).__name__} does not support "
+                "it")
+        mesh, x0, F, g, N = _dp_problem(self.mesh, x0, F, None, N,
+                                        "DPPointSAGA")
+        batch = self.batch or mesh.size
+        D, b_loc = _validate_mesh_batch(N, mesh, batch, self.sweeping,
+                                        "DPPointSAGA")
+        if (N // D) % b_loc != 0:
+            raise ValueError("DPPointSAGA: per-device block batch/D must "
+                             "divide N/D")
+        if self.gamma is not None:
+            gamma = _as_real(self.gamma, x0)
+        elif L is None:
+            raise ValueError("DPPointSAGA: provide the smoothness moduli L, "
+                             "or a stepsize γ")
+        else:
+            gamma = 1.0 / (3.0 * _L_max(L, x0, "DPPointSAGA"))
+        cfg = DPCfg(N=N, D=D, b_loc=b_loc, sweeping=self.sweeping,
+                    alpha=0.999)
+        return (x0, F, g) + _facade_fns("point_saga", mesh, F, g, cfg, x0,
+                                        gamma, self.seed)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPSSNM(_DPRun):
+    """Data-parallel SSNM (SAGA with sampled negative momentum, beyond
+    the reference; see :class:`ciao_tpu_torch.solvers.SSNM`): the
+    coefficient table and the per-block stored points cut by rows; each
+    rank forms its own momentum point from its sampled block's stored
+    point; ONE x-sized all-reduce a step. ``batch`` is the GLOBAL
+    minibatch. No kernel, as in the JAX package."""
+
+    mesh: object = None
+    batch: int = 0
+    maxit: int = 10000
+    verbose: bool = False
+    freq: int = 1000
+    tau: Optional[float] = None
+    sigma: Optional[float] = None
+    eta: Optional[float] = None
+    seed: int = 0
+    _shown = "tau"
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+
+    def _setup(self, x0, F, g, L, N):
+        if not getattr(F, "supports_coeff", False):
+            raise ValueError("DPSSNM needs a rank-1 (coefficient) oracle; "
+                             f"{type(F).__name__} is not")
+        mesh, x0, F, g, N = _dp_problem(self.mesh, x0, F, g, N, "DPSSNM")
+        batch = self.batch or mesh.size
+        D, b_loc = _validate_mesh_batch(N, mesh, batch, Sweep.RANDOM,
+                                        "DPSSNM")
+        if (N // D) % b_loc != 0:
+            raise ValueError("DPSSNM: per-device batch must divide N/D")
+        if L is None and (self.eta is None or self.tau is None):
+            raise ValueError("DPSSNM: provide L, or both τ and η")
+        Lmax = None if L is None else _L_max(L, x0, "DPSSNM")
+        if self.tau is not None:
+            tau = _as_real(self.tau, x0)
+        elif self.sigma is not None:
+            tau = torch.clamp(torch.sqrt(N * _as_real(self.sigma, x0)
+                                         / (3.0 * Lmax)), max=0.5)
+        else:
+            tau = _as_real(0.5, x0)
+        eta = (_as_real(self.eta, x0) if self.eta is not None
+               else 1.0 / (3.0 * tau * Lmax))
+        cfg = DPCfg(N=N, D=D, b_loc=b_loc, sweeping=Sweep.RANDOM,
+                    alpha=0.999, block=True, coeff=True)
+        return (x0, F, g) + _facade_fns("ssnm", mesh, F, g, cfg, x0, tau,
+                                        self.seed, eta)
+
+
+def _dp_terms(mesh, x0, F, N, who):
+    """A splitting facade's (mesh, x0, the rank's oracle part, N): F =
+    ``ZeroOracle(n_terms=N)`` when omitted."""
+    from ciao_tpu_torch.oracles import ZeroOracle
+
+    if F is None:
+        if N is None:
+            raise ValueError(f"{who}: provide F or N")
+        F = ZeroOracle(n_terms=N)
+    mesh, x0, F, _, N = _dp_problem(mesh, x0, F, None, N, who)
+    return mesh, x0, F, N
+
+
+def _prox_or_zero(p, mesh):
+    return (Zero() if p is None else p).to(mesh.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPDavisYin:
+    """Data-parallel Davis-Yin splitting (beyond the reference; see
+    :class:`ciao_tpu_torch.solvers.DavisYin`): minimize (1/N)Σf_i + g + h.
+    Each step is one local pass over the rank's rows and ONE x-sized
+    all-reduce; both proxes are computed alike on every rank, so the
+    trajectory is the single card's to reduction order.
+    ``DPDouglasRachford`` is the f = 0 case (pass no F or L)."""
+
+    mesh: object = None
+    gamma: Optional[float] = None
+    lam: float = 1.0
+    maxit: int = 1000
+    verbose: bool = False
+    freq: int = 100
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(gamma=self.gamma)
+        if not 0 < self.lam < 2:
+            raise ValueError(f"lam must lie in (0, 2), not {self.lam}")
+
+    def _setup(self, x0, F, g, h, L, N):
+        from ciao_tpu_torch.oracles import ZeroOracle
+
+        mesh, x0, F, N = _dp_terms(self.mesh, x0, F, N, "DPDavisYin")
+        gh = (_prox_or_zero(g, mesh), _prox_or_zero(h, mesh))
+        if self.gamma is not None:
+            gamma = _as_real(self.gamma, x0)
+        elif L is not None:
+            gamma = 1.0 / torch.mean(torch.as_tensor(
+                L, dtype=real_dtype_of(x0), device=x0.device))
+        elif isinstance(F, ZeroOracle):
+            gamma = _as_real(1.0, x0)  # f = 0: Douglas-Rachford
+        else:
+            raise ValueError("DPDavisYin: provide the smoothness moduli L, "
+                             "or a stepsize γ")
+        cfg = DPCfg(N=N, D=mesh.size, b_loc=1, sweeping=Sweep.RANDOM,
+                    alpha=0.999)
+        return (x0, F, gh) + _facade_fns("dys", mesh, F, gh, cfg, x0, gamma,
+                                         0, self.lam)
+
+    def __call__(self, x0, F=None, g=None, h=None, L=None, N=None,
+                 observe=None):
+        x0, F, gh, init, step, run, _ = self._setup(x0, F, g, h, L, N)
+        disp = lambda it, st: print(f"{it:5d} | {float(st.gamma):.3e}")  # noqa: E731
+        state, it = run_solver_loop(init, run, self.maxit, self.verbose,
+                                    self.freq, disp, observe)
+        return state.solution, it
+
+    def iterator(self, x0, F=None, g=None, h=None, L=None, N=None):
+        x0_orig = x0
+        x0, F, gh, init, step, run, rebase = self._setup(x0, F, g, h, L, N)
+        return SolverIterable(x0_orig, init, step, rebase_fn=rebase)
+
+
+def DPDouglasRachford(**kwargs) -> DPDavisYin:
+    """``DPDavisYin`` with f = 0 (Douglas-Rachford over the mesh)."""
+    return DPDavisYin(**kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPCondatVu:
+    """Data-parallel Condat-Vũ splitting (beyond the reference; see
+    :class:`ciao_tpu_torch.solvers.CondatVu`): minimize (1/N)Σf_i + g(x) +
+    h(Kx). Each step is one local pass over the rank's rows and ONE
+    x-sized all-reduce; K's products, both proxes and the dual update are
+    computed alike on every rank, so the trajectory is the single card's
+    to reduction order. ``polish_chunk`` > 0 takes the local pass through
+    compensated chunks (the deep route, :func:`deep_solve_pd_dp`).
+    ``DPChambollePock`` is the f = 0 case (pass no F or L)."""
+
+    mesh: object = None
+    tau: Optional[float] = None
+    sigma: Optional[float] = None
+    maxit: int = 1000
+    verbose: bool = False
+    freq: int = 100
+    polish_chunk: int = 0
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(tau=self.tau, sigma=self.sigma)
+        if self.polish_chunk < 0:
+            raise ValueError("polish_chunk must be at least 0")
+
+    def _setup(self, x0, F, g, h, K, L, N):
+        from ciao_tpu_torch.ops.linmap import IdentityMap
+        from ciao_tpu_torch.oracles import ZeroOracle
+        from ciao_tpu_torch.solvers.primal_dual import CondatVu
+
+        mesh, x0, F, N = _dp_terms(self.mesh, x0, F, N, "DPCondatVu")
+        D = mesh.size
+        K = (IdentityMap() if K is None else K).to(mesh.device)
+        ghk = (_prox_or_zero(g, mesh), _prox_or_zero(h, mesh), K)
+        if L is not None:
+            Lf = float(torch.mean(torch.as_tensor(L,
+                                                  dtype=real_dtype_of(x0))))
+        elif isinstance(F, ZeroOracle) or self.tau is not None:
+            Lf = 0.0  # Chambolle-Pock, or the caller owns the condition
+        else:
+            raise ValueError("DPCondatVu: provide the smoothness moduli L, "
+                             "or an explicit stepsize τ")
+        # the single card's stepsize rule, so the trajectories agree
+        tau, sigma = CondatVu(tau=self.tau, sigma=self.sigma)._stepsizes(
+            Lf, float(K.opnorm_bound(x0.shape[0])))
+        if self.polish_chunk:
+            if isinstance(F, ZeroOracle):
+                raise ValueError(
+                    "DPCondatVu: polish_chunk compensates the finite-sum "
+                    "gradient; there is none with F omitted")
+            if (N // D) % self.polish_chunk:
+                raise ValueError(
+                    f"DPCondatVu: polish_chunk={self.polish_chunk} must "
+                    f"divide the per-device shard N/D={N // D}")
+            if getattr(F, "coeff_rows_scale", lambda: None)() is not None:
+                raise ValueError(
+                    "DPCondatVu: polish_chunk needs f32/bf16 rows")
+        cfg = DPCfg(N=N, D=D, b_loc=1, sweeping=Sweep.RANDOM, alpha=0.999,
+                    polish_chunk=self.polish_chunk)
+        return (x0, F, ghk) + _facade_fns("pd", mesh, F, ghk, cfg, x0, tau,
+                                          0, sigma)
+
+    def __call__(self, x0, F=None, g=None, h=None, K=None, L=None, N=None,
+                 observe=None):
+        x0, F, ghk, init, step, run, _ = self._setup(x0, F, g, h, K, L, N)
+        disp = lambda it, st: print(f"{it:5d} | {float(st.tau):.3e}")  # noqa: E731
+        state, it = run_solver_loop(init, run, self.maxit, self.verbose,
+                                    self.freq, disp, observe)
+        return state.solution, it
+
+    def iterator(self, x0, F=None, g=None, h=None, K=None, L=None, N=None):
+        x0_orig = x0
+        x0, F, ghk, init, step, run, rebase = self._setup(x0, F, g, h, K, L,
+                                                          N)
+        return SolverIterable(x0_orig, init, step, rebase_fn=rebase)
+
+
+def DPChambollePock(**kwargs) -> DPCondatVu:
+    """``DPCondatVu`` with f = 0 (Chambolle-Pock over the mesh)."""
+    return DPCondatVu(**kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPPANOC(_DPRun):
+    """Data-parallel PANOC/ZeroFPR (beyond the reference; see
+    :class:`ciao_tpu_torch.solvers.PANOC`). Each FBE evaluation is one
+    local pass over the rank's rows and two all-reduces (the value and
+    the gradient); the L-BFGS direction and the line search are computed
+    alike on every rank, so the trajectory is the single card's to
+    reduction order. No kernel: JAX's DP PANOC leaves ``fused`` off, and
+    has no ``tol``."""
+
+    mesh: object = None
+    gamma: Optional[float] = None
+    alpha: float = 0.95
+    beta: float = 0.5
+    maxit: int = 100
+    mem: int = 5
+    max_ls: int = 10
+    verbose: bool = False
+    freq: int = 10
+    zerofpr: bool = False
+    adaptive: bool = False  # γ-backtracking (on when neither γ nor L)
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(gamma=self.gamma)
+        if not (0 < self.alpha < 1 and 0 < self.beta < 1):
+            raise ValueError("alpha and beta must lie in (0, 1)")
+        if self.mem < 1 or self.max_ls < 1:
+            raise ValueError("mem and max_ls must be at least 1")
+
+    @property
+    def _can_abort(self):
+        return self.adaptive
+
+    def _setup(self, x0, F, g, L, N):
+        from ciao_tpu_torch.solvers.panoc import _probe_gamma
+
+        mesh, x0, F, g, N = _dp_problem(self.mesh, x0, F, g, N, "DPPANOC")
+        rdt = real_dtype_of(x0)
+        adaptive = self.adaptive or (self.gamma is None and L is None)
+        if self.gamma is not None:
+            gamma = _as_real(self.gamma, x0)
+            if L is not None:
+                Lf = torch.mean(torch.as_tensor(L, dtype=rdt,
+                                                device=x0.device))
+                sigma = self.beta * torch.clamp(1.0 - gamma * Lf,
+                                                min=0.05) / (2.0 * gamma)
+            else:
+                sigma = rdiv(self.beta * (1.0 - self.alpha), 2.0 * gamma)
+        elif L is not None:
+            Lf = torch.mean(torch.as_tensor(L, dtype=rdt, device=x0.device))
+            gamma = rdiv(self.alpha, Lf)
+            sigma = rdiv(self.beta * (1.0 - self.alpha), 2.0 * gamma)
+        else:
+            # the one-time probe, its two gradient passes all-reduced
+            gamma = _probe_gamma(_PsumFBEOracle(mesh, F), x0, N, self.alpha,
+                                 rdt)
+            sigma = rdiv(self.beta * (1.0 - self.alpha), 2.0 * gamma)
+        cfg = DPCfg(N=N, D=mesh.size, b_loc=1, sweeping=Sweep.RANDOM,
+                    alpha=0.999, m_inner=self.mem, max_ls=self.max_ls,
+                    adaptive=adaptive,
+                    variant="zerofpr" if self.zerofpr else "panoc")
+        return (x0, F, g) + _facade_fns("panoc", mesh, F, g, cfg, x0, gamma,
+                                        0, sigma)
+
+    def _after(self, state):
+        from ciao_tpu_torch.solvers.panoc import warn_if_thrashing
+
+        warn_if_thrashing(state, type(self).__name__)
+
+
+def DPZeroFPR(**kwargs) -> DPPANOC:
+    """``DPPANOC(zerofpr=True)``."""
+    return DPPANOC(zerofpr=True, **kwargs)

@@ -35,7 +35,8 @@ the one-hot (n, k) segment indicator, not a scatter-add, so the
 certificate's bits repeat from run to run on the card. Every product
 here needs exact f32 (``runtime.require_exact_f32_matmul``); the f64
 solves, the iterative refinement and the certificates run on the host in
-numpy. Not ported yet: the DP/TP variants (ROADMAP.md, queue 1 item 18).
+numpy. The data-parallel route is ``parallel.deep_solve_pd_dp``; the TP
+one is not ported yet (ROADMAP.md, queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -118,10 +119,21 @@ def _indicator(seg_id, k: int, device):
     return torch.nn.functional.one_hot(ids, k).to(torch.float32)
 
 
-def _segment_normal_eq(rows, offs, S, chunk: int):
+def _halves(hi, lo, reduce):
+    """hi + lo in host f64. ``reduce``, when given, sums the (hi, lo)
+    halves over the data-parallel ranks first, as f64 on the device, so
+    that the cross-rank sum keeps the compensation."""
+    if reduce is None:
+        return _to_host(hi) + _to_host(lo)
+    both = _to_host(reduce(torch.stack([hi.double(), lo.double()])))
+    return both[0] + both[1]
+
+
+def _segment_normal_eq(rows, offs, S, chunk: int, reduce=None):
     """Compensated chunked G = A_SᵀA_S (k, k) and r = A_Sᵀb (k,) for the
     segment-collapsed design A_S = A·S: exact f32 products a chunk,
-    two-sum carries across chunks, the (hi, lo) halves added in host f64.
+    two-sum carries across chunks, the (hi, lo) halves added in host f64
+    (summed over the ranks first by ``reduce``, see :func:`_halves`).
     The reduced system must be deep-grade, or the λ·sᵀDz term pays the
     Gram's rounding to first order."""
     N = rows.shape[0]
@@ -136,16 +148,16 @@ def _segment_normal_eq(rows, offs, S, chunk: int):
         AS = A_B @ S
         Ghi, Glo = _two_sum(Ghi, Glo, AS.T @ AS)
         rhi, rlo = _two_sum(rhi, rlo, b_B @ AS)
-    return _to_host(Ghi) + _to_host(Glo), _to_host(rhi) + _to_host(rlo)
+    return _halves(Ghi, Glo, reduce), _halves(rhi, rlo, reduce)
 
 
-def _tv_cert_grad(rows, offs, S, z, chunk: int):
+def _tv_cert_grad(rows, offs, S, z, chunk: int, reduce=None):
     """∇(½‖A·Sz − b‖²) = Aᵀ(A_S z − b) at the exact reduced solution ``z``
     (host f64): z rides as a double-single (hi, lo) pair so that its f32
     cast error, which the curvature amplifies to ~0.1·λ through the
     certificate's cumulative sums, cancels. Margins are ordered
     ((m_hi − b) + m_lo); chunks add with a two-sum carry. Returns the
-    gradient in host f64 (hi + lo)."""
+    gradient in host f64 (hi + lo, summed over the ranks by ``reduce``)."""
     N, n = rows.shape
     z_hi = np.asarray(z, np.float32)
     z_lo = np.asarray(z - z_hi.astype(np.float64), np.float32)
@@ -159,7 +171,7 @@ def _tv_cert_grad(rows, offs, S, z, chunk: int):
         AS = A_B @ S
         r = ((AS @ z_hi) - b_B) + (AS @ z_lo)
         hi, lo = _two_sum(hi, lo, r @ A_B)
-    return _to_host(hi) + _to_host(lo)
+    return _halves(hi, lo, reduce)
 
 
 def tv_refine(F, x, lam: float, *, chunk: int = 4096,
@@ -183,13 +195,24 @@ def tv_refine(F, x, lam: float, *, chunk: int = 4096,
     recovered dual (host f64, (n − 1,)). On a failed certificate callers
     keep the unrefined iterate. Least-squares rows with f32 or bf16
     storage only."""
+    return _tv_refine(F, x, lam, chunk, jump_rtol, cert_rtol)
+
+
+def _tv_refine(F, x, lam: float, chunk: int, jump_rtol: float,
+               cert_rtol: float, N_total=None, reduce=None):
+    """:func:`tv_refine` on a data-parallel rank's rows: ``N_total`` is
+    the global term count (the rank's rows when None), and ``reduce``
+    sums the Gram, the right-hand side and the certificate gradient over
+    the ranks (:func:`_halves`). Every rank then takes the same host f64
+    solves and the same verdict."""
     rows, offs = _reduced_rows(F, "tv_refine")
-    N, n = rows.shape
-    c = _chunk_of(N, chunk)
+    N_loc, n = rows.shape
+    N = N_loc if N_total is None else N_total
+    c = _chunk_of(N_loc, chunk)
 
     _, J, s, k, seg_id = _segments(x, jump_rtol, 0.0)
     S = _indicator(seg_id, k, rows.device)
-    G, r = _segment_normal_eq(rows, offs, S, c)
+    G, r = _segment_normal_eq(rows, offs, S, c, reduce)
     # the user objective (1/N)Σfᵢ + λ‖Dx‖₁ is (scale/N)·½‖Ax−b‖² + λ‖Dx‖₁:
     # fold the loss scale into the λ side of the reduced stationarity
     # (scale/N)(Gz − r) + λ·D_kᵀs = 0
@@ -207,7 +230,7 @@ def tv_refine(F, x, lam: float, *, chunk: int = 4096,
     # (Sᵀw = Gz − r exactly) and corrects
     S_host = np.eye(k)[seg_id]
     for _ in range(3):
-        w_un = _tv_cert_grad(rows, offs, S, z, c)
+        w_un = _tv_cert_grad(rows, offs, S, z, c, reduce)
         rho = -(S_host.T @ w_un) - lam_eff * Dk_t_s
         dz = np.linalg.solve(G, rho)
         z = z + dz
@@ -219,7 +242,7 @@ def tv_refine(F, x, lam: float, *, chunk: int = 4096,
     # certificate: ∇f(x̂) + Dᵀv = 0 with ∇f the user's mean gradient, at
     # the refined z itself (the f32 cast of x̂ would shift v by far more
     # than the tolerance): v_i = Σ_{j≤i} w_j, Σw = 0
-    w = _tv_cert_grad(rows, offs, S, z, c) * (sc / N)
+    w = _tv_cert_grad(rows, offs, S, z, c, reduce) * (sc / N)
     v = np.cumsum(w[:-1])
     off = np.ones(n - 1, bool)
     off[J] = False

@@ -17,8 +17,9 @@ x_g: on the card one pass of kernel #6 (``solvers.fb.full_gradient``),
 as FISTA's. Complex iterates take the stepwise gradient (the kernel's
 gate takes f32 iterates alone); the JAX package has no complex test of
 Davis-Yin, and its facade converges on complex128 rows as the port's
-does. Not ported yet: the DP/TP variants (ROADMAP.md, queue 1 item
-18).
+does. The data-parallel variant is ``parallel.DPDavisYin`` (through
+``_dys_step``'s ``grad_fn``); the TP one is not ported yet (ROADMAP.md,
+queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -66,10 +67,16 @@ def dys_init(F, g, h, x0, gamma, lam, cfg: DYSCfg) -> DYSState:
                     status=int(Status.RUNNING))
 
 
-def _dys_step(F, g, h, cfg: DYSCfg, state: DYSState) -> DYSState:
+def _dys_step(F, g, h, cfg: DYSCfg, state: DYSState,
+              grad_fn=None) -> DYSState:
+    """One Davis-Yin step. ``grad_fn(xg)``, when given, takes the place
+    of the full gradient (the data-parallel path's all-reduced one)."""
     gamma = state.gamma
     xg = g.prox_only(state.z, gamma)
-    grad = full_gradient(F, cfg.N, xg, cfg.fused, cfg.fused_precision)
+    if grad_fn is None:
+        grad = full_gradient(F, cfg.N, xg, cfg.fused, cfg.fused_precision)
+    else:
+        grad = grad_fn(xg)
     xh = h.prox_only(2.0 * xg - state.z - gamma * grad, gamma)
     z_new = state.z + state.lam * (xh - xg)
     return state._replace(z=z_new, xg=xg, it=state.it + 1)

@@ -36,8 +36,9 @@ gathered with ``index_select``, and a non-finite direction falls back to
 Complex iterates (complex64, complex128) run as real 2n-vectors: every
 inner product of the two-loop recursion and the FBE is Re⟨·,·⟩
 (``_rdot``), so the ring's ρ is 1/Re⟨s, y⟩; they take the stepwise
-envelope read (kernel #7's gate takes f32 iterates alone). Not ported
-yet: the DP/TP variants (ROADMAP.md, queue 1 item 18).
+envelope read (kernel #7's gate takes f32 iterates alone). The DP
+variant is ``parallel.DPPANOC``, whose host reads are of all-reduced
+values; the TP one is not ported yet (ROADMAP.md, queue 1 item 18).
 """
 
 from __future__ import annotations

@@ -32,8 +32,9 @@ drivers, no step runs stepwise after the launches.
 Complex rows and iterates (complex64, complex128) take the stepwise
 path, as in the JAX package (the kernels' gates take f32 iterates
 alone): the row prox is z − γθ·conj(a_j) with ‖a_j‖² = Re(a_j·ā_j).
-Importance sampling refuses them, as JAX's does. Not ported yet: the
-data- and tensor-parallel variants (ROADMAP.md, queue 1 item 18).
+Importance sampling refuses them, as JAX's does. The data-parallel
+variant is ``parallel.DPPointSAGA``; the tensor-parallel one is not
+ported yet (ROADMAP.md, queue 1 item 18).
 """
 
 from __future__ import annotations

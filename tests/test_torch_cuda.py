@@ -3611,12 +3611,20 @@ def _dp_family(mesh, dev, family, seed=0):
                                    plus=True), gam_s / 3.3, (48,), 3),
         "proshi": ("proshi", dict(base, sweeping=2, local_steps=8,
                                   rebase_every=2), gam_i, (), 3),
+        # local inner loops of 150 steps: launches of 128 and 22 an outer
+        # step on #10/#11, the anchor or the bootstrap on #6
+        "katyusha": ("katyusha", dict(base, sweeping=1, block=True,
+                                      local=True, m_inner=150, variant="ns"),
+                     L.max(), (0.5, 0.5), 3),
+        "sarah": ("sarah", dict(base, sweeping=1, block=True, local=True,
+                                m_inner=150), 1.0 / (2.0 * L.max()), (1.0,),
+                  3),
     }[family]
     fam, cfg, gamma, extra, steps = spec
     out = []
     for fused in (True, False):
         c = dict(cfg, fused=fused)
-        if fam == "svrg":
+        if fam in ("svrg", "katyusha", "sarah"):
             c["coeff"] = fused
         init, _, run, _ = parallel.build_dp_functions(fam, mesh, F, g,
                                                       tdp.DPCfg(**c))
@@ -3630,22 +3638,26 @@ def _dp_family(mesh, dev, family, seed=0):
 
 _DP_KERNELS = ("saga_coeff_multistep", "svrg_coeff_multistep",
                "coeff_apply_all", "lfinito_sweep_multistep",
-               "finito_coeff_multistep", "proshi_multistep")
+               "finito_coeff_multistep", "proshi_multistep",
+               "katyusha_coeff_multistep", "sarah_multistep")
 _DP_LAUNCHED = {"saga": ("saga_coeff_multistep",),
                 "finito": ("finito_coeff_multistep",),
                 "lfinito": ("coeff_apply_all", "lfinito_sweep_multistep"),
                 "svrg": ("svrg_coeff_multistep", "coeff_apply_all"),
                 "svrg_plus": ("svrg_coeff_multistep", "coeff_apply_all"),
-                "proshi": ("proshi_multistep",)}
+                "proshi": ("proshi_multistep",),
+                "katyusha": ("katyusha_coeff_multistep", "coeff_apply_all"),
+                "sarah": ("sarah_multistep", "coeff_apply_all")}
 
 
 @pytest.mark.parametrize("family", list(_DP_LAUNCHED))
 def test_dp_kernel_path_matches_plain_path(dp_mesh, dev, family):
     """Each DP family's kernel path (#3 SAGA rounds, #9 Finito rounds,
     #6 and #8 LFinito epochs, #5 and #6 SVRG and SVRG++ local inner
-    loops, #18 ProShI rounds) on one gloo rank against the same DP code
-    with the gate closed: the replicated vectors within 1e-6 of their
-    largest entry, av and the tables within 1e-5; only the kernel path
+    loops, #18 ProShI rounds, #10 and #6 Katyusha and #11 and #6 SARAH
+    local inner loops) on one gloo rank against the same DP code with the
+    gate closed: the replicated vectors within 1e-6 of their largest
+    entry, av and the tables within 1e-5; only the kernel path
     launches."""
     kst, kl, pst, pl = _dp_family(dp_mesh, dev, family)
     for k in _DP_LAUNCHED[family]:
@@ -3657,7 +3669,37 @@ def test_dp_kernel_path_matches_plain_path(dp_mesh, dev, family):
         w = getattr(pst, f)
         if w is None:  # the anchor coefficients: the kernel path's own
             continue
-        tol = 1e-6 if f in ("z", "z_full", "w", "x") else 1e-5
+        tol = 1e-6 if f in ("z", "z_full", "w", "x", "x_tilde",
+                            "y") else 1e-5
         err = float((v.double() - w.double()).abs().max()
                     / w.double().abs().max().clamp(min=1e-300))
         assert err <= tol, (family, f, err)
+
+
+def test_deep_solve_pd_dp_certifies_on_the_card(dp_mesh, dev):
+    """``deep_solve_pd_dp`` on one gloo rank, rows on the card: the
+    planted fused lasso certifies with rel ≤ 1e-8 against the exact f64
+    optimum, flat runs exact, as the single card's deep_solve_pd does;
+    no kernel wrapper launches (the route has none)."""
+    import numpy as np
+
+    from ciao_tpu_torch import FirstDifference, NormL1
+    from ciao_tpu_torch.parallel import deep_solve_pd_dp
+
+    p, F = _fused_lasso(dev)
+    wrappers = [f for f in vars(tfb).values()
+                if callable(f) and hasattr(f, "launches")]
+    before = [f.launches for f in wrappers]
+    x, info = deep_solve_pd_dp(torch.zeros(256, device=dev), F,
+                               h=NormL1(torch.tensor(p.lam)),
+                               K=FirstDifference(), N=8_192, mesh=dp_mesh,
+                               chunk_steps=512, max_steps=16_384,
+                               polish_chunk=1_024)
+    assert x.device.type == "cuda"
+    assert info.refined and info.certified
+    xn = x.double().cpu().numpy()
+    rel = (p.cost(xn) - p.f_star) / abs(p.f_star)
+    assert 0 <= rel <= 1e-8
+    true_J = np.abs(np.diff(p.x_star)) > 0
+    assert np.all(np.diff(xn)[~true_J] == 0.0)
+    assert [f.launches for f in wrappers] == before

@@ -111,6 +111,33 @@ def svrg_rows(m, seed, steps, m_inner, n_loc, B):
                      for it in range(1, steps + 1)], axis=1)
 
 
+def step_rows(m, seed, steps, n_loc, B):
+    """(D, steps, B): the loopless families' iid rows of steps 1..:
+    JAX's ``randint(fold_in(fold_in(key, it), axis_index))``."""
+    key = jax.random.PRNGKey(seed)
+
+    def rows():
+        ax = jax.lax.axis_index(DATA_AXIS)
+        return jax.vmap(lambda it: jax.random.randint(
+            jax.random.fold_in(jax.random.fold_in(key, it), ax), (B,), 0,
+            n_loc, dtype=jnp.int32))(jnp.arange(1, steps + 1))
+
+    return per_device(m, rows)
+
+
+def coins(seed, steps, p, D):
+    """(D, steps): the loopless families' anchor coins of steps 1..,
+    JAX's ``solvers.lsvrg._coin`` at an f32 p, the same on every
+    device."""
+    from ciao_tpu.solvers.lsvrg import _coin
+
+    key = jax.random.PRNGKey(seed)
+    pf = jnp.asarray(p, jnp.float32)
+    c = np.array([bool(_coin(key, jnp.int32(it), pf))
+                  for it in range(1, steps + 1)])
+    return np.broadcast_to(c, (D, steps)).copy()
+
+
 def adaptive_indices(seed, steps, N, sweeping, D):
     """(D, steps): the adaptive variant's global index of steps 1..,
     the same on every device, from the key chain its steps carry."""

@@ -30,7 +30,7 @@ from ciao_tpu_torch.oracles import (
     SparseLeastSquaresELL, SqrDistBox, SumOracle,
 )
 from ciao_tpu_torch.parallel import dp as tdp
-from ciao_tpu_torch.prox import IndBox, NormL1
+from ciao_tpu_torch.prox import IndBox, NormL1, SqrDistPoint, Zero
 
 TIMEOUT = datetime.timedelta(seconds=120)
 
@@ -67,11 +67,28 @@ def oracle(spec):
     raise ValueError(kind)
 
 
-def prox(spec):
-    p = spec.get("prox", {"kind": "l1", "lam": 0.0})
+def prox(spec, key="prox"):
+    p = spec.get(key, {"kind": "l1", "lam": 0.0})
     if p["kind"] == "l1":
         return NormL1(_t(p["lam"]))
+    if p["kind"] == "zero":
+        return Zero()
+    if p["kind"] == "sqrdist":
+        return SqrDistPoint(_t(p["b"]), _t(p["rho"]))
     return IndBox(_t(p["lo"]), _t(p["hi"]))
+
+
+def terms(spec):
+    """The case's g, or (g, h) with an ``"h"`` (Davis-Yin), or (g, h, K)
+    with a ``"K"`` too (Condat-Vũ, K = FirstDifference)."""
+    from ciao_tpu_torch.ops.linmap import FirstDifference
+
+    g = prox(spec)
+    if "h" not in spec:
+        return g
+    if "K" not in spec:
+        return g, prox(spec, "h")
+    return g, prox(spec, "h"), FirstDifference()
 
 
 def _np(v):
@@ -107,7 +124,7 @@ def build(mesh, spec):
     fields."""
     N = spec["cfg"]["N"]
     F = parallel.shard_finite_sum(oracle(spec), mesh, N)
-    g = prox(spec)
+    g = terms(spec)
     cfg = tdp.DPCfg(**spec["cfg"])
     init, step, run, rebase = parallel.build_dp_functions(
         spec["family"], mesh, F, g, cfg)
@@ -120,12 +137,14 @@ def build(mesh, spec):
               *spec.get("extra", ()))
     starts, idx = _sched(spec, "starts", mesh.rank), _sched(spec, "idx",
                                                            mesh.rank)
+    coins = _sched(spec, "coins", mesh.rank)
     if spec.get("stepwise"):
         for t in range(spec["steps"]):
             st = step(st, None if starts is None else starts[t],
-                      None if idx is None else idx[t])
+                      None if idx is None else idx[t],
+                      None if coins is None else bool(coins[t]))
     else:
-        st = run(st, spec["steps"], starts=starts, idx=idx)
+        st = run(st, spec["steps"], starts=starts, idx=idx, coins=coins)
     if spec.get("rebase"):
         st = rebase(st)
     return fields(st)
@@ -139,11 +158,12 @@ def run_vs_step(mesh, spec):
     F = parallel.shard_finite_sum(oracle(spec), mesh, N)
     cfg = tdp.DPCfg(**spec["cfg"])
     init, step, run, _ = parallel.build_dp_functions(
-        spec["family"], mesh, F, prox(spec), cfg)
+        spec["family"], mesh, F, terms(spec), cfg)
     gamma = _t(spec["gamma"])
     if gamma.dim() == 1:
         gamma = gamma[slice(*mesh.rows(N))].contiguous()
-    st0 = init(_t(spec["x0"]), gamma, spec.get("seed", 0))
+    st0 = init(_t(spec["x0"]), gamma, spec.get("seed", 0),
+               *spec.get("extra", ()))
     a = run(st0, spec["steps"])
     b = st0
     for _ in range(spec["steps"]):
@@ -157,12 +177,20 @@ def _solver(mesh, spec):
 
 
 def _call_args(mesh, spec):
-    F = oracle(spec)
-    if spec.get("shard", True):
+    """The facade call's keywords: F (None without an ``"oracle"``), g,
+    L, N, and h and K where the case has them."""
+    F = oracle(spec) if spec.get("oracle") is not None else None
+    if F is not None and spec.get("shard", True):
         F = parallel.shard_finite_sum(F, mesh, spec.get("N"))
     L = spec.get("L")
-    return dict(F=F, g=prox(spec), L=None if L is None else _t(L),
-                N=spec.get("N"))
+    kw = dict(F=F, g=prox(spec), L=None if L is None else _t(L),
+              N=spec.get("N"))
+    t = terms(spec)
+    if isinstance(t, tuple):
+        kw["h"] = t[1]
+        if len(t) == 3:
+            kw["K"] = t[2]
+    return kw
 
 
 def facade(mesh, spec):
@@ -314,10 +342,86 @@ def single_round(mesh, spec):
     return dict(dp=fields(dp), single=fields(sc))
 
 
+def solo(mesh, spec):
+    """Facade calls on rank 0 alone, a mesh of one rank (D = 1), with
+    no collective between processes; the other ranks return []. Every
+    rank makes every group, as ``new_group`` needs."""
+    groups = [dist.new_group([r]) for r in range(mesh.size)]
+    if mesh.rank:
+        return []
+    one = parallel.make_mesh(group=groups[0], device="cpu")
+    return {name: facade(one, dict(spec, **call))
+            for name, call in spec["calls"].items()}
+
+
+def rebase_vr(mesh, spec):
+    """``steps`` steps of the family on the int8 rows, then the f32
+    rows' rebase: the state's fields before and after, and the exact
+    table mean or anchor gradient, from the whole f32 oracle on this
+    rank, at the state's anchor point (``anchor``, or the table ``c``)."""
+    N = spec["cfg"]["N"]
+    whole = oracle(spec)
+    cfg = tdp.DPCfg(**spec["cfg"])
+    g = prox(spec)
+    fns = {k: parallel.build_dp_functions(
+        spec["family"], mesh, parallel.shard_finite_sum(F, mesh, N), g, cfg)
+        for k, F in (("int8", whole.with_storage("int8")), ("f32", whole))}
+    init, _, run, _ = fns["int8"]
+    st = run(init(_t(spec["x0"]), _t(spec["gamma"]), spec["seed"],
+                  *spec.get("extra", ())), spec["steps"])
+    rb = fns["f32"][3](st)
+    anchor = spec.get("anchor")
+    if anchor is not None:
+        want = whole.grad_sum_all(getattr(st, anchor)) / N
+    else:
+        c = torch.zeros(N, dtype=st.c.dtype)
+        c[slice(*mesh.rows(N))] = st.c
+        c = tdp._psum(mesh, c)
+        want = whole.apply_all(c) / N
+    return dict(before=fields(st), after=fields(rb), want=_np(want))
+
+
+def panoc_trials(mesh, spec):
+    """A DPPANOC/DPZeroFPR facade call with every FBE evaluation counted
+    on this rank: ``x``, the evaluations, the last state's thrash
+    gauge."""
+    from ciao_tpu_torch.solvers import panoc
+
+    evals = [0]
+    inner = panoc._eval_fbe
+
+    def counted(*a, **k):
+        evals[0] += 1
+        return inner(*a, **k)
+
+    panoc._eval_fbe = counted
+    try:
+        solver = _solver(mesh, spec)
+        kw = _call_args(mesh, spec)
+        st = list(itertools.islice(solver.iterator(_t(spec["x0"]), **kw),
+                                   spec["take"]))[-1]
+    finally:
+        panoc._eval_fbe = inner
+    return dict(evals=evals[0], ls_ewma=_np(st.ls_ewma), x=_np(st.x),
+                it=st.it)
+
+
+def deep_pd(mesh, spec):
+    """``deep_solve_pd_dp`` on the case's problem."""
+    kw = _call_args(mesh, spec)
+    x, info = parallel.deep_solve_pd_dp(
+        _t(spec["x0"]), kw["F"], h=kw["h"], K=kw["K"], N=spec["N"],
+        mesh=mesh, **spec["kw"])
+    return dict(x=_np(x), refined=info.refined, certified=info.certified,
+                steps=info.steps, lam_hat=info.lam_hat)
+
+
 RUNNERS = dict(build=build, facade=facade, errors=errors, layout=layout,
                rebase_resume=rebase_resume, deep=deep, power=power,
                mesh_info=mesh_info, schedules=schedules,
-               single_round=single_round, run_vs_step=run_vs_step)
+               single_round=single_round, run_vs_step=run_vs_step,
+               solo=solo, rebase_vr=rebase_vr, panoc_trials=panoc_trials,
+               deep_pd=deep_pd)
 
 
 # ---------------------------------------------------------------------------
