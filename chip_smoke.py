@@ -221,7 +221,7 @@ Phases, one line each:
      headline, ragged N and widths that are not whole 16-byte chunks,
      bit-for-bit repeats, c and gsum equal to kernel #6's; kernel #6's
      output bit for bit its pinned digests;
-  4u. PANOC/ZeroFPR at the headline (128 steps each): kernel #7 launched once
+  4u. PANOC/ZeroFPR at the headline (64 steps each): kernel #7 launched once
      per FBE evaluation and nothing else, ms per step, evaluations per step,
      a profiled window's idle share;
   4v. the ``PANOC`` and ``ZeroFPR`` facades on the planted Lasso: cost − f*
@@ -250,7 +250,7 @@ Phases, one line each:
      a round, at most 8,192: each leg refined and certified, rel <= 1e-6
      from the difference-form gap, the three-term leg's planted zeros
      exactly zero; seconds split into the Condat-Vũ rounds and the
-     refinement, ms a step, and a profiled window of 64 steps (idle share,
+     refinement, ms a step, and a profiled window of 8 steps (idle share,
      device launches a step);
   4z. complex rows and iterates (PyTorch ops; no kernel launches, by
      design, as the JAX package sends a complex iterate past every kernel
@@ -321,6 +321,23 @@ Phases, one line each:
      kernels launched); ``deep_solve_pd_dp`` on 4y's fused-lasso plant,
      certified to rel <= 1e-6, its seconds beside 4y's ``deep_solve_pd``;
      the launches of the DP path counted (the comparison runs excluded);
+  4tp. the tensor-parallel path (``make_mesh_2d`` and the TP facades; no
+     kernel by design, none of the 19 launched): (a) one rank over NCCL on
+     a (1, 1) mesh at the headline: TPSAGA and SAG, TPFinito sweep 3 (f32
+     and int8), TPLFinito, TPSVRG at m = N/B and SVRG++, TPFISTA (f32),
+     each's first steps held to the single card's plain path on the same
+     schedule within 1e-6, ms a step beside the single card's stepwise
+     step, all-reduces a step, launches a step and the idle share of a
+     profiled window; TPProshi on 4j's 65,536 x 128 sharing plant;
+     ``deep_solve_tp`` on deep_accuracy.py's 1,048,576 x 128 problem to rel
+     <= 1e-6 beside 4dp's ``deep_solve_dp`` seconds; (b) two ranks on the
+     one card over gloo: on a (1, 2) mesh (262,144 x 512 of the headline's
+     rows a rank) TPSAGA (f32, int8), TPFinito, TPSVRG, TPFISTA and
+     TPProshi, each rank's shards held within 1e-5 to (a)'s state of the
+     same data and schedule and the fields whole on every rank bit for bit
+     across the ranks, ``deep_solve_tp`` on 131,072 x 128 to rel <= 1e-6
+     with x bit for bit on both; on a (2, 1) mesh TPFISTA held to (a)'s and
+     TPSAGA's z and av bit for bit across the ranks;
   11. times: kernel #7 per pass at the headline in turns with its plain
      version and kernel #6, its bound, the read ceiling and the two-gemv +
      value yardstick, and the same at the deep target's shape.
@@ -344,6 +361,7 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 # the bench.py headline
 N, n, B, LAM = 262_144, 1_024, 4_096, 0.1
@@ -512,6 +530,9 @@ STATE_TOL = {False: 1e-5, True: 1e-4}
 
 
 def log(msg: str) -> None:
+    """Print a line; a phase's line ends with the script's seconds so far."""
+    if msg.startswith("phase "):
+        msg += f" (at {time.perf_counter() - T_START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -3298,11 +3319,12 @@ NEW_SMALL = dict(N=8_192, n=128, B=128, K=64, f=23)
 # bench.py's timed runs
 NEW_STEPS = MAIN_STEPS
 NEW_DEEP_STEPS = 2 * (DEEP["N"] // DEEP["B"])
-# the facades on the facades' planted Lasso (FACADE), batch 1,024, 4,096
-# steps (64 epochs), default τ, η and γ: the fall of SSNM's (NormL1) cost −
-# f* and of PointSAGA's (g = None) mean gradient must agree to three digits
-# with a run of the same seed and schedule on the host's CPU
-NEW_FACADE = dict(batch=1_024, maxit=4_097)
+# the facades on the facades' planted Lasso (FACADE), batch 1,024, 1,024
+# steps (16 epochs; cut from 4,096, whose CPU runs took ~48 s), default τ,
+# η and γ: the fall of SSNM's (NormL1) cost − f* and of PointSAGA's (g =
+# None) mean gradient must agree to three digits with a run of the same
+# seed and schedule on the host's CPU
+NEW_FACADE = dict(batch=1_024, maxit=1_025)
 # deep_solve on logistic rows at tests/test_deep.py's shape (2,048 x 32,
 # NormL1(0.05), batch 256): rel against the f64 optimum, bar 1e-6. The
 # labels follow a planted direction, sign(A·w/√n + noise): with labels
@@ -3992,8 +4014,9 @@ def time_new(r: dict, kind: str, gen, dev, tag: str, card: str) -> dict:
 
 # bench.py's PANOC configurations at the headline (:745-754, :838-848):
 # ZeroFPR fused at f32, bf16 and int8 rows and PANOC fused with adaptive γ
-# off and on, 128 steps each from x0 = 0, γ = 0.95/mean(L), σ = 0.5·0.05/(2γ)
-PANOC_STEPS = 128
+# off and on, 64 steps each (cut from 128 for the script's time limit) from
+# x0 = 0, γ = 0.95/mean(L), σ = 0.5·0.05/(2γ)
+PANOC_STEPS = 64
 # the Davis-Yin and Condat-Vũ configurations (:850-903): 600 steps each
 SPLIT_STEPS = 600
 DENSE_MAPS = (1_024, 8_192)
@@ -4707,7 +4730,7 @@ def run_sparse_full(dev, seed: int, card: str) -> dict:
 # most 8,192 steps; a window of PD_PROFILE_STEPS compensated steps profiled
 PD_DEEP = dict(N=262_144, n=1_024, jumps=16, chunk=4_096, chunk_steps=256,
                max_steps=8_192)
-PD_PROFILE_STEPS = 64
+PD_PROFILE_STEPS = 8
 PD_GROUPS = {"products": ("gemv", "gemm", "xmma", "cutlass", "dot_kernel",
                           "splitK"),
              "reductions": ("reduce_kernel",)}
@@ -4909,8 +4932,8 @@ def run_pd_leg(dev, seed: int, three: bool, card: str) -> dict:
 # block; then CustomOracle and Precompose on the card (WELSCH, PRECOMPOSE)
 COMPLEX = dict(N=262_144, n=1_024, p=16, B=4_096, lam=1.0, rho=10.0,
                power_iters=30, chunk=8, max_chunks=64, rel=1e-3)
-COMPLEX_RUNS = dict(saga=64, svrg=1, finito=64, katyusha=1, sarah=1,
-                    lsvrg=64, point_saga=64, panoc=4, condat_vu=16)
+COMPLEX_RUNS = dict(saga=16, svrg=1, finito=16, katyusha=1, sarah=1,
+                    lsvrg=16, point_saga=16, panoc=4, condat_vu=16)
 COMPLEX_TV = 0.05  # Condat-Vũ's h = 0.05‖D·‖₁, as 4w
 WELSCH = dict(N=256, n=16, frac=0.2, sigma=1.0)  # tests/test_nonconvex.py
 PRECOMPOSE = dict(N=4_096, n=64)
@@ -6623,6 +6646,547 @@ def run_dp(dev, gen, seed: int, card: str) -> dict:
                 s_b=time.perf_counter() - t_b, s=time.perf_counter() - t0)
 
 
+# 4tp: the tensor-parallel path (no kernel by design: JAX's TP steps run the
+# oracle's margin protocol outside any Pallas kernel). (a) one NCCL rank, a
+# (1, 1) mesh, at the headline (B = 4,096): TPSAGA and SAG (f32, int8),
+# TPFinito sweep 3 (f32, int8), TPLFinito, TPSVRG at m = N/B and SVRG++ and
+# TPFISTA (f32), each's first steps held to the single card's plain path on
+# the same schedule, a run timed beside the single card's stepwise run and a
+# profiled window; TPProshi on 4j's 65,536 x 128 sharing plant;
+# deep_solve_tp on deep_accuracy's 1,048,576 x 128 plant. (b) two gloo ranks
+# on the one card, (1, 2) and (2, 1) meshes, held to (a)'s runs of the same
+# data and schedule.
+TP_A = dict(check=8, steps=128, profile=16, lfinito=2, svrg=2, fista=32,
+            fista_profile=8)
+TP_PROSHI = dict(batch=512, sweeping=2, steps=256, profile=16)
+# deep_solve_tp takes γ = 10/(3·L_max) (its default 1/(3·L_max) ran all 16
+# chunks of 1,024 stepwise TPSAGA steps, 24.14 s on an H100 at 700 W; 8
+# chunks of 256 at 10x on the CPU)
+TP_DEEP = dict(N=1_048_576, n=128, p=16, B=8_192, chunk_steps=256,
+               max_steps=4_096, plateau_rtol=1e-4, gamma_x=10.0)
+# (b)'s deep_solve_tp takes γ = 10/(3·L_max): at the default 1/(3·L_max) of
+# the row moduli this plant needs ~16,000 TPSAGA steps (a block of 4,096
+# rows curves far less than L_max), 1,800 at 10x (CPU, f32)
+TP_TWO = dict(ranks=2, steps=32, svrg_m=32, fista=16, proshi=32,
+              deep_N=131_072, deep_B=4_096, deep_chunk=256, deep_max=4_096,
+              deep_gamma_x=10.0)
+# the first TP steps against the single card's plain path, and each rank's
+# shard in (b) against (a)'s state, relative to the largest entry
+TP_FIRST_TOL = 1e-6
+TP_TWO_TOL = 1e-5
+TP_GROUPS = {"all-reduce": ("nccl", "AllReduce", "allreduce"),
+             "copies": ("Memcpy", "memcpy", "Memset")}
+# the cut of each TP state field: the axes of its dimensions
+TP_CUT = {"z": ("model",), "av": ("model",), "z_full": ("model",),
+          "w": ("model",), "x": ("model",), "y": ("model",),
+          "zb": ("data", "model"), "s": ("data",), "c": ("data",),
+          "invg": ("data",), "gamma": ("data",)}
+# ProShI's table holds the blocks' coordinates
+TP_CUT_PROSHI = dict(TP_CUT, s=("data", "model"))
+
+
+def tp_reductions():
+    """A counter of the TP path's all-reduces: (counts, restore), the
+    module's ``_allreduce`` wrapped until ``restore()``."""
+    from ciao_tpu_torch.parallel import tp
+
+    calls = [0]
+    inner = tp._allreduce
+
+    def counted(group, x):
+        calls[0] += 1
+        return inner(group, x)
+
+    tp._allreduce = counted
+
+    def restore():
+        tp._allreduce = inner
+
+    return calls, restore
+
+
+def tp_case(tag: str, solver, F, g, L, x0, single, sched, fields, T: int,
+            P: int, unit: str, card: str) -> dict:
+    """One family of (a): the facade's init and run on the (1, 1) mesh;
+    its first steps on ``sched`` held to the single card's plain path on
+    the same schedule (``single``: (init(TP init state), run(state, steps,
+    sched or None))); T steps timed beside the single card's T stepwise
+    steps; the all-reduces a step; a profiled window of P steps (device
+    launches a step, idle share)."""
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+
+    _, _, _, init, _, run, _ = solver._setup(x0, F, g, L, None)
+    st0 = init()
+    s_init, s_run = single
+    k = len(sched) if sched is not None else TP_A["check"]
+    first = run(st0, k, starts=sched)
+    s0 = s_init(st0)
+    s1 = s_run(s0, k, sched)
+    err = max(rel_gap(getattr(first, f), getattr(s1, f)) for f in fields)
+    if not err <= TP_FIRST_TOL:
+        raise AssertionError(f"4tp (a) {tag}: the first {k} {unit}s are "
+                             f"{err:.3e} off the single card's plain path on "
+                             f"their schedule (> {TP_FIRST_TOL})")
+    run(st0, 1)
+    calls, restore = tp_reductions()
+    try:
+        st, dt = timed(lambda: run(st0, T))
+    finally:
+        restore()
+    s_run(s0, 1, None)
+    _, dt1 = timed(lambda: s_run(s0, T, None))
+    sol = st.solution
+    if not bool(torch.isfinite(sol).all()):
+        raise AssertionError(f"4tp (a) {tag}: a non-finite iterate")
+    prof = profile_steps(f"4tp (a) {tag}", lambda: run(st0, P), P, card,
+                         TP_GROUPS, unit=unit)
+    out = dict(ms=dt * 1e3 / T, single_ms=dt1 * 1e3 / T, err=err,
+               reductions=calls[0] / T, steps=T,
+               launches=sum(prof["calls"].values()) / P,
+               idle=1.0 - prof["busy"] / prof["step"], unit=unit)
+    if isinstance(F, LeastSquaresRows):
+        out["cost"] = (cost(F, g, x0), cost(F, g, sol))
+        if not out["cost"][1] < out["cost"][0]:
+            raise AssertionError(f"4tp (a) {tag}: cost {out['cost']}")
+    return out
+
+
+def tp_headline(mesh, dev, seed: int, card: str) -> dict:
+    """(a) at the headline: each family of the TP path beside the single
+    card's plain path (f32, and int8 for SAGA, SAG and Finito)."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.parallel import dp as tdp
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.sampling import _permutation
+    from ciao_tpu_torch.solvers import fb as sfb
+    from ciao_tpu_torch.solvers import finito as sfin
+    from ciao_tpu_torch.solvers import saga as ssaga
+    from ciao_tpu_torch.solvers import svrg as ssvrg
+    from ciao_tpu_torch.solvers.svrg import _outer_seed
+
+    g = NormL1(torch.tensor(LAM, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    K, T, P = TP_A["check"], TP_A["steps"], TP_A["profile"]
+    d = N // B
+
+    def blocks(sweeping, k=K):
+        return tdp._local_round_starts(seed, 1, N, B, k, sweeping, 0, "cpu")
+
+    def as_blocks(sched):
+        return None if sched is None else torch.stack(
+            [torch.as_tensor(s) for s in sched]) // B
+
+    out = {}
+    for storage in ("f32", "int8"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 6_000)
+        F, _, L = lasso(gen, dev, N, n, storage)
+        gam_i = (0.999 * N / L).float()
+        for sag in (False, True):
+            scfg = ssaga.SAGACfg(N=N, sag=sag, batch=B, block=True,
+                                 coeff=True)
+            out[("TPSAG" if sag else "TPSAGA", storage)] = tp_case(
+                f"{'TPSAG' if sag else 'TPSAGA'} {storage}",
+                parallel.TPSAGA(mesh=mesh, batch=B, SAG_flag=sag, seed=seed),
+                F, g, L, x0,
+                (lambda st, scfg=scfg: ssaga.saga_init(F, g, x0, st.gamma,
+                                                       seed, scfg),
+                 lambda s, k, sch, scfg=scfg: ssaga.saga_run(
+                     F, g, s, scfg, k, starts=None if sch is None else
+                     torch.tensor(sch, dtype=torch.int32, device=dev))),
+                blocks(1).tolist(), ("z", "av", "s"), T, P, "step", card)
+        fcfg = sfin.FinitoCfg(N=N, batch=B, sweeping=3, alpha=0.999)
+        out[("TPFinito", storage)] = tp_case(
+            f"TPFinito sweep 3 {storage}",
+            parallel.TPFinito(mesh=mesh, batch=B, sweeping=3, seed=seed),
+            F, g, L, x0,
+            (lambda st: sfin.finito_coeff_init(F, g, x0, gam_i, seed, fcfg),
+             lambda s, k, sch: sfin.finito_run(
+                 F, g, s, fcfg, "basic_coeff", k, blocks=None if sch is None
+                 else torch.tensor(sch) // B)),
+            blocks(3).tolist(), ("z", "av", "c"), T, P, "step", card)
+        if storage == "int8":
+            break
+        orders = [_permutation(tdp._rank_seed(seed, 0), 1, d, "cpu").long()
+                  * B]
+        out[("TPLFinito", storage)] = tp_case(
+            f"TPLFinito sweep 3 {storage}",
+            parallel.TPLFinito(mesh=mesh, batch=B, sweeping=3, seed=seed),
+            F, g, L, x0,
+            (lambda st: sfin.lfinito_init(F, g, x0, gam_i, seed, fcfg),
+             lambda s, k, sch: sfin.finito_run(
+                 F, g, s, fcfg, "lfinito", k, blocks=as_blocks(sch))),
+            orders, ("z", "av", "z_full"), TP_A["lfinito"], 1, "epoch", card)
+        for plus in (False, True):
+            vcfg = ssvrg.SVRGCfg(N=N, plus=plus, batch=B, block=True)
+            inner = [tdp._local_round_starts(_outer_seed(seed, it), 1, N, B,
+                                             d * 2 ** (it - 1) if plus else d,
+                                             1, 0, "cpu") for it in (1,)]
+            tag = "TPSVRG++" if plus else "TPSVRG"
+            out[(tag, storage)] = tp_case(
+                f"{tag} m = {d} {storage}",
+                parallel.TPSVRG(mesh=mesh, batch=B, m=d, plus=plus,
+                                seed=seed), F, g, L, x0,
+                (lambda st, vcfg=vcfg: ssvrg.svrg_init(
+                    F, g, x0, st.gamma, d, seed, vcfg),
+                 lambda s, k, sch, vcfg=vcfg: ssvrg.svrg_run(
+                     F, g, s, vcfg, k, starts=None if sch is None else
+                     [t.to(dev, torch.int32) for t in sch])),
+                inner, ("z_full", "w", "av"), TP_A["svrg"], 1, "outer step",
+                card)
+        bcfg = sfb.FBCfg(N=N, fast=True)
+        out[("TPFISTA", storage)] = tp_case(
+            f"TPFISTA {storage}", parallel.TPFISTA(mesh=mesh), F, g, L, x0,
+            (lambda st: sfb.fb_init(F, g, x0, st.gamma, bcfg),
+             lambda s, k, sch: sfb.fb_run(F, g, s, bcfg, k)),
+            None, ("x", "y"), TP_A["fista"], TP_A["fista_profile"], "step",
+            card)
+        del F
+        torch.cuda.empty_cache()
+    out[("TPProshi", "f32")] = tp_proshi_one_rank(mesh, dev, seed, card)
+    for (tag, storage), v in out.items():
+        a = "an" if v["unit"][0] in "aeiou" else "a"
+        log(f"  4tp (a) {tag} {storage}, one rank over NCCL: {v['ms']:.4f} "
+            f"ms {a} {v['unit']} ({v['steps']} {v['unit']}s), single card's "
+            f"plain path {v['single_ms']:.4f} ({v['ms'] / v['single_ms']:.3f}"
+            f"x), {v['reductions']:.2f} all-reduces {a} {v['unit']}, "
+            f"{v['launches']:.1f} device launches {a} {v['unit']}, idle "
+            f"{v['idle']:.3f}; first {v['unit']}s vs the single card "
+            f"{v['err']:.3e}"
+            + (f"; cost {v['cost'][0]:.6e} -> {v['cost'][1]:.6e}"
+               if "cost" in v else "") + f" [{card}]")
+    return out
+
+
+def tp_sharing(dev, N_: int, n_: int):
+    """4j's planted sharing problem on the card: (F, g, L, prob)."""
+    from ciao_tpu_torch import DiagQuadratic
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.utils.problems import make_sharing_planted
+
+    prob = make_sharing_planted(N=N_, n=n_, p=SHARING_DEEP["p"], seed=0)
+    F = DiagQuadratic(torch.tensor(prob.d, dtype=torch.float32, device=dev),
+                      torch.tensor(prob.q, dtype=torch.float32, device=dev))
+    g = NormL1(torch.tensor(prob.lam, dtype=torch.float32, device=dev))
+    return F, g, torch.tensor(prob.L, dtype=torch.float32, device=dev), prob
+
+
+def tp_proshi_one_rank(mesh, dev, seed: int, card: str) -> dict:
+    """TPProshi (cyclic) on 4j's 65,536 x 128 sharing plant beside the
+    single card's stepwise ProShI."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.parallel import dp as tdp
+    from ciao_tpu_torch.solvers import proshi as sprox
+
+    c = SHARING_DEEP
+    F, g, L, _ = tp_sharing(dev, c["N"], c["n"])
+    x0 = torch.zeros(c["n"], device=dev)
+    Bp, sw = TP_PROSHI["batch"], TP_PROSHI["sweeping"]
+    pcfg = sprox.ProshiCfg(N=c["N"], batch=Bp, sweeping=sw, alpha=0.999)
+    gam = 0.999 * c["N"] / L
+    sched = tdp._local_round_starts(seed, 1, c["N"], Bp, TP_A["check"], sw,
+                                    0, "cpu").tolist()
+    return tp_case(
+        f"TPProshi on the {c['N']} x {c['n']} sharing plant, batch {Bp}",
+        parallel.TPProshi(mesh=mesh, batch=Bp, sweeping=sw, seed=seed),
+        F, g, L, x0,
+        (lambda st: sprox.proshi_init(F, g, x0, gam, seed, pcfg),
+         lambda s, k, sch: sprox.proshi_run(
+             F, g, s, pcfg, k, blocks=None if sch is None
+             else torch.tensor(sch) // Bp)),
+        sched, ("s", "av", "z"), TP_PROSHI["steps"], TP_PROSHI["profile"],
+        "step", card)
+
+
+def tp_deep_one_rank(mesh, dev, card: str, dp_s: float) -> dict:
+    """deep_solve_tp on deep_accuracy.py's planted problem (1,048,576 x
+    128, B = 8,192) to rel <= 1e-6, beside 4dp (a)'s deep_solve_dp."""
+    import numpy as np
+
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.utils.problems import make_lasso
+
+    P = TP_DEEP
+    prob = make_lasso(N=P["N"], n=P["n"], p=P["p"], seed=0, dtype=np.float32,
+                      well_conditioned=True)
+    F = LeastSquaresRows(torch.tensor(prob.A, device=dev),
+                         torch.tensor(prob.b, device=dev), float(P["N"]))
+    g = NormL1(float(prob.lam))
+    (x, info), dt = timed(lambda: parallel.deep_solve_tp(
+        torch.zeros(P["n"], device=dev), F, g, L=prob.L, N=P["N"],
+        mesh=mesh, batch=P["B"], chunk_steps=P["chunk_steps"],
+        max_steps=P["max_steps"], plateau_rtol=P["plateau_rtol"],
+        gamma=P["gamma_x"] / (3.0 * float(prob.L.max()))))
+    rel = (prob.cost(x.double().cpu().numpy()) - prob.f_star) / abs(
+        prob.f_star)
+    if not (math.isfinite(rel) and rel <= DEEP_REL):
+        raise AssertionError(f"4tp deep_solve_tp: rel {rel:.3e} > {DEEP_REL}")
+    log(f"  4tp (a) deep_solve_tp, one rank, {P['N']} x {P['n']} at B = "
+        f"{P['B']}, gamma {P['gamma_x']:g}/(3 L_max): rel {rel:.3e} in "
+        f"{dt:.2f} s ({len(info.staged.objectives)}"
+        f" chunks of {P['chunk_steps']} TPSAGA steps, {info.polish_steps} "
+        f"polish steps, lambda_max {info.lmax:.4e}); 4dp (a)'s "
+        f"deep_solve_dp {dp_s:.2f} s [{card}]")
+    return dict(rel=rel, s=dt)
+
+
+def tp_two_rank_runs(mesh, dev, seed: int) -> dict:
+    """(b)'s runs on one mesh (and (a)'s reference of them on the (1, 1)
+    mesh): TP_TWO['steps'] steps of TPSAGA (f32, int8) and TPFinito, an
+    outer step of TPSVRG at m = TP_TWO['svrg_m'], TP_TWO['fista'] TPFISTA
+    steps on the headline's rows, TPProshi on 4j's sharing plant; each
+    state's fields (the rank's shards) on the host. At D = 1 every mesh
+    draws data row 0's schedule, the (1, 1) mesh's."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.prox import NormL1
+
+    T = TP_TWO
+    g = NormL1(torch.tensor(LAM, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    out = {}
+
+    def fields(st):
+        return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                for k, v in st._asdict().items()}
+
+    def one(tag, solver, F, gg, L, xx, steps):
+        _, _, _, init, _, run, _ = solver._setup(xx, F, gg, L, None)
+        out[tag] = fields(run(init(), steps))
+
+    for storage in ("f32", "int8"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 6_000)
+        F, _, L = lasso(gen, dev, N, n, storage)
+        Fp = parallel.shard_finite_sum_2d(F, mesh)
+        del F  # the rank keeps only its block
+        torch.cuda.empty_cache()
+        if storage == "f32":
+            out["held"] = dict(rows=Fp.A.untyped_storage().nbytes(),
+                               allocated=torch.cuda.memory_allocated(dev))
+        one(f"TPSAGA {storage}", parallel.TPSAGA(mesh=mesh, batch=B,
+                                                 seed=seed),
+            Fp, g, L, x0, T["steps"])
+        if storage == "int8":
+            break
+        one("TPFinito", parallel.TPFinito(mesh=mesh, batch=B, sweeping=3,
+                                          seed=seed), Fp, g, L, x0,
+            T["steps"])
+        one("TPSVRG", parallel.TPSVRG(mesh=mesh, batch=B, m=T["svrg_m"],
+                                      seed=seed), Fp, g, L, x0, 1)
+        one("TPFISTA", parallel.TPFISTA(mesh=mesh), Fp, g, L, x0, T["fista"])
+        del Fp
+    c = SHARING_DEEP
+    F, gs, L, _ = tp_sharing(dev, c["N"], c["n"])
+    one("TPProshi", parallel.TPProshi(mesh=mesh, batch=TP_PROSHI["batch"],
+                                      sweeping=TP_PROSHI["sweeping"],
+                                      seed=seed), F, gs, L,
+        torch.zeros(c["n"], device=dev), T["proshi"])
+    return out
+
+
+def tp_deep_two(mesh, dev) -> dict:
+    """deep_solve_tp on a 131,072 x 128 planted Lasso: rel and the whole
+    x."""
+    import numpy as np
+
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.utils.problems import make_lasso
+
+    T = TP_TWO
+    prob = make_lasso(N=T["deep_N"], n=128, p=16, seed=0, dtype=np.float32,
+                      well_conditioned=True)
+    F = LeastSquaresRows(torch.tensor(prob.A, device=dev),
+                         torch.tensor(prob.b, device=dev), float(T["deep_N"]))
+    x, info = parallel.deep_solve_tp(
+        torch.zeros(128, device=dev), F, NormL1(float(prob.lam)), L=prob.L,
+        N=T["deep_N"], mesh=mesh, batch=T["deep_B"],
+        chunk_steps=T["deep_chunk"], max_steps=T["deep_max"],
+        plateau_rtol=1e-4,
+        gamma=T["deep_gamma_x"] / (3.0 * float(prob.L.max())))
+    rel = (prob.cost(x.double().cpu().numpy()) - prob.f_star) / abs(
+        prob.f_star)
+    return dict(rel=rel, x=x.cpu(), chunks=len(info.staged.objectives))
+
+
+def tp_rank_main(rank: int, D: int, store: str, out_dir: str, seed: int):
+    """A rank process of (b): gloo over a FileStore, CUDA tensors on the
+    one card; the (1, 2) mesh's runs and deep_solve_tp, then the (2, 1)
+    mesh's TPSAGA and TPFISTA, written to out_dir."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ciao_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, D), rank=rank,
+                            world_size=D,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        wide = parallel.make_mesh_2d(1, D, device=dev)
+        tall = parallel.make_mesh_2d(D, 1, device=dev)
+        t0 = time.perf_counter()
+        out = dict(wide=tp_two_rank_runs(wide, dev, seed),
+                   deep=tp_deep_two(wide, dev), where=(wide.d, wide.m))
+        out["wide_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        out["tall"] = tall_runs(tall, dev, seed)
+        out["tall_where"] = (tall.d, tall.m)
+        torch.cuda.synchronize()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tall_runs(mesh, dev, seed: int) -> dict:
+    """The (2, 1) mesh's runs: TPSAGA (each data row its own draws) and
+    TPFISTA on the headline's rows, each rank its 131,072 rows."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.prox import NormL1
+
+    g = NormL1(torch.tensor(LAM, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 6_000)
+    F, _, L = lasso(gen, dev, N, n, "f32")
+    Fp = parallel.shard_finite_sum_2d(F, mesh)
+    del F
+    out = {}
+    for tag, solver, steps in (
+            ("TPSAGA", parallel.TPSAGA(mesh=mesh, batch=B // mesh.D,
+                                       seed=seed), TP_TWO["steps"]),
+            ("TPFISTA", parallel.TPFISTA(mesh=mesh), TP_TWO["fista"])):
+        _, _, _, init, _, run, _ = solver._setup(x0, Fp, g, L, None)
+        st = run(init(), steps)
+        out[tag] = {k: v.cpu() for k, v in st._asdict().items()
+                    if isinstance(v, torch.Tensor)}
+    return out
+
+
+def tp_part(v, where: tuple, axes: tuple, D: int, M: int):
+    """The rank (d, m)'s part of a whole (1, 1) field cut over ``axes``."""
+    for dim, axis in enumerate(axes if v.dim() else ()):
+        parts, at = (D, where[0]) if axis == "data" else (M, where[1])
+        k = v.shape[dim] // parts
+        v = v.narrow(dim, at * k, k)
+    return v
+
+
+def tp_two_ranks(ref: dict, seed: int, card: str) -> dict:
+    """(b): TP_TWO['ranks'] processes on the one card over gloo. (1, 2):
+    each rank's shards of each family held to the slice of (a)'s (1, 1)
+    state of the same data and schedule (``ref``), the fields that are
+    whole on every rank (the tables at D = 1, the scalars) bit for bit
+    across the ranks, deep_solve_tp's rel and x. (2, 1): TPFISTA held to
+    (a)'s, TPSAGA's replicated vectors bit for bit across the ranks."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    D = TP_TWO["ranks"]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(tp_rank_main,
+                           args=(D, os.path.join(tmp, "store"), tmp, seed),
+                           nprocs=D, join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(D)]
+    worst = {}
+    for fam, want in ref.items():
+        cut = TP_CUT_PROSHI if fam == "TPProshi" else TP_CUT
+        e = 0.0
+        for o in outs:
+            got = o["wide"][fam]
+            for f, v in got.items():
+                if not isinstance(v, torch.Tensor):
+                    continue
+                part = tp_part(want[f], o["where"], cut.get(f, ()), 1, D)
+                if part.shape != v.shape:
+                    raise AssertionError(f"4tp (b) {fam}: {f} of rank "
+                                         f"{o['where']} is {tuple(v.shape)}, "
+                                         f"not {tuple(part.shape)}")
+                e = max(e, rel_gap(v, part))
+                if "model" not in cut.get(f, ()) and not torch.equal(
+                        v, outs[0]["wide"][fam][f]):
+                    raise AssertionError(f"4tp (b) {fam}: {f} differs "
+                                         f"between the ranks")
+        if not e <= TP_TWO_TOL:
+            raise AssertionError(f"4tp (b) {fam}: a rank's shard is {e:.3e} "
+                                 f"off (a)'s state (> {TP_TWO_TOL})")
+        worst[fam] = e
+    deep = [o["deep"] for o in outs]
+    if not torch.equal(deep[0]["x"], deep[1]["x"]):
+        raise AssertionError("4tp (b) deep_solve_tp: x differs between the "
+                             "ranks")
+    if not (math.isfinite(deep[0]["rel"]) and deep[0]["rel"] <= DEEP_REL):
+        raise AssertionError(f"4tp (b) deep_solve_tp: rel {deep[0]['rel']}")
+    fista_ref = ref["TPFISTA"]["x"]
+    for o in outs:
+        tall = o["tall"]
+        e = rel_gap(tall["TPFISTA"]["x"], fista_ref)
+        if not e <= TP_TWO_TOL:
+            raise AssertionError(f"4tp (b) (2, 1) TPFISTA: {e:.3e} off (a)")
+        worst["TPFISTA (2, 1)"] = max(worst.get("TPFISTA (2, 1)", 0.0), e)
+        for f in ("z", "av"):
+            if not torch.equal(tall["TPSAGA"][f], outs[0]["tall"]["TPSAGA"][f]):
+                raise AssertionError(f"4tp (b) (2, 1) TPSAGA: {f} differs "
+                                     f"between the ranks")
+        if not bool(torch.isfinite(tall["TPSAGA"]["z"]).all()):
+            raise AssertionError("4tp (b) (2, 1) TPSAGA: a non-finite z")
+    held = outs[0]["wide"]["held"]
+    log(f"  4tp (b) {D} ranks on the one card over gloo (CUDA tensors): "
+        f"(1, {D}), each rank {N} x {n // D} of the headline's rows "
+        f"({held['rows'] / 2 ** 20:.1f} MiB, "
+        f"{held['allocated'] / 2 ** 20:.1f} MiB allocated after the cut), "
+        f"largest gap of a rank's shard to (a)'s state: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in worst.items())
+        + f"; the whole fields bit for bit across the ranks; deep_solve_tp "
+        f"{TP_TWO['deep_N']} x 128 at (1, {D}): rel {deep[0]['rel']:.3e} in "
+        f"{deep[0]['chunks']} chunks, x bit for bit on both ranks; (2, 1): "
+        f"TPSAGA's z and av bit for bit across the ranks; (1, {D}) runs "
+        f"{outs[0]['wide_s']:.2f} s, {wall:.2f} s with the spawn [{card}]")
+    return dict(worst=worst, deep_rel=deep[0]["rel"], s=wall)
+
+
+def run_tp(dev, seed: int, card: str, dp_deep_s: float) -> dict:
+    """Phase 4tp: (a) one rank over NCCL on a (1, 1) mesh, (b) two ranks on
+    the one card over gloo on (1, 2) and (2, 1) meshes."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ciao_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = parallel.make_mesh_2d(1, 1, device=dev)
+            head = tp_headline(mesh, dev, seed, card)
+            torch.cuda.empty_cache()
+            deep = tp_deep_one_rank(mesh, dev, card, dp_deep_s)
+            torch.cuda.empty_cache()
+            ref = tp_two_rank_runs(mesh, dev, seed)
+            ref.pop("held")
+        finally:
+            dist.destroy_process_group()
+    t_a = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    two = tp_two_ranks(ref, seed, card)
+    return dict(head=head, deep=deep, two=two, s_a=t_a,
+                s_b=time.perf_counter() - t0 - t_a,
+                s=time.perf_counter() - t0)
+
+
 KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
            "svrg_coeff_multistep", "coeff_apply_all",
            "finito_coeff_multistep", "finito_coeff_multistep_streamed",
@@ -7447,6 +8011,29 @@ def main() -> int:
         f"{pd['fused lasso']['rel']:.3e}); DP launches "
         + json.dumps(dp["launches"]) + f"; (a) {dp['s_a']:.2f} s, (c) "
         f"{dp['s_c']:.2f} s, (b) {dp['s_b']:.2f} s, all {dp['s']:.2f} s "
+        f"[{card}]")
+
+    # 4tp. the tensor-parallel path (no kernel by design): (a) one rank over
+    # NCCL on a (1, 1) mesh, (b) two ranks on the one card over gloo; counts
+    # from 0
+    reset_counts()
+    tpr = run_tp(dev, args.seed, card, dp["deep"]["s"])
+    c = counts()
+    if sum(c.values()):
+        raise AssertionError(f"the tensor-parallel path launched kernels: "
+                             f"{ {k: v for k, v in c.items() if v} }")
+    log(f"phase 4tp tensor-parallel path: ok, none of the {len(c)} kernels "
+        f"launched; " + "; ".join(
+            f"{tag} {s_} {v['ms']:.4f} ms per {v['unit']} (single card's "
+            f"plain path {v['single_ms']:.4f}), {v['reductions']:.2f} "
+            f"all-reduces and {v['launches']:.1f} launches per {v['unit']}, idle "
+            f"{v['idle']:.3f}, first {v['unit']}s {v['err']:.2e} off"
+            for (tag, s_), v in tpr["head"].items())
+        + f"; deep_solve_tp rel {tpr['deep']['rel']:.3e} in "
+        f"{tpr['deep']['s']:.2f} s (deep_solve_dp {dp['deep']['s']:.2f} s); "
+        f"(b) deep_solve_tp rel {tpr['two']['deep_rel']:.3e}, shards within "
+        f"{max(tpr['two']['worst'].values()):.2e} of (a); (a) "
+        f"{tpr['s_a']:.2f} s, (b) {tpr['s_b']:.2f} s, all {tpr['s']:.2f} s "
         f"[{card}]")
 
     # 11. kernel #7 per pass in turns with its plain version and kernel #6

@@ -74,7 +74,13 @@ def _arange(start, size: int, device):
 
 
 class SmoothOracle(nn.Module, metaclass=abc.ABCMeta):
-    """Protocol for a finite family ``{f_i}_{i=1..N}`` of smooth terms."""
+    """Protocol for a finite family ``{f_i}_{i=1..N}`` of smooth terms.
+
+    ``coordinate_separable``: whether every gradient is coordinatewise in
+    x (∂f_i/∂x_j depends on x_j alone), so that a block of columns is
+    exact on its own: the tensor-parallel ProShI needs it."""
+
+    coordinate_separable: bool = False
 
     @property
     @abc.abstractmethod

@@ -37,6 +37,10 @@ class SumOracle(SmoothOracle):
     def num_terms(self) -> int:
         return self.terms[0].num_terms
 
+    @property
+    def coordinate_separable(self) -> bool:
+        return all(t.coordinate_separable for t in self.terms)
+
     def _sum(self, name, *args):
         return sum(getattr(t, name)(*args) for t in self.terms)
 
@@ -85,6 +89,8 @@ class ZeroOracle(SmoothOracle):
     """f_i == 0 for all i: the reference's default F (Finito.jl:78),
     which the facades build for ``F=None``. ``example`` is JAX's field, a
     shape/dtype template for gradients, kept (as a buffer) and not read."""
+
+    coordinate_separable = True
 
     def __init__(self, n_terms: int, example=None):
         super().__init__()

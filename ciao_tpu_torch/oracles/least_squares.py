@@ -326,10 +326,10 @@ class LeastSquaresRows(PointProxRows, SmoothOracle):
     # ---- margin protocol: the row product A·x first, then the affine
     # part of the coefficient. The int8 per-row scale is applied to the
     # margin, never to the rows. The deep path uses margin_all,
-    # coeff_from_margin, value_sum_all and hess_weight_from_margin;
-    # margin_block and coeff_from_margin_all complete the protocol for
-    # the tensor-parallel solvers still to port (ROADMAP.md, queue 1
-    # item 18), whose partial margins are summed across devices ------
+    # coeff_from_margin, value_sum_all and hess_weight_from_margin; the
+    # tensor-parallel solvers (parallel/tp.py) take margin_block and
+    # margin_all on a block of columns, sum the partial margins over the
+    # mesh's "model" axis, and only then apply coeff_from_margin(_all) --
     def margin_block(self, x, start, size: int):
         return self._rows(self._slice(start, size)[0], x.dtype) @ x
 

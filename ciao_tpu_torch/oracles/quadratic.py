@@ -25,6 +25,8 @@ def _param(v):
 
 
 class DiagQuadratic(SmoothOracle):
+    coordinate_separable = True  # grad = d ⊙ x + q, coordinatewise
+
     def __init__(self, d, q):
         super().__init__()
         self.register_buffer("d", d)
@@ -99,6 +101,8 @@ class SqrDistBox(SmoothOracle):
     Smooth (gradient η·(x − proj_Box(x))): the soft box constraint of
     the sharing problem (test_sharing.jl:14-16). ``n_terms`` fixes the
     family size, since the data is shared by the terms."""
+
+    coordinate_separable = True  # grad = η·(x − clip(x)), coordinatewise
 
     def __init__(self, lo, hi, eta, n_terms: int = 1):
         super().__init__()

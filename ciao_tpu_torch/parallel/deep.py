@@ -1,9 +1,11 @@
-"""``deep_solve_dp`` and ``deep_solve_pd_dp``: the deep-accuracy
-endgames over a data mesh.
+"""``deep_solve_dp``, ``deep_solve_pd_dp`` and ``deep_solve_tp``: the
+deep-accuracy endgames over a data mesh and a (data, model) mesh.
 
-Counterpart of ``ciao_tpu/parallel/deep.py``'s ``deep_solve_dp`` and
+Counterpart of ``ciao_tpu/parallel/deep.py``'s ``deep_solve_dp``,
 ``deep_solve_pd_dp`` (:func:`deep_solve_pd_dp`, the primal-dual route,
-has its own note). ``deep_solve_dp`` is the
+has its own note) and ``deep_solve_tp`` (:func:`deep_solve_tp`, the same
+plan with the iterate cut over coordinates, has its own note).
+``deep_solve_dp`` is the
 single-card plan (:func:`ciao_tpu_torch.deep_solve`, stochastic stage to
 the f32 gradient floor, then compensated-gradient FISTA polish) built
 from the DP pieces:
@@ -143,6 +145,137 @@ def deep_solve_dp(
     pol = DPForwardBackward(mesh=mesh, maxit=polish_steps, fast=True,
                             gamma=eta, polish_chunk=pchunk)
     x, _ = pol(state.z, F=Fd, g=g, N=N)
+    if observe is not None:
+        observe(x)
+    return x, DeepSolveInfo(staged=sinfo, lmax=lmax, eta=eta,
+                            polish_steps=polish_steps, fp_res=[])
+
+
+def power_lmax_tp(mesh, F, x, seed: int, N: int, iters: int = 6,
+                  margin_slack=0.0):
+    """:func:`power_lmax_dp` on a (data, model) mesh, its collectives
+    written out as GSPMD places them for JAX: the margins summed over
+    "model", the back-projection over "data", the norm's square over
+    "model". ``F`` is the rank's block of a dense-rows margin oracle and
+    ``x`` its columns; the start vector is drawn whole from the seed and
+    cut to the rank's columns, so the bound does not depend on M. Three
+    all-reduces an iteration. Returns a 0-d tensor, the same on every
+    rank."""
+    from ciao_tpu_torch.parallel.tp import _psum_d, _psum_m
+
+    _require_wide_rows(F, "power_lmax_tp")
+    A, _ = F.coeff_rows_data()
+    runtime.require_exact_f32_matmul(A.device, "power_lmax_tp")
+    A = A.to(torch.promote_types(A.dtype, torch.float32))
+    w = F.hess_weight_from_margin(
+        _psum_m(mesh, A @ x.to(torch.float32).to(A.dtype)), margin_slack)
+    n_loc = A.shape[1]
+    lo = mesh.m * n_loc
+    v = _start_vector(n_loc * mesh.M, seed, A.device, A.dtype)[lo:lo + n_loc]
+    lam = None
+    for _ in range(iters):
+        hv = _psum_d(mesh, (w * _psum_m(mesh, A @ v)) @ A) / N
+        lam = torch.sqrt(_psum_m(mesh, torch.sum(hv * hv)))
+        v = hv / torch.clamp(lam, min=torch.finfo(hv.dtype).tiny)
+    return lam
+
+
+def deep_solve_tp(
+    x0,
+    F,
+    g=None,
+    L=None,
+    N: Optional[int] = None,
+    *,
+    mesh,
+    batch: int = 0,
+    chunk_steps: int = 2048,
+    plateau_rtol: float = 1e-5,
+    max_steps: int = 262_144,
+    gamma: Optional[float] = None,
+    polish_steps: int = 16,
+    polish_chunk: int = 32_768,
+    power_iters: int = 6,
+    eta_safety: float = 0.9,
+    margin_slack: float = 0.0,
+    seed: int = 0,
+    observe=None,
+) -> Tuple[torch.Tensor, DeepSolveInfo]:
+    """The deep-accuracy plan on a (data, model) mesh, the iterate itself
+    cut over coordinates (JAX's ``deep_solve_tp``):
+
+    1. :class:`~ciao_tpu_torch.parallel.TPSAGA` in chunks of
+       ``chunk_steps`` steps to the objective's plateau; the objective is
+       the margins summed over "model", the row values over "data" and
+       g's value over "model";
+    2. the curvature bound of :func:`power_lmax_tp`;
+    3. TP-FISTA with ``polish_chunk`` (``_largest_divisor_leq(N/D,
+       polish_chunk)``): each rank's compensated chunked gradient, its hi
+       and lo carries summed over "data" separately.
+
+    ``x0`` is the whole (n,) iterate; ``F`` a whole dense f32-rows oracle
+    or the rank's block (``shard_finite_sum_2d``); ``g`` separable;
+    ``batch`` the per-data-row block size (D by default, as JAX's).
+    ``observe`` sees the whole iterate, gathered over "model" (one
+    all-gather a chunk, made only when ``observe`` is given), as JAX's
+    sees its global array. Every rank returns the same whole ``(x,
+    DeepSolveInfo)``."""
+    from ciao_tpu_torch.parallel.mesh import Mesh2D
+    from ciao_tpu_torch.parallel.tp import (
+        TPCfg, TPSAGA, _num_terms, _psum_d, _psum_m, build_tp_functions,
+        gather_model,
+    )
+
+    if not isinstance(mesh, Mesh2D):
+        raise ValueError("deep_solve_tp needs a ('data','model') mesh")
+    N = _num_terms(F, N)
+    D = mesh.D
+    b = batch or D
+    solver = TPSAGA(mesh=mesh, batch=b, gamma=gamma, seed=seed)
+    _, Fd, g, init, _, run, _ = solver._setup(x0, F, g, L, N)
+    state = init()
+
+    def obj(z):
+        v = _psum_d(mesh, Fd.value_from_margin_all(
+            _psum_m(mesh, Fd.margin_all(z))))
+        return float(v / N + _psum_m(mesh, torch.as_tensor(
+            g.value(z), device=z.device)))
+
+    objs: List[float] = []
+    chunks = 0
+    prev = obj(state.z)
+    plateaued = False
+    while chunks * chunk_steps < max_steps:
+        state = run(state, chunk_steps)
+        cur = obj(state.z)
+        chunks += 1
+        objs.append(cur)
+        if observe is not None:
+            observe(gather_model(mesh, state.z))
+        if prev - cur < plateau_rtol * max(abs(prev), 1e-30):
+            plateaued = True
+            prev = cur
+            break
+        prev = cur
+
+    sinfo = StagedInfo(storages=["f32"],
+                       epochs=[chunks * chunk_steps * b // max(N, 1)],
+                       objectives=objs or [prev],
+                       switched_early=[plateaued])
+
+    lmax = float(power_lmax_tp(mesh, Fd, state.z, seed + 1, N,
+                               iters=power_iters, margin_slack=margin_slack))
+    eta = eta_safety / lmax
+    pchunk = _largest_divisor_leq(N // D, polish_chunk)
+    # the polish facade's loop: its init is iterate 1, then polish_steps − 1
+    # steps
+    p_init, _, p_run, _ = build_tp_functions(
+        "fb", mesh, Fd, g, TPCfg(N=N, D=D, M=mesh.M, fast=True,
+                                 polish_chunk=pchunk))
+    pol = p_run(p_init(state.z, torch.as_tensor(
+        eta, dtype=state.z.dtype.to_real(), device=state.z.device), 0),
+        polish_steps - 1)
+    x = gather_model(mesh, pol.x)
     if observe is not None:
         observe(x)
     return x, DeepSolveInfo(staged=sinfo, lmax=lmax, eta=eta,

@@ -1903,10 +1903,14 @@ class _DPRun:
         state, it = run_solver_loop(init, run, self._maxit, self.verbose,
                                     self.freq, disp, observe)
         self._after(state)
-        return state.solution, it
+        return self._result(state), it
 
     def _after(self, state):
         """A hook on the final state of ``__call__``."""
+
+    def _result(self, state):
+        """What ``__call__`` returns of the final state."""
+        return state.solution
 
     def iterator(self, x0, F=None, g=None, L=None, N=None):
         x0_orig = x0

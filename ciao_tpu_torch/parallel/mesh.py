@@ -13,8 +13,10 @@ group:
     leading N axis, rank r holding rows [r·N/D, (r+1)·N/D); the x-sized
     aggregates (``av``, the SVRG anchors, ProShI's coupling sum) are
     ``all_reduce`` sums over the group;
-  * axis ``"model"``: named for the tensor-parallel solvers still to
-    port (``make_mesh_2d`` comes with them).
+  * axis ``"model"``: the coordinate axis of the tensor-parallel solvers
+    (:func:`make_mesh_2d`): rank (d, m) of a (D, M) mesh holds rows
+    [d·N/D, (d+1)·N/D) and columns [m·n/M, (m+1)·n/M) of the rows, and
+    the x-sized vectors cut to its columns.
 
 Backends: NCCL for one process a GPU; gloo for the CPU, and for several
 processes on one GPU (NCCL refuses two ranks on one device), where it
@@ -57,6 +59,60 @@ class Mesh:
         n_loc = N // self.size
         return self.rank * n_loc, (self.rank + 1) * n_loc
 
+    def span(self, axis: str, size: int) -> tuple:
+        """This rank's part [lo, hi) of a dimension of ``size`` cut over
+        ``axis``."""
+        return self.rows(size)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """One rank's view of a (data, model) mesh of D·M ranks: rank r sits
+    at (d, m) = (r // M, r % M). ``data_group`` is the D ranks that share
+    m (the sums over samples), ``model_group`` the M ranks that share d
+    (the sums over coordinates); ``group`` holds all D·M. ``rank`` is
+    the rank's place in the mesh."""
+
+    group: Any
+    data_group: Any
+    model_group: Any
+    rank: int
+    D: int
+    M: int
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return self.D * self.M
+
+    @property
+    def d(self) -> int:
+        """The rank's data row: its block of samples."""
+        return self.rank // self.M
+
+    @property
+    def m(self) -> int:
+        """The rank's model column: its block of coordinates."""
+        return self.rank % self.M
+
+    @property
+    def shape(self) -> dict:
+        """``{"data": D, "model": M}``, as a JAX mesh's ``shape``."""
+        return {DATA_AXIS: self.D, MODEL_AXIS: self.M}
+
+    def rows(self, N: int) -> tuple:
+        """This rank's rows [lo, hi) of N."""
+        k = N // self.D
+        return self.d * k, (self.d + 1) * k
+
+    def cols(self, n: int) -> tuple:
+        """This rank's columns [lo, hi) of n."""
+        k = n // self.M
+        return self.m * k, (self.m + 1) * k
+
+    def span(self, axis: str, size: int) -> tuple:
+        return self.rows(size) if axis == DATA_AXIS else self.cols(size)
+
 
 def _mesh_device(device, rank: int) -> torch.device:
     """The rank's device: the one named, else card (local rank mod the
@@ -90,6 +146,42 @@ def make_mesh(n_data: Optional[int] = None, group=None,
             f"pass a group of {n_data} ranks (torch.distributed.new_group)")
     return Mesh(group=group, rank=rank, size=size,
                 device=_mesh_device(device, rank))
+
+
+def make_mesh_2d(n_data: int, n_model: int, ranks=None, device=None):
+    """A (data, model) mesh of n_data·n_model ranks, the counterpart of
+    JAX's ``make_mesh_2d(n_data, n_model, devices)``: ``ranks`` (global
+    ranks of the default process group) takes the place of ``devices``,
+    the first n_data·n_model by default. Every process of the default
+    group calls it, in the same order as its other group creations:
+    each creates every group (``torch.distributed.new_group``), as NCCL
+    and gloo need. A process outside ``ranks`` gets None."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "make_mesh_2d: no process group: start one process a rank and "
+            "call torch.distributed.init_process_group in each first")
+    D, M = int(n_data), int(n_model)
+    if D < 1 or M < 1:
+        raise ValueError(f"make_mesh_2d: n_data={n_data} and "
+                         f"n_model={n_model} must be at least 1")
+    world = dist.get_world_size()
+    ranks = list(range(D * M)) if ranks is None else [int(r) for r in ranks]
+    if len(ranks) != D * M or len(set(ranks)) != len(ranks) or not all(
+            0 <= r < world for r in ranks):
+        raise ValueError(
+            f"make_mesh_2d: a ({D}, {M}) mesh takes {D * M} distinct ranks "
+            f"of the {world} in the process group, not {ranks}")
+    whole = dist.new_group(ranks)
+    data = [dist.new_group([ranks[d * M + m] for d in range(D)])
+            for m in range(M)]
+    model = [dist.new_group(ranks[d * M:(d + 1) * M]) for d in range(D)]
+    me = dist.get_rank()
+    if me not in ranks:
+        return None
+    r = ranks.index(me)
+    return Mesh2D(group=whole, data_group=data[r % M],
+                  model_group=model[r // M], rank=r, D=D, M=M,
+                  device=_mesh_device(device, me))
 
 
 # ---------------------------------------------------------------------------
@@ -142,17 +234,23 @@ def replicated_specs(obj) -> dict:
     return {name: () for name, _ in _named_leaves(obj)}
 
 
-def _placed(t, spec, mesh: Mesh):
-    """``t`` placed by ``spec``: cut rows are copied, so the rank keeps
-    only its rows and the whole tensor can be freed; a whole leaf moves
-    to the mesh's device (no copy when it is there already)."""
-    if not spec:
+def _placed(t, spec, mesh):
+    """``t`` placed by ``spec``, one mesh axis or None a dimension: a cut
+    leaf is copied, so the rank keeps only its part and the whole tensor
+    can be freed; a whole leaf moves to the mesh's device (no copy when
+    it is there already)."""
+    if not any(spec):
         return t.to(mesh.device)
-    if spec[0] != DATA_AXIS:
-        raise ValueError(f"placement {spec} names an axis the 1-D data mesh "
-                         f"lacks (its axis is {DATA_AXIS!r})")
-    lo, hi = mesh.rows(t.shape[0])
-    return t.narrow(0, lo, hi - lo).to(mesh.device, copy=True)
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        if axis not in mesh.shape:
+            raise ValueError(f"placement {spec} names an axis the mesh lacks "
+                             f"(its axes are {tuple(mesh.shape)})")
+        lo, hi = mesh.span(axis, t.shape[dim])
+        t = t.narrow(dim, lo, hi - lo)
+    return t.to(mesh.device, memory_format=torch.contiguous_format,
+                copy=True)
 
 
 def _module_copy(m: nn.Module, place, prefix: str = ""):
@@ -172,10 +270,10 @@ def _module_copy(m: nn.Module, place, prefix: str = ""):
     return new
 
 
-def put_specs(obj, mesh: Mesh, specs: dict):
+def put_specs(obj, mesh, specs: dict):
     """``obj`` (an oracle, a NamedTuple or dict of tensors, a tensor)
-    with each leaf of ``specs`` placed on this rank: its rows where the
-    spec cuts the data axis, else whole; on the mesh's device."""
+    with each leaf of ``specs`` placed on this rank: its part where the
+    spec cuts an axis of the mesh, else whole; on the mesh's device."""
     def place(name, t):
         return _placed(t, specs.get(name, ()), mesh)
 

@@ -200,3 +200,92 @@ def compare(ranks, jst, local=(), tol=TOL):
             assert e <= tol, (f, r, e)
             worst = max(worst, e)
     return worst
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel path: JAX runs on make_mesh_2d(D, M) of the first D·M
+# devices; every draw folds only the data row, so each row's draws are read
+# on the first D devices of a 1-D mesh
+# ---------------------------------------------------------------------------
+
+def mesh2d(D: int, M: int):
+    from ciao_tpu.parallel import make_mesh_2d
+
+    return make_mesh_2d(D, M, devices=jax.devices()[:D * M])
+
+
+def tp_saga_starts(m, seed, steps, n_loc, B):
+    """(D, steps): TPSAGA's block starts (``tp.py:136-141``): the state's
+    key split every step, the data row folded into the subkey."""
+    key = jax.random.PRNGKey(seed)
+    subs = []
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        subs.append(sub)
+    subs = jnp.stack(subs)
+
+    def draw():
+        ax = jax.lax.axis_index(DATA_AXIS)
+        return jax.vmap(lambda s: jax.random.randint(
+            jax.random.fold_in(s, ax), (), 0, n_loc // B,
+            dtype=jnp.int32) * B)(subs)
+
+    return per_device(m, draw)
+
+
+def tp_svrg_starts(m, seed, steps, m_inner, n_loc, B, plus=False):
+    """Per data row, the list of TPSVRG outer steps' inner block starts
+    (``tp.py:686-696``): randint(fold_in(fold_in(fold_in(key, it), row),
+    k)); m doubles each outer step under ``plus``."""
+    key = jax.random.PRNGKey(seed)
+    per = []
+    for it in range(1, steps + 1):
+        k_in = m_inner * 2 ** (it - 1) if plus else m_inner
+
+        def draw(it=it, k_in=k_in):
+            ax = jax.lax.axis_index(DATA_AXIS)
+            ks = jax.random.fold_in(jax.random.fold_in(key, it), ax)
+            return jax.vmap(lambda k: jax.random.randint(
+                jax.random.fold_in(ks, k), (), 0, n_loc // B,
+                dtype=jnp.int32) * B)(jnp.arange(k_in))
+
+        per.append(per_device(m, draw))
+    return [[p[r] for p in per] for r in range(m.shape[DATA_AXIS])]
+
+
+def tp_run(solver, x0, F, g, L, steps, N=None):
+    """A JAX TP facade's state after ``steps`` steps from init."""
+    _, _, _, init, _, run, _ = solver._setup(x0, F, g, L, N)
+    return run(init(), steps)
+
+
+# each TP state field's cut: the axes of its dimensions
+TP_AXES = {"z": ("model",), "av": ("model",), "z_full": ("model",),
+           "w": ("model",), "x": ("model",), "y": ("model",),
+           "s": ("data",), "c": ("data",), "invg": ("data",),
+           "gamma": ("data",), "zb": ("data", "model")}
+
+
+def compare2d(ranks, jst, axes=None, tol=TOL):
+    """Each rank's fields against JAX's global state: a cut field against
+    the rank's part of JAX's array (``TP_AXES``, or ``axes`` for the
+    family), a whole one against all of it; and ``it``. Returns the
+    largest gap."""
+    axes = dict(TP_AXES, **(axes or {}))
+    worst = 0.0
+    for st in ranks:
+        assert int(st["it"]) == int(jst.it)
+        for f, v in st.items():
+            jv = getattr(jst, f, None)
+            if not isinstance(v, np.ndarray) or jv is None:
+                continue
+            jv = np.asarray(jv)
+            for dim, ax in enumerate(axes.get(f, ()) if v.ndim else ()):
+                parts, at = (st["D"], st["d"]) if ax == "data" else (
+                    st["M"], st["m"])
+                k = jv.shape[dim] // parts
+                jv = np.take(jv, np.arange(at * k, (at + 1) * k), axis=dim)
+            e = gap(v, jv)
+            assert e <= tol, (f, st["d"], st["m"], e)
+            worst = max(worst, e)
+    return worst

@@ -1,4 +1,5 @@
-"""Rank processes of the port's data-parallel CPU tests.
+"""Rank processes of the port's data-parallel and tensor-parallel CPU
+tests.
 
 Imports torch and the port alone, never JAX, so that the processes that
 ``torch.multiprocessing`` spawns from a test start without it. A test
@@ -30,7 +31,9 @@ from ciao_tpu_torch.oracles import (
     SparseLeastSquaresELL, SqrDistBox, SumOracle,
 )
 from ciao_tpu_torch.parallel import dp as tdp
-from ciao_tpu_torch.prox import IndBox, NormL1, SqrDistPoint, Zero
+from ciao_tpu_torch.prox import (
+    IndBox, NormL1, NormL2, SqrDistPoint, Zero,
+)
 
 TIMEOUT = datetime.timedelta(seconds=120)
 
@@ -75,6 +78,8 @@ def prox(spec, key="prox"):
         return Zero()
     if p["kind"] == "sqrdist":
         return SqrDistPoint(_t(p["b"]), _t(p["rho"]))
+    if p["kind"] == "l2":
+        return NormL2(_t(p["lam"]))
     return IndBox(_t(p["lo"]), _t(p["hi"]))
 
 
@@ -416,12 +421,270 @@ def deep_pd(mesh, spec):
                 steps=info.steps, lam_hat=info.lam_hat)
 
 
+# ---------------------------------------------------------------------------
+# the tensor-parallel runners: each case names its (D, M) mesh and, where
+# it is not every rank, the ranks it takes ("ranks"); every rank makes
+# every mesh, in the cases' order, as new_group needs, and a rank outside a
+# case's mesh returns None
+# ---------------------------------------------------------------------------
+
+_MESHES = {}
+
+
+def mesh2d(spec):
+    """The case's (data, model) mesh, made once for the process."""
+    D, M = spec["mesh2d"]
+    ranks = tuple(spec.get("ranks", range(D * M)))
+    key = (D, M, ranks)
+    if key not in _MESHES:
+        _MESHES[key] = parallel.make_mesh_2d(D, M, ranks=list(ranks),
+                                             device="cpu")
+    return _MESHES[key]
+
+
+def _where(m2) -> dict:
+    return dict(d=m2.d, m=m2.m, D=m2.D, M=m2.M)
+
+
+def _tp_sched(spec, key, m2):
+    """The data row's explicit schedule: the ranks of a model group take
+    the same one."""
+    s = spec.get(key)
+    if s is None:
+        return None
+    s = s[m2.d]
+    if isinstance(s, list):
+        return [_t(a) for a in s]
+    return _t(s)
+
+
+def tp_build(mesh, spec):
+    """``build_tp_functions`` from init through ``spec["steps"]`` steps on
+    the explicit schedule (``run``, or ``step`` one at a time with
+    ``"stepwise"``), then ``rebase`` with ``"rebase"``: the final state's
+    fields (the rank's shards)."""
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    N = spec["cfg"]["N"]
+    F = parallel.shard_finite_sum_2d(oracle(spec), m2, N)
+    x0 = _t(spec["x0"])
+    g = prox(spec)
+    g = parallel.put_specs(g, m2, parallel.model_prox_specs(g, x0.shape[0]))
+    cfg = parallel.TPCfg(**spec["cfg"])
+    init, step, run, rebase = parallel.build_tp_functions(
+        spec["family"], m2, F, g, cfg)
+    gamma = _t(spec["gamma"])
+    if gamma.dim() == 1:
+        gamma = gamma[slice(*m2.rows(N))].contiguous()
+    st = init(x0[slice(*m2.cols(x0.shape[0]))].contiguous(), gamma,
+              spec.get("seed", 0), *spec.get("extra", ()))
+    starts, idx = _tp_sched(spec, "starts", m2), _tp_sched(spec, "idx", m2)
+    if spec.get("stepwise"):
+        for t in range(spec["steps"]):
+            st = step(st, None if starts is None else starts[t],
+                      None if idx is None else idx[t])
+    else:
+        st = run(st, spec["steps"], starts=starts, idx=idx)
+    if spec.get("rebase"):
+        st = rebase(st)
+    return dict(fields(st), **_where(m2))
+
+
+def tp_facade(mesh, spec):
+    """A TP facade call (``x`` whole, ``it``), or with ``"take": k`` the
+    fields of the k'th state of its iterator (the rank's shards)."""
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    solver = getattr(parallel, spec["cls"])(mesh=m2, **spec.get("kw", {}))
+    x0 = _t(spec["x0"])
+    kw = _call_args(mesh, dict(spec, shard=False))
+    if spec.get("shard", False):
+        kw["F"] = parallel.shard_finite_sum_2d(kw["F"], m2, spec.get("N"))
+    if "take" in spec:
+        states = list(itertools.islice(solver.iterator(x0, **kw),
+                                       spec["take"]))
+        return dict(fields(states[-1]), n_states=len(states), **_where(m2))
+    x, it = solver(x0, **kw)
+    return dict(x=_np(x), it=it, **_where(m2))
+
+
+def tp_errors(mesh, spec):
+    """The messages of TP facade calls that must raise ValueError."""
+    out = []
+    for call in spec["calls"]:
+        try:
+            tp_facade(mesh, dict(spec, **call))
+        except ValueError as e:
+            out.append(str(e))
+        else:
+            out.append(None)
+    return out
+
+
+def tp_layout(mesh, spec):
+    """The rank's oracle block and prox columns: each leaf's shape, the
+    bytes behind it, some values, the block's record."""
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    whole = oracle(spec)
+    N = spec.get("N") or whole.num_terms
+    F = parallel.shard_finite_sum_2d(whole, m2, N)
+    g = prox(spec)
+    gp = parallel.put_specs(g, m2, parallel.model_prox_specs(
+        g, spec["x0"].shape[0]))
+    return dict(
+        leaves={k: (tuple(v.shape), str(v.dtype))
+                for k, v in F.named_buffers()},
+        storage={k: v.untyped_storage().nbytes()
+                 for k, v in F.named_buffers()},
+        values={k: _np(v) for k, v in F.named_buffers()},
+        specs=parallel.data_model_specs(whole, N),
+        prox={k: _np(v) for k, v in gp.named_buffers()},
+        tp_shard=F.tp_shard, num_terms=F.num_terms, **_where(m2))
+
+
+def tp_rebase(mesh, spec):
+    """Run the facade's iterator on the int8 rows for ``steps`` states,
+    resume under the f32 rows with ``rebase=True``: the first resumed
+    state, the int8 state, and the f32 block's apply_all of its table."""
+    from ciao_tpu_torch.checkpoint import resume_iterator
+
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    solver = getattr(parallel, spec["cls"])(mesh=m2, **spec.get("kw", {}))
+    x0 = _t(spec["x0"])
+    kw = _call_args(mesh, dict(spec, shard=False))
+    F32 = parallel.shard_finite_sum_2d(kw["F"], m2)
+    Fq = parallel.shard_finite_sum_2d(kw["F"].with_storage("int8"), m2)
+    st = next(itertools.islice(solver.iterator(x0, **dict(kw, F=Fq)),
+                               spec["steps"] - 1, None))
+    first = next(resume_iterator(solver.iterator(x0, **dict(kw, F=F32)), st,
+                                 rebase=True))
+    table = first.c if hasattr(first, "c") else first.s
+    return dict(first=fields(first), int8=fields(st),
+                apply=_np(F32.apply_all(table)), **_where(m2))
+
+
+def tp_deep(mesh, spec):
+    """``deep_solve_tp`` on the case's problem, and the polish path
+    against plain TP FISTA."""
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    kw = _call_args(mesh, dict(spec, shard=False))
+    F = parallel.shard_finite_sum_2d(kw["F"], m2)
+    x, info = parallel.deep_solve_tp(_t(spec["x0"]), F, kw["g"], L=kw["L"],
+                                     N=spec["N"], mesh=m2, **spec["kw"])
+    out = dict(x=_np(x), lmax=info.lmax, polish_steps=info.polish_steps,
+               objectives=info.staged.objectives, **_where(m2))
+    x0 = _t(spec["x0"])
+    out["polish"] = _np(parallel.TPForwardBackward(
+        mesh=m2, maxit=200, fast=True, polish_chunk=spec["polish_chunk"])(
+        x0, F=F, g=kw["g"], L=kw["L"])[0])
+    out["fista"] = _np(parallel.TPFISTA(mesh=m2, maxit=200)(
+        x0, F=F, g=kw["g"], L=kw["L"])[0])
+    return out
+
+
+def tp_power(mesh, spec):
+    """``power_lmax_tp`` at the case's point (its columns)."""
+    from ciao_tpu_torch.parallel.deep import power_lmax_tp
+
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    F = parallel.shard_finite_sum_2d(oracle(spec), m2, spec["N"])
+    x = _t(spec["x"])
+    return float(power_lmax_tp(m2, F, x[slice(*m2.cols(x.shape[0]))],
+                               spec["seed"], spec["N"], iters=spec["iters"]))
+
+
+def tp_mesh(mesh, spec):
+    """The (data, model) mesh: the rank's place and parts, and one sum
+    over each of its groups."""
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    from ciao_tpu_torch.parallel import tp
+
+    one = torch.ones(2, dtype=torch.float64) * (mesh.rank + 1)
+    return dict(rank=m2.rank, size=m2.size, shape=m2.shape,
+                rows=m2.rows(spec["N"]), cols=m2.cols(spec["n"]),
+                device=str(m2.device), psum_d=_np(tp._psum_d(m2, one)),
+                psum_m=_np(tp._psum_m(m2, one)),
+                gather=_np(tp.gather_model(m2, torch.full(
+                    (1,), m2.m + 1.0, dtype=torch.float64))),
+                **_where(m2))
+
+
+def tp_vs_single(mesh, spec):
+    """A (1, 1) mesh's TPSAGA run beside the single-device SAGA on the
+    same block starts, and TPFISTA beside FISTA: both results."""
+    from ciao_tpu_torch.solvers import FISTA
+    from ciao_tpu_torch.solvers.saga import SAGACfg, saga_init, saga_run
+
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    N, B = spec["N"], spec["B"]
+    F, g = oracle(spec), prox(spec)
+    x0, gamma = _t(spec["x0"]), _t(spec["gamma"])
+    starts = _t(spec["starts"])
+    init, _, run, _ = parallel.build_tp_functions(
+        "saga", m2, parallel.shard_finite_sum_2d(F, m2), g,
+        parallel.TPCfg(N=N, D=1, M=1, b_loc=B))
+    tp = run(init(x0, gamma, 0), len(starts), starts=starts.tolist())
+    cfg = SAGACfg(N=N, sag=False, batch=B, block=True, coeff=True)
+    sc = saga_run(F, g, saga_init(F, g, x0, gamma, 0, cfg), cfg,
+                  len(starts), starts=starts)
+    L = _t(spec["L"])
+    xt, _ = parallel.TPFISTA(mesh=m2, maxit=200)(x0, F=F, g=g, L=L)
+    xs, _ = FISTA(maxit=200)(x0, F=F, g=g, L=L)
+    return dict(tp=fields(tp), single=fields(sc), fista_tp=_np(xt),
+                fista_single=_np(xs))
+
+
+_GROUPS = {}
+
+
+def tp_proshi_vs_dp(mesh, spec):
+    """TPProshi on the case's (data, model) mesh beside DPProshi on the
+    1-D mesh of ``spec["dp_ranks"]`` (every rank makes its group): the
+    TP solution (the rank's blocks, gathered over "model") where the rank
+    is in the mesh, the DP one where it is in the group, and with
+    ``"take"`` the fields of the TP iterator's first state."""
+    m2 = mesh2d(spec)
+    ranks = tuple(spec["dp_ranks"])
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = (None if len(ranks) == mesh.size
+                          else dist.new_group(list(ranks)))
+    kw = _call_args(mesh, dict(spec, shard=False))
+    x0 = _t(spec["x0"])
+    out = {}
+    if m2 is not None:
+        solver = parallel.TPProshi(mesh=m2, **spec["kw"])
+        out.update(tp=_np(solver(x0, **kw)[0]), **_where(m2))
+        if spec.get("take"):
+            out["first"] = fields(next(iter(solver.iterator(x0, **kw))))
+    if dist.get_rank() in ranks:
+        one = parallel.make_mesh(group=_GROUPS[ranks], device="cpu")
+        out["dp"] = _np(parallel.DPProshi(mesh=one, **spec["kw"])(x0, **kw)[0])
+    return out
+
+
 RUNNERS = dict(build=build, facade=facade, errors=errors, layout=layout,
                rebase_resume=rebase_resume, deep=deep, power=power,
                mesh_info=mesh_info, schedules=schedules,
                single_round=single_round, run_vs_step=run_vs_step,
                solo=solo, rebase_vr=rebase_vr, panoc_trials=panoc_trials,
-               deep_pd=deep_pd)
+               deep_pd=deep_pd, tp_build=tp_build, tp_facade=tp_facade,
+               tp_errors=tp_errors, tp_layout=tp_layout, tp_rebase=tp_rebase,
+               tp_deep=tp_deep, tp_power=tp_power, tp_mesh=tp_mesh,
+               tp_vs_single=tp_vs_single, tp_proshi_vs_dp=tp_proshi_vs_dp)
 
 
 # ---------------------------------------------------------------------------
