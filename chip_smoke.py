@@ -337,7 +337,22 @@ Phases, one line each:
      same data and schedule and the fields whole on every rank bit for bit
      across the ranks, ``deep_solve_tp`` on 131,072 x 128 to rel <= 1e-6
      with x bit for bit on both; on a (2, 1) mesh TPFISTA held to (a)'s and
-     TPSAGA's z and av bit for bit across the ranks;
+     TPSAGA's z and av bit for bit across the ranks; (c) one rank over NCCL
+     on the (1, 1) mesh at the headline: TPLSVRG and TPLKatyusha at p =
+     B/N, TPKatyusha and TPSARAH at m = N/B (two outer steps), TPPointSAGA
+     (least squares) and TPSSNM, f32 and int8; TPDavisYin, TPCondatVu
+     (FirstDifference), TPPANOC and TPZeroFPR, f32; each held and timed as
+     (a)'s (the families that difference two whole margins, L-SVRG,
+     L-Katyusha, Katyusha and SARAH, within 1e-5), with its launches of
+     the 19 kernels (0);
+     ``deep_solve_pd_tp`` on 4y's fused-lasso and three-term plants,
+     certified to rel <= 1e-6, beside 4y's and 4dp's seconds; (d) on (b)'s
+     (1, 2) mesh: those families a few steps each, each rank's shards held
+     within 1e-5 to (c)'s state (PANOC's and ZeroFPR's envelope values;
+     their iterates within 1e-2, their gradient and L-BFGS ring printed),
+     TPCondatVu's halo held to the single card's CondatVu, PANOC's
+     and ZeroFPR's FBE evaluations equal on both ranks; then
+     ``entry.dryrun_multichip(2)`` on the two ranks;
   11. times: kernel #7 per pass at the headline in turns with its plain
      version and kernel #6, its bound, the read ceiling and the two-gemv +
      value yardstick, and the same at the deep target's shape.
@@ -4026,8 +4041,10 @@ DENSE_MAPS = (1_024, 8_192)
 # (f32-rounded) data, below the card's. f32 cannot reach 1e-6·f* here: the
 # margins a_i·x − b_i cancel most of b_i, so an f32 run stalls
 # at 1.1-1.3e-5·f* on an H100 (the CPU's f64 runs of the same data reach
-# 6.9e-6 and 1.6e-7), and the bar keeps 4x margin
-PANOC_FACADE = dict(maxit=200, rel=5e-5)
+# 6.9e-6 and 1.6e-7), and the bar keeps 4x margin. The CPU twin of ZeroFPR
+# takes cpu_zerofpr steps (1.2e-6·f* at 80 on the CPU, 10x under the card's
+# floor, in a third of its 17.9 s at 200 on the card's host)
+PANOC_FACADE = dict(maxit=200, rel=5e-5, cpu_zerofpr=80)
 # kernel #7's checks: every mode and storage at APPLY_SMALL, ragged N and
 # widths that are not whole 16-byte chunks. The value within 1e-6 of
 # Σ|f_i|; c and gsum relative to their largest entries, by whether the dots
@@ -4322,12 +4339,14 @@ def run_panoc_facades(dev, prob, F, card: str) -> None:
                 ("card", dev, F, torch.float32),
                 ("cpu", torch.device("cpu"), F64, torch.float64)):
             x0 = torch.zeros(n, dtype=dt, device=where)
+            maxit = (kw["cpu_zerofpr"] if side == "cpu"
+                     and S is ct.ZeroFPR else kw["maxit"])
             with FBECount() as fbe:
                 before = counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                x, it = S(maxit=kw["maxit"])(x0, F=Fx, g=ct.NormL1(prob.lam),
-                                             L=prob.L)
+                x, it = S(maxit=maxit)(x0, F=Fx, g=ct.NormL1(prob.lam),
+                                       L=prob.L)
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
                 moved = {k: v - before[k] for k, v in counts().items()
@@ -4335,7 +4354,7 @@ def run_panoc_facades(dev, prob, F, card: str) -> None:
             rel = (prob.cost(x.double().cpu().numpy()) - prob.f_star) \
                 / prob.f_star
             rels[side] = rel
-            log(f"  facade {S.__name__}(maxit={kw['maxit']}) on planted "
+            log(f"  facade {S.__name__}(maxit={maxit}) on planted "
                 f"make_lasso(N={FACADE['N']}, n={n}) on the "
                 f"{'card, f32' if side == 'card' else 'CPU, f64'}: "
                 f"rel {rel:.3e}, {fbe.evals} FBE evaluations, launches "
@@ -4935,7 +4954,10 @@ COMPLEX = dict(N=262_144, n=1_024, p=16, B=4_096, lam=1.0, rho=10.0,
 COMPLEX_RUNS = dict(saga=16, svrg=1, finito=16, katyusha=1, sarah=1,
                     lsvrg=16, point_saga=16, panoc=4, condat_vu=16)
 COMPLEX_TV = 0.05  # Condat-Vũ's h = 0.05‖D·‖₁, as 4w
-WELSCH = dict(N=256, n=16, frac=0.2, sigma=1.0)  # tests/test_nonconvex.py
+# tests/test_nonconvex.py's Welsch problem; SARAH's 200 outer steps cut to
+# 80, where its gradient already sits at the f32 floor (‖Σ∇f_i‖/N 8.99e-6
+# at 80 and 200, 1.59e-5 at 60; bar 1e-4; the port on the CPU)
+WELSCH = dict(N=256, n=16, frac=0.2, sigma=1.0, sarah_maxit=80)
 PRECOMPOSE = dict(N=4_096, n=64)
 
 
@@ -5275,8 +5297,8 @@ def _welsch_problem(dev):
 
 def run_compose(dev, card: str) -> dict:
     """CustomOracle and Precompose on the card: the Welsch loss of
-    tests/test_nonconvex.py through SARAH (200 outer steps of 32 blocks of
-    8) and PANOC (200 steps) from the least-squares warm start, held to
+    tests/test_nonconvex.py through SARAH (WELSCH["sarah_maxit"] outer
+    steps of 32 blocks of 8) and PANOC (200 steps) from the least-squares warm start, held to
     JAX's bars (max |x − x_true| < 0.05, least squares 5x farther off,
     ‖Σ∇f_i‖/N < 1e-4 and 1e-5); Precompose of a scalar logistic loss over
     a_iᵀ rows against LogisticRows on PRECOMPOSE's rows (values and
@@ -5299,8 +5321,8 @@ def run_compose(dev, card: str) -> dict:
     N_ = WELSCH["N"]
     out = {}
     for name, solver, gbar in (
-            ("SARAH", SARAH(maxit=200, m=32, batch=8, block_sampling=True),
-             1e-4),
+            ("SARAH", SARAH(maxit=WELSCH["sarah_maxit"], m=32, batch=8,
+                            block_sampling=True), 1e-4),
             ("PANOC", PANOC(maxit=200), 1e-5)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6655,7 +6677,8 @@ def run_dp(dev, gen, seed: int, card: str) -> dict:
 # profiled window; TPProshi on 4j's 65,536 x 128 sharing plant;
 # deep_solve_tp on deep_accuracy's 1,048,576 x 128 plant. (b) two gloo ranks
 # on the one card, (1, 2) and (2, 1) meshes, held to (a)'s runs of the same
-# data and schedule.
+# data and schedule. (c) and (d): the families beyond the reference, the
+# same way (TP_C below), deep_solve_pd_tp and dryrun_multichip(2).
 TP_A = dict(check=8, steps=128, profile=16, lfinito=2, svrg=2, fista=32,
             fista_profile=8)
 TP_PROSHI = dict(batch=512, sweeping=2, steps=256, profile=16)
@@ -6669,18 +6692,41 @@ TP_DEEP = dict(N=1_048_576, n=128, p=16, B=8_192, chunk_steps=256,
 # rows curves far less than L_max), 1,800 at 10x (CPU, f32)
 TP_TWO = dict(ranks=2, steps=32, svrg_m=32, fista=16, proshi=32,
               deep_N=131_072, deep_B=4_096, deep_chunk=256, deep_max=4_096,
-              deep_gamma_x=10.0)
+              deep_gamma_x=10.0, split=16, panoc=8)
 # the first TP steps against the single card's plain path, and each rank's
 # shard in (b) against (a)'s state, relative to the largest entry
 TP_FIRST_TOL = 1e-6
+# L-SVRG, L-Katyusha, Katyusha and SARAH difference the coefficients of two
+# margins, each summed whole (JAX's TP steps: the stacked pair, or the live
+# margin against the anchor's), where the single card's plain path takes
+# one margin of the difference (``grad_sum_diff_block``); the cancellation
+# left SARAH's first outer step 1.05-1.37e-6 off in f32 and L-SVRG's first
+# eight int8 steps 1.065e-6 (H100): these are held to 1e-5
+TP_PAIR_FIRST_TOL = 1e-5
+TP_PAIR_FAMILIES = ("TPLSVRG", "TPLKatyusha", "TPKatyusha", "TPSARAH")
 TP_TWO_TOL = 1e-5
+# PANOC and ZeroFPR at M = 2 against (c)'s M = 1: the columns' order of
+# summation moves the f32 margins by an ulp, and the L-BFGS direction
+# amplifies it (the ring's s = Δx, y = Δr and ρ = 1/⟨s, y⟩ difference close
+# f32 vectors): after 8 steps at the headline x sat 6.27e-5 off (H100)
+# with the envelope f(x), φ_γ(x) bit for bit, and ∇f, which the
+# curvature (L_f ~ 1e8) multiplies Δx by, 0.57 of its largest entry off. So
+# the envelope's values are held to TP_TWO_TOL, the iterates x, z and x̄ to
+# TP_TWO_ITER_TOL (a trial taken differently moves them O(1)), and the
+# gradient, the ring and ZeroFPR's last residual are printed, not held
+TP_TWO_ITER_TOL = 1e-2
+TP_TWO_ITER = ("x", "z", "pbase")
+TP_TWO_SHOWN = ("gradx", "S", "Y", "rho", "presid")
 TP_GROUPS = {"all-reduce": ("nccl", "AllReduce", "allreduce"),
              "copies": ("Memcpy", "memcpy", "Memset")}
 # the cut of each TP state field: the axes of its dimensions
 TP_CUT = {"z": ("model",), "av": ("model",), "z_full": ("model",),
           "w": ("model",), "x": ("model",), "y": ("model",),
           "zb": ("data", "model"), "s": ("data",), "c": ("data",),
-          "invg": ("data",), "gamma": ("data",)}
+          "invg": ("data",), "gamma": ("data",), "x_tilde": ("model",),
+          "w_anchor": ("model",), "gbar": ("model",), "xg": ("model",),
+          "gradx": ("model",), "pbase": ("model",), "presid": ("model",),
+          "S": (None, "model"), "Y": (None, "model")}
 # ProShI's table holds the blocks' coordinates
 TP_CUT_PROSHI = dict(TP_CUT, s=("data", "model"))
 
@@ -6706,16 +6752,24 @@ def tp_reductions():
 
 
 def tp_case(tag: str, solver, F, g, L, x0, single, sched, fields, T: int,
-            P: int, unit: str, card: str) -> dict:
-    """One family of (a): the facade's init and run on the (1, 1) mesh;
-    its first steps on ``sched`` held to the single card's plain path on
-    the same schedule (``single``: (init(TP init state), run(state, steps,
-    sched or None))); T steps timed beside the single card's T stepwise
-    steps; the all-reduces a step; a profiled window of P steps (device
-    launches a step, idle share)."""
+            P: int, unit: str, card: str, setup=None,
+            check_cost: bool = True, tol: float = TP_FIRST_TOL) -> dict:
+    """One family of (a) or (c): the facade's init and run on the (1, 1)
+    mesh; its first steps on ``sched`` held to the single card's plain
+    path on the same schedule (``single``: (init(TP init state),
+    run(state, steps, sched or None))); T steps timed beside the single
+    card's T stepwise steps; the all-reduces a step; a profiled window of
+    P steps (device launches a step, idle share); the launches of the 19
+    kernels over all of it (``kernels``, which must read 0). ``setup``,
+    when given, makes the facade's setup tuple (a splitting facade takes
+    h and K); ``check_cost`` holds the cost (1/N)Σf_i + g to a fall."""
     from ciao_tpu_torch.oracles import LeastSquaresRows
 
-    _, _, _, init, _, run, _ = solver._setup(x0, F, g, L, None)
+    if not tag.startswith("("):
+        tag = f"(a) {tag}"  # (c)'s tags name their part
+    c0 = counts()
+    _, _, _, init, _, run, _ = (setup() if setup is not None
+                                else solver._setup(x0, F, g, L, None))
     st0 = init()
     s_init, s_run = single
     k = len(sched) if sched is not None else TP_A["check"]
@@ -6723,10 +6777,10 @@ def tp_case(tag: str, solver, F, g, L, x0, single, sched, fields, T: int,
     s0 = s_init(st0)
     s1 = s_run(s0, k, sched)
     err = max(rel_gap(getattr(first, f), getattr(s1, f)) for f in fields)
-    if not err <= TP_FIRST_TOL:
-        raise AssertionError(f"4tp (a) {tag}: the first {k} {unit}s are "
+    if not err <= tol:
+        raise AssertionError(f"4tp {tag}: the first {k} {unit}s are "
                              f"{err:.3e} off the single card's plain path on "
-                             f"their schedule (> {TP_FIRST_TOL})")
+                             f"their schedule (> {tol})")
     run(st0, 1)
     calls, restore = tp_reductions()
     try:
@@ -6737,17 +6791,22 @@ def tp_case(tag: str, solver, F, g, L, x0, single, sched, fields, T: int,
     _, dt1 = timed(lambda: s_run(s0, T, None))
     sol = st.solution
     if not bool(torch.isfinite(sol).all()):
-        raise AssertionError(f"4tp (a) {tag}: a non-finite iterate")
-    prof = profile_steps(f"4tp (a) {tag}", lambda: run(st0, P), P, card,
+        raise AssertionError(f"4tp {tag}: a non-finite iterate")
+    prof = profile_steps(f"4tp {tag}", lambda: run(st0, P), P, card,
                          TP_GROUPS, unit=unit)
+    c1 = counts()
     out = dict(ms=dt * 1e3 / T, single_ms=dt1 * 1e3 / T, err=err,
                reductions=calls[0] / T, steps=T,
                launches=sum(prof["calls"].values()) / P,
-               idle=1.0 - prof["busy"] / prof["step"], unit=unit)
-    if isinstance(F, LeastSquaresRows):
+               idle=1.0 - prof["busy"] / prof["step"], unit=unit,
+               kernels=sum(c1[k] - c0[k] for k in KERNELS))
+    if out["kernels"]:
+        raise AssertionError(f"4tp {tag}: {out['kernels']} launches of the "
+                             "19 kernels")
+    if check_cost and isinstance(F, LeastSquaresRows):
         out["cost"] = (cost(F, g, x0), cost(F, g, sol))
         if not out["cost"][1] < out["cost"][0]:
-            raise AssertionError(f"4tp (a) {tag}: cost {out['cost']}")
+            raise AssertionError(f"4tp {tag}: cost {out['cost']}")
     return out
 
 
@@ -6844,18 +6903,24 @@ def tp_headline(mesh, dev, seed: int, card: str) -> dict:
         del F
         torch.cuda.empty_cache()
     out[("TPProshi", "f32")] = tp_proshi_one_rank(mesh, dev, seed, card)
+    tp_text("(a)", out, card)
+    return out
+
+
+def tp_text(part: str, out: dict, card: str) -> None:
+    """A line for each family of (a) or (c)."""
     for (tag, storage), v in out.items():
         a = "an" if v["unit"][0] in "aeiou" else "a"
-        log(f"  4tp (a) {tag} {storage}, one rank over NCCL: {v['ms']:.4f} "
-            f"ms {a} {v['unit']} ({v['steps']} {v['unit']}s), single card's "
-            f"plain path {v['single_ms']:.4f} ({v['ms'] / v['single_ms']:.3f}"
-            f"x), {v['reductions']:.2f} all-reduces {a} {v['unit']}, "
-            f"{v['launches']:.1f} device launches {a} {v['unit']}, idle "
-            f"{v['idle']:.3f}; first {v['unit']}s vs the single card "
-            f"{v['err']:.3e}"
+        log(f"  4tp {part} {tag} {storage}, one rank over NCCL: "
+            f"{v['ms']:.4f} ms {a} {v['unit']} ({v['steps']} {v['unit']}s), "
+            f"single card's plain path {v['single_ms']:.4f} "
+            f"({v['ms'] / v['single_ms']:.3f}x), {v['reductions']:.2f} "
+            f"all-reduces {a} {v['unit']}, {v['launches']:.1f} device "
+            f"launches {a} {v['unit']}, idle {v['idle']:.3f}, "
+            f"{v['kernels']} launches of the 19 kernels; first "
+            f"{v['unit']}s vs the single card {v['err']:.3e}"
             + (f"; cost {v['cost'][0]:.6e} -> {v['cost'][1]:.6e}"
                if "cost" in v else "") + f" [{card}]")
-    return out
 
 
 def tp_sharing(dev, N_: int, n_: int):
@@ -6932,15 +6997,223 @@ def tp_deep_one_rank(mesh, dev, card: str, dp_s: float) -> dict:
     return dict(rel=rel, s=dt)
 
 
-def tp_two_rank_runs(mesh, dev, seed: int) -> dict:
-    """(b)'s runs on one mesh (and (a)'s reference of them on the (1, 1)
-    mesh): TP_TWO['steps'] steps of TPSAGA (f32, int8) and TPFinito, an
-    outer step of TPSVRG at m = TP_TWO['svrg_m'], TP_TWO['fista'] TPFISTA
-    steps on the headline's rows, TPProshi on 4j's sharing plant; each
-    state's fields (the rank's shards) on the host. At D = 1 every mesh
-    draws data row 0's schedule, the (1, 1) mesh's."""
+# 4tp (c): the families beyond the reference on one NCCL rank, a (1, 1)
+# mesh, at the headline: the loopless pair at p = B/N, Katyusha and SARAH at
+# m = N/B inner steps (two outer steps), Point-SAGA (least squares) and SSNM
+# (f32 and int8 rows); Davis-Yin (h a box), Condat-Vũ (h = 0.05‖D·‖₁),
+# PANOC and ZeroFPR (f32). Each's first steps held to the single card's plain
+# path on the same schedule within TP_FIRST_TOL, timed beside it, its
+# all-reduces, launches and idle share; then deep_solve_pd_tp on 4y's plants
+TP_C = dict(steps=128, profile=16, outer=2, split=32, split_profile=8,
+            panoc=16, panoc_profile=4, tv=0.05, box=0.6)
+
+
+def tp_vr_one_rank(mesh, dev, seed: int, card: str) -> dict:
+    """(c)'s block-step families, f32 and int8, beside the single card's
+    plain (unfused) solvers."""
     from ciao_tpu_torch import parallel
-    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.parallel import dp as tdp
+    from ciao_tpu_torch.prox import NormL1, Zero
+    from ciao_tpu_torch.solvers import katyusha as sk
+    from ciao_tpu_torch.solvers import lsvrg as sl
+    from ciao_tpu_torch.solvers import point_saga as sp
+    from ciao_tpu_torch.solvers import sarah as ss
+    from ciao_tpu_torch.solvers import ssnm as sm
+    from ciao_tpu_torch.solvers.lsvrg import draw_coins
+    from ciao_tpu_torch.solvers.svrg import _outer_seed
+
+    g = NormL1(torch.tensor(LAM, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    K, T, P, O = TP_A["check"], TP_C["steps"], TP_C["profile"], TP_C["outer"]
+    m = N // B
+    blocks = tdp._local_round_starts(seed, 1, N, B, K, 1, 0, "cpu").tolist()
+    inner = [tdp._local_round_starts(_outer_seed(seed, it), 1, N, B, m, 1, 0,
+                                     "cpu") for it in range(1, O + 1)]
+
+    def dev_starts(sch):
+        return None if sch is None else torch.tensor(sch, device=dev)
+
+    def coins(st, sch):
+        return None if sch is None else draw_coins(seed, 1, len(sch), st.p)
+
+    out = {}
+    for storage in ("f32", "int8"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 6_000)
+        F, _, L = lasso(gen, dev, N, n, storage)
+        lc = sl.LSVRGCfg(N=N, batch=B, block=True)
+        kc = sl.LKatyushaCfg(N=N, batch=B, block=True)
+        cases = {
+            "TPLSVRG": (
+                parallel.TPLSVRG(mesh=mesh, batch=B, seed=seed), g,
+                (lambda st: sl.lsvrg_init(F, g, x0, st.gamma, st.p, seed, lc),
+                 lambda s, k, sch: sl.lsvrg_run(
+                     F, g, s, lc, k, starts=dev_starts(sch),
+                     coins=coins(s, sch))),
+                blocks, ("w", "z", "av"), T, P, "step"),
+            "TPLKatyusha": (
+                parallel.TPLKatyusha(mesh=mesh, batch=B, seed=seed), g,
+                (lambda st: sl.lkatyusha_init(
+                    F, g, x0, st.Lmax, st.sigma, st.theta1, st.theta2, st.p,
+                    seed, kc),
+                 lambda s, k, sch: sl.lkatyusha_run(
+                     F, g, s, kc, k, starts=dev_starts(sch),
+                     coins=coins(s, sch))),
+                blocks, ("y", "z", "w_anchor", "av"), T, P, "step"),
+        }
+        for name, mod, cls in (("TPKatyusha", sk, parallel.TPKatyusha),
+                               ("TPSARAH", ss, parallel.TPSARAH)):
+            if mod is sk:
+                cfg = sk.KatyushaCfg(N=N, batch=B, m=m, block=True, ns=True)
+                s_init = (lambda st, cfg=cfg: sk.katyusha_init(
+                    F, g, x0, st.Lmax, st.tau1, st.tau2, seed, cfg))
+                s_run = (lambda s, k, sch, cfg=cfg: sk.katyusha_run(
+                    F, g, s, cfg, k, starts=None if sch is None else
+                    [t.to(dev) for t in sch]))
+                fields = ("x_tilde", "y", "z", "av")
+            else:
+                cfg = ss.SARAHCfg(N=N, batch=B, m=m, block=True)
+                s_init = (lambda st, cfg=cfg: ss.sarah_init(
+                    F, g, x0, st.gamma, st.eta, seed, cfg))
+                s_run = (lambda s, k, sch, cfg=cfg: ss.sarah_run(
+                    F, g, s, cfg, k, starts=None if sch is None else
+                    [t.to(dev) for t in sch]))
+                fields = ("x_tilde",)
+            # the first outer step is held, as 4dp (c) holds DP's; O timed
+            cases[name] = (cls(mesh=mesh, batch=B, m=m, seed=seed), g,
+                           (s_init, s_run), inner[:1], fields, O, 1,
+                           "outer step")
+        pc = sp.PointSAGACfg(N=N, batch=B, block=True)
+        cases["TPPointSAGA"] = (
+            parallel.TPPointSAGA(mesh=mesh, batch=B, seed=seed), Zero(),
+            (lambda st: sp.point_saga_init(F, Zero(), x0, st.gamma, seed,
+                                           pc),
+             lambda s, k, sch: sp.point_saga_run(F, Zero(), s, pc, k,
+                                                 starts=dev_starts(sch))),
+            blocks, ("x", "av", "c"), T, P, "step")
+        mc = sm.SSNMCfg(N=N, batch=B)
+        cases["TPSSNM"] = (
+            parallel.TPSSNM(mesh=mesh, batch=B, seed=seed), g,
+            (lambda st: sm.ssnm_init(F, g, x0, st.tau, st.eta, seed, mc),
+             lambda s, k, sch: sm.ssnm_run(F, g, s, mc, k,
+                                           starts=dev_starts(sch))),
+            blocks, ("x", "gbar", "c", "zb"), T, P, "step")
+        for name, (solver, gg, single, sched, fields, T_, P_, unit) in (
+                cases.items()):
+            out[(name, storage)] = tp_case(
+                f"(c) {name} {storage}", solver, F, gg, L, x0, single, sched,
+                fields, T_, P_, unit, card, tol=TP_PAIR_FIRST_TOL
+                if name in TP_PAIR_FAMILIES else TP_FIRST_TOL)
+        del F, cases
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_split_one_rank(mesh, dev, seed: int, card: str) -> dict:
+    """(c)'s full-gradient families (f32): TPDavisYin (g = λ‖·‖₁, h a box),
+    TPCondatVu (K = FirstDifference, h = 0.05‖·‖₁), TPPANOC and TPZeroFPR,
+    beside the single card's plain paths."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.ops.linmap import FirstDifference
+    from ciao_tpu_torch.prox import IndBox, NormL1
+    from ciao_tpu_torch.solvers import dys as sdys
+    from ciao_tpu_torch.solvers import panoc as spanoc
+    from ciao_tpu_torch.solvers import primal_dual as spd
+
+    g = NormL1(torch.tensor(LAM, device=dev))
+    x0 = torch.zeros(n, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 6_000)
+    F, _, L = lasso(gen, dev, N, n, "f32")
+    box = IndBox(-TP_C["box"], TP_C["box"]).to(dev)
+    tv = NormL1(torch.tensor(TP_C["tv"], device=dev))
+    Kd = FirstDifference()
+    T, P = TP_C["split"], TP_C["split_profile"]
+    out = {}
+    dy = parallel.TPDavisYin(mesh=mesh)
+    dc = sdys.DYSCfg(N=N)
+    out[("TPDavisYin", "f32")] = tp_case(
+        "(c) TPDavisYin f32", dy, F, g, L, x0,
+        (lambda st: sdys.dys_init(F, g, box, x0, st.gamma, st.lam, dc),
+         lambda s, k, sch: sdys.dys_run(F, g, box, s, dc, k)),
+        None, ("xg", "z"), T, P, "step", card,
+        setup=lambda: dy._setup(x0, F, g, box, L, None), check_cost=False)
+    cv = parallel.TPCondatVu(mesh=mesh)
+    pc = spd.PDCfg(N=N)
+    out[("TPCondatVu", "f32")] = tp_case(
+        "(c) TPCondatVu FirstDifference f32", cv, F, g, L, x0,
+        (lambda st: spd.pd_init(F, g, tv, Kd, x0, st.tau, st.sigma, pc),
+         lambda s, k, sch: spd.pd_run(F, g, tv, Kd, s, pc, k)),
+        None, ("x",), T, P, "step", card,
+        setup=lambda: cv._setup(x0, F, g, tv, Kd, L, None), check_cost=False)
+    for zerofpr in (False, True):
+        tag = "TPZeroFPR" if zerofpr else "TPPANOC"
+        cfg = spanoc.PANOCCfg(N=N, zerofpr=zerofpr)
+        out[(tag, "f32")] = tp_case(
+            f"(c) {tag} f32", parallel.TPPANOC(mesh=mesh, zerofpr=zerofpr),
+            F, g, L, x0,
+            (lambda st, cfg=cfg: spanoc.panoc_init(F, g, x0, st.gamma,
+                                                   st.sigma, cfg),
+             lambda s, k, sch, cfg=cfg: spanoc.panoc_run(F, g, s, cfg, k)),
+            None, ("x", "z", "gradx"), TP_C["panoc"], TP_C["panoc_profile"],
+            "step", card)
+    del F
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_deep_pd_one_rank(mesh, dev, seed: int, card: str) -> dict:
+    """deep_solve_pd_tp on 4y's two plants (262,144 x 1,024, 16 jumps):
+    refined, certified, rel <= DEEP_REL, seconds."""
+    from ciao_tpu_torch import parallel
+
+    S = PD_DEEP
+    out = {}
+    for three in (False, True):
+        tag = "three-term" if three else "fused lasso"
+        P = pd_problem(dev, seed, three)
+        (x, info), dt = timed(lambda: parallel.deep_solve_pd_tp(
+            torch.zeros(S["n"], device=dev), P["F"], g=P["g"], h=P["h"],
+            K=P["K"], N=S["N"], mesh=mesh, chunk_steps=S["chunk_steps"],
+            max_steps=S["max_steps"], refine_chunk=S["chunk"], seed=seed))
+        rel, jumps_ok, zeros = pd_rel(P, x, three)
+        log(f"  4tp (c) deep_solve_pd_tp {tag}, one rank, {S['N']} x "
+            f"{S['n']}: rel {rel:.3e}, refined {info.refined}, certified "
+            f"{info.certified}, jump set recovered {jumps_ok}"
+            + ("" if zeros is None else f", planted zeros exact {zeros}")
+            + f", {info.steps} Condat-Vu steps, {dt:.3f} s [{card}]")
+        if not (info.refined and info.certified):
+            raise AssertionError(f"4tp (c) deep_solve_pd_tp {tag}: refined "
+                                 f"{info.refined}, certified "
+                                 f"{info.certified}")
+        if not (math.isfinite(rel) and abs(rel) <= DEEP_REL):
+            raise AssertionError(f"4tp (c) deep_solve_pd_tp {tag}: rel {rel}")
+        if three and not zeros:
+            raise AssertionError("4tp (c) deep_solve_pd_tp three-term: a "
+                                 "planted zero is not exactly zero")
+        out[tag] = dict(rel=rel, s=dt, steps=info.steps)
+        del P
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_two_rank_runs(mesh, dev, seed: int) -> dict:
+    """(b)'s and (d)'s runs on one mesh (and (a)'s and (c)'s reference of
+    them on the (1, 1) mesh): TP_TWO['steps'] steps of TPSAGA (f32, int8)
+    and TPFinito, an outer step of TPSVRG at m = TP_TWO['svrg_m'],
+    TP_TWO['fista'] TPFISTA steps on the headline's rows, TPProshi on 4j's
+    sharing plant; (d): TP_TWO['steps'] steps of TPLSVRG, TPLKatyusha,
+    TPPointSAGA and TPSSNM, an outer step of TPKatyusha and TPSARAH at
+    m = TP_TWO['svrg_m'], TP_TWO['split'] of TPDavisYin and TPCondatVu
+    (FirstDifference: the halo at M = 2) and TP_TWO['panoc'] of TPPANOC
+    and TPZeroFPR, with their FBE evaluations counted; each state's
+    fields (the rank's shards) on the host. On the (1, 1) mesh also the
+    single card's CondatVu of the same data and steps. At D = 1 every
+    mesh draws data row 0's schedule, the (1, 1) mesh's."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.ops.linmap import FirstDifference
+    from ciao_tpu_torch.prox import IndBox, NormL1
+    from ciao_tpu_torch.solvers import panoc as spanoc
 
     T = TP_TWO
     g = NormL1(torch.tensor(LAM, device=dev))
@@ -6951,8 +7224,9 @@ def tp_two_rank_runs(mesh, dev, seed: int) -> dict:
         return {k: v.cpu() if isinstance(v, torch.Tensor) else v
                 for k, v in st._asdict().items()}
 
-    def one(tag, solver, F, gg, L, xx, steps):
-        _, _, _, init, _, run, _ = solver._setup(xx, F, gg, L, None)
+    def one(tag, solver, F, gg, L, xx, steps, setup=None):
+        _, _, _, init, _, run, _ = (setup() if setup is not None
+                                    else solver._setup(xx, F, gg, L, None))
         out[tag] = fields(run(init(), steps))
 
     for storage in ("f32", "int8"):
@@ -6976,6 +7250,54 @@ def tp_two_rank_runs(mesh, dev, seed: int) -> dict:
         one("TPSVRG", parallel.TPSVRG(mesh=mesh, batch=B, m=T["svrg_m"],
                                       seed=seed), Fp, g, L, x0, 1)
         one("TPFISTA", parallel.TPFISTA(mesh=mesh), Fp, g, L, x0, T["fista"])
+        for tag, solver in (
+                ("TPLSVRG", parallel.TPLSVRG(mesh=mesh, batch=B, seed=seed)),
+                ("TPLKatyusha", parallel.TPLKatyusha(mesh=mesh, batch=B,
+                                                     seed=seed)),
+                ("TPSSNM", parallel.TPSSNM(mesh=mesh, batch=B, seed=seed))):
+            one(tag, solver, Fp, g, L, x0, T["steps"])
+        one("TPPointSAGA", parallel.TPPointSAGA(mesh=mesh, batch=B,
+                                                seed=seed), Fp, None, L, x0,
+            T["steps"])
+        for tag, cls in (("TPKatyusha", parallel.TPKatyusha),
+                         ("TPSARAH", parallel.TPSARAH)):
+            one(tag, cls(mesh=mesh, batch=B, m=T["svrg_m"], seed=seed), Fp,
+                g, L, x0, 1)
+        box = IndBox(-TP_C["box"], TP_C["box"]).to(dev)
+        tv = NormL1(torch.tensor(TP_C["tv"], device=dev))
+        dy = parallel.TPDavisYin(mesh=mesh)
+        one("TPDavisYin", dy, Fp, g, L, x0, T["split"],
+            setup=lambda: dy._setup(x0, Fp, g, box, L, None))
+        cv = parallel.TPCondatVu(mesh=mesh)
+        one("TPCondatVu", cv, Fp, g, L, x0, T["split"],
+            setup=lambda: cv._setup(x0, Fp, g, tv, FirstDifference(), L,
+                                    None))
+        if mesh.size == 1:
+            # the single card's plain Condat-Vũ on the same data, steps
+            # and stepsizes: the halo's check in (d)
+            from ciao_tpu_torch.solvers import primal_dual as spd
+
+            st = out["TPCondatVu"]
+            pc = spd.PDCfg(N=N)
+            out["CondatVu single"] = dict(x=spd.pd_run(
+                Fp, g, tv, FirstDifference(), spd.pd_init(
+                    Fp, g, tv, FirstDifference(), x0, st["tau"].to(dev),
+                    st["sigma"].to(dev), pc), pc, T["split"]).x.cpu())
+        for tag, zerofpr in (("TPPANOC", False), ("TPZeroFPR", True)):
+            evals = [0]
+            inner = spanoc._eval_fbe
+
+            def counted(*a, **k):
+                evals[0] += 1
+                return inner(*a, **k)
+
+            spanoc._eval_fbe = counted
+            try:
+                one(tag, parallel.TPPANOC(mesh=mesh, zerofpr=zerofpr), Fp, g,
+                    L, x0, T["panoc"])
+            finally:
+                spanoc._eval_fbe = inner
+            out[tag]["evals"] = evals[0]
         del Fp
     c = SHARING_DEEP
     F, gs, L, _ = tp_sharing(dev, c["N"], c["n"])
@@ -7013,9 +7335,10 @@ def tp_deep_two(mesh, dev) -> dict:
 
 
 def tp_rank_main(rank: int, D: int, store: str, out_dir: str, seed: int):
-    """A rank process of (b): gloo over a FileStore, CUDA tensors on the
-    one card; the (1, 2) mesh's runs and deep_solve_tp, then the (2, 1)
-    mesh's TPSAGA and TPFISTA, written to out_dir."""
+    """A rank process of (b) and (d): gloo over a FileStore, CUDA tensors
+    on the one card; the (1, 2) mesh's runs and deep_solve_tp, then the
+    (2, 1) mesh's TPSAGA and TPFISTA, then ``dryrun_multichip(D)``,
+    written to out_dir."""
     import datetime
 
     import torch.distributed as dist
@@ -7039,6 +7362,10 @@ def tp_rank_main(rank: int, D: int, store: str, out_dir: str, seed: int):
         torch.cuda.empty_cache()
         out["tall"] = tall_runs(tall, dev, seed)
         out["tall_where"] = (tall.d, tall.m)
+        torch.cuda.empty_cache()
+        from ciao_tpu_torch.entry import dryrun_multichip
+
+        (_, out["dryrun_s"]) = timed(lambda: dryrun_multichip(D, device=dev))
         torch.cuda.synchronize()
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -7071,8 +7398,11 @@ def tall_runs(mesh, dev, seed: int) -> dict:
 
 
 def tp_part(v, where: tuple, axes: tuple, D: int, M: int):
-    """The rank (d, m)'s part of a whole (1, 1) field cut over ``axes``."""
+    """The rank (d, m)'s part of a whole (1, 1) field cut over ``axes``
+    (None: a dimension left whole)."""
     for dim, axis in enumerate(axes if v.dim() else ()):
+        if axis is None:
+            continue
         parts, at = (D, where[0]) if axis == "data" else (M, where[1])
         k = v.shape[dim] // parts
         v = v.narrow(dim, at * k, k)
@@ -7100,28 +7430,61 @@ def tp_two_ranks(ref: dict, seed: int, card: str) -> dict:
         outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=False) for r in range(D)]
     worst = {}
+    single_cv = ref.pop("CondatVu single")["x"]
     for fam, want in ref.items():
         cut = TP_CUT_PROSHI if fam == "TPProshi" else TP_CUT
-        e = 0.0
+        pairs = fam in ("TPPANOC", "TPZeroFPR")
+        e = e_iter = 0.0
         for o in outs:
             got = o["wide"][fam]
             for f, v in got.items():
-                if not isinstance(v, torch.Tensor):
+                if not isinstance(v, torch.Tensor) or not v.numel():
                     continue
                 part = tp_part(want[f], o["where"], cut.get(f, ()), 1, D)
                 if part.shape != v.shape:
                     raise AssertionError(f"4tp (b) {fam}: {f} of rank "
                                          f"{o['where']} is {tuple(v.shape)}, "
                                          f"not {tuple(part.shape)}")
-                e = max(e, rel_gap(v, part))
+                if pairs and f in TP_TWO_SHOWN:
+                    worst[f"{fam} {f}"] = max(worst.get(f"{fam} {f}", 0.0),
+                                              rel_gap(v, part))
+                elif pairs and f in TP_TWO_ITER:
+                    e_iter = max(e_iter, rel_gap(v, part))
+                else:
+                    e = max(e, rel_gap(v, part))
                 if "model" not in cut.get(f, ()) and not torch.equal(
                         v, outs[0]["wide"][fam][f]):
                     raise AssertionError(f"4tp (b) {fam}: {f} differs "
                                          f"between the ranks")
-        if not e <= TP_TWO_TOL:
+        if not (e <= TP_TWO_TOL and e_iter <= TP_TWO_ITER_TOL):
+            bad = {f: rel_gap(v, tp_part(want[f], o["where"], cut.get(f, ()),
+                                         1, D))
+                   for o in outs for f, v in o["wide"][fam].items()
+                   if isinstance(v, torch.Tensor) and v.numel()}
             raise AssertionError(f"4tp (b) {fam}: a rank's shard is {e:.3e} "
-                                 f"off (a)'s state (> {TP_TWO_TOL})")
+                                 f"off (a)'s state (> {TP_TWO_TOL}), the "
+                                 f"iterates {e_iter:.3e}: {bad}")
         worst[fam] = e
+        if pairs:
+            worst[fam + " iterates"] = e_iter
+    # (d): the halo's Condat-Vũ against the single card's, and PANOC's and
+    # ZeroFPR's FBE evaluations on both ranks
+    e = 0.0
+    for o in outs:
+        x = o["wide"]["TPCondatVu"]["x"]
+        e = max(e, rel_gap(x, tp_part(single_cv, o["where"], ("model",), 1,
+                                      D)))
+    if not e <= TP_TWO_TOL:
+        raise AssertionError(f"4tp (d) TPCondatVu at M = {D}: {e:.3e} off "
+                             f"the single card's CondatVu (> {TP_TWO_TOL})")
+    worst["TPCondatVu vs CondatVu"] = e
+    evals = {fam: [o["wide"][fam]["evals"] for o in outs]
+             for fam in ("TPPANOC", "TPZeroFPR")}
+    for fam, ev in evals.items():
+        if len(set(ev)) != 1:
+            raise AssertionError(f"4tp (d) {fam}: the ranks took {ev} FBE "
+                                 "evaluations")
+    dry_s = max(o["dryrun_s"] for o in outs)
     deep = [o["deep"] for o in outs]
     if not torch.equal(deep[0]["x"], deep[1]["x"]):
         raise AssertionError("4tp (b) deep_solve_tp: x differs between the "
@@ -7142,23 +7505,28 @@ def tp_two_ranks(ref: dict, seed: int, card: str) -> dict:
         if not bool(torch.isfinite(tall["TPSAGA"]["z"]).all()):
             raise AssertionError("4tp (b) (2, 1) TPSAGA: a non-finite z")
     held = outs[0]["wide"]["held"]
-    log(f"  4tp (b) {D} ranks on the one card over gloo (CUDA tensors): "
+    log(f"  4tp (b)/(d) {D} ranks on the one card over gloo (CUDA tensors): "
         f"(1, {D}), each rank {N} x {n // D} of the headline's rows "
         f"({held['rows'] / 2 ** 20:.1f} MiB, "
         f"{held['allocated'] / 2 ** 20:.1f} MiB allocated after the cut), "
-        f"largest gap of a rank's shard to (a)'s state: " + ", ".join(
+        f"largest gap of a rank's shard to (a)'s or (c)'s state: "
+        + ", ".join(
             f"{k} {v:.2e}" for k, v in worst.items())
         + f"; the whole fields bit for bit across the ranks; deep_solve_tp "
         f"{TP_TWO['deep_N']} x 128 at (1, {D}): rel {deep[0]['rel']:.3e} in "
         f"{deep[0]['chunks']} chunks, x bit for bit on both ranks; (2, 1): "
-        f"TPSAGA's z and av bit for bit across the ranks; (1, {D}) runs "
+        f"TPSAGA's z and av bit for bit across the ranks; (d) PANOC and "
+        f"ZeroFPR took {evals['TPPANOC'][0]} and {evals['TPZeroFPR'][0]} FBE "
+        f"evaluations on each rank, dryrun_multichip({D}) on the {D} ranks "
+        f"{dry_s:.2f} s; (1, {D}) runs "
         f"{outs[0]['wide_s']:.2f} s, {wall:.2f} s with the spawn [{card}]")
-    return dict(worst=worst, deep_rel=deep[0]["rel"], s=wall)
+    return dict(worst=worst, deep_rel=deep[0]["rel"], s=wall, dryrun_s=dry_s,
+                evals={k: v[0] for k, v in evals.items()})
 
 
 def run_tp(dev, seed: int, card: str, dp_deep_s: float) -> dict:
-    """Phase 4tp: (a) one rank over NCCL on a (1, 1) mesh, (b) two ranks on
-    the one card over gloo on (1, 2) and (2, 1) meshes."""
+    """Phase 4tp: (a) and (c) one rank over NCCL on a (1, 1) mesh, (b) and
+    (d) two ranks on the one card over gloo on (1, 2) and (2, 1) meshes."""
     import tempfile
 
     import torch.distributed as dist
@@ -7175,6 +7543,13 @@ def run_tp(dev, seed: int, card: str, dp_deep_s: float) -> dict:
             torch.cuda.empty_cache()
             deep = tp_deep_one_rank(mesh, dev, card, dp_deep_s)
             torch.cuda.empty_cache()
+            t_c = time.perf_counter()
+            new = tp_vr_one_rank(mesh, dev, seed, card)
+            new.update(tp_split_one_rank(mesh, dev, seed, card))
+            tp_text("(c)", new, card)
+            deep_pd = tp_deep_pd_one_rank(mesh, dev, seed, card)
+            t_c = time.perf_counter() - t_c
+            torch.cuda.empty_cache()
             ref = tp_two_rank_runs(mesh, dev, seed)
             ref.pop("held")
         finally:
@@ -7182,8 +7557,8 @@ def run_tp(dev, seed: int, card: str, dp_deep_s: float) -> dict:
     t_a = time.perf_counter() - t0
     torch.cuda.empty_cache()
     two = tp_two_ranks(ref, seed, card)
-    return dict(head=head, deep=deep, two=two, s_a=t_a,
-                s_b=time.perf_counter() - t0 - t_a,
+    return dict(head=head, deep=deep, new=new, deep_pd=deep_pd, two=two,
+                s_a=t_a - t_c, s_c=t_c, s_b=time.perf_counter() - t0 - t_a,
                 s=time.perf_counter() - t0)
 
 
@@ -8028,13 +8403,19 @@ def main() -> int:
             f"plain path {v['single_ms']:.4f}), {v['reductions']:.2f} "
             f"all-reduces and {v['launches']:.1f} launches per {v['unit']}, idle "
             f"{v['idle']:.3f}, first {v['unit']}s {v['err']:.2e} off"
-            for (tag, s_), v in tpr["head"].items())
+            for (tag, s_), v in {**tpr["head"], **tpr["new"]}.items())
         + f"; deep_solve_tp rel {tpr['deep']['rel']:.3e} in "
         f"{tpr['deep']['s']:.2f} s (deep_solve_dp {dp['deep']['s']:.2f} s); "
-        f"(b) deep_solve_tp rel {tpr['two']['deep_rel']:.3e}, shards within "
-        f"{max(tpr['two']['worst'].values()):.2e} of (a); (a) "
-        f"{tpr['s_a']:.2f} s, (b) {tpr['s_b']:.2f} s, all {tpr['s']:.2f} s "
-        f"[{card}]")
+        + "; ".join(
+            f"deep_solve_pd_tp {k} rel {v['rel']:.3e} in {v['s']:.2f} s "
+            f"({v['steps']} steps; 4y's deep_solve_pd {pd[k]['s']:.2f} s)"
+            for k, v in tpr["deep_pd"].items())
+        + f" (4dp's deep_solve_pd_dp, fused lasso, {dp['deep_pd']['s']:.2f} "
+        f"s); (b)/(d) deep_solve_tp rel {tpr['two']['deep_rel']:.3e}, shards "
+        f"within {max(tpr['two']['worst'].values()):.2e} of (a)/(c), "
+        f"dryrun_multichip(2) {tpr['two']['dryrun_s']:.2f} s; (a) "
+        f"{tpr['s_a']:.2f} s, (c) {tpr['s_c']:.2f} s, (b)/(d) "
+        f"{tpr['s_b']:.2f} s, all {tpr['s']:.2f} s [{card}]")
 
     # 11. kernel #7 per pass in turns with its plain version and kernel #6
     t11 = {s_: time_value_apply(gen, dev, s_, card, ceil)

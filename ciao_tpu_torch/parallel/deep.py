@@ -1,10 +1,11 @@
-"""``deep_solve_dp``, ``deep_solve_pd_dp`` and ``deep_solve_tp``: the
-deep-accuracy endgames over a data mesh and a (data, model) mesh.
+"""``deep_solve_dp``, ``deep_solve_pd_dp``, ``deep_solve_tp`` and
+``deep_solve_pd_tp``: the deep-accuracy endgames over a data mesh and a
+(data, model) mesh.
 
-Counterpart of ``ciao_tpu/parallel/deep.py``'s ``deep_solve_dp``,
-``deep_solve_pd_dp`` (:func:`deep_solve_pd_dp`, the primal-dual route,
-has its own note) and ``deep_solve_tp`` (:func:`deep_solve_tp`, the same
-plan with the iterate cut over coordinates, has its own note).
+Counterpart of ``ciao_tpu/parallel/deep.py``'s four plans
+(:func:`deep_solve_pd_dp` and :func:`deep_solve_pd_tp`, the primal-dual
+routes, and :func:`deep_solve_tp`, the same plan with the iterate cut
+over coordinates, have their own notes).
 ``deep_solve_dp`` is the
 single-card plan (:func:`ciao_tpu_torch.deep_solve`, stochastic stage to
 the f32 gradient floor, then compensated-gradient FISTA polish) built
@@ -373,3 +374,128 @@ def deep_solve_pd_dp(
         if dx <= plateau_rtol:
             break
     return state.x, info
+
+
+def deep_solve_pd_tp(
+    x0,
+    F,
+    g=None,
+    h=None,
+    K=None,
+    L=None,
+    N: Optional[int] = None,
+    *,
+    mesh,
+    tau: Optional[float] = None,
+    sigma: Optional[float] = None,
+    chunk_steps: int = 256,
+    max_steps: int = 8192,
+    refine_try_rtol: float = 3e-5,
+    plateau_rtol: float = 5e-8,
+    refine_chunk: int = 32_768,
+    power_iters: int = 12,
+    seed: int = 0,
+):
+    """The primal-dual deep route on a (data, model) mesh (JAX's
+    ``deep_solve_pd_tp``): :class:`~ciao_tpu_torch.parallel.TPCondatVu`
+    (the stencil K, one one-element halo per neighbour and product) in
+    rounds of ``chunk_steps`` steps to identification, at the spectral
+    stepsize of :func:`power_lmax_tp` (1.2 margin), then the certified
+    reduced solve: ``tv_refine`` for the fused lasso and ``tv_refine3``
+    for the three-term objective (g = λ₁‖·‖₁), as in JAX. The plain TP
+    step serves identification (the reduced solve does the deep part).
+
+    JAX lets GSPMD partition the reduced solve; here its collectives are
+    written out (``solvers.deep_pd.ColumnCut``): the whole iterate is
+    gathered over "model" for the segments, each chunk's A·S is the
+    rank's exact f32 product A[:, cols]·S[cols] summed over "model" in
+    f64, the compensated Gram and right-hand side are summed over "data"
+    as f64 (hi, lo) halves, and the certificate gradient is summed over
+    "data" and joined over "model". Every rank takes the same host f64
+    solves and the same verdict.
+
+    ``x0`` is the whole (n,) iterate; ``F`` a whole dense-rows oracle or
+    the rank's block (``shard_finite_sum_2d``); ``g``/``h`` separable;
+    ``refine_chunk`` the reduced solve's chunk of the rank's rows (rounded
+    down to a divisor of N/D). Every rank returns the same whole ``(x,
+    DeepPDInfo)``."""
+    from ciao_tpu_torch.ops.linmap import FirstDifference, IdentityMap
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+    from ciao_tpu_torch.parallel.mesh import Mesh2D
+    from ciao_tpu_torch.parallel.tp import (
+        TPCondatVu, _num_terms, _psum_d, _psum_m, gather_model,
+        shard_finite_sum_2d,
+    )
+    from ciao_tpu_torch.prox import NormL1, Zero
+    from ciao_tpu_torch.solvers.deep_pd import (
+        ColumnCut, DeepPDInfo, _tv_refine, _tv_refine3,
+    )
+
+    if not isinstance(mesh, Mesh2D):
+        raise ValueError("deep_solve_pd_tp needs a ('data','model') mesh")
+    N = _num_terms(F, N)
+    x0 = torch.as_tensor(x0, device=mesh.device)
+    n = x0.shape[0]
+    if getattr(F, "tp_shard", None) is None:
+        F = shard_finite_sum_2d(F, mesh, N)
+    lo, hi = mesh.cols(n)
+
+    lam_hat = None
+    if tau is None:
+        lam_hat = 1.2 * float(power_lmax_tp(
+            mesh, F, x0[lo:hi].to(torch.float32), seed, N,
+            iters=power_iters))
+        Kn = K if K is not None else IdentityMap()
+        normK = float(Kn.opnorm_bound(n))
+        sigma = 1.0 / max(normK, 1e-12) if sigma is None else sigma
+        tau = 0.99 / (lam_hat / 2.0 + sigma * normK * normK)
+
+    solver = TPCondatVu(mesh=mesh, tau=tau, sigma=sigma)
+    _, Fd, (g_r, h_r), init, _, run, _ = solver._setup(x0, F, g, h, K, L, N)
+    state = init()
+    refinable = (isinstance(Fd, LeastSquaresRows)
+                 and isinstance(K, FirstDifference)
+                 and isinstance(h_r, NormL1))
+    tv_shape = refinable and isinstance(g_r, Zero)
+    three_term = refinable and isinstance(g_r, NormL1)
+    rchunk = _largest_divisor_leq(N // mesh.D, refine_chunk)
+    cut = ColumnCut(lo=lo, hi=hi, msum=lambda t: _psum_m(mesh, t),
+                    gather=lambda v: gather_model(
+                        mesh, torch.from_numpy(v).to(mesh.device)
+                    ).cpu().numpy())
+
+    def norm(v):
+        return torch.sqrt(_psum_m(mesh, torch.sum(v * v)))
+
+    dx_rels: List[float] = []
+    info = DeepPDInfo(steps=0, dx_rels=dx_rels, lam_hat=lam_hat,
+                      tau=float(tau), sigma=float(sigma))
+    for _ in range(max(1, max_steps // chunk_steps)):
+        x_prev = state.x
+        state = run(state, chunk_steps)
+        info.steps += chunk_steps
+        # whole norms, so every rank takes each branch below alike
+        dx = float(norm(state.x - x_prev) / torch.clamp(norm(state.x),
+                                                        min=1e-30))
+        dx_rels.append(dx)
+        if (tv_shape or three_term) and dx <= refine_try_rtol:
+            x = gather_model(mesh, state.x)
+            d = torch.abs(torch.diff(x))
+            n_jumps = int(torch.sum(d > 1e-3 * torch.max(d)))
+            if 4 * n_jumps <= n:
+                reduce = lambda t: _psum_d(mesh, t)  # noqa: E731
+                if three_term:
+                    x_hat, certified = _tv_refine3(
+                        Fd, x, float(g_r.lam), float(h_r.lam), rchunk, 1e-3,
+                        1e-3, 0.01, N_total=N, reduce=reduce, cut=cut)
+                else:
+                    x_hat, certified, _ = _tv_refine(
+                        Fd, x, float(h_r.lam), rchunk, 1e-3, 0.01,
+                        N_total=N, reduce=reduce, cut=cut)
+                info.certified = certified
+                if certified:
+                    info.refined = True
+                    return x_hat, info
+        if dx <= plateau_rtol:
+            break
+    return gather_model(mesh, state.x), info

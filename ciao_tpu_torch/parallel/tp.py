@@ -1,11 +1,14 @@
 """Tensor-parallel (coordinate-sharded) solver paths on a (data, model)
 mesh of ``torch.distributed`` groups.
 
-Counterpart of ``ciao_tpu/parallel/tp.py``'s reference families: SAGA/SAG,
-coefficient Finito (sweeps 1/2/3), LFinito, SVRG/SVRG++, ProShI on
-coordinate-separable oracles, and the ISTA/FISTA of ``deep_solve_tp``'s
-polish. Rank (d, m) of a (D, M) mesh (:func:`~ciao_tpu_torch.parallel.
-mesh.make_mesh_2d`) holds its block of rows cut over BOTH axes:
+Counterpart of ``ciao_tpu/parallel/tp.py``: the reference's families
+(SAGA/SAG, coefficient Finito (sweeps 1/2/3), LFinito, SVRG/SVRG++,
+ProShI on coordinate-separable oracles, and the ISTA/FISTA of
+``deep_solve_tp``'s polish) and those beyond it (Katyusha, SARAH, L-SVRG,
+L-Katyusha, Point-SAGA, SSNM, Davis-Yin/Douglas-Rachford, Condat-Vũ/
+Chambolle-Pock on a stencil K, PANOC/ZeroFPR). Rank (d, m) of a (D, M)
+mesh (:func:`~ciao_tpu_torch.parallel.mesh.make_mesh_2d`) holds its block
+of rows cut over BOTH axes:
 
   * the oracle's (N, n) rows are cut to rows [d·N/D, (d+1)·N/D) and
     columns [m·n/M, (m+1)·n/M); its (N,) leaves (offsets, int8 row
@@ -20,14 +23,22 @@ mesh.make_mesh_2d`) holds its block of rows cut over BOTH axes:
 
 Per block step the collectives are JAX's: a (B,)-sized sum of the
 partial margins over "model" (:func:`_psum_m`, one ``all_reduce`` on the
-rank's model group) and an x-shard-sized sum of the innovation over
+rank's model group; the loopless pair, SARAH and Point-SAGA stack two
+(B,) rows into it) and an x-shard-sized sum of the innovation over
 "data" (:func:`_psum_d`, one on its data group). ProShI's oracles are
-coordinate-separable, so it sums over "data" alone. D = 1 is pure TP,
-M = 1 the data-parallel layout.
+coordinate-separable, so it sums over "data" alone. Condat-Vũ's stencil
+adds two one-element halos over "model" a step (:func:`_halo`), and
+PANOC's every inner product is a scalar sum over "model". D = 1 is pure
+TP, M = 1 the data-parallel layout.
 
 The states are the DP path's (``DPSAGAState``, ``DPFinitoCoeffState``,
-``DPLFinitoState``, ``DPSVRGState``, ``DPProshiState``, ``DPFBState``):
-their x-sized fields hold the rank's columns, their tables its rows.
+``DPLFinitoState``, ``DPSVRGState``, ``DPProshiState``, ``DPFBState``,
+``DPKatyushaState``, ``DPSARAHState``, ``DPLSVRGState``,
+``DPLKatyushaState``, ``DPPointSAGAState``, ``DPSSNMState``) and the
+single card's ``DYSState``, ``PDState`` and ``PANOCState``: their x-sized
+fields (and PANOC's L-BFGS ring) hold the rank's columns, their tables
+its rows (SSNM's stored points its rows and columns), Condat-Vũ's dual
+the rank's columns of the dual padded to (n,).
 
 Schedules are the port's counter hash with the rank's DATA row folded
 into the seed, the same on every rank of a model group (all members of
@@ -35,9 +46,12 @@ a data row must pick the same block, as JAX's ``tp.py:137-141``); they
 are drawn on the host, so every block start is a host int and every
 row slice a view. torch cannot draw threefry: ``step``/``run`` take
 explicit schedules, which the parity tests read from JAX's draws.
+L-SVRG's and L-Katyusha's anchor coin is a function of (seed, it) alone,
+the same on every rank, so a refresh's collectives run on all or none.
 
 No kernel: JAX's TP path runs its steps through the oracle's margin
-protocol outside any Pallas kernel, and so does this one.
+protocol outside any Pallas kernel (its TP PANOC leaves ``fused`` off),
+and so does this one.
 """
 
 from __future__ import annotations
@@ -50,8 +64,10 @@ import torch.distributed as dist
 
 from ciao_tpu_torch import runtime
 from ciao_tpu_torch.parallel.dp import (
-    DPFBState, DPFinitoCoeffState, DPLFinitoState, DPProshiState,
-    DPSAGAState, DPSVRGState, _DPRun, _block, _check_loop, _local_gamma,
+    DPFBState, DPFinitoCoeffState, DPKatyushaState, DPLFinitoState,
+    DPLKatyushaState, DPLSVRGState, DPPointSAGAState, DPProshiState,
+    DPSAGAState, DPSARAHState, DPSSNMState, DPSVRGState, _as_real, _DPRun,
+    _block, _check_loop, _check_positive, _L_max, _local_gamma,
     _local_round_starts, _owned, _proshi_update, _rank_seed, _rows,
     _validate_mesh_batch, local_indices,
 )
@@ -61,7 +77,8 @@ from ciao_tpu_torch.parallel.mesh import (
 from ciao_tpu_torch.prox import Zero
 from ciao_tpu_torch.sampling import Sweep, _permutation
 from ciao_tpu_torch.solvers.base import (
-    Status, real_dtype_of, resolve_gamma_array,
+    SolverIterable, Status, real_dtype_of, resolve_gamma_array,
+    run_solver_loop,
 )
 from ciao_tpu_torch.solvers.proshi import _coupling as _proshi_coupling
 from ciao_tpu_torch.solvers.svrg import _outer_seed
@@ -79,6 +96,11 @@ class TPCfg(NamedTuple):
     plus: bool = False  # SVRG++
     fast: bool = False  # FISTA
     polish_chunk: int = 0  # FB/FISTA: compensated chunked gradient
+    m_inner: int = 0    # Katyusha/SARAH inner steps; PANOC's L-BFGS memory
+    variant: str = ""   # Katyusha "ns"/"sc"; PANOC "panoc"/"zerofpr";
+    #                     Condat-Vũ's K "identity"/"firstdiff"
+    max_ls: int = 10    # PANOC line-search trials
+    adaptive: bool = False  # PANOC's γ-backtracking
 
     @property
     def n_loc(self):
@@ -457,6 +479,435 @@ def _fb_step(F, g, mesh, cfg: TPCfg, state, starts=None, idx=None):
     return state._replace(t=t_new, x=x_new, y=y_new, it=state.it + 1)
 
 
+# ---------------------------------------------------------------------------
+# Katyusha and SARAH: outer steps of m inner steps
+# ---------------------------------------------------------------------------
+
+def _inner_starts(mesh, cfg: TPCfg, state, starts) -> list:
+    """The outer step's m inner block starts, as host ints: the explicit
+    ones, else the data row's draws under the outer step's seed (TPSVRG's
+    stream, ``tp.py:780-791``)."""
+    if starts is not None:
+        return [int(s) for s in starts]
+    return _starts(mesh, cfg, _outer_seed(state.seed, state.it), 1,
+                   cfg.m_inner, Sweep.RANDOM)
+
+
+def _katyusha_init(F, g, mesh, cfg: TPCfg, x0, Lmax, seed, tau1, tau2):
+    """Katyusha bootstrap (``tp.py:753``): the anchor's full gradient is
+    one margin sum over "model" and one sum over "data"."""
+    return DPKatyushaState(
+        Lmax=_as_real(Lmax, x0), tau1=_as_real(tau1, x0),
+        tau2=_as_real(tau2, x0), av=full_gradient_tp(F, mesh, cfg, x0),
+        x_tilde=x0, y=x0, z=x0, seed=int(seed), it=1,
+        status=int(Status.RUNNING))
+
+
+def _katyusha_outer(F, g, mesh, cfg: TPCfg, state, starts=None, idx=None):
+    """One outer step (``tp.py:765-811``): the anchor coefficients once,
+    then m inner steps, each a (B,) margin sum at the coupled point over
+    "model" and a sum over "data" of the variance-reduced direction; the
+    three sequences move on the rank's columns (separable g)."""
+    from ciao_tpu_torch.solvers.katyusha import (
+        KatyushaCfg, _katyusha_schedule,
+    )
+
+    N, B = cfg.N, cfg.b_loc
+    tau1, tau2, alpha, beta = _katyusha_schedule(
+        KatyushaCfg(N=N, ns=cfg.variant == "ns"), state)
+    av, xt = state.av, state.x_tilde
+    cf = _anchor(F, mesh, xt)
+    y, z = state.y, state.z
+    ysum = torch.zeros_like(y)
+    for start in _inner_starts(mesh, cfg, state, starts):
+        x = tau1 * z + tau2 * xt + (1.0 - tau1 - tau2) * y
+        cb = F.coeff_from_margin(_psum_m(mesh, F.margin_block(x, start, B)),
+                                 start, B)
+        gr = av + _psum_d(mesh, F.apply_rows_block(
+            cb - cf.narrow(0, start, B), start, B)) / (B * cfg.D)
+        z = g.prox_only(z - alpha * gr, alpha)
+        y = g.prox_only(x - beta * gr, beta)
+        ysum = ysum + y
+    x_tilde = ysum / cfg.m_inner
+    return state._replace(
+        tau1=tau1.to(state.tau1.dtype) if cfg.variant == "ns" else state.tau1,
+        av=full_gradient_tp(F, mesh, cfg, x_tilde), x_tilde=x_tilde, y=y,
+        z=z, it=state.it + 1)
+
+
+def _sarah_init(F, g, mesh, cfg: TPCfg, x0, gamma, seed, eta):
+    """SARAH bootstrap (``tp.py:845``): no gradient work, so
+    solution(init) == x0."""
+    return DPSARAHState(gamma=_as_real(gamma, x0), eta=_as_real(eta, x0),
+                        x_tilde=x0, seed=int(seed), it=1,
+                        status=int(Status.RUNNING))
+
+
+def _sarah_outer(F, g, mesh, cfg: TPCfg, state, starts=None, idx=None):
+    """One outer step (``tp.py:855-893``): v₀ the full gradient, then m
+    recursive inner steps, each the block margins at w_t and w_{t−1} in
+    ONE stacked (2, B) sum over "model" and one sum over "data" of the
+    estimator's innovation; the damped prox on the rank's columns."""
+    from ciao_tpu_torch.solvers.sarah import _damped_prox
+
+    B = cfg.b_loc
+    gamma, eta = state.gamma, state.eta
+    v = full_gradient_tp(F, mesh, cfg, state.x_tilde)
+    w_prev = state.x_tilde
+    w = _damped_prox(g, w_prev, v, gamma, eta)
+    for start in _inner_starts(mesh, cfg, state, starts):
+        r2 = _psum_m(mesh, torch.stack([F.margin_block(w, start, B),
+                                        F.margin_block(w_prev, start, B)]))
+        cb = F.coeff_from_margin(r2[0], start, B)
+        cp = F.coeff_from_margin(r2[1], start, B)
+        v = v + _psum_d(mesh, F.apply_rows_block(cb - cp, start, B)) / (
+            B * cfg.D)
+        w_prev, w = w, _damped_prox(g, w, v, gamma, eta)
+    return state._replace(x_tilde=w, it=state.it + 1)
+
+
+# ---------------------------------------------------------------------------
+# L-SVRG / L-Katyusha: the anchor coin is the same on every rank
+# ---------------------------------------------------------------------------
+
+def _coin_of(state, coins) -> bool:
+    """The step's anchor coin: the explicit one, else ``solvers.lsvrg.
+    draw_coins`` of (seed, it) alone, the same on every rank, so every
+    rank takes the refresh's collectives or none."""
+    from ciao_tpu_torch.solvers.lsvrg import draw_coins
+
+    if coins is not None:
+        return bool(coins)
+    return bool(draw_coins(state.seed, state.it, 1, state.p)[0])
+
+
+def _live_anchor(F, mesh, cfg: TPCfg, x1, x2, start):
+    """Σ over the block of ∇f_i(x1) − ∇f_i(x2), the rank's columns,
+    summed over "data": the margins at both points in ONE stacked (2, B)
+    sum over "model" (no anchor-coefficient cache: the anchor moves at
+    random times), then one sum over "data"."""
+    B = cfg.b_loc
+    r2 = _psum_m(mesh, torch.stack([F.margin_block(x1, start, B),
+                                    F.margin_block(x2, start, B)]))
+    c1 = F.coeff_from_margin(r2[0], start, B)
+    c2 = F.coeff_from_margin(r2[1], start, B)
+    return _psum_d(mesh, F.apply_rows_block(c1 - c2, start, B))
+
+
+def _lsvrg_init(F, g, mesh, cfg: TPCfg, x0, gamma, seed, p):
+    """L-SVRG bootstrap (``tp.py:1447``)."""
+    return DPLSVRGState(gamma=_as_real(gamma, x0), p=float(p),
+                        av=full_gradient_tp(F, mesh, cfg, x0), z=x0, w=x0,
+                        seed=int(seed), it=1, status=int(Status.RUNNING))
+
+
+def _lsvrg_step(F, g, mesh, cfg: TPCfg, state, starts=None, idx=None,
+                coins=None):
+    """One step (``tp.py:1468-1497``): the direction from the stacked
+    margins, and on a coin flip the anchor jumps to the pre-update w with
+    its full gradient (one more margin sum over "model" and one over
+    "data")."""
+    gamma, w = state.gamma, state.w
+    start = _start_of(mesh, cfg, state, starts, Sweep.RANDOM)
+    d = _live_anchor(F, mesh, cfg, state.z, w, start) / (cfg.b_loc * cfg.D)
+    w_new = g.prox_only(w + gamma * (d - state.av), gamma)
+    if _coin_of(state, coins):
+        state = state._replace(av=full_gradient_tp(F, mesh, cfg, w), z=w)
+    return state._replace(w=w_new, it=state.it + 1)
+
+
+def _lsvrg_rebase(F, g, mesh, cfg: TPCfg, state):
+    """The exact anchor gradient at the anchor (``tp.py:1500``)."""
+    return state._replace(av=full_gradient_tp(F, mesh, cfg, state.z))
+
+
+def _lkatyusha_init(F, g, mesh, cfg: TPCfg, x0, Lmax, seed, sigma, theta1,
+                    theta2, p):
+    """L-Katyusha bootstrap (``tp.py:1531``)."""
+    return DPLKatyushaState(
+        Lmax=_as_real(Lmax, x0), sigma=_as_real(sigma, x0),
+        theta1=_as_real(theta1, x0), theta2=_as_real(theta2, x0),
+        p=float(p), av=full_gradient_tp(F, mesh, cfg, x0), w_anchor=x0,
+        y=x0, z=x0, seed=int(seed), it=1, status=int(Status.RUNNING))
+
+
+def _lkatyusha_step(F, g, mesh, cfg: TPCfg, state, starts=None, idx=None,
+                    coins=None):
+    """One step (``tp.py:1542-1580``): the coupling and the proximal
+    mirror step on the rank's columns; on a coin flip the anchor jumps to
+    the pre-update y."""
+    th1, th2, sig = state.theta1, state.theta2, state.sigma
+    eta = th2 / ((1.0 + th2) * th1)
+    step = eta / state.Lmax
+    w = state.w_anchor
+    x = th1 * state.z + th2 * w + (1.0 - th1 - th2) * state.y
+    start = _start_of(mesh, cfg, state, starts, Sweep.RANDOM)
+    gr = state.av + _live_anchor(F, mesh, cfg, x, w, start) / (
+        cfg.b_loc * cfg.D)
+    denom = 1.0 + eta * sig
+    z_new = g.prox_only((state.z + (eta * sig) * x - step * gr) / denom,
+                        step / denom)
+    y_new = x + th1 * (z_new - state.z)
+    if _coin_of(state, coins):
+        state = state._replace(av=full_gradient_tp(F, mesh, cfg, state.y),
+                               w_anchor=state.y)
+    return state._replace(y=y_new, z=z_new, it=state.it + 1)
+
+
+def _lkatyusha_rebase(F, g, mesh, cfg: TPCfg, state):
+    return state._replace(av=full_gradient_tp(F, mesh, cfg, state.w_anchor))
+
+
+# ---------------------------------------------------------------------------
+# Point-SAGA and SSNM
+# ---------------------------------------------------------------------------
+
+def _point_saga_init(F, g, mesh, cfg: TPCfg, x0, gamma, seed):
+    """Point-SAGA bootstrap (``tp.py:927``)."""
+    c = _anchor(F, mesh, x0)
+    return DPPointSAGAState(gamma=_as_real(gamma, x0), c=c,
+                            av=_psum_d(mesh, F.apply_all(c)) / cfg.N, x=x0,
+                            seed=int(seed), it=1, status=int(Status.RUNNING))
+
+
+def _point_saga_step(F, g, mesh, cfg: TPCfg, state, starts=None, idx=None):
+    """One block step (``tp.py:940-965``): the margins at the shifted
+    iterate and the rows' square-norms are both partial over the columns,
+    so they ride ONE stacked (2, B) sum over "model" (int8 row scales go
+    on after it, inside ``pointprox_theta_block``); θ is solved alike on
+    every rank of the model group; u = Σ(c − θ)·a is one sum over
+    "data"."""
+    N, B = cfg.N, cfg.b_loc
+    gamma = state.gamma
+    v = state.x - gamma * state.av
+    start = _start_of(mesh, cfg, state, starts, cfg.sweeping)
+    c_B = state.c.narrow(0, start, B)
+    mv = F.margin_block(v, start, B)
+    r2 = _psum_m(mesh, torch.stack(
+        [mv, F.pointprox_sqnorm_block(start, B).to(mv.dtype)]))
+    theta = F.pointprox_theta_block(r2[0], torch.real(r2[1]), c_B, gamma,
+                                    start, B)
+    u = _psum_d(mesh, F.apply_rows_block(c_B - theta, start, B))
+    c_B.copy_(theta)
+    return state._replace(x=v + (gamma / (B * cfg.D)) * u,
+                          av=state.av - u / N, it=state.it + 1)
+
+
+def _point_saga_rebase(F, g, mesh, cfg: TPCfg, state):
+    """The exact table mean from the rank's rows (``tp.py:968``)."""
+    return state._replace(av=_psum_d(mesh, F.apply_all(state.c)) / cfg.N)
+
+
+def _ssnm_init(F, g, mesh, cfg: TPCfg, x0, tau, seed, eta):
+    """SSNM bootstrap (``tp.py:1623``): every stored point x0, cut over
+    the rank's blocks AND its columns."""
+    c = _anchor(F, mesh, x0)
+    return DPSSNMState(
+        tau=_as_real(tau, x0), eta=_as_real(eta, x0), c=c,
+        zb=x0.expand(cfg.n_loc // cfg.b_loc, x0.shape[0]).clone(),
+        gbar=_psum_d(mesh, F.apply_all(c)) / cfg.N, x=x0, seed=int(seed),
+        it=1, status=int(Status.RUNNING))
+
+
+def _ssnm_step(F, g, mesh, cfg: TPCfg, state, starts=None, idx=None):
+    """One block step (``tp.py:1637-1660``): the momentum point y = τx +
+    (1 − τ)·zb[j] on the rank's columns, its (B,) margins summed over
+    "model", the innovation over "data"; the mirror step and prox on the
+    rank's columns."""
+    N, B = cfg.N, cfg.b_loc
+    tau, eta = state.tau, state.eta
+    start = _start_of(mesh, cfg, state, starts, Sweep.RANDOM)
+    zb = state.zb[start // B]
+    y = tau * state.x + (1.0 - tau) * zb
+    c_new = F.coeff_from_margin(_psum_m(mesh, F.margin_block(y, start, B)),
+                                start, B)
+    c_old = state.c.narrow(0, start, B)
+    innov = _psum_d(mesh, F.apply_rows_block(c_new - c_old, start, B))
+    x = g.prox_only(state.x - eta * (innov / (B * cfg.D) + state.gbar), eta)
+    c_old.copy_(c_new)
+    zb.copy_(y)
+    return state._replace(gbar=state.gbar + innov / N, x=x, it=state.it + 1)
+
+
+def _ssnm_rebase(F, g, mesh, cfg: TPCfg, state):
+    return state._replace(gbar=_psum_d(mesh, F.apply_all(state.c)) / cfg.N)
+
+
+# ---------------------------------------------------------------------------
+# Davis-Yin, Condat-Vũ (a stencil K), PANOC/ZeroFPR: full-gradient methods
+# ---------------------------------------------------------------------------
+
+def _grad_or_zero(F, mesh, cfg: TPCfg, x):
+    """∇f(x), the rank's columns; zero for f = 0 (``ZeroOracle`` has no
+    margin protocol, so the f = 0 path skips the oracle, ``tp.py:1097``)."""
+    from ciao_tpu_torch.oracles import ZeroOracle
+
+    if isinstance(F, ZeroOracle):
+        return torch.zeros_like(x)
+    return full_gradient_tp(F, mesh, cfg, x)
+
+
+def _dys_init(F, gh, mesh, cfg: TPCfg, x0, gamma, seed, lam):
+    """Davis-Yin bootstrap (``tp.py:1079``): ``gh`` is the pair (g, h)."""
+    from ciao_tpu_torch.solvers.dys import DYSState
+
+    return DYSState(gamma=_as_real(gamma, x0), lam=_as_real(lam, x0), z=x0,
+                    xg=x0, it=1, status=int(Status.RUNNING))
+
+
+def _dys_step(F, gh, mesh, cfg: TPCfg, state, starts=None, idx=None):
+    """One step (``tp.py:1089-1107``): ``solvers.dys._dys_step`` with the
+    full gradient one margin sum over "model" and one sum over "data";
+    both proxes on the rank's columns."""
+    from ciao_tpu_torch.solvers.dys import _dys_step as step
+
+    g, h = gh
+    return step(F, g, h, None, state,
+                grad_fn=lambda x: _grad_or_zero(F, mesh, cfg, x))
+
+
+def _pd_init(F, gh, mesh, cfg: TPCfg, x0, tau, seed, sigma):
+    """Condat-Vũ bootstrap (``tp.py:1136``): the dual is carried PADDED to
+    (n,), cut like x; its virtual last element (the last rank's last)
+    stays 0."""
+    from ciao_tpu_torch.solvers.primal_dual import PDState
+
+    return PDState(tau=_as_real(tau, x0), sigma=_as_real(sigma, x0), x=x0,
+                   y=torch.zeros_like(x0), it=1, status=int(Status.RUNNING))
+
+
+def _halo(mesh: Mesh2D, v, offset: int):
+    """The element ``v`` (a (1,) tensor) of the model neighbour at
+    ``offset`` (−1 left, +1 right), zero past either end: ONE all-gather
+    of a one-element tensor over the model group, which every rank of it
+    calls (JAX's ``lax.ppermute`` of one scalar on the ring, ``tp.py:
+    1183-1207``); zero with no collective at M = 1."""
+    at = mesh.m + offset
+    if mesh.M == 1:
+        return torch.zeros_like(v)
+    every = gather_model(mesh, v)
+    return every.narrow(0, at, 1) if 0 <= at < mesh.M else torch.zeros_like(v)
+
+
+def _pd_step(F, gh, mesh, cfg: TPCfg, state, starts=None, idx=None):
+    """One step (``tp.py:1143-1206``) with K = FirstDifference's stencil:
+
+        (Kx)_i = x_{i+1} − x_i (the virtual row n−1 → 0),
+        (Kᵀy)_j = y_{j−1} − y_j (y_{−1} = y_{n−1} = 0),
+
+    each rank needing ONE element of a neighbour per product: Kᵀy takes
+    the left rank's last dual element, then K(2x⁺ − x) the right rank's
+    first primal one (two halos, in JAX's order: the second depends on
+    x⁺). K = I has none. The gradient is one margin sum over "model" and
+    one sum over "data" (none for f = 0); both proxes on the rank's
+    columns, the dual's by the Moreau identity."""
+    from ciao_tpu_torch.solvers.primal_dual import prox_conjugate
+
+    g, h = gh
+    tau, sigma = state.tau, state.sigma
+    x, y = state.x, state.y
+    grad = _grad_or_zero(F, mesh, cfg, x)
+    stencil = cfg.variant != "identity"
+    if stencil:
+        kty = torch.cat([_halo(mesh, y[-1:], -1), y[:-1]]) - y
+    else:
+        kty = y
+    x_new = g.prox_only(x - tau * (grad + kty), tau)
+    v = 2.0 * x_new - x
+    last = stencil and mesh.m == mesh.M - 1
+    if stencil:
+        kx = torch.cat([v[1:], _halo(mesh, v[:1], 1)]) - v
+        if last:
+            kx[-1] = 0.0
+    else:
+        kx = v
+    y_new = prox_conjugate(h, y + sigma * kx, sigma)
+    if last:
+        # the pad's virtual element stays exactly 0 (prox_{σh*}(0) = 0 for
+        # every norm here; pinned against an exotic h)
+        y_new[-1] = 0.0
+    return state._replace(x=x_new, y=y_new, it=state.it + 1)
+
+
+class _TPFBEOracle:
+    """The oracle PANOC's step sees on a rank (``tp.py:1225``): the raw
+    margins summed over "model", then the value and the gradient each
+    summed over "data" (the gradient stays the rank's columns). Every
+    value the host reads is of these sums, so every rank takes the same
+    trials."""
+
+    def __init__(self, mesh, F):
+        self._mesh, self._F = mesh, F
+
+    def value_sum_and_grad_sum_all(self, u):
+        F, mesh = self._F, self._mesh
+        r = _psum_m(mesh, F.margin_all(u))
+        val = _psum_d(mesh, F.value_from_margin_all(r))
+        return val, _psum_d(mesh, F.apply_all(F.coeff_from_margin_all(r)))
+
+    def value_sum_all(self, u):
+        F, mesh = self._F, self._mesh
+        return _psum_d(mesh, F.value_from_margin_all(
+            _psum_m(mesh, F.margin_all(u))))
+
+    def grad_sum_all(self, u):
+        return _psum_d(self._mesh, self._F.apply_all(
+            _anchor(self._F, self._mesh, u)))
+
+
+class _TPProxAdapter:
+    """A separable prox on the rank's columns whose VALUE is summed over
+    "model" (``tp.py:1246``): the envelope's g(z) must be the whole
+    value, or the line search's test would differ across the ranks."""
+
+    def __init__(self, mesh, g):
+        self._mesh, self._g = mesh, g
+
+    def prox(self, x, gamma):
+        z = self._g.prox_only(x, gamma)
+        val = torch.as_tensor(self._g.value(z), device=z.device)
+        return z, _psum_m(self._mesh, val.to(real_dtype_of(z)))
+
+
+def _rdot_tp(mesh: Mesh2D):
+    """Re⟨a, b⟩ of vectors cut over "model": the rank's part, summed over
+    the model group (``tp.py:1259``)."""
+    def rdot(a, b):
+        return _psum_m(mesh, torch.real(torch.vdot(a, b)))
+    return rdot
+
+
+def _panoc_cfg(cfg: TPCfg):
+    """The single-card config of the TP step: no ``tol`` and no kernel
+    (JAX's TP config leaves ``fused`` off, ``tp.py:1272``)."""
+    from ciao_tpu_torch.solvers.panoc import PANOCCfg
+
+    return PANOCCfg(N=cfg.N, mem=cfg.m_inner, max_ls=cfg.max_ls,
+                    zerofpr=cfg.variant == "zerofpr", tol=None,
+                    adaptive=cfg.adaptive)
+
+
+def _panoc_init(F, g, mesh, cfg: TPCfg, x0, gamma, seed, sigma):
+    """PANOC/ZeroFPR bootstrap (``tp.py:1264``): ``solvers.panoc.
+    panoc_init`` on :class:`_TPFBEOracle`; the L-BFGS ring is (mem, the
+    rank's columns)."""
+    from ciao_tpu_torch.solvers.panoc import panoc_init
+
+    return panoc_init(_TPFBEOracle(mesh, F), _TPProxAdapter(mesh, g), x0,
+                      _as_real(gamma, x0), _as_real(sigma, x0),
+                      _panoc_cfg(cfg), _rdot_tp(mesh))
+
+
+def _panoc_step(F, g, mesh, cfg: TPCfg, state, starts=None, idx=None):
+    """One step (``tp.py:1293``): ``solvers.panoc._panoc_step`` with every
+    inner product summed over "model"; each FBE evaluation is one margin
+    sum over "model" and two sums over "data"."""
+    from ciao_tpu_torch.solvers.panoc import _panoc_step as step
+
+    return step(_TPFBEOracle(mesh, F), _TPProxAdapter(mesh, g),
+                _panoc_cfg(cfg), state, _rdot_tp(mesh))
+
+
 def _identity(F, g, mesh, cfg, state):
     """LFinito and SVRG recompute their anchor every epoch (outer step):
     a storage swap heals after one iterate."""
@@ -471,16 +922,28 @@ _FAMILY = {
     "svrg": (_svrg_init, _svrg_outer, _identity, ()),
     "proshi": (_proshi_init, _proshi_step, _proshi_rebase, ("s",)),
     "fb": (_fb_init, _fb_step, _identity, ()),
+    "katyusha": (_katyusha_init, _katyusha_outer, _identity, ()),
+    "sarah": (_sarah_init, _sarah_outer, _identity, ()),
+    "lsvrg": (_lsvrg_init, _lsvrg_step, _lsvrg_rebase, ()),
+    "lkatyusha": (_lkatyusha_init, _lkatyusha_step, _lkatyusha_rebase, ()),
+    "point_saga": (_point_saga_init, _point_saga_step, _point_saga_rebase,
+                   ("c",)),
+    "ssnm": (_ssnm_init, _ssnm_step, _ssnm_rebase, ("c", "zb")),
+    "dys": (_dys_init, _dys_step, _identity, ()),
+    "pd": (_pd_init, _pd_step, _identity, ()),
+    "panoc": (_panoc_init, _panoc_step, _identity, ()),
 }
+# the families whose steps flip the replicated anchor coin
+_COIN_FAMILIES = ("lsvrg", "lkatyusha")
 
 
 def _run_sweep(family: str, cfg: TPCfg):
     """The sweep of the block starts a run of ``family`` draws in one pass,
     or None where each step draws its own (or none)."""
-    if family == "saga":
+    if family in ("saga", "lsvrg", "lkatyusha", "ssnm"):
         return Sweep.RANDOM
-    if family == "finito" or (family == "proshi"
-                              and cfg.sweeping != Sweep.RANDOM):
+    if family in ("finito", "point_saga") or (
+            family == "proshi" and cfg.sweeping != Sweep.RANDOM):
         return cfg.sweeping
     return None
 
@@ -492,18 +955,27 @@ def build_tp_functions(family: str, mesh: Mesh2D, F, g, cfg: TPCfg):
     ``g`` (columns of its (n,) parameters), the mesh and the config.
 
       * ``init(x0, a, seed, *extra)``: x0 the rank's columns; ``a`` γ (a
-        scalar for SAGA, SVRG and FB; the rank's (n_loc,) rows for
-        Finito, LFinito and ProShI); SVRG's ``extra`` is m;
-      * ``step(state, starts=None, idx=None)``: one step, the state passed
-        in left valid;
-      * ``run(state, steps, starts=None, idx=None)``: ``steps`` steps,
-        the tables copied once and then written in place;
+        scalar for SAGA, SVRG, FB, SARAH, L-SVRG, Point-SAGA, Davis-Yin
+        and PANOC; the rank's (n_loc,) rows for Finito, LFinito and
+        ProShI), L_max (Katyusha, L-Katyusha) or τ (SSNM, Condat-Vũ);
+        ``extra``: SVRG's m, Katyusha's (τ₁, τ₂), SARAH's η, L-SVRG's p,
+        L-Katyusha's (σ, θ₁, θ₂, p), SSNM's η, Davis-Yin's λ, Condat-Vũ's
+        σ, PANOC's σ. Davis-Yin's ``g`` is the pair (g, h), Condat-Vũ's
+        too (K's kind is ``cfg.variant``);
+      * ``step(state, starts=None, idx=None, coins=None)``: one step, the
+        state passed in left valid;
+      * ``run(state, steps, starts=None, idx=None, coins=None)``:
+        ``steps`` steps, the tables copied once and then written in
+        place; a state that is not RUNNING stays as it is;
       * ``rebase(state)``: the storage-swap repair.
 
     ``starts``/``idx`` give the rank's schedule, one entry a step: a
-    block start (SAGA, Finito, ProShI's cyclic and shuffled sweeps), the
-    epoch's block starts in visit order (LFinito), the outer step's m
-    inner starts (SVRG), or ProShI's random (b_loc,) rows."""
+    block start (SAGA, Finito, ProShI's cyclic and shuffled sweeps,
+    L-SVRG, L-Katyusha, Point-SAGA, SSNM), the epoch's block starts in
+    visit order (LFinito), the outer step's m inner starts (SVRG,
+    Katyusha, SARAH), or ProShI's random (b_loc,) rows. ``coins`` gives
+    L-SVRG's and L-Katyusha's anchor coins, one a step; by default they
+    are drawn from (seed, it) alone, the same on every rank."""
     init_fn, step_fn, rebase_fn, tables = _FAMILY[family]
     runtime.require_exact_f32_matmul(mesh.device, f"TP {family}")
     sweep = _run_sweep(family, cfg)
@@ -511,22 +983,33 @@ def build_tp_functions(family: str, mesh: Mesh2D, F, g, cfg: TPCfg):
     def init(x0, a, seed, *extra):
         return init_fn(F, g, mesh, cfg, x0, a, seed, *extra)
 
-    def step(state, starts=None, idx=None):
+    def one(state, starts, idx, coin):
+        if coin is None:
+            return step_fn(F, g, mesh, cfg, state, starts, idx)
+        return step_fn(F, g, mesh, cfg, state, starts, idx, coin)
+
+    def step(state, starts=None, idx=None, coins=None):
         if state.status != Status.RUNNING:
             return state
-        return step_fn(F, g, mesh, cfg, _owned(state, tables), starts, idx)
+        return one(_owned(state, tables), starts, idx, coins)
 
-    def run(state, steps, starts=None, idx=None):
+    def run(state, steps, starts=None, idx=None, coins=None):
         if state.status != Status.RUNNING:
             return state
         state = _owned(state, tables)
         if starts is None and idx is None and sweep is not None:
             # the run's block starts in one pass of the hash
             starts = _starts(mesh, cfg, state.seed, state.it, steps, sweep)
+        if coins is None and family in _COIN_FAMILIES:
+            from ciao_tpu_torch.solvers.lsvrg import draw_coins
+
+            coins = draw_coins(state.seed, state.it, steps, state.p)
         for t in range(steps):
-            state = step_fn(F, g, mesh, cfg, state,
-                            None if starts is None else starts[t],
-                            None if idx is None else idx[t])
+            state = one(state, None if starts is None else starts[t],
+                        None if idx is None else idx[t],
+                        None if coins is None else coins[t])
+            if state.status != Status.RUNNING:
+                break
         return state
 
     def rebase(state):
@@ -846,3 +1329,576 @@ class TPForwardBackward(_TPRun):
 def TPFISTA(**kwargs) -> TPForwardBackward:
     """``TPForwardBackward(fast=True)``."""
     return TPForwardBackward(fast=True, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# facades of the families beyond the reference
+# ---------------------------------------------------------------------------
+
+def _cut_setup(self, who: str, x0, F, g, N, oracle: str = "coeff"):
+    """A block family's validated call before its scalars: (mesh, x0
+    whole, F, g, N, D) with N/D divisible by ``batch`` and n by M."""
+    mesh, x0, F, g, N = _tp_args(self.mesh, x0, F, g, N, who, oracle)
+    _check_rows(mesh, N, self.batch, who)
+    _check_n(mesh, x0, who)
+    return mesh, x0, F, g, N, mesh.D
+
+
+@dataclasses.dataclass(frozen=True)
+class TPKatyusha(_TPRun):
+    """Katyusha on a (data, model) mesh: samples AND coordinates cut.
+    Needs a rank-1 oracle with the margin protocol and a separable prox.
+    ``batch`` is the per-data-row inner block size (global inner batch
+    batch·D); ``m`` counts inner batches an outer step and defaults to
+    2N/(batch·D); ``maxit`` counts outer steps. ``sigma`` sets the
+    strongly convex τ₁; without it and ``tau1`` the τ₁ = 2/(s+4)
+    schedule runs. Per inner step one (B,) sum over "model" and one
+    (n/M,) sum over "data"; no kernel, as in the JAX package."""
+
+    mesh: object = None
+    batch: int = 1
+    maxit: int = 1000
+    verbose: bool = False
+    freq: int = 100
+    m: Optional[int] = None
+    tau1: Optional[float] = None
+    tau2: float = 0.5
+    sigma: Optional[float] = None
+    seed: int = 0
+    _shown = "tau1"
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        if self.batch < 1:
+            raise ValueError("batch must be at least 1")
+        if not 0.0 < self.tau2 < 1.0:
+            raise ValueError(f"tau2 must lie in (0, 1), not {self.tau2}")
+        if self.tau1 is not None and not 0.0 < self.tau1 <= 1.0 - self.tau2:
+            raise ValueError(f"tau1 must lie in (0, 1 - tau2], not "
+                             f"{self.tau1}")
+
+    def _setup(self, x0, F, g, L, N):
+        who = "TPKatyusha"
+        mesh, x0, F, g, N, D = _cut_setup(self, who, x0, F, g, N)
+        Lmax = _L_max(L, x0, who)
+        m = (2 * N) // (self.batch * D) if self.m is None else self.m
+        if m < 1:
+            raise ValueError(f"{who}: m must be >= 1")
+        if self.tau1 is not None:
+            tau1 = _as_real(self.tau1, x0)
+        elif self.sigma is not None:
+            tau1 = torch.clamp(torch.sqrt(
+                m * self.batch * D * _as_real(self.sigma, x0)
+                / (3.0 * Lmax)), max=0.5)
+        else:
+            tau1 = _as_real(0.5, x0)  # epoch 0's 2/(s+4)
+        ns = self.tau1 is None and self.sigma is None
+        x0, F, g = _tp_cut(mesh, x0, F, g, N, who)
+        cfg = TPCfg(N=N, D=D, M=mesh.M, b_loc=self.batch, m_inner=m,
+                    variant="ns" if ns else "sc")
+        return _fns("katyusha", mesh, F, g, cfg, x0, Lmax, self.seed, tau1,
+                    self.tau2)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPSARAH(_TPRun):
+    """SARAH/ProxSARAH on a (data, model) mesh. Needs a rank-1 oracle
+    with the margin protocol and a separable prox. ``batch`` is the
+    per-data-row inner block size; ``m`` counts inner steps an outer step
+    and defaults to N/(batch·D); ``maxit`` counts outer steps. Per inner
+    step one stacked (2, B) sum over "model" (the margins at w_t and
+    w_{t−1}) and one (n/M,) sum over "data"."""
+
+    mesh: object = None
+    gamma: Optional[float] = None
+    batch: int = 1
+    maxit: int = 1000
+    verbose: bool = False
+    freq: int = 100
+    m: Optional[int] = None
+    eta: float = 1.0
+    seed: int = 0
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(gamma=self.gamma)
+        if self.batch < 1:
+            raise ValueError("batch must be at least 1")
+        if not 0.0 < self.eta <= 1.0:
+            raise ValueError(f"eta must lie in (0, 1], not {self.eta}")
+
+    def _setup(self, x0, F, g, L, N):
+        who = "TPSARAH"
+        mesh, x0, F, g, N, D = _cut_setup(self, who, x0, F, g, N)
+        if self.gamma is not None:
+            gamma = _as_real(self.gamma, x0)
+        elif L is None:
+            raise ValueError(f"{who}: provide the smoothness moduli L, or a "
+                             "stepsize γ")
+        else:
+            gamma = 1.0 / (2.0 * _L_max(L, x0, who))
+        m = N // (self.batch * D) if self.m is None else self.m
+        if m < 1:
+            raise ValueError(f"{who}: m must be >= 1")
+        x0, F, g = _tp_cut(mesh, x0, F, g, N, who)
+        cfg = TPCfg(N=N, D=D, M=mesh.M, b_loc=self.batch, m_inner=m)
+        return _fns("sarah", mesh, F, g, cfg, x0, gamma, self.seed, self.eta)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLSVRG(_TPRun):
+    """Loopless SVRG on a (data, model) mesh. Per step one stacked (2, B)
+    sum over "model" (the live and anchor margins) and one (n/M,) sum over
+    "data"; the anchor coin is the same on every rank (drawn from (seed,
+    it) alone), so a refresh's collectives (one more of each) run on every
+    rank or on none. ``p`` defaults to batch·D/N; ``maxit`` counts
+    steps."""
+
+    mesh: object = None
+    gamma: Optional[float] = None
+    batch: int = 1
+    maxit: int = 10000
+    verbose: bool = False
+    freq: int = 1000
+    p: Optional[float] = None
+    seed: int = 0
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(gamma=self.gamma)
+        if self.batch < 1:
+            raise ValueError("batch must be at least 1")
+        if self.p is not None and not 0.0 <= self.p <= 1.0:
+            raise ValueError(f"p must lie in [0, 1], not {self.p}")
+
+    def _setup(self, x0, F, g, L, N):
+        who = "TPLSVRG"
+        mesh, x0, F, g, N, D = _cut_setup(self, who, x0, F, g, N)
+        if self.gamma is None:
+            if L is None:
+                raise ValueError(f"{who}: provide L or γ")
+            gamma = 1.0 / (6.0 * _L_max(L, x0, who))
+        else:
+            gamma = _as_real(self.gamma, x0)
+        p = (self.batch * D) / N if self.p is None else self.p
+        x0, F, g = _tp_cut(mesh, x0, F, g, N, who)
+        cfg = TPCfg(N=N, D=D, M=mesh.M, b_loc=self.batch)
+        return _fns("lsvrg", mesh, F, g, cfg, x0, gamma, self.seed, p)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLKatyusha(_TPRun):
+    """Loopless Katyusha on a (data, model) mesh, with :class:`TPLSVRG`'s
+    collectives; the coupling and the proximal mirror step run on the
+    rank's columns. ``p`` defaults to batch·D/N; ``maxit`` counts
+    steps."""
+
+    mesh: object = None
+    batch: int = 1
+    maxit: int = 10000
+    verbose: bool = False
+    freq: int = 1000
+    p: Optional[float] = None
+    theta1: Optional[float] = None
+    theta2: float = 0.5
+    sigma: Optional[float] = None
+    seed: int = 0
+    _shown = "theta1"
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        if self.batch < 1:
+            raise ValueError("batch must be at least 1")
+        if not 0.0 < self.theta2 < 1.0:
+            raise ValueError(f"theta2 must lie in (0, 1), not {self.theta2}")
+        if self.p is not None and not 0.0 <= self.p <= 1.0:
+            raise ValueError(f"p must lie in [0, 1], not {self.p}")
+        if self.theta1 is not None and not (
+                0.0 < self.theta1 <= 1.0 - self.theta2):
+            raise ValueError(f"theta1 must lie in (0, 1 - theta2], not "
+                             f"{self.theta1}")
+
+    def _setup(self, x0, F, g, L, N):
+        who = "TPLKatyusha"
+        mesh, x0, F, g, N, D = _cut_setup(self, who, x0, F, g, N)
+        Lmax = _L_max(L, x0, who)
+        sigma = _as_real(0.0 if self.sigma is None else self.sigma, x0)
+        if self.theta1 is not None:
+            theta1 = _as_real(self.theta1, x0)
+        elif self.sigma is not None:
+            theta1 = torch.clamp(torch.sqrt(
+                2.0 * sigma * N / (3.0 * self.batch * D)), max=0.5)
+        else:
+            theta1 = _as_real(1.0 / 3.0, x0)
+        p = (self.batch * D) / N if self.p is None else self.p
+        x0, F, g = _tp_cut(mesh, x0, F, g, N, who)
+        cfg = TPCfg(N=N, D=D, M=mesh.M, b_loc=self.batch)
+        return _fns("lkatyusha", mesh, F, g, cfg, x0, Lmax, self.seed, sigma,
+                    theta1, self.theta2, p)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPointSAGA(_TPRun):
+    """Point-SAGA on a (data, model) mesh: min (1/N)Σf_i (no composite
+    g). Needs the pointprox margin protocol (dense least-squares,
+    logistic, Huber, squared-hinge rows). Per step one stacked (2, B) sum
+    over "model" (the margins at the shifted iterate and the rows' square
+    norms), the θ solve alike on every rank of the model group, one
+    (n/M,) sum over "data". ``batch`` is the per-data-row block;
+    ``sweeping`` ∈ {1 random, 2 cyclic, 3 shuffled}."""
+
+    mesh: object = None
+    gamma: Optional[float] = None
+    batch: int = 1
+    maxit: int = 10000
+    verbose: bool = False
+    freq: int = 1000
+    sweeping: int = 1
+    seed: int = 0
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(gamma=self.gamma)
+        if self.batch < 1:
+            raise ValueError("batch must be at least 1")
+
+    def _setup(self, x0, F, g, L, N):
+        who = "TPPointSAGA"
+        if not isinstance(self.mesh, Mesh2D):
+            raise ValueError(f"{who} needs a ('data','model') mesh "
+                             "(make_mesh_2d)")
+        if g is not None and not isinstance(g, Zero):
+            raise ValueError(f"{who} solves min (1/N)Σ f_i(x) — no separate "
+                             "composite g (see PointSAGA)")
+        if not (getattr(F, "supports_pointprox", False)
+                and hasattr(F, "pointprox_sqnorm_block")):
+            raise ValueError(
+                f"{who} needs a scalar-loss row oracle with the pointprox "
+                f"margin protocol; {type(F).__name__} does not support it")
+        mesh, x0, F, g, N, D = _cut_setup(self, who, x0, F, None, N,
+                                          "margin")
+        if self.gamma is not None:
+            gamma = _as_real(self.gamma, x0)
+        elif L is None:
+            raise ValueError(f"{who}: provide the smoothness moduli L, or a "
+                             "stepsize γ")
+        else:
+            gamma = 1.0 / (3.0 * _L_max(L, x0, who))
+        x0, F, g = _tp_cut(mesh, x0, F, g, N, who)
+        cfg = TPCfg(N=N, D=D, M=mesh.M, b_loc=self.batch,
+                    sweeping=self.sweeping)
+        return _fns("point_saga", mesh, F, g, cfg, x0, gamma, self.seed)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPSSNM(_TPRun):
+    """SSNM (SAGA with sampled negative momentum) on a (data, model) mesh:
+    the coefficient table cut by rows, the stored points by rows AND
+    columns. Needs a rank-1 oracle with the margin protocol and a
+    separable prox; ``batch`` is the per-data-row block size."""
+
+    mesh: object = None
+    batch: int = 1
+    maxit: int = 10000
+    verbose: bool = False
+    freq: int = 1000
+    tau: Optional[float] = None
+    sigma: Optional[float] = None
+    eta: Optional[float] = None
+    seed: int = 0
+    _shown = "tau"
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+
+    def _setup(self, x0, F, g, L, N):
+        who = "TPSSNM"
+        mesh, x0, F, g, N, D = _cut_setup(self, who, x0, F, g, N)
+        if L is None and (self.eta is None or self.tau is None):
+            raise ValueError(f"{who}: provide L, or both τ and η")
+        Lmax = None if L is None else _L_max(L, x0, who)
+        if self.tau is not None:
+            tau = _as_real(self.tau, x0)
+        elif self.sigma is not None:
+            tau = torch.clamp(torch.sqrt(N * _as_real(self.sigma, x0)
+                                         / (3.0 * Lmax)), max=0.5)
+        else:
+            tau = _as_real(0.5, x0)
+        eta = (_as_real(self.eta, x0) if self.eta is not None
+               else 1.0 / (3.0 * tau * Lmax))  # the mirror coupling
+        x0, F, g = _tp_cut(mesh, x0, F, g, N, who)
+        cfg = TPCfg(N=N, D=D, M=mesh.M, b_loc=self.batch)
+        return _fns("ssnm", mesh, F, g, cfg, x0, tau, self.seed, eta)
+
+
+def _tp_terms(mesh, x0, F, g, h, N, who: str):
+    """A splitting facade's validated call, before the cut: (mesh, x0
+    whole, F (``ZeroOracle(n_terms=N)`` when omitted), g, h, N); g and h
+    separable, F with the margin protocol unless f = 0."""
+    from ciao_tpu_torch.oracles import ZeroOracle
+
+    if not isinstance(mesh, Mesh2D):
+        raise ValueError(f"{who} needs a ('data','model') mesh (make_mesh_2d)")
+    x0 = torch.as_tensor(x0, device=mesh.device)
+    if F is None:
+        if N is None:
+            raise ValueError(f"{who}: provide F or N")
+        F = ZeroOracle(n_terms=N)
+    N = _num_terms(F, N)
+    g = Zero() if g is None else g
+    h = Zero() if h is None else h
+    for term, name in ((g, "g"), (h, "h")):
+        if not getattr(term, "separable", False):
+            raise ValueError(f"{who} shards coordinates — {name} must be "
+                             f"separable (got {type(term).__name__})")
+    if not isinstance(F, ZeroOracle) and not (
+            hasattr(F, "margin_all") and hasattr(F, "margin_block")):
+        # the port's sparse rows have margin_all (for the deep route) but
+        # GLOBAL column ids in their index tables: refused, as JAX refuses
+        # its sparse rows, which lack margin_all
+        raise ValueError(f"{who} needs the margin protocol (dense row "
+                         f"oracles); {type(F).__name__} is DP-only")
+    if N % mesh.D:
+        raise ValueError(f"{who}: need N divisible by D")
+    _check_n(mesh, x0, who)
+    return mesh, x0, F, g, h, N
+
+
+class _TPSplit:
+    """``__call__`` and ``iterator`` of a splitting facade (two proximable
+    terms g and h) whose ``_setup`` returns ``(x0, F, (g, h), init, step,
+    run, rebase)``: the result whole, gathered over "model"."""
+
+    _shown = "gamma"
+
+    def _run(self, setup, observe):
+        x0, F, gh, init, step, run, _ = setup
+        shown = self._shown
+        disp = lambda it, st: print(  # noqa: E731
+            f"{it:5d} | {float(getattr(st, shown)):.3e}")
+        state, it = run_solver_loop(init, run, self.maxit, self.verbose,
+                                    self.freq, disp, observe)
+        return gather_model(self.mesh, state.solution), it
+
+    def _iterator(self, x0, setup):
+        _, _, _, init, step, run, rebase = setup
+        return SolverIterable(x0, init, step, rebase_fn=rebase)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPDavisYin(_TPSplit):
+    """Davis-Yin three-operator splitting on a (data, model) mesh:
+    minimize (1/N)Σf_i + g + h with g and h proximable and separable.
+    Each step one margin sum over "model" and one (n/M,) sum over "data"
+    for ∇f (none for f = 0); both proxes on the rank's columns, so the
+    trajectory is the single card's to reduction order. Needs the margin
+    protocol. ``TPDouglasRachford`` is the f = 0 case (no F, give N)."""
+
+    mesh: object = None
+    gamma: Optional[float] = None
+    lam: float = 1.0
+    maxit: int = 1000
+    verbose: bool = False
+    freq: int = 100
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(gamma=self.gamma)
+        if not 0 < self.lam < 2:
+            raise ValueError(f"lam must lie in (0, 2), not {self.lam}")
+
+    def _setup(self, x0, F, g, h, L, N):
+        from ciao_tpu_torch.oracles import ZeroOracle
+
+        who = "TPDavisYin"
+        mesh, x0, F, g, h, N = _tp_terms(self.mesh, x0, F, g, h, N, who)
+        if self.gamma is not None:
+            gamma = _as_real(self.gamma, x0)
+        elif L is not None:
+            gamma = 1.0 / torch.mean(torch.as_tensor(
+                L, dtype=real_dtype_of(x0), device=x0.device))
+        elif isinstance(F, ZeroOracle):
+            gamma = _as_real(1.0, x0)  # f = 0: Douglas-Rachford
+        else:
+            raise ValueError(f"{who}: provide the smoothness moduli L, or a "
+                             "stepsize γ")
+        n = x0.shape[0]
+        x0, F, g = _tp_cut(mesh, x0, F, g, N, who)
+        h = put_specs(h, mesh, model_prox_specs(h, n))
+        cfg = TPCfg(N=N, D=mesh.D, M=mesh.M)
+        return _fns("dys", mesh, F, (g, h), cfg, x0, gamma, 0, self.lam)
+
+    def __call__(self, x0, F=None, g=None, h=None, L=None, N=None,
+                 observe=None):
+        return self._run(self._setup(x0, F, g, h, L, N), observe)
+
+    def iterator(self, x0, F=None, g=None, h=None, L=None, N=None):
+        return self._iterator(x0, self._setup(x0, F, g, h, L, N))
+
+
+def TPDouglasRachford(**kwargs) -> TPDavisYin:
+    """``TPDavisYin`` with f = 0 (Douglas-Rachford over the 2-D mesh)."""
+    return TPDavisYin(**kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPCondatVu(_TPSplit):
+    """Condat-Vũ on a (data, model) mesh for the stencil maps: minimize
+    (1/N)Σf_i + g(x) + h(Kx) with K = ``FirstDifference`` or
+    ``IdentityMap`` (omitted). The stencil touches adjacent coordinates
+    only, so a rank needs ONE element of a model neighbour per product of
+    K: two halos a step, each one all-gather of a one-element tensor over
+    the model group (none at M = 1, none for K = I). A ``DenseMap`` K
+    mixes every coordinate: use ``DPCondatVu``. The dual is carried
+    padded to (n,), cut like x. The stepsizes are the single card's
+    (``CondatVu._stepsizes``), so the trajectory is its to reduction
+    order. ``TPChambollePock`` is the f = 0 case (no F, give N)."""
+
+    mesh: object = None
+    tau: Optional[float] = None
+    sigma: Optional[float] = None
+    maxit: int = 1000
+    verbose: bool = False
+    freq: int = 100
+    _shown = "tau"
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(tau=self.tau, sigma=self.sigma)
+
+    def _setup(self, x0, F, g, h, K, L, N):
+        from ciao_tpu_torch.ops.linmap import FirstDifference, IdentityMap
+        from ciao_tpu_torch.oracles import ZeroOracle
+        from ciao_tpu_torch.solvers.primal_dual import CondatVu
+
+        who = "TPCondatVu"
+        K = IdentityMap() if K is None else K
+        if isinstance(K, IdentityMap):
+            kind = "identity"
+        elif isinstance(K, FirstDifference):
+            kind = "firstdiff"
+        else:
+            raise ValueError(
+                f"{who} serves stencil maps only (FirstDifference / "
+                "IdentityMap) — a dense K mixes coordinates and needs an "
+                "n-sized all-gather per step under a coordinate shard; use "
+                f"DPCondatVu for DenseMap (got {type(K).__name__})")
+        mesh, x0, F, g, h, N = _tp_terms(self.mesh, x0, F, g, h, N, who)
+        if L is not None:
+            Lf = float(torch.mean(torch.as_tensor(L,
+                                                  dtype=real_dtype_of(x0))))
+        elif isinstance(F, ZeroOracle) or self.tau is not None:
+            Lf = 0.0  # Chambolle-Pock, or the caller owns the condition
+        else:
+            raise ValueError(f"{who}: provide the smoothness moduli L, or an "
+                             "explicit stepsize τ")
+        # the single card's stepsize rule, so the trajectories agree
+        tau, sigma = CondatVu(tau=self.tau, sigma=self.sigma)._stepsizes(
+            Lf, float(K.opnorm_bound(x0.shape[0])))
+        n = x0.shape[0]
+        x0, F, g = _tp_cut(mesh, x0, F, g, N, who)
+        h = put_specs(h, mesh, model_prox_specs(h, n))
+        cfg = TPCfg(N=N, D=mesh.D, M=mesh.M, variant=kind)
+        return _fns("pd", mesh, F, (g, h), cfg, x0, tau, 0, sigma)
+
+    def __call__(self, x0, F=None, g=None, h=None, K=None, L=None, N=None,
+                 observe=None):
+        return self._run(self._setup(x0, F, g, h, K, L, N), observe)
+
+    def iterator(self, x0, F=None, g=None, h=None, K=None, L=None, N=None):
+        return self._iterator(x0, self._setup(x0, F, g, h, K, L, N))
+
+
+def TPChambollePock(**kwargs) -> TPCondatVu:
+    """``TPCondatVu`` with f = 0 (Chambolle-Pock over the 2-D mesh)."""
+    return TPCondatVu(**kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPANOC(_TPRun):
+    """PANOC/ZeroFPR on a (data, model) mesh: the rows cut over "data",
+    the iterate, the gradient and the L-BFGS ring over "model". Each FBE
+    evaluation is one margin sum over "model" and two sums over "data";
+    every inner product of the direction and the envelope is one scalar
+    sum over "model", so the line search's host reads (one a trial) are
+    of whole values and every rank takes the same trials; the trajectory
+    is the single card's to reduction order. No γ and no L turns the
+    γ-backtracking on, its start probed on the whole gradients. Needs the
+    margin-value protocol (dense row oracles) and a separable prox; no
+    kernel, as in the JAX package."""
+
+    mesh: object = None
+    gamma: Optional[float] = None
+    alpha: float = 0.95
+    beta: float = 0.5
+    maxit: int = 100
+    mem: int = 5
+    max_ls: int = 10
+    verbose: bool = False
+    freq: int = 10
+    zerofpr: bool = False
+    adaptive: bool = False  # γ-backtracking (on when neither γ nor L)
+
+    def __post_init__(self):
+        _check_loop(self.maxit, self.freq)
+        _check_positive(gamma=self.gamma)
+        if not (0 < self.alpha < 1 and 0 < self.beta < 1):
+            raise ValueError("alpha and beta must lie in (0, 1)")
+        if self.mem < 1 or self.max_ls < 1:
+            raise ValueError("mem and max_ls must be at least 1")
+
+    @property
+    def _can_abort(self):
+        return self.adaptive
+
+    def _setup(self, x0, F, g, L, N):
+        from ciao_tpu_torch.solvers.base import rdiv
+        from ciao_tpu_torch.solvers.panoc import _probe_gamma
+
+        who = "TPZeroFPR" if self.zerofpr else "TPPANOC"
+        mesh, x0, F, g, N = _tp_args(self.mesh, x0, F, g, N, who, "margin")
+        if not hasattr(F, "value_from_margin_all"):
+            raise ValueError(
+                f"{who} needs the margin-value protocol (margin_all/"
+                "value_from_margin_all — dense row oracles); "
+                f"{type(F).__name__} is DP-only")
+        if N % mesh.D:
+            raise ValueError(f"{who}: need N divisible by D")
+        _check_n(mesh, x0, who)
+        rdt = real_dtype_of(x0)
+        adaptive = self.adaptive or (self.gamma is None and L is None)
+        x0, F, g = _tp_cut(mesh, x0, F, g, N, who)
+        if self.gamma is not None:
+            gamma = _as_real(self.gamma, x0)
+            if L is not None:
+                Lf = torch.mean(torch.as_tensor(L, dtype=rdt,
+                                                device=x0.device))
+                sigma = self.beta * torch.clamp(1.0 - gamma * Lf,
+                                                min=0.05) / (2.0 * gamma)
+            else:
+                sigma = rdiv(self.beta * (1.0 - self.alpha), 2.0 * gamma)
+        elif L is not None:
+            Lf = torch.mean(torch.as_tensor(L, dtype=rdt, device=x0.device))
+            gamma = rdiv(self.alpha, Lf)
+            sigma = rdiv(self.beta * (1.0 - self.alpha), 2.0 * gamma)
+        else:
+            # the one-time probe on the whole gradients: each summed over
+            # "data" and its norm over "model"
+            gamma = _probe_gamma(_TPFBEOracle(mesh, F), x0, N, self.alpha,
+                                 rdt, _rdot_tp(mesh))
+            sigma = rdiv(self.beta * (1.0 - self.alpha), 2.0 * gamma)
+        cfg = TPCfg(N=N, D=mesh.D, M=mesh.M, m_inner=self.mem,
+                    max_ls=self.max_ls, adaptive=adaptive,
+                    variant="zerofpr" if self.zerofpr else "panoc")
+        return _fns("panoc", mesh, F, g, cfg, x0, gamma, 0, sigma)
+
+    def _after(self, state):
+        from ciao_tpu_torch.solvers.panoc import warn_if_thrashing
+
+        warn_if_thrashing(state, "TPZeroFPR" if self.zerofpr else "TPPANOC",
+                          _rdot_tp(self.mesh))
+
+
+def TPZeroFPR(**kwargs) -> TPPANOC:
+    """``TPPANOC(zerofpr=True)``."""
+    return TPPANOC(zerofpr=True, **kwargs)

@@ -35,14 +35,16 @@ the one-hot (n, k) segment indicator, not a scatter-add, so the
 certificate's bits repeat from run to run on the card. Every product
 here needs exact f32 (``runtime.require_exact_f32_matmul``); the f64
 solves, the iterative refinement and the certificates run on the host in
-numpy. The data-parallel route is ``parallel.deep_solve_pd_dp``; the TP
-one is not ported yet (ROADMAP.md, queue 1 item 18).
+numpy. The data-parallel route is ``parallel.deep_solve_pd_dp`` (the
+reduced system's sums over the ranks through ``reduce``), the tensor-
+parallel one ``parallel.deep_solve_pd_tp`` (through ``reduce`` and a
+:class:`ColumnCut` as well: the rows' columns are cut over "model").
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +115,27 @@ def _segments(x, jump_rtol: float, floor: float):
     return x_np, J, s, len(J) + 1, seg_id
 
 
+class ColumnCut(NamedTuple):
+    """A (data, model) rank's share of the reduced system: its columns
+    [lo, hi) of the n coordinates, ``msum`` the sum of a device tensor
+    over its model group, ``gather`` the whole host vector from the
+    rank's columns of one (joined over the model group)."""
+
+    lo: int
+    hi: int
+    msum: Callable
+    gather: Callable
+
+
+def _segment_rows(rows, S, cut):
+    """A_S = A·S of a chunk of rows: the exact f32 product, or under a
+    column cut the rank's A[:, cols]·S[cols] summed over "model" in f64
+    and rounded once to f32 (at M = 1 the single card's bits)."""
+    if cut is None:
+        return rows @ S
+    return cut.msum((rows @ S[cut.lo:cut.hi]).double()).to(torch.float32)
+
+
 def _indicator(seg_id, k: int, device):
     """The one-hot (n, k) f32 segment indicator S."""
     ids = torch.from_numpy(seg_id.astype(np.int64)).to(device)
@@ -129,11 +152,12 @@ def _halves(hi, lo, reduce):
     return both[0] + both[1]
 
 
-def _segment_normal_eq(rows, offs, S, chunk: int, reduce=None):
+def _segment_normal_eq(rows, offs, S, chunk: int, reduce=None, cut=None):
     """Compensated chunked G = A_SᵀA_S (k, k) and r = A_Sᵀb (k,) for the
     segment-collapsed design A_S = A·S: exact f32 products a chunk,
     two-sum carries across chunks, the (hi, lo) halves added in host f64
-    (summed over the ranks first by ``reduce``, see :func:`_halves`).
+    (summed over the ranks first by ``reduce``, see :func:`_halves`;
+    under a column ``cut`` each chunk's A_S by :func:`_segment_rows`).
     The reduced system must be deep-grade, or the λ·sᵀDz term pays the
     Gram's rounding to first order."""
     N = rows.shape[0]
@@ -145,19 +169,20 @@ def _segment_normal_eq(rows, offs, S, chunk: int, reduce=None):
     for start in range(0, N, chunk):
         A_B = rows.narrow(0, start, chunk).to(torch.float32)
         b_B = offs.narrow(0, start, chunk).to(torch.float32)
-        AS = A_B @ S
+        AS = _segment_rows(A_B, S, cut)
         Ghi, Glo = _two_sum(Ghi, Glo, AS.T @ AS)
         rhi, rlo = _two_sum(rhi, rlo, b_B @ AS)
     return _halves(Ghi, Glo, reduce), _halves(rhi, rlo, reduce)
 
 
-def _tv_cert_grad(rows, offs, S, z, chunk: int, reduce=None):
+def _tv_cert_grad(rows, offs, S, z, chunk: int, reduce=None, cut=None):
     """∇(½‖A·Sz − b‖²) = Aᵀ(A_S z − b) at the exact reduced solution ``z``
     (host f64): z rides as a double-single (hi, lo) pair so that its f32
     cast error, which the curvature amplifies to ~0.1·λ through the
     certificate's cumulative sums, cancels. Margins are ordered
     ((m_hi − b) + m_lo); chunks add with a two-sum carry. Returns the
-    gradient in host f64 (hi + lo, summed over the ranks by ``reduce``)."""
+    gradient in host f64 (hi + lo, summed over the ranks by ``reduce``;
+    under a column ``cut`` the rank's columns, then joined whole)."""
     N, n = rows.shape
     z_hi = np.asarray(z, np.float32)
     z_lo = np.asarray(z - z_hi.astype(np.float64), np.float32)
@@ -168,10 +193,11 @@ def _tv_cert_grad(rows, offs, S, z, chunk: int, reduce=None):
     for start in range(0, N, chunk):
         A_B = rows.narrow(0, start, chunk).to(torch.float32)
         b_B = offs.narrow(0, start, chunk).to(torch.float32)
-        AS = A_B @ S
+        AS = _segment_rows(A_B, S, cut)
         r = ((AS @ z_hi) - b_B) + (AS @ z_lo)
         hi, lo = _two_sum(hi, lo, r @ A_B)
-    return _halves(hi, lo, reduce)
+    w = _halves(hi, lo, reduce)
+    return w if cut is None else cut.gather(w)
 
 
 def tv_refine(F, x, lam: float, *, chunk: int = 4096,
@@ -199,20 +225,23 @@ def tv_refine(F, x, lam: float, *, chunk: int = 4096,
 
 
 def _tv_refine(F, x, lam: float, chunk: int, jump_rtol: float,
-               cert_rtol: float, N_total=None, reduce=None):
+               cert_rtol: float, N_total=None, reduce=None, cut=None):
     """:func:`tv_refine` on a data-parallel rank's rows: ``N_total`` is
     the global term count (the rank's rows when None), and ``reduce``
     sums the Gram, the right-hand side and the certificate gradient over
-    the ranks (:func:`_halves`). Every rank then takes the same host f64
-    solves and the same verdict."""
+    the ranks (:func:`_halves`). On a (data, model) rank ``x`` is the
+    whole iterate and ``cut`` (:class:`ColumnCut`) the rank's columns of
+    the rows. Every rank then takes the same host f64 solves and the same
+    verdict."""
     rows, offs = _reduced_rows(F, "tv_refine")
-    N_loc, n = rows.shape
+    N_loc = rows.shape[0]
+    n = x.shape[-1]
     N = N_loc if N_total is None else N_total
     c = _chunk_of(N_loc, chunk)
 
     _, J, s, k, seg_id = _segments(x, jump_rtol, 0.0)
     S = _indicator(seg_id, k, rows.device)
-    G, r = _segment_normal_eq(rows, offs, S, c, reduce)
+    G, r = _segment_normal_eq(rows, offs, S, c, reduce, cut)
     # the user objective (1/N)Σfᵢ + λ‖Dx‖₁ is (scale/N)·½‖Ax−b‖² + λ‖Dx‖₁:
     # fold the loss scale into the λ side of the reduced stationarity
     # (scale/N)(Gz − r) + λ·D_kᵀs = 0
@@ -230,7 +259,7 @@ def _tv_refine(F, x, lam: float, chunk: int, jump_rtol: float,
     # (Sᵀw = Gz − r exactly) and corrects
     S_host = np.eye(k)[seg_id]
     for _ in range(3):
-        w_un = _tv_cert_grad(rows, offs, S, z, c, reduce)
+        w_un = _tv_cert_grad(rows, offs, S, z, c, reduce, cut)
         rho = -(S_host.T @ w_un) - lam_eff * Dk_t_s
         dz = np.linalg.solve(G, rho)
         z = z + dz
@@ -242,7 +271,7 @@ def _tv_refine(F, x, lam: float, chunk: int, jump_rtol: float,
     # certificate: ∇f(x̂) + Dᵀv = 0 with ∇f the user's mean gradient, at
     # the refined z itself (the f32 cast of x̂ would shift v by far more
     # than the tolerance): v_i = Σ_{j≤i} w_j, Σw = 0
-    w = _tv_cert_grad(rows, offs, S, z, c, reduce) * (sc / N)
+    w = _tv_cert_grad(rows, offs, S, z, c, reduce, cut) * (sc / N)
     v = np.cumsum(w[:-1])
     off = np.ones(n - 1, bool)
     off[J] = False
@@ -422,9 +451,21 @@ def tv_refine3(F, x, lam1: float, lam2: float, *, chunk: int = 4096,
     each step meets [−λ₂, λ₂], is pinned to λ₂s at identified jumps, and
     the last virtual v must reach 0). With λ₁ = 0 this is the two-term
     cumsum certificate. Returns ``(x_hat, certified)``."""
+    return _tv_refine3(F, x, lam1, lam2, chunk, jump_rtol, zero_rtol,
+                       cert_rtol)
+
+
+def _tv_refine3(F, x, lam1: float, lam2: float, chunk: int,
+                jump_rtol: float, zero_rtol: float, cert_rtol: float,
+                N_total=None, reduce=None, cut=None):
+    """:func:`tv_refine3` on a rank's block of the rows, with
+    :func:`_tv_refine`'s ``N_total``, ``reduce`` and ``cut`` (``x`` the
+    whole iterate)."""
     rows, offs = _reduced_rows(F, "tv_refine3")
-    N, n = rows.shape
-    c = _chunk_of(N, chunk)
+    N_loc = rows.shape[0]
+    N = N_loc if N_total is None else N_total
+    n = x.shape[-1]
+    c = _chunk_of(N_loc, chunk)
 
     x_np, J, s, k, seg_id = _segments(x, jump_rtol, 1e-30)
     widths = np.bincount(seg_id, minlength=k).astype(np.float64)
@@ -441,7 +482,7 @@ def tv_refine3(F, x, lam1: float, lam2: float, *, chunk: int = 4096,
     mult = lam1 * widths * t + lam2 * (s_left - s_right)
 
     S = _indicator(seg_id, k, rows.device)
-    G, r = _segment_normal_eq(rows, offs, S, c)
+    G, r = _segment_normal_eq(rows, offs, S, c, reduce, cut)
     sc = float(F.scale) if hasattr(F, "scale") else float(N)
     fac = N / sc
 
@@ -453,14 +494,14 @@ def tv_refine3(F, x, lam1: float, lam2: float, *, chunk: int = 4096,
 
     S_host = np.eye(k)[seg_id]
     for _ in range(3):
-        w_un = _tv_cert_grad(rows, offs, S, z, c)
+        w_un = _tv_cert_grad(rows, offs, S, z, c, reduce, cut)
         rho = -(S_host.T @ w_un) - fac * mult
         if len(idx):
             z[idx] += np.linalg.solve(G[np.ix_(idx, idx)], rho[idx])
 
     x_hat = torch.as_tensor(z[seg_id], dtype=torch.float32,
                             device=rows.device)
-    w = _tv_cert_grad(rows, offs, S, z, c) * (sc / N)
+    w = _tv_cert_grad(rows, offs, S, z, c, reduce, cut) * (sc / N)
 
     # solved-structure checks (the near-tautological equalities are
     # enforced by the solve; these are the load-bearing ones)

@@ -17,9 +17,8 @@ x_g: on the card one pass of kernel #6 (``solvers.fb.full_gradient``),
 as FISTA's. Complex iterates take the stepwise gradient (the kernel's
 gate takes f32 iterates alone); the JAX package has no complex test of
 Davis-Yin, and its facade converges on complex128 rows as the port's
-does. The data-parallel variant is ``parallel.DPDavisYin`` (through
-``_dys_step``'s ``grad_fn``); the TP one is not ported yet (ROADMAP.md,
-queue 1 item 18).
+does. The data-parallel variant is ``parallel.DPDavisYin`` and the TP
+one ``parallel.TPDavisYin``, both through ``_dys_step``'s ``grad_fn``.
 """
 
 from __future__ import annotations

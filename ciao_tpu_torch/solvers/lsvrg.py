@@ -35,8 +35,8 @@ flip step's pre-update iterate) runs between windows.
 Complex iterates (complex64, complex128) take the stepwise path, as in
 the JAX package (the kernels' gates take f32 iterates alone); γ, the
 coins and the momentum weights stay real. The data-parallel variants are
-``parallel.DPLSVRG``/``DPLKatyusha``; the tensor-parallel ones are not
-ported yet (ROADMAP.md, queue 1 item 18).
+``parallel.DPLSVRG``/``DPLKatyusha``, the tensor-parallel ones
+``parallel.TPLSVRG``/``TPLKatyusha``.
 """
 
 from __future__ import annotations

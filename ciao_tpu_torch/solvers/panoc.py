@@ -38,7 +38,9 @@ inner product of the two-loop recursion and the FBE is Re⟨·,·⟩
 (``_rdot``), so the ring's ρ is 1/Re⟨s, y⟩; they take the stepwise
 envelope read (kernel #7's gate takes f32 iterates alone). The DP
 variant is ``parallel.DPPANOC``, whose host reads are of all-reduced
-values; the TP one is not ported yet (ROADMAP.md, queue 1 item 18).
+values; the TP one, ``parallel.TPPANOC``, passes every function here an
+``rdot`` that sums the rank's columns' inner product over the mesh's
+"model" axis, as JAX's ``tp.py`` does.
 """
 
 from __future__ import annotations
@@ -104,10 +106,11 @@ def _rdot(a, b):
     return torch.real(torch.vdot(a, b))
 
 
-def _eval_fbe(F, g, u, gamma, cfg: PANOCCfg):
+def _eval_fbe(F, g, u, gamma, cfg: PANOCCfg, rdot=_rdot):
     """One FBE evaluation: one pass over the rows (kernel #7 when
     ``cfg.fused``) and one prox. Returns (f_u, grad_u, z_u, g_zu, r_u,
-    fbe_u)."""
+    fbe_u). ``rdot`` is the real inner product (the TP path's sums its
+    columns' over the mesh's "model" axis)."""
     N = cfg.N
     if cfg.fused:
         from ciao_tpu_torch.ops.fused_block import oracle_value_apply_all
@@ -119,12 +122,12 @@ def _eval_fbe(F, g, u, gamma, cfg: PANOCCfg):
     grad_u = gsum / N
     z_u, g_zu = g.prox(u - gamma * grad_u, gamma)
     r_u = u - z_u
-    fbe_u = (f_u - _rdot(grad_u, r_u) + rdiv(0.5, gamma) * _rdot(r_u, r_u)
+    fbe_u = (f_u - rdot(grad_u, r_u) + rdiv(0.5, gamma) * rdot(r_u, r_u)
              + torch.real(g_zu))
     return f_u, grad_u, z_u, g_zu, r_u, fbe_u
 
 
-def _lbfgs_direction(S, Y, rho, head, count, r):
+def _lbfgs_direction(S, Y, rho, head, count, r, rdot=_rdot):
     """Two-loop recursion d = −H·r over the masked ring: the loops always
     run ``mem`` iterations, and empty slots carry ρ = 0, so they add
     nothing. H₀ = γ_H·I with the Barzilai-Borwein scaling of the newest
@@ -140,11 +143,11 @@ def _lbfgs_direction(S, Y, rho, head, count, r):
     q = r
     alphas = []
     for i in range(m):
-        a = rb[i] * _rdot(Sb[i], q)
+        a = rb[i] * rdot(Sb[i], q)
         q = q - a * Yb[i]
         alphas.append(a)
-    yy = _rdot(Yb[0], Yb[0])
-    sy = _rdot(Sb[0], Yb[0])
+    yy = rdot(Yb[0], Yb[0])
+    sy = rdot(Sb[0], Yb[0])
     one = torch.ones((), dtype=rho.dtype, device=r.device)
     gam_h = torch.where((count > 0) & (yy > 0),
                         sy / torch.where(yy > 0, yy, one), one)
@@ -155,21 +158,22 @@ def _lbfgs_direction(S, Y, rho, head, count, r):
     Sf, Yf, rf = S.index_select(0, fwd), Y.index_select(0, fwd), \
         rho.index_select(0, fwd)
     for i in range(m):
-        b = rf[i] * _rdot(Yf[i], q)
+        b = rf[i] * rdot(Yf[i], q)
         q = q + (af[i] - b) * Sf[i]
     d = -q
     # a broken direction falls back to −r (the forward-backward
     # direction), which the τ-search accepts unconditionally
-    return torch.where(torch.isfinite(_rdot(d, d)), d, -r)
+    return torch.where(torch.isfinite(rdot(d, d)), d, -r)
 
 
-def _push_pair(state: PANOCState, s, y, valid=True) -> PANOCState:
+def _push_pair(state: PANOCState, s, y, valid=True,
+               rdot=_rdot) -> PANOCState:
     """Ring-push an (s, y) pair, rejected unless ``valid`` and the
     curvature Re⟨y, s⟩ > ε‖s‖‖y‖ (keeps H positive definite). No host
     read: ``valid`` is a Python bool or a device bool."""
-    sy = _rdot(y, s)
-    ss = _rdot(s, s)
-    yy = _rdot(y, y)
+    sy = rdot(y, s)
+    ss = rdot(s, s)
+    yy = rdot(y, y)
     eps = 1e-12
     good = (sy > eps * torch.sqrt(ss * yy) + eps) & valid
     h = state.head.view(1)
@@ -185,22 +189,24 @@ def _push_pair(state: PANOCState, s, y, valid=True) -> PANOCState:
     return state._replace(S=S, Y=Y, rho=rho, head=head, count=count)
 
 
-def _probe_gamma(F, x0, N, alpha, rdt):
+def _probe_gamma(F, x0, N, alpha, rdt, rdot=_rdot):
     """One-time finite-difference smoothness probe of the adaptive start:
-    L₀ = ‖∇f(x0+δ) − ∇f(x0)‖/‖δ‖, γ₀ = α/L₀."""
+    L₀ = ‖∇f(x0+δ) − ∇f(x0)‖/‖δ‖, γ₀ = α/L₀. Under TP both norms are of
+    the whole vectors (``rdot``), as JAX probes its global arrays."""
     d = torch.where(torch.abs(x0) > 0, 1e-3 * x0,
                     torch.full_like(x0, 1e-3))
     g1 = F.grad_sum_all(x0) / N
     g2 = F.grad_sum_all(x0 + d) / N
-    L0 = torch.sqrt(_rdot(g2 - g1, g2 - g1)) / torch.sqrt(_rdot(d, d))
+    L0 = torch.sqrt(rdot(g2 - g1, g2 - g1)) / torch.sqrt(rdot(d, d))
     return rdiv(alpha, torch.clamp(L0, min=1e-12).to(rdt))
 
 
-def panoc_init(F, g, x0, gamma, sigma, cfg: PANOCCfg) -> PANOCState:
+def panoc_init(F, g, x0, gamma, sigma, cfg: PANOCCfg,
+               rdot=_rdot) -> PANOCState:
     """One FBE evaluation at x0; an empty ring. solution(init) = z(x0)."""
     rdt = real_dtype_of(x0)
     dev = x0.device
-    fx, gradx, z, gz, _r, fbe = _eval_fbe(F, g, x0, gamma, cfg)
+    fx, gradx, z, gz, _r, fbe = _eval_fbe(F, g, x0, gamma, cfg, rdot)
     m = cfg.mem
     paux = x0.numel() if cfg.zerofpr else 0
     i64 = torch.int64
@@ -232,7 +238,7 @@ _ADAPT_ALPHA = 0.95      # target γ·L_local ≤ α after backtracking
 _ADAPT_MAX_HALVINGS = 60  # then Status.GAMMA_UNDERFLOW (adaptive Finito's)
 
 
-def _gamma_backtrack(F, g, cfg: PANOCCfg, state: PANOCState):
+def _gamma_backtrack(F, g, cfg: PANOCCfg, state: PANOCState, rdot=_rdot):
     """Adaptive-γ test at the current x: halve γ until the descent lemma
     f(z) ≤ f(x) − ⟨∇f(x), r⟩ + (α/2γ)‖r‖² holds at the forward-backward
     point. Each trial is one value-only pass (``value_sum_all``, a margin
@@ -245,23 +251,23 @@ def _gamma_backtrack(F, g, cfg: PANOCCfg, state: PANOCState):
         return torch.real(F.value_sum_all(z)) / cfg.N
 
     def violated(gamma, r, rr, f_z):
-        ub = (state.fx - _rdot(state.gradx, r)
+        ub = (state.fx - rdot(state.gradx, r)
               + rdiv(_ADAPT_ALPHA, 2.0 * gamma) * rr)
         return bool(f_z > ub + 10 * eps * (1.0 + torch.abs(f_z)))
 
     gamma, z, gz = state.gamma, state.z, state.gz
     r = state.x - z
-    rr = _rdot(r, r)
+    rr = rdot(r, r)
     halv = 0
     while halv < _ADAPT_MAX_HALVINGS and violated(gamma, r, rr, f_at(z)):
         gamma = gamma * 0.5
         z, gz = g.prox(state.x - gamma * state.gradx, gamma)
         gz = torch.real(gz)
         r = state.x - z
-        rr = _rdot(r, r)
+        rr = rdot(r, r)
         halv += 1
     changed = halv > 0
-    fbe = (state.fx - _rdot(state.gradx, r) + rr / (2.0 * gamma) + gz)
+    fbe = (state.fx - rdot(state.gradx, r) + rr / (2.0 * gamma) + gz)
     state = state._replace(gamma=gamma,
                            sigma=state.sigma * (state.gamma / gamma),
                            z=z, gz=gz, fbe=fbe)
@@ -275,29 +281,31 @@ def _gamma_backtrack(F, g, cfg: PANOCCfg, state: PANOCState):
     return state, changed
 
 
-def _panoc_step(F, g, cfg: PANOCCfg, state: PANOCState) -> PANOCState:
+def _panoc_step(F, g, cfg: PANOCCfg, state: PANOCState,
+                rdot=_rdot) -> PANOCState:
     gamma_changed = False
     if cfg.adaptive:
-        state, gamma_changed = _gamma_backtrack(F, g, cfg, state)
+        state, gamma_changed = _gamma_backtrack(F, g, cfg, state, rdot)
     gamma, sigma = state.gamma, state.sigma
     r = state.x - state.z
-    rr = _rdot(r, r)
+    rr = rdot(r, r)
 
     if cfg.zerofpr:
         # the residual at the prox point xbar = z(x) (one more pass), the
         # (Δxbar, ΔR(xbar)) pair of the previous step, the direction there;
         # a pair straddling a γ change mixes two residual maps: rejected
         base = state.z
-        rbar = _eval_fbe(F, g, base, gamma, cfg)[4]
+        rbar = _eval_fbe(F, g, base, gamma, cfg, rdot)[4]
         state = _push_pair(state, base - state.pbase, rbar - state.presid,
-                           valid=state.it > 1 and not gamma_changed)
+                           valid=state.it > 1 and not gamma_changed,
+                           rdot=rdot)
         state = state._replace(pbase=base, presid=rbar)
         dir_resid = rbar
     else:
         dir_resid = r
 
     d = _lbfgs_direction(state.S, state.Y, state.rho, state.head,
-                         state.count, dir_resid)
+                         state.count, dir_resid, rdot)
     target = state.fbe - sigma * rr
     rdt = state.fbe.dtype
 
@@ -311,11 +319,12 @@ def _panoc_step(F, g, cfg: PANOCCfg, state: PANOCState) -> PANOCState:
             u = state.z + tau * d  # τ = 0: the forward-backward point z(x)
         else:
             u = state.x - (1.0 - tau) * r + tau * d
-        f_u, grad_u, z_u, g_zu, r_u, fbe_u = _eval_fbe(F, g, u, gamma, cfg)
+        f_u, grad_u, z_u, g_zu, r_u, fbe_u = _eval_fbe(F, g, u, gamma, cfg,
+                                                       rdot)
         j += 1
         flags = [fbe_u <= target]
         if cfg.tol is not None:
-            flags.append(torch.sqrt(_rdot(r_u, r_u)) / gamma <= cfg.tol)
+            flags.append(torch.sqrt(rdot(r_u, r_u)) / gamma <= cfg.tol)
         flags = torch.stack(flags).tolist()
         if flags[0] or j > cfg.max_ls:
             break
@@ -329,7 +338,7 @@ def _panoc_step(F, g, cfg: PANOCCfg, state: PANOCState) -> PANOCState:
     if not cfg.zerofpr:
         # PANOC's pair (Δx, ΔR(x)): r_u = R(u) comes from the accepted
         # trial's own evaluation
-        new = _push_pair(new, u - state.x, r_u - r)
+        new = _push_pair(new, u - state.x, r_u - r, rdot=rdot)
     if cfg.tol is not None and flags[1]:
         new = new._replace(status=int(Status.CONVERGED))
     return new
@@ -348,19 +357,19 @@ def panoc_run(F, g, state, cfg: PANOCCfg, steps: int):
     return state
 
 
-def warn_if_thrashing(state, who: str = "PANOC") -> bool:
+def warn_if_thrashing(state, who: str = "PANOC", rdot=_rdot) -> bool:
     """After a run: warn, with the remedy, when the line search has been
     thrashing: a sustained average of at least ``THRASH_EVALS`` FBE trials
     a step while the fixed-point residual ‖x − z‖/(1 + ‖x‖) is stalled at
     1e-5 or more (a narrow row storage's accuracy floor; a run ground past
     its f32 optimum sits at the ulp and is benign). Three scalars cross
-    to the host."""
+    to the host; under TP the norms are of the whole vectors (``rdot``)."""
     d = (state.x - state.z).reshape(-1)
     x = state.x.reshape(-1)
     gauge, nd, nx = torch.stack([
         state.ls_ewma.to(torch.float64),
-        torch.sqrt(_rdot(d, d)).to(torch.float64),
-        torch.sqrt(_rdot(x, x)).to(torch.float64)]).tolist()
+        torch.sqrt(rdot(d, d)).to(torch.float64),
+        torch.sqrt(rdot(x, x)).to(torch.float64)]).tolist()
     rrel = nd / (1.0 + nx)
     thrashing = gauge >= THRASH_EVALS and rrel >= 1e-5
     if thrashing:

@@ -33,8 +33,8 @@ Complex rows and iterates (complex64, complex128) take the stepwise
 path, as in the JAX package (the kernels' gates take f32 iterates
 alone): the row prox is z − γθ·conj(a_j) with ‖a_j‖² = Re(a_j·ā_j).
 Importance sampling refuses them, as JAX's does. The data-parallel
-variant is ``parallel.DPPointSAGA``; the tensor-parallel one is not
-ported yet (ROADMAP.md, queue 1 item 18).
+variant is ``parallel.DPPointSAGA``, the tensor-parallel one
+``parallel.TPPointSAGA``.
 """
 
 from __future__ import annotations

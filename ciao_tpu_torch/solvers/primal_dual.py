@@ -15,10 +15,9 @@ largest τ with a 0.99 margin, L_f = mean(L) and ‖K‖ from the map's
 ``opnorm_bound``. The only O(N) work is the full gradient: on the card
 one pass of kernel #6 (``solvers.fb.full_gradient``); complex iterates
 take the stepwise gradient (``tests/test_primal_dual.py:244``'s complex
-Chambolle-Pock among them). The DP variant is ``parallel.DPCondatVu``;
-the TP one is not ported yet (ROADMAP.md, queue 1 item 18). The deep
-route of
-this class is ``solvers.deep_pd``.
+Chambolle-Pock among them). The DP variant is ``parallel.DPCondatVu``,
+the TP one ``parallel.TPCondatVu`` (a stencil K, its halo over the mesh's
+"model" axis). The deep route of this class is ``solvers.deep_pd``.
 """
 
 from __future__ import annotations

@@ -27,8 +27,8 @@ unlike JAX's drivers, no step runs stepwise after the launches.
 Complex iterates (complex64, complex128) take the stepwise path (the
 kernels' gates take f32 iterates alone); the JAX package has no complex
 test of SSNM, and its facade converges on complex128 rows as the port's
-does. The data-parallel variant is ``parallel.DPSSNM``; the
-tensor-parallel one is not ported yet (ROADMAP.md, queue 1 item 18).
+does. The data-parallel variant is ``parallel.DPSSNM``, the
+tensor-parallel one ``parallel.TPSSNM``.
 """
 
 from __future__ import annotations

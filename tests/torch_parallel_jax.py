@@ -259,11 +259,15 @@ def tp_run(solver, x0, F, g, L, steps, N=None):
     return run(init(), steps)
 
 
-# each TP state field's cut: the axes of its dimensions
+# each TP state field's cut: the axes of its dimensions (None: whole)
 TP_AXES = {"z": ("model",), "av": ("model",), "z_full": ("model",),
            "w": ("model",), "x": ("model",), "y": ("model",),
            "s": ("data",), "c": ("data",), "invg": ("data",),
-           "gamma": ("data",), "zb": ("data", "model")}
+           "gamma": ("data",), "zb": ("data", "model"),
+           "x_tilde": ("model",), "w_anchor": ("model",),
+           "gbar": ("model",), "xg": ("model",), "gradx": ("model",),
+           "pbase": ("model",), "presid": ("model",),
+           "S": (None, "model"), "Y": (None, "model")}
 
 
 def compare2d(ranks, jst, axes=None, tol=TOL):
@@ -281,6 +285,8 @@ def compare2d(ranks, jst, axes=None, tol=TOL):
                 continue
             jv = np.asarray(jv)
             for dim, ax in enumerate(axes.get(f, ()) if v.ndim else ()):
+                if ax is None:
+                    continue
                 parts, at = (st["D"], st["d"]) if ax == "data" else (
                     st["M"], st["m"])
                 k = jv.shape[dim] // parts

@@ -28,11 +28,12 @@ import torch.multiprocessing as mp
 from ciao_tpu_torch import parallel
 from ciao_tpu_torch.oracles import (
     DiagQuadratic, HuberRows, HybridSparseLeastSquares, LeastSquaresRows,
-    SparseLeastSquaresELL, SqrDistBox, SumOracle,
+    SparseLeastSquaresELL, SqrDistBox, SquaredHingeRows, SumOracle,
+    ZeroOracle,
 )
 from ciao_tpu_torch.parallel import dp as tdp
 from ciao_tpu_torch.prox import (
-    IndBox, NormL1, NormL2, SqrDistPoint, Zero,
+    IndBox, NormL1, NormL2, NormNuclear, SqrDistPoint, Zero,
 )
 
 TIMEOUT = datetime.timedelta(seconds=120)
@@ -56,6 +57,8 @@ def oracle(spec):
     if kind == "huber":
         return HuberRows(_t(o["A"]), _t(o["b"]), float(o["delta"]),
                          float(o["scale"]))
+    if kind == "sqhinge":
+        return SquaredHingeRows(_t(o["A"]), _t(o["b"]), float(o["scale"]))
     if kind == "ell":
         return SparseLeastSquaresELL.from_dense(o["A"], o["b"],
                                                 float(o["scale"]),
@@ -80,19 +83,25 @@ def prox(spec, key="prox"):
         return SqrDistPoint(_t(p["b"]), _t(p["rho"]))
     if p["kind"] == "l2":
         return NormL2(_t(p["lam"]))
+    if p["kind"] == "nuclear":
+        return NormNuclear(float(p["lam"]))
     return IndBox(_t(p["lo"]), _t(p["hi"]))
 
 
 def terms(spec):
     """The case's g, or (g, h) with an ``"h"`` (Davis-Yin), or (g, h, K)
-    with a ``"K"`` too (Condat-Vũ, K = FirstDifference)."""
-    from ciao_tpu_torch.ops.linmap import FirstDifference
+    with a ``"K"`` too (Condat-Vũ: FirstDifference, or with ``"dense"``
+    the identity as a DenseMap)."""
+    from ciao_tpu_torch.ops.linmap import DenseMap, FirstDifference
 
     g = prox(spec)
     if "h" not in spec:
         return g
     if "K" not in spec:
         return g, prox(spec, "h")
+    if spec["K"] == "dense":
+        return g, prox(spec, "h"), DenseMap(torch.eye(len(spec["x0"]),
+                                                      dtype=torch.float64))
     return g, prox(spec, "h"), FirstDifference()
 
 
@@ -458,6 +467,28 @@ def _tp_sched(spec, key, m2):
     return _t(s)
 
 
+def _tp_parts(spec, m2):
+    """(the rank's oracle block, its terms' columns, x0's columns, the
+    first init scalar) of a ``build_tp_functions`` case: F =
+    ``ZeroOracle`` with no oracle; the terms g, or the pair (g, h)."""
+    N = spec["cfg"]["N"]
+    F = (oracle(spec) if spec.get("oracle") is not None
+         else ZeroOracle(n_terms=N))
+    F = parallel.shard_finite_sum_2d(F, m2, N)
+    x0 = _t(spec["x0"])
+    n = x0.shape[0]
+
+    def cut(p):
+        return parallel.put_specs(p, m2, parallel.model_prox_specs(p, n))
+
+    t = terms(spec)
+    g = tuple(cut(p) for p in t[:2]) if isinstance(t, tuple) else cut(t)
+    gamma = _t(spec["gamma"])
+    if gamma.dim() == 1:
+        gamma = gamma[slice(*m2.rows(N))].contiguous()
+    return F, g, x0[slice(*m2.cols(n))].contiguous(), gamma
+
+
 def tp_build(mesh, spec):
     """``build_tp_functions`` from init through ``spec["steps"]`` steps on
     the explicit schedule (``run``, or ``step`` one at a time with
@@ -466,26 +497,20 @@ def tp_build(mesh, spec):
     m2 = mesh2d(spec)
     if m2 is None:
         return None
-    N = spec["cfg"]["N"]
-    F = parallel.shard_finite_sum_2d(oracle(spec), m2, N)
-    x0 = _t(spec["x0"])
-    g = prox(spec)
-    g = parallel.put_specs(g, m2, parallel.model_prox_specs(g, x0.shape[0]))
+    F, g, x0, gamma = _tp_parts(spec, m2)
     cfg = parallel.TPCfg(**spec["cfg"])
     init, step, run, rebase = parallel.build_tp_functions(
         spec["family"], m2, F, g, cfg)
-    gamma = _t(spec["gamma"])
-    if gamma.dim() == 1:
-        gamma = gamma[slice(*m2.rows(N))].contiguous()
-    st = init(x0[slice(*m2.cols(x0.shape[0]))].contiguous(), gamma,
-              spec.get("seed", 0), *spec.get("extra", ()))
+    st = init(x0, gamma, spec.get("seed", 0), *spec.get("extra", ()))
     starts, idx = _tp_sched(spec, "starts", m2), _tp_sched(spec, "idx", m2)
+    coins = _tp_sched(spec, "coins", m2)
     if spec.get("stepwise"):
         for t in range(spec["steps"]):
             st = step(st, None if starts is None else starts[t],
-                      None if idx is None else idx[t])
+                      None if idx is None else idx[t],
+                      None if coins is None else bool(coins[t]))
     else:
-        st = run(st, spec["steps"], starts=starts, idx=idx)
+        st = run(st, spec["steps"], starts=starts, idx=idx, coins=coins)
     if spec.get("rebase"):
         st = rebase(st)
     return dict(fields(st), **_where(m2))
@@ -676,6 +701,138 @@ def tp_proshi_vs_dp(mesh, spec):
     return out
 
 
+def tp_run_vs_step(mesh, spec):
+    """A family from init through ``spec["steps"]`` steps twice on the
+    rank's own draws: one ``run`` call (its draws in one pass) and
+    ``step`` calls (each its own draw)."""
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    F, g, x0, gamma = _tp_parts(spec, m2)
+    init, step, run, _ = parallel.build_tp_functions(
+        spec["family"], m2, F, g, parallel.TPCfg(**spec["cfg"]))
+    st0 = init(x0, gamma, spec.get("seed", 0), *spec.get("extra", ()))
+    b = st0
+    for _ in range(spec["steps"]):
+        b = step(b)
+    return dict(run=fields(run(st0, spec["steps"])), step=fields(b),
+                **_where(m2))
+
+
+def tp_vs_single_vr(mesh, spec):
+    """A (1, 1) mesh's run of a family beside the single-card solver's on
+    the same explicit schedule (block starts, inner starts, coins): both
+    states."""
+    from ciao_tpu_torch.solvers import katyusha as sk
+    from ciao_tpu_torch.solvers import lsvrg as sl
+    from ciao_tpu_torch.solvers import point_saga as sp
+    from ciao_tpu_torch.solvers import sarah as ss
+    from ciao_tpu_torch.solvers import ssnm as sm
+
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    fam, N, B, T = spec["family"], spec["N"], spec["B"], spec["steps"]
+    F, g = oracle(spec), prox(spec)
+    x0, a = _t(spec["x0"]), _t(spec["gamma"])
+    extra = spec.get("extra", ())
+    cfg = parallel.TPCfg(**spec["cfg"])
+    init, _, run, _ = parallel.build_tp_functions(
+        fam, m2, parallel.shard_finite_sum_2d(F, m2), g, cfg)
+    starts = spec["starts"]
+    coins = spec.get("coins")
+    tp = run(init(x0, a, 0, *extra), T, starts=list(starts), coins=coins)
+    st = [torch.as_tensor(s_) for s_ in starts]
+    if fam == "katyusha":
+        c = sk.KatyushaCfg(N=N, batch=B, m=cfg.m_inner, block=True,
+                           ns=cfg.variant == "ns")
+        one = sk.katyusha_run(F, g, sk.katyusha_init(
+            F, g, x0, a, _t(extra[0]), _t(extra[1]), 0, c), c, T, starts=st)
+    elif fam == "sarah":
+        c = ss.SARAHCfg(N=N, batch=B, m=cfg.m_inner, block=True)
+        one = ss.sarah_run(F, g, ss.sarah_init(F, g, x0, a, extra[0], 0, c),
+                           c, T, starts=st)
+    elif fam == "lsvrg":
+        c = sl.LSVRGCfg(N=N, batch=B, block=True)
+        one = sl.lsvrg_run(F, g, sl.lsvrg_init(F, g, x0, a, extra[0], 0, c),
+                           c, T, starts=torch.stack(st), coins=coins)
+    elif fam == "lkatyusha":
+        c = sl.LKatyushaCfg(N=N, batch=B, block=True)
+        one = sl.lkatyusha_run(F, g, sl.lkatyusha_init(
+            F, g, x0, a, *(_t(e) for e in extra[:3]), extra[3], 0, c), c, T,
+            starts=torch.stack(st), coins=coins)
+    elif fam == "point_saga":
+        c = sp.PointSAGACfg(N=N, batch=B, block=True)
+        one = sp.point_saga_run(F, Zero(), sp.point_saga_init(
+            F, Zero(), x0, a, 0, c), c, T, starts=torch.stack(st))
+    else:
+        c = sm.SSNMCfg(N=N, batch=B)
+        one = sm.ssnm_run(F, g, sm.ssnm_init(F, g, x0, a, _t(extra[0]), 0, c),
+                          c, T, starts=torch.stack(st))
+    return dict(tp=fields(tp), single=fields(one))
+
+
+def tp_panoc_trials(mesh, spec):
+    """A TPPANOC/TPZeroFPR iterator's first ``take`` states with every FBE
+    evaluation counted on this rank: the evaluations, each state's
+    envelope value, and the last state's fields."""
+    from ciao_tpu_torch.solvers import panoc
+
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    evals = [0]
+    inner = panoc._eval_fbe
+
+    def counted(*a, **k):
+        evals[0] += 1
+        return inner(*a, **k)
+
+    panoc._eval_fbe = counted
+    try:
+        solver = getattr(parallel, spec["cls"])(mesh=m2, **spec["kw"])
+        kw = _call_args(mesh, dict(spec, shard=False))
+        states = list(itertools.islice(solver.iterator(_t(spec["x0"]), **kw),
+                                       spec["take"]))
+    finally:
+        panoc._eval_fbe = inner
+    return dict(evals=evals[0], fbe=np.array([float(s_.fbe)
+                                              for s_ in states]),
+                last=fields(states[-1]), **_where(m2))
+
+
+def tp_deep_pd(mesh, spec):
+    """``deep_solve_pd_tp`` on the case's problem: the whole x, the
+    verdicts, the steps and the seconds."""
+    m2 = mesh2d(spec)
+    if m2 is None:
+        return None
+    kw = _call_args(mesh, dict(spec, shard=False))
+    t0 = time.perf_counter()
+    x, info = parallel.deep_solve_pd_tp(
+        _t(spec["x0"]), kw["F"], g=kw["g"], h=kw["h"], K=kw["K"],
+        N=spec["N"], mesh=m2, **spec["kw"])
+    return dict(x=_np(x), refined=info.refined, certified=info.certified,
+                steps=info.steps, lam_hat=info.lam_hat,
+                seconds=time.perf_counter() - t0, **_where(m2))
+
+
+def dryrun(mesh, spec):
+    """``entry.dryrun_multichip`` over the whole default group on the CPU,
+    and its refusal of a size the group is not."""
+    from ciao_tpu_torch.entry import dryrun_multichip
+
+    out = {}
+    try:
+        dryrun_multichip(mesh.size + 1, device="cpu")
+    except RuntimeError as e:
+        out["refusal"] = str(e)
+    t0 = time.perf_counter()
+    dryrun_multichip(mesh.size, device="cpu")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 RUNNERS = dict(build=build, facade=facade, errors=errors, layout=layout,
                rebase_resume=rebase_resume, deep=deep, power=power,
                mesh_info=mesh_info, schedules=schedules,
@@ -684,7 +841,10 @@ RUNNERS = dict(build=build, facade=facade, errors=errors, layout=layout,
                deep_pd=deep_pd, tp_build=tp_build, tp_facade=tp_facade,
                tp_errors=tp_errors, tp_layout=tp_layout, tp_rebase=tp_rebase,
                tp_deep=tp_deep, tp_power=tp_power, tp_mesh=tp_mesh,
-               tp_vs_single=tp_vs_single, tp_proshi_vs_dp=tp_proshi_vs_dp)
+               tp_vs_single=tp_vs_single, tp_proshi_vs_dp=tp_proshi_vs_dp,
+               tp_run_vs_step=tp_run_vs_step, tp_vs_single_vr=tp_vs_single_vr,
+               tp_panoc_trials=tp_panoc_trials, tp_deep_pd=tp_deep_pd,
+               dryrun=dryrun)
 
 
 # ---------------------------------------------------------------------------
