@@ -78,8 +78,12 @@ no clamp count), ``point_saga_multistep_streamed.cu`` (kernels #15 and #12:
 - checkpoints (``ciao_tpu_torch.checkpoint``) at full width: the headline
   and SAGA's 1 GiB full table saved, loaded and resumed, an async save
   while the solver steps, and every facade's iterator resumed;
-- the entry point ``ciao_tpu_torch.entry`` and the six examples of
-  ``examples_torch/`` at their default sizes.
+- the sharded checkpoint (``save_async(..., mesh=)``, ``load_orbax``) at
+  the headline's width on two gloo ranks and one NCCL rank: same-mesh
+  resumes, 2 -> 1 and 1 -> 2 ranks, a TP state, the full table timed;
+- the entry point ``ciao_tpu_torch.entry`` (traced by
+  ``monitor.profiler_trace``) and the ten examples of ``examples_torch/``
+  at their default sizes, ``multihost.py`` also as two processes.
 
 Phases, one line each:
 
@@ -221,7 +225,7 @@ Phases, one line each:
      headline, ragged N and widths that are not whole 16-byte chunks,
      bit-for-bit repeats, c and gsum equal to kernel #6's; kernel #6's
      output bit for bit its pinned digests;
-  4u. PANOC/ZeroFPR at the headline (64 steps each): kernel #7 launched once
+  4u. PANOC/ZeroFPR at the headline (32 steps each): kernel #7 launched once
      per FBE evaluation and nothing else, ms per step, evaluations per step,
      a profiled window's idle share;
   4v. the ``PANOC`` and ``ZeroFPR`` facades on the planted Lasso: cost − f*
@@ -285,12 +289,21 @@ Phases, one line each:
      the straight run, with the kernels each resume launched; (e) a
      sparse-route SAGA state, held to 1e-5 of its largest entry (its
      scatter-adds add with atomics);
-  4ex. ``entry()`` (one kernel #4 launch), then each example of
-     ``examples_torch/`` at its default size (``large_scale_lasso`` in f32,
-     bf16 and int8), its asserts holding, with its own numbers and the
-     kernels it launched: #6 and #8 for the LFinito examples, #3 or #4
-     (and #6) for ``deep_accuracy``, none for ``fused_lasso_tv``,
-     ``tv_denoise_2d`` and ``sparse_logistic``;
+  4ex. ``entry()`` (one kernel #4 launch) inside
+     ``monitor.profiler_trace``, whose Chrome trace must name the launch,
+     then each example of ``examples_torch/`` at its default size
+     (``large_scale_lasso`` in f32, bf16 and int8), its asserts holding,
+     with its own numbers and the kernels it launched: #6 and #8 for the
+     LFinito examples, #3 or #4 (and #6) for ``deep_accuracy``, none for
+     ``fused_lasso_tv``, ``tv_denoise_2d`` and ``sparse_logistic``, #10
+     and #6 for ``robust_regression`` and ``poisson_glm`` (Katyusha's;
+     DPKatyusha runs lockstep on one NCCL rank of their own), #11 and #6
+     for ``nonconvex_sparse_mcp`` (its L1 run; MCP's prox closes SARAH's
+     gate), #3 for ``multihost`` (its local rounds; the lockstep run has
+     none); before the parallel examples a timed window of the lockstep
+     DPSAGA step on ``multihost.py``'s problem; beside them
+     ``multihost.py`` as two processes on the one card over gloo, started
+     from the ``torchrun`` environment with ``CIAO_MULTIHOST=1``;
   4dp. the data-parallel path (``ciao_tpu_torch.parallel``): (a) one rank
      over NCCL: bench.py's DP rounds at the headline (DPSAGA, K = 128 steps
      a round on kernel #3, 512 rounds, the exact av every 50; f32 and
@@ -353,6 +366,17 @@ Phases, one line each:
      TPCondatVu's halo held to the single card's CondatVu, PANOC's
      and ZeroFPR's FBE evaluations equal on both ranks; then
      ``entry.dryrun_multichip(2)`` on the two ranks;
+  4sc. the sharded checkpoint at the headline's width: (c) DPSAGA's
+     local rounds (kernel #3) on one NCCL rank saved with
+     ``save_async(..., mesh=)``; two gloo ranks on the one card, 131,072
+     rows each, restore it (``load_orbax``), their rows bit for bit its
+     table, and resume with the cost falling; (a) the same solver saved
+     while it steps on, restored on the same mesh and resumed, bit for bit
+     the straight run in z, av and s, with kernel #3's launches; DPSAGA's
+     full (131,072, 1,024) f32 table saved and restored bit for bit,
+     seconds and GB/s of both; (d) a TPSAGA state on the (1, 2) mesh
+     resumed bit for bit; (b) back on one NCCL rank, (a)'s checkpoint
+     restored, the table bit for bit the two ranks', and resumed;
   11. times: kernel #7 per pass at the headline in turns with its plain
      version and kernel #6, its bound, the read ceiling and the two-gemv +
      value yardstick, and the same at the deep target's shape.
@@ -4029,9 +4053,9 @@ def time_new(r: dict, kind: str, gen, dev, tag: str, card: str) -> dict:
 
 # bench.py's PANOC configurations at the headline (:745-754, :838-848):
 # ZeroFPR fused at f32, bf16 and int8 rows and PANOC fused with adaptive γ
-# off and on, 64 steps each (cut from 128 for the script's time limit) from
+# off and on, 32 steps each (cut from 128 for the script's time limit) from
 # x0 = 0, γ = 0.95/mean(L), σ = 0.5·0.05/(2γ)
-PANOC_STEPS = 64
+PANOC_STEPS = 32
 # the Davis-Yin and Condat-Vũ configurations (:850-903): 600 steps each
 SPLIT_STEPS = 600
 DENSE_MAPS = (1_024, 8_192)
@@ -5835,7 +5859,20 @@ EX_KERNELS = {"entry": ("saga_coeff_multistep_streamed",),
                                     "lfinito_sweep_multistep"),
               "lasso_10m": ("coeff_apply_all", "lfinito_sweep_multistep"),
               "fused_lasso_tv": (), "tv_denoise_2d": (),
-              "sparse_logistic": ()}
+              "sparse_logistic": (),
+              # the Huber and Poisson modes open Katyusha's gate (#10, its
+              # anchors on #6)
+              "robust_regression": ("katyusha_coeff_multistep",
+                                    "coeff_apply_all"),
+              "poisson_glm": ("katyusha_coeff_multistep", "coeff_apply_all"),
+              # the L1 run on #11 (its bootstrap on #6); MCP's prox closes
+              # SARAH's gate, so the MCP runs launch nothing
+              "nonconvex_sparse_mcp": ("sarah_multistep", "coeff_apply_all"),
+              # the lockstep run has no kernel; the local rounds run on #3
+              "multihost": ("saga_coeff_multistep",)}
+# the parallel examples and the multi-process template, 4ex's additions
+EX_PARALLEL = ("robust_regression", "poisson_glm", "nonconvex_sparse_mcp",
+               "multihost")
 
 
 def load_example(name: str):
@@ -5849,48 +5886,199 @@ def load_example(name: str):
     return mod
 
 
-def run_examples(card: str) -> dict:
-    """Phase 4ex: ``entry()`` (one launch of kernel #4), then each example's
-    ``main()`` on the card at its defaults, its asserts holding; the
-    kernels each launched, counted from 0, must be EX_KERNELS' (#6 and #8
-    for the LFinito examples, #3 for deep_accuracy, none for the routes
-    with no kernel)."""
-    from ciao_tpu_torch.entry import entry
+def traced_entry(card: str) -> dict:
+    """``entry()`` inside ``monitor.profiler_trace``: one kernel #4 launch,
+    and the Chrome trace the block writes names it (a window whose trace
+    dropped the record is run again, up to PROFILE_TRIES times)."""
+    import tempfile
 
-    out = {}
-    reset_counts()
+    from ciao_tpu_torch.entry import entry
+    from ciao_tpu_torch.monitor import profiler_trace
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        reset_counts()
+        t0 = time.perf_counter()
+        fn, args = entry()
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+            with profiler_trace(tmp) as prof:
+                st = fn(*args)
+                torch.cuda.synchronize()
+            with open(prof.trace_path) as f:
+                events = json.load(f)["traceEvents"]
+        dt = time.perf_counter() - t0
+        c = counts()
+        if c["saga_coeff_multistep_streamed"] != 1 or sum(c.values()) != 1:
+            raise AssertionError(f"entry(): {c}, not one kernel #4 launch")
+        names = [kernel_name(e["name"]) for e in events
+                 if e.get("cat") == "kernel"]
+        seen = sum(k in SAGA_DEEP_GROUPS["kernel #4"] for k in names)
+        if seen == 1:
+            break
+        if seen or attempt == PROFILE_TRIES:
+            raise AssertionError(f"entry(): the trace names {seen} kernel #4 "
+                                 f"launches for one: {names}")
+        log(f"  4ex entry(): the trace dropped the kernel #4 record; "
+            f"tracing again ({attempt + 1} of {PROFILE_TRIES})")
+    out = dict(it=st.it, s=dt, launches=c, events=len(events),
+               kernels=len(names))
+    log(f"  4ex entry(): it = {st.it}, one kernel #4 launch, named in the "
+        f"profiler_trace Chrome trace ({len(events)} events, {len(names)} "
+        f"device kernels), {dt:.2f} s with its setup and the trace [{card}]")
+    return out
+
+
+def multihost_start(tmp: str) -> list:
+    """``examples_torch/multihost.py`` started as two processes on the one
+    card, as ``torchrun`` starts them (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``)
+    with ``CIAO_MULTIHOST=1``: two ranks on one card join over gloo. Each
+    rank's output goes to ``tmp``; the processes and their start time."""
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    env = dict(os.environ, CIAO_MULTIHOST="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + os.environ.get("PYTHONPATH", "").split(
+                       os.pathsep)))
+    script = os.path.join(ROOT, "examples_torch", "multihost.py")
     t0 = time.perf_counter()
-    fn, args = entry()
-    st = fn(*args)
-    torch.cuda.synchronize()
-    c = counts()
-    if c["saga_coeff_multistep_streamed"] != 1 or sum(c.values()) != 1:
-        raise AssertionError(f"entry(): {c}, not one kernel #4 launch")
-    out["entry"] = dict(it=st.it, s=time.perf_counter() - t0, launches=c)
-    log(f"  4ex entry(): it = {st.it}, one kernel #4 launch, "
-        f"{out['entry']['s']:.2f} s with its setup [{card}]")
-    del fn, args, st
+    procs = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.log"), "wb") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, script],
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                stdout=f, stderr=subprocess.STDOUT))
+    return [procs, t0]
+
+
+def multihost_stop(procs: list) -> None:
+    """Kill whichever of the two processes still runs."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def multihost_finish(started: list, tmp: str, card: str) -> dict:
+    """Wait for the two processes of ``multihost_start``: both exit 0 and
+    rank 0 printed both solves' lines for two processes. Rank 0's lines,
+    and the seconds from their start to the later exit."""
+    procs, t0 = started
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        multihost_stop(procs)
+    dt = time.perf_counter() - t0
+    text = [open(os.path.join(tmp, f"rank{r}.log")).read() for r in range(2)]
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"4ex multihost.py rank {r} of 2 exited "
+                                 f"{p.returncode}:\n{text[r][-4000:]}")
+    lines = [l for l in text[0].splitlines() if "suboptimality" in l]
+    if len(lines) != 2 or "processes=2" not in lines[0]:
+        raise AssertionError(f"4ex multihost.py: rank 0 printed {text[0]}")
+    log(f"  4ex multihost.py, two processes on the one card over gloo "
+        f"(CIAO_MULTIHOST=1, the torchrun environment), run beside the "
+        f"parallel examples: {'; '.join(lines)}; {dt:.2f} s with the "
+        f"processes' start [{card}]")
+    return dict(lines=lines, s=dt)
+
+
+# 4ex's timed window of multihost.py's lockstep DPSAGA on one NCCL rank:
+# the seconds of LOCKSTEP[1] steps less those of LOCKSTEP[0] (each a whole
+# solve from x0, setup included) over the steps between
+LOCKSTEP = (1_000, 6_000)
+
+
+def lockstep_window(card: str) -> dict:
+    """ms per lockstep DPSAGA step on ``multihost.py``'s problem (N = 128,
+    n = 64, batch 8, f32) on a one-rank NCCL group: two solves of
+    LOCKSTEP's step counts, timed to the card's end, differenced."""
+    import torch.distributed as dist
+
+    from ciao_tpu_torch.oracles import LeastSquaresRows
+    from ciao_tpu_torch.parallel import DPSAGA, make_mesh, shard_finite_sum
+    from ciao_tpu_torch.parallel.mesh import process_group
+    from ciao_tpu_torch.prox import NormL1
+    from ciao_tpu_torch.utils.problems import make_lasso
+
+    dev = torch.device("cuda", 0)
+    with process_group(dev):
+        mesh = make_mesh(device=dev)
+        prob = make_lasso(N=128, n=64, p=8, seed=0)
+        F = shard_finite_sum(LeastSquaresRows(
+            torch.tensor(prob.A, dtype=torch.float32, device=dev),
+            torch.tensor(prob.b, dtype=torch.float32, device=dev), 128.0),
+            mesh)
+        g, x0 = NormL1(float(prob.lam)), torch.zeros(64, device=dev)
+        secs = []
+        for k in (LOCKSTEP[0],) + LOCKSTEP:      # the first warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            DPSAGA(mesh=mesh, batch=8, block_sampling=True, maxit=k)(
+                x0, F=F, g=g, L=prob.L)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        ranks = dist.get_world_size()
+    ms = (secs[2] - secs[1]) * 1e3 / (LOCKSTEP[1] - LOCKSTEP[0])
+    log(f"  4ex lockstep DPSAGA on multihost.py's problem, {ranks} NCCL "
+        f"rank: {ms:.4f} ms/step ({LOCKSTEP[0]:,} steps {secs[1]:.3f} s, "
+        f"{LOCKSTEP[1]:,} steps {secs[2]:.3f} s) [{card}]")
+    return dict(ms=ms, s=secs[1:])
+
+
+def run_examples(card: str) -> dict:
+    """Phase 4ex: ``entry()`` (one launch of kernel #4) traced by
+    ``monitor.profiler_trace``, then each example's ``main()`` on the
+    card at its defaults, its asserts holding; the kernels each launched,
+    counted from 0, must be EX_KERNELS' (#6 and #8 for the LFinito
+    examples, #3 for deep_accuracy, none for the routes with no kernel,
+    #10 and #6 for the Katyusha examples, #11 and #6 for the SARAH one,
+    #3 for the multi-process template). Then a timed window of the
+    template's lockstep DPSAGA. The parallel examples start a one-rank
+    NCCL group each; beside them ``multihost.py`` runs as two processes
+    over gloo."""
+    import tempfile
+
+    out = {"entry": traced_entry(card)}
     runs = [("deep_accuracy", {}), ("large_scale_lasso", dict(storage="f32")),
             ("large_scale_lasso", dict(storage="bf16")),
             ("large_scale_lasso", dict(storage="int8")), ("lasso_10m", {}),
             ("fused_lasso_tv", {}), ("tv_denoise_2d", {}),
-            ("sparse_logistic", {})]
-    for name, kw in runs:
-        tag = name + "".join(f" {v}" for v in kw.values())
-        mod = load_example(name)
-        torch.cuda.empty_cache()
-        reset_counts()
-        t0 = time.perf_counter()
-        res = mod.main(**kw)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        c = {k: v for k, v in counts().items() if v}
-        want = EX_KERNELS[name]
-        if set(c) != set(want):
-            raise AssertionError(f"4ex {tag}: launched {c}, not {want}")
-        out[tag] = dict(result=res, s=dt, launches=c)
-        del mod, res
-    torch.cuda.empty_cache()
+            ("sparse_logistic", {})] + [(k, {}) for k in EX_PARALLEL]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        started = None
+        try:
+            for name, kw in runs:
+                if name == EX_PARALLEL[0]:
+                    out["lockstep"] = lockstep_window(card)
+                    started = multihost_start(tmp)
+                tag = name + "".join(f" {k if v is True else v}"
+                                     for k, v in kw.items())
+                mod = load_example(name)
+                torch.cuda.empty_cache()
+                reset_counts()
+                t0 = time.perf_counter()
+                res = mod.main(**kw)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                c = {k: v for k, v in counts().items() if v}
+                want = EX_KERNELS[name]
+                if set(c) != set(want):
+                    raise AssertionError(f"4ex {tag}: launched {c}, not "
+                                         f"{want}")
+                out[tag] = dict(result=res, s=dt, launches=c)
+                del mod, res
+            torch.cuda.empty_cache()
+            out["multihost x2"] = multihost_finish(started, tmp, card)
+        finally:
+            if started is not None:
+                multihost_stop(started[0])
     return out
 
 
@@ -5911,6 +6099,22 @@ def example_text(tag: str, r: dict) -> str:
                 f"({res['saga_steps']} steps, {res['saga_s']:.2f} s), "
                 f"Katyusha {res['katyusha']:.6f} ({res['katyusha_outer']} "
                 f"outer steps, {res['katyusha_s']:.2f} s)")
+    elif name == "robust_regression":
+        what = (f"|x - x_true| least squares {res['err_ls']:.4f}, Huber + "
+                f"Katyusha {res['err']:.4f} ({res['iters']} outer steps), "
+                f"DPKatyusha x{res['D']} {res['err_dp']:.4f}")
+    elif name == "poisson_glm":
+        what = (f"{res['nonzeros']} nonzeros, support {res['support']}/6, "
+                f"corr {res['corr']:.3f} ({res['iters']} outer steps), "
+                f"DPKatyusha x{res['D']} |x - x_single| {res['err_dp']:.5f}")
+    elif name == "nonconvex_sparse_mcp":
+        what = (f"|x - refit| L1 {res['err_l1']:.4f}, MCP + SARAH "
+                f"{res['err_mcp']:.6f} ({res['iters']} outer steps), DPSARAH "
+                f"x{res['D']} {res['err_dp']:.6f}")
+    elif name == "multihost":
+        what = (f"DPSAGA x{res['D']} {res['iters']} lockstep steps, gap "
+                f"{res['gap']:.3e}; {res['steps']} steps in local rounds, "
+                f"gap {res['gap_local']:.3e}")
     else:
         what = (f"N {res['N']}, {res['ms_per_epoch']:.2f} ms/epoch over "
                 f"{res['epochs']} epochs, objective {res['objective0']:.6f} "
@@ -7562,6 +7766,354 @@ def run_tp(dev, seed: int, card: str, dp_deep_s: float) -> dict:
                 s=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# 4sc: the sharded checkpoint (save_async(..., mesh=), load_orbax) at the
+# headline's width: (c)'s one-rank checkpoint in this process, then two
+# ranks on the one card over gloo for (a), the full table, (c) and (d),
+# then (b) back in this process on one rank
+# ---------------------------------------------------------------------------
+
+# DPSAGA's local rounds (K steps a round, one kernel #3 launch a rank) as
+# bench.py's DP rounds run them; rounds before the save, rounds stepped
+# while the write runs, rounds compared after it; TP block steps
+SC = dict(K=32, rounds=3, overlap=2, more=3, full_steps=1, tp_steps=2,
+          seed=6_000)
+
+
+def sc_problem(dev, seed: int):
+    """The headline's f32 rows, the same on every rank and process."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + SC["seed"])
+    return lasso(gen, dev, N, n, "f32")
+
+
+def sc_stream(mesh, F, L, **kw):
+    """A DPSAGA iterator on the rank's part of the headline: local rounds
+    by default, ``table="full"`` for the (N/D, n) table."""
+    from ciao_tpu_torch import parallel
+    from ciao_tpu_torch.prox import NormL1
+
+    dev = mesh.device
+    if not kw:
+        kw = dict(local_steps=SC["K"], rebase_every=50)
+    solver = parallel.DPSAGA(mesh=mesh, batch=B, block_sampling=True,
+                             seed=7, **kw)
+    return solver.iterator(torch.zeros(n, device=dev), F=F,
+                           g=NormL1(torch.tensor(LAM, device=dev)), L=L)
+
+
+def sc_cost(mesh, F, z) -> float:
+    """The global objective at z from the rank's rows (one all-reduce)."""
+    from ciao_tpu_torch.parallel.dp import _psum
+
+    return float(_psum(mesh, F.value_sum_all(z)) / N
+                 + LAM * z.abs().sum())
+
+
+def sc_equal(a, b, fields, tag: str) -> None:
+    """Raise unless each of ``fields`` is bit for bit the same in the
+    states ``a`` and ``b``."""
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if not torch.equal(x, y):
+            gap = float((x.double() - y.double()).abs().max())
+            raise AssertionError(f"4sc {tag}: {f} differs, max |d| "
+                                 f"{gap:.3e}")
+
+
+def sc_resume(mesh, it, like, path, more: int, tag: str):
+    """load_orbax of ``path`` into ``like`` on ``mesh`` (timed), then
+    ``more`` rounds resumed from it: (restored, resumed, seconds, the
+    launches of kernel #3 in the resume, cost before and after)."""
+    from ciao_tpu_torch import checkpoint
+
+    restored, dt = timed(lambda: checkpoint.load_orbax(path, like,
+                                                       mesh=mesh))
+    c0 = counts()["saga_coeff_multistep"]
+    res = checkpoint.resume_iterator(it, restored)
+    st = next(res)
+    for _ in range(more):
+        st = next(res)
+    torch.cuda.synchronize()
+    return dict(restored=restored, resumed=st, s=dt,
+                launches=counts()["saga_coeff_multistep"] - c0)
+
+
+def sc_two_rank_runs(mesh, seed: int, tmp: str, grow_dir: str) -> dict:
+    """One rank's part: (c) the one-rank checkpoint restored here and
+    resumed; (a) the local rounds saved while stepping on, restored on
+    the same mesh and resumed, and the full (N/D, n) table saved and
+    restored, timed; (d) a TPSAGA state on the (1, 2) mesh."""
+    import torch.distributed as dist
+
+    from ciao_tpu_torch import checkpoint, parallel
+    from ciao_tpu_torch.prox import NormL1
+
+    dev = mesh.device
+    out = {"launches": Count(0)}
+    F, _, L = sc_problem(dev, seed)
+    Fd = parallel.shard_finite_sum(F, mesh)
+    del F
+    torch.cuda.empty_cache()
+
+    # (c) grow: the one-rank state onto the two ranks
+    it = sc_stream(mesh, Fd, L)
+    like = next(iter(it))
+    r = sc_resume(mesh, it, like, grow_dir, SC["more"], "(c)")
+    out["grow"] = dict(s=r["restored"].s.cpu(), z=r["restored"].z.cpu(),
+                       load_s=r["s"], launches=int(r["launches"]),
+                       cost0=sc_cost(mesh, Fd, r["restored"].z),
+                       cost1=sc_cost(mesh, Fd, r["resumed"].z))
+    out["launches"] += r["launches"]
+
+    # (a) same mesh: save while the solver steps on, restore, resume
+    c0 = counts()["saga_coeff_multistep"]
+    stream = iter(it)
+    st = next(stream)
+    for _ in range(SC["rounds"]):
+        st = next(stream)
+    path = os.path.join(tmp, "a")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr = checkpoint.save_async(path, st, mesh=mesh)
+    t_call = time.perf_counter() - t0
+    live = st
+    for _ in range(SC["overlap"]):
+        live = it._step_fn(live)
+    mgr.wait_until_finished()
+    t_save = time.perf_counter() - t0
+    straight = st
+    for _ in range(SC["more"]):
+        straight = it._step_fn(straight)
+    torch.cuda.synchronize()
+    out["launches"] += counts()["saga_coeff_multistep"] - c0
+    r = sc_resume(mesh, it, next(iter(it)), path, SC["more"], "(a)")
+    sc_equal(r["restored"], st, ("s", "z", "av", "gamma"), "(a) restored")
+    if (r["restored"].seed, r["restored"].it) != (st.seed, st.it):
+        raise AssertionError("4sc (a): seed or it differ after the restore")
+    sc_equal(r["resumed"], straight, ("z", "av", "s"), "(a) resumed")
+    if r["launches"] != SC["more"]:
+        raise AssertionError(f"4sc (a): {r['launches']} kernel #3 launches "
+                             f"in {SC['more']} resumed rounds")
+    out["launches"] += r["launches"]
+    out["same"] = dict(s=st.s.cpu(), z=st.z.cpu(), av=st.av.cpu(),
+                       save_call_s=t_call, save_s=t_save, load_s=r["s"],
+                       launches=int(r["launches"]),
+                       bytes=os.path.getsize(os.path.join(
+                           path, f"shard-{mesh.rank}-0.pt")))
+    del it, st, live, straight, r
+
+    # the full (N/D, n) table: 512 MiB a rank of f32
+    itf = sc_stream(mesh, Fd, L, table="full")
+    stream = iter(itf)
+    st = next(stream)
+    for _ in range(SC["full_steps"]):
+        st = next(stream)
+    path = os.path.join(tmp, "full")
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    checkpoint.save_async(path, st, mesh=mesh).wait_until_finished()
+    t_save = time.perf_counter() - t0
+    like = next(iter(itf))
+    dist.barrier()
+    back, t_load = timed(lambda: checkpoint.load_orbax(path, like,
+                                                       mesh=mesh))
+    sc_equal(back, st, ("s", "z", "av"), "full table restored")
+    nbytes = os.path.getsize(os.path.join(path, f"shard-{mesh.rank}-0.pt"))
+    out["full"] = dict(save_s=t_save, load_s=t_load, bytes=nbytes,
+                       table=st.s.numel() * st.s.element_size())
+    del itf, st, back, like
+    torch.cuda.empty_cache()
+
+    # (d) TPSAGA on the (1, 2) mesh: the rank's 512 columns of every row
+    m2 = parallel.make_mesh_2d(1, 2, device=dev)
+    del Fd
+    F, _, L = sc_problem(dev, seed)
+    F2 = parallel.shard_finite_sum_2d(F, m2, N)
+    del F
+    torch.cuda.empty_cache()
+    tp = parallel.TPSAGA(mesh=m2, batch=B, seed=9)
+    it = tp.iterator(torch.zeros(n, device=dev), F=F2,
+                     g=NormL1(torch.tensor(LAM, device=dev)), L=L)
+    stream = iter(it)
+    st = next(stream)
+    for _ in range(SC["tp_steps"]):
+        st = next(stream)
+    path = os.path.join(tmp, "tp")
+    (_, t_save) = timed(lambda: checkpoint.save_async(
+        path, st, mesh=m2).wait_until_finished())
+    straight = it._step_fn(st)
+    back = checkpoint.load_orbax(path, next(iter(it)), mesh=m2)
+    sc_equal(back, st, ("s", "z", "av", "gamma"), "(d) restored")
+    resumed = it._step_fn(back)
+    sc_equal(resumed, straight, ("s", "z", "av"), "(d) resumed")
+    out["tp"] = dict(save_s=t_save, cols=int(st.z.numel()),
+                     rows=int(st.s.numel()))
+    # plain ints: this module is another one in the spawning process
+    out["launches"] = (int(out["launches"]), out["launches"].steps)
+    return out
+
+
+def sc_rank_main(rank: int, D: int, store: str, tmp: str, seed: int,
+                 grow_dir: str):
+    """A rank process of 4sc: gloo over a FileStore, CUDA tensors on the
+    one card, its results written to tmp."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ciao_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, D), rank=rank,
+                            world_size=D,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        mesh = parallel.make_mesh(device="cuda:0")
+        out = sc_two_rank_runs(mesh, seed, tmp, grow_dir)
+        torch.cuda.synchronize()
+        torch.save(out, os.path.join(tmp, f"sc_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sc_one_rank(dev, tmp: str):
+    """A one-rank NCCL group and its mesh (the caller destroys it)."""
+    import torch.distributed as dist
+
+    from ciao_tpu_torch import parallel
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, f"store1-{time.time_ns()}"), 1), rank=0,
+        world_size=1)
+    return parallel.make_mesh(device=dev)
+
+
+def run_sharded_ckpt(dev, seed: int, card: str) -> dict:
+    """Phase 4sc. (c) first half: DPSAGA's local rounds on one rank here,
+    saved with ``save_async(..., mesh=)``; then two gloo ranks on the one
+    card (131,072 headline rows each) run (c) (that state restored onto
+    them and resumed), (a) (a same-mesh resume bit for bit, saved while
+    the solver steps on) and the full table's timed save and load, and
+    (d) (TPSAGA on the (1, 2) mesh, bit for bit); (b) back here: (a)'s
+    checkpoint restored onto one rank and resumed. Returns the numbers
+    and the path's kernel #3 launches."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from ciao_tpu_torch import checkpoint, parallel
+
+    t0 = time.perf_counter()
+    out = {"launches": Count(0)}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        grow_dir = os.path.join(tmp, "one")
+        F, _, L = sc_problem(dev, seed)
+        mesh = sc_one_rank(dev, tmp)
+        try:
+            c0 = counts()["saga_coeff_multistep"]
+            it = sc_stream(mesh, parallel.shard_finite_sum(F, mesh), L)
+            stream = iter(it)
+            st = next(stream)
+            for _ in range(SC["rounds"]):
+                st = next(stream)
+            checkpoint.save_async(grow_dir, st, mesh=mesh) \
+                .wait_until_finished()
+            torch.cuda.synchronize()
+            out["launches"] += counts()["saga_coeff_multistep"] - c0
+            one_s, one_z = st.s.cpu(), st.z.cpu()
+            del it, stream, st
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        t_spawn = time.perf_counter()
+        mp.start_processes(sc_rank_main,
+                           args=(2, os.path.join(tmp, "store2"), tmp, seed,
+                                 grow_dir),
+                           nprocs=2, join=True, start_method="spawn")
+        wall = time.perf_counter() - t_spawn
+        outs = [torch.load(os.path.join(tmp, f"sc_rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+        for o in outs:
+            out["launches"] += Count(*o["launches"])
+        # (c): the two ranks' rows are the one rank's table, bit for bit
+        grown = torch.cat([o["grow"]["s"] for o in outs])
+        if not (torch.equal(grown, one_s)
+                and all(torch.equal(o["grow"]["z"], one_z) for o in outs)):
+            raise AssertionError("4sc (c): the grown table or z differs from "
+                                 "the one-rank state")
+        for o in outs:
+            g_ = o["grow"]
+            if not (g_["cost1"] < g_["cost0"] and g_["launches"] > 0):
+                raise AssertionError(f"4sc (c): resumed cost {g_['cost0']} "
+                                     f"-> {g_['cost1']}, {g_['launches']} "
+                                     f"launches")
+        # (b) shrink: (a)'s two-rank checkpoint onto one rank here
+        mesh = sc_one_rank(dev, tmp)
+        try:
+            Fd = parallel.shard_finite_sum(F, mesh)
+            del F
+            it = sc_stream(mesh, Fd, L)
+            r = sc_resume(mesh, it, next(iter(it)), os.path.join(tmp, "a"),
+                          SC["more"], "(b)")
+            saved = torch.cat([o["same"]["s"] for o in outs])
+            if not (torch.equal(r["restored"].s.cpu(), saved)
+                    and torch.equal(r["restored"].z.cpu(),
+                                    outs[0]["same"]["z"])
+                    and torch.equal(r["restored"].av.cpu(),
+                                    outs[0]["same"]["av"])):
+                raise AssertionError("4sc (b): the restored table, z or av "
+                                     "differs from the two ranks' state")
+            shrink = dict(load_s=r["s"], launches=int(r["launches"]),
+                          cost0=sc_cost(mesh, Fd, r["restored"].z),
+                          cost1=sc_cost(mesh, Fd, r["resumed"].z))
+            if not (shrink["cost1"] < shrink["cost0"] and r["launches"] > 0):
+                raise AssertionError(f"4sc (b): {shrink}")
+            out["launches"] += r["launches"]
+            del it, r, Fd
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out.update(outs=outs, shrink=shrink, wall=wall,
+               s=time.perf_counter() - t0)
+    fu = [o["full"] for o in outs]
+    sa = [o["same"] for o in outs]
+    together = (sum(f["bytes"] for f in fu) / max(f["save_s"] for f in fu)
+                / 1e9)
+    log(f"  4sc (a) two gloo ranks on the one card, {N // 2} headline rows "
+        f"each: DPSAGA local rounds (K = {SC['K']}, kernel #3) saved with "
+        f"save_async(mesh=) while {SC['overlap']} rounds ran on (the call "
+        + "/".join(f"{s['save_call_s']:.3f}" for s in sa) + " s, the write "
+        + "/".join(f"{s['save_s']:.3f}" for s in sa) + " s), restored in "
+        + "/".join(f"{s['load_s']:.3f}" for s in sa) + f" s and resumed "
+        f"{SC['more']} rounds bit for bit in z, av and s "
+        f"({sa[0]['launches']} kernel #3 launches a rank); the full table "
+        f"({fu[0]['table'] / 2**20:.0f} MiB a rank) saved in "
+        + "/".join(f"{f['save_s']:.3f}" for f in fu) + " s ("
+        + "/".join(f"{f['bytes'] / f['save_s'] / 1e9:.2f}" for f in fu)
+        + f" GB/s a rank, {together:.2f} together), loaded in "
+        + "/".join(f"{f['load_s']:.3f}" for f in fu) + " s ("
+        + "/".join(f"{f['bytes'] / f['load_s'] / 1e9:.2f}" for f in fu)
+        + " GB/s a rank, warm page cache), bit for bit [" + card + "]")
+    log(f"  4sc (b) (a)'s checkpoint onto one rank: the {N}-row "
+        f"coefficient table, z and av bit for bit the two ranks', restored in "
+        f"{shrink['load_s']:.3f} s, cost {shrink['cost0']:.6f} -> "
+        f"{shrink['cost1']:.6f} over {SC['more']} rounds; (c) a one-rank "
+        f"checkpoint onto two ranks: restored in "
+        + "/".join(f"{o['grow']['load_s']:.3f}" for o in outs)
+        + f" s, the rows bit for bit the one rank's, cost "
+        f"{outs[0]['grow']['cost0']:.6f} -> {outs[0]['grow']['cost1']:.6f};"
+        f" (d) TPSAGA on (1, 2), {outs[0]['tp']['cols']} columns a rank, "
+        f"saved in " + "/".join(f"{o['tp']['save_s']:.3f}" for o in outs)
+        + f" s, restored and resumed bit for bit; spawn {wall:.2f} s, "
+        f"all {out['s']:.2f} s [{card}]")
+    return out
+
+
 KERNELS = ("saga_coeff_multistep", "saga_coeff_multistep_streamed",
            "svrg_coeff_multistep", "coeff_apply_all",
            "finito_coeff_multistep", "finito_coeff_multistep_streamed",
@@ -8352,13 +8904,19 @@ def main() -> int:
     # 4ex. the entry point and the examples, counts from 0 in each
     t0 = time.perf_counter()
     ex = run_examples(card)
+    two = ex.pop("multihost x2")
+    lock = ex.pop("lockstep")
     for r in ex.values():
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
     log(f"phase 4ex entry point and examples: ok; entry() it = "
-        f"{ex['entry']['it']} on one kernel #4 launch; " + "; ".join(
+        f"{ex['entry']['it']} on one kernel #4 launch, named in its "
+        f"profiler_trace; " + "; ".join(
             example_text(k, v) for k, v in ex.items() if k != "entry")
-        + f"; all {time.perf_counter() - t0:.2f} s [{card}]")
+        + f"; lockstep DPSAGA on one NCCL rank {lock['ms']:.4f} ms/step; "
+        f"multihost.py as two processes over gloo {two['s']:.2f} s, beside "
+        f"the parallel examples; all {time.perf_counter() - t0:.2f} s "
+        f"[{card}]")
 
     # 4dp. the data-parallel path: (a) one rank over NCCL, (b) two ranks on
     # the one card over gloo; counts from 0, the comparison runs excluded
@@ -8416,6 +8974,24 @@ def main() -> int:
         f"dryrun_multichip(2) {tpr['two']['dryrun_s']:.2f} s; (a) "
         f"{tpr['s_a']:.2f} s, (c) {tpr['s_c']:.2f} s, (b)/(d) "
         f"{tpr['s_b']:.2f} s, all {tpr['s']:.2f} s [{card}]")
+
+    # 4sc. the sharded checkpoint at the headline's width: kernel #3's
+    # launches of the DP path through it, counts from 0
+    reset_counts()
+    sc = run_sharded_ckpt(dev, args.seed, card)
+    launches["saga_coeff_multistep"] += sc["launches"]
+    if sc["launches"] == 0:
+        raise AssertionError("4sc: the path launched no kernel #3")
+    log(f"phase 4sc sharded checkpoint: ok; same-mesh resumes bit for bit "
+        f"(DPSAGA on two ranks, TPSAGA on (1, 2)), the tables bit for bit "
+        f"across 2 -> 1 and 1 -> 2 ranks; full table save "
+        + "/".join(f"{o['full']['bytes'] / o['full']['save_s'] / 1e9:.2f}"
+                   for o in sc["outs"])
+        + " GB/s, load "
+        + "/".join(f"{o['full']['bytes'] / o['full']['load_s'] / 1e9:.2f}"
+                   for o in sc["outs"])
+        + f" GB/s a rank; {int(sc['launches'])} kernel #3 launches; "
+        f"{sc['s']:.2f} s [{card}]")
 
     # 11. kernel #7 per pass in turns with its plain version and kernel #6
     t11 = {s_: time_value_apply(gen, dev, s_, card, ceil)

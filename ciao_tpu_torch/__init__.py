@@ -49,10 +49,14 @@ JAX package); complex rows and iterates (complex64, complex128) through
 on the stepwise PyTorch paths (no kernel takes them, as none does in
 the JAX package); ``Precompose`` and ``CustomOracle`` (autodiff through
 ``torch.func``); checkpoints (``ciao_tpu_torch.checkpoint``: ``save``,
-``load``, ``save_async``, ``load_like``, ``resume_iterator``); the
-single-card entry point ``ciao_tpu_torch.entry`` and the examples of
-``examples_torch/``. The rest is queued in ROADMAP.md. Imports
-torch and numpy, never jax. Entry points run on the card unless the
+``load``, ``save_async``, ``load_like``, ``resume_iterator``, and for
+the DP and TP states the sharded ``save_async(..., mesh=)`` with the
+elastic restore ``load_orbax``); ``monitor.profiler_trace``; the
+single-card entry point ``ciao_tpu_torch.entry`` and the ten examples of
+``examples_torch/``. Left out: the pytree, TPU and threefry helpers
+(``register_oracle``, ``static_field``, ``register_prox``,
+``runtime.on_tpu``, ``sampling.uniform_index``). Imports torch and
+numpy, never jax. Entry points run on the card unless the
 caller names the CPU (a CPU tensor or ``device="cpu"``).
 """
 

@@ -5,12 +5,15 @@ objective, the fixed-point residual, the structured ``Trace`` and the
 ``observer`` callback of the facades' ``observe=`` hook. The reference
 computes no convergence metric in its main path (stop ≡ false,
 ``Finito.jl:74``); these are what a run on the card reads instead.
-``profiler_trace`` is not ported yet (``torch.profiler`` serves).
+``profiler_trace`` records a Chrome trace of a block through
+``torch.profiler``, where JAX's records an xprof trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
@@ -105,3 +108,30 @@ def observer(F, g, trace: Trace, objective_every: bool = True, h=None,
         trace.log(it, **rec)
 
     return observe
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir):
+    """Context manager: record a trace of everything inside and write it
+    to ``logdir`` as a Chrome trace (JSON, ``trace-<pid>-<ns>.json``) when
+    the block exits, the counterpart of JAX's xprof ``profiler_trace``.
+    It records CPU activity, and CUDA activity when a card is present;
+    the block gets the ``torch.profiler.profile`` (``key_averages()``),
+    whose ``trace_path`` names the file once the block has exited::
+
+        with monitor.profiler_trace("/tmp/trace") as prof:
+            state = run(state, 100)
+            torch.cuda.synchronize()
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    path = os.path.join(os.fspath(logdir),
+                        f"trace-{os.getpid()}-{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    prof.trace_path = path

@@ -152,6 +152,12 @@ def oracle_scalar_consts(F, g):
             _scalar(getattr(F, "delta", 0.0), dev))
 
 
+def _shape_ok(N: int, n: int, B=None) -> bool:
+    """The shape half every kernel gate shares: ``n <= MAX_COLS`` and,
+    for the block kernels (``B`` given), whole blocks of B rows."""
+    return n <= MAX_COLS and (B is None or (0 < B and N % B == 0))
+
+
 def full_grad_available(F, x0) -> bool:
     """Gate of :func:`coeff_apply_all`, the port's own: iterate and oracle
     rows on one CUDA device, f32 iterates, a dense-rows coefficient
@@ -168,8 +174,33 @@ def full_grad_available(F, x0) -> bool:
         and x0.dtype == torch.float32
         and A.dtype in _STORAGE_CODES
         and b.dtype == torch.float32
-        and A.shape[1] <= MAX_COLS
+        and _shape_ok(*A.shape)
     )
+
+
+def fused_block_available(N: int, n: int, B: int, dtype) -> bool:
+    """The shape-and-dtype half of the port's block-kernel gates, in JAX's
+    form ``(N, n, B, dtype)`` with JAX's meaning: ``dtype`` is the
+    iterate's (``x0.dtype``). True for a CUDA device present, f32
+    iterates, whole blocks (N % B == 0) and ``n <= MAX_COLS``: what
+    ``_block_gate`` (kernels #1, #2) and :func:`saga_multistep_available`
+    ask of the shapes and the iterate. The rows' storage (f32 or bf16 for
+    #1 and #2; f32, bf16 or int8 for the coefficient kernels) and the
+    offsets are the oracle's, which the gates the solvers call see: they
+    take ``(F, g, x0, B)``, since they also need the oracle's formula mode
+    and the prox. The JAX gate's TPU and ``n % 128`` rules exist for the
+    TPU alone."""
+    return (runtime.on_cuda() and dtype == torch.float32
+            and _shape_ok(int(N), int(n), int(B)))
+
+
+def coeff_multistep_available(N: int, n: int, B: int, dtype) -> bool:
+    """Gate of the K-step coefficient kernels in JAX's ``(N, n, B,
+    dtype)`` form: that of :func:`fused_block_available`. The JAX gate's
+    (8, N/8) VMEM slab rules (N % (8·B), a 4 MB cap) have no counterpart:
+    the port's coefficient table is a flat (N,) tensor in device
+    memory."""
+    return fused_block_available(N, n, B, dtype)
 
 
 def saga_multistep_available(F, g, x0, B: int) -> bool:
@@ -180,7 +211,7 @@ def saga_multistep_available(F, g, x0, B: int) -> bool:
     from ciao_tpu_torch.prox import NormL1, Zero
 
     return (isinstance(g, (NormL1, Zero)) and full_grad_available(F, x0)
-            and F.coeff_rows_data()[0].shape[0] % B == 0)
+            and _shape_ok(*F.coeff_rows_data()[0].shape, B))
 
 
 def svrg_multistep_available(F, g, x0, B: int) -> bool:
@@ -253,7 +284,7 @@ def proshi_multistep_available(F, g, x0, B: int) -> bool:
     elif not isinstance(g, (NormL1, Zero)):
         return False
     return (hasattr(F, "coeff_mode") and full_grad_available(F, x0)
-            and F.coeff_rows_data()[0].shape[0] % B == 0)
+            and _shape_ok(*F.coeff_rows_data()[0].shape, B))
 
 
 def _block_gate(F, x0, B: int, method: str) -> bool:
@@ -264,7 +295,7 @@ def _block_gate(F, x0, B: int, method: str) -> bool:
             and x0.dtype == torch.float32
             and A.dtype in (torch.float32, torch.bfloat16)
             and F.coeff_rows_scale() is None and b.dtype == torch.float32
-            and A.shape[1] <= MAX_COLS and A.shape[0] % B == 0)
+            and _shape_ok(*A.shape, B))
 
 
 def _smem_bytes(rows: int, n: int, itemsize: int) -> int:

@@ -16,8 +16,12 @@ name of JAX's ``ciao_tpu.parallel``. One process a rank: start the ranks
 (``torchrun``, ``torch.multiprocessing.spawn``), initialize the process
 group in each (NCCL for one process a GPU, gloo on the CPU or for several
 processes on one GPU), then ``make_mesh()`` and ``shard_finite_sum``, or
-``make_mesh_2d(D, M)`` and ``shard_finite_sum_2d``. The sharded
-checkpoint is queued in ROADMAP.md.
+``make_mesh_2d(D, M)`` and ``shard_finite_sum_2d``; ``mesh.process_group``
+starts a script's group (one rank of its own, or from the ``torchrun``
+environment). Where each field of a DP or TP state lives is stated once
+per state class in :mod:`placement`, which the sharded checkpoint
+(``checkpoint.save_async(..., mesh=)``, ``checkpoint.load_orbax``)
+reads.
 """
 
 from ciao_tpu_torch.parallel.deep import (

@@ -25,6 +25,7 @@ sums CUDA tensors too.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -126,6 +127,40 @@ def _mesh_device(device, rank: int) -> torch.device:
             "device='cpu' to run them on the CPU")
     local = int(os.environ.get("LOCAL_RANK", rank))
     return torch.device("cuda", local % torch.cuda.device_count())
+
+
+@contextlib.contextmanager
+def process_group(device):
+    """The default process group of a script's run on ``device``, the
+    counterpart of ``jax.distributed.initialize`` in JAX's examples. A
+    group that is already initialized is used as it is. Else, when
+    ``RANK`` and ``WORLD_SIZE`` are set (as ``torchrun`` sets them with
+    ``MASTER_ADDR``, ``MASTER_PORT`` and ``LOCAL_RANK``), the group is
+    initialized from the environment
+    (``init_method="env://"``); otherwise it is one rank of its own. The
+    backend is NCCL on the card, gloo on the CPU and where a host runs
+    more ranks (``LOCAL_WORLD_SIZE``) than it has cards (NCCL refuses two
+    ranks on one device). A group started here is destroyed when the
+    block exits."""
+    if dist.is_initialized():
+        yield
+        return
+    dev = torch.device(device)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                   os.environ.get("WORLD_SIZE", "1")))
+        nccl = dev.type == "cuda" and local <= torch.cuda.device_count()
+        if nccl:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if nccl else "gloo",
+                                init_method="env://")
+    else:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_mesh(n_data: Optional[int] = None, group=None,

@@ -273,3 +273,256 @@ def test_entry_points_import_no_jax(path):
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "ciao_tpu"), (
                 path, name)
+
+
+# ---------------------------------------------------------------------------
+# the examples that run data-parallel, on two gloo ranks
+# ---------------------------------------------------------------------------
+
+# tests/test_examples.py:28, :32, :36, and the multi-process template
+PARALLEL_EXAMPLES = ("robust_regression", "poisson_glm",
+                     "nonconvex_sparse_mcp", "multihost")
+
+
+@pytest.fixture(scope="module")
+def parallel_runs(tmp_path_factory):
+    """Each parallel example's ``main(device="cpu")`` at its defaults on
+    two gloo ranks (``tests/torch_parallel_worker.py``'s spawn): the
+    template's 30,000 lockstep steps in one group, the other three in
+    another beside it, and those three once more on one rank in a third.
+    Rank 0 prints and asserts. ``{(name, ranks): [each rank's result]}``."""
+    import threading
+
+    import torch_parallel_worker as tw
+
+    groups = ((PARALLEL_EXAMPLES[:3], 2), (PARALLEL_EXAMPLES[3:], 2),
+              (PARALLEL_EXAMPLES[:3], 1))
+    out = [None] * len(groups)
+
+    def run(i):
+        names, D = groups[i]
+        out[i] = tw.spawn({name: dict(fn="example", name=name)
+                           for name in names}, D,
+                          tmp_path_factory.mktemp(f"ex{i}"))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(groups))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+        assert not t.is_alive()
+    return {(name, D): [tw.result(out[i], name, r) for r in range(D)]
+            for i, (names, D) in enumerate(groups) for name in names}
+
+
+@pytest.mark.parametrize("name", PARALLEL_EXAMPLES)
+def test_parallel_example_on_two_ranks(parallel_runs, name):
+    """The example's asserts held on rank 0 of two gloo ranks (a failed
+    assert fails its case); its DP run took both ranks, and every rank
+    returned the same numbers (the DP solutions are replicated)."""
+    r0, r1 = parallel_runs[name, 2]
+    assert r0["D"] == 2
+    assert r0 == r1
+
+
+# What JAX's script prints, the port's ``main`` returns: each number's
+# pattern in JAX's output and the distance allowed between the two. The
+# scripts draw one problem (numpy, seed 0); JAX's runs in f64 on the
+# tests' eight-device mesh, the port's in f32 on one or two ranks. A
+# closed form or a count must agree to the printed digits; a solve to the
+# printed digits and the gap f32 leaves there; a DP run, whose sampling
+# streams differ with the package and the rank count, to 1e-3, 50 times
+# inside the scripts' own bars (5e-2 for the Poisson fit, 0.05 |x_L1 -
+# refit| ~ 1.4e-2 for MCP, 0.1 |x_LS - x_true| ~ 0.19 for Huber).
+_F = r"([0-9.]+)"
+JAX_LINES = {
+    "robust_regression": [
+        (("err_ls",), rf"least squares\s*: \|x - x_true\| = {_F}", (5e-5,)),
+        (("err", "iters"), rf"huber\+katyusha\s*: \|x - x_true\| = {_F}"
+         rf"\s+\({_F} outer", (1e-4, 0)),
+        (("err_dp",), rf"dp katyusha x\d+ : \|x - x_true\| = {_F}", (1e-4,)),
+    ],
+    "poisson_glm": [
+        (("nonzeros", "iters", "support", "corr"),
+         rf"katyusha\s*: {_F} nonzeros \({_F} outer steps\), support hit "
+         rf"{_F}/6, corr {_F}", (0, 0, 0, 1e-3)),
+        (("err_dp",), rf"dp katyusha x\d+ : \|x - x_single\| = {_F}",
+         (1e-3,)),
+    ],
+    "nonconvex_sparse_mcp": [
+        (("err_l1",), rf"L1 \(lasso\)\s*: support=\d+, \|x - refit\| = {_F}",
+         (1e-4,)),
+        (("err_mcp", "iters"), rf"MCP \+ SARAH : support=\d+, \|x - refit\| "
+         rf"= {_F}\s+\({_F} outer", (2e-5, 0)),
+        (("err_dp",), rf"dp sarah x\d+ : \|x - refit\| = {_F}", (1e-3,)),
+    ],
+}
+
+
+@pytest.fixture(scope="module")
+def jax_prints():
+    """Each of JAX's three parallel scripts run once, as
+    ``tests/test_examples.py`` runs them; what each printed."""
+    import contextlib
+    import io
+
+    out = {}
+    for name in JAX_LINES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _jax(name).main()
+        out[name] = buf.getvalue()
+    return out
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("name", list(JAX_LINES))
+def test_parallel_example_matches_jax(parallel_runs, jax_prints, name, D):
+    """Every number JAX's script prints against the one the port's
+    ``main`` returns on D gloo ranks, within JAX_LINES' distance."""
+    import re
+
+    port = parallel_runs[name, D][0]
+    assert port["D"] == D
+    for keys, pattern, tols in JAX_LINES[name]:
+        m = re.search(pattern, jax_prints[name])
+        assert m, (pattern, jax_prints[name])
+        for key, want, tol in zip(keys, m.groups(), tols):
+            assert abs(port[key] - float(want)) <= tol, (key, port[key],
+                                                         want)
+
+
+def test_robust_regression_baseline_matches_jax(parallel_runs, jax_prints):
+    """Both packages draw one problem: the closed-form least-squares
+    baseline of the port's run prints as the JAX script's does, and
+    Huber + Katyusha meets the script's bar in both."""
+    line = next(s for s in jax_prints["robust_regression"].splitlines()
+                if s.startswith("least squares"))
+    port = parallel_runs["robust_regression", 2][0]
+    assert line.split("=")[1].strip() == f"{port['err_ls']:.4f}"
+    assert port["err"] < 0.1 * port["err_ls"]
+
+
+@pytest.mark.parametrize("name", PARALLEL_EXAMPLES)
+def test_parallel_examples_refuse_the_cpu_unasked(name, monkeypatch):
+    """With no card and no device named, each parallel example's ``main``
+    raises RuntimeError before it starts a process group."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _port(name).main()
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("path", [f"examples_torch/{e}.py"
+                                  for e in PARALLEL_EXAMPLES] + [
+    "ciao_tpu_torch/parallel/placement.py",
+    "ciao_tpu_torch/monitor/__init__.py"])
+def test_parallel_examples_import_no_jax(path):
+    """The parallel examples, the placement tables and the monitor name
+    no ``jax`` and nothing of ``ciao_tpu`` in any import."""
+    test_entry_points_import_no_jax(path)
+
+
+# ---------------------------------------------------------------------------
+# the names JAX's modules export
+# ---------------------------------------------------------------------------
+
+# helpers of the pytree registry, the TPU and threefry, which torch has not
+LEFT_OUT = {"oracles": {"register_oracle", "static_field"},
+            "prox": {"register_prox"}, "runtime": {"on_tpu"},
+            "sampling": {"uniform_index"}}
+
+
+def _public(mod) -> set:
+    import types
+
+    names = getattr(mod, "__all__", None)
+    if names is None:
+        names = [k for k in dir(mod) if not k.startswith("_")]
+    return {k for k in names
+            if not isinstance(getattr(mod, k), types.ModuleType)
+            and getattr(getattr(mod, k), "__module__", None) not in (
+                "typing", "pathlib", "__future__")}
+
+
+def test_every_public_name_of_jax_has_its_counterpart():
+    """Each module of ``ciao_tpu`` against the port's module of its name:
+    the port lacks only the pytree, TPU and threefry helpers (listed as
+    deliberate deviations)."""
+    import importlib
+    import pkgutil
+
+    import ciao_tpu
+
+    for sub in [""] + [m.name for m in pkgutil.iter_modules(
+            ciao_tpu.__path__)]:
+        jm = importlib.import_module("ciao_tpu" + (f".{sub}" if sub else ""))
+        tm = importlib.import_module("ciao_tpu_torch"
+                                     + (f".{sub}" if sub else ""))
+        assert _public(jm) - _public(tm) == LEFT_OUT.get(sub, set()), sub
+
+
+def test_ops_modes_and_both_gate_forms(monkeypatch):
+    """``ciao_tpu_torch.ops`` exports JAX's five formula modes with JAX's
+    values and its two shape gates in JAX's ``(N, n, B, dtype)`` form,
+    ``dtype`` the iterate's as in JAX: open on a card for whole blocks,
+    n <= MAX_COLS and f32 iterates, closed otherwise and with no card,
+    and agreeing with the shape rules of the gates the solvers call. The
+    solvers' gates keep the port's ``(F, g, x0, B)`` form (a deliberate
+    deviation: they must see the oracle's mode, its rows' storage and
+    the prox)."""
+    import inspect
+
+    import ciao_tpu.ops as jops
+    from ciao_tpu_torch import ops, runtime
+    from ciao_tpu_torch.ops import (
+        MODE_HUBER, MODE_LOGISTIC, MODE_LSQ, MODE_POISSON, MODE_SQHINGE,
+        coeff_multistep_available, fused_block_available,
+    )
+    from ciao_tpu_torch.ops import fused_block as fb
+
+    assert (MODE_LSQ, MODE_LOGISTIC, MODE_HUBER, MODE_SQHINGE,
+            MODE_POISSON) == (jops.MODE_LSQ, jops.MODE_LOGISTIC,
+                              jops.MODE_HUBER, jops.MODE_SQHINGE,
+                              jops.MODE_POISSON)
+    for gate in (fused_block_available, coeff_multistep_available):
+        assert list(inspect.signature(gate).parameters) == [
+            "N", "n", "B", "dtype"]
+        assert not gate(4096, 1024, 512, torch.float32)  # no card here
+    monkeypatch.setattr(runtime, "on_cuda", lambda: True)
+    shapes = [(262_144, 1_024, 4_096), (4096, 1024, 500), (4096, 16_384, 512),
+              (4096, 16_385, 512), (4096, 1, 4096)]
+    for gate in (fused_block_available, coeff_multistep_available):
+        for N, n, B in shapes:
+            assert gate(N, n, B, torch.float32) == fb._shape_ok(N, n, B)
+            for dt in (torch.bfloat16, torch.float64, torch.int8):
+                assert not gate(N, n, B, dt)               # f32 iterates
+        assert gate(262_144, 1_024, 4_096, torch.float32)
+        assert not gate(4096, 1024, 500, torch.float32)      # N % B
+        assert not gate(4096, 16_385, 512, torch.float32)    # n > MAX_COLS
+    for name in ("svrg_multistep_available", "finito_multistep_available",
+                 "lfinito_sweep_available"):
+        assert list(inspect.signature(getattr(ops, name)).parameters) == [
+            "F", "g", "x0", "B"], name
+        assert list(inspect.signature(getattr(jops, name)).parameters) == [
+            "N", "n", "B", "dtype"], name
+
+
+def test_profiler_trace_writes_a_chrome_trace(tmp_path):
+    """``monitor.profiler_trace`` on the CPU: the file it writes when the
+    block exits parses as a Chrome trace and holds the op run inside the
+    block; the profile's averages name it too."""
+    import json
+
+    from ciao_tpu_torch.monitor import profiler_trace
+
+    with profiler_trace(tmp_path / "trace") as prof:
+        torch.cdist(torch.ones(8, 4), torch.zeros(8, 4))
+    files = list((tmp_path / "trace").glob("*.json"))
+    assert [str(f) for f in files] == [prof.trace_path]
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::cdist" for e in events)
+    assert any(e.key == "aten::cdist" for e in prof.key_averages())

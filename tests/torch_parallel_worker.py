@@ -833,6 +833,202 @@ def dryrun(mesh, spec):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the sharded checkpoint and the examples
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def sub_mesh(mesh, on):
+    """The mesh a checkpoint case saves or loads on: the whole default
+    group's (``on`` None), a 1-D mesh over the global ranks ``on`` (a
+    list), or a (data, model) mesh (``on`` a dict with ``"mesh2d"``).
+    Every rank makes the groups, once a process; a rank outside the mesh
+    gets None."""
+    if on is None:
+        return mesh
+    if isinstance(on, dict):
+        return mesh2d(on)
+    key = ("1d", tuple(on))
+    if key not in _MESHES:
+        group = dist.new_group(list(on))
+        _MESHES[key] = (parallel.make_mesh(group=group, device="cpu")
+                        if dist.get_rank() in on else None)
+    return _MESHES[key]
+
+
+def _place(m) -> dict:
+    if hasattr(m, "M"):
+        return _where(m)
+    return dict(d=m.rank, m=0, D=m.size, M=1)
+
+
+def _ckpt_stream(m, spec):
+    """The iterator of the case's facade on the mesh ``m``."""
+    solver = getattr(parallel, spec["cls"])(mesh=m, **spec.get("kw", {}))
+    kw = _call_args(m, dict(spec, shard=not hasattr(m, "M")))
+    return solver.iterator(_t(spec["x0"]), **kw)
+
+
+def ckpt(mesh, spec):
+    """Save a facade's state after ``steps`` steps on the mesh
+    ``spec["save_on"]`` (``save_async(..., mesh=)``, stepping on
+    ``overlap`` states while the write runs; or with ``"gather"``,
+    ``save(..., mesh=)``), then restore it with ``load_orbax`` into the
+    first state of the same facade on the mesh ``spec["load_on"]`` and
+    resume: the saved state, the straight run
+    ``more`` steps on from it, the restored state, the resumed one
+    ``more`` steps on, and with ``after`` the solution that many steps
+    after the restore; each rank's parts with its place."""
+    from ciao_tpu_torch import checkpoint
+
+    path = os.path.join(spec["dir"], spec["path"])
+    out = {}
+    m = sub_mesh(mesh, spec.get("save_on"))
+    if m is not None:
+        it = _ckpt_stream(m, spec)
+        stream = iter(it)
+        for _ in range(spec["steps"] + 1):
+            st = next(stream)
+        if spec.get("gather"):
+            checkpoint.save(path, st, mesh=m)
+        else:
+            mgr = checkpoint.save_async(path, st, mesh=m)
+            live = st
+            for _ in range(spec.get("overlap", 0)):
+                live = it._step_fn(live)
+            mgr.wait_until_finished()
+        straight = st
+        for _ in range(spec["more"]):
+            straight = it._step_fn(straight)
+        out.update(saved=fields(st), straight=fields(straight),
+                   save_at=_place(m))
+    dist.barrier()
+    m = sub_mesh(mesh, spec.get("load_on", spec.get("save_on")))
+    if m is not None:
+        it = _ckpt_stream(m, spec)
+        like = next(iter(it))
+        restored = checkpoint.load_orbax(path, like, mesh=m)
+        res = checkpoint.resume_iterator(it, restored)
+        first = next(res)
+        st = first
+        for _ in range(spec["more"]):
+            st = next(res)
+        out.update(restored=fields(first), resumed=fields(st),
+                   load_at=_place(m), like_it=like.it)
+        for _ in range(spec.get("after", 0)):
+            st = it._step_fn(st)
+        if spec.get("after"):
+            out["final"] = _np(st.solution)
+    dist.barrier()
+    return out
+
+
+def ckpt_errors(mesh, spec):
+    """The refusals of the sharded checkpoint on the whole group, each
+    case's message (None where nothing was raised): ``save`` and
+    ``save_async`` without a mesh; ``save_async`` with a placement table
+    that forgets DPSAGA's cut ``s`` (every rank must raise); a restore
+    onto a mesh the rows do not divide over; and a template of another
+    class."""
+    from ciao_tpu_torch import checkpoint
+    from ciao_tpu_torch.parallel import placement
+
+    stream = iter(_ckpt_stream(mesh, spec))
+    st = next(stream)
+    st = next(stream)
+    path = os.path.join(spec["dir"], spec["path"])
+    out = {}
+
+    def catch(key, fn):
+        try:
+            fn()
+        except ValueError as e:
+            out[key] = str(e)
+        else:
+            out[key] = None
+
+    catch("save", lambda: checkpoint.save(path + ".pt", st))
+    catch("save_async", lambda: checkpoint.save_async(path + ".pt", st))
+    cut = placement.DP_SPECS[type(st)]
+    placement.DP_SPECS[type(st)] = {}
+    try:
+        catch("forgotten", lambda: checkpoint.save_async(path, st,
+                                                         mesh=mesh))
+    finally:
+        placement.DP_SPECS[type(st)] = cut
+    checkpoint.save_async(path, st, mesh=mesh).wait_until_finished()
+    three = spec["three"] and sub_mesh(mesh, spec["three"])
+    if three:
+        like = st._replace(s=st.s[:spec["three_rows"]].clone())
+        catch("divide", lambda: checkpoint.load_orbax(path, like,
+                                                      mesh=three))
+        catch("class", lambda: checkpoint.load_orbax(
+            path, parallel.dp.DPFBState(st.gamma, st.gamma, st.z, st.z, 1,
+                                        0), mesh=three))
+    dist.barrier()
+    return out
+
+
+def example(mesh, spec):
+    """An example of ``examples_torch/``: its ``main`` on the rank's CPU,
+    in the spawned group (its asserts bite on rank 0)."""
+    import importlib.util
+
+    name = spec["name"]
+    mspec = importlib.util.spec_from_file_location(
+        f"port_ex_{name}", os.path.join(ROOT, "examples_torch",
+                                        f"{name}.py"))
+    mod = importlib.util.module_from_spec(mspec)
+    mspec.loader.exec_module(mod)
+    return mod.main(device="cpu")
+
+
+def multihost(mesh, spec):
+    """tests/multihost_worker.py's runs at its global sizes (its eight
+    devices' N = 128, n = 32, batch 8) on the group's D ranks: DPSAGA
+    lockstep (400 steps) and in local rounds (50 of 8 steps), TPSAGA on a
+    (D/2, 2) mesh (400 steps), all f64; then ``deep_solve_dp`` on the f32
+    well-conditioned plant, its chunk count pinned (``plateau_rtol=-1``).
+    The solutions, the lockstep gap and ``deep_solve_dp``'s rel."""
+    from ciao_tpu_torch.utils.problems import make_lasso
+
+    D, batch = mesh.size, 8
+    N, n = 16 * batch, 32
+    prob = make_lasso(N=N, n=n, p=4, seed=0)
+    whole = LeastSquaresRows(_t(prob.A), _t(prob.b), float(N))
+    F = parallel.shard_finite_sum(whole, mesh)
+    g = NormL1(_t(prob.lam))
+    x0 = torch.zeros(n, dtype=torch.float64)
+    out = {}
+    x, _ = parallel.DPSAGA(mesh=mesh, batch=batch, block_sampling=True,
+                           maxit=400)(x0, F=F, g=g, L=prob.L)
+    out["lockstep"] = _np(x)
+    x, _ = parallel.DPSAGA(mesh=mesh, batch=batch, block_sampling=True,
+                           local_steps=8, rebase_every=16, maxit=50)(
+        x0, F=F, g=g, L=prob.L)
+    out["local"] = _np(x)
+    mesh2 = parallel.make_mesh_2d(D // 2, 2, device=mesh.device)
+    x, _ = parallel.TPSAGA(mesh=mesh2, batch=batch, maxit=400)(
+        x0, F=whole, g=g, L=prob.L)
+    out["tp"] = _np(x)
+    wc = make_lasso(N=N, n=n, p=4, seed=0, dtype=np.float32,
+                    well_conditioned=True)
+    F32 = parallel.shard_finite_sum(
+        LeastSquaresRows(_t(wc.A), _t(wc.b), float(N)), mesh)
+    x, _ = parallel.deep_solve_dp(
+        torch.zeros(n), F32, NormL1(float(wc.lam)), L=wc.L, N=N, mesh=mesh,
+        batch=batch, local_steps=8, chunk_rounds=32, max_rounds=256,
+        plateau_rtol=-1.0, polish_steps=8, polish_chunk=4)
+    out["deep"] = _np(x)
+    out["gap"] = float(prob.cost(out["lockstep"]) - prob.f_star)
+    out["x0_gap"] = float(prob.cost(np.zeros(n)) - prob.f_star)
+    out["rel_deep"] = float((wc.cost(out["deep"].astype(np.float64))
+                             - wc.f_star) / abs(wc.f_star))
+    return out
+
+
 RUNNERS = dict(build=build, facade=facade, errors=errors, layout=layout,
                rebase_resume=rebase_resume, deep=deep, power=power,
                mesh_info=mesh_info, schedules=schedules,
@@ -844,7 +1040,8 @@ RUNNERS = dict(build=build, facade=facade, errors=errors, layout=layout,
                tp_vs_single=tp_vs_single, tp_proshi_vs_dp=tp_proshi_vs_dp,
                tp_run_vs_step=tp_run_vs_step, tp_vs_single_vr=tp_vs_single_vr,
                tp_panoc_trials=tp_panoc_trials, tp_deep_pd=tp_deep_pd,
-               dryrun=dryrun)
+               dryrun=dryrun, ckpt=ckpt, ckpt_errors=ckpt_errors,
+               example=example, multihost=multihost)
 
 
 # ---------------------------------------------------------------------------
